@@ -9,6 +9,7 @@ from tpu_knn.engine import registry as jx_registry
 from tpu_knn.kernels import dense as jx_dense
 from tpu_knn.kernels import fused as jx_fused
 from tpu_knn.kernels import smallm as jx_smallm
+from tpu_knn.kernels import topk as jx_topk
 from tpu_knn.kernels import tuning as jx_tuning
 from tpu_knn.kernels import twolevel as jx_twolevel
 from tpu_knn_torch.engine import index as pt_index
@@ -16,6 +17,7 @@ from tpu_knn_torch.engine import registry as pt_registry
 from tpu_knn_torch.kernels import dense as pt_dense
 from tpu_knn_torch.kernels import fused as pt_fused
 from tpu_knn_torch.kernels import smallm as pt_smallm
+from tpu_knn_torch.kernels import topk as pt_topk
 from tpu_knn_torch.kernels import tuning as pt_tuning
 from tpu_knn_torch.kernels import twolevel as pt_twolevel
 
@@ -78,6 +80,35 @@ def test_m_bucket():
     want = [jx_index.NNIndex._m_bucket(m) for m in range(1, 5000)]
     assert got == want
     assert pt_index.NNIndex.bucket_m == jx_index.NNIndex.bucket_m
+
+
+@pytest.mark.parametrize("kk", [1, 2, 7, 8, 16, 31, 32, 33, 64, 65, 128, 129, 256,
+                                511, 512, 513, 1000])
+def test_topk_auto_method(kk):
+    for m in MS + [16, 17, 31, 32, 33, 64, 256, 257, 2048]:
+        assert pt_topk._auto_method(m, kk) == jx_topk._auto_method(m, kk), m
+
+
+def test_topk_constants():
+    for name in ("MAX_NEIGHBORS", "PASSES_MAX_NEIGHBORS", "SWEEP_MAX_NEIGHBORS",
+                 "SWEEP_AUTO_BUDGET", "SEEDED_MAX_NEIGHBORS"):
+        assert getattr(pt_topk, name) == getattr(jx_topk, name), name
+
+
+def test_topk_launch_geometry():
+    """B5's list length covers K and its state stays at 64 registers; B5
+    and B6 partition counts never exceed the 128-column groups of n."""
+    for kk in range(1, pt_topk.SWEEP_MAX_NEIGHBORS + 1):
+        kb = pt_topk.sweep_bucket(kk)
+        assert kk <= kb and pt_topk.sweep_tile_m(kk) * kb == pt_topk.SWEEP_STATE
+        for n in NS:
+            groups = -(-n // 128)
+            for m in (1, 2, 3, 4):
+                assert 1 <= pt_topk.smallm_topk_parts(m, kk, n) <= groups
+            for m in (5, 8, 64, 256):
+                assert 1 <= pt_topk.sweep_parts(m, kk, n) <= groups
+    with pytest.raises(ValueError, match="sweep"):
+        pt_topk.sweep_bucket(33)
 
 
 def test_cuda_launch_geometry_covers_n():

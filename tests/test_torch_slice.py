@@ -139,8 +139,10 @@ def test_from_state_rejects_a_foreign_operand(jax_index):
 def test_index_surface_not_ported_yet_raises():
     r = np.random.default_rng(2).random((500, 4), np.float32)
     ix = tpu_knn_torch.NNIndex(r, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ix.query(r[:2], neighbors=3)
+    # Top-K is served; its batch-regime engine (m*K > 256) is not yet.
+    assert ix.query(r[:2], neighbors=3)[0].shape == (2, 3)
+    with pytest.raises(NotImplementedError, match="A.5.4"):
+        ix.query(r[:20], neighbors=20)
     with pytest.raises(NotImplementedError, match="A.6"):
         ix.save("unused.npz")
     for kwargs, item in (({"strategy": "kdtree"}, "A.8"),
@@ -153,8 +155,8 @@ def test_index_surface_not_ported_yet_raises():
             tpu_knn_torch.NNIndex(r, device="cpu", **kwargs)
     with pytest.raises(ValueError):
         tpu_knn_torch.NNIndex(r, strategy="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tpu_knn_torch.nearest_neighbors(r[:2], r, neighbors=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.5.4"):
+        tpu_knn_torch.nearest_neighbors(r[:20], r, neighbors=20, device="cpu")
 
 
 def test_device_rule():
@@ -210,6 +212,9 @@ def test_port_never_imports_jax():
         "assert (i == np.arange(3)).all()\n"
         "ix = tpu_knn_torch.NNIndex(r, device='cpu')\n"
         "assert (ix.query(r[:2])[0].numpy() == [0, 1]).all()\n"
+        "assert (ix.query(r[:2], neighbors=3)[0].numpy()[:, 0] == [0, 1]).all()\n"
+        "i, _ = tpu_knn_torch.topk_knn(r[:9], r, 4, method='passes', device='cpu')\n"
+        "assert (i.numpy()[:, 0] == np.arange(9)).all()\n"
         "print(sorted({'jax', 'tpu_knn'} & set(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

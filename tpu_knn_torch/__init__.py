@@ -8,10 +8,13 @@ torch and never jax; tpu_knn stays the reference it is tested against.
     >>> idx = tpu_knn_torch.nearest_neighbors(queries, refs)   # default v7
     >>> index = tpu_knn_torch.NNIndex(refs, strategy="fused")
     >>> idx, d2 = index.query(queries)
+    >>> idx, d2 = index.query(queries, neighbors=16)           # exact top-K
+    >>> idx, d2 = tpu_knn_torch.topk_knn(queries, refs, 16)
 
 NumPy inputs go to ``device=`` (default "cuda"); torch tensors run where
-they are. The hand-written kernels (B1, B2 in csrc/knn_kernels.cu) run on
-an sm_90 card; on the CPU their plain torch versions run instead.
+they are. The hand-written kernels (B1, B2, B4, B5, B6 in
+csrc/knn_kernels.cu) run on an sm_90 card; on the CPU their plain torch
+versions run instead.
 """
 
 from tpu_knn_torch.api import knn_callback, nearest_neighbors
@@ -20,6 +23,10 @@ from tpu_knn_torch.engine.registry import get_version, list_versions, register_v
 #: Lazily-imported public symbols (PEP 562), as in tpu_knn.
 _LAZY = {
     "NNIndex": ("tpu_knn_torch.engine.index", "NNIndex"),
+    "topk_knn": ("tpu_knn_torch.kernels.topk", "topk_knn"),
+    "within_radius": ("tpu_knn_torch.kernels.topk", "within_radius"),
+    "within_radius_complete": ("tpu_knn_torch.kernels.topk",
+                               "within_radius_complete"),
 }
 
 
@@ -38,6 +45,9 @@ __all__ = [
     "nearest_neighbors",
     "knn_callback",
     "NNIndex",
+    "topk_knn",
+    "within_radius",
+    "within_radius_complete",
     "get_version",
     "list_versions",
     "register_version",

@@ -31,13 +31,33 @@ def knn_callback(k: int, m: int, n: int, search, ref, version: str | None = None
 
 def nearest_neighbors(search, ref, version: str | None = None,
                       neighbors: int | None = None, device="cuda") -> np.ndarray:
-    """Array-first wrapper: search (m,k), ref (n,k) -> (m,) int32 indices."""
-    if neighbors is not None:
-        raise NotImplementedError(
-            "neighbors= (exact top-K) is not ported yet: ROADMAP item A.5")
+    """Array-first wrapper: search (m,k), ref (n,k) -> (m,) int32 indices.
+
+    neighbors=K returns (m, K) indices — including K=1 — each row
+    ascending by exact (squared distance, index): v0's tie rule extended
+    to K results (kernels/topk.py). `version` selects among the 1-NN
+    engines and is incompatible with it."""
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n, k2 = ref.shape
     if k != k2:
         raise ValueError(f"dimension mismatch: search k={k}, ref k={k2}")
+    if neighbors is not None:
+        if version is not None:
+            raise ValueError(
+                "neighbors>1 uses the banded top-K pipeline; it cannot be "
+                "combined with an explicit 1-NN version")
+        from tpu_knn_torch.kernels.topk import PASSES_MAX_NEIGHBORS, topk_knn
+
+        # Validate before the empty-batch early return, so the contract is
+        # the same at every m.
+        if not (1 <= neighbors <= min(n, PASSES_MAX_NEIGHBORS)):
+            raise ValueError(
+                f"neighbors must be in [1, min(n, "
+                f"{PASSES_MAX_NEIGHBORS})] = "
+                f"[1, {min(n, PASSES_MAX_NEIGHBORS)}], got {neighbors}")
+        if m == 0:
+            return np.empty((0, neighbors), np.int32)
+        idx, _d2 = topk_knn(search, ref, neighbors)
+        return idx.cpu().numpy().astype(np.int32)
     return knn_callback(k, m, n, search, ref, version=version, device=device)

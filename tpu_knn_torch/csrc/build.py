@@ -99,6 +99,15 @@ def load() -> ctypes.CDLL:
     lib.tk_smallm_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64,
                                          i32, i32, ptr]
     lib.tk_smallm_candidates.restype = i32
+    lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                         i64, i32, i32, i32, ptr]
+    lib.tk_banded_candidates.restype = i32
+    lib.tk_sweep_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32,
+                                        i32, i32, ptr]
+    lib.tk_sweep_candidates.restype = i32
+    lib.tk_smallm_topk_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                              i64, i32, i32, i32, ptr]
+    lib.tk_smallm_topk_candidates.restype = i32
     lib.tk_error_string.argtypes = [i32]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib

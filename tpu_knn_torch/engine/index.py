@@ -9,10 +9,12 @@ the exact rerank gathers rows from and the (k_pad, n_pad) SoA operand the
 candidate kernels stream (tpu_knn's layout, so an index's state carries
 across verbatim: `from_state`). Queries route per batch as in tpu_knn:
 m <= 4 to the small-m kernel B2 (or the AoS scan), small n to the dense
-path, everything else to B1 + the exact refinement.
+path, everything else to B1 + the exact refinement. Exact top-K
+(`query(neighbors=)`) and `query_radius` run the engines of
+kernels/topk.py over the same operands.
 
-Every other strategy, store, metric, mutable indexes, top-K and
-save/load raise NotImplementedError naming their ROADMAP item.
+Every other strategy, store, metric, mutable indexes and save/load
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -176,18 +178,26 @@ class NNIndex:
             return 1 << max(0, m - 1).bit_length()
         return max(8, 1 << (m - 1).bit_length())
 
-    def query(self, search, neighbors: int | None = None):
-        """search (m, k) -> (idx (m,) int32, d2 (m,) f32) tensors on the
-        index's device. NumPy queries are placed there; a tensor must
-        already be there."""
-        if neighbors is not None:
-            raise _not_ported("query(neighbors=) (exact top-K)", "A.5")
+    def _as_queries(self, search) -> torch.Tensor:
         search = as_f32(search, self.device)
         if search.device != self.device:
             raise ValueError(f"queries on {search.device}, index on {self.device}")
         if search.dim() != 2 or search.shape[1] != self.k:
             raise ValueError(f"queries must be (m, {self.k}), got "
                              f"{tuple(search.shape)}")
+        return search
+
+    def query(self, search, neighbors: int | None = None):
+        """search (m, k) -> (idx (m,) int32, d2 (m,) f32) tensors on the
+        index's device. NumPy queries are placed there; a tensor must
+        already be there.
+
+        neighbors=K (exact top-K) returns (idx (m, K), d2 (m, K)) —
+        including K=1 — each row ascending by exact (d2, index)
+        (kernels/topk.py)."""
+        search = self._as_queries(search)
+        if neighbors is not None:
+            return self._query_topk(search, neighbors)
         m = search.shape[0]
         mb = self._m_bucket(m) if self.bucket_m else m
         if mb != m:
@@ -230,10 +240,58 @@ class NNIndex:
         run = _build_prepared_query(m, n, self.k, self.precision)
         return run(search, self.r_ops, self.ref_dev)
 
-    # ---- serving surface not ported yet ----------------------------
+    # ---- top-K and radius queries ------------------------------------
 
     def query_radius(self, search, radius: float, max_results: int | None = None):
-        raise _not_ported("query_radius", "A.5")
+        """Exact fixed-radius neighbors (static output shape — see
+        kernels/topk.py:within_radius). Returns (idx (m, cap), d2 (m, cap),
+        count (m,)): rows ascending by exact (d2, index), padded -1/+inf.
+
+        max_results=<int>: single shot with that cap (count < max_results
+        certifies completeness; a cap beyond n is clamped and the output
+        padded back). max_results=None: escalate the cap (doubling) until
+        no row truncates, returning each query's true in-radius set;
+        raises past the engine ceiling (PASSES_MAX_NEIGHBORS)."""
+        from tpu_knn_torch.kernels.topk import _radius_query
+
+        search = self._as_queries(search)
+        return _radius_query(lambda eff: self._query_topk(search, eff),
+                             self.n, radius, max_results)
+
+    def _query_topk(self, search, neighbors: int):
+        from tpu_knn_torch.kernels.topk import (
+            MAX_NEIGHBORS, _build_aos_topk, _build_topk,
+        )
+
+        search, m, mb = self._topk_prep_batch(search, neighbors)
+        if mb == 1 and neighbors <= MAX_NEIGHBORS:
+            # m=1 top-K: the zero-prep AoS cell engine over the resident
+            # ref (tpu_knn's measured choice); m >= 2 keeps the prepared
+            # one-scan engines.
+            idx, d2 = _build_aos_topk(mb, self.n, self.k, neighbors)(
+                search, self.ref_dev)
+            return idx[:m], d2[:m]
+        run = _build_topk(mb, self.n, self.k, neighbors)
+        idx, d2 = run(search, self.r_ops, self.ref_dev)
+        return idx[:m], d2[:m]
+
+    def _topk_prep_batch(self, search, neighbors: int):
+        """Shared top-K entry: validate the K cap and bucket+edge-pad m.
+        Returns (search (mb, k) f32, m, mb)."""
+        from tpu_knn_torch.kernels.topk import PASSES_MAX_NEIGHBORS
+
+        cap = min(self.n, PASSES_MAX_NEIGHBORS)
+        if not (1 <= neighbors <= cap):
+            raise ValueError(
+                f"neighbors must be in [1, min(n_live, "
+                f"{PASSES_MAX_NEIGHBORS})] = [1, {cap}], got {neighbors}")
+        m = search.shape[0]
+        mb = self._m_bucket(m) if self.bucket_m else m
+        if mb != m:
+            search = torch.cat([search, search[-1:].expand(mb - m, self.k)])
+        return search, m, mb
+
+    # ---- serving surface not ported yet ----------------------------
 
     def filtered_view(self, keep):
         raise _not_ported("filtered_view", "A.6")

@@ -7,7 +7,9 @@ score s = ‖r‖² − 2·q·r of every reference column into per-lane running
 memory, and emits (m, P·128) candidates. The exact selection (`_refine`:
 top-T pre-selection under a certified score-magnitude cutoff, then an
 exact diff-form rerank with the lowest-index tie rule) is plain torch, as
-it was plain XLA in tpu_knn.
+it was plain XLA in tpu_knn. B4 (`banded_candidates`, replacing
+`_fused_banded_kernel`) is B1 with a per-row lexicographic bound, one
+pass of the top-K passes engine (kernels/topk.py).
 
 Precision: the kernel computes in plain f32 FMA on the CUDA cores — the
 "highest" tier. The bf16-split tiers (packed, bf16x3, bf16x4, qsplit2)
@@ -191,13 +193,25 @@ def _lane_fold(s: torch.Tensor, parts: int):
     return idx.reshape(m, parts * LANE), v.reshape(m, parts * LANE)
 
 
-def fused_candidates_plain(q, r_op, n: int, parts: int):
-    """B1's plain torch version: s = ‖r‖² − 2·(q @ r) in f32 over the
-    first n columns, then the per-lane fold (_lane_fold)."""
+def norm_scores(q, r_op, n: int):
+    """The plain versions' f32 score s = ‖r‖² − 2·(q @ r) over the first n
+    columns (m, n). B1, B4 and B5's plain versions share it, as the three
+    kernels share one score function, so the top-K engines' plain runs
+    compare scores bit for bit as the kernels do."""
     k = q.shape[1]
     r = r_op[:k, :n]
-    s = (r * r).sum(dim=0) - 2.0 * (q @ r)
-    return _lane_fold(s, parts)
+    return (r * r).sum(dim=0) - 2.0 * (q @ r)
+
+
+def fused_candidates_plain(q, r_op, n: int, parts: int):
+    """B1's plain torch version: norm_scores, then the per-lane fold
+    (_lane_fold)."""
+    return _lane_fold(norm_scores(q, r_op, n), parts)
+
+
+def _candidate_outputs(m: int, width: int, device):
+    return (torch.empty((m, width), dtype=torch.int32, device=device),
+            torch.empty((m, width), dtype=torch.float32, device=device))
 
 
 def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
@@ -212,8 +226,7 @@ def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
 
     lib = load()
     m, k = q.shape
-    idx = torch.empty((m, parts * LANE), dtype=torch.int32, device=q.device)
-    score = torch.empty((m, parts * LANE), dtype=torch.float32, device=q.device)
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_fused_candidates(
             q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
@@ -226,6 +239,58 @@ def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
 
 #: Kernel launches of B1 (CUDA tensors only; the plain version is not counted).
 fused_candidates.launches = 0
+
+
+def _check_bound(bound, m: int, dtype, device, what: str) -> None:
+    if (bound.dtype != dtype or bound.shape != (m,) or not bound.is_contiguous()
+            or bound.device != device):
+        raise ValueError(f"{what} must be a contiguous ({m},) {dtype} tensor "
+                         f"on {device}, got {tuple(bound.shape)} {bound.dtype} "
+                         f"on {bound.device}")
+
+
+def banded_candidates_plain(q, r_op, n: int, parts: int, bound_s, bound_i):
+    """B4's plain torch version: norm_scores with every element whose
+    (score, column) is lexicographically <= the row's bound (bound_s[i],
+    bound_i[i]) masked to +inf, then the per-lane fold."""
+    s = norm_scores(q, r_op, n)
+    col = torch.arange(n, dtype=torch.int32, device=s.device)
+    bs, bi = bound_s[:, None], bound_i[:, None]
+    eligible = (s > bs) | ((s == bs) & (col > bi))
+    return _lane_fold(torch.where(eligible, s, torch.inf), parts)
+
+
+def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
+                      bound_s: torch.Tensor, bound_i: torch.Tensor):
+    """B1's candidate contract restricted to the elements that lie
+    lexicographically above each row's bound: (score, col) folds only if
+    score > bound_s[i], or score == bound_s[i] and col > bound_i[i].
+    bound_s (m,) f32 and bound_i (m,) int32. One call is one pass of the
+    top-K passes engine (kernels/topk.py); the scores are bit-identical
+    to B1's on the card. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    _check_candidate_operands(q, r_op, n, parts)
+    m, k = q.shape
+    _check_bound(bound_s, m, torch.float32, q.device, "bound_s")
+    _check_bound(bound_i, m, torch.int32, q.device, "bound_i")
+    if q.device.type == "cpu":
+        return banded_candidates_plain(q, r_op, n, parts, bound_s, bound_i)
+    from tpu_knn_torch.csrc.build import check, load
+
+    lib = load()
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_banded_candidates(
+            q.data_ptr(), r_op.data_ptr(), bound_s.data_ptr(), bound_i.data_ptr(),
+            idx.data_ptr(), score.data_ptr(), m, k, r_op.stride(0), n, parts,
+            cuda_tile_m(m, k), torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B4 banded_candidates")
+    banded_candidates.launches += 1
+    return idx, score
+
+
+#: Kernel launches of B4 (CUDA tensors only; the plain version is not counted).
+banded_candidates.launches = 0
 
 
 def default_parts(m: int, k: int, n: int) -> int:

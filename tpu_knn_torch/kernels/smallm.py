@@ -67,14 +67,25 @@ def default_parts(n: int) -> int:
     return pick_parts(1, n, B2_BLOCKS_PER_SM)
 
 
-def smallm_candidates_plain(q, r_op, n: int, parts: int):
-    """B2's plain torch version: exact diff-form scores Σ_d (r[d,col] −
-    q[d])² over the first n columns, one query row at a time, then the
-    per-lane fold (fused._lane_fold)."""
+def diff_scores(q, r_op, n: int):
+    """The plain versions' exact diff-form scores Σ_d (r[d,col] − q[d])²
+    over the first n columns (m, n), one query row at a time. B2 and B6's
+    plain versions share it, as the two kernels share one score function."""
     m, k = q.shape
     r = r_op[:k, :n]
-    s = torch.stack([((r - q[i, :, None]) ** 2).sum(dim=0) for i in range(m)])
-    return _lane_fold(s, parts)
+    return torch.stack([((r - q[i, :, None]) ** 2).sum(dim=0) for i in range(m)])
+
+
+def smallm_candidates_plain(q, r_op, n: int, parts: int):
+    """B2's plain torch version: diff_scores, then the per-lane fold
+    (fused._lane_fold)."""
+    return _lane_fold(diff_scores(q, r_op, n), parts)
+
+
+def check_smallm_shape(m: int, k: int) -> None:
+    if not (1 <= m <= SMALLM_MAX_M and 1 <= k <= SMALLM_MAX_K):
+        raise ValueError(f"smallm kernel serves 1 <= m <= {SMALLM_MAX_M} and "
+                         f"1 <= k <= {SMALLM_MAX_K}, got m={m}, k={k}")
 
 
 def smallm_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
@@ -84,9 +95,7 @@ def smallm_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts)
     m, k = q.shape
-    if not (1 <= m <= SMALLM_MAX_M and 1 <= k <= SMALLM_MAX_K):
-        raise ValueError(f"smallm kernel serves 1 <= m <= {SMALLM_MAX_M} and "
-                         f"1 <= k <= {SMALLM_MAX_K}, got m={m}, k={k}")
+    check_smallm_shape(m, k)
     if q.device.type == "cpu":
         return smallm_candidates_plain(q, r_op, n, parts)
     from tpu_knn_torch.csrc.build import check, load

@@ -1,0 +1,562 @@
+"""Exact top-K nearest neighbors (counterpart of tpu_knn/kernels/topk.py).
+
+Rows come back ascending by exact (squared distance, index): v0's tie rule
+(core.cu:50-54) extended to K results. The port has three of tpu_knn's
+engines:
+
+- "sweep" (auto in the serving regime, m*K <= SWEEP_AUTO_BUDGET and
+  K <= SWEEP_MAX_NEIGHBORS): per-lane sorted K-deep (score, index) lists
+  from one reference read, then `_finalize_topk`. For m > 4 (or k > 32)
+  that read is B5 (`sweep_candidates`, replacing `_sweep_kernel`). For
+  m <= 4 and k <= 32 it is the bound-seeded two-pass form: B2 (kernels/
+  smallm.py) gives per-lane minima, the K-th smallest of them bounds the
+  row's K-th score, and B6 (`smallm_topk_candidates`, replacing
+  `_smallm_topk_kernel`) keeps only elements at or under that bound.
+- "passes": K lexicographically banded 1-NN sweeps, each one launch of B4
+  (kernels/fused.py `banded_candidates`) and a `_lex_min`, with no host
+  sync between them. B4 and B5 score with one shared function on the
+  card, so the two engines agree exactly.
+- "aos": the zero-prep per-call engine for m <= 4 over the caller's (n, k)
+  array, torch ops (plain XLA in tpu_knn).
+
+The batch-regime "seeded" engine (auto at m*K > 256 or K > 32) is not
+ported yet: it raises NotImplementedError naming ROADMAP item A.5.4.
+The kernels compute the f32 "highest" tier.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from tpu_knn_torch.kernels.fused import (
+    _I32_MAX, _candidate_outputs, _check_bound, _check_candidate_operands,
+    banded_candidates, norm_scores, prep_soa,
+)
+from tpu_knn_torch.kernels.fused import default_parts as fused_parts
+from tpu_knn_torch.kernels.smallm import (
+    SMALLM_MAX_K, SMALLM_MAX_M, check_smallm_shape, diff_scores,
+    smallm_applicable, smallm_candidates,
+)
+from tpu_knn_torch.kernels.smallm import default_parts as smallm_parts
+from tpu_knn_torch.kernels.tuning import LANE, MAX_QUERY_SMEM, pick_parts
+from tpu_knn_torch.utils.platform import as_f32_pair
+from tpu_knn_torch.utils.shapes import cdiv, round_up
+
+# ---- constants and policy (tpu_knn's, verbatim) -----------------------
+
+#: Largest K served by the default ("auto"/"sweep"-eligible) contract.
+MAX_NEIGHBORS = 128
+
+#: Absolute ceiling, served by the K-pass banded engine only.
+PASSES_MAX_NEIGHBORS = 512
+
+#: Largest K the single-sweep engine serves.
+SWEEP_MAX_NEIGHBORS = 32
+
+#: Largest K the seeded engine serves (not ported yet: ROADMAP A.5.4).
+SEEDED_MAX_NEIGHBORS = PASSES_MAX_NEIGHBORS
+
+#: Auto-routing boundary between the sweep and the seeded engine (m*K).
+SWEEP_AUTO_BUDGET = 256
+
+
+def _auto_method(m: int, kk: int) -> str:
+    if kk <= SWEEP_MAX_NEIGHBORS and m * kk <= SWEEP_AUTO_BUDGET:
+        return "sweep"
+    if kk <= SEEDED_MAX_NEIGHBORS:
+        return "seeded"
+    return "passes"
+
+
+def _seeded_not_ported():
+    return NotImplementedError(
+        "method='seeded' (the batch-regime extraction engine, auto at "
+        f"m*K > {SWEEP_AUTO_BUDGET} or K > {SWEEP_MAX_NEIGHBORS}) is not "
+        "ported to tpu_knn_torch yet: ROADMAP item A.5.4; method='passes' "
+        "serves any K")
+
+
+# ---- launch geometry of B5 and B6 --------------------------------------
+
+#: B5 keeps a list of one of these lengths per (row, lane) in registers:
+#: the smallest bucket at or above K. The union of the lists still holds
+#: the top-K.
+SWEEP_BUCKETS = (4, 8, 16, 32)
+
+#: B5 rows per block x list length: the per-thread state stays at 64
+#: registers (32 scores + 32 indices).
+SWEEP_STATE = 32
+
+#: B5 launches get at least this many blocks per SM. A wider launch
+#: widens the candidate set the selection reads; 4 measured best for the
+#: kernel and the selection together at (16, 8, 2^20) K=32 and
+#: (16, 32, 2^20) K=8 on one H100 (probes/topk_profile.py; PERF.md).
+B5_BLOCKS_PER_SM = 4
+
+#: Shared memory an SM gives B6's per-lane lists, and its block cap
+#: (at (16, 4, 2^24) K=16 this gives P = 396, the sweep's best).
+B6_SMEM_PER_SM = 200 * 1024
+B6_MAX_BLOCKS_PER_SM = 4
+
+
+def sweep_bucket(kk: int) -> int:
+    for b in SWEEP_BUCKETS:
+        if kk <= b:
+            return b
+    raise ValueError(f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}], got {kk}")
+
+
+def sweep_tile_m(kk: int) -> int:
+    """Query rows per B5 block."""
+    return SWEEP_STATE // sweep_bucket(kk)
+
+
+def sweep_parts(m: int, kk: int, n: int) -> int:
+    """B5 partition count: B5_BLOCKS_PER_SM blocks per SM."""
+    return pick_parts(cdiv(m, sweep_tile_m(kk)), n, B5_BLOCKS_PER_SM)
+
+
+def smallm_topk_parts(m: int, kk: int, n: int) -> int:
+    """B6 partition count: as many blocks as the SMs' shared memory holds
+    at once (B6 is bound by device reads, as B2 is)."""
+    smem = m * kk * LANE * 8
+    per_sm = max(1, min(B6_MAX_BLOCKS_PER_SM, B6_SMEM_PER_SM // smem))
+    return pick_parts(1, n, per_sm)
+
+
+# ---- lexicographic order ------------------------------------------------
+#
+# torch has no multi-key sort (jax.lax.sort(num_keys=2)); one int64 key per
+# element carries the order: the f32 bits mapped to a signed integer that
+# is monotone in the value (NaN last, as in lax.sort), shifted above the
+# index. The keys of two entries are equal only if both score and index are.
+
+
+def _f32_order(x: torch.Tensor) -> torch.Tensor:
+    b = x.contiguous().view(torch.int32)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    b = torch.where(torch.isnan(x), 0x7FC00000, b)
+    return b.to(torch.int64)
+
+
+def _lex_key(score: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 keys ordered as (score, idx) lexicographically."""
+    return (_f32_order(score) << 32) | (idx.to(torch.int64) + 2**31)
+
+
+def _lex_sort(score, idx):
+    """Sort each row (last dim) by (score, idx). Returns (score, idx)."""
+    order = torch.sort(_lex_key(score, idx), dim=-1).indices
+    return score.gather(-1, order), idx.gather(-1, order)
+
+
+def _lex_smallest(score, idx, kk: int):
+    """The kk lexicographically smallest (score, idx) entries of each row,
+    in order (a selection over unique keys, so no tie is left to chance).
+    Returns (score, idx)."""
+    pos = torch.topk(_lex_key(score, idx), kk, dim=-1, largest=False).indices
+    return score.gather(-1, pos), idx.gather(-1, pos)
+
+
+def _lex_min(idx, score):
+    """Per-row lexicographic (score, index) minimum of the candidate set.
+    Exact duplicates carry bit-identical scores, so the lowest index among
+    tied minima is returned (v0's tie rule at the candidate level)."""
+    v = score.min(dim=-1, keepdim=True).values
+    tie = torch.where(score == v, idx, _I32_MAX)
+    return tie.min(dim=-1).values, v.squeeze(-1)
+
+
+def _gather_d2(search, ref_aos, sel, n: int):
+    """Exact f32 diff-form d2 of the selected rows (+inf where sel >= n)
+    and their indices (-1 there)."""
+    valid = sel < n
+    safe = torch.where(valid, sel, 0).long()
+    pts = ref_aos[safe.reshape(-1)].reshape(*sel.shape, ref_aos.shape[1])
+    diff = search.reshape(search.shape[0], *([1] * (sel.dim() - 1)),
+                          search.shape[1]) - pts
+    d2 = torch.where(valid, (diff * diff).sum(dim=-1), torch.inf)
+    return torch.where(valid, sel, -1), d2
+
+
+def _finalize_topk(search, ref_aos, ci, cs, kk: int, n: int):
+    """Candidate lists -> exact top-K rows.
+
+    Selection: the kk lex-smallest (kernel score, index) per query (the
+    union of per-lane K-lists always contains the global lex top-K: any
+    lane holds at most K of them). Reporting: exact f32 diff-form
+    distances for the selected rows, sorted by (d2, index)."""
+    _, sel = _lex_smallest(cs, ci, kk)
+    idx, d2 = _gather_d2(search, ref_aos, sel, n)
+    d2, idx = _lex_sort(d2, idx)
+    return idx, d2
+
+
+# ---- B5 and B6 wrappers --------------------------------------------------
+
+
+def _lane_lists(s: torch.Tensor, parts: int, kb: int):
+    """Plain per-lane K-lists of an (m, n) score matrix: for partition p
+    and lane l (the columns of _lane_fold's contract), the kb
+    lexicographically smallest (score, column) pairs below +inf, sorted;
+    empty slots are (+inf, I32_MAX). Output slot (p*kb + j)*128 + l."""
+    m, n = s.shape
+    gpp = cdiv(cdiv(n, LANE), parts)
+    width = parts * gpp * LANE
+    s = torch.where(s < torch.inf, s, torch.inf)           # NaN -> +inf
+    s = torch.nn.functional.pad(s, (0, width - n), value=torch.inf)
+    s = s.view(m, parts, gpp, LANE)
+    col = torch.arange(width, dtype=torch.int32, device=s.device)
+    col = col.view(1, parts, gpp, LANE).expand(m, parts, gpp, LANE)
+    if gpp < kb:
+        s = torch.nn.functional.pad(s, (0, 0, 0, kb - gpp), value=torch.inf)
+        col = torch.nn.functional.pad(col, (0, 0, 0, kb - gpp), value=_I32_MAX)
+    # Columns rise along dim 2, so a stable sort by score is the lex order.
+    v, order = torch.sort(s, dim=2, stable=True)
+    v = v[:, :, :kb]
+    i = torch.gather(col, 2, order[:, :, :kb])
+    i = torch.where(v < torch.inf, i, _I32_MAX)
+    return i.reshape(m, parts * kb * LANE), v.reshape(m, parts * kb * LANE)
+
+
+def sweep_candidates_plain(q, r_op, n: int, parts: int, kk: int):
+    """B5's plain torch version: fused.norm_scores, then _lane_lists at
+    the kernel's list length sweep_bucket(kk)."""
+    return _lane_lists(norm_scores(q, r_op, n), parts, sweep_bucket(kk))
+
+
+def sweep_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
+                     kk: int):
+    """(m, k) queries x (k_pad, n_pad) SoA operand -> (idx, score), each
+    (m, parts*sweep_bucket(kk)*128): per (partition, lane), the
+    sweep_bucket(kk) lexicographically smallest (score, column) pairs of
+    the lane's columns below n, sorted, empty slots (+inf, I32_MAX). The
+    score is B1's (bit-identical on the card). CPU tensors take the plain
+    version; CUDA tensors launch B5 or raise."""
+    _check_candidate_operands(q, r_op, n, parts)
+    m, k = q.shape
+    kb = sweep_bucket(kk)
+    if sweep_tile_m(kk) * k * 4 > MAX_QUERY_SMEM:
+        raise ValueError(f"k={k} exceeds the sweep kernel's shared-memory "
+                         f"query tile at K={kk}")
+    if q.device.type == "cpu":
+        return sweep_candidates_plain(q, r_op, n, parts, kk)
+    from tpu_knn_torch.csrc.build import check, load
+
+    lib = load()
+    idx, score = _candidate_outputs(m, parts * kb * LANE, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_sweep_candidates(
+            q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
+            m, k, r_op.stride(0), n, parts, kb,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B5 sweep_candidates")
+    sweep_candidates.launches += 1
+    return idx, score
+
+
+#: Kernel launches of B5 (CUDA tensors only; the plain version is not counted).
+sweep_candidates.launches = 0
+
+
+def smallm_topk_candidates_plain(q, r_op, n: int, parts: int, kk: int, bound):
+    """B6's plain torch version: smallm.diff_scores, only the elements
+    with score <= the row's bound, _lane_lists of length kk, and the empty
+    slots set to the seed (bound, I32_MAX)."""
+    s = diff_scores(q, r_op, n)
+    s = torch.where(s <= bound[:, None], s, torch.inf)
+    i, v = _lane_lists(s, parts, kk)
+    return i, torch.where(i == _I32_MAX, bound[:, None], v)
+
+
+def smallm_topk_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
+                           parts: int, kk: int, bound: torch.Tensor):
+    """(m <= 4, k <= 32) queries x SoA operand, bound (m,) f32 -> (idx,
+    score), each (m, parts*kk*128): per (partition, lane), the kk
+    lexicographically smallest (exact diff-form score, column) pairs with
+    score <= bound[row], sorted, the rest of each list the seed
+    (bound[row], I32_MAX). CPU tensors take the plain version; CUDA
+    tensors launch B6 or raise."""
+    _check_candidate_operands(q, r_op, n, parts)
+    m, k = q.shape
+    check_smallm_shape(m, k)
+    if not 1 <= kk <= SWEEP_MAX_NEIGHBORS:
+        raise ValueError(f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}]")
+    _check_bound(bound, m, torch.float32, q.device, "bound")
+    if q.device.type == "cpu":
+        return smallm_topk_candidates_plain(q, r_op, n, parts, kk, bound)
+    from tpu_knn_torch.csrc.build import check, load
+
+    lib = load()
+    idx, score = _candidate_outputs(m, parts * kk * LANE, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_smallm_topk_candidates(
+            q.data_ptr(), r_op.data_ptr(), bound.data_ptr(), idx.data_ptr(),
+            score.data_ptr(), m, k, r_op.stride(0), n, parts, kk,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B6 smallm_topk_candidates")
+    smallm_topk_candidates.launches += 1
+    return idx, score
+
+
+#: Kernel launches of B6 (CUDA tensors only; the plain version is not counted).
+smallm_topk_candidates.launches = 0
+
+
+# ---- engines ------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _build_topk(m: int, n: int, k: int, kk: int, method: str = "auto"):
+    """Top-K pipeline against a prepared (k_pad, >= n) SoA operand plus
+    the AoS array for exact distances. Returns run(search, r_ops,
+    ref_aos) -> (idx (m, kk) int32, d2 (m, kk) f32)."""
+    if method == "auto":
+        method = _auto_method(m, kk)
+    if method == "sweep":
+        if not 1 <= kk <= SWEEP_MAX_NEIGHBORS:
+            raise ValueError(
+                f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}]")
+        if smallm_applicable(m, k, n):
+            # Tiny batches: two diff-form scans. The K-th smallest of B2's
+            # lane minima is a provable upper bound B on the row's K-th
+            # score (K distinct elements <= B exist), which seeds B6.
+            p1, p2 = smallm_parts(n), smallm_topk_parts(m, kk, n)
+
+            def run_smallm(search, r_ops, ref_aos):
+                _, cs1 = smallm_candidates(search, r_ops[0], n, p1)
+                bound = torch.topk(cs1, kk, dim=-1, largest=False).values[:, -1]
+                ci, cs = smallm_topk_candidates(search, r_ops[0], n, p2, kk,
+                                                bound.contiguous())
+                return _finalize_topk(search, ref_aos, ci, cs, kk, n)
+
+            return run_smallm
+        parts = sweep_parts(m, kk, n)
+
+        def run_sweep(search, r_ops, ref_aos):
+            ci, cs = sweep_candidates(search, r_ops[0], n, parts, kk)
+            return _finalize_topk(search, ref_aos, ci, cs, kk, n)
+
+        return run_sweep
+    if method == "seeded":
+        raise _seeded_not_ported()
+    if method != "passes":
+        raise ValueError(f"unknown top-K method {method!r}")
+    parts = fused_parts(m, k, n)
+
+    def run_passes(search, r_ops, ref_aos):
+        b_s = torch.full((m,), -torch.inf, dtype=torch.float32, device=search.device)
+        b_i = torch.full((m,), -1, dtype=torch.int32, device=search.device)
+        picks = []
+        for _ in range(kk):    # K banded passes, no host sync between them
+            ci, cs = banded_candidates(search, r_ops[0], n, parts, b_s, b_i)
+            b_i, b_s = _lex_min(ci, cs)
+            picks.append(b_i)
+        # Pass order is the kernel-score order; the output contract is
+        # exact (d2, index) ascending. The d2 are computed as
+        # _finalize_topk computes them, so the engines agree bit for bit.
+        idx, d2 = _gather_d2(search, ref_aos, torch.stack(picks, dim=1), n)
+        d2, idx = _lex_sort(d2, idx)
+        return idx, d2
+
+    return run_passes
+
+
+#: Cell width of the aos engine's bound and compaction.
+AOS_CELL = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _build_aos_topk(m: int, n: int, k: int, kk: int):
+    """Zero-prep per-call top-K for m <= 4 over the caller's (n, k) array
+    (tpu_knn's `_build_aos_topk`, torch ops): per query row, the diff-form
+    score vector; the K-th smallest of the per-cell minima (cells of 4096
+    scores) bounds the K-th score; cells holding any score <= the bound are
+    compacted (at most K + 16 of them) and their scores sorted by exact
+    (d2, index). More qualifying cells than that (only dense near-duplicate
+    clusters) take the certified fallback, an exact lexicographic top-K of
+    the whole row, which breaks ties toward the lower index. Where tpu_knn
+    chose with lax.cond, the port reads one flag on the host per call."""
+    C = AOS_CELL
+    n_pad = round_up(n, C)
+    ncell = n_pad // C
+    cap_c = int(min(ncell, kk + 16))
+
+    def cell_stage(sp, cell_iota, lane_iota):
+        spc = sp.view(ncell, C)
+        cmin = spc.min(dim=1).values
+        bound = torch.sort(cmin).values[min(kk, ncell) - 1]
+        qual = (spc <= bound).any(dim=1)
+        key = torch.where(qual, cell_iota, ncell)
+        cellids = torch.sort(key).values[:cap_c]
+        live = cellids < ncell
+        safe = torch.where(live, cellids, 0)
+        rows = torch.where(live[:, None], spc[safe.long()], torch.inf)
+        gidx = (safe[:, None] * C + lane_iota).reshape(-1)
+        flat_d = rows.reshape(-1)
+        flat_i = torch.where((flat_d != torch.inf) & (gidx < n), gidx, _I32_MAX)
+        ds, isrt = _lex_sort(flat_d, flat_i)
+        return (torch.where(isrt[:kk] != _I32_MAX, isrt[:kk], -1), ds[:kk],
+                qual.sum())
+
+    def run(search, ref):
+        dev = ref.device
+        cell_iota = torch.arange(ncell, dtype=torch.int32, device=dev)
+        lane_iota = torch.arange(C, dtype=torch.int32, device=dev)
+        rows_i, rows_d, nqual, sps = [], [], [], []
+        for r in range(m):
+            s = ((ref - search[r]) ** 2).sum(dim=-1)
+            sp = torch.nn.functional.pad(s, (0, n_pad - n), value=torch.inf)
+            ri, rd, nq = cell_stage(sp, cell_iota, lane_iota)
+            rows_i.append(ri)
+            rows_d.append(rd)
+            nqual.append(nq)
+            sps.append(sp)
+        idx, d2 = torch.stack(rows_i), torch.stack(rows_d)
+        over = torch.stack(nqual) > cap_c
+        if bool(over.any()):     # the certificate: one host read per call
+            sp = torch.stack(sps)
+            col = torch.arange(n_pad, dtype=torch.int32, device=dev)
+            fd, fi = _lex_smallest(sp, col.expand(m, n_pad), kk)
+            idx = torch.where(over[:, None], fi, idx)
+            d2 = torch.where(over[:, None], fd, d2)
+        return idx, d2
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _build_topk_percall(m: int, n: int, k: int, kk: int, method: str = "auto"):
+    if method == "aos" or (
+            method == "auto" and kk <= MAX_NEIGHBORS
+            and (m <= 2 or (m <= SMALLM_MAX_M
+                            and (k < 8 or k > SMALLM_MAX_K)))):
+        if not (1 <= m <= SMALLM_MAX_M):
+            raise ValueError(
+                f"aos top-K serves 1 <= m <= {SMALLM_MAX_M}, got {m}")
+        if kk > MAX_NEIGHBORS:
+            raise ValueError(
+                f"aos top-K serves K <= {MAX_NEIGHBORS}, got {kk}")
+        return _build_aos_topk(m, n, k, kk)
+    run = _build_topk(m, n, k, kk, method)
+
+    def go(search, ref):
+        return run(search, (prep_soa(ref, round_up(n, LANE)),), ref)
+
+    return go
+
+
+def topk_knn(search, ref, neighbors: int, method: str = "auto", device="cuda"):
+    """Exact K-nearest-neighbors: (m, k) queries against (n, k) refs.
+
+    Returns (idx (m, K) int32, d2 (m, K) f32) tensors on the inputs'
+    device, each row ascending by exact (squared distance, index).
+    Requires neighbors <= n. `method`: "aos" (zero-prep scan, m <= 4 and
+    K <= 128 — the per-call default in that regime), "sweep" (one
+    reference read, K <= SWEEP_MAX_NEIGHBORS), "passes" (K banded reads,
+    K <= PASSES_MAX_NEIGHBORS), or "auto" (tpu_knn's routing). "seeded",
+    and "auto" where it resolves to it, raise NotImplementedError
+    (ROADMAP A.5.4).
+    """
+    search, ref = as_f32_pair(search, ref, device)
+    m, k = search.shape
+    n = ref.shape[0]
+    if not (1 <= neighbors <= min(n, PASSES_MAX_NEIGHBORS)):
+        raise ValueError(
+            f"neighbors must be in [1, min(n, {PASSES_MAX_NEIGHBORS})] = "
+            f"[1, {min(n, PASSES_MAX_NEIGHBORS)}], got {neighbors}")
+    if method == "sweep" and neighbors > SWEEP_MAX_NEIGHBORS:
+        raise ValueError(
+            f"sweep engine serves K <= {SWEEP_MAX_NEIGHBORS}, got {neighbors}")
+    if (method not in ("passes", "seeded", "auto")
+            and neighbors > MAX_NEIGHBORS):
+        raise ValueError(
+            f"K > {MAX_NEIGHBORS} requires method='seeded' or 'passes', "
+            f"got {method!r} with K={neighbors}")
+    return _build_topk_percall(m, n, k, neighbors, method)(search, ref)
+
+
+# ---- fixed-radius queries ----------------------------------------------
+
+
+def _radius_query(topk_fn, n_live: int, radius: float,
+                  max_results, start_cap: int = 32):
+    """Shared fixed-radius machinery (tpu_knn's). ``topk_fn(eff_cap) ->
+    (idx (m, eff_cap), d2)`` supplies the exact top-K engine (per call or
+    prepared index). ``max_results`` int = single shot with that cap
+    (clamped to ``n_live``, padded back); None = escalate (doubling) until
+    every row's true in-radius set is returned; the loop's one host read
+    per step is the largest count. Returns (idx, d2, count); raises past
+    min(n_live, PASSES_MAX_NEIGHBORS)."""
+    if not float(radius) >= 0.0:   # also rejects NaN
+        raise ValueError(f"radius must be non-negative, got {radius}")
+    limit = min(n_live, PASSES_MAX_NEIGHBORS)
+    r2 = float(radius) ** 2
+
+    def one_shot(cap):
+        eff = min(cap, n_live)
+        if eff > limit:
+            raise ValueError(
+                f"max_results={cap} exceeds the radius-query engine "
+                f"ceiling min(n, {PASSES_MAX_NEIGHBORS}); shrink the cap "
+                "or partition the reference set")
+        idx, d2 = topk_fn(eff)
+        inside = d2 <= r2
+        idx = torch.where(inside, idx, -1)
+        d2 = torch.where(inside, d2, torch.inf)
+        if eff < cap:   # cap clamped to n_live: pad back to the requested width
+            idx = torch.nn.functional.pad(idx, (0, cap - eff), value=-1)
+            d2 = torch.nn.functional.pad(d2, (0, cap - eff), value=torch.inf)
+        return idx, d2, inside.sum(dim=-1).to(torch.int32)
+
+    if max_results is not None:
+        if max_results < 1:
+            raise ValueError(
+                f"max_results must be >= 1, got {max_results}")
+        return one_shot(max_results)
+    cap = min(max(1, start_cap), limit)
+    while True:
+        idx, d2, count = one_shot(cap)
+        if cap >= n_live:   # every point examined: complete
+            return idx, d2, count
+        if (int(count.max()) if count.numel() else 0) < cap:
+            return idx, d2, count
+        if cap >= limit:
+            raise ValueError(
+                f"radius {radius} captures >= {limit} neighbors for "
+                f"some query — beyond the engine ceiling min(n, "
+                f"{PASSES_MAX_NEIGHBORS}); shrink the radius or "
+                "partition the reference set")
+        cap = min(cap * 2, limit)
+
+
+def within_radius(search, ref, radius: float, max_results: int,
+                  method: str = "auto", device="cuda"):
+    """Exact fixed-radius neighbors, capped at ``max_results`` per query.
+
+    Returns (idx (m, max_results) int32, d2 (m, max_results) f32,
+    count (m,) int32): per query, the up-to-``max_results`` nearest points
+    with exact squared distance <= radius**2, rows ascending by exact
+    (d2, index) and padded with idx -1 / d2 +inf; ``count`` is the number
+    of returned neighbors (a full row means the cap may have truncated;
+    ``within_radius_complete`` escalates the cap until no row does)."""
+    search, ref = as_f32_pair(search, ref, device)
+    return _radius_query(
+        lambda eff: topk_knn(search, ref, eff, method),
+        ref.shape[0], radius, max_results)
+
+
+def within_radius_complete(search, ref, radius: float, *,
+                           start_cap: int = 32, method: str = "auto",
+                           device="cuda"):
+    """Fixed-radius neighbors with no truncation: escalates the result
+    cap (doubling) until every row reports fewer neighbors than the cap.
+    Returns (idx (m, cap), d2 (m, cap), count (m,)) with ``count`` each
+    query's true in-radius count. Raises if the radius captures more than
+    min(n, PASSES_MAX_NEIGHBORS) points for some query."""
+    search, ref = as_f32_pair(search, ref, device)
+    return _radius_query(
+        lambda eff: topk_knn(search, ref, eff, method),
+        ref.shape[0], radius, None, start_cap=start_cap)
