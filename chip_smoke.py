@@ -13,7 +13,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    its plain torch version on the card, at a grid of shapes and at the
    shapes the main path gives it, with planted exact duplicates at a
    partition boundary and a lane boundary; B4 also bit-equal to B1 with a
-   bound that masks exactly, B5 also equal to the passes engine;
+   bound that masks exactly, B5 also equal to the passes engine; then
+   the seeded engine's kernels: B3 (value-only lane minima; bit-equal to
+   B1's), B7 (per-cell moments; packed words identical to the plain
+   version's, with bounds set between scores) and the B8/B9 compactor
+   (identical, at part widths on both sides of 8192); then every B3, B7
+   and compactor launch of the seeded main path against its plain
+   version (SeededLaunchCheck), with phase 2's seeded calls run once on
+   data of their own;
 2. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - 1-NN: the 8 TA shapes through knn_callback (v7 default, v4, v0)
@@ -24,10 +31,18 @@ Phases, in order; any failure raises and the script exits nonzero:
      NNIndex.query(neighbors=16) at (16, 4, 2^24) and m = 1,
      nearest_neighbors(neighbors=8), each checked rank by rank against an
      independent exact top-K scan with the same rule; one
-     within_radius_complete escalation; auto at m*K > 256 raising;
+     within_radius_complete escalation;
+   - seeded top-K (the batch regime): topk_knn at ds11 with K = 8, 16,
+     32, 64, 128 and 256 (rounds), NNIndex.query(neighbors=16) at ds11,
+     K = 8 over 2^22 points (the compactor at part width 16384), each of
+     which must answer in the fast tier, one planted case per tier
+     (expanded cell, passes fallback, escalation) with the tier counters
+     checked, within_radius_complete at m = 8 past
+     cap 32, and knn_graph(points, 15) at (k = 16, n = 2^17) with K + 2
+     exact duplicates, every row gated;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
-   cuBLAS product of B1/B4/B5's score matrices and the main paths, each
-   printed beside the card's name and power limit.
+   cuBLAS product of the score matrices and the main paths, each printed
+   beside the card's name and power limit, and the bounds.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -211,7 +226,7 @@ def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
         errs["B5"] = max(errs["B5"], err)
         got = topk._finalize_topk(q, r, ki, ks, kk, n)
         near = same_topk("B5", got, topk._finalize_topk(q, r, pi, ps, kk, n))
-        passes = topk._build_topk(m, n, k, kk, "passes")(q, (r_op,), r)
+        passes = topk._build_topk(m, n, k, kk, r_op.shape[1], "passes")(q, (r_op,), r)
         if not (torch.equal(got[0], passes[0]) and torch.equal(got[1], passes[1])):
             fail(f"B5 m={m} k={k} n={n} K={kk}: sweep and passes disagree on the card")
         log(f"  B5: m={m} k={k} n={n} K={kk} P={parts}: slot agreement {share:.6f}, "
@@ -487,17 +502,445 @@ def phase2_topk(device, gen, n_mid=1 << 20, n_big=1 << 24):
         "identical to the exact scan")
     calls["within_radius_complete m=2 (aos, caps 32 -> 64)"] = (
         q2, r2, None, lambda: within_radius_complete(q2, r2, radius))
-    ctx = {"q1024": q1024, "q8": q8, "q32": q32, "q4": q4, "r20": r20,
+    ctx = {"q1024": q1024, "q8": q8, "q32": q32, "q4": q4, "q64": q64, "r20": r20,
            "index24": index24}
-    try:
-        topk_knn(q64, r20, 8)
-    except NotImplementedError as e:
-        if "A.5.4" not in str(e):
-            fail(f"auto at m*K > 256 raised without naming A.5.4: {e}")
-        log("  topk_knn auto at m*K = 512 raises NotImplementedError naming A.5.4")
-    else:
-        fail("topk_knn auto at m*K > 256 did not raise NotImplementedError")
     return calls, ctx
+
+
+# ---- the seeded engine: phase 1 (B3, B7, compactor) and phase 2 -----------
+
+
+def plain_scores(q, r_op, n):
+    """The plain versions' scores of the first n columns, (m, n)."""
+    import torch
+
+    from tpu_knn_torch.kernels.fused import score_chunks
+
+    return torch.cat([s for _, s in score_chunks(q, r_op, n)], dim=1)
+
+
+def bound_between(s, lo_rank, hi_rank):
+    """Per row, the midpoint of the widest gap between consecutive sorted
+    scores of ranks lo_rank..hi_rank: no score lies near it, so the last-bit
+    differences between the kernel's and the plain version's scores cannot
+    move an element across it, and their packed words must be identical."""
+    import torch
+
+    srt = torch.topk(s, hi_rank + 1, dim=1, largest=False).values
+    j = (srt[:, lo_rank + 1:] - srt[:, lo_rank:-1]).argmax(dim=1, keepdim=True) + lo_rank
+    return ((srt.gather(1, j) + srt.gather(1, j + 1)) / 2).squeeze(1).contiguous()
+
+
+def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases):
+    """B3, B7 and the B8/B9 compactor against their plain versions."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded
+    from tpu_knn_torch.kernels.fused import prep_soa
+
+    errs = {"B3": 0.0, "B7": 0.0, "B8/B9": 0.0}
+    for k, m, n, n_ops, depth, banded, n_limit in b3_cases:
+        q = uniform(gen, (m, k), device)
+        r_op = prep_soa(uniform(gen, (n, k), device), n_ops)
+        lo = bound_between(plain_scores(q, r_op, n), 3, 40) if banded else None
+        got = fused.minima_candidates(q, r_op, n, depth=depth, lo=lo, n_limit=n_limit)
+        want = fused.minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got)):
+            fail(f"B3 {(k, m, n, depth, banded, n_limit)}: finite lanes differ from plain")
+        scale = want[fin].abs().max().item()
+        err = (got - want)[fin].abs().max().item()
+        if err > SCORE_RTOL * scale:
+            fail(f"B3 {(k, m, n, depth, banded, n_limit)}: |diff| {err} > {SCORE_RTOL} x {scale}")
+        errs["B3"] = max(errs["B3"], err)
+        b1_equal = None
+        if not banded:   # both kernels score through column_scores
+            n_eff = n if n_limit is None else min(n, n_limit)
+            b1_equal = torch.equal(got[:, :128], fused.fused_candidates(q, r_op, n_eff, 1)[1])
+            if not b1_equal:
+                fail(f"B3 {(k, m, n, depth, n_limit)}: lane minima not bit-equal to B1's")
+        log(f"  B3: k={k} m={m} n={n} n_ops={n_ops} depth={depth} banded={banded} "
+            f"n_limit={n_limit}: max |diff| to plain {err:.3g} (max |score| {scale:.3g}), "
+            f"bit-equal to B1: {b1_equal}")
+        del r_op
+    for k, m, n, n_ops, cell, nf, banded in b7_cases:
+        q = uniform(gen, (m, k), device)
+        r_op = prep_soa(uniform(gen, (n, k), device), n_ops)
+        s = plain_scores(q, r_op, n)
+        bound = bound_between(s, 60, 200)
+        lo = bound_between(s, 5, 40) if banded else None
+        del s
+        got = seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded)
+        want = seeded.extract_moments_plain(q, r_op, n, bound, cell, nf, lo, banded)
+        for g, w in zip(got[:1 + (nf == 8)], want):
+            if not torch.equal(g, w):
+                fail(f"B7 {(k, m, n, n_ops, cell, nf, banded)}: packed words differ "
+                     f"at {int((g != w).sum())} cells")
+        rem_err = 0.0
+        if banded:
+            fin = torch.isfinite(want[-1])
+            rem_err = (got[-1] - want[-1])[fin].abs().max().item()
+            if not torch.equal(fin, torch.isfinite(got[-1])) or \
+                    rem_err > SCORE_RTOL * want[-1][fin].abs().max().item():
+                fail(f"B7 {(k, m, n, cell, nf)}: remainder minima differ ({rem_err})")
+        errs["B7"] = max(errs["B7"], rem_err)
+        log(f"  B7: k={k} m={m} n={n} n_ops={n_ops} cell={cell} fields={nf} "
+            f"banded={banded}: packed words identical ({int((got[0] != 0).sum())} "
+            f"qualifying cells, {int(((got[0] >> 30) & 1).sum())} flagged)"
+            + (f", remainder minima max |diff| {rem_err:.3g}" if banded else ""))
+        del r_op
+    for m, nc, parts, cap, nf, density in compact_cases:
+        qual = torch.rand((m, nc), generator=gen, device=device) < density
+        fields = [torch.where(qual, torch.randint(1, 1 << 30, (m, nc), generator=gen,
+                                                  device=device, dtype=torch.int32), 0)
+                  for _ in range(nf)]
+        fields[1:] = [torch.where(qual, f - 1, 0) for f in fields[1:]]
+        got = seeded.compact_cells(fields, parts, cap)
+        want = seeded.compact_cells_plain(fields, parts, cap)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"compactor {(m, nc, parts, cap, nf)}: differs from plain")
+        regime = "B9" if nc // parts <= 8192 else "B8"
+        log(f"  B8/B9 compactor: m={m} nc={nc} parts={parts} (part width {nc // parts}, "
+            f"{regime}'s regime) cap={cap} fields={nf}: identical to plain")
+    torch.cuda.synchronize(device)
+    return errs
+
+
+def seeded_tiers():
+    from tpu_knn_torch.kernels import seeded
+
+    return dict(seeded.TIERS)
+
+
+def tier_delta(before):
+    return {k: v - before[k] for k, v in seeded_tiers().items() if v != before[k]}
+
+
+def graph_gate_errors(points, idx, rows, kk) -> int:
+    """knn_graph rows `rows` against the exact top-(K+1) scan with each
+    row's own index removed (or the last entry, where it is absent), by
+    the harness's ±1e-3 rule; and no row may hold its own index."""
+    import torch
+
+    from tpu_knn_torch.harness.checker import TOLERANCE
+
+    q = points[rows]
+    want_i, _ = exact_topk_scan(q, points, kk + 1)
+    own = want_i == rows[:, None]
+    drop = torch.where(own.any(dim=1), own.int().argmax(dim=1), kk)
+    pos = torch.arange(kk + 1, device=points.device)[None]
+    keep = pos != drop[:, None]
+    want = want_i[keep].view(-1, kk)
+    got = idx[rows].long()
+    if (got == rows[:, None]).any():
+        fail("knn_graph: a row holds its own index")
+
+    def true_d(i):
+        return ((q[:, None, :] - points[i]) ** 2).sum(dim=-1).sqrt()
+
+    ok = (got == want) | ((true_d(got) - true_d(want)).abs() <= TOLERANCE)
+    return int((~ok).sum().item())
+
+
+class SeededLaunchCheck:
+    """While active (a `with` block), every B3, B7 and compactor launch
+    the seeded engine makes, through the wrappers it calls by
+    kernels/seeded.py's globals, is held against its plain version on the
+    same inputs; the engine goes on with the kernel's outputs, so a call
+    under the check makes exactly the launches it makes on the main path.
+    B3: lane minima within SCORE_RTOL. B7: packed words identical, except
+    at a cell holding a column whose score lies within the score
+    tolerance of the bound or lo (the two score orders may put such a
+    column on either side; these cells are counted); the remainder minima
+    alike, except at a lane whose minimum sits at the bound. The
+    compactor: identical outputs."""
+
+    WRAPPERS = ("minima_candidates", "extract_moments", "compact_cells")
+
+    def __enter__(self):
+        from collections import Counter
+
+        from tpu_knn_torch.kernels import seeded
+
+        self.mod = seeded
+        self.orig = {name: getattr(seeded, name) for name in self.WRAPPERS}
+        self.shapes = {"B3": Counter(), "B7": Counter(), "B8/B9": Counter()}
+        self.err = {"B3": 0.0, "B7": 0.0}
+        self.edge_cells = 0
+
+        def spy(check):
+            def wrapper(*args, **kwargs):
+                return check(*args, **kwargs)
+
+            # A wrapper counts its launches under its module-global name,
+            # which is the spy's while the check is active.
+            wrapper.launches = 0
+            return wrapper
+
+        seeded.minima_candidates = spy(self.b3)
+        seeded.extract_moments = spy(self.b7)
+        seeded.compact_cells = spy(self.compact)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+        return False
+
+    def b3(self, q, r_op, n, depth=1, lo=None, n_limit=None):
+        import torch
+
+        from tpu_knn_torch.kernels.fused import minima_candidates_plain
+
+        got = self.orig["minima_candidates"](q, r_op, n, depth=depth, lo=lo, n_limit=n_limit)
+        want = minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
+        fin = torch.isfinite(want)
+        what = f"B3 (m={q.shape[0]}, n={n}, depth {depth}, prefix {n_limit})"
+        if not torch.equal(fin, torch.isfinite(got)):
+            fail(f"{what}: finite lanes differ from plain")
+        scale = want[fin].abs().max().item()
+        err = (got - want)[fin].abs().max().item()
+        if err > SCORE_RTOL * scale:
+            fail(f"{what}: |diff| {err} > {SCORE_RTOL} x {scale}")
+        self.err["B3"] = max(self.err["B3"], err)
+        self.shapes["B3"][f"depth {depth} prefix {n_limit}" + (" band" if lo is not None
+                                                               else "")] += 1
+        return got
+
+    def b7(self, q, r_op, n, bound, cell, n_fields, lo=None, emit_rem=False):
+        import torch
+
+        got = self.orig["extract_moments"](q, r_op, n, bound, cell, n_fields, lo=lo,
+                                           emit_rem=emit_rem)
+        want = self.mod.extract_moments_plain(q, r_op, n, bound, cell, n_fields, lo,
+                                              emit_rem)
+        what = (f"B7 (m={q.shape[0]}, n={n}, n_ops={r_op.shape[1]}, cell {cell}, "
+                f"{n_fields} fields, band {lo is not None}, remainder {emit_rem})")
+        edges = [bound] + ([lo] if lo is not None else [])
+        finite = torch.cat([e[torch.isfinite(e)].abs() for e in edges])
+        tol = SCORE_RTOL * max(finite.max().item() if finite.numel() else 0.0, 1e-30)
+        bad = torch.zeros_like(got[0], dtype=torch.bool)
+        for g, w in zip(got[:1 + (n_fields == 8)], want):
+            bad |= g != w
+        rows, cells = bad.nonzero(as_tuple=True)
+        if rows.numel() > 4 * q.shape[0]:
+            fail(f"{what}: packed words differ at {rows.numel()} cells")
+        if rows.numel():
+            cols = cells[:, None] * cell + torch.arange(cell, device=q.device)
+            r = r_op[:q.shape[1]][:, cols.clamp(max=n - 1)]          # (k, cells, cell)
+            s = (r * r).sum(dim=0) - 2.0 * torch.einsum("ck,kcl->cl", q[rows], r)
+            near = (s - bound[rows, None]).abs() <= tol
+            if lo is not None:
+                near |= (s - lo[rows, None]).abs() <= tol
+            if not (near & (cols < n)).any(dim=1).all():
+                fail(f"{what}: packed words differ at {rows.numel()} cells, not all "
+                     f"holding a score within {tol:.3g} of the bound")
+        self.edge_cells += rows.numel()
+        if emit_rem:
+            gr, wr = got[-1], want[-1]
+            same = (gr == wr) | ((gr - wr).abs() <= tol)
+            at_edge = (((wr - bound[:, None]).abs() <= tol)
+                       | ((gr - bound[:, None]).abs() <= tol))
+            if (~same & ~at_edge).any():
+                fail(f"{what}: remainder minima differ at {int((~same & ~at_edge).sum())} "
+                     "lanes")
+            fin = same & torch.isfinite(wr)
+            if fin.any():
+                self.err["B7"] = max(self.err["B7"], (gr - wr)[fin].abs().max().item())
+        self.shapes["B7"][f"cell {cell} {n_fields} fields" + (" band" if lo is not None
+                                                              else "")
+                          + (" rem" if emit_rem else "")] += 1
+        return got
+
+    def compact(self, fields, parts, cap):
+        import torch
+
+        got = self.orig["compact_cells"](fields, parts, cap)
+        want = self.mod.compact_cells_plain(fields, parts, cap)
+        m, nc = fields[0].shape
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"compactor (m={m}, nc={nc}, parts {parts}, cap {cap}, "
+                 f"{len(fields)} fields): differs from plain")
+        regime = "B9" if nc // parts <= 8192 else "B8"
+        self.shapes["B8/B9"][f"nc {nc} = {parts} x {nc // parts} ({regime}) cap {cap} "
+                             f"{len(fields)} field(s)"] += 1
+        return got
+
+    def summary(self) -> str:
+        return "; ".join(f"{kid} " + ", ".join(f"{c}x [{sig}]" for sig, c in sigs.items())
+                         for kid, sigs in self.shapes.items())
+
+
+def phase1_seeded_main(cases):
+    """B3, B7 and the compactor against their plain versions at every
+    launch of the seeded main path: each of phase 2's seeded calls, on
+    data of its own at the same shapes, runs once under
+    SeededLaunchCheck. Returns the largest B3 and B7 differences."""
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.topk import within_radius_complete
+
+    runs = {name: fn for name, (_, _, _, fn) in cases["calls"].items()}
+    runs.update({name: fn for name, (_, _, _, fn, _) in cases["planted"].items()})
+    q8, r_rad, radius = cases["radius"]
+    runs["within_radius_complete m=8 (caps 32 -> 64)"] = \
+        lambda: within_radius_complete(q8, r_rad, radius)
+    pts, kg, _ = cases["graph"]
+    runs["knn_graph (16, 2^17) K=15"] = lambda: tpu_knn_torch.knn_graph(pts, kg)
+    errs = {"B3": 0.0, "B7": 0.0}
+    edge_cells = 0
+    for name, fn in runs.items():
+        with SeededLaunchCheck() as check:
+            fn()
+        for kid, sigs in check.shapes.items():
+            if not sigs:
+                fail(f"{name}: no {kid} launch")
+        errs = {kid: max(errs[kid], check.err[kid]) for kid in errs}
+        edge_cells += check.edge_cells
+        log(f"  main-path launches of {name}: {check.summary()}; every launch agrees "
+            f"with its plain version (B7 words differ only at {check.edge_cells} cells "
+            "holding a score at the bound)")
+    log(f"  seeded main-path launches: B3 max |diff| {errs['B3']:.3g}, B7 remainder max "
+        f"|diff| {errs['B7']:.3g}, {edge_cells} B7 cells at the bound")
+    return errs
+
+
+def seeded_cases(device, gen, q1024, r20, q64, q8, n_huge=1 << 22, n_graph=1 << 17):
+    """The seeded engine's main-path calls at the reference's published
+    sizes over the given data: "calls" (name -> (q, r, K, fn)), the
+    planted tier cases ("planted": name -> (q, r, K, fn, tiers)), the
+    radius escalation ("radius": (q, r, radius)) and knn_graph ("graph":
+    (points, K, duplicate rows))."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.topk import topk_knn
+
+    index20 = tpu_knn_torch.NNIndex(r20, strategy="fused")
+    r22 = uniform(gen, (n_huge, 16), device)
+    calls = {}
+    for kk, note in ((8, "quad, half-prefix B3"), (16, "quad, 3/4-prefix B3"),
+                     (32, "cubic, 256-lane cells"), (64, "128-lane cells, 4 parts"),
+                     (128, "single band, depth-2 B3, 64-lane cells, 8 parts"),
+                     (256, "4 rounds, banded B7 + remainder")):
+        calls[f"topk_knn ds11 K={kk} [seeded: {note}]"] = (
+            q1024, r20, kk, lambda kk=kk: topk_knn(q1024, r20, kk))
+    calls["NNIndex.query (16, 1024, 2^20) K=16 [seeded, prepared]"] = (
+        q1024, r20, 16, lambda: index20.query(q1024, neighbors=16))
+    calls["topk_knn (16, 1024, 2^22) K=8 [seeded: part width 16384, B8's regime]"] = (
+        q1024, r22, 8, lambda: topk_knn(q1024, r22, 8))
+    # Planted tiers at m = 64 (auto: seeded) over 2^20 points: three exact
+    # copies of a near point of query 0 in one 256-column cell (the
+    # quadratic solver takes 2: the cell is expanded into the rerank), two
+    # such cells (the passes fallback), and 30 near points in one lane,
+    # one per cell, at K = 32 (more cells than the fast cap of 48).
+    near = q64[0] + 1e-4
+    r_exp = r20.clone()
+    r_exp[[1030, 1100, 1200]] = near
+    r_fb = r_exp.clone()
+    r_fb[[5130, 5200, 5300]] = near
+    r_esc = r20.clone()
+    stride = r20.shape[0] // 32 // 256 * 256
+    for j in range(30):
+        r_esc[j * stride + 7] = q64[0] + 1e-4 * (j + 1)
+    planted = {
+        "topk_knn (16, 64, 2^20) K=8 planted [expanded cell]":
+            (q64, r_exp, 8, lambda: topk_knn(q64, r_exp, 8), ("fast", "expanded")),
+        "topk_knn (16, 64, 2^20) K=8 planted [passes fallback]":
+            (q64, r_fb, 8, lambda: topk_knn(q64, r_fb, 8), ("fallback",)),
+        "topk_knn (16, 64, 2^20) K=32 planted [escalated]":
+            (q64, r_esc, 32, lambda: topk_knn(q64, r_esc, 32), ("escalated",)),
+    }
+    # within_radius_complete at m = 8: 40 points planted near query 0, one
+    # per 128-column cell; cap 32 (the sweep) fills, so the cap doubles to
+    # 64, which is seeded.
+    r_rad = r20.clone()
+    spots = torch.arange(40, device=device) * (r20.shape[0] // 40) + 7
+    r_rad[spots] = q8[0] + 0.01 * (uniform(gen, (40, 16), device) - 0.5)
+    # knn_graph at the SERVING.md shape: 2^17 points of 16 dimensions, K = 15
+    # (128 chunks of 1024 rows), with K + 2 exact copies of point 5.
+    kg = 15
+    pts = uniform(gen, (n_graph, 16), device)
+    copies = torch.arange(kg + 2, device=device) * (n_graph // (kg + 2)) + 5
+    pts[copies] = pts[5].clone()
+    return {"calls": calls, "planted": planted, "radius": (q8, r_rad, 0.1),
+            "graph": (pts, kg, copies), "r22": r22}
+
+
+def phase2_seeded(device, cases):
+    """The seeded engine at the reference's published sizes (seeded_cases),
+    each call checked against exact_topk_scan; every unplanted call must
+    answer in the fast tier (with or without an expanded cell) and each
+    planted case in its own tier;
+    knn_graph at (k = 16, n = 2^17) gated over every row. Returns the
+    calls, for phase 3."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.topk import within_radius_complete
+
+    calls = dict(cases["calls"])
+    for name, (q, r, kk, fn) in calls.items():
+        before = seeded_tiers()
+        out = fn()
+        tiers = tier_delta(before)
+        errors = topk_gate_errors(q, r, out[0], kk)
+        torch.cuda.synchronize(device)
+        log(f"  {name}: errors {errors}/{q.shape[0] * kk}; tiers {tiers}")
+        if errors:
+            fail(f"{name}: {errors} errors")
+        # "expanded" (one overflowing cell per row reranked whole) is
+        # counted beside the tier that answered, and may join the fast one.
+        if {t: c for t, c in tiers.items() if t != "expanded"} != {"fast": 1}:
+            fail(f"{name}: answered in tiers {tiers}, not the fast tier")
+    for name, (q, r, kk, fn, want_tiers) in cases["planted"].items():
+        before = seeded_tiers()
+        out = fn()
+        tiers = tier_delta(before)
+        errors = topk_gate_errors(q, r, out[0], kk)
+        log(f"  {name}: errors {errors}/{q.shape[0] * kk}; tiers {tiers}")
+        if errors:
+            fail(f"{name}: {errors} errors")
+        if sorted(t for t in tiers if t != "round_escalated") != sorted(want_tiers):
+            fail(f"{name}: took tiers {tiers}, expected {want_tiers}")
+        calls[name] = (q, r, kk, fn)
+    q8, r_rad, radius = cases["radius"]
+    before = seeded_tiers()
+    idx, d2, count = within_radius_complete(q8, r_rad, radius)
+    tiers = tier_delta(before)
+    want_i, want_d = exact_topk_scan(q8, r_rad, idx.shape[1])
+    true_count = (want_d <= radius ** 2).sum(dim=1)
+    inside = want_i.masked_fill(want_d > radius ** 2, -1)
+    if idx.shape[1] != 64 or not torch.equal(count.long(), true_count) \
+            or not torch.equal(idx.long(), inside) or not tiers:
+        fail(f"within_radius_complete m=8: cap {idx.shape[1]}, counts {count.tolist()} "
+             f"against {true_count.tolist()}, tiers {tiers}")
+    log(f"  within_radius_complete m=8 (caps 32 -> 64, seeded): counts {count.tolist()}, "
+        f"identical to the exact scan; tiers {tiers}")
+    calls["within_radius_complete m=8 (caps 32 -> 64, seeded)"] = (
+        q8, r_rad, None, lambda: within_radius_complete(q8, r_rad, radius))
+    pts, kg, copies = cases["graph"]
+    n_graph = pts.shape[0]
+    before = seeded_tiers()
+    t0 = time.perf_counter()
+    gi, gd = tpu_knn_torch.knn_graph(pts, kg)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    tiers = tier_delta(before)
+    rows = torch.arange(n_graph, device=device)     # every row is gated
+    errors = graph_gate_errors(pts, gi, rows, kg)
+    for c in copies.tolist():
+        others = [x for x in copies.tolist() if x != c][:kg]
+        if gi[c].tolist() != others or bool((gd[c] != 0).any()):
+            fail(f"knn_graph: duplicate row {c} is {gi[c].tolist()}, expected {others}")
+    log(f"  knn_graph (k=16, n={n_graph}) K={kg}: errors {errors}/{rows.numel() * kg} "
+        f"over every row; the {kg + 2} duplicate rows exact; no row holds its own index; "
+        f"tiers {tiers} (first call {wall * 1e3:.1f} ms)")
+    chunks = sum(tiers.get(t, 0) for t in ("fast", "escalated", "fallback"))
+    if errors or chunks != -(-n_graph // 1024):
+        fail(f"knn_graph: {errors} errors, tiers {tiers}")
+    calls["knn_graph (16, 2^17) K=15 [seeded, 128 chunks]"] = (
+        pts, pts, kg, lambda: tpu_knn_torch.knn_graph(pts, kg))
+    return calls
 
 
 # ---- phase 3: times ------------------------------------------------------
@@ -589,10 +1032,90 @@ def phase3_topk(card: str, ctx, calls, reps: int):
     return times, shapes
 
 
+def seeded_launches(q, r_op, n, kk):
+    """The inputs the seeded engine gives B3, B7 and the compactor for
+    (q, operand, K), computed as kernels/seeded.py computes them."""
+    from tpu_knn_torch.kernels import fused, seeded
+
+    m, k = q.shape
+    g = seeded.seeded_geometry(m, n, k, kk, r_op.shape[1])
+    b3 = dict(depth=g["depth"], n_limit=g["p1_limit"])
+    cs1 = fused.minima_candidates(q, r_op, n, **b3)
+    bound = seeded._inflate_bound(seeded._kth_smallest(cs1, kk))
+    b7 = (bound, g["cell"], g["n_fields"])
+    moms = seeded.extract_moments(q, r_op, n, *b7)
+    fields = [f.contiguous() for f in moms[:2 if g["n_fields"] == 8 else 1]]
+    return g, b3, b7, (fields, g["nparts"], min(g["cap_fast"], g["nc"] // g["nparts"]))
+
+
+def phase3_seeded(card, ctx, calls, reps):
+    """Times of B3, B7 and the compactor and their plain versions at the
+    seeded path's ds11 K = 8 and K = 64 launches (the compactor also at
+    (16, 1024, 2^22) K = 8, part width 16384), and of each phase-2 seeded
+    call. Returns (times, bounds: name -> (ms, by))."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded
+    from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.utils.timing import time_ms
+
+    q, r20, r22 = ctx["q1024"], ctx["r20"], ctx["r22"]
+    m, k = q.shape
+    times, bounds = {}, {}
+    for label, r, kk in (("ds11 K=8", r20, 8), ("ds11 K=64", r20, 64),
+                         ("(16, 1024, 2^22) K=8", r22, 8)):
+        n = r.shape[0]
+        r_op = prep_soa(r, n)
+        g, b3, b7, comp = seeded_launches(q, r_op, n, kk)
+        fields, parts, cap = comp
+        if label != "(16, 1024, 2^22) K=8":
+            times.update(time_ms({
+                f"B3 kernel {label}": lambda: fused.minima_candidates(q, r_op, n, **b3),
+                f"B3 plain {label}": lambda: fused.minima_candidates_plain(
+                    q, r_op, n, b3["depth"], None, b3["n_limit"]),
+                f"B7 kernel {label}": lambda: seeded.extract_moments(q, r_op, n, *b7),
+                f"B7 plain {label}": lambda: seeded.extract_moments_plain(q, r_op, n, *b7),
+            }, reps))
+            n_read = n if b3["n_limit"] is None else min(n, b3["n_limit"])
+            bounds[f"B3 {label}"] = roofline(
+                4 * (m * k + k * n_read + m * 128 * b3["depth"]), 2 * m * n_read * k)
+            bounds[f"B7 {label}"] = roofline(
+                4 * (m * k + k * n + m + m * g["nc"] * len(fields)), 2 * m * n * k + m * n)
+        times.update(time_ms({
+            f"compactor kernel {label}": lambda: seeded.compact_cells(fields, parts, cap),
+            f"compactor plain {label}": lambda: seeded.compact_cells_plain(fields, parts, cap),
+        }, reps))
+        nf = len(fields)
+        bounds[f"compactor {label}"] = roofline(
+            4 * (m * g["nc"] * nf + m * parts * cap * (nf + 1)), 0)
+        log(f"  seeded launches {label}: cell {g['cell']}, fields {g['n_fields']}, "
+            f"nc {g['nc']}, B3 depth {b3['depth']} prefix {b3['n_limit']}, compaction "
+            f"{parts} part(s) x cap {cap} (part width {g['nc'] // parts})")
+        del r_op
+    times.update(time_ms({"matmul ds11 (seeded)": lambda: torch.matmul(q, ctx["r20"].T)},
+                         reps))
+    graph = {name: v for name, v in calls.items() if name.startswith("knn_graph")}
+    times.update(time_ms({name: fn for name, (_, _, _, fn) in calls.items()
+                          if name not in graph}, reps))
+    times.update(time_ms({name: fn for name, (_, _, _, fn) in graph.items()}, 3))
+    for name, ms in times.items():
+        log(f"  time {name}: median {ms:.4f} ms [{card}]")
+    for name, (ms, by) in bounds.items():
+        log(f"  bound {name}: {ms:.4f} ms ({by})")
+    return times, bounds
+
+
 #: The card's published peaks (one H100 SXM at 700 W): f32 on the CUDA
 #: cores, and device-memory bandwidth.
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+
+
+def roofline(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of nbytes over the memory
+    rate and flops over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bound(m, k, n, width, extra_bytes, flops_per_term):
@@ -604,10 +1127,8 @@ def bound(m, k, n, width, extra_bytes, flops_per_term):
     kernel's contract must emit (128 lanes, or K * 128 for a top-K
     kernel), not the P-partition width a launch chose, so a wider grid
     cannot raise the bound."""
-    nbytes = 4 * (m * k + k * n) + 8 * m * width + extra_bytes
-    flops = flops_per_term * m * n * k
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return roofline(4 * (m * k + k * n) + 8 * m * width + extra_bytes,
+                    flops_per_term * m * n * k)
 
 
 # ---- main ------------------------------------------------------------------
@@ -622,8 +1143,10 @@ def main() -> int:
         return 2
     import tpu_knn_torch
     from tpu_knn_torch.csrc import build
-    from tpu_knn_torch.kernels import fused, smallm, topk
+    from tpu_knn_torch.kernels import fused, seeded, smallm, topk
     from tpu_knn_torch.kernels.twolevel import DEFAULT_PARTITIONS
+
+    t_start = time.perf_counter()
 
     # Phase 0
     log("phase 0: setup")
@@ -688,12 +1211,47 @@ def main() -> int:
     b6_cases += [(16, 4, 1 << 24, 16, None), (16, 3, 1 << 20, 8, None),
                  (16, 2, 5000, 8, 1)]
     errs.update(phase1_topk(device, gen, b4_cases, b5_cases, b6_cases))
+    # The seeded engine's kernels: B3 at depth 1 and 2, banded, with a
+    # prefix and at ragged n, and at the ds11 launches (K=8: half prefix;
+    # K=16: 3/4 prefix; K=64: full; K=128: depth 2); B7 in the quadratic and
+    # cubic modes at cells of 64/128/256, banded with the remainder minima,
+    # over an operand wider than n, and at the ds11 K=8 and K=64 launches;
+    # the compactor with 1 and 2 fields, 1/4/8 parts, caps 12/48/80/192, at
+    # part widths <= 8192 (B9's regime) and > 8192 (B8's), and at the
+    # main path's launches.
+    n20 = 1 << 20
+    b3_cases = [(16, 1024, n20, n20, 1, False, n20 // 2),
+                (16, 1024, n20, n20, 1, False, 3 * n20 // 4),
+                (16, 1024, n20, n20, 1, False, None), (16, 1024, n20, n20, 2, False, None),
+                (16, 300, 70_001, 70_144, 2, True, None), (5, 40, 3001, 3072, 1, True, None),
+                (7, 33, 20_000, 20_096, 2, False, 10_112)]
+    b7_cases = [(16, 1024, n20, n20, 256, 4, False), (16, 1024, n20, n20, 128, 8, False),
+                (16, 300, 70_001, 70_144, 256, 8, True), (7, 40, 20_000, 32_768, 64, 8, True),
+                (16, 100, 50_000, 50_048, 64, 4, False), (9, 64, 9_000, 9_216, 128, 4, True)]
+    compact_cases = [(m, nc, parts, cap, nf, 0.01)
+                     for m, nc in ((1024, 4096), (256, 16_384 * 4))
+                     for parts, cap in ((1, 12), (4, 48), (8, 80), (1, 192))
+                     for nf in (1, 2)]
+    compact_cases += [(1024, 4096, 1, 48, 1, 0.006), (1024, 8192, 4, 48, 2, 0.01),
+                      (1024, 16_384, 1, 48, 1, 0.003), (1024, 8192, 1, 144, 2, 0.015),
+                      (33, 40_000, 2, 80, 1, 0.003)]
+    errs.update(phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases))
+    # And at every launch of the seeded main path: phase 2's seeded calls
+    # at their own shapes, on data of their own.
+    own = seeded_cases(device, gen, uniform(gen, (DS11[1], 16), device),
+                       uniform(gen, (1 << 20, 16), device), uniform(gen, (64, 16), device),
+                       uniform(gen, (8, 16), device))
+    for kid, err in phase1_seeded_main(own).items():
+        errs[kid] = max(errs[kid], err)
+    del own
+    torch.cuda.empty_cache()
 
     # Phase 2: each path runs with every launch counter set to 0 just
     # before it and read just after.
     counters = {"B1": fused.fused_candidates, "B2": smallm.smallm_candidates,
-                "B4": fused.banded_candidates, "B5": topk.sweep_candidates,
-                "B6": topk.smallm_topk_candidates}
+                "B3": fused.minima_candidates, "B4": fused.banded_candidates,
+                "B5": topk.sweep_candidates, "B6": topk.smallm_topk_candidates,
+                "B7": seeded.extract_moments, "B8/B9": seeded.compact_cells}
 
     def drive(path, needs, run):
         for fn in counters.values():
@@ -713,13 +1271,21 @@ def main() -> int:
     log("phase 2: top-K path")
     (calls, ctx), counts_topk = drive("top-K", ("B2", "B4", "B5", "B6"),
                                       lambda: phase2_topk(device, gen))
-    launches = {kname: counts_1nn[kname] + counts_topk[kname] for kname in counters}
+    log("phase 2: seeded top-K path")
+    cases = seeded_cases(device, gen, ctx["q1024"], ctx["r20"], ctx["q64"], ctx["q8"])
+    ctx["r22"] = cases["r22"]
+    seeded_calls, counts_seeded = drive("seeded top-K", ("B3", "B4", "B7", "B8/B9"),
+                                        lambda: phase2_seeded(device, cases))
+    launches = {kname: counts_1nn[kname] + counts_topk[kname] + counts_seeded[kname]
+                for kname in counters}
 
     # Phase 3
     log("phase 3: times")
     times = phase3(card, big11, big9, reps=10)
     topk_times, topk_shapes = phase3_topk(card, ctx, calls, reps=10)
     times.update(topk_times)
+    seeded_times, seeded_bounds = phase3_seeded(card, ctx, seeded_calls, reps=5)
+    times.update(seeded_times)
 
     for mod in ("jax", "tpu_knn"):
         if mod in sys.modules:
@@ -734,7 +1300,13 @@ def main() -> int:
         "B4": bound(*topk_shapes["B4"], 2),
         "B5": bound(*topk_shapes["B5"], 2),
         "B6": bound(*topk_shapes["B6"], 3),
+        "B3": seeded_bounds["B3 ds11 K=8"],
+        "B7": seeded_bounds["B7 ds11 K=8"],
+        "B8": seeded_bounds["compactor (16, 1024, 2^22) K=8"],
+        "B9": seeded_bounds["compactor ds11 K=8"],
     }
+    errs["B8"] = errs["B9"] = errs["B8/B9"]
+    launches["B8"] = launches["B9"] = launches["B8/B9"]
     rows = [
         ("B1", "fused_candidates", "tpu_knn/kernels/fused.py:318", "B1 kernel ds11",
          "B1 plain ds11", "matmul ds11"),
@@ -747,6 +1319,17 @@ def main() -> int:
          "matmul (16, 8, 2^20)"),
         ("B6", "smallm_topk_candidates", "tpu_knn/kernels/topk.py:262",
          "B6 kernel (16, 4, 2^24) K=16", "B6 plain (16, 4, 2^24) K=16", None),
+        ("B3", "minima_candidates", "tpu_knn/kernels/fused.py:613", "B3 kernel ds11 K=8",
+         "B3 plain ds11 K=8", "matmul ds11 (seeded)"),
+        ("B7", "extract_moments", "tpu_knn/kernels/topk.py:509", "B7 kernel ds11 K=8",
+         "B7 plain ds11 K=8", "matmul ds11 (seeded)"),
+        # One CUDA kernel serves both Pallas bodies: B8's row is timed at a
+        # part width of 16384 (B8's regime), B9's at 4096.
+        ("B8", "compact_cells (one kernel with B9)", "tpu_knn/kernels/topk.py:817",
+         "compactor kernel (16, 1024, 2^22) K=8", "compactor plain (16, 1024, 2^22) K=8",
+         None),
+        ("B9", "compact_cells (one kernel with B8)", "tpu_knn/kernels/topk.py:899",
+         "compactor kernel ds11 K=8", "compactor plain ds11 K=8", None),
     ]
     # No single PyTorch call computes a per-lane fold, so library_ms is
     # null; matmul_part_ms is cuBLAS's f32 product of the same score
@@ -760,7 +1343,8 @@ def main() -> int:
          "library_ms": None,
          "matmul_part_ms": times[t_matmul] if t_matmul else None}
         for kid, fname, replaces, t_kernel, t_plain, t_matmul in rows]
-    log(f"version {tpu_knn_torch.__version__}; {card}")
+    log(f"version {tpu_knn_torch.__version__}; {card}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

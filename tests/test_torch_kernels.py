@@ -1,5 +1,5 @@
-"""Kernels B1, B2, B4, B5 and B6 against their plain torch versions on an
-sm_90 card.
+"""Kernels B1–B7 and the B8/B9 cell compactor against their plain torch
+versions on an sm_90 card.
 
 Skipped without a card. This file imports no jax, so on a machine with the
 card but without jax it runs apart from the suite's conftest:
@@ -10,7 +10,7 @@ card but without jax it runs apart from the suite's conftest:
 import pytest
 import torch
 
-from tpu_knn_torch.kernels import fused, smallm, topk
+from tpu_knn_torch.kernels import fused, seeded, smallm, topk
 from tpu_knn_torch.kernels.fused import _refine, prep_soa, select_cutoff
 
 pytestmark = pytest.mark.cuda
@@ -146,7 +146,7 @@ def test_b5_matches_plain_and_the_passes_engine(device, k, m, n, kk, parts):
     assert topk.sweep_candidates.launches == before + 1
     want = _topk_from(topk.sweep_candidates_plain(q, r_op, n, parts, kk), q, r, n, kk)
     assert torch.equal(got[0], want[0])
-    passes = topk._build_topk(m, n, k, kk, "passes")(q, (r_op,), r)
+    passes = topk._build_topk(m, n, k, kk, r_op.shape[1], "passes")(q, (r_op,), r)
     assert torch.equal(got[0], passes[0]) and torch.equal(got[1], passes[1])
     if kk >= 2:
         assert got[0][0, :2].tolist() == [127, 128]
@@ -177,3 +177,125 @@ def test_b6_matches_plain(device, k, m, n, kk, parts):
     assert torch.equal(got[0], want[0])
     if kk >= 2:
         assert got[0][0, :2].tolist() == [127, 128]
+
+
+# ---- the seeded engine's kernels: B3, B7 and the B8/B9 compactor ----------
+
+
+def _plain_scores(q, r_op, n):
+    return torch.cat([s for _, s in fused.score_chunks(q, r_op, n)], dim=1)
+
+
+def _bound_between(s, lo_rank, hi_rank):
+    """Per row, the midpoint of the widest gap between consecutive sorted
+    scores of ranks lo_rank..hi_rank: no score lies near it, so the
+    kernel's and the plain version's last-bit differences cannot move an
+    element across it."""
+    srt = torch.sort(s, dim=1).values[:, :hi_rank + 1]
+    j = (srt[:, lo_rank + 1:] - srt[:, lo_rank:-1]).argmax(dim=1, keepdim=True) + lo_rank
+    return ((srt.gather(1, j) + srt.gather(1, j + 1)) / 2).squeeze(1).contiguous()
+
+
+@pytest.mark.parametrize("k,m,n,depth,banded,n_limit", [
+    (16, 100, 70_000, 1, False, None), (16, 100, 70_000, 2, False, None),
+    (5, 40, 3001, 1, True, None), (16, 9, 70_000, 1, False, 32_768),
+    (7, 33, 20_000, 2, True, 10_000), (40, 3, 5000, 2, False, None),
+])
+def test_b3_matches_plain_and_b1(device, k, m, n, depth, banded, n_limit):
+    q, r, r_op = _inputs(device, m, k, n, seed=k + m + depth)
+    lo = _bound_between(_plain_scores(q, r_op, n), 3, 40) if banded else None
+    before = fused.minima_candidates.launches
+    got = fused.minima_candidates(q, r_op, n, depth=depth, lo=lo, n_limit=n_limit)
+    torch.cuda.synchronize()
+    assert fused.minima_candidates.launches == before + 1
+    want = fused.minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
+    assert got.shape == want.shape == (m, 128 * depth)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    scale = want[fin].abs().max()
+    assert ((got - want)[fin].abs() <= max(1e-5, 4 * k * 2.0 ** -24) * scale).all()
+    if not banded:
+        # Bit-identical to B1's lane minima over the same prefix.
+        n_eff = n if n_limit is None else min(n, n_limit)
+        _, b1 = fused.fused_candidates(q, r_op, n_eff, 1)
+        assert torch.equal(got[:, :128], b1)
+
+
+@pytest.mark.parametrize("k,m,n,n_ops,cell,nf,banded", [
+    (16, 100, 70_000, 70_144, 256, 4, False), (16, 100, 70_000, 70_016, 128, 8, False),
+    (7, 40, 20_000, 32_768, 64, 8, True), (5, 9, 3000, 3072, 256, 8, True),
+    (16, 33, 50_000, 50_048, 64, 4, False),
+])
+def test_b7_packed_words_equal_plain(device, k, m, n, n_ops, cell, nf, banded):
+    q, r, _ = _inputs(device, m, k, n, seed=n + cell + nf)
+    r_op = prep_soa(r, n_ops)
+    s = _plain_scores(q, r_op, n)
+    bound = _bound_between(s, 60, 200)
+    lo = _bound_between(s, 5, 40) if banded else None
+    before = seeded.extract_moments.launches
+    got = seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded)
+    torch.cuda.synchronize()
+    assert seeded.extract_moments.launches == before + 1
+    want = seeded.extract_moments_plain(q, r_op, n, bound, cell, nf, lo, banded)
+    assert len(got) == len(want)
+    for g, w in zip(got[:1 + (nf == 8)], want):
+        assert g.shape == (m, n_ops // cell) and torch.equal(g, w)
+    assert bool((got[0] != 0).any())
+    if banded:
+        fin = torch.isfinite(want[-1])
+        assert torch.equal(fin, torch.isfinite(got[-1]))
+        scale = want[-1][fin].abs().max()
+        assert ((got[-1] - want[-1])[fin].abs() <= 1e-5 * scale).all()
+
+
+def _fields(device, m, nc, nf, density, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    qual = torch.rand((m, nc), generator=gen, device=device) < density
+    f0 = torch.randint(1, 1 << 30, (m, nc), generator=gen, device=device, dtype=torch.int32)
+    out = [torch.where(qual, f0, 0)]
+    if nf == 2:
+        f1 = torch.randint(0, 1 << 30, (m, nc), generator=gen, device=device,
+                           dtype=torch.int32)
+        out.append(torch.where(qual, f1, 0))
+    return out
+
+
+@pytest.mark.parametrize("m,nc,parts,cap,nf,density", [
+    (16, 512, 1, 8, 1, 0.02), (16, 512, 1, 8, 2, 0.08), (12, 1024, 4, 8, 2, 0.02),
+    (8, 8192, 1, 48, 2, 0.004), (4, 16_384, 1, 16, 2, 0.001),
+    (100, 32_768, 8, 192, 2, 0.01), (33, 40_000, 2, 80, 1, 0.003), (16, 512, 1, 8, 2, 0.0),
+])
+def test_compactor_matches_plain(device, m, nc, parts, cap, nf, density):
+    """Part widths on both sides of 8192 (tpu_knn's two Pallas bodies)."""
+    fields = _fields(device, m, nc, nf, density, seed=m + nc + cap)
+    before = seeded.compact_cells.launches
+    got = seeded.compact_cells(fields, parts, cap)
+    torch.cuda.synchronize()
+    assert seeded.compact_cells.launches == before + 1
+    want = seeded.compact_cells_plain(fields, parts, cap)
+    assert len(got) == nf + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,k,n,kk", [(64, 16, 70_000, 8), (40, 7, 40_000, 32),
+                                      (16, 8, 1 << 16, 128), (24, 8, 1 << 16, 200)])
+def test_seeded_engine_matches_an_exact_scan(device, m, k, n, kk):
+    """The seeded engine selects by exact d2, so it agrees with an exact
+    diff-form scan; a rank may differ only between two points whose d2
+    agree to f32 rounding."""
+    q, r, _ = _inputs(device, m, k, n, seed=m * kk)
+    counts = [fused.minima_candidates.launches, seeded.extract_moments.launches,
+              seeded.compact_cells.launches]
+    si, sd = topk.topk_knn(q, r, kk, method="seeded")
+    torch.cuda.synchronize()
+    assert fused.minima_candidates.launches > counts[0]
+    assert seeded.extract_moments.launches > counts[1]
+    assert seeded.compact_cells.launches > counts[2]
+    d2 = ((q[:, None, :] - r[None, :, :]) ** 2).sum(dim=-1)
+    wd, wi = torch.sort(d2, dim=1, stable=True)    # (d2, index) lex order
+    wd, wi = wd[:, :kk], wi[:, :kk].to(torch.int32)
+    torch.testing.assert_close(sd, wd, rtol=1e-6, atol=1e-7)
+    bad = si != wi
+    assert ((sd - wd).abs()[bad] <= 1e-6 * wd.abs().max()).all()

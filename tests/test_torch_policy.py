@@ -125,3 +125,104 @@ def test_cuda_launch_geometry_covers_n():
                 blocks = -(-m // tm) * parts
                 assert blocks >= min(2 * pt_tuning.H100_SMS, groups * -(-m // tm))
     assert np.all([pt_smallm.default_parts(n) <= -(-n // 128) for n in NS])
+
+
+# ---- the seeded engine's cell policy and capacity ladder ------------------
+
+SEEDED_KS = [1, 2, 8, 9, 16, 17, 32, 33, 48, 64, 65, 96, 128, 129, 200, 300, 512]
+N_OPS = [128, 384, 1024, 1536, 2048, 6016, 8192, 32768, 65536, 70016, 1 << 20, 1 << 22]
+
+
+def test_seeded_constants():
+    from tpu_knn_torch.kernels import seeded as pt_seeded
+
+    for name in ("SEEDED_ROUND_K", "EXTRACT_TILE_N_CUBIC", "EXTRACT_TILE_N_HEX",
+                 "EXTRACT_TILE_N_QUAD", "EXTRACT_TILE_N_OCT", "SEEDED_CHUNK_ROWS",
+                 "_EXTRACT_FIELDS", "_EXTRACT_FIELDS_CUBIC", "RERANK_COMPACT_CAP"):
+        assert getattr(pt_seeded, name) == getattr(jx_topk, name), name
+    for nf in (4, 8):
+        assert pt_seeded._solvable_for(nf) == jx_topk._solvable_for(nf)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 17, 64, 128, 768])
+def test_extract_mode_and_tile(k):
+    from tpu_knn_torch.kernels import seeded as pt_seeded
+
+    for n_ops in N_OPS:
+        for max_t in (2048, 4096, 8192):
+            t = pt_seeded._extract_tile_n(n_ops, max_t, k)
+            assert t == jx_topk._extract_tile_n(n_ops, max_t, k), (n_ops, max_t)
+            for kk in SEEDED_KS:
+                assert pt_seeded._extract_mode(t, kk) == jx_topk._extract_mode(t, kk)
+
+
+def _jax_ladder(m, n, k, kk, n_ops, precision):
+    """tpu_knn's single-round capacity ladder, read from its builders where
+    they expose it (the extraction's cell and fields) and otherwise
+    transcribed from tpu_knn/kernels/topk.py:1671-1772 and :1909-1916."""
+    max_tile_n = (jx_topk.EXTRACT_TILE_N_QUAD if kk <= 16 else
+                  jx_topk.EXTRACT_TILE_N_OCT if kk <= 32 else
+                  jx_topk.EXTRACT_TILE_N_CUBIC if kk <= 64 else jx_topk.EXTRACT_TILE_N_HEX)
+    tile_n = jx_topk._extract_tile_n(n_ops, max_tile_n, k)
+    ext = jx_topk._build_extract_candidates(m, n, k, 8, tile_n, precision,
+                                            n_ops=n_ops, kk=kk)
+    _, p1_tile_n = jx_tuning.pick_tiles(k, m, n, wide=precision == "packed")
+    p1_tile_n = min(p1_tile_n, n_ops)
+    while n_ops % p1_tile_n != 0:
+        p1_tile_n -= 128
+    p1_limit = None
+    if kk <= 16 and n_ops >= (1 << 16):
+        num, den = (1, 2) if kk <= 8 else (3, 4)
+        part = (n_ops * num // den) // p1_tile_n * p1_tile_n
+        if part >= p1_tile_n and min(n, part) >= 1024:
+            p1_limit = part
+    nc = n_ops // ext.cell
+    cap_full = min(nc, ((4 if kk <= 8 else 3) * kk + 16) if p1_limit else (2 * kk + 16), 256)
+    cap_fast = cap_full if p1_limit else min(cap_full, 96 if kk > 64 else 48)
+    nparts = 8 if kk > 64 else 4 if kk > 32 else 1
+    while nc % nparts != 0 or (nparts > 1 and nc // nparts % 128):
+        nparts //= 2
+    esc_parts = 2 if kk > 64 and nc % 2 == 0 and (nc // 2) % 128 == 0 else 1
+    return {"cell": ext.cell, "n_fields": ext.n_fields, "solvable": ext.solvable,
+            "depth": 2 if kk > 64 else 1, "p1_limit": p1_limit, "nc": nc,
+            "cap_fast": cap_fast, "nparts": nparts,
+            "escalates": not (cap_full == cap_fast and nparts == 1),
+            "esc_cap": min(cap_full, 192) if esc_parts > 1 else cap_full,
+            "esc_parts": esc_parts}
+
+
+@pytest.mark.parametrize("k", [3, 8, 16, 64])
+def test_seeded_ladder(k):
+    """The port's seeded_geometry (cells, bound prefix, caps and parts)
+    equals tpu_knn's on the operand widths the per-call path pads to, at
+    tpu_knn's own score tier for (k, n)."""
+    from tpu_knn_torch.kernels import seeded as pt_seeded
+
+    for m in (40, 1024):
+        for n in (3000, 40_000, 70_000, 1 << 20):
+            _, tile_n = jx_tuning.pick_tiles(k, m, n)
+            n_ops = -(-n // tile_n) * tile_n
+            for kk in SEEDED_KS:
+                if pt_seeded.uses_rounds(kk, n_ops):
+                    got = pt_seeded.rounds_geometry(n_ops, k, kk)
+                    t = jx_topk._extract_tile_n(n_ops, jx_topk.EXTRACT_TILE_N_CUBIC, k)
+                    assert (got["cell"], got["n_fields"]) == jx_topk._extract_mode(t, 64)
+                    continue
+                want = _jax_ladder(m, n, k, kk, n_ops, jx_fused.auto_precision(k, n))
+                assert pt_seeded.seeded_geometry(m, n, k, kk, n_ops) == want, (m, n, kk)
+
+
+@pytest.mark.parametrize("k", [3, 16, 64, 768])
+def test_percall_width(k):
+    """A per-call seeded operand is as wide as tpu_knn's (its cells depend
+    on the width); the sweep and passes engines pad only to the lane."""
+    for m in (5, 8, 64, 256, 1024):
+        for n in NS:
+            for kk in (1, 8, 32, 64, 300):
+                for method in ("auto", "seeded", "passes"):
+                    want = 128
+                    if (jx_topk._auto_method(m, kk) if method == "auto"
+                            else method) == "seeded":
+                        want = jx_tuning.pick_tiles(k, m, n)[1]
+                    got = pt_topk._percall_width(m, n, k, kk, method)
+                    assert got == -(-n // want) * want, (m, n, kk, method)

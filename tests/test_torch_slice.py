@@ -139,10 +139,10 @@ def test_from_state_rejects_a_foreign_operand(jax_index):
 def test_index_surface_not_ported_yet_raises():
     r = np.random.default_rng(2).random((500, 4), np.float32)
     ix = tpu_knn_torch.NNIndex(r, device="cpu")
-    # Top-K is served; its batch-regime engine (m*K > 256) is not yet.
+    # Top-K is served, the batch regime (m*K > 256, the seeded engine) too.
     assert ix.query(r[:2], neighbors=3)[0].shape == (2, 3)
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        ix.query(r[:20], neighbors=20)
+    idx, _ = ix.query(r[:20], neighbors=20)
+    np.testing.assert_array_equal(idx.numpy(), _oracle_topk(r[:20], r, 20))
     with pytest.raises(NotImplementedError, match="A.6"):
         ix.save("unused.npz")
     for kwargs, item in (({"strategy": "kdtree"}, "A.8"),
@@ -155,8 +155,13 @@ def test_index_surface_not_ported_yet_raises():
             tpu_knn_torch.NNIndex(r, device="cpu", **kwargs)
     with pytest.raises(ValueError):
         tpu_knn_torch.NNIndex(r, strategy="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        tpu_knn_torch.nearest_neighbors(r[:20], r, neighbors=20, device="cpu")
+    got = tpu_knn_torch.nearest_neighbors(r[:20], r, neighbors=20, device="cpu")
+    np.testing.assert_array_equal(got, _oracle_topk(r[:20], r, 20))
+
+
+def _oracle_topk(q, r, kk):
+    d2 = ((q[:, None, :] - r[None, :, :]) ** 2).sum(-1)
+    return np.lexsort((np.tile(np.arange(r.shape[0]), (q.shape[0], 1)), d2))[:, :kk]
 
 
 def test_device_rule():
@@ -215,6 +220,10 @@ def test_port_never_imports_jax():
         "assert (ix.query(r[:2], neighbors=3)[0].numpy()[:, 0] == [0, 1]).all()\n"
         "i, _ = tpu_knn_torch.topk_knn(r[:9], r, 4, method='passes', device='cpu')\n"
         "assert (i.numpy()[:, 0] == np.arange(9)).all()\n"
+        "i, _ = tpu_knn_torch.topk_knn(r[:40], r, 8, device='cpu')\n"
+        "assert (i.numpy()[:, 0] == np.arange(40)).all()\n"
+        "g, _ = tpu_knn_torch.knn_graph(r[:600], 5, device='cpu')\n"
+        "assert g.shape == (600, 5)\n"
         "print(sorted({'jax', 'tpu_knn'} & set(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

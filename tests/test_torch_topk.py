@@ -172,21 +172,21 @@ def test_nearest_neighbors_topk_and_validation():
                          device="cpu")
 
 
-def test_seeded_raises_until_ported():
+def test_seeded_batch_regime_answers():
+    """The calls that raised until the seeded engine was ported now
+    answer, as the passes engine and the oracle do."""
     rng = np.random.default_rng(5)
     r = rng.random((3000, 4), np.float32)
     q = rng.random((40, 4), np.float32)
     assert pt_topk._auto_method(40, 8) == "seeded"
-    for kwargs in ({"method": "seeded"}, {}):
-        with pytest.raises(NotImplementedError, match="A.5.4"):
-            pt_topk.topk_knn(q, r, 8, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        pt_topk.topk_knn(q[:8], r, 33, device="cpu")     # K > 32: seeded
-    with pytest.raises(NotImplementedError, match="A.5.4"):
-        tpu_knn_torch.NNIndex(r, device="cpu").query(q, neighbors=8)
-    # 'passes' serves the batch regime meanwhile.
-    idx, _ = pt_topk.topk_knn(q, r, 8, method="passes", device="cpu")
-    np.testing.assert_array_equal(idx.numpy(), oracle_topk(q, r, 8))
+    want = oracle_topk(q, r, 8)
+    for kwargs in ({"method": "seeded"}, {}, {"method": "passes"}):
+        idx, _ = pt_topk.topk_knn(q, r, 8, device="cpu", **kwargs)
+        np.testing.assert_array_equal(idx.numpy(), want)
+    idx, _ = pt_topk.topk_knn(q[:8], r, 33, device="cpu")     # K > 32: seeded
+    np.testing.assert_array_equal(idx.numpy(), oracle_topk(q[:8], r, 33))
+    idx, _ = tpu_knn_torch.NNIndex(r, device="cpu").query(q, neighbors=8)
+    np.testing.assert_array_equal(idx.numpy(), want)
 
 
 @pytest.mark.parametrize("m,cap,method", [(3, 16, "auto"), (6, 16, "auto"),

@@ -10,14 +10,15 @@ torch and never jax; tpu_knn stays the reference it is tested against.
     >>> idx, d2 = index.query(queries)
     >>> idx, d2 = index.query(queries, neighbors=16)           # exact top-K
     >>> idx, d2 = tpu_knn_torch.topk_knn(queries, refs, 16)
+    >>> idx, d2 = tpu_knn_torch.knn_graph(points, 15)            # K-NN graph
 
 NumPy inputs go to ``device=`` (default "cuda"); torch tensors run where
-they are. The hand-written kernels (B1, B2, B4, B5, B6 in
+they are. The hand-written kernels (B1–B7 and the B8/B9 cell compactor in
 csrc/knn_kernels.cu) run on an sm_90 card; on the CPU their plain torch
 versions run instead.
 """
 
-from tpu_knn_torch.api import knn_callback, nearest_neighbors
+from tpu_knn_torch.api import knn_callback, knn_graph, nearest_neighbors
 from tpu_knn_torch.engine.registry import get_version, list_versions, register_version
 
 #: Lazily-imported public symbols (PEP 562), as in tpu_knn.
@@ -44,6 +45,7 @@ __version__ = "0.1.0"
 __all__ = [
     "nearest_neighbors",
     "knn_callback",
+    "knn_graph",
     "NNIndex",
     "topk_knn",
     "within_radius",

@@ -10,9 +10,10 @@ is placed on ``device`` (utils/platform.py).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpu_knn_torch.engine.registry import best_available_version, get_version
-from tpu_knn_torch.utils.platform import as_f32_pair
+from tpu_knn_torch.utils.platform import as_f32, as_f32_pair
 
 
 def knn_callback(k: int, m: int, n: int, search, ref, version: str | None = None,
@@ -61,3 +62,49 @@ def nearest_neighbors(search, ref, version: str | None = None,
         idx, _d2 = topk_knn(search, ref, neighbors)
         return idx.cpu().numpy().astype(np.int32)
     return knn_callback(k, m, n, search, ref, version=version, device=device)
+
+
+def _graph_compact(idx, d2, neighbors: int):
+    """K+1 -> K self-compaction for knn_graph: drop one slot per row, the
+    row's own index or, where it is absent, the trailing runner-up:
+    out[j] = in[j] for j < drop, else in[j + 1] (an elementwise select
+    between two slices; no sort)."""
+    n = idx.shape[0]
+    pos = torch.arange(neighbors + 1, dtype=torch.int32, device=idx.device)[None]
+    own = torch.arange(n, dtype=idx.dtype, device=idx.device)[:, None]
+    drop = torch.where(idx == own, pos, neighbors).min(dim=1, keepdim=True).values
+    keep = pos[:, :neighbors] < drop
+    return (torch.where(keep, idx[:, :neighbors], idx[:, 1:]),
+            torch.where(keep, d2[:, :neighbors], d2[:, 1:]))
+
+
+def knn_graph(points, neighbors: int, *, mesh=None, device="cuda"):
+    """Exact K-nearest-neighbor graph of a point set: for each point, the
+    K nearest other points (the manifold-learning / UMAP-style input).
+
+    Self-exclusion is by index, not by distance: duplicate points remain
+    each other's neighbors. The set is queried against itself for K+1
+    results through the exact top-K engines (the batch regime routes to
+    the seeded engine), then each row drops its own index, or the
+    trailing runner-up where K+1 exact duplicates precede it.
+
+    Returns (idx (n, K) int32, d2 (n, K) f32) tensors, rows ascending by
+    exact (d2, index). A tensor stays on its device; anything else is
+    placed on ``device``. ``mesh`` (the sharded self-join) is not ported:
+    ROADMAP item A.9.
+    """
+    from tpu_knn_torch.kernels.topk import PASSES_MAX_NEIGHBORS, topk_knn
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "knn_graph(mesh=) is not ported to tpu_knn_torch yet: ROADMAP item A.9")
+    points = as_f32(points, device)
+    n = points.shape[0]
+    if not (1 <= neighbors <= min(n - 1, PASSES_MAX_NEIGHBORS - 1)):
+        raise ValueError(
+            f"neighbors must be in [1, min(n - 1, "
+            f"{PASSES_MAX_NEIGHBORS - 1})] = "
+            f"[1, {min(n - 1, PASSES_MAX_NEIGHBORS - 1)}], "
+            f"got {neighbors} (each point needs K OTHER points)")
+    idx, d2 = topk_knn(points, points, neighbors + 1)
+    return _graph_compact(idx, d2, neighbors)

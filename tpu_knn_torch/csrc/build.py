@@ -108,6 +108,13 @@ def load() -> ctypes.CDLL:
     lib.tk_smallm_topk_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                               i64, i32, i32, i32, ptr]
     lib.tk_smallm_topk_candidates.restype = i32
+    lib.tk_minima_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64,
+                                         i32, i32, i32, i32, ptr]
+    lib.tk_minima_candidates.restype = i32
+    lib.tk_extract_moments.argtypes = [ptr] * 8 + [i32, i32, i64] + [i32] * 6 + [ptr]
+    lib.tk_extract_moments.restype = i32
+    lib.tk_compact_cells.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.tk_compact_cells.restype = i32
     lib.tk_error_string.argtypes = [i32]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib

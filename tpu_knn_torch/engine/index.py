@@ -271,7 +271,7 @@ class NNIndex:
             idx, d2 = _build_aos_topk(mb, self.n, self.k, neighbors)(
                 search, self.ref_dev)
             return idx[:m], d2[:m]
-        run = _build_topk(mb, self.n, self.k, neighbors)
+        run = _build_topk(mb, self.n, self.k, neighbors, self.r_ops[0].shape[1])
         idx, d2 = run(search, self.r_ops, self.ref_dev)
         return idx[:m], d2[:m]
 

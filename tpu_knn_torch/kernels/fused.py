@@ -299,6 +299,98 @@ def default_parts(m: int, k: int, n: int) -> int:
     return pick_parts(cdiv(m, cuda_tile_m(m, k)), n, B1_BLOCKS_PER_SM)
 
 
+# ---- B3: value-only per-lane minima (the seeded engines' bound pass) ----
+
+#: The plain versions of B3 and B7 score the operand in chunks of this
+#: many columns, at the same boundaries, so that a column gets the same
+#: f32 score from both (and a (m, n) score matrix is never held at once).
+SCORE_CHUNK = 1 << 16
+
+
+def score_chunks(q, r_op, n: int):
+    """(first column, (m, width) scores) over [0, n) in SCORE_CHUNK
+    pieces: norm_scores' arithmetic, chunk by chunk."""
+    k = q.shape[1]
+    for c0 in range(0, n, SCORE_CHUNK):
+        r = r_op[:k, c0:min(n, c0 + SCORE_CHUNK)]
+        yield c0, (r * r).sum(dim=0) - 2.0 * (q @ r)
+
+
+def _lane_groups(s: torch.Tensor) -> torch.Tensor:
+    """(m, w) -> (m, ceil(w/128), 128), +inf in the ragged tail."""
+    m, w = s.shape
+    s = torch.nn.functional.pad(s, (0, round_up(w, LANE) - w), value=torch.inf)
+    return s.view(m, -1, LANE)
+
+
+def minima_candidates_plain(q, r_op, n: int, depth: int = 1, lo=None,
+                            n_limit: int | None = None):
+    """B3's plain torch version: score_chunks over the first
+    min(n, n_limit) columns, only s > lo[row] where lo is given, NaN
+    never entering; per lane (column mod 128) the smallest score, and
+    for depth 2 also the second smallest (of the multiset), as
+    [min1 lanes | min2 lanes]; +inf where a lane has too few scores."""
+    n_eff = n if n_limit is None else min(n, n_limit)
+    m = q.shape[0]
+    best = torch.full((m, depth, LANE), torch.inf, dtype=torch.float32,
+                      device=q.device)
+    for c0, s in score_chunks(q, r_op, n):
+        if c0 >= n_eff:
+            break
+        col = c0 + torch.arange(s.shape[1], device=s.device)
+        keep = (col < n_eff) & ~torch.isnan(s)
+        if lo is not None:
+            keep = keep & (s > lo[:, None])
+        g = _lane_groups(torch.where(keep, s, torch.inf))
+        if depth == 1:
+            best = torch.minimum(best, g.min(dim=1, keepdim=True).values)
+        else:
+            both = torch.cat([best, g], dim=1)
+            best = torch.topk(both, 2, dim=1, largest=False).values
+    return best.reshape(m, depth * LANE)
+
+
+def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
+                      depth: int = 1, lo: torch.Tensor | None = None,
+                      n_limit: int | None = None):
+    """(m, k) queries x (k_pad, >= n) SoA operand -> (m, 128*depth) f32:
+    the value-only per-lane minima of B1's scores over the first
+    min(n, n_limit) columns (see minima_candidates_plain), optionally
+    only the scores above lo (m,) f32. The scores are bit-identical to
+    B1's and B7's on the card, which the seeded engine's bound relies on.
+    CPU tensors take the plain version; CUDA tensors launch B3 or raise."""
+    if depth not in (1, 2):
+        raise ValueError(f"depth must be 1 or 2, got {depth}")
+    n_eff = n if n_limit is None else min(n, n_limit)
+    if n_eff < 1:
+        raise ValueError(f"n_limit={n_limit} leaves no column")
+    _check_candidate_operands(q, r_op, n, 1)
+    m, k = q.shape
+    if lo is not None:
+        _check_bound(lo, m, torch.float32, q.device, "lo")
+    if q.device.type == "cpu":
+        return minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
+    from tpu_knn_torch.csrc.build import check, load
+
+    lib = load()
+    parts = default_parts(m, k, n_eff)      # B1's grid
+    partial = torch.empty((m, parts * depth * LANE), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((m, depth * LANE), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_minima_candidates(
+            q.data_ptr(), r_op.data_ptr(), lo.data_ptr() if lo is not None else None,
+            partial.data_ptr(), out.data_ptr(), m, k, r_op.stride(0), n_eff, parts,
+            cuda_tile_m(m, k), depth, torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B3 minima_candidates")
+    minima_candidates.launches += 1
+    return out
+
+
+#: Kernel launches of B3 (CUDA tensors only; the plain version is not counted).
+minima_candidates.launches = 0
+
+
 # ---- exact selection ------------------------------------------------
 
 

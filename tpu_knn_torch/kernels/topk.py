@@ -18,9 +18,11 @@ engines:
   card, so the two engines agree exactly.
 - "aos": the zero-prep per-call engine for m <= 4 over the caller's (n, k)
   array, torch ops (plain XLA in tpu_knn).
+- "seeded" (auto in the batch regime, m*K > 256 or K > 32): the bound
+  pass B3, the moment extraction B7, the cell compactor (B8/B9) and an
+  exact rerank, with the passes engine as its certified fallback
+  (kernels/seeded.py).
 
-The batch-regime "seeded" engine (auto at m*K > 256 or K > 32) is not
-ported yet: it raises NotImplementedError naming ROADMAP item A.5.4.
 The kernels compute the f32 "highest" tier.
 """
 
@@ -40,7 +42,7 @@ from tpu_knn_torch.kernels.smallm import (
     smallm_applicable, smallm_candidates,
 )
 from tpu_knn_torch.kernels.smallm import default_parts as smallm_parts
-from tpu_knn_torch.kernels.tuning import LANE, MAX_QUERY_SMEM, pick_parts
+from tpu_knn_torch.kernels.tuning import LANE, MAX_QUERY_SMEM, pick_parts, pick_tiles
 from tpu_knn_torch.utils.platform import as_f32_pair
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
@@ -55,7 +57,7 @@ PASSES_MAX_NEIGHBORS = 512
 #: Largest K the single-sweep engine serves.
 SWEEP_MAX_NEIGHBORS = 32
 
-#: Largest K the seeded engine serves (not ported yet: ROADMAP A.5.4).
+#: Largest K the seeded engine serves.
 SEEDED_MAX_NEIGHBORS = PASSES_MAX_NEIGHBORS
 
 #: Auto-routing boundary between the sweep and the seeded engine (m*K).
@@ -70,12 +72,13 @@ def _auto_method(m: int, kk: int) -> str:
     return "passes"
 
 
-def _seeded_not_ported():
-    return NotImplementedError(
-        "method='seeded' (the batch-regime extraction engine, auto at "
-        f"m*K > {SWEEP_AUTO_BUDGET} or K > {SWEEP_MAX_NEIGHBORS}) is not "
-        "ported to tpu_knn_torch yet: ROADMAP item A.5.4; method='passes' "
-        "serves any K")
+def _percall_width(m: int, n: int, k: int, kk: int, method: str) -> int:
+    """Operand width of a per-call top-K. The seeded engine's cells are a
+    function of it, so its operand (which its passes fallback shares) is
+    padded to the tile tpu_knn pads to; the sweep and passes engines
+    mask columns >= n, so theirs is padded to the lane."""
+    resolved = _auto_method(m, kk) if method == "auto" else method
+    return round_up(n, pick_tiles(k, m, n)[1] if resolved == "seeded" else LANE)
 
 
 # ---- launch geometry of B5 and B6 --------------------------------------
@@ -309,10 +312,13 @@ smallm_topk_candidates.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _build_topk(m: int, n: int, k: int, kk: int, method: str = "auto"):
-    """Top-K pipeline against a prepared (k_pad, >= n) SoA operand plus
-    the AoS array for exact distances. Returns run(search, r_ops,
-    ref_aos) -> (idx (m, kk) int32, d2 (m, kk) f32)."""
+def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto"):
+    """Top-K pipeline against a prepared (k_pad, n_ops) SoA operand plus
+    the AoS array for exact distances. The seeded engine's cells are a
+    function of the operand width n_ops, as in tpu_knn. Returns
+    run(search, r_ops, ref_aos) -> (idx (m, kk) int32, d2 (m, kk) f32)."""
+    if n_ops < n or n_ops % LANE != 0:
+        raise ValueError(f"operand width {n_ops} incompatible with n={n}")
     if method == "auto":
         method = _auto_method(m, kk)
     if method == "sweep":
@@ -341,7 +347,9 @@ def _build_topk(m: int, n: int, k: int, kk: int, method: str = "auto"):
 
         return run_sweep
     if method == "seeded":
-        raise _seeded_not_ported()
+        from tpu_knn_torch.kernels.seeded import _build_seeded
+
+        return _build_seeded(m, n, k, kk, n_ops)
     if method != "passes":
         raise ValueError(f"unknown top-K method {method!r}")
     parts = fused_parts(m, k, n)
@@ -440,10 +448,11 @@ def _build_topk_percall(m: int, n: int, k: int, kk: int, method: str = "auto"):
             raise ValueError(
                 f"aos top-K serves K <= {MAX_NEIGHBORS}, got {kk}")
         return _build_aos_topk(m, n, k, kk)
-    run = _build_topk(m, n, k, kk, method)
+    n_ops = _percall_width(m, n, k, kk, method)
+    run = _build_topk(m, n, k, kk, n_ops, method)
 
     def go(search, ref):
-        return run(search, (prep_soa(ref, round_up(n, LANE)),), ref)
+        return run(search, (prep_soa(ref, n_ops),), ref)
 
     return go
 
@@ -453,12 +462,14 @@ def topk_knn(search, ref, neighbors: int, method: str = "auto", device="cuda"):
 
     Returns (idx (m, K) int32, d2 (m, K) f32) tensors on the inputs'
     device, each row ascending by exact (squared distance, index).
-    Requires neighbors <= n. `method`: "aos" (zero-prep scan, m <= 4 and
-    K <= 128 — the per-call default in that regime), "sweep" (one
-    reference read, K <= SWEEP_MAX_NEIGHBORS), "passes" (K banded reads,
-    K <= PASSES_MAX_NEIGHBORS), or "auto" (tpu_knn's routing). "seeded",
-    and "auto" where it resolves to it, raise NotImplementedError
-    (ROADMAP A.5.4).
+    Requires neighbors <= n. `method` selects the engine: "aos" (zero-prep
+    scan, m <= 4 and K <= 128 — the per-call default in that regime),
+    "sweep" (one reference read, K <= SWEEP_MAX_NEIGHBORS), "passes" (K
+    banded reads, K <= PASSES_MAX_NEIGHBORS), "seeded" (the extraction
+    engine — single-round to K = 64, score-band rounds at ~2 reads per 64
+    results beyond, to K <= PASSES_MAX_NEIGHBORS), or "auto" (tpu_knn's
+    routing; the passes engine remains every tier's certified fallback
+    and the radius-escalation workhorse).
     """
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
