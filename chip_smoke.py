@@ -20,10 +20,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    (identical, at part widths on both sides of 8192); then every B3, B7
    and compactor launch of the seeded main path against its plain
    version (SeededLaunchCheck), with phase 2's seeded calls run once on
-   data of their own;
+   data of their own; then the 1-NN ladder's kernels: B10 (index-equal to
+   B1 at the same partition count) on a grid and at v5's launches of phase
+   2, B11 (windows of 1 + 1 and 64 + 1 tiles, n ragged against 4096, a
+   window at the last tile with planted duplicates, and the auto path's
+   (3, 16, 2^24) launch, at one split and the default splits), and B1's
+   AoS (v3) and constant-query (v6) variants, bit-equal to B1;
 2. the main paths, each with every launch counter set to 0 just before it
    and read just after:
-   - 1-NN: the 8 TA shapes through knn_callback (v7 default, v4, v0)
+   - 1-NN: the 8 TA shapes through knn_callback (v7 default, v4)
      against tests/golden/results_seed1000.csv, and ds11 = (16, 1024,
      2^20) / ds9 = (16, 1, 2^24) per call and through NNIndex, checked by
      an independent exact scan on the card with the harness's ±1e-3 rule;
@@ -40,9 +45,19 @@ Phases, in order; any failure raises and the script exits nonzero:
      checked, within_radius_complete at m = 8 past
      cap 32, and knn_graph(points, 15) at (k = 16, n = 2^17) with K + 2
      exact duplicates, every row gated;
+   - the 1-NN ladder: the harness runner (tpu_knn_torch.harness.runner)
+     over the TA shapes with every registered version, v0's CSV equal to
+     the golden file and 0 errors for the rest; v1, v2, v3, v5, v6 and v11
+     at each of ds8..ds11 that its guard admits, against the exact scan;
+   - auto and projection serving over (3, 2^24): NNIndex(strategy="auto")
+     (the probe's certification rate; m = 16 routed to projection, m = 64
+     to fused), NNIndex(strategy="projection") at m = 16, and a planted
+     identical-projection case that must take the fallback scan;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
-   cuBLAS product of the score matrices and the main paths, each printed
-   beside the card's name and power limit, and the bounds.
+   cuBLAS product of the score matrices and the main paths (among them
+   the ladder's per-call rows and prepared auto against prepared fused,
+   with device time and idle per host read from torch.profiler), each
+   printed beside the card's name and power limit, and the bounds.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -60,8 +75,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden", "results_seed1000.csv")
 
-DS11 = (16, 1024, 1 << 20)
+DS8 = (3, 1, 1 << 24)
 DS9 = (16, 1, 1 << 24)
+DS10 = (3, 1024, 1 << 20)
+DS11 = (16, 1024, 1 << 20)
 
 #: Phase 1 tolerances: candidate indices agree on at least this share of
 #: (row, lane) slots (a near-tie inside one lane may resolve differently
@@ -71,8 +88,16 @@ MIN_INDEX_AGREEMENT = 0.9999
 SCORE_RTOL = 1e-5
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def stamp(what: str):
+    """Log the script's elapsed seconds as `what` ends."""
+    log(f"  [{time.perf_counter() - _T0:.1f} s: {what} done]")
 
 
 def fail(msg: str):
@@ -313,16 +338,18 @@ def exact_scan(q, r, chunk_elems=1 << 28):
     return best_i
 
 
-def gate_errors(q, r, idx) -> int:
+def gate_errors(q, r, idx, want=None) -> int:
     """The harness rule (tpu_knn_torch.harness.checker.check_results) on
-    the card: an index is right if it equals the exact scan's, or if the
-    two points' true distances agree within ±1e-3."""
+    the card: an index is right if it equals the exact scan's (``want``,
+    computed here unless given), or if the two points' true distances agree
+    within ±1e-3."""
     import torch
 
     from tpu_knn_torch.harness.checker import TOLERANCE
 
     idx = torch.as_tensor(idx, device=q.device).long()
-    want = exact_scan(q, r)
+    if want is None:
+        want = exact_scan(q, r)
 
     def true_d(i):
         return ((q - r[i]) ** 2).sum(dim=1).sqrt()
@@ -342,7 +369,8 @@ def read_golden():
 
 def phase2_ta(device):
     """The 8 TA shapes through knn_callback: exact golden indices and
-    0 errors under the harness rule, for v7 (default), v4 and v0."""
+    0 errors under the harness rule, for v7 (default) and v4 (v0, the host
+    oracle, meets the golden file in the ladder path's runner)."""
     import numpy as np
 
     import tpu_knn_torch
@@ -351,7 +379,7 @@ def phase2_ta(device):
 
     golden = read_golden()
     for ((k, m, n), search, ref), gold in zip(ta_sample_stream(), golden):
-        for version in (None, "v4", "v0"):
+        for version in (None, "v4"):
             idx = tpu_knn_torch.knn_callback(k, m, n, search, ref,
                                              version=version, device=device)
             errors, total = check_results(gold, idx, search, ref)
@@ -943,6 +971,232 @@ def phase2_seeded(device, cases):
     return calls
 
 
+# ---- the 1-NN ladder: phase 1 (B10, B11, B1's variants) and phase 2 ---------
+
+
+def phase1_b10(device, gen, cases):
+    """B10 against its plain version, and index-equal to B1 at the same
+    partition count. B10 emits indices only: its error is the largest
+    |d2| difference of the refined answers (kernel's candidates against the
+    plain version's), whose indices must be identical."""
+    import torch
+
+    from tpu_knn_torch.kernels import dma_pipeline, fused
+    from tpu_knn_torch.kernels.fused import _refine, prep_soa
+    from tpu_knn_torch.utils.shapes import round_up
+
+    err = 0.0
+    for k, m, n, parts in cases:
+        q = uniform(gen, (m, k), device)
+        r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
+        parts = parts or dma_pipeline.default_parts(m, k, n)
+        plant_duplicates(q, r_op, n, parts)
+        ki = dma_pipeline.dma_candidates(q, r_op, n, parts)
+        if not torch.equal(ki, fused.fused_candidates(q, r_op, n, parts)[0]):
+            fail(f"B10 k={k} m={m} n={n} P={parts}: indices differ from B1's")
+        pi = dma_pipeline.dma_candidates_plain(q, r_op, n, parts)
+        share = (ki == pi).float().mean().item()
+        ref = r_op[:k, :n].T.contiguous()
+        (k_idx, k_d2), (p_idx, p_d2) = _refine(q, ref, ki, n), _refine(q, ref, pi, n)
+        same = torch.equal(k_idx, p_idx)
+        err = max(err, (k_d2 - p_d2).abs().max().item())
+        log(f"  B10: m={m} k={k} n={n} P={parts}: index-equal to B1, index agreement with "
+            f"plain {share:.6f}, refined 1-NN identical: {same}")
+        if share < MIN_INDEX_AGREEMENT or not same:
+            fail(f"B10 k={k} m={m} n={n} P={parts}: agreement {share}, identical {same}")
+        del r_op, ref
+    torch.cuda.synchronize(device)
+    return err
+
+
+def window_inputs(gen, device, k, m, n, window):
+    """Points, queries and B11's launch inputs as the kernel pipeline
+    computes them: query 0 is the corner (1, ..., 1) (largest projection:
+    its window starts at the last tile) with two exact duplicates planted
+    at original rows n/3 and 2n/3 (adjacent in sorted order, inside its
+    window)."""
+    import torch
+
+    from tpu_knn_torch.kernels import projection
+
+    r = uniform(gen, (n, k), device)
+    q = uniform(gen, (m, k), device)
+    q[0] = 1.0
+    r[n // 3] = r[2 * n // 3] = q[0]
+    index = projection.build_projection_index(r)
+    w = min(window, n)
+    pos = torch.searchsorted(index[3], projection._axis_column(q, index[2]))
+    start = (pos - w // 2).clamp(0, max(n - w, 0))
+    tiles = (start // projection.TILE_W).to(torch.int32)
+    return q, r, index, tiles, projection.window_tiles(n, window)
+
+
+def phase1_b11(device, gen, cases):
+    """B11 against its plain version at one split and at the default
+    splits: lane agreement, and identical exact reranks (ties on the
+    original index); query 0's duplicates resolve to the lower row at
+    d2 = 0. Its error is the largest |d2| difference of the reranks."""
+    import torch
+
+    from tpu_knn_torch.kernels import projection
+    from tpu_knn_torch.kernels.fused import _exact_rerank
+
+    err = 0.0
+    for k, m, n, window in cases:
+        q, r, index, tiles, w_tiles = window_inputs(gen, device, k, m, n, window)
+        ref_sorted, order, r_aug = index[0], index[1], index[6]
+        for splits in (1, projection.window_splits(m, w_tiles)):
+            ki = projection.window_candidates(q, r_aug, tiles, w_tiles, splits)
+            pi = projection.window_candidates_plain(q, r_aug, tiles, w_tiles, splits)
+            share = (ki == pi).float().mean().item()
+            k_idx, k_d2 = _exact_rerank(q, ref_sorted, ki, n, tie_src=order)
+            p_idx, p_d2 = _exact_rerank(q, ref_sorted, pi, n, tie_src=order)
+            same = torch.equal(k_idx, p_idx)
+            err = max(err, (k_d2 - p_d2).abs().max().item())
+            dup = int(k_idx[0]) == n // 3 and float(k_d2[0]) == 0.0
+            log(f"  B11: m={m} k={k} n={n} window {window} ({w_tiles} tiles, last start tile "
+                f"{int(tiles.max())}) splits={splits}: lane agreement {share:.6f}, reranks "
+                f"identical: {same}, duplicate -> row {int(k_idx[0])}")
+            if share < MIN_INDEX_AGREEMENT or not same or not dup:
+                fail(f"B11 {(k, m, n, window, splits)}: agreement {share}, identical {same}, "
+                     f"duplicate {dup}")
+        del q, r, index
+    torch.cuda.synchronize(device)
+    return err
+
+
+def phase1_b1_variants(device, gen, cases):
+    """B1's AoS (v3) and constant-query (v6) variants bit-equal to B1 at
+    the same partition count; their error against the plain version is
+    B1's."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused
+    from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.utils.shapes import round_up
+
+    err = 0.0
+    for k, m, n, parts in cases:
+        q = uniform(gen, (m, k), device)
+        r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
+        parts = parts or fused.default_parts(m, k, n)
+        plant_duplicates(q, r_op, n, parts)
+        r = r_op[:k, :n].T.contiguous()
+        bi, bs = fused.fused_candidates(q, r_op, n, parts)
+        for name, (vi, vs) in (("AoS (v3)", fused.aos_candidates(q, r, n, parts)),
+                               ("constant-query (v6)",
+                                fused.const_query_candidates(q, r_op, n, parts))):
+            if not (torch.equal(vi, bi) and torch.equal(vs, bs)):
+                fail(f"B1 {name} k={k} m={m} n={n} P={parts}: not bit-equal to B1")
+        pi, ps = fused.fused_candidates_plain(q, r_op, n, parts)
+        share, e, _ = slot_agreement("B1 variants", bi, bs, pi, ps)
+        err = max(err, e)
+        log(f"  B1 AoS (v3) and constant-query (v6): m={m} k={k} n={n} P={parts}: bit-equal "
+            f"to B1; plain agreement {share:.6f}, max |score diff| {e:.3g}")
+        del r_op, r, pi, ps
+    torch.cuda.synchronize(device)
+    return err
+
+
+def phase2_ladder(device, gen):
+    """The runner over the TA shapes with every registered version (v0 the
+    baseline; its CSV must be the golden file, every other version 0
+    errors), then v1, v2, v3, v5, v6 and v11 at each BIG shape (ds8..ds11)
+    its guard admits, against exact_scan. Returns the BIG data."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.engine.registry import get_version
+    from tpu_knn_torch.harness import runner
+    from tpu_knn_torch.harness.generator import BIG_SHAPES, TA_SHAPES
+
+    versions = runner.registered_ladder()
+    runner.warm_up(versions, device)
+    records, lines = [], []
+    ok, golden_lines = runner.run(versions, list(TA_SHAPES), log=lines.append,
+                                  collect_golden=True, warm_shapes=False, records=records,
+                                  device=device)
+    with open(GOLDEN) as f:
+        golden_same = "\n".join(golden_lines).strip() == f.read().strip()
+    for v in versions[1:]:
+        errs = [r["errors"] for r in records if r["version"] == v]
+        log(f"  runner, TA shapes, {v}: errors {errs} against v0 (the golden indices)")
+    log(f"  runner, TA shapes: v0's --results-csv lines equal {os.path.relpath(GOLDEN, REPO)}: "
+        f"{golden_same}; {len(records)} timed calls")
+    if not ok or not golden_same:
+        fail(f"runner over the TA shapes: all_pass={ok}, golden={golden_same}")
+    stamp("the runner over the TA shapes")
+    big = {}
+    for k, m, n in BIG_SHAPES:
+        q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+        want = exact_scan(q, r)
+        big[(k, m, n)] = (q, r)
+        for v in ("v1", "v2", "v3", "v5", "v6", "v11"):
+            guard = get_version(v).guard
+            if guard is not None and not guard(k, m, n):
+                log(f"  {v} {(k, m, n)}: outside its guard (delegates to "
+                    f"{get_version(v).fallback})")
+                continue
+            idx = tpu_knn_torch.knn_callback(k, m, n, q, r, version=v)
+            errors = gate_errors(q, r, idx, want)
+            torch.cuda.synchronize(device)
+            log(f"  {v} {(k, m, n)}: errors {errors}/{m}")
+            if errors:
+                fail(f"{v} {(k, m, n)}: {errors} errors")
+        del want
+    return big
+
+
+def phase2_auto(device, gen, n=1 << 24, k=3):
+    """NNIndex(strategy="auto") over (k, n) uniform points: the probe's
+    certification rate, m = 16 routed to the projection path and m = 64
+    to the fused one, each exact; NNIndex(strategy="projection") at
+    m = 16; and a planted identical-projection case (the split axis
+    constant) that must take the fallback scan and stay exact. Returns
+    the data and indexes, for phase 3."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels import projection
+
+    r = uniform(gen, (n, k), device)
+    q16, q64 = uniform(gen, (16, k), device), uniform(gen, (64, k), device)
+    auto = tpu_knn_torch.NNIndex(r, strategy="auto")
+    log(f"  NNIndex(auto) ({k}, {n}): probe cert_rate {auto.cert_rate} "
+        f"(CERT_RATE_MIN {auto.CERT_RATE_MIN}); projection index kept: "
+        f"{auto.proj_index is not None}")
+    if auto.proj_index is None:
+        fail("NNIndex(auto): the probe dropped the projection index on uniform data")
+    for q, route in ((q16, "projection"), (q64, "fused")):
+        before = dict(projection.TALLY)
+        idx, _ = auto.query(q)
+        errors = gate_errors(q, r, idx)
+        tally = {t: c - before[t] for t, c in projection.TALLY.items()}
+        log(f"  NNIndex(auto).query m={q.shape[0]}: route {auto.last_strategy}, errors "
+            f"{errors}/{q.shape[0]}, projection tally {tally}")
+        if auto.last_strategy != route or errors:
+            fail(f"NNIndex(auto) m={q.shape[0]}: route {auto.last_strategy}, errors {errors}")
+    proj = tpu_knn_torch.NNIndex(r, strategy="projection")
+    errors = gate_errors(q16, r, proj.query(q16)[0])
+    log(f"  NNIndex(projection).query m=16: errors {errors}/16")
+    if errors:
+        fail(f"NNIndex(projection): {errors} errors")
+    flat = uniform(gen, (1 << 20, k), device)
+    flat[:, 0] = 0.5
+    before = projection.TALLY["fallback_batches"]
+    idx, _ = projection.projection_knn(
+        q16, flat, prebuilt=projection.build_projection_index(flat, axis=0))
+    took = projection.TALLY["fallback_batches"] - before
+    errors = gate_errors(q16, flat, idx)
+    torch.cuda.synchronize(device)
+    log(f"  projection_knn, split axis constant ({k}, 2^20) m=16: fallback batches {took}, "
+        f"errors {errors}/16")
+    if took != 1 or errors:
+        fail(f"identical projections: fallback batches {took}, errors {errors}")
+    fused = tpu_knn_torch.NNIndex(r, strategy="fused")
+    return {"r": r, "q16": q16, "auto": auto, "fused": fused}
+
+
 # ---- phase 3: times ------------------------------------------------------
 
 
@@ -1105,6 +1359,137 @@ def phase3_seeded(card, ctx, calls, reps):
     return times, bounds
 
 
+def profile_busy(fn, calls: int):
+    """(device ms, wall ms) per call of fn: the wall by the host clock
+    without the profiler, the device time summed over the CUDA kernels
+    torch.profiler records in a second run of as many calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.device_time for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+    return dev, wall
+
+
+def phase3_ladder(card, big, auto_ctx, reps):
+    """Times of B10 (ds11, ds9), B11 (the auto path's (3, 16, 2^24) launch,
+    at its default splits and at one split) and B1's variants (ds11), each
+    beside its plain version and B1 at the same partition count; the
+    runner's rows per call (v1..v7 at ds11 and ds9, v11 at ds8 and ds10);
+    prepared auto at m = 16 against prepared fused on the same points, with
+    the device time, wall time and idle per host read of each; and the
+    projection index's build. Returns (times, bounds)."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels import dma_pipeline, fused, projection
+    from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times, bounds = {}, {}
+    for label, shape in (("ds11", DS11), ("ds9", DS9)):
+        k, m, n = shape
+        q, r = big[shape]
+        r_op = prep_soa(r, n)
+        p10, p1 = dma_pipeline.default_parts(m, k, n), fused.default_parts(m, k, n)
+        fns = {
+            f"B10 kernel {label}": lambda: dma_pipeline.dma_candidates(q, r_op, n, p10),
+            f"B10 plain {label}": lambda: dma_pipeline.dma_candidates_plain(q, r_op, n, p10),
+            f"B1 kernel {label} at B10's P": lambda: fused.fused_candidates(q, r_op, n, p10),
+        }
+        if label == "ds11":
+            fns.update({
+                "B1 AoS (v3) kernel ds11": lambda: fused.aos_candidates(q, r, n, p1),
+                "B1 constant-query (v6) kernel ds11":
+                    lambda: fused.const_query_candidates(q, r_op, n, p1),
+                "B1 kernel ds11 at the variants' P": lambda: fused.fused_candidates(
+                    q, r_op, n, p1),
+                "B1 plain ds11 at the variants' P": lambda: fused.fused_candidates_plain(
+                    q, r_op, n, p1),
+            })
+        times.update(time_ms(fns, reps))
+        bounds[f"B10 {label}"] = roofline(4 * (m * k + k * n + m * 128), 2 * m * n * k)
+        log(f"  B10 {label}: P = {p10}, (tile_m, slice groups) = "
+            f"{dma_pipeline.dma_geometry(m, k)}; the variants' P = {p1}")
+        del r_op
+
+    r, q16, auto, fused_ix = (auto_ctx[key] for key in ("r", "q16", "auto", "fused"))
+    n, k = r.shape
+    index = auto.proj_index
+    window = projection.auto_window(k, n)
+    w_tiles = projection.window_tiles(n, window)
+    w = min(window, n)
+    pos = torch.searchsorted(index[3], projection._axis_column(q16, index[2]))
+    tiles = ((pos - w // 2).clamp(0, max(n - w, 0)) // projection.TILE_W).to(torch.int32)
+    splits = projection.window_splits(16, w_tiles)
+    times.update(time_ms({
+        "B11 kernel (3, 16, 2^24)": lambda: projection.window_candidates(
+            q16, index[6], tiles, w_tiles, splits),
+        "B11 kernel (3, 16, 2^24) one split": lambda: projection.window_candidates(
+            q16, index[6], tiles, w_tiles, 1),
+        "B11 plain (3, 16, 2^24)": lambda: projection.window_candidates_plain(
+            q16, index[6], tiles, w_tiles, splits),
+    }, reps))
+    cols = w_tiles * projection.TILE_W
+    bounds["B11"] = roofline(4 * (16 * cols * (k + 1) + 16 * k + 16 + 16 * 128),
+                             2 * 16 * cols * (k + 1))
+    log(f"  B11 (3, 16, 2^24): window {window}, {w_tiles} tiles, {splits} splits")
+    stamp("B10, B11 and B1 variant times")
+
+    for label, shape, versions in (
+            ("ds11", DS11, ("v1", "v2", "v3", "v4", "v5", "v6", "v7")),
+            ("ds9", DS9, ("v1", "v2", "v3", "v4", "v5", "v6", "v7")),
+            ("ds8", DS8, ("v11",)), ("ds10", DS10, ("v11",))):
+        k_, m_, n_ = shape
+        q, rr = big[shape]
+        times.update(time_ms({
+            f"{v} per call {label}": lambda v=v, q=q, rr=rr: tpu_knn_torch.knn_callback(
+                k_, m_, n_, q, rr, version=v) for v in versions}, 5))
+    stamp("the ladder's per-call times")
+
+    before = dict(projection.TALLY)
+    times.update(time_ms({
+        "prepared auto m=16 (3, 2^24)": lambda: auto.query(q16),
+        "prepared fused m=16 (3, 2^24)": lambda: fused_ix.query(q16),
+    }, reps))
+    for label, ix in (("prepared auto m=16 (3, 2^24)", auto),
+                      ("prepared fused m=16 (3, 2^24)", fused_ix)):
+        # The first torch.profiler session pays CUPTI's start-up (12-15 s
+        # on the card's machine); the second takes under a second.
+        dev, wall = profile_busy(lambda ix=ix: ix.query(q16), 5)
+        # One host read per call: the certificate (projection path) or
+        # _refine_guarded's cutoff check (fused path).
+        times[f"{label} device"], times[f"{label} wall"] = dev, wall
+        log(f"  {label}: device {dev:.4f} ms, wall {wall:.4f} ms per call (busy share "
+            f"{dev / wall:.3f}), 1 host read per call, idle {wall - dev:.4f} ms per read "
+            f"[{card}]")
+    stamp("auto and fused prepared times, profiled")
+    tally = {t: c - before[t] for t, c in projection.TALLY.items()}
+    log(f"  auto route after the timings: {auto.last_strategy}; projection tally {tally}; "
+        f"realized certification {auto.realized_cert_rate}")
+    if auto.last_strategy != "projection" or tally["fallback_batches"]:
+        fail(f"timed auto calls left the certified projection path: {tally}")
+    times.update(time_ms({"build_projection_index (3, 2^24)":
+                          lambda: projection.build_projection_index(r)}, 3))
+    for name, ms in times.items():
+        log(f"  time {name}: median {ms:.4f} ms [{card}]")
+    for name, (ms, by) in bounds.items():
+        log(f"  bound {name}: {ms:.4f} ms ({by})")
+    return times, bounds
+
+
 #: The card's published peaks (one H100 SXM at 700 W): f32 on the CUDA
 #: cores, and device-memory bandwidth.
 F32_PEAK_FLOPS = 67e12
@@ -1143,7 +1528,8 @@ def main() -> int:
         return 2
     import tpu_knn_torch
     from tpu_knn_torch.csrc import build
-    from tpu_knn_torch.kernels import fused, seeded, smallm, topk
+    from tpu_knn_torch.harness.generator import BIG_SHAPES
+    from tpu_knn_torch.kernels import dma_pipeline, fused, projection, seeded, smallm, topk
     from tpu_knn_torch.kernels.twolevel import DEFAULT_PARTITIONS
 
     t_start = time.perf_counter()
@@ -1176,6 +1562,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"  ptxas: {line.strip()}")
 
+    stamp("phase 0")
     gen = torch.Generator(device=device)
     gen.manual_seed(1000)
 
@@ -1196,6 +1583,7 @@ def main() -> int:
     # query and nearest_neighbors(neighbors=8) at (16, 3, 2^20).
     b2_cases += [(16, 4, 1 << 24, None), (16, 3, 1 << 20, None)]
     errs = phase1(device, gen, b1_cases, b2_cases)
+    stamp("phase 1 B1/B2")
     # Top-K kernels: a grid with K in {1, 8, 32}, and the main path's own
     # launches (B4 at ds11 and (16, 64, 2^20); B5 at (16, 8, 2^20) K=32 and
     # (16, 32, 2^20) K=8; B6 at (16, 4, 2^24) K=16 and (16, 3, 2^20) K=8).
@@ -1211,6 +1599,7 @@ def main() -> int:
     b6_cases += [(16, 4, 1 << 24, 16, None), (16, 3, 1 << 20, 8, None),
                  (16, 2, 5000, 8, 1)]
     errs.update(phase1_topk(device, gen, b4_cases, b5_cases, b6_cases))
+    stamp("phase 1 B4/B5/B6")
     # The seeded engine's kernels: B3 at depth 1 and 2, banded, with a
     # prefix and at ragged n, and at the ds11 launches (K=8: half prefix;
     # K=16: 3/4 prefix; K=64: full; K=128: depth 2); B7 in the quadratic and
@@ -1236,6 +1625,7 @@ def main() -> int:
                       (1024, 16_384, 1, 48, 1, 0.003), (1024, 8192, 1, 144, 2, 0.015),
                       (33, 40_000, 2, 80, 1, 0.003)]
     errs.update(phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases))
+    stamp("phase 1 B3/B7/compactor grid")
     # And at every launch of the seeded main path: phase 2's seeded calls
     # at their own shapes, on data of their own.
     own = seeded_cases(device, gen, uniform(gen, (DS11[1], 16), device),
@@ -1245,13 +1635,40 @@ def main() -> int:
         errs[kid] = max(errs[kid], err)
     del own
     torch.cuda.empty_cache()
+    stamp("phase 1 seeded main-path launches")
+    # The 1-NN ladder's kernels: B10 on a grid and at v5's launches of
+    # phase 2 (the BIG shapes), index-equal to B1 at the same P; B11 at
+    # windows of 1 + 1 and 64 + 1 tiles over n ragged against 4096, query 0
+    # at the last start tile with planted duplicates, and at the auto
+    # path's (3, 16, 2^24) launch; B1's AoS (v3) and constant-query (v6)
+    # variants bit-equal to B1 on a grid and at ds10/ds11.
+    n_rag = (1 << 20) + 77
+    b10_cases = [(k, m, n, parts) for k in (3, 16) for m in (1, 8, 1000)
+                 for n in (1000, n_rag) for parts in (1, None)]
+    b10_cases += [(*shape, None) for shape in BIG_SHAPES]
+    errs["B10"] = phase1_b10(device, gen, b10_cases)
+    stamp("phase 1 B10")
+    b11_cases = [(k, m, n_rag, window) for k in (3, 8) for m in (1, 16, 64)
+                 for window in (4096, 1 << 18)]
+    b11_cases += [(3, 16, 1 << 24, projection.auto_window(3, 1 << 24))]
+    errs["B11"] = phase1_b11(device, gen, b11_cases)
+    stamp("phase 1 B11")
+    variant_cases = [(k, m, n, parts) for k in (3, 16) for m in (8, 1000)
+                     for n in (1000, 1 << 20) for parts in (1, None)]
+    variant_cases += [(*DS10, None), (*DS11, None)]
+    errs["B1 variants"] = phase1_b1_variants(device, gen, variant_cases)
+    torch.cuda.empty_cache()
+    stamp("phase 1 B1 variants")
 
     # Phase 2: each path runs with every launch counter set to 0 just
     # before it and read just after.
     counters = {"B1": fused.fused_candidates, "B2": smallm.smallm_candidates,
                 "B3": fused.minima_candidates, "B4": fused.banded_candidates,
                 "B5": topk.sweep_candidates, "B6": topk.smallm_topk_candidates,
-                "B7": seeded.extract_moments, "B8/B9": seeded.compact_cells}
+                "B7": seeded.extract_moments, "B8/B9": seeded.compact_cells,
+                "B10": dma_pipeline.dma_candidates, "B11": projection.window_candidates,
+                "B1 AoS (v3)": fused.aos_candidates,
+                "B1 constant-query (v6)": fused.const_query_candidates}
 
     def drive(path, needs, run):
         for fn in counters.values():
@@ -1262,6 +1679,7 @@ def main() -> int:
         for kname in needs:
             if counts[kname] < 1:
                 fail(f"{kname} was not launched on the {path} path")
+        stamp(f"phase 2 {path} path")
         return out, counts
 
     log("phase 2: main path")
@@ -1276,16 +1694,30 @@ def main() -> int:
     ctx["r22"] = cases["r22"]
     seeded_calls, counts_seeded = drive("seeded top-K", ("B3", "B4", "B7", "B8/B9"),
                                         lambda: phase2_seeded(device, cases))
-    launches = {kname: counts_1nn[kname] + counts_topk[kname] + counts_seeded[kname]
+    log("phase 2: the 1-NN ladder (the runner; v1, v2, v3, v5, v6, v11 at ds8..ds11)")
+    big, counts_ladder = drive("ladder", ("B1", "B10", "B11", "B1 AoS (v3)",
+                                          "B1 constant-query (v6)"),
+                               lambda: phase2_ladder(device, gen))
+    log("phase 2: auto and projection serving")
+    auto_ctx, counts_auto = drive("auto/projection", ("B1", "B11"),
+                                  lambda: phase2_auto(device, gen))
+    launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
+                                             counts_ladder, counts_auto))
                 for kname in counters}
 
     # Phase 3
     log("phase 3: times")
     times = phase3(card, big11, big9, reps=10)
+    stamp("phase 3 1-NN")
     topk_times, topk_shapes = phase3_topk(card, ctx, calls, reps=10)
     times.update(topk_times)
+    stamp("phase 3 top-K")
     seeded_times, seeded_bounds = phase3_seeded(card, ctx, seeded_calls, reps=5)
     times.update(seeded_times)
+    stamp("phase 3 seeded")
+    ladder_times, ladder_bounds = phase3_ladder(card, big, auto_ctx, reps=10)
+    times.update(ladder_times)
+    stamp("phase 3 ladder")
 
     for mod in ("jax", "tpu_knn"):
         if mod in sys.modules:
@@ -1304,8 +1736,13 @@ def main() -> int:
         "B7": seeded_bounds["B7 ds11 K=8"],
         "B8": seeded_bounds["compactor (16, 1024, 2^22) K=8"],
         "B9": seeded_bounds["compactor ds11 K=8"],
+        "B10": ladder_bounds["B10 ds11"],
+        "B11": ladder_bounds["B11"],
+        "B1 AoS (v3)": bound(m11, k11, n11, 128, 0, 2),
+        "B1 constant-query (v6)": bound(m11, k11, n11, 128, 0, 2),
     }
     errs["B8"] = errs["B9"] = errs["B8/B9"]
+    errs["B1 AoS (v3)"] = errs["B1 constant-query (v6)"] = errs["B1 variants"]
     launches["B8"] = launches["B9"] = launches["B8/B9"]
     rows = [
         ("B1", "fused_candidates", "tpu_knn/kernels/fused.py:318", "B1 kernel ds11",
@@ -1330,13 +1767,28 @@ def main() -> int:
          None),
         ("B9", "compact_cells (one kernel with B8)", "tpu_knn/kernels/topk.py:899",
          "compactor kernel ds11 K=8", "compactor plain ds11 K=8", None),
+        ("B10", "dma_candidates", "tpu_knn/kernels/dma_pipeline.py:44", "B10 kernel ds11",
+         "B10 plain ds11", "matmul ds11"),
+        ("B11", "window_candidates", "tpu_knn/kernels/projection.py:283",
+         "B11 kernel (3, 16, 2^24)", "B11 plain (3, 16, 2^24)", None),
+        # B1's two ladder variants: tpu_knn built both from _fused_kernel.
+        ("B1 AoS (v3)", "aos_candidates", "tpu_knn/kernels/fused.py:318",
+         "B1 AoS (v3) kernel ds11", "B1 plain ds11 at the variants' P", "matmul ds11"),
+        ("B1 constant-query (v6)", "const_query_candidates", "tpu_knn/kernels/fused.py:318",
+         "B1 constant-query (v6) kernel ds11", "B1 plain ds11 at the variants' P",
+         "matmul ds11"),
     ]
+    # Each kernel's source file under tpu_knn_torch/csrc/.
+    family = {"B1": "fused", "B4": "fused", "B10": "fused", "B1 AoS (v3)": "fused",
+              "B1 constant-query (v6)": "fused", "B2": "smallm", "B6": "smallm",
+              "B5": "sweep", "B3": "seeded", "B7": "seeded", "B8": "seeded", "B9": "seeded",
+              "B11": "window"}
     # No single PyTorch call computes a per-lane fold, so library_ms is
     # null; matmul_part_ms is cuBLAS's f32 product of the same score
     # matrix (TF32 off), a part of the kernel's work only.
     kernels = [
         {"name": f"{kid} {fname}", "route": "cuda",
-         "source": "tpu_knn_torch/csrc/knn_kernels.cu", "replaces": replaces,
+         "source": f"tpu_knn_torch/csrc/{family[kid]}_kernels.cu", "replaces": replaces,
          "launches": launches[kid], "max_abs_err": errs[kid],
          "ms": times[t_kernel], "plain_ms": times[t_plain],
          "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],

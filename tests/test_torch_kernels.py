@@ -1,5 +1,5 @@
-"""Kernels B1–B7 and the B8/B9 cell compactor against their plain torch
-versions on an sm_90 card.
+"""Kernels B1–B11 (B8/B9 one compactor) and B1's AoS and constant-query
+variants against their plain torch versions on an sm_90 card.
 
 Skipped without a card. This file imports no jax, so on a machine with the
 card but without jax it runs apart from the suite's conftest:
@@ -10,7 +10,7 @@ card but without jax it runs apart from the suite's conftest:
 import pytest
 import torch
 
-from tpu_knn_torch.kernels import fused, seeded, smallm, topk
+from tpu_knn_torch.kernels import dma_pipeline, fused, projection, seeded, smallm, topk
 from tpu_knn_torch.kernels.fused import _refine, prep_soa, select_cutoff
 
 pytestmark = pytest.mark.cuda
@@ -299,3 +299,117 @@ def test_seeded_engine_matches_an_exact_scan(device, m, k, n, kk):
     torch.testing.assert_close(sd, wd, rtol=1e-6, atol=1e-7)
     bad = si != wi
     assert ((sd - wd).abs()[bad] <= 1e-6 * wd.abs().max()).all()
+
+
+# ---- the 1-NN ladder's kernels: B1's variants (v3, v6), B10 (v5), B11 (v11)
+
+
+@pytest.mark.parametrize("k,m,n,parts", [
+    (3, 40, 1000, 1), (16, 100, 70_000, 7), (5, 1, 3000, 3), (16, 1024, 1 << 16, None),
+    (40, 9, 5000, 4), (3, 300, 4099, None),
+    (380, 2, 3000, 2),    # one row per block beside the AoS slab
+    (7000, 2, 300, 2),    # one row per block of constant queries (no AoS slab fits)
+])
+def test_b1_variants_are_bit_equal_to_b1(device, k, m, n, parts):
+    """The AoS (v3) and constant-query (v6) variants, where their guards
+    admit the shape, score through B1's column_scores and fold as B1
+    does: identical candidates at the same partition count."""
+    q, r, r_op = _inputs(device, m, k, n, seed=3 * k + m)
+    parts = parts or fused.default_parts(m, k, n)
+    want = fused.fused_candidates(q, r_op, n, parts)
+    variants = [(wrapper, operand) for wrapper, operand, fits in (
+        (fused.aos_candidates, r, fused._v3_guard(k, m, n)),
+        (fused.const_query_candidates, r_op, fused.const_query_fits(m, k))) if fits]
+    assert variants
+    for wrapper, operand in variants:
+        before = wrapper.launches
+        got = wrapper(q, operand, n, parts)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_constant_query_launches_on_two_streams_do_not_overwrite_each_other(device):
+    """The constant bank is shared: a launch on a second stream must wait
+    for the first stream's launch before refilling the bank. Each stream
+    sweeps a large operand with its own query set, issued back to back
+    with no synchronisation between them."""
+    k, n = 16, 1 << 22
+    q1, r, r_op = _inputs(device, 1024, k, n, seed=31)
+    q2 = torch.rand_like(q1)
+    parts = fused.default_parts(1024, k, n)
+    want1 = fused.fused_candidates(q1, r_op, n, parts)
+    want2 = fused.fused_candidates(q2, r_op, n, parts)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    for _ in range(3):
+        with torch.cuda.stream(s1):
+            got1 = fused.const_query_candidates(q1, r_op, n, parts)
+        with torch.cuda.stream(s2):
+            got2 = fused.const_query_candidates(q2, r_op, n, parts)
+        torch.cuda.synchronize()
+        assert torch.equal(got1[0], want1[0]) and torch.equal(got1[1], want1[1])
+        assert torch.equal(got2[0], want2[0]) and torch.equal(got2[1], want2[1])
+
+
+@pytest.mark.parametrize("k,m,n,parts", [
+    (3, 8, 1000, 1), (16, 1, 70_001, None), (16, 1000, 1 << 16, None), (5, 33, 3000, 3),
+    (100, 9, 5000, 4), (3, 1, (1 << 16) + 77, None),
+    (196, 2, 3000, 2),    # one query row beside the ring (dma_geometry)
+])
+def test_b10_indices_equal_b1s(device, k, m, n, parts):
+    q, r, r_op = _inputs(device, m, k, n, seed=k * m + 5)
+    parts = parts or dma_pipeline.default_parts(m, k, n)
+    before = dma_pipeline.dma_candidates.launches
+    got = dma_pipeline.dma_candidates(q, r_op, n, parts)
+    torch.cuda.synchronize()
+    assert dma_pipeline.dma_candidates.launches == before + 1
+    assert got.shape == (m, parts * 128)
+    assert torch.equal(got, fused.fused_candidates(q, r_op, n, parts)[0])
+    plain = dma_pipeline.dma_candidates_plain(q, r_op, n, parts)
+    assert (got == plain).float().mean().item() >= 0.9999
+    assert int(_refine(q, r, got, n)[0][0]) == n // 2
+
+
+@pytest.mark.parametrize("k,m,n,window", [
+    (3, 16, 50_000, 4096), (3, 1, 20_000, 8192), (8, 64, 70_000, 20_480), (4, 7, 9000, 9000),
+    (16, 5, 30_000, 4096), (40, 3, 30_000, 4096),   # several chunks of loads per column
+])
+def test_b11_matches_plain(device, k, m, n, window):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(n + m)
+    r = torch.rand((n, k), generator=gen, device=device)
+    q = torch.rand((m, k), generator=gen, device=device)
+    r[n // 2] = r[n // 2 + 1] = q[0]                 # exact duplicates in a window
+    index = projection.build_projection_index(r)
+    ref_sorted, order, axis, proj = index[:4]
+    w_tiles = projection.window_tiles(n, window)
+    pos = torch.searchsorted(proj, projection._axis_column(q, axis))
+    start = (pos - min(window, n) // 2).clamp(0, max(n - min(window, n), 0))
+    tiles = (start // projection.TILE_W).to(torch.int32)
+    for splits in (1, projection.window_splits(m, w_tiles)):
+        before = projection.window_candidates.launches
+        got = projection.window_candidates(q, index[6], tiles, w_tiles, splits)
+        torch.cuda.synchronize()
+        assert projection.window_candidates.launches == before + 1
+        want = projection.window_candidates_plain(q, index[6], tiles, w_tiles, splits)
+        assert got.shape == want.shape == (m, splits * 128)
+        assert (got == want).float().mean().item() >= 0.999
+        gi, gd = fused._exact_rerank(q, ref_sorted, got, n, tie_src=order)
+        wi, wd = fused._exact_rerank(q, ref_sorted, want, n, tie_src=order)
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+        assert int(gi[0]) == n // 2 and float(gd[0]) == 0.0
+
+
+@pytest.mark.parametrize("version", ["v1", "v2", "v3", "v5", "v6", "v11"])
+def test_ladder_versions_are_exact_on_the_card(device, version):
+    import tpu_knn_torch
+
+    k, m, n = 3, 64, 70_000
+    q, r, _ = _inputs(device, m, k, n, seed=17)
+    got = torch.as_tensor(tpu_knn_torch.knn_callback(k, m, n, q, r, version=version),
+                          device=device).long()
+    d2 = ((q[:, None, :] - r[None, :, :]) ** 2).sum(dim=-1)
+    best = d2.min(dim=1).values
+    assert (d2.gather(1, got[:, None]).squeeze(1) - best).abs().max().item() <= 1e-6
+    assert int(got[0]) == n // 2

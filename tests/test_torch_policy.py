@@ -226,3 +226,130 @@ def test_percall_width(k):
                         want = jx_tuning.pick_tiles(k, m, n)[1]
                     got = pt_topk._percall_width(m, n, k, kk, method)
                     assert got == -(-n // want) * want, (m, n, kk, method)
+
+
+# ---- the rest of the 1-NN ladder and the projection index ------------------
+
+
+def test_ladder_constants():
+    from tpu_knn.engine.index import NNIndex as JaxIndex
+    from tpu_knn.kernels import projection as jx_proj
+    from tpu_knn.kernels import twophase as jx_twophase
+    from tpu_knn_torch.kernels import projection as pt_proj
+    from tpu_knn_torch.kernels import twophase as pt_twophase
+
+    assert pt_twophase.V1_MAX_TOTAL_BYTES == jx_twophase.V1_MAX_TOTAL_BYTES
+    assert pt_twophase.V2_CHUNK == jx_twophase.V2_CHUNK
+    for name in ("PAD_VALUE", "DEFAULT_WINDOW", "TILE_W", "DEFAULT_GROUP"):
+        assert getattr(pt_proj, name) == getattr(jx_proj, name), name
+    for name in ("CERT_RATE_MIN", "PROJ_REALIZED_MIN", "PROJ_FEEDBACK_PERIOD"):
+        assert getattr(pt_index.NNIndex, name) == getattr(JaxIndex, name), name
+
+
+@pytest.mark.parametrize("k", KS)
+def test_twophase_and_dma_policy(k):
+    from tpu_knn.kernels import dma_pipeline as jx_dma
+    from tpu_knn.kernels import twophase as jx_twophase
+    from tpu_knn_torch.kernels import dma_pipeline as pt_dma
+    from tpu_knn_torch.kernels import twophase as pt_twophase
+
+    for m in MS:
+        for n in NS:
+            assert pt_twophase._v1_guard(k, m, n) == jx_twophase._v1_guard(k, m, n), (m, n)
+            if m:
+                assert pt_dma._dma_tiles(k, m, n) == jx_dma._dma_tiles(k, m, n), (m, n)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 8, 9, 16])
+def test_projection_policy(k):
+    from tpu_knn.kernels import projection as jx_proj
+    from tpu_knn_torch.kernels import projection as pt_proj
+
+    for n in NS + [3000, 1 << 17, 1 << 22]:
+        assert pt_proj.auto_window(k, n) == jx_proj.auto_window(k, n), n
+        for m in MS + [16, 63, 64, 65, 128]:
+            assert pt_proj.projection_work(k, n, m) == jx_proj.projection_work(k, n, m)
+            assert pt_proj.projection_wins(k, m, n) == jx_proj.projection_wins(k, m, n)
+
+
+class _Group(Exception):
+    pass
+
+
+def test_projection_group_choice(monkeypatch):
+    """projection_knn's scan engine groups one query per slice up to
+    m = 64 and DEFAULT_GROUP queries beyond, in both packages."""
+    from tpu_knn.kernels import projection as jx_proj
+    from tpu_knn_torch.kernels import projection as pt_proj
+
+    def capture(m, n, k, window, group):
+        raise _Group(group)
+
+    monkeypatch.setattr(jx_proj, "_build_window_query", capture)
+    monkeypatch.setattr(pt_proj, "_build_window_query", capture)
+    r = np.random.default_rng(0).random((300, 3), np.float32)
+    for m in (1, 5, 63, 64, 65, 100, 1000):
+        q = r[:1].repeat(m, 0)
+        groups = []
+        for fn, kw in ((jx_proj.projection_knn, {}), (pt_proj.projection_knn,
+                                                       {"device": "cpu"})):
+            with pytest.raises(_Group) as e:
+                fn(q, r, engine="scan", prebuilt=(None,) * 7, **kw)
+            groups.append(e.value.args[0])
+        assert groups[0] == groups[1] == (1 if m <= 64 else jx_proj.DEFAULT_GROUP), m
+
+
+SHAPES_TA_BIG = [
+    (3, 1, 2), (3, 2, 8), (3, 1, 1024), (3, 1, 65536), (16, 1, 65536), (3, 1024, 1024),
+    (3, 1024, 65536), (16, 1024, 65536),                      # TA (main.cu:28-39)
+    (3, 1, 1 << 24), (16, 1, 1 << 24), (3, 1024, 1 << 20), (16, 1024, 1 << 20)]   # BIG
+
+
+def test_hopper_guards_on_the_reference_shapes():
+    """The v3, v5 and v6 guards are the Hopper kernels' own limits
+    (ROADMAP C): every TA and BIG shape runs its version (tpu_knn's v3 sent
+    ds8/ds9 to v4 for the TPU's tiled HBM pages); v5 still delegates
+    tpu_knn's wide-k case; v6 takes ds11 (k*m = 16384, the constant bank)
+    and delegates a query set past it, which tpu_knn's 4 MB VMEM block
+    admitted."""
+    from tpu_knn.harness.generator import BIG_SHAPES, TA_SHAPES
+    from tpu_knn.kernels import dma_pipeline as jx_dma
+    from tpu_knn_torch.kernels import dma_pipeline as pt_dma
+
+    assert SHAPES_TA_BIG == list(TA_SHAPES) + list(BIG_SHAPES)
+    guards = {v: pt_registry.get_version(v).guard for v in ("v3", "v5", "v6")}
+    jx_guards = {v: jx_registry.get_version(v).guard for v in ("v3", "v5", "v6")}
+    for k, m, n in SHAPES_TA_BIG:
+        assert all(g(k, m, n) for g in guards.values()), (k, m, n)
+        assert jx_guards["v5"](k, m, n) and jx_guards["v6"](k, m, n)
+        assert jx_guards["v3"](k, m, n) == (n < (1 << 24))
+    assert not pt_dma._v5_guard(2048, 8, 4096) and not jx_dma._v5_guard(2048, 8, 4096)
+    assert not guards["v3"](2048, 8, 4096) and guards["v3"](393, 8, 4096)
+    assert not guards["v3"](394, 8, 4096)
+    assert not guards["v6"](16, 1025, 1 << 20) and jx_guards["v6"](16, 1025, 1 << 20)
+    assert not guards["v6"](16, 2048, 4096) and jx_guards["v6"](16, 2048, 4096)
+    assert guards["v6"](3, 5461, 4096) == (-(-5461 // 32) * 32 * 3 <= 16384)
+
+
+def test_hopper_launch_geometry_fits():
+    """B10's ring and query tile, and B1's AoS slab beside its query tile,
+    fit a block's shared memory wherever their guards admit; B11's splits
+    never exceed the window's groups."""
+    from tpu_knn_torch.kernels import dma_pipeline as pt_dma
+    from tpu_knn_torch.kernels import projection as pt_proj
+
+    for k in KS:
+        for m in MS[1:]:
+            if pt_dma._v5_guard(k, m, 4096):
+                tm, groups = pt_dma.dma_geometry(m, k)
+                assert pt_dma.dma_smem_bytes(tm, k, groups) <= pt_tuning.MAX_QUERY_SMEM
+                assert 1 <= groups <= pt_dma.DMA_MAX_SLICE_GROUPS
+            if pt_fused._v3_guard(k, m, 4096):
+                tm = pt_fused.aos_tile_m(m, k)
+                assert (tm + pt_fused.AOS_SLAB_LD) * k * 4 <= pt_tuning.MAX_QUERY_SMEM
+    assert pt_dma._v5_guard(199, 1, 4096) and not pt_dma._v5_guard(200, 1, 4096)
+    for n in NS[3:]:
+        for window in (4096, 5000, 1 << 18):
+            w_tiles = pt_proj.window_tiles(n, window)
+            for m in MS[1:]:
+                assert 1 <= pt_proj.window_splits(m, w_tiles) <= w_tiles * 32

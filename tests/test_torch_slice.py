@@ -145,8 +145,11 @@ def test_index_surface_not_ported_yet_raises():
     np.testing.assert_array_equal(idx.numpy(), _oracle_topk(r[:20], r, 20))
     with pytest.raises(NotImplementedError, match="A.6"):
         ix.save("unused.npz")
+    # strategy="auto" and "projection" are served since the ladder slice.
+    for strategy in ("auto", "projection"):
+        other = tpu_knn_torch.NNIndex(r, strategy=strategy, device="cpu")
+        np.testing.assert_array_equal(other.query(r[:3])[0].numpy(), [0, 1, 2])
     for kwargs, item in (({"strategy": "kdtree"}, "A.8"),
-                         ({"strategy": "auto"}, "A.7"),
                          ({"strategy": "sharded"}, "A.9"),
                          ({"store": "bf16"}, "A.6"),
                          ({"metric": "cosine"}, "A.6"),
@@ -181,7 +184,8 @@ def test_device_rule():
 
 
 def test_registry():
-    assert tpu_knn_torch.list_versions() == ["v0", "v4", "v7"]
+    assert tpu_knn_torch.list_versions() == ["v0", "v1", "v11", "v2", "v3", "v4", "v5",
+                                             "v6", "v7"]
     from tpu_knn_torch.engine.registry import best_available_version
 
     assert best_available_version().name == "v7"
@@ -223,6 +227,11 @@ def test_port_never_imports_jax():
         "i, _ = tpu_knn_torch.topk_knn(r[:40], r, 8, device='cpu')\n"
         "assert (i.numpy()[:, 0] == np.arange(40)).all()\n"
         "g, _ = tpu_knn_torch.knn_graph(r[:600], 5, device='cpu')\n"
+        "for v in ('v1', 'v2', 'v3', 'v5', 'v6', 'v11'):\n"
+        "    i = tpu_knn_torch.nearest_neighbors(r[:5, :3], r[:, :3], version=v, device='cpu')\n"
+        "    assert (i == np.arange(5)).all(), v\n"
+        "ix = tpu_knn_torch.NNIndex(r[:, :3], strategy='auto', device='cpu')\n"
+        "assert (ix.query(r[:4, :3])[0].numpy() == np.arange(4)).all()\n"
         "assert g.shape == (600, 5)\n"
         "print(sorted({'jax', 'tpu_knn'} & set(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -238,9 +247,12 @@ def test_cuda_sources_ship_and_build_is_content_hashed(monkeypatch):
 
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
         meta = tomllib.load(f)
-    assert "csrc/*.cu" in meta["tool"]["setuptools"]["package-data"]["tpu_knn_torch"]
+    shipped = meta["tool"]["setuptools"]["package-data"]["tpu_knn_torch"]
+    assert "csrc/*.cu" in shipped and "csrc/*.cuh" in shipped
     assert meta["project"]["optional-dependencies"]["torch"] == ["torch"]
-    assert [os.path.basename(s) for s in build.sources()] == ["knn_kernels.cu"]
+    assert [os.path.basename(s) for s in build.sources()] == [
+        "fused_kernels.cu", "knn_common.cuh", "seeded_kernels.cu", "smallm_kernels.cu",
+        "sweep_kernels.cu", "window_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     path = build.lib_path()
     assert os.path.dirname(path) == build.BUILD_DIR and path == build.lib_path()

@@ -2,11 +2,14 @@
 
 The pattern of tpu_knn/native/build.py: the sources are compiled on first
 use, into ``tpu_knn_torch/_build/`` under a name that hashes their content
-and the flags, through a temporary file and an atomic rename, so
-concurrent first users are safe and a changed source rebuilds. The
-library has a plain C interface (no PyTorch headers), which keeps a build
-to seconds. Nothing is fetched: the build uses the sources in this
-directory and the local CUDA toolkit. Importing this module runs nothing.
+and the flags, through a temporary directory and an atomic rename, so
+concurrent first users are safe and a changed source rebuilds. Each *.cu
+file (one family of kernels; knn_common.cuh holds what they share) is
+compiled by its own nvcc, all started together, and the objects are
+linked into one library. The library has a plain C interface (no PyTorch
+headers), which keeps a build to seconds. Nothing is fetched: the build
+uses the sources in this directory and the local CUDA toolkit. Importing
+this module runs nothing.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 #: -Xptxas -v reports each kernel's registers, shared memory and spills;
 #: build() keeps that report beside the library (log_path()).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def sources() -> list[str]:
@@ -67,22 +70,26 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc(), *NVCC_FLAGS, *[s for s in sources() if s.endswith(".cu")],
-               "-o", tmp]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (s for s in sources() if s.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        report = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in jobs]
+        lib = os.path.join(tmp, "lib.so")
+        if all(rc == 0 for _, _, rc in report):
+            cmd = [nvcc(), "-shared", *[obj for _, obj, _ in jobs], "-o", lib]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            report.append((cmd, proc.stdout, proc.returncode))
+        for cmd, output, rc in report:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{output}")
         with open(log_path(), "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            f.write("".join(output for _, output, _ in report))
+        os.replace(lib, out)
     return out
 
 
@@ -115,6 +122,14 @@ def load() -> ctypes.CDLL:
     lib.tk_extract_moments.restype = i32
     lib.tk_compact_cells.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.tk_compact_cells.restype = i32
+    lib.tk_aos_candidates.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+    lib.tk_aos_candidates.restype = i32
+    lib.tk_const_query_candidates.argtypes = [ptr] * 4 + [i32, i32, i64] + [i32] * 3 + [ptr]
+    lib.tk_const_query_candidates.restype = i32
+    lib.tk_dma_candidates.argtypes = [ptr] * 3 + [i32, i32, i64] + [i32] * 4 + [ptr]
+    lib.tk_dma_candidates.restype = i32
+    lib.tk_window_candidates.argtypes = [ptr] * 4 + [i32, i32, i64, i32, i32, ptr]
+    lib.tk_window_candidates.restype = i32
     lib.tk_error_string.argtypes = [i32]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,178 @@
+// Shared definitions of tpu_knn_torch's hand-written Hopper (sm_90a)
+// kernels. Each *.cu file beside this header holds one family of kernels
+// with its launchers and plain C entry points; csrc/build.py compiles the
+// files in parallel with nvcc and links them into one library, loaded
+// with ctypes.
+//
+// Every kernel produces the candidate contract of tpu_knn's Pallas kernels:
+// the reference columns are cut into P contiguous partitions of whole
+// 128-column groups, and lane l of partition p walks columns
+// p*G*128 + l, p*G*128 + l + 128, ... (G groups per partition) in
+// increasing order. The 1-NN kernels (B1, B2, B4) keep a running
+// (min score, index) pair per lane with a strict `<`, so the earliest column
+// wins among equal scores and a NaN never enters; a lane that saw no
+// column reports (+inf, INT32_MAX). The top-K kernels (B5, B6) keep each
+// lane's K lexicographically smallest (score, column) pairs, sorted. P = 1
+// is exactly the TPU kernels' (m, 128) contract; P > 1 is v7's rebased
+// (m, P*128) contract. Indices are global column numbers. Columns >= n are
+// masked (never folded). The seeded top-K engine's kernels follow:
+// B3 (value-only lane minima, merged to 128 lanes), B7 (per-cell integer
+// moments of the columns under a bound) and the B8/B9 cell compactor.
+//
+// Operands: q is (m, k) row-major f32; r is the SoA operand, k rows of a
+// (k_pad, ld) row-major f32 array (only rows 0..k-1 are read: the zero
+// rows k..k_pad-1 are distance-neutral). Outputs are (m, width) int32/f32.
+// The kernels allocate nothing and do not synchronise; each entry point
+// returns the cudaError_t of its launch.
+//
+// A Hopper block has no carry into the next block, so where the TPU grid
+// swept n in order on one core, here one block owns (row tile, partition)
+// and loops over its partition's columns itself; P is chosen by the caller
+// so that the grid fills the card's 132 SMs.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kLanes = 128;  // candidate lanes per partition = threads per block
+constexpr int kI32Max = 2147483647;
+constexpr int kMaxGridY = 65535;
+constexpr int kDefaultSmem = 48 * 1024;
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// ---------------------------------------------------------------------------
+// The score arithmetic of B1, B4 and B5: s = |r|^2 - 2 q.r in plain f32 FMA
+// (tpu_knn's "highest" tier). All three kernels call this one function, so a
+// (row, column) pair gets a bit-identical score from each of them, whatever
+// tile or partition count a launch picks: |r|^2 and each q.r are one fmaf
+// chain over d = 0..k-1 in order, and 2*acc is exact. The top-K "passes"
+// engine rests on that (its bound is a score B4 reported on an earlier pass),
+// and so does the exact agreement of the sweep (B5) and passes engines.
+// ---------------------------------------------------------------------------
+
+// The TM query rows of a block, transposed into shared memory: qT[d*TM + i].
+template <int TM>
+__device__ __forceinline__ void load_query_tile(const float* __restrict__ q, float* qT,
+                                                int m, int k, int row0) {
+  for (int e = threadIdx.x; e < k * TM; e += blockDim.x) {
+    const int d = e / TM;
+    const int i = e - d * TM;
+    const int row = row0 + i;
+    qT[e] = row < m ? q[static_cast<long long>(row) * k + d] : 0.f;
+  }
+  __syncthreads();
+}
+
+// Where column_scores reads a reference column: the SoA operand in device
+// memory (through the read-only cache), or a slice of it staged in shared
+// memory (B10, and B1's AoS variant after its on-chip transpose). The
+// arithmetic does not depend on the reader.
+struct GlobalColumn {
+  const float* p;
+  long long ld;
+  __device__ __forceinline__ float operator()(int d) const { return __ldg(p + d * ld); }
+};
+
+struct SharedColumn {
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int d) const { return p[d * ld]; }
+};
+
+// One reference column against the TM rows: one 16-byte broadcast load of
+// qT feeds four FMAs, and each loaded reference value feeds TM FMAs. qT may
+// sit in shared memory or (B1's constant-query variant) constant memory.
+template <int TM, typename Column>
+__device__ __forceinline__ void column_scores(const float* qT, const Column& rc, int k,
+                                              float (&s)[TM]) {
+  float acc[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) acc[i] = 0.f;
+  float norm = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < k; ++d) {
+    const float rv = rc(d);
+    norm = fmaf(rv, rv, norm);
+    const float* qd = qT + d * TM;
+    if constexpr (TM % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; i += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qd + i);
+        acc[i] = fmaf(qv.x, rv, acc[i]);
+        acc[i + 1] = fmaf(qv.y, rv, acc[i + 1]);
+        acc[i + 2] = fmaf(qv.z, rv, acc[i + 2]);
+        acc[i + 3] = fmaf(qv.w, rv, acc[i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) acc[i] = fmaf(qd[i], rv, acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) s[i] = norm - 2.f * acc[i];
+}
+
+template <int TM>
+__device__ __forceinline__ void column_scores(const float* qT, const float* __restrict__ rc,
+                                              long long ld, int k, float (&s)[TM]) {
+  column_scores<TM>(qT, GlobalColumn{rc, ld}, k, s);
+}
+
+// The exact diff-form arithmetic of B2 and B6: sum_d (r[d,col] - q[d])^2,
+// one fmaf chain over d in order. B6's bound is the K-th smallest of B2's
+// lane minima, so the two kernels must score a column identically.
+template <int KMAX>
+__device__ __forceinline__ void load_column(const float* __restrict__ rc, long long ld, int k,
+                                            float (&rv)[KMAX]) {
+  // All k loads of a column are issued before they are used; rows
+  // k..KMAX-1 load as 0 against a 0 query coordinate: distance-neutral.
+#pragma unroll
+  for (int d = 0; d < KMAX; ++d) rv[d] = d < k ? __ldg(rc + d * ld) : 0.f;
+}
+
+template <int KMAX>
+__device__ __forceinline__ float diff_score(const float (&rv)[KMAX], const float* qi) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < KMAX; ++d) {
+    const float diff = rv[d] - qi[d];
+    acc = fmaf(diff, diff, acc);
+  }
+  return acc;
+}
+
+template <int M, int KMAX>
+__device__ __forceinline__ void load_small_queries(const float* __restrict__ q, float* qs, int k) {
+  for (int e = threadIdx.x; e < M * KMAX; e += kLanes) {
+    const int i = e / KMAX;
+    const int d = e - i * KMAX;
+    qs[e] = d < k ? q[i * k + d] : 0.f;
+  }
+  __syncthreads();
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= kDefaultSmem) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+inline bool valid_geometry(int m, int k, long long ld, int n, int parts) {
+  if (m < 1 || k < 1 || n < 1 || parts < 1 || ld < n) return false;
+  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
+  return parts <= groups;
+}
+
+inline int groups_per_part(int n, int parts) {
+  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
+  return static_cast<int>((groups + parts - 1) / parts);
+}
+
+}  // namespace

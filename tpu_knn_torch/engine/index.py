@@ -3,18 +3,28 @@
     index = NNIndex(ref, strategy="fused")       # pay layout/build once
     idx, d2 = index.query(search)                # hot path
 
-The port has the f32, immutable ``strategy="fused"`` index: the reference
-set is placed once on the device in two layouts, the (n, k) AoS copy that
-the exact rerank gathers rows from and the (k_pad, n_pad) SoA operand the
-candidate kernels stream (tpu_knn's layout, so an index's state carries
-across verbatim: `from_state`). Queries route per batch as in tpu_knn:
-m <= 4 to the small-m kernel B2 (or the AoS scan), small n to the dense
-path, everything else to B1 + the exact refinement. Exact top-K
-(`query(neighbors=)`) and `query_radius` run the engines of
-kernels/topk.py over the same operands.
+The port serves three f32, immutable strategies:
 
-Every other strategy, store, metric, mutable indexes and save/load
-raise NotImplementedError naming their ROADMAP item.
+- "fused": the reference set is placed once on the device in two layouts,
+  the (n, k) AoS copy that the exact rerank gathers rows from and the
+  (k_pad, n_pad) SoA operand the candidate kernels stream (tpu_knn's
+  layout, so an index's state carries across verbatim: `from_state`).
+  Queries route per batch as in tpu_knn: m <= 4 to the small-m kernel B2
+  (or the AoS scan), small n to the dense path, everything else to B1 +
+  the exact refinement. Exact top-K (`query(neighbors=)`) and
+  `query_radius` run the engines of kernels/topk.py over the same operands.
+- "projection": the sorted window index of kernels/projection.py (v11:
+  B11, the per-query certificate and B1's fallback scan).
+- "auto": "fused" plus, where v11's niche applies (k <= 8) and a
+  build-time probe of the certificate clears CERT_RATE_MIN, the
+  projection index; each batch routes to it where projection_wins (small
+  m, large n) and to the fused path otherwise (`last_strategy` says
+  which), and served batches' realized certification demotes the route.
+  Top-K goes through the fused engines.
+
+The kdtree and sharded strategies, the bf16/int8 stores, the cosine/ip
+metrics, mutable indexes and save/load raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -112,8 +122,6 @@ class NNIndex:
                              f"'int8', got {store!r}")
         if strategy not in ("fused", "auto", "projection", "kdtree", "sharded"):
             raise ValueError(f"unknown strategy {strategy!r}")
-        if strategy in ("auto", "projection"):
-            raise _not_ported(f"strategy={strategy!r}", "A.7")
         if strategy == "kdtree":
             raise _not_ported("strategy='kdtree'", "A.8")
         if strategy == "sharded" or mesh is not None:
@@ -130,29 +138,118 @@ class NNIndex:
             _check_precision_ported(precision)
         ref_t = as_f32(ref, device)
         n, k = ref_t.shape
+        if strategy == "projection":
+            from tpu_knn_torch.kernels.projection import build_projection_index
+
+            self._init_projection(ref_t, build_projection_index(ref_t))
+            return
         # tile_n is fixed at build time for a large-batch query: it sets the
         # operand's n padding (tpu_knn's choice, so state carries across).
         _, tile_n = pick_tiles(k, 1024, n, wide=False)
         self._init_fused(ref_t, prep_soa(ref_t, round_up(n, tile_n)), tile_n)
+        if strategy == "auto":
+            self._init_auto()
 
-    def _init_fused(self, ref_t: torch.Tensor, r_op: torch.Tensor, tile_n: int):
-        self.strategy = "fused"
+    def _init_common(self, ref_t: torch.Tensor, strategy: str):
+        self.strategy = strategy
         self.store = "float32"
         self.metric = "l2"
         self.mutable = False
         self.precision = DEFAULT_PRECISION
         self.n, self.k = ref_t.shape
-        self.tile_n = tile_n
         self.device = ref_t.device
         self.ref_dev = ref_t     # AoS copy for exact refinement
+
+    def _init_fused(self, ref_t: torch.Tensor, r_op: torch.Tensor, tile_n: int):
+        self._init_common(ref_t, "fused")
+        self.tile_n = tile_n
         self.r_ops = (r_op,)     # SoA operand of the candidate kernels
+
+    def _init_projection(self, ref_t: torch.Tensor, proj_index):
+        """strategy="projection": the sorted index of kernels/projection.py
+        (build_projection_index's seven tensors)."""
+        self._init_common(ref_t, "projection")
+        self.proj_index = tuple(proj_index)
+
+    def _init_auto(self):
+        """strategy="auto": the fused index plus, where v11's niche applies
+        (k <= 8, n >= 128), the projection index, kept only if a probe of
+        the certificate's hit rate clears CERT_RATE_MIN. Served batches
+        feed the realized rate back (_note_projection_batch)."""
+        self.strategy = "auto"
+        self.proj_index = None
+        self.cert_rate = 0.0
+        self.last_strategy = None
+        self._proj_ok_batches = 0    # certified batches in the current window
+        self._proj_batches = 0
+        self.realized_cert_rate = None
+        self.proj_demoted = False
+        if self.k <= 8 and self.n >= 128:
+            self._probe_projection()
+
+    #: Certification hit rate the build-time probe must clear for "auto"
+    #: to serve through the projection index (tpu_knn's).
+    CERT_RATE_MIN = 0.9
+
+    #: Realized rate of fully certified batches below which "auto" demotes
+    #: the projection route, evaluated every PROJ_FEEDBACK_PERIOD served
+    #: projection batches over that window (tpu_knn's feedback): one
+    #: uncertified row sends the whole batch through the fallback scan, so
+    #: below half the window pass is waste.
+    PROJ_REALIZED_MIN = 0.5
+    PROJ_FEEDBACK_PERIOD = 32
+
+    def _note_projection_batch(self, certified: bool):
+        """Count the served batch's outcome (all rows certified, as the
+        pipeline already read it on the host); every PROJ_FEEDBACK_PERIOD
+        batches, that window's realized rate, and demotion below
+        PROJ_REALIZED_MIN."""
+        self._proj_ok_batches += bool(certified)
+        self._proj_batches += 1
+        if self._proj_batches % self.PROJ_FEEDBACK_PERIOD == 0:
+            realized = self._proj_ok_batches / self.PROJ_FEEDBACK_PERIOD
+            self._proj_ok_batches = 0   # the next window starts afresh
+            self.realized_cert_rate = realized
+            if realized < self.PROJ_REALIZED_MIN:
+                self.proj_index = None
+                self.proj_demoted = True
+
+    def _probe_projection(self):
+        """Build the projection index and estimate its certificate's hit
+        rate on synthetic in-distribution queries: midpoints of
+        projection-adjacent points (local geometry without the d = 0
+        self-matches that would certify trivially). Below CERT_RATE_MIN the
+        index is dropped and every batch serves fused."""
+        from tpu_knn_torch.kernels.projection import (
+            _build_kernel_window_query, auto_window, build_projection_index,
+        )
+
+        proj_index = build_projection_index(self.ref_dev)
+        ref_sorted = proj_index[0]
+        n_probe = min(64, self.n // 2)
+        step = max(1, (self.n - 1) // n_probe)
+        pos = torch.arange(n_probe, device=self.device) * step
+        probes = (ref_sorted[pos] + ref_sorted[pos + 1]) * 0.5
+        run = _build_kernel_window_query(n_probe, self.n, self.k,
+                                         auto_window(self.k, self.n))
+        _, _, ok = run(probes, *proj_index)
+        self.cert_rate = int(ok.sum()) / n_probe
+        if self.cert_rate >= self.CERT_RATE_MIN:
+            self.proj_index = proj_index
 
     @classmethod
     def from_state(cls, state, device="cuda") -> "NNIndex":
-        """Build from a tpu_knn fused index's state, given as NumPy:
-        ``{"ref": np.asarray(ix.ref_dev), "r_op": np.asarray(ix.r_ops[0])}``.
-        ``r_op`` must be the zero-padded (k_pad, n_pad) transpose of ``ref``
-        (tpu_knn's prep_soa layout); the operand is taken verbatim."""
+        """Build from a tpu_knn index's state, given as NumPy, taken
+        verbatim after a check:
+
+        - fused: ``{"ref": np.asarray(ix.ref_dev), "r_op":
+          np.asarray(ix.r_ops[0])}``; ``r_op`` must be the zero-padded
+          (k_pad, n_pad) transpose of ``ref`` (tpu_knn's prep_soa layout);
+        - projection: ``{"ref": ..., "proj_index": tuple(np.asarray(a) for
+          a in ix.proj_index)}``; ``order`` must be a permutation and the
+          rest build_projection_index's layout of ``ref[order]``."""
+        if "proj_index" in state:
+            return cls._from_projection_state(state, device)
         ref = np.ascontiguousarray(state["ref"], np.float32)
         r_op = np.ascontiguousarray(state["r_op"], np.float32)
         if ref.ndim != 2 or r_op.ndim != 2:
@@ -168,6 +265,46 @@ class NNIndex:
         tile_n = _tile_for_width(n, r_op.shape[1])
         index = cls.__new__(cls)
         index._init_fused(as_f32(ref, device), as_f32(r_op, device), tile_n)
+        return index
+
+    @classmethod
+    def _from_projection_state(cls, state, device) -> "NNIndex":
+        from tpu_knn_torch.kernels.projection import PAD_VALUE, TILE_W
+
+        ref = np.ascontiguousarray(state["ref"], np.float32)
+        if len(state["proj_index"]) != 7:
+            raise ValueError("proj_index must hold build_projection_index's 7 arrays")
+        ref_sorted, order, axis, proj, rnorm, inv_order, r_aug = (
+            np.asarray(a) for a in state["proj_index"])
+        n, k = ref.shape
+        if order.shape != (n,) or not np.array_equal(np.sort(order), np.arange(n)):
+            raise ValueError("order is not a permutation of the points")
+        axis = int(axis)
+        want = ref[order]
+        k_pad, n_pad = round_up(k + 1, 8), round_up(n, TILE_W) + TILE_W
+        if not (np.array_equal(ref_sorted, want) and 0 <= axis < k
+                and np.array_equal(proj, want[:, axis])
+                and np.array_equal(inv_order[order], np.arange(n))
+                and bool(np.all(proj[1:] >= proj[:-1]))):
+            raise ValueError("proj_index is not the projection index of ref")
+        # ‖r‖² may differ from ours in the last bits (f32 summation order).
+        norm = (want.astype(np.float64) ** 2).sum(axis=1)
+        if r_aug.shape != (k_pad, n_pad) or not np.allclose(rnorm, norm, rtol=1e-6):
+            raise ValueError(f"r_aug {r_aug.shape} or rnorm is not the augmented "
+                             "operand of ref[order]")
+        aug = np.zeros((k_pad, n_pad), np.float32)
+        aug[:k, :n] = want.T
+        aug[k, :n] = rnorm
+        aug[:k, n:] = PAD_VALUE
+        aug[k, n:] = np.inf
+        if not np.array_equal(r_aug, aug):
+            raise ValueError("r_aug is not the augmented, padded transpose of ref[order]")
+        index = cls.__new__(cls)
+        tensors = [as_f32(a, device) for a in (ref_sorted, proj, rnorm, r_aug)]
+        ints = [torch.as_tensor(np.array(a, np.int32), device=tensors[0].device)
+                for a in (order, axis, inv_order)]
+        index._init_projection(as_f32(ref, device), (
+            tensors[0], ints[0], ints[1], tensors[1], tensors[2], ints[2], tensors[3]))
         return index
 
     @staticmethod
@@ -208,13 +345,17 @@ class NNIndex:
         return idx[:m], d2[:m]
 
     def pipeline(self, m: int):
-        """Return (run, ops) for the prepared query pipeline at batch size
-        ``m``: ``run(search, *ops) -> (idx, d2)`` with ``ops`` the
-        device-resident prepared operands."""
+        """Return (run, ops) for the prepared fused query pipeline at batch
+        size ``m`` (strategies "fused" and "auto"): ``run(search, *ops) ->
+        (idx, d2)`` with ``ops`` the device-resident prepared operands. The
+        projection strategy has no single pipeline and raises."""
         from tpu_knn_torch.kernels.smallm import (
             aos_scan_applicable, smallm_applicable,
         )
 
+        if self.strategy not in ("fused", "auto"):
+            raise ValueError(f"pipeline() requires the fused/auto strategy, "
+                             f"not {self.strategy!r}")
         if smallm_applicable(m, self.k, self.n) or aos_scan_applicable(m, self.k, self.n):
             return (_build_smallm_prepared(m, self.n, self.k),
                     (self.r_ops, self.ref_dev))
@@ -229,6 +370,25 @@ class NNIndex:
 
         m = search.shape[0]
         n = self.n
+        if self.strategy == "projection":
+            from tpu_knn_torch.kernels.projection import projection_knn
+
+            return projection_knn(search, self.ref_dev, prebuilt=self.proj_index)
+        if self.strategy == "auto":
+            from tpu_knn_torch.kernels.projection import (
+                _build_projection_pipeline, auto_window, projection_wins,
+            )
+
+            # The cost model sees the true batch size (padding is not work
+            # the user asked for).
+            if self.proj_index is not None and projection_wins(self.k, m_true, n):
+                self.last_strategy = "projection"
+                run = _build_projection_pipeline(m, n, self.k, auto_window(self.k, n))
+                idx, d2, certified = run(search, self.ref_dev, *self.proj_index,
+                                         r_op=self.r_ops[0])
+                self._note_projection_batch(certified)
+                return idx, d2
+            self.last_strategy = "fused"
         if smallm_applicable(m, self.k, n) or aos_scan_applicable(m, self.k, n):
             # The small-m kernel serves tiny batches off the very same SoA
             # operand (still the "fused" strategy — a kernel choice).
@@ -263,6 +423,11 @@ class NNIndex:
             MAX_NEIGHBORS, _build_aos_topk, _build_topk,
         )
 
+        if self.strategy not in ("fused", "auto"):
+            raise ValueError(
+                "neighbors>1 requires the fused/auto/sharded strategy "
+                "(prepared SoA operand) or the native kdtree backend; "
+                f"this index uses {self.strategy!r}")
         search, m, mb = self._topk_prep_batch(search, neighbors)
         if mb == 1 and neighbors <= MAX_NEIGHBORS:
             # m=1 top-K: the zero-prep AoS cell engine over the resident

@@ -5,9 +5,12 @@ Every version self-registers with a uniform callback signature
     fn(k, m, n, search: (m,k) f32 tensor, ref: (n,k) f32 tensor) -> (m,) int32
 
 and declares its preconditions via a `guard` plus a `fallback` version, as
-in tpu_knn. The port registers v0 (its copy of tpu_knn's NumPy oracle),
-v4 and v7; the preference order is tpu_knn's, so the default
-dispatch lands on v7, as tpu_knn's does on one device.
+in tpu_knn. The port registers the one-device ladder: v0 (its copy of
+tpu_knn's NumPy oracle), v1 and v2 (two-phase torch ops), v3 and v6 (B1's
+AoS and constant-query variants), v4 (B1), v5 (B10), v7 (B1 over
+partitions) and v11 (the projection index, B11). The preference order is
+tpu_knn's, so the default dispatch lands on v7, as tpu_knn's does on one
+device; v8 (sharded) and v9/v10 (KD-tree) are not ported.
 """
 
 from __future__ import annotations
@@ -81,8 +84,11 @@ def _ensure_builtins() -> None:
     import importlib
 
     for mod in (
+        "tpu_knn_torch.kernels.twophase",
         "tpu_knn_torch.kernels.fused",
+        "tpu_knn_torch.kernels.dma_pipeline",
         "tpu_knn_torch.kernels.twolevel",
+        "tpu_knn_torch.kernels.projection",
     ):
         importlib.import_module(mod)
 

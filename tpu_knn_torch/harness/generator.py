@@ -1,5 +1,6 @@
 """Deterministic sample generation (copy of tpu_knn/harness/generator.py's
-glibc stream).
+glibc stream, TA_SHAPES and BIG_SHAPES; the big shapes' data is drawn on
+the device instead, device_sample_stream).
 
 The reference harness draws its inputs from glibc `rand()` seeded with
 `srand(1000)`, each draw mapped to [0, 1] as float(rand() / double(RAND_MAX))
@@ -28,6 +29,15 @@ TA_SHAPES: Tuple[Tuple[int, int, int], ...] = (
     (3, 1024, 1024),
     (3, 1024, 65536),
     (16, 1024, 65536),
+)
+
+# The 4 large custom benchmark shapes (k, m, n), ds8..ds11 — reference
+# core.cu:1276-1281.
+BIG_SHAPES: Tuple[Tuple[int, int, int], ...] = (
+    (3, 1, 1 << 24),
+    (16, 1, 1 << 24),
+    (3, 1024, 1 << 20),
+    (16, 1024, 1 << 20),
 )
 
 DEFAULT_SEED = 1000  # main.cu:43
@@ -95,15 +105,44 @@ class GlibcRand:
         return (raw / float(RAND_MAX)).astype(np.float32)
 
 
+class SampleStream:
+    """Sequential dataset generation from one glibc stream, seeded anew
+    per stream (the reference test() flow, main.cu:55-65: one srand(seed),
+    then per dataset k*m floats of search points followed by k*n of
+    reference points, both row-major)."""
+
+    def __init__(self, seed: int = DEFAULT_SEED):
+        self._rng = GlibcRand(seed)
+
+    def get_sample(self, k: int, m: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        search = self._rng.floats(k * m).reshape(m, k)
+        ref = self._rng.floats(k * n).reshape(n, k)
+        return search, ref
+
+
 def ta_sample_stream(
     seed: int = DEFAULT_SEED,
     shapes: Sequence[Tuple[int, int, int]] = TA_SHAPES,
 ) -> Iterator[Tuple[Tuple[int, int, int], np.ndarray, np.ndarray]]:
     """Yield ((k, m, n), search, ref) for each shape, drawn in turn from one
-    freshly seeded stream — the reference harness's order (main.cu:55-65:
-    k*m floats of search points, then k*n of reference points, row-major)."""
-    rng = GlibcRand(seed)
+    freshly seeded stream — the reference harness's order."""
+    stream = SampleStream(seed)
     for (k, m, n) in shapes:
-        search = rng.floats(k * m).reshape(m, k)
-        ref = rng.floats(k * n).reshape(n, k)
+        search, ref = stream.get_sample(k, m, n)
+        yield (k, m, n), search, ref
+
+
+def device_sample_stream(seed: int, shapes: Sequence[Tuple[int, int, int]], device):
+    """Yield ((k, m, n), search, ref) uniform-[0, 1) f32 tensors drawn on
+    ``device`` from one torch.Generator seeded with ``seed`` (search, then
+    ref, shape by shape): the big shapes, where the reference switches to
+    per-thread rand_r (core.cu:1209-1218) and glibc parity is neither
+    possible nor needed. Not bit-identical to tpu_knn's jax.random data."""
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for (k, m, n) in shapes:
+        search = torch.rand((m, k), generator=gen, device=device)
+        ref = torch.rand((n, k), generator=gen, device=device)
         yield (k, m, n), search, ref

@@ -1,6 +1,6 @@
 """v4 — the fused streaming 1-NN pipeline (counterpart of tpu_knn/kernels/fused.py).
 
-The candidate stage is B1, a hand-written CUDA kernel (csrc/knn_kernels.cu,
+The candidate stage is B1, a hand-written CUDA kernel (csrc/fused_kernels.cu,
 replacing tpu_knn's Pallas `_fused_kernel`): per query row it folds the
 score s = ‖r‖² − 2·q·r of every reference column into per-lane running
 (min score, index) pairs, so the m×n score matrix never reaches device
@@ -9,7 +9,11 @@ top-T pre-selection under a certified score-magnitude cutoff, then an
 exact diff-form rerank with the lowest-index tie rule) is plain torch, as
 it was plain XLA in tpu_knn. B4 (`banded_candidates`, replacing
 `_fused_banded_kernel`) is B1 with a per-row lexicographic bound, one
-pass of the top-K passes engine (kernels/topk.py).
+pass of the top-K passes engine (kernels/topk.py). Two ladder rungs are
+B1 variants with bit-identical scores: v3 (`aos_candidates`) reads the
+caller's (n, k) array with an on-chip transpose instead of the SoA
+relayout, and v6 (`const_query_candidates`) keeps the whole query set in
+constant memory for the sweep.
 
 Precision: the kernel computes in plain f32 FMA on the CUDA cores — the
 "highest" tier. The bf16-split tiers (packed, bf16x3, bf16x4, qsplit2)
@@ -27,7 +31,7 @@ import torch
 
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.tuning import (
-    LANE, cuda_tile_m, pick_parts,
+    LANE, MAX_QUERY_SMEM, cuda_tile_m, pick_parts,
 )
 from tpu_knn_torch.utils.platform import as_f32_pair, check_device
 from tpu_knn_torch.utils.shapes import cdiv, round_up
@@ -151,7 +155,9 @@ def prep_soa(ref: torch.Tensor, n_pad: int) -> torch.Tensor:
     return r_op
 
 
-def _check_candidate_operands(q, r_op, n: int, parts: int) -> None:
+def _check_candidate_operands(q, r_op, n: int, parts: int, aos: bool = False) -> None:
+    """Validate a candidate launch: q (m, k) against the SoA operand
+    (>= k rows, >= n columns), or with ``aos`` the row-major (n, k) points."""
     if q.dtype != torch.float32 or r_op.dtype != torch.float32:
         raise TypeError("candidate kernels take float32 operands")
     if q.dim() != 2 or r_op.dim() != 2:
@@ -161,11 +167,12 @@ def _check_candidate_operands(q, r_op, n: int, parts: int) -> None:
     if q.device != r_op.device:
         raise ValueError(f"queries on {q.device}, operand on {r_op.device}")
     m, k = q.shape
-    if m < 1 or not 1 <= k <= r_op.shape[0]:
+    rows, cols = r_op.shape[::-1] if aos else r_op.shape
+    if m < 1 or not 1 <= k <= rows or (aos and k != rows):
         raise ValueError(f"queries {tuple(q.shape)} do not fit operand "
                          f"{tuple(r_op.shape)}")
-    if not 1 <= n <= min(r_op.shape[1], _I32_MAX - LANE):
-        raise ValueError(f"n={n} outside the operand's {r_op.shape[1]} columns")
+    if not 1 <= n <= min(cols, _I32_MAX - LANE):
+        raise ValueError(f"n={n} outside the operand's {cols} columns")
     if not 1 <= parts <= cdiv(n, LANE):
         raise ValueError(f"parts={parts} must be in [1, {cdiv(n, LANE)}]")
     check_device(q.device)
@@ -217,7 +224,7 @@ def _candidate_outputs(m: int, width: int, device):
 def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     """(m, k) queries x (k_pad, n_pad) SoA operand -> (idx (m, parts*128)
     int32, score (m, parts*128) f32): B1's candidate contract over the
-    first n columns (see csrc/knn_kernels.cu). CPU tensors take the plain
+    first n columns (see csrc/fused_kernels.cu). CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts)
     if q.device.type == "cpu":
@@ -391,16 +398,136 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
 minima_candidates.launches = 0
 
 
+# ---- the B1 variants of the ladder: AoS (v3) and constant-query (v6) ----
+
+#: Row stride of B1's AoS variant's shared-memory slab (csrc kSlabLd): one
+#: 128-column group of the (n, k) array, transposed, padded by one float.
+AOS_SLAB_LD = LANE + 1
+
+
+def aos_tile_m(m: int, k: int) -> int:
+    """Query rows per block of B1's AoS variant: cuda_tile_m's choice, with
+    the slab's (k, 129) floats beside the query tile in shared memory."""
+    for tm in (32, 8, 1):
+        if tm == 32 and m <= 8:
+            continue
+        if (tm + AOS_SLAB_LD) * k * 4 <= MAX_QUERY_SMEM:
+            return tm
+    raise ValueError(f"k={k} exceeds the AoS variant's shared-memory slab "
+                     f"({MAX_QUERY_SMEM // (4 * (1 + AOS_SLAB_LD))} dims at most)")
+
+
+def aos_parts(m: int, k: int, n: int) -> int:
+    """Partition count of B1's AoS variant (B1's occupancy rule)."""
+    return pick_parts(cdiv(m, aos_tile_m(m, k)), n, B1_BLOCKS_PER_SM)
+
+
+def aos_candidates_plain(q, ref, n: int, parts: int):
+    """The AoS variant's plain version: B1's plain version over the same
+    points (norm_scores reads the first k rows of any (>= k, >= n) array)."""
+    return fused_candidates_plain(q, ref[:n].T, n, parts)
+
+
+def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int):
+    """(m, k) queries x the caller's row-major (n, k) points -> B1's (idx,
+    score) candidates (m, parts*128), with no per-call SoA relayout: v3's
+    kernel stages each 128-row group through shared memory transposed
+    (csrc/fused_kernels.cu). Its scores are bit-identical to B1's on the
+    card. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    _check_candidate_operands(q, ref, n, parts, aos=True)
+    m, k = q.shape
+    if q.device.type == "cpu":
+        return aos_candidates_plain(q, ref, n, parts)
+    from tpu_knn_torch.csrc.build import check, load
+
+    lib = load()
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_aos_candidates(
+            q.data_ptr(), ref.data_ptr(), idx.data_ptr(), score.data_ptr(), m, k, n,
+            parts, aos_tile_m(m, k), torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B1 (AoS variant) aos_candidates")
+    aos_candidates.launches += 1
+    return idx, score
+
+
+#: Kernel launches of B1's AoS variant (CUDA tensors only).
+aos_candidates.launches = 0
+
+#: Floats of the constant bank that holds v6's query set (csrc
+#: kConstQueryFloats: the 64 KB of __constant__ memory; the reference v6's
+#: own guard, k*m <= 16384, core.cu:603-607).
+CONST_QUERY_FLOATS = 16384
+
+
+def const_query_fits(m: int, k: int) -> bool:
+    """True when the query set, padded to whole row tiles, fits the
+    constant bank."""
+    return (k * m <= CONST_QUERY_FLOATS
+            and round_up(m, cuda_tile_m(m, k)) * k <= CONST_QUERY_FLOATS)
+
+
+def const_query_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
+    """B1's candidate contract with the whole query set in the card's
+    constant memory for the sweep (v6; csrc/fused_kernels.cu): every block
+    reads its rows through the constant cache instead of staging them in
+    shared memory. Scores bit-identical to B1's. CPU tensors take B1's
+    plain version; CUDA tensors launch the kernel or raise.
+
+    The constant bank is one per device for the loaded library, so each
+    launch waits for the previous one (on whatever stream it ran) before
+    its copy overwrites the bank."""
+    _check_candidate_operands(q, r_op, n, parts)
+    m, k = q.shape
+    if not const_query_fits(m, k):
+        raise ValueError(f"(m={m}, k={k}) queries exceed the "
+                         f"{CONST_QUERY_FLOATS}-float constant bank")
+    if q.device.type == "cpu":
+        return fused_candidates_plain(q, r_op, n, parts)
+    from tpu_knn_torch.csrc.build import check, load
+
+    lib = load()
+    tm = cuda_tile_m(m, k)
+    tiles = cdiv(m, tm)
+    # [tile][d][i]: each tile laid out as B1's shared query tile.
+    q_tiled = torch.nn.functional.pad(q, (0, 0, 0, tiles * tm - m))
+    q_tiled = q_tiled.view(tiles, tm, k).transpose(1, 2).contiguous()
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    stream = torch.cuda.current_stream(q.device)
+    with torch.cuda.device(q.device):
+        bank_free = _CONST_BANK_FREE.setdefault(q.device.index, torch.cuda.Event())
+        stream.wait_event(bank_free)
+        err = lib.tk_const_query_candidates(
+            q_tiled.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(), m, k,
+            r_op.stride(0), n, parts, tm, stream.cuda_stream)
+        check(lib, err, "B1 (constant-query variant) const_query_candidates")
+        bank_free.record(stream)
+    const_query_candidates.launches += 1
+    return idx, score
+
+
+#: Kernel launches of B1's constant-query variant (CUDA tensors only).
+const_query_candidates.launches = 0
+
+#: Per device index, the event recorded after the last constant-query
+#: launch: the next launch's stream waits on it before refilling the bank.
+_CONST_BANK_FREE: dict[int, torch.cuda.Event] = {}
+
+
 # ---- exact selection ------------------------------------------------
 
 
-def _exact_rerank(search, src, cand, n_valid):
+def _exact_rerank(search, src, cand, n_valid, tie_src=None):
     """Exact diff-form selection over a candidate set.
 
     search: (m, k) queries; src: (N, k) points gathered by `cand` (m, C)
     indices; entries >= n_valid are masked out. Ties on the exact squared
-    distance break to the smallest index — v0's lowest-index semantics
-    (core.cu:50-54). Returns (idx (m,) int32, d2 (m,) f32).
+    distance break to the smallest reported index — `cand` itself, or
+    `tie_src[cand]` where `tie_src` maps src positions to external ids
+    (the projection index's sorted position -> original index) — v0's
+    lowest-index semantics (core.cu:50-54). Returns (idx (m,) int32
+    reported ids, d2 (m,) f32).
     """
     valid = cand < n_valid
     safe = torch.where(valid, cand, 0)
@@ -408,8 +535,9 @@ def _exact_rerank(search, src, cand, n_valid):
     diff = search[:, None, :] - pts
     d2 = (diff * diff).sum(dim=-1)                   # (m, C) f32 exact-form
     d2 = torch.where(valid, d2, torch.inf)
+    t = safe if tie_src is None else tie_src[safe.long()]
     v = d2.min(dim=-1, keepdim=True).values
-    tie = torch.where((d2 == v) & valid, safe, _I32_MAX)
+    tie = torch.where((d2 == v) & valid, t, _I32_MAX)
     idx = tie.min(dim=-1).values.to(torch.int32)     # lowest index among ties
     return idx, v.squeeze(-1)
 
@@ -440,19 +568,25 @@ def _refine_guarded(search, ref, idx, score, n, t: int = REFINE_TOP_T,
 
 
 def _refine(search, ref, cand, n, cutoff: float = SELECT_SCORE_CUTOFF):
-    """Exact selection over per-lane candidates (idx, score) — see
-    _exact_rerank. ``cutoff`` is the tier-scaled certification bound
+    """Exact selection over per-lane candidates (see _exact_rerank).
+
+    `cand` is either (idx, score) — the candidate kernels' contract,
+    enabling the certified top-T pre-selection (_refine_guarded) — or a
+    bare index tensor (B10, which emits indices only), which reranks every
+    lane. ``cutoff`` is the tier-scaled certification bound
     (select_cutoff)."""
-    idx, score = cand
-    if idx.shape[-1] > REFINE_TOP_T:
-        return _refine_guarded(search, ref, idx, score, n, cutoff=cutoff)
-    return _exact_rerank(search, ref, idx, n)
+    if isinstance(cand, (tuple, list)):
+        idx, score = cand
+        if idx.shape[-1] > REFINE_TOP_T:
+            return _refine_guarded(search, ref, idx, score, n, cutoff=cutoff)
+        cand = idx
+    return _exact_rerank(search, ref, cand, n)
 
 
 # ---- per-call entry -------------------------------------------------
 
 
-def fused_knn(search, ref, *, parts: int | None = None,
+def fused_knn(search, ref, *, soa: bool = True, parts: int | None = None,
               precision: str | None = None, device="cuda"):
     """Exact 1-NN of (m, k) queries against (n, k) points.
 
@@ -461,13 +595,18 @@ def fused_knn(search, ref, *, parts: int | None = None,
     rule). Routing as in tpu_knn: m <= 4 takes the diff-form AoS scan,
     small n the dense path, everything else B1 + _refine. An explicit
     ``parts`` (the kernel's n-partition count) or ``precision`` signals
-    measurement intent and keeps the B1 path.
+    measurement intent and keeps the B1 path. ``soa=False`` is v3: B1's
+    AoS variant over the caller's array (no per-call relayout), never
+    routed elsewhere, as in tpu_knn.
     """
     _check_precision_certified(precision)
     _check_precision_ported(precision)
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
+    if not soa:
+        cand = aos_candidates(search, ref, n, parts or aos_parts(m, k, n))
+        return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
     if parts is None and precision is None:
         from tpu_knn_torch.kernels.smallm import (
             aos_scan_applicable, smallm_applicable, smallm_knn,
@@ -491,14 +630,70 @@ def _to_host(idx) -> np.ndarray:
     return idx.cpu().numpy().astype(np.int32)
 
 
+def const_query_knn(search, ref, device="cuda"):
+    """v6: exact 1-NN with the whole query set in constant memory for the
+    sweep (const_query_candidates), then _refine. The query set must fit
+    the constant bank (const_query_fits); v6's guard delegates the rest to
+    v4. Returns (indices (m,) int32, exact d2 (m,) f32)."""
+    search, ref = as_f32_pair(search, ref, device)
+    m, k = search.shape
+    n = ref.shape[0]
+    cand = const_query_candidates(search, prep_soa(ref, round_up(n, LANE)), n,
+                                  default_parts(m, k, n))
+    return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
+
+
+def _v3_guard(k, m, n):
+    """v3 runs where B1's AoS variant fits a block's shared memory: one
+    query row beside the (k, 129)-float slab (aos_tile_m). tpu_knn's guard
+    was a TPU memory limit instead (the (8, 128)-tiled HBM pages of an
+    (n, k) array, fused.py:1013-1025), which the card does not have
+    (ROADMAP C)."""
+    return (1 + AOS_SLAB_LD) * k * 4 <= MAX_QUERY_SMEM
+
+
+def v3_callback(k, m, n, search, ref):
+    idx, _ = fused_knn(search, ref, soa=False)
+    return _to_host(idx)
+
+
 def v4_callback(k, m, n, search, ref):
     idx, _ = fused_knn(search, ref)
     return _to_host(idx)
 
 
+def _v6_guard(k, m, n):
+    """v6 runs where the query set fits the constant bank (the reference's
+    own k*m <= 16384, padded to whole row tiles); tpu_knn's guard was its
+    4 MB VMEM query block (fused.py:1038-1077, ROADMAP C)."""
+    return const_query_fits(m, k)
+
+
+def v6_callback(k, m, n, search, ref):
+    idx, _ = const_query_knn(search, ref)
+    return _to_host(idx)
+
+
+register_version(
+    "v3",
+    v3_callback,
+    "B1's AoS variant: the caller's (n, k) array staged per 128-row group "
+    "through shared memory, transposed on chip, CUDA (reference v3, "
+    "core.cu:231-312)",
+    guard=_v3_guard,
+    fallback="v4",
+)
 register_version(
     "v4",
     v4_callback,
     "fused streaming kernel B1 over the SoA (k, n) operand, CUDA "
     "(reference v4, core.cu:313-423)",
+)
+register_version(
+    "v6",
+    v6_callback,
+    "B1 with the whole query set in constant memory for the sweep, CUDA "
+    "(reference v6 constant-memory broadcast, core.cu:530-643)",
+    guard=_v6_guard,
+    fallback="v4",
 )

@@ -3,7 +3,7 @@
 Two engines, split as in tpu_knn:
 
 - PREPARED (NNIndex, operand built once, k >= 8 or m >= 2): B2, a
-  hand-written CUDA kernel (csrc/knn_kernels.cu, replacing tpu_knn's
+  hand-written CUDA kernel (csrc/smallm_kernels.cu, replacing tpu_knn's
   Pallas `_smallm_kernel`) that streams the same SoA (k_pad, n_pad)
   operand as B1 and folds exact diff-form scores Σ(r − q)² into per-lane
   candidates; `_refine` picks the winner (always certified: the scores

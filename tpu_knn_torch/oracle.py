@@ -1,4 +1,4 @@
-"""v0 — the serial-semantics oracle (copy of tpu_knn/oracle.py's NumPy path).
+"""v0 — the serial-semantics oracle (tpu_knn/oracle.py's NumPy path, cache-blocked).
 
 The port carries its own copy so that it runs without tpu_knn installed;
 tests/test_torch_harness.py holds it against tpu_knn's on the same inputs.
@@ -12,49 +12,55 @@ bit-identical float32 semantics, vectorized in NumPy:
   lowest reference index (core.cu:50-54),
 - no sqrt (compared as squared sums).
 
-The n axis is processed in chunks so large reference sets do not
-materialize an m*n matrix; the chunk fold keeps the lowest-index tie rule
-because `np.argmin` returns the first minimum and the cross-chunk update is
-a strict `<` on a stream of increasing indices.
+The work is cut into blocks of ROW_BLOCK query rows by ``chunk`` reference
+points, small enough to stay in the host's caches, so large reference sets
+never materialize an m*n matrix; every (row, point) distance is the same
+float32 chain as unblocked, and the chunk fold keeps the lowest-index tie
+rule because `np.argmin` returns the first minimum and the cross-chunk
+update is a strict `<` on a stream of increasing indices.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-
-def squared_distances_chunk(search: np.ndarray, ref_chunk: np.ndarray) -> np.ndarray:
-    """(m, k) x (c, k) -> (m, c) float32 squared distances, accumulated in k
-    order like the reference's inner loop (core.cu:44-49)."""
-    m, k = search.shape
-    c = ref_chunk.shape[0]
-    acc = np.zeros((m, c), dtype=np.float32)
-    for kk in range(k):
-        diff = search[:, kk, None] - ref_chunk[None, :, kk]
-        acc += diff * diff
-    return acc
+#: Query rows per block (with the default chunk, 1 MB of distances).
+ROW_BLOCK = 32
 
 
-def oracle_knn(search: np.ndarray, ref: np.ndarray, chunk: int = 1 << 16,
+def oracle_knn(search: np.ndarray, ref: np.ndarray, chunk: int = 1 << 13,
                return_distances: bool = False):
     """Exact 1-NN argmin indices with v0 semantics: (m,) int32, and the
     (m,) float32 squared distances of the winners if ``return_distances``.
     ``chunk`` is the n-axis chunk size (memory only; result-invariant)."""
     search = np.ascontiguousarray(search, dtype=np.float32)
     ref = np.ascontiguousarray(ref, dtype=np.float32)
-    m = search.shape[0]
+    m, k = search.shape
     n = ref.shape[0]
 
     best_d = np.full((m,), np.inf, dtype=np.float32)
     best_i = np.zeros((m,), dtype=np.int32)
+    acc = np.empty((min(m, ROW_BLOCK), min(n, chunk)), dtype=np.float32)
+    diff = np.empty_like(acc)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
-        d = squared_distances_chunk(search, ref[start:stop])
-        local_i = np.argmin(d, axis=1)  # first minimum => lowest index
-        local_d = d[np.arange(m), local_i]
-        take = local_d < best_d  # strict: earlier chunk wins ties
-        best_i = np.where(take, local_i + start, best_i).astype(np.int32)
-        best_d = np.where(take, local_d, best_d)
+        ref_t = np.ascontiguousarray(ref[start:stop].T)          # (k, c)
+        for r0 in range(0, m, ROW_BLOCK):
+            rows = search[r0:r0 + ROW_BLOCK]
+            d, t = acc[:rows.shape[0], :stop - start], diff[:rows.shape[0], :stop - start]
+            # Accumulated in k order like the reference's inner loop
+            # (core.cu:44-49).
+            d.fill(0)
+            for kk in range(k):
+                np.subtract(rows[:, kk, None], ref_t[kk], out=t)
+                np.multiply(t, t, out=t)
+                d += t
+            local_i = np.argmin(d, axis=1)  # first minimum => lowest index
+            local_d = d[np.arange(rows.shape[0]), local_i]
+            held = best_d[r0:r0 + ROW_BLOCK]
+            take = local_d < held  # strict: earlier chunk wins ties
+            best_i[r0:r0 + ROW_BLOCK] = np.where(take, local_i + start, best_i[r0:r0 + ROW_BLOCK])
+            best_d[r0:r0 + ROW_BLOCK] = np.where(take, local_d, held)
 
     if return_distances:
         return best_i, best_d

@@ -10,6 +10,7 @@ capability raises instead of failing later at launch.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -40,6 +41,19 @@ def check_device(device) -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device} (cpu or cuda only)")
     return device
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Products in true f32 on the card (tpu_knn's Precision.HIGHEST):
+    TF32 is switched off for the block and the caller's setting restored
+    after, whatever it was."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def as_f32(x, device) -> torch.Tensor:

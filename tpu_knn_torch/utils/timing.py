@@ -1,8 +1,31 @@
-"""Device timing with CUDA events (chip_smoke.py and the probes)."""
+"""Timing: CUDA events (chip_smoke.py and the probes) and the harness's
+wall clock."""
 
 from __future__ import annotations
 
+import contextlib
 import statistics
+import time
+
+
+def _sync_card() -> None:
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def wall_ms(out: dict):
+    """Wall-clock ms around a host-side call, written to out["ms"] (the
+    reference harness's clock around each callback, main.cu:69-73). The
+    card is synchronized before the clock starts and before it stops, so
+    queued work is neither charged to the call nor left out of it."""
+    _sync_card()
+    t0 = time.perf_counter_ns()
+    yield
+    _sync_card()
+    out["ms"] = (time.perf_counter_ns() - t0) / 1e6
 
 
 def time_ms(fns: dict, reps: int, warmup: int = 2) -> dict:
