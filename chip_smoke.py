@@ -25,7 +25,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    2, B11 (windows of 1 + 1 and 64 + 1 tiles, n ragged against 4096, a
    window at the last tile with planted duplicates, and the auto path's
    (3, 16, 2^24) launch, at one split and the default splits), and B1's
-   AoS (v3) and constant-query (v6) variants, bit-equal to B1;
+   AoS (v3) and constant-query (v6) variants, bit-equal to B1; then the
+   tensor-core kernel's instances (B1's tiers and B12) on a grid of k = 1
+   ... 768 with ragged n and at every shape phase 2 gives them (ds11 over
+   f32, bf16 and int8-grid operands; packed2 at (32, 1024, 2^20); the
+   embed shapes (1024, 2^20) at k = 128 and 768 over each store's
+   operand), each against its plain version: the refined answers over the
+   merged 128 lanes, the planted tie, the score error against f64
+   (relative to the largest |score|) within the tier's gate, and the
+   certified fast path's top-T selection exact at the measured error; B1
+   "highest" beside each; and B2-bf16, bit-equal to B2 on the upcast
+   operand;
 2. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - 1-NN: the 8 TA shapes through knn_callback (v7 default, v4)
@@ -53,11 +63,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      (the probe's certification rate; m = 16 routed to projection, m = 64
      to fused), NNIndex(strategy="projection") at m = 16, and a planted
      identical-projection case that must take the fallback scan;
+   - the score tiers: fused_knn at ds11 with each explicit tier, v7 at
+     (32, 1024, 2^20) (packed2), NNIndex at ds11 with the default tier and
+     with precision="bf16x3_presplit" (B12) at m = 1, 4, 1024;
+   - the stores: NNIndex(store=float32/bf16/int8) at (16, 1024, 2^20)
+     through query and pipeline(1024), m = 1 and 4 too, and at the embed
+     shapes k = 128 and 768 (m = 1024, n = 2^20), whose tier must be
+     tpu_knn's (bf16x3, qsplit2, qsplit2), gated over the stored points
+     (grid space for int8), each index freed before the next;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
    cuBLAS product of the score matrices and the main paths (among them
    the ladder's per-call rows and prepared auto against prepared fused,
-   with device time and idle per host read from torch.profiler), each
-   printed beside the card's name and power limit, and the bounds.
+   with device time and idle per host read from torch.profiler; each tier
+   at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
+   the store and embed calls), each printed beside the card's name and
+   power limit, and the bounds (tensor-core tiers at 989 TFLOP/s bf16).
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -401,6 +421,8 @@ def phase2_big(device, gen, ds11, ds9):
     q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
     checks = [
         ("ds11 per-call fused_knn (v4)", lambda: fused_knn(q, r)[0]),
+        ("ds11 per-call fused_knn precision='highest' (B1)",
+         lambda: fused_knn(q, r, precision="highest")[0]),
         ("ds11 per-call knn_callback default (v7)",
          lambda: tpu_knn_torch.knn_callback(k, m, n, q, r)),
     ]
@@ -1197,6 +1219,383 @@ def phase2_auto(device, gen, n=1 << 24, k=3):
     return {"r": r, "q16": q16, "auto": auto, "fused": fused}
 
 
+# ---- the score tiers and the stores: phase 1 and phase 2 -------------------
+
+def tier_operands(gen, device, kind, k, m, n):
+    """(q, stored points (n, k) f32, the kernel's operands) for a tier case:
+    "f32" the SoA operand, "bf16" a bf16 store's, "int8" an int8 grid's
+    per-call bf16 operand with grid-space queries, "presplit" B12's (hi, lo,
+    ‖r‖²). Query 0's point is planted at columns n // 3 and n // 2 (an exact
+    tie the rerank must resolve to n // 3; n // 5 on the int8 grid). At
+    k < 3 the points within 0.01 of query 0 in every coordinate are moved
+    by 0.5 (mod 1): on the line, n = 20077 points otherwise put dozens
+    within the score's f32 resolution of the planted pair (the score
+    ‖r‖² − 2q·r keeps d² only to a few ulps of ‖q‖²), and in a bf16 store
+    some would round onto it."""
+    import torch
+
+    from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.kernels.tiers import presplit_ops
+
+    n_pad = -(-n // 128) * 128
+    q = uniform(gen, (m, k), device)
+    if kind == "int8":
+        g = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+        q = q * 254.0 - 127.0
+        g[n // 2] = g[n // 3] = g[n // 5]
+        q[0] = g[n // 3].float()
+        return q, g.float(), (prep_soa(g.to(torch.bfloat16), n_pad),)
+    r = uniform(gen, (n, k), device)
+    if k < 3:
+        near = (r - q[0]).abs().max(dim=1).values < 0.01
+        r[near] = (r[near] + 0.5) % 1.0
+    r[n // 2] = r[n // 3] = q[0]
+    if kind == "bf16":
+        r = r.to(torch.bfloat16)
+        return q, r.float(), (prep_soa(r, n_pad),)
+    if kind == "presplit":
+        return q, r, presplit_ops(r, n_pad)
+    return q, r, (prep_soa(r, n_pad),)
+
+
+def phase1_tiers(device, gen, cases):
+    """Each tier instance of the tensor-core kernel (B1's tiers) and B12
+    against its plain version, at the slots and at the refine:
+    - candidate indices agree on at least MIN_INDEX_AGREEMENT of the slots;
+    - the refined (idx, d2) over the merged 128 lanes (the set the main
+      path refines, tiers.refine_candidates) is identical to the plain
+      path's, but for rows where the two answers' exact (f64) squared
+      distances differ by at most twice the larger measured absolute score
+      error of the two: a near-tie that two correct f32 orders may resolve
+      apart; each such row is printed with both answers;
+    - the planted exact tie resolves to the lower column in both;
+    - the score error against an f64 recomputation (tiers.score_errors,
+      relative to the largest |score| of the candidates) is within the
+      tier's gate (tiers.tier_error_gate: its _TIER_EPS plus f32
+      arithmetic, or the plain version's own error where the tier's
+      arithmetic exceeds that);
+    - where the certified fast path is taken (every |score| within
+      select_cutoff), the top-T selection is exact at the measured error
+      (tiers.selection_slack at most REFINE_TOP_T; required at k >= 3,
+      printed at k < 3, where the score resolves d² only to a few ulps
+      of ‖q‖²).
+    "highest" (B1 on the CUDA cores) beside each, for reference. The
+    "default" tier (one bf16 pass, selection-approximate) is held at the
+    slots and its error only. Returns ({row: max |score diff| to plain},
+    {row: largest relative score error of the kernel}, {row: largest
+    share of its gate})."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, tiers
+    from tpu_knn_torch.kernels.fused import REFINE_TOP_T, _refine, prep_soa, select_cutoff
+
+    def exact_d2(q, pts, idx):
+        return ((pts[idx.long()].double() - q.double()) ** 2).sum(dim=-1)
+
+    diffs, rel, share_of_gate = {}, {}, {}
+    for label, precision, kind, k, m, n in cases:
+        q, pts, ops = tier_operands(gen, device, kind, k, m, n)
+        parts = tiers.tier_parts(precision, m, k, n)
+        ki, ks = tiers.tier_candidates(q, ops, n, parts, precision)
+        pi, ps = tiers.tier_candidates_plain(q, ops, n, parts, precision)
+        share = (ki == pi).float().mean().item()
+        agree = (ki == pi) & torch.isfinite(ps)
+        diff = (ks - ps)[agree].abs().max().item()
+        err, err_mag, err_abs = tiers.score_errors(q, pts, ki, ks)
+        plain_err, _, plain_abs = tiers.score_errors(q, pts, pi, ps)
+        gate = tiers.tier_error_gate(precision, k, plain_err)
+        eps = fused._TIER_EPS.get(tiers.resolved_tier(precision, k), 2.0 ** -8)
+        hi_i, hi_s = fused.fused_candidates(q, prep_soa(pts, ops[0].shape[1]), n,
+                                            fused.default_parts(m, k, n))
+        hi_err = tiers.score_errors(q, pts, hi_i, hi_s)[0]
+        del hi_i, hi_s
+        cutoff = select_cutoff(precision, k)
+        mk, mp = tiers.merge_partitions(ki, ks), tiers.merge_partitions(pi, ps)
+        (k_idx, _), (p_idx, _) = (_refine(q, pts, c, n, cutoff=cutoff) for c in (mk, mp))
+        apart = (k_idx != p_idx).nonzero().flatten()
+        slack_d2 = 2.0 * max(err_abs, plain_abs)
+        gap = (exact_d2(q[apart], pts, k_idx[apart])
+               - exact_d2(q[apart], pts, p_idx[apart])).abs()
+        same = bool((gap <= slack_d2).all())
+        rows = ", ".join(f"row {int(r)}: {int(k_idx[r])} / {int(p_idx[r])} (|d2 gap| "
+                         f"{float(g):.3g})" for r, g in zip(apart[:4], gap[:4]))
+        want_tie = n // 5 if kind == "int8" else n // 3
+        tie = int(k_idx[0]) == want_tie and int(p_idx[0]) == want_tie
+        mag = float(torch.where(torch.isfinite(mk[1]), mk[1].abs(), 0.0).max())
+        slack = tiers.selection_slack(q, pts, mk[0], err_abs) if mag <= cutoff else None
+        certified = slack is None or slack <= REFINE_TOP_T or k < 3
+        if precision == "default":
+            same, tie, certified = True, True, True
+        log(f"  {label} ({precision}, {kind} operand) k={k} m={m} n={n} P={parts}: "
+            f"agreement {share:.6f}; refined identical but {len(apart)} near-tie rows "
+            f"within {slack_d2:.3g} of each other: {same} [{rows}]; tie -> kernel "
+            f"{int(k_idx[0])}, plain {int(p_idx[0])} (want {want_tie}); fast path "
+            + (f"taken (max |score| {mag:.3g} <= {cutoff:.3g}), lanes within 2x the error "
+               f"of the row minimum {slack} (T = {REFINE_TOP_T})" if slack is not None
+               else f"not taken (max |score| {mag:.3g} > {cutoff:.3g})")
+            + f"; score error {err:.3g} (plain {plain_err:.3g}, absolute {err_abs:.3g}, "
+            f"per-candidate |terms| {err_mag:.3g}) against _TIER_EPS {eps:.3g}, gate "
+            f"{gate:.3g} ({err / gate:.2f} of it); B1 'highest' {hi_err:.3g}")
+        if share < MIN_INDEX_AGREEMENT or not same or not tie or not certified or err > gate:
+            fail(f"{label} {precision} k={k} m={m} n={n}: agreement {share}, identical "
+                 f"{same}, tie {tie}, selection slack {slack}, score error {err} > gate {gate}")
+        diffs[label] = max(diffs.get(label, 0.0), diff)
+        rel[label] = max(rel.get(label, 0.0), err)
+        share_of_gate[label] = max(share_of_gate.get(label, 0.0), err / gate)
+        del q, pts, ops, ki, ks, pi, ps, mk, mp
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    return diffs, rel, share_of_gate
+
+
+def phase1_b2_bf16(device, gen, cases):
+    """B2 over a bf16 operand, bit-equal to B2 over the same values upcast
+    to f32; against its plain version like B2."""
+    import torch
+
+    from tpu_knn_torch.kernels import smallm
+    from tpu_knn_torch.kernels.fused import prep_soa
+
+    err = 0.0
+    for k, m, n in cases:
+        q = uniform(gen, (m, k), device)
+        r_op = prep_soa(uniform(gen, (n, k), device).to(torch.bfloat16), -(-n // 128) * 128)
+        parts = smallm.default_parts(n)
+        got = smallm.smallm_candidates(q, r_op, n, parts)
+        want = smallm.smallm_candidates(q, r_op.float(), n, parts)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"B2-bf16 k={k} m={m} n={n}: not bit-equal to B2 on the upcast operand")
+        pi, ps = smallm.smallm_candidates_plain(q, r_op, n, parts)
+        share, e, _ = slot_agreement("B2-bf16", got[0], got[1], pi, ps)
+        err = max(err, e)
+        log(f"  B2-bf16: k={k} m={m} n={n} P={parts}: bit-equal to B2 on the upcast operand; "
+            f"plain agreement {share:.6f}, max |score diff| {e:.3g}")
+    torch.cuda.synchronize(device)
+    return err
+
+
+def gate_stored(name, q, pts, idx, want=None):
+    """0 errors against the exact scan over the stored points (pts, in the
+    query's space), by the harness rule; returns the exact answer."""
+    import torch
+
+    if want is None:
+        want = exact_scan(q, pts)
+    errors = gate_errors(q, pts, idx, want)
+    torch.cuda.synchronize(q.device)
+    log(f"  {name}: errors {errors}/{q.shape[0]}")
+    if errors:
+        fail(f"{name}: {errors} errors")
+    return want
+
+
+def stored_space(ix, q, r):
+    """(queries, stored points) of an index in its query space: the bf16
+    store's upcast points, the int8 grid (and grid-space queries)."""
+    if ix.store == "int8":
+        return ix._i8_q(q), ix.ref_dev
+    return q, ix.ref_dev.float() if ix.store == "bf16" else r
+
+
+def phase2_tiers(device, gen, ds11):
+    """The tier path per call and prepared at ds11: fused_knn (v4) with each
+    explicit tier (bf16x3, bf16x4, presplit, highest; "default", the
+    TPU's single bf16 pass, is selection-approximate: its errors are
+    printed, not gated), v7 at (32, 1024, 2^20) (the packed2 tier), and
+    NNIndex at ds11 with the default tier and with precision=
+    "bf16x3_presplit" (B12 at every m). Each run gated against the exact
+    scan."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.fused import fused_knn
+
+    k, m, n = ds11
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    want = exact_scan(q, r)
+    for tier in ("bf16x3", "bf16x4", "bf16x3_presplit", "highest"):
+        gate_stored(f"ds11 per-call fused_knn precision={tier!r}", q, r,
+                    fused_knn(q, r, precision=tier)[0], want)
+    errors = gate_errors(q, r, fused_knn(q, r, precision="default")[0], want)
+    log(f"  ds11 per-call fused_knn precision='default' (one bf16 pass, selection-"
+        f"approximate): errors {errors}/{m} (not gated)")
+    for precision in (None, "bf16x3_presplit"):
+        ix = tpu_knn_torch.NNIndex(r, precision=precision)
+        for mm in (1, 4, m):
+            gate_stored(f"ds11 NNIndex(precision={ix.precision!r}).query m={mm}", q[:mm], r,
+                        ix.query(q[:mm])[0], want[:mm])
+        del ix
+    q32, r32 = uniform(gen, (m, 32), device), uniform(gen, (n, 32), device)
+    gate_stored("(32, 1024, 2^20) per-call knn_callback default (v7, packed2)", q32, r32,
+                tpu_knn_torch.knn_callback(32, m, n, q32, r32))
+    return {"q": q, "r": r}
+
+
+def phase2_stores(device, gen, batch, embed_ks):
+    """NNIndex(store=s) for float32, bf16 and int8: at the batch-store shape
+    through pipeline(1024) and query, with m = 1 and m = 4 too, and at the
+    embed shapes (k in embed_ks, m = 1024, n = 2^20), whose resolved tier
+    must be tpu_knn's (bf16x3 for float32, qsplit2 for the quantized
+    stores). Each index is freed before the next, and the path's own peak
+    of device memory stays under STORE_PEAK_LIMIT; every run is gated
+    against the exact scan over the stored points (grid space for int8)."""
+    import torch
+
+    import tpu_knn_torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)   # earlier phases' live data
+    k, m, n = batch
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    for store in ("float32", "bf16", "int8"):
+        ix = tpu_knn_torch.NNIndex(r, store=store)
+        qs, pts = stored_space(ix, q, r)
+        want = gate_stored(f"batch store={store} ({k}, {m}, 2^20) query [{ix.precision}]",
+                           qs, pts, ix.query(q)[0])
+        run, ops = ix.pipeline(m)
+        gate_stored(f"batch store={store} pipeline({m})", qs, pts, run(q, *ops)[0], want)
+        for mm in (1, 4):
+            gate_stored(f"batch store={store} query m={mm}", qs[:mm], pts,
+                        ix.query(q[:mm])[0], want[:mm])
+        del ix, qs, pts, run, ops
+    del q, r
+    torch.cuda.empty_cache()
+    for k in embed_ks:
+        q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+        for store, tier in (("float32", "bf16x3"), ("bf16", "qsplit2"), ("int8", "qsplit2")):
+            ix = tpu_knn_torch.NNIndex(r, store=store)
+            if ix.precision != tier:
+                fail(f"embed k={k} store={store}: tier {ix.precision}, tpu_knn's is {tier}")
+            qs, pts = stored_space(ix, q, r)
+            want = gate_stored(f"embed ({k}, {m}, 2^20) store={store} query [{tier}]", qs, pts,
+                               ix.query(q)[0])
+            gate_stored(f"embed ({k}, 4, 2^20) store={store} query (AoS scan)", qs[:4], pts,
+                        ix.query(q[:4])[0], want[:4])
+            del ix, qs, pts, want
+            torch.cuda.empty_cache()
+        del q, r
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"  peak device memory of the store path: {(peak - held) / 2**30:.2f} GiB of its own "
+        f"(limit {STORE_PEAK_LIMIT / 1e9:.0f} GB), {peak / 2**30:.2f} GiB with the "
+        f"{held / 2**30:.2f} GiB that earlier phases hold")
+    if peak - held > STORE_PEAK_LIMIT:
+        fail(f"the store path held {peak - held} bytes at its peak, above {STORE_PEAK_LIMIT}")
+
+
+#: The store path frees each index before the next: at k = 768 the f32
+#: index holds 3 GiB in each of two layouts, and the peak stays under this.
+STORE_PEAK_LIMIT = 20e9
+
+
+#: The H100's dense bf16 tensor-core peak (NVIDIA's data sheet, SXM, 700 W).
+BF16_PEAK_FLOPS = 989e12
+
+
+def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
+    """Times of each tier's kernel at its main-path shape beside its plain
+    version, B1 at "highest" on the same shape (the f32 operand of the
+    same points), and the "matmul part" (cuBLAS's bf16 torch.matmul of the
+    (m, k) x (k, n) product: a part of the work, not the same function);
+    B12 and B2-bf16 likewise; then the end-to-end tier and store calls.
+    Returns (times, bounds: row -> (ms, by))."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels import fused, smallm, tiers
+    from tpu_knn_torch.kernels.fused import fused_knn, prep_soa
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times, bounds = {}, {}
+    rows = [  # row, precision, operand kind, (k, m, n)
+        ("B1 packed3", "packed", "f32", ds11), ("B1 packed2", "packed", "f32", (32, *ds11[1:])),
+        ("B1 bf16x4", "bf16x4", "f32", ds11), ("B1 default", "default", "f32", ds11),
+        ("B12", "bf16x3_presplit", "presplit", ds11),
+        ("B1 packed3 (bf16 store)", "packed", "bf16", ds11),
+        ("B1 bf16x3 k=128", "bf16x3", "f32", (128, ds11[1], n_embed)),
+        ("B1 qsplit2 k=128", "qsplit2", "bf16", (128, ds11[1], n_embed)),
+        ("B1 bf16x3", "bf16x3", "f32", (768, ds11[1], n_embed)),
+        ("B1 qsplit2", "qsplit2", "bf16", (768, ds11[1], n_embed)),
+    ]
+    for row, precision, kind, (k, m, n) in rows:
+        q, pts, ops = tier_operands(gen, device, kind, k, m, n)
+        parts = tiers.tier_parts(precision, m, k, n)
+        r_f32 = prep_soa(pts, ops[0].shape[1])
+        p1 = fused.default_parts(m, k, n)
+        q_bf, r_bf = q.to(torch.bfloat16), pts.T.contiguous().to(torch.bfloat16)
+        plain_reps = 3 if k >= 128 else reps
+        times.update(time_ms({
+            f"{row} kernel": lambda: tiers.tier_candidates(q, ops, n, parts, precision),
+            f"{row} B1 highest": lambda: fused.fused_candidates(q, r_f32, n, p1),
+            f"{row} matmul part": lambda: torch.matmul(q_bf, r_bf),
+        }, reps))
+        times.update(time_ms({f"{row} plain": lambda: tiers.tier_candidates_plain(
+            q, ops, n, parts, precision)}, plain_reps, warmup=1))
+        k16 = -(-k // 16) * 16
+        terms = len(tiers.term_list(precision, k))
+        if kind in ("bf16", "int8"):
+            terms = sum(1 for _, j in tiers.term_list(precision, k) if j == 0)
+        op_bytes = {"f32": 4 * k * n, "bf16": 2 * k * n, "int8": 2 * k * n,
+                    "presplit": 4 * k16 * n + 4 * n}[kind]
+        bounds[row] = roofline(4 * m * k + op_bytes + 8 * m * 128, terms * 2 * m * n * k16,
+                               peak=BF16_PEAK_FLOPS)
+        log(f"  {row}: {precision} over the {kind} operand at (k={k}, m={m}, n={n}), P={parts}, "
+            f"{terms} terms; B1 'highest' at P={p1}")
+        del q, pts, ops, r_f32, q_bf, r_bf
+        torch.cuda.empty_cache()
+    # B2-bf16 and B2 at the prepared m = 4 query of the batch-store shape.
+    k, m, n = 16, 4, ds11[2]
+    q = uniform(gen, (m, k), device)
+    r_bf = prep_soa(uniform(gen, (n, k), device).to(torch.bfloat16), n)
+    r_up, p2 = r_bf.float(), smallm.default_parts(n)
+    times.update(time_ms({
+        "B2-bf16 kernel": lambda: smallm.smallm_candidates(q, r_bf, n, p2),
+        "B2-bf16 plain": lambda: smallm.smallm_candidates_plain(q, r_bf, n, p2),
+        "B2 kernel (16, 4, 2^20)": lambda: smallm.smallm_candidates(q, r_up, n, p2),
+    }, reps))
+    bounds["B2-bf16"] = roofline(4 * m * k + 2 * k * n + 8 * m * 128, 3 * m * n * k)
+    del q, r_bf, r_up
+    stamp("tier kernel times")
+    # End to end: ds11 per call and prepared by tier, the batch stores.
+    k, m, n = ds11
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    ix_packed = tpu_knn_torch.NNIndex(r)
+    ix_presplit = tpu_knn_torch.NNIndex(r, precision="bf16x3_presplit")
+    fns = {"ds11 per-call fused_knn (v4, packed)": lambda: fused_knn(q, r),
+           "ds11 per-call fused_knn precision='highest'": lambda: fused_knn(q, r, precision="highest"),
+           "ds11 per-call fused_knn precision='bf16x3_presplit'":
+               lambda: fused_knn(q, r, precision="bf16x3_presplit"),
+           "ds11 prepared NNIndex.query (packed)": lambda: ix_packed.query(q),
+           "ds11 prepared NNIndex.query (bf16x3_presplit)": lambda: ix_presplit.query(q)}
+    for store in ("float32", "bf16", "int8"):
+        ix = tpu_knn_torch.NNIndex(r, store=store)
+        run, ops = ix.pipeline(m)
+        fns[f"batch store={store} query (16, 1024, 2^20)"] = lambda ix=ix: ix.query(q)
+        fns[f"batch store={store} pipeline(1024)"] = lambda run=run, ops=ops: run(q, *ops)
+        fns[f"batch store={store} query m=1"] = lambda ix=ix: ix.query(q[:1])
+        fns[f"batch store={store} query m=4"] = lambda ix=ix: ix.query(q[:4])
+    times.update(time_ms(fns, reps))
+    del fns, ix, ix_packed, ix_presplit, run, ops, q, r
+    torch.cuda.empty_cache()
+    stamp("tier and store end-to-end times")
+    for k in (128, 768):
+        q, r = uniform(gen, (ds11[1], k), device), uniform(gen, (n_embed, k), device)
+        for store in ("float32", "bf16", "int8"):
+            ix = tpu_knn_torch.NNIndex(r, store=store)
+            times.update(time_ms({f"embed k={k} store={store} query [{ix.precision}]":
+                                  lambda: ix.query(q)}, 5))
+            del ix
+            torch.cuda.empty_cache()
+        del q, r
+        torch.cuda.empty_cache()
+    for name, ms in times.items():
+        log(f"  time {name}: median {ms:.4f} ms [{card}]")
+    for name, (ms, by) in bounds.items():
+        log(f"  bound {name}: {ms:.4f} ms ({by})")
+    return times, bounds
+
+
 # ---- phase 3: times ------------------------------------------------------
 
 
@@ -1496,10 +1895,12 @@ F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
 
-def roofline(nbytes, flops):
+def roofline(nbytes, flops, peak=F32_PEAK_FLOPS):
     """(ms, "bytes" or "operations"): the larger of nbytes over the memory
-    rate and flops over the f32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
+    rate and flops over the peak of their type (f32 on the CUDA cores by
+    default; BF16_PEAK_FLOPS for the tensor-core tiers, whose flops count
+    the tier's T terms: T·2·m·n·k16)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1533,6 +1934,7 @@ def main() -> int:
     from tpu_knn_torch.kernels.twolevel import DEFAULT_PARTITIONS
 
     t_start = time.perf_counter()
+    from tpu_knn_torch.kernels import tiers
 
     # Phase 0
     log("phase 0: setup")
@@ -1659,22 +2061,82 @@ def main() -> int:
     errs["B1 variants"] = phase1_b1_variants(device, gen, variant_cases)
     torch.cuda.empty_cache()
     stamp("phase 1 B1 variants")
+    # The tensor-core tiers and B12 on a grid with ragged n: every k of
+    # the slice, each tier that auto_precision or a store selects there
+    # (packed at k <= 32 over f32 and bf16 operands; bf16x3 over f32 and
+    # qsplit2 over bf16 and int8-grid operands above), B12, the tiers that
+    # only an explicit precision= reaches (bf16x4, default), ds11 (packed3,
+    # B12) and the embed shapes at m = 256.
+    n_t = 20_000 + 77
+    tier_cases = []
+    for k in (1, 3, 16, 24, 32, 40, 128, 768):
+        n_k = n_t if k < 768 else 5000 + 77
+        if k <= 32:
+            label = "B1 packed3" if -(-k // 8) * 8 <= 16 else "B1 packed2"
+            tier_cases += [(label, "packed", "f32", k, 100, n_k),
+                           (label, "packed", "bf16", k, 33, n_k)]
+        else:
+            tier_cases += [("B1 bf16x3", "bf16x3", "f32", k, 100, n_k),
+                           ("B1 qsplit2", "qsplit2", "bf16", k, 33, n_k),
+                           ("B1 qsplit2", "qsplit2", "int8", k, 70, n_k)]
+        tier_cases += [("B12", "bf16x3_presplit", "presplit", k, 64, n_k)]
+    tier_cases += [("B1 bf16x4", "bf16x4", "f32", k, 50, n_t) for k in (16, 40)]
+    tier_cases += [("B1 default", "default", "f32", k, 50, n_t) for k in (16, 40)]
+    tier_cases += [("B1 packed3", "packed", "f32", *DS11),
+                   ("B12", "bf16x3_presplit", "presplit", *DS11)]
+    tier_cases += [("B1 bf16x3", "bf16x3", "f32", k, 256, 1 << 20) for k in (128, 768)]
+    tier_cases += [("B1 qsplit2", "qsplit2", kind, k, 256, 1 << 20)
+                   for k in (128, 768) for kind in ("bf16", "int8")]
+    # Then every other shape the main path gives the tiers in phase 2:
+    # ds11 prepared over a bf16 store's operand and the int8 grid's per-call
+    # one (packed3), bf16x4 and default per call, v7 at (32, 1024, 2^20)
+    # (packed2), and the embed shapes at m = 1024 (bf16x3 over f32, qsplit2
+    # over the bf16 and int8 stores' operands). They draw from a generator
+    # of their own, so phase 2's data do not depend on them.
+    k11, m11, n11 = DS11
+    main_cases = [("B1 packed3", "packed", kind, *DS11) for kind in ("bf16", "int8")]
+    main_cases += [("B1 bf16x4", "bf16x4", "f32", *DS11), ("B1 default", "default", "f32", *DS11),
+                   ("B1 packed2", "packed", "f32", 32, m11, n11)]
+    main_cases += [("B1 bf16x3", "bf16x3", "f32", k, m11, n11) for k in (128, 768)]
+    main_cases += [("B1 qsplit2", "qsplit2", kind, k, m11, n11)
+                   for k in (128, 768) for kind in ("bf16", "int8")]
+    gen_main = torch.Generator(device=device)
+    gen_main.manual_seed(1001)
+    tier_diffs, tier_rel, tier_gate_share = phase1_tiers(device, gen, tier_cases)
+    for got, mine in zip(phase1_tiers(device, gen_main, main_cases),
+                         (tier_diffs, tier_rel, tier_gate_share)):
+        for label, value in got.items():
+            mine[label] = max(mine.get(label, 0.0), value)
+    errs.update(tier_diffs)
+    errs["B2-bf16"] = phase1_b2_bf16(device, gen, [(k, m, n) for k in (8, 16, 32)
+                                                  for m in (1, 4) for n in (1000, n_t)]
+                                     + [(16, 1, 1 << 20), (16, 4, 1 << 20)])
+    torch.cuda.empty_cache()
+    stamp("phase 1 tiers, B12 and B2-bf16")
 
     # Phase 2: each path runs with every launch counter set to 0 just
     # before it and read just after.
-    counters = {"B1": fused.fused_candidates, "B2": smallm.smallm_candidates,
+    wrappers = {"B1": fused.fused_candidates, "B2": smallm.smallm_candidates,
                 "B3": fused.minima_candidates, "B4": fused.banded_candidates,
                 "B5": topk.sweep_candidates, "B6": topk.smallm_topk_candidates,
                 "B7": seeded.extract_moments, "B8/B9": seeded.compact_cells,
                 "B10": dma_pipeline.dma_candidates, "B11": projection.window_candidates,
                 "B1 AoS (v3)": fused.aos_candidates,
                 "B1 constant-query (v6)": fused.const_query_candidates}
+    # B1's tiers, B12 and B2-bf16 count in tiers.TIER_LAUNCHES, one key a
+    # row.
+    tier_rows = {f"B1 {t}": t for t in ("packed3", "packed2", "bf16x3", "bf16x4", "qsplit2",
+                                        "default")}
+    tier_rows.update({"B12": "bf16x3_presplit", "B2-bf16": "B2-bf16"})
+    counters = [*wrappers, *tier_rows]
 
     def drive(path, needs, run):
-        for fn in counters.values():
+        for fn in wrappers.values():
             fn.launches = 0
+        tiers.TIER_LAUNCHES.clear()
         out = run()
-        counts = {kname: fn.launches for kname, fn in counters.items()}
+        counts = {kname: wrappers[kname].launches if kname in wrappers
+                  else tiers.TIER_LAUNCHES[tier_rows[kname]] for kname in counters}
         log(f"  kernel launches on the {path} path: {counts}")
         for kname in needs:
             if counts[kname] < 1:
@@ -1684,7 +2146,7 @@ def main() -> int:
 
     log("phase 2: main path")
     (big11, big9), counts_1nn = drive(
-        "1-NN", ("B1", "B2"),
+        "1-NN", ("B1", "B2", "B1 packed3"),
         lambda: (phase2_ta(device), phase2_big(device, gen, DS11, DS9))[1])
     log("phase 2: top-K path")
     (calls, ctx), counts_topk = drive("top-K", ("B2", "B4", "B5", "B6"),
@@ -1695,14 +2157,24 @@ def main() -> int:
     seeded_calls, counts_seeded = drive("seeded top-K", ("B3", "B4", "B7", "B8/B9"),
                                         lambda: phase2_seeded(device, cases))
     log("phase 2: the 1-NN ladder (the runner; v1, v2, v3, v5, v6, v11 at ds8..ds11)")
-    big, counts_ladder = drive("ladder", ("B1", "B10", "B11", "B1 AoS (v3)",
-                                          "B1 constant-query (v6)"),
+    big, counts_ladder = drive("ladder", ("B10", "B11", "B1 AoS (v3)",
+                                          "B1 constant-query (v6)", "B1 packed3"),
                                lambda: phase2_ladder(device, gen))
     log("phase 2: auto and projection serving")
-    auto_ctx, counts_auto = drive("auto/projection", ("B1", "B11"),
+    auto_ctx, counts_auto = drive("auto/projection", ("B1", "B11", "B1 packed3"),
                                   lambda: phase2_auto(device, gen))
+    log("phase 2: the score tiers per call and prepared (ds11, v7 at k = 32)")
+    _, counts_tiers = drive("tier", ("B1", "B1 packed3", "B1 packed2", "B1 bf16x3",
+                                     "B1 bf16x4", "B1 default", "B12"),
+                            lambda: phase2_tiers(device, gen, DS11))
+    log("phase 2: the stores (batch-store and embed shapes)")
+    _, counts_stores = drive("store", ("B1 packed3", "B1 bf16x3", "B1 qsplit2", "B2",
+                                       "B2-bf16"),
+                             lambda: phase2_stores(device, gen, DS11, (128, 768)))
+    torch.cuda.empty_cache()
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
-                                             counts_ladder, counts_auto))
+                                             counts_ladder, counts_auto, counts_tiers,
+                                             counts_stores))
                 for kname in counters}
 
     # Phase 3
@@ -1718,6 +2190,11 @@ def main() -> int:
     ladder_times, ladder_bounds = phase3_ladder(card, big, auto_ctx, reps=10)
     times.update(ladder_times)
     stamp("phase 3 ladder")
+    del big, auto_ctx
+    torch.cuda.empty_cache()
+    tier_times, tier_bounds = phase3_tiers(card, device, gen, reps=10)
+    times.update(tier_times)
+    stamp("phase 3 tiers and stores")
 
     for mod in ("jax", "tpu_knn"):
         if mod in sys.modules:
@@ -1725,7 +2202,6 @@ def main() -> int:
     # Bounds at the timed shapes: (m, k, n, candidate width, extra bytes,
     # flops per (row, column, coordinate)): 2 for the score FMA, 3 for the
     # diff-form subtract and FMA.
-    k11, m11, n11 = DS11
     bounds = {
         "B1": bound(m11, k11, n11, 128, 0, 2),
         "B2": bound(m9, k9, n9, 128, 0, 3),
@@ -1740,6 +2216,7 @@ def main() -> int:
         "B11": ladder_bounds["B11"],
         "B1 AoS (v3)": bound(m11, k11, n11, 128, 0, 2),
         "B1 constant-query (v6)": bound(m11, k11, n11, 128, 0, 2),
+        **tier_bounds,
     }
     errs["B8"] = errs["B9"] = errs["B8/B9"]
     errs["B1 AoS (v3)"] = errs["B1 constant-query (v6)"] = errs["B1 variants"]
@@ -1777,15 +2254,27 @@ def main() -> int:
         ("B1 constant-query (v6)", "const_query_candidates", "tpu_knn/kernels/fused.py:318",
          "B1 constant-query (v6) kernel ds11", "B1 plain ds11 at the variants' P",
          "matmul ds11"),
+        ("B2-bf16", "smallm_candidates (bf16 operand)", "tpu_knn/kernels/smallm.py:82",
+         "B2-bf16 kernel", "B2-bf16 plain", None),
     ]
+    # The tensor-core kernel's instances: B1's tiers (at their main-path
+    # shapes: packed3 at ds11, packed2 at k = 32, bf16x3 and qsplit2 at the
+    # k = 768 embed shape) and B12; "matmul part" is cuBLAS's bf16 product.
+    rows += [(row, "tensor_candidates" if row != "B12" else "presplit_candidates",
+              "tpu_knn/kernels/fused.py:" + ("290" if row == "B12" else "318"),
+              f"{row} kernel", f"{row} plain", f"{row} matmul part")
+             for row in ("B1 packed3", "B1 packed2", "B1 bf16x3", "B1 bf16x4", "B1 qsplit2",
+                         "B1 default", "B12")]
     # Each kernel's source file under tpu_knn_torch/csrc/.
     family = {"B1": "fused", "B4": "fused", "B10": "fused", "B1 AoS (v3)": "fused",
               "B1 constant-query (v6)": "fused", "B2": "smallm", "B6": "smallm",
               "B5": "sweep", "B3": "seeded", "B7": "seeded", "B8": "seeded", "B9": "seeded",
-              "B11": "window"}
+              "B11": "window", "B2-bf16": "smallm"}
+    family.update({row: "tensor" for row in tier_rows if row != "B2-bf16"})
     # No single PyTorch call computes a per-lane fold, so library_ms is
-    # null; matmul_part_ms is cuBLAS's f32 product of the same score
-    # matrix (TF32 off), a part of the kernel's work only.
+    # null; matmul_part_ms is cuBLAS's product of the same score matrix
+    # (f32 with TF32 off for the f32 kernels, bf16 for the tensor-core
+    # tiers), a part of the kernel's work only.
     kernels = [
         {"name": f"{kid} {fname}", "route": "cuda",
          "source": f"tpu_knn_torch/csrc/{family[kid]}_kernels.cu", "replaces": replaces,
@@ -1793,7 +2282,10 @@ def main() -> int:
          "ms": times[t_kernel], "plain_ms": times[t_plain],
          "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1],
          "library_ms": None,
-         "matmul_part_ms": times[t_matmul] if t_matmul else None}
+         "matmul_part_ms": times[t_matmul] if t_matmul else None,
+         **({"tier_rel_err": tier_rel[kid], "tier_err_over_gate": tier_gate_share[kid],
+             "tier_eps": fused._TIER_EPS["bf16x3_presplit" if kid == "B12" else kid[3:]],
+             "highest_ms": times[f"{kid} B1 highest"]} if kid in tier_rel else {})}
         for kid, fname, replaces, t_kernel, t_plain, t_matmul in rows]
     log(f"version {tpu_knn_torch.__version__}; {card}; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -136,9 +136,11 @@ def test_pad_value_rows_never_win():
 def test_precision_tiers():
     q = np.zeros((8, 3), np.float32)
     r = np.ones((5000, 3), np.float32)
-    fused_knn(q, r, precision="highest", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        fused_knn(q, r, precision="bf16x3", device="cpu")
+    r[4321] = 0.5
+    for tier in ("highest", "bf16x3", "packed", "bf16x4", "bf16x3_presplit"):
+        idx, d2 = fused_knn(q, r, precision=tier, device="cpu")
+        np.testing.assert_array_equal(idx.numpy(), np.full(8, 4321))
+        np.testing.assert_array_equal(d2.numpy(), np.full(8, 0.75, np.float32))
     with pytest.raises(ValueError, match="selection-approximate"):
         fused_knn(q, r, precision="bf16_raw", device="cpu")
     with pytest.raises(ValueError, match="qsplit2"):

@@ -1,5 +1,6 @@
-"""Kernels B1–B11 (B8/B9 one compactor) and B1's AoS and constant-query
-variants against their plain torch versions on an sm_90 card.
+"""Kernels B1–B12 (B8/B9 one compactor; B1's tensor-core tiers, its AoS and
+constant-query variants, and B2 over a bf16 operand) against their plain
+torch versions on an sm_90 card.
 
 Skipped without a card. This file imports no jax, so on a machine with the
 card but without jax it runs apart from the suite's conftest:
@@ -10,7 +11,7 @@ card but without jax it runs apart from the suite's conftest:
 import pytest
 import torch
 
-from tpu_knn_torch.kernels import dma_pipeline, fused, projection, seeded, smallm, topk
+from tpu_knn_torch.kernels import dma_pipeline, fused, projection, seeded, smallm, tiers, topk
 from tpu_knn_torch.kernels.fused import _refine, prep_soa, select_cutoff
 
 pytestmark = pytest.mark.cuda
@@ -413,3 +414,101 @@ def test_ladder_versions_are_exact_on_the_card(device, version):
     best = d2.min(dim=1).values
     assert (d2.gather(1, got[:, None]).squeeze(1) - best).abs().max().item() <= 1e-6
     assert int(got[0]) == n // 2
+
+
+# ---- the tensor-core tiers (B1) and B12, and B2 over a bf16 operand ----------
+
+
+@pytest.mark.parametrize("precision,k,m,n,parts,bf16", [
+    ("packed", 3, 40, 1000, 1, False),        # packed3, 9 terms
+    ("packed", 16, 100, 70_000, 7, False),    # packed3, 8 terms
+    ("packed", 24, 9, 5000, 4, False),        # packed2, 16-row chunks
+    ("packed", 32, 64, 20_000, None, False),
+    ("bf16x3", 40, 33, 5000, 3, False),
+    ("bf16x3", 128, 70, 20_000, None, False),  # the split q resident
+    ("bf16x3", 768, 64, 3000, 2, False),      # q walked in chunks beside r
+    ("bf16x4", 16, 20, 3000, 2, False),
+    ("qsplit2", 128, 64, 20_000, None, True),
+    ("qsplit2", 768, 80, 5000, 3, True),
+    ("packed", 16, 100, 20_000, None, True),  # a bf16 store's packed tier
+    ("packed", 32, 10, 3000, 1, True),
+    ("default", 16, 50, 5000, 2, False),
+    ("bf16_raw", 40, 10, 3000, 1, True),
+])
+def test_tensor_tiers_match_plain(device, precision, k, m, n, parts, bf16):
+    """Each tier's kernel against its plain version: slot agreement, the
+    kernel's score error against an f64 recomputation within the tier's
+    gate (tiers.tier_error_gate, with the plain version's error as the
+    reference arithmetic's), and (for the certified tiers) the same refined
+    1-NN, the planted duplicate resolving to the lower column."""
+    q, r, r_op = _inputs(device, m, k, n, seed=k * m + n)
+    if bf16:
+        r = r.to(torch.bfloat16).float()        # the stored points
+        r_op = r_op.to(torch.bfloat16)
+    parts = parts or tiers.tensor_parts(m, n)
+    tier = tiers.resolved_tier(precision, k)
+    before = dict(tiers.TIER_LAUNCHES)
+    ki, ks = tiers.tensor_candidates(q, r_op, n, parts, precision)
+    torch.cuda.synchronize()
+    assert tiers.TIER_LAUNCHES == {**before, tier: before.get(tier, 0) + 1}
+    pi, ps = tiers.tensor_candidates_plain(q, r_op, n, parts, precision)
+    assert (ki == pi).float().mean().item() >= 0.999
+    plain_err = tiers.score_errors(q, r, pi, ps)[0]
+    assert tiers.score_errors(q, r, ki, ks)[0] <= tiers.tier_error_gate(precision, k, plain_err)
+    if precision not in ("default", "bf16_raw"):
+        cutoff = select_cutoff(precision, k)
+        got = _refine(q, r, (ki, ks), n, cutoff=cutoff)[0]
+        assert torch.equal(got, _refine(q, r, (pi, ps), n, cutoff=cutoff)[0])
+        assert int(got[0]) == n // 2
+
+
+@pytest.mark.parametrize("k,m,n,parts", [
+    (16, 100, 70_000, 7), (3, 40, 1000, 1), (40, 9, 5000, None), (128, 64, 20_000, None),
+])
+def test_b12_matches_plain(device, k, m, n, parts):
+    q, r, _ = _inputs(device, m, k, n, seed=5 * k + m)
+    hi, lo, rn = tiers.presplit_ops(r, -(-n // 128) * 128 + 128)
+    parts = parts or tiers.tensor_parts(m, n)
+    before = tiers.TIER_LAUNCHES["bf16x3_presplit"]
+    ki, ks = tiers.presplit_candidates(q, hi, lo, rn, n, parts)
+    torch.cuda.synchronize()
+    assert tiers.TIER_LAUNCHES["bf16x3_presplit"] == before + 1
+    pi, ps = tiers.presplit_candidates_plain(q, hi, lo, rn, n, parts)
+    assert (ki == pi).float().mean().item() >= 0.999
+    plain_err = tiers.score_errors(q, r, pi, ps)[0]
+    assert tiers.score_errors(q, r, ki, ks)[0] <= tiers.tier_error_gate("bf16x3_presplit", k,
+                                                                         plain_err)
+    cutoff = select_cutoff("bf16x3_presplit", k)
+    got = _refine(q, r, (ki, ks), n, cutoff=cutoff)[0]
+    assert torch.equal(got, _refine(q, r, (pi, ps), n, cutoff=cutoff)[0])
+    assert int(got[0]) == n // 2
+
+
+@pytest.mark.parametrize("k,m,n,parts", [(8, 1, 1000, 1), (16, 3, 70_000, 9),
+                                         (32, 4, 5000, 2), (3, 2, 777, 3)])
+def test_b2_bf16_is_bit_equal_to_b2_on_the_upcast_operand(device, k, m, n, parts):
+    q, r, r_op = _inputs(device, m, k, n, seed=k * m + 1)
+    r_bf = r_op.to(torch.bfloat16)
+    before = tiers.TIER_LAUNCHES["B2-bf16"], smallm.smallm_candidates.launches
+    got = smallm.smallm_candidates(q, r_bf, n, parts)
+    want = smallm.smallm_candidates(q, r_bf.float(), n, parts)
+    torch.cuda.synchronize()
+    assert (tiers.TIER_LAUNCHES["B2-bf16"],
+            smallm.smallm_candidates.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    plain = smallm.smallm_candidates_plain(q, r_bf, n, parts)
+    assert (got[0] == plain[0]).float().mean().item() >= 0.9999
+
+
+def test_tier_wrappers_raise(device):
+    q = torch.rand((4, 16), device=device)
+    r_op = torch.rand((16, 256), device=device)
+    with pytest.raises(TypeError):
+        tiers.tensor_candidates(q, r_op.double(), 200, 1, "packed")
+    with pytest.raises(ValueError, match="contiguous"):
+        tiers.tensor_candidates(q, torch.rand((256, 16), device=device).T, 200, 1, "packed")
+    with pytest.raises(ValueError, match="term-list"):
+        tiers.tensor_candidates(q, r_op, 200, 1, "highest")
+    hi, lo, rn = tiers.presplit_ops(torch.rand((200, 16), device=device), 256)
+    with pytest.raises(ValueError, match="presplit"):
+        tiers.presplit_candidates(q, hi, lo, rn[:, :128].contiguous(), 200, 1)

@@ -38,6 +38,60 @@ def test_precision_policy(k):
         assert pt_fused.select_cutoff(tier, k) == jx_fused.select_cutoff(tier, k), tier
 
 
+def test_ported_tiers_and_term_lists():
+    """PORTED_PRECISIONS are the tiers tpu_knn's fused path computes (the
+    branches of `_qr_dot` and the presplit builder); each tier's term list
+    is `_packed_terms`' for "packed" and sums, term by term in f64, to
+    tpu_knn's `_qr_dot` to f32 rounding (a missing or extra hi·lo term,
+    2^-9 of a product, would show)."""
+    assert pt_fused.PORTED_PRECISIONS == {"packed", "bf16x3", "bf16x3_presplit", "bf16x4",
+                                          "qsplit2", "highest", "default", "bf16_raw"}
+    from tpu_knn_torch.kernels import tiers
+
+    for k in KS:
+        k_pad = -(-k // 8) * 8
+        n_splits, pairs = jx_fused._packed_terms(k_pad)
+        if n_splits:
+            assert list(tiers.term_list("packed", k)) == pairs
+        else:
+            assert tiers.term_list("packed", k) == tiers.term_list("bf16x3", k)
+    import torch
+
+    rng = np.random.default_rng(0)
+    for tier in ("bf16x3", "bf16x4", "qsplit2", "bf16_raw"):
+        k = 40
+        q = (rng.random((6, k), np.float32) + 0.5).astype(np.float32)
+        r = (rng.random((k, 50), np.float32) + 0.5).astype(np.float32)
+        if tier == "qsplit2":
+            r = np.asarray(jx_fused._split_bf16(r)[0], np.float32)
+        qp = [p.double().numpy() for p in tiers.split_bf16_3(torch.from_numpy(q))]
+        rp = [p.double().numpy() for p in tiers.split_bf16_3(torch.from_numpy(r))]
+        ours = sum(qp[i] @ rp[j] for i, j in tiers.term_list(tier, k))
+        theirs = np.asarray(jx_fused._qr_dot(q, r, tier), np.float64)
+        np.testing.assert_allclose(theirs, ours, rtol=4e-7)
+
+
+@pytest.mark.parametrize("k", [3, 16, 24, 40, 128])
+def test_index_tier_and_tile_follow_tpu_knn(k):
+    """NNIndex's resolved tier (auto_precision, "qsplit2" for "bf16x3" over a
+    quantized store) and its operand's tile (pick_tiles with wide= for the
+    packed tier, where a fixed wide=False once padded n differently) equal
+    tpu_knn's index's
+    over a (k, n, store) grid."""
+    import tpu_knn_torch
+    from tpu_knn.engine.index import NNIndex as JaxIndex
+
+    rng = np.random.default_rng(k)
+    for n in (300, 5000, 40_000):
+        r = rng.random((n, k), np.float32)
+        for store in ("float32", "bf16", "int8"):
+            jx = JaxIndex(r, store=store)
+            ix = tpu_knn_torch.NNIndex(r, store=store, device="cpu")
+            assert (ix.precision, ix.tile_n) == (jx.precision, jx.tile_n), (n, store)
+            if store != "int8":
+                assert ix.r_ops[0].shape == jx.r_ops[0].shape
+
+
 def test_tier_constants():
     assert pt_fused._TIER_EPS == jx_fused._TIER_EPS
     assert pt_fused.SELECT_SCORE_CUTOFF == jx_fused.SELECT_SCORE_CUTOFF
@@ -125,6 +179,13 @@ def test_cuda_launch_geometry_covers_n():
                 blocks = -(-m // tm) * parts
                 assert blocks >= min(2 * pt_tuning.H100_SMS, groups * -(-m // tm))
     assert np.all([pt_smallm.default_parts(n) <= -(-n // 128) for n in NS])
+    from tpu_knn_torch.kernels import tiers
+
+    for m in MS[1:]:
+        for n in NS:
+            assert 1 <= tiers.tensor_parts(m, n) <= -(-n // 128)
+    # Whole waves of one block per SM: 16 row tiles x 33 = 4 x 132 at ds11.
+    assert tiers.tensor_parts(1024, 1 << 20) == 33
 
 
 # ---- the seeded engine's cell policy and capacity ladder ------------------

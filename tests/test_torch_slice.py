@@ -151,11 +151,15 @@ def test_index_surface_not_ported_yet_raises():
         np.testing.assert_array_equal(other.query(r[:3])[0].numpy(), [0, 1, 2])
     for kwargs, item in (({"strategy": "kdtree"}, "A.8"),
                          ({"strategy": "sharded"}, "A.9"),
-                         ({"store": "bf16"}, "A.6"),
                          ({"metric": "cosine"}, "A.6"),
                          ({"mutable": True}, "A.6")):
         with pytest.raises(NotImplementedError, match=item):
             tpu_knn_torch.NNIndex(r, device="cpu", **kwargs)
+    # The bf16 store answers 1-NN since the tier slice; top-K over it not yet.
+    bf16 = tpu_knn_torch.NNIndex(r, store="bf16", device="cpu")
+    np.testing.assert_array_equal(bf16.query(r[:3])[0].numpy(), [0, 1, 2])
+    with pytest.raises(NotImplementedError, match="A.6"):
+        bf16.query(r[:3], neighbors=2)
     with pytest.raises(ValueError):
         tpu_knn_torch.NNIndex(r, strategy="nope", device="cpu")
     got = tpu_knn_torch.nearest_neighbors(r[:20], r, neighbors=20, device="cpu")
@@ -252,7 +256,7 @@ def test_cuda_sources_ship_and_build_is_content_hashed(monkeypatch):
     assert meta["project"]["optional-dependencies"]["torch"] == ["torch"]
     assert [os.path.basename(s) for s in build.sources()] == [
         "fused_kernels.cu", "knn_common.cuh", "seeded_kernels.cu", "smallm_kernels.cu",
-        "sweep_kernels.cu", "window_kernels.cu"]
+        "sweep_kernels.cu", "tensor_kernels.cu", "window_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     path = build.lib_path()
     assert os.path.dirname(path) == build.BUILD_DIR and path == build.lib_path()

@@ -1,0 +1,284 @@
+"""NNIndex's quantized stores (store="bf16", store="int8",
+from_int8_grid), the presplit index and from_state of each, held against
+tpu_knn's on the same numpy inputs.
+
+bf16: the points are quantized once; every route computes exact f32
+diff-form distances over the stored points, so the gate is index equality
+with tpu_knn and 0 errors against the oracle over the stored points.
+int8: queries run in grid space on q' = (q − z)·inv_s, so the gate is the
+grid-space oracle built from the index's own constants (after
+tests/test_int8_store.py)."""
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import tpu_knn_torch
+from tpu_knn.engine.index import NNIndex as JaxIndex
+from tpu_knn.harness.checker import check_results
+from tpu_knn.oracle import oracle_knn
+from tpu_knn_torch.kernels import smallm, tiers
+
+NNIndex = tpu_knn_torch.NNIndex
+
+
+def _quantized(ref):
+    return ref.astype(ml_dtypes.bfloat16).astype(np.float32)
+
+
+def _same(got, want, d2_rtol=1e-6):
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=d2_rtol, atol=1e-7)
+
+
+BF16_CASES = [(3, 6000), (16, 6000), (40, 5000), (128, 4500)]
+
+
+@pytest.mark.parametrize("k,n", BF16_CASES)
+def test_bf16_store_matches_tpu_knn(k, n, monkeypatch):
+    """Every route over the bf16 store (the AoS scan, B2-bf16, B1's packed
+    or qsplit2 tier over the bf16 operand) gives tpu_knn's indices and 0
+    errors against the oracle over the stored points."""
+    rng = np.random.default_rng(10 + k)
+    ref = rng.random((n, k), np.float32)
+    ix, jx = NNIndex(ref, store="bf16", device="cpu"), JaxIndex(ref, store="bf16")
+    assert ix.ref_dev.dtype == ix.r_ops[0].dtype == torch.bfloat16
+    assert (ix.precision, ix.tile_n) == (jx.precision, jx.tile_n)
+    np.testing.assert_array_equal(ix.r_ops[0].view(torch.int16).numpy(),
+                                  np.asarray(jx.r_ops[0]).view(np.int16))
+    b2_calls = []
+    monkeypatch.setattr(smallm, "smallm_candidates_plain",
+                        lambda q, r_op, *a, f=smallm.smallm_candidates_plain:
+                        b2_calls.append(r_op.dtype) or f(q, r_op, *a))
+    ref_q = _quantized(ref)
+    for m in (1, 2, 4, 16, 64):
+        q = rng.random((m, k), np.float32)
+        got = ix.query(q)
+        _same(got, jx.query(q))
+        errors, _ = check_results(oracle_knn(q, ref_q), got[0].numpy(), q, ref_q)
+        assert errors == 0
+    assert b2_calls == ([torch.bfloat16] * 3 if k == 16 else
+                        [torch.bfloat16] * 2 if k == 3 else [])   # m = 1 at k = 3: AoS scan
+
+
+def test_bf16_dense_route_and_tie_rule():
+    """A small index takes the dense route; bf16 quantization creates exact
+    duplicates and the lowest index wins (after test_bf16_store.py:63)."""
+    rng = np.random.default_rng(4)
+    ref = rng.random((5_000, 4), np.float32)
+    q = rng.random((8, 4), np.float32)
+    base = q[2] + 1e-4
+    ref[1234] = base
+    ref[77] = base + 2e-4 * rng.random(4).astype(np.float32)
+    ref_q = _quantized(ref)
+    assert (ref_q[77] == ref_q[1234]).all()
+    ix, jx = NNIndex(ref, store="bf16", device="cpu"), JaxIndex(ref, store="bf16")
+    for sl in (slice(0, 8), slice(2, 3), slice(0, 3)):
+        got = ix.query(q[sl])
+        _same(got, jx.query(q[sl]))
+        np.testing.assert_array_equal(got[0].numpy(), oracle_knn(q[sl], ref_q))
+    assert int(ix.query(q)[0][2]) == 77
+    small = rng.random((1_000, 5), np.float32)
+    qs = rng.random((32, 5), np.float32)
+    got = NNIndex(small, store="bf16", device="cpu").query(qs)
+    _same(got, JaxIndex(small, store="bf16").query(qs))
+
+
+def test_qsplit2_keeps_duplicate_ties_at_embedding_width():
+    """Bit-identical duplicates at k = 128: qsplit2's selection and the
+    exact rerank keep the lowest index (after test_quantized_embed.py:87)."""
+    rng = np.random.default_rng(80)
+    k, n = 128, 3000
+    r = rng.random((n, k), np.float32)
+    q = rng.random((8, k), np.float32)
+    r[2500] = r[700] = q[3]
+    ix = NNIndex(r, store="bf16", device="cpu")
+    assert ix.precision == "qsplit2"
+    idx, d2 = ix.query(q)
+    assert int(idx[3]) == 700
+    assert 0.0 <= float(d2[3]) <= k * (2.0 ** -9) ** 2
+    _same((idx, d2), JaxIndex(r, store="bf16").query(q))
+
+
+def _grid_oracle(ix, q):
+    g = ix.ref_dev.numpy().astype(np.float32)
+    qg = ((q - ix._i8_zero) * np.float32(ix._i8_inv_s)).astype(np.float32)
+    return oracle_knn(qg, g), qg, g
+
+
+@pytest.mark.parametrize("k,n,scale,ms", [(16, 6000, 1.0, (1, 2, 4, 16, 64)),
+                                          (8, 7000, 250.0, (1, 64)),
+                                          (128, 4500, 1.0, (1, 4, 64))])
+def test_int8_store_matches_tpu_knn(k, n, scale, ms):
+    """The grid is tpu_knn's bit for bit, the embed constants equal, and
+    every route (AoS scan off the grid, dense, the tier over the per-call
+    bf16 operand with the rescaled certificate) gives tpu_knn's indices,
+    d2 to rtol 1e-6, and the grid-space oracle's winners."""
+    rng = np.random.default_rng(20 + k)
+    ref = rng.random((n, k), np.float32) * scale - scale / 3
+    ix, jx = NNIndex(ref, store="int8", device="cpu"), JaxIndex(ref, store="int8")
+    assert ix.ref_dev.dtype == torch.int8 and ix.r_ops is None
+    np.testing.assert_array_equal(ix.ref_dev.numpy(), np.asarray(jx.ref_dev))
+    np.testing.assert_array_equal(ix._i8_zero, jx._i8_zero)
+    assert ix._i8_inv_s == jx._i8_inv_s and ix._i8_s2 == jx._i8_s2
+    assert (ix.precision, ix.tile_n) == (jx.precision, jx.tile_n)
+    for m in ms:
+        q = rng.random((m, k), np.float32) * scale - scale / 3
+        got = ix.query(q)
+        _same(got, jx.query(q))
+        want, qg, g = _grid_oracle(ix, q)
+        errors, _ = check_results(want, got[0].numpy(), qg, g)
+        assert errors == 0
+
+
+def test_int8_pipeline_collisions_constant_data_and_rejections():
+    rng = np.random.default_rng(9)
+    ref = rng.random((6000, 7), np.float32)
+    ix = NNIndex(ref, store="int8", device="cpu")
+    for m in (1, 64):
+        q = rng.random((m, 7), np.float32)
+        run, ops = ix.pipeline(m)
+        pi, pd = run(q, *ops)
+        qi, qd = ix.query(q)
+        assert torch.equal(pi, qi)
+        np.testing.assert_allclose(pd.numpy(), qd.numpy(), rtol=1e-6)
+    # Grid collisions: the lowest index wins on every route.
+    ref = rng.random((5_000, 4), np.float32)
+    q = rng.random((8, 4), np.float32)
+    base = np.clip(q[2] + 1e-4, 0, 1).astype(np.float32)
+    ref[1234] = base
+    ref[77] = np.clip(base + 3e-4 * rng.random(4).astype(np.float32), 0, 1)
+    ix = NNIndex(ref, store="int8", device="cpu")
+    assert (ix.ref_dev[77] == ix.ref_dev[1234]).all()
+    for sl in (slice(0, 8), slice(2, 3)):
+        np.testing.assert_array_equal(ix.query(q[sl])[0].numpy(), _grid_oracle(ix, q[sl])[0])
+    assert int(ix.query(q)[0][2]) == 77
+    # Constant data: the step falls back to 1 and index 0 wins.
+    flat = NNIndex(np.full((256, 4), 3.25, np.float32), store="int8", device="cpu")
+    assert float(flat._i8_inv_s) == 1.0
+    np.testing.assert_array_equal(flat.query(q[:4])[0].numpy(), np.zeros(4, np.int32))
+    with pytest.raises(ValueError, match="immutable"):
+        NNIndex(ref, store="int8", mutable=True, device="cpu")
+    for strategy in ("auto", "projection", "kdtree"):
+        with pytest.raises(ValueError, match="strategy='fused'"):
+            NNIndex(ref, store="int8", strategy=strategy, device="cpu")
+    with pytest.raises(ValueError, match="strategy='fused'"):
+        NNIndex(ref, store="bf16", strategy="auto", device="cpu")
+    with pytest.raises(ValueError, match="store='float32'"):
+        NNIndex(ref, store="int8", metric="cosine", device="cpu")
+
+
+def test_from_int8_grid_matches_the_constructor_and_tpu_knn():
+    rng = np.random.default_rng(12)
+    ref = rng.random((6_000, 5), np.float32) * 12.0 - 3.0
+    ix = NNIndex(ref, store="int8", device="cpu")
+    s = float(np.float32(1.0 / np.float64(ix._i8_inv_s)))
+    grid = ix.ref_dev.numpy()
+    ix2 = NNIndex.from_int8_grid(grid, ix._i8_zero, s, device="cpu")
+    jx2 = JaxIndex.from_int8_grid(grid, ix._i8_zero, s)
+    assert ix2.store == "int8" and ix2.r_ops is None and ix2._i8_inv_s == ix._i8_inv_s
+    assert (ix2.precision, ix2.tile_n) == (jx2.precision, jx2.tile_n)
+    for m in (3, 16):
+        q = rng.random((m, 5), np.float32) * 12.0 - 3.0
+        a, b = ix.query(q), ix2.query(q)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        _same(b, jx2.query(q))
+    with pytest.raises(ValueError, match="int8"):
+        NNIndex.from_int8_grid(ref, ix._i8_zero, s, device="cpu")
+    with pytest.raises(ValueError, match="positive"):
+        NNIndex.from_int8_grid(grid, ix._i8_zero, 0.0, device="cpu")
+    with pytest.raises(ValueError, match="zero must be"):
+        NNIndex.from_int8_grid(grid, np.zeros(3, np.float32), s, device="cpu")
+    with pytest.raises(ValueError, match="mesh="):
+        NNIndex.from_int8_grid(grid, ix._i8_zero, s, mesh=object(), device="cpu")
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_presplit_index_takes_b12_at_every_m(m, monkeypatch):
+    """precision="bf16x3_presplit" keeps (hi, lo, ‖r‖²) as its operands and
+    (tpu_knn's len(r_ops) == 1 condition) answers every m through B12."""
+    rng = np.random.default_rng(m)
+    ref = rng.random((4500, 16), np.float32)
+    ix = NNIndex(ref, precision="bf16x3_presplit", device="cpu")
+    jx = JaxIndex(ref, precision="bf16x3_presplit")
+    assert len(ix.r_ops) == 3 and ix.tile_n == jx.tile_n
+    calls = []
+    monkeypatch.setattr(tiers, "presplit_candidates_plain",
+                        lambda *a, f=tiers.presplit_candidates_plain: calls.append(1) or f(*a))
+    q = rng.random((m, 16), np.float32)
+    _same(ix.query(q), jx.query(q))
+    assert calls == [1]
+    np.testing.assert_array_equal(ix.query(q)[0].numpy(), oracle_knn(q, ref))
+
+
+def test_topk_over_stores_raises():
+    r = np.random.default_rng(2).random((3000, 8), np.float32)
+    for kwargs in ({"store": "bf16"}, {"store": "int8"}, {"precision": "bf16x3_presplit"}):
+        ix = NNIndex(r, device="cpu", **kwargs)
+        with pytest.raises(NotImplementedError, match="A.6"):
+            ix.query(r[:4], neighbors=3)
+        with pytest.raises(NotImplementedError, match="A.6"):
+            ix.query_radius(r[:4], 0.1)
+    with pytest.raises(NotImplementedError, match="A.6"):
+        NNIndex(r, store="bf16", precision="bf16x3_presplit", device="cpu")
+
+
+@pytest.fixture(scope="module")
+def jax_indexes():
+    rng = np.random.default_rng(31)
+    r = rng.random((4500, 16), np.float32)
+    r[4499] = r[17]
+    return r, {"bf16": JaxIndex(r, store="bf16"),
+               "presplit": JaxIndex(r, precision="bf16x3_presplit"),
+               "int8": JaxIndex(r, store="int8")}
+
+
+def _state(kind, jx):
+    if kind == "int8":
+        return {"grid": np.asarray(jx.ref_dev), "zero": jx._i8_zero, "inv_s": jx._i8_inv_s}
+    if kind == "presplit":
+        return {"ref": np.asarray(jx.ref_dev), "r_ops": tuple(np.asarray(a) for a in jx.r_ops)}
+    return {"ref": np.asarray(jx.ref_dev), "r_op": np.asarray(jx.r_ops[0])}
+
+
+@pytest.mark.parametrize("kind", ["bf16", "presplit", "int8"])
+def test_from_state_answers_like_tpu_knn(jax_indexes, kind):
+    r, indexes = jax_indexes
+    jx = indexes[kind]
+    ix = NNIndex.from_state(_state(kind, jx), device="cpu")
+    assert (ix.store, ix.precision) == (jx.store, jx.precision)
+    rng = np.random.default_rng(len(kind))
+    for m in (1, 4, 40):
+        q = rng.random((m, 16), np.float32)
+        q[0] = r[17]
+        _same(ix.query(q), jx.query(q))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "presplit", "int8"])
+def test_from_state_rejects_a_foreign_layout(jax_indexes, kind):
+    r, indexes = jax_indexes
+    state = _state(kind, indexes[kind])
+    if kind == "bf16":
+        bad = dict(state, r_op=state["r_op"].copy())
+        bad["r_op"][3, 10] = bad["r_op"][3, 11] + np.float32(1.0)
+        with pytest.raises(ValueError, match="transpose"):
+            NNIndex.from_state(bad, device="cpu")
+        with pytest.raises(ValueError, match="bfloat16"):
+            NNIndex.from_state(dict(state, r_op=state["r_op"].astype(np.float32)),
+                               device="cpu")
+    elif kind == "presplit":
+        hi, lo, rn = (a.copy() for a in state["r_ops"])
+        lo[2, 5] = hi[2, 5]
+        with pytest.raises(ValueError, match="split"):
+            NNIndex.from_state(dict(state, r_ops=(state["r_ops"][0], lo, rn)), device="cpu")
+        with pytest.raises(ValueError, match="norm"):
+            NNIndex.from_state(dict(state, r_ops=(*state["r_ops"][:2], rn * 1.01)),
+                               device="cpu")
+    else:
+        with pytest.raises(ValueError, match="int8"):
+            NNIndex.from_state(dict(state, grid=state["grid"].astype(np.int16)), device="cpu")
+        with pytest.raises(ValueError, match="inv_s"):
+            NNIndex.from_state(dict(state, inv_s=-1.0), device="cpu")
+        with pytest.raises(ValueError, match="zero"):
+            NNIndex.from_state(dict(state, zero=state["zero"][:3]), device="cpu")

@@ -106,6 +106,10 @@ def load() -> ctypes.CDLL:
     lib.tk_smallm_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64,
                                          i32, i32, ptr]
     lib.tk_smallm_candidates.restype = i32
+    lib.tk_smallm_candidates_bf16.argtypes = lib.tk_smallm_candidates.argtypes
+    lib.tk_smallm_candidates_bf16.restype = i32
+    lib.tk_tensor_candidates.argtypes = [ptr] * 6 + [i32, i32, i64] + [i32] * 6 + [ptr]
+    lib.tk_tensor_candidates.restype = i32
     lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
                                          i64, i32, i32, i32, ptr]
     lib.tk_banded_candidates.restype = i32

@@ -246,19 +246,6 @@ const_query_candidates_kernel(const float* __restrict__ r, int32_t* __restrict__
 // ---------------------------------------------------------------------------
 constexpr int kDmaStages = 2;
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Issue the copies of the k rows of the slice starting at column c0 into
 // `dst` ([d][slice]); 16-byte chunks at or past `end` are zero-filled
 // without a read (their columns are masked in the fold).

@@ -32,6 +32,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -126,14 +127,22 @@ __device__ __forceinline__ void column_scores(const float* qT, const float* __re
 
 // The exact diff-form arithmetic of B2 and B6: sum_d (r[d,col] - q[d])^2,
 // one fmaf chain over d in order. B6's bound is the K-th smallest of B2's
-// lane minima, so the two kernels must score a column identically.
-template <int KMAX>
-__device__ __forceinline__ void load_column(const float* __restrict__ rc, long long ld, int k,
+// lane minima, so the two kernels must score a column identically. A bf16
+// operand (a bf16 store) is upcast at the read, exactly, so B2 over it
+// scores as B2 over the same values stored in f32.
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+template <int KMAX, typename RT>
+__device__ __forceinline__ void load_column(const RT* __restrict__ rc, long long ld, int k,
                                             float (&rv)[KMAX]) {
   // All k loads of a column are issued before they are used; rows
   // k..KMAX-1 load as 0 against a 0 query coordinate: distance-neutral.
 #pragma unroll
-  for (int d = 0; d < KMAX; ++d) rv[d] = d < k ? __ldg(rc + d * ld) : 0.f;
+  for (int d = 0; d < KMAX; ++d) rv[d] = d < k ? load_f32(rc + d * ld) : 0.f;
 }
 
 template <int KMAX>
@@ -155,6 +164,22 @@ __device__ __forceinline__ void load_small_queries(const float* __restrict__ q, 
     qs[e] = d < k ? q[i * k + d] : 0.f;
   }
   __syncthreads();
+}
+
+// 16-byte asynchronous copies into shared memory (B10's staging, the
+// tensor-core kernel's ring): src_bytes < 16 copies that many bytes and
+// zero-fills the rest (0: no read at all).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <typename Kernel>

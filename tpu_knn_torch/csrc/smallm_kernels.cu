@@ -9,7 +9,9 @@ namespace {
 // B2 — replaces tpu_knn/kernels/smallm.py:_smallm_kernel (built by
 // _build_smallm_candidates): for 1 <= m <= 4 and k <= 32, the exact
 // diff-form score, whose error scales with d^2 itself (no norm-trick
-// cancellation), so its scores are exact candidates.
+// cancellation), so its scores are exact candidates. RT is the operand's
+// type: float, or __nv_bfloat16 for a bf16 store (B2-bf16: upcast at the
+// read, as tpu_knn's kernel does, smallm.py:94-97; half the bytes).
 //
 // Bound on the H100: device-memory reads, one pass over k*n*4 bytes (1 GiB
 // at k=16, n=2^24, about 0.32 ms at 3.35 TB/s); the arithmetic is a few
@@ -19,9 +21,9 @@ namespace {
 // is a compile-time bound with predicated loads), and the caller picks many
 // partitions so that enough loads are in flight to cover device latency.
 // ---------------------------------------------------------------------------
-template <int M, int KMAX>
+template <int M, int KMAX, typename RT>
 __global__ void __launch_bounds__(kLanes)
-smallm_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
+smallm_candidates_kernel(const float* __restrict__ q, const RT* __restrict__ r,
                          int32_t* __restrict__ out_i, float* __restrict__ out_s,
                          int k, long long ld, int n, int groups_per_part) {
   __shared__ float qs[M * KMAX];
@@ -149,21 +151,38 @@ smallm_topk_candidates_kernel(const float* __restrict__ q, const float* __restri
 // Launchers.
 // ---------------------------------------------------------------------------
 
-template <int M>
-int launch_smallm(const float* q, const float* r, int32_t* out_i, float* out_s, int k,
+template <int M, typename RT>
+int launch_smallm(const float* q, const RT* r, int32_t* out_i, float* out_s, int k,
                   long long ld, int n, int parts, int groups_per_part,
                   cudaStream_t stream) {
   if (k <= 8) {
-    smallm_candidates_kernel<M, 8><<<parts, kLanes, 0, stream>>>(
+    smallm_candidates_kernel<M, 8, RT><<<parts, kLanes, 0, stream>>>(
         q, r, out_i, out_s, k, ld, n, groups_per_part);
   } else if (k <= 16) {
-    smallm_candidates_kernel<M, 16><<<parts, kLanes, 0, stream>>>(
+    smallm_candidates_kernel<M, 16, RT><<<parts, kLanes, 0, stream>>>(
         q, r, out_i, out_s, k, ld, n, groups_per_part);
   } else {
-    smallm_candidates_kernel<M, 32><<<parts, kLanes, 0, stream>>>(
+    smallm_candidates_kernel<M, 32, RT><<<parts, kLanes, 0, stream>>>(
         q, r, out_i, out_s, k, ld, n, groups_per_part);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename RT>
+int smallm_entry(const float* q, const RT* r, int32_t* out_i, float* out_s, int m, int k,
+                 long long ld, int n, int parts, void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || k > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int gpp = groups_per_part(n, parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 1: return launch_smallm<1>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
+    case 2: return launch_smallm<2>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
+    case 3: return launch_smallm<3>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
+    case 4: return launch_smallm<4>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int M, int KMAX>
@@ -200,18 +219,14 @@ extern "C" {
 // B2 launch: 1 <= m <= 4, 1 <= k <= 32.
 int tk_smallm_candidates(const float* q, const float* r, int32_t* out_i, float* out_s,
                          int m, int k, long long ld, int n, int parts, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || k > 32) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int gpp = groups_per_part(n, parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 1: return launch_smallm<1>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
-    case 2: return launch_smallm<2>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
-    case 3: return launch_smallm<3>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
-    case 4: return launch_smallm<4>(q, r, out_i, out_s, k, ld, n, parts, gpp, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return smallm_entry(q, r, out_i, out_s, m, k, ld, n, parts, stream);
+}
+
+// B2-bf16 launch: B2 over a bf16 SoA operand (a bf16 store).
+int tk_smallm_candidates_bf16(const float* q, const void* r, int32_t* out_i, float* out_s,
+                              int m, int k, long long ld, int n, int parts, void* stream) {
+  return smallm_entry(q, static_cast<const __nv_bfloat16*>(r), out_i, out_s, m, k, ld, n,
+                      parts, stream);
 }
 
 // B6 launch: 1 <= m <= 4, 1 <= k <= 32, 1 <= kk <= 32; bound (m,) f32;

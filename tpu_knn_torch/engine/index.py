@@ -3,16 +3,25 @@
     index = NNIndex(ref, strategy="fused")       # pay layout/build once
     idx, d2 = index.query(search)                # hot path
 
-The port serves three f32, immutable strategies:
+The port serves three immutable strategies:
 
 - "fused": the reference set is placed once on the device in two layouts,
   the (n, k) AoS copy that the exact rerank gathers rows from and the
-  (k_pad, n_pad) SoA operand the candidate kernels stream (tpu_knn's
-  layout, so an index's state carries across verbatim: `from_state`).
-  Queries route per batch as in tpu_knn: m <= 4 to the small-m kernel B2
-  (or the AoS scan), small n to the dense path, everything else to B1 +
-  the exact refinement. Exact top-K (`query(neighbors=)`) and
-  `query_radius` run the engines of kernels/topk.py over the same operands.
+  candidate kernels' operands (tpu_knn's layout, so an index's state
+  carries across verbatim: `from_state`): the (k_pad, n_pad) SoA operand,
+  or for precision="bf16x3_presplit" B12's (hi, lo, ‖r‖²). The score
+  tier is tpu_knn's (`precision=None`: auto_precision, "qsplit2" in place
+  of "bf16x3" for a quantized store), and the operand's n padding follows
+  it (pick_tiles' wide= for "packed"). Queries route per batch as in
+  tpu_knn: m <= 4 to the small-m kernel B2 (or the AoS scan), small n to
+  the dense path, everything else to the tier's candidate kernel + the
+  exact refinement. Three stores, as in tpu_knn: "float32"; "bf16" (the
+  points quantized once, both layouts in bf16, every kernel upcasting at
+  the read: exact over the stored points); "int8" (only the (n, k) int8
+  grid of p = z + s·g is resident, queries run in grid space on
+  q' = (q − z)/s, batches over a per-call bf16 SoA operand, reported d2
+  rescaled by s²). Exact top-K (`query(neighbors=)`) and `query_radius`
+  run the engines of kernels/topk.py over an f32 index.
 - "projection": the sorted window index of kernels/projection.py (v11:
   B11, the per-query certificate and B1's fallback scan).
 - "auto": "fused" plus, where v11's niche applies (k <= 8) and a
@@ -22,9 +31,10 @@ The port serves three f32, immutable strategies:
   which), and served batches' realized certification demotes the route.
   Top-K goes through the fused engines.
 
-The kdtree and sharded strategies, the bf16/int8 stores, the cosine/ip
-metrics, mutable indexes and save/load raise NotImplementedError naming
-their ROADMAP item.
+The kdtree and sharded strategies, the cosine/ip metrics, mutable
+indexes, top-K and radius over a quantized store or a presplit index,
+filtered views and save/load raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,11 +45,12 @@ import numpy as np
 import torch
 
 from tpu_knn_torch.kernels.fused import (
-    DEFAULT_PRECISION, _check_precision_certified, _check_precision_ported,
-    _refine, default_parts, fused_candidates, prep_soa, select_cutoff,
+    PORTED_PRECISIONS, _check_precision_certified, _refine, auto_precision, prep_soa,
+    select_cutoff,
 )
+from tpu_knn_torch.kernels.tiers import presplit_ops, refine_candidates, tier_parts
 from tpu_knn_torch.kernels.tuning import LANE, MAX_TILE_N, pick_tiles
-from tpu_knn_torch.utils.platform import as_f32
+from tpu_knn_torch.utils.platform import as_f32, check_device
 from tpu_knn_torch.utils.shapes import round_up
 
 
@@ -50,11 +61,12 @@ def _not_ported(what: str, item: str):
 
 @functools.lru_cache(maxsize=None)
 def _build_smallm_prepared(m: int, n: int, k: int):
-    """Small-batch prepared pipeline: B2 against the same SoA operand as
-    the fused path, then the exact refinement (diff-form scores: always
-    certified). At k < 8 and m == 1, and above the kernel's k range, the
-    AoS scan over the index's resident ref array serves instead, as in
-    tpu_knn. Returns run(search, r_ops, ref_aos) -> (idx, d2)."""
+    """Small-batch prepared pipeline: B2 (B2-bf16 over a bf16 store's
+    operand) against the same SoA operand as the fused path, then the
+    exact refinement (diff-form scores: always certified). At k < 8 and
+    m == 1, and above the kernel's k range, the AoS scan over the index's
+    resident ref array serves instead, as in tpu_knn. Returns run(search,
+    r_ops, ref_aos) -> (idx, d2)."""
     from tpu_knn_torch.kernels.smallm import (
         AOS_SCAN_MAX_KPAD_WASTE_K, SMALLM_MAX_K, _aos_scan, default_parts,
         smallm_candidates,
@@ -76,16 +88,20 @@ def _build_smallm_prepared(m: int, n: int, k: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _build_prepared_query(m: int, n: int, k: int,
-                          precision: str = DEFAULT_PRECISION):
-    """Query pipeline against a prepared (k_pad, n_pad) SoA operand — the
-    same candidate kernel as v4, with no per-call transpose. Returns
-    run(search, r_ops, ref_aos) -> (idx, d2)."""
-    parts = default_parts(m, k, n)
-    cutoff = select_cutoff(precision, k)
+def _build_prepared_query(m: int, n: int, k: int, precision: str,
+                          cutoff_scale: float = 1.0):
+    """Query pipeline against the prepared operands — the same candidate
+    kernel as v4 for the tier (kernels/tiers.py refine_candidates), with no
+    per-call transpose. ``cutoff_scale`` rescales the certified top-T
+    cutoff for a caller whose coordinates are a scaled embedding of the
+    user's (store="int8" runs in grid space, where score magnitudes and
+    resolvable gaps both scale by 1/s²). Returns run(search, r_ops,
+    ref_aos) -> (idx, d2)."""
+    parts = tier_parts(precision, m, k, n)
+    cutoff = select_cutoff(precision, k) * cutoff_scale
 
     def run(search, r_ops, ref_aos):
-        cand = fused_candidates(search, r_ops[0], n, parts)
+        cand = refine_candidates(search, r_ops, n, parts, precision)
         # The exact refinement gathers rows from the AoS copy.
         return _refine(search, ref_aos, cand, n, cutoff=cutoff)
 
@@ -105,6 +121,49 @@ def _tile_for_width(n: int, width: int) -> int:
                      f"multiple of {LANE}")
 
 
+def _resolve_precision(precision, k: int, n: int, store: str) -> str:
+    """tpu_knn's NNIndex tier rule (index.py:270-288): auto_precision, with
+    "qsplit2" for "bf16x3" over a quantized (bf16-exact) store; an explicit
+    tier must be certified (serving has no allow_approximate)."""
+    if precision is None:
+        precision = auto_precision(k, n)
+        if store in ("bf16", "int8") and precision == "bf16x3":
+            precision = "qsplit2"
+        return precision
+    _check_precision_certified(precision)
+    return precision
+
+
+def _check_soa_state(ref: np.ndarray, r_op: np.ndarray) -> int:
+    """Check that r_op is the zero-padded (round_up(k, 8), n_pad)
+    transpose of ref (values or bit patterns alike) and return the tile
+    that pads n to its width."""
+    if ref.ndim != 2 or r_op.ndim != 2:
+        raise ValueError("state['ref'] must be (n, k), state['r_op'] (k_pad, n_pad)")
+    n, k = ref.shape
+    if r_op.shape[0] != round_up(k, 8) or r_op.shape[1] < n:
+        raise ValueError(f"r_op shape {r_op.shape} is not the SoA operand "
+                         f"of a ({n}, {k}) reference set")
+    want = np.zeros_like(r_op)
+    want[:k, :n] = ref.T
+    if not np.array_equal(r_op, want):
+        raise ValueError("r_op is not the zero-padded transpose of ref")
+    return _tile_for_width(n, r_op.shape[1])
+
+
+def _np_bf16_bits(a, what: str) -> np.ndarray:
+    """A NumPy bfloat16 array (ml_dtypes, as tpu_knn hands them over) as its
+    16-bit patterns, with no ml_dtypes import."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name != "bfloat16" or a.dtype.itemsize != 2:
+        raise ValueError(f"{what} must be a bfloat16 array, got {a.dtype}")
+    return a.view(np.int16)
+
+
+def _bf16_tensor(bits: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(check_device(device))
+
+
 class NNIndex:
     #: Serving pads each batch up to the next bucket (tpu_knn's policy), so
     #: a varying-m stream reuses a handful of launch geometries.
@@ -117,58 +176,82 @@ class NNIndex:
         if metric not in ("l2", "cosine", "ip"):
             raise ValueError(
                 f"metric must be 'l2', 'cosine', or 'ip', got {metric!r}")
+        if metric != "l2" and store != "float32":
+            raise ValueError("metric='cosine'/'ip' requires store='float32' (tpu_knn's "
+                             "rule: quantizing after the metric transform breaks the "
+                             "monotone reduction to L2)")
         if store not in ("float32", "bf16", "int8"):
             raise ValueError(f"store must be 'float32', 'bf16', or "
                              f"'int8', got {store!r}")
         if strategy not in ("fused", "auto", "projection", "kdtree", "sharded"):
             raise ValueError(f"unknown strategy {strategy!r}")
+        if store != "float32" and strategy not in ("fused", "sharded"):
+            raise ValueError(f"store={store!r} requires strategy='fused' or 'sharded' "
+                             f"(the spatial indexes bake f32 structures into their "
+                             f"build); got {strategy!r}")
+        if store == "int8" and mutable:
+            raise ValueError("store='int8' is immutable (the quantization grid is fixed "
+                             "by the build-time value range) — use store='bf16' for a "
+                             "mutable quantized index")
         if strategy == "kdtree":
             raise _not_ported("strategy='kdtree'", "A.8")
         if strategy == "sharded" or mesh is not None:
             raise _not_ported("strategy='sharded' / mesh=", "A.9")
-        if store != "float32":
-            raise _not_ported(f"store={store!r}", "A.6")
         if metric != "l2":
             raise _not_ported(f"metric={metric!r}", "A.6")
         if mutable or capacity is not None:
             raise _not_ported("mutable=True / capacity=", "A.6")
-        if precision is not None:
-            # Serving never accepts a selection-approximate tier.
-            _check_precision_certified(precision)
-            _check_precision_ported(precision)
         ref_t = as_f32(ref, device)
         n, k = ref_t.shape
+        precision = _resolve_precision(precision, k, n, store)
         if strategy == "projection":
             from tpu_knn_torch.kernels.projection import build_projection_index
 
-            self._init_projection(ref_t, build_projection_index(ref_t))
+            self._init_projection(ref_t, build_projection_index(ref_t), precision)
             return
+        if precision == "bf16x3_presplit" and (store != "float32" or strategy != "fused"):
+            raise _not_ported("precision='bf16x3_presplit' beside a quantized store or "
+                              "strategy='auto'", "A.6")
         # tile_n is fixed at build time for a large-batch query: it sets the
-        # operand's n padding (tpu_knn's choice, so state carries across).
-        _, tile_n = pick_tiles(k, 1024, n, wide=False)
-        self._init_fused(ref_t, prep_soa(ref_t, round_up(n, tile_n)), tile_n)
+        # operand's n padding, wide for the packed tier (tpu_knn's rule,
+        # index.py:290-296, so state carries across).
+        _, tile_n = pick_tiles(k, 1024, n, wide=precision == "packed")
+        if store == "int8":
+            self._init_int8(ref_t, tile_n, precision)
+            return
+        # A bf16 store quantizes once, through f32, and both layouts hold
+        # the quantized values (tpu_knn's index.py:300-323).
+        ref_s = ref_t.to(torch.bfloat16) if store == "bf16" else ref_t
+        n_pad = round_up(n, tile_n)
+        r_ops = (presplit_ops(ref_t, n_pad) if precision == "bf16x3_presplit"
+                 else (prep_soa(ref_s, n_pad),))
+        self._init_fused(ref_s, r_ops, tile_n, precision, store)
         if strategy == "auto":
             self._init_auto()
 
-    def _init_common(self, ref_t: torch.Tensor, strategy: str):
+    def _init_common(self, ref_dev: torch.Tensor, strategy: str, precision: str,
+                     store: str = "float32"):
         self.strategy = strategy
-        self.store = "float32"
+        self.store = store
         self.metric = "l2"
         self.mutable = False
-        self.precision = DEFAULT_PRECISION
-        self.n, self.k = ref_t.shape
-        self.device = ref_t.device
-        self.ref_dev = ref_t     # AoS copy for exact refinement
+        self.precision = precision
+        self.n, self.k = ref_dev.shape
+        self.device = ref_dev.device
+        self.ref_dev = ref_dev   # AoS copy for exact refinement (the int8 grid)
 
-    def _init_fused(self, ref_t: torch.Tensor, r_op: torch.Tensor, tile_n: int):
-        self._init_common(ref_t, "fused")
+    def _init_fused(self, ref_dev: torch.Tensor, r_ops, tile_n: int,
+                    precision: str, store: str = "float32"):
+        self._init_common(ref_dev, "fused", precision, store)
         self.tile_n = tile_n
-        self.r_ops = (r_op,)     # SoA operand of the candidate kernels
+        # The candidate kernels' operands; None for the int8 store, which
+        # holds the grid only (its batches build a bf16 operand per call).
+        self.r_ops = None if r_ops is None else tuple(r_ops)
 
-    def _init_projection(self, ref_t: torch.Tensor, proj_index):
+    def _init_projection(self, ref_t: torch.Tensor, proj_index, precision: str):
         """strategy="projection": the sorted index of kernels/projection.py
         (build_projection_index's seven tensors)."""
-        self._init_common(ref_t, "projection")
+        self._init_common(ref_t, "projection", precision)
         self.proj_index = tuple(proj_index)
 
     def _init_auto(self):
@@ -237,35 +320,225 @@ class NNIndex:
         if self.cert_rate >= self.CERT_RATE_MIN:
             self.proj_index = proj_index
 
+    # ---- the int8 grid store ------------------------------------------
+    #
+    # store="int8" keeps only the (n, k) int8 grid of the affine embed
+    # p = z + s·g (per-dim zero z, one global step s), and runs every query
+    # exactly in grid space on q' = (q − z)/s: ‖q − p‖² = s²·‖q' − g‖², so
+    # the engines need no dequantization (grid integers are exact in f32 and
+    # bf16 at every read) and reported d2 rescale by s² (tpu_knn's
+    # index.py:455-501).
+
+    def _set_i8_embed(self, lo: np.ndarray, hi: np.ndarray):
+        """The embed's constants from f64 per-dim (lo, hi), tpu_knn's
+        `_set_i8_embed` verbatim: zero offsets, the global inverse step and
+        the d2 rescale derived from the stored inverse step."""
+        z = (lo + hi) / 2.0
+        half = float(np.max(hi - z)) if len(z) else 0.0
+        s = half / 127.0 if half > 0.0 else 1.0
+        self._set_i8_constants(np.asarray(z, np.float32), np.float32(1.0 / s))
+
+    def _set_i8_constants(self, zero: np.ndarray, inv_s) -> None:
+        self._i8_zero = np.asarray(zero, np.float32)       # (k,) host copy
+        self._i8_inv_s = np.float32(inv_s)
+        self._i8_s2 = float(np.float32(1.0 / (np.float64(self._i8_inv_s) ** 2)))
+        self._i8_zero_dev = torch.as_tensor(self._i8_zero, device=self.device)
+        self._i8_inv_s_dev = torch.tensor(self._i8_inv_s, device=self.device)
+
+    def _init_int8(self, ref_t: torch.Tensor, tile_n: int, precision: str):
+        self.device = ref_t.device
+        self._set_i8_embed(ref_t.min(dim=0).values.double().cpu().numpy(),
+                           ref_t.max(dim=0).values.double().cpu().numpy())
+        g = torch.clamp(torch.round((ref_t - self._i8_zero_dev) * self._i8_inv_s_dev),
+                        -127.0, 127.0).to(torch.int8)
+        self._init_fused(g, None, tile_n, precision, "int8")
+
+    @classmethod
+    def from_int8_grid(cls, grid, zero, scale, precision: str | None = None,
+                       mesh=None, strategy: str = "fused", device="cuda") -> "NNIndex":
+        """An int8 index built straight from pre-quantized grid state (the
+        capacity path): ``grid`` (n, k) int8, ``zero`` (k,) per-dim offsets,
+        ``scale`` the positive global step; the stored points are
+        zero + scale·grid. Queries behave as NNIndex(..., store="int8")'s.
+        A tensor grid stays on its device; NumPy goes to ``device``."""
+        if mesh is not None and strategy != "sharded":
+            raise ValueError("mesh= requires strategy='sharded' (a fused grid index "
+                             "lives on one device) — it would otherwise be silently "
+                             "ignored")
+        if strategy == "sharded":
+            raise _not_ported("strategy='sharded' / mesh=", "A.9")
+        dtype = grid.dtype if isinstance(grid, torch.Tensor) else np.asarray(grid).dtype
+        if dtype not in (torch.int8, np.int8) or len(grid.shape) != 2:
+            raise ValueError(f"grid must be an (n, k) int8 array, got {dtype} "
+                             f"{tuple(grid.shape)}")
+        zero = np.ascontiguousarray(zero, np.float32)
+        if zero.shape != (grid.shape[1],):
+            raise ValueError(f"zero must be ({grid.shape[1]},) f32, got {zero.shape}")
+        if not float(scale) > 0.0:
+            raise ValueError(f"scale must be positive, got {scale}")
+        return cls._from_int8_grid(grid, zero, np.float32(1.0 / np.float64(scale)),
+                                   precision, strategy, device)
+
+    @classmethod
+    def _from_int8_grid(cls, grid, zero, inv_s, precision: str | None,
+                        strategy: str = "fused", device="cuda") -> "NNIndex":
+        """The index over the given grid and embed constants (re-quantizing
+        is neither possible nor wanted: the grid is the index); ``None``
+        takes tpu_knn's tier for a quantized store."""
+        if strategy != "fused":
+            raise ValueError(f"int8 grids serve the fused strategy here, got {strategy!r}")
+        n, k = grid.shape
+        if precision is None:
+            precision = _resolve_precision(None, k, n, "int8")
+        elif precision not in PORTED_PRECISIONS:
+            raise ValueError(f"unknown precision={precision!r}")
+        if precision == "bf16x3_presplit":
+            raise _not_ported("precision='bf16x3_presplit' beside a quantized store", "A.6")
+        if not isinstance(grid, torch.Tensor):
+            grid = torch.from_numpy(np.array(grid, np.int8))
+            grid = grid.to(check_device(device))
+        check_device(grid.device)
+        ix = cls.__new__(cls)
+        ix.device = grid.device
+        ix._set_i8_constants(zero, inv_s)
+        _, tile_n = pick_tiles(k, 1024, n, wide=precision == "packed")
+        ix._init_fused(grid.contiguous(), None, tile_n, precision, "int8")
+        return ix
+
+    def _i8_q(self, search: torch.Tensor) -> torch.Tensor:
+        """User-space queries -> grid space (one f32 rounding per
+        coordinate, the embed's definition)."""
+        return (search - self._i8_zero_dev) * self._i8_inv_s_dev
+
+    def _i8_ops(self):
+        """The per-call bf16 SoA operand of the batch engines: grid values
+        are exact in bf16, so the batch route computes the grid-space
+        geometry the AoS scan does. Built per call and released after (the
+        int8 mode holds the grid only; steady batch serving is what
+        store='bf16' is for)."""
+        return (prep_soa(self.ref_dev.to(torch.bfloat16), round_up(self.n, self.tile_n)),)
+
+    def _i8_query(self, search: torch.Tensor):
+        """Grid-space 1-NN of an (already transformed, bucketed) batch, in
+        grid units: m <= 4 the diff-form AoS scan straight off the int8
+        grid, small n the dense path, batches the tier's kernel over the
+        per-call bf16 operand with the certificate rescaled to grid units
+        (tpu_knn's index.py:1679-1715)."""
+        from tpu_knn_torch.kernels.dense import _dense, dense_applicable
+        from tpu_knn_torch.kernels.smallm import SMALLM_MAX_M, _aos_scan
+
+        m = search.shape[0]
+        if dense_applicable(m, self.k, self.n):
+            return _dense(search, self.ref_dev)
+        if m <= SMALLM_MAX_M:
+            return _aos_scan(search, self.ref_dev)
+        run = _build_prepared_query(m, self.n, self.k, self.precision,
+                                    cutoff_scale=1.0 / self._i8_s2)
+        return run(search, self._i8_ops(), self.ref_dev)
+
+    def _i8_run(self, search, grid):
+        """pipeline()'s run for the int8 mode: the grid transform, the route
+        _query_padded takes for the batch and the d2 rescale in one call,
+        over ops = (grid,), so a timed run includes the per-call bf16
+        operand."""
+        if grid is not self.ref_dev:
+            raise ValueError("run() serves this index's own grid")
+        idx, d2 = self._i8_query(self._i8_q(as_f32(search, self.device)))
+        return idx, d2 * self._i8_s2
+
+    # ---- state from a tpu_knn index ------------------------------------
+
     @classmethod
     def from_state(cls, state, device="cuda") -> "NNIndex":
         """Build from a tpu_knn index's state, given as NumPy, taken
-        verbatim after a check:
+        verbatim after a check (an optional ``"precision"`` key carries the
+        index's tier; else tpu_knn's default for the store):
 
         - fused: ``{"ref": np.asarray(ix.ref_dev), "r_op":
           np.asarray(ix.r_ops[0])}``; ``r_op`` must be the zero-padded
-          (k_pad, n_pad) transpose of ``ref`` (tpu_knn's prep_soa layout);
+          (k_pad, n_pad) transpose of ``ref`` (tpu_knn's prep_soa layout).
+          A bf16 store hands both over as bfloat16 (taken bit for bit
+          through a 16-bit integer view);
+        - presplit (precision="bf16x3_presplit"): ``{"ref": ..., "r_ops":
+          tuple(np.asarray(a) for a in ix.r_ops)}``, the (hi, lo) bf16 split
+          of the zero-padded (round_up(k, 16), n_pad) transpose and its
+          (1, n_pad) f32 ‖r‖² row;
+        - int8: ``{"grid": np.asarray(ix.ref_dev), "zero": ix._i8_zero,
+          "inv_s": ix._i8_inv_s}``;
         - projection: ``{"ref": ..., "proj_index": tuple(np.asarray(a) for
           a in ix.proj_index)}``; ``order`` must be a permutation and the
           rest build_projection_index's layout of ``ref[order]``."""
         if "proj_index" in state:
             return cls._from_projection_state(state, device)
+        if "grid" in state:
+            return cls._from_int8_state(state, device)
+        if "r_ops" in state:
+            return cls._from_presplit_state(state, device)
+        if np.asarray(state["ref"]).dtype.name == "bfloat16":
+            return cls._from_bf16_state(state, device)
         ref = np.ascontiguousarray(state["ref"], np.float32)
         r_op = np.ascontiguousarray(state["r_op"], np.float32)
-        if ref.ndim != 2 or r_op.ndim != 2:
-            raise ValueError("state['ref'] must be (n, k), state['r_op'] (k_pad, n_pad)")
-        n, k = ref.shape
-        if r_op.shape[0] != round_up(k, 8) or r_op.shape[1] < n:
-            raise ValueError(f"r_op shape {r_op.shape} is not the SoA operand "
-                             f"of a ({n}, {k}) reference set")
-        want = np.zeros_like(r_op)
-        want[:k, :n] = ref.T
-        if not np.array_equal(r_op, want):
-            raise ValueError("r_op is not the zero-padded transpose of ref")
-        tile_n = _tile_for_width(n, r_op.shape[1])
+        tile_n = _check_soa_state(ref, r_op)
         index = cls.__new__(cls)
-        index._init_fused(as_f32(ref, device), as_f32(r_op, device), tile_n)
+        precision = _resolve_precision(state.get("precision"), *ref.shape[::-1], "float32")
+        index._init_fused(as_f32(ref, device), (as_f32(r_op, device),), tile_n, precision)
         return index
+
+    @classmethod
+    def _from_bf16_state(cls, state, device) -> "NNIndex":
+        ref = _np_bf16_bits(state["ref"], "state['ref']")
+        r_op = _np_bf16_bits(state["r_op"], "state['r_op'] of a bf16 store")
+        tile_n = _check_soa_state(ref, r_op)
+        n, k = ref.shape
+        index = cls.__new__(cls)
+        index._init_fused(_bf16_tensor(ref, device), (_bf16_tensor(r_op, device),), tile_n,
+                          _resolve_precision(state.get("precision"), k, n, "bf16"), "bf16")
+        return index
+
+    @classmethod
+    def _from_presplit_state(cls, state, device) -> "NNIndex":
+        ref = np.ascontiguousarray(state["ref"], np.float32)
+        if ref.ndim != 2 or len(state["r_ops"]) != 3:
+            raise ValueError("a presplit state is ref (n, k) and r_ops (hi, lo, rn)")
+        hi = _np_bf16_bits(state["r_ops"][0], "hi")
+        lo = _np_bf16_bits(state["r_ops"][1], "lo")
+        rn = np.ascontiguousarray(state["r_ops"][2], np.float32)
+        n, k = ref.shape
+        width = hi.shape[1] if hi.ndim == 2 else -1
+        if (hi.shape != (round_up(k, 16), width) or lo.shape != hi.shape
+                or rn.shape != (1, width) or width < n):
+            raise ValueError(f"r_ops shapes {hi.shape}, {lo.shape}, {rn.shape} are not "
+                             f"B12's operands of a ({n}, {k}) reference set")
+        want_hi, want_lo, _ = presplit_ops(torch.from_numpy(ref.copy()), width)
+        norm = np.zeros(width)
+        norm[:n] = (ref.astype(np.float64) ** 2).sum(axis=1)
+        if not (np.array_equal(hi, want_hi.view(torch.int16).numpy())
+                and np.array_equal(lo, want_lo.view(torch.int16).numpy())):
+            raise ValueError("r_ops' (hi, lo) are not the bf16 split of ref's padded "
+                             "transpose")
+        # ‖r‖² may differ from ours in the last bits (f32 summation order).
+        if not np.allclose(rn[0], norm, rtol=1e-6, atol=0.0):
+            raise ValueError("r_ops' norm row is not ‖r‖² of ref")
+        index = cls.__new__(cls)
+        index._init_fused(as_f32(ref, device), (_bf16_tensor(hi, device),
+                                                _bf16_tensor(lo, device),
+                                                as_f32(rn, device)),
+                          _tile_for_width(n, width), "bf16x3_presplit")
+        return index
+
+    @classmethod
+    def _from_int8_state(cls, state, device) -> "NNIndex":
+        grid = np.asarray(state["grid"])
+        zero = np.ascontiguousarray(state["zero"], np.float32)
+        inv_s = np.float32(state["inv_s"])
+        if grid.dtype != np.int8 or grid.ndim != 2:
+            raise ValueError(f"state['grid'] must be an (n, k) int8 array, got "
+                             f"{grid.dtype} {grid.shape}")
+        if zero.shape != (grid.shape[1],) or not np.all(np.isfinite(zero)):
+            raise ValueError(f"state['zero'] must be ({grid.shape[1]},) finite f32")
+        if not (np.isfinite(inv_s) and inv_s > 0):
+            raise ValueError(f"state['inv_s'] must be a positive finite f32, got {inv_s}")
+        return cls._from_int8_grid(grid, zero, inv_s, state.get("precision"), device=device)
 
     @classmethod
     def _from_projection_state(cls, state, device) -> "NNIndex":
@@ -304,7 +577,8 @@ class NNIndex:
         ints = [torch.as_tensor(np.array(a, np.int32), device=tensors[0].device)
                 for a in (order, axis, inv_order)]
         index._init_projection(as_f32(ref, device), (
-            tensors[0], ints[0], ints[1], tensors[1], tensors[2], ints[2], tensors[3]))
+            tensors[0], ints[0], ints[1], tensors[1], tensors[2], ints[2], tensors[3]),
+            _resolve_precision(state.get("precision"), k, n, "float32"))
         return index
 
     @staticmethod
@@ -335,6 +609,8 @@ class NNIndex:
         search = self._as_queries(search)
         if neighbors is not None:
             return self._query_topk(search, neighbors)
+        if self.store == "int8":
+            search = self._i8_q(search)   # grid space (see _init_int8)
         m = search.shape[0]
         mb = self._m_bucket(m) if self.bucket_m else m
         if mb != m:
@@ -342,13 +618,18 @@ class NNIndex:
             # like in-distribution work.
             search = torch.cat([search, search[-1:].expand(mb - m, self.k)])
         idx, d2 = self._query_padded(search, m)
-        return idx[:m], d2[:m]
+        idx, d2 = idx[:m], d2[:m]
+        if self.store == "int8":
+            d2 = d2 * self._i8_s2   # back to user units (monotone)
+        return idx, d2
 
     def pipeline(self, m: int):
         """Return (run, ops) for the prepared fused query pipeline at batch
         size ``m`` (strategies "fused" and "auto"): ``run(search, *ops) ->
-        (idx, d2)`` with ``ops`` the device-resident prepared operands. The
-        projection strategy has no single pipeline and raises."""
+        (idx, d2)`` with ``ops`` the device-resident prepared operands
+        (for store="int8" the grid, with the grid transform and the d2
+        rescale inside run). The projection strategy has no single
+        pipeline and raises."""
         from tpu_knn_torch.kernels.smallm import (
             aos_scan_applicable, smallm_applicable,
         )
@@ -356,7 +637,10 @@ class NNIndex:
         if self.strategy not in ("fused", "auto"):
             raise ValueError(f"pipeline() requires the fused/auto strategy, "
                              f"not {self.strategy!r}")
-        if smallm_applicable(m, self.k, self.n) or aos_scan_applicable(m, self.k, self.n):
+        if self.store == "int8":
+            return self._i8_run, (self.ref_dev,)
+        if (smallm_applicable(m, self.k, self.n)
+                or aos_scan_applicable(m, self.k, self.n)) and len(self.r_ops) == 1:
             return (_build_smallm_prepared(m, self.n, self.k),
                     (self.r_ops, self.ref_dev))
         run = _build_prepared_query(m, self.n, self.k, self.precision)
@@ -370,6 +654,8 @@ class NNIndex:
 
         m = search.shape[0]
         n = self.n
+        if self.store == "int8":
+            return self._i8_query(search)
         if self.strategy == "projection":
             from tpu_knn_torch.kernels.projection import projection_knn
 
@@ -389,9 +675,12 @@ class NNIndex:
                 self._note_projection_batch(certified)
                 return idx, d2
             self.last_strategy = "fused"
-        if smallm_applicable(m, self.k, n) or aos_scan_applicable(m, self.k, n):
+        if (smallm_applicable(m, self.k, n)
+                or aos_scan_applicable(m, self.k, n)) and len(self.r_ops) == 1:
             # The small-m kernel serves tiny batches off the very same SoA
-            # operand (still the "fused" strategy — a kernel choice).
+            # operand (still the "fused" strategy — a kernel choice). A
+            # presplit index keeps B12 at every m (tpu_knn's
+            # len(r_ops) == 1 condition, index.py:1740-1742).
             run = _build_smallm_prepared(m, n, self.k)
             return run(search, self.r_ops, self.ref_dev)
         if dense_applicable(m, self.k, n):
@@ -428,6 +717,9 @@ class NNIndex:
                 "neighbors>1 requires the fused/auto/sharded strategy "
                 "(prepared SoA operand) or the native kdtree backend; "
                 f"this index uses {self.strategy!r}")
+        if self.store != "float32" or len(self.r_ops) != 1:
+            raise _not_ported(f"top-K and query_radius over store={self.store!r} / "
+                              f"precision={self.precision!r}", "A.6")
         search, m, mb = self._topk_prep_batch(search, neighbors)
         if mb == 1 and neighbors <= MAX_NEIGHBORS:
             # m=1 top-K: the zero-prep AoS cell engine over the resident

@@ -4,7 +4,8 @@ Below a few thousand reference points the m x n matrix is a few megabytes
 and the streaming pipeline's fixed stages (per-lane fold, top-T selection,
 rerank gathers) cost more than computing every exact diff-form distance
 and reducing. Plain torch ops, exact f32 distances, v0's lowest-index tie
-rule by construction.
+rule by construction. A bf16 store's points or an int8 grid are taken as
+stored: f32 − bf16 and f32 − int8 promote to f32 exactly, as jnp's do.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ import torch
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.fused import (
     B1_BLOCKS_PER_SM, _check_candidate_operands,
-    _check_precision_ported, _refine, _to_host, fused_candidates_plain, prep_soa,
+    _check_highest_only, _refine, _to_host, fused_candidates_plain, prep_soa,
 )
 from tpu_knn_torch.kernels.tuning import (
     LANE, MAX_QUERY_SMEM, MAX_TILE_N, SCORE_TILE_BUDGET, pick_parts, pick_tiles,
@@ -121,7 +121,7 @@ def dma_knn(search, ref, *, precision: str | None = None, device="cuda"):
     """Exact 1-NN through B10 and the bare-index refine. Returns (indices
     (m,) int32, exact squared distances (m,) f32) on the inputs' device.
     The port computes the f32 "highest" tier only."""
-    _check_precision_ported(precision)
+    _check_highest_only(precision, "v5 (B10)")
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]

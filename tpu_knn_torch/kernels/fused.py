@@ -15,11 +15,13 @@ caller's (n, k) array with an on-chip transpose instead of the SoA
 relayout, and v6 (`const_query_candidates`) keeps the whole query set in
 constant memory for the sweep.
 
-Precision: the kernel computes in plain f32 FMA on the CUDA cores — the
-"highest" tier. The bf16-split tiers (packed, bf16x3, bf16x4, qsplit2)
-belong on the tensor cores and are not ported yet (ROADMAP A.2); the tier
-policy (`auto_precision`, `_packed_terms`, `select_cutoff`) is carried
-across unchanged so that routing cannot drift from tpu_knn's.
+Precision: B1 here computes in plain f32 FMA on the CUDA cores, the
+"highest" tier. tpu_knn's bf16-split tiers (packed, bf16x3, bf16x4,
+qsplit2, default/bf16_raw) and B12 (bf16x3 over pre-split operands) run on
+the tensor cores (kernels/tiers.py, csrc/tensor_kernels.cu). `fused_knn`
+resolves `precision=None` through `auto_precision`, as tpu_knn does; the
+tier policy (`auto_precision`, `_packed_terms`, `select_cutoff`) is
+carried across unchanged so that routing cannot drift from tpu_knn's.
 """
 
 from __future__ import annotations
@@ -36,11 +38,14 @@ from tpu_knn_torch.kernels.tuning import (
 from tpu_knn_torch.utils.platform import as_f32_pair, check_device
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
-#: The port's score arithmetic: plain f32 (tpu_knn's "highest" tier).
+#: The tier of the port's paths that keep B1's f32 arithmetic (v3, v5, v6
+#: and the top-K engines): tpu_knn's "highest".
 DEFAULT_PRECISION = "highest"
 
-#: Tiers the port computes. Every other tier name raises NotImplementedError.
-PORTED_PRECISIONS = frozenset({"highest"})
+#: The tiers tpu_knn's fused path computes (`_qr_dot`'s branches and the
+#: presplit builder); every other name raises ValueError.
+PORTED_PRECISIONS = frozenset({"packed", "bf16x3", "bf16x3_presplit", "bf16x4", "qsplit2",
+                               "highest", "default", "bf16_raw"})
 
 _I32_MAX = 2**31 - 1
 
@@ -66,9 +71,7 @@ def _packed_terms(k_pad: int):
 
 def auto_precision(k: int, n: int) -> str:
     """tpu_knn's precision tier for the score matmul, verbatim (the ±1e-3
-    gate tightens as n grows and k falls; see tpu_knn.kernels.fused).
-    The port computes only "highest" today; this policy is kept for the
-    tensor-core tiers of ROADMAP A.2."""
+    gate tightens as n grows and k falls; see tpu_knn.kernels.fused)."""
     log2n = math.log2(max(n, 2))
     if 4 * round_up(k, 8) <= 128:
         return "packed"
@@ -116,16 +119,19 @@ def select_cutoff(precision: str, k: int) -> float:
 UNCERTIFIED_PRECISIONS = frozenset({"bf16_raw"})
 
 
-def _check_precision_certified(precision):
-    """tpu_knn's certification check. The port serves certified tiers
-    only: tpu_knn's ``allow_approximate`` opt-in waits for a
-    selection-approximate tier to be ported (ROADMAP A.2)."""
-    if precision in UNCERTIFIED_PRECISIONS:
+def _check_precision_certified(precision, allow_approximate: bool = False):
+    """tpu_knn's certification check (fused.py:932-947), with an unknown
+    tier name rejected (tpu_knn computed it as "default")."""
+    if precision is not None and precision not in PORTED_PRECISIONS:
+        raise ValueError(f"unknown precision={precision!r}; the tiers are "
+                         f"{sorted(PORTED_PRECISIONS)}")
+    if precision in UNCERTIFIED_PRECISIONS and not allow_approximate:
         raise ValueError(
             f"precision={precision!r} is selection-approximate (can drop "
             "the true neighbor before exact refinement; measured 1/1024 "
-            "gate errors at k=768 — docs/SERVING.md); the port serves only "
-            "tiers inside the ±1e-3 contract.")
+            "gate errors at k=768 — docs/SERVING.md). Pass "
+            "allow_approximate=True to accept results outside the ±1e-3 "
+            "contract.")
     if precision == "qsplit2":
         raise ValueError(
             "precision='qsplit2' is the quantized-store tier (requires a "
@@ -133,33 +139,36 @@ def _check_precision_certified(precision):
             "it automatically — it cannot serve per-call f32 references")
 
 
-def _check_precision_ported(precision) -> None:
-    if precision is not None and precision not in PORTED_PRECISIONS:
+def _check_highest_only(precision, what: str) -> None:
+    """The paths that keep B1's f32 kernel (v3's AoS variant, B10) take no
+    other tier yet."""
+    if precision not in (None, "highest"):
         raise NotImplementedError(
-            f"precision={precision!r}: the port computes only the f32 "
-            "'highest' tier; the bf16-split tiers on tensor cores are "
-            "ROADMAP item A.2")
+            f"{what} computes only the f32 'highest' tier; precision={precision!r} "
+            "there is ROADMAP item A.2")
 
 
 # ---- operands -------------------------------------------------------
 
 
 def prep_soa(ref: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """(n, k) f32 -> the zero-padded (k_pad, n_pad) SoA operand,
-    k_pad = round_up(k, 8) (tpu_knn's prep_soa layout, so operands carry
-    across verbatim)."""
+    """(n, k) points -> the zero-padded (k_pad, n_pad) SoA operand in their
+    dtype (f32, or bf16 for a bf16 store), k_pad = round_up(k, 8)
+    (tpu_knn's prep_soa layout, so operands carry across verbatim)."""
     n, k = ref.shape
-    r_op = torch.zeros((round_up(k, 8), n_pad), dtype=torch.float32,
-                       device=ref.device)
+    r_op = torch.zeros((round_up(k, 8), n_pad), dtype=ref.dtype, device=ref.device)
     r_op[:k, :n] = ref.T
     return r_op
 
 
-def _check_candidate_operands(q, r_op, n: int, parts: int, aos: bool = False) -> None:
-    """Validate a candidate launch: q (m, k) against the SoA operand
-    (>= k rows, >= n columns), or with ``aos`` the row-major (n, k) points."""
-    if q.dtype != torch.float32 or r_op.dtype != torch.float32:
-        raise TypeError("candidate kernels take float32 operands")
+def _check_candidate_operands(q, r_op, n: int, parts: int, aos: bool = False,
+                              r_dtypes=(torch.float32,)) -> None:
+    """Validate a candidate launch: q (m, k) f32 against the SoA operand
+    (>= k rows, >= n columns, one of ``r_dtypes``), or with ``aos`` the
+    row-major (n, k) points."""
+    if q.dtype != torch.float32 or r_op.dtype not in r_dtypes:
+        raise TypeError(f"candidate kernels take float32 queries and a "
+                        f"{'/'.join(map(str, r_dtypes))} operand")
     if q.dim() != 2 or r_op.dim() != 2:
         raise ValueError("queries must be (m, k) and the operand (k_pad, n_pad)")
     if not (q.is_contiguous() and r_op.is_contiguous()):
@@ -587,24 +596,29 @@ def _refine(search, ref, cand, n, cutoff: float = SELECT_SCORE_CUTOFF):
 
 
 def fused_knn(search, ref, *, soa: bool = True, parts: int | None = None,
-              precision: str | None = None, device="cuda"):
+              precision: str | None = None, allow_approximate: bool = False,
+              device="cuda"):
     """Exact 1-NN of (m, k) queries against (n, k) points.
 
     Returns (indices (m,) int32, exact squared distances (m,) f32) as
     tensors on the inputs' device (see utils/platform.py for the device
     rule). Routing as in tpu_knn: m <= 4 takes the diff-form AoS scan,
-    small n the dense path, everything else B1 + _refine. An explicit
-    ``parts`` (the kernel's n-partition count) or ``precision`` signals
-    measurement intent and keeps the B1 path. ``soa=False`` is v3: B1's
-    AoS variant over the caller's array (no per-call relayout), never
+    small n the dense path, everything else the candidate kernel of the
+    score tier + _refine. ``precision=None`` resolves through
+    auto_precision(k, n) ("packed" at k <= 32): the tensor-core tiers of
+    kernels/tiers.py, "highest" on B1. An explicit ``parts`` (the kernel's
+    n-partition count) or ``precision`` signals measurement intent and
+    keeps the candidate path. Selection-approximate tiers (bf16_raw) need
+    ``allow_approximate=True``. ``soa=False`` is v3: B1's AoS variant over
+    the caller's array (no per-call relayout, "highest" only), never
     routed elsewhere, as in tpu_knn.
     """
-    _check_precision_certified(precision)
-    _check_precision_ported(precision)
+    _check_precision_certified(precision, allow_approximate)
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
     if not soa:
+        _check_highest_only(precision, "v3 (B1's AoS variant)")
         cand = aos_candidates(search, ref, n, parts or aos_parts(m, k, n))
         return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
     if parts is None and precision is None:
@@ -618,11 +632,16 @@ def fused_knn(search, ref, *, soa: bool = True, parts: int | None = None,
 
         if dense_applicable(m, k, n):
             return dense_knn(search, ref)
-    precision = precision or DEFAULT_PRECISION
+    from tpu_knn_torch.kernels.tiers import presplit_ops, refine_candidates, tier_parts
+
+    if precision is None:
+        precision = auto_precision(k, n)
     if parts is None:
-        parts = default_parts(m, k, n)
-    r_op = prep_soa(ref, round_up(n, LANE))
-    cand = fused_candidates(search, r_op, n, parts)
+        parts = tier_parts(precision, m, k, n)
+    n_pad = round_up(n, LANE)
+    r_ops = (presplit_ops(ref, n_pad) if precision == "bf16x3_presplit"
+             else (prep_soa(ref, n_pad),))
+    cand = refine_candidates(search, r_ops, n, parts, precision)
     return _refine(search, ref, cand, n, cutoff=select_cutoff(precision, k))
 
 

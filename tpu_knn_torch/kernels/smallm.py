@@ -7,9 +7,12 @@ Two engines, split as in tpu_knn:
   Pallas `_smallm_kernel`) that streams the same SoA (k_pad, n_pad)
   operand as B1 and folds exact diff-form scores Σ(r − q)² into per-lane
   candidates; `_refine` picks the winner (always certified: the scores
-  are exact).
+  are exact). A bf16 store's operand takes B2-bf16, the same kernel
+  reading bf16 and upcasting at the read.
 - PER-CALL (caller hands an (n, k) array): the diff-form AoS scan over
-  the caller's array, plain torch ops (plain XLA in tpu_knn).
+  the caller's array, plain torch ops (plain XLA in tpu_knn). It takes a
+  bf16 store's points or an int8 grid as they are stored: f32 − bf16 and
+  f32 − int8 promote to f32 exactly, as jnp's do.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ def diff_scores(q, r_op, n: int):
     over the first n columns (m, n), one query row at a time. B2 and B6's
     plain versions share it, as the two kernels share one score function."""
     m, k = q.shape
-    r = r_op[:k, :n]
+    r = r_op[:k, :n].float()   # a bf16 operand upcasts exactly
     return torch.stack([((r - q[i, :, None]) ** 2).sum(dim=0) for i in range(m)])
 
 
@@ -89,11 +92,12 @@ def check_smallm_shape(m: int, k: int) -> None:
 
 
 def smallm_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
-    """(m <= 4, k <= 32) queries x (k_pad, n_pad) SoA operand -> (idx
-    (m, parts*128) int32, exact score (m, parts*128) f32): B2's candidate
-    contract over the first n columns. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
-    _check_candidate_operands(q, r_op, n, parts)
+    """(m <= 4, k <= 32) queries x (k_pad, n_pad) SoA operand, f32 or (a
+    bf16 store's) bf16 -> (idx (m, parts*128) int32, exact score
+    (m, parts*128) f32): B2's candidate contract over the first n columns.
+    CPU tensors take the plain version; CUDA tensors launch the kernel (B2,
+    or B2-bf16 for a bf16 operand) or raise."""
+    _check_candidate_operands(q, r_op, n, parts, r_dtypes=(torch.float32, torch.bfloat16))
     m, k = q.shape
     check_smallm_shape(m, k)
     if q.device.type == "cpu":
@@ -101,19 +105,26 @@ def smallm_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
+    bf16 = r_op.dtype == torch.bfloat16
     idx = torch.empty((m, parts * LANE), dtype=torch.int32, device=q.device)
     score = torch.empty((m, parts * LANE), dtype=torch.float32, device=q.device)
+    entry = lib.tk_smallm_candidates_bf16 if bf16 else lib.tk_smallm_candidates
     with torch.cuda.device(q.device):
-        err = lib.tk_smallm_candidates(
-            q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
-            m, k, r_op.stride(0), n, parts,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    check(lib, err, "B2 smallm_candidates")
-    smallm_candidates.launches += 1
+        err = entry(q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
+                    m, k, r_op.stride(0), n, parts,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B2-bf16 smallm_candidates" if bf16 else "B2 smallm_candidates")
+    if bf16:
+        from tpu_knn_torch.kernels.tiers import TIER_LAUNCHES
+
+        TIER_LAUNCHES["B2-bf16"] += 1
+    else:
+        smallm_candidates.launches += 1
     return idx, score
 
 
-#: Kernel launches of B2 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B2 (CUDA tensors only; the plain version is not
+#: counted). B2-bf16 counts in tiers.TIER_LAUNCHES["B2-bf16"].
 smallm_candidates.launches = 0
 
 

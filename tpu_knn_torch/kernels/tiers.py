@@ -1,0 +1,442 @@
+"""The bf16-split score tiers of the fused 1-NN path on the tensor cores
+(counterpart of tpu_knn/kernels/fused.py's `_split_bf16`, `_split_bf16_3`,
+`_qr_dot`, `_qr_dot_packed`, `_score_tile`'s bf16 upcast and
+`_score_tile_presplit`, and of the presplit prep of
+`_build_fused_candidates`).
+
+A tier computes q·r as a **term list**: a list of (q part, r part)
+products of bf16 parts, each product exact in f32 and the terms summed in
+f32. The parts are those of the 3-way split x ≈ hi + mid + lo (index 0, 1,
+2); the 2-way split's lo is the 3-way split's mid, so one indexing serves
+every tier:
+
+- "packed": `_packed_terms(round_up(k, 8))` — 9 terms at k_pad = 8 and 8
+  (lo·lo dropped) at k_pad = 16 (packed3), the 2x2 at k_pad 24 and 32
+  (packed2), and bf16x3 above;
+- "bf16x3" and "bf16x3_presplit": hi·hi, hi·lo, lo·hi; "bf16x4" adds lo·lo;
+- "qsplit2": q_hi·r, q_lo·r over a bf16-exact operand (quantized stores);
+- "default" and "bf16_raw": one bf16 pass (the TPU's DEFAULT precision).
+
+"highest" is not a term list: it is B1's f32 FMA on the CUDA cores
+(kernels/fused.py).
+
+Two kernels serve the tiers (csrc/tensor_kernels.cu), both with B1's
+candidate contract (csrc/knn_common.cuh): `tensor_candidates` (B1's
+tiers) runs a tier's terms as one bf16 GEMM on the tensor cores
+(`mma.sync.m16n8k16`) over an f32 or bf16 SoA operand streamed through
+shared memory, splitting r as its fragments are read (q is split once per
+call by the wrapper), and folds s = ‖r‖² − 2·q·r per lane;
+`presplit_candidates` (B12) is the same kernel reading pre-split (hi, lo)
+bf16 rows and an f32 ‖r‖² row. Their plain versions (`tier_scores`,
+`presplit_scores` and the per-lane fold) compute every term as an f32
+matmul of the upcast parts, as tpu_knn's dot_general with an f32 result
+does. On a bf16 operand the lower r parts are exactly zero, so the kernel
+drops those terms (adding a ±0 product leaves an f32 sum unchanged) and
+reads the operand as it is stored.
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import math
+
+import torch
+
+from tpu_knn_torch.kernels.fused import (
+    _I32_MAX, _TIER_EPS, _candidate_outputs, _check_candidate_operands, _lane_fold, _packed_terms,
+    fused_candidates, norm_scores,
+)
+from tpu_knn_torch.kernels.tuning import H100_SMS, LANE
+from tpu_knn_torch.utils.platform import full_f32_matmul
+from tpu_knn_torch.utils.shapes import cdiv, round_up
+
+#: Query rows per block of the tensor-core kernel (csrc kTBM: four warps
+#: of 16 rows, each beside a second warp for the other 64 lanes).
+TENSOR_TILE_M = 64
+
+_HH_HL_LH = ((0, 0), (0, 1), (1, 0))
+
+#: Kernel launches of the kernels this module's tiers run, CUDA tensors
+#: only (the plain versions are not counted), one count per row of the
+#: kernel table: tensor_candidates by resolved tier ("packed3", "packed2",
+#: "bf16x3", "bf16x4", "qsplit2", "default", "bf16_raw"), B12 as
+#: "bf16x3_presplit", and B2 over a bf16 store's operand
+#: (smallm.smallm_candidates) as "B2-bf16".
+TIER_LAUNCHES: collections.Counter = collections.Counter()
+
+
+# ---- the arithmetic -------------------------------------------------
+
+
+def split_bf16_3(x: torch.Tensor):
+    """f32 -> (hi, mid, lo) bf16 with x ≈ hi + mid + lo, each part rounded
+    to nearest even (tpu_knn's `_split_bf16_3`; torch's `.to(bfloat16)`
+    rounds as JAX's astype does). The 2-way split (hi, lo) of
+    `_split_bf16` is (hi, mid): x − hi is exact in f32, so both round the
+    same value."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def resolved_tier(precision: str, k: int) -> str:
+    """The `_TIER_EPS` key of the arithmetic a tier runs at width k:
+    "packed" resolves by its term list (packed3, packed2, or bf16x3 where
+    the contraction is too wide to pack), as select_cutoff does."""
+    if precision == "packed":
+        n_splits, _ = _packed_terms(round_up(k, 8))
+        return {3: "packed3", 2: "packed2"}.get(n_splits, "bf16x3")
+    return precision
+
+
+def term_list(precision: str, k: int) -> tuple[tuple[int, int], ...]:
+    """(q part, r part) pairs of a tier at width k, in tpu_knn's order
+    (`_qr_dot`): indices into the 3-way split (0 hi, 1 mid = the 2-way
+    split's lo, 2 lo)."""
+    if precision in ("default", "bf16_raw"):
+        return ((0, 0),)
+    if precision == "qsplit2":
+        return ((0, 0), (1, 0))
+    if precision == "packed":
+        n_splits, pairs = _packed_terms(round_up(k, 8))
+        if n_splits:
+            return tuple(pairs)
+        precision = "bf16x3"
+    if precision in ("bf16x3", "bf16x3_presplit"):
+        return _HH_HL_LH
+    if precision == "bf16x4":
+        return _HH_HL_LH + ((1, 1),)
+    raise ValueError(f"precision={precision!r} is not a term-list tier")
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An f32 product of upcast bf16 parts (exact products, f32 sum)."""
+    with full_f32_matmul():
+        return a.float() @ b.float()
+
+
+def tier_qr(q: torch.Tensor, r: torch.Tensor, precision: str) -> torch.Tensor:
+    """q (m, k) f32 · r (k, w) f32 by the tier's terms, structured as
+    tpu_knn's `_qr_dot`: one dot over the concatenated parts for "packed",
+    hh + (hl + lh) (+ ll) for the bf16x3/x4 ladder, q_hi·r + q_lo·r for
+    qsplit2."""
+    k = q.shape[1]
+    qp, rp = split_bf16_3(q), split_bf16_3(r)
+    terms = term_list(precision, k)
+    if precision in ("default", "bf16_raw"):
+        return _dot(qp[0], rp[0])
+    if precision == "qsplit2":
+        return _dot(qp[0], rp[0]) + _dot(qp[1], rp[0])
+    if precision == "packed" and _packed_terms(round_up(k, 8))[0]:
+        return _dot(torch.cat([qp[i] for i, _ in terms], dim=1),
+                    torch.cat([rp[j] for _, j in terms], dim=0))
+    qr = _dot(qp[0], rp[0]) + (_dot(qp[0], rp[1]) + _dot(qp[1], rp[0]))
+    if precision == "bf16x4":
+        qr = qr + _dot(qp[1], rp[1])
+    return qr
+
+
+def tier_scores(q: torch.Tensor, r_op: torch.Tensor, n: int, precision: str) -> torch.Tensor:
+    """The plain score s = ‖r‖² − 2·(q·r) of a term-list tier over the
+    first n columns of an f32 or bf16 SoA operand, (m, n) f32. A bf16
+    operand is upcast first (exact), as `_score_tile` does."""
+    k = q.shape[1]
+    r = r_op[:k, :n].float()
+    return (r * r).sum(dim=0) - 2.0 * tier_qr(q, r, precision)
+
+
+def presplit_ops(ref: torch.Tensor, n_pad: int):
+    """(n, k) f32 -> B12's operands (tpu_knn's presplit `prep_soa`): the
+    zero-padded (round_up(k, 16), n_pad) transpose split into bf16 (hi, lo)
+    and its f32 column norms ‖r‖² as a (1, n_pad) row."""
+    n, k = ref.shape
+    r = torch.zeros((round_up(k, 16), n_pad), dtype=torch.float32, device=ref.device)
+    r[:k, :n] = ref.T
+    hi = r.to(torch.bfloat16)
+    lo = (r - hi.float()).to(torch.bfloat16)
+    return hi, lo, (r * r).sum(dim=0, keepdim=True)
+
+
+def presplit_scores(q, hi, lo, rn, n: int) -> torch.Tensor:
+    """B12's plain score (tpu_knn's `_score_tile_presplit`): q split once,
+    hh + (hl + lh) over the stored (hi, lo) rows, minus from the stored
+    ‖r‖² row; (m, n) f32."""
+    k = q.shape[1]
+    qh, ql, _ = split_bf16_3(q)
+    h, lw = hi[:k, :n], lo[:k, :n]
+    qr = _dot(qh, h) + (_dot(qh, lw) + _dot(ql, h))
+    return rn[0, :n] - 2.0 * qr
+
+
+# ---- the kernels ------------------------------------------------------
+
+
+def tensor_parts(m: int, n: int) -> int:
+    """Partition count of a tensor-core launch. Its blocks hold about 200
+    registers a thread, so one block runs on an SM at a time and a launch
+    takes ceil(blocks / 132) waves of blocks that each walk ceil(G / P) of
+    their row tile's G column groups: the count minimizing waves x groups
+    per block (the smallest on a tie), so the last wave is not left mostly
+    empty (at m = 1024, P = 33 fills 4 waves exactly where P = 17 took 3
+    for 2.06 waves' work)."""
+    return _tensor_parts(cdiv(m, TENSOR_TILE_M), cdiv(n, LANE))
+
+
+@functools.lru_cache(maxsize=None)
+def _tensor_parts(tiles: int, groups: int) -> int:
+    def cost(parts):
+        return cdiv(tiles * parts, H100_SMS) * cdiv(groups, parts)
+
+    return min(range(1, min(groups, 4 * H100_SMS) + 1), key=lambda p: (cost(p), p))
+
+
+def _pack_terms(terms) -> tuple[int, int]:
+    q_bits = sum(i << (2 * t) for t, (i, _) in enumerate(terms))
+    r_bits = sum(j << (2 * t) for t, (_, j) in enumerate(terms))
+    return q_bits, r_bits
+
+
+def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
+    """Launch the tensor-core kernel over ``operand`` (its first array;
+    ``ptrs`` = (r, r_lo, rn) pointers). The q parts the terms use are
+    split here, once per call, from the zero-padded queries: (nq, m, k16)
+    bf16, torch's round-to-nearest-even casts, tpu_knn's split bit for
+    bit. The staged rows are copied 16 bytes at a time, so the operand's
+    rows must start on 16-byte boundaries."""
+    from tpu_knn_torch.csrc.build import check, load
+
+    if operand.data_ptr() % 16 or (operand.stride(0) * operand.element_size()) % 16:
+        raise ValueError(f"{what}: the operand's rows must be 16-byte aligned (row stride "
+                         f"{operand.stride(0)} elements)")
+    lib = load()
+    m, k = q.shape
+    k16 = round_up(k, 16)
+    q_pad = torch.nn.functional.pad(q, (0, k16 - k))
+    nq = 1 + max(i for i, _ in terms)
+    qp = torch.stack(split_bf16_3(q_pad)[:nq]).contiguous()
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    q_bits, r_bits = _pack_terms(terms)
+    with torch.cuda.device(q.device):
+        err = lib.tk_tensor_candidates(
+            qp.data_ptr(), *ptrs, idx.data_ptr(), score.data_ptr(), m, k, operand.stride(0), n,
+            parts, mode, len(terms), q_bits, r_bits,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, what)
+    return idx, score
+
+
+#: Operand modes of the tensor-core kernel (csrc OperandMode).
+_MODE_F32, _MODE_BF16, _MODE_PRESPLIT = 0, 1, 2
+
+
+def tensor_candidates_plain(q, r_op, n: int, parts: int, precision: str):
+    """B1's tiers, plain: tier_scores, then the per-lane fold."""
+    return _lane_fold(tier_scores(q, r_op, n, precision), parts)
+
+
+def tensor_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
+                      precision: str):
+    """(m, k) f32 queries x (k_pad, n_pad) f32 or bf16 SoA operand -> B1's
+    (idx, score) candidates (m, parts*128) under a term-list tier. CPU
+    tensors take the plain version; CUDA tensors launch the tensor-core
+    kernel or raise."""
+    _check_candidate_operands(q, r_op, n, parts, r_dtypes=(torch.float32, torch.bfloat16))
+    terms = term_list(precision, q.shape[1])
+    if q.device.type == "cpu":
+        return tensor_candidates_plain(q, r_op, n, parts, precision)
+    if r_op.dtype == torch.bfloat16:
+        # The lower parts of a bf16 value are exactly zero: their terms
+        # add ±0 and are dropped.
+        terms = tuple(t for t in terms if t[1] == 0)
+        mode = _MODE_BF16
+    else:
+        mode = _MODE_F32
+    out = _launch(q, r_op, (r_op.data_ptr(), None, None), mode, n, parts, terms,
+                  f"B1 ({precision}) tensor_candidates")
+    TIER_LAUNCHES[resolved_tier(precision, q.shape[1])] += 1
+    return out
+
+
+def _check_presplit(q, hi, lo, rn, n: int) -> None:
+    k16 = round_up(q.shape[1], 16)
+    if hi.dtype != torch.bfloat16 or lo.dtype != torch.bfloat16 or rn.dtype != torch.float32:
+        raise TypeError("presplit operands are (hi, lo) bfloat16 and an f32 norm row")
+    if (hi.shape != lo.shape or hi.shape[0] != k16 or rn.shape != (1, hi.shape[1])
+            or not (hi.is_contiguous() and lo.is_contiguous() and rn.is_contiguous())
+            or not hi.device == lo.device == rn.device):
+        raise ValueError(f"presplit operands {tuple(hi.shape)}, {tuple(lo.shape)}, "
+                         f"{tuple(rn.shape)} are not contiguous ({k16}, n_pad) x 2 + "
+                         "(1, n_pad) on one device")
+
+
+def presplit_candidates_plain(q, hi, lo, rn, n: int, parts: int):
+    """B12's plain version: presplit_scores, then the per-lane fold."""
+    return _lane_fold(presplit_scores(q, hi, lo, rn, n), parts)
+
+
+def presplit_candidates(q: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                        rn: torch.Tensor, n: int, parts: int):
+    """(m, k) f32 queries x B12's operands (presplit_ops) -> B1's (idx,
+    score) candidates under bf16x3 over the stored parts. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    _check_candidate_operands(q, hi, n, parts, r_dtypes=(torch.bfloat16,))
+    _check_presplit(q, hi, lo, rn, n)
+    if q.device.type == "cpu":
+        return presplit_candidates_plain(q, hi, lo, rn, n, parts)
+    out = _launch(q, hi, (hi.data_ptr(), lo.data_ptr(), rn.data_ptr()), _MODE_PRESPLIT, n,
+                  parts, _HH_HL_LH, "B12 presplit_candidates")
+    TIER_LAUNCHES["bf16x3_presplit"] += 1
+    return out
+
+
+def tier_parts(precision: str, m: int, k: int, n: int) -> int:
+    """The default partition count of the kernel a tier runs on."""
+    if precision == "highest":
+        from tpu_knn_torch.kernels.fused import default_parts
+
+        return default_parts(m, k, n)
+    return tensor_parts(m, n)
+
+
+def merge_partitions(idx: torch.Tensor, score: torch.Tensor):
+    """(m, P·128) candidates -> (m, 128): per lane, the lexicographically
+    smallest (score, index) over the P partitions (a NaN score counts as
+    +inf) — the set one partition's launch would give, tpu_knn's (m, 128)
+    contract. The tier pipelines refine this set, so their certificate and
+    exact rerank see tpu_knn's 128 lanes, and the full-width rerank of an
+    uncertified batch gathers 128 rows per query, not P·128 (at k = 768
+    and P = 17 that is 0.4 GB instead of 6.8 GB per 1024 queries)."""
+    m, width = idx.shape
+    parts = width // LANE
+    if parts == 1:
+        return idx, score
+    s = torch.where(torch.isnan(score), torch.inf, score).view(m, parts, LANE)
+    v = s.min(dim=1).values
+    tie = torch.where(s == v[:, None], idx.view(m, parts, LANE), _I32_MAX)
+    return tie.min(dim=1).values, v
+
+
+def tier_candidates(q: torch.Tensor, r_ops, n: int, parts: int, precision: str):
+    """B1's candidate contract by a tier's arithmetic over the operands
+    the tier keeps: "highest" is B1 on the CUDA cores (a bf16 operand is
+    upcast per call), "bf16x3_presplit" is B12 over (hi, lo, rn), every
+    other tier the tensor-core kernel over (r_op,)."""
+    if precision == "bf16x3_presplit":
+        return presplit_candidates(q, *r_ops, n, parts)
+    (r_op,) = r_ops
+    if precision == "highest":
+        return fused_candidates(q, r_op.float() if r_op.dtype != torch.float32 else r_op,
+                                n, parts)
+    return tensor_candidates(q, r_op, n, parts, precision)
+
+
+def refine_candidates(q: torch.Tensor, r_ops, n: int, parts: int, precision: str):
+    """The candidates a tier's pipeline refines: tier_candidates with the
+    partitions merged to tpu_knn's 128 lanes (merge_partitions), for every
+    tier."""
+    return merge_partitions(*tier_candidates(q, r_ops, n, parts, precision))
+
+
+def tier_candidates_plain(q: torch.Tensor, r_ops, n: int, parts: int, precision: str):
+    """The plain version of tier_candidates' kernel for the tier."""
+    if precision == "bf16x3_presplit":
+        return presplit_candidates_plain(q, *r_ops, n, parts)
+    if precision == "highest":
+        return _lane_fold(norm_scores(q, r_ops[0].float(), n), parts)
+    return tensor_candidates_plain(q, r_ops[0], n, parts, precision)
+
+
+# ---- the score error of a tier ------------------------------------------
+
+#: f32's unit roundoff.
+F32_UNIT = 2.0 ** -24
+
+
+def f32_allowance(precision: str, k: int) -> float:
+    """The score error of the f32 arithmetic every tier shares, relative to
+    the set's largest |score|: u·(3 + 2·√N) for N roundings in f32 sums
+    (the T·k16 products of the term list and the k of ‖r‖²; "highest" sums
+    k products), a random walk of round-to-nearest errors at two standard
+    deviations of its largest excursion."""
+    k16 = round_up(k, 16)
+    summed = k if precision == "highest" else len(term_list(precision, k)) * k16
+    return F32_UNIT * (3.0 + 2.0 * math.sqrt(summed + k))
+
+
+def tier_error_bound(precision: str, k: int) -> float:
+    """The tier's nominal score error, relative to the largest |score| of
+    the candidates it is measured over (score_errors) — the scale that
+    `_refine_guarded`'s certificate reads (max |score| against
+    select_cutoff, whose admitted error is cutoff·_TIER_EPS): the tier's
+    `_TIER_EPS` (its split's representation error) plus f32_allowance.
+    Without the latter no f32 result could meet packed3's 2^-26, below
+    f32's own unit roundoff."""
+    return _TIER_EPS.get(resolved_tier(precision, k), 2.0 ** -8) + f32_allowance(precision, k)
+
+
+def tier_error_gate(precision: str, k: int, reference_err: float) -> float:
+    """The error a kernel (or a port's plain version) may show for a tier:
+    tier_error_bound, or where the tier's own arithmetic exceeds it on the
+    data — the bf16x3 ladder at small k, whose dropped terms (q's and r's
+    truncation, lo·lo, each up to 2^-16 of a term) do not average out over
+    few coordinates — the reference arithmetic's error on the same data
+    (``reference_err``: tpu_knn's `_score_tile`, or the plain version on
+    the card) plus f32_allowance."""
+    return max(tier_error_bound(precision, k), reference_err + f32_allowance(precision, k))
+
+
+def score_errors(q: torch.Tensor, ref: torch.Tensor, idx: torch.Tensor,
+                 score: torch.Tensor, chunk_elems: int = 1 << 25):
+    """The score error of an (idx, score) candidate set over every
+    reported candidate (idx < n), against s₆₄ = ‖r‖² − 2·q·r recomputed in
+    f64 from the f32 queries and points (ref (n, k), the stored points
+    upcast): (max |s − s₆₄| / max |s₆₄|, the gated measure of
+    tier_error_bound; max |s − s₆₄| / M per candidate, M = ‖r‖² +
+    2·Σ_d |q_d r_d| the magnitude of the score's terms; and max |s − s₆₄|
+    itself)."""
+    n = ref.shape[0]
+    err_max, scale, worst_m = 0.0, 0.0, 0.0
+    rows_per_chunk = max(1, chunk_elems // (idx.shape[1] * ref.shape[1]))
+    for r0 in range(0, q.shape[0], rows_per_chunk):
+        ii = idx[r0:r0 + rows_per_chunk].long()
+        valid = ii < n
+        if not bool(valid.any()):
+            continue
+        pts = ref[ii.clamp(max=n - 1)].double()                  # (rows, C, k)
+        qd = q[r0:r0 + rows_per_chunk].double()[:, None, :]
+        rr = (pts * pts).sum(dim=-1)
+        prod = pts * qd
+        s64 = rr - 2.0 * prod.sum(dim=-1)
+        mag = rr + 2.0 * prod.abs().sum(dim=-1)
+        err = torch.where(valid, (score[r0:r0 + rows_per_chunk].double() - s64).abs(), 0.0)
+        err_max = max(err_max, float(err.max()))
+        scale = max(scale, float(torch.where(valid, s64.abs(), 0.0).max()))
+        worst_m = max(worst_m, float(torch.where(valid & (mag > 0), err / mag, 0.0).max()))
+    return (err_max / scale if scale > 0 else 0.0), worst_m, err_max
+
+
+def selection_slack(q: torch.Tensor, ref: torch.Tensor, idx: torch.Tensor, err_abs: float,
+                    chunk_elems: int = 1 << 25) -> int:
+    """The largest number, over the rows, of candidate lanes whose exact
+    score (f64, as score_errors) lies within 2·err_abs of the row's exact
+    minimum over the set. With scores off by at most err_abs, a lane can
+    be ranked above a lane at the exact minimum only if it lies within
+    that distance, so `_refine_guarded`'s top-T selection keeps every lane
+    at the exact minimum wherever this count is at most T: the certified
+    fast path is then exact on this candidate set at the measured error."""
+    n = ref.shape[0]
+    worst = 0
+    rows_per_chunk = max(1, chunk_elems // (idx.shape[1] * ref.shape[1]))
+    for r0 in range(0, q.shape[0], rows_per_chunk):
+        ii = idx[r0:r0 + rows_per_chunk].long()
+        valid = ii < n
+        pts = ref[ii.clamp(max=n - 1)].double()
+        qd = q[r0:r0 + rows_per_chunk].double()[:, None, :]
+        s64 = torch.where(valid, (pts * pts).sum(dim=-1) - 2.0 * (pts * qd).sum(dim=-1),
+                          torch.inf)
+        near = s64 <= s64.min(dim=-1, keepdim=True).values + 2.0 * err_abs
+        worst = max(worst, int(near.sum(dim=-1).max()))
+    return worst

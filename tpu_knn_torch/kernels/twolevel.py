@@ -1,6 +1,7 @@
 """v7 — two-level partial argmin over n-partitions (counterpart of tpu_knn/kernels/twolevel.py).
 
-B1 folds each of P n-partitions into its own 128 lanes (one launch: the
+The candidate kernel of the score tier (B1 or its tensor-core tiers)
+folds each of P n-partitions into its own 128 lanes (one launch: the
 partitions are the kernel's grid axis, and the kernel masks columns >= n,
 so no partition is padded), each partition's winners carry their global
 column (the per-partition index rebase of tpu_knn's twolevel.py:62-63,
@@ -14,9 +15,9 @@ from __future__ import annotations
 
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.fused import (
-    DEFAULT_PRECISION, _refine, _to_host, default_parts, fused_candidates,
-    prep_soa, select_cutoff,
+    _refine, _to_host, auto_precision, prep_soa, select_cutoff,
 )
+from tpu_knn_torch.kernels.tiers import refine_candidates, tier_parts
 from tpu_knn_torch.kernels.tuning import LANE
 from tpu_knn_torch.utils.platform import as_f32_pair
 from tpu_knn_torch.utils.shapes import cdiv, round_up
@@ -27,19 +28,21 @@ DEFAULT_PARTITIONS = 8
 def twolevel_knn(search, ref, parts: int | None = None, device="cuda"):
     """Returns (indices (m,) int32, exact d2 (m,) f32) on the inputs' device.
 
-    ``parts=None`` sizes the partition count by occupancy, as the
-    reference v7 does (core.cu:736-740): on Hopper the partitions are B1's
+    The score tier is tpu_knn's, auto_precision of the global (k, n)
+    (twolevel.py:46-53), with its certified cutoff. ``parts=None`` sizes
+    the partition count by occupancy, as the reference v7 does
+    (core.cu:736-740): on Hopper the partitions are the candidate kernel's
     parallel grid axis, so the count grows from tpu_knn's 8 until the
     launch fills the card (at m = 1 eight partitions are eight blocks)."""
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
+    precision = auto_precision(k, n)
     if parts is None:
-        parts = max(DEFAULT_PARTITIONS, default_parts(m, k, n))
+        parts = max(DEFAULT_PARTITIONS, tier_parts(precision, m, k, n))
     parts = max(1, min(parts, cdiv(n, LANE)))
-    cand = fused_candidates(search, prep_soa(ref, round_up(n, LANE)), n, parts)
-    return _refine(search, ref, cand, n,
-                   cutoff=select_cutoff(DEFAULT_PRECISION, k))
+    cand = refine_candidates(search, (prep_soa(ref, round_up(n, LANE)),), n, parts, precision)
+    return _refine(search, ref, cand, n, cutoff=select_cutoff(precision, k))
 
 
 def v7_callback(k, m, n, search, ref):
