@@ -12,8 +12,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
    shapes the main path gives it, with planted exact duplicates at a
-   partition boundary and a lane boundary; B4 also bit-equal to B1 with a
-   bound that masks exactly, B5 also equal to the passes engine; then
+   partition boundary and a lane boundary; B1 and B4 (the tiled f32
+   kernel) also at its tile edges (m past a block's rows, n ragged against
+   a column tile and 128, k ragged against a d-chunk, k = 1, 768 and 7000,
+   ld not a multiple of 4) with a tie planted inside one lane, within a
+   column tile and across tiles (their errors logged apart from the B1
+   and B4 rows'); B1 also at (768, 1024, 2^20), the "B1 k=768" row's
+   shape; B4 also bit-equal to B1 with a
+   bound that masks exactly, and at every launch of the passes engine at
+   ds11 K = 8 and (16, 64, 2^20) K = 64; B5 also equal to the passes engine; then
    the seeded engine's kernels: B3 (value-only lane minima; bit-equal to
    B1's), B7 (per-cell moments; packed words identical to the plain
    version's, with bounds set between scores) and the B8/B9 compactor
@@ -71,8 +78,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      shapes k = 128 and 768 (m = 1024, n = 2^20), whose tier must be
      tpu_knn's (bf16x3, qsplit2, qsplit2), gated over the stored points
      (grid space for int8), each index freed before the next;
+   - "highest" 1-NN at (768, 1024, 2^20): fused_knn(precision="highest")
+     and NNIndex(precision="highest"), gated; its B1 launches are the
+     "B1 k=768" row's;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
-   cuBLAS product of the score matrices and the main paths (among them
+   cuBLAS product of the score matrices and the main paths (B1 "highest"
+   also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1
+   and B4 also by their kernel's own device time from torch.profiler; among them
    the ladder's per-call rows and prepared auto against prepared fused,
    with device time and idle per host read from torch.profiler; each tier
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
@@ -151,13 +163,47 @@ def plant_duplicates(q, r_op, n: int, parts: int):
     return r_op
 
 
+def plant_lane_ties(q, r_op, n: int, parts: int):
+    """Copy query min(2, m-1) into three columns of lane 37 of partition 0:
+    groups 1 and 2 (one column tile of the tiled f32 kernel) and group 9
+    (the next tile, a later ring step), where the partition has them, so
+    that the lane must keep its earliest column through equal scores."""
+    from tpu_knn_torch.utils.shapes import cdiv
+
+    k, row = q.shape[1], min(2, q.shape[0] - 1)
+    end = min(n, cdiv(cdiv(n, 128), parts) * 128)
+    for g in (1, 2, 9):
+        if g * 128 + 37 < end:
+            r_op[:k, g * 128 + 37] = q[row]
+    return r_op
+
+
+def case_operand(gen, device, k, n, ld=None):
+    """Points (n, k) as the SoA operand (round_up(k, 8), ld), ld defaulting
+    to round_up(n, 128); an ld that is not a multiple of 4 sends the tiled
+    f32 kernel down its 4-byte copy path."""
+    from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.utils.shapes import round_up
+
+    return prep_soa(uniform(gen, (n, k), device), ld or round_up(n, 128))
+
+
+def score_rtol(k: int) -> float:
+    """Scores of two f32 summation orders of k terms (kernel and cuBLAS)
+    differ by up to about 4 k 2^-24 of the largest |score|: SCORE_RTOL
+    covers k <= 40, the tile-edge cases at k = 768 and 7000 take the
+    k-scaled rule (tests/test_torch_kernels.py's)."""
+    return max(SCORE_RTOL, 4 * k * 2.0 ** -24)
+
+
 # ---- phase 1: kernel vs plain ------------------------------------------
 
 
-def compare_candidates(name, kern, plain, q, r_op, n, parts, cutoff):
+def compare_candidates(name, kern, plain, q, r_op, n, parts, cutoff, rtol=SCORE_RTOL):
     """Run kernel and plain version on the same inputs; check the phase-1
-    tolerances and that the refined 1-NN answers are identical. Returns
-    the largest |score difference| on agreeing slots."""
+    tolerances (scores within rtol of the largest |score|) and that the
+    refined 1-NN answers are identical. Returns the largest |score
+    difference| on agreeing slots."""
     import torch
 
     from tpu_knn_torch.kernels.fused import _refine
@@ -180,8 +226,8 @@ def compare_candidates(name, kern, plain, q, r_op, n, parts, cutoff):
         f"refined 1-NN identical: {same}")
     if share < MIN_INDEX_AGREEMENT:
         fail(f"{name}: candidate indices agree on {share:.6f} < {MIN_INDEX_AGREEMENT}")
-    if err > SCORE_RTOL * max(scale, 1e-30):
-        fail(f"{name}: score difference {err} > {SCORE_RTOL} x {scale}")
+    if err > rtol * max(scale, 1e-30):
+        fail(f"{name}: score difference {err} > {rtol} x {scale}")
     if not same:
         fail(f"{name}: refined 1-NN indices differ")
     if q.is_cuda:
@@ -189,10 +235,10 @@ def compare_candidates(name, kern, plain, q, r_op, n, parts, cutoff):
     return err
 
 
-def slot_agreement(name, ki, ks, pi, ps):
+def slot_agreement(name, ki, ks, pi, ps, rtol=SCORE_RTOL):
     """Share of candidate slots whose indices agree, and the largest score
     difference on those slots; fails below MIN_INDEX_AGREEMENT or above
-    SCORE_RTOL of the largest |score|."""
+    rtol of the largest |score|."""
     import torch
 
     agree = ki == pi
@@ -202,8 +248,8 @@ def slot_agreement(name, ki, ks, pi, ps):
     err = (ks - ps)[finite].abs().max().item() if finite.any() else 0.0
     if share < MIN_INDEX_AGREEMENT:
         fail(f"{name}: candidate indices agree on {share:.6f} < {MIN_INDEX_AGREEMENT}")
-    if err > SCORE_RTOL * max(scale, 1e-30):
-        fail(f"{name}: score difference {err} > {SCORE_RTOL} x {scale}")
+    if err > rtol * max(scale, 1e-30):
+        fail(f"{name}: score difference {err} > {rtol} x {scale}")
     return share, err, scale
 
 
@@ -234,11 +280,12 @@ def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
     from tpu_knn_torch.utils.shapes import round_up
 
     errs = {"B4": 0.0, "B5": 0.0, "B6": 0.0}
-    for k, m, n, parts in b4_cases:
+    for k, m, n, parts, *ld in b4_cases:
         q = uniform(gen, (m, k), device)
-        r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
-        parts = parts or fused.default_parts(m, k, n)
+        r_op = case_operand(gen, device, k, n, *ld)
+        parts = parts or fused.tiled_parts(m, k, n)
         plant_duplicates(q, r_op, n, parts)
+        plant_lane_ties(q, r_op, n, parts)
         lo_s = torch.full((m,), -torch.inf, device=device)
         lo_i = torch.full((m,), -1, dtype=torch.int32, device=device)
         bi, bs = fused.banded_candidates(q, r_op, n, parts, lo_s, lo_i)
@@ -253,9 +300,10 @@ def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
         p1_i, p1_s = topk._lex_min(*fused.banded_candidates_plain(q, r_op, n, parts,
                                                                   lo_s, lo_i))
         pi, ps = fused.banded_candidates_plain(q, r_op, n, parts, p1_s, p1_i)
-        share, err, scale = slot_agreement("B4", ki, ks, pi, ps)
+        share, err, scale = slot_agreement("B4", ki, ks, pi, ps, score_rtol(k))
         errs["B4"] = max(errs["B4"], err)
-        log(f"  B4: m={m} k={k} n={n} P={parts}: bit-equal to B1, bound masks exactly; "
+        log(f"  B4: m={m} k={k} n={n} ld={r_op.shape[1]} P={parts}: bit-equal to B1, "
+            f"bound masks exactly; "
             f"pass-2 index agreement {share:.6f}, max |score diff| {err:.3g} "
             f"(max |score| {scale:.3g})")
     for k, m, n, kk, parts in b5_cases:
@@ -308,20 +356,70 @@ def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
     return errs
 
 
+def phase1_passes_launches(device, gen, shapes):
+    """B4 at every launch of the passes engine at each (k, m, n, K) of
+    `shapes`, on data of its own: topk.banded_candidates is wrapped for the
+    call, and each launch's candidates are held against the plain version's
+    same pass, seeded as the kernel's is with its own previous pass (the
+    two score the bound's own element in different last bits, so the plain
+    version on the kernel's bound could readmit it). Returns the largest
+    |score difference| on agreeing slots."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, topk
+
+    real = topk.banded_candidates
+
+    def checked(q, r_op, n, parts, b_s, b_i, q_t=None):
+        ki, ks = real(q, r_op, n, parts, b_s, b_i, q_t)
+        if checked.bound is None:
+            checked.bound = (torch.full_like(b_s, -torch.inf), torch.full_like(b_i, -1))
+        pi, ps = fused.banded_candidates_plain(q, r_op, n, parts, *checked.bound)
+        checked.bound = topk._lex_min(pi, ps)[::-1]
+        share, e, _ = slot_agreement("B4 (passes launch)", ki, ks, pi, ps)
+        checked.worst = min(checked.worst, share)
+        checked.err = max(checked.err, e)
+        checked.calls += 1
+        return ki, ks
+
+    err = 0.0
+    for k, m, n, kk in shapes:
+        q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+        checked.worst, checked.err, checked.calls, checked.bound = 1.0, 0.0, 0, None
+        topk.banded_candidates = checked
+        try:
+            got = topk.topk_knn(q, r, kk, method="passes")
+        finally:
+            topk.banded_candidates = real
+        if checked.calls != kk:
+            fail(f"B4: the passes engine at (k={k}, m={m}, n={n}) K={kk} made "
+                 f"{checked.calls} launches, not {kk}")
+        errors = topk_gate_errors(q, r, got[0], kk)
+        if errors:
+            fail(f"B4: the passes engine at (k={k}, m={m}, n={n}) K={kk}: {errors} errors")
+        err = max(err, checked.err)
+        log(f"  B4 at the passes engine's {kk} launches (k={k}, m={m}, n={n}): least slot "
+            f"agreement with the plain passes {checked.worst:.6f}, max |score diff| "
+            f"{checked.err:.3g}; the answer has 0 errors")
+        del q, r
+    return err
+
+
 def phase1(device, gen, b1_cases, b2_cases):
     from tpu_knn_torch.kernels import fused, smallm
     from tpu_knn_torch.kernels.fused import prep_soa, select_cutoff
     from tpu_knn_torch.utils.shapes import round_up
 
     errs = {"B1": 0.0, "B2": 0.0}
-    for k, m, n, parts in b1_cases:
+    for k, m, n, parts, *ld in b1_cases:
         q = uniform(gen, (m, k), device)
-        r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
-        parts = parts or fused.default_parts(m, k, n)
+        r_op = case_operand(gen, device, k, n, *ld)
+        parts = parts or fused.tiled_parts(m, k, n)
         plant_duplicates(q, r_op, n, parts)
+        plant_lane_ties(q, r_op, n, parts)
         errs["B1"] = max(errs["B1"], compare_candidates(
-            "B1", fused.fused_candidates, fused.fused_candidates_plain,
-            q, r_op, n, parts, select_cutoff("highest", k)))
+            f"B1 (ld={r_op.shape[1]})", fused.fused_candidates, fused.fused_candidates_plain,
+            q, r_op, n, parts, select_cutoff("highest", k), score_rtol(k)))
     for k, m, n, parts in b2_cases:
         q = uniform(gen, (m, k), device)
         r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
@@ -1306,7 +1404,7 @@ def phase1_tiers(device, gen, cases):
         gate = tiers.tier_error_gate(precision, k, plain_err)
         eps = fused._TIER_EPS.get(tiers.resolved_tier(precision, k), 2.0 ** -8)
         hi_i, hi_s = fused.fused_candidates(q, prep_soa(pts, ops[0].shape[1]), n,
-                                            fused.default_parts(m, k, n))
+                                            fused.tiled_parts(m, k, n))
         hi_err = tiers.score_errors(q, pts, hi_i, hi_s)[0]
         del hi_i, hi_s
         cutoff = select_cutoff(precision, k)
@@ -1484,6 +1582,28 @@ def phase2_stores(device, gen, batch, embed_ks):
         fail(f"the store path held {peak - held} bytes at its peak, above {STORE_PEAK_LIMIT}")
 
 
+def phase2_highest(device, gen):
+    """"highest" 1-NN at embedding width (EMBED768, B1 in its many-chunk
+    regime): fused_knn(precision="highest") per call and
+    NNIndex(precision="highest") prepared, each gated against the exact
+    scan. Returns the data for phase 3's times."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.fused import fused_knn
+
+    k, m, n = EMBED768
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    want = gate_stored(f"embed ({k}, {m}, 2^20) per-call fused_knn precision='highest'", q, r,
+                       fused_knn(q, r, precision="highest")[0])
+    ix = tpu_knn_torch.NNIndex(r, precision="highest")
+    gate_stored(f"embed ({k}, {m}, 2^20) NNIndex(precision='highest').query", q, r,
+                ix.query(q)[0], want)
+    del ix, want
+    torch.cuda.empty_cache()
+    return q, r
+
+
 #: The store path frees each index before the next: at k = 768 the f32
 #: index holds 3 GiB in each of two layouts, and the peak stays under this.
 STORE_PEAK_LIMIT = 20e9
@@ -1522,7 +1642,7 @@ def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
         q, pts, ops = tier_operands(gen, device, kind, k, m, n)
         parts = tiers.tier_parts(precision, m, k, n)
         r_f32 = prep_soa(pts, ops[0].shape[1])
-        p1 = fused.default_parts(m, k, n)
+        p1 = fused.tiled_parts(m, k, n)
         q_bf, r_bf = q.to(torch.bfloat16), pts.T.contiguous().to(torch.bfloat16)
         plain_reps = 3 if k >= 128 else reps
         times.update(time_ms({
@@ -1609,7 +1729,7 @@ def phase3(card: str, big11, big9, reps: int):
     q9, r9, index9 = big9
     k, m, n = q.shape[1], q.shape[0], r.shape[0]
     r_op, (r_op9,) = index11.r_ops[0], index9.r_ops
-    p1 = fused.default_parts(m, k, n)
+    p1 = fused.tiled_parts(m, k, n)
     p2 = smallm.default_parts(r9.shape[0])
     times = {}
     times.update(time_ms({
@@ -1632,6 +1752,54 @@ def phase3(card: str, big11, big9, reps: int):
     }, reps))
     for name, ms in times.items():
         log(f"  time {name}: median {ms:.4f} ms over {reps} runs [{card}]")
+    times["B1 kernel ds11 device"] = kernel_device_ms(
+        lambda: fused.fused_candidates(q, r_op, n, p1), reps, card)
+    return times
+
+
+def kernel_device_ms(fn, reps: int, card: str) -> float:
+    """The tiled f32 kernel's own device time per call of fn (B1 or B4),
+    from torch.profiler and logged: the CUDA-event time around the wrapper
+    also holds its host launch path, during which the card waits."""
+    from tpu_knn_torch.utils.timing import device_ms
+
+    got = device_ms({"fn": fn}, "tiled_candidates", reps)
+    if len(got) != 1:
+        fail(f"expected one tiled kernel in the profile, got {sorted(got)}")
+    (name, ms), = got.items()
+    log(f"  device time of {name[:70]}: mean {ms:.4f} ms over {reps} calls [{card}]")
+    return ms
+
+
+#: "highest" 1-NN at embedding width: B1 at k = 768 (the tiled f32
+#: kernel's many-chunk regime).
+EMBED768 = (768, 1024, 1 << 20)
+
+
+def phase3_highest(card: str, q, r, reps: int):
+    """B1 at EMBED768 (its plain version, cuBLAS's f32 product of the same
+    scores, and fused_knn(precision="highest") end to end), on phase 2's
+    data there."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused
+    from tpu_knn_torch.kernels.fused import fused_knn, prep_soa
+    from tpu_knn_torch.utils.timing import time_ms
+
+    k, m, n = EMBED768
+    r_op, parts = prep_soa(r, n), fused.tiled_parts(m, k, n)
+    times = time_ms({
+        "B1 kernel (768, 1024, 2^20)": lambda: fused.fused_candidates(q, r_op, n, parts),
+        "B1 plain (768, 1024, 2^20)": lambda: fused.fused_candidates_plain(q, r_op, n, parts),
+        "matmul (768, 1024, 2^20)": lambda: torch.matmul(q, r_op[:k]),
+        "fused_knn highest (768, 1024, 2^20)": lambda: fused_knn(q, r, precision="highest"),
+    }, reps, warmup=1)
+    for name, ms in times.items():
+        log(f"  time {name}: median {ms:.4f} ms over {reps} runs [{card}] (P = {parts})")
+    times["B1 kernel (768, 1024, 2^20) device"] = kernel_device_ms(
+        lambda: fused.fused_candidates(q, r_op, n, parts), reps, card)
+    del q, r, r_op
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1651,7 +1819,7 @@ def phase3_topk(card: str, ctx, calls, reps: int):
     r_op20 = prep_soa(r20, n20)
     r_op24 = ctx["index24"].r_ops[0]
     n24 = ctx["index24"].n
-    p4 = fused.default_parts(q1024.shape[0], 16, n20)
+    p4 = fused.tiled_parts(q1024.shape[0], 16, n20)
     i1, s1 = topk._lex_min(*fused.fused_candidates(q1024, r_op20, n20, p4))
     p5 = topk.sweep_parts(q8.shape[0], 32, n20)
     p6 = topk.smallm_topk_parts(q4.shape[0], 16, n24)
@@ -1678,6 +1846,8 @@ def phase3_topk(card: str, ctx, calls, reps: int):
     times.update(time_ms({name: fn for name, (_, _, _, fn) in calls.items()}, reps))
     for name, ms in times.items():
         log(f"  time {name}: median {ms:.4f} ms over {reps} runs [{card}]")
+    times["B4 kernel ds11 device"] = kernel_device_ms(
+        lambda: fused.banded_candidates(q1024, r_op20, n20, p4, s1, i1), reps, card)
     m4, m5, m6 = q1024.shape[0], q8.shape[0], q4.shape[0]
     shapes = {"B4": (m4, 16, n20, 128, 8 * m4),
               "B5": (m5, 16, n20, 32 * 128, 0),
@@ -1977,7 +2147,7 @@ def main() -> int:
     # index (default partitions), and ds9 per call through v7 (m = 1).
     k9, m9, n9 = DS9
     b1_cases += [(*DS11, None),
-                 (*DS9, max(DEFAULT_PARTITIONS, fused.default_parts(m9, k9, n9)))]
+                 (*DS9, max(DEFAULT_PARTITIONS, fused.tiled_parts(m9, k9, n9)))]
     b2_cases = [(k, m, 1000, parts) for k in (8, 16, 32) for m in (1, 3, 4)
                 for parts in (1, None)]
     b2_cases += [(16, 1, 1 << 24, None), (8, 3, 1 << 24, None), (32, 4, 1 << 24, None)]
@@ -2002,6 +2172,31 @@ def main() -> int:
                  (16, 2, 5000, 8, 1)]
     errs.update(phase1_topk(device, gen, b4_cases, b5_cases, b6_cases))
     stamp("phase 1 B4/B5/B6")
+    # B1 and B4 (the tiled f32 kernel) at its edges (k, m, n, P, ld): m past
+    # a whole block of 8 * TM rows, n ragged against a column tile and 128,
+    # k ragged against the 16-row chunk, k = 1, 768 and 7000, ld not a
+    # multiple of 4 (the 4-byte copy path), with plant_lane_ties' tie inside
+    # one lane within a column tile and across tiles (every B1/B4 case of
+    # phase 1 has it); then B4 at each launch of phase 2's passes calls (ds11
+    # K = 8, m = 64 K = 64). They draw from a generator of their own, so
+    # phase 2's data do not depend on them.
+    tile_edges = [(1, 65, 3149, None, 3200), (17, 9, 1000, None, 1001),
+                  (40, 33, 9077, 1, None), (16, 2, 2049, None, 2051),
+                  (768, 100, 5077, None, None), (768, 200, 20_077, 3, 20_077),
+                  (7000, 3, 300, None, None), (16, 1000, (1 << 20) + 77, None, None)]
+    # Their errors stay apart from the B1 and B4 rows (at k = 7000 |score|
+    # reaches ~1e3, so its absolute differences say nothing of ds11's). B1
+    # at EMBED768 (phase 2's "highest" shape there) is the "B1 k=768" row's.
+    gen_edges = torch.Generator(device=device)
+    gen_edges.manual_seed(1002)
+    edge_errs = {"B1": phase1(device, gen_edges, tile_edges, [])["B1"],
+                 "B4": phase1_topk(device, gen_edges, tile_edges, [], [])["B4"]}
+    log(f"  tile edges: max |score diff| B1 {edge_errs['B1']:.3g}, B4 {edge_errs['B4']:.3g}")
+    errs["B4"] = max(errs["B4"], phase1_passes_launches(
+        device, gen_edges, [(*DS11, 8), (16, 64, 1 << 20, 64)]))
+    errs["B1 k=768"] = phase1(device, gen_edges, [(*EMBED768, None)], [])["B1"]
+    torch.cuda.empty_cache()
+    stamp("phase 1 tiled f32 kernel edges, passes launches and k = 768")
     # The seeded engine's kernels: B3 at depth 1 and 2, banded, with a
     # prefix and at ragged n, and at the ds11 launches (K=8: half prefix;
     # K=16: 3/4 prefix; K=64: full; K=128: depth 2); B7 in the quadratic and
@@ -2172,14 +2367,23 @@ def main() -> int:
                                        "B2-bf16"),
                              lambda: phase2_stores(device, gen, DS11, (128, 768)))
     torch.cuda.empty_cache()
+    log("phase 2: \"highest\" 1-NN at embedding width (768, 1024, 2^20)")
+    gen_768 = torch.Generator(device=device)
+    gen_768.manual_seed(1003)
+    embed768, counts_768 = drive("highest k=768", ("B1",),
+                                 lambda: phase2_highest(device, gen_768))
+    # The "B1 k=768" row counts that path's launches, the B1 row the others'.
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
                                              counts_ladder, counts_auto, counts_tiers,
                                              counts_stores))
                 for kname in counters}
+    launches["B1 k=768"] = counts_768["B1"]
 
     # Phase 3
     log("phase 3: times")
     times = phase3(card, big11, big9, reps=10)
+    times.update(phase3_highest(card, *embed768, reps=3))
+    del embed768
     stamp("phase 3 1-NN")
     topk_times, topk_shapes = phase3_topk(card, ctx, calls, reps=10)
     times.update(topk_times)
@@ -2204,6 +2408,7 @@ def main() -> int:
     # diff-form subtract and FMA.
     bounds = {
         "B1": bound(m11, k11, n11, 128, 0, 2),
+        "B1 k=768": bound(EMBED768[1], EMBED768[0], EMBED768[2], 128, 0, 2),
         "B2": bound(m9, k9, n9, 128, 0, 3),
         "B4": bound(*topk_shapes["B4"], 2),
         "B5": bound(*topk_shapes["B5"], 2),
@@ -2224,6 +2429,10 @@ def main() -> int:
     rows = [
         ("B1", "fused_candidates", "tpu_knn/kernels/fused.py:318", "B1 kernel ds11",
          "B1 plain ds11", "matmul ds11"),
+        # The same kernel at k = 768: its own row, as its regime differs.
+        ("B1 k=768", "fused_candidates (768, 1024, 2^20)", "tpu_knn/kernels/fused.py:318",
+         "B1 kernel (768, 1024, 2^20)", "B1 plain (768, 1024, 2^20)",
+         "matmul (768, 1024, 2^20)"),
         ("B2", "smallm_candidates", "tpu_knn/kernels/smallm.py:82", "B2 kernel ds9",
          "B2 plain ds9", None),
         ("B4", "banded_candidates", "tpu_knn/kernels/fused.py:506", "B4 kernel ds11",
@@ -2266,7 +2475,7 @@ def main() -> int:
              for row in ("B1 packed3", "B1 packed2", "B1 bf16x3", "B1 bf16x4", "B1 qsplit2",
                          "B1 default", "B12")]
     # Each kernel's source file under tpu_knn_torch/csrc/.
-    family = {"B1": "fused", "B4": "fused", "B10": "fused", "B1 AoS (v3)": "fused",
+    family = {"B1": "fused", "B1 k=768": "fused", "B4": "fused", "B10": "fused", "B1 AoS (v3)": "fused",
               "B1 constant-query (v6)": "fused", "B2": "smallm", "B6": "smallm",
               "B5": "sweep", "B3": "seeded", "B7": "seeded", "B8": "seeded", "B9": "seeded",
               "B11": "window", "B2-bf16": "smallm"}
@@ -2285,7 +2494,10 @@ def main() -> int:
          "matmul_part_ms": times[t_matmul] if t_matmul else None,
          **({"tier_rel_err": tier_rel[kid], "tier_err_over_gate": tier_gate_share[kid],
              "tier_eps": fused._TIER_EPS["bf16x3_presplit" if kid == "B12" else kid[3:]],
-             "highest_ms": times[f"{kid} B1 highest"]} if kid in tier_rel else {})}
+             "highest_ms": times[f"{kid} B1 highest"]} if kid in tier_rel else {}),
+         **({"tile_edges_max_abs_err": edge_errs[kid]} if kid in edge_errs else {}),
+         **({"device_ms": times[f"{t_kernel} device"]} if f"{t_kernel} device" in times
+            else {})}
         for kid, fname, replaces, t_kernel, t_plain, t_matmul in rows]
     log(f"version {tpu_knn_torch.__version__}; {card}; "
         f"total {time.perf_counter() - t_start:.1f} s")

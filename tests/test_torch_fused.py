@@ -45,6 +45,41 @@ def test_b1_plain_matches_pallas_highest(m, n, k, tile_m, tile_n):
                                atol=1e-5 * np.abs(js).max())
 
 
+def _plant_lane_ties(q, r, row=2, lane=37, groups=(1, 2, 9)):
+    """Query `row` copied into one lane's columns: groups 1 and 2 share a
+    column tile of the card's tiled kernel, group 9 lies in the next."""
+    for g in groups:
+        if g * 128 + lane < r.shape[0]:
+            r[g * 128 + lane] = q[row]
+    return r
+
+
+@pytest.mark.parametrize("m,n,k,tile_m,tile_n,ties", [
+    (65, 3149, 17, 8, 1024, False),   # m past a 64-row block, k past a 16-row chunk
+    (9, 2049, 1, 8, 256, True),       # k = 1, m past an 8-row block, n = 16 groups + 1
+    (33, 1300, 40, 16, 512, True),    # m past a 32-row block, ragged n
+    (3, 1200, 768, 8, 256, True),     # the many-chunk k
+])
+def test_b1_plain_matches_pallas_at_tile_edges(m, n, k, tile_m, tile_n, ties):
+    """The tiled f32 kernel's edges (rows, chunks, column tiles) and a tie
+    inside one lane, within and across column tiles: the plain version's
+    candidates are tpu_knn's at P = 1, the earliest column winning."""
+    rng = np.random.default_rng(m + n + k)
+    q = rng.random((m, k), np.float32)
+    r = rng.random((n, k), np.float32)
+    if ties:
+        _plant_lane_ties(q, r)
+    cand = jx_fused._build_fused_candidates(m, n, k, tile_m, tile_n, soa=True,
+                                            precision="highest")
+    ji, js = (np.asarray(a) for a in cand(q, r))
+    pi, ps = fused_candidates(_t(q), _operand(r), n, 1)
+    np.testing.assert_array_equal(pi.numpy(), ji)
+    np.testing.assert_allclose(ps.numpy(), js, rtol=1e-5,
+                               atol=max(1e-5, 4 * k * 2.0 ** -24) * np.abs(js).max())
+    if ties:
+        assert int(pi[2, 37]) == 128 + 37
+
+
 @pytest.mark.parametrize("m,n,k", [
     (20, 5000, 5),      # B1 + certified top-T refine
     (64, 10_000, 16),

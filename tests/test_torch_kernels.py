@@ -53,13 +53,74 @@ def _check(kernel, plain, q, r, r_op, n, parts, cutoff):
 
 @pytest.mark.parametrize("k,m,n,parts", [
     (3, 40, 1000, 1), (16, 100, 70_000, 7), (5, 1, 3000, 3), (40, 9, 5000, 4),
-    (768, 40, 5000, 5),   # 32-row tile above 48 KB of shared memory
-    (7000, 3, 300, 2),    # 1-row tile (tuning.cuda_tile_m)
+    (768, 40, 5000, 5),   # 48 d-chunks per column tile
+    (7000, 3, 300, 2),    # 438 d-chunks, the last one ragged
 ])
 def test_b1_matches_plain(device, k, m, n, parts):
     q, r, r_op = _inputs(device, m, k, n, seed=k + m)
     _check(fused.fused_candidates, fused.fused_candidates_plain, q, r, r_op,
            n, parts, select_cutoff("highest", k))
+
+
+# The tiled f32 kernel's edges (k, m, n, P, ld): m past a whole block of
+# 8 * TM rows, n ragged against a column tile and 128, k ragged against the
+# 16-row chunk, k = 1, 768 and 7000, and ld not a multiple of 4 (its
+# 4-byte copy path).
+TILE_EDGES = [
+    (1, 65, 3149, 2, 3200), (17, 9, 1000, 1, 1001), (40, 33, 9077, 3, None),
+    (16, 2, 2049, 5, 2051), (768, 70, 5077, 4, None), (7000, 3, 300, 1, None),
+]
+
+
+def _edge_inputs(device, m, k, n, ld, seed):
+    """_inputs over an operand of ld columns, with query min(2, m-1) copied
+    into lane 37's columns of groups 1, 2 (one column tile) and 9 (the
+    next)."""
+    q, r, _ = _inputs(device, m, k, n, seed)
+    for g in (1, 2, 9):
+        if g * 128 + 37 < n:
+            r[g * 128 + 37] = q[min(2, m - 1)]
+    return q, r, prep_soa(r, ld or -(-n // 128) * 128)
+
+
+def _lane37_columns(n, parts):
+    """The tie's columns that lie in partition 0 (lane 37 folds them)."""
+    end = min(n, -(-(-(-n // 128)) // parts) * 128)
+    return [c for c in (128 + 37, 256 + 37, 9 * 128 + 37) if c < end]
+
+
+@pytest.mark.parametrize("k,m,n,parts,ld", TILE_EDGES)
+def test_b1_matches_plain_at_tile_edges(device, k, m, n, parts, ld):
+    q, r, r_op = _edge_inputs(device, m, k, n, ld, seed=k + m)
+    _check(fused.fused_candidates, fused.fused_candidates_plain, q, r, r_op,
+           n, parts, select_cutoff("highest", k))
+    ties = _lane37_columns(n, parts)
+    if ties:   # the lane keeps its earliest column through equal scores
+        ki, _ = fused.fused_candidates(q, r_op, n, parts)
+        assert int(ki[min(2, m - 1), 37]) == ties[0]
+
+
+@pytest.mark.parametrize("k,m,n,parts,ld", TILE_EDGES)
+def test_b4_is_b1_and_masks_exactly_at_tile_edges(device, k, m, n, parts, ld):
+    q, r, r_op = _edge_inputs(device, m, k, n, ld, seed=k + 3 * m)
+    lo_s = torch.full((m,), -torch.inf, device=device)
+    lo_i = torch.full((m,), -1, dtype=torch.int32, device=device)
+    bi, bs = fused.banded_candidates(q, r_op, n, parts, lo_s, lo_i)
+    fi, fs = fused.fused_candidates(q, r_op, n, parts)
+    assert torch.equal(bi, fi) and torch.equal(bs, fs)
+    # Bound at each row's lane-37 candidate: every slot reports what lies
+    # lexicographically above it, and the tie's next column takes lane 37.
+    b_s, b_i = fs[:, 37].contiguous(), fi[:, 37].contiguous()
+    ki, ks = fused.banded_candidates(q, r_op, n, parts, b_s, b_i)
+    # The passes engine's form, q's transposed copy made once per call.
+    got = fused.banded_candidates(q, r_op, n, parts, b_s, b_i, fused.transposed_queries(q))
+    assert torch.equal(got[0], ki) and torch.equal(got[1], ks)
+    above = (ks > b_s[:, None]) | ((ks == b_s[:, None]) & (ki > b_i[:, None]))
+    assert (above | (ki == 2**31 - 1)).all()
+    ties = _lane37_columns(n, parts)
+    if len(ties) > 1:
+        row = min(2, m - 1)
+        assert int(ki[row, 37]) == ties[1] and float(ks[row, 37]) == float(fs[row, 37])
 
 
 @pytest.mark.parametrize("k,m,n,parts", [
@@ -85,6 +146,10 @@ def test_wrappers_raise_instead_of_falling_back(device):
                                 torch.zeros(4, dtype=torch.int32, device=device))
     with pytest.raises(ValueError, match="bound"):
         topk.smallm_topk_candidates(q, r_op, 200, 1, 4, torch.zeros(3, device=device))
+    with pytest.raises(ValueError, match="q_t"):
+        fused.banded_candidates(q, r_op, 200, 1, torch.zeros(4, device=device),
+                                torch.zeros(4, dtype=torch.int32, device=device),
+                                torch.zeros((3, 3), device=device))
 
 
 # ---- top-K kernels B4, B5, B6 ---------------------------------------------

@@ -186,6 +186,44 @@ def test_cuda_launch_geometry_covers_n():
             assert 1 <= tiers.tensor_parts(m, n) <= -(-n // 128)
     # Whole waves of one block per SM: 16 row tiles x 33 = 4 x 132 at ds11.
     assert tiers.tensor_parts(1024, 1 << 20) == 33
+    # The tiled f32 kernel (B1 "highest", B4): every geometry is one of its
+    # built instances (no other kernel serves B1 or B4) and the same at
+    # every k (k only streams through the ring, so the launch and its
+    # shared memory, which the kernel's source checks against 2 blocks per
+    # SM when it is compiled, are those of k = 1), P stays within the
+    # groups of n, and the launch's work (waves of 2 blocks per SM x column
+    # tiles per block) is within 5% of the same column tiles spread evenly
+    # over whole waves.
+    per_wave = pt_tuning.TILED_BLOCKS_PER_SM * pt_tuning.H100_SMS
+    for m in MS[1:]:
+        for n in NS:
+            groups = -(-n // 128)
+            g = pt_tuning.tiled_geometry(m, 1, n)
+            for k in KS:
+                assert pt_tuning.tiled_geometry(m, k, n) == g
+                assert pt_fused.tiled_parts(m, k, n) == g.parts
+            assert g.tm in pt_tuning.TILED_ROWS
+            # A smaller TM only where it would take more row tiles.
+            assert all(m > pt_tuning.TILED_WARPS * t for t in pt_tuning.TILED_ROWS if t < g.tm)
+            assert 1 <= g.parts <= groups
+            tiles = -(-groups // pt_tuning.TILED_TILE_GROUPS)
+            waves = -(-pt_tuning.tiled_blocks(m, g.tm, g.parts) // per_wave)
+            per_block = -(-(-(-groups // g.parts)) // pt_tuning.TILED_TILE_GROUPS)
+            even = -(-pt_tuning.tiled_blocks(m, g.tm, 1) * tiles // per_wave)
+            assert waves * per_block <= 1.05 * even
+    # Named shapes: ds11 and k = 768 take 16 row tiles of 64 x 4
+    # partitions x 4 lane quarters = 256 blocks, one wave; the passes
+    # engine's m = 64 and the m <= 8 per-call queries spread over many
+    # partitions instead.
+    for k in (16, 768):
+        assert pt_tuning.tiled_geometry(1024, k, 1 << 20) == (8, 4)
+    assert pt_tuning.tiled_geometry(64, 16, 1 << 20) == (8, 64)
+    assert pt_tuning.tiled_geometry(100, 16, 1 << 20) == (8, 32)
+    assert pt_tuning.tiled_geometry(16, 64, 1 << 20) == (4, 64)
+    assert pt_tuning.tiled_geometry(1, 16, 1 << 24) == (1, 63)
+    assert pt_tuning.tiled_geometry(4096, 16, 1 << 20) == (8, 1)
+    with pytest.raises(ValueError, match="empty"):
+        pt_tuning.tiled_geometry(8, 0, 1000)
 
 
 # ---- the seeded engine's cell policy and capacity ladder ------------------

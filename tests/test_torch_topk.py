@@ -380,6 +380,67 @@ def test_b4_plain_matches_pallas(m, n, k, tile_m, tile_n):
                                atol=1e-5 * np.abs(js[fin]).max())
 
 
+@pytest.mark.parametrize("m,n,k,ties", [
+    (65, 3149, 17, False),   # m past a 64-row block, k past a 16-row chunk
+    (9, 2049, 1, True),      # k = 1, n = 16 groups + 1
+    (33, 1300, 40, True),
+])
+def test_b4_plain_matches_pallas_at_tile_edges(m, n, k, ties):
+    """The tiled f32 kernel's edges with the bound between lex ranks, and
+    a tie inside one lane within and across column tiles (query 2 copied
+    into columns 165, 293 and 1189): the banded fold keeps the tie's
+    earliest column above the bound, as tpu_knn's kernel does."""
+    rng = np.random.default_rng(m * k + n)
+    q = rng.random((m, k), np.float32)
+    r = rng.random((n, k), np.float32)
+    if ties:
+        for g in (1, 2, 9):
+            r[g * 128 + 37] = q[2]
+    s = pt_fused.norm_scores(_t(q), prep_soa(_t(r), n), n).numpy()
+    srt = np.sort(s, axis=1)
+    b_s = ((srt[:, 1] + srt[:, 2]) / 2).astype(np.float32)   # between ranks 1 and 2
+    b_i = np.full((m,), 7, np.int32)
+    if ties:   # row 2: bound at the tie's first column, so its second must win
+        b_s[2], b_i[2] = s[2, 128 + 37], 128 + 37
+    cand = jx_fused._build_banded_candidates(m, n, k, 8, 256, "highest")
+    ji, js = _np(cand(q, cand.prep_soa(r), b_s[:, None], b_i[:, None]))
+    pi, ps = pt_fused.banded_candidates(_t(q), prep_soa(_t(r), -(-n // 128) * 128),
+                                        n, 1, _t(b_s), torch.from_numpy(b_i))
+    fin = np.isfinite(js)
+    # Two f32 summation orders: a slot may differ only where its two
+    # columns' scores, or one of them and the row's bound, are a near-tie.
+    tol = 1e-5 * np.abs(s).max()
+    rows, lanes = np.nonzero(fin & (pi.numpy() != ji))
+    for i, l in zip(rows, lanes):
+        a, b = s[i, pi[i, l]], s[i, ji[i, l]]
+        assert min(abs(a - b), abs(a - b_s[i]), abs(b - b_s[i])) <= tol, (i, l)
+    assert len(rows) <= 1e-3 * fin.sum()
+    same = fin & (pi.numpy() == ji)
+    np.testing.assert_allclose(ps.numpy()[same], js[same], rtol=1e-5,
+                               atol=1e-5 * np.abs(js[fin]).max())
+    if ties:
+        assert int(pi[2, 37]) == 256 + 37
+
+
+@pytest.mark.parametrize("k,m,n,kk", [(17, 65, 3149, 4), (1, 9, 2049, 3), (40, 33, 1300, 5)])
+def test_passes_matches_tpu_knn_at_tile_edges(k, m, n, kk):
+    """The passes engine at the tiled f32 kernel's edges, with exact
+    duplicates of query 2 inside one lane: the same top-K as tpu_knn's
+    passes engine and the oracle, duplicates in index order."""
+    rng = np.random.default_rng(k * m + n)
+    q = rng.random((m, k), np.float32)
+    r = rng.random((n, k), np.float32)
+    for g in (1, 2, 9):
+        r[g * 128 + 37] = q[2]
+    want = oracle_topk(q, r, kk)
+    ji, jd = _np(jx_topk.topk_knn(q, r, kk, method="passes"))
+    pi, pd = _np(pt_topk.topk_knn(q, r, kk, method="passes", device="cpu"))
+    np.testing.assert_array_equal(pi, want)
+    np.testing.assert_array_equal(pi, ji)
+    np.testing.assert_allclose(pd, jd, rtol=1e-6, atol=1e-7)
+    assert pi[2, :3].tolist() == [165, 293, 1189]
+
+
 @pytest.mark.parametrize("m,n,k,kk", [(8, 1000, 5, 8), (16, 2048, 3, 4)])
 def test_b5_plain_matches_pallas(m, n, k, kk):
     """P = 1 and K at a bucket size is the Pallas sweep kernel's

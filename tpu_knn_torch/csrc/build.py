@@ -100,7 +100,7 @@ def load() -> ctypes.CDLL:
     passed as a default int to 32 bits)."""
     lib = ctypes.CDLL(build())
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tk_fused_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64,
+    lib.tk_fused_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i64,
                                         i32, i32, i32, ptr]
     lib.tk_fused_candidates.restype = i32
     lib.tk_smallm_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64,
@@ -110,7 +110,7 @@ def load() -> ctypes.CDLL:
     lib.tk_smallm_candidates_bf16.restype = i32
     lib.tk_tensor_candidates.argtypes = [ptr] * 6 + [i32, i32, i64] + [i32] * 6 + [ptr]
     lib.tk_tensor_candidates.restype = i32
-    lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
+    lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                          i64, i32, i32, i32, ptr]
     lib.tk_banded_candidates.restype = i32
     lib.tk_sweep_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32,

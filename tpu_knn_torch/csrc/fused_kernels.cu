@@ -1,89 +1,317 @@
-// B1 and B4 (the fused candidate sweep, plain and banded), B1's two ladder
-// variants (AoS, v3; constant queries, v6) and B10 (staged slices, v5).
+// B1 and B4 (the tiled f32 candidate kernel, plain and banded), B1's two
+// ladder variants (AoS, v3; constant queries, v6) and B10 (staged slices,
+// v5). The ladder variants and B10 keep the lane-per-thread design (one
+// thread per lane, column_scores over a TM-row query tile).
 
 #include "knn_common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// B1 — replaces tpu_knn/kernels/fused.py:_fused_kernel (built by
+// B1 — replaces tpu_knn/kernels/fused.py:318 _fused_kernel (built by
 // _build_fused_candidates), the "highest" tier, and
-// B4 — replaces tpu_knn/kernels/fused.py:_fused_banded_kernel (built by
+// B4 — replaces tpu_knn/kernels/fused.py:506 _fused_banded_kernel (built by
 // _build_banded_candidates): B1's fold over only the elements that lie
 // lexicographically above the row's bound (b_s, b_i), i.e.
 // s > b_s || (s == b_s && col > b_i). One B4 launch is one pass of the
 // top-K "passes" engine: the reported point's lane yields its runner-up on
 // the next pass, so per-lane top-1 state serves any K.
 //
-// Bound on the H100: arithmetic. At (k=16, m=1024, n=2^20) it is m*n*k =
-// 2^34 FMA, about 0.51 ms at the 67 TFLOP/s f32 peak, per launch; the
-// operand is read once per row tile (64 MB per tile, mostly from L2).
-// Design: a block owns TM query rows and one partition; thread t owns
-// lane t and walks its columns, so a warp's loads of r[d, col] are
-// coalesced (the operand is SoA). Per row a thread keeps its best score
-// and index (and, for B4, the row's bound) in registers.
+// Bound on the H100: arithmetic, 2*m*n*k f32 operations on the CUDA cores
+// (the "highest" tier admits no TF32): at ds11 = (k=16, m=1024, n=2^20)
+// 2^35 operations, 0.51 ms at the 67 TFLOP/s f32 peak, per launch; 24.6 ms
+// at k = 768.
+//
+// Design: a register-tiled product over a staged operand, with the lane
+// fold as its epilogue. A block is 8 warps (kTiledThreads) and owns 8*TM
+// query rows, one partition and a quarter of its 128 lanes (kSliceLanes =
+// 32; blockIdx.x = partition * 4 + quarter). Warp w owns rows
+// w*TM .. w*TM+TM-1 and thread c of a warp lane quarter*32 + c; a column
+// tile is kTileGroups = 8 of the partition's 128-column groups, so each
+// thread scores a TM x 8 register micro-tile (its rows by its lane's 8
+// columns of the tile, micro_tile_chunk in knn_common.cuh): per coordinate
+// TM/4 + 8 shared-memory loads for 8*TM FMAs, where the lane-per-thread
+// design issued one L2 load per TM FMAs. A lane's columns all fall to one
+// thread and fold in increasing column order with a strict `<`, the
+// sweep's contract as it stands. The k rows of a column tile pass through
+// a ring of kTiledStages shared-memory stages in chunks of kChunk rows,
+// the block's queries beside them: 16-byte cp.async copies (4-byte ones
+// for an operand whose ld or base is not 16-byte aligned), the queries
+// from a transposed copy the wrapper makes (tpu_knn_torch.kernels.fused.
+// transposed_queries), so they too arrive in 16-byte pieces. The copy of
+// step s + 2 is in flight while step s is scored; any k fits, the
+// accumulators staying in registers across chunks. The 8*TM rows share
+// each staged slice (the operand is read from L2 once per 8*TM rows, not
+// per 32), and |r|^2 is computed once per column (thread t keeps slot t's)
+// and handed over through shared memory. A warp whose rows all lie past m
+// skips the arithmetic. After a tile's last chunk the scores fold into
+// per-(row, lane) pairs that the thread keeps in shared memory (freeing
+// the registers the micro-tile needs); B4's band test there is one
+// compare per element (fold_tile). Columns >= n or past the partition are
+// staged as zeros and masked in the fold. tuning.tiled_geometry picks TM
+// and P, filling the card at 2 blocks of 8 warps per SM in whole waves.
 // ---------------------------------------------------------------------------
+constexpr int kTiledThreads = 256;
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kSliceLanes = 32;
+constexpr int kSlices = kLanes / kSliceLanes;
+constexpr int kTileGroups = 8;
+constexpr int kTileCols = kTileGroups * kSliceLanes;  // staged columns per tile
+constexpr int kChunk = 16;       // d-rows per ring stage
+constexpr int kTiledStages = 3;  // ring depth: two chunks in flight behind the one scored
+constexpr int kTiledBlocksPerSm = 2;  // __launch_bounds__; tuning.TILED_BLOCKS_PER_SM
+static_assert(kTileCols == kTiledThreads, "one thread per column slot keeps |r|^2");
+
+// Floats of one ring stage: a kChunk-row chunk of the column tile and of
+// the block's 8*TM queries.
+template <int TM>
+__host__ __device__ constexpr int tiled_stage_floats() {
+  return kChunk * kTileCols + kChunk * kTiledWarps * TM;
+}
+
+// The block's static shared state: |r|^2 of the tile's columns, the fold's
+// per-(row, lane) pairs and B4's row bounds.
 template <int TM, bool BANDED>
-__global__ void __launch_bounds__(kLanes)
-fused_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                        const float* __restrict__ bound_s, const int32_t* __restrict__ bound_i,
-                        int32_t* __restrict__ out_i, float* __restrict__ out_s,
-                        int m, int k, long long ld, int n, int groups_per_part,
-                        int row_base) {
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  // B4's row bounds sit in shared memory, not registers: they are read
-  // only for an element that would enter the fold, which after a lane's
-  // first few columns is rare.
-  __shared__ float sb_s[TM];
-  __shared__ int sb_i[TM];
-  const int part = blockIdx.x;
-  const int row0 = row_base + blockIdx.y * TM;
-  const int lane = threadIdx.x;
+struct TiledState {
+  float norm_s[kTileCols];
+  float best_s[kTiledWarps * TM * kSliceLanes];  // [row][lane]
+  int best_i[kTiledWarps * TM * kSliceLanes];
+  float b_s[BANDED ? kTiledWarps * TM : 1];
+  int b_i[BANDED ? kTiledWarps * TM : 1];
+};
+
+// A block's shared memory: the ring (dynamic) and its TiledState, the same
+// at every k. kTiledBlocksPerSm blocks of it must fit one SM's 228 KB, of
+// which the system keeps 1 KB per block; launch_tiled checks that when it
+// is compiled.
+template <int TM>
+constexpr size_t tiled_ring_bytes() {
+  return static_cast<size_t>(kTiledStages) * tiled_stage_floats<TM>() * sizeof(float);
+}
+constexpr size_t kSmemPerSm = 233472;
+constexpr size_t kSmemPerBlockReserved = 1024;
+
+// Issue the copies of one step (a d-chunk of one column tile) into `st`:
+// the operand as [d][group][lane] (16-byte copies of 4 lanes where
+// `vec16`, else 4-byte ones), then the block's queries as [d][row] from
+// the transposed queries qT (k, ldq) in 16-byte copies. Slots past k, n,
+// the partition or the rows are zero-filled without a read.
+template <int TM>
+__device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__ qT, int ldq,
+                                            const float* __restrict__ r, int k, long long ld,
+                                            int n, bool vec16, long long col0, int live_groups,
+                                            int d0, int row0) {
+  constexpr int BM = kTiledWarps * TM;
+  if (vec16) {
+    constexpr int kQuads = kTileCols / 4;
+    for (int e = threadIdx.x; e < kChunk * kQuads; e += kTiledThreads) {
+      const int d = e / kQuads;
+      const int j = (e - d * kQuads) / (kSliceLanes / 4);
+      const int c = (e - d * kQuads - j * (kSliceLanes / 4)) * 4;
+      const long long col = col0 + static_cast<long long>(j) * kLanes + c;
+      const bool live = d0 + d < k && j < live_groups && col < n;
+      cp_async16(st + e * 4, live ? r + static_cast<long long>(d0 + d) * ld + col : r,
+                 live ? 16 : 0);
+    }
+  } else {
+    // Thread t stages slot t: lane t % 32 of group t / 32, every d.
+    const int j = threadIdx.x / kSliceLanes;
+    const long long col = col0 + static_cast<long long>(j) * kLanes + threadIdx.x % kSliceLanes;
+    const bool col_live = j < live_groups && col < n;
+#pragma unroll 4
+    for (int d = 0; d < kChunk; ++d) {
+      const bool live = col_live && d0 + d < k;
+      cp_async4(st + d * kTileCols + threadIdx.x,
+                live ? r + static_cast<long long>(d0 + d) * ld + col : r, live ? 4 : 0);
+    }
+  }
+  float* qs = st + kChunk * kTileCols;
+  constexpr int kRowQuads = BM / 4;
+  for (int e = threadIdx.x; e < kChunk * kRowQuads; e += kTiledThreads) {
+    const int d = e / kRowQuads;
+    const int c = (e - d * kRowQuads) * 4;
+    const bool live = d0 + d < k && row0 + c < ldq;
+    cp_async16(qs + d * BM + c, live ? qT + static_cast<long long>(d0 + d) * ldq + row0 + c : qT,
+               live ? 16 : 0);
+  }
+}
+
+// The epilogue of a column tile: s = |r|^2 - 2 acc for the thread's TM
+// rows by its lane's 8 columns col0 + 128 j (live while j < live_groups
+// and below n), folded row by row in column order into the running (best
+// score, index) pairs that the thread keeps in shared memory (best_s/_i
+// at its first row, rows kSliceLanes apart), with a strict `<`. B4 folds
+// only what lies lexicographically above the row's bound (b_s, b_i). Its
+// test is one compare per element: against b_s itself where every column
+// of the tile lies past b_i (s >= b_s), against the next float above b_s
+// where none does (s > b_s; a NaN bound admits nothing either way), and
+// the per-column rule only in a tile that holds b_i among the thread's
+// columns for some row, warp-wide.
+template <int TM, bool BANDED, bool EXACT>
+__device__ __forceinline__ void fold_rows(const float (&acc)[TM][kTileGroups],
+                                          const float (&nj)[kTileGroups],
+                                          const bool (&live)[kTileGroups], long long col0,
+                                          const float* b_s, const int* b_i, float* best_s,
+                                          int* best_i) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float bs = best_s[i * kSliceLanes];
+    int bi = best_i[i * kSliceLanes];
+    float floor_s = neg_inf();
+    if constexpr (BANDED && !EXACT) {
+      floor_s = col0 > b_i[i] ? b_s[i] : nextafterf(b_s[i], pos_inf());
+    }
+#pragma unroll
+    for (int j = 0; j < kTileGroups; ++j) {
+      const float sc = nj[j] - 2.f * acc[i][j];
+      const int cj = static_cast<int>(col0 + static_cast<long long>(j) * kLanes);
+      bool take = live[j] && sc < bs;
+      if constexpr (EXACT) {
+        take = take && (sc > b_s[i] || (sc == b_s[i] && cj > b_i[i]));
+      } else if constexpr (BANDED) {
+        take = take && sc >= floor_s;
+      }
+      bs = take ? sc : bs;
+      bi = take ? cj : bi;
+    }
+    best_s[i * kSliceLanes] = bs;
+    best_i[i * kSliceLanes] = bi;
+  }
+}
+
+template <int TM, bool BANDED>
+__device__ __forceinline__ void fold_tile(const float (&acc)[TM][kTileGroups], const float* norms,
+                                          long long col0, int live_groups, int n,
+                                          const float* b_s, const int* b_i, float* best_s,
+                                          int* best_i) {
+  float nj[kTileGroups];
+  bool live[kTileGroups];
+#pragma unroll
+  for (int j = 0; j < kTileGroups; ++j) {
+    nj[j] = norms[j * kSliceLanes];
+    live[j] = j < live_groups && col0 + static_cast<long long>(j) * kLanes < n;
+  }
   if constexpr (BANDED) {
-    for (int i = lane; i < TM; i += kLanes) {
+    const long long last = col0 + static_cast<long long>(kTileGroups - 1) * kLanes;
+    bool straddle = false;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) straddle |= col0 <= b_i[i] && b_i[i] < last;
+    if (__any_sync(0xffffffffu, straddle)) {
+      fold_rows<TM, true, true>(acc, nj, live, col0, b_s, b_i, best_s, best_i);
+      return;
+    }
+  }
+  fold_rows<TM, BANDED, false>(acc, nj, live, col0, b_s, b_i, best_s, best_i);
+}
+
+template <int TM, bool BANDED>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                        const float* __restrict__ bound_s, const int32_t* __restrict__ bound_i,
+                        int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
+                        int k, long long ld, int n, int groups_per_part, bool vec16,
+                        int row_base) {
+  constexpr int BM = kTiledWarps * TM;
+  constexpr int kStage = tiled_stage_floats<TM>();
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  __shared__ TiledState<TM, BANDED> state;
+  float* const norm_s = state.norm_s;
+  float* const sb_s = state.b_s;
+  int* const sb_i = state.b_i;
+
+  const int part = blockIdx.x / kSlices;
+  const int quarter = blockIdx.x - part * kSlices;
+  const int row0 = row_base + blockIdx.y * BM;
+  const int warp = threadIdx.x / 32;  // the thread's row group: rows warp*TM ..
+  const int lane = threadIdx.x % 32;  // of the block's 32
+  const long long g0 = static_cast<long long>(part) * groups_per_part;
+  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
+  const int part_groups = static_cast<int>(
+      max(0LL, min(static_cast<long long>(groups_per_part), groups - g0)));
+  const int tiles = (part_groups + kTileGroups - 1) / kTileGroups;
+  const int chunks = (k + kChunk - 1) / kChunk;
+  const int steps = tiles * chunks;
+  const bool warp_live = row0 + warp * TM < m;  // warp-uniform
+  const long long quarter_col = static_cast<long long>(quarter) * kSliceLanes;
+  float* best_s = state.best_s + warp * TM * kSliceLanes + lane;
+  int* best_i = state.best_i + warp * TM * kSliceLanes + lane;
+
+  int it = 0, ic = 0;  // the next step to issue, as (tile, chunk)
+  auto issue = [&](int s) {
+    stage_tiled<TM>(ring + (s % kTiledStages) * kStage, qT, ldq, r, k, ld, n, vec16,
+                    (g0 + static_cast<long long>(it) * kTileGroups) * kLanes + quarter_col,
+                    part_groups - it * kTileGroups, ic * kChunk, row0);
+    if (++ic == chunks) {
+      ic = 0;
+      ++it;
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kTiledStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  if constexpr (BANDED) {
+    for (int i = threadIdx.x; i < BM; i += kTiledThreads) {
       sb_s[i] = row0 + i < m ? bound_s[row0 + i] : pos_inf();
       sb_i[i] = row0 + i < m ? bound_i[row0 + i] : kI32Max;
     }
   }
-  load_query_tile<TM>(q, qT, m, k, row0);  // ends with __syncthreads
-
-  float best_s[TM];
-  int best_i[TM];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best_s[i] = pos_inf();
-    best_i[i] = kI32Max;
+  for (int i = 0; i < TM; ++i) {  // the thread's own entries: no barrier needed
+    best_s[i * kSliceLanes] = pos_inf();
+    best_i[i * kSliceLanes] = kI32Max;
   }
 
-  const long long first = static_cast<long long>(part) * groups_per_part * kLanes + lane;
-  for (int g = 0; g < groups_per_part; ++g) {
-    const long long col = first + static_cast<long long>(g) * kLanes;
-    if (col >= n) break;  // columns only grow along the sweep
-    float s[TM];
-    column_scores<TM>(qT, r + col, ld, k, s);
-    const int c = static_cast<int>(col);
+  float acc[TM][kTileGroups];
+  float norm = 0.f;  // |r|^2 of slot threadIdx.x's column
+  int t = 0, c = 0;  // the step being scored, as (tile, chunk)
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kTiledStages - 2>();  // step s has landed (this thread's copies)
+    __syncthreads();                    // ... every thread's, and step s - 1 is done with
+    if (s + kTiledStages - 1 < steps) issue(s + kTiledStages - 1);
+    cp_async_commit();
+    if (c == 0) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if (s[i] < best_s[i]) {
-        if constexpr (BANDED) {
-          // Fold only (s, c) lexicographically above the bound.
-          if (!(s[i] > sb_s[i] || (s[i] == sb_s[i] && c > sb_i[i]))) continue;
-        }
-        best_s[i] = s[i];
-        best_i[i] = c;
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kTileGroups; ++j) acc[i][j] = 0.f;
+      }
+      norm = 0.f;
+    }
+    const float* st = ring + (s % kTiledStages) * kStage;
+    norm = column_norm_chunk<kChunk>(st + threadIdx.x, kTileCols, norm);
+    if (warp_live) {
+      micro_tile_chunk<TM, kTileGroups, kChunk>(st + kChunk * kTileCols + warp * TM, BM,
+                                                st + lane, kTileCols, kSliceLanes, acc);
+    }
+    if (c == chunks - 1) {
+      norm_s[threadIdx.x] = norm;
+      __syncthreads();
+      if (warp_live) {
+        fold_tile<TM, BANDED>(
+            acc, norm_s + lane,
+            (g0 + static_cast<long long>(t) * kTileGroups) * kLanes + quarter_col + lane,
+            part_groups - t * kTileGroups, n, sb_s + warp * TM, sb_i + warp * TM, best_s,
+            best_i);
       }
     }
+    if (++c == chunks) {
+      c = 0;
+      ++t;
+    }
   }
+  cp_async_wait<0>();
 
-  const long long width = static_cast<long long>(gridDim.x) * kLanes;
+  const long long width = static_cast<long long>(gridDim.x / kSlices) * kLanes;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int row = row0 + i;
+    const int row = row0 + warp * TM + i;
     if (row < m) {
-      const long long o = row * width + static_cast<long long>(part) * kLanes + lane;
-      out_i[o] = best_i[i];
-      out_s[o] = best_s[i];
+      const long long o = row * width + static_cast<long long>(part) * kLanes + quarter_col + lane;
+      out_i[o] = best_i[i * kSliceLanes];
+      out_s[o] = best_s[i * kSliceLanes];
     }
   }
 }
@@ -338,37 +566,45 @@ dma_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
 // ---------------------------------------------------------------------------
 
 template <int TM, bool BANDED>
-int launch_fused(const float* q, const float* r, const float* bound_s, const int32_t* bound_i,
-                 int32_t* out_i, float* out_s, int m, int k, long long ld, int n, int parts,
-                 int groups_per_part, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(TM) * k * sizeof(float);
-  if (const int e = allow_smem(fused_candidates_kernel<TM, BANDED>, smem)) return e;
-  const int tiles = (m + TM - 1) / TM;
+int launch_tiled(const float* qT, const float* r, const float* bound_s, const int32_t* bound_i,
+                 int32_t* out_i, float* out_s, int m, int ldq, int k, long long ld, int n,
+                 int parts, cudaStream_t stream) {
+  constexpr int BM = kTiledWarps * TM;
+  constexpr size_t smem = tiled_ring_bytes<TM>();
+  constexpr size_t kStatic = sizeof(TiledState<TM, BANDED>);
+  static_assert(kTiledBlocksPerSm * (smem + kStatic + kSmemPerBlockReserved) <= kSmemPerSm,
+                "the tiled kernel's blocks per SM do not fit its shared memory");
+  auto kernel = tiled_candidates_kernel<TM, BANDED>;
+  if (const int e = allow_smem(kernel, smem, kStatic)) return e;
+  const bool vec16 = ld % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
+  const int gpp = groups_per_part(n, parts);
+  const int tiles = (m + BM - 1) / BM;
   for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
     const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    fused_candidates_kernel<TM, BANDED><<<dim3(parts, ty), kLanes, smem, stream>>>(
-        q, r, bound_s, bound_i, out_i, out_s, m, k, ld, n, groups_per_part, t0 * TM);
+    kernel<<<dim3(parts * kSlices, ty), kTiledThreads, smem, stream>>>(
+        qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, gpp, vec16, t0 * BM);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
 }
 
+// The instances tuning.tiled_geometry chooses from: tm in {1, 4, 8} rows
+// per warp.
 template <bool BANDED>
-int launch_fused_tile(const float* q, const float* r, const float* bound_s,
-                      const int32_t* bound_i, int32_t* out_i, float* out_s, int m, int k,
-                      long long ld, int n, int parts, int groups_per_part, int tile_m,
-                      cudaStream_t s) {
-  switch (tile_m) {
-    case 32:
-      return launch_fused<32, BANDED>(q, r, bound_s, bound_i, out_i, out_s, m, k, ld, n, parts,
-                                      groups_per_part, s);
+int launch_tiled_rows(const float* qT, const float* r, const float* bound_s,
+                      const int32_t* bound_i, int32_t* out_i, float* out_s, int m, int ldq, int k,
+                      long long ld, int n, int parts, int tm, cudaStream_t s) {
+  switch (tm) {
     case 8:
-      return launch_fused<8, BANDED>(q, r, bound_s, bound_i, out_i, out_s, m, k, ld, n, parts,
-                                     groups_per_part, s);
+      return launch_tiled<8, BANDED>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n,
+                                     parts, s);
+    case 4:
+      return launch_tiled<4, BANDED>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n,
+                                     parts, s);
     case 1:
-      return launch_fused<1, BANDED>(q, r, bound_s, bound_i, out_i, out_s, m, k, ld, n, parts,
-                                     groups_per_part, s);
+      return launch_tiled<1, BANDED>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n,
+                                     parts, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -428,25 +664,30 @@ int launch_dma(const float* q, const float* r, int32_t* out_i, int m, int k, lon
 
 extern "C" {
 
-// B1 launch: tile_m in {1, 8, 32} rows per block (tuning.cuda_tile_m).
-int tk_fused_candidates(const float* q, const float* r, int32_t* out_i, float* out_s,
-                        int m, int k, long long ld, int n, int parts, int tile_m,
-                        void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_fused_tile<false>(q, r, nullptr, nullptr, out_i, out_s, m, k, ld, n, parts,
-                                  groups_per_part(n, parts), tile_m,
-                                  static_cast<cudaStream_t>(stream));
+// B1 launch: qT the queries transposed, (k, ldq) with ldq >= m a multiple
+// of 4 and rows m..ldq-1 zero, 16-byte aligned; tm rows per warp (8*tm
+// per block), as tuning.tiled_geometry picks it; out (m, parts*128).
+int tk_fused_candidates(const float* qT, const float* r, int32_t* out_i, float* out_s, int m,
+                        int ldq, int k, long long ld, int n, int parts, int tm, void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || ldq < m || ldq % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(qT) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tiled_rows<false>(qT, r, nullptr, nullptr, out_i, out_s, m, ldq, k, ld, n, parts,
+                                  tm, static_cast<cudaStream_t>(stream));
 }
 
 // B4 launch: B1's geometry plus the per-row bound (bound_s (m,) f32,
 // bound_i (m,) int32).
-int tk_banded_candidates(const float* q, const float* r, const float* bound_s,
-                         const int32_t* bound_i, int32_t* out_i, float* out_s, int m, int k,
-                         long long ld, int n, int parts, int tile_m, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_fused_tile<true>(q, r, bound_s, bound_i, out_i, out_s, m, k, ld, n, parts,
-                                 groups_per_part(n, parts), tile_m,
-                                 static_cast<cudaStream_t>(stream));
+int tk_banded_candidates(const float* qT, const float* r, const float* bound_s,
+                         const int32_t* bound_i, int32_t* out_i, float* out_s, int m, int ldq,
+                         int k, long long ld, int n, int parts, int tm, void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || ldq < m || ldq % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(qT) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tiled_rows<true>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, parts,
+                                 tm, static_cast<cudaStream_t>(stream));
 }
 
 // B1's AoS variant (v3): ref is the caller's row-major (n, k) array;

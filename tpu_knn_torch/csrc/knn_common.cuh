@@ -125,6 +125,60 @@ __device__ __forceinline__ void column_scores(const float* qT, const float* __re
   column_scores<TM>(qT, GlobalColumn{rc, ld}, k, s);
 }
 
+// The same arithmetic over a register micro-tile: TM query rows by TN
+// reference columns, fed one staged d-chunk at a time. qs is the chunk's
+// queries in shared memory at the thread's first row, [d][q_ld] (TM
+// consecutive rows per d); rs is the chunk's operand at the thread's first
+// column, [d][r_ld], its TN columns col_stride apart. Per coordinate a
+// thread loads TM/4 float4 query values and TN operand values and issues
+// TM*TN FMAs. acc carries across chunks, so each acc[i][j] is still one
+// fmaf chain over d = 0..k-1 in order (rows past k are staged as zeros on
+// both sides: fmaf(0, 0, x) == x, as acc is never -0). The caller keeps
+// |r|^2 with column_norm_chunk and forms s = norm - 2*acc after the last
+// chunk, bit-identical to column_scores.
+template <int TM, int TN, int DK>
+__device__ __forceinline__ void micro_tile_chunk(const float* qs, int q_ld, const float* rs,
+                                                 int r_ld, int col_stride,
+                                                 float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int d = 0; d < DK; ++d) {
+    float rv[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) rv[j] = rs[d * r_ld + j * col_stride];
+    float qv[TM];
+    if constexpr (TM % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(qs + d * q_ld + i);
+        qv[i] = v.x;
+        qv[i + 1] = v.y;
+        qv[i + 2] = v.z;
+        qv[i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) qv[i] = qs[d * q_ld + i];
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(qv[i], rv[j], acc[i][j]);
+    }
+  }
+}
+
+// |r|^2 of one staged column over a d-chunk ([d][r_ld] from rc): the
+// column_scores norm chain, continued across chunks in `norm`.
+template <int DK>
+__device__ __forceinline__ float column_norm_chunk(const float* rc, int r_ld, float norm) {
+#pragma unroll
+  for (int d = 0; d < DK; ++d) {
+    const float v = rc[d * r_ld];
+    norm = fmaf(v, v, norm);
+  }
+  return norm;
+}
+
 // The exact diff-form arithmetic of B2 and B6: sum_d (r[d,col] - q[d])^2,
 // one fmaf chain over d in order. B6's bound is the K-th smallest of B2's
 // lane minima, so the two kernels must score a column identically. A bf16
@@ -167,11 +221,19 @@ __device__ __forceinline__ void load_small_queries(const float* __restrict__ q, 
 }
 
 // 16-byte asynchronous copies into shared memory (B10's staging, the
-// tensor-core kernel's ring): src_bytes < 16 copies that many bytes and
-// zero-fills the rest (0: no read at all).
+// tensor-core kernel's ring, the tiled f32 kernel's ring): src_bytes < 16
+// copies that many bytes and zero-fills the rest (0: no read at all).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+// The 4-byte form (through L1), for an operand whose rows are not 16-byte
+// aligned; src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
 }
 
@@ -182,9 +244,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Let `kernel` take `smem` bytes of dynamic shared memory beside
+// `static_bytes` of its own: past 48 KB together, only after an opt-in.
 template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= kDefaultSmem) return 0;
+int allow_smem(Kernel kernel, size_t smem, size_t static_bytes = 0) {
+  if (smem + static_bytes <= kDefaultSmem) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
 }

@@ -1,7 +1,9 @@
 """v4 — the fused streaming 1-NN pipeline (counterpart of tpu_knn/kernels/fused.py).
 
 The candidate stage is B1, a hand-written CUDA kernel (csrc/fused_kernels.cu,
-replacing tpu_knn's Pallas `_fused_kernel`): per query row it folds the
+replacing tpu_knn's Pallas `_fused_kernel`; register-tiled scores over a
+cp.async-staged operand, its launch geometry from
+tuning.tiled_geometry): per query row it folds the
 score s = ‖r‖² − 2·q·r of every reference column into per-lane running
 (min score, index) pairs, so the m×n score matrix never reaches device
 memory, and emits (m, P·128) candidates. The exact selection (`_refine`:
@@ -33,7 +35,7 @@ import torch
 
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.tuning import (
-    LANE, MAX_QUERY_SMEM, cuda_tile_m, pick_parts,
+    LANE, MAX_QUERY_SMEM, cuda_tile_m, pick_parts, tiled_geometry,
 )
 from tpu_knn_torch.utils.platform import as_f32_pair, check_device
 from tpu_knn_torch.utils.shapes import cdiv, round_up
@@ -49,7 +51,8 @@ PORTED_PRECISIONS = frozenset({"packed", "bf16x3", "bf16x3_presplit", "bf16x4", 
 
 _I32_MAX = 2**31 - 1
 
-#: B1 launches get at least this many blocks per SM (tuning.pick_parts).
+#: The lane-per-thread kernels that share B1's contract (B3, v3, v6, B10)
+#: get at least this many blocks per SM (tuning.pick_parts).
 B1_BLOCKS_PER_SM = 2
 
 
@@ -225,6 +228,16 @@ def fused_candidates_plain(q, r_op, n: int, parts: int):
     return _lane_fold(norm_scores(q, r_op, n), parts)
 
 
+def transposed_queries(q: torch.Tensor) -> torch.Tensor:
+    """(m, k) queries -> the (k, round_up(m, 4)) transposed copy, rows
+    m.. zero, that the tiled f32 kernel (B1, B4) stages in 16-byte
+    copies."""
+    m, k = q.shape
+    q_t = q.new_zeros((k, round_up(m, 4)))
+    q_t[:, :m] = q.T
+    return q_t
+
+
 def _candidate_outputs(m: int, width: int, device):
     return (torch.empty((m, width), dtype=torch.int32, device=device),
             torch.empty((m, width), dtype=torch.float32, device=device))
@@ -242,11 +255,12 @@ def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
 
     lib = load()
     m, k = q.shape
+    q_t = transposed_queries(q)
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_fused_candidates(
-            q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
-            m, k, r_op.stride(0), n, parts, cuda_tile_m(m, k),
+            q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
+            m, q_t.shape[1], k, r_op.stride(0), n, parts, tiled_geometry(m, k, n).tm,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B1 fused_candidates")
     fused_candidates.launches += 1
@@ -277,14 +291,15 @@ def banded_candidates_plain(q, r_op, n: int, parts: int, bound_s, bound_i):
 
 
 def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
-                      bound_s: torch.Tensor, bound_i: torch.Tensor):
+                      bound_s: torch.Tensor, bound_i: torch.Tensor, q_t=None):
     """B1's candidate contract restricted to the elements that lie
     lexicographically above each row's bound: (score, col) folds only if
     score > bound_s[i], or score == bound_s[i] and col > bound_i[i].
     bound_s (m,) f32 and bound_i (m,) int32. One call is one pass of the
-    top-K passes engine (kernels/topk.py); the scores are bit-identical
-    to B1's on the card. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    top-K passes engine (kernels/topk.py), which makes q's transposed copy
+    once (`transposed_queries(q)`, passed as q_t) for all its passes; the
+    scores are bit-identical to B1's on the card. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts)
     m, k = q.shape
     _check_bound(bound_s, m, torch.float32, q.device, "bound_s")
@@ -294,12 +309,19 @@ def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
+    if q_t is None:
+        q_t = transposed_queries(q)
+    elif (q_t.dtype != torch.float32 or q_t.shape != (k, round_up(m, 4))
+          or not q_t.is_contiguous() or q_t.device != q.device):
+        raise ValueError(f"q_t must be transposed_queries(q): a contiguous ({k}, "
+                         f"{round_up(m, 4)}) float32 tensor on {q.device}, got "
+                         f"{tuple(q_t.shape)} {q_t.dtype} on {q_t.device}")
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_banded_candidates(
-            q.data_ptr(), r_op.data_ptr(), bound_s.data_ptr(), bound_i.data_ptr(),
-            idx.data_ptr(), score.data_ptr(), m, k, r_op.stride(0), n, parts,
-            cuda_tile_m(m, k), torch.cuda.current_stream(q.device).cuda_stream)
+            q_t.data_ptr(), r_op.data_ptr(), bound_s.data_ptr(), bound_i.data_ptr(),
+            idx.data_ptr(), score.data_ptr(), m, q_t.shape[1], k, r_op.stride(0), n, parts,
+            tiled_geometry(m, k, n).tm, torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B4 banded_candidates")
     banded_candidates.launches += 1
     return idx, score
@@ -309,9 +331,16 @@ def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
 banded_candidates.launches = 0
 
 
+def tiled_parts(m: int, k: int, n: int) -> int:
+    """B1 and B4's partition count (tuning.tiled_geometry): their callers'
+    default P."""
+    return tiled_geometry(m, k, n).parts
+
+
 def default_parts(m: int, k: int, n: int) -> int:
-    """B1 partition count: the grid of (row tiles x partitions) gets
-    B1_BLOCKS_PER_SM blocks per SM."""
+    """Partition count of the lane-per-thread kernels on B1's contract
+    (B3, v6): the grid of (cuda_tile_m row tiles x partitions) gets
+    B1_BLOCKS_PER_SM blocks of 128 threads per SM."""
     return pick_parts(cdiv(m, cuda_tile_m(m, k)), n, B1_BLOCKS_PER_SM)
 
 

@@ -37,7 +37,7 @@ import torch
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.fused import (
     _I32_MAX, DEFAULT_PRECISION, _exact_rerank, _lane_fold, _refine, _to_host,
-    default_parts, fused_candidates, fused_knn, prep_soa, select_cutoff,
+    fused_candidates, fused_knn, prep_soa, select_cutoff, tiled_parts,
 )
 from tpu_knn_torch.kernels.tuning import H100_SMS, LANE
 from tpu_knn_torch.utils.platform import as_f32, as_f32_pair, check_device, full_f32_matmul
@@ -302,7 +302,7 @@ def _build_projection_pipeline(m: int, n: int, k: int, window: int):
     is a prepared SoA operand of ref for the fallback (NNIndex's), built
     per call otherwise."""
     win_run = _build_kernel_window_query(m, n, k, window)
-    parts = default_parts(m, k, n)
+    parts = tiled_parts(m, k, n)
     cutoff = select_cutoff(DEFAULT_PRECISION, k)
 
     def run(search, ref, *index, r_op=None):

@@ -295,9 +295,9 @@ def presplit_candidates(q: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
 def tier_parts(precision: str, m: int, k: int, n: int) -> int:
     """The default partition count of the kernel a tier runs on."""
     if precision == "highest":
-        from tpu_knn_torch.kernels.fused import default_parts
+        from tpu_knn_torch.kernels.fused import tiled_parts
 
-        return default_parts(m, k, n)
+        return tiled_parts(m, k, n)
     return tensor_parts(m, n)
 
 

@@ -34,9 +34,8 @@ import torch
 
 from tpu_knn_torch.kernels.fused import (
     _I32_MAX, _candidate_outputs, _check_bound, _check_candidate_operands,
-    banded_candidates, norm_scores, prep_soa,
+    banded_candidates, norm_scores, prep_soa, tiled_parts, transposed_queries,
 )
-from tpu_knn_torch.kernels.fused import default_parts as fused_parts
 from tpu_knn_torch.kernels.smallm import (
     SMALLM_MAX_K, SMALLM_MAX_M, check_smallm_shape, diff_scores,
     smallm_applicable, smallm_candidates,
@@ -352,14 +351,15 @@ def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto
         return _build_seeded(m, n, k, kk, n_ops)
     if method != "passes":
         raise ValueError(f"unknown top-K method {method!r}")
-    parts = fused_parts(m, k, n)
+    parts = tiled_parts(m, k, n)
 
     def run_passes(search, r_ops, ref_aos):
         b_s = torch.full((m,), -torch.inf, dtype=torch.float32, device=search.device)
         b_i = torch.full((m,), -1, dtype=torch.int32, device=search.device)
+        q_t = transposed_queries(search) if search.is_cuda else None
         picks = []
         for _ in range(kk):    # K banded passes, no host sync between them
-            ci, cs = banded_candidates(search, r_ops[0], n, parts, b_s, b_i)
+            ci, cs = banded_candidates(search, r_ops[0], n, parts, b_s, b_i, q_t)
             b_i, b_s = _lex_min(ci, cs)
             picks.append(b_i)
         # Pass order is the kernel-score order; the output contract is

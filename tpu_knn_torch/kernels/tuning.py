@@ -4,10 +4,15 @@
 because it still fixes the prepared operand's n padding (NNIndex), so an
 index's state carries across between the two packages unchanged. The
 CUDA kernels do not use its tiles; they take their
-launch geometry from `cuda_tile_m` and `pick_parts` below.
+launch geometry from the helpers below: `tiled_geometry` for the tiled
+f32 candidate kernel (B1 "highest" and B4), `cuda_tile_m` and
+`pick_parts` for the lane-per-thread kernels (B3, B5, v3, v6, B10).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
@@ -76,3 +81,68 @@ def pick_parts(m_tiles: int, n: int, blocks_per_sm: int) -> int:
     never more than one 128-column group per partition."""
     want = cdiv(blocks_per_sm * H100_SMS, m_tiles)
     return max(1, min(cdiv(n, LANE), want))
+
+
+# ---- the tiled f32 candidate kernel (B1 "highest", B4) ------------------
+# What tiled_geometry needs of its fixed shape (csrc/fused_kernels.cu):
+# blocks of TILED_WARPS warps, warp w owning TM query rows and thread c one
+# of TILED_SLICE_LANES lanes of a partition (a block covers a quarter of
+# the 128), each thread a TM x TILED_TILE_GROUPS register micro-tile, so a
+# column tile is TILED_TILE_GROUPS of the partition's 128-column groups.
+# Its shared memory does not depend on k, and the kernel's source checks
+# at compile time that TILED_BLOCKS_PER_SM blocks of it fit an SM.
+
+TILED_WARPS = 8
+TILED_SLICE_LANES = 32
+TILED_TILE_GROUPS = 8
+
+#: Rows per warp the kernel is built for (launch_tiled_rows).
+TILED_ROWS = (1, 4, 8)
+
+#: Blocks of 8 warps resident per SM (the kernel's __launch_bounds__).
+TILED_BLOCKS_PER_SM = 2
+
+#: tiled_geometry takes the smallest P whose modelled time is within this
+#: share of the least.
+TILED_COST_SLACK = 0.05
+
+
+class TiledGeometry(NamedTuple):
+    """A launch of the tiled kernel: TM rows per warp (TILED_WARPS * TM
+    per block) and the partition count P."""
+    tm: int
+    parts: int
+
+
+def tiled_blocks(m: int, tm: int, parts: int) -> int:
+    """Blocks of one launch: row tiles x partitions x lane quarters."""
+    return cdiv(m, TILED_WARPS * tm) * parts * (LANE // TILED_SLICE_LANES)
+
+
+def tiled_geometry(m: int, k: int, n: int) -> TiledGeometry:
+    """Launch geometry of the tiled f32 candidate kernel at (m, k, n).
+
+    TM: the fewest rows per warp that leave no warp's rows wholly padding
+    where m allows it (1 for m <= 8, 4 for m <= 32, else 8); k only sets
+    how many chunks a column tile takes, so it does not enter. P: the card
+    runs TILED_BLOCKS_PER_SM * 132 blocks at once, all with the same work,
+    so a launch takes ceil(blocks / that) waves of one block's work, and
+    one block's work is its partition's column tiles; P minimises waves x
+    tiles per block, within TILED_COST_SLACK of its minimum the smallest
+    P (fewer candidates for the caller to merge)."""
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty launch (m={m}, k={k}, n={n})")
+    return _tiled_geometry(m, n)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiled_geometry(m: int, n: int) -> TiledGeometry:
+    tm = 1 if m <= TILED_WARPS else 4 if m <= 4 * TILED_WARPS else 8
+    groups = cdiv(n, LANE)
+    per_wave = TILED_BLOCKS_PER_SM * H100_SMS
+    one_part = tiled_blocks(m, tm, 1)
+    costs = [cdiv(one_part * parts, per_wave) * cdiv(cdiv(groups, parts), TILED_TILE_GROUPS)
+             for parts in range(1, min(groups, 8 * cdiv(per_wave, one_part)) + 1)]
+    least = min(costs)
+    parts = 1 + next(p for p, c in enumerate(costs) if c <= least * (1 + TILED_COST_SLACK))
+    return TiledGeometry(tm, parts)

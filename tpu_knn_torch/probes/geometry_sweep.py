@@ -1,18 +1,36 @@
-"""Launch-geometry sweep of B1, B2 and v7, and a profile of the main path.
+"""Launch-geometry sweeps of B1/B4, B2 and v7, and a profile of the main path.
 
     python3 -m tpu_knn_torch.probes.geometry_sweep     # repo root, one H100
+    python3 -m tpu_knn_torch.probes.geometry_sweep fused [BASELINE]
+    PYTHONPATH=<checkout> python3 tpu_knn_torch/probes/geometry_sweep.py paths
+    python3 -m tpu_knn_torch.probes.geometry_sweep beside
 
 Prints, beside the card's name and power limit (nvidia-smi):
 
-1. B2 at ds9 = (k=16, m=1, n=2^24) for partition counts P = 132 .. 4224;
-2. B1 at ds11 = (16, 1024, 2^20) for (rows per block TM, P), launched
-   through the C entry point so TM can be forced (the wrapper takes TM
-   from tuning.cuda_tile_m; these launches are not counted);
-3. v7 (twolevel_knn) at ds9 and ds11 for several partition counts;
-4. the exact refinement alone at ds9 on B2 candidates of P partitions;
-5. torch.profiler tables of the prepared query at ds9 and ds11 and of
-   the default per-call dispatch (v7) at ds9: device time, the busy share
-   of the wall time, and the top kernels.
+- with no argument: B2 at ds9 = (k=16, m=1, n=2^24) for partition counts
+  P = 132 .. 4224; v7 (twolevel_knn) at ds9 and ds11 = (16, 1024, 2^20)
+  for several partition counts; the exact refinement alone at ds9 on B2
+  candidates of P partitions; torch.profiler tables of the prepared query
+  at ds9 and ds11 and of the default per-call dispatch (v7) at ds9: device
+  time, the busy share of the wall time, and the top kernels;
+- `fused`: B1 and B4 (the tiled f32 kernel) at ds11, (16, 64, 2^20) and
+  (768, 1024, 2^20), launched through the C entry points over
+  tuning.tiled_geometry's choices (these launches are not counted); with
+  BASELINE, a checkout of the port from before the tiled kernel (e.g.
+  `git archive` of a commit before it), also that checkout's lane-per-thread
+  template at 32 rows per block over P, built from its own sources;
+- `paths`: at the same shapes, B1 and B4 through their wrappers at the
+  default P, the passes engine (K = 8 at ds11, K = 64 at m = 64) or
+  "highest" 1-NN (k = 768), and cuBLAS's f32 product of the same scores,
+  for whichever checkout of the port is on the path (run it once per
+  checkout in one chip call to compare two);
+- `beside`: B1 at ds11 timed alone, beside its plain version (as
+  chip_smoke.py's phase 3 times it) and beside B4 and cuBLAS's product (as
+  `paths` does), over prep_soa's operand and over a prepared NNIndex's (as
+  chip_smoke.py's), all in one process; and the SM clock right after each
+  neighbour, from the time a fixed count of clock cycles takes to spin
+  (torch.cuda._sleep); beside each CUDA-event time, the kernel's own
+  device time from torch.profiler.
 
 Times are medians of CUDA-event timings (utils/timing.py).
 """
@@ -51,6 +69,201 @@ def _profile(label, fn, calls=5):
           f"(busy share {dev / wall:.3f})")
 
 
+#: The shapes of B1 and B4's main paths: (k, m, n), and the K of the
+#: passes engine there (0: "highest" 1-NN through fused_knn instead).
+FUSED_SHAPES = ((16, 1024, 1 << 20, 8), (16, 64, 1 << 20, 64), (768, 1024, 1 << 20, 0),
+                (16, 8, 1 << 20, 0))
+
+
+
+def _load_baseline(tree):
+    """The C library of another checkout's port (its own csrc/build.py,
+    building into that checkout), with that build module's check()."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "baseline_build", os.path.join(tree, "tpu_knn_torch", "csrc", "build.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.load(), mod.check
+
+
+def fused_sweep(lib, check, rand, show, baseline=None):
+    """B1 and B4 through the C entry points at each shape of FUSED_SHAPES:
+    the tiled kernel over tuning.tiled_geometry's choices (TM rows per
+    warp, P around the helper's; every instance bit-equal to the first at
+    each P), and with ``baseline`` (a
+    checkout of the port from before the tiled kernel) its
+    lane-per-thread template at 32 rows per block over P."""
+    import torch
+
+    from tpu_knn_torch.kernels.fused import prep_soa, transposed_queries
+    from tpu_knn_torch.kernels.tuning import TILED_ROWS, tiled_geometry
+    from tpu_knn_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda", 0)
+    old = _load_baseline(baseline) if baseline else None
+
+    def launcher(q, r_op, n, banded, lib, check, *geometry, old_template=False):
+        """Launches at a forced P: the tiled kernel (geometry = (TM,),
+        over the transposed queries, which it transposes per call
+        as the wrapper does), or the baseline's lane-per-thread template
+        (geometry = (rows per block,), over q as it is)."""
+        m, k = q.shape
+        b_s = torch.full((m,), -torch.inf, dtype=torch.float32, device=dev)
+        b_i = torch.full((m,), -1, dtype=torch.int32, device=dev)
+
+        def run(parts):
+            idx = torch.empty((m, parts * 128), dtype=torch.int32, device=dev)
+            score = torch.empty((m, parts * 128), dtype=torch.float32, device=dev)
+            stream = torch.cuda.current_stream().cuda_stream
+            qs = q if old_template else transposed_queries(q)
+            rows = (m, k) if old_template else (m, qs.shape[1], k)
+            if banded:
+                err = lib.tk_banded_candidates(
+                    qs.data_ptr(), r_op.data_ptr(), b_s.data_ptr(), b_i.data_ptr(),
+                    idx.data_ptr(), score.data_ptr(), *rows, r_op.stride(0), n, parts,
+                    *geometry, stream)
+            else:
+                err = lib.tk_fused_candidates(
+                    qs.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
+                    *rows, r_op.stride(0), n, parts, *geometry, stream)
+            check(lib, err, "B4" if banded else "B1")
+            return idx, score
+        return run
+
+    for k, m, n, _ in FUSED_SHAPES:
+        q, r = rand((m, k)), rand((n, k))
+        r_op = prep_soa(r, n)
+        g = tiled_geometry(m, k, n)
+        reps = 10 if k == 16 else 3
+        fns, first = {}, {}
+        for banded in (False, True):
+            name = "B4" if banded else "B1"
+            for tm in TILED_ROWS:
+                if tm < g.tm // 2:
+                    continue
+                run = launcher(q, r_op, n, banded, lib, check, tm)
+                for p in sorted({max(1, g.parts // 2), g.parts, 2 * g.parts}):
+                    # Every instance computes the same contract in the same
+                    # arithmetic: bit-equal candidates at one P.
+                    try:
+                        got = run(p)
+                    except RuntimeError as e:
+                        raise SystemExit(f"{name} TM={tm} P={p}: {e}") from e
+                    want = first.setdefault((banded, p), got)
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise SystemExit(f"{name} TM={tm} P={p}: candidates differ from "
+                                         "the first instance's")
+                    fns[f"{name} tiled (k={k}, m={m}) TM={tm} P={p}"] = (
+                        lambda p=p, run=run: run(p))
+        first.clear()
+        show(time_ms(fns, reps))
+        if old is not None:
+            fns = {}
+            for banded in (False, True):
+                run = launcher(q, r_op, n, banded, *old, 32, old_template=True)
+                ps = (9, 18, 36, 72) if m == 1024 else (66, 132, 264, 528)
+                fns.update({f"{'B4' if banded else 'B1'} old (k={k}, m={m}) TM=32 P={p}":
+                            (lambda p=p, run=run: run(p)) for p in ps})
+            show(time_ms(fns, reps))
+        del q, r, r_op
+        torch.cuda.empty_cache()
+
+
+def fused_paths(rand, show):
+    """B1 and B4 through their wrappers at the caller's default P, the
+    passes engine and "highest" 1-NN, at each shape of FUSED_SHAPES, and
+    cuBLAS's f32 product of the same scores. Only public names that every
+    slice of the port has, so the same script times an older checkout
+    (PYTHONPATH=<checkout> python3 <this file> paths)."""
+    import torch
+
+    from tpu_knn_torch.kernels.fused import banded_candidates, fused_candidates, fused_knn, prep_soa
+    from tpu_knn_torch.kernels.tiers import tier_parts
+    from tpu_knn_torch.kernels.topk import topk_knn
+    from tpu_knn_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda", 0)
+    for k, m, n, kk in FUSED_SHAPES:
+        q, r = rand((m, k)), rand((n, k))
+        r_op = prep_soa(r, n)
+        parts = tier_parts("highest", m, k, n)
+        b_s = torch.full((m,), -torch.inf, dtype=torch.float32, device=dev)
+        b_i = torch.full((m,), -1, dtype=torch.int32, device=dev)
+        shape = f"(k={k}, m={m}, n={n})"
+        fns = {f"B1 {shape} P={parts}": lambda: fused_candidates(q, r_op, n, parts),
+               f"B4 {shape} P={parts}":
+               lambda: banded_candidates(q, r_op, n, parts, b_s, b_i),
+               f"cuBLAS f32 q @ r {shape}": lambda: q @ r_op[:k]}
+        if kk:
+            fns[f"passes {shape} K={kk}"] = lambda: topk_knn(q, r, kk, method="passes")
+        else:
+            fns[f"fused_knn highest {shape}"] = lambda: fused_knn(q, r, precision="highest")
+        show(time_ms(fns, 10 if k == 16 else 3))
+        del q, r, r_op
+        torch.cuda.empty_cache()
+
+
+def b1_beside(rand, show, reps=10, spin=1 << 21):
+    """B1 at ds11 in the settings of chip_smoke.py's phase 3 and of
+    `paths`, in one process, and the SM clock after each neighbour."""
+    import statistics
+
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.fused import (
+        banded_candidates, fused_candidates, fused_candidates_plain, prep_soa, tiled_parts,
+    )
+    from tpu_knn_torch.utils.timing import device_ms, time_ms
+
+    k, m, n = 16, 1024, 1 << 20
+    q, r = rand((m, k)), rand((n, k))
+    r_op, ix_op = prep_soa(r, n), tpu_knn_torch.NNIndex(r).r_ops[0]
+    parts = tiled_parts(m, k, n)
+    b_s = torch.full((m,), -torch.inf, device=q.device)
+    b_i = torch.full((m,), -1, dtype=torch.int32, device=q.device)
+
+    def plain():
+        return fused_candidates_plain(q, r_op, n, parts)
+
+    def cublas():
+        return q @ r_op[:k]
+
+    def b1(op=r_op):
+        return fused_candidates(q, op, n, parts)
+
+    for op_name, op in (("prep_soa operand", r_op), ("NNIndex operand", ix_op)):
+        for label, fns in (("alone", {"B1": lambda: b1(op)}),
+                           ("beside its plain version", {"B1": lambda: b1(op), "plain": plain}),
+                           ("beside B4 and cuBLAS", {
+                               "B1": lambda: b1(op),
+                               "B4": lambda: banded_candidates(q, r_op, n, parts, b_s, b_i),
+                               "cuBLAS": cublas})):
+            show({f"B1 ds11 P={parts} {op_name} {label}": time_ms(fns, reps)["B1"]})
+            for kname, ms in device_ms(fns, "tiled_candidates", reps).items():
+                print(f"  {kname[:60]}: {ms:.4f} ms of device time a round "
+                      f"(torch.profiler)", flush=True)
+    for label, before in (("idle", None), ("after B1", b1), ("after the plain version", plain),
+                          ("after cuBLAS", cublas)):
+        samples = []
+        for _ in range(reps):
+            if before is not None:
+                before()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(spin)
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        ms = statistics.median(samples)
+        print(f"SM clock {label}: {spin / ms / 1e3:.0f} MHz ({spin} cycles in {ms:.4f} ms)",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -79,7 +292,17 @@ def main() -> int:
 
     def show(times):
         for name, ms in times.items():
-            print(f"{name}: {ms:.4f} ms [{card}]")
+            print(f"{name}: {ms:.4f} ms [{card}]", flush=True)
+
+    if sys.argv[1:2] == ["fused"]:
+        fused_sweep(lib, check, rand, show, *sys.argv[2:3])
+        return 0
+    if sys.argv[1:] == ["paths"]:
+        fused_paths(rand, show)
+        return 0
+    if sys.argv[1:] == ["beside"]:
+        b1_beside(rand, show)
+        return 0
 
     k9, n9 = 16, 1 << 24
     q9, r9 = rand((1, k9)), rand((n9, k9))
@@ -90,20 +313,6 @@ def main() -> int:
     k, m, n = 16, 1024, 1 << 20
     q, r = rand((m, k)), rand((n, k))
     r_op = prep_soa(r, n)
-
-    def b1(parts, tile_m):
-        idx = torch.empty((m, parts * 128), dtype=torch.int32, device=dev)
-        score = torch.empty((m, parts * 128), dtype=torch.float32, device=dev)
-        err = lib.tk_fused_candidates(
-            q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
-            m, k, r_op.stride(0), n, parts, tile_m,
-            torch.cuda.current_stream().cuda_stream)
-        check(lib, err, "B1 fused_candidates")
-        return idx, score
-
-    fns = {f"B1 ds11 TM=32 P={p}": (lambda p=p: b1(p, 32)) for p in (5, 9, 18, 36, 72)}
-    fns.update({f"B1 ds11 TM=8 P={p}": (lambda p=p: b1(p, 8)) for p in (3, 9, 18)})
-    show(time_ms(fns, 10))
 
     fns = {f"v7 ds9 parts={p}": (lambda p=p: twolevel_knn(q9, r9, parts=p))
            for p in (8, 66, 132, 264, 528)}

@@ -1,5 +1,5 @@
-"""Timing: CUDA events (chip_smoke.py and the probes) and the harness's
-wall clock."""
+"""Timing: CUDA events (chip_smoke.py and the probes), the kernels' own
+device time (torch.profiler) and the harness's wall clock."""
 
 from __future__ import annotations
 
@@ -49,3 +49,27 @@ def time_ms(fns: dict, reps: int, warmup: int = 2) -> dict:
             end.synchronize()
             samples[name].append(start.elapsed_time(end))
     return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def device_ms(fns: dict, kernel: str, reps: int) -> dict:
+    """Mean device time per round, by kernel name, of the kernels whose
+    name holds `kernel`, from torch.profiler, the fns run once each a
+    round: the kernels alone, without the host's launch path (argument
+    checks, allocations, small set-up kernels) that a CUDA-event span
+    around a call also holds while the card waits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time / 1e3 / reps
+    return out
