@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 0. setup: requires an sm_90 card, prints its name and power limit, turns
    TF32 off, builds the CUDA kernels from tpu_knn_torch/csrc (build time
-   and the ptxas report are printed);
+   and the ptxas report are printed; any spill in an instance of B3's or
+   B7's tiled kernel fails);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
@@ -24,13 +25,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    the seeded engine's kernels: B3 (value-only lane minima; bit-equal to
    B1's), B7 (per-cell moments; packed words identical to the plain
    version's, with bounds set between scores) and the B8/B9 compactor
-   (identical, at part widths on both sides of 8192); then every B3, B7
-   and compactor launch of the seeded main path against its plain
-   version (SeededLaunchCheck), with phase 2's seeded calls run once on
-   data of their own; then the 1-NN ladder's kernels: B10 (index-equal to
-   B1 at the same partition count) on a grid and at v5's launches of phase
-   2, B11 (windows of 1 + 1 and 64 + 1 tiles, n ragged against 4096, a
-   window at the last tile with planted duplicates, and the auto path's
+   (identical, at part widths on both sides of 8192); B3 and B7 (the
+   tiled template with their own epilogues) also at its tile edges (m
+   past a block's rows, n ragged against 256 and 128, an operand wider
+   than n, k ragged against a d-chunk, k = 1 and 768, ld not a multiple of
+   4 for B3, a misaligned operand base for B7, cells of 64/128/256 in both
+   modes), each launch also with the transposed queries passed in as the
+   engine passes them; B7 at the ds11 K = 8 and K = 64 launches with the
+   bound set to each row's uninflated K-th smallest of the kernel's own
+   B3 minima, counting at least K qualifiers in every row (the two score
+   bit for bit alike); then every B3, B7 and compactor launch of the
+   seeded main path against its plain version (SeededLaunchCheck), with
+   phase 2's seeded calls run once on data of their own; then the 1-NN
+   ladder's kernels: B10 (index-equal to B1 at the same partition count)
+   on a grid and at v5's launches of phase 2, B11 (windows of 1 + 1 and
+   64 + 1 tiles, n ragged against 4096, a window at the last tile with
+   planted duplicates, and the auto path's
    (3, 16, 2^24) launch, at one split and the default splits), and B1's
    AoS (v3) and constant-query (v6) variants, bit-equal to B1; then the
    tensor-core kernel's instances (B1's tiers and B12) on a grid of k = 1
@@ -83,8 +93,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      "B1 k=768" row's;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
    cuBLAS product of the score matrices and the main paths (B1 "highest"
-   also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1
-   and B4 also by their kernel's own device time from torch.profiler; among them
+   also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1,
+   B4, B3 and B7 (at the seeded ds11 K = 8 and K = 64 launches, B3 with
+   its partition merge) also by their kernels' own device time from
+   torch.profiler; among them
    the ladder's per-call rows and prepared auto against prepared fused,
    with device time and idle per host read from torch.profiler; each tier
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
@@ -679,8 +691,24 @@ def bound_between(s, lo_rank, hi_rank):
     return ((srt.gather(1, j) + srt.gather(1, j + 1)) / 2).squeeze(1).contiguous()
 
 
-def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases):
-    """B3, B7 and the B8/B9 compactor against their plain versions."""
+def misaligned(r_op, offset: int = 1):
+    """A contiguous copy of r_op whose data start `offset` floats into its
+    storage: not 16-byte aligned, so the tiled kernels take their 4-byte
+    copies."""
+    import torch
+
+    flat = torch.zeros(r_op.numel() + offset, dtype=r_op.dtype, device=r_op.device)
+    out = flat[offset:].view(r_op.shape)
+    out.copy_(r_op)
+    return out
+
+
+def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases, with_q_t=False):
+    """B3, B7 and the B8/B9 compactor against their plain versions. A B7
+    case may carry an 8th field, an operand offset in floats (misaligned).
+    with_q_t: each B3 and B7 launch is also made with the queries'
+    transposed copy passed in, as the seeded engine passes it, and must
+    give the same outputs."""
     import torch
 
     from tpu_knn_torch.kernels import fused, seeded
@@ -692,6 +720,10 @@ def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases):
         r_op = prep_soa(uniform(gen, (n, k), device), n_ops)
         lo = bound_between(plain_scores(q, r_op, n), 3, 40) if banded else None
         got = fused.minima_candidates(q, r_op, n, depth=depth, lo=lo, n_limit=n_limit)
+        if with_q_t and not torch.equal(got, fused.minima_candidates(
+                q, r_op, n, depth=depth, lo=lo, n_limit=n_limit,
+                q_t=fused.transposed_queries(q))):
+            fail(f"B3 {(k, m, n, depth, banded, n_limit)}: differs with q_t passed in")
         want = fused.minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
         fin = torch.isfinite(want)
         if not torch.equal(fin, torch.isfinite(got)):
@@ -711,14 +743,20 @@ def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases):
             f"n_limit={n_limit}: max |diff| to plain {err:.3g} (max |score| {scale:.3g}), "
             f"bit-equal to B1: {b1_equal}")
         del r_op
-    for k, m, n, n_ops, cell, nf, banded in b7_cases:
+    for k, m, n, n_ops, cell, nf, banded, *offset in b7_cases:
         q = uniform(gen, (m, k), device)
         r_op = prep_soa(uniform(gen, (n, k), device), n_ops)
+        if offset:
+            r_op = misaligned(r_op, *offset)
         s = plain_scores(q, r_op, n)
         bound = bound_between(s, 60, 200)
         lo = bound_between(s, 5, 40) if banded else None
         del s
         got = seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded)
+        if with_q_t and not all(torch.equal(a, b) for a, b in zip(got, seeded.extract_moments(
+                q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded,
+                q_t=fused.transposed_queries(q)))):
+            fail(f"B7 {(k, m, n, n_ops, cell, nf, banded)}: differs with q_t passed in")
         want = seeded.extract_moments_plain(q, r_op, n, bound, cell, nf, lo, banded)
         for g, w in zip(got[:1 + (nf == 8)], want):
             if not torch.equal(g, w):
@@ -733,7 +771,8 @@ def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases):
                 fail(f"B7 {(k, m, n, cell, nf)}: remainder minima differ ({rem_err})")
         errs["B7"] = max(errs["B7"], rem_err)
         log(f"  B7: k={k} m={m} n={n} n_ops={n_ops} cell={cell} fields={nf} "
-            f"banded={banded}: packed words identical ({int((got[0] != 0).sum())} "
+            f"banded={banded}{' misaligned' if offset else ''}: packed words identical "
+            f"({int((got[0] != 0).sum())} "
             f"qualifying cells, {int(((got[0] >> 30) & 1).sum())} flagged)"
             + (f", remainder minima max |diff| {rem_err:.3g}" if banded else ""))
         del r_op
@@ -752,6 +791,42 @@ def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases):
             f"{regime}'s regime) cap={cap} fields={nf}: identical to plain")
     torch.cuda.synchronize(device)
     return errs
+
+
+def phase1_own_minima(device, gen, kks=(8, 64)):
+    """The seeded engine's invariant on the card, at its ds11 launches for
+    each K in kks: with the bound set to each row's K-th smallest of B3's
+    own lane minima, not inflated, B7 counts at least K qualifiers in
+    every row (the K lanes' minima are K distinct columns scoring <= the
+    bound, so this holds only if B7 scores each of them bit for bit as B3
+    did). Counted as the engine counts: a cell's min(cnt, 3), or solvable
+    + 1 where its overflow bit is set."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded
+    from tpu_knn_torch.kernels.fused import prep_soa
+
+    k, m, n = DS11
+    q = uniform(gen, (m, k), device)
+    r_op = prep_soa(uniform(gen, (n, k), device), n)
+    q_t = fused.transposed_queries(q)
+    for kk in kks:
+        g = seeded.seeded_geometry(m, n, k, kk, n)
+        cs1 = fused.minima_candidates(q, r_op, n, depth=g["depth"], n_limit=g["p1_limit"],
+                                      q_t=q_t)
+        bound = seeded._kth_smallest(cs1, kk)
+        a = seeded.extract_moments(q, r_op, n, bound, g["cell"], g["n_fields"], q_t=q_t)[0]
+        solvable = g["solvable"]
+        counted = torch.where(((a >> 30) & 1) != 0, solvable + 1,
+                              torch.clamp(a & 3, max=solvable)).sum(dim=1)
+        short = int((counted < kk).sum())
+        log(f"  B3 -> B7 at ds11 K={kk} (cell {g['cell']}, {g['n_fields']} fields, B3 prefix "
+            f"{g['p1_limit']}): bound = each row's uninflated K-th B3 lane minimum; B7 counts "
+            f">= {counted.min().item()} (median {counted.median().item()}) qualifiers a row, "
+            f"{short} rows under K")
+        if short:
+            fail(f"B7 at B3's own K={kk} bound counts fewer than K qualifiers in {short} rows")
+    del r_op
 
 
 def seeded_tiers():
@@ -835,12 +910,13 @@ class SeededLaunchCheck:
             setattr(self.mod, name, fn)
         return False
 
-    def b3(self, q, r_op, n, depth=1, lo=None, n_limit=None):
+    def b3(self, q, r_op, n, depth=1, lo=None, n_limit=None, q_t=None):
         import torch
 
         from tpu_knn_torch.kernels.fused import minima_candidates_plain
 
-        got = self.orig["minima_candidates"](q, r_op, n, depth=depth, lo=lo, n_limit=n_limit)
+        got = self.orig["minima_candidates"](q, r_op, n, depth=depth, lo=lo, n_limit=n_limit,
+                                             q_t=q_t)
         want = minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
         fin = torch.isfinite(want)
         what = f"B3 (m={q.shape[0]}, n={n}, depth {depth}, prefix {n_limit})"
@@ -855,11 +931,11 @@ class SeededLaunchCheck:
                                                                else "")] += 1
         return got
 
-    def b7(self, q, r_op, n, bound, cell, n_fields, lo=None, emit_rem=False):
+    def b7(self, q, r_op, n, bound, cell, n_fields, lo=None, emit_rem=False, q_t=None):
         import torch
 
         got = self.orig["extract_moments"](q, r_op, n, bound, cell, n_fields, lo=lo,
-                                           emit_rem=emit_rem)
+                                           emit_rem=emit_rem, q_t=q_t)
         want = self.mod.extract_moments_plain(q, r_op, n, bound, cell, n_fields, lo,
                                               emit_rem)
         what = (f"B7 (m={q.shape[0]}, n={n}, n_ops={r_op.shape[1]}, cell {cell}, "
@@ -1757,18 +1833,21 @@ def phase3(card: str, big11, big9, reps: int):
     return times
 
 
-def kernel_device_ms(fn, reps: int, card: str) -> float:
-    """The tiled f32 kernel's own device time per call of fn (B1 or B4),
-    from torch.profiler and logged: the CUDA-event time around the wrapper
-    also holds its host launch path, during which the card waits."""
+def kernel_device_ms(fn, reps: int, card: str, kernel: str = "tiled_candidates",
+                     count: int = 1) -> float:
+    """The own device time per call of fn's `count` kernels whose names
+    hold `kernel` (B1 or B4: the tiled kernel; B3: it and the partition
+    merge; B7: the tiled moments kernel), summed, from torch.profiler and
+    logged: the CUDA-event time around the wrapper also holds its host
+    launch path, during which the card waits."""
     from tpu_knn_torch.utils.timing import device_ms
 
-    got = device_ms({"fn": fn}, "tiled_candidates", reps)
-    if len(got) != 1:
-        fail(f"expected one tiled kernel in the profile, got {sorted(got)}")
-    (name, ms), = got.items()
-    log(f"  device time of {name[:70]}: mean {ms:.4f} ms over {reps} calls [{card}]")
-    return ms
+    got = device_ms({"fn": fn}, kernel, reps)
+    if len(got) != count:
+        fail(f"expected {count} {kernel} kernel(s) in the profile, got {sorted(got)}")
+    for name, ms in got.items():
+        log(f"  device time of {name[:70]}: mean {ms:.4f} ms over {reps} calls [{card}]")
+    return sum(got.values())
 
 
 #: "highest" 1-NN at embedding width: B1 at k = 768 (the tiled f32
@@ -1857,16 +1936,18 @@ def phase3_topk(card: str, ctx, calls, reps: int):
 
 def seeded_launches(q, r_op, n, kk):
     """The inputs the seeded engine gives B3, B7 and the compactor for
-    (q, operand, K), computed as kernels/seeded.py computes them."""
+    (q, operand, K), computed as kernels/seeded.py computes them (B3 and
+    B7 with the queries' transposed copy made once, q_t in b3)."""
     from tpu_knn_torch.kernels import fused, seeded
 
     m, k = q.shape
     g = seeded.seeded_geometry(m, n, k, kk, r_op.shape[1])
-    b3 = dict(depth=g["depth"], n_limit=g["p1_limit"])
+    q_t = fused.transposed_queries(q)
+    b3 = dict(depth=g["depth"], n_limit=g["p1_limit"], q_t=q_t)
     cs1 = fused.minima_candidates(q, r_op, n, **b3)
     bound = seeded._inflate_bound(seeded._kth_smallest(cs1, kk))
     b7 = (bound, g["cell"], g["n_fields"])
-    moms = seeded.extract_moments(q, r_op, n, *b7)
+    moms = seeded.extract_moments(q, r_op, n, *b7, q_t=q_t)
     fields = [f.contiguous() for f in moms[:2 if g["n_fields"] == 8 else 1]]
     return g, b3, b7, (fields, g["nparts"], min(g["cap_fast"], g["nc"] // g["nparts"]))
 
@@ -1876,6 +1957,8 @@ def phase3_seeded(card, ctx, calls, reps):
     seeded path's ds11 K = 8 and K = 64 launches (the compactor also at
     (16, 1024, 2^22) K = 8, part width 16384), and of each phase-2 seeded
     call. Returns (times, bounds: name -> (ms, by))."""
+    import functools
+
     import torch
 
     from tpu_knn_torch.kernels import fused, seeded
@@ -1892,13 +1975,21 @@ def phase3_seeded(card, ctx, calls, reps):
         g, b3, b7, comp = seeded_launches(q, r_op, n, kk)
         fields, parts, cap = comp
         if label != "(16, 1024, 2^22) K=8":
+            b3_kernel = functools.partial(fused.minima_candidates, q, r_op, n, **b3)
+            b7_kernel = functools.partial(seeded.extract_moments, q, r_op, n, *b7, q_t=b3["q_t"])
             times.update(time_ms({
-                f"B3 kernel {label}": lambda: fused.minima_candidates(q, r_op, n, **b3),
+                f"B3 kernel {label}": b3_kernel,
                 f"B3 plain {label}": lambda: fused.minima_candidates_plain(
                     q, r_op, n, b3["depth"], None, b3["n_limit"]),
-                f"B7 kernel {label}": lambda: seeded.extract_moments(q, r_op, n, *b7),
+                f"B7 kernel {label}": b7_kernel,
                 f"B7 plain {label}": lambda: seeded.extract_moments_plain(q, r_op, n, *b7),
             }, reps))
+            # The kernels' own device time (B3: the tiled kernel and the
+            # partition merge), beside the event time above.
+            times[f"B3 kernel {label} device"] = kernel_device_ms(b3_kernel, reps, card,
+                                                                 "minima", 2)
+            times[f"B7 kernel {label} device"] = kernel_device_ms(b7_kernel, reps, card,
+                                                                 "tiled_moments")
             n_read = n if b3["n_limit"] is None else min(n, b3["n_limit"])
             bounds[f"B3 {label}"] = roofline(
                 4 * (m * k + k * n_read + m * 128 * b3["depth"]), 2 * m * n_read * k)
@@ -2087,6 +2178,32 @@ def bound(m, k, n, width, extra_bytes, flops_per_term):
                     flops_per_term * m * n * k)
 
 
+def check_no_spills(ptxas, kernels):
+    """Fail if ptxas's report (-v) shows spill stores or loads in any
+    instantiation of a kernel whose mangled name holds kernels[kid]; log
+    each kernel's instantiations and their registers."""
+    import re
+
+    entry, seen = None, {kid: [] for kid in kernels}
+    for line in ptxas:
+        got = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if got:
+            entry = got.group(1)
+            continue
+        kid = next((kid for kid, sub in kernels.items() if entry and sub in entry), None)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if kid and spill and (int(spill.group(1)) or int(spill.group(2))):
+            fail(f"{kid}: ptxas spills in {entry}: {line.strip()}")
+        if kid and regs:
+            seen[kid].append(int(regs.group(1)))
+    for kid, regs in seen.items():
+        if not regs:
+            fail(f"{kid}: no {kernels[kid]} instantiation in the ptxas report")
+        log(f"  {kid} ({kernels[kid]}): {len(regs)} instantiations, registers {sorted(regs)}, "
+            "no spills")
+
+
 # ---- main ------------------------------------------------------------------
 
 
@@ -2130,9 +2247,11 @@ def main() -> int:
         f"({os.path.relpath(build.lib_path(), REPO)})")
     if os.path.exists(build.log_path()):
         with open(build.log_path()) as f:
-            for line in f.read().splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
-                    log(f"  ptxas: {line.strip()}")
+            ptxas = f.read().splitlines()
+        for line in ptxas:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
+        check_no_spills(ptxas, {"B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel"})
 
     stamp("phase 0")
     gen = torch.Generator(device=device)
@@ -2223,6 +2342,30 @@ def main() -> int:
                       (33, 40_000, 2, 80, 1, 0.003)]
     errs.update(phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases))
     stamp("phase 1 B3/B7/compactor grid")
+    # B3 and B7 (the tiled template with their own epilogues) at its edges,
+    # each launch also made with the transposed queries passed in: m past a
+    # block's 8 * TM rows, n ragged against 256 and 128, an operand wider
+    # than n, k ragged against the d-chunk, k = 1 and 768, ld not a multiple
+    # of 4 (B3) or a base not 16-byte aligned (B7: its ld is a multiple of
+    # the cell), cells of 64, 128 and 256 in both modes; then the own-minima
+    # check at ds11 K = 8 and 64. A generator of their own keeps phase 2's
+    # data as they were.
+    gen_seeded = torch.Generator(device=device)
+    gen_seeded.manual_seed(1004)
+    b3_edges = [(1, 65, 3149, 3200, 1, False, None), (17, 9, 1000, 1001, 2, True, None),
+                (40, 33, 9077, 9077, 1, False, 5000), (16, 70, 2049, 2051, 2, False, None),
+                (768, 70, 5077, 5077, 1, True, None),
+                (16, 1000, n20 + 77, n20 + 77, 2, False, None)]
+    b7_edges = [(1, 65, 3149, 3200, 64, 4, False), (17, 9, 1000, 1280, 128, 8, True, 1),
+                (40, 33, 9077, 9216, 256, 4, False), (16, 70, 2049, 2304, 256, 8, True),
+                (768, 70, 5077, 5120, 64, 8, False), (16, 3, 20_000, 32_768, 128, 4, False, 3),
+                (16, 1000, n20 + 77, n20 + 256, 128, 8, True)]
+    edge_errs.update({kid: err for kid, err in phase1_seeded(
+        device, gen_seeded, b3_edges, b7_edges, [], with_q_t=True).items() if kid != "B8/B9"})
+    log(f"  tile edges: max |diff| B3 {edge_errs['B3']:.3g}, B7 remainder {edge_errs['B7']:.3g}")
+    phase1_own_minima(device, gen_seeded)
+    torch.cuda.empty_cache()
+    stamp("phase 1 B3/B7 tile edges and own-minima check")
     # And at every launch of the seeded main path: phase 2's seeded calls
     # at their own shapes, on data of their own.
     own = seeded_cases(device, gen, uniform(gen, (DS11[1], 16), device),

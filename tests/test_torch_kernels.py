@@ -262,18 +262,29 @@ def _bound_between(s, lo_rank, hi_rank):
     return ((srt.gather(1, j) + srt.gather(1, j + 1)) / 2).squeeze(1).contiguous()
 
 
-@pytest.mark.parametrize("k,m,n,depth,banded,n_limit", [
-    (16, 100, 70_000, 1, False, None), (16, 100, 70_000, 2, False, None),
-    (5, 40, 3001, 1, True, None), (16, 9, 70_000, 1, False, 32_768),
-    (7, 33, 20_000, 2, True, 10_000), (40, 3, 5000, 2, False, None),
-])
-def test_b3_matches_plain_and_b1(device, k, m, n, depth, banded, n_limit):
-    q, r, r_op = _inputs(device, m, k, n, seed=k + m + depth)
+def _misaligned(r_op, offset):
+    """A contiguous copy of r_op starting `offset` floats into its storage
+    (a base that is not 16-byte aligned: the tiled kernels' 4-byte
+    copies)."""
+    flat = torch.zeros(r_op.numel() + offset, dtype=r_op.dtype, device=r_op.device)
+    out = flat[offset:].view(r_op.shape)
+    out.copy_(r_op)
+    return out
+
+
+def _check_b3(q, r_op, n, depth, banded, n_limit):
+    """B3 against its plain version (and, unbanded, bit-equal to B1's lane
+    minima over the same prefix), the same with q's transposed copy passed
+    in as the seeded engine passes it."""
+    m, k = q.shape
     lo = _bound_between(_plain_scores(q, r_op, n), 3, 40) if banded else None
     before = fused.minima_candidates.launches
     got = fused.minima_candidates(q, r_op, n, depth=depth, lo=lo, n_limit=n_limit)
+    again = fused.minima_candidates(q, r_op, n, depth=depth, lo=lo, n_limit=n_limit,
+                                    q_t=fused.transposed_queries(q))
     torch.cuda.synchronize()
-    assert fused.minima_candidates.launches == before + 1
+    assert fused.minima_candidates.launches == before + 2
+    assert torch.equal(again, got)
     want = fused.minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
     assert got.shape == want.shape == (m, 128 * depth)
     fin = torch.isfinite(want)
@@ -281,10 +292,71 @@ def test_b3_matches_plain_and_b1(device, k, m, n, depth, banded, n_limit):
     scale = want[fin].abs().max()
     assert ((got - want)[fin].abs() <= max(1e-5, 4 * k * 2.0 ** -24) * scale).all()
     if not banded:
-        # Bit-identical to B1's lane minima over the same prefix.
         n_eff = n if n_limit is None else min(n, n_limit)
         _, b1 = fused.fused_candidates(q, r_op, n_eff, 1)
         assert torch.equal(got[:, :128], b1)
+
+
+@pytest.mark.parametrize("k,m,n,depth,banded,n_limit", [
+    (16, 100, 70_000, 1, False, None), (16, 100, 70_000, 2, False, None),
+    (5, 40, 3001, 1, True, None), (16, 9, 70_000, 1, False, 32_768),
+    (7, 33, 20_000, 2, True, 10_000), (40, 3, 5000, 2, False, None),
+])
+def test_b3_matches_plain_and_b1(device, k, m, n, depth, banded, n_limit):
+    q, _, r_op = _inputs(device, m, k, n, seed=k + m + depth)
+    _check_b3(q, r_op, n, depth, banded, n_limit)
+
+
+# B3 and B7 (the tiled template with epilogues of their own) at its edges:
+# m past a block's 8 * TM rows, n ragged against 256 and 128, an operand
+# wider than n, k ragged against the 16-row chunk, k = 1 and 768, ld not a
+# multiple of 4 (B3) or an operand base that is not 16-byte aligned (B7,
+# whose ld is a multiple of its cell), cells of 64, 128 and 256 in the
+# quadratic and cubic modes.
+B3_EDGES = [  # k, m, n, ld, depth, banded, n_limit
+    (1, 65, 3149, 3200, 1, False, None), (17, 9, 1000, 1001, 2, True, None),
+    (40, 33, 9077, 9077, 1, False, 5000), (16, 70, 2049, 2051, 2, False, None),
+    (768, 70, 5077, 5077, 1, True, None), (3, 5, 777, 779, 2, False, None),
+]
+B7_EDGES = [  # k, m, n, n_ops, cell, fields, banded, operand offset
+    (1, 65, 3149, 3200, 64, 4, False, 0), (17, 9, 1000, 1280, 128, 8, True, 1),
+    (40, 33, 9077, 9216, 256, 4, False, 0), (16, 70, 2049, 2304, 256, 8, True, 0),
+    (768, 70, 5077, 5120, 64, 8, False, 0), (16, 3, 20_000, 32_768, 128, 4, False, 3),
+    (5, 40, 3000, 3072, 64, 4, True, 2),
+]
+
+
+@pytest.mark.parametrize("k,m,n,ld,depth,banded,n_limit", B3_EDGES)
+def test_b3_matches_plain_and_b1_at_tile_edges(device, k, m, n, ld, depth, banded, n_limit):
+    q, r, _ = _inputs(device, m, k, n, seed=k + 5 * m)
+    _check_b3(q, prep_soa(r, ld), n, depth, banded, n_limit)
+
+
+def _check_b7(q, r_op, n, cell, nf, banded):
+    """B7's packed words identical to its plain version's (bounds set
+    between scores), the remainder minima within 1e-5, the same with q's
+    transposed copy passed in."""
+    m = q.shape[0]
+    s = _plain_scores(q, r_op, n)
+    bound = _bound_between(s, 60, 200)
+    lo = _bound_between(s, 5, 40) if banded else None
+    before = seeded.extract_moments.launches
+    got = seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded)
+    again = seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded,
+                                   q_t=fused.transposed_queries(q))
+    torch.cuda.synchronize()
+    assert seeded.extract_moments.launches == before + 2
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    want = seeded.extract_moments_plain(q, r_op, n, bound, cell, nf, lo, banded)
+    assert len(got) == len(want)
+    for g, w in zip(got[:1 + (nf == 8)], want):
+        assert g.shape == (m, r_op.shape[1] // cell) and torch.equal(g, w)
+    assert bool((got[0] != 0).any())
+    if banded:
+        fin = torch.isfinite(want[-1])
+        assert torch.equal(fin, torch.isfinite(got[-1]))
+        scale = want[-1][fin].abs().max()
+        assert ((got[-1] - want[-1])[fin].abs() <= 1e-5 * scale).all()
 
 
 @pytest.mark.parametrize("k,m,n,n_ops,cell,nf,banded", [
@@ -294,24 +366,27 @@ def test_b3_matches_plain_and_b1(device, k, m, n, depth, banded, n_limit):
 ])
 def test_b7_packed_words_equal_plain(device, k, m, n, n_ops, cell, nf, banded):
     q, r, _ = _inputs(device, m, k, n, seed=n + cell + nf)
+    _check_b7(q, prep_soa(r, n_ops), n, cell, nf, banded)
+
+
+@pytest.mark.parametrize("k,m,n,n_ops,cell,nf,banded,offset", B7_EDGES)
+def test_b7_packed_words_equal_plain_at_tile_edges(device, k, m, n, n_ops, cell, nf, banded,
+                                                   offset):
+    q, r, _ = _inputs(device, m, k, n, seed=k + 7 * m)
     r_op = prep_soa(r, n_ops)
-    s = _plain_scores(q, r_op, n)
-    bound = _bound_between(s, 60, 200)
-    lo = _bound_between(s, 5, 40) if banded else None
-    before = seeded.extract_moments.launches
-    got = seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=banded)
-    torch.cuda.synchronize()
-    assert seeded.extract_moments.launches == before + 1
-    want = seeded.extract_moments_plain(q, r_op, n, bound, cell, nf, lo, banded)
-    assert len(got) == len(want)
-    for g, w in zip(got[:1 + (nf == 8)], want):
-        assert g.shape == (m, n_ops // cell) and torch.equal(g, w)
-    assert bool((got[0] != 0).any())
-    if banded:
-        fin = torch.isfinite(want[-1])
-        assert torch.equal(fin, torch.isfinite(got[-1]))
-        scale = want[-1][fin].abs().max()
-        assert ((got[-1] - want[-1])[fin].abs() <= 1e-5 * scale).all()
+    _check_b7(q, _misaligned(r_op, offset) if offset else r_op, n, cell, nf, banded)
+
+
+def test_b3_and_b7_raise_on_a_malformed_q_t(device):
+    q, _, r_op = _inputs(device, 10, 16, 3000, seed=3)
+    bound = torch.zeros((10,), device=device)
+    q_t = fused.transposed_queries(q)
+    for bad in (q_t[:, :8].contiguous(), q_t.double(), q.T.contiguous(), q_t.cpu(),
+                torch.zeros((17, 12), device=device)):
+        with pytest.raises(ValueError, match="q_t"):
+            fused.minima_candidates(q, r_op, 3000, q_t=bad)
+        with pytest.raises(ValueError, match="q_t"):
+            seeded.extract_moments(q, r_op, 3000, bound, 128, 4, q_t=bad)
 
 
 def _fields(device, m, nc, nf, density, seed):

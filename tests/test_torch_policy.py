@@ -226,6 +226,42 @@ def test_cuda_launch_geometry_covers_n():
         pt_tuning.tiled_geometry(8, 0, 1000)
 
 
+def test_b7_launch_geometry_takes_whole_chunks_in_whole_waves():
+    """B7's grid (tuning.moments_geometry): the same template as
+    tiled_geometry's, one block per row tile and partition of whole
+    256-column chunks. TM is the built instance tiled_geometry picks at m,
+    the geometry is the same at every k (k only streams through the ring),
+    P stays within the chunks of n, and waves of 2 blocks per SM x chunks
+    per block is within 5% of the same chunks spread evenly over whole
+    waves."""
+    per_wave = pt_tuning.TILED_BLOCKS_PER_SM * pt_tuning.H100_SMS
+    assert pt_tuning.MOMENT_CHUNK == 256
+    for m in MS[1:]:
+        rows_per_block = pt_tuning.TILED_WARPS * pt_tuning.tiled_geometry(m, 1, 1).tm
+        for n in NS:
+            g = pt_tuning.moments_geometry(m, 1, n)
+            for k in KS:
+                assert pt_tuning.moments_geometry(m, k, n) == g
+            assert g.tm in pt_tuning.TILED_ROWS
+            assert pt_tuning.TILED_WARPS * g.tm == rows_per_block
+            chunks = -(-n // pt_tuning.MOMENT_CHUNK)
+            assert 1 <= g.parts <= chunks
+            row_tiles = -(-m // rows_per_block)
+            waves = -(-row_tiles * g.parts // per_wave)
+            per_block = -(-chunks // g.parts)
+            even = -(-row_tiles * chunks // per_wave)
+            assert waves * per_block <= 1.05 * even
+    # Named shapes: ds11 (and each 1024-row chunk of knn_graph over 2^17
+    # points) takes 16 row tiles x 16 partitions = 256 blocks, one wave, as
+    # B1 does there; the planted m = 64 cases spread over 256 partitions.
+    assert pt_tuning.moments_geometry(1024, 16, 1 << 20) == (8, 16)
+    assert pt_tuning.moments_geometry(1024, 16, 1 << 17) == (8, 16)
+    assert pt_tuning.moments_geometry(64, 16, 1 << 20) == (8, 256)
+    assert pt_tuning.moments_geometry(8, 16, 1 << 20) == (1, 256)
+    with pytest.raises(ValueError, match="empty"):
+        pt_tuning.moments_geometry(8, 16, 0)
+
+
 # ---- the seeded engine's cell policy and capacity ladder ------------------
 
 SEEDED_KS = [1, 2, 8, 9, 16, 17, 32, 33, 48, 64, 65, 96, 128, 129, 200, 300, 512]

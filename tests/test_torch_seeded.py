@@ -388,6 +388,50 @@ def test_b7_plain_packed_words_equal_pallas(m, n, k, n_ops, tile_n, kk, banded):
     assert ((got[0] >> 30) & 1).any() or banded       # row 0's dense cell
 
 
+def _engine_count(a, solvable: int):
+    """Qualifiers a row's packed B7 words prove, as the seeded engine
+    counts them: min(cnt, 3) per cell, solvable + 1 where a cell's
+    overflow bit is set."""
+    a = np.asarray(a, np.int64)
+    return np.where((a >> 30) & 1, solvable + 1, np.minimum(a & 3, solvable)).sum(axis=1)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("kk", [8, 64])
+def test_b3_and_b7_hold_the_uninflated_seeded_bound(kk, planted):
+    """The invariant the seeded engine rests on, which the card's B3 and B7
+    must keep by scoring every column bit for bit alike: with the bound at
+    each row's K-th smallest of B3's lane minima, not inflated, B7 counts
+    at least K qualifiers in every row (the K lanes' minima are K distinct
+    columns at or under the bound). On uniform data and with K + 2 exact
+    copies of a point near query 0 planted in distinct lanes and cells, so
+    that row 0's bound is a K-way tie. tpu_knn's B3 and B7 (interpret mode)
+    run the same case at their own bound."""
+    m, n, k, n_ops, tile_n = 16, 9000, 5, 9216, 512
+    rng = np.random.default_rng(kk + planted)
+    q = rng.random((m, k), np.float32)
+    r = rng.random((n, k), np.float32)
+    if planted:
+        r[7 + 129 * np.arange(kk + 2)] = q[0] + 1e-3
+    mom = jx_topk._build_extract_candidates(m, n, k, 8, tile_n, "highest", n_ops=n_ops,
+                                            kk=kk)
+    solvable = 2 if mom.n_fields == 4 else 3
+    r_op = prep_soa(_t(r), n_ops)
+    bound = np.sort(pt_fused.minima_candidates_plain(_t(q), r_op, n).numpy(), axis=1)[:, kk - 1]
+    a = pt_seeded.extract_moments_plain(_t(q), r_op, n, _t(bound), mom.cell, mom.n_fields)[0]
+    counted = _engine_count(a.numpy(), solvable)
+    assert (counted >= kk).all(), counted
+    if planted:   # the copies tie at row 0's bound, each in a cell of its own
+        assert bound[0] == np.float32(pt_fused.norm_scores(_t(q[:1]), r_op, n)[0, 7])
+        assert counted[0] >= kk + 2
+
+    mins = jx_fused._build_minima_candidates(m, n, k, 8, tile_n, "highest", n_ops=n_ops)
+    r_op_j = jnp.pad(jnp.asarray(r), ((0, n_ops - n), (0, -k % 8))).T
+    jx_bound = np.sort(np.asarray(mins(q, (r_op_j,))), axis=1)[:, kk - 1]
+    jx_a = mom(q, mom.prep_soa(r), jx_bound[:, None])[0]
+    assert (_engine_count(jx_a, solvable) >= kk).all()
+
+
 @pytest.mark.parametrize("m,nc,parts,cap,nf,dens", [
     (16, 512, 1, 8, 1, 0.02), (16, 512, 1, 8, 2, 0.08), (12, 1024, 4, 8, 2, 0.02),
     (8, 8192, 1, 48, 2, 0.004), (4, 16384, 1, 16, 2, 0.001), (16, 512, 1, 8, 2, 0.0),

@@ -4,9 +4,9 @@ The pattern of tpu_knn/native/build.py: the sources are compiled on first
 use, into ``tpu_knn_torch/_build/`` under a name that hashes their content
 and the flags, through a temporary directory and an atomic rename, so
 concurrent first users are safe and a changed source rebuilds. Each *.cu
-file (one family of kernels; knn_common.cuh holds what they share) is
-compiled by its own nvcc, all started together, and the objects are
-linked into one library. The library has a plain C interface (no PyTorch
+file (one family of kernels; knn_common.cuh and tiled.cuh hold what they
+share) is compiled by its own nvcc, all started together, and the objects
+are linked into one library. The library has a plain C interface (no PyTorch
 headers), which keeps a build to seconds. Nothing is fetched: the build
 uses the sources in this directory and the local CUDA toolkit. Importing
 this module runs nothing.
@@ -119,10 +119,9 @@ def load() -> ctypes.CDLL:
     lib.tk_smallm_topk_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                               i64, i32, i32, i32, ptr]
     lib.tk_smallm_topk_candidates.restype = i32
-    lib.tk_minima_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64,
-                                         i32, i32, i32, i32, ptr]
+    lib.tk_minima_candidates.argtypes = [ptr] * 5 + [i32, i32, i32, i64] + [i32] * 4 + [ptr]
     lib.tk_minima_candidates.restype = i32
-    lib.tk_extract_moments.argtypes = [ptr] * 8 + [i32, i32, i64] + [i32] * 6 + [ptr]
+    lib.tk_extract_moments.argtypes = [ptr] * 8 + [i32, i32, i32, i64] + [i32] * 6 + [ptr]
     lib.tk_extract_moments.restype = i32
     lib.tk_compact_cells.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.tk_compact_cells.restype = i32

@@ -4,6 +4,7 @@
 // thread per lane, column_scores over a TM-row query tile).
 
 #include "knn_common.cuh"
+#include "tiled.cuh"
 
 namespace {
 
@@ -22,52 +23,20 @@ namespace {
 // 2^35 operations, 0.51 ms at the 67 TFLOP/s f32 peak, per launch; 24.6 ms
 // at k = 768.
 //
-// Design: a register-tiled product over a staged operand, with the lane
-// fold as its epilogue. A block is 8 warps (kTiledThreads) and owns 8*TM
-// query rows, one partition and a quarter of its 128 lanes (kSliceLanes =
-// 32; blockIdx.x = partition * 4 + quarter). Warp w owns rows
-// w*TM .. w*TM+TM-1 and thread c of a warp lane quarter*32 + c; a column
-// tile is kTileGroups = 8 of the partition's 128-column groups, so each
-// thread scores a TM x 8 register micro-tile (its rows by its lane's 8
-// columns of the tile, micro_tile_chunk in knn_common.cuh): per coordinate
-// TM/4 + 8 shared-memory loads for 8*TM FMAs, where the lane-per-thread
-// design issued one L2 load per TM FMAs. A lane's columns all fall to one
-// thread and fold in increasing column order with a strict `<`, the
-// sweep's contract as it stands. The k rows of a column tile pass through
-// a ring of kTiledStages shared-memory stages in chunks of kChunk rows,
-// the block's queries beside them: 16-byte cp.async copies (4-byte ones
-// for an operand whose ld or base is not 16-byte aligned), the queries
-// from a transposed copy the wrapper makes (tpu_knn_torch.kernels.fused.
-// transposed_queries), so they too arrive in 16-byte pieces. The copy of
-// step s + 2 is in flight while step s is scored; any k fits, the
-// accumulators staying in registers across chunks. The 8*TM rows share
-// each staged slice (the operand is read from L2 once per 8*TM rows, not
-// per 32), and |r|^2 is computed once per column (thread t keeps slot t's)
-// and handed over through shared memory. A warp whose rows all lie past m
-// skips the arithmetic. After a tile's last chunk the scores fold into
-// per-(row, lane) pairs that the thread keeps in shared memory (freeing
-// the registers the micro-tile needs); B4's band test there is one
-// compare per element (fold_tile). Columns >= n or past the partition are
-// staged as zeros and masked in the fold. tuning.tiled_geometry picks TM
-// and P, filling the card at 2 blocks of 8 warps per SM in whole waves.
+// Design: the tiled template (tiled.cuh: register micro-tiles of TM x 8
+// scores over a 3-stage cp.async ring of 16-row d-chunks, 8 warps a block)
+// with the lane fold as its epilogue. A block owns 8*TM query rows, one
+// partition and a quarter of its 128 lanes (blockIdx.x = partition * 4 +
+// quarter); thread c of a warp owns lane quarter*32 + c, and a column tile
+// is 8 of the partition's 128-column groups, so a lane's columns all fall
+// to one thread and fold in increasing column order with a strict `<`, the
+// sweep's contract as it stands. The fold keeps per-(row, lane) pairs in
+// shared memory (freeing the registers the micro-tile needs); B4's band
+// test there is one compare per element (fold_tile). Columns >= n or past
+// the partition are staged as zeros and masked in the fold.
+// tuning.tiled_geometry picks TM and P, filling the card at 2 blocks of 8
+// warps per SM in whole waves.
 // ---------------------------------------------------------------------------
-constexpr int kTiledThreads = 256;
-constexpr int kTiledWarps = kTiledThreads / 32;
-constexpr int kSliceLanes = 32;
-constexpr int kSlices = kLanes / kSliceLanes;
-constexpr int kTileGroups = 8;
-constexpr int kTileCols = kTileGroups * kSliceLanes;  // staged columns per tile
-constexpr int kChunk = 16;       // d-rows per ring stage
-constexpr int kTiledStages = 3;  // ring depth: two chunks in flight behind the one scored
-constexpr int kTiledBlocksPerSm = 2;  // __launch_bounds__; tuning.TILED_BLOCKS_PER_SM
-static_assert(kTileCols == kTiledThreads, "one thread per column slot keeps |r|^2");
-
-// Floats of one ring stage: a kChunk-row chunk of the column tile and of
-// the block's 8*TM queries.
-template <int TM>
-__host__ __device__ constexpr int tiled_stage_floats() {
-  return kChunk * kTileCols + kChunk * kTiledWarps * TM;
-}
 
 // The block's static shared state: |r|^2 of the tile's columns, the fold's
 // per-(row, lane) pairs and B4's row bounds.
@@ -79,62 +48,6 @@ struct TiledState {
   float b_s[BANDED ? kTiledWarps * TM : 1];
   int b_i[BANDED ? kTiledWarps * TM : 1];
 };
-
-// A block's shared memory: the ring (dynamic) and its TiledState, the same
-// at every k. kTiledBlocksPerSm blocks of it must fit one SM's 228 KB, of
-// which the system keeps 1 KB per block; launch_tiled checks that when it
-// is compiled.
-template <int TM>
-constexpr size_t tiled_ring_bytes() {
-  return static_cast<size_t>(kTiledStages) * tiled_stage_floats<TM>() * sizeof(float);
-}
-constexpr size_t kSmemPerSm = 233472;
-constexpr size_t kSmemPerBlockReserved = 1024;
-
-// Issue the copies of one step (a d-chunk of one column tile) into `st`:
-// the operand as [d][group][lane] (16-byte copies of 4 lanes where
-// `vec16`, else 4-byte ones), then the block's queries as [d][row] from
-// the transposed queries qT (k, ldq) in 16-byte copies. Slots past k, n,
-// the partition or the rows are zero-filled without a read.
-template <int TM>
-__device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__ qT, int ldq,
-                                            const float* __restrict__ r, int k, long long ld,
-                                            int n, bool vec16, long long col0, int live_groups,
-                                            int d0, int row0) {
-  constexpr int BM = kTiledWarps * TM;
-  if (vec16) {
-    constexpr int kQuads = kTileCols / 4;
-    for (int e = threadIdx.x; e < kChunk * kQuads; e += kTiledThreads) {
-      const int d = e / kQuads;
-      const int j = (e - d * kQuads) / (kSliceLanes / 4);
-      const int c = (e - d * kQuads - j * (kSliceLanes / 4)) * 4;
-      const long long col = col0 + static_cast<long long>(j) * kLanes + c;
-      const bool live = d0 + d < k && j < live_groups && col < n;
-      cp_async16(st + e * 4, live ? r + static_cast<long long>(d0 + d) * ld + col : r,
-                 live ? 16 : 0);
-    }
-  } else {
-    // Thread t stages slot t: lane t % 32 of group t / 32, every d.
-    const int j = threadIdx.x / kSliceLanes;
-    const long long col = col0 + static_cast<long long>(j) * kLanes + threadIdx.x % kSliceLanes;
-    const bool col_live = j < live_groups && col < n;
-#pragma unroll 4
-    for (int d = 0; d < kChunk; ++d) {
-      const bool live = col_live && d0 + d < k;
-      cp_async4(st + d * kTileCols + threadIdx.x,
-                live ? r + static_cast<long long>(d0 + d) * ld + col : r, live ? 4 : 0);
-    }
-  }
-  float* qs = st + kChunk * kTileCols;
-  constexpr int kRowQuads = BM / 4;
-  for (int e = threadIdx.x; e < kChunk * kRowQuads; e += kTiledThreads) {
-    const int d = e / kRowQuads;
-    const int c = (e - d * kRowQuads) * 4;
-    const bool live = d0 + d < k && row0 + c < ldq;
-    cp_async16(qs + d * BM + c, live ? qT + static_cast<long long>(d0 + d) * ldq + row0 + c : qT,
-               live ? 16 : 0);
-  }
-}
 
 // The epilogue of a column tile: s = |r|^2 - 2 acc for the thread's TM
 // rows by its lane's 8 columns col0 + 128 j (live while j < live_groups
@@ -186,11 +99,7 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[TM][kTileGroups], c
                                           int* best_i) {
   float nj[kTileGroups];
   bool live[kTileGroups];
-#pragma unroll
-  for (int j = 0; j < kTileGroups; ++j) {
-    nj[j] = norms[j * kSliceLanes];
-    live[j] = j < live_groups && col0 + static_cast<long long>(j) * kLanes < n;
-  }
+  tile_slots(norms, col0, kLanes, live_groups, n, nj, live);
   if constexpr (BANDED) {
     const long long last = col0 + static_cast<long long>(kTileGroups - 1) * kLanes;
     bool straddle = false;
@@ -212,50 +121,19 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
                         int k, long long ld, int n, int groups_per_part, bool vec16,
                         int row_base) {
   constexpr int BM = kTiledWarps * TM;
-  constexpr int kStage = tiled_stage_floats<TM>();
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
   __shared__ TiledState<TM, BANDED> state;
-  float* const norm_s = state.norm_s;
-  float* const sb_s = state.b_s;
-  int* const sb_i = state.b_i;
-
   const int part = blockIdx.x / kSlices;
   const int quarter = blockIdx.x - part * kSlices;
   const int row0 = row_base + blockIdx.y * BM;
   const int warp = threadIdx.x / 32;  // the thread's row group: rows warp*TM ..
   const int lane = threadIdx.x % 32;  // of the block's 32
-  const long long g0 = static_cast<long long>(part) * groups_per_part;
-  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
-  const int part_groups = static_cast<int>(
-      max(0LL, min(static_cast<long long>(groups_per_part), groups - g0)));
-  const int tiles = (part_groups + kTileGroups - 1) / kTileGroups;
-  const int chunks = (k + kChunk - 1) / kChunk;
-  const int steps = tiles * chunks;
-  const bool warp_live = row0 + warp * TM < m;  // warp-uniform
-  const long long quarter_col = static_cast<long long>(quarter) * kSliceLanes;
   float* best_s = state.best_s + warp * TM * kSliceLanes + lane;
   int* best_i = state.best_i + warp * TM * kSliceLanes + lane;
-
-  int it = 0, ic = 0;  // the next step to issue, as (tile, chunk)
-  auto issue = [&](int s) {
-    stage_tiled<TM>(ring + (s % kTiledStages) * kStage, qT, ldq, r, k, ld, n, vec16,
-                    (g0 + static_cast<long long>(it) * kTileGroups) * kLanes + quarter_col,
-                    part_groups - it * kTileGroups, ic * kChunk, row0);
-    if (++ic == chunks) {
-      ic = 0;
-      ++it;
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < kTiledStages - 1; ++s) {
-    if (s < steps) issue(s);
-    cp_async_commit();
-  }
   if constexpr (BANDED) {
     for (int i = threadIdx.x; i < BM; i += kTiledThreads) {
-      sb_s[i] = row0 + i < m ? bound_s[row0 + i] : pos_inf();
-      sb_i[i] = row0 + i < m ? bound_i[row0 + i] : kI32Max;
+      state.b_s[i] = row0 + i < m ? bound_s[row0 + i] : pos_inf();
+      state.b_i[i] = row0 + i < m ? bound_i[row0 + i] : kI32Max;
     }
   }
 #pragma unroll
@@ -264,47 +142,17 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
     best_i[i * kSliceLanes] = kI32Max;
   }
 
-  float acc[TM][kTileGroups];
-  float norm = 0.f;  // |r|^2 of slot threadIdx.x's column
-  int t = 0, c = 0;  // the step being scored, as (tile, chunk)
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kTiledStages - 2>();  // step s has landed (this thread's copies)
-    __syncthreads();                    // ... every thread's, and step s - 1 is done with
-    if (s + kTiledStages - 1 < steps) issue(s + kTiledStages - 1);
-    cp_async_commit();
-    if (c == 0) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTileGroups; ++j) acc[i][j] = 0.f;
-      }
-      norm = 0.f;
-    }
-    const float* st = ring + (s % kTiledStages) * kStage;
-    norm = column_norm_chunk<kChunk>(st + threadIdx.x, kTileCols, norm);
-    if (warp_live) {
-      micro_tile_chunk<TM, kTileGroups, kChunk>(st + kChunk * kTileCols + warp * TM, BM,
-                                                st + lane, kTileCols, kSliceLanes, acc);
-    }
-    if (c == chunks - 1) {
-      norm_s[threadIdx.x] = norm;
-      __syncthreads();
-      if (warp_live) {
-        fold_tile<TM, BANDED>(
-            acc, norm_s + lane,
-            (g0 + static_cast<long long>(t) * kTileGroups) * kLanes + quarter_col + lane,
-            part_groups - t * kTileGroups, n, sb_s + warp * TM, sb_i + warp * TM, best_s,
-            best_i);
-      }
-    }
-    if (++c == chunks) {
-      c = 0;
-      ++t;
-    }
-  }
-  cp_async_wait<0>();
+  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16,
+                  lane_slice_columns(n, groups_per_part, part, quarter), row0,
+                  reinterpret_cast<float*>(smem4), state.norm_s,
+                  [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
+                    fold_tile<TM, BANDED>(acc, state.norm_s + lane, col0 + lane, live_groups,
+                                          n, state.b_s + warp * TM, state.b_i + warp * TM,
+                                          best_s, best_i);
+                  });
 
   const long long width = static_cast<long long>(gridDim.x / kSlices) * kLanes;
+  const long long quarter_col = static_cast<long long>(quarter) * kSliceLanes;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int row = row0 + warp * TM + i;
@@ -565,49 +413,19 @@ dma_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
 // Launchers.
 // ---------------------------------------------------------------------------
 
-template <int TM, bool BANDED>
+// B1 (BANDED false) and B4 at tm in {1, 4, 8} rows per warp.
+template <bool BANDED>
 int launch_tiled(const float* qT, const float* r, const float* bound_s, const int32_t* bound_i,
                  int32_t* out_i, float* out_s, int m, int ldq, int k, long long ld, int n,
-                 int parts, cudaStream_t stream) {
-  constexpr int BM = kTiledWarps * TM;
-  constexpr size_t smem = tiled_ring_bytes<TM>();
-  constexpr size_t kStatic = sizeof(TiledState<TM, BANDED>);
-  static_assert(kTiledBlocksPerSm * (smem + kStatic + kSmemPerBlockReserved) <= kSmemPerSm,
-                "the tiled kernel's blocks per SM do not fit its shared memory");
-  auto kernel = tiled_candidates_kernel<TM, BANDED>;
-  if (const int e = allow_smem(kernel, smem, kStatic)) return e;
-  const bool vec16 = ld % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
+                 int parts, int tm, cudaStream_t stream) {
+  const bool vec16 = vec16_operand(r, ld);
   const int gpp = groups_per_part(n, parts);
-  const int tiles = (m + BM - 1) / BM;
-  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
-    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    kernel<<<dim3(parts * kSlices, ty), kTiledThreads, smem, stream>>>(
-        qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, gpp, vec16, t0 * BM);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
-}
-
-// The instances tuning.tiled_geometry chooses from: tm in {1, 4, 8} rows
-// per warp.
-template <bool BANDED>
-int launch_tiled_rows(const float* qT, const float* r, const float* bound_s,
-                      const int32_t* bound_i, int32_t* out_i, float* out_s, int m, int ldq, int k,
-                      long long ld, int n, int parts, int tm, cudaStream_t s) {
-  switch (tm) {
-    case 8:
-      return launch_tiled<8, BANDED>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n,
-                                     parts, s);
-    case 4:
-      return launch_tiled<4, BANDED>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n,
-                                     parts, s);
-    case 1:
-      return launch_tiled<1, BANDED>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n,
-                                     parts, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_tiled_rows(tm, [&](auto rows) {
+    constexpr int TM = decltype(rows)::value;
+    return launch_tiled_grid<TM, TiledState<TM, BANDED>>(
+        tiled_candidates_kernel<TM, BANDED>, parts * kSlices, m, stream, qT, r, bound_s, bound_i,
+        out_i, out_s, m, ldq, k, ld, n, gpp, vec16);
+  });
 }
 
 template <int TM>
@@ -669,12 +487,11 @@ extern "C" {
 // per block), as tuning.tiled_geometry picks it; out (m, parts*128).
 int tk_fused_candidates(const float* qT, const float* r, int32_t* out_i, float* out_s, int m,
                         int ldq, int k, long long ld, int n, int parts, int tm, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || ldq < m || ldq % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(qT) % 16 != 0) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tiled_rows<false>(qT, r, nullptr, nullptr, out_i, out_s, m, ldq, k, ld, n, parts,
-                                  tm, static_cast<cudaStream_t>(stream));
+  return launch_tiled<false>(qT, r, nullptr, nullptr, out_i, out_s, m, ldq, k, ld, n, parts, tm,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // B4 launch: B1's geometry plus the per-row bound (bound_s (m,) f32,
@@ -682,12 +499,11 @@ int tk_fused_candidates(const float* qT, const float* r, int32_t* out_i, float* 
 int tk_banded_candidates(const float* qT, const float* r, const float* bound_s,
                          const int32_t* bound_i, int32_t* out_i, float* out_s, int m, int ldq,
                          int k, long long ld, int n, int parts, int tm, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || ldq < m || ldq % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(qT) % 16 != 0) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tiled_rows<true>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, parts,
-                                 tm, static_cast<cudaStream_t>(stream));
+  return launch_tiled<true>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, parts, tm,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // B1's AoS variant (v3): ref is the caller's row-major (n, k) array;

@@ -1,79 +1,114 @@
 // The seeded top-K engine's kernels: B3 (value-only lane minima and their
-// merge), B7 (per-cell integer moments) and the B8/B9 cell compactor.
+// merge), B7 (per-cell integer moments) and the B8/B9 cell compactor. B3
+// and B7 are the tiled f32 score template (tiled.cuh) with epilogues of
+// their own, so they score every column bit for bit as B1 and B4 do.
 
 #include "knn_common.cuh"
+#include "tiled.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// B3 — replaces tpu_knn/kernels/fused.py:_fused_minima_kernel (built by
+// B3 — replaces tpu_knn/kernels/fused.py:613 _fused_minima_kernel (built by
 // _build_minima_candidates): the seeded engine's bound pass. B1's sweep
 // without the index fold: per row and lane, the smallest score (DEPTH 1)
 // or the two smallest of the multiset (DEPTH 2), optionally only scores
 // above the row's lo (NaN never enters: every compare is strict). The
 // caller passes the prefix it wants read as n, so a launch reads only
-// those columns. Each block writes its partition's 128 lanes to a
-// partial array; minima_merge_kernel folds the partitions into the
-// contract's (m, DEPTH*128) = [min1 lanes | min2 lanes] (the fold is a
+// those columns. Each block writes its quarter of its partition's 128
+// lanes to a partial array; minima_merge_kernel folds the partitions into
+// the contract's (m, DEPTH*128) = [min1 lanes | min2 lanes] (the fold is a
 // min, so the merged values do not depend on the partition count).
 //
 // Bound on the H100: arithmetic, as B1 (2*m*n*k flops; at ds11 with the
-// half prefix 2^34 flops, 0.26 ms at the f32 peak). Design: B1's block
-// (TM rows x one partition, a thread per lane); the band test reads lo
-// from shared memory only for a score that would enter the fold.
+// half prefix 2^34 flops, 0.26 ms at the f32 peak). Design: B1's blocks,
+// tiles and ring (tiled.cuh, lane_slice_columns), the lane fold reduced to
+// values: per (row, lane) the running minima sit in shared memory, as B1's
+// pairs do, and each score costs a compare against them and lo.
 // ---------------------------------------------------------------------------
+
+// B3's static shared state: |r|^2 of the tile's columns, the per-(row,
+// lane) minima ([row][lane]) and the rows' lo.
 template <int TM, int DEPTH>
-__global__ void __launch_bounds__(kLanes)
-minima_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                         const float* __restrict__ lo, float* __restrict__ partial, int m, int k,
-                         long long ld, int n, int groups_per_part, int row_base) {
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  __shared__ float s_lo[TM];
-  const int part = blockIdx.x;
-  const int row0 = row_base + blockIdx.y * TM;
-  const int lane = threadIdx.x;
-  for (int i = lane; i < TM; i += kLanes) {
-    s_lo[i] = lo != nullptr && row0 + i < m ? lo[row0 + i] : neg_inf();
-  }
-  load_query_tile<TM>(q, qT, m, k, row0);
+struct MinimaState {
+  float norm_s[kTileCols];
+  float min1[kTiledWarps * TM * kSliceLanes];
+  float min2[DEPTH == 2 ? kTiledWarps * TM * kSliceLanes : 1];
+  float lo[kTiledWarps * TM];
+};
 
-  float m1[TM], m2[TM];
+// The epilogue of a column tile: the thread's TM rows by its lane's 8
+// columns col0 + 128 j folded into the lane's minima (min1/min2 at its
+// first row, rows kSliceLanes apart), only scores above the row's lo.
+template <int TM, int DEPTH>
+__device__ __forceinline__ void fold_minima(const float (&acc)[TM][kTileGroups],
+                                            const float* norms, long long col0, int live_groups,
+                                            int n, const float* lo, float* min1, float* min2) {
+  float nj[kTileGroups];
+  bool live[kTileGroups];
+  tile_slots(norms, col0, kLanes, live_groups, n, nj, live);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) m1[i] = m2[i] = pos_inf();
-
-  const long long first = static_cast<long long>(part) * groups_per_part * kLanes + lane;
-  for (int g = 0; g < groups_per_part; ++g) {
-    const long long col = first + static_cast<long long>(g) * kLanes;
-    if (col >= n) break;
-    float s[TM];
-    column_scores<TM>(qT, r + col, ld, k, s);
+  for (int i = 0; i < TM; ++i) {
+    float m1 = min1[i * kSliceLanes];
+    float m2 = DEPTH == 2 ? min2[i * kSliceLanes] : 0.f;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
+    for (int j = 0; j < kTileGroups; ++j) {
+      const float sc = nj[j] - 2.f * acc[i][j];
       if constexpr (DEPTH == 1) {
-        if (s[i] < m1[i] && s[i] > s_lo[i]) m1[i] = s[i];
-      } else {
+        m1 = live[j] && sc < m1 && sc > lo[i] ? sc : m1;
+      } else if (live[j] && sc < m2 && sc > lo[i]) {
         // tpu_knn's fold (new1 = min(s, m1); the displaced value folds
         // into m2), written as one guarded branch.
-        if (s[i] < m2[i] && s[i] > s_lo[i]) {
-          if (s[i] < m1[i]) {
-            m2[i] = m1[i];
-            m1[i] = s[i];
-          } else {
-            m2[i] = s[i];
-          }
-        }
+        m2 = sc < m1 ? m1 : sc;
+        m1 = sc < m1 ? sc : m1;
       }
     }
+    min1[i * kSliceLanes] = m1;
+    if constexpr (DEPTH == 2) min2[i * kSliceLanes] = m2;
   }
+}
+
+template <int TM, int DEPTH>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_minima_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                    const float* __restrict__ lo, float* __restrict__ partial, int m, int ldq,
+                    int k, long long ld, int n, int groups_per_part, bool vec16, int row_base) {
+  constexpr int BM = kTiledWarps * TM;
+  extern __shared__ float4 smem4[];
+  __shared__ MinimaState<TM, DEPTH> state;
+  const int parts = gridDim.x / kSlices;
+  const int part = blockIdx.x / kSlices;
+  const int quarter = blockIdx.x - part * kSlices;
+  const int row0 = row_base + blockIdx.y * BM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* min1 = state.min1 + warp * TM * kSliceLanes + lane;
+  float* min2 = state.min2 + (DEPTH == 2 ? warp * TM * kSliceLanes + lane : 0);
+  for (int i = threadIdx.x; i < BM; i += kTiledThreads) {
+    state.lo[i] = lo != nullptr && row0 + i < m ? lo[row0 + i] : neg_inf();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {  // the thread's own entries: no barrier needed
+    min1[i * kSliceLanes] = pos_inf();
+    if constexpr (DEPTH == 2) min2[i * kSliceLanes] = pos_inf();
+  }
+
+  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16,
+                  lane_slice_columns(n, groups_per_part, part, quarter), row0,
+                  reinterpret_cast<float*>(smem4), state.norm_s,
+                  [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
+                    fold_minima<TM, DEPTH>(acc, state.norm_s + lane, col0 + lane, live_groups,
+                                           n, state.lo + warp * TM, min1, min2);
+                  });
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int row = row0 + i;
+    const int row = row0 + warp * TM + i;
     if (row < m) {
-      float* o = partial + ((static_cast<long long>(row) * gridDim.x + part) * DEPTH) * kLanes;
-      o[lane] = m1[i];
-      if constexpr (DEPTH == 2) o[kLanes + lane] = m2[i];
+      float* o = partial + ((static_cast<long long>(row) * parts + part) * DEPTH) * kLanes +
+                 quarter * kSliceLanes + lane;
+      o[0] = min1[i * kSliceLanes];
+      if constexpr (DEPTH == 2) o[kLanes] = min2[i * kSliceLanes];
     }
   }
 }
@@ -103,7 +138,7 @@ minima_merge_kernel(const float* __restrict__ partial, float* __restrict__ out, 
 }
 
 // ---------------------------------------------------------------------------
-// B7 — replaces tpu_knn/kernels/topk.py:_extract_moment_kernel (built by
+// B7 — replaces tpu_knn/kernels/topk.py:509 _extract_moment_kernel (built by
 // _build_extract_candidates): per (row, cell of `cell` = 64/128/256
 // columns), the exact integer moments cnt, sum l, sum l^2 [, sum l^3] of
 // the columns l (= col % cell) whose score is <= the row's bound (and >
@@ -114,115 +149,175 @@ minima_merge_kernel(const float* __restrict__ partial, float* __restrict__ out, 
 // next bound source), merged by minima_merge_kernel.
 //
 // The TPU reduced the 0/1 mask on the matrix unit against a block-
-// diagonal weight matrix. Here each warp reduces its 32 columns' (1, l,
-// l^2, l^3) in 32-bit integers (__ballot_sync, then __reduce_add_sync
-// only when some lane qualifies, which is rare), the warps of a cell meet
-// in shared memory, and one thread per (row, cell) packs. Every sum is an
-// exact integer below 2^31 for any cell (sum l^3 over 256 lanes <=
-// 1.07e9), so the words equal tpu_knn's bit for bit.
+// diagonal weight matrix. Every sum here is an exact integer below 2^31
+// for any cell (sum l^3 over 256 lanes <= 1.07e9), so the words equal
+// tpu_knn's bit for bit.
 //
 // Bound on the H100: arithmetic, as B1 (2*m*n*k flops: 0.51 ms at ds11),
-// plus a compare and a vote per (row, column). Design: a block of 256
-// threads owns TM rows and a partition of 256-column chunks; cells never
-// straddle a chunk, and two barriers per chunk hand the warp partials to
-// the packing threads (who clear them for the next chunk).
+// plus a compare and a vote per (row, column). Design: the tiled template
+// (tiled.cuh) with a column tile of one contiguous 256-column chunk:
+// thread c of a warp owns columns c + 32 j of it, so a cell of 64, 128 or
+// 256 columns is 2, 4 or 8 of one warp's j and each (row, cell) reduces
+// inside the warp: one __any_sync per row skips the (row, chunk)s that
+// hold no score under the bound (nearly all), else a __ballot_sync per
+// (row, j), __reduce_add_sync of l, l^2 (and l^3) only when some lane
+// qualifies, summed over the cell's j in registers; one write per (row,
+// cell), all of a warp's words in one store. No shared memory or barrier is spent on the
+// reduction. The remainder minima are kept per lane (col % 128: thread
+// c's 8 columns fall into 4 lanes) in shared memory. A block owns 8*TM
+// rows and a partition of whole chunks (tuning.moments_geometry), so no
+// cell straddles a partition; chunks past n are scored as zeros and
+// write zero words.
 // ---------------------------------------------------------------------------
-constexpr int kChunk = 256;  // B7 threads per block = columns per step
 
+// B7's static shared state: |r|^2 of the tile's columns, the rows' bound
+// and lo, and (REM) the per-(row, lane) remainder minima ([row][lane]).
 template <int TM, bool REM>
-__global__ void __launch_bounds__(kChunk)
-extract_moments_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                       const float* __restrict__ bound, const float* __restrict__ lo,
-                       int32_t* __restrict__ out_a, int32_t* __restrict__ out_p3,
-                       float* __restrict__ rem_part, int m, int k, long long ld, int n, int nc,
-                       int cell, int cubic, int chunks_per_part, int row_base) {
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  __shared__ float s_b[TM], s_lo[TM];
-  __shared__ unsigned s_mom[TM][kChunk / 32][4];
-  const int part = blockIdx.x;
-  const int row0 = row_base + blockIdx.y * TM;
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int wl = t & 31;
-  for (int i = t; i < TM; i += kChunk) {
-    s_b[i] = row0 + i < m ? bound[row0 + i] : neg_inf();
-    s_lo[i] = lo != nullptr && row0 + i < m ? lo[row0 + i] : neg_inf();
-  }
-  for (int e = t; e < TM * (kChunk / 32) * 4; e += kChunk) (&s_mom[0][0][0])[e] = 0u;
-  load_query_tile<TM>(q, qT, m, k, row0);
+struct MomentState {
+  float norm_s[kTileCols];
+  float bound[kTiledWarps * TM];
+  float lo[kTiledWarps * TM];
+  float rem[REM ? kTiledWarps * TM * kLanes : 1];
+};
 
-  float rem[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) rem[i] = pos_inf();
-
-  const int cells_per_chunk = kChunk / cell;
-  const int warps_per_cell = cell / 32;
-  const unsigned solvable = cubic ? 3u : 2u;
-  const int chunks = (nc + cells_per_chunk - 1) / cells_per_chunk;
-  const int c_end = min(chunks, (part + 1) * chunks_per_part);
-  for (int c = part * chunks_per_part; c < c_end; ++c) {
-    const long long col = static_cast<long long>(c) * kChunk + t;
-    const bool live = col < n;
-    const unsigned l = static_cast<unsigned>(col) & static_cast<unsigned>(cell - 1);
-    float s[TM];
-    if (live) {
-      column_scores<TM>(qT, r + col, ld, k, s);
-    } else {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) s[i] = pos_inf();
-    }
+// The epilogue of a chunk (its first column col0): the moments of the
+// warp's TM rows (row0 ..) over each of the chunk's cells, written to
+// out_a (and out_p3) at (row, chunk's cell); with REM the remainder
+// minima of the thread's 4 lanes (rem at its first row and lane c).
+// Every lane reaches every ballot; rows >= m vote false (bound -inf).
+template <int TM, bool REM>
+__device__ __forceinline__ void moment_tile(float (&s)[TM][kTileGroups], const float* norms,
+                                            long long col0, int n, int m, int row0, int nc,
+                                            int cell, bool cubic, const float* bound,
+                                            const float* lo, float* rem,
+                                            int32_t* __restrict__ out_a,
+                                            int32_t* __restrict__ out_p3) {
+  static_assert(TM * (kTileCols / 64) <= 32, "a warp's words fit its lanes");
+  const int lane = threadIdx.x % 32;
+  {
+    // The scores (column_scores' arithmetic) in place of the accumulators,
+    // so the norms and liveness need no registers past this point; a column
+    // >= n becomes NaN, which no compare below admits.
+    float nj[kTileGroups];
+    bool live[kTileGroups];
+    tile_slots(norms, col0 + lane, kSliceLanes, kTileGroups, n, nj, live);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const bool qual = live && s[i] <= s_b[i] && s[i] > s_lo[i];
-      const unsigned bal = __ballot_sync(0xffffffffu, qual);
-      if (bal != 0u) {  // warp-uniform
-        const unsigned v = qual ? l : 0u;
-        const unsigned e1 = __reduce_add_sync(0xffffffffu, v);
-        const unsigned p2 = __reduce_add_sync(0xffffffffu, v * v);
-        const unsigned p3 = cubic ? __reduce_add_sync(0xffffffffu, v * v * v) : 0u;
-        if (wl == 0) {
-          s_mom[i][warp][0] = static_cast<unsigned>(__popc(bal));
-          s_mom[i][warp][1] = e1;
-          s_mom[i][warp][2] = p2;
-          s_mom[i][warp][3] = p3;
+#pragma unroll
+      for (int j = 0; j < kTileGroups; ++j) {
+        s[i][j] = live[j] ? nj[j] - 2.f * s[i][j] : __int_as_float(0x7fc00000);
+      }
+    }
+  }
+  const int per_cell = cell / kSliceLanes;  // j per cell: 2, 4 or 8
+  const int cells = kTileCols / cell;       // cells per chunk: 4, 2 or 1
+  const int cell_shift = __ffs(per_cell) - 1;
+  const unsigned solvable = cubic ? 3u : 2u;
+  unsigned word = 0u, word3 = 0u;  // lane i*cells + c's: row i, cell c
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const float b = bound[i], l = lo[i];
+    // Nearly every (row, chunk) holds no score under the bound: one vote per
+    // row skips it (its words stay 0), and only a row in which some lane
+    // may qualify takes the vote per column.
+    float least = pos_inf();
+#pragma unroll
+    for (int j = 0; j < kTileGroups; ++j) least = fminf(least, s[i][j]);
+    if (__any_sync(0xffffffffu, least <= b)) {  // warp-uniform
+      unsigned cnt = 0u, e1 = 0u, p2 = 0u, p3 = 0u;
+#pragma unroll
+      for (int j = 0; j < kTileGroups; ++j) {
+        const float sc = s[i][j];
+        const bool qual = sc <= b && sc > l;
+        const unsigned bal = __ballot_sync(0xffffffffu, qual);
+        if (bal != 0u) {  // warp-uniform
+          const unsigned v = qual ? static_cast<unsigned>(j * kSliceLanes + lane) &
+                                        static_cast<unsigned>(cell - 1)
+                                  : 0u;
+          cnt += static_cast<unsigned>(__popc(bal));
+          e1 += __reduce_add_sync(0xffffffffu, v);
+          p2 += __reduce_add_sync(0xffffffffu, v * v);
+          if (cubic) p3 += __reduce_add_sync(0xffffffffu, v * v * v);
+        }
+        if (((j + 1) & (per_cell - 1)) == 0) {  // the cell's last j
+          if (lane == i * cells + (j >> cell_shift)) {
+            const unsigned packed = (cnt < 3u ? cnt : 3u) | (e1 << 2) | (p2 << 12);
+            word = (packed & 0x3FFFFFFFu) | ((cnt > solvable ? 1u : 0u) << 30);
+            word3 = p3;
+          }
+          cnt = e1 = p2 = p3 = 0u;
         }
       }
-      if constexpr (REM) {
-        if (live && s[i] < rem[i] && s[i] > s_b[i]) rem[i] = s[i];
+    }
+    if constexpr (REM) {  // lane q's two columns, j = q and q + 4, one lane at a time
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float v = rem[i * kLanes + q * kSliceLanes];
+#pragma unroll
+        for (int j = q; j < kTileGroups; j += 4) v = s[i][j] < v && s[i][j] > b ? s[i][j] : v;
+        rem[i * kLanes + q * kSliceLanes] = v;
       }
     }
-    __syncthreads();
-    if (t < TM * cells_per_chunk) {
-      const int i = t / cells_per_chunk;
-      const int cc = t - i * cells_per_chunk;
-      unsigned cnt = 0u, e1 = 0u, p2 = 0u, p3 = 0u;
-      for (int w = cc * warps_per_cell; w < (cc + 1) * warps_per_cell; ++w) {
-        cnt += s_mom[i][w][0];
-        e1 += s_mom[i][w][1];
-        p2 += s_mom[i][w][2];
-        p3 += s_mom[i][w][3];
-        s_mom[i][w][0] = s_mom[i][w][1] = s_mom[i][w][2] = s_mom[i][w][3] = 0u;
-      }
-      const long long cidx = static_cast<long long>(c) * cells_per_chunk + cc;
-      const int row = row0 + i;
-      if (row < m && cidx < nc) {
-        const unsigned packed = (cnt < 3u ? cnt : 3u) | (e1 << 2) | (p2 << 12);
-        const unsigned flag = cnt > solvable ? 1u : 0u;
-        const long long o = static_cast<long long>(row) * nc + cidx;
-        out_a[o] = static_cast<int32_t>((packed & 0x3FFFFFFFu) | (flag << 30));
-        if (cubic) out_p3[o] = static_cast<int32_t>(p3);
-      }
-    }
-    __syncthreads();
   }
+  const int i = lane / cells;
+  const int row = row0 + i;
+  const long long cidx = col0 / cell + (lane - i * cells);
+  if (i < TM && row < m && cidx < nc) {
+    const long long o = static_cast<long long>(row) * nc + cidx;
+    out_a[o] = static_cast<int32_t>(word);
+    if (cubic) out_p3[o] = static_cast<int32_t>(word3);
+  }
+}
+
+template <int TM, bool REM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_moments_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                     const float* __restrict__ bound, const float* __restrict__ lo,
+                     int32_t* __restrict__ out_a, int32_t* __restrict__ out_p3,
+                     float* __restrict__ rem_part, int m, int ldq, int k, long long ld, int n,
+                     int nc, int cell, bool cubic, int chunks_per_part, bool vec16,
+                     int row_base) {
+  constexpr int BM = kTiledWarps * TM;
+  extern __shared__ float4 smem4[];
+  __shared__ MomentState<TM, REM> state;
+  const int part = blockIdx.x;
+  const int row0 = row_base + blockIdx.y * BM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long c0 = static_cast<long long>(part) * chunks_per_part;
+  const long long chunks = (static_cast<long long>(nc) * cell + kTileCols - 1) / kTileCols;
+  const int own = static_cast<int>(max(0LL, min(static_cast<long long>(chunks_per_part),
+                                                chunks - c0)));
+  for (int i = threadIdx.x; i < BM; i += kTiledThreads) {
+    state.bound[i] = row0 + i < m ? bound[row0 + i] : neg_inf();
+    state.lo[i] = lo != nullptr && row0 + i < m ? lo[row0 + i] : neg_inf();
+  }
+  float* rem = state.rem + (REM ? warp * TM * kLanes + lane : 0);
+  if constexpr (REM) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {  // the thread's own entries: no barrier needed
+#pragma unroll
+      for (int q = 0; q < 4; ++q) rem[i * kLanes + q * kSliceLanes] = pos_inf();
+    }
+  }
+
+  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16,
+                  TileColumns{c0 * kTileCols, kTileCols, kSliceLanes, own * kTileGroups}, row0,
+                  reinterpret_cast<float*>(smem4), state.norm_s,
+                  [&](float (&acc)[TM][kTileGroups], long long col0, int) {
+                    moment_tile<TM, REM>(acc, state.norm_s + lane, col0, n, m, row0 + warp * TM,
+                                         nc, cell, cubic, state.bound + warp * TM,
+                                         state.lo + warp * TM, rem, out_a, out_p3);
+                  });
 
   if constexpr (REM) {
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int row = row0 + i;
+      const int row = row0 + warp * TM + i;
       if (row < m) {
-        rem_part[(static_cast<long long>(row) * gridDim.x + part) * kChunk + t] = rem[i];
+        float* o = rem_part + (static_cast<long long>(row) * gridDim.x + part) * kLanes + lane;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) o[q * kSliceLanes] = rem[i * kLanes + q * kSliceLanes];
       }
     }
   }
@@ -293,129 +388,85 @@ compact_cells_kernel(const int32_t* __restrict__ f0, const int32_t* __restrict__
 // Launchers.
 // ---------------------------------------------------------------------------
 
-// Opt a kernel into dynamic shared memory beyond what fits beside its
-// static shared memory by default.
-template <typename Kernel>
-int allow_dynamic_smem(Kernel kernel, size_t dynamic, size_t static_bytes) {
-  if (dynamic + static_bytes <= kDefaultSmem) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(dynamic)));
-}
-
-template <int TM, int DEPTH>
-int launch_minima(const float* q, const float* r, const float* lo, float* partial, float* out,
-                  int m, int k, long long ld, int n, int parts, int groups_per_part,
+template <int DEPTH>
+int launch_minima(const float* qT, const float* r, const float* lo, float* partial, float* out,
+                  int m, int ldq, int k, long long ld, int n, int parts, int tm,
                   cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(TM) * k * sizeof(float);
-  auto kernel = minima_candidates_kernel<TM, DEPTH>;
-  if (const int e = allow_dynamic_smem(kernel, smem, TM * sizeof(float))) return e;
-  const int tiles = (m + TM - 1) / TM;
-  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
-    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    kernel<<<dim3(parts, ty), kLanes, smem, stream>>>(q, r, lo, partial, m, k, ld, n,
-                                                      groups_per_part, t0 * TM);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const bool vec16 = vec16_operand(r, ld);
+  const int gpp = groups_per_part(n, parts);
+  const int e = with_tiled_rows(tm, [&](auto rows) {
+    constexpr int TM = decltype(rows)::value;
+    return launch_tiled_grid<TM, MinimaState<TM, DEPTH>>(tiled_minima_kernel<TM, DEPTH>,
+                                                         parts * kSlices, m, stream, qT, r, lo,
+                                                         partial, m, ldq, k, ld, n, gpp, vec16);
+  });
+  if (e != 0) return e;
   minima_merge_kernel<DEPTH><<<m, kLanes, 0, stream>>>(partial, out, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TM>
-int launch_minima_depth(const float* q, const float* r, const float* lo, float* partial,
-                        float* out, int m, int k, long long ld, int n, int parts, int gpp,
-                        int depth, cudaStream_t s) {
-  if (depth == 1) return launch_minima<TM, 1>(q, r, lo, partial, out, m, k, ld, n, parts, gpp, s);
-  return launch_minima<TM, 2>(q, r, lo, partial, out, m, k, ld, n, parts, gpp, s);
-}
-
-template <int TM, bool REM>
-int launch_extract(const float* q, const float* r, const float* bound, const float* lo,
+template <bool REM>
+int launch_moments(const float* qT, const float* r, const float* bound, const float* lo,
                    int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
-                   int k, long long ld, int n, int nc, int cell, int cubic, int parts,
-                   int chunks_per_part, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(TM) * k * sizeof(float);
-  auto kernel = extract_moments_kernel<TM, REM>;
-  const size_t static_bytes = TM * (2 * sizeof(float) + (kChunk / 32) * 4 * sizeof(unsigned));
-  if (const int e = allow_dynamic_smem(kernel, smem, static_bytes)) return e;
-  const int tiles = (m + TM - 1) / TM;
-  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
-    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    kernel<<<dim3(parts, ty), kChunk, smem, stream>>>(q, r, bound, lo, out_a, out_p3, rem_part,
-                                                      m, k, ld, n, nc, cell, cubic,
-                                                      chunks_per_part, t0 * TM);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (REM) minima_merge_kernel<1><<<m, kLanes, 0, stream>>>(rem_part, rem_out,
-                                                            parts * (kChunk / kLanes));
+                   int ldq, int k, long long ld, int n, int nc, int cell, bool cubic, int parts,
+                   int chunks_per_part, int tm, cudaStream_t stream) {
+  const bool vec16 = vec16_operand(r, ld);
+  const int e = with_tiled_rows(tm, [&](auto rows) {
+    constexpr int TM = decltype(rows)::value;
+    return launch_tiled_grid<TM, MomentState<TM, REM>>(
+        tiled_moments_kernel<TM, REM>, parts, m, stream, qT, r, bound, lo, out_a, out_p3,
+        rem_part, m, ldq, k, ld, n, nc, cell, cubic, chunks_per_part, vec16);
+  });
+  if (e != 0 || !REM) return e;
+  minima_merge_kernel<1><<<m, kLanes, 0, stream>>>(rem_part, rem_out, parts);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int TM>
-int launch_extract_rem(const float* q, const float* r, const float* bound, const float* lo,
-                       int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
-                       int k, long long ld, int n, int nc, int cell, int cubic, int parts,
-                       int cpp, cudaStream_t s) {
-  if (rem_part != nullptr) {
-    return launch_extract<TM, true>(q, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, k, ld,
-                                    n, nc, cell, cubic, parts, cpp, s);
-  }
-  return launch_extract<TM, false>(q, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, k, ld,
-                                   n, nc, cell, cubic, parts, cpp, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B3 launch: B1's geometry (tile_m in {1, 8, 32}), depth 1 or 2, lo (m,)
-// f32 or null; partial is (m, parts*depth*128) scratch, out (m, depth*128).
-int tk_minima_candidates(const float* q, const float* r, const float* lo, float* partial,
-                         float* out, int m, int k, long long ld, int n, int parts, int tile_m,
+// B3 launch: qT the queries transposed (as for B1), tm rows per warp and
+// parts partitions as tuning.tiled_geometry picks them, depth 1 or 2, lo
+// (m,) f32 or null; partial is (m, parts*depth*128) scratch, out (m,
+// depth*128).
+int tk_minima_candidates(const float* qT, const float* r, const float* lo, float* partial,
+                         float* out, int m, int ldq, int k, long long ld, int n, int parts, int tm,
                          int depth, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || (depth != 1 && depth != 2)) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m) ||
+      (depth != 1 && depth != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int gpp = groups_per_part(n, parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_m) {
-    case 32: return launch_minima_depth<32>(q, r, lo, partial, out, m, k, ld, n, parts, gpp, depth, s);
-    case 8: return launch_minima_depth<8>(q, r, lo, partial, out, m, k, ld, n, parts, gpp, depth, s);
-    case 1: return launch_minima_depth<1>(q, r, lo, partial, out, m, k, ld, n, parts, gpp, depth, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (depth == 1) return launch_minima<1>(qT, r, lo, partial, out, m, ldq, k, ld, n, parts, tm, s);
+  return launch_minima<2>(qT, r, lo, partial, out, m, ldq, k, ld, n, parts, tm, s);
 }
 
 // B7 launch: nc cells of `cell` in {64, 128, 256} columns cover the
-// operand (ld >= nc*cell >= n); bound (m,) f32, lo (m,) f32 or null;
-// out_a (m, nc) int32, out_p3 (m, nc) int32 when cubic; rem_part
-// (m, parts*256) scratch and rem_out (m, 128), or both null.
-int tk_extract_moments(const float* q, const float* r, const float* bound, const float* lo,
+// operand (ld >= nc*cell >= n); qT as for B1; parts partitions of whole
+// 256-column chunks and tm rows per warp, as tuning.moments_geometry
+// picks them; bound (m,) f32, lo (m,) f32 or null; out_a (m, nc) int32,
+// out_p3 (m, nc) int32 when cubic; rem_part (m, parts*128) scratch and
+// rem_out (m, 128), or both null.
+int tk_extract_moments(const float* qT, const float* r, const float* bound, const float* lo,
                        int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
-                       int k, long long ld, int n, int nc, int cell, int cubic, int parts,
-                       int tile_m, void* stream) {
+                       int ldq, int k, long long ld, int n, int nc, int cell, int cubic,
+                       int parts, int tm, void* stream) {
   const long long width = static_cast<long long>(nc) * cell;
-  const int chunks = static_cast<int>((width + kChunk - 1) / kChunk);
+  const int chunks = static_cast<int>((width + kTileCols - 1) / kTileCols);
   if (m < 1 || k < 1 || n < 1 || n > width || ld < width || parts < 1 || parts > chunks ||
       (cell != 64 && cell != 128 && cell != 256) || (cubic && out_p3 == nullptr) ||
-      ((rem_part == nullptr) != (rem_out == nullptr))) {
+      ((rem_part == nullptr) != (rem_out == nullptr)) || !valid_queries_t(qT, ldq, m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int cpp = (chunks + parts - 1) / parts;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_m) {
-    case 32:
-      return launch_extract_rem<32>(q, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, k, ld,
-                                    n, nc, cell, cubic, parts, cpp, s);
-    case 8:
-      return launch_extract_rem<8>(q, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, k, ld,
-                                   n, nc, cell, cubic, parts, cpp, s);
-    case 1:
-      return launch_extract_rem<1>(q, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, k, ld,
-                                   n, nc, cell, cubic, parts, cpp, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (rem_part != nullptr) {
+    return launch_moments<true>(qT, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, ldq, k,
+                                ld, n, nc, cell, cubic != 0, parts, cpp, tm, s);
   }
+  return launch_moments<false>(qT, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, ldq, k,
+                               ld, n, nc, cell, cubic != 0, parts, cpp, tm, s);
 }
 
 // The B8/B9 compactor: f0 (and f1, or null) (m, nc) int32 -> o_pos, o0

@@ -1,0 +1,266 @@
+// The tiled f32 score template that B1 "highest", B4 (fused_kernels.cu), B3
+// and B7 (seeded_kernels.cu) share: register micro-tiles of scores over an
+// operand staged in shared memory by a ring of cp.async copies.
+//
+// A block is 8 warps (kTiledThreads) and owns 8*TM query rows: warp w owns
+// rows w*TM .. w*TM+TM-1, thread c of a warp 8 columns of each column tile,
+// the tile's slots (group j, lane c), j < kTileGroups. Each thread scores
+// a TM x 8 register micro-tile (micro_tile_chunk in knn_common.cuh): per
+// coordinate TM/4 + 8 shared-memory loads for 8*TM FMAs. The k rows of a
+// column tile pass through a ring of kTiledStages shared-memory stages in
+// chunks of kChunk rows, the block's queries beside them: 16-byte cp.async
+// copies (4-byte ones for an operand whose ld or base is not 16-byte
+// aligned), the queries from the transposed copy the wrappers make
+// (tpu_knn_torch.kernels.fused.transposed_queries), so they too arrive in
+// 16-byte pieces. The copy of step s + 2 is in flight while step s is
+// scored; any k fits, the accumulators staying in registers across chunks.
+// The 8*TM rows share each staged slice, and |r|^2 is computed once per
+// column (thread t keeps slot t's) and handed over through shared memory.
+// After a tile's last chunk, each kernel's epilogue turns the accumulators
+// into scores s = |r|^2 - 2 acc, bit-identical to column_scores, and folds
+// them: B1/B4 into per-lane (score, index) pairs, B3 into per-lane minima,
+// B7 into per-cell moments. A warp whose rows all lie past m skips the
+// arithmetic and the epilogue.
+//
+// Where a slot's column lies is the kernel's choice (TileColumns): B1, B4
+// and B3 give a block a quarter of one partition's 128 lanes and a tile 8 of
+// the partition's 128-column groups (slot (j, c) = column col0 + 128 j + c,
+// so a lane's columns all fall to one thread); B7 gives a tile one
+// contiguous 256-column chunk (slot (j, c) = column col0 + 32 j + c, so a
+// cell of 64, 128 or 256 columns is 2, 4 or 8 of one warp's j).
+
+#pragma once
+
+#include <type_traits>
+
+#include "knn_common.cuh"
+
+namespace {
+
+constexpr int kTiledThreads = 256;
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kSliceLanes = 32;
+constexpr int kSlices = kLanes / kSliceLanes;
+constexpr int kTileGroups = 8;
+constexpr int kTileCols = kTileGroups * kSliceLanes;  // staged columns per tile
+constexpr int kChunk = 16;       // d-rows per ring stage
+constexpr int kTiledStages = 3;  // ring depth: two chunks in flight behind the one scored
+constexpr int kTiledBlocksPerSm = 2;  // __launch_bounds__; tuning.TILED_BLOCKS_PER_SM
+static_assert(kTileCols == kTiledThreads, "one thread per column slot keeps |r|^2");
+
+// Floats of one ring stage: a kChunk-row chunk of the column tile and of
+// the block's 8*TM queries.
+template <int TM>
+__host__ __device__ constexpr int tiled_stage_floats() {
+  return kChunk * kTileCols + kChunk * kTiledWarps * TM;
+}
+
+// A block's shared memory: the ring (dynamic, the same at every k) and its
+// kernel's static state. kTiledBlocksPerSm blocks of it must fit one SM's
+// 228 KB, of which the system keeps 1 KB per block; launch_tiled_grid
+// checks that when it is compiled.
+template <int TM>
+constexpr size_t tiled_ring_bytes() {
+  return static_cast<size_t>(kTiledStages) * tiled_stage_floats<TM>() * sizeof(float);
+}
+constexpr size_t kSmemPerSm = 233472;
+constexpr size_t kSmemPerBlockReserved = 1024;
+
+// The columns of a block's column tiles: tile t's slot (j, c) holds column
+// first + t * tile_step + j * group_step + c, live while j < groups - t * 8
+// and the column is below n.
+struct TileColumns {
+  long long first;
+  long long tile_step;
+  int group_step;
+  int groups;
+};
+
+// B1's, B4's and B3's slice: lane quarter `quarter` of partition `part`,
+// groups_per_part 128-column groups from part * groups_per_part.
+__device__ __forceinline__ TileColumns lane_slice_columns(int n, int groups_per_part, int part,
+                                                          int quarter) {
+  const long long g0 = static_cast<long long>(part) * groups_per_part;
+  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
+  return {g0 * kLanes + quarter * kSliceLanes, static_cast<long long>(kTileGroups) * kLanes,
+          kLanes, static_cast<int>(max(0LL, min(static_cast<long long>(groups_per_part),
+                                                groups - g0)))};
+}
+
+// Issue the copies of one step (a d-chunk of one column tile) into `st`:
+// the operand as [d][group][lane] (16-byte copies of 4 lanes where
+// `vec16`, else 4-byte ones), then the block's queries as [d][row] from
+// the transposed queries qT (k, ldq) in 16-byte copies. Slots past k, n,
+// the live groups or the rows are zero-filled without a read.
+template <int TM>
+__device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__ qT, int ldq,
+                                            const float* __restrict__ r, int k, long long ld,
+                                            int n, bool vec16, long long col0, int group_step,
+                                            int live_groups, int d0, int row0) {
+  constexpr int BM = kTiledWarps * TM;
+  if (vec16) {
+    constexpr int kQuads = kTileCols / 4;
+    for (int e = threadIdx.x; e < kChunk * kQuads; e += kTiledThreads) {
+      const int d = e / kQuads;
+      const int j = (e - d * kQuads) / (kSliceLanes / 4);
+      const int c = (e - d * kQuads - j * (kSliceLanes / 4)) * 4;
+      const long long col = col0 + static_cast<long long>(j) * group_step + c;
+      const bool live = d0 + d < k && j < live_groups && col < n;
+      cp_async16(st + e * 4, live ? r + static_cast<long long>(d0 + d) * ld + col : r,
+                 live ? 16 : 0);
+    }
+  } else {
+    // Thread t stages slot t: lane t % 32 of group t / 32, every d.
+    const int j = threadIdx.x / kSliceLanes;
+    const long long col =
+        col0 + static_cast<long long>(j) * group_step + threadIdx.x % kSliceLanes;
+    const bool col_live = j < live_groups && col < n;
+#pragma unroll 4
+    for (int d = 0; d < kChunk; ++d) {
+      const bool live = col_live && d0 + d < k;
+      cp_async4(st + d * kTileCols + threadIdx.x,
+                live ? r + static_cast<long long>(d0 + d) * ld + col : r, live ? 4 : 0);
+    }
+  }
+  float* qs = st + kChunk * kTileCols;
+  constexpr int kRowQuads = BM / 4;
+  for (int e = threadIdx.x; e < kChunk * kRowQuads; e += kTiledThreads) {
+    const int d = e / kRowQuads;
+    const int c = (e - d * kRowQuads) * 4;
+    const bool live = d0 + d < k && row0 + c < ldq;
+    cp_async16(qs + d * BM + c, live ? qT + static_cast<long long>(d0 + d) * ldq + row0 + c : qT,
+               live ? 16 : 0);
+  }
+}
+
+// |r|^2 and liveness of the thread's 8 slots of a tile: slot j is column
+// col0 + j * step (col0 the thread's own first column), its norm
+// norms[j * kSliceLanes] (norms at the thread's lane).
+__device__ __forceinline__ void tile_slots(const float* norms, long long col0, int step,
+                                           int live_groups, int n, float (&nj)[kTileGroups],
+                                           bool (&live)[kTileGroups]) {
+#pragma unroll
+  for (int j = 0; j < kTileGroups; ++j) {
+    nj[j] = norms[j * kSliceLanes];
+    live[j] = j < live_groups && col0 + static_cast<long long>(j) * step < n;
+  }
+}
+
+// One block's sweep over its column tiles (tc) for the rows row0 ..: each
+// step stages a d-chunk of a tile (the ring) and adds it into the
+// thread's TM x 8 accumulators; after a tile's last chunk, with |r|^2 of
+// the tile's slots in norm_s, epi(acc, col0, live_groups) runs in every
+// warp that owns a row below m (col0: the tile's slot (0, 0); live_groups:
+// its groups still inside the slice; acc is the epilogue's to overwrite).
+// The caller's state writes before the call are visible to every thread
+// in the epilogue.
+template <int TM, typename Epilogue>
+__device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ldq,
+                                            const float* __restrict__ r, int m, int k,
+                                            long long ld, int n, bool vec16,
+                                            const TileColumns& tc, int row0, float* ring,
+                                            float* norm_s, Epilogue&& epi) {
+  constexpr int BM = kTiledWarps * TM;
+  constexpr int kStage = tiled_stage_floats<TM>();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tiles = (tc.groups + kTileGroups - 1) / kTileGroups;
+  const int chunks = (k + kChunk - 1) / kChunk;
+  const int steps = tiles * chunks;
+  const bool warp_live = row0 + warp * TM < m;  // warp-uniform
+
+  int it = 0, ic = 0;  // the next step to issue, as (tile, chunk)
+  auto issue = [&](int s) {
+    stage_tiled<TM>(ring + (s % kTiledStages) * kStage, qT, ldq, r, k, ld, n, vec16,
+                    tc.first + it * tc.tile_step, tc.group_step, tc.groups - it * kTileGroups,
+                    ic * kChunk, row0);
+    if (++ic == chunks) {
+      ic = 0;
+      ++it;
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kTiledStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+
+  float acc[TM][kTileGroups];
+  float norm = 0.f;  // |r|^2 of slot threadIdx.x's column
+  int t = 0, c = 0;  // the step being scored, as (tile, chunk)
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kTiledStages - 2>();  // step s has landed (this thread's copies)
+    __syncthreads();                    // ... every thread's, and step s - 1 is done with
+    if (s + kTiledStages - 1 < steps) issue(s + kTiledStages - 1);
+    cp_async_commit();
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kTileGroups; ++j) acc[i][j] = 0.f;
+      }
+      norm = 0.f;
+    }
+    const float* st = ring + (s % kTiledStages) * kStage;
+    norm = column_norm_chunk<kChunk>(st + threadIdx.x, kTileCols, norm);
+    if (warp_live) {
+      micro_tile_chunk<TM, kTileGroups, kChunk>(st + kChunk * kTileCols + warp * TM, BM,
+                                                st + lane, kTileCols, kSliceLanes, acc);
+    }
+    if (c == chunks - 1) {
+      norm_s[threadIdx.x] = norm;
+      __syncthreads();
+      if (warp_live) epi(acc, tc.first + t * tc.tile_step, tc.groups - t * kTileGroups);
+    }
+    if (++c == chunks) {
+      c = 0;
+      ++t;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The transposed queries (fused.transposed_queries) a tiled kernel stages:
+// (k, ldq), ldq >= m a multiple of 4, rows m..ldq-1 zero, 16-byte aligned.
+inline bool valid_queries_t(const float* qT, int ldq, int m) {
+  return ldq >= m && ldq % 4 == 0 && reinterpret_cast<uintptr_t>(qT) % 16 == 0;
+}
+
+inline bool vec16_operand(const float* r, long long ld) {
+  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
+}
+
+// Launch a tiled kernel whose static shared memory is `State` over
+// ceil(m / (8*TM)) row tiles (grid.y, in slices of kMaxGridY; the kernel's
+// last argument is the slice's first row) and grid_x blocks per row tile.
+template <int TM, typename State, typename... Params, typename... Args>
+int launch_tiled_grid(void (*kernel)(Params...), int grid_x, int m, cudaStream_t stream,
+                      Args... args) {
+  constexpr int BM = kTiledWarps * TM;
+  constexpr size_t smem = tiled_ring_bytes<TM>();
+  static_assert(kTiledBlocksPerSm * (smem + sizeof(State) + kSmemPerBlockReserved) <= kSmemPerSm,
+                "a tiled kernel's blocks per SM do not fit its shared memory");
+  if (const int e = allow_smem(kernel, smem, sizeof(State))) return e;
+  const int tiles = (m + BM - 1) / BM;
+  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
+    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
+    kernel<<<dim3(grid_x, ty), kTiledThreads, smem, stream>>>(args..., t0 * BM);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// Call f(std::integral_constant<int, TM>) for the rows per warp the tiled
+// kernels are built for (tuning.TILED_ROWS: 1, 4, 8).
+template <typename F>
+int with_tiled_rows(int tm, F&& f) {
+  switch (tm) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace

@@ -11,11 +11,13 @@ top-T pre-selection under a certified score-magnitude cutoff, then an
 exact diff-form rerank with the lowest-index tie rule) is plain torch, as
 it was plain XLA in tpu_knn. B4 (`banded_candidates`, replacing
 `_fused_banded_kernel`) is B1 with a per-row lexicographic bound, one
-pass of the top-K passes engine (kernels/topk.py). Two ladder rungs are
-B1 variants with bit-identical scores: v3 (`aos_candidates`) reads the
-caller's (n, k) array with an on-chip transpose instead of the SoA
-relayout, and v6 (`const_query_candidates`) keeps the whole query set in
-constant memory for the sweep.
+pass of the top-K passes engine (kernels/topk.py); B3
+(`minima_candidates`, replacing `_fused_minima_kernel`) is B1 with a
+value-only lane fold, the seeded engine's bound pass (kernels/seeded.py).
+Two ladder rungs are B1 variants with bit-identical scores: v3
+(`aos_candidates`) reads the caller's (n, k) array with an on-chip
+transpose instead of the SoA relayout, and v6 (`const_query_candidates`)
+keeps the whole query set in constant memory for the sweep.
 
 Precision: B1 here computes in plain f32 FMA on the CUDA cores, the
 "highest" tier. tpu_knn's bf16-split tiers (packed, bf16x3, bf16x4,
@@ -51,7 +53,7 @@ PORTED_PRECISIONS = frozenset({"packed", "bf16x3", "bf16x3_presplit", "bf16x4", 
 
 _I32_MAX = 2**31 - 1
 
-#: The lane-per-thread kernels that share B1's contract (B3, v3, v6, B10)
+#: The lane-per-thread kernels that share B1's contract (v3, v6, B10)
 #: get at least this many blocks per SM (tuning.pick_parts).
 B1_BLOCKS_PER_SM = 2
 
@@ -230,11 +232,27 @@ def fused_candidates_plain(q, r_op, n: int, parts: int):
 
 def transposed_queries(q: torch.Tensor) -> torch.Tensor:
     """(m, k) queries -> the (k, round_up(m, 4)) transposed copy, rows
-    m.. zero, that the tiled f32 kernel (B1, B4) stages in 16-byte
+    m.. zero, that the tiled f32 kernels (B1, B4, B3, B7) stage in 16-byte
     copies."""
     m, k = q.shape
     q_t = q.new_zeros((k, round_up(m, 4)))
     q_t[:, :m] = q.T
+    return q_t
+
+
+def checked_queries_t(q: torch.Tensor, q_t):
+    """q_t as a tiled kernel (B1, B4, B3, B7) takes it: transposed_queries(q)
+    where q_t is None, else q_t itself if it has that copy's form, or
+    ValueError. A caller that launches several of them on the same
+    queries makes the copy once and passes it."""
+    m, k = q.shape
+    if q_t is None:
+        return transposed_queries(q)
+    if (q_t.dtype != torch.float32 or q_t.shape != (k, round_up(m, 4))
+            or not q_t.is_contiguous() or q_t.device != q.device):
+        raise ValueError(f"q_t must be transposed_queries(q): a contiguous ({k}, "
+                         f"{round_up(m, 4)}) float32 tensor on {q.device}, got "
+                         f"{tuple(q_t.shape)} {q_t.dtype} on {q_t.device}")
     return q_t
 
 
@@ -309,13 +327,7 @@ def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
-    if q_t is None:
-        q_t = transposed_queries(q)
-    elif (q_t.dtype != torch.float32 or q_t.shape != (k, round_up(m, 4))
-          or not q_t.is_contiguous() or q_t.device != q.device):
-        raise ValueError(f"q_t must be transposed_queries(q): a contiguous ({k}, "
-                         f"{round_up(m, 4)}) float32 tensor on {q.device}, got "
-                         f"{tuple(q_t.shape)} {q_t.dtype} on {q_t.device}")
+    q_t = checked_queries_t(q, q_t)
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_banded_candidates(
@@ -339,7 +351,7 @@ def tiled_parts(m: int, k: int, n: int) -> int:
 
 def default_parts(m: int, k: int, n: int) -> int:
     """Partition count of the lane-per-thread kernels on B1's contract
-    (B3, v6): the grid of (cuda_tile_m row tiles x partitions) gets
+    (v6): the grid of (cuda_tile_m row tiles x partitions) gets
     B1_BLOCKS_PER_SM blocks of 128 threads per SM."""
     return pick_parts(cdiv(m, cuda_tile_m(m, k)), n, B1_BLOCKS_PER_SM)
 
@@ -397,13 +409,15 @@ def minima_candidates_plain(q, r_op, n: int, depth: int = 1, lo=None,
 
 def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
                       depth: int = 1, lo: torch.Tensor | None = None,
-                      n_limit: int | None = None):
+                      n_limit: int | None = None, q_t: torch.Tensor | None = None):
     """(m, k) queries x (k_pad, >= n) SoA operand -> (m, 128*depth) f32:
     the value-only per-lane minima of B1's scores over the first
     min(n, n_limit) columns (see minima_candidates_plain), optionally
     only the scores above lo (m,) f32. The scores are bit-identical to
     B1's and B7's on the card, which the seeded engine's bound relies on.
-    CPU tensors take the plain version; CUDA tensors launch B3 or raise."""
+    q_t: q's transposed copy (checked_queries_t), made once by the seeded
+    engine for its B3 and B7 launches. CPU tensors take the plain version;
+    CUDA tensors launch B3 or raise."""
     if depth not in (1, 2):
         raise ValueError(f"depth must be 1 or 2, got {depth}")
     n_eff = n if n_limit is None else min(n, n_limit)
@@ -418,15 +432,16 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
-    parts = default_parts(m, k, n_eff)      # B1's grid
-    partial = torch.empty((m, parts * depth * LANE), dtype=torch.float32,
+    q_t = checked_queries_t(q, q_t)
+    g = tiled_geometry(m, k, n_eff)      # B1's grid
+    partial = torch.empty((m, g.parts * depth * LANE), dtype=torch.float32,
                           device=q.device)
     out = torch.empty((m, depth * LANE), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_minima_candidates(
-            q.data_ptr(), r_op.data_ptr(), lo.data_ptr() if lo is not None else None,
-            partial.data_ptr(), out.data_ptr(), m, k, r_op.stride(0), n_eff, parts,
-            cuda_tile_m(m, k), depth, torch.cuda.current_stream(q.device).cuda_stream)
+            q_t.data_ptr(), r_op.data_ptr(), lo.data_ptr() if lo is not None else None,
+            partial.data_ptr(), out.data_ptr(), m, q_t.shape[1], k, r_op.stride(0), n_eff,
+            g.parts, g.tm, depth, torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B3 minima_candidates")
     minima_candidates.launches += 1
     return out

@@ -28,7 +28,9 @@ counts which tier answered each call (or chunk).
 
 The constants and the cell policy are tpu_knn's, verbatim: they decide
 which cells exist and so which candidates are compacted. The CUDA
-kernels choose their own blocks.
+kernels choose their own blocks (B3 by tuning.tiled_geometry, B7 by
+tuning.moments_geometry); the engine makes the queries' transposed copy
+that B3 and B7 stage once per call (or chunk).
 """
 
 from __future__ import annotations
@@ -40,10 +42,10 @@ import torch
 
 from tpu_knn_torch.kernels.fused import (
     _I32_MAX, _check_bound, _check_candidate_operands, _lane_groups, auto_precision,
-    minima_candidates, score_chunks,
+    checked_queries_t, minima_candidates, score_chunks, transposed_queries,
 )
 from tpu_knn_torch.kernels.tuning import (
-    H100_SMS, LANE, OPERAND_TILE_BUDGET, cuda_tile_m, pick_tiles,
+    LANE, OPERAND_TILE_BUDGET, moments_geometry, pick_tiles,
 )
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
@@ -201,28 +203,16 @@ def extract_moments_plain(q, r_op, n: int, bound, cell: int, n_fields: int,
     return outs
 
 
-#: B7 launches get at least this many blocks (of 256 threads) per SM.
-B7_BLOCKS_PER_SM = 2
-
-#: Columns one B7 block scores per step (its thread count).
-B7_CHUNK = 256
-
-
-def extract_parts(m: int, k: int, n_ops: int) -> int:
-    """B7 partition count: enough column partitions (whole 256-column
-    chunks) that the grid has B7_BLOCKS_PER_SM blocks per SM."""
-    want = cdiv(B7_BLOCKS_PER_SM * H100_SMS, cdiv(m, cuda_tile_m(m, k)))
-    return max(1, min(cdiv(n_ops, B7_CHUNK), want))
-
-
 def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
                     bound: torch.Tensor, cell: int, n_fields: int,
-                    lo: torch.Tensor | None = None, emit_rem: bool = False):
+                    lo: torch.Tensor | None = None, emit_rem: bool = False,
+                    q_t: torch.Tensor | None = None):
     """(m, k) queries x (k_pad, n_ops) SoA operand, bound (m,) f32[, lo
     (m,) f32] -> (A[, p3][, rem]) as in extract_moments_plain, packed
     bit for bit as tpu_knn's extraction kernel packs them. The scores
-    are B1's (bit-identical on the card). CPU tensors take the plain
-    version; CUDA tensors launch B7 or raise."""
+    are B1's and B3's (bit-identical on the card). q_t: q's transposed
+    copy (fused.checked_queries_t), made once per call by the engine.
+    CPU tensors take the plain version; CUDA tensors launch B7 or raise."""
     _check_candidate_operands(q, r_op, n, 1)
     m, k = q.shape
     n_ops = r_op.shape[1]
@@ -241,15 +231,16 @@ def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
+    q_t = checked_queries_t(q, q_t)
     nc = n_ops // cell
     cubic = n_fields == _EXTRACT_FIELDS_CUBIC
-    parts = extract_parts(m, k, n_ops)
+    g = moments_geometry(m, k, n_ops)
     dev = q.device
     a = torch.empty((m, nc), dtype=torch.int32, device=dev)
     p3 = torch.empty((m, nc), dtype=torch.int32, device=dev) if cubic else None
     rem_part = rem = None
     if emit_rem:
-        rem_part = torch.empty((m, parts * B7_CHUNK), dtype=torch.float32, device=dev)
+        rem_part = torch.empty((m, g.parts * LANE), dtype=torch.float32, device=dev)
         rem = torch.empty((m, LANE), dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -257,10 +248,9 @@ def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
 
     with torch.cuda.device(dev):
         err = lib.tk_extract_moments(
-            q.data_ptr(), r_op.data_ptr(), bound.data_ptr(), ptr(lo), a.data_ptr(),
-            ptr(p3), ptr(rem_part), ptr(rem), m, k, r_op.stride(0), n, nc, cell,
-            int(cubic), parts, cuda_tile_m(m, k),
-            torch.cuda.current_stream(dev).cuda_stream)
+            q_t.data_ptr(), r_op.data_ptr(), bound.data_ptr(), ptr(lo), a.data_ptr(),
+            ptr(p3), ptr(rem_part), ptr(rem), m, q_t.shape[1], k, r_op.stride(0), n, nc,
+            cell, int(cubic), g.parts, g.tm, torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "B7 extract_moments")
     extract_moments.launches += 1
     return (a,) + ((p3,) if cubic else ()) + ((rem,) if emit_rem else ())
@@ -590,11 +580,12 @@ def _build_seeded(m: int, n: int, k: int, kk: int, n_ops: int):
 
     def run(search, r_ops, ref_aos):
         r_op = r_ops[0]
+        q_t = transposed_queries(search) if search.is_cuda else None
         cs1 = minima_candidates(search, r_op, n, depth=g["depth"],
-                                n_limit=g["p1_limit"])
+                                n_limit=g["p1_limit"], q_t=q_t)
         # At least kk distinct elements score <= the kk-th lane minimum.
         bound = _inflate_bound(_kth_smallest(cs1, kk))
-        moms = extract_moments(search, r_op, n, bound, cell, g["n_fields"])
+        moms = extract_moments(search, r_op, n, bound, cell, g["n_fields"], q_t=q_t)
         # Overflow cells (more qualifiers than the solver takes, bit 30)
         # leave the solver's fields and, one per row, join the rerank
         # whole; they credit solvable + 1 candidates to the count.
@@ -680,7 +671,8 @@ def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int):
     def run(search, r_ops, ref_aos):
         r_op = r_ops[0]
         lo = torch.full((m,), -torch.inf, dtype=torch.float32, device=search.device)
-        cs1 = minima_candidates(search, r_op, n)
+        q_t = transposed_queries(search) if search.is_cuda else None
+        cs1 = minima_candidates(search, r_op, n, q_t=q_t)
         cols_all, certs = [], []
         counted = torch.zeros((m,), dtype=torch.int64, device=search.device)
         remaining, escalated = kk, False
@@ -688,7 +680,7 @@ def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int):
             needed = min(SEEDED_ROUND_K, remaining)
             bound = _inflate_bound(_kth_smallest(cs1, needed), lo)
             a_pack, p3, cs1 = extract_moments(search, r_op, n, bound, cell,
-                                              g["n_fields"], lo=lo, emit_rem=True)
+                                              g["n_fields"], lo=lo, emit_rem=True, q_t=q_t)
             qual = a_pack != 0
             counted += torch.clamp(a_pack & 3, max=solvable).sum(dim=1)
             (fast_fits,) = _host_flags(_part_fits(qual, g["nparts"], g["cap_fast"]))

@@ -5,8 +5,9 @@ because it still fixes the prepared operand's n padding (NNIndex), so an
 index's state carries across between the two packages unchanged. The
 CUDA kernels do not use its tiles; they take their
 launch geometry from the helpers below: `tiled_geometry` for the tiled
-f32 candidate kernel (B1 "highest" and B4), `cuda_tile_m` and
-`pick_parts` for the lane-per-thread kernels (B3, B5, v3, v6, B10).
+f32 kernels on B1's lanes (B1 "highest", B4 and B3), `moments_geometry`
+for the same template over whole 256-column chunks (B7), `cuda_tile_m`
+and `pick_parts` for the lane-per-thread kernels (B5, v3, v6, B10).
 """
 
 from __future__ import annotations
@@ -83,21 +84,25 @@ def pick_parts(m_tiles: int, n: int, blocks_per_sm: int) -> int:
     return max(1, min(cdiv(n, LANE), want))
 
 
-# ---- the tiled f32 candidate kernel (B1 "highest", B4) ------------------
-# What tiled_geometry needs of its fixed shape (csrc/fused_kernels.cu):
+# ---- the tiled f32 kernels (B1 "highest", B4, B3, B7) -------------------
+# What tiled_geometry needs of their fixed shape (csrc/tiled.cuh):
 # blocks of TILED_WARPS warps, warp w owning TM query rows and thread c one
 # of TILED_SLICE_LANES lanes of a partition (a block covers a quarter of
 # the 128), each thread a TM x TILED_TILE_GROUPS register micro-tile, so a
 # column tile is TILED_TILE_GROUPS of the partition's 128-column groups.
-# Its shared memory does not depend on k, and the kernel's source checks
+# B7 gives a column tile one contiguous MOMENT_CHUNK-column chunk instead.
+# Their shared memory does not depend on k, and the kernels' source checks
 # at compile time that TILED_BLOCKS_PER_SM blocks of it fit an SM.
 
 TILED_WARPS = 8
 TILED_SLICE_LANES = 32
 TILED_TILE_GROUPS = 8
 
-#: Rows per warp the kernel is built for (launch_tiled_rows).
+#: Rows per warp the kernels are built for (with_tiled_rows).
 TILED_ROWS = (1, 4, 8)
+
+#: Columns of one of B7's column tiles: its partitions are whole chunks.
+MOMENT_CHUNK = TILED_TILE_GROUPS * TILED_SLICE_LANES
 
 #: Blocks of 8 warps resident per SM (the kernel's __launch_bounds__).
 TILED_BLOCKS_PER_SM = 2
@@ -120,7 +125,8 @@ def tiled_blocks(m: int, tm: int, parts: int) -> int:
 
 
 def tiled_geometry(m: int, k: int, n: int) -> TiledGeometry:
-    """Launch geometry of the tiled f32 candidate kernel at (m, k, n).
+    """Launch geometry of the tiled f32 kernel on B1's lanes (B1, B4, B3)
+    at (m, k, n).
 
     TM: the fewest rows per warp that leave no warp's rows wholly padding
     where m allows it (1 for m <= 8, 4 for m <= 32, else 8); k only sets
@@ -132,17 +138,34 @@ def tiled_geometry(m: int, k: int, n: int) -> TiledGeometry:
     P (fewer candidates for the caller to merge)."""
     if min(m, k, n) < 1:
         raise ValueError(f"empty launch (m={m}, k={k}, n={n})")
-    return _tiled_geometry(m, n)
+    tm = _tiled_rows(m)
+    return TiledGeometry(tm, _wave_parts(tiled_blocks(m, tm, 1), cdiv(n, LANE),
+                                         TILED_TILE_GROUPS))
+
+
+def moments_geometry(m: int, k: int, n_ops: int) -> TiledGeometry:
+    """Launch geometry of B7 (the tiled template over whole MOMENT_CHUNK-
+    column chunks of the (k_pad, n_ops) operand, one block per row tile and
+    partition): TM as tiled_geometry picks it, and the partition count P
+    that minimises waves x chunks per block as there."""
+    if min(m, k, n_ops) < 1:
+        raise ValueError(f"empty launch (m={m}, k={k}, n_ops={n_ops})")
+    tm = _tiled_rows(m)
+    return TiledGeometry(tm, _wave_parts(cdiv(m, TILED_WARPS * tm), cdiv(n_ops, MOMENT_CHUNK), 1))
+
+
+def _tiled_rows(m: int) -> int:
+    return 1 if m <= TILED_WARPS else 4 if m <= 4 * TILED_WARPS else 8
 
 
 @functools.lru_cache(maxsize=None)
-def _tiled_geometry(m: int, n: int) -> TiledGeometry:
-    tm = 1 if m <= TILED_WARPS else 4 if m <= 4 * TILED_WARPS else 8
-    groups = cdiv(n, LANE)
+def _wave_parts(one_part: int, units: int, per_tile: int) -> int:
+    """The partition count of a launch of one_part blocks per partition
+    over `units` column units, per_tile of them to a column tile: the
+    smallest P whose waves x tiles per block is within TILED_COST_SLACK of
+    the least."""
     per_wave = TILED_BLOCKS_PER_SM * H100_SMS
-    one_part = tiled_blocks(m, tm, 1)
-    costs = [cdiv(one_part * parts, per_wave) * cdiv(cdiv(groups, parts), TILED_TILE_GROUPS)
-             for parts in range(1, min(groups, 8 * cdiv(per_wave, one_part)) + 1)]
+    costs = [cdiv(one_part * parts, per_wave) * cdiv(cdiv(units, parts), per_tile)
+             for parts in range(1, min(units, 8 * cdiv(per_wave, one_part)) + 1)]
     least = min(costs)
-    parts = 1 + next(p for p, c in enumerate(costs) if c <= least * (1 + TILED_COST_SLACK))
-    return TiledGeometry(tm, parts)
+    return 1 + next(p for p, c in enumerate(costs) if c <= least * (1 + TILED_COST_SLACK))
