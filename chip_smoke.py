@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 0. setup: requires an sm_90 card, prints its name and power limit, turns
    TF32 off, builds the CUDA kernels from tpu_knn_torch/csrc (build time
    and the ptxas report are printed; any spill in an instance of B3's or
-   B7's tiled kernel fails);
+   B7's tiled kernel or of the tensor-core kernel (B1's tiers, B12)
+   fails);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
@@ -95,8 +96,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    cuBLAS product of the score matrices and the main paths (B1 "highest"
    also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1,
    B4, B3 and B7 (at the seeded ds11 K = 8 and K = 64 launches, B3 with
-   its partition merge) also by their kernels' own device time from
-   torch.profiler; among them
+   its partition merge) and each tier row and B12 also by their kernels'
+   own device time from torch.profiler; among them
    the ladder's per-call rows and prepared auto against prepared fused,
    with device time and idle per host read from torch.profiler; each tier
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
@@ -1728,6 +1729,10 @@ def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
         }, reps))
         times.update(time_ms({f"{row} plain": lambda: tiers.tier_candidates_plain(
             q, ops, n, parts, precision)}, plain_reps, warmup=1))
+        # The tensor-core kernel and, but for B12, the norm pass before it.
+        times[f"{row} kernel device"] = kernel_device_ms(
+            lambda: tiers.tier_candidates(q, ops, n, parts, precision), plain_reps, card,
+            "tensor_candidates", 1 if kind == "presplit" else 2)
         k16 = -(-k // 16) * 16
         terms = len(tiers.term_list(precision, k))
         if kind in ("bf16", "int8"):
@@ -2251,7 +2256,8 @@ def main() -> int:
         for line in ptxas:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
-        check_no_spills(ptxas, {"B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel"})
+        check_no_spills(ptxas, {"B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel",
+                                "tensor-core tiers and B12": "tensor_candidates_kernel"})
 
     stamp("phase 0")
     gen = torch.Generator(device=device)

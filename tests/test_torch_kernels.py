@@ -624,6 +624,53 @@ def test_b12_matches_plain(device, k, m, n, parts):
     assert int(got[0]) == n // 2
 
 
+@pytest.mark.parametrize("precision,kind,k,m,n,parts", [
+    ("packed", "f32", 16, 63, 5003, 3),        # one row below the 64-row tile
+    ("packed", "f32", 16, 65, 5003, 3),        # one above; n ragged in a 16-byte unit
+    ("packed", "f32", 3, 65, 2051, 4),         # 9 terms
+    ("bf16x3", "f32", 40, 65, 3001, 2),        # k16 = 48: 16-row chunks
+    ("bf16x4", "f32", 32, 1, 777, 2),          # one row, 32-row chunks
+    ("qsplit2", "bf16", 40, 63, 3003, 2),      # a bf16 operand, ragged in its 8-value unit
+    ("packed", "bf16", 16, 65, 1030, 3),
+    ("bf16x3_presplit", "presplit", 40, 65, 5003, 3),
+    ("bf16x3", "f32", 768, 65, 1001, 2),       # the q parts ride in the ring
+    ("qsplit2", "bf16", 768, 63, 1003, 1),
+    ("bf16x3_presplit", "presplit", 768, 64, 999, 1),
+])
+def test_tensor_kernel_matches_plain_at_tile_edges(device, precision, kind, k, m, n, parts):
+    """The tensor-core kernel at its tile's edges (64-row tiles, column
+    tiles of 4 groups x a 32-lane slice, 16- or 32-row chunks, the q parts
+    resident or in the ring), in each operand mode, against its plain
+    version: slot agreement, the score error within the tier's gate, the
+    same refined 1-NN; and query 0's point planted at columns 5, 5 + 128
+    (the same lane, the next group of the column tile) and 5 + 640 (the
+    same lane, the next column tile), which its lane must resolve to 5."""
+    q, r, r_op = _inputs(device, m, k, n, seed=3 * k + m + n)
+    r[5] = r[5 + 128] = r[5 + 640] = q[0]
+    if kind == "bf16":
+        r = r.to(torch.bfloat16).float()
+    n_pad = -(-n // 128) * 128 + 128
+    if kind == "presplit":
+        ops = tiers.presplit_ops(r, n_pad)
+    else:
+        ops = (prep_soa(r, n_pad).to(torch.bfloat16 if kind == "bf16" else torch.float32),)
+    tier = "bf16x3_presplit" if kind == "presplit" else tiers.resolved_tier(precision, k)
+    before = dict(tiers.TIER_LAUNCHES)
+    ki, ks = tiers.tier_candidates(q, ops, n, parts, precision)
+    torch.cuda.synchronize()
+    assert tiers.TIER_LAUNCHES == {**before, tier: before.get(tier, 0) + 1}
+    pi, ps = tiers.tier_candidates_plain(q, ops, n, parts, precision)
+    assert ki.shape == ks.shape == (m, parts * 128)
+    assert (ki == pi).float().mean().item() >= 0.999
+    plain_err = tiers.score_errors(q, r, pi, ps)[0]
+    assert tiers.score_errors(q, r, ki, ks)[0] <= tiers.tier_error_gate(precision, k, plain_err)
+    assert int(ki[0, 5]) == 5 and int(pi[0, 5]) == 5
+    cutoff = select_cutoff(precision, k)
+    got = _refine(q, r, (ki, ks), n, cutoff=cutoff)[0]
+    assert torch.equal(got, _refine(q, r, (pi, ps), n, cutoff=cutoff)[0])
+    assert int(got[0]) == 5
+
+
 @pytest.mark.parametrize("k,m,n,parts", [(8, 1, 1000, 1), (16, 3, 70_000, 9),
                                          (32, 4, 5000, 2), (3, 2, 777, 3)])
 def test_b2_bf16_is_bit_equal_to_b2_on_the_upcast_operand(device, k, m, n, parts):

@@ -184,8 +184,9 @@ def test_cuda_launch_geometry_covers_n():
     for m in MS[1:]:
         for n in NS:
             assert 1 <= tiers.tensor_parts(m, n) <= -(-n // 128)
-    # Whole waves of one block per SM: 16 row tiles x 33 = 4 x 132 at ds11.
-    assert tiers.tensor_parts(1024, 1 << 20) == 33
+    # Two blocks per SM: 16 row tiles x 4 lane slices x 4 = 256 blocks, one
+    # wave of the 264 slots, at ds11.
+    assert tiers.tensor_parts(1024, 1 << 20) == 4
     # The tiled f32 kernel (B1 "highest", B4): every geometry is one of its
     # built instances (no other kernel serves B1 or B4) and the same at
     # every k (k only streams through the ring, so the launch and its
@@ -224,6 +225,86 @@ def test_cuda_launch_geometry_covers_n():
     assert pt_tuning.tiled_geometry(4096, 16, 1 << 20) == (8, 1)
     with pytest.raises(ValueError, match="empty"):
         pt_tuning.tiled_geometry(8, 0, 1000)
+
+
+def test_tensor_kernel_shared_memory_admits_two_blocks_per_sm():
+    """The Python mirror of the tensor-core kernel's shared-memory plan
+    (tiers.tensor_smem, csrc tensor_smem): for every instance (operand
+    mode, T) and chunk KC the C entry dispatches, at every k16 = 16 ...
+    4096 it takes (T = 8 and 9 only at k16 = 16, the only width their
+    term lists come at), two blocks and the system's reserve fit an SM;
+    the ring keeps at least two stages (one landing while one is
+    multiplied) and the q parts stay resident up to the limit, then ride
+    in the ring. The instances' term lists are those term_list sends."""
+    from tpu_knn_torch.kernels import tiers
+
+    sent = set()
+    for precision in ("default", "bf16_raw", "qsplit2", "packed", "bf16x3", "bf16x4"):
+        for k in range(1, 800):
+            terms = tiers.term_list(precision, k)
+            sent.add((0, terms))
+            sent.add((1, tuple(t for t in terms if t[1] == 0)))
+    sent.add((2, tiers.term_list("bf16x3_presplit", 16)))
+    assert all(k <= 16 for k in range(1, 800) if len(tiers.term_list("packed", k)) >= 8)
+    assert sent <= {(mode, terms) for (mode, _), terms in tiers.TENSOR_INSTANCES.items()}
+    assert all(len(terms) == t for (_, t), terms in tiers.TENSOR_INSTANCES.items())
+    budget = tiers.SMEM_PER_SM // tiers.TENSOR_BLOCKS_PER_SM - tiers.SMEM_PER_BLOCK_RESERVED
+    for (mode, _), terms in tiers.TENSOR_INSTANCES.items():
+        nq = 1 + max(i for i, _ in terms)
+        for kc in (16, 32) if len(terms) < 8 else (16,):
+            assert 2 <= tiers.tensor_stages(mode, terms, kc) <= 4
+            # At the widest k16 the q parts never fit: the plan of q in
+            # the ring, which no k16 changes.
+            in_ring = tiers.tensor_smem(mode, terms, kc, 4096 if kc == 32 else 4080)
+            for k16 in range(16, 4097 if len(terms) < 8 else 17, 16):
+                if tiers.tensor_chunk(k16) != kc:
+                    continue
+                smem = tiers.tensor_smem(mode, terms, kc, k16)
+                assert smem <= budget, (mode, terms, kc, k16, smem)
+                assert smem % 16 == 0
+                resident = k16 // kc * nq * tiers.TENSOR_TILE_M * (kc + 8) * 2
+                if resident <= tiers.TENSOR_Q_RESIDENT_BYTES:
+                    assert smem >= resident + 4 * 128
+                else:
+                    assert smem == in_ring
+    assert [tiers.tensor_chunk(k16) for k16 in (16, 32, 48, 64, 768, 4096)] == [
+        16, 32, 16, 32, 32, 32]
+    # Named plans: bf16x3 over f32 at k = 768 rides q in a 3-stage ring
+    # beside the split planes and fills the budget exactly; B12 there
+    # takes 3 stages, qsplit2 over a bf16 operand 4.
+    assert tiers.tensor_stages(0, tiers.TENSOR_INSTANCES[0, 3], 32) == 3
+    assert tiers.tensor_smem(0, tiers.TENSOR_INSTANCES[0, 3], 32, 768) == budget
+    assert tiers.tensor_stages(2, tiers.TENSOR_INSTANCES[2, 3], 32) == 3
+    assert tiers.tensor_stages(1, tiers.TENSOR_INSTANCES[1, 2], 32) == 4
+
+
+@pytest.mark.parametrize("m,n", [(1, 1000), (16, 1 << 20), (64, 1 << 20), (100, 70_000),
+                                 (1024, 1 << 17), (1024, 1 << 20), (4096, 1 << 20),
+                                 (1 << 14, 1 << 20)])
+def test_tensor_parts_fills_whole_waves_of_two_blocks_per_sm(m, n):
+    """tiers.tensor_parts' cost model: a launch of ceil(m / 64) row tiles x
+    4 lane slices x P blocks runs in waves of 2 x 132, each block walking
+    ceil(ceil(G / P) / 4) column tiles; P stays within the groups of n,
+    and its waves x tiles per block is within 5% of the least any P gives
+    (and never above the same tiles spread evenly over whole waves by more
+    than one wave's worth)."""
+    from tpu_knn_torch.kernels import tiers
+
+    groups = -(-n // 128)
+    one_part = -(-m // tiers.TENSOR_TILE_M) * tiers.TENSOR_SLICES
+    per_wave = tiers.TENSOR_BLOCKS_PER_SM * pt_tuning.H100_SMS
+
+    def cost(parts):
+        return -(-one_part * parts // per_wave) * -(-(-(-groups // parts))
+                                                     // tiers.TENSOR_TILE_GROUPS)
+
+    parts = tiers.tensor_parts(m, n)
+    assert 1 <= parts <= groups
+    least = min(cost(p) for p in range(1, groups + 1))
+    assert cost(parts) <= (1 + pt_tuning.TILED_COST_SLACK) * least
+    assert all(cost(p) > (1 + pt_tuning.TILED_COST_SLACK) * least for p in range(1, parts))
+    tiles = -(-groups // tiers.TENSOR_TILE_GROUPS)
+    assert cost(parts) <= -(-one_part * tiles // per_wave) + tiles
 
 
 def test_b7_launch_geometry_takes_whole_chunks_in_whole_waves():

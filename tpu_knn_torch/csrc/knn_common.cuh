@@ -43,6 +43,10 @@ constexpr int kLanes = 128;  // candidate lanes per partition = threads per bloc
 constexpr int kI32Max = 2147483647;
 constexpr int kMaxGridY = 65535;
 constexpr int kDefaultSmem = 48 * 1024;
+// An SM's shared memory (228 KB) and what the system keeps of it for each
+// resident block: the budget a kernel's blocks per SM must fit.
+constexpr size_t kSmemPerSm = 233472;
+constexpr size_t kSmemPerBlockReserved = 1024;
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }

@@ -57,14 +57,12 @@ __host__ __device__ constexpr int tiled_stage_floats() {
 
 // A block's shared memory: the ring (dynamic, the same at every k) and its
 // kernel's static state. kTiledBlocksPerSm blocks of it must fit one SM's
-// 228 KB, of which the system keeps 1 KB per block; launch_tiled_grid
+// kSmemPerSm, less kSmemPerBlockReserved per block; launch_tiled_grid
 // checks that when it is compiled.
 template <int TM>
 constexpr size_t tiled_ring_bytes() {
   return static_cast<size_t>(kTiledStages) * tiled_stage_floats<TM>() * sizeof(float);
 }
-constexpr size_t kSmemPerSm = 233472;
-constexpr size_t kSmemPerBlockReserved = 1024;
 
 // The columns of a block's column tiles: tile t's slot (j, c) holds column
 // first + t * tile_step + j * group_step + c, live while j < groups - t * 8

@@ -23,11 +23,12 @@ every tier:
 Two kernels serve the tiers (csrc/tensor_kernels.cu), both with B1's
 candidate contract (csrc/knn_common.cuh): `tensor_candidates` (B1's
 tiers) runs a tier's terms as one bf16 GEMM on the tensor cores
-(`mma.sync.m16n8k16`) over an f32 or bf16 SoA operand streamed through
-shared memory, splitting r as its fragments are read (q is split once per
-call by the wrapper), and folds s = ‖r‖² − 2·q·r per lane;
-`presplit_candidates` (B12) is the same kernel reading pre-split (hi, lo)
-bf16 rows and an f32 ‖r‖² row. Their plain versions (`tier_scores`,
+(`mma.sync.m16n8k16`, fragments from `ldmatrix`) over an f32 or bf16 SoA
+operand streamed through shared memory, splitting each staged f32 chunk
+of r once into bf16 part planes (q is split once per call by the
+wrapper; ‖r‖² once per call by a norm pass before the kernel), and folds
+s = ‖r‖² − 2·q·r per lane; `presplit_candidates` (B12) is the same kernel
+reading pre-split (hi, lo) bf16 rows and an f32 ‖r‖² row. Their plain versions (`tier_scores`,
 `presplit_scores` and the per-lane fold) compute every term as an f32
 matmul of the upcast parts, as tpu_knn's dot_general with an f32 result
 does. On a bf16 operand the lower r parts are exactly zero, so the kernel
@@ -38,7 +39,6 @@ reads the operand as it is stored.
 from __future__ import annotations
 
 import collections
-import functools
 import math
 
 import torch
@@ -47,15 +47,33 @@ from tpu_knn_torch.kernels.fused import (
     _I32_MAX, _TIER_EPS, _candidate_outputs, _check_candidate_operands, _lane_fold, _packed_terms,
     fused_candidates, norm_scores,
 )
-from tpu_knn_torch.kernels.tuning import H100_SMS, LANE
+from tpu_knn_torch.kernels.tuning import LANE, TILED_BLOCKS_PER_SM, _wave_parts
 from tpu_knn_torch.utils.platform import full_f32_matmul
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
-#: Query rows per block of the tensor-core kernel (csrc kTBM: four warps
-#: of 16 rows, each beside a second warp for the other 64 lanes).
+# The tensor-core kernel's geometry (csrc/tensor_kernels.cu). A block of
+# 8 warps owns TENSOR_TILE_M query rows and one slice of
+# LANE // TENSOR_SLICES lanes of a partition, and walks the partition's
+# 128-column groups TENSOR_TILE_GROUPS at a time (a column tile);
+# TENSOR_BLOCKS_PER_SM blocks run on an SM at once (its __launch_bounds__),
+# and their shared memory (tensor_smem) is checked against that when the
+# kernel is compiled.
+
+#: Query rows per block (csrc kTBM: two warps of 32 rows, each beside
+#: three more for the slice's other lanes).
 TENSOR_TILE_M = 64
+#: Blocks per (row tile, partition): lane slices of 32 (csrc kTSlices).
+TENSOR_SLICES = 4
+#: 128-column groups per column tile (csrc kTGroups).
+TENSOR_TILE_GROUPS = 4
+#: Blocks resident per SM (csrc kTBlocksPerSm): the tiled f32 kernels'
+#: two, so tuning._wave_parts' model of waves serves both.
+TENSOR_BLOCKS_PER_SM = TILED_BLOCKS_PER_SM
 
 _HH_HL_LH = ((0, 0), (0, 1), (1, 0))
+
+#: Operand modes of the tensor-core kernel (csrc OperandMode).
+_MODE_F32, _MODE_BF16, _MODE_PRESPLIT = 0, 1, 2
 
 #: Kernel launches of the kernels this module's tiers run, CUDA tensors
 #: only (the plain versions are not counted), one count per row of the
@@ -175,22 +193,89 @@ def presplit_scores(q, hi, lo, rn, n: int) -> torch.Tensor:
 
 
 def tensor_parts(m: int, n: int) -> int:
-    """Partition count of a tensor-core launch. Its blocks hold about 200
-    registers a thread, so one block runs on an SM at a time and a launch
-    takes ceil(blocks / 132) waves of blocks that each walk ceil(G / P) of
-    their row tile's G column groups: the count minimizing waves x groups
-    per block (the smallest on a tie), so the last wave is not left mostly
-    empty (at m = 1024, P = 33 fills 4 waves exactly where P = 17 took 3
-    for 2.06 waves' work)."""
-    return _tensor_parts(cdiv(m, TENSOR_TILE_M), cdiv(n, LANE))
+    """Partition count of a tensor-core launch. Each partition takes
+    ceil(m / TENSOR_TILE_M) row tiles x TENSOR_SLICES blocks, and the card
+    runs TENSOR_BLOCKS_PER_SM * 132 of them at once, all with the same
+    work: ceil(ceil(G / P) / TENSOR_TILE_GROUPS) column tiles of their
+    partition's share of the G 128-column groups. So a launch takes
+    ceil(blocks / that) waves of one block's work, and P minimises waves x
+    tiles per block, within tuning.TILED_COST_SLACK of its minimum the
+    smallest P (fewer candidates for the caller to merge): at m = 1024, n
+    = 2^20, P = 4 is one wave of 256 blocks, 512 tiles each, 3% above the
+    same work spread evenly over the 264 slots."""
+    return _wave_parts(cdiv(m, TENSOR_TILE_M) * TENSOR_SLICES, cdiv(n, LANE), TENSOR_TILE_GROUPS)
 
 
-@functools.lru_cache(maxsize=None)
-def _tensor_parts(tiles: int, groups: int) -> int:
-    def cost(parts):
-        return cdiv(tiles * parts, H100_SMS) * cdiv(groups, parts)
+#: The instances the kernel is built for: (operand mode, T) -> the term
+#: list each one runs (term_list's, less the terms a bf16 operand drops;
+#: csrc instance_terms). The C entry refuses any other list.
+TENSOR_INSTANCES = {
+    (0, 1): ((0, 0),), (0, 2): ((0, 0), (1, 0)), (0, 3): _HH_HL_LH,
+    (0, 4): _HH_HL_LH + ((1, 1),),
+    (0, 8): tuple((i, j) for i in range(3) for j in range(3))[:8],
+    (0, 9): tuple((i, j) for i in range(3) for j in range(3)),
+    (1, 1): ((0, 0),), (1, 2): ((0, 0), (1, 0)), (1, 3): ((0, 0), (1, 0), (2, 0)),
+    (2, 3): _HH_HL_LH,
+}
 
-    return min(range(1, min(groups, 4 * H100_SMS) + 1), key=lambda p: (cost(p), p))
+#: Shared memory of an SM, what the system keeps per resident block, and
+#: the resident q parts' limit (csrc kSmemPerSm, kSmemPerBlockReserved,
+#: kQResidentBytes).
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+TENSOR_Q_RESIDENT_BYTES = 30 * 1024
+#: Each block's fold state, 8 (score, index) pairs a thread, and in f32
+#: mode a copy of the folded tile's ‖r‖² row (csrc fixed_bytes).
+TENSOR_FOLD_BYTES = 8 * 256 * 8
+_TENSOR_MAX_STAGES = 4
+
+
+def tensor_chunk(k16: int) -> int:
+    """KC, the d-rows of one ring stage: 32 where k16 allows, else 16."""
+    return 32 if k16 % 32 == 0 else 16
+
+
+def _tensor_plan(mode: int, terms, kc: int):
+    """(q parts, r planes, r bytes of a stage, q chunk bytes, f32 part
+    planes' bytes) of an instance (csrc q_parts ... planes_bytes)."""
+    nq = 1 + max(i for i, _ in terms)
+    nr = (1 + max(j for _, j in terms)) if mode == _MODE_F32 else 2 if mode == _MODE_PRESPLIT else 1
+    cols = TENSOR_TILE_GROUPS * LANE // TENSOR_SLICES
+    r_stage = (kc * cols * 4 if mode == _MODE_F32
+               else (1 + (mode == _MODE_PRESPLIT)) * kc * (cols + 8) * 2) + 4 * cols
+    q_chunk = nq * TENSOR_TILE_M * (kc + 8) * 2
+    planes = nr * kc * (cols + 8) * 2 if mode == _MODE_F32 else 0
+    return nq, nr, r_stage, q_chunk, planes
+
+
+def _fixed_bytes(mode: int) -> int:
+    return TENSOR_FOLD_BYTES + (4 * LANE if mode == _MODE_F32 else 0)
+
+
+def tensor_stages(mode: int, terms, kc: int) -> int:
+    """The ring's depth (csrc ring_stages): the deepest, up to 4, at which
+    TENSOR_BLOCKS_PER_SM blocks fit an SM at any k16."""
+    _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc)
+
+    def fits(stages):
+        most = (_fixed_bytes(mode) + stages * r_stage + planes
+                + max(stages * q_chunk, TENSOR_Q_RESIDENT_BYTES))
+        return TENSOR_BLOCKS_PER_SM * (most + SMEM_PER_BLOCK_RESERVED) <= SMEM_PER_SM
+
+    return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
+
+
+def tensor_smem(mode: int, terms, kc: int, k16: int) -> int:
+    """Dynamic shared memory of one block (csrc tensor_smem): the fold
+    state, the ring's stages (the r chunk, the column tile's ‖r‖² row, and
+    the q chunk where the q parts are not resident), the f32 mode's part
+    planes, and the resident q parts."""
+    _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc)
+    q_res = k16 // kc * q_chunk   # resident q parts: the ring's chunks, one after another
+    resident = q_res <= TENSOR_Q_RESIDENT_BYTES
+    stages = tensor_stages(mode, terms, kc)
+    return (_fixed_bytes(mode) + stages * (r_stage + (0 if resident else q_chunk)) + planes
+            + (q_res if resident else 0))
 
 
 def _pack_terms(terms) -> tuple[int, int]:
@@ -201,11 +286,12 @@ def _pack_terms(terms) -> tuple[int, int]:
 
 def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
     """Launch the tensor-core kernel over ``operand`` (its first array;
-    ``ptrs`` = (r, r_lo, rn) pointers). The q parts the terms use are
-    split here, once per call, from the zero-padded queries: (nq, m, k16)
-    bf16, torch's round-to-nearest-even casts, tpu_knn's split bit for
-    bit. The staged rows are copied 16 bytes at a time, so the operand's
-    rows must start on 16-byte boundaries."""
+    ``ptrs`` = (r, r_lo, rn) pointers; rn None: the C entry first writes
+    the operand's ‖r‖² row into scratch allocated here). The q parts the
+    terms use are split here, once per call, from the zero-padded
+    queries: (nq, m, k16) bf16, torch's round-to-nearest-even casts,
+    tpu_knn's split bit for bit. The staged rows are copied 16 bytes at a
+    time, so the operand's rows must start on 16-byte boundaries."""
     from tpu_knn_torch.csrc.build import check, load
 
     if operand.data_ptr() % 16 or (operand.stride(0) * operand.element_size()) % 16:
@@ -218,6 +304,9 @@ def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
     nq = 1 + max(i for i, _ in terms)
     qp = torch.stack(split_bf16_3(q_pad)[:nq]).contiguous()
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    if ptrs[2] is None:
+        norms = torch.empty(n, dtype=torch.float32, device=q.device)
+        ptrs = (*ptrs[:2], norms.data_ptr())
     q_bits, r_bits = _pack_terms(terms)
     with torch.cuda.device(q.device):
         err = lib.tk_tensor_candidates(
@@ -226,10 +315,6 @@ def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, what)
     return idx, score
-
-
-#: Operand modes of the tensor-core kernel (csrc OperandMode).
-_MODE_F32, _MODE_BF16, _MODE_PRESPLIT = 0, 1, 2
 
 
 def tensor_candidates_plain(q, r_op, n: int, parts: int, precision: str):
