@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 0. setup: requires an sm_90 card, prints its name and power limit, turns
    TF32 off, builds the CUDA kernels from tpu_knn_torch/csrc (build time
    and the ptxas report are printed; any spill in an instance of B3's or
-   B7's tiled kernel or of the tensor-core kernel (B1's tiers, B12)
-   fails);
+   B7's tiled kernel, of B1's tiled kernel as v3 or v6, or of the
+   tensor-core kernel (B1's tiers, B12) fails, and so does a v3 or v6
+   instance whose static shared memory is not tuning's mirror of it);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
@@ -43,7 +44,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    64 + 1 tiles, n ragged against 4096, a window at the last tile with
    planted duplicates, and the auto path's
    (3, 16, 2^24) launch, at one split and the default splits), and B1's
-   AoS (v3) and constant-query (v6) variants, bit-equal to B1; then the
+   AoS (v3) and resident-query (v6) variants, bit-equal to B1 (on a grid,
+   at phase 2's ladder launches ds8..ds11, at k not a multiple of 4, m = 1,
+   ragged n, and v6's guard's extremes); then the
    tensor-core kernel's instances (B1's tiers and B12) on a grid of k = 1
    ... 768 with ragged n and at every shape phase 2 gives them (ds11 over
    f32, bf16 and int8-grid operands; packed2 at (32, 1024, 2^20); the
@@ -96,8 +99,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    cuBLAS product of the score matrices and the main paths (B1 "highest"
    also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1,
    B4, B3 and B7 (at the seeded ds11 K = 8 and K = 64 launches, B3 with
-   its partition merge) and each tier row and B12 also by their kernels'
-   own device time from torch.profiler; among them
+   its partition merge), v3 and v6 (at ds11 and ds9, beside B1 at their
+   P) and each tier row and B12 also by their kernels' own device time
+   from torch.profiler; among them
    the ladder's per-call rows and prepared auto against prepared fused,
    with device time and idle per host read from torch.profiler; each tier
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
@@ -1263,34 +1267,46 @@ def phase1_b11(device, gen, cases):
 
 
 def phase1_b1_variants(device, gen, cases):
-    """B1's AoS (v3) and constant-query (v6) variants bit-equal to B1 at
-    the same partition count; their error against the plain version is
-    B1's."""
+    """B1's AoS (v3) and resident-query (v6; where its guard admits the
+    shape) variants bit-equal to B1 at the same partition count (given,
+    else each variant's own: tiled_parts for v3, resident_geometry's for
+    v6); their error against the plain version is B1's."""
     import torch
 
     from tpu_knn_torch.kernels import fused
     from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.kernels.tuning import resident_geometry
     from tpu_knn_torch.utils.shapes import round_up
 
     err = 0.0
     for k, m, n, parts in cases:
         q = uniform(gen, (m, k), device)
         r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
-        parts = parts or fused.default_parts(m, k, n)
-        plant_duplicates(q, r_op, n, parts)
+        p3 = parts or fused.tiled_parts(m, k, n)
+        plant_lane_ties(q, plant_duplicates(q, r_op, n, p3), n, p3)
         r = r_op[:k, :n].T.contiguous()
-        bi, bs = fused.fused_candidates(q, r_op, n, parts)
-        for name, (vi, vs) in (("AoS (v3)", fused.aos_candidates(q, r, n, parts)),
-                               ("constant-query (v6)",
-                                fused.const_query_candidates(q, r_op, n, parts))):
-            if not (torch.equal(vi, bi) and torch.equal(vs, bs)):
-                fail(f"B1 {name} k={k} m={m} n={n} P={parts}: not bit-equal to B1")
-        pi, ps = fused.fused_candidates_plain(q, r_op, n, parts)
-        share, e, _ = slot_agreement("B1 variants", bi, bs, pi, ps)
-        err = max(err, e)
-        log(f"  B1 AoS (v3) and constant-query (v6): m={m} k={k} n={n} P={parts}: bit-equal "
-            f"to B1; plain agreement {share:.6f}, max |score diff| {e:.3g}")
-        del r_op, r, pi, ps
+        runs = [("AoS (v3)", fused.aos_candidates, r, p3)]
+        if fused.const_query_fits(m, k):
+            runs.append(("constant-query (v6)", fused.const_query_candidates, r_op,
+                         parts or resident_geometry(m, k, n).parts))
+        b1 = {}
+        for name, wrapper, operand, p in runs:
+            if p not in b1:
+                b1[p] = fused.fused_candidates(q, r_op, n, p)
+            vi, vs = wrapper(q, operand, n, p)
+            if not (torch.equal(vi, b1[p][0]) and torch.equal(vs, b1[p][1])):
+                fail(f"B1 {name} k={k} m={m} n={n} P={p}: not bit-equal to B1")
+        plain = ""
+        if k <= 768:   # wider: B1's own tile edges hold it to its plain version
+            bi, bs = b1[p3]
+            pi, ps = fused.fused_candidates_plain(q, r_op, n, p3)
+            share, e, _ = slot_agreement("B1 variants", bi, bs, pi, ps, score_rtol(k))
+            err = max(err, e)
+            plain = f"; plain agreement {share:.6f}, max |score diff| {e:.3g}"
+            del pi, ps
+        log(f"  B1 {' and '.join(name for name, *_ in runs)}: m={m} k={k} n={n} "
+            f"P={sorted(b1)}: bit-equal to B1{plain}")
+        del r_op, r, b1
     torch.cuda.synchronize(device)
     return err
 
@@ -1841,8 +1857,8 @@ def phase3(card: str, big11, big9, reps: int):
 def kernel_device_ms(fn, reps: int, card: str, kernel: str = "tiled_candidates",
                      count: int = 1) -> float:
     """The own device time per call of fn's `count` kernels whose names
-    hold `kernel` (B1 or B4: the tiled kernel; B3: it and the partition
-    merge; B7: the tiled moments kernel), summed, from torch.profiler and
+    hold `kernel` (B1, B4, v3 or v6: the tiled kernel; B3: it and the
+    partition merge; B7: the tiled moments kernel), summed, from torch.profiler and
     logged: the CUDA-event time around the wrapper also holds its host
     launch path, during which the card waits."""
     from tpu_knn_torch.utils.timing import device_ms
@@ -2050,8 +2066,9 @@ def profile_busy(fn, calls: int):
 
 def phase3_ladder(card, big, auto_ctx, reps):
     """Times of B10 (ds11, ds9), B11 (the auto path's (3, 16, 2^24) launch,
-    at its default splits and at one split) and B1's variants (ds11), each
-    beside its plain version and B1 at the same partition count; the
+    at its default splits and at one split) and B1's variants (ds11 and
+    ds9, also by device time, with their bounds), each beside its plain
+    version and B1 at the same partition count; the
     runner's rows per call (v1..v7 at ds11 and ds9, v11 at ds8 and ds10);
     prepared auto at m = 16 against prepared fused on the same points, with
     the device time, wall time and idle per host read of each; and the
@@ -2061,6 +2078,7 @@ def phase3_ladder(card, big, auto_ctx, reps):
     import tpu_knn_torch
     from tpu_knn_torch.kernels import dma_pipeline, fused, projection
     from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.kernels.tuning import resident_geometry
     from tpu_knn_torch.utils.timing import time_ms
 
     times, bounds = {}, {}
@@ -2068,26 +2086,35 @@ def phase3_ladder(card, big, auto_ctx, reps):
         k, m, n = shape
         q, r = big[shape]
         r_op = prep_soa(r, n)
-        p10, p1 = dma_pipeline.default_parts(m, k, n), fused.default_parts(m, k, n)
+        p10, p1 = dma_pipeline.default_parts(m, k, n), fused.tiled_parts(m, k, n)
+        if resident_geometry(m, k, n).parts != p1:
+            fail(f"{label}: v6's P {resident_geometry(m, k, n).parts} is not v3's {p1}")
         fns = {
             f"B10 kernel {label}": lambda: dma_pipeline.dma_candidates(q, r_op, n, p10),
             f"B10 plain {label}": lambda: dma_pipeline.dma_candidates_plain(q, r_op, n, p10),
             f"B1 kernel {label} at B10's P": lambda: fused.fused_candidates(q, r_op, n, p10),
         }
+        # B1's variants beside B1 at their P (tiled_parts: both variants'
+        # own at ds11 and ds9), in turns.
+        variants = {
+            f"B1 AoS (v3) kernel {label}": lambda: fused.aos_candidates(q, r, n, p1),
+            f"B1 constant-query (v6) kernel {label}":
+                lambda: fused.const_query_candidates(q, r_op, n, p1),
+            f"B1 kernel {label} at the variants' P": lambda: fused.fused_candidates(
+                q, r_op, n, p1),
+        }
+        fns.update(variants)
         if label == "ds11":
-            fns.update({
-                "B1 AoS (v3) kernel ds11": lambda: fused.aos_candidates(q, r, n, p1),
-                "B1 constant-query (v6) kernel ds11":
-                    lambda: fused.const_query_candidates(q, r_op, n, p1),
-                "B1 kernel ds11 at the variants' P": lambda: fused.fused_candidates(
-                    q, r_op, n, p1),
-                "B1 plain ds11 at the variants' P": lambda: fused.fused_candidates_plain(
-                    q, r_op, n, p1),
-            })
+            fns[f"B1 plain {label} at the variants' P"] = lambda: fused.fused_candidates_plain(
+                q, r_op, n, p1)
         times.update(time_ms(fns, reps))
+        for name, fn in variants.items():
+            times[f"{name} device"] = kernel_device_ms(fn, reps, card)
         bounds[f"B10 {label}"] = roofline(4 * (m * k + k * n + m * 128), 2 * m * n * k)
+        bounds[f"B1 variants {label}"] = bound(m, k, n, 128, 0, 2)
         log(f"  B10 {label}: P = {p10}, (tile_m, slice groups) = "
-            f"{dma_pipeline.dma_geometry(m, k)}; the variants' P = {p1}")
+            f"{dma_pipeline.dma_geometry(m, k)}; the variants' P = {p1}, TM v3 "
+            f"{fused.tiled_geometry(m, k, n).tm}, v6 {resident_geometry(m, k, n).tm}")
         del r_op
 
     r, q16, auto, fused_ix = (auto_ctx[key] for key in ("r", "q16", "auto", "fused"))
@@ -2185,28 +2212,64 @@ def bound(m, k, n, width, extra_bytes, flops_per_term):
 
 def check_no_spills(ptxas, kernels):
     """Fail if ptxas's report (-v) shows spill stores or loads in any
-    instantiation of a kernel whose mangled name holds kernels[kid]; log
-    each kernel's instantiations and their registers."""
+    instantiation of a kernel whose mangled name matches the pattern
+    kernels[kid]; log each kernel's instantiations and their registers.
+    Returns {mangled name: static shared-memory bytes} of the matched
+    entries."""
     import re
 
-    entry, seen = None, {kid: [] for kid in kernels}
+    entry, seen, smem = None, {kid: [] for kid in kernels}, {}
     for line in ptxas:
         got = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
         if got:
             entry = got.group(1)
             continue
-        kid = next((kid for kid, sub in kernels.items() if entry and sub in entry), None)
+        kid = next((kid for kid, pat in kernels.items() if entry and re.search(pat, entry)),
+                   None)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         regs = re.search(r"Used (\d+) registers", line)
         if kid and spill and (int(spill.group(1)) or int(spill.group(2))):
             fail(f"{kid}: ptxas spills in {entry}: {line.strip()}")
         if kid and regs:
             seen[kid].append(int(regs.group(1)))
+            got_smem = re.search(r"(\d+) bytes smem", line)
+            smem[entry] = int(got_smem.group(1)) if got_smem else 0
     for kid, regs in seen.items():
         if not regs:
             fail(f"{kid}: no {kernels[kid]} instantiation in the ptxas report")
         log(f"  {kid} ({kernels[kid]}): {len(regs)} instantiations, registers {sorted(regs)}, "
             "no spills")
+    return smem
+
+
+#: The tiled f32 kernel's instances in ptxas's report (mangled
+#: tiled_candidates_kernel<TM, BANDED, AOS, QRES>).
+TILED_ENTRY = r"tiled_candidates_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E"
+
+
+def check_tiled_smem(smem):
+    """Each v3 and v6 instance's static shared memory (ptxas) equals the
+    Python mirror's (tuning.candidates_state_bytes, B1's state), which
+    v6's geometry adds to its ring and resident rows."""
+    import re
+
+    from tpu_knn_torch.kernels import tuning
+
+    checked = 0
+    for entry, nbytes in smem.items():
+        got = re.search(TILED_ENTRY, entry)
+        if not got:
+            continue
+        tm = int(got.group(1))
+        if nbytes != tuning.candidates_state_bytes(tm):
+            fail(f"{entry}: {nbytes} bytes of static shared memory, the mirror says "
+                 f"{tuning.candidates_state_bytes(tm)}")
+        checked += 1
+    if checked != 2 * len(tuning.TILED_ROWS):
+        fail(f"checked {checked} v3/v6 instances' shared memory, expected "
+             f"{2 * len(tuning.TILED_ROWS)}")
+    log(f"  v3 and v6 instances: static shared memory as tuning.candidates_state_bytes "
+        f"({checked} instances)")
 
 
 # ---- main ------------------------------------------------------------------
@@ -2256,8 +2319,13 @@ def main() -> int:
         for line in ptxas:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas: {line.strip()}")
-        check_no_spills(ptxas, {"B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel",
-                                "tensor-core tiers and B12": "tensor_candidates_kernel"})
+        smem = check_no_spills(ptxas, {
+            "B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel",
+            "tensor-core tiers and B12": "tensor_candidates_kernel",
+            "v3 (B1's tiled kernel, AoS)": r"tiled_candidates_kernelILi\d+ELb0ELb1ELb0E",
+            "v6 (B1's tiled kernel, resident queries)":
+                r"tiled_candidates_kernelILi\d+ELb0ELb0ELb1E"})
+        check_tiled_smem(smem)
 
     stamp("phase 0")
     gen = torch.Generator(device=device)
@@ -2386,8 +2454,12 @@ def main() -> int:
     # phase 2 (the BIG shapes), index-equal to B1 at the same P; B11 at
     # windows of 1 + 1 and 64 + 1 tiles over n ragged against 4096, query 0
     # at the last start tile with planted duplicates, and at the auto
-    # path's (3, 16, 2^24) launch; B1's AoS (v3) and constant-query (v6)
-    # variants bit-equal to B1 on a grid and at ds10/ds11.
+    # path's (3, 16, 2^24) launch; B1's AoS (v3) and resident-query (v6)
+    # variants bit-equal to B1 on a grid and at ds10/ds11, then (from a
+    # generator of their own, so phase 2's data do not move) at phase 2's
+    # other ladder launches (ds8, ds9) and the card tests' shapes: k not a
+    # multiple of 4, m = 1, n ragged, v6 at its guard's extremes ((m, k) =
+    # (2, 7000), (64, 256), (1, 16384)), v3 at k = 768 and 2048.
     n_rag = (1 << 20) + 77
     b10_cases = [(k, m, n, parts) for k in (3, 16) for m in (1, 8, 1000)
                  for n in (1000, n_rag) for parts in (1, None)]
@@ -2403,6 +2475,14 @@ def main() -> int:
                      for n in (1000, 1 << 20) for parts in (1, None)]
     variant_cases += [(*DS10, None), (*DS11, None)]
     errs["B1 variants"] = phase1_b1_variants(device, gen, variant_cases)
+    gen_variants = torch.Generator(device=device)
+    gen_variants.manual_seed(1005)
+    variant_edges = [(*DS8, None), (*DS9, None), (5, 1, 3000, 3), (7, 33, 9077, None),
+                     (17, 1, 70_001, None), (5, 65, 20_077, 3), (500, 2, 3001, 2),
+                     (7000, 2, 300, 2), (256, 64, 20_077, None), (16384, 1, 2000, 1),
+                     (2048, 8, 4096, None), (768, 100, 5077, None)]
+    edge_errs["B1 variants"] = phase1_b1_variants(device, gen_variants, variant_edges)
+    log(f"  B1 variants' edges: max |score diff| {edge_errs['B1 variants']:.3g}")
     torch.cuda.empty_cache()
     stamp("phase 1 B1 variants")
     # The tensor-core tiers and B12 on a grid with ragged n: every k of
@@ -2568,12 +2648,13 @@ def main() -> int:
         "B9": seeded_bounds["compactor ds11 K=8"],
         "B10": ladder_bounds["B10 ds11"],
         "B11": ladder_bounds["B11"],
-        "B1 AoS (v3)": bound(m11, k11, n11, 128, 0, 2),
-        "B1 constant-query (v6)": bound(m11, k11, n11, 128, 0, 2),
+        "B1 AoS (v3)": ladder_bounds["B1 variants ds11"],
+        "B1 constant-query (v6)": ladder_bounds["B1 variants ds11"],
         **tier_bounds,
     }
     errs["B8"] = errs["B9"] = errs["B8/B9"]
     errs["B1 AoS (v3)"] = errs["B1 constant-query (v6)"] = errs["B1 variants"]
+    edge_errs["B1 AoS (v3)"] = edge_errs["B1 constant-query (v6)"] = edge_errs["B1 variants"]
     launches["B8"] = launches["B9"] = launches["B8/B9"]
     rows = [
         ("B1", "fused_candidates", "tpu_knn/kernels/fused.py:318", "B1 kernel ds11",

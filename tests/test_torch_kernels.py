@@ -1,5 +1,5 @@
 """Kernels B1–B12 (B8/B9 one compactor; B1's tensor-core tiers, its AoS and
-constant-query variants, and B2 over a bf16 operand) against their plain
+resident-query variants, and B2 over a bf16 operand) against their plain
 torch versions on an sm_90 card.
 
 Skipped without a card. This file imports no jax, so on a machine with the
@@ -445,23 +445,30 @@ def test_seeded_engine_matches_an_exact_scan(device, m, k, n, kk):
 # ---- the 1-NN ladder's kernels: B1's variants (v3, v6), B10 (v5), B11 (v11)
 
 
-@pytest.mark.parametrize("k,m,n,parts", [
+# (k, m, n, P): B1's variants at k not a multiple of 4 (their 4-byte
+# copies), m = 1, n ragged against 128 and a column tile, P = 1 and
+# tiled_parts; v6 at its guard's extremes (m = 2 by k = 7000, 64 by 256,
+# 1 by 16384); v3 (no guard) alone past k*m = 16384.
+B1_VARIANT_CASES = [
     (3, 40, 1000, 1), (16, 100, 70_000, 7), (5, 1, 3000, 3), (16, 1024, 1 << 16, None),
-    (40, 9, 5000, 4), (3, 300, 4099, None),
-    (380, 2, 3000, 2),    # one row per block beside the AoS slab
-    (7000, 2, 300, 2),    # one row per block of constant queries (no AoS slab fits)
-])
+    (40, 9, 5000, 4), (3, 300, 4099, None), (7, 33, 9077, None), (17, 1, 70_001, None),
+    (5, 65, 20_000 + 77, 3), (500, 2, 3001, 2), (380, 2, 3000, 2),
+    (7000, 2, 300, 2), (256, 64, 20_000 + 77, None), (16384, 1, 2000, 1),
+    (2048, 8, 4096, None), (768, 100, 5077, None),
+]
+
+
+@pytest.mark.parametrize("k,m,n,parts", B1_VARIANT_CASES)
 def test_b1_variants_are_bit_equal_to_b1(device, k, m, n, parts):
-    """The AoS (v3) and constant-query (v6) variants, where their guards
-    admit the shape, score through B1's column_scores and fold as B1
-    does: identical candidates at the same partition count."""
+    """The AoS (v3) and resident-query (v6) variants, where their guards
+    admit the shape, are B1's tiled kernel under the template's other
+    operand policies: identical candidates at the same partition count."""
     q, r, r_op = _inputs(device, m, k, n, seed=3 * k + m)
-    parts = parts or fused.default_parts(m, k, n)
+    parts = parts or fused.tiled_parts(m, k, n)
     want = fused.fused_candidates(q, r_op, n, parts)
-    variants = [(wrapper, operand) for wrapper, operand, fits in (
-        (fused.aos_candidates, r, fused._v3_guard(k, m, n)),
-        (fused.const_query_candidates, r_op, fused.const_query_fits(m, k))) if fits]
-    assert variants
+    variants = [(fused.aos_candidates, r)]
+    if fused.const_query_fits(m, k):
+        variants.append((fused.const_query_candidates, r_op))
     for wrapper, operand in variants:
         before = wrapper.launches
         got = wrapper(q, operand, n, parts)
@@ -471,14 +478,15 @@ def test_b1_variants_are_bit_equal_to_b1(device, k, m, n, parts):
 
 
 def test_constant_query_launches_on_two_streams_do_not_overwrite_each_other(device):
-    """The constant bank is shared: a launch on a second stream must wait
-    for the first stream's launch before refilling the bank. Each stream
-    sweeps a large operand with its own query set, issued back to back
-    with no synchronisation between them."""
+    """Two query sets swept on two streams, issued back to back with no
+    synchronisation between them, give each stream its own answer: v6's
+    queries live in each block's shared memory (once they sat in one
+    constant bank per library, which a launch on another stream could
+    refill mid-sweep)."""
     k, n = 16, 1 << 22
     q1, r, r_op = _inputs(device, 1024, k, n, seed=31)
     q2 = torch.rand_like(q1)
-    parts = fused.default_parts(1024, k, n)
+    parts = fused.tiled_parts(1024, k, n)
     want1 = fused.fused_candidates(q1, r_op, n, parts)
     want2 = fused.fused_candidates(q2, r_op, n, parts)
     torch.cuda.synchronize()

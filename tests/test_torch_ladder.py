@@ -19,6 +19,7 @@ from tpu_knn.kernels.tuning import pick_tiles
 from tpu_knn.oracle import oracle_knn
 from tpu_knn_torch.engine.registry import get_version
 from tpu_knn_torch.kernels import dma_pipeline, fused, twophase
+from tpu_knn_torch.kernels.tuning import resident_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
@@ -50,13 +51,17 @@ def test_ta_shapes_match_golden(ta_datasets, version):
 def _planted(m, n, k, seed):
     """Exact duplicates of query i's point at two adjacent columns astride
     a lane boundary (127 | 128), tpu_knn's n tile boundary for v3/v4/v6
-    and v5, and the port's B1 and B10 partition boundaries, so ties decide
-    every planted row; points 0.5 away from the queries otherwise."""
+    and v5, and the port's partition boundaries (B1's and v3's, v6's, and
+    B10's where v5 runs), so ties decide every planted row; points 0.5
+    away from the queries otherwise."""
     rng = np.random.default_rng(seed)
     q = rng.random((m, k), np.float32)
     r = rng.random((n, k), np.float32) + 0.5
-    cols = [127, pick_tiles(k, m, n)[1] - 1, dma_pipeline._dma_tiles(k, m, n)[1] - 1]
-    for parts in (fused.default_parts(m, k, n), dma_pipeline.default_parts(m, k, n)):
+    b10 = dma_pipeline._v5_guard(k, m, n)   # B10's ring takes k <= 199
+    cols = [127, pick_tiles(k, m, n)[1] - 1]
+    cols += [dma_pipeline._dma_tiles(k, m, n)[1] - 1] if b10 else []
+    for parts in (fused.tiled_parts(m, k, n), resident_geometry(m, k, n).parts,
+                  *([dma_pipeline.default_parts(m, k, n)] if b10 else [])):
         gpp = -(-(-(-n // 128)) // parts)
         cols += [p * gpp * 128 - 1 for p in range(1, min(parts, 4))]
     cols = sorted({c for c in cols if 0 < c < n - 1})[:m]
@@ -79,6 +84,23 @@ def test_matches_tpu_knn_with_planted_duplicates(version, m, n, k):
     else:
         assert check_results(want, got, q, r)[0] == 0
         assert check_results(oracle, got, q, r)[0] == 0
+
+
+@pytest.mark.parametrize("version", ["v3", "v6"])
+@pytest.mark.parametrize("m,n,k", [(5, 3001, 3), (40, 4099, 5), (9, 2777, 40),
+                                   (2, 1500, 500), (1, 4097, 16)])
+def test_b1_variants_match_tpu_knn(version, m, n, k):
+    """v3 and v6 (B1's tiled kernel over the (n, k) array, and with
+    resident queries) against tpu_knn's v3 and v6 at k in {3, 5, 16, 40,
+    500} (500 above the lane-per-thread v3's old limit of 393), n ragged
+    against 128, with duplicates planted astride their partition
+    boundaries: identical indices, equal to the oracle's."""
+    q, r, cols = _planted(m, n, k, seed=7 * n + k)
+    want = tpu_knn.nearest_neighbors(q, r, version=version)
+    got = tpu_knn_torch.nearest_neighbors(q, r, version=version, device="cpu")
+    np.testing.assert_array_equal(got[:len(cols)], cols)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, oracle_knn(q, r))
 
 
 @pytest.mark.parametrize("version", LADDER)

@@ -167,17 +167,26 @@ def test_topk_launch_geometry():
 
 def test_cuda_launch_geometry_covers_n():
     """The partition count never exceeds the 128-column groups of n, and
-    the grid reaches the target block count wherever n allows it."""
+    the launch's work is within 5% of the same column tiles spread evenly
+    over whole waves (v6's resident_geometry here, within v6's guard, at
+    the blocks per SM its shared memory admits; B1's tiled_geometry
+    below)."""
     for k in KS:
         for m in MS[1:]:
-            tm = pt_tuning.cuda_tile_m(m, k)
-            assert tm in (1, 8, 32) and tm * k * 4 <= pt_tuning.MAX_QUERY_SMEM
+            if not pt_fused.const_query_fits(m, k):
+                continue
             for n in NS:
-                parts = pt_fused.default_parts(m, k, n)
+                g = pt_tuning.resident_geometry(m, k, n)
+                assert g.tm in pt_tuning.TILED_ROWS
+                assert g.tm <= pt_tuning.tiled_geometry(m, k, n).tm
                 groups = -(-n // 128)
-                assert 1 <= parts <= groups
-                blocks = -(-m // tm) * parts
-                assert blocks >= min(2 * pt_tuning.H100_SMS, groups * -(-m // tm))
+                assert 1 <= g.parts <= groups
+                per_wave = pt_tuning.resident_blocks_per_sm(m, k, g.tm) * pt_tuning.H100_SMS
+                waves = -(-pt_tuning.tiled_blocks(m, g.tm, g.parts) // per_wave)
+                per_block = -(-(-(-groups // g.parts)) // pt_tuning.TILED_TILE_GROUPS)
+                tiles = -(-groups // pt_tuning.TILED_TILE_GROUPS)
+                even = -(-pt_tuning.tiled_blocks(m, g.tm, 1) * tiles // per_wave)
+                assert waves * per_block <= 1.05 * even, (m, k, n)
     assert np.all([pt_smallm.default_parts(n) <= -(-n // 128) for n in NS])
     from tpu_knn_torch.kernels import tiers
 
@@ -225,6 +234,104 @@ def test_cuda_launch_geometry_covers_n():
     assert pt_tuning.tiled_geometry(4096, 16, 1 << 20) == (8, 1)
     with pytest.raises(ValueError, match="empty"):
         pt_tuning.tiled_geometry(8, 0, 1000)
+
+
+def test_b1_variants_take_b1s_geometry(monkeypatch):
+    """v3 launches at B1's geometry (tiled_geometry) at every k; v6 at
+    resident_geometry's, which is tiled_geometry's wherever two blocks with
+    their resident query rows fit an SM, else a smaller TM (and one block
+    per SM only at m <= 8, near the guard)."""
+    calls = []
+    for name in ("aos_candidates", "const_query_candidates"):
+        orig = getattr(pt_fused, name)
+        monkeypatch.setattr(pt_fused, name, lambda q, r, n, parts, orig=orig, name=name:
+                            calls.append((name, parts)) or orig(q, r, n, parts))
+    rng = np.random.default_rng(7)
+    for m, k, n in ((8, 3, 5000), (40, 40, 9001), (3, 500, 3000), (1, 16, 70_000)):
+        q, r = rng.random((m, k), np.float32), rng.random((n, k), np.float32)
+        calls.clear()
+        pt_fused.fused_knn(q, r, soa=False, device="cpu")
+        pt_fused.const_query_knn(q, r, device="cpu")
+        assert calls == [("aos_candidates", pt_tuning.tiled_geometry(m, k, n).parts),
+                         ("const_query_candidates", pt_tuning.resident_geometry(m, k, n).parts)]
+    for m in MS[1:]:
+        for k in KS:
+            if not pt_fused.const_query_fits(m, k):
+                continue
+            g, b1 = pt_tuning.resident_geometry(m, k, 1 << 20), pt_tuning.tiled_geometry(m, k, 1 << 20)
+            two = pt_tuning.resident_blocks_per_sm(m, k, b1.tm) == pt_tuning.TILED_BLOCKS_PER_SM
+            assert (g == b1) == two or g.tm != b1.tm, (m, k)
+            if two:
+                assert g == b1
+    assert pt_tuning.resident_geometry(1024, 16, 1 << 20) == pt_tuning.tiled_geometry(
+        1024, 16, 1 << 20) == (8, 4)
+    assert pt_tuning.resident_geometry(64, 256, 1 << 20).tm == 4
+
+
+def _csrc_constants():
+    """The integer constants (constexpr int / size_t) of csrc's shared
+    headers, their expressions evaluated in order."""
+    import os
+    import re
+
+    import tpu_knn_torch.csrc as csrc
+
+    found = {}
+    for name in ("knn_common.cuh", "tiled.cuh"):
+        with open(os.path.join(os.path.dirname(csrc.__file__), name)) as f:
+            text = f.read()
+        for key, expr in re.findall(r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", text, re.M):
+            found[key] = eval(expr.replace("/", "//"), {}, dict(found))
+    return found
+
+
+def test_v6_shared_memory_mirror_matches_the_kernel_constants():
+    """tuning's mirror of v6's shared memory (its operand-only ring, the
+    resident rows, B1's state) agrees with what csrc's constants imply,
+    and on a grid of (m, k) up to v6's guard (k*m <= 16384) the geometry
+    it picks fits: two blocks and the system's reserve per SM where it
+    claims two, one block's 227 KB always."""
+    c = _csrc_constants()
+    assert (pt_tuning.SMEM_PER_SM, pt_tuning.SMEM_PER_BLOCK_RESERVED, pt_tuning.SMEM_PER_BLOCK) == (
+        c["kSmemPerSm"], c["kSmemPerBlockReserved"], c["kSmemPerBlock"])
+    assert (pt_tuning.TILED_CHUNK, pt_tuning.TILED_STAGES, pt_tuning.TILED_WARPS,
+            pt_tuning.TILED_SLICE_LANES, pt_tuning.TILED_TILE_GROUPS,
+            pt_tuning.TILED_BLOCKS_PER_SM) == (
+        c["kChunk"], c["kTiledStages"], c["kTiledWarps"], c["kSliceLanes"], c["kTileGroups"],
+        c["kTiledBlocksPerSm"])
+    cols = c["kTileCols"]
+    ring = 4 * c["kTiledStages"] * c["kChunk"] * cols    # TiledRing<TM, false, true>
+    for tm in pt_tuning.TILED_ROWS:
+        # TiledState<TM, false>: norm_s, best_s and best_i, b_s[1], b_i[1],
+        # in ptxas's 16-byte units (its report on the card: 3088, 9232 and
+        # 17424 bytes at TM = 1, 4, 8).
+        bm = c["kTiledWarps"] * tm
+        state = -(-4 * (cols + 2 * bm * c["kSliceLanes"] + 2) // 16) * 16
+        assert state == {1: 3088, 4: 9232, 8: 17424}[tm]
+        assert pt_tuning.candidates_state_bytes(tm) == state
+    one_only = set()
+    ms = sorted({*range(1, 70), 100, 128, 200, 256, 500, 1000, 1024, 4096, 16384})
+    for m in ms:
+        for k in {1, 3, 16, 17, 40, 256, 16384 // m, max(1, 16384 // m - 1)}:
+            if not pt_fused._v6_guard(k, m, 4096):
+                continue
+            g = pt_tuning.resident_geometry(m, k, 4096)
+            rows = min(m, c["kTiledWarps"] * g.tm)
+            ldr = rows if g.tm == 1 else -(-rows // 4) * 4
+            resident = 4 * -(-k // c["kChunk"]) * c["kChunk"] * ldr
+            smem = ring + resident + pt_tuning.candidates_state_bytes(g.tm)
+            assert pt_tuning.resident_block_smem(m, k, g.tm) == smem
+            assert smem <= c["kSmemPerBlock"]
+            per_sm = pt_tuning.resident_blocks_per_sm(m, k, g.tm)
+            granted = -(-smem // pt_tuning.SMEM_ALLOC_UNIT) * pt_tuning.SMEM_ALLOC_UNIT
+            assert per_sm * (granted + c["kSmemPerBlockReserved"]) <= c["kSmemPerSm"]
+            if per_sm < c["kTiledBlocksPerSm"]:
+                one_only.add((m, k))
+                assert g.tm == 1 and m <= 8 and per_sm == 1
+    # The guard's extremes: (2, 7000) keeps two blocks; k*m = 16384 at
+    # m = 1 is one 64 KB resident block beside the ring, one per SM.
+    assert (2, 7000) not in one_only and pt_tuning.resident_geometry(2, 7000, 300).tm == 1
+    assert (1, 16384) in one_only
 
 
 def test_tensor_kernel_shared_memory_admits_two_blocks_per_sm():
@@ -524,33 +631,38 @@ SHAPES_TA_BIG = [
 def test_hopper_guards_on_the_reference_shapes():
     """The v3, v5 and v6 guards are the Hopper kernels' own limits
     (ROADMAP C): every TA and BIG shape runs its version (tpu_knn's v3 sent
-    ds8/ds9 to v4 for the TPU's tiled HBM pages); v5 still delegates
-    tpu_knn's wide-k case; v6 takes ds11 (k*m = 16384, the constant bank)
-    and delegates a query set past it, which tpu_knn's 4 MB VMEM block
-    admitted."""
+    ds8/ds9 to v4 for the TPU's tiled HBM pages); v3 has no guard at all
+    (its tiled kernel takes every k, where the lane-per-thread kernel
+    before it stopped at k = 393); v5 still delegates tpu_knn's wide-k
+    case; v6 keeps the reference's own guard, k*m <= 16384, so it takes
+    ds11 and delegates a query set past it, which tpu_knn's 4 MB VMEM
+    block admitted."""
     from tpu_knn.harness.generator import BIG_SHAPES, TA_SHAPES
     from tpu_knn.kernels import dma_pipeline as jx_dma
     from tpu_knn_torch.kernels import dma_pipeline as pt_dma
 
     assert SHAPES_TA_BIG == list(TA_SHAPES) + list(BIG_SHAPES)
-    guards = {v: pt_registry.get_version(v).guard for v in ("v3", "v5", "v6")}
+    assert pt_registry.get_version("v3").guard is None
+    guards = {v: pt_registry.get_version(v).guard for v in ("v5", "v6")}
     jx_guards = {v: jx_registry.get_version(v).guard for v in ("v3", "v5", "v6")}
     for k, m, n in SHAPES_TA_BIG:
         assert all(g(k, m, n) for g in guards.values()), (k, m, n)
         assert jx_guards["v5"](k, m, n) and jx_guards["v6"](k, m, n)
         assert jx_guards["v3"](k, m, n) == (n < (1 << 24))
     assert not pt_dma._v5_guard(2048, 8, 4096) and not jx_dma._v5_guard(2048, 8, 4096)
-    assert not guards["v3"](2048, 8, 4096) and guards["v3"](393, 8, 4096)
-    assert not guards["v3"](394, 8, 4096)
+    assert jx_guards["v3"](2048, 8, 4096)
     assert not guards["v6"](16, 1025, 1 << 20) and jx_guards["v6"](16, 1025, 1 << 20)
     assert not guards["v6"](16, 2048, 4096) and jx_guards["v6"](16, 2048, 4096)
-    assert guards["v6"](3, 5461, 4096) == (-(-5461 // 32) * 32 * 3 <= 16384)
+    assert guards["v6"](3, 5461, 4096) and not guards["v6"](3, 5462, 4096)
+    assert guards["v6"](7000, 2, 4096) and guards["v6"](16384, 1, 4096)
 
 
 def test_hopper_launch_geometry_fits():
-    """B10's ring and query tile, and B1's AoS slab beside its query tile,
-    fit a block's shared memory wherever their guards admit; B11's splits
-    never exceed the window's groups."""
+    """B10's ring and query tile fit a block's shared memory wherever its
+    guard admits; B1's AoS variant (v3) takes B1's geometry at every k
+    (its shared memory does not depend on k) and v6's blocks fit one SM
+    wherever its guard admits; B11's splits never exceed the window's
+    groups."""
     from tpu_knn_torch.kernels import dma_pipeline as pt_dma
     from tpu_knn_torch.kernels import projection as pt_proj
 
@@ -560,9 +672,10 @@ def test_hopper_launch_geometry_fits():
                 tm, groups = pt_dma.dma_geometry(m, k)
                 assert pt_dma.dma_smem_bytes(tm, k, groups) <= pt_tuning.MAX_QUERY_SMEM
                 assert 1 <= groups <= pt_dma.DMA_MAX_SLICE_GROUPS
-            if pt_fused._v3_guard(k, m, 4096):
-                tm = pt_fused.aos_tile_m(m, k)
-                assert (tm + pt_fused.AOS_SLAB_LD) * k * 4 <= pt_tuning.MAX_QUERY_SMEM
+            assert pt_fused.tiled_parts(m, k, 4096) == pt_tuning.tiled_geometry(m, k, 4096).parts
+            if pt_fused._v6_guard(k, m, 4096):
+                tm = pt_tuning.resident_geometry(m, k, 4096).tm
+                assert pt_tuning.resident_blocks_per_sm(m, k, tm) >= 1
     assert pt_dma._v5_guard(199, 1, 4096) and not pt_dma._v5_guard(200, 1, 4096)
     for n in NS[3:]:
         for window in (4096, 5000, 1 << 18):

@@ -1,7 +1,8 @@
 // B1 and B4 (the tiled f32 candidate kernel, plain and banded), B1's two
-// ladder variants (AoS, v3; constant queries, v6) and B10 (staged slices,
-// v5). The ladder variants and B10 keep the lane-per-thread design (one
-// thread per lane, column_scores over a TM-row query tile).
+// ladder variants (AoS, v3; resident queries, v6), all four instances of
+// the tiled template (tiled.cuh), and B10 (staged slices, v5), which keeps
+// the lane-per-thread design (one thread per lane, column_scores over a
+// TM-row query tile).
 
 #include "knn_common.cuh"
 #include "tiled.cuh"
@@ -36,6 +37,21 @@ namespace {
 // the partition are staged as zeros and masked in the fold.
 // tuning.tiled_geometry picks TM and P, filling the card at 2 blocks of 8
 // warps per SM in whole waves.
+//
+// B1's two ladder variants are the same kernel under the template's two
+// operand policies (tiled.cuh), so their scores and candidates are B1's bit
+// for bit at the same P:
+// - AoS (v3, AOS) — replaces tpu_knn/kernels/fused.py:318 _fused_kernel
+//   built with soa=False (fused.py:340; the reference v3, core.cu:231-312):
+//   B1 reading the caller's row-major (n, k) array, with no per-call SoA
+//   relayout. The ring's copies transpose each d-chunk on the way in. Any k
+//   fits. Bound: arithmetic, as B1; at m = 1 the (n, k) read.
+// - Resident queries (v6, QRES) — replaces _fused_kernel as v6 builds it
+//   (fused.py:1038-1077; the reference v6 put the query set in constant
+//   memory, core.cu:530-643, guard k*m <= 16384 floats at core.cu:603-607):
+//   each block's query rows stay in shared memory for the whole sweep, and
+//   the ring carries only the operand. tuning.resident_geometry picks TM so
+//   that two blocks still fit an SM where they can.
 // ---------------------------------------------------------------------------
 
 // The block's static shared state: |r|^2 of the tile's columns, the fold's
@@ -113,7 +129,7 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[TM][kTileGroups], c
   fold_rows<TM, BANDED, false>(acc, nj, live, col0, b_s, b_i, best_s, best_i);
 }
 
-template <int TM, bool BANDED>
+template <int TM, bool BANDED, bool AOS, bool QRES>
 __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
 tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ r,
                         const float* __restrict__ bound_s, const int32_t* __restrict__ bound_i,
@@ -142,14 +158,15 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
     best_i[i * kSliceLanes] = kI32Max;
   }
 
-  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16,
-                  lane_slice_columns(n, groups_per_part, part, quarter), row0,
-                  reinterpret_cast<float*>(smem4), state.norm_s,
-                  [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
-                    fold_tile<TM, BANDED>(acc, state.norm_s + lane, col0 + lane, live_groups,
-                                          n, state.b_s + warp * TM, state.b_i + warp * TM,
-                                          best_s, best_i);
-                  });
+  tiled_sweep<TM, AOS, QRES>(qT, ldq, r, m, k, ld, n, vec16,
+                             lane_slice_columns(n, groups_per_part, part, quarter), row0,
+                             reinterpret_cast<float*>(smem4), state.norm_s,
+                             [&](const float (&acc)[TM][kTileGroups], long long col0,
+                                 int live_groups) {
+                               fold_tile<TM, BANDED>(acc, state.norm_s + lane, col0 + lane,
+                                                     live_groups, n, state.b_s + warp * TM,
+                                                     state.b_i + warp * TM, best_s, best_i);
+                             });
 
   const long long width = static_cast<long long>(gridDim.x / kSlices) * kLanes;
   const long long quarter_col = static_cast<long long>(quarter) * kSliceLanes;
@@ -160,144 +177,6 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
       const long long o = row * width + static_cast<long long>(part) * kLanes + quarter_col + lane;
       out_i[o] = best_i[i * kSliceLanes];
       out_s[o] = best_s[i * kSliceLanes];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The two B1 variants of the 1-NN ladder. Both give scores bit-identical to
-// B1's (the shared column_scores, the same fmaf chain over d in order) and
-// the same per-lane fold, so at the same partition count their candidates
-// equal B1's.
-//
-// B1, AoS variant (v3) — replaces tpu_knn/kernels/fused.py:_fused_kernel
-// built with soa=False (the reference v3, core.cu:231-312): B1 reading the
-// caller's row-major (n, k) array directly, with no per-call SoA relayout.
-// Per 128-column group the block copies the group's 128 x k floats (one
-// contiguous run of memory, so the loads are coalesced) into shared memory
-// transposed to [d][lane] (row stride kLanes + 1 against bank conflicts on
-// the write), then scores from there. Bound on the H100: arithmetic, as B1.
-// ---------------------------------------------------------------------------
-constexpr int kSlabLd = kLanes + 1;
-
-template <int TM>
-__global__ void __launch_bounds__(kLanes)
-aos_candidates_kernel(const float* __restrict__ q, const float* __restrict__ ref,
-                      int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int k,
-                      int n, int groups_per_part, int row_base) {
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  float* slab = qT + TM * k;  // [d][kSlabLd]
-  const int part = blockIdx.x;
-  const int row0 = row_base + blockIdx.y * TM;
-  const int lane = threadIdx.x;
-  load_query_tile<TM>(q, qT, m, k, row0);
-
-  float best_s[TM];
-  int best_i[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best_s[i] = pos_inf();
-    best_i[i] = kI32Max;
-  }
-
-  const long long g0 = static_cast<long long>(part) * groups_per_part;
-  for (int g = 0; g < groups_per_part; ++g) {
-    const long long base = (g0 + g) * kLanes;
-    if (base >= n) break;  // uniform over the block
-    const int rows = static_cast<int>(min(static_cast<long long>(kLanes), n - base));
-    const float* src = ref + base * k;
-    for (int e = lane; e < kLanes * k; e += kLanes) {
-      const int c = e / k;
-      const int d = e - c * k;
-      slab[d * kSlabLd + c] = c < rows ? src[e] : 0.f;
-    }
-    __syncthreads();
-    if (lane < rows) {
-      float s[TM];
-      column_scores<TM>(qT, SharedColumn{slab + lane, kSlabLd}, k, s);
-      const int c = static_cast<int>(base) + lane;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        if (s[i] < best_s[i]) {
-          best_s[i] = s[i];
-          best_i[i] = c;
-        }
-      }
-    }
-    __syncthreads();  // the slab is rewritten by the next group
-  }
-
-  const long long width = static_cast<long long>(gridDim.x) * kLanes;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + i;
-    if (row < m) {
-      const long long o = row * width + static_cast<long long>(part) * kLanes + lane;
-      out_i[o] = best_i[i];
-      out_s[o] = best_s[i];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B1, constant-query variant (v6) — replaces tpu_knn/kernels/fused.py:
-// _fused_kernel as v6 builds it (the whole query set resident for the
-// sweep; the reference v6 put it in constant memory, core.cu:530-643,
-// guard k*m <= 16384 floats at core.cu:603-607). The wrapper copies the
-// query set, laid out per TM-row tile as B1's shared tile is ([tile][d][i]),
-// into the 64 KB constant bank once per call; each block reads its rows
-// through the constant cache, whose broadcast serves column_scores' reads
-// (every thread of a warp reads the same query value). One bank per
-// module: the wrapper (kernels/fused.py const_query_candidates) makes each
-// launch's stream wait for the previous launch, on whatever stream it ran,
-// before the copy refills the bank.
-// ---------------------------------------------------------------------------
-constexpr int kConstQueryFloats = 16384;
-__constant__ __align__(16) float c_queries[kConstQueryFloats];
-
-template <int TM>
-__global__ void __launch_bounds__(kLanes)
-const_query_candidates_kernel(const float* __restrict__ r, int32_t* __restrict__ out_i,
-                              float* __restrict__ out_s, int m, int k, long long ld, int n,
-                              int groups_per_part) {
-  const int part = blockIdx.x;
-  const int row0 = blockIdx.y * TM;
-  const int lane = threadIdx.x;
-  const float* qT = c_queries + static_cast<long long>(blockIdx.y) * k * TM;
-
-  float best_s[TM];
-  int best_i[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best_s[i] = pos_inf();
-    best_i[i] = kI32Max;
-  }
-
-  const long long first = static_cast<long long>(part) * groups_per_part * kLanes + lane;
-  for (int g = 0; g < groups_per_part; ++g) {
-    const long long col = first + static_cast<long long>(g) * kLanes;
-    if (col >= n) break;
-    float s[TM];
-    column_scores<TM>(qT, r + col, ld, k, s);
-    const int c = static_cast<int>(col);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if (s[i] < best_s[i]) {
-        best_s[i] = s[i];
-        best_i[i] = c;
-      }
-    }
-  }
-
-  const long long width = static_cast<long long>(gridDim.x) * kLanes;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + i;
-    if (row < m) {
-      const long long o = row * width + static_cast<long long>(part) * kLanes + lane;
-      out_i[o] = best_i[i];
-      out_s[o] = best_s[i];
     }
   }
 }
@@ -413,51 +292,21 @@ dma_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
 // Launchers.
 // ---------------------------------------------------------------------------
 
-// B1 (BANDED false) and B4 at tm in {1, 4, 8} rows per warp.
-template <bool BANDED>
+// B1 (BANDED false), B4, v3 (AOS: r is the (n, k) array) and v6 (QRES)
+// at tm in {1, 4, 8} rows per warp.
+template <bool BANDED, bool AOS = false, bool QRES = false>
 int launch_tiled(const float* qT, const float* r, const float* bound_s, const int32_t* bound_i,
                  int32_t* out_i, float* out_s, int m, int ldq, int k, long long ld, int n,
                  int parts, int tm, cudaStream_t stream) {
-  const bool vec16 = vec16_operand(r, ld);
+  const bool vec16 = !AOS && vec16_operand(r, ld);
   const int gpp = groups_per_part(n, parts);
   return with_tiled_rows(tm, [&](auto rows) {
     constexpr int TM = decltype(rows)::value;
-    return launch_tiled_grid<TM, TiledState<TM, BANDED>>(
-        tiled_candidates_kernel<TM, BANDED>, parts * kSlices, m, stream, qT, r, bound_s, bound_i,
-        out_i, out_s, m, ldq, k, ld, n, gpp, vec16);
+    return launch_tiled_grid<TM, TiledState<TM, BANDED>, AOS, QRES>(
+        tiled_candidates_kernel<TM, BANDED, AOS, QRES>, parts * kSlices, m,
+        QRES ? resident_bytes<TM>(m, k) : 0, stream, qT, r, bound_s, bound_i, out_i, out_s, m,
+        ldq, k, ld, n, gpp, vec16);
   });
-}
-
-template <int TM>
-int launch_aos(const float* q, const float* ref, int32_t* out_i, float* out_s, int m, int k,
-               int n, int parts, int groups_per_part, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(TM) * k + static_cast<size_t>(k) * kSlabLd) *
-                      sizeof(float);
-  if (const int e = allow_smem(aos_candidates_kernel<TM>, smem)) return e;
-  const int tiles = (m + TM - 1) / TM;
-  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
-    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    aos_candidates_kernel<TM><<<dim3(parts, ty), kLanes, smem, stream>>>(
-        q, ref, out_i, out_s, m, k, n, groups_per_part, t0 * TM);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
-}
-
-template <int TM>
-int launch_const_query(const float* q_tiled, const float* r, int32_t* out_i, float* out_s,
-                       int m, int k, long long ld, int n, int parts, int groups_per_part,
-                       cudaStream_t stream) {
-  const int tiles = (m + TM - 1) / TM;
-  const size_t bytes = static_cast<size_t>(tiles) * TM * k * sizeof(float);
-  if (bytes > sizeof(c_queries)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaMemcpyToSymbolAsync(c_queries, q_tiled, bytes, 0,
-                                          cudaMemcpyDeviceToDevice, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const_query_candidates_kernel<TM><<<dim3(parts, tiles), kLanes, 0, stream>>>(
-      r, out_i, out_s, m, k, ld, n, groups_per_part);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int TM>
@@ -506,36 +355,27 @@ int tk_banded_candidates(const float* qT, const float* r, const float* bound_s,
                             static_cast<cudaStream_t>(stream));
 }
 
-// B1's AoS variant (v3): ref is the caller's row-major (n, k) array;
-// tile_m in {1, 8, 32} with (tile_m + 129) * k floats of shared memory.
-int tk_aos_candidates(const float* q, const float* ref, int32_t* out_i, float* out_s, int m,
-                      int k, int n, int parts, int tile_m, void* stream) {
-  if (!valid_geometry(m, k, n, n, parts)) return static_cast<int>(cudaErrorInvalidValue);
-  const int gpp = groups_per_part(n, parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_m) {
-    case 32: return launch_aos<32>(q, ref, out_i, out_s, m, k, n, parts, gpp, s);
-    case 8: return launch_aos<8>(q, ref, out_i, out_s, m, k, n, parts, gpp, s);
-    case 1: return launch_aos<1>(q, ref, out_i, out_s, m, k, n, parts, gpp, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// B1's AoS variant (v3): B1's launch over ref, the caller's row-major
+// (n, k) array, in place of the SoA operand.
+int tk_aos_candidates(const float* qT, const float* ref, int32_t* out_i, float* out_s, int m,
+                      int ldq, int k, int n, int parts, int tm, void* stream) {
+  if (!valid_geometry(m, k, n, n, parts) || !valid_queries_t(qT, ldq, m)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return launch_tiled<false, true, false>(qT, ref, nullptr, nullptr, out_i, out_s, m, ldq, k, k,
+                                          n, parts, tm, static_cast<cudaStream_t>(stream));
 }
 
-// B1's constant-query variant (v6): q_tiled is the query set on the card,
-// padded to whole tiles of tile_m rows and laid out [tile][d][i]; at most
-// 16384 floats (the constant bank).
-int tk_const_query_candidates(const float* q_tiled, const float* r, int32_t* out_i,
-                              float* out_s, int m, int k, long long ld, int n, int parts,
-                              int tile_m, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts)) return static_cast<int>(cudaErrorInvalidValue);
-  const int gpp = groups_per_part(n, parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_m) {
-    case 32: return launch_const_query<32>(q_tiled, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
-    case 8: return launch_const_query<8>(q_tiled, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
-    case 1: return launch_const_query<1>(q_tiled, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// B1 with resident queries (v6): B1's launch, tm as tuning.resident_geometry
+// picks it; fails where a block's queries and ring exceed kSmemPerBlock.
+int tk_const_query_candidates(const float* qT, const float* r, int32_t* out_i, float* out_s,
+                              int m, int ldq, int k, long long ld, int n, int parts, int tm,
+                              void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return launch_tiled<false, false, true>(qT, r, nullptr, nullptr, out_i, out_s, m, ldq, k, ld,
+                                          n, parts, tm, static_cast<cudaStream_t>(stream));
 }
 
 // B10 (v5): B1's geometry plus slice_groups 128-column groups per staged

@@ -44,9 +44,11 @@ constexpr int kI32Max = 2147483647;
 constexpr int kMaxGridY = 65535;
 constexpr int kDefaultSmem = 48 * 1024;
 // An SM's shared memory (228 KB) and what the system keeps of it for each
-// resident block: the budget a kernel's blocks per SM must fit.
+// resident block: the budget a kernel's blocks per SM must fit; and what
+// one block can address (227 KB, static and dynamic together).
 constexpr size_t kSmemPerSm = 233472;
 constexpr size_t kSmemPerBlockReserved = 1024;
+constexpr size_t kSmemPerBlock = 232448;
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -76,8 +78,7 @@ __device__ __forceinline__ void load_query_tile(const float* __restrict__ q, flo
 
 // Where column_scores reads a reference column: the SoA operand in device
 // memory (through the read-only cache), or a slice of it staged in shared
-// memory (B10, and B1's AoS variant after its on-chip transpose). The
-// arithmetic does not depend on the reader.
+// memory (B10). The arithmetic does not depend on the reader.
 struct GlobalColumn {
   const float* p;
   long long ld;
@@ -91,8 +92,8 @@ struct SharedColumn {
 };
 
 // One reference column against the TM rows: one 16-byte broadcast load of
-// qT feeds four FMAs, and each loaded reference value feeds TM FMAs. qT may
-// sit in shared memory or (B1's constant-query variant) constant memory.
+// qT (in shared memory) feeds four FMAs, and each loaded reference value
+// feeds TM FMAs.
 template <int TM, typename Column>
 __device__ __forceinline__ void column_scores(const float* qT, const Column& rc, int k,
                                               float (&s)[TM]) {

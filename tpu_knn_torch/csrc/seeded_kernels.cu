@@ -396,9 +396,9 @@ int launch_minima(const float* qT, const float* r, const float* lo, float* parti
   const int gpp = groups_per_part(n, parts);
   const int e = with_tiled_rows(tm, [&](auto rows) {
     constexpr int TM = decltype(rows)::value;
-    return launch_tiled_grid<TM, MinimaState<TM, DEPTH>>(tiled_minima_kernel<TM, DEPTH>,
-                                                         parts * kSlices, m, stream, qT, r, lo,
-                                                         partial, m, ldq, k, ld, n, gpp, vec16);
+    return launch_tiled_grid<TM, MinimaState<TM, DEPTH>>(
+        tiled_minima_kernel<TM, DEPTH>, parts * kSlices, m, 0, stream, qT, r, lo, partial, m,
+        ldq, k, ld, n, gpp, vec16);
   });
   if (e != 0) return e;
   minima_merge_kernel<DEPTH><<<m, kLanes, 0, stream>>>(partial, out, parts);
@@ -414,7 +414,7 @@ int launch_moments(const float* qT, const float* r, const float* bound, const fl
   const int e = with_tiled_rows(tm, [&](auto rows) {
     constexpr int TM = decltype(rows)::value;
     return launch_tiled_grid<TM, MomentState<TM, REM>>(
-        tiled_moments_kernel<TM, REM>, parts, m, stream, qT, r, bound, lo, out_a, out_p3,
+        tiled_moments_kernel<TM, REM>, parts, m, 0, stream, qT, r, bound, lo, out_a, out_p3,
         rem_part, m, ldq, k, ld, n, nc, cell, cubic, chunks_per_part, vec16);
   });
   if (e != 0 || !REM) return e;

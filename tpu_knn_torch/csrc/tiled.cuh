@@ -1,6 +1,7 @@
-// The tiled f32 score template that B1 "highest", B4 (fused_kernels.cu), B3
-// and B7 (seeded_kernels.cu) share: register micro-tiles of scores over an
-// operand staged in shared memory by a ring of cp.async copies.
+// The tiled f32 score template that B1 "highest", B4, B1's two ladder
+// variants (v3, v6; fused_kernels.cu), B3 and B7 (seeded_kernels.cu) share:
+// register micro-tiles of scores over an operand staged in shared memory by
+// a ring of cp.async copies.
 //
 // A block is 8 warps (kTiledThreads) and owns 8*TM query rows: warp w owns
 // rows w*TM .. w*TM+TM-1, thread c of a warp 8 columns of each column tile,
@@ -21,6 +22,18 @@
 // them: B1/B4 into per-lane (score, index) pairs, B3 into per-lane minima,
 // B7 into per-cell moments. A warp whose rows all lie past m skips the
 // arithmetic and the epilogue.
+//
+// Two policies change only where the operands come from (TiledRing):
+// - AOS (v3): the operand is the caller's row-major (n, k) array. Warp j
+//   stages group j's 32 slots, two columns per copy instruction: half-warp
+//   h takes slot 2i + h, its lane the chunk's d, so each instruction reads
+//   two runs of 16 consecutive floats (4-byte copies: any k, any base) and
+//   lands them transposed as [d][slot]. The stage's rows are kTileCols + 2
+//   floats apart, which makes those 32 writes fall in 32 banks.
+// - QRES (v6): the block's query rows stay in shared memory for the whole
+//   sweep, copied once before it (after the ring, [d][row], rows past k
+//   zero to a whole chunk, resident_ld(m) floats apart), so the ring
+//   carries only the operand.
 //
 // Where a slot's column lies is the kernel's choice (TileColumns): B1, B4
 // and B3 give a block a quarter of one partition's 128 lanes and a tile 8 of
@@ -48,20 +61,38 @@ constexpr int kTiledStages = 3;  // ring depth: two chunks in flight behind the 
 constexpr int kTiledBlocksPerSm = 2;  // __launch_bounds__; tuning.TILED_BLOCKS_PER_SM
 static_assert(kTileCols == kTiledThreads, "one thread per column slot keeps |r|^2");
 
-// Floats of one ring stage: a kChunk-row chunk of the column tile and of
-// the block's 8*TM queries.
+// One ring stage of a tiled kernel with TM rows per warp: a kChunk-row
+// chunk of the column tile, kRLd floats a row (kTileCols, or kTileCols + 2
+// for the AoS copies' banks), and unless the queries are resident (QRES)
+// the block's 8*TM queries beside it.
+template <int TM, bool AOS = false, bool QRES = false>
+struct TiledRing {
+  static constexpr int kRLd = AOS ? kTileCols + 2 : kTileCols;
+  static constexpr int kStage = kChunk * kRLd + (QRES ? 0 : kChunk * kTiledWarps * TM);
+  // The ring's bytes (dynamic shared memory, the same at every k; QRES
+  // kernels add resident_bytes). kTiledBlocksPerSm blocks of it and its
+  // kernel's static state must fit one SM's kSmemPerSm, less
+  // kSmemPerBlockReserved per block; launch_tiled_grid checks that when it
+  // is compiled.
+  static constexpr size_t kBytes = static_cast<size_t>(kTiledStages) * kStage * sizeof(float);
+};
+static_assert(TiledRing<1, true>::kStage % 4 == 0, "the stage's queries stay 16-byte aligned");
+static_assert(2 * kChunk == kSliceLanes && kTiledWarps == kTileGroups,
+              "the AoS copies: a half-warp per column, a warp per group");
+
+// The row stride of a QRES block's resident queries: its rows (at most
+// 8*TM), rounded to whole float4s where TM >= 4 reads them so.
 template <int TM>
-__host__ __device__ constexpr int tiled_stage_floats() {
-  return kChunk * kTileCols + kChunk * kTiledWarps * TM;
+__host__ __device__ constexpr int resident_ld(int m) {
+  const int rows = m < kTiledWarps * TM ? m : kTiledWarps * TM;
+  return TM == 1 ? rows : (rows + 3) / 4 * 4;
 }
 
-// A block's shared memory: the ring (dynamic, the same at every k) and its
-// kernel's static state. kTiledBlocksPerSm blocks of it must fit one SM's
-// kSmemPerSm, less kSmemPerBlockReserved per block; launch_tiled_grid
-// checks that when it is compiled.
+// Their bytes: the k rows, zero to a whole chunk.
 template <int TM>
-constexpr size_t tiled_ring_bytes() {
-  return static_cast<size_t>(kTiledStages) * tiled_stage_floats<TM>() * sizeof(float);
+constexpr size_t resident_bytes(int m, int k) {
+  return static_cast<size_t>((k + kChunk - 1) / kChunk * kChunk) * resident_ld<TM>(m) *
+         sizeof(float);
 }
 
 // The columns of a block's column tiles: tile t's slot (j, c) holds column
@@ -86,17 +117,31 @@ __device__ __forceinline__ TileColumns lane_slice_columns(int n, int groups_per_
 }
 
 // Issue the copies of one step (a d-chunk of one column tile) into `st`:
-// the operand as [d][group][lane] (16-byte copies of 4 lanes where
-// `vec16`, else 4-byte ones), then the block's queries as [d][row] from
-// the transposed queries qT (k, ldq) in 16-byte copies. Slots past k, n,
-// the live groups or the rows are zero-filled without a read.
-template <int TM>
+// the operand as [d][group][lane] (SoA: 16-byte copies of 4 lanes where
+// `vec16`, else 4-byte ones; AoS: see the top of this file), then, unless
+// the queries are resident, the block's queries as [d][row] from the
+// transposed queries qT (k, ldq) in 16-byte copies. Slots past k, n, the
+// live groups or the rows are zero-filled without a read.
+template <int TM, bool AOS, bool QRES>
 __device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__ qT, int ldq,
                                             const float* __restrict__ r, int k, long long ld,
                                             int n, bool vec16, long long col0, int group_step,
                                             int live_groups, int d0, int row0) {
-  constexpr int BM = kTiledWarps * TM;
-  if (vec16) {
+  constexpr int kRLd = TiledRing<TM, AOS, QRES>::kRLd;
+  if constexpr (AOS) {
+    const int j = threadIdx.x / kSliceLanes;
+    const int d = threadIdx.x % kChunk;
+    const int h = threadIdx.x % kSliceLanes / kChunk;
+    const long long col = col0 + static_cast<long long>(j) * group_step + h;
+    const bool row_live = j < live_groups && d0 + d < k;
+    const float* src = r + col * k + d0 + d;
+    float* dst = st + d * kRLd + j * kSliceLanes + h;
+#pragma unroll 4
+    for (int i = 0; i < kSliceLanes; i += 2) {
+      const bool live = row_live && col + i < n;
+      cp_async4(dst + i, live ? src + static_cast<long long>(i) * k : r, live ? 4 : 0);
+    }
+  } else if (vec16) {
     constexpr int kQuads = kTileCols / 4;
     for (int e = threadIdx.x; e < kChunk * kQuads; e += kTiledThreads) {
       const int d = e / kQuads;
@@ -116,18 +161,47 @@ __device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__
 #pragma unroll 4
     for (int d = 0; d < kChunk; ++d) {
       const bool live = col_live && d0 + d < k;
-      cp_async4(st + d * kTileCols + threadIdx.x,
+      cp_async4(st + d * kRLd + threadIdx.x,
                 live ? r + static_cast<long long>(d0 + d) * ld + col : r, live ? 4 : 0);
     }
   }
-  float* qs = st + kChunk * kTileCols;
-  constexpr int kRowQuads = BM / 4;
-  for (int e = threadIdx.x; e < kChunk * kRowQuads; e += kTiledThreads) {
-    const int d = e / kRowQuads;
-    const int c = (e - d * kRowQuads) * 4;
-    const bool live = d0 + d < k && row0 + c < ldq;
-    cp_async16(qs + d * BM + c, live ? qT + static_cast<long long>(d0 + d) * ldq + row0 + c : qT,
-               live ? 16 : 0);
+  if constexpr (!QRES) {
+    constexpr int BM = kTiledWarps * TM;
+    float* qs = st + kChunk * kRLd;
+    constexpr int kRowQuads = BM / 4;
+    for (int e = threadIdx.x; e < kChunk * kRowQuads; e += kTiledThreads) {
+      const int d = e / kRowQuads;
+      const int c = (e - d * kRowQuads) * 4;
+      const bool live = d0 + d < k && row0 + c < ldq;
+      cp_async16(qs + d * BM + c,
+                 live ? qT + static_cast<long long>(d0 + d) * ldq + row0 + c : qT,
+                 live ? 16 : 0);
+    }
+  }
+}
+
+// Issue the copies of a QRES block's resident queries: rows row0 ..
+// row0 + ldr - 1 of qT (k, ldq) as [d][row], ldr = resident_ld<TM>(m),
+// over whole chunks of d; rows past ldq or k are zero-filled without a
+// read. 16-byte copies where TM >= 4 (ldr and row0 are multiples of 4),
+// else 4-byte ones.
+template <int TM>
+__device__ __forceinline__ void stage_resident(float* qres, int ldr,
+                                               const float* __restrict__ qT, int ldq, int k,
+                                               int row0) {
+  constexpr int kW = TM == 1 ? 1 : 4;
+  const int per_d = ldr / kW;
+  const int rows = (k + kChunk - 1) / kChunk * kChunk;
+  for (int e = threadIdx.x; e < rows * per_d; e += kTiledThreads) {
+    const int d = e / per_d;
+    const int c = (e - d * per_d) * kW;
+    const bool live = d < k && row0 + c < ldq;
+    const float* src = live ? qT + static_cast<long long>(d) * ldq + row0 + c : qT;
+    if constexpr (kW == 4) {
+      cp_async16(qres + d * ldr + c, src, live ? 16 : 0);
+    } else {
+      cp_async4(qres + d * ldr + c, src, live ? 4 : 0);
+    }
   }
 }
 
@@ -151,27 +225,32 @@ __device__ __forceinline__ void tile_slots(const float* norms, long long col0, i
 // warp that owns a row below m (col0: the tile's slot (0, 0); live_groups:
 // its groups still inside the slice; acc is the epilogue's to overwrite).
 // The caller's state writes before the call are visible to every thread
-// in the epilogue.
-template <int TM, typename Epilogue>
+// in the epilogue. With QRES the resident queries follow the ring in
+// `ring`'s shared memory and are copied with the first step.
+template <int TM, bool AOS = false, bool QRES = false, typename Epilogue>
 __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ldq,
                                             const float* __restrict__ r, int m, int k,
                                             long long ld, int n, bool vec16,
                                             const TileColumns& tc, int row0, float* ring,
                                             float* norm_s, Epilogue&& epi) {
-  constexpr int BM = kTiledWarps * TM;
-  constexpr int kStage = tiled_stage_floats<TM>();
+  using Ring = TiledRing<TM, AOS, QRES>;
+  constexpr int kStage = Ring::kStage;
+  constexpr int kRLd = Ring::kRLd;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tiles = (tc.groups + kTileGroups - 1) / kTileGroups;
   const int chunks = (k + kChunk - 1) / kChunk;
   const int steps = tiles * chunks;
   const bool warp_live = row0 + warp * TM < m;  // warp-uniform
+  float* qres = ring + kTiledStages * kStage;
+  const int ldr = QRES ? resident_ld<TM>(m) : 0;
+  if constexpr (QRES) stage_resident<TM>(qres, ldr, qT, ldq, k, row0);
 
   int it = 0, ic = 0;  // the next step to issue, as (tile, chunk)
   auto issue = [&](int s) {
-    stage_tiled<TM>(ring + (s % kTiledStages) * kStage, qT, ldq, r, k, ld, n, vec16,
-                    tc.first + it * tc.tile_step, tc.group_step, tc.groups - it * kTileGroups,
-                    ic * kChunk, row0);
+    stage_tiled<TM, AOS, QRES>(ring + (s % kTiledStages) * kStage, qT, ldq, r, k, ld, n, vec16,
+                               tc.first + it * tc.tile_step, tc.group_step,
+                               tc.groups - it * kTileGroups, ic * kChunk, row0);
     if (++ic == chunks) {
       ic = 0;
       ++it;
@@ -200,10 +279,16 @@ __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ld
       norm = 0.f;
     }
     const float* st = ring + (s % kTiledStages) * kStage;
-    norm = column_norm_chunk<kChunk>(st + threadIdx.x, kTileCols, norm);
+    norm = column_norm_chunk<kChunk>(st + threadIdx.x, kRLd, norm);
     if (warp_live) {
-      micro_tile_chunk<TM, kTileGroups, kChunk>(st + kChunk * kTileCols + warp * TM, BM,
-                                                st + lane, kTileCols, kSliceLanes, acc);
+      if constexpr (QRES) {
+        micro_tile_chunk<TM, kTileGroups, kChunk>(qres + c * kChunk * ldr + warp * TM, ldr,
+                                                  st + lane, kRLd, kSliceLanes, acc);
+      } else {
+        micro_tile_chunk<TM, kTileGroups, kChunk>(st + kChunk * kRLd + warp * TM,
+                                                  kTiledWarps * TM, st + lane, kRLd,
+                                                  kSliceLanes, acc);
+      }
     }
     if (c == chunks - 1) {
       norm_s[threadIdx.x] = norm;
@@ -230,14 +315,19 @@ inline bool vec16_operand(const float* r, long long ld) {
 
 // Launch a tiled kernel whose static shared memory is `State` over
 // ceil(m / (8*TM)) row tiles (grid.y, in slices of kMaxGridY; the kernel's
-// last argument is the slice's first row) and grid_x blocks per row tile.
-template <int TM, typename State, typename... Params, typename... Args>
-int launch_tiled_grid(void (*kernel)(Params...), int grid_x, int m, cudaStream_t stream,
-                      Args... args) {
+// last argument is the slice's first row) and grid_x blocks per row tile,
+// with its ring and `resident` more bytes (a QRES kernel's queries) of
+// dynamic shared memory.
+template <int TM, typename State, bool AOS = false, bool QRES = false, typename... Params,
+          typename... Args>
+int launch_tiled_grid(void (*kernel)(Params...), int grid_x, int m, size_t resident,
+                      cudaStream_t stream, Args... args) {
   constexpr int BM = kTiledWarps * TM;
-  constexpr size_t smem = tiled_ring_bytes<TM>();
-  static_assert(kTiledBlocksPerSm * (smem + sizeof(State) + kSmemPerBlockReserved) <= kSmemPerSm,
+  constexpr size_t ring = TiledRing<TM, AOS, QRES>::kBytes;
+  static_assert(kTiledBlocksPerSm * (ring + sizeof(State) + kSmemPerBlockReserved) <= kSmemPerSm,
                 "a tiled kernel's blocks per SM do not fit its shared memory");
+  const size_t smem = ring + resident;
+  if (smem + sizeof(State) > kSmemPerBlock) return static_cast<int>(cudaErrorInvalidValue);
   if (const int e = allow_smem(kernel, smem, sizeof(State))) return e;
   const int tiles = (m + BM - 1) / BM;
   for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {

@@ -14,10 +14,11 @@ it was plain XLA in tpu_knn. B4 (`banded_candidates`, replacing
 pass of the top-K passes engine (kernels/topk.py); B3
 (`minima_candidates`, replacing `_fused_minima_kernel`) is B1 with a
 value-only lane fold, the seeded engine's bound pass (kernels/seeded.py).
-Two ladder rungs are B1 variants with bit-identical scores: v3
-(`aos_candidates`) reads the caller's (n, k) array with an on-chip
-transpose instead of the SoA relayout, and v6 (`const_query_candidates`)
-keeps the whole query set in constant memory for the sweep.
+Two ladder rungs are B1's kernel under the tiled template's other operand
+policies, with bit-identical scores: v3 (`aos_candidates`) reads the
+caller's (n, k) array, its copies transposing each chunk on the way in,
+instead of the SoA relayout, and v6 (`const_query_candidates`) keeps each
+block's query rows resident in shared memory for the whole sweep.
 
 Precision: B1 here computes in plain f32 FMA on the CUDA cores, the
 "highest" tier. tpu_knn's bf16-split tiers (packed, bf16x3, bf16x4,
@@ -36,9 +37,7 @@ import numpy as np
 import torch
 
 from tpu_knn_torch.engine.registry import register_version
-from tpu_knn_torch.kernels.tuning import (
-    LANE, MAX_QUERY_SMEM, cuda_tile_m, pick_parts, tiled_geometry,
-)
+from tpu_knn_torch.kernels.tuning import LANE, resident_geometry, tiled_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair, check_device
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
@@ -53,8 +52,8 @@ PORTED_PRECISIONS = frozenset({"packed", "bf16x3", "bf16x3_presplit", "bf16x4", 
 
 _I32_MAX = 2**31 - 1
 
-#: The lane-per-thread kernels that share B1's contract (v3, v6, B10)
-#: get at least this many blocks per SM (tuning.pick_parts).
+#: The lane-per-thread kernel that shares B1's contract (B10) gets at
+#: least this many blocks per SM (tuning.pick_parts).
 B1_BLOCKS_PER_SM = 2
 
 
@@ -344,16 +343,9 @@ banded_candidates.launches = 0
 
 
 def tiled_parts(m: int, k: int, n: int) -> int:
-    """B1 and B4's partition count (tuning.tiled_geometry): their callers'
-    default P."""
+    """B1, B4 and v3's partition count (tuning.tiled_geometry): their
+    callers' default P."""
     return tiled_geometry(m, k, n).parts
-
-
-def default_parts(m: int, k: int, n: int) -> int:
-    """Partition count of the lane-per-thread kernels on B1's contract
-    (v6): the grid of (cuda_tile_m row tiles x partitions) gets
-    B1_BLOCKS_PER_SM blocks of 128 threads per SM."""
-    return pick_parts(cdiv(m, cuda_tile_m(m, k)), n, B1_BLOCKS_PER_SM)
 
 
 # ---- B3: value-only per-lane minima (the seeded engines' bound pass) ----
@@ -451,28 +443,7 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
 minima_candidates.launches = 0
 
 
-# ---- the B1 variants of the ladder: AoS (v3) and constant-query (v6) ----
-
-#: Row stride of B1's AoS variant's shared-memory slab (csrc kSlabLd): one
-#: 128-column group of the (n, k) array, transposed, padded by one float.
-AOS_SLAB_LD = LANE + 1
-
-
-def aos_tile_m(m: int, k: int) -> int:
-    """Query rows per block of B1's AoS variant: cuda_tile_m's choice, with
-    the slab's (k, 129) floats beside the query tile in shared memory."""
-    for tm in (32, 8, 1):
-        if tm == 32 and m <= 8:
-            continue
-        if (tm + AOS_SLAB_LD) * k * 4 <= MAX_QUERY_SMEM:
-            return tm
-    raise ValueError(f"k={k} exceeds the AoS variant's shared-memory slab "
-                     f"({MAX_QUERY_SMEM // (4 * (1 + AOS_SLAB_LD))} dims at most)")
-
-
-def aos_parts(m: int, k: int, n: int) -> int:
-    """Partition count of B1's AoS variant (B1's occupancy rule)."""
-    return pick_parts(cdiv(m, aos_tile_m(m, k)), n, B1_BLOCKS_PER_SM)
+# ---- the B1 variants of the ladder: AoS (v3) and resident queries (v6) ----
 
 
 def aos_candidates_plain(q, ref, n: int, parts: int):
@@ -483,11 +454,13 @@ def aos_candidates_plain(q, ref, n: int, parts: int):
 
 def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int):
     """(m, k) queries x the caller's row-major (n, k) points -> B1's (idx,
-    score) candidates (m, parts*128), with no per-call SoA relayout: v3's
-    kernel stages each 128-row group through shared memory transposed
-    (csrc/fused_kernels.cu). Its scores are bit-identical to B1's on the
-    card. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    score) candidates (m, parts*128), with no per-call SoA relayout (v3):
+    B1's tiled kernel at B1's TM (tuning.tiled_geometry), its ring's copies
+    reading each chunk's columns from the (n, k) array and landing them
+    transposed (csrc/tiled.cuh); the queries from their transposed copy, as
+    B1's. Any k. Its scores are bit-identical to B1's on the card. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _check_candidate_operands(q, ref, n, parts, aos=True)
     m, k = q.shape
     if q.device.type == "cpu":
@@ -495,11 +468,13 @@ def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int):
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
+    q_t = transposed_queries(q)
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_aos_candidates(
-            q.data_ptr(), ref.data_ptr(), idx.data_ptr(), score.data_ptr(), m, k, n,
-            parts, aos_tile_m(m, k), torch.cuda.current_stream(q.device).cuda_stream)
+            q_t.data_ptr(), ref.data_ptr(), idx.data_ptr(), score.data_ptr(), m, q_t.shape[1],
+            k, n, parts, tiled_geometry(m, k, n).tm,
+            torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B1 (AoS variant) aos_candidates")
     aos_candidates.launches += 1
     return idx, score
@@ -508,64 +483,50 @@ def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int):
 #: Kernel launches of B1's AoS variant (CUDA tensors only).
 aos_candidates.launches = 0
 
-#: Floats of the constant bank that holds v6's query set (csrc
-#: kConstQueryFloats: the 64 KB of __constant__ memory; the reference v6's
-#: own guard, k*m <= 16384, core.cu:603-607).
+#: The reference v6's guard on its query set, k*m <= 16384 floats (the
+#: 64 KB of __constant__ memory it used, core.cu:603-607): what the v6 rung
+#: of the ladder means, kept though the port holds the rows in shared
+#: memory.
 CONST_QUERY_FLOATS = 16384
 
 
 def const_query_fits(m: int, k: int) -> bool:
-    """True when the query set, padded to whole row tiles, fits the
-    constant bank."""
-    return (k * m <= CONST_QUERY_FLOATS
-            and round_up(m, cuda_tile_m(m, k)) * k <= CONST_QUERY_FLOATS)
+    """The reference v6's guard: k*m <= CONST_QUERY_FLOATS."""
+    return k * m <= CONST_QUERY_FLOATS
 
 
 def const_query_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
-    """B1's candidate contract with the whole query set in the card's
-    constant memory for the sweep (v6; csrc/fused_kernels.cu): every block
-    reads its rows through the constant cache instead of staging them in
-    shared memory. Scores bit-identical to B1's. CPU tensors take B1's
-    plain version; CUDA tensors launch the kernel or raise.
-
-    The constant bank is one per device for the loaded library, so each
-    launch waits for the previous one (on whatever stream it ran) before
-    its copy overwrites the bank."""
+    """B1's candidate contract with each block's query rows resident in
+    shared memory for the whole sweep (v6): B1's tiled kernel whose ring
+    carries only the operand (csrc/tiled.cuh), at the TM of
+    tuning.resident_geometry, the rows copied once per block from the
+    transposed queries. The query set must pass the reference's guard
+    (const_query_fits). Scores bit-identical to B1's. CPU tensors take B1's
+    plain version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts)
     m, k = q.shape
     if not const_query_fits(m, k):
-        raise ValueError(f"(m={m}, k={k}) queries exceed the "
-                         f"{CONST_QUERY_FLOATS}-float constant bank")
+        raise ValueError(f"(m={m}, k={k}) queries exceed v6's {CONST_QUERY_FLOATS}-float "
+                         "query set (the reference's guard)")
     if q.device.type == "cpu":
         return fused_candidates_plain(q, r_op, n, parts)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
-    tm = cuda_tile_m(m, k)
-    tiles = cdiv(m, tm)
-    # [tile][d][i]: each tile laid out as B1's shared query tile.
-    q_tiled = torch.nn.functional.pad(q, (0, 0, 0, tiles * tm - m))
-    q_tiled = q_tiled.view(tiles, tm, k).transpose(1, 2).contiguous()
+    q_t = transposed_queries(q)
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
-    stream = torch.cuda.current_stream(q.device)
     with torch.cuda.device(q.device):
-        bank_free = _CONST_BANK_FREE.setdefault(q.device.index, torch.cuda.Event())
-        stream.wait_event(bank_free)
         err = lib.tk_const_query_candidates(
-            q_tiled.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(), m, k,
-            r_op.stride(0), n, parts, tm, stream.cuda_stream)
-        check(lib, err, "B1 (constant-query variant) const_query_candidates")
-        bank_free.record(stream)
+            q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(), m,
+            q_t.shape[1], k, r_op.stride(0), n, parts, resident_geometry(m, k, n).tm,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check(lib, err, "B1 (resident-query variant) const_query_candidates")
     const_query_candidates.launches += 1
     return idx, score
 
 
-#: Kernel launches of B1's constant-query variant (CUDA tensors only).
+#: Kernel launches of B1's resident-query variant (CUDA tensors only).
 const_query_candidates.launches = 0
-
-#: Per device index, the event recorded after the last constant-query
-#: launch: the next launch's stream waits on it before refilling the bank.
-_CONST_BANK_FREE: dict[int, torch.cuda.Event] = {}
 
 
 # ---- exact selection ------------------------------------------------
@@ -663,7 +624,7 @@ def fused_knn(search, ref, *, soa: bool = True, parts: int | None = None,
     n = ref.shape[0]
     if not soa:
         _check_highest_only(precision, "v3 (B1's AoS variant)")
-        cand = aos_candidates(search, ref, n, parts or aos_parts(m, k, n))
+        cand = aos_candidates(search, ref, n, parts or tiled_parts(m, k, n))
         return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
     if parts is None and precision is None:
         from tpu_knn_torch.kernels.smallm import (
@@ -694,25 +655,17 @@ def _to_host(idx) -> np.ndarray:
 
 
 def const_query_knn(search, ref, device="cuda"):
-    """v6: exact 1-NN with the whole query set in constant memory for the
-    sweep (const_query_candidates), then _refine. The query set must fit
-    the constant bank (const_query_fits); v6's guard delegates the rest to
+    """v6: exact 1-NN with each block's query rows resident in shared
+    memory for the sweep (const_query_candidates, P from
+    tuning.resident_geometry), then _refine. The query set must pass the
+    reference's guard (const_query_fits); v6's guard delegates the rest to
     v4. Returns (indices (m,) int32, exact d2 (m,) f32)."""
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
     cand = const_query_candidates(search, prep_soa(ref, round_up(n, LANE)), n,
-                                  default_parts(m, k, n))
+                                  resident_geometry(m, k, n).parts)
     return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
-
-
-def _v3_guard(k, m, n):
-    """v3 runs where B1's AoS variant fits a block's shared memory: one
-    query row beside the (k, 129)-float slab (aos_tile_m). tpu_knn's guard
-    was a TPU memory limit instead (the (8, 128)-tiled HBM pages of an
-    (n, k) array, fused.py:1013-1025), which the card does not have
-    (ROADMAP C)."""
-    return (1 + AOS_SLAB_LD) * k * 4 <= MAX_QUERY_SMEM
 
 
 def v3_callback(k, m, n, search, ref):
@@ -726,9 +679,9 @@ def v4_callback(k, m, n, search, ref):
 
 
 def _v6_guard(k, m, n):
-    """v6 runs where the query set fits the constant bank (the reference's
-    own k*m <= 16384, padded to whole row tiles); tpu_knn's guard was its
-    4 MB VMEM query block (fused.py:1038-1077, ROADMAP C)."""
+    """v6 runs where the query set passes the reference's own guard (k*m
+    <= 16384, const_query_fits); tpu_knn's guard was its 4 MB VMEM query
+    block (fused.py:1038-1077, ROADMAP C)."""
     return const_query_fits(m, k)
 
 
@@ -737,13 +690,15 @@ def v6_callback(k, m, n, search, ref):
     return _to_host(idx)
 
 
+# v3 has no guard: its kernel takes every shape (tpu_knn's guard was a fact
+# about the TPU's tiled HBM pages, fused.py:1013-1025, ROADMAP C); the
+# fallback is tpu_knn's, kept for the registry's parity.
 register_version(
     "v3",
     v3_callback,
-    "B1's AoS variant: the caller's (n, k) array staged per 128-row group "
-    "through shared memory, transposed on chip, CUDA (reference v3, "
-    "core.cu:231-312)",
-    guard=_v3_guard,
+    "B1's AoS variant: B1's tiled kernel over the caller's (n, k) array, "
+    "each chunk transposed by its copies into shared memory, CUDA (reference "
+    "v3, core.cu:231-312)",
     fallback="v4",
 )
 register_version(
@@ -755,8 +710,8 @@ register_version(
 register_version(
     "v6",
     v6_callback,
-    "B1 with the whole query set in constant memory for the sweep, CUDA "
-    "(reference v6 constant-memory broadcast, core.cu:530-643)",
+    "B1 with each block's query rows resident in shared memory for the "
+    "sweep, CUDA (reference v6 constant-memory broadcast, core.cu:530-643)",
     guard=_v6_guard,
     fallback="v4",
 )

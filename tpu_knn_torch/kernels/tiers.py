@@ -47,7 +47,9 @@ from tpu_knn_torch.kernels.fused import (
     _I32_MAX, _TIER_EPS, _candidate_outputs, _check_candidate_operands, _lane_fold, _packed_terms,
     fused_candidates, norm_scores,
 )
-from tpu_knn_torch.kernels.tuning import LANE, TILED_BLOCKS_PER_SM, _wave_parts
+from tpu_knn_torch.kernels.tuning import (
+    LANE, SMEM_PER_BLOCK_RESERVED, SMEM_PER_SM, TILED_BLOCKS_PER_SM, _wave_parts,
+)
 from tpu_knn_torch.utils.platform import full_f32_matmul
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
@@ -218,11 +220,8 @@ TENSOR_INSTANCES = {
     (2, 3): _HH_HL_LH,
 }
 
-#: Shared memory of an SM, what the system keeps per resident block, and
-#: the resident q parts' limit (csrc kSmemPerSm, kSmemPerBlockReserved,
-#: kQResidentBytes).
-SMEM_PER_SM = 233472
-SMEM_PER_BLOCK_RESERVED = 1024
+#: The resident q parts' limit (csrc kQResidentBytes; the SM's budget,
+#: SMEM_PER_SM less SMEM_PER_BLOCK_RESERVED a block, is tuning's).
 TENSOR_Q_RESIDENT_BYTES = 30 * 1024
 #: Each block's fold state, 8 (score, index) pairs a thread, and in f32
 #: mode a copy of the folded tile's ‖r‖² row (csrc fixed_bytes).

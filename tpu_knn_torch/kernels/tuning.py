@@ -5,9 +5,11 @@ because it still fixes the prepared operand's n padding (NNIndex), so an
 index's state carries across between the two packages unchanged. The
 CUDA kernels do not use its tiles; they take their
 launch geometry from the helpers below: `tiled_geometry` for the tiled
-f32 kernels on B1's lanes (B1 "highest", B4 and B3), `moments_geometry`
-for the same template over whole 256-column chunks (B7), `cuda_tile_m`
-and `pick_parts` for the lane-per-thread kernels (B5, v3, v6, B10).
+f32 kernels on B1's lanes (B1 "highest", B4, B3 and v3, B1's AoS
+variant), `resident_geometry` for v6 (the same kernel with the block's
+queries resident in shared memory), `moments_geometry` for the same
+template over whole 256-column chunks (B7), and `pick_parts` for the
+lane-per-thread kernels (B5, B10).
 """
 
 from __future__ import annotations
@@ -57,23 +59,22 @@ def pick_tiles(k: int, m: int, n: int, tile_m: int | None = None,
 #: cut into partitions until the launch fills the card.
 H100_SMS = 132
 
-#: Shared memory one B1 block may use for its query tile (of the 227 KB
-#: a Hopper block can address).
+#: Shared memory one lane-per-thread block (B5, B10) may use for its query
+#: tile (of the 227 KB a Hopper block can address).
 MAX_QUERY_SMEM = 200 * 1024
 
+#: Shared memory of an SM, what the system keeps of it per resident block,
+#: and what one block can address (csrc knn_common.cuh kSmemPerSm,
+#: kSmemPerBlockReserved, kSmemPerBlock).
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+SMEM_PER_BLOCK = 232448
 
-def cuda_tile_m(m: int, k: int) -> int:
-    """Query rows per block of the fused candidate kernel (B1): 32 (each
-    reference value loaded serves 32 FMAs), 8 for batches that 32 would
-    mostly pad, 1 where even 8 rows of k floats exceed shared memory."""
-    for tm in (32, 8, 1):
-        if tm == 32 and m <= 8:
-            continue
-        if tm * k * 4 <= MAX_QUERY_SMEM:
-            return tm
-    raise ValueError(
-        f"k={k} exceeds the fused kernel's shared-memory query tile "
-        f"({MAX_QUERY_SMEM // 4} floats per row)")
+#: The card hands a block its shared memory in units of this many bytes,
+#: and ptxas lays a kernel's static shared memory out in units of
+#: SMEM_STATIC_UNIT (its -v report).
+SMEM_ALLOC_UNIT = 128
+SMEM_STATIC_UNIT = 16
 
 
 def pick_parts(m_tiles: int, n: int, blocks_per_sm: int) -> int:
@@ -84,7 +85,7 @@ def pick_parts(m_tiles: int, n: int, blocks_per_sm: int) -> int:
     return max(1, min(cdiv(n, LANE), want))
 
 
-# ---- the tiled f32 kernels (B1 "highest", B4, B3, B7) -------------------
+# ---- the tiled f32 kernels (B1 "highest", B4, v3, v6, B3, B7) -----------
 # What tiled_geometry needs of their fixed shape (csrc/tiled.cuh):
 # blocks of TILED_WARPS warps, warp w owning TM query rows and thread c one
 # of TILED_SLICE_LANES lanes of a partition (a block covers a quarter of
@@ -92,7 +93,8 @@ def pick_parts(m_tiles: int, n: int, blocks_per_sm: int) -> int:
 # column tile is TILED_TILE_GROUPS of the partition's 128-column groups.
 # B7 gives a column tile one contiguous MOMENT_CHUNK-column chunk instead.
 # Their shared memory does not depend on k, and the kernels' source checks
-# at compile time that TILED_BLOCKS_PER_SM blocks of it fit an SM.
+# at compile time that TILED_BLOCKS_PER_SM blocks of it fit an SM; only
+# v6's resident queries add k-dependent bytes (resident_geometry).
 
 TILED_WARPS = 8
 TILED_SLICE_LANES = 32
@@ -106,6 +108,12 @@ MOMENT_CHUNK = TILED_TILE_GROUPS * TILED_SLICE_LANES
 
 #: Blocks of 8 warps resident per SM (the kernel's __launch_bounds__).
 TILED_BLOCKS_PER_SM = 2
+
+#: The ring (csrc tiled.cuh): TILED_STAGES stages of a TILED_CHUNK-row
+#: chunk of a column tile, beside the block's queries unless they are
+#: resident (v6).
+TILED_CHUNK = 16
+TILED_STAGES = 3
 
 #: tiled_geometry takes the smallest P whose modelled time is within this
 #: share of the least.
@@ -143,6 +151,62 @@ def tiled_geometry(m: int, k: int, n: int) -> TiledGeometry:
                                          TILED_TILE_GROUPS))
 
 
+def candidates_state_bytes(tm: int) -> int:
+    """Static shared memory of B1's (and v3's, v6's) block as ptxas lays it
+    out (csrc TiledState<TM, false>: a column tile's |r|^2, the fold's
+    (score, index) per (row, lane) of the block's quarter, and B4's
+    one-word bound pair)."""
+    words = TILED_WARPS * TILED_SLICE_LANES + 2 * TILED_WARPS * tm * TILED_SLICE_LANES + 2
+    return round_up(4 * words, SMEM_STATIC_UNIT)
+
+
+def resident_ld(m: int, tm: int) -> int:
+    """Row stride of a v6 block's resident queries (csrc resident_ld): its
+    rows, at most TILED_WARPS * tm, rounded to whole float4s at tm >= 4."""
+    rows = min(m, TILED_WARPS * tm)
+    return rows if tm == 1 else round_up(rows, 4)
+
+
+def resident_block_smem(m: int, k: int, tm: int) -> int:
+    """Shared memory of one v6 block: its ring of operand chunks only (csrc
+    TiledRing<TM, false, true>::kBytes), the resident queries (k rows, zero
+    to a whole chunk) and B1's static state."""
+    ring = 4 * TILED_STAGES * TILED_CHUNK * TILED_TILE_GROUPS * TILED_SLICE_LANES
+    return ring + 4 * round_up(k, TILED_CHUNK) * resident_ld(m, tm) + candidates_state_bytes(tm)
+
+
+def resident_blocks_per_sm(m: int, k: int, tm: int) -> int:
+    """How many v6 blocks of (m, k, tm) one SM holds, at most
+    TILED_BLOCKS_PER_SM; 0 where one exceeds what a block can address."""
+    smem = resident_block_smem(m, k, tm)
+    if smem > SMEM_PER_BLOCK:
+        return 0
+    return min(TILED_BLOCKS_PER_SM,
+               SMEM_PER_SM // (round_up(smem, SMEM_ALLOC_UNIT) + SMEM_PER_BLOCK_RESERVED))
+
+
+def resident_geometry(m: int, k: int, n: int) -> TiledGeometry:
+    """Launch geometry of v6 (B1's tiled kernel with each block's query
+    rows resident in shared memory) at (m, k, n): tiled_geometry's, except
+    that TM is the largest of TILED_ROWS up to tiled_geometry's whose
+    blocks still fit TILED_BLOCKS_PER_SM to an SM beside their resident
+    rows. Where none does (m <= 8 near the guard, k*m <= 16384: a 64 KB
+    resident block beside the 48 KB ring), TM is 1 at one block per SM,
+    and P comes from the wave model at that rate."""
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty launch (m={m}, k={k}, n={n})")
+    top = _tiled_rows(m)
+    fits = [t for t in sorted(TILED_ROWS, reverse=True)
+            if t <= top and resident_blocks_per_sm(m, k, t) == TILED_BLOCKS_PER_SM]
+    tm = fits[0] if fits else 1
+    per_sm = resident_blocks_per_sm(m, k, tm)
+    if per_sm < 1:
+        raise ValueError(f"(m={m}, k={k}): one v6 block's resident queries exceed "
+                         f"{SMEM_PER_BLOCK} bytes of shared memory")
+    return TiledGeometry(tm, _wave_parts(tiled_blocks(m, tm, 1), cdiv(n, LANE),
+                                         TILED_TILE_GROUPS, per_sm))
+
+
 def moments_geometry(m: int, k: int, n_ops: int) -> TiledGeometry:
     """Launch geometry of B7 (the tiled template over whole MOMENT_CHUNK-
     column chunks of the (k_pad, n_ops) operand, one block per row tile and
@@ -159,12 +223,13 @@ def _tiled_rows(m: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _wave_parts(one_part: int, units: int, per_tile: int) -> int:
+def _wave_parts(one_part: int, units: int, per_tile: int,
+                per_sm: int = TILED_BLOCKS_PER_SM) -> int:
     """The partition count of a launch of one_part blocks per partition
-    over `units` column units, per_tile of them to a column tile: the
-    smallest P whose waves x tiles per block is within TILED_COST_SLACK of
-    the least."""
-    per_wave = TILED_BLOCKS_PER_SM * H100_SMS
+    over `units` column units, per_tile of them to a column tile, at
+    per_sm blocks to an SM: the smallest P whose waves x tiles per block
+    is within TILED_COST_SLACK of the least."""
+    per_wave = per_sm * H100_SMS
     costs = [cdiv(one_part * parts, per_wave) * cdiv(cdiv(units, parts), per_tile)
              for parts in range(1, min(units, 8 * cdiv(per_wave, one_part)) + 1)]
     least = min(costs)

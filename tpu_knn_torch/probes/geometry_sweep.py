@@ -4,6 +4,7 @@
     python3 -m tpu_knn_torch.probes.geometry_sweep fused [BASELINE]
     PYTHONPATH=<checkout> python3 tpu_knn_torch/probes/geometry_sweep.py paths
     python3 -m tpu_knn_torch.probes.geometry_sweep beside
+    PYTHONPATH=<checkout> python3 tpu_knn_torch/probes/geometry_sweep.py variants
 
 Prints, beside the card's name and power limit (nvidia-smi):
 
@@ -30,7 +31,13 @@ Prints, beside the card's name and power limit (nvidia-smi):
   chip_smoke.py's), all in one process; and the SM clock right after each
   neighbour, from the time a fixed count of clock cycles takes to spin
   (torch.cuda._sleep); beside each CUDA-event time, the kernel's own
-  device time from torch.profiler.
+  device time from torch.profiler;
+- `variants`: B1's two ladder variants, v3 (`aos_candidates`) and v6
+  (`const_query_candidates`), at ds11 and ds9, each at its checkout's own
+  default P and beside B1 at that P, by CUDA events and device time, then
+  the ladder's per-call v3, v4 and v6 rows there, for whichever checkout
+  of the port is on the path (run it once per checkout in one chip call
+  to compare two).
 
 Times are medians of CUDA-event timings (utils/timing.py).
 """
@@ -264,6 +271,40 @@ def b1_beside(rand, show, reps=10, spin=1 << 21):
               flush=True)
 
 
+def ladder_variants(rand, show, reps=10):
+    """v3 and v6 beside B1 (see the module docstring). Only public names,
+    with each checkout's own default P for the variants (aos_parts and
+    default_parts where the checkout has them, else tiled_parts and
+    tuning.resident_geometry), so an older checkout runs it too."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels import fused, tuning
+    from tpu_knn_torch.kernels.fused import prep_soa
+    from tpu_knn_torch.utils.timing import device_ms, time_ms
+
+    for label, (k, m, n) in (("ds11", (16, 1024, 1 << 20)), ("ds9", (16, 1, 1 << 24))):
+        q, r = rand((m, k)), rand((n, k))
+        r_op = prep_soa(r, n)
+        p3 = (fused.aos_parts if hasattr(fused, "aos_parts") else fused.tiled_parts)(m, k, n)
+        p6 = (fused.default_parts(m, k, n) if hasattr(fused, "default_parts")
+              else tuning.resident_geometry(m, k, n).parts)
+        fns = {f"v3 kernel {label} P={p3}": lambda: fused.aos_candidates(q, r, n, p3),
+               f"B1 kernel {label} P={p3}": lambda: fused.fused_candidates(q, r_op, n, p3),
+               f"v6 kernel {label} P={p6}": lambda: fused.const_query_candidates(q, r_op, n, p6)}
+        if p6 != p3:
+            fns[f"B1 kernel {label} P={p6}"] = lambda: fused.fused_candidates(q, r_op, n, p6)
+        show(time_ms(fns, reps))
+        for name, fn in fns.items():
+            for kname, ms in device_ms({name: fn}, "candidates_kernel", reps).items():
+                print(f"  {name}: {kname[:70]}: {ms:.4f} ms of device time a call "
+                      f"(torch.profiler)", flush=True)
+        show(time_ms({f"{v} per call {label}": (lambda v=v: tpu_knn_torch.knn_callback(
+            k, m, n, q, r, version=v)) for v in ("v3", "v4", "v6")}, 5))
+        del q, r, r_op
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -302,6 +343,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["beside"]:
         b1_beside(rand, show)
+        return 0
+    if sys.argv[1:] == ["variants"]:
+        ladder_variants(rand, show)
         return 0
 
     k9, n9 = 16, 1 << 24
