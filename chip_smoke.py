@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the script exits nonzero:
 0. setup: requires an sm_90 card, prints its name and power limit, turns
    TF32 off, builds the CUDA kernels from tpu_knn_torch/csrc (build time
    and the ptxas report are printed; any spill in an instance of B3's or
-   B7's tiled kernel, of B1's tiled kernel as v3 or v6, or of the
-   tensor-core kernel (B1's tiers, B12) fails, and so does a v3 or v6
-   instance whose static shared memory is not tuning's mirror of it);
+   B7's tiled kernel, of B1's tiled kernel as v3, v6 or B10 (its TMA
+   instance), of the B8/B9 compactor or of the tensor-core kernel (B1's
+   tiers, B12) fails, and so does a v3, v6 or B10 instance whose static
+   shared memory is not tuning's mirror of it);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
@@ -27,7 +28,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    the seeded engine's kernels: B3 (value-only lane minima; bit-equal to
    B1's), B7 (per-cell moments; packed words identical to the plain
    version's, with bounds set between scores) and the B8/B9 compactor
-   (identical, at part widths on both sides of 8192); B3 and B7 (the
+   (identical in two launches, at part widths on both sides of 8192 and
+   of one 256-thread round, dense rows, cap equal to the part width,
+   nc % 4 != 0 and a misaligned base); B3 and B7 (the
    tiled template with their own epilogues) also at its tile edges (m
    past a block's rows, n ragged against 256 and 128, an operand wider
    than n, k ragged against a d-chunk, k = 1 and 768, ld not a multiple of
@@ -39,8 +42,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    bit for bit alike); then every B3, B7 and compactor launch of the
    seeded main path against its plain version (SeededLaunchCheck), with
    phase 2's seeded calls run once on data of their own; then the 1-NN
-   ladder's kernels: B10 (index-equal to B1 at the same partition count)
-   on a grid and at v5's launches of phase 2, B11 (windows of 1 + 1 and
+   ladder's kernels: B10 (index-equal to B1 at the same partition count,
+   in two launches) on a grid, at v5's launches of phase 2 and at its TMA
+   ring's edges (k = 1, 17, 250, 768, 2048, 7000, m past a block's rows,
+   n ragged against 128 and 256), B11 (windows of 1 + 1 and
    64 + 1 tiles, n ragged against 4096, a window at the last tile with
    planted duplicates, and the auto path's
    (3, 16, 2^24) launch, at one split and the default splits), and B1's
@@ -99,8 +104,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    cuBLAS product of the score matrices and the main paths (B1 "highest"
    also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1,
    B4, B3 and B7 (at the seeded ds11 K = 8 and K = 64 launches, B3 with
-   its partition merge), v3 and v6 (at ds11 and ds9, beside B1 at their
-   P) and each tier row and B12 also by their kernels' own device time
+   its partition merge), the compactor (at those and at (16, 1024, 2^22)
+   K = 8), v3, v6 and B10 (at ds11 and ds9, beside B1 at their P) and
+   each tier row and B12 also by their kernels' own device time
    from torch.profiler; among them
    the ladder's per-call rows and prepared auto against prepared fused,
    with device time and idle per host read from torch.profiler; each tier
@@ -781,19 +787,25 @@ def phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases, with_q_t=False
             f"qualifying cells, {int(((got[0] >> 30) & 1).sum())} flagged)"
             + (f", remainder minima max |diff| {rem_err:.3g}" if banded else ""))
         del r_op
-    for m, nc, parts, cap, nf, density in compact_cases:
+    for m, nc, parts, cap, nf, density, *offset in compact_cases:
         qual = torch.rand((m, nc), generator=gen, device=device) < density
         fields = [torch.where(qual, torch.randint(1, 1 << 30, (m, nc), generator=gen,
                                                   device=device, dtype=torch.int32), 0)
                   for _ in range(nf)]
         fields[1:] = [torch.where(qual, f - 1, 0) for f in fields[1:]]
-        got = seeded.compact_cells(fields, parts, cap)
+        if offset:
+            fields = [misaligned(f, *offset) for f in fields]
         want = seeded.compact_cells_plain(fields, parts, cap)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"compactor {(m, nc, parts, cap, nf)}: differs from plain")
+        for _ in range(2):
+            got = seeded.compact_cells(fields, parts, cap)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"compactor {(m, nc, parts, cap, nf, density, *offset)}: differs from plain")
         regime = "B9" if nc // parts <= 8192 else "B8"
-        log(f"  B8/B9 compactor: m={m} nc={nc} parts={parts} (part width {nc // parts}, "
-            f"{regime}'s regime) cap={cap} fields={nf}: identical to plain")
+        pw = nc // parts
+        loads = "int4" if nc % 4 == 0 and pw % 4 == 0 and not offset else "cell-by-cell"
+        log(f"  B8/B9 compactor: m={m} nc={nc} parts={parts} (part width {pw}, {regime}'s "
+            f"regime) cap={cap} fields={nf} density={density} ({loads} loads): identical to "
+            "plain, twice")
     torch.cuda.synchronize(device)
     return errs
 
@@ -1177,8 +1189,10 @@ def phase2_seeded(device, cases):
 
 def phase1_b10(device, gen, cases):
     """B10 against its plain version, and index-equal to B1 at the same
-    partition count. B10 emits indices only: its error is the largest
-    |d2| difference of the refined answers (kernel's candidates against the
+    partition count (given, else B1's: tiled_parts), in two launches (a
+    wrong barrier phase of its TMA ring would show as rare wrong
+    candidates). B10 emits indices only: its error is the largest |d2|
+    difference of the refined answers (kernel's candidates against the
     plain version's), whose indices must be identical."""
     import torch
 
@@ -1190,22 +1204,24 @@ def phase1_b10(device, gen, cases):
     for k, m, n, parts in cases:
         q = uniform(gen, (m, k), device)
         r_op = prep_soa(uniform(gen, (n, k), device), round_up(n, 128))
-        parts = parts or dma_pipeline.default_parts(m, k, n)
-        plant_duplicates(q, r_op, n, parts)
-        ki = dma_pipeline.dma_candidates(q, r_op, n, parts)
-        if not torch.equal(ki, fused.fused_candidates(q, r_op, n, parts)[0]):
-            fail(f"B10 k={k} m={m} n={n} P={parts}: indices differ from B1's")
+        parts = parts or fused.tiled_parts(m, k, n)
+        plant_lane_ties(q, plant_duplicates(q, r_op, n, parts), n, parts)
+        b1 = fused.fused_candidates(q, r_op, n, parts)[0]
+        for _ in range(2):
+            ki = dma_pipeline.dma_candidates(q, r_op, n, parts)
+            if not torch.equal(ki, b1):
+                fail(f"B10 k={k} m={m} n={n} P={parts}: indices differ from B1's")
         pi = dma_pipeline.dma_candidates_plain(q, r_op, n, parts)
         share = (ki == pi).float().mean().item()
         ref = r_op[:k, :n].T.contiguous()
         (k_idx, k_d2), (p_idx, p_d2) = _refine(q, ref, ki, n), _refine(q, ref, pi, n)
         same = torch.equal(k_idx, p_idx)
         err = max(err, (k_d2 - p_d2).abs().max().item())
-        log(f"  B10: m={m} k={k} n={n} P={parts}: index-equal to B1, index agreement with "
-            f"plain {share:.6f}, refined 1-NN identical: {same}")
+        log(f"  B10: m={m} k={k} n={n} P={parts}: index-equal to B1 twice, index agreement "
+            f"with plain {share:.6f}, refined 1-NN identical: {same}")
         if share < MIN_INDEX_AGREEMENT or not same:
             fail(f"B10 k={k} m={m} n={n} P={parts}: agreement {share}, identical {same}")
-        del r_op, ref
+        del r_op, ref, b1
     torch.cuda.synchronize(device)
     return err
 
@@ -1857,8 +1873,9 @@ def phase3(card: str, big11, big9, reps: int):
 def kernel_device_ms(fn, reps: int, card: str, kernel: str = "tiled_candidates",
                      count: int = 1) -> float:
     """The own device time per call of fn's `count` kernels whose names
-    hold `kernel` (B1, B4, v3 or v6: the tiled kernel; B3: it and the
-    partition merge; B7: the tiled moments kernel), summed, from torch.profiler and
+    hold `kernel` (B1, B4, v3 or v6: the tiled kernel; B10: its TMA
+    instance; B3: it and the partition merge; B7: the tiled moments
+    kernel; the compactor), summed, from torch.profiler and
     logged: the CUDA-event time around the wrapper also holds its host
     launch path, during which the card waits."""
     from tpu_knn_torch.utils.timing import device_ms
@@ -2016,10 +2033,13 @@ def phase3_seeded(card, ctx, calls, reps):
                 4 * (m * k + k * n_read + m * 128 * b3["depth"]), 2 * m * n_read * k)
             bounds[f"B7 {label}"] = roofline(
                 4 * (m * k + k * n + m + m * g["nc"] * len(fields)), 2 * m * n * k + m * n)
+        comp_kernel = functools.partial(seeded.compact_cells, fields, parts, cap)
         times.update(time_ms({
-            f"compactor kernel {label}": lambda: seeded.compact_cells(fields, parts, cap),
+            f"compactor kernel {label}": comp_kernel,
             f"compactor plain {label}": lambda: seeded.compact_cells_plain(fields, parts, cap),
         }, reps))
+        times[f"compactor kernel {label} device"] = kernel_device_ms(comp_kernel, reps, card,
+                                                                    "compact_cells")
         nf = len(fields)
         bounds[f"compactor {label}"] = roofline(
             4 * (m * g["nc"] * nf + m * parts * cap * (nf + 1)), 0)
@@ -2086,14 +2106,15 @@ def phase3_ladder(card, big, auto_ctx, reps):
         k, m, n = shape
         q, r = big[shape]
         r_op = prep_soa(r, n)
-        p10, p1 = dma_pipeline.default_parts(m, k, n), fused.tiled_parts(m, k, n)
+        p1 = fused.tiled_parts(m, k, n)   # B10's, v3's and v6's P at ds11 and ds9
         if resident_geometry(m, k, n).parts != p1:
             fail(f"{label}: v6's P {resident_geometry(m, k, n).parts} is not v3's {p1}")
-        fns = {
-            f"B10 kernel {label}": lambda: dma_pipeline.dma_candidates(q, r_op, n, p10),
-            f"B10 plain {label}": lambda: dma_pipeline.dma_candidates_plain(q, r_op, n, p10),
-            f"B1 kernel {label} at B10's P": lambda: fused.fused_candidates(q, r_op, n, p10),
+        b10 = {
+            f"B10 kernel {label}": lambda: dma_pipeline.dma_candidates(q, r_op, n, p1),
+            f"B1 kernel {label} at B10's P": lambda: fused.fused_candidates(q, r_op, n, p1),
         }
+        fns = {**b10, f"B10 plain {label}": lambda: dma_pipeline.dma_candidates_plain(
+            q, r_op, n, p1)}
         # B1's variants beside B1 at their P (tiled_parts: both variants'
         # own at ds11 and ds9), in turns.
         variants = {
@@ -2108,12 +2129,17 @@ def phase3_ladder(card, big, auto_ctx, reps):
             fns[f"B1 plain {label} at the variants' P"] = lambda: fused.fused_candidates_plain(
                 q, r_op, n, p1)
         times.update(time_ms(fns, reps))
+        # B10 (the TMA instance) and B1 at the same P, and the variants, by
+        # the kernels' own device time.
         for name, fn in variants.items():
             times[f"{name} device"] = kernel_device_ms(fn, reps, card)
+        times[f"B10 kernel {label} device"] = kernel_device_ms(
+            b10[f"B10 kernel {label}"], reps, card, "tma_candidates")
+        times[f"B1 kernel {label} at B10's P device"] = kernel_device_ms(
+            b10[f"B1 kernel {label} at B10's P"], reps, card)
         bounds[f"B10 {label}"] = roofline(4 * (m * k + k * n + m * 128), 2 * m * n * k)
         bounds[f"B1 variants {label}"] = bound(m, k, n, 128, 0, 2)
-        log(f"  B10 {label}: P = {p10}, (tile_m, slice groups) = "
-            f"{dma_pipeline.dma_geometry(m, k)}; the variants' P = {p1}, TM v3 "
+        log(f"  B10, v3 and v6 {label}: P = {p1}, TM B10 and v3 "
             f"{fused.tiled_geometry(m, k, n).tm}, v6 {resident_geometry(m, k, n).tm}")
         del r_op
 
@@ -2243,33 +2269,36 @@ def check_no_spills(ptxas, kernels):
 
 
 #: The tiled f32 kernel's instances in ptxas's report (mangled
-#: tiled_candidates_kernel<TM, BANDED, AOS, QRES>).
+#: tiled_candidates_kernel<TM, BANDED, AOS, QRES>, and B10's
+#: tma_candidates_kernel<TM>).
 TILED_ENTRY = r"tiled_candidates_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E"
+TMA_ENTRY = r"tma_candidates_kernelILi(\d+)E"
 
 
 def check_tiled_smem(smem):
-    """Each v3 and v6 instance's static shared memory (ptxas) equals the
-    Python mirror's (tuning.candidates_state_bytes, B1's state), which
-    v6's geometry adds to its ring and resident rows."""
+    """Each v3, v6 and B10 instance's static shared memory (ptxas) equals
+    the Python mirror's (tuning.candidates_state_bytes: B1's state, which
+    v6's geometry adds to its ring and resident rows; B10's with its TMA
+    ring's mbarriers)."""
     import re
 
     from tpu_knn_torch.kernels import tuning
 
     checked = 0
     for entry, nbytes in smem.items():
-        got = re.search(TILED_ENTRY, entry)
-        if not got:
+        tiled, tma = re.search(TILED_ENTRY, entry), re.search(TMA_ENTRY, entry)
+        if not (tiled or tma):
             continue
-        tm = int(got.group(1))
-        if nbytes != tuning.candidates_state_bytes(tm):
-            fail(f"{entry}: {nbytes} bytes of static shared memory, the mirror says "
-                 f"{tuning.candidates_state_bytes(tm)}")
+        tm = int((tiled or tma).group(1))
+        want = tuning.candidates_state_bytes(tm, tma=bool(tma))
+        if nbytes != want:
+            fail(f"{entry}: {nbytes} bytes of static shared memory, the mirror says {want}")
         checked += 1
-    if checked != 2 * len(tuning.TILED_ROWS):
-        fail(f"checked {checked} v3/v6 instances' shared memory, expected "
-             f"{2 * len(tuning.TILED_ROWS)}")
-    log(f"  v3 and v6 instances: static shared memory as tuning.candidates_state_bytes "
-        f"({checked} instances)")
+    if checked != 3 * len(tuning.TILED_ROWS):
+        fail(f"checked {checked} v3/v6/B10 instances' shared memory, expected "
+             f"{3 * len(tuning.TILED_ROWS)}")
+    log(f"  v3, v6 and B10 instances: static shared memory as "
+        f"tuning.candidates_state_bytes ({checked} instances)")
 
 
 # ---- main ------------------------------------------------------------------
@@ -2324,7 +2353,9 @@ def main() -> int:
             "tensor-core tiers and B12": "tensor_candidates_kernel",
             "v3 (B1's tiled kernel, AoS)": r"tiled_candidates_kernelILi\d+ELb0ELb1ELb0E",
             "v6 (B1's tiled kernel, resident queries)":
-                r"tiled_candidates_kernelILi\d+ELb0ELb0ELb1E"})
+                r"tiled_candidates_kernelILi\d+ELb0ELb0ELb1E",
+            "B10 (B1's tiled kernel, TMA ring)": TMA_ENTRY,
+            "B8/B9 compactor": "compact_cells_kernel"})
         check_tiled_smem(smem)
 
     stamp("phase 0")
@@ -2415,6 +2446,19 @@ def main() -> int:
                       (1024, 16_384, 1, 48, 1, 0.003), (1024, 8192, 1, 144, 2, 0.015),
                       (33, 40_000, 2, 80, 1, 0.003)]
     errs.update(phase1_seeded(device, gen, b3_cases, b7_cases, compact_cases))
+    # The compactor's block-wide scan at its edges, from a generator of its
+    # own: dense rows (the walk stops after its first round), cap == part
+    # width, nc % 4 != 0 and a base that is not 16-byte aligned (the
+    # cell-by-cell loads), parts narrower than one 256-thread round (2, 4
+    # or 8 tasks a block).
+    gen_compact = torch.Generator(device=device)
+    gen_compact.manual_seed(1007)
+    compact_edges = [(256, 16_384, 1, 48, 2, 1.0), (16, 40_000, 2, 20_000, 2, 1.0),
+                     (64, 2048, 2, 1024, 2, 0.5), (100, 4098, 2, 80, 2, 0.01),
+                     (50, 4098, 2, 2049, 1, 1.0), (300, 800, 8, 12, 1, 0.05),
+                     (200, 4096, 8, 16, 2, 0.02), (90, 3000, 3, 40, 2, 0.03),
+                     (60, 6000, 3, 2000, 2, 0.3), (129, 8192, 4, 48, 2, 0.01, 1)]
+    phase1_seeded(device, gen_compact, [], [], compact_edges)
     stamp("phase 1 B3/B7/compactor grid")
     # B3 and B7 (the tiled template with their own epilogues) at its edges,
     # each launch also made with the transposed queries passed in: m past a
@@ -2465,6 +2509,17 @@ def main() -> int:
                  for n in (1000, n_rag) for parts in (1, None)]
     b10_cases += [(*shape, None) for shape in BIG_SHAPES]
     errs["B10"] = phase1_b10(device, gen, b10_cases)
+    # B10's TMA ring at its edges (k, m, n, P), from a generator of its own:
+    # k = 1, k ragged against the 16-row chunk, wide k (768 and 7000, past
+    # the lane-per-thread B10's old guard of k <= 199 at m = 1), m past a
+    # block's 8 * TM rows at each TM, n ragged against 128 and 256.
+    gen_b10 = torch.Generator(device=device)
+    gen_b10.manual_seed(1006)
+    b10_edges = [(1, 65, 3149, None), (17, 9, 1000, None), (768, 100, 5077, None),
+                 (7000, 3, 300, 2), (16, 1000, (1 << 16) + 77, None), (5, 33, 4099, 3),
+                 (40, 70, 20_077, None), (16, 129, (1 << 16) + 128, None),
+                 (250, 1, 70_001, None), (2048, 8, 4096, None)]
+    edge_errs["B10"] = phase1_b10(device, gen_b10, b10_edges)
     stamp("phase 1 B10")
     b11_cases = [(k, m, n_rag, window) for k in (3, 8) for m in (1, 16, 64)
                  for window in (4096, 1 << 18)]

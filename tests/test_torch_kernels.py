@@ -406,17 +406,41 @@ def _fields(device, m, nc, nf, density, seed):
     (16, 512, 1, 8, 1, 0.02), (16, 512, 1, 8, 2, 0.08), (12, 1024, 4, 8, 2, 0.02),
     (8, 8192, 1, 48, 2, 0.004), (4, 16_384, 1, 16, 2, 0.001),
     (100, 32_768, 8, 192, 2, 0.01), (33, 40_000, 2, 80, 1, 0.003), (16, 512, 1, 8, 2, 0.0),
+    # Dense rows: every cell qualifies, so the walk stops after its first
+    # round; cap == part width, dense and sparse; nc % 4 != 0 (the
+    # cell-by-cell loads); parts narrower than one 256-thread round (a
+    # block packs 2, 4 or 8 of them: widths 100, 512, 1000, 2000).
+    (16, 4096, 1, 48, 2, 1.0), (3, 40_000, 2, 20_000, 2, 1.0), (8, 2048, 2, 1024, 2, 0.5),
+    (12, 4098, 2, 80, 2, 0.01), (5, 4098, 2, 2049, 1, 1.0), (24, 800, 8, 12, 1, 0.05),
+    (40, 4096, 8, 16, 2, 0.02), (30, 3000, 3, 40, 2, 0.03), (20, 6000, 3, 2000, 2, 0.3),
+    # Tasks enough for more than one wave of blocks: fewer warps a task,
+    # several rounds each (the seeded K = 64 fields' shape, and 3000 rows).
+    (1024, 8192, 4, 48, 2, 0.01), (3000, 4096, 1, 48, 1, 0.004),
 ])
 def test_compactor_matches_plain(device, m, nc, parts, cap, nf, density):
-    """Part widths on both sides of 8192 (tpu_knn's two Pallas bodies)."""
+    """Part widths on both sides of 8192 (tpu_knn's two Pallas bodies) and
+    on both sides of one round of the kernel's groups, twice each."""
     fields = _fields(device, m, nc, nf, density, seed=m + nc + cap)
-    before = seeded.compact_cells.launches
-    got = seeded.compact_cells(fields, parts, cap)
-    torch.cuda.synchronize()
-    assert seeded.compact_cells.launches == before + 1
     want = seeded.compact_cells_plain(fields, parts, cap)
-    assert len(got) == nf + 1
-    for g, w in zip(got, want):
+    for _ in range(2):
+        before = seeded.compact_cells.launches
+        got = seeded.compact_cells(fields, parts, cap)
+        torch.cuda.synchronize()
+        assert seeded.compact_cells.launches == before + 1
+        assert len(got) == nf + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nc,parts", [(4096, 1), (8192, 4), (3000, 3)])
+def test_compactor_reads_a_misaligned_field_cell_by_cell(device, nc, parts):
+    """Fields whose base is not 16-byte aligned take the kernel's
+    cell-by-cell loads; the outputs are the plain version's."""
+    m, cap = 9, 40
+    fields = [_misaligned(f, 1) for f in _fields(device, m, nc, 2, 0.02, seed=nc + parts)]
+    assert fields[0].data_ptr() % 16
+    got = seeded.compact_cells(fields, parts, cap)
+    for g, w in zip(got, seeded.compact_cells_plain(fields, parts, cap)):
         assert torch.equal(g, w)
 
 
@@ -503,21 +527,47 @@ def test_constant_query_launches_on_two_streams_do_not_overwrite_each_other(devi
 
 @pytest.mark.parametrize("k,m,n,parts", [
     (3, 8, 1000, 1), (16, 1, 70_001, None), (16, 1000, 1 << 16, None), (5, 33, 3000, 3),
-    (100, 9, 5000, 4), (3, 1, (1 << 16) + 77, None),
-    (196, 2, 3000, 2),    # one query row beside the ring (dma_geometry)
+    (100, 9, 5000, 4), (3, 1, (1 << 16) + 77, None), (196, 2, 3000, 2),
+    # The TMA ring's edges: k = 1, k ragged against the 16-row chunk, wide
+    # k (768, 7000: past the lane-per-thread kernel's old guard), m past a
+    # block's rows at each TM (8 * TM = 8, 32, 64), n ragged against 128
+    # and 256 (a column tile's quarter).
+    (1, 65, 3149, None), (17, 9, 1000, None), (768, 100, 5077, None), (7000, 3, 300, 2),
+    (16, 1000, (1 << 16) + 77, None), (5, 33, 4099, 3), (40, 70, 20_000 + 77, None),
+    (16, 129, (1 << 16) + 128, None),
 ])
 def test_b10_indices_equal_b1s(device, k, m, n, parts):
+    """B10 is B1's tiled kernel under the TMA policy: at the same P its
+    indices are B1's, in two launches (a wrong barrier phase shows as rare
+    wrong candidates, not as a fault)."""
     q, r, r_op = _inputs(device, m, k, n, seed=k * m + 5)
-    parts = parts or dma_pipeline.default_parts(m, k, n)
-    before = dma_pipeline.dma_candidates.launches
-    got = dma_pipeline.dma_candidates(q, r_op, n, parts)
-    torch.cuda.synchronize()
-    assert dma_pipeline.dma_candidates.launches == before + 1
-    assert got.shape == (m, parts * 128)
-    assert torch.equal(got, fused.fused_candidates(q, r_op, n, parts)[0])
+    parts = parts or fused.tiled_parts(m, k, n)
+    want = fused.fused_candidates(q, r_op, n, parts)[0]
+    for _ in range(2):
+        before = dma_pipeline.dma_candidates.launches
+        got = dma_pipeline.dma_candidates(q, r_op, n, parts)
+        torch.cuda.synchronize()
+        assert dma_pipeline.dma_candidates.launches == before + 1
+        assert got.shape == (m, parts * 128)
+        assert torch.equal(got, want)
     plain = dma_pipeline.dma_candidates_plain(q, r_op, n, parts)
     assert (got == plain).float().mean().item() >= 0.9999
     assert int(_refine(q, r, got, n)[0][0]) == n // 2
+
+
+def test_b10_raises_on_an_operand_its_tensor_map_cannot_take(device):
+    """The operand's tensor map needs a row stride that is a multiple of 128
+    floats and a 16-byte aligned base; the wrapper raises, nothing falls
+    back."""
+    q, r, r_op = _inputs(device, 8, 5, 1000, seed=3)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dma_pipeline.dma_candidates(q, prep_soa(r, 1000), 1000, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dma_pipeline.dma_candidates(q, _misaligned(r_op, 1), 1000, 2)
+    launches = dma_pipeline.dma_candidates.launches
+    assert torch.equal(dma_pipeline.dma_candidates(q, r_op, 1000, 2),
+                       fused.fused_candidates(q, r_op, 1000, 2)[0])
+    assert dma_pipeline.dma_candidates.launches == launches + 1
 
 
 @pytest.mark.parametrize("k,m,n,window", [

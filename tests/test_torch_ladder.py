@@ -19,7 +19,7 @@ from tpu_knn.kernels.tuning import pick_tiles
 from tpu_knn.oracle import oracle_knn
 from tpu_knn_torch.engine.registry import get_version
 from tpu_knn_torch.kernels import dma_pipeline, fused, twophase
-from tpu_knn_torch.kernels.tuning import resident_geometry
+from tpu_knn_torch.kernels.tuning import TILED_TILE_GROUPS, resident_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
@@ -51,17 +51,14 @@ def test_ta_shapes_match_golden(ta_datasets, version):
 def _planted(m, n, k, seed):
     """Exact duplicates of query i's point at two adjacent columns astride
     a lane boundary (127 | 128), tpu_knn's n tile boundary for v3/v4/v6
-    and v5, and the port's partition boundaries (B1's and v3's, v6's, and
-    B10's where v5 runs), so ties decide every planted row; points 0.5
+    and for v5, and the port's partition boundaries (B1's, which v3 and
+    B10 take, and v6's), so ties decide every planted row; points 0.5
     away from the queries otherwise."""
     rng = np.random.default_rng(seed)
     q = rng.random((m, k), np.float32)
     r = rng.random((n, k), np.float32) + 0.5
-    b10 = dma_pipeline._v5_guard(k, m, n)   # B10's ring takes k <= 199
-    cols = [127, pick_tiles(k, m, n)[1] - 1]
-    cols += [dma_pipeline._dma_tiles(k, m, n)[1] - 1] if b10 else []
-    for parts in (fused.tiled_parts(m, k, n), resident_geometry(m, k, n).parts,
-                  *([dma_pipeline.default_parts(m, k, n)] if b10 else [])):
+    cols = [127, pick_tiles(k, m, n)[1] - 1, dma_pipeline._dma_tiles(k, m, n)[1] - 1]
+    for parts in (fused.tiled_parts(m, k, n), resident_geometry(m, k, n).parts):
         gpp = -(-(-(-n // 128)) // parts)
         cols += [p * gpp * 128 - 1 for p in range(1, min(parts, 4))]
     cols = sorted({c for c in cols if 0 < c < n - 1})[:m]
@@ -106,12 +103,15 @@ def test_b1_variants_match_tpu_knn(version, m, n, k):
 @pytest.mark.parametrize("version", LADDER)
 def test_winner_at_chunk_and_slice_edges(version):
     """A unique planted winner at the first and last column, at v2's chunk
-    boundary and at B10's slice edges, with n ragged against every tile."""
+    boundary and at the tiled kernel's column-tile and partition edges (B1's
+    geometry, which v3 and B10 take), with n ragged against every tile."""
     rng = np.random.default_rng(11)
     n, k = 70_001, 5
     search = np.full((1, k), 0.5, np.float32)
-    slice_cols = dma_pipeline.dma_geometry(1, k)[1] * 128
-    for pos in (0, slice_cols - 1, slice_cols, 65535, 65536, n - 1):
+    tile_cols = TILED_TILE_GROUPS * 128
+    part_cols = -(-(-(-n // 128)) // fused.tiled_parts(1, k, n)) * 128
+    assert tile_cols < part_cols < 65535
+    for pos in (0, tile_cols - 1, tile_cols, part_cols - 1, part_cols, 65535, 65536, n - 1):
         ref = rng.random((n, k), np.float32)
         ref[pos] = 0.5
         got = get_version(version)(k, 1, n, *as_f32_pair(search, ref, "cpu"))
@@ -134,17 +134,38 @@ def test_v1_delegates_to_v2_past_its_budget(monkeypatch):
     assert check_results(oracle_knn(q, r), got, q, r)[0] == 0
 
 
-def test_v5_delegates_wide_k_to_v4():
-    """The port's v5 guard is B10's shared-memory ring; at tpu_knn's own
-    delegation case (k = 2048) it is false too, and v5 answers as v4."""
-    assert not dma_pipeline._v5_guard(2048, 8, 4096)
-    assert dma_pipeline._v5_guard(16, 1024, 1 << 20)
+def test_v5_delegates_wide_k_to_v4(monkeypatch):
+    """At tpu_knn's own delegation case (k = 2048, where its v5 guard sends
+    the call to v4) the port's v5 has no guard to fail: B10's ring does not
+    grow with k, so v5 answers through B10 itself, with tpu_knn's v5 (that
+    is, v4) answer."""
+    from tpu_knn.kernels import dma_pipeline as jx_dma
+
     rng = np.random.default_rng(55)
     k, m, n = 2048, 4, 4096
-    assert not dma_pipeline._v5_guard(k, m, n)
+    assert not jx_dma._v5_guard(k, m, n)
+    assert get_version("v5").guard is None and get_version("v5").fallback == "v4"
+    calls = []
+    orig = dma_pipeline.dma_candidates
+    monkeypatch.setattr(dma_pipeline, "dma_candidates",
+                        lambda *a: calls.append(a[-1]) or orig(*a))
     q, r = rng.random((m, k), np.float32), rng.random((n, k), np.float32)
-    got = get_version("v5")(k, m, n, *as_f32_pair(q, r, "cpu"))
+    got = tpu_knn_torch.knn_callback(k, m, n, q, r, version="v5", device="cpu")
+    assert calls == [fused.tiled_parts(m, k, n)]
     np.testing.assert_array_equal(got, tpu_knn.knn_callback(k, m, n, q, r, version="v5"))
+    np.testing.assert_array_equal(got, oracle_knn(q, r))
+
+
+@pytest.mark.parametrize("m,n,k", [(6, 3000, 250), (4, 4096, 2048)])
+def test_b10_matches_tpu_knn_past_the_old_guard(m, n, k):
+    """v5 at k = 250 and 2048, past the lane-per-thread B10's guard (k <=
+    199 at m = 1), against tpu_knn's v5 (its own DMA kernel at k = 250, v4
+    at 2048), with duplicates planted astride B1's partition edges:
+    identical indices, equal to the oracle's."""
+    q, r, cols = _planted(m, n, k, seed=n + k)
+    got = tpu_knn_torch.nearest_neighbors(q, r, version="v5", device="cpu")
+    np.testing.assert_array_equal(got[:len(cols)], cols)
+    np.testing.assert_array_equal(got, tpu_knn.nearest_neighbors(q, r, version="v5"))
     np.testing.assert_array_equal(got, oracle_knn(q, r))
 
 

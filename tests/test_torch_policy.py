@@ -287,10 +287,11 @@ def _csrc_constants():
 
 def test_v6_shared_memory_mirror_matches_the_kernel_constants():
     """tuning's mirror of v6's shared memory (its operand-only ring, the
-    resident rows, B1's state) agrees with what csrc's constants imply,
-    and on a grid of (m, k) up to v6's guard (k*m <= 16384) the geometry
-    it picks fits: two blocks and the system's reserve per SM where it
-    claims two, one block's 227 KB always."""
+    resident rows, B1's state) and of B10's static state (B1's and the TMA
+    ring's mbarriers) agrees with what csrc's constants imply, and on a
+    grid of (m, k) up to v6's guard (k*m <= 16384) the geometry it picks
+    fits: two blocks and the system's reserve per SM where it claims two,
+    one block's 227 KB always."""
     c = _csrc_constants()
     assert (pt_tuning.SMEM_PER_SM, pt_tuning.SMEM_PER_BLOCK_RESERVED, pt_tuning.SMEM_PER_BLOCK) == (
         c["kSmemPerSm"], c["kSmemPerBlockReserved"], c["kSmemPerBlock"])
@@ -309,6 +310,16 @@ def test_v6_shared_memory_mirror_matches_the_kernel_constants():
         state = -(-4 * (cols + 2 * bm * c["kSliceLanes"] + 2) // 16) * 16
         assert state == {1: 3088, 4: 9232, 8: 17424}[tm]
         assert pt_tuning.candidates_state_bytes(tm) == state
+        # TmaState<TM>: B1's state (a multiple of 8 bytes), then one 8-byte
+        # mbarrier a ring stage; two blocks of it and its full ring (the
+        # operand and the queries) with its alignment slack fit an SM.
+        tma_state = -(-(4 * (cols + 2 * bm * c["kSliceLanes"] + 2)
+                        + 8 * c["kTiledStages"]) // 16) * 16
+        assert tma_state == {1: 3104, 4: 9248, 8: 17440}[tm]
+        assert pt_tuning.candidates_state_bytes(tm, tma=True) == tma_state
+        tma_ring = 4 * c["kTiledStages"] * c["kChunk"] * (cols + bm) + c["kTmaAlign"]
+        assert c["kTiledBlocksPerSm"] * (tma_ring + tma_state + c["kSmemPerBlockReserved"]) <= (
+            c["kSmemPerSm"])
     one_only = set()
     ms = sorted({*range(1, 70), 100, 128, 200, 256, 500, 1000, 1024, 4096, 16384})
     for m in ms:
@@ -631,25 +642,26 @@ SHAPES_TA_BIG = [
 def test_hopper_guards_on_the_reference_shapes():
     """The v3, v5 and v6 guards are the Hopper kernels' own limits
     (ROADMAP C): every TA and BIG shape runs its version (tpu_knn's v3 sent
-    ds8/ds9 to v4 for the TPU's tiled HBM pages); v3 has no guard at all
-    (its tiled kernel takes every k, where the lane-per-thread kernel
-    before it stopped at k = 393); v5 still delegates tpu_knn's wide-k
-    case; v6 keeps the reference's own guard, k*m <= 16384, so it takes
-    ds11 and delegates a query set past it, which tpu_knn's 4 MB VMEM
-    block admitted."""
+    ds8/ds9 to v4 for the TPU's tiled HBM pages); v3 and v5 have no guard
+    at all (their tiled kernel takes every k, where the lane-per-thread
+    kernels before it stopped at k = 393 and k = 199), so the port's v5
+    answers tpu_knn's wide-k case itself, which tpu_knn's 2 x (k, tile_n)
+    VMEM scratch sent to v4; v6 keeps the reference's own guard, k*m <=
+    16384, so it takes ds11 and delegates a query set past it, which
+    tpu_knn's 4 MB VMEM block admitted."""
     from tpu_knn.harness.generator import BIG_SHAPES, TA_SHAPES
     from tpu_knn.kernels import dma_pipeline as jx_dma
-    from tpu_knn_torch.kernels import dma_pipeline as pt_dma
 
     assert SHAPES_TA_BIG == list(TA_SHAPES) + list(BIG_SHAPES)
     assert pt_registry.get_version("v3").guard is None
-    guards = {v: pt_registry.get_version(v).guard for v in ("v5", "v6")}
+    assert pt_registry.get_version("v5").guard is None
+    guards = {v: pt_registry.get_version(v).guard for v in ("v6",)}
     jx_guards = {v: jx_registry.get_version(v).guard for v in ("v3", "v5", "v6")}
     for k, m, n in SHAPES_TA_BIG:
         assert all(g(k, m, n) for g in guards.values()), (k, m, n)
         assert jx_guards["v5"](k, m, n) and jx_guards["v6"](k, m, n)
         assert jx_guards["v3"](k, m, n) == (n < (1 << 24))
-    assert not pt_dma._v5_guard(2048, 8, 4096) and not jx_dma._v5_guard(2048, 8, 4096)
+    assert not jx_dma._v5_guard(2048, 8, 4096)
     assert jx_guards["v3"](2048, 8, 4096)
     assert not guards["v6"](16, 1025, 1 << 20) and jx_guards["v6"](16, 1025, 1 << 20)
     assert not guards["v6"](16, 2048, 4096) and jx_guards["v6"](16, 2048, 4096)
@@ -657,26 +669,40 @@ def test_hopper_guards_on_the_reference_shapes():
     assert guards["v6"](7000, 2, 4096) and guards["v6"](16384, 1, 4096)
 
 
-def test_hopper_launch_geometry_fits():
-    """B10's ring and query tile fit a block's shared memory wherever its
-    guard admits; B1's AoS variant (v3) takes B1's geometry at every k
-    (its shared memory does not depend on k) and v6's blocks fit one SM
-    wherever its guard admits; B11's splits never exceed the window's
-    groups."""
+def test_hopper_launch_geometry_fits(monkeypatch):
+    """B10 (v5) and B1's AoS variant (v3) take B1's geometry at every k
+    (their shared memory does not depend on k: B10's TMA ring and its
+    barriers fit two blocks per SM at every TM), so v5 has no guard; v6's
+    blocks fit one SM wherever its guard admits; B11's splits never
+    exceed the window's groups."""
     from tpu_knn_torch.kernels import dma_pipeline as pt_dma
     from tpu_knn_torch.kernels import projection as pt_proj
 
+    assert pt_registry.get_version("v5").guard is None
+    for tm in pt_tuning.TILED_ROWS:
+        ring = 4 * pt_tuning.TILED_STAGES * pt_tuning.TILED_CHUNK * (
+            pt_tuning.TILED_TILE_GROUPS * pt_tuning.TILED_SLICE_LANES
+            + pt_tuning.TILED_WARPS * tm)
+        block = ring + 128 + pt_tuning.candidates_state_bytes(tm, tma=True)   # kTmaAlign
+        assert pt_tuning.TILED_BLOCKS_PER_SM * (
+            block + pt_tuning.SMEM_PER_BLOCK_RESERVED) <= pt_tuning.SMEM_PER_SM
     for k in KS:
         for m in MS[1:]:
-            if pt_dma._v5_guard(k, m, 4096):
-                tm, groups = pt_dma.dma_geometry(m, k)
-                assert pt_dma.dma_smem_bytes(tm, k, groups) <= pt_tuning.MAX_QUERY_SMEM
-                assert 1 <= groups <= pt_dma.DMA_MAX_SLICE_GROUPS
             assert pt_fused.tiled_parts(m, k, 4096) == pt_tuning.tiled_geometry(m, k, 4096).parts
             if pt_fused._v6_guard(k, m, 4096):
                 tm = pt_tuning.resident_geometry(m, k, 4096).tm
                 assert pt_tuning.resident_blocks_per_sm(m, k, tm) >= 1
-    assert pt_dma._v5_guard(199, 1, 4096) and not pt_dma._v5_guard(200, 1, 4096)
+    calls = []
+    orig = pt_dma.dma_candidates
+    monkeypatch.setattr(pt_dma, "dma_candidates", lambda q, r_op, n, parts: calls.append(
+        (r_op.stride(0), parts)) or orig(q, r_op, n, parts))
+    rng = np.random.default_rng(9)
+    for m, k, n in ((8, 3, 5000), (40, 40, 9001), (1, 250, 3000), (3, 2048, 700)):
+        q, r = rng.random((m, k), np.float32), rng.random((n, k), np.float32)
+        calls.clear()
+        pt_dma.dma_knn(q, r, device="cpu")
+        assert calls == [(calls[0][0], pt_tuning.tiled_geometry(m, k, n).parts)], (m, k, n)
+        assert calls[0][0] % 128 == 0      # the stride B10's tensor map takes
     for n in NS[3:]:
         for window in (4096, 5000, 1 << 18):
             w_tiles = pt_proj.window_tiles(n, window)

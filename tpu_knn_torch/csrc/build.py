@@ -129,7 +129,7 @@ def load() -> ctypes.CDLL:
     lib.tk_aos_candidates.restype = i32
     lib.tk_const_query_candidates.argtypes = lib.tk_fused_candidates.argtypes
     lib.tk_const_query_candidates.restype = i32
-    lib.tk_dma_candidates.argtypes = [ptr] * 3 + [i32, i32, i64] + [i32] * 4 + [ptr]
+    lib.tk_dma_candidates.argtypes = [ptr] * 3 + [i32, i32, i32, i64] + [i32] * 3 + [ptr]
     lib.tk_dma_candidates.restype = i32
     lib.tk_window_candidates.argtypes = [ptr] * 4 + [i32, i32, i64, i32, i32, ptr]
     lib.tk_window_candidates.restype = i32

@@ -1,8 +1,6 @@
 // B1 and B4 (the tiled f32 candidate kernel, plain and banded), B1's two
-// ladder variants (AoS, v3; resident queries, v6), all four instances of
-// the tiled template (tiled.cuh), and B10 (staged slices, v5), which keeps
-// the lane-per-thread design (one thread per lane, column_scores over a
-// TM-row query tile).
+// ladder variants (AoS, v3; resident queries, v6) and B10 (v5, TMA-staged):
+// all five instances of the tiled template (tiled.cuh).
 
 #include "knn_common.cuh"
 #include "tiled.cuh"
@@ -52,6 +50,18 @@ namespace {
 //   each block's query rows stay in shared memory for the whole sweep, and
 //   the ring carries only the operand. tuning.resident_geometry picks TM so
 //   that two blocks still fit an SM where they can.
+//
+// B10 — replaces tpu_knn/kernels/dma_pipeline.py:44 _dma_kernel (built by
+// _build_dma; the reference v5's explicit choice of memory space for the
+// streamed operand, core.cu:424-529): B1's fold over an operand staged by
+// hand-issued copies, emitting indices only. Where tpu_knn issued its
+// HBM->VMEM copies itself (pltpu.make_async_copy and semaphores), B10 is
+// B1's kernel under the template's TMA policy (tma_candidates_kernel): one
+// thread asks the Tensor Memory Accelerator for each stage's operand and
+// query boxes, and completion lands on the stage's mbarrier. B1's geometry
+// (tuning.tiled_geometry) and fold, so at the same P its indices are B1's
+// bit for bit; no f32 scores are written. Any k fits. Bound: as B1 (at
+// m = 1 the read of the operand).
 // ---------------------------------------------------------------------------
 
 // The block's static shared state: |r|^2 of the tile's columns, the fold's
@@ -129,16 +139,22 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[TM][kTileGroups], c
   fold_rows<TM, BANDED, false>(acc, nj, live, col0, b_s, b_i, best_s, best_i);
 }
 
-template <int TM, bool BANDED, bool AOS, bool QRES>
-__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
-tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ r,
-                        const float* __restrict__ bound_s, const int32_t* __restrict__ bound_i,
-                        int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
-                        int k, long long ld, int n, int groups_per_part, bool vec16,
-                        int row_base) {
+// B10's static state: B1's, and the TMA ring's barriers, one a stage.
+template <int TM>
+struct TmaState : TiledState<TM, false> {
+  uint64_t full[kTiledStages];
+};
+
+// One block's candidates: rows row_base + blockIdx.y * 8*TM .., lane
+// quarter blockIdx.x % 4 of partition blockIdx.x / 4, under the template's
+// policy (AOS, QRES or TMA; TMA emits the indices only).
+template <int TM, bool BANDED, bool AOS, bool QRES, bool TMA>
+__device__ __forceinline__ void candidates_block(
+    const float* __restrict__ qT, const float* __restrict__ r, const float* __restrict__ bound_s,
+    const int32_t* __restrict__ bound_i, int32_t* __restrict__ out_i, float* __restrict__ out_s,
+    int m, int ldq, int k, long long ld, int n, int groups_per_part, bool vec16, int row_base,
+    TiledState<TM, BANDED>& state, float* ring, const TmaRing& tma) {
   constexpr int BM = kTiledWarps * TM;
-  extern __shared__ float4 smem4[];
-  __shared__ TiledState<TM, BANDED> state;
   const int part = blockIdx.x / kSlices;
   const int quarter = blockIdx.x - part * kSlices;
   const int row0 = row_base + blockIdx.y * BM;
@@ -158,15 +174,14 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
     best_i[i * kSliceLanes] = kI32Max;
   }
 
-  tiled_sweep<TM, AOS, QRES>(qT, ldq, r, m, k, ld, n, vec16,
-                             lane_slice_columns(n, groups_per_part, part, quarter), row0,
-                             reinterpret_cast<float*>(smem4), state.norm_s,
-                             [&](const float (&acc)[TM][kTileGroups], long long col0,
-                                 int live_groups) {
-                               fold_tile<TM, BANDED>(acc, state.norm_s + lane, col0 + lane,
-                                                     live_groups, n, state.b_s + warp * TM,
-                                                     state.b_i + warp * TM, best_s, best_i);
-                             });
+  tiled_sweep<TM, AOS, QRES, TMA>(
+      qT, ldq, r, m, k, ld, n, vec16, lane_slice_columns(n, groups_per_part, part, quarter),
+      row0, ring, state.norm_s,
+      [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
+        fold_tile<TM, BANDED>(acc, state.norm_s + lane, col0 + lane, live_groups, n,
+                              state.b_s + warp * TM, state.b_i + warp * TM, best_s, best_i);
+      },
+      tma);
 
   const long long width = static_cast<long long>(gridDim.x / kSlices) * kLanes;
   const long long quarter_col = static_cast<long long>(quarter) * kSliceLanes;
@@ -176,116 +191,40 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
     if (row < m) {
       const long long o = row * width + static_cast<long long>(part) * kLanes + quarter_col + lane;
       out_i[o] = best_i[i * kSliceLanes];
-      out_s[o] = best_s[i * kSliceLanes];
+      if constexpr (!TMA) out_s[o] = best_s[i * kSliceLanes];
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// B10 — replaces tpu_knn/kernels/dma_pipeline.py:_dma_kernel (built by
-// _build_dma; the reference v5's explicit choice of memory space for the
-// streamed operand, core.cu:424-529): B1's score and fold over explicitly
-// staged slices of the SoA operand, emitting indices only.
-//
-// Each block walks its partition in slices of `slice` = slice_groups * 128
-// columns. The k rows of a slice are copied into a ring of kDmaStages
-// shared-memory stages with 16-byte cp.async copies (commit_group /
-// wait_group); the copy of slice s + 1 is issued before slice s is scored,
-// so the transfer overlaps the arithmetic. Scores come from shared memory
-// through the shared column_scores (bit-identical to B1's); lane t folds
-// columns t, t + 128, ... of each slice with a strict `<`, columns >= n or
-// past the partition masked (never zero-filled into the fold: a zero column
-// would score 0 and win). At the same partition count the indices equal
-// B1's. Bound on the H100: arithmetic, as B1 (ds11: 2^34 FMA, 0.51 ms); at
-// m = 1 the 1 GiB read of ds9 (0.32 ms).
-// ---------------------------------------------------------------------------
-constexpr int kDmaStages = 2;
-
-// Issue the copies of the k rows of the slice starting at column c0 into
-// `dst` ([d][slice]); 16-byte chunks at or past `end` are zero-filled
-// without a read (their columns are masked in the fold).
-__device__ __forceinline__ void stage_slice(float* dst, const float* __restrict__ r, long long ld,
-                                            int k, long long c0, long long end, int slice) {
-  const int chunks = slice / 4;
-  for (int e = threadIdx.x; e < k * chunks; e += kLanes) {
-    const int d = e / chunks;
-    const int c = (e - d * chunks) * 4;
-    const bool live = c0 + c < end;
-    cp_async16(dst + d * slice + c, live ? r + d * ld + c0 + c : r, live ? 16 : 0);
-  }
-}
-
-template <int TM>
-__global__ void __launch_bounds__(kLanes)
-dma_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                      int32_t* __restrict__ out_i, int m, int k, long long ld, int n,
-                      int groups_per_part, int slice_groups, int row_base) {
+template <int TM, bool BANDED, bool AOS, bool QRES>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                        const float* __restrict__ bound_s, const int32_t* __restrict__ bound_i,
+                        int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
+                        int k, long long ld, int n, int groups_per_part, bool vec16,
+                        int row_base) {
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  const int slice = slice_groups * kLanes;
-  float* ring = qT + ((TM * k + 3) / 4) * 4;  // [stage][d][slice], 16-byte aligned
-  const int part = blockIdx.x;
-  const int row0 = row_base + blockIdx.y * TM;
-  const int lane = threadIdx.x;
-  const long long p_begin = static_cast<long long>(part) * groups_per_part * kLanes;
-  const long long p_end =
-      min(static_cast<long long>(n), p_begin + static_cast<long long>(groups_per_part) * kLanes);
-  const int n_slices = p_begin < p_end ? static_cast<int>((p_end - p_begin + slice - 1) / slice) : 0;
+  __shared__ TiledState<TM, BANDED> state;
+  candidates_block<TM, BANDED, AOS, QRES, false>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq,
+                                                 k, ld, n, groups_per_part, vec16, row_base,
+                                                 state, reinterpret_cast<float*>(smem4),
+                                                 TmaRing{});
+}
 
-  // The first slice's copy is in flight while the query tile loads.
-#pragma unroll
-  for (int s = 0; s < kDmaStages - 1; ++s) {
-    if (s < n_slices) {
-      stage_slice(ring + s * k * slice, r, ld, k, p_begin + static_cast<long long>(s) * slice,
-                  p_end, slice);
-    }
-    cp_async_commit();
-  }
-  load_query_tile<TM>(q, qT, m, k, row0);
-
-  float best_s[TM];
-  int best_i[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    best_s[i] = pos_inf();
-    best_i[i] = kI32Max;
-  }
-
-  for (int s = 0; s < n_slices; ++s) {
-    const int ahead = s + kDmaStages - 1;
-    if (ahead < n_slices) {
-      stage_slice(ring + (ahead % kDmaStages) * k * slice, r, ld, k,
-                  p_begin + static_cast<long long>(ahead) * slice, p_end, slice);
-    }
-    cp_async_commit();
-    cp_async_wait<kDmaStages - 1>();  // slice s has landed (this thread's copies)
-    __syncthreads();                  // ... and every thread's
-    const float* st = ring + (s % kDmaStages) * k * slice;
-    const long long c0 = p_begin + static_cast<long long>(s) * slice;
-    for (int j = 0; j < slice_groups; ++j) {
-      const long long col = c0 + j * kLanes + lane;
-      if (col >= p_end) break;
-      float sc[TM];
-      column_scores<TM>(qT, SharedColumn{st + j * kLanes + lane, slice}, k, sc);
-      const int c = static_cast<int>(col);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        if (sc[i] < best_s[i]) {
-          best_s[i] = sc[i];
-          best_i[i] = c;
-        }
-      }
-    }
-    __syncthreads();  // the stage is refilled two slices on
-  }
-  cp_async_wait<0>();
-
-  const long long width = static_cast<long long>(gridDim.x) * kLanes;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + i;
-    if (row < m) out_i[row * width + static_cast<long long>(part) * kLanes + lane] = best_i[i];
-  }
+// B10: B1 under the TMA policy, indices only (out_i (m, P*128)).
+template <int TM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tma_candidates_kernel(const __grid_constant__ CUtensorMap r_map,
+                      const __grid_constant__ CUtensorMap q_map, int32_t* __restrict__ out_i,
+                      int m, int k, int n, int groups_per_part, int row_base) {
+  static_assert(kTiledBlocksPerSm * (TiledRing<TM>::kBytes + kTmaAlign + sizeof(TmaState<TM>) +
+                                     kSmemPerBlockReserved) <= kSmemPerSm,
+                "B10's blocks per SM do not fit its shared memory");
+  extern __shared__ float4 smem4[];
+  __shared__ TmaState<TM> state;
+  candidates_block<TM, false, false, false, true>(
+      nullptr, nullptr, nullptr, nullptr, out_i, nullptr, m, 0, k, 0, n, groups_per_part, false,
+      row_base, state, tma_ring(smem4), TmaRing{&r_map, &q_map, state.full});
 }
 
 // ---------------------------------------------------------------------------
@@ -307,24 +246,6 @@ int launch_tiled(const float* qT, const float* r, const float* bound_s, const in
         QRES ? resident_bytes<TM>(m, k) : 0, stream, qT, r, bound_s, bound_i, out_i, out_s, m,
         ldq, k, ld, n, gpp, vec16);
   });
-}
-
-template <int TM>
-int launch_dma(const float* q, const float* r, int32_t* out_i, int m, int k, long long ld, int n,
-               int parts, int groups_per_part, int slice_groups, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>((TM * k + 3) / 4) * 4 +
-                       static_cast<size_t>(kDmaStages) * k * slice_groups * kLanes) *
-                      sizeof(float);
-  if (const int e = allow_smem(dma_candidates_kernel<TM>, smem)) return e;
-  const int tiles = (m + TM - 1) / TM;
-  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
-    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    dma_candidates_kernel<TM><<<dim3(parts, ty), kLanes, smem, stream>>>(
-        q, r, out_i, m, k, ld, n, groups_per_part, slice_groups, t0 * TM);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  return 0;
 }
 
 }  // namespace
@@ -378,23 +299,23 @@ int tk_const_query_candidates(const float* qT, const float* r, int32_t* out_i, f
                                           n, parts, tm, static_cast<cudaStream_t>(stream));
 }
 
-// B10 (v5): B1's geometry plus slice_groups 128-column groups per staged
-// slice; r 16-byte aligned with ld % 4 == 0; out_i (m, parts*128).
-int tk_dma_candidates(const float* q, const float* r, int32_t* out_i, int m, int k,
-                      long long ld, int n, int parts, int tile_m, int slice_groups,
-                      void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || slice_groups < 1 || ld % 4 != 0 ||
+// B10 (v5): B1's launch (qT, tm and parts as for B1) under the TMA policy;
+// r 16-byte aligned with ld % 128 == 0; out_i (m, parts*128), no scores.
+int tk_dma_candidates(const float* qT, const float* r, int32_t* out_i, int m, int ldq, int k,
+                      long long ld, int n, int parts, int tm, void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m) || ld % kLanes != 0 ||
       reinterpret_cast<uintptr_t>(r) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int gpp = groups_per_part(n, parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_m) {
-    case 32: return launch_dma<32>(q, r, out_i, m, k, ld, n, parts, gpp, slice_groups, s);
-    case 8: return launch_dma<8>(q, r, out_i, m, k, ld, n, parts, gpp, slice_groups, s);
-    case 1: return launch_dma<1>(q, r, out_i, m, k, ld, n, parts, gpp, slice_groups, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_tiled_rows(tm, [&](auto rows) {
+    constexpr int TM = decltype(rows)::value;
+    CUtensorMap r_map, q_map;
+    if (const int e = encode_tma_maps<TM>(&r_map, &q_map, r, k, ld, qT, ldq)) return e;
+    return launch_tiled_grid<TM, TmaState<TM>>(tma_candidates_kernel<TM>, parts * kSlices, m,
+                                               kTmaAlign, static_cast<cudaStream_t>(stream),
+                                               r_map, q_map, out_i, m, k, n, gpp);
+  });
 }
 
 const char* tk_error_string(int err) {

@@ -76,34 +76,20 @@ __device__ __forceinline__ void load_query_tile(const float* __restrict__ q, flo
   __syncthreads();
 }
 
-// Where column_scores reads a reference column: the SoA operand in device
-// memory (through the read-only cache), or a slice of it staged in shared
-// memory (B10). The arithmetic does not depend on the reader.
-struct GlobalColumn {
-  const float* p;
-  long long ld;
-  __device__ __forceinline__ float operator()(int d) const { return __ldg(p + d * ld); }
-};
-
-struct SharedColumn {
-  const float* p;
-  int ld;
-  __device__ __forceinline__ float operator()(int d) const { return p[d * ld]; }
-};
-
-// One reference column against the TM rows: one 16-byte broadcast load of
+// One reference column of the SoA operand (rc, rows ld apart, read through
+// the read-only cache) against the TM rows: one 16-byte broadcast load of
 // qT (in shared memory) feeds four FMAs, and each loaded reference value
 // feeds TM FMAs.
-template <int TM, typename Column>
-__device__ __forceinline__ void column_scores(const float* qT, const Column& rc, int k,
-                                              float (&s)[TM]) {
+template <int TM>
+__device__ __forceinline__ void column_scores(const float* qT, const float* __restrict__ rc,
+                                              long long ld, int k, float (&s)[TM]) {
   float acc[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) acc[i] = 0.f;
   float norm = 0.f;
 #pragma unroll 4
   for (int d = 0; d < k; ++d) {
-    const float rv = rc(d);
+    const float rv = __ldg(rc + d * ld);
     norm = fmaf(rv, rv, norm);
     const float* qd = qT + d * TM;
     if constexpr (TM % 4 == 0) {
@@ -122,12 +108,6 @@ __device__ __forceinline__ void column_scores(const float* qT, const Column& rc,
   }
 #pragma unroll
   for (int i = 0; i < TM; ++i) s[i] = norm - 2.f * acc[i];
-}
-
-template <int TM>
-__device__ __forceinline__ void column_scores(const float* qT, const float* __restrict__ rc,
-                                              long long ld, int k, float (&s)[TM]) {
-  column_scores<TM>(qT, GlobalColumn{rc, ld}, k, s);
 }
 
 // The same arithmetic over a register micro-tile: TM query rows by TN
@@ -225,8 +205,8 @@ __device__ __forceinline__ void load_small_queries(const float* __restrict__ q, 
   __syncthreads();
 }
 
-// 16-byte asynchronous copies into shared memory (B10's staging, the
-// tensor-core kernel's ring, the tiled f32 kernel's ring): src_bytes < 16
+// 16-byte asynchronous copies into shared memory (the tensor-core kernel's
+// ring, the tiled f32 kernel's cp.async policies): src_bytes < 16
 // copies that many bytes and zero-fills the rest (0: no read at all).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

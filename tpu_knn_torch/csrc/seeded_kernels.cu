@@ -324,63 +324,133 @@ tiled_moments_kernel(const float* __restrict__ qT, const float* __restrict__ r,
 }
 
 // ---------------------------------------------------------------------------
-// B8 and B9 — replace tpu_knn/kernels/topk.py:_cell_compact_kernel and
-// _cell_butterfly_kernel (both built by _build_cell_compactor, which picks
-// one by part width only because of VMEM): positional compaction of the
-// qualifying cells of each (row, part). Fields are (m, nc) int32, field 0
-// nonzero exactly at qualifiers; each part (nc / parts cells) writes
+// B8 and B9 — replace tpu_knn/kernels/topk.py:817 _cell_compact_kernel and
+// :899 _cell_butterfly_kernel (both built by _build_cell_compactor, which
+// picks one by part width only because of VMEM): positional compaction of
+// the qualifying cells of each (row, part). Fields are (m, nc) int32, field
+// 0 nonzero exactly at qualifiers; each part (nc / parts cells) writes
 // [cell position within the part, f0 (, f1)] of its qualifiers to its
 // first `cap` slots in ascending cell order, drops qualifiers past cap and
 // zero-fills the slots after the last one. Outputs are (m, parts*cap).
 //
 // Bound on the H100: device-memory bytes (field 0 read once, the outputs
-// written once; 16 MB of A at ds11 K=8, about 5 us). Design: one warp per
-// (row, part) walks its cells 128 at a time (four loads in flight per
-// lane); __ballot_sync marks the qualifiers, a __popc prefix over the
-// lanes below plus a running base gives each its slot. The walk stops once
-// cap qualifiers are placed. Independent of cap and of part width, so one
-// kernel serves both TPU bodies and the candidate-column compaction.
+// written once; 16 MB of field 0 at ds11 K=8, about 5 us; 64 MB at
+// (16, 1024, 2^22) K=8, 20 us). The kernel is there only if enough bytes
+// are in flight: about 25 KB an SM (3.35 TB/s x ~1 us of latency over 132
+// SMs). Design: a group of W warps (T = 32 W threads) walks one (row, part)
+// in rounds of 16 T cells, each thread loading 4 int4 of 4 consecutive cells
+// (int4 u of thread t at cells 4 (u T + t) of the round, so each load
+// instruction of a warp reads 512 contiguous bytes); a 256-thread block
+// holds 8 / W groups, each on its own task, so a block keeps 16 KB in
+// flight whatever W is (64 KB an SM). A round's ranks: per-thread counts
+// of the 4 int4 packed as 16-bit fields of one 64-bit word, an inclusive
+// __shfl_up scan in each warp, the warps' totals through shared memory
+// (double-buffered, one group barrier a round), and a running base; a
+// qualifier whose rank is below cap writes its slot (f1 gathered only
+// there). The walk stops once the base reaches cap (group-uniform). W is
+// the fewest warps whose round covers the part, but no more than keeps
+// the grid to one wave of resident blocks (kCompactBlocksPerSm an SM):
+// where tasks are many, a block walks several rounds of each of its tasks
+// instead of the card running waves of one-round blocks, which measured
+// slower (at m = 1024: ds11 K=8, part width 4096, and (16, 1024, 2^22)
+// K=8, 16384, take W = 4, 2 and 8 rounds a row; the K=64 and 128 fields,
+// width 2048, W = 1).
+// int4 loads need the part's first cell and the part width at multiples
+// of 4 cells and a 16-byte base; else the same kernel reads the cells one
+// by one (`vec` false).
 // ---------------------------------------------------------------------------
-constexpr int kCompactWarps = 4;
+constexpr int kCompactThreads = 256;
+constexpr int kCompactWarps = kCompactThreads / 32;
+constexpr int kCompactQuads = 4;        // int4 a thread a round
+constexpr int kCompactBlocksPerSm = 4;  // __launch_bounds__: at most 64 registers
 
-__global__ void __launch_bounds__(kCompactWarps * 32)
+// The 4 cells c .. c + 3 of a part of pw cells at p (zero past pw).
+__device__ __forceinline__ int4 load_cells(const int32_t* __restrict__ p, int c, int pw,
+                                           bool vec) {
+  if (vec) return c < pw ? __ldg(reinterpret_cast<const int4*>(p + c)) : make_int4(0, 0, 0, 0);
+  return make_int4(c < pw ? __ldg(p + c) : 0, c + 1 < pw ? __ldg(p + c + 1) : 0,
+                   c + 2 < pw ? __ldg(p + c + 2) : 0, c + 3 < pw ? __ldg(p + c + 3) : 0);
+}
+
+__device__ __forceinline__ int field16(unsigned long long x, int u) {
+  return static_cast<int>((x >> (16 * u)) & 0xffffu);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kCompactThreads, kCompactBlocksPerSm)
 compact_cells_kernel(const int32_t* __restrict__ f0, const int32_t* __restrict__ f1,
                      int32_t* __restrict__ o_pos, int32_t* __restrict__ o0,
-                     int32_t* __restrict__ o1, int m, int nc, int parts, int cap) {
-  const int wl = threadIdx.x & 31;
-  const long long task = static_cast<long long>(blockIdx.x) * kCompactWarps + (threadIdx.x >> 5);
-  if (task >= static_cast<long long>(m) * parts) return;  // a whole warp at once
+                     int32_t* __restrict__ o1, int m, int nc, int parts, int cap, bool vec) {
+  constexpr int T = 32 * W;
+  constexpr int kRound = kCompactQuads * 4 * T;
+  __shared__ unsigned long long warp_sums[2][kCompactWarps];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int group = warp / W;
+  const int t = threadIdx.x - group * T;  // the thread's place in its group
+  const long long task = static_cast<long long>(blockIdx.x) * (kCompactWarps / W) + group;
+  if (task >= static_cast<long long>(m) * parts) return;  // a whole group at once
   const long long row = task / parts;
   const int part = static_cast<int>(task - row * parts);
   const int pw = nc / parts;
-  const long long in = row * nc + static_cast<long long>(part) * pw;
+  const int32_t* in0 = f0 + row * nc + static_cast<long long>(part) * pw;
+  const int32_t* in1 = f1 == nullptr ? nullptr : f1 + row * nc + static_cast<long long>(part) * pw;
   const long long out = (row * parts + part) * cap;
-  const unsigned below = (1u << wl) - 1u;
   int count = 0;
-  for (int c0 = 0; c0 < pw && count < cap; c0 += 4 * 32) {
-    int32_t v[4];
+  for (int c0 = 0, buf = 0; c0 < pw && count < cap; c0 += kRound, buf ^= 1) {
+    int4 v[kCompactQuads];
+    unsigned long long own = 0;  // qualifiers of int4 u in field u
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = c0 + u * 32 + wl;
-      v[u] = c < pw ? f0[in + c] : 0;
+    for (int u = 0; u < kCompactQuads; ++u) {
+      v[u] = load_cells(in0, c0 + 4 * (u * T + t), pw, vec);
+      own |= static_cast<unsigned long long>((v[u].x != 0) + (v[u].y != 0) + (v[u].z != 0) +
+                                             (v[u].w != 0))
+             << (16 * u);
     }
+    unsigned long long incl = own;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = c0 + u * 32 + wl;
-      const unsigned bal = __ballot_sync(0xffffffffu, v[u] != 0);
-      const int rank = count + __popc(bal & below);
-      if (v[u] != 0 && rank < cap) {
-        o_pos[out + rank] = c;
-        o0[out + rank] = v[u];
-        if (f1 != nullptr) o1[out + rank] = f1[in + c];
+    for (int d = 1; d < 32; d *= 2) {
+      const unsigned long long y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (lane == 31) warp_sums[buf][warp] = incl;
+    if constexpr (W == 1) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(T) : "memory");
+    }
+    unsigned long long below = incl - own, total = 0;  // fields: before the thread, round
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const unsigned long long x = warp_sums[buf][group * W + w];
+      below += group * W + w < warp ? x : 0;
+      total += x;
+    }
+    int rank = count;  // of the thread's first qualifier in int4 u
+#pragma unroll
+    for (int u = 0; u < kCompactQuads; ++u) {
+      int r = rank + field16(below, u);
+      const int c = c0 + 4 * (u * T + t);
+      const int32_t e[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e[i] != 0) {
+          if (r < cap) {
+            o_pos[out + r] = c + i;
+            o0[out + r] = e[i];
+            if (in1 != nullptr) o1[out + r] = __ldg(in1 + c + i);
+          }
+          ++r;
+        }
       }
-      count += __popc(bal);
+      rank += field16(total, u);
     }
+    count = rank;
   }
-  for (int s = min(count, cap) + wl; s < cap; s += 32) {
-    o_pos[out + s] = 0;
-    o0[out + s] = 0;
-    if (o1 != nullptr) o1[out + s] = 0;
+  for (int sl = min(count, cap) + t; sl < cap; sl += T) {
+    o_pos[out + sl] = 0;
+    o0[out + sl] = 0;
+    if (o1 != nullptr) o1[out + sl] = 0;
   }
 }
 
@@ -477,12 +547,33 @@ int tk_compact_cells(const int32_t* f0, const int32_t* f1, int32_t* o_pos, int32
       ((f1 == nullptr) != (o1 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long warps = static_cast<long long>(m) * parts;
-  const long long blocks = (warps + kCompactWarps - 1) / kCompactWarps;
-  compact_cells_kernel<<<static_cast<unsigned>(blocks), kCompactWarps * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(f0, f1, o_pos, o0, o1, m, nc,
-                                                              parts, cap);
-  return static_cast<int>(cudaGetLastError());
+  const int pw = nc / parts;
+  const bool vec = nc % 4 == 0 && pw % 4 == 0 && reinterpret_cast<uintptr_t>(f0) % 16 == 0;
+  const long long tasks = static_cast<long long>(m) * parts;
+  auto launch = [&](auto kernel, int warps) {
+    const long long per_block = kCompactWarps / warps;
+    kernel<<<static_cast<unsigned>((tasks + per_block - 1) / per_block), kCompactThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(f0, f1, o_pos, o0, o1, m, nc, parts, cap, vec);
+    return static_cast<int>(cudaGetLastError());
+  };
+  // W: the fewest warps whose round (512 cells a warp) covers the part, but
+  // no more than keeps the launch to one wave of resident blocks, so that
+  // where tasks are many a block walks several rounds of each of its tasks
+  // instead of the card running waves of one-round blocks.
+  int device = 0, sms = 0;
+  if (const cudaError_t e = cudaGetDevice(&device)) return static_cast<int>(e);
+  if (const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) {
+    return static_cast<int>(e);
+  }
+  const long long resident = static_cast<long long>(kCompactBlocksPerSm) * sms;
+  int w = 1;
+  while (w < kCompactWarps && 512 * w < pw && tasks * 2 * w <= resident * kCompactWarps) w *= 2;
+  switch (w) {
+    case 1: return launch(compact_cells_kernel<1>, 1);
+    case 2: return launch(compact_cells_kernel<2>, 2);
+    case 4: return launch(compact_cells_kernel<4>, 4);
+    default: return launch(compact_cells_kernel<8>, 8);
+  }
 }
 
 }  // extern "C"

@@ -23,7 +23,7 @@
 // B7 into per-cell moments. A warp whose rows all lie past m skips the
 // arithmetic and the epilogue.
 //
-// Two policies change only where the operands come from (TiledRing):
+// Three policies change only where the operands come from (TiledRing):
 // - AOS (v3): the operand is the caller's row-major (n, k) array. Warp j
 //   stages group j's 32 slots, two columns per copy instruction: half-warp
 //   h takes slot 2i + h, its lane the chunk's d, so each instruction reads
@@ -34,6 +34,12 @@
 //   sweep, copied once before it (after the ring, [d][row], rows past k
 //   zero to a whole chunk, resident_ld(m) floats apart), so the ring
 //   carries only the operand.
+// - TMA (B10, v5): the SoA stages and the block's queries arrive by the
+//   Tensor Memory Accelerator in the SoA layout, [d][group][lane] and
+//   [d][row]: thread 0 arms the stage's mbarrier with the two boxes' bytes
+//   and issues one cp.async.bulk.tensor per operand; every thread waits on
+//   the stage's phase parity where the cp.async policies wait on their
+//   groups (TmaRing, stage_tma, encode_tma_maps).
 //
 // Where a slot's column lies is the kernel's choice (TileColumns): B1, B4
 // and B3 give a block a quarter of one partition's 128 lanes and a tile 8 of
@@ -43,6 +49,8 @@
 // cell of 64, 128 or 256 columns is 2, 4 or 8 of one warp's j).
 
 #pragma once
+
+#include <cuda.h>
 
 #include <type_traits>
 
@@ -59,6 +67,10 @@ constexpr int kTileCols = kTileGroups * kSliceLanes;  // staged columns per tile
 constexpr int kChunk = 16;       // d-rows per ring stage
 constexpr int kTiledStages = 3;  // ring depth: two chunks in flight behind the one scored
 constexpr int kTiledBlocksPerSm = 2;  // __launch_bounds__; tuning.TILED_BLOCKS_PER_SM
+// cp.async.bulk.tensor writes to 128-byte aligned shared memory: a TMA
+// kernel takes this many more bytes of dynamic shared memory and starts
+// its ring at the first aligned one (tma_ring).
+constexpr int kTmaAlign = 128;
 static_assert(kTileCols == kTiledThreads, "one thread per column slot keeps |r|^2");
 
 // One ring stage of a tiled kernel with TM rows per warp: a kChunk-row
@@ -205,6 +217,111 @@ __device__ __forceinline__ void stage_resident(float* qres, int ldr,
   }
 }
 
+// ---- the TMA policy --------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, unsigned arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy (the TMA
+// unit's completions) and, after a __syncthreads, to every thread.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Order this thread's (and, after a barrier, the block's) earlier
+// generic-proxy accesses of shared memory before its later async-proxy
+// ones: a stage's last reads before the TMA refills it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbarrier_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed. A
+// phase that never completes (a copy the TMA unit refused) traps after
+// about a second of polling, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbarrier_wait_parity(uint64_t* bar, unsigned parity) {
+  const unsigned b = smem_u32(bar);
+  for (unsigned polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The TMA policy's ring in the kernel's dynamic shared memory `smem`
+// (kTmaAlign bytes more than the ring's): its first 128-byte aligned byte.
+__device__ __forceinline__ float* tma_ring(void* smem) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(smem);
+  return reinterpret_cast<float*>((p + kTmaAlign - 1) & ~static_cast<uintptr_t>(kTmaAlign - 1));
+}
+
+// The TMA policy's operands: the tensor maps of the SoA operand and of the
+// transposed queries (kernel parameters, __grid_constant__), and the
+// ring's barriers, one a stage (the kernel's static shared memory).
+struct TmaRing {
+  const CUtensorMap* r;
+  const CUtensorMap* q;
+  uint64_t* full;
+};
+
+// Issue (one thread) the copies of one step into stage `st`, whose barrier
+// is `bar`: the operand's box (32 lanes, 8 groups, kChunk rows) at the
+// tile's first slot col0 (lane col0 % 128 of group col0 / 128: the slot
+// layout of lane_slice_columns, groups 128 columns apart) lands as
+// [d][group][lane], the queries' box (8*TM rows, kChunk rows of d) as
+// [d][row], both the SoA stage of TiledRing<TM>. Groups past the map's
+// ld / 128 and rows past k or ldq come back zero; groups past the slice
+// or n are masked by the epilogue's liveness, as in the cp.async policy.
+// The barrier expects both boxes' bytes in full: the zero fill counts.
+template <int TM>
+__device__ __forceinline__ void stage_tma(float* st, const TmaRing& tma, uint64_t* bar,
+                                          long long col0, int d0, int row0) {
+  constexpr unsigned kBytes = (kChunk * kTileCols + kChunk * kTiledWarps * TM) * sizeof(float);
+  fence_proxy_async();
+  mbarrier_arrive_expect_tx(bar, kBytes);
+  tma_load_3d(st, tma.r, bar, static_cast<int>(col0 % kLanes), static_cast<int>(col0 / kLanes),
+              d0);
+  tma_load_2d(st + kChunk * kTileCols, tma.q, bar, row0, d0);
+}
+
 // |r|^2 and liveness of the thread's 8 slots of a tile: slot j is column
 // col0 + j * step (col0 the thread's own first column), its norm
 // norms[j * kSliceLanes] (norms at the thread's lane).
@@ -226,13 +343,17 @@ __device__ __forceinline__ void tile_slots(const float* norms, long long col0, i
 // its groups still inside the slice; acc is the epilogue's to overwrite).
 // The caller's state writes before the call are visible to every thread
 // in the epilogue. With QRES the resident queries follow the ring in
-// `ring`'s shared memory and are copied with the first step.
-template <int TM, bool AOS = false, bool QRES = false, typename Epilogue>
+// `ring`'s shared memory and are copied with the first step. With TMA the
+// stages come from tma's maps (qT, r, ld and vec16 are not read), `ring`
+// is tma_ring's and the slots are lane_slice_columns'.
+template <int TM, bool AOS = false, bool QRES = false, bool TMA = false, typename Epilogue>
 __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ldq,
                                             const float* __restrict__ r, int m, int k,
                                             long long ld, int n, bool vec16,
                                             const TileColumns& tc, int row0, float* ring,
-                                            float* norm_s, Epilogue&& epi) {
+                                            float* norm_s, Epilogue&& epi,
+                                            const TmaRing& tma = TmaRing{}) {
+  static_assert(!TMA || (!AOS && !QRES), "the TMA policy stages the SoA operand and queries");
   using Ring = TiledRing<TM, AOS, QRES>;
   constexpr int kStage = Ring::kStage;
   constexpr int kRLd = Ring::kRLd;
@@ -245,12 +366,27 @@ __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ld
   float* qres = ring + kTiledStages * kStage;
   const int ldr = QRES ? resident_ld<TM>(m) : 0;
   if constexpr (QRES) stage_resident<TM>(qres, ldr, qT, ldq, k, row0);
+  if constexpr (TMA) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < kTiledStages; ++s) mbarrier_init(tma.full + s, 1);
+      fence_mbarrier_init();
+    }
+    __syncthreads();
+  }
 
   int it = 0, ic = 0;  // the next step to issue, as (tile, chunk)
   auto issue = [&](int s) {
-    stage_tiled<TM, AOS, QRES>(ring + (s % kTiledStages) * kStage, qT, ldq, r, k, ld, n, vec16,
-                               tc.first + it * tc.tile_step, tc.group_step,
-                               tc.groups - it * kTileGroups, ic * kChunk, row0);
+    float* st = ring + (s % kTiledStages) * kStage;
+    const long long col0 = tc.first + it * tc.tile_step;
+    if constexpr (TMA) {
+      if (threadIdx.x == 0) {
+        stage_tma<TM>(st, tma, tma.full + s % kTiledStages, col0, ic * kChunk, row0);
+      }
+    } else {
+      stage_tiled<TM, AOS, QRES>(st, qT, ldq, r, k, ld, n, vec16, col0, tc.group_step,
+                                 tc.groups - it * kTileGroups, ic * kChunk, row0);
+    }
     if (++ic == chunks) {
       ic = 0;
       ++it;
@@ -259,17 +395,22 @@ __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ld
 #pragma unroll
   for (int s = 0; s < kTiledStages - 1; ++s) {
     if (s < steps) issue(s);
-    cp_async_commit();
+    if constexpr (!TMA) cp_async_commit();
   }
 
   float acc[TM][kTileGroups];
   float norm = 0.f;  // |r|^2 of slot threadIdx.x's column
   int t = 0, c = 0;  // the step being scored, as (tile, chunk)
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kTiledStages - 2>();  // step s has landed (this thread's copies)
-    __syncthreads();                    // ... every thread's, and step s - 1 is done with
+    if constexpr (TMA) {
+      // Step s has landed: the (s / kTiledStages)-th phase of its stage.
+      mbarrier_wait_parity(tma.full + s % kTiledStages, (s / kTiledStages) & 1);
+    } else {
+      cp_async_wait<kTiledStages - 2>();  // step s has landed (this thread's copies)
+    }
+    __syncthreads();  // ... every thread's, and step s - 1 is done with its stage
     if (s + kTiledStages - 1 < steps) issue(s + kTiledStages - 1);
-    cp_async_commit();
+    if constexpr (!TMA) cp_async_commit();
     if (c == 0) {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
@@ -300,7 +441,7 @@ __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ld
       ++t;
     }
   }
-  cp_async_wait<0>();
+  if constexpr (!TMA) cp_async_wait<0>();
 }
 
 // The transposed queries (fused.transposed_queries) a tiled kernel stages:
@@ -313,20 +454,72 @@ inline bool vec16_operand(const float* r, long long ld) {
   return ld % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// does not link libcuda); null where the driver does not have it.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA policy's tensor maps for a launch of TM rows per warp: the SoA
+// operand r (k rows of ld floats; the caller checks ld % 128 == 0 and a
+// 16-byte aligned r) as (128 lanes, ld / 128 groups, k rows) in boxes of
+// (32, 8, kChunk), and the transposed queries qT (k, ldq; valid_queries_t)
+// as (ldq, k) in boxes of (8*TM, kChunk). Past the dims (rows past k or
+// ldq, groups past ld / 128) a box reads zeros and nothing outside the
+// arrays. Returns a cudaError_t: cudaErrorInvalidValue where an encode
+// fails.
+template <int TM>
+int encode_tma_maps(CUtensorMap* r_map, CUtensorMap* q_map, const float* r, int k, long long ld,
+                    const float* qT, int ldq) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr cuuint32_t kOnes[3] = {1, 1, 1};
+  const cuuint64_t r_dims[3] = {kLanes, static_cast<cuuint64_t>(ld / kLanes),
+                                static_cast<cuuint64_t>(k)};
+  const cuuint64_t r_strides[2] = {kLanes * sizeof(float), static_cast<cuuint64_t>(ld) * 4};
+  const cuuint32_t r_box[3] = {kSliceLanes, kTileGroups, kChunk};
+  const cuuint64_t q_dims[2] = {static_cast<cuuint64_t>(ldq), static_cast<cuuint64_t>(k)};
+  const cuuint64_t q_strides[1] = {static_cast<cuuint64_t>(ldq) * 4};
+  const cuuint32_t q_box[2] = {kTiledWarps * TM, kChunk};
+  const CUresult er = encode(r_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(r),
+                             r_dims, r_strides, r_box, kOnes, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult eq = encode(q_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(qT),
+                             q_dims, q_strides, q_box, kOnes, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return er == CUDA_SUCCESS && eq == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Launch a tiled kernel whose static shared memory is `State` over
 // ceil(m / (8*TM)) row tiles (grid.y, in slices of kMaxGridY; the kernel's
 // last argument is the slice's first row) and grid_x blocks per row tile,
-// with its ring and `resident` more bytes (a QRES kernel's queries) of
-// dynamic shared memory.
+// with its ring and `extra` more bytes (a QRES kernel's queries, a TMA
+// kernel's kTmaAlign) of dynamic shared memory.
 template <int TM, typename State, bool AOS = false, bool QRES = false, typename... Params,
           typename... Args>
-int launch_tiled_grid(void (*kernel)(Params...), int grid_x, int m, size_t resident,
+int launch_tiled_grid(void (*kernel)(Params...), int grid_x, int m, size_t extra,
                       cudaStream_t stream, Args... args) {
   constexpr int BM = kTiledWarps * TM;
   constexpr size_t ring = TiledRing<TM, AOS, QRES>::kBytes;
   static_assert(kTiledBlocksPerSm * (ring + sizeof(State) + kSmemPerBlockReserved) <= kSmemPerSm,
                 "a tiled kernel's blocks per SM do not fit its shared memory");
-  const size_t smem = ring + resident;
+  const size_t smem = ring + extra;
   if (smem + sizeof(State) > kSmemPerBlock) return static_cast<int>(cudaErrorInvalidValue);
   if (const int e = allow_smem(kernel, smem, sizeof(State))) return e;
   const int tiles = (m + BM - 1) / BM;

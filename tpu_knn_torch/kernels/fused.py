@@ -52,10 +52,6 @@ PORTED_PRECISIONS = frozenset({"packed", "bf16x3", "bf16x3_presplit", "bf16x4", 
 
 _I32_MAX = 2**31 - 1
 
-#: The lane-per-thread kernel that shares B1's contract (B10) gets at
-#: least this many blocks per SM (tuning.pick_parts).
-B1_BLOCKS_PER_SM = 2
-
 
 def _packed_terms(k_pad: int):
     """Choose the packed-contraction term list for k_pad contraction rows

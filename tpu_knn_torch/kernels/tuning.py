@@ -5,11 +5,11 @@ because it still fixes the prepared operand's n padding (NNIndex), so an
 index's state carries across between the two packages unchanged. The
 CUDA kernels do not use its tiles; they take their
 launch geometry from the helpers below: `tiled_geometry` for the tiled
-f32 kernels on B1's lanes (B1 "highest", B4, B3 and v3, B1's AoS
-variant), `resident_geometry` for v6 (the same kernel with the block's
-queries resident in shared memory), `moments_geometry` for the same
-template over whole 256-column chunks (B7), and `pick_parts` for the
-lane-per-thread kernels (B5, B10).
+f32 kernels on B1's lanes (B1 "highest", B4, B3, and B1's AoS and
+TMA-staged variants v3 and B10), `resident_geometry` for v6 (the same
+kernel with the block's queries resident in shared memory),
+`moments_geometry` for the same template over whole 256-column chunks
+(B7), and `pick_parts` for the lane-per-thread kernels (B5).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def pick_tiles(k: int, m: int, n: int, tile_m: int | None = None,
 #: cut into partitions until the launch fills the card.
 H100_SMS = 132
 
-#: Shared memory one lane-per-thread block (B5, B10) may use for its query
+#: Shared memory one lane-per-thread block (B5) may use for its query
 #: tile (of the 227 KB a Hopper block can address).
 MAX_QUERY_SMEM = 200 * 1024
 
@@ -85,7 +85,7 @@ def pick_parts(m_tiles: int, n: int, blocks_per_sm: int) -> int:
     return max(1, min(cdiv(n, LANE), want))
 
 
-# ---- the tiled f32 kernels (B1 "highest", B4, v3, v6, B3, B7) -----------
+# ---- the tiled f32 kernels (B1 "highest", B4, v3, v6, B10, B3, B7) ------
 # What tiled_geometry needs of their fixed shape (csrc/tiled.cuh):
 # blocks of TILED_WARPS warps, warp w owning TM query rows and thread c one
 # of TILED_SLICE_LANES lanes of a partition (a block covers a quarter of
@@ -151,13 +151,14 @@ def tiled_geometry(m: int, k: int, n: int) -> TiledGeometry:
                                          TILED_TILE_GROUPS))
 
 
-def candidates_state_bytes(tm: int) -> int:
+def candidates_state_bytes(tm: int, tma: bool = False) -> int:
     """Static shared memory of B1's (and v3's, v6's) block as ptxas lays it
     out (csrc TiledState<TM, false>: a column tile's |r|^2, the fold's
     (score, index) per (row, lane) of the block's quarter, and B4's
-    one-word bound pair)."""
+    one-word bound pair); with ``tma`` B10's (csrc TmaState<TM>: that and
+    the TMA ring's 8-byte mbarrier, one a stage)."""
     words = TILED_WARPS * TILED_SLICE_LANES + 2 * TILED_WARPS * tm * TILED_SLICE_LANES + 2
-    return round_up(4 * words, SMEM_STATIC_UNIT)
+    return round_up(4 * words + (8 * TILED_STAGES if tma else 0), SMEM_STATIC_UNIT)
 
 
 def resident_ld(m: int, tm: int) -> int:

@@ -51,25 +51,50 @@ def time_ms(fns: dict, reps: int, warmup: int = 2) -> dict:
     return {name: statistics.median(v) for name, v in samples.items()}
 
 
-def device_ms(fns: dict, kernel: str, reps: int) -> dict:
+#: Idle seconds at each end of a profile's capture window (see device_ms).
+PROFILE_PAD_S = 0.01
+
+
+def device_ms(fns: dict, kernel: str, reps: int, attempts: int = 3) -> dict:
     """Mean device time per round, by kernel name, of the kernels whose
     name holds `kernel`, from torch.profiler, the fns run once each a
     round: the kernels alone, without the host's launch path (argument
     checks, allocations, small set-up kernels) that a CUDA-event span
-    around a call also holds while the card waits."""
+    around a call also holds while the card waits.
+
+    The profiler keeps only the kernels whose device timestamps fall
+    inside its capture window, which its host clock opens and closes; a
+    profile of a few kernels of a few microseconds each can come back
+    holding some or none of them. So the card idles PROFILE_PAD_S at each
+    end of the window, and every matching kernel's launches must be a
+    whole, nonzero multiple of reps: a profile that lost launches is
+    taken again (noted on stderr), up to `attempts` profiles, and then
+    this raises."""
+    import sys
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in fns.values():
-                fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
-            out[e.name] = out.get(e.name, 0.0) + e.device_time / 1e3 / reps
-    return out
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                for fn in fns.values():
+                    fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        total, count = {}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
+                total[e.name] = total.get(e.name, 0.0) + e.device_time / 1e3
+                count[e.name] = count.get(e.name, 0) + 1
+        if count and all(c % reps == 0 for c in count.values()):
+            return {name: t / reps for name, t in total.items()}
+        print(f"device_ms: profile {attempt} of {attempts} held {sorted(count.values())} "
+              f"launches of {kernel!r} kernels over {reps} rounds", file=sys.stderr, flush=True)
+    raise RuntimeError(f"torch.profiler lost launches of {kernel!r} kernels in "
+                       f"{attempts} profiles")
