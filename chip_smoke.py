@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    TF32 off, builds the CUDA kernels from tpu_knn_torch/csrc (build time
    and the ptxas report are printed; any spill in an instance of B3's or
    B7's tiled kernel, of B1's tiled kernel as v3, v6 or B10 (its TMA
-   instance), of the B8/B9 compactor or of the tensor-core kernel (B1's
-   tiers, B12) fails, and so does a v3, v6 or B10 instance whose static
-   shared memory is not tuning's mirror of it);
+   instance), of B5 or B6, of the B8/B9 compactor or of the tensor-core
+   kernel (B1's tiers, B12) fails, and so does a v3, v6, B10, B5 or B6
+   instance whose static shared memory is not tuning's mirror of it);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
@@ -24,7 +24,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    and B4 rows'); B1 also at (768, 1024, 2^20), the "B1 k=768" row's
    shape; B4 also bit-equal to B1 with a
    bound that masks exactly, and at every launch of the passes engine at
-   ds11 K = 8 and (16, 64, 2^20) K = 64; B5 also equal to the passes engine; then
+   ds11 K = 8 and (16, 64, 2^20) K = 64; B5 (also at m = 1, 64, 65 and
+   1024, k = 1, 40 and 768, a partition of an odd number of groups) and B6
+   in two launches that must be identical, their lists held to the list
+   contract (each column in its partition's list, each list ascending,
+   the seeds), B5's lists slot by slot against the plain version's (a
+   disagreeing slot only at a near-tie) and its top-K equal to the passes
+   engine's, every B6 row holding at least K real entries; then
    the seeded engine's kernels: B3 (value-only lane minima; bit-equal to
    B1's), B7 (per-cell moments; packed words identical to the plain
    version's, with bounds set between scores) and the B8/B9 compactor
@@ -101,7 +107,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      and NNIndex(precision="highest"), gated; its B1 launches are the
      "B1 k=768" row's;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
-   cuBLAS product of the score matrices and the main paths (B1 "highest"
+   cuBLAS product of the score matrices and the main paths (B5 at (16, 8,
+   2^20) K = 32 and (16, 32, 2^20) K = 8 and B6 at (16, 4, 2^24) K = 16
+   also by device time, with the selection over their candidates; B11
+   and B2-bf16 also by device time; B1 "highest"
    also at (768, 1024, 2^20), a row of its own, with fused_knn there; B1,
    B4, B3 and B7 (at the seeded ds11 K = 8 and K = 64 launches, B3 with
    its partition merge), the compactor (at those and at (16, 1024, 2^22)
@@ -294,6 +303,66 @@ def same_topk(name, got, want):
     return int(bad.sum())
 
 
+def launched_twice(name, kernel, *args):
+    """Two launches of a top-K kernel on the same inputs must give the
+    same outputs (no order in which a list's queue filled may show)."""
+    import torch
+
+    a, b = kernel(*args), kernel(*args)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        fail(f"{name}: two launches on the same inputs differ")
+    return a
+
+
+def check_lists(name, ci, cs, n, parts, kk, seed=None):
+    """The top-K kernels' list contract (csrc kselect.cuh, topk.list_of):
+    each real column lies in its partition's list, each list ascends by
+    (score, column), the slots left over hold (+inf, I32_MAX), or
+    (seed[row], I32_MAX) for B6. Returns the (m, parts*kk) mask of real
+    entries."""
+    import torch
+
+    from tpu_knn_torch.kernels import topk
+
+    m = ci.shape[0]
+    li, ls = ci.view(m, parts, kk), cs.view(m, parts, kk)
+    real = li < n
+    lists = torch.arange(parts, device=ci.device).view(1, parts, 1).expand_as(li)
+    key = topk._lex_key(ls, li)
+    fill = (torch.full_like(ls, torch.inf) if seed is None
+            else seed.view(m, 1, 1).expand_as(ls))
+    if not ((topk.list_of(li.long(), n, parts)[real] == lists[real]).all()
+            and (key[..., 1:] >= key[..., :-1]).all()
+            and (li[~real] == 2**31 - 1).all() and (ls[~real] == fill[~real]).all()):
+        fail(f"{name}: the lists break the list contract (m={m}, n={n}, P={parts}, K={kk})")
+    return real.view(m, parts * kk)
+
+
+def list_agreement(name, ki, ks, pi, s, rtol):
+    """B5's lists against its plain version's, slot by slot, on the plain
+    scores s (m, n): where the columns differ, both must be real and their
+    scores a near-tie (within rtol of the largest |score|, which two f32
+    summation orders can resolve apart); the kernel's scores lie within
+    that of the plain scores of its columns. Returns (share of agreeing
+    slots, largest |score difference|, disagreeing slots)."""
+    import torch
+
+    n = s.shape[1]
+    agree = ki == pi
+    real_k, real_p = ki < n, pi < n
+    scale = max(s[torch.isfinite(s)].abs().max().item(), 1e-30)
+    s_k = s.gather(1, torch.where(real_k, ki, 0).long())
+    s_p = s.gather(1, torch.where(real_p, pi, 0).long())
+    tie = real_k & real_p & ((s_k - s_p).abs() <= rtol * scale)
+    if (~agree & ~tie).any():
+        fail(f"{name}: {int((~agree & ~tie).sum())} list slots differ from the plain "
+             f"version's without a near-tie")
+    err = (ks - s_k)[real_k].abs().max().item() if real_k.any() else 0.0
+    if err > rtol * scale:
+        fail(f"{name}: score difference {err} > {rtol} x {scale}")
+    return agree.float().mean().item(), err, int((~agree).sum())
+
+
 def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
     """B4, B5 and B6 against their plain versions (and B4 against B1)."""
     import torch
@@ -333,25 +402,29 @@ def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
         q = uniform(gen, (m, k), device)
         r = uniform(gen, (n, k), device)
         r_op = prep_soa(r, round_up(n, 128))
-        parts = parts or topk.sweep_parts(m, kk, n)
+        parts = parts or topk.sweep_parts(m, k, n)
         plant_duplicates(q, r_op, n, parts)
         r = r_op[:k, :n].T.contiguous()
-        ki, ks = topk.sweep_candidates(q, r_op, n, parts, kk)
+        ki, ks = launched_twice("B5", topk.sweep_candidates, q, r_op, n, parts, kk)
         pi, ps = topk.sweep_candidates_plain(q, r_op, n, parts, kk)
-        share, err, _ = slot_agreement("B5", ki, ks, pi, ps)
+        check_lists("B5", ki, ks, n, parts, kk)
+        share, err, swaps = list_agreement("B5", ki, ks, pi, fused.norm_scores(q, r_op, n),
+                                           score_rtol(k))
         errs["B5"] = max(errs["B5"], err)
         got = topk._finalize_topk(q, r, ki, ks, kk, n)
         near = same_topk("B5", got, topk._finalize_topk(q, r, pi, ps, kk, n))
         passes = topk._build_topk(m, n, k, kk, r_op.shape[1], "passes")(q, (r_op,), r)
         if not (torch.equal(got[0], passes[0]) and torch.equal(got[1], passes[1])):
             fail(f"B5 m={m} k={k} n={n} K={kk}: sweep and passes disagree on the card")
-        log(f"  B5: m={m} k={k} n={n} K={kk} P={parts}: slot agreement {share:.6f}, "
-            f"top-K identical to plain (near-tie ranks {near}) and to the passes engine")
+        log(f"  B5: m={m} k={k} n={n} K={kk} P={parts}: two launches identical, lists sorted "
+            f"in their partitions; slot agreement {share:.6f} ({swaps} near-tie slots), max "
+            f"|score diff| {err:.3g}; top-K identical to plain (near-tie ranks {near}) and to "
+            f"the passes engine")
     for k, m, n, kk, parts in b6_cases:
         q = uniform(gen, (m, k), device)
         r = uniform(gen, (n, k), device)
         r_op = prep_soa(r, round_up(n, 128))
-        parts = parts or topk.smallm_topk_parts(m, kk, n)
+        parts = parts or topk.smallm_topk_parts(n, k)
         plant_duplicates(q, r_op, n, parts)
         r = r_op[:k, :n].T.contiguous()
         p1 = smallm.default_parts(n)
@@ -361,19 +434,22 @@ def phase1_topk(device, gen, b4_cases, b5_cases, b6_cases):
             return torch.topk(cs1, kk, dim=-1, largest=False).values[:, -1].contiguous()
 
         b_k, b_p = bound_of(smallm.smallm_candidates), bound_of(smallm.smallm_candidates_plain)
-        ki, ks = topk.smallm_topk_candidates(q, r_op, n, parts, kk, b_k)
+        ki, ks = launched_twice("B6", topk.smallm_topk_candidates, q, r_op, n, parts, kk, b_k)
         pi, ps = topk.smallm_topk_candidates_plain(q, r_op, n, parts, kk, b_p)
-        real = ki < n
-        if not (((ks <= b_k[:, None]) | ~real).all()
-                and (ks[~real] == b_k[:, None].expand_as(ks)[~real]).all()):
-            fail(f"B6 m={m} k={k} n={n} K={kk}: an entry above the bound or a bad seed")
+        real = check_lists("B6", ki, ks, n, parts, kk, seed=b_k)
+        if not ((ks <= b_k[:, None]) | ~real).all():
+            fail(f"B6 m={m} k={k} n={n} K={kk}: an entry above the bound")
+        least = int(real.sum(dim=1).min())
+        if least < kk:
+            fail(f"B6 m={m} k={k} n={n} K={kk}: a row holds {least} real entries, fewer than K")
         agree = (ki == pi) & real
         err = (ks - ps)[agree].abs().max().item() if agree.any() else 0.0
         errs["B6"] = max(errs["B6"], err)
         near = same_topk("B6", topk._finalize_topk(q, r, ki, ks, kk, n),
                          topk._finalize_topk(q, r, pi, ps, kk, n))
-        log(f"  B6: m={m} k={k} n={n} K={kk} P={parts}: {int(real.sum())} real entries "
-            f"under the bound, top-K identical to plain (near-tie ranks {near}), "
+        log(f"  B6: m={m} k={k} n={n} K={kk} P={parts}: two launches identical, "
+            f"{int(real.sum())} real entries under the bound (at least {least} a row), lists "
+            f"sorted in their partitions; top-K identical to plain (near-tie ranks {near}), "
             f"max |score diff| {err:.3g}")
     torch.cuda.synchronize(device)
     return errs
@@ -674,7 +750,7 @@ def phase2_topk(device, gen, n_mid=1 << 20, n_big=1 << 24):
     calls["within_radius_complete m=2 (aos, caps 32 -> 64)"] = (
         q2, r2, None, lambda: within_radius_complete(q2, r2, radius))
     ctx = {"q1024": q1024, "q8": q8, "q32": q32, "q4": q4, "q64": q64, "r20": r20,
-           "index24": index24}
+           "r24": r24, "index24": index24}
     return calls, ctx
 
 
@@ -1788,6 +1864,9 @@ def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
         "B2 kernel (16, 4, 2^20)": lambda: smallm.smallm_candidates(q, r_up, n, p2),
     }, reps))
     bounds["B2-bf16"] = roofline(4 * m * k + 2 * k * n + 8 * m * 128, 3 * m * n * k)
+    times["B2-bf16 kernel device"] = kernel_device_ms(
+        lambda: smallm.smallm_candidates(q, r_bf, n, p2), reps, card,
+        kernel="smallm_candidates_kernel")
     del q, r_bf, r_up
     stamp("tier kernel times")
     # End to end: ds11 per call and prepared by tier, the batch stores.
@@ -1922,53 +2001,87 @@ def phase3_highest(card: str, q, r, reps: int):
 
 def phase3_topk(card: str, ctx, calls, reps: int):
     """Times of B4, B5 and B6 and their plain versions at the main path's
-    shapes, the cuBLAS f32 product of B4's and B5's score matrices (a part
-    of their work, not the same function), and each phase-2 top-K call.
-    Returns (times, shapes), shapes holding what bound_ms needs."""
+    shapes (B5 at (16, 8, 2^20) K = 32 and (16, 32, 2^20) K = 8, B6 at
+    (16, 4, 2^24) K = 16; by events, and by device time), _finalize_topk
+    over each kernel's candidates, the cuBLAS f32 product of B4's and B5's
+    score matrices (a part of their work, not the same function), and
+    each phase-2 top-K call. Returns (times, shapes), shapes holding what
+    bound_ms needs."""
     import torch
 
     from tpu_knn_torch.kernels import fused, smallm, topk
     from tpu_knn_torch.kernels.fused import prep_soa
-    from tpu_knn_torch.utils.timing import time_ms
+    from tpu_knn_torch.utils.timing import device_ms, time_ms
 
-    q1024, q8, q4, r20 = ctx["q1024"], ctx["q8"], ctx["q4"], ctx["r20"]
+    q1024, q8, q32, q4, r20 = ctx["q1024"], ctx["q8"], ctx["q32"], ctx["q4"], ctx["r20"]
+    r24 = ctx["r24"]
     n20 = r20.shape[0]
     r_op20 = prep_soa(r20, n20)
     r_op24 = ctx["index24"].r_ops[0]
     n24 = ctx["index24"].n
     p4 = fused.tiled_parts(q1024.shape[0], 16, n20)
     i1, s1 = topk._lex_min(*fused.fused_candidates(q1024, r_op20, n20, p4))
-    p5 = topk.sweep_parts(q8.shape[0], 32, n20)
-    p6 = topk.smallm_topk_parts(q4.shape[0], 16, n24)
+    p5, p5b = topk.sweep_parts(q8.shape[0], 16, n20), topk.sweep_parts(q32.shape[0], 16, n20)
+    p6 = topk.smallm_topk_parts(n24, 16)
     _, cs1 = smallm.smallm_candidates(q4, r_op24, n24, smallm.default_parts(n24))
     b6 = torch.topk(cs1, 16, dim=-1, largest=False).values[:, -1].contiguous()
+    b5 = topk.sweep_candidates(q8, r_op20, n20, p5, 32)
+    b5b = topk.sweep_candidates(q32, r_op20, n20, p5b, 8)
+    c6 = topk.smallm_topk_candidates(q4, r_op24, n24, p6, 16, b6)
     times = {}
     times.update(time_ms({
         "B4 kernel ds11": lambda: fused.banded_candidates(q1024, r_op20, n20, p4, s1, i1),
         "B4 plain ds11": lambda: fused.banded_candidates_plain(q1024, r_op20, n20, p4, s1, i1),
         "matmul ds11": lambda: torch.matmul(q1024, r_op20[:16]),
     }, reps))
-    times.update(time_ms({
+    b5_fns = {
         "B5 kernel (16, 8, 2^20) K=32": lambda: topk.sweep_candidates(q8, r_op20, n20, p5, 32),
+        "B5 kernel (16, 32, 2^20) K=8": lambda: topk.sweep_candidates(q32, r_op20, n20, p5b, 8),
+    }
+    times.update(time_ms({
+        **b5_fns,
         "B5 plain (16, 8, 2^20) K=32":
             lambda: topk.sweep_candidates_plain(q8, r_op20, n20, p5, 32),
         "matmul (16, 8, 2^20)": lambda: torch.matmul(q8, r_op20[:16]),
     }, reps))
+    b6_fn = {"B6 kernel (16, 4, 2^24) K=16":
+             lambda: topk.smallm_topk_candidates(q4, r_op24, n24, p6, 16, b6)}
     times.update(time_ms({
-        "B6 kernel (16, 4, 2^24) K=16":
-            lambda: topk.smallm_topk_candidates(q4, r_op24, n24, p6, 16, b6),
+        **b6_fn,
         "B6 plain (16, 4, 2^24) K=16":
             lambda: topk.smallm_topk_candidates_plain(q4, r_op24, n24, p6, 16, b6),
     }, reps))
+    select_fns = {
+        "selection over B5 (16, 8, 2^20) K=32":
+            lambda: topk._finalize_topk(q8, r20, *b5, 32, n20),
+        "selection over B5 (16, 32, 2^20) K=8":
+            lambda: topk._finalize_topk(q32, r20, *b5b, 8, n20),
+        "selection over B6 (16, 4, 2^24) K=16":
+            lambda: topk._finalize_topk(q4, r24, *c6, 16, n24),
+    }
+    times.update(time_ms(select_fns, reps))
     times.update(time_ms({name: fn for name, (_, _, _, fn) in calls.items()}, reps))
     for name, ms in times.items():
         log(f"  time {name}: median {ms:.4f} ms over {reps} runs [{card}]")
     times["B4 kernel ds11 device"] = kernel_device_ms(
         lambda: fused.banded_candidates(q1024, r_op20, n20, p4, s1, i1), reps, card)
+    for name, fn in b5_fns.items():
+        times[f"{name} device"] = kernel_device_ms(fn, reps, card, kernel="sweep_kselect")
+    for name, fn in b6_fn.items():
+        times[f"{name} device"] = kernel_device_ms(fn, reps, card, kernel="smallm_kselect")
+    for name, fn in select_fns.items():
+        got = device_ms({"fn": fn}, "", reps)
+        times[f"{name} device"] = sum(got.values())
+        log(f"  device time of {name}: {times[f'{name} device']:.4f} ms a call over {reps} "
+            f"calls, {len(got)} kernels [{card}]")
     m4, m5, m6 = q1024.shape[0], q8.shape[0], q4.shape[0]
+    log(f"  B5 partitions (lists a row): {p5} at (16, 8, 2^20) (TM "
+        f"{topk.sweep_geometry(m5, 16, n20).tm}), {p5b} at (16, 32, 2^20); B6: {p6} at 2^24")
+    # The contract's outputs: K entries a row (one list's worth), however
+    # many partitions a launch picks.
     shapes = {"B4": (m4, 16, n20, 128, 8 * m4),
-              "B5": (m5, 16, n20, 32 * 128, 0),
-              "B6": (m6, 16, n24, 16 * 128, 4 * m6)}
+              "B5": (m5, 16, n20, 32, 0),
+              "B6": (m6, 16, n24, 16, 4 * m6)}
     return times, shapes
 
 
@@ -2160,6 +2273,9 @@ def phase3_ladder(card, big, auto_ctx, reps):
         "B11 plain (3, 16, 2^24)": lambda: projection.window_candidates_plain(
             q16, index[6], tiles, w_tiles, splits),
     }, reps))
+    times["B11 kernel (3, 16, 2^24) device"] = kernel_device_ms(
+        lambda: projection.window_candidates(q16, index[6], tiles, w_tiles, splits), reps, card,
+        kernel="window_candidates")
     cols = w_tiles * projection.TILE_W
     bounds["B11"] = roofline(4 * (16 * cols * (k + 1) + 16 * k + 16 + 16 * 128),
                              2 * 16 * cols * (k + 1))
@@ -2275,6 +2391,38 @@ TILED_ENTRY = r"tiled_candidates_kernelILi(\d+)ELb([01])ELb([01])ELb([01])E"
 TMA_ENTRY = r"tma_candidates_kernelILi(\d+)E"
 
 
+#: B5's and B6's instances in ptxas's report (mangled
+#: sweep_kselect_kernel<TM>, smallm_kselect_kernel<M, KMAX>).
+SWEEP_ENTRY = r"sweep_kselect_kernelILi(\d+)E"
+SMALLM_TOPK_ENTRY = r"smallm_kselect_kernelILi(\d+)ELi(\d+)E"
+
+
+def check_topk_smem(smem):
+    """Each B5 and B6 instance's static shared memory (ptxas) equals
+    tuning's mirror (sweep_state_bytes, smallm_topk_state_bytes)."""
+    import re
+
+    from tpu_knn_torch.kernels import tuning
+
+    checked = 0
+    for entry, nbytes in smem.items():
+        sweep, small = re.search(SWEEP_ENTRY, entry), re.search(SMALLM_TOPK_ENTRY, entry)
+        if sweep:
+            want = tuning.sweep_state_bytes(int(sweep.group(1)))
+        elif small:
+            want = tuning.smallm_topk_state_bytes(int(small.group(1)), int(small.group(2)))
+        else:
+            continue
+        if nbytes != want:
+            fail(f"{entry}: {nbytes} bytes of static shared memory, the mirror says {want}")
+        checked += 1
+    if checked != len(tuning.SWEEP_ROWS) + 4 * 3:
+        fail(f"checked {checked} B5/B6 instances' shared memory, expected "
+             f"{len(tuning.SWEEP_ROWS) + 4 * 3}")
+    log(f"  B5 and B6 instances: static shared memory as tuning.sweep_state_bytes and "
+        f"smallm_topk_state_bytes ({checked} instances)")
+
+
 def check_tiled_smem(smem):
     """Each v3, v6 and B10 instance's static shared memory (ptxas) equals
     the Python mirror's (tuning.candidates_state_bytes: B1's state, which
@@ -2355,8 +2503,11 @@ def main() -> int:
             "v6 (B1's tiled kernel, resident queries)":
                 r"tiled_candidates_kernelILi\d+ELb0ELb0ELb1E",
             "B10 (B1's tiled kernel, TMA ring)": TMA_ENTRY,
-            "B8/B9 compactor": "compact_cells_kernel"})
+            "B8/B9 compactor": "compact_cells_kernel",
+            "B5 (the tiled kernel, K-list fold)": SWEEP_ENTRY,
+            "B6 (K-lists over B2's scan)": SMALLM_TOPK_ENTRY})
         check_tiled_smem(smem)
+        check_topk_smem(smem)
 
     stamp("phase 0")
     gen = torch.Generator(device=device)
@@ -2395,6 +2546,18 @@ def main() -> int:
     b6_cases += [(16, 4, 1 << 24, 16, None), (16, 3, 1 << 20, 8, None),
                  (16, 2, 5000, 8, 1)]
     errs.update(phase1_topk(device, gen, b4_cases, b5_cases, b6_cases))
+    # B5 at the tiled kernel's edges: m = 1, 64 and 1024 rows (TM = 1, 4,
+    # 4; 65 past two blocks), k = 1, 40 and 768 (a ragged d-chunk, 48
+    # chunks a tile), n ragged against 128 and 256, a partition of an odd
+    # number of groups (P = 3 over 9 groups). They draw from a generator of
+    # their own, so the data of the cases after them do not move.
+    b5_edges = [(16, 1, 1 << 20, 4, None), (16, 64, 1 << 20, 4, None),
+                (16, 65, 9000, 4, None), (16, 1024, 50_000, 4, None),
+                (1, 9, 4097, 8, None), (40, 17, 3000, 16, None), (768, 10, 3000, 32, None),
+                (3, 12, 1100, 5, 3)]
+    gen_b5 = torch.Generator(device=device)
+    gen_b5.manual_seed(1008)
+    b5_edge_err = phase1_topk(device, gen_b5, [], b5_edges, [])["B5"]
     stamp("phase 1 B4/B5/B6")
     # B1 and B4 (the tiled f32 kernel) at its edges (k, m, n, P, ld): m past
     # a whole block of 8 * TM rows, n ragged against a column tile and 128,
@@ -2415,7 +2578,9 @@ def main() -> int:
     gen_edges.manual_seed(1002)
     edge_errs = {"B1": phase1(device, gen_edges, tile_edges, [])["B1"],
                  "B4": phase1_topk(device, gen_edges, tile_edges, [], [])["B4"]}
-    log(f"  tile edges: max |score diff| B1 {edge_errs['B1']:.3g}, B4 {edge_errs['B4']:.3g}")
+    edge_errs["B5"] = b5_edge_err
+    log(f"  tile edges: max |score diff| B1 {edge_errs['B1']:.3g}, B4 {edge_errs['B4']:.3g}, "
+        f"B5 {edge_errs['B5']:.3g}")
     errs["B4"] = max(errs["B4"], phase1_passes_launches(
         device, gen_edges, [(*DS11, 8), (16, 64, 1 << 20, 64)]))
     errs["B1 k=768"] = phase1(device, gen_edges, [(*EMBED768, None)], [])["B1"]

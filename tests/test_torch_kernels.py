@@ -200,16 +200,49 @@ def _topk_from(cand, q, r, n, kk):
     return topk._finalize_topk(q, r, ci, cs, kk, n)
 
 
+def _twice(kernel, *args):
+    """Two launches of a top-K kernel on the same inputs: identical
+    outputs (the order in which a list's queue filled cannot show)."""
+    a, b = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    return a
+
+
+def _check_lists(ci, cs, n, parts, kk, seed=None):
+    """The list contract on the card: each real column lies in its list
+    (topk.list_of), each list ascends lexicographically, the slots left
+    over hold (+inf, I32_MAX) or (seed[row], I32_MAX)."""
+    m = ci.shape[0]
+    li, ls = ci.view(m, parts, kk).long(), cs.view(m, parts, kk)
+    real = li < n
+    lists = torch.arange(parts, device=ci.device).view(1, parts, 1).expand_as(li)
+    assert (topk.list_of(li, n, parts)[real] == lists[real]).all()
+    key = topk._lex_key(ls, li.int())
+    assert (key[..., 1:] >= key[..., :-1]).all()
+    assert (li[~real] == 2**31 - 1).all()
+    fill = torch.full_like(ls, torch.inf) if seed is None else seed.view(m, 1, 1).expand_as(ls)
+    assert (ls[~real] == fill[~real]).all()
+    return real.view(m, -1)
+
+
 @pytest.mark.parametrize("k,m,n,kk,parts", [
     (16, 8, 70_000, 32, 5), (5, 24, 3000, 8, 3), (3, 3, 1000, 1, 1),
     (16, 13, 20_000, 16, 9), (40, 6, 5000, 4, 2),
+    # m at and past the tiled kernel's 8*TM rows, K = 4; k at 1, 3, 40, 768
+    (16, 1, 9000, 4, None), (16, 8, 9000, 4, None), (16, 64, 9000, 4, None),
+    (16, 65, 9000, 4, None), (1, 9, 4097, 8, None), (3, 33, 4097, 8, None),
+    (40, 17, 3000, 16, None), (768, 10, 3000, 32, None),
 ])
 def test_b5_matches_plain_and_the_passes_engine(device, k, m, n, kk, parts):
     q, r, r_op = _dup_inputs(device, m, k, n, seed=k * kk + m)
+    parts = parts or topk.sweep_parts(m, k, n)
     before = topk.sweep_candidates.launches
-    got = _topk_from(topk.sweep_candidates(q, r_op, n, parts, kk), q, r, n, kk)
-    torch.cuda.synchronize()
-    assert topk.sweep_candidates.launches == before + 1
+    cand = _twice(topk.sweep_candidates, q, r_op, n, parts, kk)
+    assert topk.sweep_candidates.launches == before + 2
+    assert cand[0].shape == (m, parts * kk)
+    _check_lists(*cand, n, parts, kk)
+    got = _topk_from(cand, q, r, n, kk)
     want = _topk_from(topk.sweep_candidates_plain(q, r_op, n, parts, kk), q, r, n, kk)
     assert torch.equal(got[0], want[0])
     passes = topk._build_topk(m, n, k, kk, r_op.shape[1], "passes")(q, (r_op,), r)
@@ -218,12 +251,19 @@ def test_b5_matches_plain_and_the_passes_engine(device, k, m, n, kk, parts):
         assert got[0][0, :2].tolist() == [127, 128]
 
 
-@pytest.mark.parametrize("k,m,n,kk,parts", [
-    (16, 4, 70_000, 16, 9), (8, 1, 3000, 32, 3), (32, 4, 5000, 32, 2),
-    (3, 2, 777, 1, 1), (16, 3, 20_000, 8, 40),
-])
-def test_b6_matches_plain(device, k, m, n, kk, parts):
-    q, r, r_op = _dup_inputs(device, m, k, n, seed=k + kk + m)
+def test_b5_through_the_sweep_engine_at_m_1024(device):
+    """topk_knn(method="sweep") at m = 1024 (16 row tiles of 64) takes B5
+    once and answers as the passes engine does, bit for bit."""
+    q, r, r_op = _dup_inputs(device, 1024, 16, 50_000, seed=7)
+    before = topk.sweep_candidates.launches
+    got = topk.topk_knn(q, r, 4, method="sweep")
+    assert topk.sweep_candidates.launches == before + 1
+    passes = topk.topk_knn(q, r, 4, method="passes")
+    assert torch.equal(got[0], passes[0]) and torch.equal(got[1], passes[1])
+
+
+def _b6_case(device, k, m, n, kk, parts, seed):
+    q, r, r_op = _dup_inputs(device, m, k, n, seed=seed)
 
     def bound_of(b2):   # each version is seeded from its own B2 pass
         _, cs1 = b2(q, r_op, n, smallm.default_parts(n))
@@ -231,18 +271,36 @@ def test_b6_matches_plain(device, k, m, n, kk, parts):
 
     bound = bound_of(smallm.smallm_candidates)
     before = topk.smallm_topk_candidates.launches
-    ci, cs = topk.smallm_topk_candidates(q, r_op, n, parts, kk, bound)
-    torch.cuda.synchronize()
-    assert topk.smallm_topk_candidates.launches == before + 1
-    real = ci < n
+    ci, cs = _twice(topk.smallm_topk_candidates, q, r_op, n, parts, kk, bound)
+    assert topk.smallm_topk_candidates.launches == before + 2
+    assert ci.shape == (m, parts * kk)
+    real = _check_lists(ci, cs, n, parts, kk, seed=bound)
     assert ((cs <= bound[:, None]) | ~real).all()
-    assert (cs[~real] == bound[:, None].expand_as(cs)[~real]).all()
+    assert (real.sum(dim=1) >= kk).all()       # the bound holds K real entries a row
     got = topk._finalize_topk(q, r, ci, cs, kk, n)
     want = _topk_from(topk.smallm_topk_candidates_plain(
         q, r_op, n, parts, kk, bound_of(smallm.smallm_candidates_plain)), q, r, n, kk)
     assert torch.equal(got[0], want[0])
     if kk >= 2:
         assert got[0][0, :2].tolist() == [127, 128]
+
+
+@pytest.mark.parametrize("k,m,n,kk,parts", [
+    (16, 4, 70_000, 16, 9), (8, 1, 3000, 32, 3), (32, 4, 5000, 32, 2),
+    (3, 2, 777, 1, 1), (16, 3, 20_000, 8, 40), (16, 4, 70_000, 16, None),
+])
+def test_b6_matches_plain(device, k, m, n, kk, parts):
+    _b6_case(device, k, m, n, kk, parts or topk.smallm_topk_parts(n, k), seed=k + kk + m)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_b6_over_k_and_kk(device, m):
+    """B6 over k = 1..32 (each KMAX instance, its edges) and K = 1..32 at
+    each m: every row ends with at least K real entries and the plain
+    version's top-K."""
+    for k in (1, 7, 8, 9, 16, 17, 31, 32):
+        for kk in (1, 2, 5, 16, 31, 32):
+            _b6_case(device, k, m, 6000, kk, topk.smallm_topk_parts(6000, k), seed=k * 37 + kk)
 
 
 # ---- the seeded engine's kernels: B3, B7 and the B8/B9 compactor ----------

@@ -3,6 +3,7 @@ originals over a grid of (k, m, n): routing cannot drift silently."""
 
 import numpy as np
 import pytest
+import torch
 
 from tpu_knn.engine import index as jx_index
 from tpu_knn.engine import registry as jx_registry
@@ -149,20 +150,60 @@ def test_topk_constants():
         assert getattr(pt_topk, name) == getattr(jx_topk, name), name
 
 
+def _old_topk_width(m, kk, n):
+    """Candidates per row of the lane-per-thread B5 and B6 this layout
+    replaced: P partitions x a list of the bucket at or above K per lane
+    (B5, 32/bucket rows a block at 4 blocks an SM), or of K (B6, as many
+    blocks an SM as 200 KB of per-lane lists allowed, at most 4)."""
+    if m > 4:
+        kb = next(b for b in (4, 8, 16, 32) if kk <= b)
+        return pt_tuning.pick_parts(-(-m // (32 // kb)), n, 4) * kb * 128
+    per_sm = max(1, min(4, 200 * 1024 // (m * kk * 128 * 8)))
+    return pt_tuning.pick_parts(1, n, per_sm) * kk * 128
+
+
 def test_topk_launch_geometry():
-    """B5's list length covers K and its state stays at 64 registers; B5
-    and B6 partition counts never exceed the 128-column groups of n."""
-    for kk in range(1, pt_topk.SWEEP_MAX_NEIGHBORS + 1):
-        kb = pt_topk.sweep_bucket(kk)
-        assert kk <= kb and pt_topk.sweep_tile_m(kk) * kb == pt_topk.SWEEP_STATE
-        for n in NS:
-            groups = -(-n // 128)
-            for m in (1, 2, 3, 4):
-                assert 1 <= pt_topk.smallm_topk_parts(m, kk, n) <= groups
-            for m in (5, 8, 64, 256):
-                assert 1 <= pt_topk.sweep_parts(m, kk, n) <= groups
+    """B5 and B6 partition counts never exceed the 128-column groups of n,
+    B5's is the tiled template's wave-model choice at its TM, and one list
+    per (row, partition) makes the candidate width at the main path's
+    shapes at most 1/32 of the lane-per-thread kernels'."""
+    for n in NS:
+        groups = -(-n // 128)
+        for k in (1, 16, 17, 32):
+            per_sm = pt_topk.B6_BLOCKS_PER_SM if k <= 16 else pt_topk.B6_WIDE_BLOCKS_PER_SM
+            assert 1 <= pt_topk.smallm_topk_parts(n, k) == pt_tuning.pick_parts(
+                1, n, per_sm) <= groups
+        for m in (1, 5, 8, 9, 33, 64, 256, 1024):
+            for k in (1, 16, 40, 768):
+                g = pt_tuning.sweep_geometry(m, k, n)
+                assert g.tm == min(4, pt_tuning.tiled_geometry(m, k, n).tm)
+                assert g.tm in pt_tuning.SWEEP_ROWS
+                assert 1 <= g.parts == pt_topk.sweep_parts(m, k, n) <= groups
+    for m, n, kk in ((8, 1 << 20, 32), (32, 1 << 20, 8)):      # B5's main-path launches
+        assert pt_topk.sweep_parts(m, 16, n) * kk * 32 <= _old_topk_width(m, kk, n)
+    for m, n, kk in ((4, 1 << 24, 16), (3, 1 << 20, 8)):       # B6's
+        assert pt_topk.smallm_topk_parts(n, 16) * kk * 32 <= _old_topk_width(m, kk, n)
+    assert _old_topk_width(8, 32, 1 << 20) == 66 * 32 * 128
+    assert _old_topk_width(4, 16, 1 << 24) == 396 * 16 * 128
+    q, r_op = torch.zeros((5, 3)), torch.zeros((8, 256))
     with pytest.raises(ValueError, match="sweep"):
-        pt_topk.sweep_bucket(33)
+        pt_topk.sweep_candidates(q, r_op, 200, 1, pt_topk.SWEEP_MAX_NEIGHBORS + 1)
+
+
+def test_topk_list_map():
+    """topk.list_of is the partition map of the candidate kernels (column
+    groups of 128, G = ceil(ceil(n/128)/P) to a partition): the list of
+    every column, ascending with the column, below P."""
+    for n in (1, 127, 128, 129, 1000, 4097, 100_000):
+        groups = -(-n // 128)
+        for parts in sorted({1, 2, 3, 7, groups}):
+            if parts > groups:
+                continue
+            col = np.arange(n)
+            gpp = -(-groups // parts)
+            lists = pt_topk.list_of(col, n, parts)
+            assert np.array_equal(lists, col // 128 // gpp)
+            assert lists.max() < parts and np.all(np.diff(lists) >= 0)
 
 
 def test_cuda_launch_geometry_covers_n():
@@ -277,12 +318,42 @@ def _csrc_constants():
     import tpu_knn_torch.csrc as csrc
 
     found = {}
-    for name in ("knn_common.cuh", "tiled.cuh"):
+    for name in ("knn_common.cuh", "tiled.cuh", "kselect.cuh", "smallm_kernels.cu"):
         with open(os.path.join(os.path.dirname(csrc.__file__), name)) as f:
             text = f.read()
         for key, expr in re.findall(r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", text, re.M):
             found[key] = eval(expr.replace("/", "//"), {}, dict(found))
     return found
+
+
+def test_topk_shared_memory_mirror_matches_the_kernel_constants():
+    """tuning's mirror of B5's and B6's static shared memory (the
+    K-selection state of kselect.cuh: per (row, list) 32 list and 32 queue
+    (score, column) slots, a count and a bound) agrees with csrc's constants; two
+    B5 blocks with their ring fit an SM at every TM, and
+    B6_BLOCKS_PER_SM B6 blocks at every (m, KMAX)."""
+    c = _csrc_constants()
+    assert (pt_tuning.KSELECT_LIST_SLOTS, pt_tuning.KSELECT_QUEUE_SLOTS) == (
+        c["kListSlots"], c["kQueueSlots"])
+    assert (pt_topk.B6_BLOCKS_PER_SM, pt_topk.B6_WIDE_BLOCKS_PER_SM) == (
+        c["kSmallmTopkBlocksPerSm"], c["kSmallmTopkWideBlocksPerSm"])
+    cols = c["kTileCols"]
+    for tm in pt_tuning.SWEEP_ROWS:
+        rows = c["kTiledWarps"] * tm
+        state = 4 * cols + 4 * rows * (2 * c["kListSlots"] + 2 * c["kQueueSlots"] + 3)
+        # ptxas's report on the card: 5216 and 17792 bytes at TM = 1, 4.
+        assert pt_tuning.sweep_state_bytes(tm) == state == {1: 5216, 4: 17792}[tm]
+        ring = 4 * c["kTiledStages"] * c["kChunk"] * (cols + rows)    # TiledRing<TM>
+        assert c["kTiledBlocksPerSm"] * (ring + state + c["kSmemPerBlockReserved"]) <= (
+            c["kSmemPerSm"])
+    for m in (1, 2, 3, 4):
+        for kmax in (8, 16, 32):
+            rows = c["kSmallmWarps"] * m
+            state = 4 * m * kmax + 4 * rows * (2 * c["kListSlots"] + 2 * c["kQueueSlots"] + 3)
+            assert pt_tuning.smallm_topk_state_bytes(m, kmax) == state
+            granted = -(-state // pt_tuning.SMEM_ALLOC_UNIT) * pt_tuning.SMEM_ALLOC_UNIT
+            per_sm = c["kSmallmTopkBlocksPerSm" if kmax <= 16 else "kSmallmTopkWideBlocksPerSm"]
+            assert per_sm * (granted + c["kSmemPerBlockReserved"]) <= c["kSmemPerSm"]
 
 
 def test_v6_shared_memory_mirror_matches_the_kernel_constants():

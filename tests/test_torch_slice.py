@@ -255,8 +255,9 @@ def test_cuda_sources_ship_and_build_is_content_hashed(monkeypatch):
     assert "csrc/*.cu" in shipped and "csrc/*.cuh" in shipped
     assert meta["project"]["optional-dependencies"]["torch"] == ["torch"]
     assert [os.path.basename(s) for s in build.sources()] == [
-        "fused_kernels.cu", "knn_common.cuh", "seeded_kernels.cu", "smallm_kernels.cu",
-        "sweep_kernels.cu", "tensor_kernels.cu", "tiled.cuh", "window_kernels.cu"]
+        "fused_kernels.cu", "knn_common.cuh", "kselect.cuh", "seeded_kernels.cu",
+        "smallm_kernels.cu", "sweep_kernels.cu", "tensor_kernels.cu", "tiled.cuh",
+        "window_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     path = build.lib_path()
     assert os.path.dirname(path) == build.BUILD_DIR and path == build.lib_path()

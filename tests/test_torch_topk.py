@@ -55,6 +55,9 @@ def _cases():
             yield k, m, n, kk, method
     yield 16, 12, 8192, 10, "sweep"       # B5, a second m > 4 shape
     yield 9, 3, 5000, 32, "sweep"         # B2 + B6 at the largest sweep K
+    yield 1, 9, 3000, 8, "sweep"          # B5 at k = 1, m not a multiple of 8*TM
+    yield 40, 3, 2000, 5, "sweep"         # B5 at k = 40 (m <= 4 but k > 32)
+    yield 40, 13, 2000, 16, "sweep"       # B5 at k = 40, m = 13
 
 
 @pytest.mark.parametrize("k,m,n,kk,method", list(_cases()))
@@ -272,42 +275,60 @@ def _lex_rank(s_row):
     return np.lexsort((np.arange(len(s_row)), s_row))
 
 
-def _lane_of(cols, n, parts):
+def _lists_of(ci, cs, parts, kk):
+    """(m, parts*kk) candidates -> per (row, list) arrays (m, parts, kk)."""
+    m = ci.shape[0]
+    return ci.reshape(m, parts, kk), cs.reshape(m, parts, kk)
+
+
+def _check_list_contract(s, ci, cs, n, parts, kk, seed=None):
+    """Every list of every row is exactly its partition's kk lex-smallest
+    (score, column) pairs below +inf (and, with seed, <= seed[row]),
+    sorted; each real column maps to its list (topk.list_of); the slots
+    left over hold (+inf, I32_MAX) or (seed[row], I32_MAX); the union of a
+    row's lists holds the row's lex top-K."""
+    m = s.shape[0]
+    li, ls = _lists_of(ci, cs, parts, kk)
     gpp = -(-(-(-n // 128)) // parts)
-    return (cols // (gpp * 128)) * 128 + cols % 128
+    for i in range(m):
+        ok = np.isfinite(s[i]) if seed is None else s[i] <= seed[i]
+        for p in range(parts):
+            cols = np.arange(p * gpp * 128, min(n, (p + 1) * gpp * 128))
+            cols = cols[ok[cols]]
+            want = cols[np.lexsort((cols, s[i][cols]))][:kk]
+            real = li[i, p] < n
+            assert real.sum() == len(want)
+            np.testing.assert_array_equal(li[i, p][:len(want)], want)
+            assert np.all(pt_topk.list_of(li[i, p][real], n, parts) == p)
+            np.testing.assert_array_equal(ls[i, p][real], s[i][li[i, p][real]])
+            assert np.all(li[i, p][~real] == I32_MAX)
+            fill = np.inf if seed is None else seed[i]
+            assert np.all(ls[i, p][~real] == fill)
+        top = _lex_rank(np.where(ok, s[i], np.inf))[:kk]
+        assert set(top[ok[top]]) <= set(ci[i])
 
 
 @pytest.mark.parametrize("m,n,k,parts,kk", [
     (5, 3000, 4, 1, 8), (3, 1000, 16, 3, 32), (9, 777, 3, 2, 5), (2, 300, 6, 1, 1),
+    (4, 266, 5, 3, 16),   # ragged n: the last list has 10 real columns for K = 16
 ])
 def test_b5_plain_contract(m, n, k, parts, kk):
-    """The union of the per-lane lists holds the lex top-K of the scores;
-    each list is sorted, and holds its own (partition, lane)'s columns."""
+    """Each (row, partition) list holds the partition's lex top-K of the
+    scores, sorted, empty slots (+inf, I32_MAX); the union holds the row's
+    lex top-K."""
     rng = np.random.default_rng(m + n)
     q, r = _t(rng.random((m, k))), _t(rng.random((n, k)))
-    r[100] = r[100 + 128] = r[50]                       # same-lane duplicates
+    r[100] = r[100 + 128] = r[50]                       # duplicates in one list
     r_op = prep_soa(r, -(-n // 128) * 128)
     ci, cs = pt_topk.sweep_candidates(q, r_op, n, parts, kk)
-    kb = pt_topk.sweep_bucket(kk)
-    assert ci.shape == (m, parts * kb * 128)
+    assert ci.shape == cs.shape == (m, parts * kk)
     s = pt_fused.norm_scores(q, r_op, n).numpy()
-    lists_i = ci.numpy().reshape(m, parts, kb, 128)
-    lists_s = cs.numpy().reshape(m, parts, kb, 128)
-    for i in range(m):
-        top = _lex_rank(s[i])[:kk]
-        assert set(top) <= set(ci.numpy()[i])
-        real = lists_i[i] < n
-        slot = (np.arange(parts)[:, None, None] * 128 + np.arange(128)[None, None, :])
-        assert np.all(_lane_of(lists_i[i][real], n, parts)
-                      == np.broadcast_to(slot, real.shape)[real])
-        np.testing.assert_array_equal(lists_s[i][real], s[i][lists_i[i][real]])
-        assert np.all(np.isinf(lists_s[i][~real]))
-        key = np.where(real, lists_s[i], np.inf)
-        assert np.all(key[:, :-1] <= key[:, 1:])          # levels ascend
+    _check_list_contract(s, ci.numpy(), cs.numpy(), n, parts, kk)
 
 
 @pytest.mark.parametrize("m,n,k,parts,kk", [
     (1, 3000, 8, 2, 8), (4, 5000, 16, 5, 32), (2, 700, 3, 1, 1), (3, 1000, 32, 3, 4),
+    (4, 266, 5, 3, 16),   # ragged n: the last list has 10 real columns for K = 16
 ])
 def test_b6_plain_contract(m, n, k, parts, kk):
     """Only scores <= the bound enter; the rest of each list is the seed
@@ -322,19 +343,43 @@ def test_b6_plain_contract(m, n, k, parts, kk):
     _, cs1 = smallm.smallm_candidates(q, r_op, n, smallm.default_parts(n))
     bound = torch.topk(cs1, kk, dim=-1, largest=False).values[:, -1].contiguous()
     ci, cs = pt_topk.smallm_topk_candidates(q, r_op, n, parts, kk, bound)
-    assert ci.shape == (m, parts * kk * 128)
+    assert ci.shape == (m, parts * kk)
     s = diff_scores(q, r_op, n).numpy()
     ci, cs, b = ci.numpy(), cs.numpy(), bound.numpy()
+    _check_list_contract(s, ci, cs, n, parts, kk, seed=b)
     for i in range(m):
-        real = ci[i] < n
-        assert np.all(ci[i][~real] == I32_MAX) and np.all(cs[i][~real] == b[i])
-        assert np.all(cs[i][real] <= b[i])
-        np.testing.assert_array_equal(cs[i][real], s[i][ci[i][real]])
-        assert set(_lex_rank(s[i])[:kk]) <= set(ci[i][real])
+        assert set(_lex_rank(s[i])[:kk]) <= set(ci[i][ci[i] < n])
     if kk >= 2:
         idx, _ = pt_topk._finalize_topk(q, r, torch.from_numpy(ci),
                                         torch.from_numpy(cs), kk, n)
         assert idx[0, :2].tolist() == [10, 138]
+
+
+@pytest.mark.parametrize("kernel", ["B5", "B6"])
+def test_topk_lists_keep_duplicates_across_lists(kernel):
+    """Exact duplicates of query 0 at the last column of partition 0 and
+    the first of partition 1 land in two lists, and the top-K takes them
+    in index order; a third copy later in partition 1 follows them."""
+    from tpu_knn_torch.kernels import smallm
+
+    m, n, k, parts, kk = (6, 2000, 7, 4, 3) if kernel == "B5" else (3, 2000, 7, 4, 3)
+    rng = np.random.default_rng(17)
+    q, r = _t(rng.random((m, k))), _t(rng.random((n, k)))
+    b = 4 * 128                                         # partition 1's first column
+    for c in (b - 1, b, b + 300):
+        r[c] = q[0]
+    r_op = prep_soa(r, -(-n // 128) * 128)
+    if kernel == "B5":
+        ci, cs = pt_topk.sweep_candidates(q, r_op, n, parts, kk)
+    else:
+        _, cs1 = smallm.smallm_candidates(q, r_op, n, smallm.default_parts(n))
+        bound = torch.topk(cs1, kk, dim=-1, largest=False).values[:, -1].contiguous()
+        ci, cs = pt_topk.smallm_topk_candidates(q, r_op, n, parts, kk, bound)
+    assert pt_topk.list_of(b - 1, n, parts) == 0 and pt_topk.list_of(b, n, parts) == 1
+    li, _ = _lists_of(ci.numpy(), cs.numpy(), parts, kk)
+    assert li[0, 0, 0] == b - 1 and li[0, 1, :2].tolist() == [b, b + 300]
+    idx, d2 = pt_topk._finalize_topk(q, r, ci, cs, kk, n)
+    assert idx[0].tolist() == [b - 1, b, b + 300] and float(d2[0, 0]) == 0.0
 
 
 @pytest.mark.parametrize("m,n,k,parts", [(4, 3000, 5, 1), (7, 1000, 16, 3)])
@@ -441,26 +486,50 @@ def test_passes_matches_tpu_knn_at_tile_edges(k, m, n, kk):
     assert pi[2, :3].tolist() == [165, 293, 1189]
 
 
-@pytest.mark.parametrize("m,n,k,kk", [(8, 1000, 5, 8), (16, 2048, 3, 4)])
-def test_b5_plain_matches_pallas(m, n, k, kk):
-    """P = 1 and K at a bucket size is the Pallas sweep kernel's
-    (m, K*128) contract, level-major."""
+def _reduce_lane_lists(ji, js, n, parts, kk, seed=None):
+    """tpu_knn's per-lane K-lists (m, K*128) -> the port's per-partition
+    lists (m, parts*kk): per (row, partition), the lex-smallest kk of the
+    real entries (column < n, finite score) whose column lies in the
+    partition, the rest (+inf, I32_MAX) or (seed[row], I32_MAX)."""
+    m = ji.shape[0]
+    out_i = np.full((m, parts * kk), I32_MAX, np.int32)
+    out_s = np.full((m, parts * kk), np.inf, np.float32)
+    for i in range(m):
+        real = (ji[i] < n) & np.isfinite(js[i])
+        cols, scores = ji[i][real], js[i][real]
+        lists = pt_topk.list_of(cols, n, parts)
+        if seed is not None:
+            out_s[i] = seed[i]
+        for p in range(parts):
+            c, v = cols[lists == p], scores[lists == p]
+            order = np.lexsort((c, v))[:kk]
+            out_i[i, p * kk:p * kk + len(order)] = c[order]
+            out_s[i, p * kk:p * kk + len(order)] = v[order]
+    return out_i, out_s
+
+
+@pytest.mark.parametrize("m,n,k,kk,parts", [(8, 1000, 5, 8, 1), (16, 2048, 3, 4, 3)])
+def test_b5_plain_matches_pallas(m, n, k, kk, parts):
+    """tpu_knn's Pallas sweep kernel's per-lane lists (its (m, K*128)
+    contract, level-major), reduced to the lex-K of each of the port's
+    per-partition lists, are the port's lists."""
     rng = np.random.default_rng(m + n + kk)
     q = rng.random((m, k), np.float32)
     r = rng.random((n, k), np.float32)
     cand = jx_topk._build_sweep_candidates(m, n, k, kk, 8, 512, "highest")
     ji, js = _np(cand(q, cand.prep_soa(r)))
+    wi, ws = _reduce_lane_lists(ji, js, n, parts, kk)
     pi, ps = pt_topk.sweep_candidates(_t(q), prep_soa(_t(r), -(-n // 128) * 128),
-                                      n, 1, kk)
-    fin = np.isfinite(js)
-    np.testing.assert_array_equal(pi.numpy()[fin], ji[fin])
-    np.testing.assert_allclose(ps.numpy()[fin], js[fin], rtol=1e-5,
-                               atol=1e-5 * np.abs(js[fin]).max())
-    assert np.all(pi.numpy()[~fin] == I32_MAX)
+                                      n, parts, kk)
+    np.testing.assert_array_equal(pi.numpy(), wi)
+    fin = np.isfinite(ws)
+    np.testing.assert_allclose(ps.numpy()[fin], ws[fin], rtol=1e-5,
+                               atol=1e-5 * np.abs(ws[fin]).max())
+    assert np.all(np.isinf(ps.numpy()[~fin]))
 
 
-@pytest.mark.parametrize("m,n,k,kk", [(1, 3000, 8, 8), (4, 2000, 16, 5)])
-def test_b6_plain_matches_pallas(m, n, k, kk):
+@pytest.mark.parametrize("m,n,k,kk,parts", [(1, 3000, 8, 8, 1), (4, 2000, 16, 5, 4)])
+def test_b6_plain_matches_pallas(m, n, k, kk, parts):
     rng = np.random.default_rng(m + n + kk)
     q = rng.random((m, k), np.float32)
     r = rng.random((n, k), np.float32)
@@ -468,10 +537,11 @@ def test_b6_plain_matches_pallas(m, n, k, kk):
     bound = ((s[:, 3 * kk] + s[:, 3 * kk + 1]) / 2).astype(np.float32)
     cand = jx_topk._build_smallm_topk_candidates(m, n, k, kk)
     ji, js = _np(cand(q, cand.prep_soa(r), bound[:, None]))
+    wi, ws = _reduce_lane_lists(ji, js, n, parts, kk, seed=bound)
     pi, ps = pt_topk.smallm_topk_candidates(
-        _t(q), prep_soa(_t(r), -(-n // 128) * 128), n, 1, kk, _t(bound))
-    np.testing.assert_array_equal(pi.numpy(), ji)
-    np.testing.assert_allclose(ps.numpy(), js, rtol=1e-6, atol=1e-7)
+        _t(q), prep_soa(_t(r), -(-n // 128) * 128), n, parts, kk, _t(bound))
+    np.testing.assert_array_equal(pi.numpy(), wi)
+    np.testing.assert_allclose(ps.numpy(), ws, rtol=1e-6, atol=1e-7)
 
 
 def test_lex_order_keys():

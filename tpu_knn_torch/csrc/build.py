@@ -4,12 +4,12 @@ The pattern of tpu_knn/native/build.py: the sources are compiled on first
 use, into ``tpu_knn_torch/_build/`` under a name that hashes their content
 and the flags, through a temporary directory and an atomic rename, so
 concurrent first users are safe and a changed source rebuilds. Each *.cu
-file (one family of kernels; knn_common.cuh and tiled.cuh hold what they
-share) is compiled by its own nvcc, all started together, and the objects
-are linked into one library. The library has a plain C interface (no PyTorch
-headers), which keeps a build to seconds. Nothing is fetched: the build
-uses the sources in this directory and the local CUDA toolkit. Importing
-this module runs nothing.
+file (one family of kernels; knn_common.cuh, tiled.cuh and kselect.cuh hold
+what they share) is compiled by its own nvcc, all started together, and
+the objects are linked into one library. The library has a plain C
+interface (no PyTorch headers), which keeps a build to seconds. Nothing is
+fetched: the build uses the sources in this directory and the local CUDA
+toolkit. Importing this module runs nothing.
 """
 
 from __future__ import annotations
@@ -113,8 +113,7 @@ def load() -> ctypes.CDLL:
     lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                          i64, i32, i32, i32, ptr]
     lib.tk_banded_candidates.restype = i32
-    lib.tk_sweep_candidates.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32,
-                                        i32, i32, ptr]
+    lib.tk_sweep_candidates.argtypes = [ptr] * 4 + [i32, i32, i32, i64] + [i32] * 4 + [ptr]
     lib.tk_sweep_candidates.restype = i32
     lib.tk_smallm_topk_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
                                               i64, i32, i32, i32, ptr]

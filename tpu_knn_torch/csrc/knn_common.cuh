@@ -12,7 +12,8 @@
 // (min score, index) pair per lane with a strict `<`, so the earliest column
 // wins among equal scores and a NaN never enters; a lane that saw no
 // column reports (+inf, INT32_MAX). The top-K kernels (B5, B6) keep each
-// lane's K lexicographically smallest (score, column) pairs, sorted. P = 1
+// partition's K lexicographically smallest (score, column) pairs per row,
+// sorted (kselect.cuh). P = 1
 // is exactly the TPU kernels' (m, 128) contract; P > 1 is v7's rebased
 // (m, P*128) contract. Indices are global column numbers. Columns >= n are
 // masked (never folded). The seeded top-K engine's kernels follow:
@@ -54,64 +55,19 @@ __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // ---------------------------------------------------------------------------
-// The score arithmetic of B1, B4 and B5: s = |r|^2 - 2 q.r in plain f32 FMA
-// (tpu_knn's "highest" tier). All three kernels call this one function, so a
-// (row, column) pair gets a bit-identical score from each of them, whatever
-// tile or partition count a launch picks: |r|^2 and each q.r are one fmaf
-// chain over d = 0..k-1 in order, and 2*acc is exact. The top-K "passes"
-// engine rests on that (its bound is a score B4 reported on an earlier pass),
-// and so does the exact agreement of the sweep (B5) and passes engines.
+// The score arithmetic of the tiled f32 kernels (B1, B4, B3, B5, B7 and
+// B1's variants, tiled.cuh): s = |r|^2 - 2 q.r in plain f32 FMA (tpu_knn's
+// "highest" tier). They all score through micro_tile_chunk and
+// column_norm_chunk, so a (row, column) pair gets a bit-identical score from
+// each of them, whatever tile or partition count a launch picks: |r|^2 and
+// each q.r are one fmaf chain over d = 0..k-1 in order, and 2*acc is exact.
+// The top-K "passes" engine rests on that (its bound is a score B4 reported
+// on an earlier pass), and so does the exact agreement of the sweep (B5) and
+// passes engines.
 // ---------------------------------------------------------------------------
 
-// The TM query rows of a block, transposed into shared memory: qT[d*TM + i].
-template <int TM>
-__device__ __forceinline__ void load_query_tile(const float* __restrict__ q, float* qT,
-                                                int m, int k, int row0) {
-  for (int e = threadIdx.x; e < k * TM; e += blockDim.x) {
-    const int d = e / TM;
-    const int i = e - d * TM;
-    const int row = row0 + i;
-    qT[e] = row < m ? q[static_cast<long long>(row) * k + d] : 0.f;
-  }
-  __syncthreads();
-}
-
-// One reference column of the SoA operand (rc, rows ld apart, read through
-// the read-only cache) against the TM rows: one 16-byte broadcast load of
-// qT (in shared memory) feeds four FMAs, and each loaded reference value
-// feeds TM FMAs.
-template <int TM>
-__device__ __forceinline__ void column_scores(const float* qT, const float* __restrict__ rc,
-                                              long long ld, int k, float (&s)[TM]) {
-  float acc[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) acc[i] = 0.f;
-  float norm = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < k; ++d) {
-    const float rv = __ldg(rc + d * ld);
-    norm = fmaf(rv, rv, norm);
-    const float* qd = qT + d * TM;
-    if constexpr (TM % 4 == 0) {
-#pragma unroll
-      for (int i = 0; i < TM; i += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qd + i);
-        acc[i] = fmaf(qv.x, rv, acc[i]);
-        acc[i + 1] = fmaf(qv.y, rv, acc[i + 1]);
-        acc[i + 2] = fmaf(qv.z, rv, acc[i + 2]);
-        acc[i + 3] = fmaf(qv.w, rv, acc[i + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) acc[i] = fmaf(qd[i], rv, acc[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) s[i] = norm - 2.f * acc[i];
-}
-
-// The same arithmetic over a register micro-tile: TM query rows by TN
-// reference columns, fed one staged d-chunk at a time. qs is the chunk's
+// The arithmetic over a register micro-tile: TM query rows by TN reference
+// columns, fed one staged d-chunk at a time. qs is the chunk's
 // queries in shared memory at the thread's first row, [d][q_ld] (TM
 // consecutive rows per d); rs is the chunk's operand at the thread's first
 // column, [d][r_ld], its TN columns col_stride apart. Per coordinate a
@@ -120,7 +76,7 @@ __device__ __forceinline__ void column_scores(const float* qT, const float* __re
 // fmaf chain over d = 0..k-1 in order (rows past k are staged as zeros on
 // both sides: fmaf(0, 0, x) == x, as acc is never -0). The caller keeps
 // |r|^2 with column_norm_chunk and forms s = norm - 2*acc after the last
-// chunk, bit-identical to column_scores.
+// chunk.
 template <int TM, int TN, int DK>
 __device__ __forceinline__ void micro_tile_chunk(const float* qs, int q_ld, const float* rs,
                                                  int r_ld, int col_stride,
@@ -152,8 +108,8 @@ __device__ __forceinline__ void micro_tile_chunk(const float* qs, int q_ld, cons
   }
 }
 
-// |r|^2 of one staged column over a d-chunk ([d][r_ld] from rc): the
-// column_scores norm chain, continued across chunks in `norm`.
+// |r|^2 of one staged column over a d-chunk ([d][r_ld] from rc): one fmaf
+// chain over d in order, continued across chunks in `norm`.
 template <int DK>
 __device__ __forceinline__ float column_norm_chunk(const float* rc, int r_ld, float norm) {
 #pragma unroll

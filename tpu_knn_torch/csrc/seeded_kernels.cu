@@ -195,7 +195,7 @@ __device__ __forceinline__ void moment_tile(float (&s)[TM][kTileGroups], const f
   static_assert(TM * (kTileCols / 64) <= 32, "a warp's words fit its lanes");
   const int lane = threadIdx.x % 32;
   {
-    // The scores (column_scores' arithmetic) in place of the accumulators,
+    // The scores (s = |r|^2 - 2 acc) in place of the accumulators,
     // so the norms and liveness need no registers past this point; a column
     // >= n becomes NaN, which no compare below admits.
     float nj[kTileGroups];

@@ -1,133 +1,187 @@
-// B5: the top-K sweep (per-lane sorted K-lists).
+// B5: the top-K sweep, an instance of the tiled f32 template (tiled.cuh)
+// with a K-list fold (kselect.cuh) as its epilogue.
 
+#include "kselect.cuh"
 #include "knn_common.cuh"
+#include "tiled.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// B5 — replaces tpu_knn/kernels/topk.py:_sweep_kernel (with _kstate_insert;
-// built by _build_sweep_candidates): per lane, the KB lexicographically
-// smallest (score, column) pairs of its columns, sorted, from one sweep of
-// the operand. KB is a bucket of 4/8/16/32 at or above the caller's K; the
-// union of the lists always holds the global top-K (a lane holds at most K
-// of them). Only scores below +inf enter (NaN never does); empty slots
-// report (+inf, INT32_MAX). Output slot (part*KB + l)*128 + lane of a row
-// holds level l of that lane.
+// B5 — replaces tpu_knn/kernels/topk.py:188 _sweep_kernel (with
+// _kstate_insert; built by _build_sweep_candidates): per (row, partition),
+// the kk lexicographically smallest (score, column) pairs of the
+// partition's columns, sorted, from one sweep of the operand (kselect.cuh's
+// list map and contract; empty slots (+inf, INT32_MAX)). The scores are
+// B1's and B4's bit for bit (the template's s = |r|^2 - 2 acc), so the
+// sweep and passes engines select the same top-K.
 //
-// Bound on the H100: arithmetic, as B1 (m*n*k FMA; at (k=16, m=8, n=2^20)
-// that is 2^27 FMA, 4 us, so the 64 MB operand read, ~0.02 ms, bounds it).
-// Design: B1's sweep with a TM x KB state per thread in registers, TM =
-// 32/KB rows per block so that the state stays at 64 registers. A
-// per-element skip guard (s <= the lane's current KB-th score) runs the
-// fully unrolled compare-exchange insertion chain only for elements that
-// can enter; after the first few groups almost none can.
+// Bound on the H100: device-memory reads at serving batch sizes (at
+// (k=16, m=8, n=2^20) the 64 MiB operand, 0.020 ms at 3.35 TB/s, against
+// 2^28 flops, 0.004 ms at the f32 peak); arithmetic from m of a few
+// hundred up, as B1.
+//
+// Design: B1's blocks, ring and micro-tile (8 warps, 8*TM rows, 3-stage
+// cp.async ring of 16-row d-chunks, tuning.sweep_geometry's TM and P), so
+// all of a block's rows share each staged slice and the operand is read
+// once per row tile, where the lane-per-thread kernel before it read it
+// once per row group of 32/K rows. TM is 1 or 4, not 8: at TM = 8 the
+// fold's merge beside the 64 scores it holds needs more than the 128
+// registers that two blocks an SM leave a thread (ptxas spilled), so m > 32
+// takes row tiles of 32. A block owns one partition of whole
+// 128-column groups, swept as contiguous 256-column tiles (slot (j, c) =
+// column col0 + 32 j + c, partition_columns), and each warp owns TM rows:
+// the tile's 256 scores of a row all lie in one warp, which keeps that
+// row's list alone (kselect.cuh), with no block-wide barrier. The epilogue
+// compares each of the thread's TM x 8 scores against its row's kk-th
+// entry; one vote skips the tile where nothing passes, else each (row, j)
+// in which some lane's score passes offers its 32 lanes' scores to the
+// queue with a ballot. A list's threshold tightens only when its queue is
+// merged, so in partitions of 16 tiles most tiles pass something in some
+// row of a block: that path, not the scores, is most of B5's time at
+// TM = 4.
 // ---------------------------------------------------------------------------
-template <int KB>
-__device__ __forceinline__ void kstate_insert(float (&ls)[KB], int (&li)[KB], float s, int c) {
-  // The displaced element cascades down and the KB+1-th falls out. The
-  // index clause matters only for cascaded elements: fresh ones arrive in
-  // increasing column order.
-#pragma unroll
-  for (int l = 0; l < KB; ++l) {
-    const bool beats = s < ls[l] || (s == ls[l] && c < li[l]);
-    const float os = ls[l];
-    const int oi = li[l];
-    ls[l] = beats ? s : os;
-    li[l] = beats ? c : oi;
-    s = beats ? os : s;
-    c = beats ? oi : c;
-  }
-}
 
-template <int TM, int KB>
-__global__ void __launch_bounds__(kLanes)
-sweep_candidates_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                        int32_t* __restrict__ out_i, float* __restrict__ out_s,
-                        int m, int k, long long ld, int n, int groups_per_part,
-                        int row_base) {
-  extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);
-  const int part = blockIdx.x;
-  const int row0 = row_base + blockIdx.y * TM;
-  const int lane = threadIdx.x;
-  load_query_tile<TM>(q, qT, m, k, row0);
+// The block's static shared state: |r|^2 of the tile's columns and the
+// K-selection of its 8*TM rows (row warp*TM + i at warp*TM + i).
+template <int TM>
+struct SweepState {
+  float norm_s[kTileCols];
+  KSelectState<kTiledWarps * TM> ks;
+};
 
-  float ls[TM][KB];
-  int li[TM][KB];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int l = 0; l < KB; ++l) {
-      ls[i][l] = pos_inf();
-      li[i][l] = kI32Max;
-    }
-  }
-
-  const long long first = static_cast<long long>(part) * groups_per_part * kLanes + lane;
-  for (int g = 0; g < groups_per_part; ++g) {
-    const long long col = first + static_cast<long long>(g) * kLanes;
-    if (col >= n) break;
-    float s[TM];
-    column_scores<TM>(qT, r + col, ld, k, s);
-    const int c = static_cast<int>(col);
+// The epilogue of a column tile: the thread's TM rows by its 8 columns
+// col + 32 j (col: the tile's first column plus the lane; live while j <
+// live_groups and below n) as scores, then offered to the rows' lists
+// (ks rows first ..; rows >= `rows` of the warp lie past m).
+template <int TM, int ROWS>
+__device__ __forceinline__ void sweep_tile(float (&s)[TM][kTileGroups], const float* norms,
+                                           long long col, int live_groups, int n, int rows,
+                                           int kk, KSelectState<ROWS>& ks, int first) {
+  {
+    // The scores in place of the accumulators; a dead slot or row becomes
+    // NaN, which no compare admits.
+    float nj[kTileGroups];
+    bool live[kTileGroups];
+    tile_slots(norms, col, kSliceLanes, live_groups, n, nj, live);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      if (s[i] <= ls[i][KB - 1] && s[i] < pos_inf()) kstate_insert<KB>(ls[i], li[i], s[i], c);
-    }
-  }
-
-  const long long width = static_cast<long long>(gridDim.x) * KB * kLanes;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + i;
-    if (row < m) {
-#pragma unroll
-      for (int l = 0; l < KB; ++l) {
-        const long long o =
-            row * width + (static_cast<long long>(part) * KB + l) * kLanes + lane;
-        out_i[o] = li[i][l];
-        out_s[o] = ls[i][l];
+      for (int j = 0; j < kTileGroups; ++j) {
+        s[i][j] = live[j] && i < rows ? nj[j] - 2.f * s[i][j] : __int_as_float(0x7fc00000);
       }
     }
   }
+  const int c0 = static_cast<int>(col);
+  unsigned pass[TM];  // bit j: s[i][j] passes row i's threshold
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    float ts;
+    int tc;
+    kselect_threshold(ks, first + i, kk, ts, tc);
+    pass[i] = 0u;
+#pragma unroll
+    for (int j = 0; j < kTileGroups; ++j) {
+      pass[i] |= static_cast<unsigned>(kselect_passes(s[i][j], c0 + j * kSliceLanes, ts, tc))
+                 << j;
+    }
+    any |= pass[i] != 0u;
+  }
+  if (!__any_sync(kFullMask, any)) return;  // warp-uniform
+  // Only the rows, and in them the j, in which some lane's score passes,
+  // one row a turn through one copy of the offer's code (row i's scores
+  // picked out of the registers by selects), a list that is not full yet
+  // bounded first (kselect_bound). On one H100 the three took B5 at
+  // (k=16, m=32, n=2^20) K=8 from 0.16 to 0.14 ms of device time.
+#pragma unroll 1
+  for (int i = 0; i < TM; ++i) {
+    float v[kTileGroups];
+    unsigned p = pass[0];
+#pragma unroll
+    for (int j = 0; j < kTileGroups; ++j) v[j] = s[0][j];
+#pragma unroll
+    for (int r = 1; r < TM; ++r) {
+      const bool here = i == r;
+      p = here ? pass[r] : p;
+#pragma unroll
+      for (int j = 0; j < kTileGroups; ++j) v[j] = here ? s[r][j] : v[j];
+    }
+    const unsigned live = __reduce_or_sync(kFullMask, p);
+    if (live != 0u) {  // warp-uniform
+      float ts;
+      int tc;
+      kselect_threshold(ks, first + i, kk, ts, tc);
+      if (ts == pos_inf()) kselect_bound(ks, first + i, kk, v, c0, kSliceLanes, ts, tc);
+      kselect_offer(ks, first + i, kk, v, c0, kSliceLanes, ts, tc, live);
+    }
+  }
 }
 
-// ---------------------------------------------------------------------------
-// Launchers.
-// ---------------------------------------------------------------------------
+template <int TM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+sweep_kselect_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                     int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
+                     int k, long long ld, int n, int groups_per_part, int kk, bool vec16,
+                     int row_base) {
+  constexpr int BM = kTiledWarps * TM;
+  extern __shared__ float4 smem4[];
+  __shared__ SweepState<TM> state;
+  const int part = blockIdx.x;
+  const int row0 = row_base + blockIdx.y * BM;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int first = warp * TM;
+  const int rows = min(TM, m - (row0 + first));  // the warp's rows below m
+#pragma unroll
+  for (int i = 0; i < TM; ++i) kselect_init(state.ks, first + i, pos_inf());
 
-template <int TM, int KB>
-int launch_sweep(const float* q, const float* r, int32_t* out_i, float* out_s, int m, int k,
-                 long long ld, int n, int parts, int groups_per_part, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(TM) * k * sizeof(float);
-  if (const int e = allow_smem(sweep_candidates_kernel<TM, KB>, smem)) return e;
-  const int tiles = (m + TM - 1) / TM;
-  for (int t0 = 0; t0 < tiles; t0 += kMaxGridY) {
-    const int ty = tiles - t0 < kMaxGridY ? tiles - t0 : kMaxGridY;
-    sweep_candidates_kernel<TM, KB><<<dim3(parts, ty), kLanes, smem, stream>>>(
-        q, r, out_i, out_s, m, k, ld, n, groups_per_part, t0 * TM);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const TileColumns tc = partition_columns(n, groups_per_part, part);
+  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16, tc, row0, reinterpret_cast<float*>(smem4),
+                  state.norm_s,
+                  [&](float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
+                    sweep_tile<TM>(acc, state.norm_s + lane, col0 + lane, live_groups, n, rows,
+                                   kk, state.ks, first);
+                  });
+
+  const int list = list_of(tc.first, groups_per_part);
+  const long long width = static_cast<long long>(gridDim.x) * kk;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    if (i < rows) {  // warp-uniform
+      kselect_flush(state.ks, first + i, kk);
+      kselect_write(state.ks.ls[first + i][lane], state.ks.li[first + i][lane], out_i, out_s,
+                    (row0 + first + i) * width, list, kk);
+    }
   }
-  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// B5 launch: kb in {4, 8, 16, 32} list slots per lane (32/kb rows per
-// block); outputs are (m, parts*kb*128).
-int tk_sweep_candidates(const float* q, const float* r, int32_t* out_i, float* out_s, int m,
-                        int k, long long ld, int n, int parts, int kb, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts)) return static_cast<int>(cudaErrorInvalidValue);
+// B5 launch: qT the queries transposed, (k, ldq) as for B1; tm (1 or 4)
+// rows per warp and `parts` partitions as tuning.sweep_geometry picks them; 1 <= kk
+// <= 32; outputs (m, parts*kk), kselect.cuh's list map.
+int tk_sweep_candidates(const float* qT, const float* r, int32_t* out_i, float* out_s, int m,
+                        int ldq, int k, long long ld, int n, int parts, int kk, int tm,
+                        void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m) || kk < 1 ||
+      kk > kListSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec16 = vec16_operand(r, ld);
   const int gpp = groups_per_part(n, parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kb) {
-    case 4: return launch_sweep<8, 4>(q, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
-    case 8: return launch_sweep<4, 8>(q, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
-    case 16: return launch_sweep<2, 16>(q, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
-    case 32: return launch_sweep<1, 32>(q, r, out_i, out_s, m, k, ld, n, parts, gpp, s);
+  const auto launch = [&](auto rows) {
+    constexpr int TM = decltype(rows)::value;
+    return launch_tiled_grid<TM, SweepState<TM>>(sweep_kselect_kernel<TM>, parts, m, 0,
+                                                 static_cast<cudaStream_t>(stream), qT, r,
+                                                 out_i, out_s, m, ldq, k, ld, n, gpp, kk,
+                                                 vec16);
+  };
+  switch (tm) {  // tuning.SWEEP_ROWS
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 1: return launch(std::integral_constant<int, 1>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

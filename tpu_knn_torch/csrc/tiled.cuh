@@ -1,5 +1,6 @@
 // The tiled f32 score template that B1 "highest", B4, B1's two ladder
-// variants (v3, v6; fused_kernels.cu), B3 and B7 (seeded_kernels.cu) share:
+// variants (v3, v6; fused_kernels.cu), B3 and B7 (seeded_kernels.cu) and B5
+// (sweep_kernels.cu) share:
 // register micro-tiles of scores over an operand staged in shared memory by
 // a ring of cp.async copies.
 //
@@ -18,10 +19,10 @@
 // The 8*TM rows share each staged slice, and |r|^2 is computed once per
 // column (thread t keeps slot t's) and handed over through shared memory.
 // After a tile's last chunk, each kernel's epilogue turns the accumulators
-// into scores s = |r|^2 - 2 acc, bit-identical to column_scores, and folds
-// them: B1/B4 into per-lane (score, index) pairs, B3 into per-lane minima,
-// B7 into per-cell moments. A warp whose rows all lie past m skips the
-// arithmetic and the epilogue.
+// into scores s = |r|^2 - 2 acc (knn_common.cuh's score arithmetic) and
+// folds them: B1/B4 into per-lane (score, index) pairs, B3 into per-lane
+// minima, B7 into per-cell moments, B5 into per-row K-lists (kselect.cuh).
+// A warp whose rows all lie past m skips the arithmetic and the epilogue.
 //
 // Three policies change only where the operands come from (TiledRing):
 // - AOS (v3): the operand is the caller's row-major (n, k) array. Warp j
@@ -44,9 +45,10 @@
 // Where a slot's column lies is the kernel's choice (TileColumns): B1, B4
 // and B3 give a block a quarter of one partition's 128 lanes and a tile 8 of
 // the partition's 128-column groups (slot (j, c) = column col0 + 128 j + c,
-// so a lane's columns all fall to one thread); B7 gives a tile one
+// so a lane's columns all fall to one thread); B7 and B5 give a tile one
 // contiguous 256-column chunk (slot (j, c) = column col0 + 32 j + c, so a
-// cell of 64, 128 or 256 columns is 2, 4 or 8 of one warp's j).
+// cell of 64, 128 or 256 columns is 2, 4 or 8 of one warp's j, and a row's
+// 256 scores of the tile all lie in one warp).
 
 #pragma once
 
@@ -126,6 +128,18 @@ __device__ __forceinline__ TileColumns lane_slice_columns(int n, int groups_per_
   return {g0 * kLanes + quarter * kSliceLanes, static_cast<long long>(kTileGroups) * kLanes,
           kLanes, static_cast<int>(max(0LL, min(static_cast<long long>(groups_per_part),
                                                 groups - g0)))};
+}
+
+// B5's partition: groups_per_part 128-column groups from part *
+// groups_per_part, all of their columns, as contiguous 256-column tiles
+// (slot (j, c) = column first + 256 t + 32 j + c; groups counts 32-column
+// units, so a partition of an odd number of groups ends half-way through
+// its last tile).
+__device__ __forceinline__ TileColumns partition_columns(int n, int groups_per_part, int part) {
+  const long long g0 = static_cast<long long>(part) * groups_per_part;
+  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
+  const long long own = max(0LL, min(static_cast<long long>(groups_per_part), groups - g0));
+  return {g0 * kLanes, kTileCols, kSliceLanes, static_cast<int>(own * (kLanes / kSliceLanes))};
 }
 
 // Issue the copies of one step (a d-chunk of one column tile) into `st`:

@@ -5,13 +5,15 @@ Rows come back ascending by exact (squared distance, index): v0's tie rule
 engines:
 
 - "sweep" (auto in the serving regime, m*K <= SWEEP_AUTO_BUDGET and
-  K <= SWEEP_MAX_NEIGHBORS): per-lane sorted K-deep (score, index) lists
-  from one reference read, then `_finalize_topk`. For m > 4 (or k > 32)
-  that read is B5 (`sweep_candidates`, replacing `_sweep_kernel`). For
-  m <= 4 and k <= 32 it is the bound-seeded two-pass form: B2 (kernels/
-  smallm.py) gives per-lane minima, the K-th smallest of them bounds the
-  row's K-th score, and B6 (`smallm_topk_candidates`, replacing
-  `_smallm_topk_kernel`) keeps only elements at or under that bound.
+  K <= SWEEP_MAX_NEIGHBORS): one K-deep sorted list of (score, index) per
+  (row, partition) from one reference read, then `_finalize_topk`. For
+  m > 4 (or k > 32) that read is B5 (`sweep_candidates`, replacing
+  `_sweep_kernel`). For m <= 4 and k <= 32 it is the bound-seeded
+  two-pass form: B2 (kernels/smallm.py) gives per-lane minima, the K-th
+  smallest of them bounds the row's K-th score, and B6
+  (`smallm_topk_candidates`, replacing `_smallm_topk_kernel`) keeps only
+  elements at or under that bound. Both kernels select with one shared
+  block-wide K-selection (csrc/kselect.cuh; `list_of` is its list map).
 - "passes": K lexicographically banded 1-NN sweeps, each one launch of B4
   (kernels/fused.py `banded_candidates`) and a `_lex_min`, with no host
   sync between them. B4 and B5 score with one shared function on the
@@ -41,7 +43,7 @@ from tpu_knn_torch.kernels.smallm import (
     smallm_applicable, smallm_candidates,
 )
 from tpu_knn_torch.kernels.smallm import default_parts as smallm_parts
-from tpu_knn_torch.kernels.tuning import LANE, MAX_QUERY_SMEM, pick_parts, pick_tiles
+from tpu_knn_torch.kernels.tuning import LANE, pick_parts, pick_tiles, sweep_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
@@ -82,50 +84,34 @@ def _percall_width(m: int, n: int, k: int, kk: int, method: str) -> int:
 
 # ---- launch geometry of B5 and B6 --------------------------------------
 
-#: B5 keeps a list of one of these lengths per (row, lane) in registers:
-#: the smallest bucket at or above K. The union of the lists still holds
-#: the top-K.
-SWEEP_BUCKETS = (4, 8, 16, 32)
-
-#: B5 rows per block x list length: the per-thread state stays at 64
-#: registers (32 scores + 32 indices).
-SWEEP_STATE = 32
-
-#: B5 launches get at least this many blocks per SM. A wider launch
-#: widens the candidate set the selection reads; 4 measured best for the
-#: kernel and the selection together at (16, 8, 2^20) K=32 and
-#: (16, 32, 2^20) K=8 on one H100 (probes/topk_profile.py; PERF.md).
-B5_BLOCKS_PER_SM = 4
-
-#: Shared memory an SM gives B6's per-lane lists, and its block cap
-#: (at (16, 4, 2^24) K=16 this gives P = 396, the sweep's best).
-B6_SMEM_PER_SM = 200 * 1024
-B6_MAX_BLOCKS_PER_SM = 4
+#: Resident B6 blocks of 128 threads an SM (csrc smallm_kernels.cu
+#: kSmallmTopkBlocksPerSm, its __launch_bounds__): its state is a few KB,
+#: so the partition count is set by the loads in flight, as B2's is; at
+#: k > 16 its 32 loads a thread in flight need more registers
+#: (kSmallmTopkWideBlocksPerSm).
+B6_BLOCKS_PER_SM = 8
+B6_WIDE_BLOCKS_PER_SM = 6
 
 
-def sweep_bucket(kk: int) -> int:
-    for b in SWEEP_BUCKETS:
-        if kk <= b:
-            return b
-    raise ValueError(f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}], got {kk}")
+def sweep_parts(m: int, k: int, n: int) -> int:
+    """B5's partition count, one list per (row, partition)
+    (tuning.sweep_geometry)."""
+    return sweep_geometry(m, k, n).parts
 
 
-def sweep_tile_m(kk: int) -> int:
-    """Query rows per B5 block."""
-    return SWEEP_STATE // sweep_bucket(kk)
+def smallm_topk_parts(n: int, k: int) -> int:
+    """B6's partition count at (k, n): one wave of the blocks an SM holds
+    (B6 is bound by device reads, as B2 is), one list per (row,
+    partition)."""
+    return pick_parts(1, n, B6_BLOCKS_PER_SM if k <= 16 else B6_WIDE_BLOCKS_PER_SM)
 
 
-def sweep_parts(m: int, kk: int, n: int) -> int:
-    """B5 partition count: B5_BLOCKS_PER_SM blocks per SM."""
-    return pick_parts(cdiv(m, sweep_tile_m(kk)), n, B5_BLOCKS_PER_SM)
-
-
-def smallm_topk_parts(m: int, kk: int, n: int) -> int:
-    """B6 partition count: as many blocks as the SMs' shared memory holds
-    at once (B6 is bound by device reads, as B2 is)."""
-    smem = m * kk * LANE * 8
-    per_sm = max(1, min(B6_MAX_BLOCKS_PER_SM, B6_SMEM_PER_SM // smem))
-    return pick_parts(1, n, per_sm)
+def list_of(col, n: int, parts: int):
+    """The list that holds column `col` in B5's and B6's output (csrc
+    kselect.cuh list_of): its partition, P partitions of whole 128-column
+    groups (G = ceil(ceil(n/128)/P) each). Row slot list*K + l holds level
+    l of the list."""
+    return col // LANE // cdiv(cdiv(n, LANE), parts)
 
 
 # ---- lexicographic order ------------------------------------------------
@@ -187,8 +173,8 @@ def _finalize_topk(search, ref_aos, ci, cs, kk: int, n: int):
     """Candidate lists -> exact top-K rows.
 
     Selection: the kk lex-smallest (kernel score, index) per query (the
-    union of per-lane K-lists always contains the global lex top-K: any
-    lane holds at most K of them). Reporting: exact f32 diff-form
+    union of the per-partition K-lists always contains the global lex
+    top-K: any list holds at most K of them). Reporting: exact f32 diff-form
     distances for the selected rows, sorted by (d2, index)."""
     _, sel = _lex_smallest(cs, ci, kk)
     idx, d2 = _gather_d2(search, ref_aos, sel, n)
@@ -199,60 +185,61 @@ def _finalize_topk(search, ref_aos, ci, cs, kk: int, n: int):
 # ---- B5 and B6 wrappers --------------------------------------------------
 
 
-def _lane_lists(s: torch.Tensor, parts: int, kb: int):
-    """Plain per-lane K-lists of an (m, n) score matrix: for partition p
-    and lane l (the columns of _lane_fold's contract), the kb
-    lexicographically smallest (score, column) pairs below +inf, sorted;
-    empty slots are (+inf, I32_MAX). Output slot (p*kb + j)*128 + l."""
+def _partition_lists(s: torch.Tensor, parts: int, kk: int, seed=None):
+    """Plain per-partition K-lists of an (m, n) score matrix, the kernels'
+    contract (list_of): for each row and partition the kk lexicographically
+    smallest (score, column) pairs below +inf (NaN never enters), sorted;
+    the slots a list does not fill hold (+inf, I32_MAX), or (seed[row],
+    I32_MAX) where seed (m,) is given. Output slot p*kk + l of a row."""
     m, n = s.shape
     gpp = cdiv(cdiv(n, LANE), parts)
     width = parts * gpp * LANE
     s = torch.where(s < torch.inf, s, torch.inf)           # NaN -> +inf
     s = torch.nn.functional.pad(s, (0, width - n), value=torch.inf)
-    s = s.view(m, parts, gpp, LANE)
-    col = torch.arange(width, dtype=torch.int32, device=s.device)
-    col = col.view(1, parts, gpp, LANE).expand(m, parts, gpp, LANE)
-    if gpp < kb:
-        s = torch.nn.functional.pad(s, (0, 0, 0, kb - gpp), value=torch.inf)
-        col = torch.nn.functional.pad(col, (0, 0, 0, kb - gpp), value=_I32_MAX)
+    s = s.view(m, parts, gpp * LANE)
+    col = torch.arange(width, dtype=torch.int32, device=s.device).view(1, parts, -1)
+    col = col.expand(m, parts, gpp * LANE)
+    if gpp * LANE < kk:
+        s = torch.nn.functional.pad(s, (0, kk - gpp * LANE), value=torch.inf)
+        col = torch.nn.functional.pad(col, (0, kk - gpp * LANE), value=_I32_MAX)
     # Columns rise along dim 2, so a stable sort by score is the lex order.
     v, order = torch.sort(s, dim=2, stable=True)
-    v = v[:, :, :kb]
-    i = torch.gather(col, 2, order[:, :, :kb])
+    v = v[:, :, :kk]
+    i = torch.gather(col, 2, order[:, :, :kk])
     i = torch.where(v < torch.inf, i, _I32_MAX)
-    return i.reshape(m, parts * kb * LANE), v.reshape(m, parts * kb * LANE)
+    if seed is not None:
+        v = torch.where(i == _I32_MAX, seed[:, None, None], v)
+    return i.reshape(m, parts * kk), v.reshape(m, parts * kk)
 
 
 def sweep_candidates_plain(q, r_op, n: int, parts: int, kk: int):
-    """B5's plain torch version: fused.norm_scores, then _lane_lists at
-    the kernel's list length sweep_bucket(kk)."""
-    return _lane_lists(norm_scores(q, r_op, n), parts, sweep_bucket(kk))
+    """B5's plain torch version: fused.norm_scores, then _partition_lists."""
+    return _partition_lists(norm_scores(q, r_op, n), parts, kk)
 
 
 def sweep_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
                      kk: int):
     """(m, k) queries x (k_pad, n_pad) SoA operand -> (idx, score), each
-    (m, parts*sweep_bucket(kk)*128): per (partition, lane), the
-    sweep_bucket(kk) lexicographically smallest (score, column) pairs of
-    the lane's columns below n, sorted, empty slots (+inf, I32_MAX). The
-    score is B1's (bit-identical on the card). CPU tensors take the plain
-    version; CUDA tensors launch B5 or raise."""
+    (m, parts*kk): per (row, partition) (list_of), the kk lexicographically
+    smallest (score, column) pairs of the partition's columns below n,
+    sorted, empty slots (+inf, I32_MAX). The score is B1's (bit-identical
+    on the card). CPU tensors take the plain version; CUDA tensors launch
+    B5 or raise."""
     _check_candidate_operands(q, r_op, n, parts)
+    if not 1 <= kk <= SWEEP_MAX_NEIGHBORS:
+        raise ValueError(f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}], got {kk}")
     m, k = q.shape
-    kb = sweep_bucket(kk)
-    if sweep_tile_m(kk) * k * 4 > MAX_QUERY_SMEM:
-        raise ValueError(f"k={k} exceeds the sweep kernel's shared-memory "
-                         f"query tile at K={kk}")
     if q.device.type == "cpu":
         return sweep_candidates_plain(q, r_op, n, parts, kk)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
-    idx, score = _candidate_outputs(m, parts * kb * LANE, q.device)
+    q_t = transposed_queries(q)
+    idx, score = _candidate_outputs(m, parts * kk, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_sweep_candidates(
-            q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
-            m, k, r_op.stride(0), n, parts, kb,
+            q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
+            m, q_t.shape[1], k, r_op.stride(0), n, parts, kk, sweep_geometry(m, k, n).tm,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B5 sweep_candidates")
     sweep_candidates.launches += 1
@@ -265,18 +252,17 @@ sweep_candidates.launches = 0
 
 def smallm_topk_candidates_plain(q, r_op, n: int, parts: int, kk: int, bound):
     """B6's plain torch version: smallm.diff_scores, only the elements
-    with score <= the row's bound, _lane_lists of length kk, and the empty
-    slots set to the seed (bound, I32_MAX)."""
+    with score <= the row's bound, _partition_lists seeded (bound,
+    I32_MAX)."""
     s = diff_scores(q, r_op, n)
     s = torch.where(s <= bound[:, None], s, torch.inf)
-    i, v = _lane_lists(s, parts, kk)
-    return i, torch.where(i == _I32_MAX, bound[:, None], v)
+    return _partition_lists(s, parts, kk, seed=bound)
 
 
 def smallm_topk_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
                            parts: int, kk: int, bound: torch.Tensor):
     """(m <= 4, k <= 32) queries x SoA operand, bound (m,) f32 -> (idx,
-    score), each (m, parts*kk*128): per (partition, lane), the kk
+    score), each (m, parts*kk): per (row, partition) (list_of), the kk
     lexicographically smallest (exact diff-form score, column) pairs with
     score <= bound[row], sorted, the rest of each list the seed
     (bound[row], I32_MAX). CPU tensors take the plain version; CUDA
@@ -292,7 +278,7 @@ def smallm_topk_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
-    idx, score = _candidate_outputs(m, parts * kk * LANE, q.device)
+    idx, score = _candidate_outputs(m, parts * kk, q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_smallm_topk_candidates(
             q.data_ptr(), r_op.data_ptr(), bound.data_ptr(), idx.data_ptr(),
@@ -328,7 +314,7 @@ def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto
             # Tiny batches: two diff-form scans. The K-th smallest of B2's
             # lane minima is a provable upper bound B on the row's K-th
             # score (K distinct elements <= B exist), which seeds B6.
-            p1, p2 = smallm_parts(n), smallm_topk_parts(m, kk, n)
+            p1, p2 = smallm_parts(n), smallm_topk_parts(n, k)
 
             def run_smallm(search, r_ops, ref_aos):
                 _, cs1 = smallm_candidates(search, r_ops[0], n, p1)
@@ -338,7 +324,7 @@ def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto
                 return _finalize_topk(search, ref_aos, ci, cs, kk, n)
 
             return run_smallm
-        parts = sweep_parts(m, kk, n)
+        parts = sweep_parts(m, k, n)
 
         def run_sweep(search, r_ops, ref_aos):
             ci, cs = sweep_candidates(search, r_ops[0], n, parts, kk)

@@ -9,7 +9,8 @@ f32 kernels on B1's lanes (B1 "highest", B4, B3, and B1's AoS and
 TMA-staged variants v3 and B10), `resident_geometry` for v6 (the same
 kernel with the block's queries resident in shared memory),
 `moments_geometry` for the same template over whole 256-column chunks
-(B7), and `pick_parts` for the lane-per-thread kernels (B5).
+(B7), `sweep_geometry` for it over whole partitions (B5), and
+`pick_parts` for the lane-per-thread kernels (B2, B6, B11).
 """
 
 from __future__ import annotations
@@ -58,10 +59,6 @@ def pick_tiles(k: int, m: int, n: int, tile_m: int | None = None,
 #: kernels run in parallel with no carry between them, so the n sweep is
 #: cut into partitions until the launch fills the card.
 H100_SMS = 132
-
-#: Shared memory one lane-per-thread block (B5) may use for its query
-#: tile (of the 227 KB a Hopper block can address).
-MAX_QUERY_SMEM = 200 * 1024
 
 #: Shared memory of an SM, what the system keeps of it per resident block,
 #: and what one block can address (csrc knn_common.cuh kSmemPerSm,
@@ -217,6 +214,54 @@ def moments_geometry(m: int, k: int, n_ops: int) -> TiledGeometry:
         raise ValueError(f"empty launch (m={m}, k={k}, n_ops={n_ops})")
     tm = _tiled_rows(m)
     return TiledGeometry(tm, _wave_parts(cdiv(m, TILED_WARPS * tm), cdiv(n_ops, MOMENT_CHUNK), 1))
+
+
+#: Rows per warp B5 is built for: at 8 its K-list fold beside the 64
+#: scores a thread holds needs more registers than two blocks per SM leave.
+SWEEP_ROWS = (1, 4)
+
+
+def sweep_geometry(m: int, k: int, n: int) -> TiledGeometry:
+    """Launch geometry of B5 (the tiled template with a K-list fold, one
+    block per row tile and partition of whole 128-column groups, swept as
+    256-column tiles): TM as tiled_geometry picks it, at most
+    max(SWEEP_ROWS), and the partition count P that minimises waves x
+    tiles per block as there. P is also the number of lists per row
+    (kselect.cuh's list map)."""
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty launch (m={m}, k={k}, n={n})")
+    tm = min(_tiled_rows(m), max(SWEEP_ROWS))
+    return TiledGeometry(tm, _wave_parts(cdiv(m, TILED_WARPS * tm), cdiv(n, LANE),
+                                         MOMENT_CHUNK // LANE))
+
+
+# ---- the K-selection of B5 and B6 (csrc kselect.cuh) -------------------
+
+#: Slots of one (row, list)'s sorted list and of its queue.
+KSELECT_LIST_SLOTS = 32
+KSELECT_QUEUE_SLOTS = 32
+
+
+def kselect_state_bytes(rows: int) -> int:
+    """KSelectState<ROWS>: each of `rows` lists' (score, column) slots and
+    queue slots, its queue count and its bound (a score and a column)."""
+    return 4 * rows * (2 * KSELECT_LIST_SLOTS + 2 * KSELECT_QUEUE_SLOTS + 3)
+
+
+def sweep_state_bytes(tm: int) -> int:
+    """Static shared memory of a B5 block as ptxas lays it out (csrc
+    SweepState<TM>: a column tile's |r|^2 and the K-selection of its
+    TILED_WARPS * tm rows)."""
+    return round_up(4 * TILED_TILE_GROUPS * TILED_SLICE_LANES
+                    + kselect_state_bytes(TILED_WARPS * tm),
+                    SMEM_STATIC_UNIT)
+
+
+def smallm_topk_state_bytes(m: int, kmax: int) -> int:
+    """Static shared memory of a B6 block of m rows (csrc
+    smallm_kselect_kernel<M, KMAX>): the queries padded to kmax, and each
+    of its 4 warps' K-selection of the m rows."""
+    return round_up(4 * m * kmax + kselect_state_bytes(LANE // 32 * m), SMEM_STATIC_UNIT)
 
 
 def _tiled_rows(m: int) -> int:

@@ -22,9 +22,9 @@ beside the card's name and power limit (nvidia-smi):
   K = 8, 32, 64, 128 and at (16, 1024, 2^22) K = 8 (captured by a spy on
   seeded.compact_cells), each timed alone by its device time;
 - save DIR: the outputs of the kernels that share B10's template or
-  headers (B1, B4, B3, B7, v3, v6, B5) and of B10 and the compactor, on
-  inputs made on the card from a seed, written with torch.save to
-  DIR/outputs.pt;
+  headers (B1, B4, B3, B7, v3, v6) and of B10 and the compactor, and the
+  sweep engine's top-K (B5, or B2 + B6 at m = 1), on inputs made on the
+  card from a seed, written with torch.save to DIR/outputs.pt;
 - compare DIR_A DIR_B: torch.equal of every saved output of two
   checkouts; the last line is {"identical": bool, "outputs": {...}}.
 """
@@ -218,7 +218,9 @@ def save(directory: str) -> None:
         out[f"B3 {label}"] = fused.minima_candidates(q, r_op, n, depth=2)
         if k <= 32:   # where an older tree's lane-per-thread B10 had room
             out[f"B10 {label}"] = dma_pipeline.dma_candidates(q, r_op, n, p)
-            out[f"B5 {label}"] = topk.sweep_candidates(q, r_op, n, topk.sweep_parts(m, 8, n), 8)
+        # The sweep engine's answer (B5, or B2 + B6 at m <= 4): the same
+        # across trees whose candidate layouts differ.
+        out[f"sweep top-K {label}"] = topk.topk_knn(q, r, 8, method="sweep")
     b10, comp = _cases(device)
     q, _, r_op = b10["ds11"]
     out["B7 ds11 K=8"] = seeded.extract_moments(q, r_op, DS11[2], _bound(q, r_op), 256, 4)
