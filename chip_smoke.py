@@ -1324,11 +1324,23 @@ def window_inputs(gen, device, k, m, n, window):
     return q, r, index, tiles, projection.window_tiles(n, window)
 
 
+def window_score64(q, r_aug, row, col):
+    """s' = q·r − ‖r‖²/2 in f64 of query `row` at sorted column `col`."""
+    k = q.shape[1]
+    return float((q[row].double() * r_aug[:k, col].double()).sum()
+                 - 0.5 * r_aug[k, col].double())
+
+
 def phase1_b11(device, gen, cases):
     """B11 against its plain version at one split and at the default
     splits: lane agreement, and identical exact reranks (ties on the
     original index); query 0's duplicates resolve to the lower row at
-    d2 = 0. Its error is the largest |d2| difference of the reranks."""
+    d2 = 0. Each launch is repeated over a copy of the operand whose base
+    is not 16-byte aligned (the kernel's 4-byte rows instead of its float4
+    rows), bit for bit. Every slot where kernel and plain version differ is
+    logged with both columns' f64 scores (the two sum the same products in
+    another rounding: plain f32 adds against the kernel's fmaf). Its error
+    is the largest |d2| difference of the reranks."""
     import torch
 
     from tpu_knn_torch.kernels import projection
@@ -1338,22 +1350,32 @@ def phase1_b11(device, gen, cases):
     for k, m, n, window in cases:
         q, r, index, tiles, w_tiles = window_inputs(gen, device, k, m, n, window)
         ref_sorted, order, r_aug = index[0], index[1], index[6]
+        r_odd = misaligned(r_aug)
         for splits in (1, projection.window_splits(m, w_tiles)):
             ki = projection.window_candidates(q, r_aug, tiles, w_tiles, splits)
+            narrow = torch.equal(ki, projection.window_candidates(q, r_odd, tiles, w_tiles,
+                                                                  splits))
             pi = projection.window_candidates_plain(q, r_aug, tiles, w_tiles, splits)
-            share = (ki == pi).float().mean().item()
+            differ = (ki != pi).nonzero().tolist()
+            for row, slot in differ[:20]:
+                kc, pc = int(ki[row, slot]), int(pi[row, slot])
+                log(f"    B11 slot ({row}, {slot}) differs: kernel column {kc} "
+                    f"s'={window_score64(q, r_aug, row, kc)!r}, plain column {pc} "
+                    f"s'={window_score64(q, r_aug, row, pc)!r} (f64)")
+            share = 1.0 - len(differ) / ki.numel()
             k_idx, k_d2 = _exact_rerank(q, ref_sorted, ki, n, tie_src=order)
             p_idx, p_d2 = _exact_rerank(q, ref_sorted, pi, n, tie_src=order)
             same = torch.equal(k_idx, p_idx)
             err = max(err, (k_d2 - p_d2).abs().max().item())
             dup = int(k_idx[0]) == n // 3 and float(k_d2[0]) == 0.0
             log(f"  B11: m={m} k={k} n={n} window {window} ({w_tiles} tiles, last start tile "
-                f"{int(tiles.max())}) splits={splits}: lane agreement {share:.6f}, reranks "
-                f"identical: {same}, duplicate -> row {int(k_idx[0])}")
-            if share < MIN_INDEX_AGREEMENT or not same or not dup:
+                f"{int(tiles.max())}) splits={splits}: lane agreement {share:.6f} "
+                f"({len(differ)} slots differ), reranks identical: {same}, duplicate -> row "
+                f"{int(k_idx[0])}, 4-byte rows bit-equal: {narrow}")
+            if share < MIN_INDEX_AGREEMENT or not same or not dup or not narrow:
                 fail(f"B11 {(k, m, n, window, splits)}: agreement {share}, identical {same}, "
-                     f"duplicate {dup}")
-        del q, r, index
+                     f"duplicate {dup}, 4-byte rows equal {narrow}")
+        del q, r, index, r_odd
     torch.cuda.synchronize(device)
     return err
 
@@ -1631,9 +1653,21 @@ def phase1_tiers(device, gen, cases):
     return diffs, rel, share_of_gate
 
 
-def phase1_b2_bf16(device, gen, cases):
+def bf16_operands(r_op, n: int):
+    """r_op (a bf16 SoA operand, ld a multiple of 128) and copies of it at
+    every load width of B2-bf16 below 16 bytes: ld = n + 1, n + 3 and n
+    (not multiples of 8), and bases 4, 2 and 1 elements past alignment."""
+    ops = [r_op] + [r_op[:, :ld].contiguous() for ld in (n + 1, n + 3, n)
+                    if ld <= r_op.shape[1]]
+    return ops + [misaligned(r_op, offset) for offset in (4, 2, 1)]
+
+
+def phase1_b2_bf16(device, gen, cases, edges=False):
     """B2 over a bf16 operand, bit-equal to B2 over the same values upcast
-    to f32; against its plain version like B2."""
+    to f32 at the same P (B2-bf16's own, smallm.bf16_parts); against its
+    plain version like B2. With edges, each case also over the operand's
+    narrower-load copies (bf16_operands), and at P = 7 where n allows it,
+    each launch made twice."""
     import torch
 
     from tpu_knn_torch.kernels import smallm
@@ -1643,16 +1677,28 @@ def phase1_b2_bf16(device, gen, cases):
     for k, m, n in cases:
         q = uniform(gen, (m, k), device)
         r_op = prep_soa(uniform(gen, (n, k), device).to(torch.bfloat16), -(-n // 128) * 128)
-        parts = smallm.default_parts(n)
+        parts = smallm.bf16_parts(n)
         got = smallm.smallm_candidates(q, r_op, n, parts)
         want = smallm.smallm_candidates(q, r_op.float(), n, parts)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             fail(f"B2-bf16 k={k} m={m} n={n}: not bit-equal to B2 on the upcast operand")
+        widths = [smallm.bf16_load_width(r_op, m)]
+        if edges:
+            widths = []
+            for r_v in bf16_operands(r_op, n):
+                widths.append(smallm.bf16_load_width(r_v, m))
+                for p in sorted({parts, min(7, -(-n // 128))}):
+                    w = smallm.smallm_candidates(q, r_v.float(), n, p)
+                    for _ in range(2):
+                        g = smallm.smallm_candidates(q, r_v, n, p)
+                        if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])):
+                            fail(f"B2-bf16 k={k} m={m} n={n} P={p} ld={r_v.stride(0)} width "
+                                 f"{widths[-1]}: not bit-equal to B2 on the upcast operand")
         pi, ps = smallm.smallm_candidates_plain(q, r_op, n, parts)
         share, e, _ = slot_agreement("B2-bf16", got[0], got[1], pi, ps)
         err = max(err, e)
-        log(f"  B2-bf16: k={k} m={m} n={n} P={parts}: bit-equal to B2 on the upcast operand; "
-            f"plain agreement {share:.6f}, max |score diff| {e:.3g}")
+        log(f"  B2-bf16: k={k} m={m} n={n} P={parts}, load widths {widths}: bit-equal to B2 on "
+            f"the upcast operand; plain agreement {share:.6f}, max |score diff| {e:.3g}")
     torch.cuda.synchronize(device)
     return err
 
@@ -1797,6 +1843,9 @@ STORE_PEAK_LIMIT = 20e9
 #: The H100's dense bf16 tensor-core peak (NVIDIA's data sheet, SXM, 700 W).
 BF16_PEAK_FLOPS = 989e12
 
+#: Bytes written between launches to push an operand out of the 50 MB L2.
+L2_FLUSH_BYTES = 256 << 20
+
 
 def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
     """Times of each tier's kernel at its main-path shape beside its plain
@@ -1853,11 +1902,12 @@ def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
             f"{terms} terms; B1 'highest' at P={p1}")
         del q, pts, ops, r_f32, q_bf, r_bf
         torch.cuda.empty_cache()
-    # B2-bf16 and B2 at the prepared m = 4 query of the batch-store shape.
+    # B2-bf16 and B2 at the prepared m = 4 query of the batch-store shape,
+    # both at B2-bf16's P.
     k, m, n = 16, 4, ds11[2]
     q = uniform(gen, (m, k), device)
     r_bf = prep_soa(uniform(gen, (n, k), device).to(torch.bfloat16), n)
-    r_up, p2 = r_bf.float(), smallm.default_parts(n)
+    r_up, p2 = r_bf.float(), smallm.bf16_parts(n)
     times.update(time_ms({
         "B2-bf16 kernel": lambda: smallm.smallm_candidates(q, r_bf, n, p2),
         "B2-bf16 plain": lambda: smallm.smallm_candidates_plain(q, r_bf, n, p2),
@@ -1866,8 +1916,15 @@ def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
     bounds["B2-bf16"] = roofline(4 * m * k + 2 * k * n + 8 * m * 128, 3 * m * n * k)
     times["B2-bf16 kernel device"] = kernel_device_ms(
         lambda: smallm.smallm_candidates(q, r_bf, n, p2), reps, card,
-        kernel="smallm_candidates_kernel")
-    del q, r_bf, r_up
+        kernel="smallm_bf16_candidates_kernel")
+    # Again with the operand out of L2 (33.5 MB fits its 50 MB): a 256 MB
+    # write before each launch, which the name filter leaves out.
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    times["B2-bf16 kernel device L2 flushed"] = kernel_device_ms(
+        lambda: (flush.fill_(1.0), smallm.smallm_candidates(q, r_bf, n, p2)), reps, card,
+        kernel="smallm_bf16_candidates_kernel")
+    log(f"  B2-bf16 (16, 4, 2^20): P = {p2}, load width {smallm.bf16_load_width(r_bf, m)}")
+    del q, r_bf, r_up, flush
     stamp("tier kernel times")
     # End to end: ds11 per call and prepared by tier, the batch stores.
     k, m, n = ds11
@@ -1946,6 +2003,9 @@ def phase3(card: str, big11, big9, reps: int):
         log(f"  time {name}: median {ms:.4f} ms over {reps} runs [{card}]")
     times["B1 kernel ds11 device"] = kernel_device_ms(
         lambda: fused.fused_candidates(q, r_op, n, p1), reps, card)
+    times["B2 kernel ds9 device"] = kernel_device_ms(
+        lambda: smallm.smallm_candidates(q9, r_op9, r9.shape[0], p2), reps, card,
+        kernel="smallm_candidates_kernel")
     return times
 
 
@@ -2276,10 +2336,29 @@ def phase3_ladder(card, big, auto_ctx, reps):
     times["B11 kernel (3, 16, 2^24) device"] = kernel_device_ms(
         lambda: projection.window_candidates(q16, index[6], tiles, w_tiles, splits), reps, card,
         kernel="window_candidates")
-    cols = w_tiles * projection.TILE_W
-    bounds["B11"] = roofline(4 * (16 * cols * (k + 1) + 16 * k + 16 + 16 * 128),
-                             2 * 16 * cols * (k + 1))
+    bounds["B11"] = window_bound(q16, tiles, w_tiles)
     log(f"  B11 (3, 16, 2^24): window {window}, {w_tiles} tiles, {splits} splits")
+    # B11 at v11's per-call launches: ds8 (m = 1) and ds10 (m = 1024, one
+    # split; neighbouring windows overlap, so much of it comes from L2).
+    for label, shape in (("ds8", DS8), ("ds10", DS10)):
+        k_, m_, n_ = shape
+        q_, r_ = big[shape]
+        index_ = projection.build_projection_index(r_)
+        window_ = projection.auto_window(k_, n_)
+        w_tiles_ = projection.window_tiles(n_, window_)
+        w_ = min(window_, n_)
+        pos_ = torch.searchsorted(index_[3], projection._axis_column(q_, index_[2]))
+        tiles_ = ((pos_ - w_ // 2).clamp(0, max(n_ - w_, 0)) // projection.TILE_W).to(
+            torch.int32)
+        splits_ = projection.window_splits(m_, w_tiles_)
+        name = f"B11 kernel {label}"
+        fn = (lambda q_=q_, r_aug=index_[6], t=tiles_, wt=w_tiles_, s=splits_:
+              projection.window_candidates(q_, r_aug, t, wt, s))
+        times.update(time_ms({name: fn}, reps))
+        times[f"{name} device"] = kernel_device_ms(fn, reps, card, kernel="window_candidates")
+        bounds[f"B11 {label}"] = window_bound(q_, tiles_, w_tiles_)
+        log(f"  B11 {label} {shape}: window {window_}, {w_tiles_} tiles, {splits_} splits")
+        del index_, q_, r_
     stamp("B10, B11 and B1 variant times")
 
     for label, shape, versions in (
@@ -2322,6 +2401,22 @@ def phase3_ladder(card, big, auto_ctx, reps):
     for name, (ms, by) in bounds.items():
         log(f"  bound {name}: {ms:.4f} ms ({by})")
     return times, bounds
+
+
+def window_bound(q, tiles, w_tiles):
+    """B11's bound at this launch: the k + 1 operand rows of the columns
+    the windows cover (their union: neighbouring queries' windows overlap,
+    and an input counts once), the queries, the tile starts and the (m,
+    128) contract written once; 2 flops a coordinate of each (query,
+    window column)."""
+    import torch
+
+    from tpu_knn_torch.kernels.projection import TILE_W
+
+    m, k = q.shape
+    covered = torch.unique(tiles.long()[:, None] + torch.arange(w_tiles, device=q.device))
+    return roofline(4 * (covered.numel() * TILE_W * (k + 1) + m * k + m + m * 128),
+                    2 * m * w_tiles * TILE_W * (k + 1))
 
 
 #: The card's published peaks (one H100 SXM at 700 W): f32 on the CUDA
@@ -2395,6 +2490,45 @@ TMA_ENTRY = r"tma_candidates_kernelILi(\d+)E"
 #: sweep_kselect_kernel<TM>, smallm_kselect_kernel<M, KMAX>).
 SWEEP_ENTRY = r"sweep_kselect_kernelILi(\d+)E"
 SMALLM_TOPK_ENTRY = r"smallm_kselect_kernelILi(\d+)ELi(\d+)E"
+
+
+#: B2's, B2-bf16's and B11's instances in ptxas's report (mangled
+#: smallm_candidates_kernel<M, KMAX>, smallm_bf16_candidates_kernel<M, V>,
+#: window_candidates_kernel<V>).
+SMALLM_ENTRY = r"smallm_candidates_kernelILi(\d+)ELi(\d+)E"
+SMALLM_BF16_ENTRY = r"smallm_bf16_candidates_kernelILi(\d+)ELi(\d+)E"
+WINDOW_ENTRY = r"window_candidates_kernelILi(\d+)E"
+
+
+def check_scan_smem(smem):
+    """Each B2-bf16 and B11 instance's static shared memory (ptxas) equals
+    tuning's mirror (smallm_bf16_state_bytes, window_state_bytes): every
+    (m, load width) B2-bf16 instance and both B11 widths."""
+    import re
+
+    from tpu_knn_torch.kernels import smallm, tuning
+
+    want = {(m, v) for m in range(1, smallm.SMALLM_MAX_M + 1) for v in smallm.BF16_LOAD_WIDTHS
+            if m <= smallm.BF16_WIDE_MAX_M or v <= smallm.BF16_NARROW_WIDTH}
+    seen, widths = set(), set()
+    for entry, nbytes in smem.items():
+        bf, win = re.search(SMALLM_BF16_ENTRY, entry), re.search(WINDOW_ENTRY, entry)
+        if bf:
+            key = (int(bf.group(1)), int(bf.group(2)))
+            mirror = tuning.smallm_bf16_state_bytes(*key)
+            seen.add(key)
+        elif win:
+            widths.add(int(win.group(1)))
+            mirror = tuning.window_state_bytes(int(win.group(1)))
+        else:
+            continue
+        if nbytes != mirror:
+            fail(f"{entry}: {nbytes} bytes of static shared memory, the mirror says {mirror}")
+    if seen != want or widths != {1, 4}:
+        fail(f"B2-bf16 instances {sorted(seen)} (expected {sorted(want)}), B11 widths "
+             f"{sorted(widths)} (expected [1, 4])")
+    log(f"  B2-bf16 and B11 instances: static shared memory as tuning.smallm_bf16_state_bytes "
+        f"and window_state_bytes ({len(seen)} + {len(widths)} instances)")
 
 
 def check_topk_smem(smem):
@@ -2505,9 +2639,13 @@ def main() -> int:
             "B10 (B1's tiled kernel, TMA ring)": TMA_ENTRY,
             "B8/B9 compactor": "compact_cells_kernel",
             "B5 (the tiled kernel, K-list fold)": SWEEP_ENTRY,
-            "B6 (K-lists over B2's scan)": SMALLM_TOPK_ENTRY})
+            "B6 (K-lists over B2's scan)": SMALLM_TOPK_ENTRY,
+            "B2": SMALLM_ENTRY,
+            "B2-bf16 (wide loads)": SMALLM_BF16_ENTRY,
+            "B11 (float4 and 4-byte rows)": WINDOW_ENTRY})
         check_tiled_smem(smem)
         check_topk_smem(smem)
+        check_scan_smem(smem)
 
     stamp("phase 0")
     gen = torch.Generator(device=device)
@@ -2690,6 +2828,18 @@ def main() -> int:
                  for window in (4096, 1 << 18)]
     b11_cases += [(3, 16, 1 << 24, projection.auto_window(3, 1 << 24))]
     errs["B11"] = phase1_b11(device, gen, b11_cases)
+    # B11 at m = 1, 7, 16, 64 and k = 3, 8, 16, 40 (several row chunks a
+    # column), windows of 2 + 1 and 5 + 1 tiles whose query 0 starts at the
+    # last tile, n ragged against 4096; and at v11's ds8 and ds10 launches
+    # (m = 1; m = 1024 at one split). A generator of their own keeps the
+    # data of the cases after them as they were.
+    gen_b11 = torch.Generator(device=device)
+    gen_b11.manual_seed(1009)
+    b11_edges = [(k, m, 70_001 + 77 * k, 8192 if m < 64 else 20_480)
+                 for k in (3, 8, 16, 40) for m in (1, 7, 16, 64)]
+    b11_edges += [(3, 1, 1 << 24, projection.auto_window(3, 1 << 24)),
+                  (3, 1024, 1 << 20, projection.auto_window(3, 1 << 20))]
+    edge_errs["B11"] = phase1_b11(device, gen_b11, b11_edges)
     stamp("phase 1 B11")
     variant_cases = [(k, m, n, parts) for k in (3, 16) for m in (8, 1000)
                      for n in (1000, 1 << 20) for parts in (1, None)]
@@ -2755,6 +2905,14 @@ def main() -> int:
     errs["B2-bf16"] = phase1_b2_bf16(device, gen, [(k, m, n) for k in (8, 16, 32)
                                                   for m in (1, 4) for n in (1000, n_t)]
                                      + [(16, 1, 1 << 20), (16, 4, 1 << 20)])
+    # B2-bf16 at each load width (the operand's narrower-load copies), m =
+    # 1..4, k = 1, 8, 9, 16, 17, 32, n ragged against 8 and 128, from a
+    # generator of its own.
+    gen_bf16 = torch.Generator(device=device)
+    gen_bf16.manual_seed(1010)
+    edge_errs["B2-bf16"] = phase1_b2_bf16(
+        device, gen_bf16, [(k, m, 20_003) for m in (1, 2, 3, 4) for k in (1, 8, 9, 16, 17, 32)],
+        edges=True)
     torch.cuda.empty_cache()
     stamp("phase 1 tiers, B12 and B2-bf16")
 
@@ -2930,6 +3088,13 @@ def main() -> int:
               "B5": "sweep", "B3": "seeded", "B7": "seeded", "B8": "seeded", "B9": "seeded",
               "B11": "window", "B2-bf16": "smallm"}
     family.update({row: "tensor" for row in tier_rows if row != "B2-bf16"})
+    # B11 also at v11's ds8 and ds10 launches; B2-bf16 also with its
+    # operand out of L2.
+    extras = {"B11": {f"{key}_{label}": value for label in ("ds8", "ds10")
+                      for key, value in (("device_ms", times[f"B11 kernel {label} device"]),
+                                         ("ms", times[f"B11 kernel {label}"]),
+                                         ("bound_ms", ladder_bounds[f"B11 {label}"][0]))},
+              "B2-bf16": {"device_ms_l2_flushed": times["B2-bf16 kernel device L2 flushed"]}}
     # No single PyTorch call computes a per-lane fold, so library_ms is
     # null; matmul_part_ms is cuBLAS's product of the same score matrix
     # (f32 with TF32 off for the f32 kernels, bf16 for the tensor-core
@@ -2947,7 +3112,8 @@ def main() -> int:
              "highest_ms": times[f"{kid} B1 highest"]} if kid in tier_rel else {}),
          **({"tile_edges_max_abs_err": edge_errs[kid]} if kid in edge_errs else {}),
          **({"device_ms": times[f"{t_kernel} device"]} if f"{t_kernel} device" in times
-            else {})}
+            else {}),
+         **extras.get(kid, {})}
         for kid, fname, replaces, t_kernel, t_plain, t_matmul in rows]
     log(f"version {tpu_knn_torch.__version__}; {card}; "
         f"total {time.perf_counter() - t_start:.1f} s")

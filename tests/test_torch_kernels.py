@@ -787,6 +787,65 @@ def test_tensor_kernel_matches_plain_at_tile_edges(device, precision, kind, k, m
     assert int(got[0]) == 5
 
 
+def _fma32(a, b, c):
+    """fmaf(a, b, c) of f32 tensors, correctly rounded, in f64: the product
+    is exact, the sum is rounded to odd (TwoSum's error nudges an even
+    result one ulp towards it), and 53 >= 24 + 2 bits make the final
+    rounding to f32 the single rounding of fmaf."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    nudge = torch.isfinite(s) & (e != 0) & even
+    s = torch.where(nudge, torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf)), s)
+    return s.float()
+
+
+def _window_candidates_exact(q, r_aug, tiles, w_tiles, splits):
+    """B11's contract, bit for bit: s' = fmaf(-0.5, |r|^2, acc) after acc =
+    fmaf(q[d], r[d, col], acc) for d = 0..k-1, the earliest column of each
+    lane's maximum, INT32_MAX for a lane that saw only -inf."""
+    m, k = q.shape
+    cols = tiles.long()[:, None] * projection.TILE_W + torch.arange(
+        w_tiles * projection.TILE_W, device=q.device)
+    rc = r_aug[:k + 1][:, cols]
+    acc = torch.zeros(cols.shape, dtype=torch.float32, device=q.device)
+    for d in range(k):
+        acc = _fma32(q[:, d, None].expand_as(acc), rc[d], acc)
+    s = _fma32(torch.full_like(acc, -0.5), rc[k], acc)
+    idx, _ = fused._lane_fold(-s, splits)
+    return torch.where(idx < 2**31 - 1, idx + tiles[:, None] * projection.TILE_W, idx)
+
+
+@pytest.mark.parametrize("m", [1, 7, 16, 64])
+@pytest.mark.parametrize("k", [3, 8, 16, 40])
+def test_b11_is_bit_equal_to_its_contract(device, k, m):
+    """B11 (float4 rows, and 4-byte rows over an operand whose base is not
+    16-byte aligned) against the fold it must compute, bit for bit, at one
+    split, three and the default; query 0 at the corner, whose window
+    starts at the last tile; each launch made twice."""
+    n, window = 37_000 + 77 * k, 8192 if k < 16 else 4096
+    gen = torch.Generator(device=device)
+    gen.manual_seed(31 * k + m)
+    r = torch.rand((n, k), generator=gen, device=device)
+    q = torch.rand((m, k), generator=gen, device=device)
+    q[0] = 1.0
+    index = projection.build_projection_index(r)
+    w_tiles = projection.window_tiles(n, window)
+    pos = torch.searchsorted(index[3], projection._axis_column(q, index[2]))
+    start = (pos - window // 2).clamp(0, n - window)
+    tiles = (start // projection.TILE_W).to(torch.int32)
+    assert int(tiles[0]) * projection.TILE_W + w_tiles * projection.TILE_W >= n
+    for r_aug in (index[6], _misaligned(index[6], 1)):
+        for splits in sorted({1, 3, projection.window_splits(m, w_tiles)}):
+            want = _window_candidates_exact(q, r_aug, tiles, w_tiles, splits)
+            got = [projection.window_candidates(q, r_aug, tiles, w_tiles, splits)
+                   for _ in range(2)]
+            assert torch.equal(got[0], got[1]) and torch.equal(got[0], want), splits
+
+
 @pytest.mark.parametrize("k,m,n,parts", [(8, 1, 1000, 1), (16, 3, 70_000, 9),
                                          (32, 4, 5000, 2), (3, 2, 777, 3)])
 def test_b2_bf16_is_bit_equal_to_b2_on_the_upcast_operand(device, k, m, n, parts):
@@ -801,6 +860,30 @@ def test_b2_bf16_is_bit_equal_to_b2_on_the_upcast_operand(device, k, m, n, parts
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     plain = smallm.smallm_candidates_plain(q, r_bf, n, parts)
     assert (got[0] == plain[0]).float().mean().item() >= 0.9999
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 8, 9, 16, 17, 32])
+def test_b2_bf16_load_widths_are_bit_equal_to_b2(device, k, m):
+    """B2-bf16 at every load width its launcher picks (16 bytes over an
+    aligned operand; 8, 4 and 2 over an ld that is not a multiple of 8 or a
+    base 1, 2 or 4 elements past alignment), n ragged against 8 and 128:
+    bit-equal to B2 on the upcast operand at two partition counts, each
+    launch made twice."""
+    n = 20_003
+    q, _, r_op = _inputs(device, m, k, n, seed=97 * k + m)
+    r_bf = r_op.to(torch.bfloat16)
+    operands = [r_bf] + [r_bf[:, :ld].contiguous() for ld in (n + 1, n + 3, n)]
+    operands += [_misaligned(r_bf, offset) for offset in (1, 2, 4)]
+    widths = {smallm.bf16_load_width(v, m) for v in operands}
+    assert widths == ({8, 4, 2, 1} if m <= 2 else {4, 2, 1})
+    for r_v in operands:
+        want = {p: smallm.smallm_candidates(q, r_v.float(), n, p)
+                for p in (7, smallm.bf16_parts(n))}
+        for parts, (wi, ws) in want.items():
+            for _ in range(2):
+                gi, gs = smallm.smallm_candidates(q, r_v, n, parts)
+                assert torch.equal(gi, wi) and torch.equal(gs, ws), (r_v.stride(), parts)
 
 
 def test_tier_wrappers_raise(device):

@@ -318,7 +318,8 @@ def _csrc_constants():
     import tpu_knn_torch.csrc as csrc
 
     found = {}
-    for name in ("knn_common.cuh", "tiled.cuh", "kselect.cuh", "smallm_kernels.cu"):
+    for name in ("knn_common.cuh", "tiled.cuh", "kselect.cuh", "smallm_kernels.cu",
+                 "window_kernels.cu"):
         with open(os.path.join(os.path.dirname(csrc.__file__), name)) as f:
             text = f.read()
         for key, expr in re.findall(r"^constexpr (?:int|size_t) (\w+) = ([^;]+);", text, re.M):
@@ -354,6 +355,91 @@ def test_topk_shared_memory_mirror_matches_the_kernel_constants():
             granted = -(-state // pt_tuning.SMEM_ALLOC_UNIT) * pt_tuning.SMEM_ALLOC_UNIT
             per_sm = c["kSmallmTopkBlocksPerSm" if kmax <= 16 else "kSmallmTopkWideBlocksPerSm"]
             assert per_sm * (granted + c["kSmemPerBlockReserved"]) <= c["kSmemPerSm"]
+
+
+def test_wide_load_scans_mirror_the_kernel_constants():
+    """B11's and B2-bf16's Python geometry names the constants of their
+    CUDA source: blocks per SM (their __launch_bounds__), B2-bf16's load
+    widths and their cap at m > 2, k's limit, B2-bf16's block size; each
+    width's row chunk divides the queries' 32 coordinates; the static
+    shared memory mirrors
+    (tuning.window_state_bytes, smallm_bf16_state_bytes) admit the blocks
+    per SM that the grids are sized to."""
+    from tpu_knn_torch.kernels import projection as pt_proj
+
+    c = _csrc_constants()
+    assert pt_proj.B11_BLOCKS_PER_SM == c["kWindowBlocksPerSm"]
+    assert pt_smallm.B2_BF16_BLOCKS_PER_SM == c["kSmallmBf16BlocksPerSm"]
+    assert pt_tuning.SMALLM_BF16_THREADS == c["kBf16Threads"]
+    assert (pt_smallm.BF16_WIDE_MAX_M, pt_smallm.BF16_NARROW_WIDTH) == (
+        c["kBf16WideMaxM"], c["kBf16NarrowVec"])
+    assert pt_smallm.SMALLM_MAX_K == c["kSmallmMaxK"]
+    assert pt_proj.TILE_W == c["kTileW"]
+    for v in pt_smallm.BF16_LOAD_WIDTHS:
+        rows = min(2 * c["kBf16ChunkWords"] // v, c["kBf16MaxRows"])    # csrc bf16_rows
+        assert c["kLanes"] % v == 0 and c["kSmallmMaxK"] % rows == 0
+        for m in range(1, pt_smallm.SMALLM_MAX_M + 1):
+            if m > pt_smallm.BF16_WIDE_MAX_M and v > pt_smallm.BF16_NARROW_WIDTH:
+                continue                                  # no such instance
+            state = pt_tuning.smallm_bf16_state_bytes(m, v)
+            slots = c["kBf16Threads"] // (c["kLanes"] // v)
+            assert state == 16 * c["kSmallmMaxK"] + 8 * slots * m * c["kLanes"] <= 48 * 1024
+            granted = -(-state // pt_tuning.SMEM_ALLOC_UNIT) * pt_tuning.SMEM_ALLOC_UNIT
+            assert c["kSmallmBf16BlocksPerSm"] * (granted + c["kSmemPerBlockReserved"]) <= (
+                c["kSmemPerSm"])
+    for v in (1, 4):
+        state = pt_tuning.window_state_bytes(v) + 4 * 40     # and k = 40's queries
+        assert c["kWindowBlocksPerSm"] * (state + c["kSmemPerBlockReserved"]) <= c["kSmemPerSm"]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_b2_bf16_load_width_choice(m):
+    """The width B2-bf16's launcher picks (smallm.bf16_load_width, csrc
+    bf16_vec): the widest of 8, 4, 2, 1 values whose bytes divide the base
+    address and whose count divides ld, at most 4 past m = 2; over every
+    base offset and ld residue mod 8."""
+    rows = 3
+    base = torch.zeros(8 + rows * 1032, dtype=torch.bfloat16)
+    start = (-base.data_ptr() // 2) % 8                  # a 16-byte aligned element
+    seen = set()
+    for offset in range(8):
+        for ld in range(1024, 1032):
+            v = base[start + offset:start + offset + rows * ld].view(rows, ld)
+            w = pt_smallm.bf16_load_width(v, m)
+            fits = [x for x in pt_smallm.BF16_LOAD_WIDTHS
+                    if v.data_ptr() % (2 * x) == 0 and ld % x == 0
+                    and (m <= 2 or x <= pt_smallm.BF16_NARROW_WIDTH)]
+            assert w == max(fits)
+            seen.add(w)
+    assert seen == ({8, 4, 2, 1} if m <= 2 else {4, 2, 1})
+
+
+def test_wide_load_scans_fill_the_card():
+    """B11's split count and B2-bf16's partition count never exceed the
+    window's or the operand's 128-column groups, and give the grid the
+    blocks per SM their kernels' __launch_bounds__ are built for (one wave),
+    unless every group already has its block."""
+    from tpu_knn_torch.kernels import projection as pt_proj
+
+    for n in NS[3:]:
+        for window in (4096, 5000, 1 << 18, pt_proj.auto_window(3, n)):
+            w_tiles = pt_proj.window_tiles(n, window)
+            groups = w_tiles * pt_proj.TILE_W // 128
+            for m in MS[1:]:
+                splits = pt_proj.window_splits(m, w_tiles)
+                assert 1 <= splits <= groups
+                assert splits == groups or splits * m >= (
+                    pt_proj.B11_BLOCKS_PER_SM * pt_tuning.H100_SMS)
+                assert (splits - 1) * m < pt_proj.B11_BLOCKS_PER_SM * pt_tuning.H100_SMS
+    for n in NS:
+        groups = -(-n // 128)
+        parts = pt_smallm.bf16_parts(n)
+        assert 1 <= parts <= groups
+        assert parts == groups or parts == pt_smallm.B2_BF16_BLOCKS_PER_SM * pt_tuning.H100_SMS
+    # The auto path's launch over (3, 2^24) at m = 16, and ds8's at m = 1.
+    w_tiles = pt_proj.window_tiles(1 << 24, pt_proj.auto_window(3, 1 << 24))
+    assert w_tiles == 65
+    assert pt_proj.window_splits(16, w_tiles) == -(-pt_proj.B11_BLOCKS_PER_SM * 132 // 16)
 
 
 def test_v6_shared_memory_mirror_matches_the_kernel_constants():

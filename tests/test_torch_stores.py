@@ -62,6 +62,28 @@ def test_bf16_store_matches_tpu_knn(k, n, monkeypatch):
                         [torch.bfloat16] * 2 if k == 3 else [])   # m = 1 at k = 3: AoS scan
 
 
+def test_bf16_store_small_batches_at_b2_bf16s_partition_count(monkeypatch):
+    """Past 2^15 + 2^10 points B2-bf16 takes its own partition count
+    (smallm.bf16_parts: 264 here, against B2's 313): the prepared m = 2
+    and 4 answers stay tpu_knn's, with 0 errors over the stored points."""
+    rng = np.random.default_rng(23)
+    n, k = 40_000, 16
+    ref = rng.random((n, k), np.float32)
+    ix, jx = NNIndex(ref, store="bf16", device="cpu"), JaxIndex(ref, store="bf16")
+    assert smallm.bf16_parts(n) == 264 and smallm.default_parts(n) == 313
+    parts = []
+    monkeypatch.setattr(smallm, "smallm_candidates_plain",
+                        lambda q, r_op, n_, p, f=smallm.smallm_candidates_plain:
+                        parts.append(p) or f(q, r_op, n_, p))
+    ref_q = _quantized(ref)
+    for m in (2, 4):
+        q = rng.random((m, k), np.float32)
+        got = ix.query(q)
+        _same(got, jx.query(q))
+        np.testing.assert_array_equal(got[0].numpy(), oracle_knn(q, ref_q))
+    assert parts == [264, 264]
+
+
 def test_bf16_dense_route_and_tie_rule():
     """A small index takes the dense route; bf16 quantization creates exact
     duplicates and the lowest index wins (after test_bf16_store.py:63)."""

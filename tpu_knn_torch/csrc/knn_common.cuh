@@ -120,24 +120,25 @@ __device__ __forceinline__ float column_norm_chunk(const float* rc, int r_ld, fl
   return norm;
 }
 
-// The exact diff-form arithmetic of B2 and B6: sum_d (r[d,col] - q[d])^2,
-// one fmaf chain over d in order. B6's bound is the K-th smallest of B2's
-// lane minima, so the two kernels must score a column identically. A bf16
-// operand (a bf16 store) is upcast at the read, exactly, so B2 over it
-// scores as B2 over the same values stored in f32.
+// One operand value as f32: a bf16 operand (a bf16 store) is upcast at the
+// read, exactly (the tensor-core kernel's norm pass).
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
 
-template <int KMAX, typename RT>
-__device__ __forceinline__ void load_column(const RT* __restrict__ rc, long long ld, int k,
+// The exact diff-form arithmetic of B2 and B6: sum_d (r[d,col] - q[d])^2,
+// one fmaf chain over d in order. B6's bound is the K-th smallest of B2's
+// lane minima, so the two kernels must score a column identically (and
+// B2-bf16, smallm_kernels.cu, keeps the same chain over its upcast rows).
+template <int KMAX>
+__device__ __forceinline__ void load_column(const float* __restrict__ rc, long long ld, int k,
                                             float (&rv)[KMAX]) {
   // All k loads of a column are issued before they are used; rows
   // k..KMAX-1 load as 0 against a 0 query coordinate: distance-neutral.
 #pragma unroll
-  for (int d = 0; d < KMAX; ++d) rv[d] = d < k ? load_f32(rc + d * ld) : 0.f;
+  for (int d = 0; d < KMAX; ++d) rv[d] = d < k ? __ldg(rc + d * ld) : 0.f;
 }
 
 template <int KMAX>

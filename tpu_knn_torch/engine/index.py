@@ -68,7 +68,7 @@ def _build_smallm_prepared(m: int, n: int, k: int):
     resident ref array serves instead, as in tpu_knn. Returns run(search,
     r_ops, ref_aos) -> (idx, d2)."""
     from tpu_knn_torch.kernels.smallm import (
-        AOS_SCAN_MAX_KPAD_WASTE_K, SMALLM_MAX_K, _aos_scan, default_parts,
+        AOS_SCAN_MAX_KPAD_WASTE_K, SMALLM_MAX_K, _aos_scan, operand_parts,
         smallm_candidates,
     )
 
@@ -77,11 +77,10 @@ def _build_smallm_prepared(m: int, n: int, k: int):
             return _aos_scan(search, ref_aos)
 
         return run_aos
-    parts = default_parts(n)
     cutoff = select_cutoff("exact", k)
 
     def run(search, r_ops, ref_aos):
-        cand = smallm_candidates(search, r_ops[0], n, parts)
+        cand = smallm_candidates(search, r_ops[0], n, operand_parts(r_ops[0], n))
         return _refine(search, ref_aos, cand, n, cutoff=cutoff)
 
     return run

@@ -7,8 +7,9 @@ Two engines, split as in tpu_knn:
   Pallas `_smallm_kernel`) that streams the same SoA (k_pad, n_pad)
   operand as B1 and folds exact diff-form scores Σ(r − q)² into per-lane
   candidates; `_refine` picks the winner (always certified: the scores
-  are exact). A bf16 store's operand takes B2-bf16, the same kernel
-  reading bf16 and upcasting at the read.
+  are exact). A bf16 store's operand takes B2-bf16, a kernel of its own
+  (16-byte loads of 8 bf16, upcast at the read) with B2's candidates bit
+  for bit, at its own partition count (`bf16_parts`).
 - PER-CALL (caller hands an (n, k) array): the diff-form AoS scan over
   the caller's array, plain torch ops (plain XLA in tpu_knn). It takes a
   bf16 store's points or an int8 grid as they are stored: f32 − bf16 and
@@ -45,6 +46,12 @@ AOS_SCAN_MAX_KPAD_WASTE_K = 8
 #: in flight (tuning.pick_parts).
 B2_BLOCKS_PER_SM = 4
 
+#: B2-bf16's blocks of 256 threads per SM: the residency its
+#: __launch_bounds__ provides registers for (csrc smallm_kernels.cu
+#: kSmallmBf16BlocksPerSm), the same threads an SM as B2's grid with half
+#: its partitions, so the refine after it ranks half the candidates.
+B2_BF16_BLOCKS_PER_SM = 2
+
 
 def pick_tile_n(k: int, n: int) -> int:
     """tpu_knn's tile for the Pallas small-m kernel, verbatim (kept for the
@@ -68,6 +75,37 @@ def aos_scan_applicable(m: int, k: int, n: int) -> bool:
 def default_parts(n: int) -> int:
     """B2 partition count (one row tile: the whole batch)."""
     return pick_parts(1, n, B2_BLOCKS_PER_SM)
+
+
+def bf16_parts(n: int) -> int:
+    """B2-bf16's partition count: one wave of B2_BF16_BLOCKS_PER_SM blocks
+    an SM, never more than n's 128-column groups (264 at n >= 2^15 + 2^10
+    against B2's 528)."""
+    return pick_parts(1, n, B2_BF16_BLOCKS_PER_SM)
+
+
+#: B2-bf16's load widths in bf16 values a thread reads a row (csrc
+#: smallm_kernels.cu bf16_vec): the widest whose bytes divide the operand's
+#: base address and whose count divides its row stride; at most
+#: BF16_NARROW_WIDTH for m > BF16_WIDE_MAX_M (bf16_vec_cap: m rows x 8
+#: lanes of state do not fit the registers of B2_BF16_BLOCKS_PER_SM blocks).
+BF16_LOAD_WIDTHS = (8, 4, 2, 1)
+BF16_WIDE_MAX_M = 2
+BF16_NARROW_WIDTH = 4
+
+
+def bf16_load_width(r_op: torch.Tensor, m: int) -> int:
+    """The load width B2-bf16's launcher picks for r_op at m rows (a
+    mirror of csrc's bf16_vec and bf16_vec_cap, for tests and logs)."""
+    width = next(v for v in BF16_LOAD_WIDTHS
+                 if r_op.data_ptr() % (2 * v) == 0 and r_op.stride(0) % v == 0)
+    return width if m <= BF16_WIDE_MAX_M else min(width, BF16_NARROW_WIDTH)
+
+
+def operand_parts(r_op: torch.Tensor, n: int) -> int:
+    """P for the kernel that serves r_op: B2-bf16's for a bf16 operand,
+    B2's otherwise."""
+    return bf16_parts(n) if r_op.dtype == torch.bfloat16 else default_parts(n)
 
 
 def diff_scores(q, r_op, n: int):

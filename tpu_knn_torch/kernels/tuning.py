@@ -264,6 +264,31 @@ def smallm_topk_state_bytes(m: int, kmax: int) -> int:
     return round_up(4 * m * kmax + kselect_state_bytes(LANE // 32 * m), SMEM_STATIC_UNIT)
 
 
+# ---- the wide-load scans B11 and B2-bf16 (csrc window_kernels.cu,
+# smallm_kernels.cu): a thread owns v lanes of a group, a block reads v
+# groups side by side and merges their lane folds in shared memory.
+
+
+def window_state_bytes(v: int) -> int:
+    """Static shared memory of a B11 block at load width v (csrc
+    window_candidates_kernel<V>): the v slots' (max, column) merge of 128
+    lanes; none at v = 1 (one slot). The queries are dynamic."""
+    return 0 if v == 1 else round_up(8 * v * LANE, SMEM_STATIC_UNIT)
+
+
+#: Threads of a B2-bf16 block (csrc kBf16Threads): 2v groups side by side.
+SMALLM_BF16_THREADS = 256
+
+
+def smallm_bf16_state_bytes(m: int, v: int) -> int:
+    """Static shared memory of a B2-bf16 block of m rows at load width v
+    (csrc smallm_bf16_candidates_kernel<M, V>): the queries as one float4
+    per coordinate up to k = 32, and the (min, column) merge of m rows x
+    128 lanes from each of its SMALLM_BF16_THREADS * v / 128 slots."""
+    slots = SMALLM_BF16_THREADS * v // LANE
+    return round_up(16 * 32 + 8 * slots * m * LANE, SMEM_STATIC_UNIT)
+
+
 def _tiled_rows(m: int) -> int:
     return 1 if m <= TILED_WARPS else 4 if m <= 4 * TILED_WARPS else 8
 
