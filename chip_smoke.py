@@ -67,7 +67,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    (relative to the largest |score|) within the tier's gate, and the
    certified fast path's top-T selection exact at the measured error; B1
    "highest" beside each; and B2-bf16, bit-equal to B2 on the upcast
-   operand;
+   operand; then the bf16 instances (B1, B4, B3, B5 and B7 under the tiled
+   template's BF16 policy, and B6-bf16), each bit-equal to its f32
+   instance over the upcast operand on a grid (k = 1..128, m past a
+   block's rows, n ragged, ld != n, ld % 8 != 0 and a misaligned base; B6-bf16
+   at each load width) and at the main path's launches; then PAD columns
+   (1e30, and bf16(1e30)) in every row of the operand through B1 "highest"
+   and each tier, B2, B2-bf16, B3-B7 and the bf16 instances: none
+   reported, no NaN, a PAD-only cell never qualifying;
 2. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - 1-NN: the 8 TA shapes through knn_callback (v7 default, v4)
@@ -106,6 +113,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    - "highest" 1-NN at (768, 1024, 2^20): fused_knn(precision="highest")
      and NNIndex(precision="highest"), gated; its B1 launches are the
      "B1 k=768" row's;
+   - top-K and radius over the stores: the bf16 store at (16, 1024, 2^20)
+     (seeded K = 8 and 64, m = 8 K = 32, one passes-engine call,
+     "highest" 1-NN) and at (16, 4, 2^24) K = 16, the int8 store at m = 1
+     K = 16 over (16, 2^24) and m = 1024 K = 8 over (16, 2^20) and a
+     radius escalation at m = 8; each bf16 instance must launch;
+   - metric="cosine" and "ip" at (128, 1024, 2^20): 1-NN, K = 10, a
+     cosine radius escalation, gated in the transformed space;
+   - mutable f32 and bf16 indexes at (16, 2^20): add 2^16, remove 2^16,
+     grow past capacity once, compact, with m = 4 and 1024, 1-NN and K = 8
+     gated over the slot array after each step;
+   - filtered_view keeping half of (16, 2^20), f32 and bf16: 1-NN, K = 8
+     and radius, gated over the kept points;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
    cuBLAS product of the score matrices and the main paths (B5 at (16, 8,
    2^20) K = 32 and (16, 32, 2^20) K = 8 and B6 at (16, 4, 2^24) K = 16
@@ -121,7 +140,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    with device time and idle per host read from torch.profiler; each tier
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
    the store and embed calls), each printed beside the card's name and
-   power limit, and the bounds (tensor-core tiers at 989 TFLOP/s bf16).
+   power limit, and the bounds (tensor-core tiers at 989 TFLOP/s bf16);
+   each bf16 instance beside its f32 instance at the main path's launch
+   (events and device time, bound at k·n·2 operand bytes), and the device
+   and host time of the store top-K, metric, mutable and view calls.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -2491,6 +2513,11 @@ TMA_ENTRY = r"tma_candidates_kernelILi(\d+)E"
 SWEEP_ENTRY = r"sweep_kselect_kernelILi(\d+)E"
 SMALLM_TOPK_ENTRY = r"smallm_kselect_kernelILi(\d+)ELi(\d+)E"
 
+#: Their bf16 instances (sweep_bf16_kselect_kernel<TM>,
+#: smallm_bf16_kselect_kernel<M, V>).
+SWEEP_BF16_ENTRY = r"sweep_bf16_kselect_kernelILi(\d+)E"
+SMALLM_BF16_TOPK_ENTRY = r"smallm_bf16_kselect_kernelILi(\d+)ELi(\d+)E"
+
 
 #: B2's, B2-bf16's and B11's instances in ptxas's report (mangled
 #: smallm_candidates_kernel<M, KMAX>, smallm_bf16_candidates_kernel<M, V>,
@@ -2532,29 +2559,40 @@ def check_scan_smem(smem):
 
 
 def check_topk_smem(smem):
-    """Each B5 and B6 instance's static shared memory (ptxas) equals
-    tuning's mirror (sweep_state_bytes, smallm_topk_state_bytes)."""
+    """Each B5 and B6 instance's static shared memory (ptxas), and each of
+    their bf16 instances', equals tuning's mirror (sweep_state_bytes,
+    smallm_topk_state_bytes, smallm_bf16_topk_state_bytes)."""
     import re
 
-    from tpu_knn_torch.kernels import tuning
+    from tpu_knn_torch.kernels import smallm, tuning
 
     checked = 0
     for entry, nbytes in smem.items():
-        sweep, small = re.search(SWEEP_ENTRY, entry), re.search(SMALLM_TOPK_ENTRY, entry)
+        sweep = re.search(SWEEP_ENTRY, entry) or re.search(SWEEP_BF16_ENTRY, entry)
+        small = re.search(SMALLM_TOPK_ENTRY, entry)
+        small_bf16 = re.search(SMALLM_BF16_TOPK_ENTRY, entry)
         if sweep:
             want = tuning.sweep_state_bytes(int(sweep.group(1)))
         elif small:
             want = tuning.smallm_topk_state_bytes(int(small.group(1)), int(small.group(2)))
+        elif small_bf16:
+            want = tuning.smallm_bf16_topk_state_bytes(int(small_bf16.group(1)),
+                                                       int(small_bf16.group(2)))
         else:
             continue
         if nbytes != want:
             fail(f"{entry}: {nbytes} bytes of static shared memory, the mirror says {want}")
         checked += 1
-    if checked != len(tuning.SWEEP_ROWS) + 4 * 3:
-        fail(f"checked {checked} B5/B6 instances' shared memory, expected "
-             f"{len(tuning.SWEEP_ROWS) + 4 * 3}")
-    log(f"  B5 and B6 instances: static shared memory as tuning.sweep_state_bytes and "
-        f"smallm_topk_state_bytes ({checked} instances)")
+    bf16_instances = sum(1 for m in range(1, smallm.SMALLM_MAX_M + 1)
+                         for v in smallm.BF16_LOAD_WIDTHS
+                         if m <= smallm.BF16_WIDE_MAX_M or v <= smallm.BF16_NARROW_WIDTH)
+    expected = 2 * len(tuning.SWEEP_ROWS) + 4 * 3 + bf16_instances
+    if checked != expected:
+        fail(f"checked {checked} B5/B6 (and bf16) instances' shared memory, expected "
+             f"{expected}")
+    log(f"  B5 and B6 instances and their bf16 instances: static shared memory as "
+        f"tuning.sweep_state_bytes, smallm_topk_state_bytes and smallm_bf16_topk_state_bytes "
+        f"({checked} instances)")
 
 
 def check_tiled_smem(smem):
@@ -2581,6 +2619,758 @@ def check_tiled_smem(smem):
              f"{3 * len(tuning.TILED_ROWS)}")
     log(f"  v3, v6 and B10 instances: static shared memory as "
         f"tuning.candidates_state_bytes ({checked} instances)")
+
+
+# ---- ROADMAP A.6.1-A.6.4: bf16 instances, PAD columns, stores, metrics,
+# mutable indexes and filtered views -----------------------------------------
+
+
+#: The bf16 instances: launch-count key -> (wrapper module, wrapper name,
+#: the f32 instance's row, the kernel's name in the profile).
+BF16_ROWS = {
+    "B1-bf16": ("fused", "fused_candidates", "B1", "tiled_bf16_candidates_kernel"),
+    "B4-bf16": ("fused", "banded_candidates", "B4", "tiled_bf16_candidates_kernel"),
+    "B3-bf16": ("fused", "minima_candidates", "B3", "bf16_minima"),
+    "B5-bf16": ("topk", "sweep_candidates", "B5", "sweep_bf16_kselect"),
+    "B6-bf16": ("topk", "smallm_topk_candidates", "B6", "smallm_bf16_kselect"),
+    "B7-bf16": ("seeded", "extract_moments", "B7", "bf16_moments"),
+}
+
+
+def bf16_wrapper(kid):
+    import importlib
+
+    mod, name, _, _ = BF16_ROWS[kid]
+    return getattr(importlib.import_module(f"tpu_knn_torch.kernels.{mod}"), name)
+
+
+def bf16_case(gen, device, k, m, n, ld, pad=()):
+    """Queries, a bf16 SoA operand (k_pad, ld) of n uniform points with the
+    columns `pad` PAD_VALUE, and its exact f32 upcast."""
+    import torch
+
+    from tpu_knn_torch.engine.index import PAD_VALUE
+    from tpu_knn_torch.utils.shapes import round_up
+
+    q = uniform(gen, (m, k), device)
+    r_op = torch.zeros((round_up(k, 8), ld), dtype=torch.bfloat16, device=device)
+    r_op[:k, :n] = uniform(gen, (n, k), device).T
+    cols = [c for c in pad if c < n]
+    if cols:
+        r_op[:, cols] = PAD_VALUE
+    return q, r_op, r_op.float()
+
+
+def same_bits(name, got, want):
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"{name}: the bf16 instance differs from the f32 instance over the upcast "
+                 f"operand")
+
+
+def tiled_bf16_checks(tag, q, rb, rf, n, kks=(1, 8, 32), b7=True):
+    """B1-, B4-, B3- (depth 1 and 2), B5- (each K) and B7-bf16 (each cell
+    and mode, banded with the remainder, where ld takes the cell) bit-equal
+    to their f32 instances over the upcast operand."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, topk
+
+    m, k = q.shape
+    parts = fused.tiled_parts(m, k, n)
+    same_bits(f"B1-bf16 {tag}", fused.fused_candidates(q, rb, n, parts),
+              fused.fused_candidates(q, rf, n, parts))
+    bs = torch.full((m,), 0.25 * k, device=q.device)
+    bi = torch.full((m,), n // 2, dtype=torch.int32, device=q.device)
+    same_bits(f"B4-bf16 {tag}", fused.banded_candidates(q, rb, n, parts, bs, bi),
+              fused.banded_candidates(q, rf, n, parts, bs, bi))
+    for depth in (1, 2):
+        same_bits(f"B3-bf16 depth {depth} {tag}", fused.minima_candidates(q, rb, n, depth),
+                  fused.minima_candidates(q, rf, n, depth))
+    p5 = topk.sweep_parts(m, k, n)
+    for kk in kks:
+        same_bits(f"B5-bf16 K={kk} {tag}", topk.sweep_candidates(q, rb, n, p5, kk),
+                  topk.sweep_candidates(q, rf, n, p5, kk))
+    if not b7:
+        return
+    bound = torch.full((m,), 0.2 * k, device=q.device)
+    lo = torch.full((m,), 0.02 * k, device=q.device)
+    for cell in (64, 128, 256):
+        if rb.shape[1] % cell:
+            continue
+        for nf in (4, 8):
+            same_bits(f"B7-bf16 cell {cell} fields {nf} {tag}",
+                      seeded.extract_moments(q, rb, n, bound, cell, nf),
+                      seeded.extract_moments(q, rf, n, bound, cell, nf))
+        same_bits(f"B7-bf16 cell {cell} banded {tag}",
+                  seeded.extract_moments(q, rb, n, bound, cell, 8, lo=lo, emit_rem=True),
+                  seeded.extract_moments(q, rf, n, bound, cell, 8, lo=lo, emit_rem=True))
+
+
+def b6_bf16_checks(tag, q, rb, n, kks=(1, 8, 16, 32)):
+    """B6-bf16 bit-equal to B6 over the upcast operand at B6-bf16's P and at
+    B6's, seeded by B2's bound, each launch made twice; its lists hold at
+    least K real entries a row."""
+    import torch
+
+    from tpu_knn_torch.kernels import smallm, topk
+
+    m, k = q.shape
+    rf = rb.float()
+    _, cs = smallm.smallm_candidates(q, rf, n, smallm.default_parts(n))
+    for kk in kks:
+        bound = torch.topk(cs, kk, dim=-1, largest=False).values[:, -1].contiguous()
+        for parts in {topk.smallm_topk_operand_parts(rb, n, k), topk.smallm_topk_parts(n, k)}:
+            got = topk.smallm_topk_candidates(q, rb, n, parts, kk, bound)
+            same_bits(f"B6-bf16 K={kk} P={parts} {tag}", got,
+                      topk.smallm_topk_candidates(q, rf, n, parts, kk, bound))
+            same_bits(f"B6-bf16 K={kk} P={parts} {tag} (second launch)",
+                      topk.smallm_topk_candidates(q, rb, n, parts, kk, bound), got)
+            real = (got[0] < n).sum(dim=1)
+            if int(real.min()) < kk:
+                fail(f"B6-bf16 K={kk} {tag}: a row holds {int(real.min())} real entries")
+
+
+def bf16_plain_ds11(q, rb, n, q_t):
+    """The tiled bf16 instances at the main path's ds11 launches against
+    their plain versions over the same bf16 operand, by the f32 rows'
+    rules: B1-bf16 (compare_candidates: index agreement, scores within
+    score_rtol, refined 1-NN identical), B4-bf16 (a second pass seeded by
+    each version's own first, slot_agreement), B3-bf16 at the seeded K = 8
+    and 64 prefix launches (finite lanes equal, scores within SCORE_RTOL),
+    B7-bf16 at their cells (bounds between ranks as phase1_seeded's: packed
+    words identical, remainder minima within SCORE_RTOL), B5-bf16 at (16,
+    8, 2^20) K = 32 (the list contract, list_agreement, top-K identical but
+    for near-ties). Returns {row: largest |score difference|}."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, topk
+    from tpu_knn_torch.kernels.fused import select_cutoff
+
+    m, k = q.shape
+    errs = {}
+    parts = fused.tiled_parts(m, k, n)
+    ki, ks = fused.fused_candidates(q, rb, n, parts)
+    pi, ps = fused.fused_candidates_plain(q, rb, n, parts)
+    share, errs["B1-bf16"], scale = slot_agreement("B1-bf16 ds11", ki, ks, pi, ps,
+                                                   score_rtol(k))
+    ref = rb[:k, :n].T.float().contiguous()
+    cutoff = select_cutoff("highest", k)
+    if not torch.equal(fused._refine(q, ref, (ki, ks), n, cutoff=cutoff)[0],
+                       fused._refine(q, ref, (pi, ps), n, cutoff=cutoff)[0]):
+        fail("B1-bf16 ds11: refined 1-NN indices differ from the plain version's")
+    log(f"  B1-bf16 ds11 P={parts}: against plain over the bf16 operand: index agreement "
+        f"{share:.6f}, max |score diff| {errs['B1-bf16']:.3g} (max |score| {scale:.3g}), "
+        "refined 1-NN identical")
+    lo_s = torch.full((m,), -torch.inf, device=q.device)
+    lo_i = torch.full((m,), -1, dtype=torch.int32, device=q.device)
+    i1, s1 = topk._lex_min(ki, ks)
+    ki, ks = fused.banded_candidates(q, rb, n, parts, s1, i1)
+    p1_i, p1_s = topk._lex_min(*fused.banded_candidates_plain(q, rb, n, parts, lo_s, lo_i))
+    pi, ps = fused.banded_candidates_plain(q, rb, n, parts, p1_s, p1_i)
+    share, errs["B4-bf16"], scale = slot_agreement("B4-bf16 ds11", ki, ks, pi, ps,
+                                                   score_rtol(k))
+    log(f"  B4-bf16 ds11 P={parts}: pass 2 against plain over the bf16 operand: index "
+        f"agreement {share:.6f}, max |score diff| {errs['B4-bf16']:.3g} (max |score| "
+        f"{scale:.3g})")
+    del ki, ks, pi, ps
+    errs["B3-bf16"] = errs["B7-bf16"] = 0.0
+    s = plain_scores(q, rb, n)
+    bounds = (bound_between(s, 60, 200), bound_between(s, 5, 40))
+    del s
+    for kk in (8, 64):
+        g = seeded.seeded_geometry(m, n, k, kk, n)
+        got = fused.minima_candidates(q, rb, n, g["depth"], n_limit=g["p1_limit"], q_t=q_t)
+        want = fused.minima_candidates_plain(q, rb, n, g["depth"], None, g["p1_limit"])
+        fin = torch.isfinite(want)
+        scale = want[fin].abs().max().item()
+        err = (got - want)[fin].abs().max().item()
+        if not torch.equal(fin, torch.isfinite(got)) or err > SCORE_RTOL * scale:
+            fail(f"B3-bf16 ds11 K={kk}: finite lanes differ from plain, or |diff| {err} > "
+                 f"{SCORE_RTOL} x {scale}")
+        errs["B3-bf16"] = max(errs["B3-bf16"], err)
+        for lo in (None, bounds[1]):
+            banded = lo is not None
+            got = seeded.extract_moments(q, rb, n, bounds[0], g["cell"], g["n_fields"], lo=lo,
+                                         emit_rem=banded, q_t=q_t)
+            want = seeded.extract_moments_plain(q, rb, n, bounds[0], g["cell"], g["n_fields"],
+                                                lo, banded)
+            for a, b in zip(got[:1 + (g["n_fields"] == 8)], want):
+                if not torch.equal(a, b):
+                    fail(f"B7-bf16 ds11 K={kk} banded={banded}: packed words differ from "
+                         f"plain at {int((a != b).sum())} cells")
+            if banded:
+                fin = torch.isfinite(want[-1])
+                rem = (got[-1] - want[-1])[fin].abs().max().item()
+                if not torch.equal(fin, torch.isfinite(got[-1])) or \
+                        rem > SCORE_RTOL * want[-1][fin].abs().max().item():
+                    fail(f"B7-bf16 ds11 K={kk}: remainder minima differ from plain ({rem})")
+                errs["B7-bf16"] = max(errs["B7-bf16"], rem)
+        log(f"  B3-/B7-bf16 ds11 K={kk} (depth {g['depth']}, cell {g['cell']}, fields "
+            f"{g['n_fields']}): B3 max |diff| to plain {err:.3g}; B7 packed words identical "
+            "to plain, plain and banded")
+    q8 = q[:8].contiguous()
+    p5 = topk.sweep_parts(8, k, n)
+    ki, ks = launched_twice("B5-bf16", topk.sweep_candidates, q8, rb, n, p5, 32)
+    pi, ps = topk.sweep_candidates_plain(q8, rb, n, p5, 32)
+    check_lists("B5-bf16", ki, ks, n, p5, 32)
+    share, errs["B5-bf16"], swaps = list_agreement("B5-bf16", ki, ks, pi,
+                                                   fused.norm_scores(q8, rb, n), score_rtol(k))
+    near = same_topk("B5-bf16", topk._finalize_topk(q8, ref, ki, ks, 32, n),
+                     topk._finalize_topk(q8, ref, pi, ps, 32, n))
+    log(f"  B5-bf16 (16, 8, 2^20) K=32 P={p5}: against plain over the bf16 operand: slot "
+        f"agreement {share:.6f} ({swaps} near-tie slots), max |score diff| "
+        f"{errs['B5-bf16']:.3g}; top-K identical (near-tie ranks {near})")
+    torch.cuda.synchronize(q.device)
+    return errs
+
+
+def b6_bf16_plain(q, rb, n, kk):
+    """B6-bf16 at its main-path launch against its plain version over the
+    same bf16 operand, by B6's rules: each version seeded by its own B2
+    bound, the list contract, at least K real entries a row, top-K
+    identical but for near-ties. Returns the largest |score difference| on
+    agreeing real slots."""
+    import torch
+
+    from tpu_knn_torch.kernels import smallm, topk
+
+    m, k = q.shape
+    p2 = smallm.bf16_parts(n)
+    b_k = torch.topk(smallm.smallm_candidates(q, rb, n, p2)[1], kk, dim=-1,
+                     largest=False).values[:, -1].contiguous()
+    b_p = torch.topk(smallm.smallm_candidates_plain(q, rb, n, p2)[1], kk, dim=-1,
+                     largest=False).values[:, -1].contiguous()
+    parts = topk.smallm_topk_operand_parts(rb, n, k)
+    ki, ks = launched_twice("B6-bf16", topk.smallm_topk_candidates, q, rb, n, parts, kk, b_k)
+    pi, ps = topk.smallm_topk_candidates_plain(q, rb, n, parts, kk, b_p)
+    real = check_lists("B6-bf16", ki, ks, n, parts, kk, seed=b_k)
+    least = int(real.sum(dim=1).min())
+    if least < kk:
+        fail(f"B6-bf16 K={kk}: a row holds {least} real entries, fewer than K")
+    agree = (ki == pi) & real
+    err = (ks - ps)[agree].abs().max().item() if agree.any() else 0.0
+    ref = rb[:k, :n].T.float().contiguous()
+    near = same_topk("B6-bf16", topk._finalize_topk(q, ref, ki, ks, kk, n),
+                     topk._finalize_topk(q, ref, pi, ps, kk, n))
+    log(f"  B6-bf16 (16, {m}, 2^24) K={kk} P={parts}: against plain over the bf16 operand: "
+        f"{int(real.sum())} real entries (at least {least} a row); top-K identical (near-tie "
+        f"ranks {near}), max |score diff| {err:.3g}")
+    return err
+
+
+def phase1_bf16_instances(device, gen):
+    """The bf16 instances (the tiled template's BF16 policy: B1, B4, B3, B5,
+    B7; and B6-bf16) bit-equal to their f32 instances over the upcast
+    operand: on a grid (k = 1, 3, 16, 17, 40, 128; m past a block's rows;
+    n ragged against 128 and 256; ld = n, ld % 8 != 0 and a misaligned
+    base: the one-by-one staging), B6-bf16 at each load width, and at the
+    main path's launches (ds11, (16, 8, 2^20) K = 32, (16, 4, 2^24) K = 16;
+    the prefix and moments launches of the seeded ds11 K = 8 and 64 calls),
+    where each is also held to its plain version over the same bf16
+    operand (bf16_plain_ds11, b6_bf16_plain). Returns {row: the largest
+    |score difference| from the plain version}."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, topk
+
+    n_checks = 0
+    for k, m, n, ld in [(1, 65, 3149, 3200), (3, 9, 1000, 1001), (16, 5, 1000, 1024),
+                        (16, 40, 70_001, 70_016), (17, 33, 9077, 9077), (40, 33, 9077, 9080),
+                        (128, 70, 5077, 5120), (16, 1000, 20_077, 20_224)]:
+        q, rb, rf = bf16_case(gen, device, k, m, n, ld, pad=(3, 130, n - 1))
+        tiled_bf16_checks(f"(k={k}, m={m}, n={n}, ld={ld})", q, rb, rf, n)
+        n_checks += 1
+        del q, rb, rf
+    q, rb, rf = bf16_case(gen, device, 16, 40, 9000, 9216)
+    tiled_bf16_checks("misaligned base (k=16, m=40, n=9000)", q, misaligned(rb, 3),
+                      misaligned(rb, 3).float(), 9000, kks=(8,), b7=False)
+    for k in (1, 8, 17, 32):
+        for m in (1, 2, 3, 4):
+            n = 20_003
+            q, rb, _ = bf16_case(gen, device, k, m, n, n + 5, pad=(5,))
+            for tag, r_v in (("ld % 8 != 0", rb), ("aligned", rb[:, :n + 1].contiguous()),
+                             ("base + 2", misaligned(rb, 1)), ("base + 4", misaligned(rb, 2))):
+                b6_bf16_checks(f"(k={k}, m={m}, {tag})", q, r_v, n, kks=(1, 8, 32))
+    log(f"  bf16 instances: B1/B4/B3/B5/B7-bf16 bit-equal to the f32 instances on {n_checks} "
+        "grid shapes and a misaligned base, B6-bf16 at 4 k x 4 m x 4 load widths x K 1/8/32")
+    # The main path's shapes.
+    k, m, n = DS11
+    q, rb, rf = bf16_case(gen, device, k, m, n, n)
+    tiled_bf16_checks("ds11", q, rb, rf, n, kks=(8,))
+    q_t = fused.transposed_queries(q)
+    for kk in (8, 64):
+        g = seeded.seeded_geometry(m, n, k, kk, n)
+        cs = fused.minima_candidates(q, rb, n, g["depth"], n_limit=g["p1_limit"], q_t=q_t)
+        same_bits(f"B3-bf16 ds11 K={kk} launch", cs, fused.minima_candidates(
+            q, rf, n, g["depth"], n_limit=g["p1_limit"], q_t=q_t))
+        bound = seeded._inflate_bound(seeded._kth_smallest(cs, kk))
+        same_bits(f"B7-bf16 ds11 K={kk} launch",
+                  seeded.extract_moments(q, rb, n, bound, g["cell"], g["n_fields"], q_t=q_t),
+                  seeded.extract_moments(q, rf, n, bound, g["cell"], g["n_fields"], q_t=q_t))
+    q8 = q[:8].contiguous()
+    p5 = topk.sweep_parts(8, k, n)
+    same_bits("B5-bf16 (16, 8, 2^20) K=32", topk.sweep_candidates(q8, rb, n, p5, 32),
+              topk.sweep_candidates(q8, rf, n, p5, 32))
+    del rf
+    errs = bf16_plain_ds11(q, rb, n, q_t)
+    del q, rb, q_t
+    torch.cuda.empty_cache()
+    n24 = 1 << 24
+    q4, rb, _ = bf16_case(gen, device, 16, 4, n24, n24)
+    b6_bf16_checks("(16, 4, 2^24)", q4, rb, n24, kks=(16,))
+    errs["B6-bf16"] = b6_bf16_plain(q4, rb, n24, 16)
+    del q4, rb
+    torch.cuda.empty_cache()
+    log("  bf16 instances at the main path's launches (ds11 B1/B4/B3/B5/B7 and the seeded "
+        "K = 8, 64 launches; B5 (16, 8, 2^20) K=32; B6 (16, 4, 2^24) K=16): bit-equal to the "
+        "f32 instances, and within the f32 rows' rules of their plain versions")
+    return errs
+
+
+def phase1_pad(device, gen):
+    """PAD_VALUE columns (1e30 in f32, bf16(1e30) = 1.0038e30), in every
+    k_pad row as a mutable index's empty slots and a view's excluded
+    columns hold them, through every kernel of those paths: B1 "highest"
+    and the tensor-core tiers (packed3, packed2, bf16x3, bf16x4, default;
+    qsplit2 over bf16), B2 / B2-bf16, B3, B4, B5, B6 and B7 and their bf16
+    instances. None is ever reported, no score is NaN, a PAD-only cell never
+    qualifies."""
+    import torch
+
+    from tpu_knn_torch.engine.index import PAD_VALUE
+    from tpu_knn_torch.kernels import fused, seeded, smallm, tiers, topk
+
+    checked = 0
+    for k, n in ((16, 70_000), (32, 20_000), (128, 20_000)):
+        for bf16 in (False, True):
+            m = 40
+            q = uniform(gen, (m, k), device)
+            r_op = case_operand(gen, device, k, n)
+            pad_cols = torch.cat([torch.arange(256, device=device),
+                                  torch.arange(256, n, 5, device=device)])
+            r_op[:, pad_cols] = PAD_VALUE
+            if bf16:
+                r_op = r_op.to(torch.bfloat16)
+            pads = set(pad_cols.tolist())
+            tag = f"(k={k}, n={n}, {'bf16' if bf16 else 'f32'})"
+
+            def clean(name, idx, score=None):
+                nonlocal checked
+                checked += 1
+                if pads & set(idx.reshape(-1).tolist()):
+                    fail(f"{name} {tag}: a PAD column was reported")
+                if score is not None and bool(torch.isnan(score).any()):
+                    fail(f"{name} {tag}: a NaN score")
+                if score is not None and not bool(torch.isfinite(score[idx < n]).all()):
+                    fail(f"{name} {tag}: a reported column scores non-finite")
+
+            tier_list = (["highest", "packed"] + (["qsplit2"] if k > 32 else []) if bf16 else
+                         ["highest", "packed", "bf16x4", "default"] + (["bf16x3"] if k > 32
+                                                                       else []))
+            for precision in tier_list:
+                clean(f"tier {precision}", *tiers.tier_candidates(q, (r_op,), n, 3, precision))
+            bs = torch.zeros(m, device=device)
+            bi = torch.zeros(m, dtype=torch.int32, device=device)
+            clean("B4", *fused.banded_candidates(q, r_op, n, 3, bs, bi))
+            for depth in (1, 2):
+                if bool(torch.isnan(fused.minima_candidates(q, r_op, n, depth)).any()):
+                    fail(f"B3 depth {depth} {tag}: a NaN minimum")
+            clean("B5", *topk.sweep_candidates(q, r_op, n, 4, 16))
+            if k <= 32:
+                qs = q[:4].contiguous()
+                clean("B2", *smallm.smallm_candidates(qs, r_op, n, 5))
+                clean("B6", *topk.smallm_topk_candidates(
+                    qs, r_op, n, 4, 16, torch.full((4,), float(k), device=device)))
+            a = seeded.extract_moments(q, r_op, n, torch.full((m,), 0.3 * k, device=device),
+                                       64, 8)[0]
+            checked += 1
+            if bool((a[:, :4] != 0).any()) or not bool((a[:, 4:] != 0).any()):
+                fail(f"B7 {tag}: a PAD-only cell qualified, or no live cell did")
+            del q, r_op
+    torch.cuda.synchronize(device)
+    log(f"  PAD columns: {checked} launches over f32 and bf16 operands, no PAD column "
+        "reported, no NaN, no PAD-only cell qualifying")
+
+
+def gate_topk(name, q, pts, idx, kk):
+    """0 errors rank by rank against the exact top-K scan over pts (the
+    stored points in the query's space; PAD rows never win)."""
+    import torch
+
+    errors = topk_gate_errors(q, pts, idx, kk)
+    torch.cuda.synchronize(q.device)
+    log(f"  {name}: errors {errors}/{q.shape[0] * kk}")
+    if errors:
+        fail(f"{name}: {errors} errors")
+
+
+def gate_radius(name, q, pts, got, radius):
+    """A radius answer (idx, d2, count) against the exact scan: each row's
+    count and in-radius ids equal the scan's (rows of distinct ids)."""
+    import torch
+
+    idx, _, count = got
+    want_i, want_d = exact_topk_scan(q, pts, idx.shape[1])
+    inside = want_d <= radius ** 2
+    if not torch.equal(count.long(), inside.sum(dim=1)) or \
+            not torch.equal(idx.long(), want_i.masked_fill(~inside, -1)):
+        fail(f"{name}: counts {count.tolist()} against {inside.sum(dim=1).tolist()}")
+    log(f"  {name}: cap {idx.shape[1]}, counts {count.tolist()}, identical to the exact scan")
+
+
+def phase2_store_topk(device, gen, batch=DS11, n_big=1 << 24):
+    """Top-K and radius over the quantized stores, gated against the exact
+    scan over the stored points (grid space for int8): the bf16 store at
+    (16, 1024, 2^20) (seeded K = 8 and 64; m = 8 K = 32: B5-bf16; one
+    passes-engine call: B4-bf16; "highest" 1-NN: B1-bf16) and at (16, 4,
+    2^24) K = 16 (B2- and B6-bf16); the int8 store at m = 1 K = 16 over
+    (16, 2^24) (the AoS engine off the grid), m = 1023 K = 8 over (16, 2^20)
+    (the seeded engine over the per-call bf16 grid operand; the rows past
+    the planted query 0) and a radius escalation at m = 8 over the planted
+    cluster. Returns the calls, for phase 3."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.topk import _build_topk
+
+    k, m, n = batch
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    ix = tpu_knn_torch.NNIndex(r, store="bf16")
+    pts = ix.ref_dev.float()
+    for kk in (8, 64):
+        gate_topk(f"bf16 store ({k}, {m}, 2^20) query K={kk} [seeded: B3/B7-bf16]", q, pts,
+                  ix.query(q, neighbors=kk)[0], kk)
+    gate_topk(f"bf16 store ({k}, 8, 2^20) query K=32 [B5-bf16]", q[:8], pts,
+              ix.query(q[:8], neighbors=32)[0], 32)
+    passes = _build_topk(64, n, k, 8, ix.r_ops[0].shape[1], "passes")
+    gate_topk(f"bf16 store ({k}, 64, 2^20) K=8 method='passes' [B4-bf16]", q[:64], pts,
+              passes(q[:64].contiguous(), ix.r_ops, ix.ref_dev)[0], 8)
+    hi = tpu_knn_torch.NNIndex(r, store="bf16", precision="highest")
+    gate_stored(f"bf16 store ({k}, {m}, 2^20) precision='highest' query [B1-bf16]", q, pts,
+                hi.query(q)[0])
+    del hi
+    # 48 points planted near query 0, so its radius row escalates 32 -> 64.
+    # They collapse onto a few grid points, more qualifiers a cell than the
+    # seeded engine's moments solve: a batch holding query 0 answers through
+    # its certified passes fallback; the rows past it take the fast tier
+    # (and are the timed call).
+    r8 = r.clone()
+    r8[1000:1048] = q[0] + 0.01 * (uniform(gen, (48, k), device) - 0.5)
+    ix8 = tpu_knn_torch.NNIndex(r8, store="int8")
+    qg, grid = ix8._i8_q(q), ix8.ref_dev.float()
+    q_rest = q[1:].contiguous()
+    for lo in (0, 1):
+        gate_topk(f"int8 store ({k}, {m - lo}, 2^20) query K=8 [seeded over the bf16 grid "
+                  "operand]", qg[lo:], grid, ix8.query(q[lo:], neighbors=8)[0], 8)
+    radius = 0.1
+    got = ix8.query_radius(q[:8], radius)
+    # In grid space the radius is radius / s (the index compares d2 · s² in
+    # the user's units: the same set but at a boundary point's last bit).
+    gate_radius("int8 store query_radius m=8 (escalating; grid space)", qg[:8], grid,
+                (got[0], None, got[2]), radius * float(ix8._i8_inv_s))
+    if got[0].shape[1] < 64:
+        fail("int8 store query_radius: the planted cluster did not escalate the cap")
+    del r8
+    q4, r24 = uniform(gen, (4, k), device), uniform(gen, (n_big, k), device)
+    big = tpu_knn_torch.NNIndex(r24, store="bf16")
+    pts24 = big.ref_dev.float()
+    gate_topk(f"bf16 store ({k}, 4, 2^24) query K=16 [B2-bf16 + B6-bf16]", q4, pts24,
+              big.query(q4, neighbors=16)[0], 16)
+    del pts24
+    big8 = tpu_knn_torch.NNIndex(r24, store="int8")
+    gate_topk(f"int8 store ({k}, 1, 2^24) query K=16 [the AoS engine off the grid]",
+              big8._i8_q(q4[:1]), big8.ref_dev.float(), big8.query(q4[:1], neighbors=16)[0],
+              16)
+    calls = {
+        "bf16 store ds11 K=8 query": lambda: ix.query(q, neighbors=8),
+        "bf16 store ds11 K=64 query": lambda: ix.query(q, neighbors=64),
+        "bf16 store (16, 8, 2^20) K=32 query": lambda: ix.query(q[:8], neighbors=32),
+        "bf16 store (16, 4, 2^24) K=16 query": lambda: big.query(q4, neighbors=16),
+        "int8 store (16, 1023, 2^20) K=8 query": lambda: ix8.query(q_rest, neighbors=8),
+        "int8 store (16, 1, 2^24) K=16 query": lambda: big8.query(q4[:1], neighbors=16),
+    }
+    return calls, {"q": q, "r": r, "ix": ix, "q4": q4, "big": big}
+
+
+def phase2_metrics(device, gen, shape=(128, 1024, 1 << 20)):
+    """cosine and ip at (128, 1024, 2^20) (a tensor-core tier: bf16x3):
+    1-NN and K = 10 over the stored (transformed) points with the
+    transformed queries, and a cosine radius; each gated against the exact
+    scan in the engines' space, the scores checked against the points'.
+    Then a mutable index of each metric over the first half, the second
+    half added as CUDA points: unit norms (cosine) or max-norm rows (ip),
+    and 1-NN and K = 10 gated the same way."""
+    import torch
+
+    import tpu_knn_torch
+
+    k, m, n = shape
+    q, r = uniform(gen, (m, k), device) - 0.3, uniform(gen, (n, k), device) - 0.3
+    # 40 points planted along query 0's direction (cosine ~0.9999), so its
+    # radius row escalates.
+    r[5000:5040] = q[0] + 0.02 * (uniform(gen, (40, k), device) - 0.5)
+    calls = {}
+    for metric in ("cosine", "ip"):
+        ix = tpu_knn_torch.NNIndex(r, metric=metric)
+        qt = ix._transform_q(q)
+        idx, score = ix.query(q)
+        gate_stored(f"metric={metric} ({k}, {m}, 2^20) query [{ix.precision}]", qt, ix.ref_dev,
+                    idx)
+        want = ((qt * ix.ref_dev[idx.long()]).sum(dim=1) if metric == "ip" else
+                1.0 - 0.5 * ((qt - ix.ref_dev[idx.long()]) ** 2).sum(dim=1))
+        if not torch.allclose(score, want, rtol=1e-4, atol=1e-4):
+            fail(f"metric={metric}: scores differ from the reported points' by "
+                 f"{float((score - want).abs().max())}")
+        # The planted rows collapse a cell past the moments' solver: a batch
+        # holding query 0 answers through the certified passes fallback, the
+        # rows past it through the fast tier (the timed call).
+        for lo, hi in ((1, m), (0, m)):
+            ki, ks = ix.query(q[lo:hi], neighbors=10)
+            gate_topk(f"metric={metric} ({k}, {hi - lo}, 2^20) query K=10", qt[lo:hi],
+                      ix.ref_dev, ki, 10)
+            if not bool((ks[:, 1:] <= ks[:, :-1] + 1e-5).all()):
+                fail(f"metric={metric}: top-K scores are not descending")
+        if metric == "cosine":
+            s_min = 0.999
+            got = ix.query_radius(q[:8], s_min)
+            gate_radius("metric=cosine query_radius m=8 (min similarity 0.999)", qt[:8],
+                        ix.ref_dev, (got[0], None, got[2]), float((2 - 2 * s_min) ** 0.5))
+            if got[0].shape[1] < 64 or not bool((got[1][0, :int(got[2][0])] >= s_min).all()):
+                fail("metric=cosine query_radius: no escalation, or a similarity below "
+                     "the minimum")
+        # A mutable index of the metric whose second half arrives as CUDA
+        # points, transformed on the card by add().
+        half = n // 2
+        mx = tpu_knn_torch.NNIndex(r[:half], metric=metric, mutable=True)
+        ids = mx.add(0.9 * r[half:])
+        norm2 = (mx.ref_dev[:n] ** 2).sum(dim=1)
+        target = 1.0 if metric == "cosine" else mx._ip_m2
+        if mx.n_live != n or int(ids[-1]) != n - 1 or \
+                float((norm2 - target).abs().max()) > 1e-4 * target:
+            fail(f"mutable metric={metric}: CUDA adds not transformed (n_live {mx.n_live}, "
+                 f"largest |norm^2 - {target:.4g}| {float((norm2 - target).abs().max())})")
+        mqt = mx._transform_q(q)
+        gate_stored(f"mutable metric={metric} ({k}, {m}, 2^20) query after CUDA adds", mqt,
+                    mx.ref_dev, mx.query(q)[0])
+        gate_topk(f"mutable metric={metric} ({k}, {m - 1}, 2^20) K=10 after CUDA adds", mqt[1:],
+                  mx.ref_dev, mx.query(q[1:], neighbors=10)[0], 10)
+        del mx, mqt, norm2
+        calls[f"metric={metric} (128, 1023, 2^20) K=10 query"] = (
+            lambda ix=ix: ix.query(q[1:], neighbors=10))
+        calls[f"metric={metric} (128, 1024, 2^20) 1-NN query"] = (lambda ix=ix: ix.query(q))
+    return calls
+
+
+def phase2_mutable(device, gen, k=16, n=1 << 20, step=1 << 16):
+    """A mutable f32 and a mutable bf16 index at (16, 2^20): add 2^16,
+    remove 2^16, grow past capacity once, compact; after each step (and at
+    build) m = 4 and 1024, 1-NN and K = 8, gated against the exact scan over
+    the slot array (removed and empty slots PAD_VALUE: they never win).
+    Returns both indexes' calls after compact, for phase 3."""
+    import numpy as np
+    import torch
+
+    import tpu_knn_torch
+
+    qs = uniform(gen, (1024, k), device)
+    calls = {}
+    for store in ("float32", "bf16"):
+        ix = tpu_knn_torch.NNIndex(uniform(gen, (n, k), device), store=store, mutable=True)
+        rng = np.random.default_rng(5)
+
+        def check(what):
+            pts = ix.ref_dev.float()
+            for mm in (4, 1024):
+                q = qs[:mm]
+                idx = ix.query(q)[0]
+                gate_stored(f"mutable {store} {what} m={mm} 1-NN", q, pts, idx)
+                if not ix._live[idx.cpu().numpy()].all():
+                    fail(f"mutable {store} {what}: a dead slot was reported")
+                gate_topk(f"mutable {store} {what} m={mm} K=8", q, pts,
+                          ix.query(q, neighbors=8)[0], 8)
+            del pts
+
+        check(f"build (capacity {ix.capacity})")
+        ix.add(uniform(gen, (step, k), device))
+        check(f"add 2^16 (n_live {ix.n_live})")
+        ix.remove(rng.choice(np.nonzero(ix._live)[0], step, replace=False))
+        check(f"remove 2^16 (n_live {ix.n_live})")
+        cap = ix.capacity
+        ix.add(uniform(gen, (cap - ix._n_slots + 1, k), device))
+        if ix.capacity <= cap:
+            fail(f"mutable {store}: the capacity did not grow past {cap}")
+        check(f"grow ({cap} -> {ix.capacity})")
+        ix.remove(rng.choice(np.nonzero(ix._live)[0], step, replace=False))
+        ix.compact()
+        check(f"compact (capacity {ix.capacity}, n_live {ix.n_live})")
+        q4, q1024 = qs[:4], qs
+        calls.update({
+            f"mutable {store} m=4 1-NN query": lambda ix=ix: ix.query(q4),
+            f"mutable {store} m=4 K=8 query": lambda ix=ix: ix.query(q4, neighbors=8),
+            f"mutable {store} m=1024 1-NN query": lambda ix=ix: ix.query(q1024),
+            f"mutable {store} m=1024 K=8 query": lambda ix=ix: ix.query(q1024, neighbors=8),
+        })
+    return calls
+
+
+def phase2_views(device, gen, k=16, n=1 << 20):
+    """filtered_view keeping half of (16, 2^20), over an f32 and a bf16
+    index: 1-NN (m = 4, 1024), K = 8 (m = 1: the sweep over the masked
+    operand; m = 1024) and a radius escalation at m = 8, gated against the
+    exact scan over the kept points (the excluded ones PAD_VALUE: they never
+    win). Returns the calls, for phase 3."""
+    import numpy as np
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.engine.index import PAD_VALUE
+
+    q, r = uniform(gen, (1024, k), device), uniform(gen, (n, k), device)
+    # 48 points planted near query 0, half of them excluded, so its radius
+    # row escalates over the kept ones only.
+    r[2000:2048] = q[0] + 0.01 * (uniform(gen, (48, k), device) - 0.5)
+    keep = np.random.default_rng(3).random(n) < 0.5
+    calls = {}
+    for store in ("float32", "bf16"):
+        view = tpu_knn_torch.NNIndex(r, store=store).filtered_view(keep)
+        kept = view.ref_dev.float().clone()
+        kept[~torch.as_tensor(keep, device=device)] = PAD_VALUE
+        for mm in (4, 1024):
+            gate_stored(f"view {store} m={mm} 1-NN", q[:mm], kept, view.query(q[:mm])[0])
+        for lo, hi in ((0, 1), (1, 1024), (0, 1024)):
+            gate_topk(f"view {store} m={hi - lo} K=8", q[lo:hi], kept,
+                      view.query(q[lo:hi], neighbors=8)[0], 8)
+        radius = 0.1
+        got = view.query_radius(q[:8], radius)
+        gate_radius(f"view {store} query_radius m=8", q[:8], kept, got, radius)
+        if not keep[got[0][got[0] >= 0].cpu().numpy()].all():
+            fail(f"view {store}: an excluded point inside the radius was reported")
+        calls.update({
+            f"view {store} m=4 1-NN query": lambda v=view: v.query(q[:4]),
+            f"view {store} m=1023 K=8 query": lambda v=view: v.query(q[1:], neighbors=8),
+        })
+        del kept
+    return calls
+
+
+def phase3_bf16(card, gen, device, reps):
+    """Times of the bf16 instances beside their f32 instances at the main
+    path's shapes (B1 and B4 at ds11, B3 and B7 at the seeded ds11 K = 8
+    launches, B5 at (16, 8, 2^20) K = 32, B6 at (16, 4, 2^24) K = 16): CUDA
+    events around the wrapper and the kernels' own device time, the plain
+    version over the bf16 operand, and each launch's bound (a bf16 operand
+    moves k·n·2 bytes). Returns (times, bounds)."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, smallm, topk
+    from tpu_knn_torch.utils.timing import time_ms
+
+    k, m, n = DS11
+    q, rb, rf = bf16_case(gen, device, k, m, n, n)
+    parts = fused.tiled_parts(m, k, n)
+    bs = torch.full((m,), 0.25 * k, device=device)
+    bi = torch.full((m,), n // 2, dtype=torch.int32, device=device)
+    g = seeded.seeded_geometry(m, n, k, 8, n)
+    q_t = fused.transposed_queries(q)
+    cs = fused.minima_candidates(q, rf, n, g["depth"], n_limit=g["p1_limit"], q_t=q_t)
+    bound = seeded._inflate_bound(seeded._kth_smallest(cs, 8))
+    q8 = q[:8].contiguous()
+    p5 = topk.sweep_parts(8, k, n)
+    launches = {
+        "B1-bf16": lambda r: fused.fused_candidates(q, r, n, parts),
+        "B4-bf16": lambda r: fused.banded_candidates(q, r, n, parts, bs, bi),
+        "B3-bf16": lambda r: fused.minima_candidates(q, r, n, g["depth"], n_limit=g["p1_limit"],
+                                                     q_t=q_t),
+        "B7-bf16": lambda r: seeded.extract_moments(q, r, n, bound, g["cell"], g["n_fields"],
+                                                    q_t=q_t),
+        "B5-bf16": lambda r: topk.sweep_candidates(q8, r, n, p5, 32),
+    }
+    plains = {
+        "B1-bf16": lambda: fused.fused_candidates_plain(q, rb, n, parts),
+        "B4-bf16": lambda: fused.banded_candidates_plain(q, rb, n, parts, bs, bi),
+        "B3-bf16": lambda: fused.minima_candidates_plain(q, rb, n, g["depth"],
+                                                         n_limit=g["p1_limit"]),
+        "B7-bf16": lambda: seeded.extract_moments_plain(q, rb, n, bound, g["cell"],
+                                                        g["n_fields"]),
+        "B5-bf16": lambda: topk.sweep_candidates_plain(q8, rb, n, p5, 32),
+    }
+    times, bounds = {}, {}
+    width = {"B1-bf16": 128, "B4-bf16": 128, "B3-bf16": 128, "B5-bf16": 32 * 128}
+    for kid, fn in launches.items():
+        got = time_ms({"bf16": lambda fn=fn: fn(rb), "f32": lambda fn=fn: fn(rf),
+                       "plain": plains[kid]}, reps, warmup=1)
+        kname = BF16_ROWS[kid][3]
+        dev = kernel_device_ms(lambda fn=fn: fn(rb), reps, card, kname)
+        f32_name = {"B1-bf16": "tiled_candidates_kernel", "B4-bf16": "tiled_candidates_kernel",
+                    "B3-bf16": "tiled_minima", "B7-bf16": "tiled_moments",
+                    "B5-bf16": "sweep_kselect_kernel"}[kid]
+        dev32 = kernel_device_ms(lambda fn=fn: fn(rf), reps, card, f32_name)
+        times.update({f"{kid} kernel": got["bf16"], f"{kid} f32 instance": got["f32"],
+                      f"{kid} plain": got["plain"], f"{kid} kernel device": dev,
+                      f"{kid} f32 instance device": dev32})
+        mm = 8 if kid == "B5-bf16" else m
+        cols = g["p1_limit"] if kid == "B3-bf16" else n
+        extra = 4 * m * (n // g["cell"]) if kid == "B7-bf16" else 0
+        out = 8 * mm * width.get(kid, 0)
+        bounds[kid] = roofline(4 * mm * k + 2 * k * cols + out + extra, 2 * mm * cols * k)
+        log(f"  time {kid}: kernel {got['bf16']:.4f} ms (device {dev:.4f}), f32 instance "
+            f"{got['f32']:.4f} ms (device {dev32:.4f}), plain {got['plain']:.4f} ms; bound "
+            f"{bounds[kid][0]:.4f} ms ({bounds[kid][1]}) [{card}]")
+    del q, rb, rf, q_t, cs
+    torch.cuda.empty_cache()
+    n24 = 1 << 24
+    q4, rb, rf = bf16_case(gen, device, 16, 4, n24, n24)
+    _, cs = smallm.smallm_candidates(q4, rb, n24, smallm.bf16_parts(n24))
+    b16 = torch.topk(cs, 16, dim=-1, largest=False).values[:, -1].contiguous()
+    pb, pf = topk.smallm_topk_operand_parts(rb, n24, 16), topk.smallm_topk_parts(n24, 16)
+    got = time_ms({"bf16": lambda: topk.smallm_topk_candidates(q4, rb, n24, pb, 16, b16),
+                   "f32": lambda: topk.smallm_topk_candidates(q4, rf, n24, pf, 16, b16),
+                   "plain": lambda: topk.smallm_topk_candidates_plain(q4, rb, n24, pb, 16, b16)},
+                  reps, warmup=1)
+    dev = kernel_device_ms(lambda: topk.smallm_topk_candidates(q4, rb, n24, pb, 16, b16), reps,
+                           card, "smallm_bf16_kselect")
+    dev32 = kernel_device_ms(lambda: topk.smallm_topk_candidates(q4, rf, n24, pf, 16, b16),
+                             reps, card, "smallm_kselect_kernel")
+    times.update({"B6-bf16 kernel": got["bf16"], "B6-bf16 f32 instance": got["f32"],
+                  "B6-bf16 plain": got["plain"], "B6-bf16 kernel device": dev,
+                  "B6-bf16 f32 instance device": dev32})
+    bounds["B6-bf16"] = roofline(4 * 4 * 16 + 2 * 16 * n24 + 8 * 4 * 16 * pb,
+                                 3 * 4 * n24 * 16)
+    log(f"  time B6-bf16 (16, 4, 2^24) K=16: kernel {got['bf16']:.4f} ms (device {dev:.4f}, "
+        f"P {pb}), f32 instance B6 {got['f32']:.4f} ms (device {dev32:.4f}, P {pf}), plain "
+        f"{got['plain']:.4f} ms; bound {bounds['B6-bf16'][0]:.4f} ms [{card}]")
+    del q4, rb, rf
+    torch.cuda.empty_cache()
+    return times, bounds
+
+
+def phase3_calls(card, calls, reps):
+    """Device time (every kernel of the call, summed, by timing.device_ms,
+    which idles the card around its profile and takes a profile that lost
+    launches again; a profile that lost them three times fails the run) and
+    host wall time per call of the store top-K, metric, mutable and view
+    calls."""
+    import torch
+
+    from tpu_knn_torch.utils.timing import device_ms
+
+    times = {}
+    for name, fn in calls.items():
+        dev = sum(device_ms({"call": fn}, "", reps).values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        times[f"{name} device"], times[f"{name} wall"] = dev, wall
+        log(f"  call {name}: device {dev:.4f} ms, wall {wall:.4f} ms per call [{card}]")
+    return times
 
 
 # ---- main ------------------------------------------------------------------
@@ -2642,7 +3432,11 @@ def main() -> int:
             "B6 (K-lists over B2's scan)": SMALLM_TOPK_ENTRY,
             "B2": SMALLM_ENTRY,
             "B2-bf16 (wide loads)": SMALLM_BF16_ENTRY,
-            "B11 (float4 and 4-byte rows)": WINDOW_ENTRY})
+            "B11 (float4 and 4-byte rows)": WINDOW_ENTRY,
+            "B1-bf16 and B4-bf16 (the tiled kernel, BF16 policy)": "tiled_bf16_candidates_kernel",
+            "B3-bf16": "bf16_minima_kernel", "B7-bf16": "bf16_moments_kernel",
+            "B5-bf16": SWEEP_BF16_ENTRY, "B6-bf16 (K-lists over B2-bf16's loads)":
+                SMALLM_BF16_TOPK_ENTRY})
         check_tiled_smem(smem)
         check_topk_smem(smem)
         check_scan_smem(smem)
@@ -2915,6 +3709,19 @@ def main() -> int:
         edges=True)
     torch.cuda.empty_cache()
     stamp("phase 1 tiers, B12 and B2-bf16")
+    # The bf16 instances (B1/B4/B3/B5/B7 under the tiled template's BF16
+    # policy, B6-bf16) bit-equal to their f32 instances, and PAD columns
+    # through every kernel of the mutable and view paths, from generators
+    # of their own.
+    gen_bf16i = torch.Generator(device=device)
+    gen_bf16i.manual_seed(1011)
+    errs.update(phase1_bf16_instances(device, gen_bf16i))
+    stamp("phase 1 bf16 instances")
+    gen_pad = torch.Generator(device=device)
+    gen_pad.manual_seed(1012)
+    phase1_pad(device, gen_pad)
+    torch.cuda.empty_cache()
+    stamp("phase 1 PAD columns")
 
     # Phase 2: each path runs with every launch counter set to 0 just
     # before it and read just after.
@@ -2930,15 +3737,24 @@ def main() -> int:
     tier_rows = {f"B1 {t}": t for t in ("packed3", "packed2", "bf16x3", "bf16x4", "qsplit2",
                                         "default")}
     tier_rows.update({"B12": "bf16x3_presplit", "B2-bf16": "B2-bf16"})
-    counters = [*wrappers, *tier_rows]
+    # The bf16 instances count in their wrapper's .bf16_launches.
+    counters = [*wrappers, *tier_rows, *BF16_ROWS]
+
+    def count(kname):
+        if kname in wrappers:
+            return wrappers[kname].launches
+        if kname in BF16_ROWS:
+            return bf16_wrapper(kname).bf16_launches
+        return tiers.TIER_LAUNCHES[tier_rows[kname]]
 
     def drive(path, needs, run):
         for fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "bf16_launches"):
+                fn.bf16_launches = 0
         tiers.TIER_LAUNCHES.clear()
         out = run()
-        counts = {kname: wrappers[kname].launches if kname in wrappers
-                  else tiers.TIER_LAUNCHES[tier_rows[kname]] for kname in counters}
+        counts = {kname: count(kname) for kname in counters}
         log(f"  kernel launches on the {path} path: {counts}")
         for kname in needs:
             if counts[kname] < 1:
@@ -2979,10 +3795,36 @@ def main() -> int:
     gen_768.manual_seed(1003)
     embed768, counts_768 = drive("highest k=768", ("B1",),
                                  lambda: phase2_highest(device, gen_768))
+    torch.cuda.empty_cache()
+    # The serving surface's paths (ROADMAP A.6.1-A.6.4), each from a generator of its
+    # own: top-K and radius over the quantized stores, the metrics, mutable
+    # indexes, filtered views.
+    gens = {}
+    for i, path in enumerate(("stores", "metrics", "mutable", "views")):
+        gens[path] = torch.Generator(device=device)
+        gens[path].manual_seed(1020 + i)
+    log("phase 2: top-K and radius over the bf16 and int8 stores")
+    (store_calls, _), counts_store_topk = drive(
+        "store top-K", ("B1-bf16", "B2-bf16", "B3-bf16", "B4-bf16", "B5-bf16", "B6-bf16",
+                        "B7-bf16", "B8/B9"),
+        lambda: phase2_store_topk(device, gens["stores"]))
+    log("phase 2: metric='cosine' and 'ip' at (128, 1024, 2^20)")
+    metric_calls, counts_metrics = drive("metric", ("B1 bf16x3", "B3", "B5", "B7", "B8/B9"),
+                                         lambda: phase2_metrics(device, gens["metrics"]))
+    log("phase 2: mutable f32 and bf16 indexes at (16, 2^20)")
+    mutable_calls, counts_mutable = drive(
+        "mutable", ("B1 packed3", "B2", "B2-bf16", "B3", "B3-bf16", "B6", "B6-bf16", "B7",
+                    "B7-bf16", "B8/B9"),
+        lambda: phase2_mutable(device, gens["mutable"]))
+    log("phase 2: filtered views of (16, 2^20), f32 and bf16")
+    view_calls, counts_views = drive(
+        "view", ("B1 packed3", "B2", "B2-bf16", "B3", "B3-bf16", "B6", "B6-bf16"),
+        lambda: phase2_views(device, gens["views"]))
     # The "B1 k=768" row counts that path's launches, the B1 row the others'.
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
                                              counts_ladder, counts_auto, counts_tiers,
-                                             counts_stores))
+                                             counts_stores, counts_store_topk, counts_metrics,
+                                             counts_mutable, counts_views))
                 for kname in counters}
     launches["B1 k=768"] = counts_768["B1"]
 
@@ -3006,6 +3848,16 @@ def main() -> int:
     tier_times, tier_bounds = phase3_tiers(card, device, gen, reps=10)
     times.update(tier_times)
     stamp("phase 3 tiers and stores")
+    gen_t = torch.Generator(device=device)
+    gen_t.manual_seed(1030)
+    bf16_times, bf16_bounds = phase3_bf16(card, gen_t, device, reps=10)
+    times.update(bf16_times)
+    stamp("phase 3 bf16 instances")
+    times.update(phase3_calls(card, {**store_calls, **metric_calls, **mutable_calls,
+                                     **view_calls}, reps=5))
+    del store_calls, metric_calls, mutable_calls, view_calls
+    torch.cuda.empty_cache()
+    stamp("phase 3 store top-K, metric, mutable and view calls")
 
     for mod in ("jax", "tpu_knn"):
         if mod in sys.modules:
@@ -3029,6 +3881,7 @@ def main() -> int:
         "B1 AoS (v3)": ladder_bounds["B1 variants ds11"],
         "B1 constant-query (v6)": ladder_bounds["B1 variants ds11"],
         **tier_bounds,
+        **bf16_bounds,
     }
     errs["B8"] = errs["B9"] = errs["B8/B9"]
     errs["B1 AoS (v3)"] = errs["B1 constant-query (v6)"] = errs["B1 variants"]
@@ -3074,6 +3927,18 @@ def main() -> int:
         ("B2-bf16", "smallm_candidates (bf16 operand)", "tpu_knn/kernels/smallm.py:82",
          "B2-bf16 kernel", "B2-bf16 plain", None),
     ]
+    # The bf16 instances: tpu_knn ran the same kernels over a bf16 store's
+    # operand, upcast at the read; "f32_instance_ms" is the f32 instance at
+    # the same launch.
+    bf16_replaces = {"B1-bf16": "tpu_knn/kernels/fused.py:318",
+                     "B4-bf16": "tpu_knn/kernels/fused.py:506",
+                     "B3-bf16": "tpu_knn/kernels/fused.py:613",
+                     "B5-bf16": "tpu_knn/kernels/topk.py:188",
+                     "B6-bf16": "tpu_knn/kernels/topk.py:262",
+                     "B7-bf16": "tpu_knn/kernels/topk.py:509"}
+    bf16_shape = {"B1-bf16": "ds11", "B4-bf16": "ds11", "B3-bf16": "ds11 K=8",
+                  "B7-bf16": "ds11 K=8", "B5-bf16": "(16, 8, 2^20) K=32",
+                  "B6-bf16": "(16, 4, 2^24) K=16"}
     # The tensor-core kernel's instances: B1's tiers (at their main-path
     # shapes: packed3 at ds11, packed2 at k = 32, bf16x3 and qsplit2 at the
     # k = 768 embed shape) and B12; "matmul part" is cuBLAS's bf16 product.
@@ -3086,7 +3951,8 @@ def main() -> int:
     family = {"B1": "fused", "B1 k=768": "fused", "B4": "fused", "B10": "fused", "B1 AoS (v3)": "fused",
               "B1 constant-query (v6)": "fused", "B2": "smallm", "B6": "smallm",
               "B5": "sweep", "B3": "seeded", "B7": "seeded", "B8": "seeded", "B9": "seeded",
-              "B11": "window", "B2-bf16": "smallm"}
+              "B11": "window", "B2-bf16": "smallm", "B1-bf16": "fused", "B4-bf16": "fused",
+              "B3-bf16": "seeded", "B7-bf16": "seeded", "B5-bf16": "sweep", "B6-bf16": "smallm"}
     family.update({row: "tensor" for row in tier_rows if row != "B2-bf16"})
     # B11 also at v11's ds8 and ds10 launches; B2-bf16 also with its
     # operand out of L2.
@@ -3115,6 +3981,16 @@ def main() -> int:
             else {}),
          **extras.get(kid, {})}
         for kid, fname, replaces, t_kernel, t_plain, t_matmul in rows]
+    kernels += [
+        {"name": f"{kid} {BF16_ROWS[kid][1]} (bf16 operand) {bf16_shape[kid]}", "route": "cuda",
+         "source": f"tpu_knn_torch/csrc/{family[kid]}_kernels.cu",
+         "replaces": bf16_replaces[kid], "launches": launches[kid], "max_abs_err": errs[kid],
+         "ms": times[f"{kid} kernel"], "plain_ms": times[f"{kid} plain"],
+         "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": None,
+         "device_ms": times[f"{kid} kernel device"],
+         "f32_instance_ms": times[f"{kid} f32 instance"],
+         "f32_instance_device_ms": times[f"{kid} f32 instance device"]}
+        for kid in BF16_ROWS]
     log(f"version {tpu_knn_torch.__version__}; {card}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

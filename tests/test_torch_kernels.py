@@ -898,3 +898,144 @@ def test_tier_wrappers_raise(device):
     hi, lo, rn = tiers.presplit_ops(torch.rand((200, 16), device=device), 256)
     with pytest.raises(ValueError, match="presplit"):
         tiers.presplit_candidates(q, hi, lo, rn[:, :128].contiguous(), 200, 1)
+
+
+# The bf16 instances of the tiled template (B1, B4, B3, B5, B7) and B6-bf16:
+# each bit-equal to its f32 instance over the upcast operand, at the
+# template's edges (k, m, n, ld): k = 1, ragged d-chunks, 768; m past a
+# block's rows; n ragged against 128 and 256; ld not a multiple of 8 (the
+# one-by-one staging) and a multiple (16-byte copies).
+BF16_EDGES = [(1, 65, 3149, 3200), (17, 9, 1000, 1001), (40, 33, 9077, 9080),
+              (16, 1000, 70_000, 70_144), (768, 70, 5077, 5120), (3, 5, 300, 301)]
+
+
+def _bf16_pair(device, k, m, n, ld, seed, pad=(3, 130)):
+    """Queries, a bf16 SoA operand of ld columns with PAD columns planted,
+    and its f32 upcast."""
+    q, _, r_op = _inputs(device, m, k, n, seed)
+    r_bf = torch.zeros((r_op.shape[0], ld), dtype=torch.bfloat16, device=device)
+    r_bf[:, :n] = r_op[:, :n]
+    r_bf[:, [c for c in pad if c < n]] = torch.tensor(1e30, dtype=torch.bfloat16)
+    return q, r_bf, r_bf.float()
+
+
+def _bits_equal(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("k,m,n,ld", BF16_EDGES)
+def test_tiled_bf16_instances_are_bit_equal_to_the_f32_instances(device, k, m, n, ld):
+    q, rb, rf = _bf16_pair(device, k, m, n, ld, seed=k + m)
+    parts = fused.tiled_parts(m, k, n)
+    bs = torch.full((m,), 0.25 * k, device=device)
+    bi = torch.full((m,), n // 2, dtype=torch.int32, device=device)
+    wrappers = (fused.fused_candidates, fused.banded_candidates, fused.minima_candidates,
+                topk.sweep_candidates) + ((seeded.extract_moments,) if ld % 64 == 0 else ())
+    launches = [(f, f.bf16_launches) for f in wrappers]
+    assert _bits_equal(fused.fused_candidates(q, rb, n, parts),
+                       fused.fused_candidates(q, rf, n, parts))
+    assert _bits_equal(fused.banded_candidates(q, rb, n, parts, bs, bi),
+                       fused.banded_candidates(q, rf, n, parts, bs, bi))
+    assert torch.equal(fused.minima_candidates(q, rb, n, 2),
+                       fused.minima_candidates(q, rf, n, 2))
+    for kk in (1, 8, 32):
+        p = topk.sweep_parts(m, k, n)
+        got = topk.sweep_candidates(q, rb, n, p, kk)
+        assert _bits_equal(got, topk.sweep_candidates(q, rf, n, p, kk))
+        assert not ({3, 130} & set(got[0].reshape(-1).tolist()))
+    if ld % 64 == 0:
+        bound, lo = torch.full((m,), 0.2 * k, device=device), torch.full((m,), 0.02 * k,
+                                                                           device=device)
+        for cell, nf in ((64, 4), (128, 8), (256, 8)):
+            if ld % cell == 0:
+                assert _bits_equal(
+                    seeded.extract_moments(q, rb, n, bound, cell, nf, lo=lo, emit_rem=True),
+                    seeded.extract_moments(q, rf, n, bound, cell, nf, lo=lo, emit_rem=True))
+    torch.cuda.synchronize()
+    for f, before in launches:
+        assert f.bf16_launches > before, f.__name__
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [1, 8, 17, 32])
+def test_b6_bf16_is_bit_equal_to_b6_at_each_load_width(device, k, m):
+    """B6-bf16 at every load width (an aligned operand, ld not a multiple
+    of 8, a misaligned base), K = 1, 8 and 32, seeded by B2's bound: its
+    lists are B6's over the upcast operand bit for bit at the same P."""
+    n = 20_003
+    q, _, r_op = _inputs(device, m, k, n, seed=31 * k + m)
+    r_bf = r_op.to(torch.bfloat16)
+    r_bf[:, 5] = torch.tensor(1e30, dtype=torch.bfloat16)
+    operands = [r_bf, r_bf[:, :n + 3].contiguous(), _misaligned(r_bf, 1), _misaligned(r_bf, 2)]
+    for kk in (1, 8, 32):
+        _, cs = smallm.smallm_candidates(q, r_bf, n, smallm.bf16_parts(n))
+        bound = torch.topk(cs, kk, dim=-1, largest=False).values[:, -1].contiguous()
+        for r_v in operands:
+            before = topk.smallm_topk_candidates.bf16_launches
+            parts = topk.smallm_topk_operand_parts(r_v, n, k)
+            got = topk.smallm_topk_candidates(q, r_v, n, parts, kk, bound)
+            assert _bits_equal(got, topk.smallm_topk_candidates(q, r_v.float(), n, parts, kk,
+                                                                bound))
+            assert topk.smallm_topk_candidates.bf16_launches == before + 1
+            assert 5 not in set(got[0].reshape(-1).tolist())
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pad_columns_are_never_reported(device, bf16):
+    """PAD_VALUE columns (1e30, or bf16(1e30) = 1.0038e30) in all k_pad rows,
+    as a mutable index's empty slots hold them: every kernel on the path
+    (B1 "highest" and each tier, B2 / B2-bf16, B3-B7) scores them +inf,
+    never NaN, and never reports one."""
+    m, k, n = 40, 16, 20_000
+    q, _, r_op = _inputs(device, m, k, n, seed=7)
+    pad_cols = torch.cat([torch.arange(64, device=device), torch.arange(64, n, 7, device=device)])
+    r_op[:, pad_cols] = 1e30
+    if bf16:
+        r_op = r_op.to(torch.bfloat16)
+    pads = set(pad_cols.tolist())
+
+    def clean(idx, score=None, finite=True):
+        assert not (pads & set(idx.reshape(-1).tolist()))
+        if score is not None:
+            assert not torch.isnan(score).any()
+            assert not finite or torch.isfinite(score[idx < n]).all()
+
+    for precision in (("highest", "packed", "qsplit2") if bf16 else
+                      ("highest", "packed", "bf16x3", "bf16x4", "default")):
+        clean(*tiers.tier_candidates(q, (r_op,), n, 3, precision))
+    qs = q[:4]
+    clean(*smallm.smallm_candidates(qs, r_op, n, 5))
+    bs, bi = torch.zeros(m, device=device), torch.zeros(m, dtype=torch.int32, device=device)
+    clean(*fused.banded_candidates(q, r_op, n, 3, bs, bi))
+    assert not torch.isnan(fused.minima_candidates(q, r_op, n, 2)).any()
+    clean(*topk.sweep_candidates(q, r_op, n, 4, 16))
+    bound = torch.full((4,), float(k), device=device)
+    clean(*topk.smallm_topk_candidates(qs, r_op, n, 4, 16, bound))
+    # Cell 0 (columns 0..63) is all PAD: no qualifier there under a finite
+    # bound, while live cells do qualify.
+    a, _ = seeded.extract_moments(q, r_op, n, torch.full((m,), 0.3 * k, device=device), 64, 8)
+    assert (a[:, 0] == 0).all() and (a[:, 1:] != 0).any()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "ip"])
+def test_mutable_metric_index_adds_cuda_points(device, metric):
+    """Adds of CUDA points to a mutable cosine / ip index on the card are
+    transformed there, and answer as the same adds given as NumPy."""
+    import numpy as np
+
+    from tpu_knn_torch import NNIndex
+
+    rng = np.random.default_rng(13)
+    pts = rng.random((6000, 16), np.float32) + 0.1
+    q = rng.random((40, 16), np.float32) + 0.1
+    a = NNIndex(pts[:4000], metric=metric, mutable=True, device=device)
+    b = NNIndex(pts[:4000], metric=metric, mutable=True, device=device)
+    add = pts[4000:] * 0.5
+    assert (a.add(torch.from_numpy(add).to(device)) == b.add(add)).all()
+    torch.testing.assert_close(a.ref_dev, b.ref_dev, rtol=2e-7, atol=2e-7)
+    for m in (1, 4, 40):
+        for kk in (None, 8):
+            ga, gb = a.query(q[:m], neighbors=kk), b.query(q[:m], neighbors=kk)
+            assert torch.equal(ga[0], gb[0])
+            torch.testing.assert_close(ga[1], gb[1], rtol=1e-5, atol=1e-5)
+    assert a.n_live == b.n_live == 6000

@@ -357,6 +357,54 @@ def test_topk_shared_memory_mirror_matches_the_kernel_constants():
             assert per_sm * (granted + c["kSmemPerBlockReserved"]) <= c["kSmemPerSm"]
 
 
+def test_b6_bf16_shared_memory_mirror_matches_the_kernel_constants():
+    """B6-bf16 (smallm_bf16_kselect_kernel<M, V>) holds B2-bf16's queries
+    and each of its kBf16Warps warps' K-selection of its m rows: tuning's
+    mirror names those constants (ptxas on the card: 4704 bytes at m = 1),
+    and kSmallmBf16BlocksPerSm blocks fit an SM at every m; its partition
+    count is B2-bf16's."""
+    c = _csrc_constants()
+    assert c["kBf16Warps"] == pt_tuning.SMALLM_BF16_THREADS // 32
+    for m in (1, 2, 3, 4):
+        rows = c["kBf16Warps"] * m
+        state = 16 * c["kSmallmMaxK"] + 4 * rows * (2 * c["kListSlots"]
+                                                    + 2 * c["kQueueSlots"] + 3)
+        assert pt_tuning.smallm_bf16_topk_state_bytes(m, 8) == state
+        granted = -(-state // pt_tuning.SMEM_ALLOC_UNIT) * pt_tuning.SMEM_ALLOC_UNIT
+        assert c["kSmallmBf16BlocksPerSm"] * (granted + c["kSmemPerBlockReserved"]) <= (
+            c["kSmemPerSm"])
+    assert pt_tuning.smallm_bf16_topk_state_bytes(1, 8) == 4704
+    r_bf = torch.zeros((16, 1 << 20), dtype=torch.bfloat16)
+    assert pt_topk.smallm_topk_operand_parts(r_bf, 1 << 20, 16) == pt_smallm.bf16_parts(1 << 20)
+    assert pt_topk.smallm_topk_operand_parts(r_bf.float(), 1 << 20, 16) == (
+        pt_topk.smallm_topk_parts(1 << 20, 16))
+
+
+@pytest.mark.parametrize("k", [3, 16, 40])
+def test_mutable_capacity_and_tier_follow_tpu_knn(k):
+    """A mutable index's capacity (round_up(max(capacity, 2n, 1024),
+    tile_n)), its tier (auto_precision(k, max(n, capacity))) and tile, and
+    its operand's shape equal tpu_knn's over a (n, capacity, store) grid;
+    an immutable index with capacity= takes the same tier, as in tpu_knn."""
+    import tpu_knn_torch
+    from tpu_knn.engine.index import NNIndex as JaxIndex
+
+    rng = np.random.default_rng(k)
+    for n in (300, 5000):
+        r = rng.random((n, k), np.float32)
+        for capacity in (None, 1000, 70_000):
+            for store in ("float32", "bf16"):
+                jx = JaxIndex(r, store=store, mutable=True, capacity=capacity)
+                ix = tpu_knn_torch.NNIndex(r, store=store, mutable=True, capacity=capacity,
+                                           device="cpu")
+                assert (ix.capacity, ix.precision, ix.tile_n) == (
+                    jx.capacity, jx.precision, jx.tile_n), (n, capacity, store)
+                assert ix.r_ops[0].shape == jx.r_ops[0].shape
+            if capacity:
+                assert tpu_knn_torch.NNIndex(r, capacity=capacity, device="cpu").precision == (
+                    JaxIndex(r, capacity=capacity).precision)
+
+
 def test_wide_load_scans_mirror_the_kernel_constants():
     """B11's and B2-bf16's Python geometry names the constants of their
     CUDA source: blocks per SM (their __launch_bounds__), B2-bf16's load

@@ -538,3 +538,28 @@ def test_newton_root_and_certificate_fail_on_illegal_cells():
 def test_moment_weights_equal_tpu_knns(tile_n, cell, nf):
     want = np.asarray(jx_topk._moment_weights(tile_n, cell, nf)).astype(np.float32)
     np.testing.assert_array_equal(pt_seeded._moment_weights(tile_n, cell, nf), want)
+
+
+@pytest.mark.parametrize("k,n,width", [(3, 3000, 3072), (16, 20_000, 20_480), (40, 5000, 5120)])
+def test_b3_and_b7_plain_over_a_bf16_operand_are_the_upcast_operands_bit_for_bit(k, n, width):
+    """B3's and B7's plain versions over a bf16 store's operand (PAD columns
+    planted) equal them over its f32 upcast bit for bit, as their bf16
+    instances equal their f32 instances on the card; a PAD column never
+    qualifies under a finite bound."""
+    rng = np.random.default_rng(k)
+    r_op = prep_soa(torch.from_numpy(rng.random((n, k), np.float32)).to(torch.bfloat16), width)
+    r_op[:, :64] = torch.tensor(1e30, dtype=torch.bfloat16)
+    rf = r_op.float()
+    q = _t(rng.random((9, k), np.float32))
+    for depth in (1, 2):
+        assert torch.equal(pt_fused.minima_candidates(q, r_op, n, depth),
+                           pt_fused.minima_candidates(q, rf, n, depth))
+    bound = torch.full((9,), 0.2 * k)
+    lo = torch.full((9,), 0.05 * k)
+    for cell, nf in ((64, 4), (128, 8), (256, 8)):
+        got = pt_seeded.extract_moments(q, r_op, n, bound, cell, nf, lo=lo, emit_rem=True)
+        want = pt_seeded.extract_moments(q, rf, n, bound, cell, nf, lo=lo, emit_rem=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if cell == 64:
+            assert (got[0][:, 0] == 0).all()          # the PAD cell holds no qualifier

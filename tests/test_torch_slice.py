@@ -143,23 +143,31 @@ def test_index_surface_not_ported_yet_raises():
     assert ix.query(r[:2], neighbors=3)[0].shape == (2, 3)
     idx, _ = ix.query(r[:20], neighbors=20)
     np.testing.assert_array_equal(idx.numpy(), _oracle_topk(r[:20], r, 20))
-    with pytest.raises(NotImplementedError, match="A.6"):
+    # save/load (A.6.5) are what the index surface still lacks.
+    with pytest.raises(NotImplementedError, match="A.6.5"):
         ix.save("unused.npz")
+    with pytest.raises(NotImplementedError, match="A.6.5"):
+        tpu_knn_torch.NNIndex.load("unused.npz")
     # strategy="auto" and "projection" are served since the ladder slice.
     for strategy in ("auto", "projection"):
         other = tpu_knn_torch.NNIndex(r, strategy=strategy, device="cpu")
         np.testing.assert_array_equal(other.query(r[:3])[0].numpy(), [0, 1, 2])
     for kwargs, item in (({"strategy": "kdtree"}, "A.8"),
-                         ({"strategy": "sharded"}, "A.9"),
-                         ({"metric": "cosine"}, "A.6"),
-                         ({"mutable": True}, "A.6")):
+                         ({"strategy": "sharded"}, "A.9")):
         with pytest.raises(NotImplementedError, match=item):
             tpu_knn_torch.NNIndex(r, device="cpu", **kwargs)
-    # The bf16 store answers 1-NN since the tier slice; top-K over it not yet.
+    # The metrics, mutable indexes and filtered views are served
+    # (ROADMAP A.6.1-A.6.4).
+    cos = tpu_knn_torch.NNIndex(r + 0.1, metric="cosine", device="cpu")
+    assert cos.query(r[:3] + 0.1)[0].shape == (3,)
+    mut = tpu_knn_torch.NNIndex(r, mutable=True, device="cpu")
+    np.testing.assert_array_equal(mut.query(r[:3])[0].numpy(), [0, 1, 2])
+    view = ix.filtered_view(np.arange(500) >= 1)
+    assert int(view.query(r[:1])[0][0]) != 0
+    # The bf16 store answers top-K too, over its bf16 operand.
     bf16 = tpu_knn_torch.NNIndex(r, store="bf16", device="cpu")
     np.testing.assert_array_equal(bf16.query(r[:3])[0].numpy(), [0, 1, 2])
-    with pytest.raises(NotImplementedError, match="A.6"):
-        bf16.query(r[:3], neighbors=2)
+    np.testing.assert_array_equal(bf16.query(r[:3], neighbors=2)[0].numpy()[:, 0], [0, 1, 2])
     with pytest.raises(ValueError):
         tpu_knn_torch.NNIndex(r, strategy="nope", device="cpu")
     got = tpu_knn_torch.nearest_neighbors(r[:20], r, neighbors=20, device="cpu")

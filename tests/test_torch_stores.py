@@ -235,14 +235,24 @@ def test_presplit_index_takes_b12_at_every_m(m, monkeypatch):
 
 
 def test_topk_over_stores_raises():
+    """Top-K and radius over the bf16 and int8 stores are served (tpu_knn's
+    answers); over a presplit index they raise tpu_knn's ValueError
+    (tpu_knn serves no top-K there either); presplit beside a quantized
+    store still raises NotImplementedError (A.6.6)."""
     r = np.random.default_rng(2).random((3000, 8), np.float32)
-    for kwargs in ({"store": "bf16"}, {"store": "int8"}, {"precision": "bf16x3_presplit"}):
-        ix = NNIndex(r, device="cpu", **kwargs)
-        with pytest.raises(NotImplementedError, match="A.6"):
-            ix.query(r[:4], neighbors=3)
-        with pytest.raises(NotImplementedError, match="A.6"):
-            ix.query_radius(r[:4], 0.1)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    for store in ("bf16", "int8"):
+        ix, jx = NNIndex(r, store=store, device="cpu"), JaxIndex(r, store=store)
+        _same(ix.query(r[:4], neighbors=3), jx.query(r[:4], neighbors=3), d2_rtol=1e-5)
+        got, want = ix.query_radius(r[:4], 0.1), jx.query_radius(r[:4], 0.1)
+        _same(got[:2], want[:2], d2_rtol=1e-5)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    ix = NNIndex(r, device="cpu", precision="bf16x3_presplit")
+    for index in (ix, JaxIndex(r, precision="bf16x3_presplit")):
+        with pytest.raises(ValueError, match="neighbors>1 requires"):
+            index.query(r[:4], neighbors=3)
+        with pytest.raises(ValueError, match="neighbors>1 requires"):
+            index.query_radius(r[:4], 0.1)
+    with pytest.raises(NotImplementedError, match="A.6.6"):
         NNIndex(r, store="bf16", precision="bf16x3_presplit", device="cpu")
 
 
@@ -304,3 +314,77 @@ def test_from_state_rejects_a_foreign_layout(jax_indexes, kind):
             NNIndex.from_state(dict(state, inv_s=-1.0), device="cpu")
         with pytest.raises(ValueError, match="zero"):
             NNIndex.from_state(dict(state, zero=state["zero"][:3]), device="cpu")
+
+
+@pytest.fixture
+def operand_spy(monkeypatch):
+    """Records (kernel, operand dtype) of every candidate-kernel call: the
+    wrappers take their plain versions on the CPU, so the spy sits there."""
+    from tpu_knn_torch.kernels import fused, seeded, topk
+
+    calls = []
+    for mod, name, kid in ((topk, "sweep_candidates_plain", "B5"),
+                           (topk, "smallm_topk_candidates_plain", "B6"),
+                           (smallm, "smallm_candidates_plain", "B2"),
+                           (fused, "banded_candidates_plain", "B4"),
+                           (fused, "minima_candidates_plain", "B3"),
+                           (seeded, "extract_moments_plain", "B7")):
+        monkeypatch.setattr(mod, name, lambda q, r_op, *a, f=getattr(mod, name), kid=kid, **kw:
+                            calls.append((kid, r_op.dtype)) or f(q, r_op, *a, **kw))
+    return calls
+
+
+def _oracle_topk(q, pts, kk):
+    d = ((q[:, None, :] - pts[None, :, :]) ** 2).sum(-1, dtype=np.float32)
+    return np.argsort(d, axis=1, kind="stable")[:, :kk]
+
+
+@pytest.mark.parametrize("m,kk,engines", [(1, 16, set()), (4, 8, {"B2", "B6"}),
+                                          (16, 8, {"B5"}), (64, 24, {"B3", "B7"})])
+def test_bf16_store_topk_hands_the_engines_its_bf16_operand(m, kk, engines, operand_spy):
+    """Top-K over a bf16 store: m = 1 the AoS engine off the bf16 points,
+    m >= 2 the sweep (B2 + B6, or B5) and seeded (B3 + B7) engines over the
+    store's bf16 operand itself, never an f32 copy; tpu_knn's indices, and
+    the oracle's over the stored points."""
+    rng = np.random.default_rng(40 + m)
+    ref = rng.random((6000, 16), np.float32)
+    ix, jx = NNIndex(ref, store="bf16", device="cpu"), JaxIndex(ref, store="bf16")
+    q = rng.random((m, 16), np.float32)
+    got = ix.query(q, neighbors=kk)
+    _same(got, jx.query(q, neighbors=kk), d2_rtol=1e-5)
+    np.testing.assert_array_equal(got[0].numpy(), _oracle_topk(q, _quantized(ref), kk))
+    assert {kid for kid, _ in operand_spy} == engines
+    assert all(dtype == torch.bfloat16 for _, dtype in operand_spy)
+
+
+@pytest.mark.parametrize("m,kk", [(1, 16), (4, 8), (64, 8), (16, 40)])
+def test_int8_store_topk_matches_tpu_knn(m, kk, operand_spy):
+    """Top-K over the int8 store: m = 1 the AoS engine off the int8 grid,
+    m >= 2 the engines over the per-call bf16 grid operand (tpu_knn's); d2
+    rescaled by s², the grid-space oracle's indices."""
+    rng = np.random.default_rng(50 + m)
+    ref = rng.random((6000, 8), np.float32) * 4.0 - 1.0
+    ix, jx = NNIndex(ref, store="int8", device="cpu"), JaxIndex(ref, store="int8")
+    q = rng.random((m, 8), np.float32) * 4.0 - 1.0
+    got = ix.query(q, neighbors=kk)
+    _same(got, jx.query(q, neighbors=kk), d2_rtol=1e-5)
+    _, qg, g = _grid_oracle(ix, q)
+    np.testing.assert_array_equal(got[0].numpy(), _oracle_topk(qg, g, kk))
+    assert bool(operand_spy) == (m > 1)
+    assert all(dtype == torch.bfloat16 for _, dtype in operand_spy)
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+def test_store_radius_escalates_like_tpu_knn(store):
+    """query_radius over a quantized store: the escalating and the capped
+    forms give tpu_knn's rows and counts (int8: in user units)."""
+    rng = np.random.default_rng(60)
+    ref = rng.random((5000, 4), np.float32)
+    q = rng.random((8, 4), np.float32)
+    ref[100:140] = q[0] + 0.02 * (rng.random((40, 4), np.float32) - 0.5)  # 40 near q[0]
+    ix, jx = NNIndex(ref, store=store, device="cpu"), JaxIndex(ref, store=store)
+    for radius, cap in ((0.1, 5), (0.1, None)):
+        got, want = ix.query_radius(q, radius, cap), jx.query_radius(q, radius, cap)
+        _same(got[:2], want[:2], d2_rtol=1e-5)
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[2][0]) >= 40 and got[0].shape[1] > 32   # the cap escalated past 32

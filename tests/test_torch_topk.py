@@ -559,3 +559,49 @@ def test_lex_order_keys():
     mi, ms = pt_topk._lex_min(torch.tensor([[4, 2, 9]], dtype=torch.int32),
                               torch.tensor([[1.0, 1.0, 0.5]]))
     assert int(mi[0]) == 9 and float(ms[0]) == 0.5
+
+
+def _bf16_operand(seed, k, n, width):
+    """A bf16 store's operand (PAD columns planted at 3 and n - 1) and its
+    exact f32 upcast."""
+    rng = np.random.default_rng(seed)
+    r_op = prep_soa(torch.from_numpy(rng.random((n, k), np.float32)).to(torch.bfloat16),
+                    width)
+    r_op[:, [3, n - 1]] = torch.tensor(1e30, dtype=torch.bfloat16)
+    return _t(rng.random((6, k), np.float32)), r_op, r_op.float()
+
+
+@pytest.mark.parametrize("k,n,width", [(3, 1000, 1024), (16, 5000, 5120), (40, 777, 896)])
+def test_plain_versions_over_a_bf16_operand_are_the_upcast_operands_bit_for_bit(k, n, width):
+    """B1's, B4's and B5's plain versions (and B6's at k <= 32) over a
+    bf16 store's operand equal them over its f32 upcast bit for bit, as the
+    kernels' bf16 instances equal their f32 instances; the CPU wrappers
+    take the bf16 operand as it is, and the planted PAD columns are never
+    reported."""
+    q, rb, rf = _bf16_operand(k, k, n, width)
+    parts = 3
+    bs, bi = torch.full((6,), 0.5 * k / 3), torch.full((6,), n // 2, dtype=torch.int32)
+    bound = torch.full((6,), 0.3 * k)
+    cases = [(pt_fused.fused_candidates, ()), (pt_fused.banded_candidates, (bs, bi)),
+             (pt_topk.sweep_candidates, (8,))]
+    if k <= 32:
+        cases.append((pt_topk.smallm_topk_candidates, (8, bound)))
+        q = q[:4]
+        bs, bi, bound = bs[:4], bi[:4], bound[:4]
+        cases = [(f, tuple(x[:4] if isinstance(x, torch.Tensor) else x for x in extra))
+                 for f, extra in cases]
+    for wrapper, extra in cases:
+        got, want = wrapper(q, rb, n, parts, *extra), wrapper(q, rf, n, parts, *extra)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), wrapper.__name__
+        assert not ({3, n - 1} & set(got[0].reshape(-1).tolist())), wrapper.__name__
+    assert torch.equal(pt_fused.norm_scores(q, rb, n), pt_fused.norm_scores(q, rf, n))
+    assert torch.equal(diff_scores(q, rb, n), diff_scores(q, rf, n))
+
+
+def test_wrappers_take_bf16_and_f32_operands_only():
+    q, rb, _ = _bf16_operand(1, 8, 500, 512)
+    for wrapper, extra in ((pt_fused.fused_candidates, ()),
+                           (pt_topk.sweep_candidates, (4,))):
+        with pytest.raises(TypeError, match="bfloat16"):
+            wrapper(q, rb.to(torch.float16), 500, 1, *extra)

@@ -10,6 +10,8 @@ torch and never jax; tpu_knn stays the reference it is tested against.
     >>> index = tpu_knn_torch.NNIndex(refs, strategy="fused")  # or "auto", "projection"
     >>> idx, d2 = index.query(queries)
     >>> idx, d2 = index.query(queries, neighbors=16)           # exact top-K
+    >>> index = tpu_knn_torch.NNIndex(refs, metric="cosine")   # or "ip"; store="bf16"/"int8",
+    >>> view = index.filtered_view(keep)                       # mutable=True (add/remove/compact)
     >>> idx, d2 = tpu_knn_torch.topk_knn(queries, refs, 16)
     >>> idx, d2 = tpu_knn_torch.knn_graph(points, 15)            # K-NN graph
 

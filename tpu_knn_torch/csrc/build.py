@@ -132,6 +132,11 @@ def load() -> ctypes.CDLL:
     lib.tk_dma_candidates.restype = i32
     lib.tk_window_candidates.argtypes = [ptr] * 4 + [i32, i32, i64, i32, i32, ptr]
     lib.tk_window_candidates.restype = i32
+    # The bf16 instances take their f32 instance's arguments, r a bf16 operand.
+    for name in ("fused_candidates", "banded_candidates", "sweep_candidates",
+                 "smallm_topk_candidates", "minima_candidates", "extract_moments"):
+        f32, bf16 = getattr(lib, f"tk_{name}"), getattr(lib, f"tk_{name}_bf16")
+        bf16.argtypes, bf16.restype = f32.argtypes, i32
     lib.tk_error_string.argtypes = [i32]
     lib.tk_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,7 @@
-// B1 and B4 (the tiled f32 candidate kernel, plain and banded), B1's two
-// ladder variants (AoS, v3; resident queries, v6) and B10 (v5, TMA-staged):
-// all five instances of the tiled template (tiled.cuh).
+// B1 and B4 (the tiled f32 candidate kernel, plain and banded, with their
+// bf16 instances over a bf16 store's operand), B1's two ladder variants
+// (AoS, v3; resident queries, v6) and B10 (v5, TMA-staged): all instances
+// of the tiled template (tiled.cuh).
 
 #include "knn_common.cuh"
 #include "tiled.cuh"
@@ -62,6 +63,15 @@ namespace {
 // (tuning.tiled_geometry) and fold, so at the same P its indices are B1's
 // bit for bit; no f32 scores are written. Any k fits. Bound: as B1 (at
 // m = 1 the read of the operand).
+//
+// B1's and B4's bf16 instances (tiled_bf16_candidates_kernel) — tpu_knn's
+// same kernels over a bf16 store's SoA operand, upcast at the read
+// (index.py:1625-1627): B1 and B4 under the template's BF16 policy, whose
+// ring stages the operand as stored (half an f32 stage's bytes) and whose
+// micro-tile upcasts each value at the shared-memory read. Their candidates
+// are the f32 instances' bit for bit over the upcast operand at the same P.
+// Bound: as B1 (arithmetic from m of a few hundred; below, the read of
+// k*n*2 bytes).
 // ---------------------------------------------------------------------------
 
 // The block's static shared state: |r|^2 of the tile's columns, the fold's
@@ -148,9 +158,9 @@ struct TmaState : TiledState<TM, false> {
 // One block's candidates: rows row_base + blockIdx.y * 8*TM .., lane
 // quarter blockIdx.x % 4 of partition blockIdx.x / 4, under the template's
 // policy (AOS, QRES or TMA; TMA emits the indices only).
-template <int TM, bool BANDED, bool AOS, bool QRES, bool TMA>
+template <int TM, bool BANDED, bool AOS, bool QRES, bool TMA, typename T = float>
 __device__ __forceinline__ void candidates_block(
-    const float* __restrict__ qT, const float* __restrict__ r, const float* __restrict__ bound_s,
+    const float* __restrict__ qT, const T* __restrict__ r, const float* __restrict__ bound_s,
     const int32_t* __restrict__ bound_i, int32_t* __restrict__ out_i, float* __restrict__ out_s,
     int m, int ldq, int k, long long ld, int n, int groups_per_part, bool vec16, int row_base,
     TiledState<TM, BANDED>& state, float* ring, const TmaRing& tma) {
@@ -174,7 +184,7 @@ __device__ __forceinline__ void candidates_block(
     best_i[i * kSliceLanes] = kI32Max;
   }
 
-  tiled_sweep<TM, AOS, QRES, TMA>(
+  tiled_sweep<TM, AOS, QRES, TMA, T>(
       qT, ldq, r, m, k, ld, n, vec16, lane_slice_columns(n, groups_per_part, part, quarter),
       row0, ring, state.norm_s,
       [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
@@ -211,6 +221,21 @@ tiled_candidates_kernel(const float* __restrict__ qT, const float* __restrict__ 
                                                  TmaRing{});
 }
 
+// B1 (BANDED false) and B4 under the BF16 policy: r is a bf16 SoA operand.
+template <int TM, bool BANDED>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_bf16_candidates_kernel(const float* __restrict__ qT, const __nv_bfloat16* __restrict__ r,
+                             const float* __restrict__ bound_s,
+                             const int32_t* __restrict__ bound_i, int32_t* __restrict__ out_i,
+                             float* __restrict__ out_s, int m, int ldq, int k, long long ld,
+                             int n, int groups_per_part, bool vec16, int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ TiledState<TM, BANDED> state;
+  candidates_block<TM, BANDED, false, false, false, __nv_bfloat16>(
+      qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, groups_per_part, vec16, row_base,
+      state, reinterpret_cast<float*>(smem4), TmaRing{});
+}
+
 // B10: B1 under the TMA policy, indices only (out_i (m, P*128)).
 template <int TM>
 __global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
@@ -222,7 +247,7 @@ tma_candidates_kernel(const __grid_constant__ CUtensorMap r_map,
                 "B10's blocks per SM do not fit its shared memory");
   extern __shared__ float4 smem4[];
   __shared__ TmaState<TM> state;
-  candidates_block<TM, false, false, false, true>(
+  candidates_block<TM, false, false, false, true, float>(
       nullptr, nullptr, nullptr, nullptr, out_i, nullptr, m, 0, k, 0, n, groups_per_part, false,
       row_base, state, tma_ring(smem4), TmaRing{&r_map, &q_map, state.full});
 }
@@ -232,19 +257,26 @@ tma_candidates_kernel(const __grid_constant__ CUtensorMap r_map,
 // ---------------------------------------------------------------------------
 
 // B1 (BANDED false), B4, v3 (AOS: r is the (n, k) array) and v6 (QRES)
-// at tm in {1, 4, 8} rows per warp.
-template <bool BANDED, bool AOS = false, bool QRES = false>
-int launch_tiled(const float* qT, const float* r, const float* bound_s, const int32_t* bound_i,
+// at tm in {1, 4, 8} rows per warp; with a bf16 r (T), B1's and B4's bf16
+// instances.
+template <bool BANDED, bool AOS = false, bool QRES = false, typename T = float>
+int launch_tiled(const float* qT, const T* r, const float* bound_s, const int32_t* bound_i,
                  int32_t* out_i, float* out_s, int m, int ldq, int k, long long ld, int n,
                  int parts, int tm, cudaStream_t stream) {
   const bool vec16 = !AOS && vec16_operand(r, ld);
   const int gpp = groups_per_part(n, parts);
   return with_tiled_rows(tm, [&](auto rows) {
     constexpr int TM = decltype(rows)::value;
-    return launch_tiled_grid<TM, TiledState<TM, BANDED>, AOS, QRES>(
-        tiled_candidates_kernel<TM, BANDED, AOS, QRES>, parts * kSlices, m,
-        QRES ? resident_bytes<TM>(m, k) : 0, stream, qT, r, bound_s, bound_i, out_i, out_s, m,
-        ldq, k, ld, n, gpp, vec16);
+    if constexpr (std::is_same_v<T, float>) {
+      return launch_tiled_grid<TM, TiledState<TM, BANDED>, AOS, QRES>(
+          tiled_candidates_kernel<TM, BANDED, AOS, QRES>, parts * kSlices, m,
+          QRES ? resident_bytes<TM>(m, k) : 0, stream, qT, r, bound_s, bound_i, out_i, out_s, m,
+          ldq, k, ld, n, gpp, vec16);
+    } else {
+      return launch_tiled_grid<TM, TiledState<TM, BANDED>, false, false, T>(
+          tiled_bf16_candidates_kernel<TM, BANDED>, parts * kSlices, m, 0, stream, qT, r,
+          bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, gpp, vec16);
+    }
   });
 }
 
@@ -273,6 +305,30 @@ int tk_banded_candidates(const float* qT, const float* r, const float* bound_s,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_tiled<true>(qT, r, bound_s, bound_i, out_i, out_s, m, ldq, k, ld, n, parts, tm,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// B1's and B4's bf16 instances: their launches over a bf16 SoA operand.
+int tk_fused_candidates_bf16(const float* qT, const void* r, int32_t* out_i, float* out_s, int m,
+                             int ldq, int k, long long ld, int n, int parts, int tm,
+                             void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tiled<false>(qT, static_cast<const __nv_bfloat16*>(r), nullptr, nullptr, out_i,
+                             out_s, m, ldq, k, ld, n, parts, tm,
+                             static_cast<cudaStream_t>(stream));
+}
+
+int tk_banded_candidates_bf16(const float* qT, const void* r, const float* bound_s,
+                              const int32_t* bound_i, int32_t* out_i, float* out_s, int m,
+                              int ldq, int k, long long ld, int n, int parts, int tm,
+                              void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tiled<true>(qT, static_cast<const __nv_bfloat16*>(r), bound_s, bound_i, out_i,
+                            out_s, m, ldq, k, ld, n, parts, tm,
                             static_cast<cudaStream_t>(stream));
 }
 

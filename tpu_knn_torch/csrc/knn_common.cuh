@@ -66,26 +66,38 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 // passes engines.
 // ---------------------------------------------------------------------------
 
+// A staged operand value as f32: a bf16 operand (a bf16 store's, staged as
+// it is stored by the tiled template's bf16 policy) is upcast at the
+// shared-memory read, exactly (a bf16 is an f32's high half), so an
+// instance over a bf16 operand scores bit for bit as the f32 instance over
+// the upcast operand.
+__device__ __forceinline__ float staged_f32(float v) { return v; }
+
+__device__ __forceinline__ float staged_f32(__nv_bfloat16 v) {
+  return __uint_as_float(static_cast<unsigned>(__bfloat16_as_ushort(v)) << 16);
+}
+
 // The arithmetic over a register micro-tile: TM query rows by TN reference
 // columns, fed one staged d-chunk at a time. qs is the chunk's
 // queries in shared memory at the thread's first row, [d][q_ld] (TM
 // consecutive rows per d); rs is the chunk's operand at the thread's first
-// column, [d][r_ld], its TN columns col_stride apart. Per coordinate a
+// column, [d][r_ld] (f32, or bf16 upcast by staged_f32), its TN columns
+// col_stride apart. Per coordinate a
 // thread loads TM/4 float4 query values and TN operand values and issues
 // TM*TN FMAs. acc carries across chunks, so each acc[i][j] is still one
 // fmaf chain over d = 0..k-1 in order (rows past k are staged as zeros on
 // both sides: fmaf(0, 0, x) == x, as acc is never -0). The caller keeps
 // |r|^2 with column_norm_chunk and forms s = norm - 2*acc after the last
 // chunk.
-template <int TM, int TN, int DK>
-__device__ __forceinline__ void micro_tile_chunk(const float* qs, int q_ld, const float* rs,
+template <int TM, int TN, int DK, typename T>
+__device__ __forceinline__ void micro_tile_chunk(const float* qs, int q_ld, const T* rs,
                                                  int r_ld, int col_stride,
                                                  float (&acc)[TM][TN]) {
 #pragma unroll
   for (int d = 0; d < DK; ++d) {
     float rv[TN];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) rv[j] = rs[d * r_ld + j * col_stride];
+    for (int j = 0; j < TN; ++j) rv[j] = staged_f32(rs[d * r_ld + j * col_stride]);
     float qv[TM];
     if constexpr (TM % 4 == 0) {
 #pragma unroll
@@ -110,11 +122,11 @@ __device__ __forceinline__ void micro_tile_chunk(const float* qs, int q_ld, cons
 
 // |r|^2 of one staged column over a d-chunk ([d][r_ld] from rc): one fmaf
 // chain over d in order, continued across chunks in `norm`.
-template <int DK>
-__device__ __forceinline__ float column_norm_chunk(const float* rc, int r_ld, float norm) {
+template <int DK, typename T>
+__device__ __forceinline__ float column_norm_chunk(const T* rc, int r_ld, float norm) {
 #pragma unroll
   for (int d = 0; d < DK; ++d) {
-    const float v = rc[d * r_ld];
+    const float v = staged_f32(rc[d * r_ld]);
     norm = fmaf(v, v, norm);
   }
   return norm;

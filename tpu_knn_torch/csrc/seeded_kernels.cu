@@ -1,7 +1,10 @@
 // The seeded top-K engine's kernels: B3 (value-only lane minima and their
 // merge), B7 (per-cell integer moments) and the B8/B9 cell compactor. B3
 // and B7 are the tiled f32 score template (tiled.cuh) with epilogues of
-// their own, so they score every column bit for bit as B1 and B4 do.
+// their own, so they score every column bit for bit as B1 and B4 do; each
+// has a bf16 instance under the template's BF16 policy (a bf16 store's
+// operand staged as stored and upcast at the shared-memory read), whose
+// outputs are the f32 instance's bit for bit over the upcast operand.
 
 #include "knn_common.cuh"
 #include "tiled.cuh"
@@ -68,14 +71,18 @@ __device__ __forceinline__ void fold_minima(const float (&acc)[TM][kTileGroups],
   }
 }
 
-template <int TM, int DEPTH>
-__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
-tiled_minima_kernel(const float* __restrict__ qT, const float* __restrict__ r,
-                    const float* __restrict__ lo, float* __restrict__ partial, int m, int ldq,
-                    int k, long long ld, int n, int groups_per_part, bool vec16, int row_base) {
+// One block's partial minima (rows row_base + blockIdx.y * 8*TM .., lane
+// quarter blockIdx.x % 4 of partition blockIdx.x / 4) over an operand of
+// type T.
+template <int TM, int DEPTH, typename T>
+__device__ __forceinline__ void minima_block(const float* __restrict__ qT,
+                                             const T* __restrict__ r,
+                                             const float* __restrict__ lo,
+                                             float* __restrict__ partial, int m, int ldq, int k,
+                                             long long ld, int n, int groups_per_part,
+                                             bool vec16, int row_base,
+                                             MinimaState<TM, DEPTH>& state, float* ring) {
   constexpr int BM = kTiledWarps * TM;
-  extern __shared__ float4 smem4[];
-  __shared__ MinimaState<TM, DEPTH> state;
   const int parts = gridDim.x / kSlices;
   const int part = blockIdx.x / kSlices;
   const int quarter = blockIdx.x - part * kSlices;
@@ -93,13 +100,13 @@ tiled_minima_kernel(const float* __restrict__ qT, const float* __restrict__ r,
     if constexpr (DEPTH == 2) min2[i * kSliceLanes] = pos_inf();
   }
 
-  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16,
-                  lane_slice_columns(n, groups_per_part, part, quarter), row0,
-                  reinterpret_cast<float*>(smem4), state.norm_s,
-                  [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
-                    fold_minima<TM, DEPTH>(acc, state.norm_s + lane, col0 + lane, live_groups,
-                                           n, state.lo + warp * TM, min1, min2);
-                  });
+  tiled_sweep<TM, false, false, false, T>(
+      qT, ldq, r, m, k, ld, n, vec16, lane_slice_columns(n, groups_per_part, part, quarter),
+      row0, ring, state.norm_s,
+      [&](const float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
+        fold_minima<TM, DEPTH>(acc, state.norm_s + lane, col0 + lane, live_groups, n,
+                               state.lo + warp * TM, min1, min2);
+      });
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -111,6 +118,29 @@ tiled_minima_kernel(const float* __restrict__ qT, const float* __restrict__ r,
       if constexpr (DEPTH == 2) o[kLanes] = min2[i * kSliceLanes];
     }
   }
+}
+
+template <int TM, int DEPTH>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_minima_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                    const float* __restrict__ lo, float* __restrict__ partial, int m, int ldq,
+                    int k, long long ld, int n, int groups_per_part, bool vec16, int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ MinimaState<TM, DEPTH> state;
+  minima_block<TM, DEPTH>(qT, r, lo, partial, m, ldq, k, ld, n, groups_per_part, vec16, row_base,
+                          state, reinterpret_cast<float*>(smem4));
+}
+
+// B3's bf16 instance: r is a bf16 SoA operand.
+template <int TM, int DEPTH>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+bf16_minima_kernel(const float* __restrict__ qT, const __nv_bfloat16* __restrict__ r,
+                   const float* __restrict__ lo, float* __restrict__ partial, int m, int ldq,
+                   int k, long long ld, int n, int groups_per_part, bool vec16, int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ MinimaState<TM, DEPTH> state;
+  minima_block<TM, DEPTH>(qT, r, lo, partial, m, ldq, k, ld, n, groups_per_part, vec16, row_base,
+                          state, reinterpret_cast<float*>(smem4));
 }
 
 // Folds `groups` 128-lane partials of a row ([group][depth][lane]) into
@@ -269,17 +299,16 @@ __device__ __forceinline__ void moment_tile(float (&s)[TM][kTileGroups], const f
   }
 }
 
-template <int TM, bool REM>
-__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
-tiled_moments_kernel(const float* __restrict__ qT, const float* __restrict__ r,
-                     const float* __restrict__ bound, const float* __restrict__ lo,
-                     int32_t* __restrict__ out_a, int32_t* __restrict__ out_p3,
-                     float* __restrict__ rem_part, int m, int ldq, int k, long long ld, int n,
-                     int nc, int cell, bool cubic, int chunks_per_part, bool vec16,
-                     int row_base) {
+// One block's moments (rows row_base + blockIdx.y * 8*TM .., partition
+// blockIdx.x of whole chunks) over an operand of type T.
+template <int TM, bool REM, typename T>
+__device__ __forceinline__ void moments_block(
+    const float* __restrict__ qT, const T* __restrict__ r, const float* __restrict__ bound,
+    const float* __restrict__ lo, int32_t* __restrict__ out_a, int32_t* __restrict__ out_p3,
+    float* __restrict__ rem_part, int m, int ldq, int k, long long ld, int n, int nc, int cell,
+    bool cubic, int chunks_per_part, bool vec16, int row_base, MomentState<TM, REM>& state,
+    float* ring) {
   constexpr int BM = kTiledWarps * TM;
-  extern __shared__ float4 smem4[];
-  __shared__ MomentState<TM, REM> state;
   const int part = blockIdx.x;
   const int row0 = row_base + blockIdx.y * BM;
   const int warp = threadIdx.x / 32;
@@ -301,14 +330,14 @@ tiled_moments_kernel(const float* __restrict__ qT, const float* __restrict__ r,
     }
   }
 
-  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16,
-                  TileColumns{c0 * kTileCols, kTileCols, kSliceLanes, own * kTileGroups}, row0,
-                  reinterpret_cast<float*>(smem4), state.norm_s,
-                  [&](float (&acc)[TM][kTileGroups], long long col0, int) {
-                    moment_tile<TM, REM>(acc, state.norm_s + lane, col0, n, m, row0 + warp * TM,
-                                         nc, cell, cubic, state.bound + warp * TM,
-                                         state.lo + warp * TM, rem, out_a, out_p3);
-                  });
+  tiled_sweep<TM, false, false, false, T>(
+      qT, ldq, r, m, k, ld, n, vec16,
+      TileColumns{c0 * kTileCols, kTileCols, kSliceLanes, own * kTileGroups}, row0, ring,
+      state.norm_s, [&](float (&acc)[TM][kTileGroups], long long col0, int) {
+        moment_tile<TM, REM>(acc, state.norm_s + lane, col0, n, m, row0 + warp * TM, nc, cell,
+                             cubic, state.bound + warp * TM, state.lo + warp * TM, rem, out_a,
+                             out_p3);
+      });
 
   if constexpr (REM) {
 #pragma unroll
@@ -321,6 +350,37 @@ tiled_moments_kernel(const float* __restrict__ qT, const float* __restrict__ r,
       }
     }
   }
+}
+
+template <int TM, bool REM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+tiled_moments_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                     const float* __restrict__ bound, const float* __restrict__ lo,
+                     int32_t* __restrict__ out_a, int32_t* __restrict__ out_p3,
+                     float* __restrict__ rem_part, int m, int ldq, int k, long long ld, int n,
+                     int nc, int cell, bool cubic, int chunks_per_part, bool vec16,
+                     int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ MomentState<TM, REM> state;
+  moments_block<TM, REM>(qT, r, bound, lo, out_a, out_p3, rem_part, m, ldq, k, ld, n, nc, cell,
+                         cubic, chunks_per_part, vec16, row_base, state,
+                         reinterpret_cast<float*>(smem4));
+}
+
+// B7's bf16 instance: r is a bf16 SoA operand.
+template <int TM, bool REM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+bf16_moments_kernel(const float* __restrict__ qT, const __nv_bfloat16* __restrict__ r,
+                    const float* __restrict__ bound, const float* __restrict__ lo,
+                    int32_t* __restrict__ out_a, int32_t* __restrict__ out_p3,
+                    float* __restrict__ rem_part, int m, int ldq, int k, long long ld, int n,
+                    int nc, int cell, bool cubic, int chunks_per_part, bool vec16,
+                    int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ MomentState<TM, REM> state;
+  moments_block<TM, REM>(qT, r, bound, lo, out_a, out_p3, rem_part, m, ldq, k, ld, n, nc, cell,
+                         cubic, chunks_per_part, vec16, row_base, state,
+                         reinterpret_cast<float*>(smem4));
 }
 
 // ---------------------------------------------------------------------------
@@ -458,51 +518,57 @@ compact_cells_kernel(const int32_t* __restrict__ f0, const int32_t* __restrict__
 // Launchers.
 // ---------------------------------------------------------------------------
 
-template <int DEPTH>
-int launch_minima(const float* qT, const float* r, const float* lo, float* partial, float* out,
+template <int DEPTH, typename T>
+int launch_minima(const float* qT, const T* r, const float* lo, float* partial, float* out,
                   int m, int ldq, int k, long long ld, int n, int parts, int tm,
                   cudaStream_t stream) {
   const bool vec16 = vec16_operand(r, ld);
   const int gpp = groups_per_part(n, parts);
   const int e = with_tiled_rows(tm, [&](auto rows) {
     constexpr int TM = decltype(rows)::value;
-    return launch_tiled_grid<TM, MinimaState<TM, DEPTH>>(
-        tiled_minima_kernel<TM, DEPTH>, parts * kSlices, m, 0, stream, qT, r, lo, partial, m,
-        ldq, k, ld, n, gpp, vec16);
+    if constexpr (std::is_same_v<T, float>) {
+      return launch_tiled_grid<TM, MinimaState<TM, DEPTH>>(
+          tiled_minima_kernel<TM, DEPTH>, parts * kSlices, m, 0, stream, qT, r, lo, partial, m,
+          ldq, k, ld, n, gpp, vec16);
+    } else {
+      return launch_tiled_grid<TM, MinimaState<TM, DEPTH>, false, false, T>(
+          bf16_minima_kernel<TM, DEPTH>, parts * kSlices, m, 0, stream, qT, r, lo, partial, m,
+          ldq, k, ld, n, gpp, vec16);
+    }
   });
   if (e != 0) return e;
   minima_merge_kernel<DEPTH><<<m, kLanes, 0, stream>>>(partial, out, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool REM>
-int launch_moments(const float* qT, const float* r, const float* bound, const float* lo,
+template <bool REM, typename T>
+int launch_moments(const float* qT, const T* r, const float* bound, const float* lo,
                    int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
                    int ldq, int k, long long ld, int n, int nc, int cell, bool cubic, int parts,
                    int chunks_per_part, int tm, cudaStream_t stream) {
   const bool vec16 = vec16_operand(r, ld);
   const int e = with_tiled_rows(tm, [&](auto rows) {
     constexpr int TM = decltype(rows)::value;
-    return launch_tiled_grid<TM, MomentState<TM, REM>>(
-        tiled_moments_kernel<TM, REM>, parts, m, 0, stream, qT, r, bound, lo, out_a, out_p3,
-        rem_part, m, ldq, k, ld, n, nc, cell, cubic, chunks_per_part, vec16);
+    if constexpr (std::is_same_v<T, float>) {
+      return launch_tiled_grid<TM, MomentState<TM, REM>>(
+          tiled_moments_kernel<TM, REM>, parts, m, 0, stream, qT, r, bound, lo, out_a, out_p3,
+          rem_part, m, ldq, k, ld, n, nc, cell, cubic, chunks_per_part, vec16);
+    } else {
+      return launch_tiled_grid<TM, MomentState<TM, REM>, false, false, T>(
+          bf16_moments_kernel<TM, REM>, parts, m, 0, stream, qT, r, bound, lo, out_a, out_p3,
+          rem_part, m, ldq, k, ld, n, nc, cell, cubic, chunks_per_part, vec16);
+    }
   });
   if (e != 0 || !REM) return e;
   minima_merge_kernel<1><<<m, kLanes, 0, stream>>>(rem_part, rem_out, parts);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// B3 launch: qT the queries transposed (as for B1), tm rows per warp and
-// parts partitions as tuning.tiled_geometry picks them, depth 1 or 2, lo
-// (m,) f32 or null; partial is (m, parts*depth*128) scratch, out (m,
-// depth*128).
-int tk_minima_candidates(const float* qT, const float* r, const float* lo, float* partial,
-                         float* out, int m, int ldq, int k, long long ld, int n, int parts, int tm,
-                         int depth, void* stream) {
+// B3's entry (both instances): depth 1 or 2.
+template <typename T>
+int minima_entry(const float* qT, const T* r, const float* lo, float* partial, float* out, int m,
+                 int ldq, int k, long long ld, int n, int parts, int tm, int depth,
+                 void* stream) {
   if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m) ||
       (depth != 1 && depth != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -512,16 +578,12 @@ int tk_minima_candidates(const float* qT, const float* r, const float* lo, float
   return launch_minima<2>(qT, r, lo, partial, out, m, ldq, k, ld, n, parts, tm, s);
 }
 
-// B7 launch: nc cells of `cell` in {64, 128, 256} columns cover the
-// operand (ld >= nc*cell >= n); qT as for B1; parts partitions of whole
-// 256-column chunks and tm rows per warp, as tuning.moments_geometry
-// picks them; bound (m,) f32, lo (m,) f32 or null; out_a (m, nc) int32,
-// out_p3 (m, nc) int32 when cubic; rem_part (m, parts*128) scratch and
-// rem_out (m, 128), or both null.
-int tk_extract_moments(const float* qT, const float* r, const float* bound, const float* lo,
-                       int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
-                       int ldq, int k, long long ld, int n, int nc, int cell, int cubic,
-                       int parts, int tm, void* stream) {
+// B7's entry (both instances).
+template <typename T>
+int moments_entry(const float* qT, const T* r, const float* bound, const float* lo,
+                  int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
+                  int ldq, int k, long long ld, int n, int nc, int cell, int cubic, int parts,
+                  int tm, void* stream) {
   const long long width = static_cast<long long>(nc) * cell;
   const int chunks = static_cast<int>((width + kTileCols - 1) / kTileCols);
   if (m < 1 || k < 1 || n < 1 || n > width || ld < width || parts < 1 || parts > chunks ||
@@ -537,6 +599,51 @@ int tk_extract_moments(const float* qT, const float* r, const float* bound, cons
   }
   return launch_moments<false>(qT, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, ldq, k,
                                ld, n, nc, cell, cubic != 0, parts, cpp, tm, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// B3 launch: qT the queries transposed (as for B1), tm rows per warp and
+// parts partitions as tuning.tiled_geometry picks them, depth 1 or 2, lo
+// (m,) f32 or null; partial is (m, parts*depth*128) scratch, out (m,
+// depth*128).
+int tk_minima_candidates(const float* qT, const float* r, const float* lo, float* partial,
+                         float* out, int m, int ldq, int k, long long ld, int n, int parts, int tm,
+                         int depth, void* stream) {
+  return minima_entry(qT, r, lo, partial, out, m, ldq, k, ld, n, parts, tm, depth, stream);
+}
+
+// B3's bf16 instance: B3's launch over a bf16 SoA operand.
+int tk_minima_candidates_bf16(const float* qT, const void* r, const float* lo, float* partial,
+                              float* out, int m, int ldq, int k, long long ld, int n, int parts,
+                              int tm, int depth, void* stream) {
+  return minima_entry(qT, static_cast<const __nv_bfloat16*>(r), lo, partial, out, m, ldq, k, ld,
+                      n, parts, tm, depth, stream);
+}
+
+// B7 launch: nc cells of `cell` in {64, 128, 256} columns cover the
+// operand (ld >= nc*cell >= n); qT as for B1; parts partitions of whole
+// 256-column chunks and tm rows per warp, as tuning.moments_geometry
+// picks them; bound (m,) f32, lo (m,) f32 or null; out_a (m, nc) int32,
+// out_p3 (m, nc) int32 when cubic; rem_part (m, parts*128) scratch and
+// rem_out (m, 128), or both null.
+int tk_extract_moments(const float* qT, const float* r, const float* bound, const float* lo,
+                       int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out, int m,
+                       int ldq, int k, long long ld, int n, int nc, int cell, int cubic,
+                       int parts, int tm, void* stream) {
+  return moments_entry(qT, r, bound, lo, out_a, out_p3, rem_part, rem_out, m, ldq, k, ld, n, nc,
+                       cell, cubic, parts, tm, stream);
+}
+
+// B7's bf16 instance: B7's launch over a bf16 SoA operand.
+int tk_extract_moments_bf16(const float* qT, const void* r, const float* bound, const float* lo,
+                            int32_t* out_a, int32_t* out_p3, float* rem_part, float* rem_out,
+                            int m, int ldq, int k, long long ld, int n, int nc, int cell,
+                            int cubic, int parts, int tm, void* stream) {
+  return moments_entry(qT, static_cast<const __nv_bfloat16*>(r), bound, lo, out_a, out_p3,
+                       rem_part, rem_out, m, ldq, k, ld, n, nc, cell, cubic, parts, tm, stream);
 }
 
 // The B8/B9 compactor: f0 (and f1, or null) (m, nc) int32 -> o_pos, o0

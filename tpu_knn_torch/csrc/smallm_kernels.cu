@@ -1,5 +1,6 @@
 // B2 (small-m lane minima) and B6 (small-m top-K lists): the exact
-// diff-form kernels for 1 <= m <= 4.
+// diff-form kernels for 1 <= m <= 4, each with its bf16 instance (B2-bf16,
+// B6-bf16) over a bf16 store's operand.
 
 #include <type_traits>
 
@@ -363,6 +364,143 @@ smallm_kselect_kernel(const float* __restrict__ q, const float* __restrict__ r,
 }
 
 // ---------------------------------------------------------------------------
+// B6-bf16 — B6 over a bf16 store's SoA operand (tpu_knn's kernel upcasts at
+// the read, index.py:1625-1627): per (row, partition) the kk
+// lexicographically smallest (exact diff-form score, column) pairs with
+// score <= the row's bound, B6's contract, bit for bit as B6 over the same
+// values stored in f32 at the same P: B2-bf16's scan and arithmetic (each
+// (row, column) one fmaf(diff, diff, acc) chain over d = 0..k-1 in order,
+// as load_column + diff_score form it) and B6's K-selection, whose kept set
+// does not depend on the order of the offers.
+//
+// Bound on the H100: device-memory reads, k*n*2 bytes (0.5 GiB at k=16,
+// n=2^24, about 0.16 ms at 3.35 TB/s). Design: B2-bf16's blocks and loads
+// (256 threads, a thread owning V consecutive lanes of a group read with
+// one 2V-byte load a row, 2V groups side by side, the rows of a column
+// chunk all loaded before their fold; V from the base and ld, capped at 4
+// for m >= 3) at B2-bf16's P (smallm.bf16_parts: 2 blocks an SM), with
+// B6's selection in place of the lane fold: each of the 8 warps keeps its
+// own list per row (KSelectState, 16.5 KB a block at m = 4), a vote per
+// (column group, row set) skips the selection where no lane's V scores
+// pass, and at the end warp i merges the 8 warps' lists of row i into the
+// partition's. A block's trip count over its groups is uniform, so every
+// warp reaches the warp-collective offers together.
+// ---------------------------------------------------------------------------
+constexpr int kBf16Warps = kBf16Threads / 32;
+
+template <int M, int V>
+__global__ void __launch_bounds__(kBf16Threads, kSmallmBf16BlocksPerSm)
+smallm_bf16_kselect_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ r,
+                           const float* __restrict__ bound, int32_t* __restrict__ out_i,
+                           float* __restrict__ out_s, int k, long long ld, int n,
+                           int groups_per_part, int kk) {
+  static_assert(M <= 4 && V <= bf16_vec_cap(M), "state of M rows x V lanes");
+  constexpr int kGroupThreads = kLanes / V;
+  constexpr int kSlots = kBf16Threads / kGroupThreads;
+  constexpr int kRows = bf16_rows(V);
+  constexpr int kWords = (V + 1) / 2;
+  __shared__ float4 qs[kSmallmMaxK];  // qs[d] = (q[0][d], ..., q[M-1][d], 0...)
+  __shared__ KSelectState<kBf16Warps * M> ks;  // warp w's list of row i at w*M + i
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float ts[M];  // each row's kk-th entry, kept up to date by kselect_offer
+  int tc[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    ts[i] = bound[i];
+    tc[i] = kI32Max;
+    kselect_init(ks, warp * M + i, ts[i]);
+  }
+  for (int d = threadIdx.x; d < kSmallmMaxK; d += kBf16Threads) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = i < M && d < k ? q[i * k + d] : 0.f;
+    qs[d] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+
+  const int part = blockIdx.x;
+  const int slot = threadIdx.x / kGroupThreads;
+  const int lane0 = (threadIdx.x % kGroupThreads) * V;
+  const long long g_first = static_cast<long long>(part) * groups_per_part;
+  const long long groups = (static_cast<long long>(n) + kLanes - 1) / kLanes;
+  const int own = static_cast<int>(max(0LL, min(static_cast<long long>(groups_per_part),
+                                                groups - g_first)));
+  for (int g0 = 0; g0 < own; g0 += kSlots) {  // block-uniform
+    const int g = g0 + slot;
+    const long long col = (g_first + g) * kLanes + lane0;
+    // col < n <= ld, V | col and V | ld: the V columns lie inside the row.
+    const bool live = g < own && col < n;
+    const __nv_bfloat16* rc = r + (live ? col : 0);
+    float acc[M][V];
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[i][v] = 0.f;
+    }
+    for (int d0 = 0; d0 < k; d0 += kRows) {
+      unsigned w[kRows][kWords];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        if (live && d0 + j < k) {
+          load_bf16_row<V>(rc + static_cast<long long>(d0 + j) * ld, w[j]);
+        } else {
+#pragma unroll
+          for (int h = 0; h < kWords; ++h) w[j][h] = 0u;
+        }
+      }
+      // Rows past k: 0 against a 0 query coordinate, fmaf(0, 0, acc) ==
+      // acc (acc is never -0).
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const float4 qd4 = qs[d0 + j];
+        const float qd[4] = {qd4.x, qd4.y, qd4.z, qd4.w};
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float x = bf16_value<V>(w[j], v);
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            const float diff = x - qd[i];
+            acc[i][v] = fmaf(diff, diff, acc[i][v]);
+          }
+        }
+      }
+    }
+    // The scores in place of the sums; a column past n (or a dead slot)
+    // becomes NaN, which no compare admits.
+    const int c = static_cast<int>(col);
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc[i][v] = live && col + v < n ? acc[i][v] : __int_as_float(0x7fc00000);
+        any |= kselect_passes(acc[i][v], c + v, ts[i], tc[i]);
+      }
+    }
+    if (__any_sync(kFullMask, any)) {  // warp-uniform; rare past the bound
+#pragma unroll
+      for (int i = 0; i < M; ++i) kselect_offer(ks, warp * M + i, kk, acc[i], c, 1, ts[i], tc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) kselect_flush(ks, warp * M + i, kk);
+  __syncthreads();
+
+  if (warp < M) {  // warp i: row i's lists into the partition's one
+    const int i = warp;
+    float s = ks.ls[i][lane];
+    int c = ks.li[i][lane];
+#pragma unroll
+    for (int w = 1; w < kBf16Warps; ++w) {
+      merge_lists(s, c, ks.ls[w * M + i][31 - lane], ks.li[w * M + i][31 - lane]);
+    }
+    kselect_write(s, c, out_i, out_s, static_cast<long long>(i) * gridDim.x * kk,
+                  list_of(g_first * kLanes, groups_per_part), kk);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
 
@@ -466,6 +604,69 @@ int launch_smallm_topk(const float* q, const float* r, const float* bound, int32
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int M, int V>
+int launch_smallm_topk_bf16_vec(const float* q, const __nv_bfloat16* r, const float* bound,
+                                int32_t* out_i, float* out_s, int k, long long ld, int n,
+                                int parts, int groups_per_part, int kk, cudaStream_t s) {
+  if constexpr (V > bf16_vec_cap(M)) {
+    return launch_smallm_topk_bf16_vec<M, bf16_vec_cap(M)>(q, r, bound, out_i, out_s, k, ld, n,
+                                                           parts, groups_per_part, kk, s);
+  } else {
+    smallm_bf16_kselect_kernel<M, V><<<parts, kBf16Threads, 0, s>>>(
+        q, r, bound, out_i, out_s, k, ld, n, groups_per_part, kk);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <int M>
+int launch_smallm_topk_bf16(const float* q, const __nv_bfloat16* r, const float* bound,
+                            int32_t* out_i, float* out_s, int k, long long ld, int n, int parts,
+                            int groups_per_part, int kk, cudaStream_t s) {
+  switch (bf16_vec(r, ld)) {
+    case 8: return launch_smallm_topk_bf16_vec<M, 8>(q, r, bound, out_i, out_s, k, ld, n, parts,
+                                                     groups_per_part, kk, s);
+    case 4: return launch_smallm_topk_bf16_vec<M, 4>(q, r, bound, out_i, out_s, k, ld, n, parts,
+                                                     groups_per_part, kk, s);
+    case 2: return launch_smallm_topk_bf16_vec<M, 2>(q, r, bound, out_i, out_s, k, ld, n, parts,
+                                                     groups_per_part, kk, s);
+    default: return launch_smallm_topk_bf16_vec<M, 1>(q, r, bound, out_i, out_s, k, ld, n,
+                                                      parts, groups_per_part, kk, s);
+  }
+}
+
+// B6's and B6-bf16's entry: 1 <= m <= 4, 1 <= k <= 32, 1 <= kk <= 32.
+template <typename RT>
+int smallm_topk_entry(const float* q, const RT* r, const float* bound, int32_t* out_i,
+                      float* out_s, int m, int k, long long ld, int n, int parts, int kk,
+                      void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || k > kSmallmMaxK || kk < 1 || kk > kListSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int gpp = groups_per_part(n, parts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<RT, float>) {
+    switch (m) {
+      case 1: return launch_smallm_topk<1>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
+      case 2: return launch_smallm_topk<2>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
+      case 3: return launch_smallm_topk<3>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
+      case 4: return launch_smallm_topk<4>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (m) {
+      case 1: return launch_smallm_topk_bf16<1>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp,
+                                                kk, s);
+      case 2: return launch_smallm_topk_bf16<2>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp,
+                                                kk, s);
+      case 3: return launch_smallm_topk_bf16<3>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp,
+                                                kk, s);
+      case 4: return launch_smallm_topk_bf16<4>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp,
+                                                kk, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -488,18 +689,16 @@ int tk_smallm_candidates_bf16(const float* q, const void* r, int32_t* out_i, flo
 int tk_smallm_topk_candidates(const float* q, const float* r, const float* bound,
                               int32_t* out_i, float* out_s, int m, int k, long long ld, int n,
                               int parts, int kk, void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || k > 32 || kk < 1 || kk > kListSlots) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int gpp = groups_per_part(n, parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 1: return launch_smallm_topk<1>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
-    case 2: return launch_smallm_topk<2>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
-    case 3: return launch_smallm_topk<3>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
-    case 4: return launch_smallm_topk<4>(q, r, bound, out_i, out_s, k, ld, n, parts, gpp, kk, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return smallm_topk_entry(q, r, bound, out_i, out_s, m, k, ld, n, parts, kk, stream);
+}
+
+// B6-bf16 launch: B6 over a bf16 SoA operand (a bf16 store), at B2-bf16's
+// blocks and load widths.
+int tk_smallm_topk_candidates_bf16(const float* q, const void* r, const float* bound,
+                                   int32_t* out_i, float* out_s, int m, int k, long long ld,
+                                   int n, int parts, int kk, void* stream) {
+  return smallm_topk_entry(q, static_cast<const __nv_bfloat16*>(r), bound, out_i, out_s, m, k,
+                           ld, n, parts, kk, stream);
 }
 
 }  // extern "C"

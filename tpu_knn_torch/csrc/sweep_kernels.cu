@@ -1,5 +1,5 @@
 // B5: the top-K sweep, an instance of the tiled f32 template (tiled.cuh)
-// with a K-list fold (kselect.cuh) as its epilogue.
+// with a K-list fold (kselect.cuh) as its epilogue, and its bf16 instance.
 
 #include "kselect.cuh"
 #include "knn_common.cuh"
@@ -40,6 +40,13 @@ namespace {
 // merged, so in partitions of 16 tiles most tiles pass something in some
 // row of a block: that path, not the scores, is most of B5's time at
 // TM = 4.
+//
+// B5's bf16 instance (sweep_bf16_kselect_kernel) — tpu_knn's sweep over a
+// bf16 store's SoA operand, upcast at the read (index.py:1625-1627): the
+// same block under the template's BF16 policy (a ring of bf16 stages,
+// upcast at the shared-memory read), so its lists are B5's bit for bit over
+// the upcast operand. Bound: the k*n*2 bytes of the operand at serving
+// batch sizes (0.010 ms at (k=16, n=2^20)).
 // ---------------------------------------------------------------------------
 
 // The block's static shared state: |r|^2 of the tile's columns and the
@@ -118,15 +125,16 @@ __device__ __forceinline__ void sweep_tile(float (&s)[TM][kTileGroups], const fl
   }
 }
 
-template <int TM>
-__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
-sweep_kselect_kernel(const float* __restrict__ qT, const float* __restrict__ r,
-                     int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
-                     int k, long long ld, int n, int groups_per_part, int kk, bool vec16,
-                     int row_base) {
+// One block's lists: rows row_base + blockIdx.y * 8*TM .., partition
+// blockIdx.x, over an operand of type T.
+template <int TM, typename T>
+__device__ __forceinline__ void sweep_block(const float* __restrict__ qT, const T* __restrict__ r,
+                                            int32_t* __restrict__ out_i,
+                                            float* __restrict__ out_s, int m, int ldq, int k,
+                                            long long ld, int n, int groups_per_part, int kk,
+                                            bool vec16, int row_base, SweepState<TM>& state,
+                                            float* ring) {
   constexpr int BM = kTiledWarps * TM;
-  extern __shared__ float4 smem4[];
-  __shared__ SweepState<TM> state;
   const int part = blockIdx.x;
   const int row0 = row_base + blockIdx.y * BM;
   const int warp = threadIdx.x / 32;
@@ -137,12 +145,12 @@ sweep_kselect_kernel(const float* __restrict__ qT, const float* __restrict__ r,
   for (int i = 0; i < TM; ++i) kselect_init(state.ks, first + i, pos_inf());
 
   const TileColumns tc = partition_columns(n, groups_per_part, part);
-  tiled_sweep<TM>(qT, ldq, r, m, k, ld, n, vec16, tc, row0, reinterpret_cast<float*>(smem4),
-                  state.norm_s,
-                  [&](float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
-                    sweep_tile<TM>(acc, state.norm_s + lane, col0 + lane, live_groups, n, rows,
-                                   kk, state.ks, first);
-                  });
+  tiled_sweep<TM, false, false, false, T>(
+      qT, ldq, r, m, k, ld, n, vec16, tc, row0, ring, state.norm_s,
+      [&](float (&acc)[TM][kTileGroups], long long col0, int live_groups) {
+        sweep_tile<TM>(acc, state.norm_s + lane, col0 + lane, live_groups, n, rows, kk,
+                       state.ks, first);
+      });
 
   const int list = list_of(tc.first, groups_per_part);
   const long long width = static_cast<long long>(gridDim.x) * kk;
@@ -156,6 +164,59 @@ sweep_kselect_kernel(const float* __restrict__ qT, const float* __restrict__ r,
   }
 }
 
+template <int TM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+sweep_kselect_kernel(const float* __restrict__ qT, const float* __restrict__ r,
+                     int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
+                     int k, long long ld, int n, int groups_per_part, int kk, bool vec16,
+                     int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ SweepState<TM> state;
+  sweep_block<TM>(qT, r, out_i, out_s, m, ldq, k, ld, n, groups_per_part, kk, vec16, row_base,
+                  state, reinterpret_cast<float*>(smem4));
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBlocksPerSm)
+sweep_bf16_kselect_kernel(const float* __restrict__ qT, const __nv_bfloat16* __restrict__ r,
+                          int32_t* __restrict__ out_i, float* __restrict__ out_s, int m, int ldq,
+                          int k, long long ld, int n, int groups_per_part, int kk, bool vec16,
+                          int row_base) {
+  extern __shared__ float4 smem4[];
+  __shared__ SweepState<TM> state;
+  sweep_block<TM>(qT, r, out_i, out_s, m, ldq, k, ld, n, groups_per_part, kk, vec16, row_base,
+                  state, reinterpret_cast<float*>(smem4));
+}
+
+// B5 (float r) and its bf16 instance at tm (1 or 4, tuning.SWEEP_ROWS).
+template <typename T>
+int launch_sweep(const float* qT, const T* r, int32_t* out_i, float* out_s, int m, int ldq,
+                 int k, long long ld, int n, int parts, int kk, int tm, cudaStream_t stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m) || kk < 1 ||
+      kk > kListSlots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec16 = vec16_operand(r, ld);
+  const int gpp = groups_per_part(n, parts);
+  const auto launch = [&](auto rows) {
+    constexpr int TM = decltype(rows)::value;
+    if constexpr (std::is_same_v<T, float>) {
+      return launch_tiled_grid<TM, SweepState<TM>>(sweep_kselect_kernel<TM>, parts, m, 0, stream,
+                                                   qT, r, out_i, out_s, m, ldq, k, ld, n, gpp,
+                                                   kk, vec16);
+    } else {
+      return launch_tiled_grid<TM, SweepState<TM>, false, false, T>(
+          sweep_bf16_kselect_kernel<TM>, parts, m, 0, stream, qT, r, out_i, out_s, m, ldq, k,
+          ld, n, gpp, kk, vec16);
+    }
+  };
+  switch (tm) {  // tuning.SWEEP_ROWS
+    case 4: return launch(std::integral_constant<int, 4>{});
+    case 1: return launch(std::integral_constant<int, 1>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -166,24 +227,16 @@ extern "C" {
 int tk_sweep_candidates(const float* qT, const float* r, int32_t* out_i, float* out_s, int m,
                         int ldq, int k, long long ld, int n, int parts, int kk, int tm,
                         void* stream) {
-  if (!valid_geometry(m, k, ld, n, parts) || !valid_queries_t(qT, ldq, m) || kk < 1 ||
-      kk > kListSlots) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const bool vec16 = vec16_operand(r, ld);
-  const int gpp = groups_per_part(n, parts);
-  const auto launch = [&](auto rows) {
-    constexpr int TM = decltype(rows)::value;
-    return launch_tiled_grid<TM, SweepState<TM>>(sweep_kselect_kernel<TM>, parts, m, 0,
-                                                 static_cast<cudaStream_t>(stream), qT, r,
-                                                 out_i, out_s, m, ldq, k, ld, n, gpp, kk,
-                                                 vec16);
-  };
-  switch (tm) {  // tuning.SWEEP_ROWS
-    case 4: return launch(std::integral_constant<int, 4>{});
-    case 1: return launch(std::integral_constant<int, 1>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_sweep(qT, r, out_i, out_s, m, ldq, k, ld, n, parts, kk, tm,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// B5's bf16 instance: B5's launch over a bf16 SoA operand.
+int tk_sweep_candidates_bf16(const float* qT, const void* r, int32_t* out_i, float* out_s, int m,
+                             int ldq, int k, long long ld, int n, int parts, int kk, int tm,
+                             void* stream) {
+  return launch_sweep(qT, static_cast<const __nv_bfloat16*>(r), out_i, out_s, m, ldq, k, ld, n,
+                      parts, kk, tm, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -24,7 +24,7 @@
 // minima, B7 into per-cell moments, B5 into per-row K-lists (kselect.cuh).
 // A warp whose rows all lie past m skips the arithmetic and the epilogue.
 //
-// Three policies change only where the operands come from (TiledRing):
+// Four policies change only where the operands come from (TiledRing):
 // - AOS (v3): the operand is the caller's row-major (n, k) array. Warp j
 //   stages group j's 32 slots, two columns per copy instruction: half-warp
 //   h takes slot 2i + h, its lane the chunk's d, so each instruction reads
@@ -41,6 +41,14 @@
 //   and issues one cp.async.bulk.tensor per operand; every thread waits on
 //   the stage's phase parity where the cp.async policies wait on their
 //   groups (TmaRing, stage_tma, encode_tma_maps).
+// - BF16 (the bf16 instances of B1, B4, B3, B7 and B5): the SoA operand is
+//   a bf16 store's, (k_pad, ld) bf16. The ring stages it as stored, half
+//   the bytes of an f32 stage: 16-byte cp.async copies of 8 columns where
+//   ld % 8 == 0 and the base is 16-byte aligned, else each slot's values
+//   loaded and stored one by one. micro_tile_chunk and column_norm_chunk
+//   upcast each value at the shared-memory read (staged_f32, exact), so an
+//   instance's scores, and every epilogue after them, are the f32
+//   instance's bit for bit over the upcast operand.
 //
 // Where a slot's column lies is the kernel's choice (TileColumns): B1, B4
 // and B3 give a block a quarter of one partition's 128 lanes and a tile 8 of
@@ -76,13 +84,15 @@ constexpr int kTmaAlign = 128;
 static_assert(kTileCols == kTiledThreads, "one thread per column slot keeps |r|^2");
 
 // One ring stage of a tiled kernel with TM rows per warp: a kChunk-row
-// chunk of the column tile, kRLd floats a row (kTileCols, or kTileCols + 2
-// for the AoS copies' banks), and unless the queries are resident (QRES)
-// the block's 8*TM queries beside it.
-template <int TM, bool AOS = false, bool QRES = false>
+// chunk of the column tile, kRLd values of the operand's type T a row
+// (kTileCols, or kTileCols + 2 for the AoS copies' banks), kROps floats in
+// all, and unless the queries are resident (QRES) the block's 8*TM f32
+// queries after it.
+template <int TM, bool AOS = false, bool QRES = false, typename T = float>
 struct TiledRing {
   static constexpr int kRLd = AOS ? kTileCols + 2 : kTileCols;
-  static constexpr int kStage = kChunk * kRLd + (QRES ? 0 : kChunk * kTiledWarps * TM);
+  static constexpr int kROps = static_cast<int>(kChunk * kRLd * sizeof(T) / sizeof(float));
+  static constexpr int kStage = kROps + (QRES ? 0 : kChunk * kTiledWarps * TM);
   // The ring's bytes (dynamic shared memory, the same at every k; QRES
   // kernels add resident_bytes). kTiledBlocksPerSm blocks of it and its
   // kernel's static state must fit one SM's kSmemPerSm, less
@@ -90,7 +100,9 @@ struct TiledRing {
   // is compiled.
   static constexpr size_t kBytes = static_cast<size_t>(kTiledStages) * kStage * sizeof(float);
 };
-static_assert(TiledRing<1, true>::kStage % 4 == 0, "the stage's queries stay 16-byte aligned");
+static_assert(TiledRing<1, true>::kStage % 4 == 0 &&
+                  TiledRing<1, false, false, __nv_bfloat16>::kROps % 4 == 0,
+              "the stage's queries stay 16-byte aligned");
 static_assert(2 * kChunk == kSliceLanes && kTiledWarps == kTileGroups,
               "the AoS copies: a half-warp per column, a warp per group");
 
@@ -143,17 +155,21 @@ __device__ __forceinline__ TileColumns partition_columns(int n, int groups_per_p
 }
 
 // Issue the copies of one step (a d-chunk of one column tile) into `st`:
-// the operand as [d][group][lane] (SoA: 16-byte copies of 4 lanes where
-// `vec16`, else 4-byte ones; AoS: see the top of this file), then, unless
-// the queries are resident, the block's queries as [d][row] from the
-// transposed queries qT (k, ldq) in 16-byte copies. Slots past k, n, the
-// live groups or the rows are zero-filled without a read.
-template <int TM, bool AOS, bool QRES>
+// the operand as [d][group][lane] (SoA: 16-byte copies of 4 f32 or 8 bf16
+// lanes where `vec16`, else 4-byte ones for f32 and plain loads and stores
+// for bf16; AoS: see the top of this file), then, unless the queries are
+// resident, the block's queries as [d][row] from the transposed queries qT
+// (k, ldq) in 16-byte copies. Slots past k, n, the live groups or the rows
+// are zero-filled without a read.
+template <int TM, bool AOS, bool QRES, typename T>
 __device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__ qT, int ldq,
-                                            const float* __restrict__ r, int k, long long ld,
+                                            const T* __restrict__ r, int k, long long ld,
                                             int n, bool vec16, long long col0, int group_step,
                                             int live_groups, int d0, int row0) {
-  constexpr int kRLd = TiledRing<TM, AOS, QRES>::kRLd;
+  using Ring = TiledRing<TM, AOS, QRES, T>;
+  constexpr int kRLd = Ring::kRLd;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // lanes a 16-byte copy
+  static_assert(!AOS || std::is_same_v<T, float>, "the AoS policy stages f32 points");
   if constexpr (AOS) {
     const int j = threadIdx.x / kSliceLanes;
     const int d = threadIdx.x % kChunk;
@@ -168,15 +184,30 @@ __device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__
       cp_async4(dst + i, live ? src + static_cast<long long>(i) * k : r, live ? 4 : 0);
     }
   } else if (vec16) {
-    constexpr int kQuads = kTileCols / 4;
+    constexpr int kQuads = kTileCols / kVec;
+    T* sr = reinterpret_cast<T*>(st);
     for (int e = threadIdx.x; e < kChunk * kQuads; e += kTiledThreads) {
       const int d = e / kQuads;
-      const int j = (e - d * kQuads) / (kSliceLanes / 4);
-      const int c = (e - d * kQuads - j * (kSliceLanes / 4)) * 4;
+      const int j = (e - d * kQuads) / (kSliceLanes / kVec);
+      const int c = (e - d * kQuads - j * (kSliceLanes / kVec)) * kVec;
       const long long col = col0 + static_cast<long long>(j) * group_step + c;
       const bool live = d0 + d < k && j < live_groups && col < n;
-      cp_async16(st + e * 4, live ? r + static_cast<long long>(d0 + d) * ld + col : r,
+      cp_async16(sr + e * kVec, live ? r + static_cast<long long>(d0 + d) * ld + col : r,
                  live ? 16 : 0);
+    }
+  } else if constexpr (!std::is_same_v<T, float>) {
+    // Thread t stages slot t, every d, with plain loads: a bf16 row whose
+    // 8-column runs are not 16-byte aligned (no 2-byte cp.async exists).
+    T* sr = reinterpret_cast<T*>(st);
+    const int j = threadIdx.x / kSliceLanes;
+    const long long col =
+        col0 + static_cast<long long>(j) * group_step + threadIdx.x % kSliceLanes;
+    const bool col_live = j < live_groups && col < n;
+#pragma unroll 4
+    for (int d = 0; d < kChunk; ++d) {
+      const bool live = col_live && d0 + d < k;
+      sr[d * kRLd + threadIdx.x] =
+          live ? r[static_cast<long long>(d0 + d) * ld + col] : __ushort_as_bfloat16(0);
     }
   } else {
     // Thread t stages slot t: lane t % 32 of group t / 32, every d.
@@ -193,7 +224,7 @@ __device__ __forceinline__ void stage_tiled(float* st, const float* __restrict__
   }
   if constexpr (!QRES) {
     constexpr int BM = kTiledWarps * TM;
-    float* qs = st + kChunk * kRLd;
+    float* qs = st + Ring::kROps;
     constexpr int kRowQuads = BM / 4;
     for (int e = threadIdx.x; e < kChunk * kRowQuads; e += kTiledThreads) {
       const int d = e / kRowQuads;
@@ -359,16 +390,19 @@ __device__ __forceinline__ void tile_slots(const float* norms, long long col0, i
 // in the epilogue. With QRES the resident queries follow the ring in
 // `ring`'s shared memory and are copied with the first step. With TMA the
 // stages come from tma's maps (qT, r, ld and vec16 are not read), `ring`
-// is tma_ring's and the slots are lane_slice_columns'.
-template <int TM, bool AOS = false, bool QRES = false, bool TMA = false, typename Epilogue>
+// is tma_ring's and the slots are lane_slice_columns'. T is the SoA
+// operand's type (float, or __nv_bfloat16 under the BF16 policy).
+template <int TM, bool AOS = false, bool QRES = false, bool TMA = false, typename T = float,
+          typename Epilogue>
 __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ldq,
-                                            const float* __restrict__ r, int m, int k,
+                                            const T* __restrict__ r, int m, int k,
                                             long long ld, int n, bool vec16,
                                             const TileColumns& tc, int row0, float* ring,
                                             float* norm_s, Epilogue&& epi,
                                             const TmaRing& tma = TmaRing{}) {
-  static_assert(!TMA || (!AOS && !QRES), "the TMA policy stages the SoA operand and queries");
-  using Ring = TiledRing<TM, AOS, QRES>;
+  static_assert(!TMA || (!AOS && !QRES && std::is_same_v<T, float>),
+                "the TMA policy stages the f32 SoA operand and queries");
+  using Ring = TiledRing<TM, AOS, QRES, T>;
   constexpr int kStage = Ring::kStage;
   constexpr int kRLd = Ring::kRLd;
   const int warp = threadIdx.x / 32;
@@ -398,7 +432,7 @@ __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ld
         stage_tma<TM>(st, tma, tma.full + s % kTiledStages, col0, ic * kChunk, row0);
       }
     } else {
-      stage_tiled<TM, AOS, QRES>(st, qT, ldq, r, k, ld, n, vec16, col0, tc.group_step,
+      stage_tiled<TM, AOS, QRES, T>(st, qT, ldq, r, k, ld, n, vec16, col0, tc.group_step,
                                  tc.groups - it * kTileGroups, ic * kChunk, row0);
     }
     if (++ic == chunks) {
@@ -434,14 +468,15 @@ __device__ __forceinline__ void tiled_sweep(const float* __restrict__ qT, int ld
       norm = 0.f;
     }
     const float* st = ring + (s % kTiledStages) * kStage;
-    norm = column_norm_chunk<kChunk>(st + threadIdx.x, kRLd, norm);
+    const T* sr = reinterpret_cast<const T*>(st);
+    norm = column_norm_chunk<kChunk>(sr + threadIdx.x, kRLd, norm);
     if (warp_live) {
       if constexpr (QRES) {
         micro_tile_chunk<TM, kTileGroups, kChunk>(qres + c * kChunk * ldr + warp * TM, ldr,
-                                                  st + lane, kRLd, kSliceLanes, acc);
+                                                  sr + lane, kRLd, kSliceLanes, acc);
       } else {
-        micro_tile_chunk<TM, kTileGroups, kChunk>(st + kChunk * kRLd + warp * TM,
-                                                  kTiledWarps * TM, st + lane, kRLd,
+        micro_tile_chunk<TM, kTileGroups, kChunk>(st + Ring::kROps + warp * TM,
+                                                  kTiledWarps * TM, sr + lane, kRLd,
                                                   kSliceLanes, acc);
       }
     }
@@ -464,8 +499,12 @@ inline bool valid_queries_t(const float* qT, int ldq, int m) {
   return ldq >= m && ldq % 4 == 0 && reinterpret_cast<uintptr_t>(qT) % 16 == 0;
 }
 
-inline bool vec16_operand(const float* r, long long ld) {
-  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
+// Whether the SoA operand's rows stage in 16-byte copies (4 f32 or 8 bf16
+// lanes): ld a multiple of that many values and a 16-byte aligned base.
+template <typename T>
+inline bool vec16_operand(const T* r, long long ld) {
+  return ld % (16 / static_cast<long long>(sizeof(T))) == 0 &&
+         reinterpret_cast<uintptr_t>(r) % 16 == 0;
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (the library
@@ -523,14 +562,14 @@ int encode_tma_maps(CUtensorMap* r_map, CUtensorMap* q_map, const float* r, int 
 // Launch a tiled kernel whose static shared memory is `State` over
 // ceil(m / (8*TM)) row tiles (grid.y, in slices of kMaxGridY; the kernel's
 // last argument is the slice's first row) and grid_x blocks per row tile,
-// with its ring and `extra` more bytes (a QRES kernel's queries, a TMA
-// kernel's kTmaAlign) of dynamic shared memory.
-template <int TM, typename State, bool AOS = false, bool QRES = false, typename... Params,
-          typename... Args>
+// with its ring (over an operand of type T) and `extra` more bytes (a QRES
+// kernel's queries, a TMA kernel's kTmaAlign) of dynamic shared memory.
+template <int TM, typename State, bool AOS = false, bool QRES = false, typename T = float,
+          typename... Params, typename... Args>
 int launch_tiled_grid(void (*kernel)(Params...), int grid_x, int m, size_t extra,
                       cudaStream_t stream, Args... args) {
   constexpr int BM = kTiledWarps * TM;
-  constexpr size_t ring = TiledRing<TM, AOS, QRES>::kBytes;
+  constexpr size_t ring = TiledRing<TM, AOS, QRES, T>::kBytes;
   static_assert(kTiledBlocksPerSm * (ring + sizeof(State) + kSmemPerBlockReserved) <= kSmemPerSm,
                 "a tiled kernel's blocks per SM do not fit its shared memory");
   const size_t smem = ring + extra;

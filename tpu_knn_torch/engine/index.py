@@ -3,25 +3,38 @@
     index = NNIndex(ref, strategy="fused")       # pay layout/build once
     idx, d2 = index.query(search)                # hot path
 
-The port serves three immutable strategies:
+The port serves three strategies:
 
 - "fused": the reference set is placed once on the device in two layouts,
   the (n, k) AoS copy that the exact rerank gathers rows from and the
   candidate kernels' operands (tpu_knn's layout, so an index's state
   carries across verbatim: `from_state`): the (k_pad, n_pad) SoA operand,
   or for precision="bf16x3_presplit" B12's (hi, lo, ‖r‖²). The score
-  tier is tpu_knn's (`precision=None`: auto_precision, "qsplit2" in place
-  of "bf16x3" for a quantized store), and the operand's n padding follows
-  it (pick_tiles' wide= for "packed"). Queries route per batch as in
-  tpu_knn: m <= 4 to the small-m kernel B2 (or the AoS scan), small n to
-  the dense path, everything else to the tier's candidate kernel + the
-  exact refinement. Three stores, as in tpu_knn: "float32"; "bf16" (the
-  points quantized once, both layouts in bf16, every kernel upcasting at
-  the read: exact over the stored points); "int8" (only the (n, k) int8
-  grid of p = z + s·g is resident, queries run in grid space on
-  q' = (q − z)/s, batches over a per-call bf16 SoA operand, reported d2
-  rescaled by s²). Exact top-K (`query(neighbors=)`) and `query_radius`
-  run the engines of kernels/topk.py over an f32 index.
+  tier is tpu_knn's (`precision=None`: auto_precision(k, max(n,
+  capacity)), "qsplit2" in place of "bf16x3" for a quantized store), and
+  the operand's n padding follows it (pick_tiles' wide= for "packed").
+  Queries route per batch as in tpu_knn: m <= 4 to the small-m kernel B2
+  (or the AoS scan), small n to the dense path, everything else to the
+  tier's candidate kernel + the exact refinement. Three stores, as in
+  tpu_knn: "float32"; "bf16" (the points quantized once, both layouts in
+  bf16, every kernel upcasting at the read: exact over the stored
+  points); "int8" (only the (n, k) int8 grid of p = z + s·g is resident,
+  queries run in grid space on q' = (q − z)/s, batches over a per-call
+  bf16 SoA operand, reported d2 rescaled by s²). Exact top-K
+  (`query(neighbors=)`) and `query_radius` run the engines of
+  kernels/topk.py over every store: m = 1 the AoS engine straight off the
+  stored points (the int8 grid), m >= 2 the prepared engines over the
+  store's own operand (a bf16 store's bf16 operand, launching the
+  kernels' bf16 instances; for int8 the per-call bf16 grid operand).
+  metric="cosine" / "ip" reduce to exact L2 by a build-time transform of
+  the points (unit vectors; ip's augmented column) and a query-time one
+  of the queries; answers carry the metric's own score. mutable=True
+  keeps `capacity` slots, empty and removed ones PAD_VALUE in both
+  layouts (every kernel scores them +inf), with add / remove / compact
+  and growth past capacity; ids are slot numbers. `filtered_view(keep)`
+  shares the AoS copy and holds one SoA operand whose excluded columns
+  are PAD_VALUE; it reports original ids and stays off the routes that
+  scan the unmasked AoS copy.
 - "projection": the sorted window index of kernels/projection.py (v11:
   B11, the per-query certificate and B1's fallback scan).
 - "auto": "fused" plus, where v11's niche applies (k <= 8) and a
@@ -31,10 +44,9 @@ The port serves three immutable strategies:
   which), and served batches' realized certification demotes the route.
   Top-K goes through the fused engines.
 
-The kdtree and sharded strategies, the cosine/ip metrics, mutable
-indexes, top-K and radius over a quantized store or a presplit index,
-filtered views and save/load raise NotImplementedError naming their
-ROADMAP item.
+The kdtree and sharded strategies, precision="bf16x3_presplit" beside a
+quantized store or "auto", and save/load raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,19 +72,24 @@ def _not_ported(what: str, item: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _build_smallm_prepared(m: int, n: int, k: int):
+def _build_smallm_prepared(m: int, n: int, k: int, aos_ok: bool = True):
     """Small-batch prepared pipeline: B2 (B2-bf16 over a bf16 store's
     operand) against the same SoA operand as the fused path, then the
     exact refinement (diff-form scores: always certified). At k < 8 and
     m == 1, and above the kernel's k range, the AoS scan over the index's
-    resident ref array serves instead, as in tpu_knn. Returns run(search,
-    r_ops, ref_aos) -> (idx, d2)."""
+    resident ref array serves instead, as in tpu_knn (PAD slots score +inf
+    there too). ``aos_ok=False`` (a filtered view, whose shared AoS copy is
+    not masked) keeps B2 over the masked operand at every m, and raises
+    above B2's k range. Returns run(search, r_ops, ref_aos) -> (idx, d2)."""
     from tpu_knn_torch.kernels.smallm import (
         AOS_SCAN_MAX_KPAD_WASTE_K, SMALLM_MAX_K, _aos_scan, operand_parts,
         smallm_candidates,
     )
 
-    if (k < AOS_SCAN_MAX_KPAD_WASTE_K and m == 1) or k > SMALLM_MAX_K:
+    if k > SMALLM_MAX_K and not aos_ok:
+        raise ValueError(f"smallm prepared route needs k <= {SMALLM_MAX_K} or an "
+                         f"AoS-maskable index, got k={k} with aos_ok=False")
+    if (k < AOS_SCAN_MAX_KPAD_WASTE_K and m == 1 and aos_ok) or k > SMALLM_MAX_K:
         def run_aos(search, r_ops, ref_aos):
             return _aos_scan(search, ref_aos)
 
@@ -107,6 +124,21 @@ def _build_prepared_query(m: int, n: int, k: int, precision: str,
     return run
 
 
+#: The coordinate of an empty or removed slot of a mutable index and of a
+#: column a filtered view excludes (tpu_knn's, distributed/sharded.py): its
+#: squared distance to any in-contract query, and its norm-form score,
+#: overflow f32 to +inf in every kernel, so such a column is never
+#: reported and needs no mask. A bf16 operand holds it as 1.0038e30,
+#: whose square overflows as well.
+PAD_VALUE = 1e30
+
+
+def _pad_like(t: torch.Tensor) -> torch.Tensor:
+    """PAD_VALUE as a 0-d tensor of t's dtype and device (rounded once,
+    as jnp rounds it into a bf16 array)."""
+    return torch.tensor(PAD_VALUE, dtype=t.dtype, device=t.device)
+
+
 def _tile_for_width(n: int, width: int) -> int:
     """The widest 128-multiple tile <= MAX_TILE_N that pads n to exactly
     ``width`` (tpu_knn's rule for an operand padded for another tiling,
@@ -121,7 +153,8 @@ def _tile_for_width(n: int, width: int) -> int:
 
 
 def _resolve_precision(precision, k: int, n: int, store: str) -> str:
-    """tpu_knn's NNIndex tier rule (index.py:270-288): auto_precision, with
+    """tpu_knn's NNIndex tier rule (index.py:270-288): auto_precision (n:
+    the larger of the points and a mutable index's capacity), with
     "qsplit2" for "bf16x3" over a quantized (bf16-exact) store; an explicit
     tier must be certified (serving has no allow_approximate)."""
     if precision is None:
@@ -131,23 +164,6 @@ def _resolve_precision(precision, k: int, n: int, store: str) -> str:
         return precision
     _check_precision_certified(precision)
     return precision
-
-
-def _check_soa_state(ref: np.ndarray, r_op: np.ndarray) -> int:
-    """Check that r_op is the zero-padded (round_up(k, 8), n_pad)
-    transpose of ref (values or bit patterns alike) and return the tile
-    that pads n to its width."""
-    if ref.ndim != 2 or r_op.ndim != 2:
-        raise ValueError("state['ref'] must be (n, k), state['r_op'] (k_pad, n_pad)")
-    n, k = ref.shape
-    if r_op.shape[0] != round_up(k, 8) or r_op.shape[1] < n:
-        raise ValueError(f"r_op shape {r_op.shape} is not the SoA operand "
-                         f"of a ({n}, {k}) reference set")
-    want = np.zeros_like(r_op)
-    want[:k, :n] = ref.T
-    if not np.array_equal(r_op, want):
-        raise ValueError("r_op is not the zero-padded transpose of ref")
-    return _tile_for_width(n, r_op.shape[1])
 
 
 def _np_bf16_bits(a, what: str) -> np.ndarray:
@@ -163,6 +179,37 @@ def _bf16_tensor(bits: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(check_device(device))
 
 
+def _state_tensors(state, device):
+    """(ref, r_op) of a fused state as tensors on ``device``: float32, or a
+    bf16 store's bfloat16 taken bit for bit, and the store's name."""
+    if np.asarray(state["ref"]).dtype.name == "bfloat16":
+        ref = _np_bf16_bits(state["ref"], "state['ref']")
+        r_op = _np_bf16_bits(state["r_op"], "state['r_op'] of a bf16 store")
+        return _bf16_tensor(ref, device), _bf16_tensor(r_op, device), "bf16"
+    return (as_f32(np.ascontiguousarray(state["ref"], np.float32), device),
+            as_f32(np.ascontiguousarray(state["r_op"], np.float32), device), "float32")
+
+
+def _expected_soa(ref: torch.Tensor, width: int, pad_cols=None) -> torch.Tensor:
+    """The SoA operand of ref at ``width`` columns in ref's dtype: its
+    zero-padded (round_up(k, 8), width) transpose, with every row of the
+    columns where ``pad_cols`` (width,) is True set to PAD_VALUE."""
+    n, k = ref.shape
+    r_op = torch.zeros((round_up(k, 8), width), dtype=ref.dtype, device=ref.device)
+    r_op[:k, :n] = ref.T
+    if pad_cols is not None:
+        r_op[:, torch.as_tensor(pad_cols, device=ref.device)] = _pad_like(r_op)
+    return r_op
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bit patterns (PAD and NaN alike)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
 class NNIndex:
     #: Serving pads each batch up to the next bucket (tpu_knn's policy), so
     #: a varying-m stream reuses a handful of launch geometries.
@@ -172,9 +219,27 @@ class NNIndex:
                  precision: str | None = None, mutable: bool = False,
                  capacity: int | None = None, store: str = "float32",
                  metric: str = "l2", device="cuda"):
+        """store: "float32", "bf16" or "int8" (the module docstring).
+
+        metric="cosine" / "ip" (strategy "fused", store "float32"):
+        similarity search through the exact-L2 machinery by a build-time
+        transform, as in tpu_knn. "cosine" normalizes the points once (a
+        zero vector raises) and each batch of queries; answers carry the
+        cosine similarity, and query_radius takes a minimum similarity.
+        "ip" gives each point the column sqrt(max‖r‖² − ‖r‖²), which
+        makes d2 monotone in q·r; answers carry the exact f32 q·r of the
+        winners, and query_radius raises.
+
+        mutable=True (strategy "fused"): `capacity` slots (at least 2n and
+        1024, a multiple of the operand's tile); add / remove / compact,
+        and growth past capacity by doubling."""
         if metric not in ("l2", "cosine", "ip"):
             raise ValueError(
                 f"metric must be 'l2', 'cosine', or 'ip', got {metric!r}")
+        if metric != "l2" and strategy not in ("fused", "sharded"):
+            raise ValueError(
+                "metric='cosine'/'ip' requires strategy='fused' or 'sharded' (the spatial "
+                f"indexes assume raw-coordinate geometry); got {strategy!r}")
         if metric != "l2" and store != "float32":
             raise ValueError("metric='cosine'/'ip' requires store='float32' (tpu_knn's "
                              "rule: quantizing after the metric transform breaks the "
@@ -192,17 +257,20 @@ class NNIndex:
             raise ValueError("store='int8' is immutable (the quantization grid is fixed "
                              "by the build-time value range) — use store='bf16' for a "
                              "mutable quantized index")
+        if mutable and strategy not in ("fused", "sharded"):
+            raise ValueError(
+                "mutable=True requires strategy='fused' or 'sharded' (slot-addressed "
+                f"prepared operands); {strategy!r} bakes point order into its build — "
+                "rebuild instead")
         if strategy == "kdtree":
             raise _not_ported("strategy='kdtree'", "A.8")
         if strategy == "sharded" or mesh is not None:
             raise _not_ported("strategy='sharded' / mesh=", "A.9")
-        if metric != "l2":
-            raise _not_ported(f"metric={metric!r}", "A.6")
-        if mutable or capacity is not None:
-            raise _not_ported("mutable=True / capacity=", "A.6")
-        ref_t = as_f32(ref, device)
+        self.metric = metric
+        ref_t = self._transform_ref(ref, device) if metric != "l2" else as_f32(ref, device)
         n, k = ref_t.shape
-        precision = _resolve_precision(precision, k, n, store)
+        self.k_user = k - (1 if metric == "ip" else 0)
+        precision = _resolve_precision(precision, k, max(n, capacity or 0), store)
         if strategy == "projection":
             from tpu_knn_torch.kernels.projection import build_projection_index
 
@@ -210,7 +278,11 @@ class NNIndex:
             return
         if precision == "bf16x3_presplit" and (store != "float32" or strategy != "fused"):
             raise _not_ported("precision='bf16x3_presplit' beside a quantized store or "
-                              "strategy='auto'", "A.6")
+                              "strategy='auto'", "A.6.6")
+        if precision == "bf16x3_presplit" and mutable:
+            raise ValueError("precision='bf16x3_presplit' keeps B12's pre-split operands, "
+                             "which a mutable index's in-place updates do not keep; use "
+                             "an immutable index or another tier")
         # tile_n is fixed at build time for a large-batch query: it sets the
         # operand's n padding, wide for the packed tier (tpu_knn's rule,
         # index.py:290-296, so state carries across).
@@ -221,6 +293,10 @@ class NNIndex:
         # A bf16 store quantizes once, through f32, and both layouts hold
         # the quantized values (tpu_knn's index.py:300-323).
         ref_s = ref_t.to(torch.bfloat16) if store == "bf16" else ref_t
+        if mutable:
+            self._init_fused(ref_s, None, tile_n, precision, store)
+            self._init_mutable(ref_s, capacity)
+            return
         n_pad = round_up(n, tile_n)
         r_ops = (presplit_ops(ref_t, n_pad) if precision == "bf16x3_presplit"
                  else (prep_soa(ref_s, n_pad),))
@@ -232,10 +308,11 @@ class NNIndex:
                      store: str = "float32"):
         self.strategy = strategy
         self.store = store
-        self.metric = "l2"
+        self.metric = getattr(self, "metric", "l2")
         self.mutable = False
         self.precision = precision
         self.n, self.k = ref_dev.shape
+        self.k_user = getattr(self, "k_user", self.k)
         self.device = ref_dev.device
         self.ref_dev = ref_dev   # AoS copy for exact refinement (the int8 grid)
 
@@ -319,6 +396,285 @@ class NNIndex:
         if self.cert_rate >= self.CERT_RATE_MIN:
             self.proj_index = proj_index
 
+    # ---- metric transforms (cosine / inner product) --------------------
+    #
+    # Both metrics run the exact-L2 machinery over transformed points
+    # (tpu_knn's index.py:396-472): argmin L2 over unit vectors is argmax
+    # cosine (d2 = 2 − 2·cos), and with ip's augmented column every point
+    # has the norm max‖r‖², so d2 = ‖q‖² + max‖r‖² − 2·q·r.
+
+    def _transform_ref(self, ref, device) -> torch.Tensor:
+        """Build-time transform of the points (tpu_knn's `_transform_ref`):
+        NumPy input in NumPy f32 arithmetic, as tpu_knn's host build does
+        it, so both packages store the same bits; a tensor in torch on its
+        device. Sets `_ip_m2` for "ip"."""
+        xp = torch if isinstance(ref, torch.Tensor) else np
+        if xp is np:
+            ref = np.ascontiguousarray(ref, np.float32)
+        else:
+            ref = as_f32(ref, device)
+        n2 = (ref * ref).sum(1)
+        if self.metric == "cosine":
+            if float(n2.min()) == 0.0:
+                raise ValueError(
+                    "metric='cosine': reference contains a zero vector "
+                    "(no direction); remove it or use metric='l2'")
+            out = ref / xp.sqrt(n2)[:, None]
+        else:  # ip: augment with sqrt(max_norm2 − ‖r‖²) so norms equalize
+            m2 = float(n2.max())
+            self._ip_m2 = m2
+            if xp is np:
+                aug = np.sqrt(np.maximum(np.asarray(m2, np.float32) - n2, 0))
+                out = np.concatenate([ref, aug[:, None]], axis=1)
+            else:
+                aug = torch.sqrt(torch.clamp(torch.tensor(m2, device=ref.device) - n2, min=0))
+                out = torch.cat([ref, aug[:, None]], dim=1)
+        return as_f32(out, device)
+
+    def _transform_q(self, search) -> torch.Tensor:
+        """Query-time counterpart of _transform_ref (tpu_knn's
+        `_transform_q`): checks the user's dimensionality (k_user; "ip"
+        stores k_user + 1 columns), rejects a zero cosine query that
+        arrives as NumPy (a tensor would need a device read), and returns
+        the transformed (m, k) f32 batch on the index's device."""
+        if np.shape(search)[-1] != self.k_user:
+            raise ValueError(f"queries must have k={self.k_user} dims, "
+                             f"got {np.shape(search)[-1]}")
+        if isinstance(search, np.ndarray) and self.metric == "cosine":
+            if not (search.astype(np.float32) ** 2).sum(1).all():
+                raise ValueError("metric='cosine': zero query vector")
+        search = as_f32(search, self.device)
+        if search.device != self.device or search.dim() != 2:
+            raise ValueError(f"queries must be (m, {self.k_user}) on {self.device}, got "
+                             f"{tuple(search.shape)} on {search.device}")
+        if self.metric == "cosine":
+            return search / torch.sqrt((search * search).sum(dim=1, keepdim=True))
+        return torch.nn.functional.pad(search, (0, 1))   # ip: q gains a 0 column
+
+    def _metric_scores(self, search_t, idx, d2):
+        """The engine's exact L2 answers in the metric's own score (tpu_knn's
+        `_metric_scores`): cosine sim = 1 − d2/2; ip the exact f32 q·r of
+        the reported points, recomputed (the d2-derived form loses low bits
+        to cancellation). idx (m,) or (m, K); slots with idx < 0 (radius
+        padding) score −inf."""
+        if self.metric == "l2":
+            return idx, d2
+        if self.metric == "cosine":
+            return idx, torch.where(torch.isfinite(d2), 1.0 - d2 * 0.5, -torch.inf)
+        valid = idx >= 0
+        pts = self.ref_dev[torch.where(valid, idx, 0).reshape(-1).long()]
+        pts = pts.reshape(*idx.shape, self.ref_dev.shape[1])
+        q = search_t[:, None, :] if idx.dim() == 2 else search_t
+        ip = (pts * q).sum(dim=-1)   # the augmented column meets q's 0
+        return idx, torch.where(valid, ip, -torch.inf)
+
+    def _user_queries(self, search) -> torch.Tensor:
+        """A batch in the space the engines search: the metric's transform,
+        the int8 grid's, or the queries as they are (checked)."""
+        if self.metric != "l2":
+            return self._transform_q(search)
+        search = self._as_queries(search)
+        return self._i8_q(search) if self.store == "int8" else search
+
+    # ---- mutable indexes ----------------------------------------------
+    #
+    # A mutable index keeps `capacity` slots in both layouts; empty and
+    # removed slots hold PAD_VALUE (all k_pad rows of the SoA operand), so
+    # every kernel scores them +inf and the engines run unchanged over
+    # n_eff = capacity columns (tpu_knn's index.py:775-973). Updates are in
+    # place on the device; ids are slot numbers and never move until
+    # compact().
+
+    @property
+    def _n_eff(self) -> int:
+        """The n every engine runs over: the points of a static index, the
+        slot capacity of a mutable one."""
+        return self.capacity if self.mutable else self.n
+
+    @property
+    def n_live(self) -> int:
+        """Queryable points: n; a mutable index's adds less removes; a
+        filtered view's kept points."""
+        if self.mutable:
+            return self._live_count
+        view_live = getattr(self, "_view_live", None)
+        return self.n if view_live is None else view_live
+
+    def _init_mutable(self, ref_dev: torch.Tensor, capacity: int | None):
+        """Slots 0..n-1 hold ref_dev (the stored dtype), the rest of
+        round_up(max(capacity, 2n, 1024), tile_n) slots PAD_VALUE."""
+        n = ref_dev.shape[0]
+        self.n = n
+        self.mutable = True
+        self.capacity = round_up(max(capacity or 0, 2 * n, 1024), self.tile_n)
+        fill = torch.full((self.capacity - n, self.k), PAD_VALUE, dtype=ref_dev.dtype,
+                          device=ref_dev.device)
+        self.ref_dev = torch.cat([ref_dev, fill])
+        self.r_ops = (_expected_soa(self.ref_dev, self.capacity,
+                                    torch.arange(self.capacity) >= n),)
+        self._n_slots = n                     # the next free slot
+        self._live = np.zeros(self.capacity, bool)
+        self._live[:n] = True
+        self._live_count = n   # n_live, kept by add / remove
+
+    def _require_mutable(self):
+        if not self.mutable:
+            raise ValueError(
+                "this index is immutable; build with NNIndex(..., "
+                "mutable=True) for add/remove/compact")
+
+    def add(self, points) -> np.ndarray:
+        """Append points; returns their stable ids ((p,) int32, the ids
+        later queries report). In-place on the device; past capacity the
+        slots grow by doubling. A metric index transforms the points
+        (cosine: a zero vector raises; ip: a squared norm above the
+        build's maximum raises)."""
+        self._require_mutable()
+        if self.metric != "l2":
+            points = self._transform_added(points)
+        points = as_f32(points, self.device)
+        if points.dim() != 2 or points.shape[1] != self.k:
+            raise ValueError(f"points must be (p, {self.k}), got {tuple(points.shape)}")
+        p = points.shape[0]
+        if p == 0:
+            return np.empty(0, np.int32)
+        if self._n_slots + p > self.capacity:
+            self._grow(self._n_slots + p)
+        pos = self._n_slots
+        pts = points.to(self.ref_dev.dtype)   # a bf16 store quantizes adds
+        self.ref_dev[pos:pos + p] = pts
+        r_op = self.r_ops[0]
+        r_op[:, pos:pos + p] = 0
+        r_op[:self.k, pos:pos + p] = pts.T
+        ids = np.arange(pos, pos + p, dtype=np.int32)
+        self._n_slots += p
+        self._live[ids] = True
+        self._live_count += p
+        return ids
+
+    def _transform_added(self, points):
+        """A metric index's transform of added points, as `_transform_ref`
+        does it: NumPy input in tpu_knn's NumPy f32 arithmetic, a tensor in
+        torch on its device (cosine: a zero vector raises; ip: a squared
+        norm above the build's maximum raises)."""
+        xp = torch if isinstance(points, torch.Tensor) else np
+        points = (as_f32(points, self.device) if xp is torch
+                  else np.ascontiguousarray(points, np.float32))
+        if points.ndim != 2 or points.shape[1] != self.k_user:
+            raise ValueError(f"points must be (p, {self.k_user}), "
+                             f"got {tuple(points.shape)}")
+        n2 = (points ** 2).sum(1)
+        if self.metric == "cosine":
+            if not bool(n2.all()):
+                raise ValueError("metric='cosine': zero vector added")
+            return points / xp.sqrt(n2)[:, None]
+        top = float(n2.max()) if points.shape[0] else 0.0
+        if top > self._ip_m2:
+            raise ValueError(
+                "metric='ip': added point's squared norm "
+                f"{top:.6g} exceeds the build-time "
+                f"maximum {self._ip_m2:.6g} the augmentation was "
+                "sized for — rebuild the index with the larger "
+                "set")
+        if xp is torch:
+            aug = torch.sqrt(torch.clamp(torch.tensor(self._ip_m2, device=points.device) - n2,
+                                         min=0))
+            return torch.cat([points, aug[:, None]], dim=1)
+        aug = np.sqrt(np.maximum(np.float32(self._ip_m2) - n2.astype(np.float32), 0))
+        return np.concatenate([points, aug.astype(np.float32)[:, None]], axis=1)
+
+    def remove(self, ids) -> None:
+        """Remove points by id: their slots become PAD_VALUE (never reported
+        again); the capacity comes back only with compact()."""
+        self._require_mutable()
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if ids.size == 0:
+            return
+        if ids.min() < 0 or ids.max() >= self._n_slots:
+            raise ValueError(f"ids out of range [0, {self._n_slots})")
+        if not self._live[ids].all():
+            dead = ids[~self._live[ids]]
+            raise ValueError(f"ids already removed: {dead.tolist()[:8]}")
+        at = torch.as_tensor(ids, device=self.device)
+        self.ref_dev[at] = _pad_like(self.ref_dev)
+        self.r_ops[0][:, at] = _pad_like(self.r_ops[0])
+        self._live[ids] = False
+        self._live_count -= np.unique(ids).size
+
+    def _grow(self, need: int):
+        """Capacity to round_up(max(2·capacity, need), tile_n), the new
+        slots PAD_VALUE; slot ids stay."""
+        new_cap = round_up(max(2 * self.capacity, need), self.tile_n)
+        pad_n = new_cap - self.capacity
+        self.ref_dev = torch.cat([self.ref_dev, torch.full(
+            (pad_n, self.k), PAD_VALUE, dtype=self.ref_dev.dtype, device=self.device)])
+        self.r_ops = (torch.nn.functional.pad(self.r_ops[0], (0, pad_n), value=PAD_VALUE),)
+        live = np.zeros(new_cap, bool)
+        live[: self.capacity] = self._live
+        self._live = live
+        self.capacity = new_cap
+
+    def compact(self) -> np.ndarray:
+        """Drop removed slots and shrink the capacity. Point ids change;
+        returns the (old slots,) int32 map from old id to new id (-1 for a
+        removed point)."""
+        self._require_mutable()
+        live_ids = np.nonzero(self._live[: self._n_slots])[0]
+        mapping = np.full(self._n_slots, -1, np.int32)
+        mapping[live_ids] = np.arange(live_ids.size, dtype=np.int32)
+        self._init_mutable(self.ref_dev[torch.as_tensor(live_ids, device=self.device)], None)
+        return mapping
+
+    # ---- filtered views ---------------------------------------------------
+
+    def filtered_view(self, keep) -> "NNIndex":
+        """An exact filtered-search view: a queryable index of the points
+        where ``keep`` ((n,) bool) is True (tpu_knn's index.py:974-1039).
+        It shares this index's AoS copy and holds one masked SoA operand
+        (excluded columns PAD_VALUE, scored +inf by every kernel), so
+        queries, top-K and radius run the prepared engines and report
+        original ids. The shared AoS copy is not masked, so the view stays
+        off the routes that scan it (the AoS scan, the dense path, the
+        m = 1 AoS top-K engine). Read-only."""
+        if self.store == "int8":
+            raise ValueError(
+                "filtered_view requires a resident SoA operand to mask; "
+                "store='int8' keeps only the grid array — use "
+                "store='bf16' for filtered quantized serving")
+        if self.mutable:
+            raise ValueError(
+                "filtered_view on a mutable index is ambiguous under "
+                "later add/remove; use remove() or build a view from a "
+                "compacted snapshot")
+        if self.strategy not in ("fused", "auto") or len(self.r_ops) != 1:
+            raise ValueError(
+                "filtered_view requires the fused/auto/sharded strategy "
+                f"with a plain SoA operand; this index uses {self.strategy!r}")
+        keep = np.asarray(keep, bool)
+        if keep.shape != (self.n,):
+            raise ValueError(
+                f"keep must be a ({self.n},) boolean mask, "
+                f"got shape {keep.shape}")
+        live = int(keep.sum())
+        if live < 1:
+            raise ValueError("filtered_view would keep no points")
+        r_op = self.r_ops[0]
+        col_keep = np.zeros(r_op.shape[1], bool)
+        col_keep[: self.n] = keep
+        masked = torch.where(torch.as_tensor(col_keep, device=self.device)[None, :], r_op,
+                             _pad_like(r_op))
+        return self._as_view(self.ref_dev, masked, live)
+
+    def _as_view(self, ref_dev, r_op, live: int) -> "NNIndex":
+        view = NNIndex.__new__(NNIndex)
+        view.metric, view.k_user = self.metric, self.k_user
+        if self.metric == "ip":
+            view._ip_m2 = self._ip_m2
+        view._init_fused(ref_dev, (r_op,), self.tile_n, self.precision, self.store)
+        view._view_live = live
+        view._aos_selfmasked = False
+        return view
+
     # ---- the int8 grid store ------------------------------------------
     #
     # store="int8" keeps only the (n, k) int8 grid of the affine embed
@@ -392,7 +748,7 @@ class NNIndex:
         elif precision not in PORTED_PRECISIONS:
             raise ValueError(f"unknown precision={precision!r}")
         if precision == "bf16x3_presplit":
-            raise _not_ported("precision='bf16x3_presplit' beside a quantized store", "A.6")
+            raise _not_ported("precision='bf16x3_presplit' beside a quantized store", "A.6.6")
         if not isinstance(grid, torch.Tensor):
             grid = torch.from_numpy(np.array(grid, np.int8))
             grid = grid.to(check_device(device))
@@ -466,32 +822,98 @@ class NNIndex:
           "inv_s": ix._i8_inv_s}``;
         - projection: ``{"ref": ..., "proj_index": tuple(np.asarray(a) for
           a in ix.proj_index)}``; ``order`` must be a permutation and the
-          rest build_projection_index's layout of ``ref[order]``."""
+          rest build_projection_index's layout of ``ref[order]``;
+        - mutable (f32 or bf16): the fused keys over the slots, ``ref``
+          (capacity, k) and ``r_op`` (k_pad, capacity) with every empty
+          or removed slot PAD_VALUE (all k_pad rows of the operand), plus
+          ``"capacity"``, ``"_n_slots"``, ``"_live"`` ((capacity,) bool)
+          and optionally ``"tile_n"`` and ``"n"`` (ix.tile_n, ix.n);
+        - filtered view (f32 or bf16): ``{"ref": the parent's AoS copy,
+          "r_op": the view's masked operand, "_view_live": ...}``, the
+          excluded columns PAD_VALUE in every row;
+        - a metric index adds ``"metric"``, optionally ``"k_user"``, and
+          for "ip" ``"_ip_m2"`` to its fused, presplit, mutable or view
+          state (of the transformed points)."""
+        index = cls._from_store_state(state, device)
+        metric = state.get("metric", "l2")
+        if metric not in ("l2", "cosine", "ip"):
+            raise ValueError(f"state['metric'] must be 'l2', 'cosine' or 'ip', got {metric!r}")
+        if metric != "l2":
+            if index.store != "float32" or index.strategy != "fused":
+                raise ValueError("a cosine/ip state must be a fused float32 index's")
+            index.metric = metric
+            index.k_user = int(state.get("k_user", index.k - (metric == "ip")))
+            if index.k_user != index.k - (metric == "ip"):
+                raise ValueError(f"k_user={index.k_user} does not fit {index.k} stored "
+                                 f"columns under metric={metric!r}")
+            if metric == "ip":
+                index._ip_m2 = float(state["_ip_m2"])
+        return index
+
+    @classmethod
+    def _from_store_state(cls, state, device) -> "NNIndex":
         if "proj_index" in state:
             return cls._from_projection_state(state, device)
         if "grid" in state:
             return cls._from_int8_state(state, device)
         if "r_ops" in state:
             return cls._from_presplit_state(state, device)
-        if np.asarray(state["ref"]).dtype.name == "bfloat16":
-            return cls._from_bf16_state(state, device)
-        ref = np.ascontiguousarray(state["ref"], np.float32)
-        r_op = np.ascontiguousarray(state["r_op"], np.float32)
-        tile_n = _check_soa_state(ref, r_op)
-        index = cls.__new__(cls)
-        precision = _resolve_precision(state.get("precision"), *ref.shape[::-1], "float32")
-        index._init_fused(as_f32(ref, device), (as_f32(r_op, device),), tile_n, precision)
-        return index
+        return cls._from_soa_state(state, device)
 
     @classmethod
-    def _from_bf16_state(cls, state, device) -> "NNIndex":
-        ref = _np_bf16_bits(state["ref"], "state['ref']")
-        r_op = _np_bf16_bits(state["r_op"], "state['r_op'] of a bf16 store")
-        tile_n = _check_soa_state(ref, r_op)
+    def _from_soa_state(cls, state, device) -> "NNIndex":
+        """A fused (f32 or bf16) state: immutable, mutable ("capacity") or a
+        filtered view ("_view_live"), each checked against the layout
+        tpu_knn keeps and taken bit for bit."""
+        ref, r_op, store = _state_tensors(state, device)
+        if ref.dim() != 2 or r_op.dim() != 2:
+            raise ValueError("state['ref'] must be (n, k), state['r_op'] (k_pad, n_pad)")
         n, k = ref.shape
+        width = r_op.shape[1]
+        if r_op.shape[0] != round_up(k, 8) or width < n:
+            raise ValueError(f"r_op shape {tuple(r_op.shape)} is not the SoA operand of a "
+                             f"({n}, {k}) reference set")
         index = cls.__new__(cls)
-        index._init_fused(_bf16_tensor(ref, device), (_bf16_tensor(r_op, device),), tile_n,
-                          _resolve_precision(state.get("precision"), k, n, "bf16"), "bf16")
+        if "capacity" in state:
+            cap, n_slots = int(state["capacity"]), int(state["_n_slots"])
+            live = np.asarray(state["_live"], bool)
+            if (n != cap or width != cap or live.shape != (cap,)
+                    or not 0 <= n_slots <= cap or live[n_slots:].any()):
+                raise ValueError(f"a mutable state holds capacity ({cap}) slots in ref and "
+                                 f"r_op and no live slot past _n_slots ({n_slots})")
+            dead = torch.as_tensor(~live, device=ref.device)
+            if not (_bits_equal(r_op, _expected_soa(ref, cap, ~live))
+                    and bool((ref[dead] == _pad_like(ref)).all())):
+                raise ValueError("ref and r_op are not a mutable index's slots: the live "
+                                 "slots' zero-padded transpose, PAD_VALUE in every other slot")
+            n0 = int(state.get("n", n_slots))
+            precision = _resolve_precision(state.get("precision"), k, max(n0, cap), store)
+            tile_n = int(state.get("tile_n",
+                                   pick_tiles(k, 1024, n0, wide=precision == "packed")[1]))
+            if cap % tile_n:
+                raise ValueError(f"capacity {cap} is not a multiple of tile_n={tile_n}")
+            index._init_fused(ref, (r_op,), tile_n, precision, store)
+            index.n, index.mutable, index.capacity = n0, True, cap
+            index._n_slots, index._live = n_slots, live.copy()
+            index._live_count = int(live.sum())
+            return index
+        excluded = None
+        if "_view_live" in state:
+            excluded = (r_op == _pad_like(r_op)).all(dim=0).cpu().numpy()
+            excluded[n:] = True
+            kept = int((~excluded[:n]).sum())
+            if kept != int(state["_view_live"]) or kept < 1:
+                raise ValueError(f"_view_live={state['_view_live']} but r_op keeps {kept} "
+                                 "columns")
+        if not _bits_equal(r_op, _expected_soa(ref, width, excluded)):
+            raise ValueError("r_op is not the zero-padded transpose of ref"
+                             + ("" if excluded is None else
+                                " with the excluded columns PAD_VALUE"))
+        index._init_fused(ref, (r_op,), _tile_for_width(n, width),
+                          _resolve_precision(state.get("precision"), k, n, store), store)
+        if excluded is not None:
+            index._view_live = kept
+            index._aos_selfmasked = False
         return index
 
     @classmethod
@@ -604,12 +1026,15 @@ class NNIndex:
 
         neighbors=K (exact top-K) returns (idx (m, K), d2 (m, K)) —
         including K=1 — each row ascending by exact (d2, index)
-        (kernels/topk.py)."""
-        search = self._as_queries(search)
+        (kernels/topk.py). A metric index returns the metric's score in
+        the second slot (cosine similarity, or the exact f32 q·r;
+        descending)."""
+        if self.mutable and self.n_live < 1:
+            raise ValueError("index has no live points")
+        search = self._user_queries(search)
         if neighbors is not None:
-            return self._query_topk(search, neighbors)
-        if self.store == "int8":
-            search = self._i8_q(search)   # grid space (see _init_int8)
+            idx, d2 = self._query_topk(search, neighbors)
+            return self._metric_scores(search, idx, d2)
         m = search.shape[0]
         mb = self._m_bucket(m) if self.bucket_m else m
         if mb != m:
@@ -620,15 +1045,16 @@ class NNIndex:
         idx, d2 = idx[:m], d2[:m]
         if self.store == "int8":
             d2 = d2 * self._i8_s2   # back to user units (monotone)
-        return idx, d2
+        return self._metric_scores(search[:m], idx, d2)
 
     def pipeline(self, m: int):
         """Return (run, ops) for the prepared fused query pipeline at batch
         size ``m`` (strategies "fused" and "auto"): ``run(search, *ops) ->
         (idx, d2)`` with ``ops`` the device-resident prepared operands
         (for store="int8" the grid, with the grid transform and the d2
-        rescale inside run). The projection strategy has no single
-        pipeline and raises."""
+        rescale inside run). Queries are in the space the engines search
+        (a metric index's transformed queries). The projection strategy
+        has no single pipeline and raises."""
         from tpu_knn_torch.kernels.smallm import (
             aos_scan_applicable, smallm_applicable,
         )
@@ -638,11 +1064,13 @@ class NNIndex:
                              f"not {self.strategy!r}")
         if self.store == "int8":
             return self._i8_run, (self.ref_dev,)
-        if (smallm_applicable(m, self.k, self.n)
-                or aos_scan_applicable(m, self.k, self.n)) and len(self.r_ops) == 1:
-            return (_build_smallm_prepared(m, self.n, self.k),
+        n = self._n_eff
+        aos_ok = getattr(self, "_aos_selfmasked", True)
+        if (smallm_applicable(m, self.k, n)
+                or (aos_ok and aos_scan_applicable(m, self.k, n))) and len(self.r_ops) == 1:
+            return (_build_smallm_prepared(m, n, self.k, aos_ok=aos_ok),
                     (self.r_ops, self.ref_dev))
-        run = _build_prepared_query(m, self.n, self.k, self.precision)
+        run = _build_prepared_query(m, n, self.k, self.precision)
         return run, (self.r_ops, self.ref_dev)
 
     def _query_padded(self, search, m_true: int):
@@ -652,7 +1080,7 @@ class NNIndex:
         )
 
         m = search.shape[0]
-        n = self.n
+        n = self._n_eff
         if self.store == "int8":
             return self._i8_query(search)
         if self.strategy == "projection":
@@ -674,16 +1102,19 @@ class NNIndex:
                 self._note_projection_batch(certified)
                 return idx, d2
             self.last_strategy = "fused"
+        aos_ok = getattr(self, "_aos_selfmasked", True)
         if (smallm_applicable(m, self.k, n)
-                or aos_scan_applicable(m, self.k, n)) and len(self.r_ops) == 1:
+                or (aos_ok and aos_scan_applicable(m, self.k, n))) and len(self.r_ops) == 1:
             # The small-m kernel serves tiny batches off the very same SoA
             # operand (still the "fused" strategy — a kernel choice). A
             # presplit index keeps B12 at every m (tpu_knn's
-            # len(r_ops) == 1 condition, index.py:1740-1742).
-            run = _build_smallm_prepared(m, n, self.k)
+            # len(r_ops) == 1 condition, index.py:1740-1742); a filtered
+            # view keeps its masked operand (aos_ok False).
+            run = _build_smallm_prepared(m, n, self.k, aos_ok=aos_ok)
             return run(search, self.r_ops, self.ref_dev)
-        if dense_applicable(m, self.k, n):
-            # Small reference sets skip the streaming pipeline.
+        if dense_applicable(m, self.k, n) and aos_ok:
+            # Small reference sets skip the streaming pipeline (PAD slots
+            # score +inf there too); a view's shared AoS copy is unmasked.
             return _dense(search, self.ref_dev)
         run = _build_prepared_query(m, n, self.k, self.precision)
         return run(search, self.r_ops, self.ref_dev)
@@ -696,47 +1127,73 @@ class NNIndex:
         count (m,)): rows ascending by exact (d2, index), padded -1/+inf.
 
         max_results=<int>: single shot with that cap (count < max_results
-        certifies completeness; a cap beyond n is clamped and the output
-        padded back). max_results=None: escalate the cap (doubling) until
-        no row truncates, returning each query's true in-radius set;
-        raises past the engine ceiling (PASSES_MAX_NEIGHBORS)."""
+        certifies completeness; a cap beyond n_live is clamped and the
+        output padded back). max_results=None: escalate the cap (doubling)
+        until no row truncates, returning each query's true in-radius set;
+        raises past the engine ceiling (PASSES_MAX_NEIGHBORS).
+
+        metric="cosine": ``radius`` is a minimum similarity in [-1, 1] (the
+        L2 threshold over unit vectors is sqrt(2 − 2·s_min)); rows come back
+        (idx, similarity, count), similarity descending, padded -1/-inf.
+        metric="ip" has no radius analog and raises."""
         from tpu_knn_torch.kernels.topk import _radius_query
 
-        search = self._as_queries(search)
+        if self.metric == "ip":
+            raise ValueError(
+                "metric='ip' has no radius-query analog (the inner "
+                "product is not a distance); use query(neighbors=K)")
+        if self.metric == "cosine":
+            if not -1.0 <= radius <= 1.0:
+                raise ValueError(
+                    "metric='cosine': radius is a minimum similarity in "
+                    f"[-1, 1], got {radius}")
+            search = self._transform_q(search)
+            idx, d2, cnt = _radius_query(
+                lambda eff: self._query_topk(search, eff), self.n_live,
+                float(np.sqrt(max(2.0 - 2.0 * radius, 0.0))), max_results)
+            _, sim = self._metric_scores(search, idx, d2)
+            return idx, sim, cnt
+        # int8: grid space here; _query_topk reports user-unit d2, so the
+        # radius compares in the user's units.
+        search = self._user_queries(search)
         return _radius_query(lambda eff: self._query_topk(search, eff),
-                             self.n, radius, max_results)
+                             self.n_live, radius, max_results)
 
     def _query_topk(self, search, neighbors: int):
+        """Top-K of a batch in the engines' space (grid space for int8),
+        d2 in user units."""
         from tpu_knn_torch.kernels.topk import (
             MAX_NEIGHBORS, _build_aos_topk, _build_topk,
         )
 
-        if self.strategy not in ("fused", "auto"):
+        if self.store == "int8":
+            return self._i8_query_topk(search, neighbors)
+        if self.strategy not in ("fused", "auto") or len(self.r_ops) != 1:
             raise ValueError(
                 "neighbors>1 requires the fused/auto/sharded strategy "
                 "(prepared SoA operand) or the native kdtree backend; "
                 f"this index uses {self.strategy!r}")
-        if self.store != "float32" or len(self.r_ops) != 1:
-            raise _not_ported(f"top-K and query_radius over store={self.store!r} / "
-                              f"precision={self.precision!r}", "A.6")
         search, m, mb = self._topk_prep_batch(search, neighbors)
-        if mb == 1 and neighbors <= MAX_NEIGHBORS:
+        if (mb == 1 and neighbors <= MAX_NEIGHBORS
+                and getattr(self, "_aos_selfmasked", True)):
             # m=1 top-K: the zero-prep AoS cell engine over the resident
-            # ref (tpu_knn's measured choice); m >= 2 keeps the prepared
-            # one-scan engines.
-            idx, d2 = _build_aos_topk(mb, self.n, self.k, neighbors)(
+            # ref (tpu_knn's measured choice; PAD slots score +inf); m >= 2
+            # keeps the prepared one-scan engines, over the store's own
+            # operand (bf16 for a bf16 store: the kernels' bf16 instances).
+            idx, d2 = _build_aos_topk(mb, self._n_eff, self.k, neighbors)(
                 search, self.ref_dev)
             return idx[:m], d2[:m]
-        run = _build_topk(mb, self.n, self.k, neighbors, self.r_ops[0].shape[1])
+        run = _build_topk(mb, self._n_eff, self.k, neighbors, self.r_ops[0].shape[1])
         idx, d2 = run(search, self.r_ops, self.ref_dev)
         return idx[:m], d2[:m]
 
     def _topk_prep_batch(self, search, neighbors: int):
-        """Shared top-K entry: validate the K cap and bucket+edge-pad m.
-        Returns (search (mb, k) f32, m, mb)."""
+        """Shared top-K entry: validate the K cap (n_live: a mutable index's
+        live points, a view's kept ones) and bucket+edge-pad m. Returns
+        (search (mb, k) f32, m, mb)."""
         from tpu_knn_torch.kernels.topk import PASSES_MAX_NEIGHBORS
 
-        cap = min(self.n, PASSES_MAX_NEIGHBORS)
+        cap = min(self.n_live, PASSES_MAX_NEIGHBORS)
         if not (1 <= neighbors <= cap):
             raise ValueError(
                 f"neighbors must be in [1, min(n_live, "
@@ -747,14 +1204,30 @@ class NNIndex:
             search = torch.cat([search, search[-1:].expand(mb - m, self.k)])
         return search, m, mb
 
+    def _i8_query_topk(self, search, neighbors: int):
+        """int8 top-K of a grid-space batch, d2 in user units (tpu_knn's
+        `_i8_query_topk`): m = 1 the AoS engine straight off the int8 grid,
+        m >= 2 the prepared engines over the per-call bf16 grid operand
+        (grid integers are exact in bf16, so every route reports the same
+        grid-space geometry)."""
+        from tpu_knn_torch.kernels.topk import (
+            MAX_NEIGHBORS, _build_aos_topk, _build_topk,
+        )
+
+        search, m, mb = self._topk_prep_batch(search, neighbors)
+        if mb == 1 and neighbors <= MAX_NEIGHBORS:
+            idx, d2 = _build_aos_topk(mb, self.n, self.k, neighbors)(search, self.ref_dev)
+        else:
+            ops = self._i8_ops()
+            run = _build_topk(mb, self.n, self.k, neighbors, ops[0].shape[1])
+            idx, d2 = run(search, ops, self.ref_dev)
+        return idx[:m], d2[:m] * self._i8_s2
+
     # ---- serving surface not ported yet ----------------------------
 
-    def filtered_view(self, keep):
-        raise _not_ported("filtered_view", "A.6")
-
     def save(self, path):
-        raise _not_ported("save", "A.6")
+        raise _not_ported("save", "A.6.5")
 
     @classmethod
     def load(cls, path, *args, **kwargs):
-        raise _not_ported("load", "A.6")
+        raise _not_ported("load", "A.6.5")

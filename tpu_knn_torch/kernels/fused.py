@@ -18,7 +18,12 @@ Two ladder rungs are B1's kernel under the tiled template's other operand
 policies, with bit-identical scores: v3 (`aos_candidates`) reads the
 caller's (n, k) array, its copies transposing each chunk on the way in,
 instead of the SoA relayout, and v6 (`const_query_candidates`) keeps each
-block's query rows resident in shared memory for the whole sweep.
+block's query rows resident in shared memory for the whole sweep. B1, B4
+and B3 also take a bf16 store's operand (r_op bf16): their bf16 instances,
+the tiled template's BF16 policy, which stages the operand as stored and
+upcasts each value at the read, so their outputs are the f32 instances'
+bit for bit over the upcast operand (no per-call f32 copy of the store);
+a wrapper counts those launches in its `.bf16_launches`.
 
 Precision: B1 here computes in plain f32 FMA on the CUDA cores, the
 "highest" tier. tpu_knn's bf16-split tiers (packed, bf16x3, bf16x4,
@@ -150,6 +155,26 @@ def _check_highest_only(precision, what: str) -> None:
 
 # ---- operands -------------------------------------------------------
 
+#: The SoA operand types of the tiled kernels (B1, B4, B3, B5, B7): f32, and
+#: a bf16 store's bf16 (their bf16 instances, upcast at the read).
+SOA_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def tiled_entry(lib, name: str, r_op: torch.Tensor):
+    """The C entry point of a tiled kernel for r_op's type: tk_<name>, or
+    its bf16 instance tk_<name>_bf16 (the same arguments)."""
+    return getattr(lib, f"tk_{name}_bf16" if r_op.dtype == torch.bfloat16 else f"tk_{name}")
+
+
+def count_launch(wrapper, r_op: torch.Tensor) -> None:
+    """Count one kernel launch of ``wrapper``: in `.bf16_launches` for its
+    bf16 instance, else in `.launches`."""
+    if r_op.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
+    else:
+        wrapper.launches += 1
+
+
 
 def prep_soa(ref: torch.Tensor, n_pad: int) -> torch.Tensor:
     """(n, k) points -> the zero-padded (k_pad, n_pad) SoA operand in their
@@ -213,9 +238,10 @@ def norm_scores(q, r_op, n: int):
     """The plain versions' f32 score s = ‖r‖² − 2·(q @ r) over the first n
     columns (m, n). B1, B4 and B5's plain versions share it, as the three
     kernels share one score function, so the top-K engines' plain runs
-    compare scores bit for bit as the kernels do."""
+    compare scores bit for bit as the kernels do. A bf16 operand is upcast
+    at the read (exact), as the kernels' bf16 instances upcast it."""
     k = q.shape[1]
-    r = r_op[:k, :n]
+    r = r_op[:k, :n].float()
     return (r * r).sum(dim=0) - 2.0 * (q @ r)
 
 
@@ -259,9 +285,10 @@ def _candidate_outputs(m: int, width: int, device):
 def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     """(m, k) queries x (k_pad, n_pad) SoA operand -> (idx (m, parts*128)
     int32, score (m, parts*128) f32): B1's candidate contract over the
-    first n columns (see csrc/fused_kernels.cu). CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
-    _check_candidate_operands(q, r_op, n, parts)
+    first n columns (see csrc/fused_kernels.cu). A bf16 operand (a bf16
+    store's) takes B1's bf16 instance. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    _check_candidate_operands(q, r_op, n, parts, r_dtypes=SOA_DTYPES)
     if q.device.type == "cpu":
         return fused_candidates_plain(q, r_op, n, parts)
     from tpu_knn_torch.csrc.build import check, load
@@ -271,17 +298,19 @@ def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     q_t = transposed_queries(q)
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
-        err = lib.tk_fused_candidates(
+        err = tiled_entry(lib, "fused_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
             m, q_t.shape[1], k, r_op.stride(0), n, parts, tiled_geometry(m, k, n).tm,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B1 fused_candidates")
-    fused_candidates.launches += 1
+    count_launch(fused_candidates, r_op)
     return idx, score
 
 
-#: Kernel launches of B1 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B1 and of its bf16 instance (CUDA tensors only; the
+#: plain version is not counted).
 fused_candidates.launches = 0
+fused_candidates.bf16_launches = 0
 
 
 def _check_bound(bound, m: int, dtype, device, what: str) -> None:
@@ -312,8 +341,9 @@ def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     top-K passes engine (kernels/topk.py), which makes q's transposed copy
     once (`transposed_queries(q)`, passed as q_t) for all its passes; the
     scores are bit-identical to B1's on the card. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    _check_candidate_operands(q, r_op, n, parts)
+    plain version; CUDA tensors launch the kernel (B4's bf16 instance over
+    a bf16 operand) or raise."""
+    _check_candidate_operands(q, r_op, n, parts, r_dtypes=SOA_DTYPES)
     m, k = q.shape
     _check_bound(bound_s, m, torch.float32, q.device, "bound_s")
     _check_bound(bound_i, m, torch.int32, q.device, "bound_i")
@@ -325,17 +355,19 @@ def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     q_t = checked_queries_t(q, q_t)
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
-        err = lib.tk_banded_candidates(
+        err = tiled_entry(lib, "banded_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), bound_s.data_ptr(), bound_i.data_ptr(),
             idx.data_ptr(), score.data_ptr(), m, q_t.shape[1], k, r_op.stride(0), n, parts,
             tiled_geometry(m, k, n).tm, torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B4 banded_candidates")
-    banded_candidates.launches += 1
+    count_launch(banded_candidates, r_op)
     return idx, score
 
 
-#: Kernel launches of B4 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B4 and of its bf16 instance (CUDA tensors only; the
+#: plain version is not counted).
 banded_candidates.launches = 0
+banded_candidates.bf16_launches = 0
 
 
 def tiled_parts(m: int, k: int, n: int) -> int:
@@ -354,10 +386,11 @@ SCORE_CHUNK = 1 << 16
 
 def score_chunks(q, r_op, n: int):
     """(first column, (m, width) scores) over [0, n) in SCORE_CHUNK
-    pieces: norm_scores' arithmetic, chunk by chunk."""
+    pieces: norm_scores' arithmetic, chunk by chunk (a bf16 operand upcast
+    a chunk at a time)."""
     k = q.shape[1]
     for c0 in range(0, n, SCORE_CHUNK):
-        r = r_op[:k, c0:min(n, c0 + SCORE_CHUNK)]
+        r = r_op[:k, c0:min(n, c0 + SCORE_CHUNK)].float()
         yield c0, (r * r).sum(dim=0) - 2.0 * (q @ r)
 
 
@@ -405,13 +438,14 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
     B1's and B7's on the card, which the seeded engine's bound relies on.
     q_t: q's transposed copy (checked_queries_t), made once by the seeded
     engine for its B3 and B7 launches. CPU tensors take the plain version;
-    CUDA tensors launch B3 or raise."""
+    CUDA tensors launch B3 (its bf16 instance over a bf16 operand) or
+    raise."""
     if depth not in (1, 2):
         raise ValueError(f"depth must be 1 or 2, got {depth}")
     n_eff = n if n_limit is None else min(n, n_limit)
     if n_eff < 1:
         raise ValueError(f"n_limit={n_limit} leaves no column")
-    _check_candidate_operands(q, r_op, n, 1)
+    _check_candidate_operands(q, r_op, n, 1, r_dtypes=SOA_DTYPES)
     m, k = q.shape
     if lo is not None:
         _check_bound(lo, m, torch.float32, q.device, "lo")
@@ -426,17 +460,19 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
                           device=q.device)
     out = torch.empty((m, depth * LANE), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = lib.tk_minima_candidates(
+        err = tiled_entry(lib, "minima_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), lo.data_ptr() if lo is not None else None,
             partial.data_ptr(), out.data_ptr(), m, q_t.shape[1], k, r_op.stride(0), n_eff,
             g.parts, g.tm, depth, torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B3 minima_candidates")
-    minima_candidates.launches += 1
+    count_launch(minima_candidates, r_op)
     return out
 
 
-#: Kernel launches of B3 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B3 and of its bf16 instance (CUDA tensors only; the
+#: plain version is not counted).
 minima_candidates.launches = 0
+minima_candidates.bf16_launches = 0
 
 
 # ---- the B1 variants of the ladder: AoS (v3) and resident queries (v6) ----

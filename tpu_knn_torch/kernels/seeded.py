@@ -41,8 +41,9 @@ import numpy as np
 import torch
 
 from tpu_knn_torch.kernels.fused import (
-    _I32_MAX, _check_bound, _check_candidate_operands, _lane_groups, auto_precision,
-    checked_queries_t, minima_candidates, score_chunks, transposed_queries,
+    _I32_MAX, SOA_DTYPES, _check_bound, _check_candidate_operands, _lane_groups,
+    auto_precision, checked_queries_t, count_launch, minima_candidates, score_chunks,
+    tiled_entry, transposed_queries,
 )
 from tpu_knn_torch.kernels.tuning import (
     LANE, OPERAND_TILE_BUDGET, moments_geometry, pick_tiles,
@@ -212,8 +213,9 @@ def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
     bit for bit as tpu_knn's extraction kernel packs them. The scores
     are B1's and B3's (bit-identical on the card). q_t: q's transposed
     copy (fused.checked_queries_t), made once per call by the engine.
-    CPU tensors take the plain version; CUDA tensors launch B7 or raise."""
-    _check_candidate_operands(q, r_op, n, 1)
+    CPU tensors take the plain version; CUDA tensors launch B7 (its bf16
+    instance over a bf16 operand) or raise."""
+    _check_candidate_operands(q, r_op, n, 1, r_dtypes=SOA_DTYPES)
     m, k = q.shape
     n_ops = r_op.shape[1]
     if cell not in (64, 128, 256) or n_ops % cell:
@@ -247,17 +249,19 @@ def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
         return t.data_ptr() if t is not None else None
 
     with torch.cuda.device(dev):
-        err = lib.tk_extract_moments(
+        err = tiled_entry(lib, "extract_moments", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), bound.data_ptr(), ptr(lo), a.data_ptr(),
             ptr(p3), ptr(rem_part), ptr(rem), m, q_t.shape[1], k, r_op.stride(0), n, nc,
             cell, int(cubic), g.parts, g.tm, torch.cuda.current_stream(dev).cuda_stream)
     check(lib, err, "B7 extract_moments")
-    extract_moments.launches += 1
+    count_launch(extract_moments, r_op)
     return (a,) + ((p3,) if cubic else ()) + ((rem,) if emit_rem else ())
 
 
-#: Kernel launches of B7 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B7 and of its bf16 instance (CUDA tensors only; the
+#: plain version is not counted).
 extract_moments.launches = 0
+extract_moments.bf16_launches = 0
 
 
 # ---- B8/B9: positional compaction of qualifying cells --------------------

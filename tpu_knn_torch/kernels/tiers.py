@@ -405,15 +405,15 @@ def merge_partitions(idx: torch.Tensor, score: torch.Tensor):
 
 def tier_candidates(q: torch.Tensor, r_ops, n: int, parts: int, precision: str):
     """B1's candidate contract by a tier's arithmetic over the operands
-    the tier keeps: "highest" is B1 on the CUDA cores (a bf16 operand is
-    upcast per call), "bf16x3_presplit" is B12 over (hi, lo, rn), every
-    other tier the tensor-core kernel over (r_op,)."""
+    the tier keeps: "highest" is B1 on the CUDA cores (its bf16 instance
+    over a bf16 store's operand, upcast at the read), "bf16x3_presplit" is
+    B12 over (hi, lo, rn), every other tier the tensor-core kernel over
+    (r_op,)."""
     if precision == "bf16x3_presplit":
         return presplit_candidates(q, *r_ops, n, parts)
     (r_op,) = r_ops
     if precision == "highest":
-        return fused_candidates(q, r_op.float() if r_op.dtype != torch.float32 else r_op,
-                                n, parts)
+        return fused_candidates(q, r_op, n, parts)
     return tensor_candidates(q, r_op, n, parts, precision)
 
 
@@ -429,7 +429,7 @@ def tier_candidates_plain(q: torch.Tensor, r_ops, n: int, parts: int, precision:
     if precision == "bf16x3_presplit":
         return presplit_candidates_plain(q, *r_ops, n, parts)
     if precision == "highest":
-        return _lane_fold(norm_scores(q, r_ops[0].float(), n), parts)
+        return _lane_fold(norm_scores(q, r_ops[0], n), parts)
     return tensor_candidates_plain(q, r_ops[0], n, parts, precision)
 
 

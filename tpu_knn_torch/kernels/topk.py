@@ -25,7 +25,10 @@ engines:
   exact rerank, with the passes engine as its certified fallback
   (kernels/seeded.py).
 
-The kernels compute the f32 "highest" tier.
+The kernels compute the f32 "highest" tier. Over a bf16 store's operand
+every engine launches the kernels' bf16 instances (B5, B6, B4, B3 and B7
+upcast at the read, bit for bit the f32 instances over the upcast
+operand), so no top-K path makes an f32 copy of the store.
 """
 
 from __future__ import annotations
@@ -35,14 +38,14 @@ import functools
 import torch
 
 from tpu_knn_torch.kernels.fused import (
-    _I32_MAX, _candidate_outputs, _check_bound, _check_candidate_operands,
-    banded_candidates, norm_scores, prep_soa, tiled_parts, transposed_queries,
+    _I32_MAX, SOA_DTYPES, _candidate_outputs, _check_bound, _check_candidate_operands,
+    banded_candidates, count_launch, norm_scores, prep_soa, tiled_entry, tiled_parts,
+    transposed_queries,
 )
 from tpu_knn_torch.kernels.smallm import (
-    SMALLM_MAX_K, SMALLM_MAX_M, check_smallm_shape, diff_scores,
-    smallm_applicable, smallm_candidates,
+    SMALLM_MAX_K, SMALLM_MAX_M, bf16_parts, check_smallm_shape, diff_scores,
+    operand_parts, smallm_applicable, smallm_candidates,
 )
-from tpu_knn_torch.kernels.smallm import default_parts as smallm_parts
 from tpu_knn_torch.kernels.tuning import LANE, pick_parts, pick_tiles, sweep_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair
 from tpu_knn_torch.utils.shapes import cdiv, round_up
@@ -104,6 +107,12 @@ def smallm_topk_parts(n: int, k: int) -> int:
     (B6 is bound by device reads, as B2 is), one list per (row,
     partition)."""
     return pick_parts(1, n, B6_BLOCKS_PER_SM if k <= 16 else B6_WIDE_BLOCKS_PER_SM)
+
+
+def smallm_topk_operand_parts(r_op: torch.Tensor, n: int, k: int) -> int:
+    """P for the B6 instance that serves r_op: B6-bf16's over a bf16
+    operand (B2-bf16's blocks, smallm.bf16_parts), B6's otherwise."""
+    return bf16_parts(n) if r_op.dtype == torch.bfloat16 else smallm_topk_parts(n, k)
 
 
 def list_of(col, n: int, parts: int):
@@ -224,8 +233,8 @@ def sweep_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     smallest (score, column) pairs of the partition's columns below n,
     sorted, empty slots (+inf, I32_MAX). The score is B1's (bit-identical
     on the card). CPU tensors take the plain version; CUDA tensors launch
-    B5 or raise."""
-    _check_candidate_operands(q, r_op, n, parts)
+    B5 (its bf16 instance over a bf16 operand) or raise."""
+    _check_candidate_operands(q, r_op, n, parts, r_dtypes=SOA_DTYPES)
     if not 1 <= kk <= SWEEP_MAX_NEIGHBORS:
         raise ValueError(f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}], got {kk}")
     m, k = q.shape
@@ -237,17 +246,19 @@ def sweep_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     q_t = transposed_queries(q)
     idx, score = _candidate_outputs(m, parts * kk, q.device)
     with torch.cuda.device(q.device):
-        err = lib.tk_sweep_candidates(
+        err = tiled_entry(lib, "sweep_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
             m, q_t.shape[1], k, r_op.stride(0), n, parts, kk, sweep_geometry(m, k, n).tm,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B5 sweep_candidates")
-    sweep_candidates.launches += 1
+    count_launch(sweep_candidates, r_op)
     return idx, score
 
 
-#: Kernel launches of B5 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B5 and of its bf16 instance (CUDA tensors only; the
+#: plain version is not counted).
 sweep_candidates.launches = 0
+sweep_candidates.bf16_launches = 0
 
 
 def smallm_topk_candidates_plain(q, r_op, n: int, parts: int, kk: int, bound):
@@ -266,8 +277,8 @@ def smallm_topk_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
     lexicographically smallest (exact diff-form score, column) pairs with
     score <= bound[row], sorted, the rest of each list the seed
     (bound[row], I32_MAX). CPU tensors take the plain version; CUDA
-    tensors launch B6 or raise."""
-    _check_candidate_operands(q, r_op, n, parts)
+    tensors launch B6 (B6-bf16 over a bf16 operand) or raise."""
+    _check_candidate_operands(q, r_op, n, parts, r_dtypes=SOA_DTYPES)
     m, k = q.shape
     check_smallm_shape(m, k)
     if not 1 <= kk <= SWEEP_MAX_NEIGHBORS:
@@ -280,17 +291,19 @@ def smallm_topk_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
     lib = load()
     idx, score = _candidate_outputs(m, parts * kk, q.device)
     with torch.cuda.device(q.device):
-        err = lib.tk_smallm_topk_candidates(
+        err = tiled_entry(lib, "smallm_topk_candidates", r_op)(
             q.data_ptr(), r_op.data_ptr(), bound.data_ptr(), idx.data_ptr(),
             score.data_ptr(), m, k, r_op.stride(0), n, parts, kk,
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, "B6 smallm_topk_candidates")
-    smallm_topk_candidates.launches += 1
+    count_launch(smallm_topk_candidates, r_op)
     return idx, score
 
 
-#: Kernel launches of B6 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B6 and of B6-bf16 (CUDA tensors only; the plain
+#: version is not counted).
 smallm_topk_candidates.launches = 0
+smallm_topk_candidates.bf16_launches = 0
 
 
 # ---- engines ------------------------------------------------------------
@@ -313,13 +326,14 @@ def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto
         if smallm_applicable(m, k, n):
             # Tiny batches: two diff-form scans. The K-th smallest of B2's
             # lane minima is a provable upper bound B on the row's K-th
-            # score (K distinct elements <= B exist), which seeds B6.
-            p1, p2 = smallm_parts(n), smallm_topk_parts(n, k)
-
+            # score (K distinct elements <= B exist), which seeds B6. Over
+            # a bf16 operand both are the bf16 instances, at their P.
             def run_smallm(search, r_ops, ref_aos):
-                _, cs1 = smallm_candidates(search, r_ops[0], n, p1)
+                r_op = r_ops[0]
+                _, cs1 = smallm_candidates(search, r_op, n, operand_parts(r_op, n))
                 bound = torch.topk(cs1, kk, dim=-1, largest=False).values[:, -1]
-                ci, cs = smallm_topk_candidates(search, r_ops[0], n, p2, kk,
+                ci, cs = smallm_topk_candidates(search, r_op, n,
+                                                smallm_topk_operand_parts(r_op, n, k), kk,
                                                 bound.contiguous())
                 return _finalize_topk(search, ref_aos, ci, cs, kk, n)
 

@@ -289,6 +289,15 @@ def smallm_bf16_state_bytes(m: int, v: int) -> int:
     return round_up(16 * 32 + 8 * slots * m * LANE, SMEM_STATIC_UNIT)
 
 
+def smallm_bf16_topk_state_bytes(m: int, v: int) -> int:
+    """Static shared memory of a B6-bf16 block of m rows at load width v
+    (csrc smallm_bf16_kselect_kernel<M, V>): B2-bf16's queries (a float4
+    per coordinate up to k = 32) and each of its SMALLM_BF16_THREADS / 32
+    warps' K-selection of the m rows (the same at every v)."""
+    return round_up(16 * 32 + kselect_state_bytes(SMALLM_BF16_THREADS // 32 * m),
+                    SMEM_STATIC_UNIT)
+
+
 def _tiled_rows(m: int) -> int:
     return 1 if m <= TILED_WARPS else 4 if m <= 4 * TILED_WARPS else 8
 
