@@ -74,7 +74,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    at each load width) and at the main path's launches; then PAD columns
    (1e30, and bf16(1e30)) in every row of the operand through B1 "highest"
    and each tier, B2, B2-bf16, B3-B7 and the bf16 instances: none
-   reported, no NaN, a PAD-only cell never qualifying;
+   reported, no NaN, a PAD-only cell never qualifying; then v10's KD-tree
+   traversal (csrc/kdtree_kernels.cu) at (3, 1024, 2^16), over uniform and
+   lattice points, and (16, 256, 2^12), with exact duplicates, a query on
+   the root's split plane and a query equal to a point: indices identical
+   to its plain version's and d2 bit for bit, in two identical launches;
 2. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - 1-NN: the 8 TA shapes through knn_callback (v7 default, v4)
@@ -125,6 +129,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      gated over the slot array after each step;
    - filtered_view keeping half of (16, 2^20), f32 and bf16: 1-NN, K = 8
      and radius, gated over the kept points;
+   - the KD-tree: v9 and v10 through nearest_neighbors(version=) at the
+     reference's KD row (3, 1024, 2^16), ds10 and (16, 1024, 2^16), and
+     NNIndex(strategy="kdtree") at ds10 (1-NN at m = 4 and 1024, K = 8, a
+     radius query), each gated;
+   - precision="bf16x3_presplit" beside store="bf16" and "int8" at ds11
+     and (768, 1024, 2^20), m = 4 and 1024, and beside strategy="auto" at
+     (3, 2^24) (m = 16 routed to projection, m = 64 to B12), gated over
+     the stored points;
+   - save -> load -> query: ds11 f32, bf16, int8, presplit and bf16 +
+     presplit, auto at (3, 2^24), cosine and ip at (16, 1024, 2^20), a
+     mutable f32 index of 2^20 slots after removes and adds, the kdtree
+     at ds10: each loaded index answers bit for bit as the saved one
+     (indices and d2; auto's routes too) at m = 4 and 1024, with K = 8
+     where the index serves top-K; each file's size and the save and load
+     walls are logged;
 3. times (CUDA events, medians) of the kernels, their plain versions, the
    cuBLAS product of the score matrices and the main paths (B5 at (16, 8,
    2^20) K = 32 and (16, 32, 2^20) K = 8 and B6 at (16, 4, 2^24) K = 16
@@ -143,7 +162,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    power limit, and the bounds (tensor-core tiers at 989 TFLOP/s bf16);
    each bf16 instance beside its f32 instance at the main path's launch
    (events and device time, bound at k·n·2 operand bytes), and the device
-   and host time of the store top-K, metric, mutable and view calls.
+   and host time of the store top-K, metric, mutable and view calls; v10's
+   kernel (events and device time) and its plain version at the KD row and
+   ds10 with the visits the plain version counts, v9's host build and
+   query there, the kdtree index's queries at ds10; B12 at ds11 over the
+   f32 split, a bf16 store's operand and the int8 grid's; a loaded ds11
+   index's first query against its steady one.
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. The script imports neither jax nor the
@@ -154,8 +178,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3373,6 +3399,363 @@ def phase3_calls(card, calls, reps):
     return times
 
 
+# ---- the KD-tree (v9, v10, NNIndex(strategy="kdtree")), the presplit tier
+# ---- beside the stores and "auto", save -> load -------------------------
+
+#: The reference's KD-tree row (its README.md:334-343, bench.py:786-902) and
+#: v10's k <= 16 guard at its edge.
+KD_ROW = (3, 1024, 1 << 16)
+KD_WIDE = (16, 1024, 1 << 16)
+
+
+def kd_points(seed, k, m, n, grid=False):
+    """Seeded host points and queries (NumPy: the tree is built on the
+    host) with exact duplicates of point 5 at n/2 and n-1, query 0 equal to
+    point 5 and query 1 to point n/3; ``grid`` puts every coordinate on a
+    coarse lattice, so many points lie on each split plane."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if grid:
+        r = rng.integers(0, 16, (n, k)).astype(np.float32) * 0.0625
+        q = rng.integers(0, 32, (m, k)).astype(np.float32) * 0.03125
+    else:
+        r = rng.random((n, k), np.float32)
+        q = rng.random((m, k), np.float32)
+    r[n // 2] = r[n - 1] = r[5]
+    q[0] = r[5]
+    q[1] = r[n // 3]
+    return r, q
+
+
+def phase1_kdtree(device, cases=((KD_ROW, False), (KD_ROW, True), ((16, 256, 1 << 12), False))):
+    """v10's kernel against its plain version at (3, 1024, 2^16) (uniform
+    and lattice points) and (16, 256, 2^12): indices identical and d2 bit
+    for bit, in two launches that must be identical, with query 2 on the
+    root's split plane; 0 errors against the exact scan, and query 0 (equal
+    to three points) on the lowest of them. Returns the largest |d2
+    difference| (the row's max_abs_err)."""
+    import numpy as np
+    import torch
+
+    from tpu_knn_torch.kdtree.build import build_kdtree
+    from tpu_knn_torch.kdtree.traversal import DeviceKDTree, kdtree_traverse, traverse_plain
+
+    worst = 0.0
+    for seed, ((k, m, n), grid) in enumerate(cases, start=1100):
+        label = f"({k}, {m}, {n})" + (" lattice" if grid else "")
+        r, q = kd_points(seed, k, m, n, grid)
+        tree = build_kdtree(r)
+        q[2] = q[3]
+        q[2, tree.dim[1]] = tree.split_val[1]     # on the root's split plane
+        dev = DeviceKDTree(tree, device)
+        qt = torch.from_numpy(q).to(device)
+        args = (qt, dev.ref, dev.p, dev.dim, dev.split_val)
+        ki, kd = kdtree_traverse(*args)
+        ki2, kd2 = kdtree_traverse(*args)
+        pi, pd, visits, _ = traverse_plain(*args, count_visits=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(ki, ki2) and torch.equal(kd.view(torch.int32), kd2.view(torch.int32))):
+            fail(f"v10 {label}: two launches differ")
+        if not torch.equal(ki, pi):
+            fail(f"v10 {label}: {int((ki != pi).sum())} indices differ from the plain version")
+        if not torch.equal(kd.view(torch.int32), pd.view(torch.int32)):
+            fail(f"v10 {label}: d2 not bit for bit the plain version's")
+        err = float((kd - pd).abs().max())
+        worst = max(worst, err)
+        lowest = int(np.flatnonzero((r == r[5]).all(axis=1)).min())
+        if int(ki[0]) != lowest:
+            fail(f"v10 {label}: query 0 equals points {lowest}.. but got {int(ki[0])}")
+        errors = gate_errors(qt, dev.ref, ki)
+        if errors:
+            fail(f"v10 {label}: {errors} errors against the exact scan")
+        log(f"  v10 {label}: kernel = plain (indices, d2 bits), max |d2 diff| {err:.3g}, "
+            f"{visits} visits ({visits / m:.1f} a query), 0 errors, query 0 -> {lowest}")
+    return worst
+
+
+def phase2_kdtree(device, gen, shapes=(("KD row (3, 1024, 2^16)", KD_ROW), ("ds10", DS10),
+                                       ("(16, 1024, 2^16)", KD_WIDE))):
+    """v9 and v10 through nearest_neighbors(version=) at the KD row, ds10 and
+    (16, 1024, 2^16), each gated against the exact scan; then
+    NNIndex(strategy="kdtree") at ds10: 1-NN at m = 4 and 1024, K = 8 and a
+    radius query. Returns the data for phase 3."""
+    import tpu_knn_torch
+
+    ctx = {}
+    for label, (k, m, n) in shapes:
+        q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+        want = exact_scan(q, r)
+        for v in ("v9", "v10"):
+            t0 = time.perf_counter()
+            idx = tpu_knn_torch.nearest_neighbors(q, r, version=v)
+            wall = (time.perf_counter() - t0) * 1e3
+            gate_stored(f"{label} nearest_neighbors(version={v!r}) [{wall:.1f} ms with the "
+                        "host build]", q, r, idx, want)
+        ctx[label] = (q, r)
+    q, r = ctx["ds10"]
+    ix = tpu_knn_torch.NNIndex(r, strategy="kdtree")
+    if ix.device != q.device or ix._kdt2 is None:
+        fail("the ds10 kdtree index is not a kdt2 index on the card's device")
+    want = exact_scan(q, r)
+    for mm in (4, q.shape[0]):
+        idx, _ = ix.query(q[:mm])
+        if idx.device != q.device:
+            fail("the kdtree index answered off the index's device")
+        gate_stored(f"ds10 NNIndex(strategy='kdtree').query m={mm}", q[:mm], r, idx, want[:mm])
+    gate_topk("ds10 NNIndex(strategy='kdtree').query(neighbors=8)", q, r,
+              ix.query(q, neighbors=8)[0], 8)
+    radius = 0.01
+    gate_radius("ds10 NNIndex(strategy='kdtree').query_radius m=8", q[:8], r,
+                ix.query_radius(q[:8], radius), radius)
+    ctx["index"] = ix
+    return ctx
+
+
+def phase2_presplit_stores(device, gen, shapes=(("ds11", DS11), ("(768, 1024, 2^20)", EMBED768)),
+                           n_auto=1 << 24):
+    """precision="bf16x3_presplit" beside store="bf16" and "int8" at ds11
+    and (768, 1024, 2^20), m = 4 and 1024, and beside strategy="auto" at
+    (3, 2^24) (m = 16 routed to projection, m = 64 to B12), each gated
+    against the exact scan over the stored points (grid space for int8)."""
+    import torch
+
+    import tpu_knn_torch
+
+    for label, (k, m, n) in shapes:
+        q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+        for store in ("bf16", "int8"):
+            ix = tpu_knn_torch.NNIndex(r, store=store, precision="bf16x3_presplit")
+            qs, pts = stored_space(ix, q, r)
+            want = gate_stored(f"{label} store={store} precision='bf16x3_presplit' m={m}",
+                               qs, pts, ix.query(q)[0])
+            gate_stored(f"{label} store={store} precision='bf16x3_presplit' m=4", qs[:4], pts,
+                        ix.query(q[:4])[0], want[:4])
+            del ix, qs, pts, want
+            torch.cuda.empty_cache()
+        del q, r
+        torch.cuda.empty_cache()
+    q, r = uniform(gen, (64, 3), device), uniform(gen, (n_auto, 3), device)
+    ix = tpu_knn_torch.NNIndex(r, strategy="auto", precision="bf16x3_presplit")
+    want = exact_scan(q, r)
+    for mm, route in ((16, "projection"), (64, "fused")):
+        gate_stored(f"(3, 2^24) auto precision='bf16x3_presplit' m={mm}", q[:mm], r,
+                    ix.query(q[:mm])[0], want[:mm])
+        if ix.last_strategy != route:
+            fail(f"auto presplit m={mm} took {ix.last_strategy}, expected {route} "
+                 f"(cert_rate {ix.cert_rate})")
+    log(f"  (3, 2^24) auto presplit: cert_rate {ix.cert_rate}")
+    del ix, q, r
+    torch.cuda.empty_cache()
+
+
+def persist_answers(ix, q):
+    """What a loaded index must reproduce: 1-NN at m = 4 and len(q), top-K
+    K = 8 at both where the index serves it, and auto's routes."""
+    out = []
+    for mm in (4, q.shape[0]):
+        out.append(ix.query(q[:mm]))
+        if ix.strategy == "auto":
+            out.append(ix.last_strategy)
+        if ix.precision != "bf16x3_presplit" and ix.strategy != "projection":
+            out.append(ix.query(q[:mm], neighbors=8))
+    return out
+
+
+def same_answers(name, got, want):
+    import torch
+
+    for a, b in zip(got, want):
+        if isinstance(a, str):
+            if a != b:
+                fail(f"{name}: route {a} after load, {b} before")
+            continue
+        for x, y in zip(a, b):
+            if x.dtype != y.dtype or not torch.equal(x.contiguous().view(torch.int32),
+                                                     y.contiguous().view(torch.int32)):
+                fail(f"{name}: the loaded index does not answer bit for bit as the saved one")
+
+
+def phase2_persist(device, gen, tmp, ds11=DS11, ds10=DS10, n_auto=1 << 24):
+    """Save -> load -> query on the card: ds11 fused f32, bf16, int8,
+    presplit and bf16 + presplit; auto at (3, 2^24); cosine and ip at (16,
+    1024, 2^20); a mutable f32 index of 2^20 slots after removes and adds;
+    the kdtree at ds10. Each loaded index answers bit for bit as the saved
+    one (indices and d2, auto's routes too) at m = 4 and 1024, top-K K = 8
+    where served. Logs each file's size and the save and load walls;
+    returns them and the loaded ds11 f32 index for phase 3."""
+    import torch
+
+    import tpu_knn_torch
+
+    NNIndex = tpu_knn_torch.NNIndex
+    walls = {}
+    k, m, n = ds11
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    states = [(f"ds11 {label}", lambda kw=kw: NNIndex(r, **kw), q)
+              for label, kw in (("f32", {}), ("bf16", {"store": "bf16"}),
+                                ("int8", {"store": "int8"}),
+                                ("presplit", {"precision": "bf16x3_presplit"}),
+                                ("bf16 + presplit", {"store": "bf16",
+                                                     "precision": "bf16x3_presplit"}))]
+    q3, r3 = uniform(gen, (m, 3), device), uniform(gen, (n_auto, 3), device)
+    states.append(("auto (3, 2^24)", lambda: NNIndex(r3, strategy="auto"), q3))
+    for metric in ("cosine", "ip"):
+        states.append((f"{metric} (16, 1024, 2^20)",
+                       lambda metric=metric: NNIndex(r, metric=metric), q))
+
+    def mutable():
+        ix = NNIndex(r[: n - n // 16], mutable=True)
+        ix.add(r[n - n // 16:])
+        ix.remove(torch.randperm(n, generator=gen, device=device)[: n // 16].cpu().numpy())
+        return ix
+
+    states.append(("mutable f32 2^20 after removes and adds", mutable, q))
+    q10, r10 = uniform(gen, (ds10[1], 3), device), uniform(gen, (ds10[2], 3), device)
+    states.append(("kdtree ds10", lambda: NNIndex(r10, strategy="kdtree"), q10))
+    loaded_f32 = None
+    for name, build, qq in states:
+        ix = build()
+        want = persist_answers(ix, qq)
+        path = os.path.join(tmp, "index.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix.save(path)
+        t1 = time.perf_counter()
+        lx = NNIndex.load(path, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+        same_answers(name, persist_answers(lx, qq), want)
+        walls[name] = {"save_ms": (t1 - t0) * 1e3, "load_ms": (t2 - t1) * 1e3, "bytes": size}
+        log(f"  save -> load {name}: file {size / 2**20:.1f} MiB, save {(t1 - t0) * 1e3:.1f} ms, "
+            f"load {(t2 - t1) * 1e3:.1f} ms; answers bit for bit as saved")
+        if name == "ds11 f32":
+            loaded_f32 = path + ".f32.npz"
+            os.replace(path, loaded_f32)
+        else:
+            os.remove(path)
+        del ix, lx, want
+        torch.cuda.empty_cache()
+    return {"walls": walls, "f32_file": loaded_f32, "q": q}
+
+
+def phase3_kdtree(card, kd_ctx, reps):
+    """v10's kernel (events and device time) and its plain version at the
+    KD row and ds10, with the visits the plain version counts; v9's native
+    host query (its tree built once) and host build there; the kdtree
+    index's 1-NN and K = 8 queries at ds10 (host wall). Returns (times,
+    bounds, visits)."""
+    import numpy as np
+    import torch
+
+    from tpu_knn_torch import native
+    from tpu_knn_torch.kdtree.build import build_kdtree
+    from tpu_knn_torch.kdtree.traversal import DeviceKDTree, kdtree_traverse, traverse_plain
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times, bounds, visits = {}, {}, {}
+    for label in ("KD row (3, 1024, 2^16)", "ds10"):
+        q, r = kd_ctx[label]
+        m, k = q.shape
+        n = r.shape[0]
+        qh, rh = q.cpu().numpy(), r.cpu().numpy()
+        t0 = time.perf_counter()
+        tree = build_kdtree(rh)
+        times[f"v9 build {label} host"] = (time.perf_counter() - t0) * 1e3
+        dev = DeviceKDTree(tree, q.device)
+        args = (q, dev.ref, dev.p, dev.dim, dev.split_val)
+        times.update(time_ms({f"v10 kernel {label}": lambda: kdtree_traverse(*args)}, reps))
+        times.update(time_ms({f"v10 plain {label}": lambda: traverse_plain(*args)}, 3,
+                             warmup=1))
+        times[f"v10 kernel {label} device"] = kernel_device_ms(
+            lambda: kdtree_traverse(*args), reps, card, kernel="kdtree_traverse")
+        _, _, visits[label], nodes = traverse_plain(*args, count_visits=True)
+        samples = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            native.kdtree_query(qh, rh, tree.p, tree.dim)
+            samples.append((time.perf_counter() - t0) * 1e3)
+        times[f"v9 query {label} host"] = float(np.median(samples))
+        # Bytes: the queries and answers, and each distinct visited node
+        # (p, dim, split_val) and its point once; operations: 3k a visit.
+        bounds[f"v10 {label}"] = roofline(4 * m * k + 8 * m + nodes * (12 + 4 * k),
+                                          3 * k * visits[label])
+        log(f"  v10 {label}: {visits[label]} visits ({visits[label] / m:.1f} a query) "
+            f"over {nodes} distinct nodes; "
+            f"v9 host build {times[f'v9 build {label} host']:.1f} ms, "
+            f"host query {times[f'v9 query {label} host']:.3f} ms [{card}]")
+        del dev, args, tree
+    ix = kd_ctx["index"]
+    q, _ = kd_ctx["ds10"]
+    for name, fn in (("kdtree index ds10 query m=1024", lambda: ix.query(q)),
+                     ("kdtree index ds10 query m=4", lambda: ix.query(q[:4])),
+                     ("kdtree index ds10 query(neighbors=8) m=1024",
+                      lambda: ix.query(q, neighbors=8))):
+        fn()
+        samples = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        times[f"{name} wall"] = float(np.median(samples))
+    for name, ms in times.items():
+        log(f"  time {name}: median {ms:.4f} ms [{card}]")
+    return times, bounds, visits
+
+
+def phase3_presplit(card, device, gen, persist, reps):
+    """B12 over each operand source at ds11 (the f32 split, a bf16 store's
+    values with lo = 0, the int8 grid's), kernel alone by events and
+    device time; a loaded ds11 f32 index's first query against its steady
+    state (host wall, card synchronised)."""
+    import numpy as np
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels import tiers
+    from tpu_knn_torch.kernels.tiers import presplit_ops
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times = {}
+    k, m, n = DS11
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    grid = tpu_knn_torch.NNIndex(r, store="int8")
+    sources = {"f32 split": presplit_ops(r, n), "bf16 store": presplit_ops(
+        r.to(torch.bfloat16), n), "int8 grid": presplit_ops(grid.ref_dev, n)}
+    qg = grid._i8_q(q)
+    parts = tiers.tier_parts("bf16x3_presplit", m, k, n)
+    fns = {f"B12 over the {src}": (lambda qq=(qg if src == "int8 grid" else q), ops=ops:
+                                     tiers.presplit_candidates(qq, *ops, n, parts))
+           for src, ops in sources.items()}
+    times.update(time_ms(fns, reps))
+    for name, fn in fns.items():
+        times[f"{name} device"] = kernel_device_ms(fn, reps, card, "tensor_candidates")
+    del sources, grid, fns
+    torch.cuda.empty_cache()
+    # A loaded index's first query against its steady state.
+    t0 = time.perf_counter()
+    lx = tpu_knn_torch.NNIndex.load(persist["f32_file"], device=device)
+    torch.cuda.synchronize()
+    times["ds11 f32 load"] = (time.perf_counter() - t0) * 1e3
+    qq = persist["q"]
+    samples = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lx.query(qq)
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    times["loaded ds11 f32 first query"] = samples[0]
+    times["loaded ds11 f32 steady query"] = float(np.median(samples[1:]))
+    os.remove(persist["f32_file"])
+    for name, ms in times.items():
+        log(f"  time {name}: {ms:.4f} ms [{card}]")
+    return times
+
+
 # ---- main ------------------------------------------------------------------
 
 
@@ -3387,6 +3770,7 @@ def main() -> int:
     from tpu_knn_torch.csrc import build
     from tpu_knn_torch.harness.generator import BIG_SHAPES
     from tpu_knn_torch.kernels import dma_pipeline, fused, projection, seeded, smallm, topk
+    from tpu_knn_torch.kdtree import traversal
     from tpu_knn_torch.kernels.twolevel import DEFAULT_PARTITIONS
 
     t_start = time.perf_counter()
@@ -3436,7 +3820,7 @@ def main() -> int:
             "B1-bf16 and B4-bf16 (the tiled kernel, BF16 policy)": "tiled_bf16_candidates_kernel",
             "B3-bf16": "bf16_minima_kernel", "B7-bf16": "bf16_moments_kernel",
             "B5-bf16": SWEEP_BF16_ENTRY, "B6-bf16 (K-lists over B2-bf16's loads)":
-                SMALLM_BF16_TOPK_ENTRY})
+                SMALLM_BF16_TOPK_ENTRY, "v10 (KD-tree traversal)": "kdtree_traverse_kernel"})
         check_tiled_smem(smem)
         check_topk_smem(smem)
         check_scan_smem(smem)
@@ -3722,6 +4106,8 @@ def main() -> int:
     phase1_pad(device, gen_pad)
     torch.cuda.empty_cache()
     stamp("phase 1 PAD columns")
+    errs["v10"] = phase1_kdtree(device)
+    stamp("phase 1 v10")
 
     # Phase 2: each path runs with every launch counter set to 0 just
     # before it and read just after.
@@ -3731,7 +4117,8 @@ def main() -> int:
                 "B7": seeded.extract_moments, "B8/B9": seeded.compact_cells,
                 "B10": dma_pipeline.dma_candidates, "B11": projection.window_candidates,
                 "B1 AoS (v3)": fused.aos_candidates,
-                "B1 constant-query (v6)": fused.const_query_candidates}
+                "B1 constant-query (v6)": fused.const_query_candidates,
+                "v10": traversal.kdtree_traverse}
     # B1's tiers, B12 and B2-bf16 count in tiers.TIER_LAUNCHES, one key a
     # row.
     tier_rows = {f"B1 {t}": t for t in ("packed3", "packed2", "bf16x3", "bf16x4", "qsplit2",
@@ -3800,7 +4187,8 @@ def main() -> int:
     # own: top-K and radius over the quantized stores, the metrics, mutable
     # indexes, filtered views.
     gens = {}
-    for i, path in enumerate(("stores", "metrics", "mutable", "views")):
+    for i, path in enumerate(("stores", "metrics", "mutable", "views", "kdtree", "presplit",
+                              "persist")):
         gens[path] = torch.Generator(device=device)
         gens[path].manual_seed(1020 + i)
     log("phase 2: top-K and radius over the bf16 and int8 stores")
@@ -3820,11 +4208,25 @@ def main() -> int:
     view_calls, counts_views = drive(
         "view", ("B1 packed3", "B2", "B2-bf16", "B3", "B3-bf16", "B6", "B6-bf16"),
         lambda: phase2_views(device, gens["views"]))
+    # The KD-tree, the presplit tier beside the stores, save -> load (ROADMAP
+    # A.6.5, A.6.6, A.8).
+    log("phase 2: the KD-tree: v9, v10 and NNIndex(strategy='kdtree')")
+    kd_ctx, counts_kdtree = drive("kdtree", ("v10",),
+                                  lambda: phase2_kdtree(device, gens["kdtree"]))
+    log("phase 2: precision='bf16x3_presplit' beside the bf16 and int8 stores and 'auto'")
+    _, counts_presplit = drive("presplit beside the stores", ("B12", "B11"),
+                               lambda: phase2_presplit_stores(device, gens["presplit"]))
+    log("phase 2: save -> load -> query")
+    persist_dir = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    persist, counts_persist = drive(
+        "save/load", ("B2", "B2-bf16", "B12", "B1 packed3", "B3", "B7", "B11"),
+        lambda: phase2_persist(device, gens["persist"], persist_dir))
     # The "B1 k=768" row counts that path's launches, the B1 row the others'.
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
                                              counts_ladder, counts_auto, counts_tiers,
                                              counts_stores, counts_store_topk, counts_metrics,
-                                             counts_mutable, counts_views))
+                                             counts_mutable, counts_views, counts_kdtree,
+                                             counts_presplit, counts_persist))
                 for kname in counters}
     launches["B1 k=768"] = counts_768["B1"]
 
@@ -3858,6 +4260,16 @@ def main() -> int:
     del store_calls, metric_calls, mutable_calls, view_calls
     torch.cuda.empty_cache()
     stamp("phase 3 store top-K, metric, mutable and view calls")
+    kd_times, kd_bounds, kd_visits = phase3_kdtree(card, kd_ctx, reps=10)
+    times.update(kd_times)
+    del kd_ctx
+    stamp("phase 3 KD-tree")
+    gen_p = torch.Generator(device=device)
+    gen_p.manual_seed(1031)
+    times.update(phase3_presplit(card, device, gen_p, persist, reps=10))
+    shutil.rmtree(persist_dir)
+    torch.cuda.empty_cache()
+    stamp("phase 3 B12 over the store operands and a loaded index's first query")
 
     for mod in ("jax", "tpu_knn"):
         if mod in sys.modules:
@@ -3882,6 +4294,7 @@ def main() -> int:
         "B1 constant-query (v6)": ladder_bounds["B1 variants ds11"],
         **tier_bounds,
         **bf16_bounds,
+        "v10": kd_bounds["v10 ds10"],
     }
     errs["B8"] = errs["B9"] = errs["B8/B9"]
     errs["B1 AoS (v3)"] = errs["B1 constant-query (v6)"] = errs["B1 variants"]
@@ -3926,6 +4339,9 @@ def main() -> int:
          "matmul ds11"),
         ("B2-bf16", "smallm_candidates (bf16 operand)", "tpu_knn/kernels/smallm.py:82",
          "B2-bf16 kernel", "B2-bf16 plain", None),
+        # Not Pallas: tpu_knn's XLA while_loop; the reference's CUDA kernel.
+        ("v10", "kdtree_traverse (3, 1024, 2^20)", "tpu_knn/kdtree/traversal.py:40",
+         "v10 kernel ds10", "v10 plain ds10", None),
     ]
     # The bf16 instances: tpu_knn ran the same kernels over a bf16 store's
     # operand, upcast at the read; "f32_instance_ms" is the f32 instance at
@@ -3952,7 +4368,8 @@ def main() -> int:
               "B1 constant-query (v6)": "fused", "B2": "smallm", "B6": "smallm",
               "B5": "sweep", "B3": "seeded", "B7": "seeded", "B8": "seeded", "B9": "seeded",
               "B11": "window", "B2-bf16": "smallm", "B1-bf16": "fused", "B4-bf16": "fused",
-              "B3-bf16": "seeded", "B7-bf16": "seeded", "B5-bf16": "sweep", "B6-bf16": "smallm"}
+              "B3-bf16": "seeded", "B7-bf16": "seeded", "B5-bf16": "sweep", "B6-bf16": "smallm",
+              "v10": "kdtree"}
     family.update({row: "tensor" for row in tier_rows if row != "B2-bf16"})
     # B11 also at v11's ds8 and ds10 launches; B2-bf16 also with its
     # operand out of L2.
@@ -3960,7 +4377,19 @@ def main() -> int:
                       for key, value in (("device_ms", times[f"B11 kernel {label} device"]),
                                          ("ms", times[f"B11 kernel {label}"]),
                                          ("bound_ms", ladder_bounds[f"B11 {label}"][0]))},
-              "B2-bf16": {"device_ms_l2_flushed": times["B2-bf16 kernel device L2 flushed"]}}
+              "B2-bf16": {"device_ms_l2_flushed": times["B2-bf16 kernel device L2 flushed"]},
+              "v10": {"ms_kd_row": times["v10 kernel KD row (3, 1024, 2^16)"],
+                      "device_ms_kd_row": times["v10 kernel KD row (3, 1024, 2^16) device"],
+                      "plain_ms_kd_row": times["v10 plain KD row (3, 1024, 2^16)"],
+                      "bound_ms_kd_row": kd_bounds["v10 KD row (3, 1024, 2^16)"][0],
+                      "visits_ds10": kd_visits["ds10"],
+                      "visits_kd_row": kd_visits["KD row (3, 1024, 2^16)"],
+                      "v9_query_host_ms_ds10": times["v9 query ds10 host"],
+                      "v9_query_host_ms_kd_row": times["v9 query KD row (3, 1024, 2^16) host"]},
+              "B12": {"launches_beside_the_stores": counts_presplit["B12"],
+                      **{f"ds11_ms_over_the_{src.replace(' ', '_')}":
+                         times[f"B12 over the {src}"]
+                         for src in ("f32 split", "bf16 store", "int8 grid")}}}
     # No single PyTorch call computes a per-lane fold, so library_ms is
     # null; matmul_part_ms is cuBLAS's product of the same score matrix
     # (f32 with TF32 off for the f32 kernels, bf16 for the tensor-core

@@ -1,6 +1,7 @@
 """Kernels B1–B12 (B8/B9 one compactor; B1's tensor-core tiers, its AoS and
-resident-query variants, and B2 over a bf16 operand) against their plain
-torch versions on an sm_90 card.
+resident-query variants, and B2 over a bf16 operand) and v10's KD-tree
+traversal against their plain torch versions on an sm_90 card, and a save
+-> load round trip there.
 
 Skipped without a card. This file imports no jax, so on a machine with the
 card but without jax it runs apart from the suite's conftest:
@@ -658,7 +659,7 @@ def test_b11_matches_plain(device, k, m, n, window):
         assert int(gi[0]) == n // 2 and float(gd[0]) == 0.0
 
 
-@pytest.mark.parametrize("version", ["v1", "v2", "v3", "v5", "v6", "v11"])
+@pytest.mark.parametrize("version", ["v1", "v2", "v3", "v5", "v6", "v9", "v10", "v11"])
 def test_ladder_versions_are_exact_on_the_card(device, version):
     import tpu_knn_torch
 
@@ -1039,3 +1040,90 @@ def test_mutable_metric_index_adds_cuda_points(device, metric):
             assert torch.equal(ga[0], gb[0])
             torch.testing.assert_close(ga[1], gb[1], rtol=1e-5, atol=1e-5)
     assert a.n_live == b.n_live == 6000
+
+
+# ---- v10: the KD-tree traversal ----------------------------------------------
+
+
+def _tree_case(device, k, m, n, seed, grid=False):
+    """Host-built tree over seeded points with exact duplicates, points on
+    split planes (a coarse grid) and queries equal to a point."""
+    import numpy as np
+
+    from tpu_knn_torch.kdtree.build import build_kdtree
+    from tpu_knn_torch.kdtree.traversal import DeviceKDTree
+
+    rng = np.random.default_rng(seed)
+    if grid:
+        r = rng.integers(0, 8, (n, k)).astype(np.float32) * 0.125
+        q = rng.integers(0, 16, (m, k)).astype(np.float32) * 0.0625
+    else:
+        r = rng.random((n, k), np.float32)
+        q = rng.random((m, k), np.float32)
+    r[n // 2] = r[n - 1] = r[5]
+    q[0] = r[5]
+    q[1] = r[n // 3]
+    return DeviceKDTree(build_kdtree(r), device), torch.from_numpy(q).to(device)
+
+
+@pytest.mark.parametrize("k,m,n,grid", [(3, 1024, 1 << 16, False), (3, 500, 20_000, True),
+                                        (1, 64, 5000, True), (8, 256, 1 << 14, False),
+                                        (16, 64, 1 << 12, False), (5, 33, 7, False)])
+def test_v10_kernel_is_its_plain_version_bit_for_bit(device, k, m, n, grid):
+    from tpu_knn_torch.kdtree.traversal import kdtree_traverse, traverse_plain
+
+    tree, q = _tree_case(device, k, m, n, seed=k + m, grid=grid)
+    args = (q, tree.ref, tree.p, tree.dim, tree.split_val)
+    before = kdtree_traverse.launches
+    ki, kd = kdtree_traverse(*args)
+    torch.cuda.synchronize()
+    assert kdtree_traverse.launches == before + 1
+    pi, pd = traverse_plain(*args)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    # The exact scan in the kernel's order: a multiply and an add per d.
+    d2 = sum((q[:, None, d] - tree.ref[None, :, d]) ** 2 for d in range(k))
+    want = torch.where(d2 == d2.min(dim=1, keepdim=True).values,
+                       torch.arange(n, device=device), n).min(dim=1).values
+    assert torch.equal(ki.long(), want)
+
+
+def test_v10_wrapper_raises_instead_of_falling_back(device):
+    from tpu_knn_torch.kdtree.traversal import kdtree_traverse
+
+    tree, q = _tree_case(device, 3, 8, 1000, seed=1)
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        kdtree_traverse(q.cpu(), tree.ref, tree.p, tree.dim, tree.split_val)
+    wide, qw = _tree_case(device, 17, 8, 1000, seed=2)
+    with pytest.raises(ValueError, match="k <= 16"):
+        kdtree_traverse(qw, wide.ref, wide.p, wide.dim, wide.split_val)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"store": "bf16"}, {"store": "int8"},
+                                    {"precision": "bf16x3_presplit"},
+                                    {"store": "bf16", "precision": "bf16x3_presplit"},
+                                    {"metric": "ip"}, {"mutable": True},
+                                    {"strategy": "kdtree"}])
+def test_save_load_round_trip_on_the_card(device, kwargs, tmp_path):
+    """A loaded index answers bit for bit as the index that was saved
+    (indices and d2), 1-NN at m = 4 and 1024 and top-K where served."""
+    import numpy as np
+
+    from tpu_knn_torch import NNIndex
+
+    rng = np.random.default_rng(4)
+    r = rng.random((1 << 16, 16), np.float32)
+    q = rng.random((1024, 16), np.float32)
+    ix = NNIndex(r, device=device, **kwargs)
+    if ix.mutable:
+        ix.remove(np.arange(0, 1 << 16, 7))
+        ix.add(q[:100] * 0.5)
+    ix.save(str(tmp_path / "ix"))
+    lx = NNIndex.load(str(tmp_path / "ix.npz"), device=device)
+    topk = ix.precision != "bf16x3_presplit"
+    for m in (4, 1024):
+        for kk in (None, 8) if topk else (None,):
+            got, want = lx.query(q[:m], neighbors=kk), ix.query(q[:m], neighbors=kk)
+            assert got[0].device == want[0].device == torch.device(device)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))

@@ -136,26 +136,28 @@ def test_from_state_rejects_a_foreign_operand(jax_index):
                                          device="cpu")
 
 
-def test_index_surface_not_ported_yet_raises():
+def test_index_surface_not_ported_yet_raises(tmp_path):
     r = np.random.default_rng(2).random((500, 4), np.float32)
     ix = tpu_knn_torch.NNIndex(r, device="cpu")
     # Top-K is served, the batch regime (m*K > 256, the seeded engine) too.
     assert ix.query(r[:2], neighbors=3)[0].shape == (2, 3)
     idx, _ = ix.query(r[:20], neighbors=20)
     np.testing.assert_array_equal(idx.numpy(), _oracle_topk(r[:20], r, 20))
-    # save/load (A.6.5) are what the index surface still lacks.
-    with pytest.raises(NotImplementedError, match="A.6.5"):
-        ix.save("unused.npz")
-    with pytest.raises(NotImplementedError, match="A.6.5"):
-        tpu_knn_torch.NNIndex.load("unused.npz")
-    # strategy="auto" and "projection" are served since the ladder slice.
-    for strategy in ("auto", "projection"):
+    # save/load (A.6.5) are served: the loaded index answers as the saved one.
+    ix.save(str(tmp_path / "ix.npz"))
+    loaded = tpu_knn_torch.NNIndex.load(str(tmp_path / "ix.npz"), device="cpu")
+    for a, b in zip(loaded.query(r[:20]), ix.query(r[:20])):
+        assert torch.equal(a, b)
+    # strategy="auto" and "projection" are served since the ladder slice,
+    # "kdtree" since A.8.
+    for strategy in ("auto", "projection", "kdtree"):
         other = tpu_knn_torch.NNIndex(r, strategy=strategy, device="cpu")
         np.testing.assert_array_equal(other.query(r[:3])[0].numpy(), [0, 1, 2])
-    for kwargs, item in (({"strategy": "kdtree"}, "A.8"),
-                         ({"strategy": "sharded"}, "A.9")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpu_knn_torch.NNIndex(r, device="cpu", **kwargs)
+    # The sharded strategy (A.9) is what the index surface still lacks.
+    with pytest.raises(NotImplementedError, match="A.9"):
+        tpu_knn_torch.NNIndex(r, device="cpu", strategy="sharded")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        tpu_knn_torch.NNIndex.load(str(tmp_path / "ix.npz"), mesh=object(), device="cpu")
     # The metrics, mutable indexes and filtered views are served
     # (ROADMAP A.6.1-A.6.4).
     cos = tpu_knn_torch.NNIndex(r + 0.1, metric="cosine", device="cpu")
@@ -196,8 +198,8 @@ def test_device_rule():
 
 
 def test_registry():
-    assert tpu_knn_torch.list_versions() == ["v0", "v1", "v11", "v2", "v3", "v4", "v5",
-                                             "v6", "v7"]
+    assert tpu_knn_torch.list_versions() == ["v0", "v1", "v10", "v11", "v2", "v3", "v4",
+                                             "v5", "v6", "v7", "v9"]
     from tpu_knn_torch.engine.registry import best_available_version
 
     assert best_available_version().name == "v7"
@@ -261,11 +263,12 @@ def test_cuda_sources_ship_and_build_is_content_hashed(monkeypatch):
         meta = tomllib.load(f)
     shipped = meta["tool"]["setuptools"]["package-data"]["tpu_knn_torch"]
     assert "csrc/*.cu" in shipped and "csrc/*.cuh" in shipped
+    assert "native/src/*.cc" in shipped
     assert meta["project"]["optional-dependencies"]["torch"] == ["torch"]
     assert [os.path.basename(s) for s in build.sources()] == [
-        "fused_kernels.cu", "knn_common.cuh", "kselect.cuh", "seeded_kernels.cu",
-        "smallm_kernels.cu", "sweep_kernels.cu", "tensor_kernels.cu", "tiled.cuh",
-        "window_kernels.cu"]
+        "fused_kernels.cu", "kdtree_kernels.cu", "knn_common.cuh", "kselect.cuh",
+        "seeded_kernels.cu", "smallm_kernels.cu", "sweep_kernels.cu", "tensor_kernels.cu",
+        "tiled.cuh", "window_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     path = build.lib_path()
     assert os.path.dirname(path) == build.BUILD_DIR and path == build.lib_path()

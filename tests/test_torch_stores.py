@@ -236,9 +236,9 @@ def test_presplit_index_takes_b12_at_every_m(m, monkeypatch):
 
 def test_topk_over_stores_raises():
     """Top-K and radius over the bf16 and int8 stores are served (tpu_knn's
-    answers); over a presplit index they raise tpu_knn's ValueError
-    (tpu_knn serves no top-K there either); presplit beside a quantized
-    store still raises NotImplementedError (A.6.6)."""
+    answers); over a presplit index, f32 or beside the bf16 store, they
+    raise tpu_knn's ValueError (tpu_knn serves no top-K there either); the
+    presplit tier beside a quantized store is served (A.6.6)."""
     r = np.random.default_rng(2).random((3000, 8), np.float32)
     for store in ("bf16", "int8"):
         ix, jx = NNIndex(r, store=store, device="cpu"), JaxIndex(r, store=store)
@@ -252,8 +252,14 @@ def test_topk_over_stores_raises():
             index.query(r[:4], neighbors=3)
         with pytest.raises(ValueError, match="neighbors>1 requires"):
             index.query_radius(r[:4], 0.1)
-    with pytest.raises(NotImplementedError, match="A.6.6"):
-        NNIndex(r, store="bf16", precision="bf16x3_presplit", device="cpu")
+    for store in ("bf16", "int8"):
+        ix = NNIndex(r, store=store, precision="bf16x3_presplit", device="cpu")
+        assert ix.precision == "bf16x3_presplit"
+        _same(ix.query(r[:40]), JaxIndex(r, store=store).query(r[:40]), d2_rtol=1e-5)
+    for index in (NNIndex(r, store="bf16", precision="bf16x3_presplit", device="cpu"),
+                  JaxIndex(r, store="bf16", precision="bf16x3_presplit")):
+        with pytest.raises(ValueError, match="neighbors>1 requires"):
+            index.query(r[:4], neighbors=3)
 
 
 @pytest.fixture(scope="module")
@@ -388,3 +394,98 @@ def test_store_radius_escalates_like_tpu_knn(store):
         _same(got[:2], want[:2], d2_rtol=1e-5)
         np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     assert int(got[2][0]) >= 40 and got[0].shape[1] > 32   # the cap escalated past 32
+
+
+# ---- A.6.6: the presplit tier beside the quantized stores and "auto" -------
+
+
+def test_presplit_operands_over_the_bf16_store_are_tpu_knns():
+    """B12's operands over a bf16 store: hi is the stored values and lo 0,
+    bit for bit tpu_knn's prep_soa over its bf16 array; ‖r‖² is the f32
+    norm of the stored points, where tpu_knn's row is bf16: its values are
+    within bf16 rounding of ours (2^-7 relative covers the per-term bf16
+    products and the final rounding; ROADMAP C)."""
+    rng = np.random.default_rng(66)
+    ref = rng.random((3000, 40), np.float32)
+    ix = NNIndex(ref, store="bf16", precision="bf16x3_presplit", device="cpu")
+    jx = JaxIndex(ref, store="bf16", precision="bf16x3_presplit")
+    hi, lo, rn = ix.r_ops
+    jhi, jlo, jrn = (np.asarray(a) for a in jx.r_ops)
+    assert ix.tile_n == jx.tile_n and hi.shape == jhi.shape and rn.shape == jrn.shape
+    np.testing.assert_array_equal(hi.view(torch.int16).numpy(), jhi.view(np.int16))
+    np.testing.assert_array_equal(lo.view(torch.int16).numpy(), jlo.view(np.int16))
+    assert not lo.float().any() and rn.dtype == torch.float32
+    pts = _quantized(ref).astype(np.float64)
+    np.testing.assert_allclose(rn[0, :3000].numpy(), (pts ** 2).sum(axis=1), rtol=1e-6)
+    np.testing.assert_allclose(jrn.astype(np.float32)[0], rn[0].numpy(), rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("store,k", [("bf16", 3), ("bf16", 40), ("int8", 8), ("int8", 40)])
+def test_presplit_beside_a_store_answers_every_m(store, k, monkeypatch):
+    """B12 serves every batch of a bf16 store (hi = the stored values), the
+    int8 store's batches over the split of its per-call grid operand (m <=
+    4 stays on the AoS scan off the grid, as in tpu_knn); answers are exact
+    over the stored points: tpu_knn's store index's indices, 0 oracle
+    errors over the stored (grid) points."""
+    rng = np.random.default_rng(70 + k)
+    ref = rng.random((5000, k), np.float32)    # past the dense route's n
+    ref[4999] = ref[17]
+    ix = NNIndex(ref, store=store, precision="bf16x3_presplit", device="cpu")
+    jx = JaxIndex(ref, store=store)
+    jp = JaxIndex(ref, store=store, precision="bf16x3_presplit")
+    assert ix.tile_n == jp.tile_n
+    calls = []
+    monkeypatch.setattr(tiers, "presplit_candidates_plain",
+                        lambda *a, f=tiers.presplit_candidates_plain: calls.append(1) or f(*a))
+    for m in (1, 4, 64):
+        q = rng.random((m, k), np.float32)
+        q[0] = ref[17]
+        before = len(calls)
+        got = ix.query(q)
+        _same(got, jx.query(q), d2_rtol=1e-5)
+        assert len(calls) - before == (1 if store == "bf16" or m > 4 else 0)
+        if store == "bf16":
+            errors, _ = check_results(oracle_knn(q, _quantized(ref)), got[0].numpy(), q,
+                                      _quantized(ref))
+        else:
+            want, qg, g = _grid_oracle(ix, q)
+            errors, _ = check_results(want, got[0].numpy(), qg, g)
+        assert errors == 0 and int(got[0][0]) == 17
+
+
+def test_int8_presplit_topk_takes_the_plain_grid_operand():
+    """Top-K over an int8 presplit index: m = 1 is tpu_knn's AoS engine off
+    the grid (its answers); m >= 2 takes the plain per-call grid operand,
+    where tpu_knn hands its engines B12's three operands and fails (ROADMAP
+    C), so those answers are tpu_knn's int8 index's at its default tier."""
+    rng = np.random.default_rng(8)
+    ref = rng.random((3000, 8), np.float32)
+    ix = NNIndex(ref, store="int8", precision="bf16x3_presplit", device="cpu")
+    jp = JaxIndex(ref, store="int8", precision="bf16x3_presplit")
+    jx = JaxIndex(ref, store="int8")
+    q = rng.random((8, 8), np.float32)
+    _same(ix.query(q[:1], neighbors=5), jp.query(q[:1], neighbors=5), d2_rtol=1e-5)
+    _same(ix.query(q, neighbors=5), jx.query(q, neighbors=5), d2_rtol=1e-5)
+    with pytest.raises(ValueError, match="too many values"):
+        jp.query(q, neighbors=5)
+    got, want = ix.query_radius(q, 0.3), jx.query_radius(q, 0.3)
+    _same(got[:2], want[:2], d2_rtol=1e-5)
+
+
+def test_auto_with_presplit_probes_and_routes_like_tpu_knn():
+    """strategy="auto" with the presplit tier: B12's operands, tpu_knn's
+    probe (the same certification rate) and routing (last_strategy); the
+    projection route's fallback prepares its own plain operand."""
+    rng = np.random.default_rng(3)
+    ref = rng.random((1 << 14, 3), np.float32)
+    ix = NNIndex(ref, strategy="auto", precision="bf16x3_presplit", device="cpu")
+    jx = JaxIndex(ref, strategy="auto", precision="bf16x3_presplit")
+    assert len(ix.r_ops) == 3 and ix.cert_rate == jx.cert_rate
+    assert (ix.proj_index is None) == (jx.proj_index is None)
+    for m in (1, 4, 16, 64):
+        q = rng.random((m, 3), np.float32)
+        _same(ix.query(q), jx.query(q))
+        assert ix.last_strategy == jx.last_strategy
+        np.testing.assert_array_equal(ix.query(q)[0].numpy(), oracle_knn(q, ref))
+    with pytest.raises(ValueError, match="neighbors>1 requires"):
+        ix.query(q, neighbors=2)

@@ -7,21 +7,24 @@ torch and never jax; tpu_knn stays the reference it is tested against.
     >>> import tpu_knn_torch
     >>> idx = tpu_knn_torch.nearest_neighbors(queries, refs)   # default v7
     >>> idx = tpu_knn_torch.nearest_neighbors(queries, refs, version="v5")
-    >>> index = tpu_knn_torch.NNIndex(refs, strategy="fused")  # or "auto", "projection"
+    >>> index = tpu_knn_torch.NNIndex(refs, strategy="fused")  # or "auto", "projection", "kdtree"
     >>> idx, d2 = index.query(queries)
     >>> idx, d2 = index.query(queries, neighbors=16)           # exact top-K
     >>> index = tpu_knn_torch.NNIndex(refs, metric="cosine")   # or "ip"; store="bf16"/"int8",
     >>> view = index.filtered_view(keep)                       # mutable=True (add/remove/compact)
     >>> idx, d2 = tpu_knn_torch.topk_knn(queries, refs, 16)
     >>> idx, d2 = tpu_knn_torch.knn_graph(points, 15)            # K-NN graph
+    >>> index.save("index.npz"); index = tpu_knn_torch.NNIndex.load("index.npz")
 
-The one-device version ladder is v0–v7 and v11 (tpu_knn's, without the
-sharded v8 and the KD-tree v9/v10), and the harness CLI is
+The one-device version ladder is v0–v7 and v9–v11 (tpu_knn's, without the
+sharded v8), and the harness CLI is
 ``python -m tpu_knn_torch.harness.runner``. NumPy inputs go to
 ``device=`` (default "cuda"); torch tensors run where they are. The
-hand-written kernels (B1–B11 in csrc/*_kernels.cu, B8/B9 one compactor,
-with B1's AoS and constant-query variants) run on an sm_90 card; on the
-CPU their plain torch versions run instead.
+hand-written kernels (B1–B12 in csrc/*_kernels.cu, B8/B9 one compactor,
+with B1's AoS and constant-query variants, and v10's KD-tree traversal)
+run on an sm_90 card; on the CPU their plain torch versions run instead.
+The host KD-trees (v9, strategy="kdtree") are a native library built by
+g++ on first use (tpu_knn_torch/native).
 """
 
 from tpu_knn_torch.api import knn_callback, knn_graph, nearest_neighbors

@@ -3,7 +3,7 @@
 
 `knn_callback` dispatches like tpu_knn's: the best registered version in
 production preference order (v7 in the port), or the ``version`` named
-(v0–v7 and v11; engine/registry.py). `nearest_neighbors` is the
+(v0–v7 and v9–v11; engine/registry.py). `nearest_neighbors` is the
 array-first wrapper. Torch tensors run on their own device; anything else
 is placed on ``device`` (utils/platform.py).
 """

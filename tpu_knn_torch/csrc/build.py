@@ -132,6 +132,8 @@ def load() -> ctypes.CDLL:
     lib.tk_dma_candidates.restype = i32
     lib.tk_window_candidates.argtypes = [ptr] * 4 + [i32, i32, i64, i32, i32, ptr]
     lib.tk_window_candidates.restype = i32
+    lib.tk_kdtree_traverse.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
+    lib.tk_kdtree_traverse.restype = i32
     # The bf16 instances take their f32 instance's arguments, r a bf16 operand.
     for name in ("fused_candidates", "banded_candidates", "sweep_candidates",
                  "smallm_topk_candidates", "minima_candidates", "extract_moments"):

@@ -3,7 +3,7 @@
     index = NNIndex(ref, strategy="fused")       # pay layout/build once
     idx, d2 = index.query(search)                # hot path
 
-The port serves three strategies:
+The port serves four strategies:
 
 - "fused": the reference set is placed once on the device in two layouts,
   the (n, k) AoS copy that the exact rerank gathers rows from and the
@@ -43,10 +43,16 @@ The port serves three strategies:
   m, large n) and to the fused path otherwise (`last_strategy` says
   which), and served batches' realized certification demotes the route.
   Top-K goes through the fused engines.
+- "kdtree": the host KD-trees of tpu_knn_torch/native, as in tpu_knn:
+  the leaf-bucketed kdt2 serves k <= 16, the reference-format tree
+  (`tree`, built lazily) above; 1-NN, top-K and radius run on the host
+  and return tensors on the index's device.
 
-The kdtree and sharded strategies, precision="bf16x3_presplit" beside a
-quantized store or "auto", and save/load raise NotImplementedError naming
-their ROADMAP item.
+precision="bf16x3_presplit" (B12) serves the f32 points, a bf16 store
+(hi = the stored values, lo = 0, ‖r‖² in f32), the int8 grid (the same
+split of the per-call grid operand) and "auto". `save` / `load` write and
+read tpu_knn's .npz files. The sharded strategy raises
+NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -179,6 +185,14 @@ def _bf16_tensor(bits: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(check_device(device))
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A stored tensor as NumPy for a file: bf16 as its uint16 bits
+    (tpu_knn's `host()`: np.savez has no bfloat16)."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
 def _state_tensors(state, device):
     """(ref, r_op) of a fused state as tensors on ``device``: float32, or a
     bf16 store's bfloat16 taken bit for bit, and the store's name."""
@@ -218,7 +232,7 @@ class NNIndex:
     def __init__(self, ref, strategy: str = "fused", mesh=None,
                  precision: str | None = None, mutable: bool = False,
                  capacity: int | None = None, store: str = "float32",
-                 metric: str = "l2", device="cuda"):
+                 metric: str = "l2", device="cuda", *, _pretransformed: bool = False):
         """store: "float32", "bf16" or "int8" (the module docstring).
 
         metric="cosine" / "ip" (strategy "fused", store "float32"):
@@ -232,7 +246,11 @@ class NNIndex:
 
         mutable=True (strategy "fused"): `capacity` slots (at least 2n and
         1024, a multiple of the operand's tile); add / remove / compact,
-        and growth past capacity by doubling."""
+        and growth past capacity by doubling.
+
+        ``_pretransformed`` (load's): a metric index's points arrive
+        already transformed (unit vectors; ip's augmented column) and are
+        taken as they are."""
         if metric not in ("l2", "cosine", "ip"):
             raise ValueError(
                 f"metric must be 'l2', 'cosine', or 'ip', got {metric!r}")
@@ -262,12 +280,14 @@ class NNIndex:
                 "mutable=True requires strategy='fused' or 'sharded' (slot-addressed "
                 f"prepared operands); {strategy!r} bakes point order into its build — "
                 "rebuild instead")
-        if strategy == "kdtree":
-            raise _not_ported("strategy='kdtree'", "A.8")
         if strategy == "sharded" or mesh is not None:
             raise _not_ported("strategy='sharded' / mesh=", "A.9")
         self.metric = metric
-        ref_t = self._transform_ref(ref, device) if metric != "l2" else as_f32(ref, device)
+        if strategy == "kdtree":
+            self._init_kdtree(ref, precision, device)
+            return
+        ref_t = (self._transform_ref(ref, device) if metric != "l2" and not _pretransformed
+                 else as_f32(ref, device))
         n, k = ref_t.shape
         self.k_user = k - (1 if metric == "ip" else 0)
         precision = _resolve_precision(precision, k, max(n, capacity or 0), store)
@@ -276,9 +296,6 @@ class NNIndex:
 
             self._init_projection(ref_t, build_projection_index(ref_t), precision)
             return
-        if precision == "bf16x3_presplit" and (store != "float32" or strategy != "fused"):
-            raise _not_ported("precision='bf16x3_presplit' beside a quantized store or "
-                              "strategy='auto'", "A.6.6")
         if precision == "bf16x3_presplit" and mutable:
             raise ValueError("precision='bf16x3_presplit' keeps B12's pre-split operands, "
                              "which a mutable index's in-place updates do not keep; use "
@@ -298,7 +315,10 @@ class NNIndex:
             self._init_mutable(ref_s, capacity)
             return
         n_pad = round_up(n, tile_n)
-        r_ops = (presplit_ops(ref_t, n_pad) if precision == "bf16x3_presplit"
+        # B12's operands split the stored values: over a bf16 store hi is
+        # the value itself and lo 0 (tpu_knn's prep_soa over its bf16
+        # array), with ‖r‖² in f32 where tpu_knn rounds it to bf16.
+        r_ops = (presplit_ops(ref_s, n_pad) if precision == "bf16x3_presplit"
                  else (prep_soa(ref_s, n_pad),))
         self._init_fused(ref_s, r_ops, tile_n, precision, store)
         if strategy == "auto":
@@ -329,6 +349,92 @@ class NNIndex:
         (build_projection_index's seven tensors)."""
         self._init_common(ref_t, "projection", precision)
         self.proj_index = tuple(proj_index)
+
+    # ---- the kdtree strategy (host trees) -------------------------------
+    #
+    # As in tpu_knn (index.py:343-359, 1089-1131): the points stay on the
+    # host; the native kdt2 tree serves k <= KDT2_MAX_K, the
+    # reference-format implicit-heap tree (built lazily) the rest. Answers
+    # are tensors on the index's device (tpu_knn returns NumPy).
+
+    def _init_kdtree(self, ref, precision, device, tree=None):
+        from tpu_knn_torch import native
+
+        if isinstance(ref, torch.Tensor):
+            device, ref = ref.device, ref.detach().cpu().numpy()
+        self.device = check_device(device)
+        self.ref = np.ascontiguousarray(ref, np.float32)
+        self.strategy, self.store, self.metric, self.mutable = "kdtree", "float32", "l2", False
+        self.n, self.k = self.ref.shape
+        self.k_user = self.k
+        self.precision = _resolve_precision(precision, self.k, self.n, "float32")
+        self._tree = tree
+        # load() passes the saved tree and leaves kdt2 to the first query.
+        self._kdt2 = (native.Kdt2Index(self.ref)
+                      if tree is None and self.k <= native.KDT2_MAX_K else None)
+
+    @property
+    def tree(self):
+        """The reference-format implicit-heap KDTree (kdtree strategy),
+        built on first use: save() and the k > 16 queries need it."""
+        if self.strategy != "kdtree":
+            raise AttributeError("tree: kdtree-strategy indexes only")
+        if self._tree is None:
+            from tpu_knn_torch.kdtree.build import build_kdtree
+
+            self._tree = build_kdtree(self.ref)
+        return self._tree
+
+    @property
+    def dev_tree(self):
+        """tpu_knn's device-traversal handle, None while the native tree
+        serves, which in the port is always (it has no NumPy fallback to
+        serve instead); v10 is the device traversal (kdtree/versions.py)."""
+        if self.strategy != "kdtree":
+            raise AttributeError("dev_tree: kdtree-strategy indexes only")
+        return None
+
+    def _serving_tree(self):
+        """The kdt2 serving tree, rebuilt from the points at the first query
+        after a load(); None above its k cap."""
+        from tpu_knn_torch import native
+
+        if self._kdt2 is None and self.k <= native.KDT2_MAX_K:
+            self._kdt2 = native.Kdt2Index(self.ref)
+        return self._kdt2
+
+    def _kdtree_queries(self, search) -> np.ndarray:
+        if isinstance(search, torch.Tensor):
+            search = search.detach().cpu().numpy()
+        search = np.ascontiguousarray(search, np.float32)
+        if search.ndim != 2 or search.shape[1] != self.k:
+            raise ValueError(f"queries must be (m, {self.k}), got {search.shape}")
+        return search
+
+    def _kdtree_answers(self, idx: np.ndarray, d2: np.ndarray):
+        return (torch.from_numpy(idx).to(self.device), torch.from_numpy(d2).to(self.device))
+
+    def _kdtree_query(self, search: np.ndarray):
+        from tpu_knn_torch import native
+
+        kdt2 = self._serving_tree()
+        if kdt2 is not None:
+            return self._kdtree_answers(*kdt2.query(search))
+        return self._kdtree_answers(*native.kdtree_query(search, self.ref, self.tree.p,
+                                                         self.tree.dim))
+
+    def _kdtree_topk(self, search: np.ndarray, neighbors: int):
+        """Host top-K: kdt2 (bounded heap) at K <= KDT2_TOPK_MAX, the
+        reference-format tree above; rows ascending by (d2, index)."""
+        from tpu_knn_torch import native
+
+        if not 1 <= neighbors <= self.n:
+            raise ValueError(f"neighbors must be in [1, {self.n}], got {neighbors}")
+        kdt2 = self._serving_tree() if neighbors <= native.KDT2_TOPK_MAX else None
+        if kdt2 is not None:
+            return self._kdtree_answers(*kdt2.query_topk(search, neighbors))
+        return self._kdtree_answers(*native.kdtree_query_topk(
+            search, self.ref, self.tree.p, self.tree.dim, neighbors))
 
     def _init_auto(self):
         """strategy="auto": the fused index plus, where v11's niche applies
@@ -747,8 +853,6 @@ class NNIndex:
             precision = _resolve_precision(None, k, n, "int8")
         elif precision not in PORTED_PRECISIONS:
             raise ValueError(f"unknown precision={precision!r}")
-        if precision == "bf16x3_presplit":
-            raise _not_ported("precision='bf16x3_presplit' beside a quantized store", "A.6.6")
         if not isinstance(grid, torch.Tensor):
             grid = torch.from_numpy(np.array(grid, np.int8))
             grid = grid.to(check_device(device))
@@ -765,13 +869,22 @@ class NNIndex:
         coordinate, the embed's definition)."""
         return (search - self._i8_zero_dev) * self._i8_inv_s_dev
 
-    def _i8_ops(self):
+    def _i8_soa(self):
         """The per-call bf16 SoA operand of the batch engines: grid values
         are exact in bf16, so the batch route computes the grid-space
         geometry the AoS scan does. Built per call and released after (the
         int8 mode holds the grid only; steady batch serving is what
         store='bf16' is for)."""
         return (prep_soa(self.ref_dev.to(torch.bfloat16), round_up(self.n, self.tile_n)),)
+
+    def _i8_ops(self):
+        """The per-call operands of the 1-NN batch tier (tpu_knn's
+        `_i8_ops` over ``precision``): the bf16 SoA operand, or for
+        "bf16x3_presplit" B12's split of it (hi the grid values, lo 0,
+        ‖g‖² in f32)."""
+        if self.precision == "bf16x3_presplit":
+            return presplit_ops(self.ref_dev, round_up(self.n, self.tile_n))
+        return self._i8_soa()
 
     def _i8_query(self, search: torch.Tensor):
         """Grid-space 1-NN of an (already transformed, bucketed) batch, in
@@ -1031,6 +1144,10 @@ class NNIndex:
         descending)."""
         if self.mutable and self.n_live < 1:
             raise ValueError("index has no live points")
+        if self.strategy == "kdtree":
+            search = self._kdtree_queries(search)
+            return (self._kdtree_query(search) if neighbors is None
+                    else self._kdtree_topk(search, neighbors))
         search = self._user_queries(search)
         if neighbors is not None:
             idx, d2 = self._query_topk(search, neighbors)
@@ -1097,8 +1214,10 @@ class NNIndex:
             if self.proj_index is not None and projection_wins(self.k, m_true, n):
                 self.last_strategy = "projection"
                 run = _build_projection_pipeline(m, n, self.k, auto_window(self.k, n))
+                # The fallback scan reuses a plain operand; a presplit
+                # index's fallback prepares its own.
                 idx, d2, certified = run(search, self.ref_dev, *self.proj_index,
-                                         r_op=self.r_ops[0])
+                                         r_op=self.r_ops[0] if len(self.r_ops) == 1 else None)
                 self._note_projection_batch(certified)
                 return idx, d2
             self.last_strategy = "fused"
@@ -1155,7 +1274,8 @@ class NNIndex:
             return idx, sim, cnt
         # int8: grid space here; _query_topk reports user-unit d2, so the
         # radius compares in the user's units.
-        search = self._user_queries(search)
+        search = (self._kdtree_queries(search) if self.strategy == "kdtree"
+                  else self._user_queries(search))
         return _radius_query(lambda eff: self._query_topk(search, eff),
                              self.n_live, radius, max_results)
 
@@ -1166,6 +1286,8 @@ class NNIndex:
             MAX_NEIGHBORS, _build_aos_topk, _build_topk,
         )
 
+        if self.strategy == "kdtree":
+            return self._kdtree_topk(search, neighbors)
         if self.store == "int8":
             return self._i8_query_topk(search, neighbors)
         if self.strategy not in ("fused", "auto") or len(self.r_ops) != 1:
@@ -1218,16 +1340,93 @@ class NNIndex:
         if mb == 1 and neighbors <= MAX_NEIGHBORS:
             idx, d2 = _build_aos_topk(mb, self.n, self.k, neighbors)(search, self.ref_dev)
         else:
-            ops = self._i8_ops()
+            # The top-K engines take the plain operand whatever the 1-NN
+            # tier (tpu_knn handed them B12's three and failed at m >= 2).
+            ops = self._i8_soa()
             run = _build_topk(mb, self.n, self.k, neighbors, ops[0].shape[1])
             idx, d2 = run(search, ops, self.ref_dev)
         return idx[:m], d2[:m] * self._i8_s2
 
-    # ---- serving surface not ported yet ----------------------------
+    # ---- checkpoint / resume ------------------------------------------
+    #
+    # tpu_knn's .npz files, key for key (index.py:1134-1284): always
+    # strategy, precision, mutable, store and metric (ip_m2 for "ip");
+    # ref, the stored points (a bf16 store's as their uint16 bits, a metric
+    # index's transformed, a mutable index's first _n_slots slots with
+    # live); the int8 grid with i8_zero and i8_inv_s; the kdtree with p,
+    # dim and split_val. load() rebuilds the operands from the points, so a
+    # file crosses between the two packages either way.
 
-    def save(self, path):
-        raise _not_ported("save", "A.6.5")
+    def save(self, path) -> None:
+        """Write the index to ``path`` (NumPy adds .npz). A filtered view
+        raises: it is ephemeral."""
+        if getattr(self, "_view_live", None) is not None:
+            raise ValueError("filtered views are ephemeral; save the "
+                             "parent index and the mask")
+        meta = dict(strategy=self.strategy, precision=self.precision, mutable=self.mutable,
+                    store=self.store, metric=self.metric)
+        if self.metric == "ip":
+            meta["ip_m2"] = self._ip_m2
+        if self.strategy == "kdtree":
+            np.savez_compressed(path, ref=self.ref, p=self.tree.p, dim=self.tree.dim,
+                                split_val=self.tree.split_val, **meta)
+            return
+        if self.store == "int8":
+            np.savez_compressed(path, ref=_host(self.ref_dev[: self.n]), i8_zero=self._i8_zero,
+                                i8_inv_s=self._i8_inv_s, **meta)
+            return
+        if self.mutable:
+            np.savez_compressed(path, ref=_host(self.ref_dev[: self._n_slots]),
+                                live=self._live[: self._n_slots], **meta)
+            return
+        np.savez_compressed(path, ref=_host(self.ref_dev[: self.n]), **meta)
 
     @classmethod
-    def load(cls, path, *args, **kwargs):
-        raise _not_ported("load", "A.6.5")
+    def load(cls, path, mesh=None, device="cuda") -> "NNIndex":
+        """Restore a saved index (the port's or tpu_knn's file) on
+        ``device``: the operands are rebuilt from the saved points (a
+        projection index re-sorted, "auto" probed again), a metric index's
+        points taken as transformed, a mutable index's ids and removed
+        slots kept, a kdtree's saved arrays taken without a rebuild (kdt2
+        is rebuilt at the first query). A bf16 or int8 index whose tier is
+        "qsplit2" loads (tpu_knn's load raises on it). A sharded file or
+        ``mesh=`` raises NotImplementedError (A.9)."""
+        if mesh is not None:
+            raise _not_ported("load(mesh=) / strategy='sharded'", "A.9")
+        with np.load(path) as z:
+            strategy, precision = str(z["strategy"]), str(z["precision"])
+            mutable = bool(z["mutable"])
+            store = str(z["store"]) if "store" in z else "float32"
+            metric = str(z["metric"]) if "metric" in z else "l2"
+            if strategy == "sharded":
+                raise _not_ported("load(mesh=) / strategy='sharded'", "A.9")
+            ref = z["ref"]
+            if store == "int8":
+                return cls._from_int8_grid(ref, np.asarray(z["i8_zero"], np.float32),
+                                           np.float32(z["i8_inv_s"]), precision,
+                                           device=device)
+            if strategy == "kdtree":
+                from tpu_knn_torch.kdtree.build import KDTree
+
+                ix = cls.__new__(cls)
+                ref = np.ascontiguousarray(ref, np.float32)
+                ix._init_kdtree(ref, precision, device, tree=KDTree(
+                    ref=ref, p=z["p"], dim=z["dim"], split_val=z["split_val"]))
+                return ix
+            if store == "bf16":
+                ref = _bf16_tensor(np.ascontiguousarray(ref).view(np.int16), device)
+            live = np.asarray(z["live"], bool) if mutable else None
+            ip_m2 = float(z["ip_m2"]) if metric == "ip" else None
+        n, k = ref.shape
+        if store == "bf16" and precision == _resolve_precision(None, k, n, store):
+            # tpu_knn's own tier for the store ("qsplit2" above k = 32),
+            # which the constructor refuses as an explicit precision.
+            precision = None
+        ix = cls(ref, strategy=strategy, precision=precision, mutable=mutable, store=store,
+                 metric=metric, device=device, _pretransformed=metric != "l2")
+        if mutable:
+            # The saved slots hold PAD_VALUE where removed; their ids stay.
+            ix.remove(np.flatnonzero(~live))
+        if metric == "ip":
+            ix._ip_m2 = ip_m2
+        return ix
