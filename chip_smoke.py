@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    and the ptxas report are printed; any spill in an instance of B3's or
    B7's tiled kernel, of B1's tiled kernel as v3, v6 or B10 (its TMA
    instance), of B5 or B6, of the B8/B9 compactor or of the tensor-core
-   kernel (B1's tiers, B12) fails, and so does a v3, v6, B10, B5 or B6
+   mainloop's instances (B1's tiers and B12, and B4, B3, B5 and B7's tier
+   instances) fails, and so does a v3, v6, B10, B5 or B6
    instance whose static shared memory is not tuning's mirror of it);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
@@ -66,14 +67,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    merged 128 lanes, the planted tie, the score error against f64
    (relative to the largest |score|) within the tier's gate, and the
    certified fast path's top-T selection exact at the measured error; B1
-   "highest" beside each; and B2-bf16, bit-equal to B2 on the upcast
-   operand; then the bf16 instances (B1, B4, B3, B5 and B7 under the tiled
+   "highest" beside each; B4, B5, B3 and B7's tier instances against their
+   plain versions at the engines' K = 8 launches at ds11 (packed), (128,
+   1024, 2^20) and (768, 1024, 2^18) (bf16x3; qsplit2 over a bf16
+   operand), B4's K passes bit-equal to B5's lists and B7's remainder
+   minima bit-equal to B3 banded at the same bound; and B2-bf16, bit-equal
+   to B2 on the upcast operand; then the bf16 instances (B1, B4, B3, B5 and B7 under the tiled
    template's BF16 policy, and B6-bf16), each bit-equal to its f32
    instance over the upcast operand on a grid (k = 1..128, m past a
    block's rows, n ragged, ld != n, ld % 8 != 0 and a misaligned base; B6-bf16
    at each load width) and at the main path's launches; then PAD columns
    (1e30, and bf16(1e30)) in every row of the operand through B1 "highest"
-   and each tier, B2, B2-bf16, B3-B7 and the bf16 instances: none
+   and each tier, B2, B2-bf16, B3-B7, their tier instances and the bf16
+   instances: none
    reported, no NaN, a PAD-only cell never qualifying; then v10's KD-tree
    traversal (csrc/kdtree_kernels.cu) at (3, 1024, 2^16), over uniform and
    lattice points, and (16, 256, 2^12), with exact duplicates, a query on
@@ -122,6 +128,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      "highest" 1-NN) and at (16, 4, 2^24) K = 16, the int8 store at m = 1
      K = 16 over (16, 2^24) and m = 1024 K = 8 over (16, 2^20) and a
      radius escalation at m = 8; each bf16 instance must launch;
+   - the top-K engines at "highest" (f32 and bf16 indexes with
+     precision="highest", beside the f32 index at its packed tier) and at
+     embedding width (topk_knn at (128, 1024, 2^20), bf16x3; a bf16 store
+     there, qsplit2): seeded, sweep and passes calls, gated; every other
+     top-K path runs at its resolved tier (packed at k = 16);
    - metric="cosine" and "ip" at (128, 1024, 2^20): 1-NN, K = 10, a
      cosine radius escalation, gated in the transformed space;
    - mutable f32 and bf16 indexes at (16, 2^20): add 2^16, remove 2^16,
@@ -160,6 +171,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
    the store and embed calls), each printed beside the card's name and
    power limit, and the bounds (tensor-core tiers at 989 TFLOP/s bf16);
+   each top-K tier instance beside the same launch at "highest" and
+   cuBLAS's bf16 product, with its device time, at ds11 and (768, 1024,
+   2^18);
    each bf16 instance beside its f32 instance at the main path's launch
    (events and device time, bound at k·n·2 operand bytes), and the device
    and host time of the store top-K, metric, mutable and view calls; v10's
@@ -507,29 +521,33 @@ def phase1_passes_launches(device, gen, shapes):
     """B4 at every launch of the passes engine at each (k, m, n, K) of
     `shapes`, on data of its own: topk.banded_candidates is wrapped for the
     call, and each launch's candidates are held against the plain version's
-    same pass, seeded as the kernel's is with its own previous pass (the
-    two score the bound's own element in different last bits, so the plain
-    version on the kernel's bound could readmit it). Returns the largest
-    |score difference| on agreeing slots."""
+    same pass at the engine's tier (auto_precision: the tier instance of
+    B4), seeded as the kernel's is with its own previous pass (the two
+    score the bound's own element in different last bits, so the plain
+    version on the kernel's bound could readmit it). Returns {kernel row:
+    the largest |score difference| on agreeing slots}."""
     import torch
 
-    from tpu_knn_torch.kernels import fused, topk
+    from tpu_knn_torch.kernels import fused, tiers, topk
 
     real = topk.banded_candidates
 
-    def checked(q, r_op, n, parts, b_s, b_i, q_t=None):
-        ki, ks = real(q, r_op, n, parts, b_s, b_i, q_t)
+    def checked(q, r_op, n, parts, b_s, b_i, q_t=None, precision="highest"):
+        ki, ks = real(q, r_op, n, parts, b_s, b_i, q_t, precision)
         if checked.bound is None:
             checked.bound = (torch.full_like(b_s, -torch.inf), torch.full_like(b_i, -1))
-        pi, ps = fused.banded_candidates_plain(q, r_op, n, parts, *checked.bound)
+        pi, ps = fused.banded_candidates_plain(q, r_op, n, parts, *checked.bound, precision)
         checked.bound = topk._lex_min(pi, ps)[::-1]
-        share, e, _ = slot_agreement("B4 (passes launch)", ki, ks, pi, ps)
+        rtol = SeededLaunchCheck.rtol(q, precision)
+        share, e, _ = slot_agreement("B4 (passes launch)", ki, ks, pi, ps, rtol)
         checked.worst = min(checked.worst, share)
         checked.err = max(checked.err, e)
         checked.calls += 1
+        checked.row = ("B4" if precision == "highest"
+                       else tiers.topk_tier_row("B4", r_op, precision, q.shape[1]))
         return ki, ks
 
-    err = 0.0
+    errs = {}
     for k, m, n, kk in shapes:
         q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
         checked.worst, checked.err, checked.calls, checked.bound = 1.0, 0.0, 0, None
@@ -544,12 +562,12 @@ def phase1_passes_launches(device, gen, shapes):
         errors = topk_gate_errors(q, r, got[0], kk)
         if errors:
             fail(f"B4: the passes engine at (k={k}, m={m}, n={n}) K={kk}: {errors} errors")
-        err = max(err, checked.err)
-        log(f"  B4 at the passes engine's {kk} launches (k={k}, m={m}, n={n}): least slot "
-            f"agreement with the plain passes {checked.worst:.6f}, max |score diff| "
-            f"{checked.err:.3g}; the answer has 0 errors")
+        errs[checked.row] = max(errs.get(checked.row, 0.0), checked.err)
+        log(f"  {checked.row} at the passes engine's {kk} launches (k={k}, m={m}, n={n}): "
+            f"least slot agreement with the plain passes {checked.worst:.6f}, max |score "
+            f"diff| {checked.err:.3g}; the answer has 0 errors")
         del q, r
-    return err
+    return errs
 
 
 def phase1(device, gen, b1_cases, b2_cases):
@@ -1051,39 +1069,53 @@ class SeededLaunchCheck:
             setattr(self.mod, name, fn)
         return False
 
-    def b3(self, q, r_op, n, depth=1, lo=None, n_limit=None, q_t=None):
+    @staticmethod
+    def rtol(q, precision):
+        """The relative score difference a kernel may show against its
+        plain version: SCORE_RTOL on the CUDA cores ("highest"), twice the
+        tier's bound at a term-list tier (both sides within it of f64)."""
+        from tpu_knn_torch.kernels import tiers
+
+        if precision == "highest":
+            return SCORE_RTOL
+        return max(SCORE_RTOL, 2.0 * tiers.tier_error_bound(precision, q.shape[1]))
+
+    def b3(self, q, r_op, n, depth=1, lo=None, n_limit=None, q_t=None, precision="highest"):
         import torch
 
         from tpu_knn_torch.kernels.fused import minima_candidates_plain
 
         got = self.orig["minima_candidates"](q, r_op, n, depth=depth, lo=lo, n_limit=n_limit,
-                                             q_t=q_t)
-        want = minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
+                                             q_t=q_t, precision=precision)
+        want = minima_candidates_plain(q, r_op, n, depth, lo, n_limit, precision)
         fin = torch.isfinite(want)
-        what = f"B3 (m={q.shape[0]}, n={n}, depth {depth}, prefix {n_limit})"
+        what = f"B3 (m={q.shape[0]}, n={n}, depth {depth}, prefix {n_limit}, {precision})"
         if not torch.equal(fin, torch.isfinite(got)):
             fail(f"{what}: finite lanes differ from plain")
         scale = want[fin].abs().max().item()
         err = (got - want)[fin].abs().max().item()
-        if err > SCORE_RTOL * scale:
-            fail(f"{what}: |diff| {err} > {SCORE_RTOL} x {scale}")
+        rtol = self.rtol(q, precision)
+        if err > rtol * scale:
+            fail(f"{what}: |diff| {err} > {rtol} x {scale}")
         self.err["B3"] = max(self.err["B3"], err)
         self.shapes["B3"][f"depth {depth} prefix {n_limit}" + (" band" if lo is not None
                                                                else "")] += 1
         return got
 
-    def b7(self, q, r_op, n, bound, cell, n_fields, lo=None, emit_rem=False, q_t=None):
+    def b7(self, q, r_op, n, bound, cell, n_fields, lo=None, emit_rem=False, q_t=None,
+           precision="highest"):
         import torch
 
         got = self.orig["extract_moments"](q, r_op, n, bound, cell, n_fields, lo=lo,
-                                           emit_rem=emit_rem, q_t=q_t)
+                                           emit_rem=emit_rem, q_t=q_t, precision=precision)
         want = self.mod.extract_moments_plain(q, r_op, n, bound, cell, n_fields, lo,
-                                              emit_rem)
+                                              emit_rem, precision)
         what = (f"B7 (m={q.shape[0]}, n={n}, n_ops={r_op.shape[1]}, cell {cell}, "
-                f"{n_fields} fields, band {lo is not None}, remainder {emit_rem})")
+                f"{n_fields} fields, band {lo is not None}, remainder {emit_rem}, {precision})")
         edges = [bound] + ([lo] if lo is not None else [])
         finite = torch.cat([e[torch.isfinite(e)].abs() for e in edges])
-        tol = SCORE_RTOL * max(finite.max().item() if finite.numel() else 0.0, 1e-30)
+        tol = self.rtol(q, precision) * max(finite.max().item() if finite.numel() else 0.0,
+                                            1e-30)
         bad = torch.zeros_like(got[0], dtype=torch.bool)
         for g, w in zip(got[:1 + (n_fields == 8)], want):
             bad |= g != w
@@ -1701,6 +1733,345 @@ def phase1_tiers(device, gen, cases):
     return diffs, rel, share_of_gate
 
 
+# ---- the top-K kernels at a tier: B4, B5, B3 and B7's tensor-core instances --
+
+#: Where phase 1 holds each top-K tier instance to its plain version:
+#: (precision, operand kind, k, m, n): ds11 at "packed" (packed3), (128,
+#: 1024, 2^20) and (768, 1024, 2^18) at bf16x3 over the f32 operand and at
+#: qsplit2 (the bf16 store's tier) over a bf16 store's operand.
+EMBED_TOPK = (768, 1024, 1 << 18)
+TOPK_TIER_CASES = [("packed", "f32", *DS11), ("packed", "bf16", *DS11),
+                   ("bf16x3", "f32", 128, 1024, 1 << 20),
+                   ("qsplit2", "bf16", 128, 1024, 1 << 20),
+                   ("bf16x3", "f32", *EMBED_TOPK), ("qsplit2", "bf16", *EMBED_TOPK)]
+#: The cases phase 3 times, each a row of the kernels line per kernel.
+TOPK_TIER_TIMED = [case for case in TOPK_TIER_CASES if case[2] != 128]
+#: The K the engines' launches are made at (B5's lists, B4's passes, B3's
+#: prefix and B7's cells), as the passes and seeded engines make them at ds11
+#: K = 8.
+TOPK_TIER_K = 8
+#: The kernels each instance's device time holds (torch.profiler names):
+#: the tensor-core kernel of the epilogue and the norm pass before it; B3
+#: also its partition merge.
+TOPK_TIER_DEVICE = {"B4": (("BandedEpi", "tensor_candidates_norms"), 2),
+                    "B5": (("SweepEpi", "tensor_candidates_norms"), 2),
+                    "B3": (("MinimaEpi", "tensor_candidates_norms", "minima_merge"), 3),
+                    "B7": (("MomentsEpi", "tensor_candidates_norms"), 2)}
+#: Each top-K kernel's wrapper, TPU kernel and source file of its tier
+#: instance (tpu_knn_torch/csrc/).
+TOPK_TIER_KERNELS = {
+    "B4": ("banded_candidates", "tpu_knn/kernels/fused.py:506", "tensor_banded_kernels.cu"),
+    "B5": ("sweep_candidates", "tpu_knn/kernels/topk.py:188", "tensor_sweep_kernels.cu"),
+    "B3": ("minima_candidates", "tpu_knn/kernels/fused.py:613", "tensor_minima_kernels.cu"),
+    "B7": ("extract_moments", "tpu_knn/kernels/topk.py:509", "tensor_moments_kernels.cu"),
+}
+
+
+def topk_tier_calls(q, r_op, n, precision, kk=TOPK_TIER_K):
+    """kernel id -> (kernel call, plain call) of B4, B5, B3 and B7 at the
+    launches the engines make over (q, r_op) at K = kk and `precision`:
+    B4's second pass of the passes engine (the band at the first pass's
+    lexicographic minimum, the plain version's own), B5's lists at the
+    tier's P, and B3 and B7 as the
+    seeded engine launches them (seeded_geometry: B3's prefix and depth,
+    B7's cell and fields at the bound from B3's inflated K-th minimum).
+    Also returns the launches' geometry."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, topk
+
+    m, k = q.shape
+    p4 = fused.banded_parts(precision, m, k, n)
+    q_t = fused.transposed_queries(q) if precision == "highest" else None
+    b_s = torch.full((m,), -torch.inf, device=q.device)
+    b_i = torch.full((m,), -1, dtype=torch.int32, device=q.device)
+    i1, s1 = topk._lex_min(*fused.banded_candidates(q, r_op, n, p4, b_s, b_i, q_t, precision))
+    # The plain version's second pass at its own first pass's minimum (the
+    # two score the bound's element in different last bits, so on the
+    # kernel's bound the plain version could readmit it).
+    pi1, ps1 = topk._lex_min(*fused.banded_candidates_plain(q, r_op, n, p4, b_s, b_i, precision))
+    p5 = topk.sweep_parts(m, k, n, precision)
+    g = seeded.seeded_geometry(m, n, k, kk, r_op.shape[1], precision)
+    cs1 = fused.minima_candidates(q, r_op, n, depth=g["depth"], n_limit=g["p1_limit"], q_t=q_t,
+                                  precision=precision)
+    bound = seeded._inflate_bound(seeded._kth_smallest(cs1, kk))
+    calls = {
+        "B4": (lambda: fused.banded_candidates(q, r_op, n, p4, s1, i1, q_t, precision),
+               lambda: fused.banded_candidates_plain(q, r_op, n, p4, ps1, pi1, precision)),
+        "B5": (lambda: topk.sweep_candidates(q, r_op, n, p5, kk, precision),
+               lambda: topk.sweep_candidates_plain(q, r_op, n, p5, kk, precision)),
+        "B3": (lambda: fused.minima_candidates(q, r_op, n, depth=g["depth"],
+                                               n_limit=g["p1_limit"], q_t=q_t,
+                                               precision=precision),
+               lambda: fused.minima_candidates_plain(q, r_op, n, g["depth"], None,
+                                                     g["p1_limit"], precision)),
+        "B7": (lambda: seeded.extract_moments(q, r_op, n, bound, g["cell"], g["n_fields"],
+                                              q_t=q_t, precision=precision),
+               lambda: seeded.extract_moments_plain(q, r_op, n, bound, g["cell"],
+                                                    g["n_fields"], precision=precision)),
+    }
+    return calls, {"p4": p4, "p5": p5, **g}
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events): one call, the one a check makes."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase1_topk_tiers(device, gen, cases, kk=TOPK_TIER_K):
+    """B4, B5, B3 and B7's tier instances against their plain versions at
+    the engines' launches (topk_tier_calls) of each case, and against each
+    other:
+    - B4: candidate indices agree on at least MIN_INDEX_AGREEMENT of the
+      slots, the score error against f64 (tiers.score_errors) within the
+      tier's gate (tiers.tier_error_gate); the scores of agreeing slots
+      within twice the gate of the plain version's (`tol` below);
+    - B5: the list contract (check_lists); a slot whose column differs
+      from the plain list's holds a near-tie of the plain scores
+      (list_agreement, within tol), the scores within tol;
+    - B4 and B5 bit for bit: kk passes of B4 from (-inf, -1), each at the
+      last one's lexicographic minimum, pick exactly the (column, score)
+      pairs of B5's lexicographic kk smallest;
+    - B3 at the seeded launch and at depth 2 over all columns: the same
+      finite lanes, values within tol;
+    - B7: with the bound at the widest gap of the scores of ranks 20..400
+      (bound_between; the gap is required wider than twice tol, so no score
+      lies within the tiers' difference of it), the packed words identical
+      to the plain version's at the seeded engine's cells for K = kk and 64;
+    - B3 and B7 bit for bit: B7's remainder minima above that bound equal B3
+      banded at it.
+    Returns ({row: max |kernel - plain| of the row's kernel}, {row: the
+    plain version's ms at the launch phase 3 times})."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, tiers, topk
+
+    errs, plain_ms = {}, {}
+    for precision, kind, k, m, n in cases:
+        q, pts, ops = tier_operands(gen, device, kind, k, m, n)
+        r_op = ops[0]
+        tag = f"{precision} over the {kind} operand at (k={k}, m={m}, n={n})"
+        row = {kid: tiers.topk_tier_row(kid, r_op, precision, k) for kid in TOPK_TIER_KERNELS}
+        calls, geo = topk_tier_calls(q, r_op, n, precision, kk)
+        # B4
+        ki, ks = calls["B4"][0]()
+        (pi, ps), plain_ms[row["B4"]] = timed_once(calls["B4"][1])
+        share = (ki == pi).float().mean().item()
+        err = tiers.score_errors(q, pts, ki, ks)[0]
+        gate = tiers.tier_error_gate(precision, k, tiers.score_errors(q, pts, pi, ps)[0])
+        agree = (ki == pi) & torch.isfinite(ps)
+        diff4 = (ks - ps)[agree].abs().max().item()
+        tol = 2.0 * gate * ps[torch.isfinite(ps)].abs().max().item()
+        if share < MIN_INDEX_AGREEMENT or err > gate or diff4 > tol:
+            fail(f"{row['B4']} {tag}: agreement {share}, score error {err} (gate {gate}), "
+                 f"|diff| {diff4} > {tol}")
+        # B5: where a slot's column differs from the plain list's, the two
+        # are a near-tie of the plain scores (list_agreement)
+        ci, cs = calls["B5"][0]()
+        check_lists(f"{row['B5']} {tag}", ci, cs, n, geo["p5"], kk)
+        (li, ls), plain_ms[row["B5"]] = timed_once(calls["B5"][1])
+        s = fused.scores(q, r_op, n, precision)
+        share5, diff5, swaps5 = list_agreement(f"{row['B5']} {tag}", ci, cs, li, s, 2.0 * gate)
+        # B4 and B5 bit for bit
+        b_s = torch.full((m,), -torch.inf, device=device)
+        b_i = torch.full((m,), -1, dtype=torch.int32, device=device)
+        picks_i, picks_s = [], []
+        for _ in range(kk):
+            b_i, b_s = topk._lex_min(*fused.banded_candidates(q, r_op, n, geo["p4"], b_s, b_i,
+                                                              precision=precision))
+            picks_i.append(b_i)
+            picks_s.append(b_s)
+        l_s, l_i = topk._lex_smallest(cs, ci, kk)
+        same45 = (torch.equal(torch.stack(picks_i, 1), l_i)
+                  and torch.equal(torch.stack(picks_s, 1), l_s))
+        if not same45:
+            fail(f"{tag}: B4's {kk} passes and B5's lists differ")
+        # B3
+        km = calls["B3"][0]()
+        pm, plain_ms[row["B3"]] = timed_once(calls["B3"][1])
+        km2 = fused.minima_candidates(q, r_op, n, depth=2, precision=precision)
+        pm2 = fused.minima_candidates_plain(q, r_op, n, 2, precision=precision)
+        diff3 = 0.0
+        for got, want in ((km, pm), (km2, pm2)):
+            fin = torch.isfinite(want)
+            if not torch.equal(fin, torch.isfinite(got)):
+                fail(f"{row['B3']} {tag}: finite lanes differ from plain")
+            diff3 = max(diff3, (got - want)[fin].abs().max().item())
+        if diff3 > tol:
+            fail(f"{row['B3']} {tag}: |diff| {diff3} > {tol}")
+        del km2, pm2
+        # B7 at a bound in a gap, then B3 against B7 bit for bit
+        low = torch.topk(s, 401, dim=1, largest=False).values
+        del s
+        half_gap = (low[:, 21:] - low[:, 20:-1]).max(dim=1).values / 2
+        bound = bound_between(low, 20, 400)
+        if not bool((half_gap > tol).all()):
+            fail(f"{tag}: no gap of the scores wider than {2 * tol:.3g} in a row's ranks "
+                 "20..400")
+        words = []
+        for kk7 in (kk, 64):
+            g7 = seeded.seeded_geometry(m, n, k, kk7, r_op.shape[1], precision)
+            got = seeded.extract_moments(q, r_op, n, bound, g7["cell"], g7["n_fields"],
+                                         precision=precision)
+            want = seeded.extract_moments_plain(q, r_op, n, bound, g7["cell"], g7["n_fields"],
+                                                precision=precision)
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    fail(f"{row['B7']} {tag} (cell {g7['cell']}): packed words differ at "
+                         f"{int((g != w).sum())} cells")
+            words.append(f"cell {g7['cell']} x {g7['n_fields']} fields: "
+                         f"{int((got[0] != 0).sum())} qualifying cells")
+        _, plain_ms[row["B7"]] = timed_once(calls["B7"][1])
+        lo = torch.full((m,), -torch.inf, device=device)
+        rem = seeded.extract_moments(q, r_op, n, bound, 128, 8, lo=lo, emit_rem=True,
+                                     precision=precision)[-1]
+        same37 = torch.equal(rem, fused.minima_candidates(q, r_op, n, lo=bound,
+                                                          precision=precision))
+        if not same37:
+            fail(f"{tag}: B7's remainder minima differ from B3 banded at the same bound")
+        errs.update({row["B4"]: diff4, row["B5"]: diff5, row["B3"]: diff3, row["B7"]: 0.0})
+        log(f"  top-K tier instances, {tag} (B4 P={geo['p4']}, B5 P={geo['p5']}): B4 "
+            f"agreement {share:.6f}, score error {err:.3g} (gate {gate:.3g}), |diff| "
+            f"{diff4:.3g}; B5 agreement {share5:.6f} ({swaps5} slots a near-tie apart), |diff| "
+            f"{diff5:.3g}; B4's {kk} passes "
+            f"== B5's lists bit for bit: {same45}; B3 |diff| {diff3:.3g} (tol {tol:.3g}); B7 "
+            f"words identical ({'; '.join(words)}); B7's remainder == B3 banded bit for bit: "
+            f"{same37}; plain ms {[round(plain_ms[row[kid]], 3) for kid in row]}")
+        del q, pts, ops, r_op, calls, ki, ks, pi, ps, ci, cs, li, ls, km, pm, low, rem
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    return errs, plain_ms
+
+
+def phase2_topk_tiers(device, gen, n=1 << 20):
+    """The top-K engines at the tiers that phase 2's other paths do not
+    reach, each call gated against the exact scan over the stored points:
+    - "highest" (NNIndex(precision="highest")) over the f32 operand and a
+      bf16 store's at (16, 1024, 2^20): seeded K = 8 (B3, B7 and their bf16
+      instances), m = 8 K = 32 (B5, B5-bf16), a passes call (B4); and the
+      f32 index at its own tier ("packed") beside them, seeded K = 8;
+    - topk_knn at (128, 1024, 2^20) (bf16x3): seeded K = 8, passes m = 64
+      K = 8, sweep m = 8 K = 32;
+    - a bf16 store at (128, 1024, 2^20) (qsplit2): seeded K = 8, m = 8 K =
+      32, a passes call at the index's tier.
+    Returns the calls, for phase 3."""
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.topk import _build_topk, topk_knn
+
+    calls = {}
+    q16, r16 = uniform(gen, (DS11[1], 16), device), uniform(gen, (n, 16), device)
+    q16_64 = q16[:64].contiguous()
+    packed = tpu_knn_torch.NNIndex(r16)
+    gate_topk("float32 index (packed) ds11 K=8 [seeded, beside 'highest']", q16, r16,
+              packed.query(q16, neighbors=8)[0], 8)
+    calls["float32 index (packed) ds11 K=8 [seeded, beside 'highest']"] = \
+        lambda: packed.query(q16, neighbors=8)
+    for store in ("float32", "bf16"):
+        ix = tpu_knn_torch.NNIndex(r16, store=store, precision="highest")
+        pts = ix.ref_dev.float()
+        passes = _build_topk(64, n, 16, 8, ix.r_ops[0].shape[1], "passes")
+        runs = {
+            f"{store} index precision='highest' ds11 K=8 [seeded]":
+                (q16, 8, lambda ix=ix: ix.query(q16, neighbors=8)),
+            f"{store} index precision='highest' (16, 8, 2^20) K=32 [sweep]":
+                (q16[:8], 32, lambda ix=ix: ix.query(q16[:8], neighbors=32)),
+            f"{store} index precision='highest' (16, 64, 2^20) K=8 [passes]":
+                (q16_64, 8, lambda ix=ix, passes=passes: passes(q16_64, ix.r_ops, ix.ref_dev)),
+        }
+        for name, (qq, kk, fn) in runs.items():
+            gate_topk(name, qq, pts, fn()[0], kk)
+            calls[name] = fn
+        del pts
+    q, r = uniform(gen, (DS11[1], 128), device), uniform(gen, (n, 128), device)
+    q_64 = q[:64].contiguous()
+    runs = {
+        "topk_knn (128, 1024, 2^20) K=8 [seeded, bf16x3]": (q, 8, lambda: topk_knn(q, r, 8)),
+        "topk_knn (128, 64, 2^20) K=8 [passes, bf16x3]":
+            (q[:64], 8, lambda: topk_knn(q[:64], r, 8, method="passes")),
+        "topk_knn (128, 8, 2^20) K=32 [sweep, bf16x3]": (q[:8], 32, lambda: topk_knn(q[:8], r, 32)),
+    }
+    for name, (qq, kk, fn) in runs.items():
+        gate_topk(name, qq, r, fn()[0], kk)
+        calls[name] = fn
+    ix = tpu_knn_torch.NNIndex(r, store="bf16")
+    pts = ix.ref_dev.float()
+    passes = _build_topk(64, n, 128, 8, ix.r_ops[0].shape[1], "passes", ix.precision)
+    runs = {
+        f"bf16 store (128, 1024, 2^20) K=8 [seeded, {ix.precision}]":
+            (q, 8, lambda: ix.query(q, neighbors=8)),
+        f"bf16 store (128, 8, 2^20) K=32 [sweep, {ix.precision}]":
+            (q[:8], 32, lambda: ix.query(q[:8], neighbors=32)),
+        f"bf16 store (128, 64, 2^20) K=8 [passes, {ix.precision}]":
+            (q_64, 8, lambda: passes(q_64, ix.r_ops, ix.ref_dev)),
+    }
+    for name, (qq, kk, fn) in runs.items():
+        gate_topk(name, qq, pts, fn()[0], kk)
+        calls[name] = fn
+    return calls
+
+
+def phase3_topk_tiers(card, device, gen, reps, cases=TOPK_TIER_TIMED, kk=TOPK_TIER_K):
+    """Times of B4, B5, B3 and B7's tier instances at the engines' launches
+    (topk_tier_calls) of each case beside the same launch at "highest"
+    (the tiled f32 kernels, their bf16 instances over a bf16 operand) and
+    the "matmul part" (cuBLAS's bf16 torch.matmul of the (m, k) x (k, n)
+    product: a part of the work, not the same function); each instance's
+    device time (the kernel, its norm pass and B3's merge). Bounds: the
+    inputs read once and the outputs written once over the memory rate, or
+    the tier's T·2·m·n·k16 (n: B3's prefix) over the bf16 peak. Returns
+    (times, bounds)."""
+    import torch
+
+    from tpu_knn_torch.kernels import tiers
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times, bounds = {}, {}
+    for precision, kind, k, m, n in cases:
+        q, pts, ops = tier_operands(gen, device, kind, k, m, n)
+        r_op = ops[0]
+        calls, geo = topk_tier_calls(q, r_op, n, precision, kk)
+        high, _ = topk_tier_calls(q, r_op, n, "highest", kk)
+        q_bf, r_bf = q.to(torch.bfloat16), pts.T.contiguous().to(torch.bfloat16)
+        runs = reps if k < 128 else 3
+        row = {kid: tiers.topk_tier_row(kid, r_op, precision, k) for kid in TOPK_TIER_KERNELS}
+        fns = {f"{row[kid]} {what}": fn for kid in TOPK_TIER_KERNELS
+               for what, fn in (("kernel", calls[kid][0]), ("highest", high[kid][0]))}
+        fns[f"{row['B4']} matmul part"] = lambda: torch.matmul(q_bf, r_bf)
+        times.update(time_ms(fns, runs))
+        for kid in TOPK_TIER_KERNELS:
+            times[f"{row[kid]} matmul part"] = times[f"{row['B4']} matmul part"]
+            names, count = TOPK_TIER_DEVICE[kid]
+            times[f"{row[kid]} kernel device"] = kernel_device_ms(calls[kid][0], runs, card,
+                                                                 names, count)
+        k16 = -(-k // 16) * 16
+        terms = len(tiers._operand_instance(r_op, precision, k)[1])
+        op_bytes = (2 if kind == "bf16" else 4) * k * n
+        nc = r_op.shape[1] // geo["cell"]
+        outs = {"B4": 8 * m * 128, "B5": 8 * m * kk, "B3": 4 * m * 128 * geo["depth"],
+                "B7": 4 * m * nc * (2 if geo["n_fields"] == 8 else 1)}
+        for kid in TOPK_TIER_KERNELS:
+            cols = (geo["p1_limit"] or n) if kid == "B3" else n
+            bounds[row[kid]] = roofline(4 * m * k + op_bytes * cols // n + outs[kid],
+                                        terms * 2 * m * cols * k16, peak=BF16_PEAK_FLOPS)
+        log(f"  top-K tier instances {precision} over the {kind} operand (k={k}, m={m}, "
+            f"n={n}), {terms} terms, K={kk}: B4 P={geo['p4']}, B5 P={geo['p5']}, B3 prefix "
+            f"{geo['p1_limit']}, B7 cell {geo['cell']} x {geo['n_fields']} fields")
+        del q, pts, ops, r_op, calls, high, q_bf, r_bf
+        torch.cuda.empty_cache()
+    for name, ms in times.items():
+        log(f"  time {name}: {ms:.4f} ms [{card}]")
+    for name, (ms, by) in bounds.items():
+        log(f"  bound {name}: {ms:.4f} ms ({by})")
+    return times, bounds
+
+
 def bf16_operands(r_op, n: int):
     """r_op (a bf16 SoA operand, ld a multiple of 128) and copies of it at
     every load width of B2-bf16 below 16 bytes: ld = n + 1, n + 3 and n
@@ -1937,7 +2308,7 @@ def phase3_tiers(card, device, gen, reps, ds11=DS11, n_embed=1 << 20):
         # The tensor-core kernel and, but for B12, the norm pass before it.
         times[f"{row} kernel device"] = kernel_device_ms(
             lambda: tiers.tier_candidates(q, ops, n, parts, precision), plain_reps, card,
-            "tensor_candidates", 1 if kind == "presplit" else 2)
+            ("CandidatesEpi", "tensor_candidates_norms"), 1 if kind == "presplit" else 2)
         k16 = -(-k // 16) * 16
         terms = len(tiers.term_list(precision, k))
         if kind in ("bf16", "int8"):
@@ -2057,12 +2428,13 @@ def phase3(card: str, big11, big9, reps: int):
     return times
 
 
-def kernel_device_ms(fn, reps: int, card: str, kernel: str = "tiled_candidates",
+def kernel_device_ms(fn, reps: int, card: str, kernel="tiled_candidates",
                      count: int = 1) -> float:
     """The own device time per call of fn's `count` kernels whose names
-    hold `kernel` (B1, B4, v3 or v6: the tiled kernel; B10: its TMA
-    instance; B3: it and the partition merge; B7: the tiled moments
-    kernel; the compactor), summed, from torch.profiler and
+    hold `kernel`, or any of a tuple of names (B1, B4, v3 or v6: the tiled
+    kernel; B10: its TMA instance; B3: it and the partition merge; B7: the
+    tiled moments kernel; the compactor; a tensor-core instance: its
+    epilogue's kernel and the norm pass), summed, from torch.profiler and
     logged: the CUDA-event time around the wrapper also holds its host
     launch path, during which the card waits."""
     from tpu_knn_torch.utils.timing import device_ms
@@ -2964,7 +3336,8 @@ def phase1_pad(device, gen):
     columns hold them, through every kernel of those paths: B1 "highest"
     and the tensor-core tiers (packed3, packed2, bf16x3, bf16x4, default;
     qsplit2 over bf16), B2 / B2-bf16, B3, B4, B5, B6 and B7 and their bf16
-    instances. None is ever reported, no score is NaN, a PAD-only cell never
+    instances, and B4, B5, B3 and B7's tier instances at the same tiers.
+    None is ever reported, no score is NaN, a PAD-only cell never
     qualifies."""
     import torch
 
@@ -3017,6 +3390,23 @@ def phase1_pad(device, gen):
             checked += 1
             if bool((a[:, :4] != 0).any()) or not bool((a[:, 4:] != 0).any()):
                 fail(f"B7 {tag}: a PAD-only cell qualified, or no live cell did")
+            # The top-K kernels' tier instances: the PAD columns' |r|^2
+            # overflows to +inf at every tier, so their scores are +inf.
+            for precision in tier_list[1:]:
+                p4, p5 = tiers.tensor_topk_parts("B4", m, n), topk.sweep_parts(m, k, n, precision)
+                clean(f"B4 {precision}", *fused.banded_candidates(q, r_op, n, p4, bs, bi,
+                                                                   precision=precision))
+                clean(f"B5 {precision}", *topk.sweep_candidates(q, r_op, n, p5, 16,
+                                                                 precision=precision))
+                for depth in (1, 2):
+                    if bool(torch.isnan(fused.minima_candidates(q, r_op, n, depth,
+                                                                precision=precision)).any()):
+                        fail(f"B3 {precision} depth {depth} {tag}: a NaN minimum")
+                a = seeded.extract_moments(q, r_op, n, torch.full((m,), 0.3 * k, device=device),
+                                           64, 8, precision=precision)[0]
+                checked += 1
+                if bool((a[:, :4] != 0).any()) or not bool((a[:, 4:] != 0).any()):
+                    fail(f"B7 {precision} {tag}: a PAD-only cell qualified, or no live cell did")
             del q, r_op
     torch.cuda.synchronize(device)
     log(f"  PAD columns: {checked} launches over f32 and bf16 operands, no PAD column "
@@ -3051,9 +3441,10 @@ def gate_radius(name, q, pts, got, radius):
 
 def phase2_store_topk(device, gen, batch=DS11, n_big=1 << 24):
     """Top-K and radius over the quantized stores, gated against the exact
-    scan over the stored points (grid space for int8): the bf16 store at
-    (16, 1024, 2^20) (seeded K = 8 and 64; m = 8 K = 32: B5-bf16; one
-    passes-engine call: B4-bf16; "highest" 1-NN: B1-bf16) and at (16, 4,
+    scan over the stored points (grid space for int8), at the stores' tier
+    ("packed" at k = 16): the bf16 store at (16, 1024, 2^20) (seeded K = 8
+    and 64; m = 8 K = 32: B5-bf16; one passes-engine call: B4-bf16;
+    "highest" 1-NN: B1-bf16) and at (16, 4,
     2^24) K = 16 (B2- and B6-bf16); the int8 store at m = 1 K = 16 over
     (16, 2^24) (the AoS engine off the grid), m = 1023 K = 8 over (16, 2^20)
     (the seeded engine over the per-call bf16 grid operand; the rows past
@@ -3073,9 +3464,9 @@ def phase2_store_topk(device, gen, batch=DS11, n_big=1 << 24):
                   ix.query(q, neighbors=kk)[0], kk)
     gate_topk(f"bf16 store ({k}, 8, 2^20) query K=32 [B5-bf16]", q[:8], pts,
               ix.query(q[:8], neighbors=32)[0], 32)
-    passes = _build_topk(64, n, k, 8, ix.r_ops[0].shape[1], "passes")
-    gate_topk(f"bf16 store ({k}, 64, 2^20) K=8 method='passes' [B4-bf16]", q[:64], pts,
-              passes(q[:64].contiguous(), ix.r_ops, ix.ref_dev)[0], 8)
+    passes = _build_topk(64, n, k, 8, ix.r_ops[0].shape[1], "passes", ix.precision)
+    gate_topk(f"bf16 store ({k}, 64, 2^20) K=8 method='passes' [B4-bf16 at {ix.precision}]",
+              q[:64], pts, passes(q[:64].contiguous(), ix.r_ops, ix.ref_dev)[0], 8)
     hi = tpu_knn_torch.NNIndex(r, store="bf16", precision="highest")
     gate_stored(f"bf16 store ({k}, {m}, 2^20) precision='highest' query [B1-bf16]", q, pts,
                 hi.query(q)[0])
@@ -3732,7 +4123,7 @@ def phase3_presplit(card, device, gen, persist, reps):
            for src, ops in sources.items()}
     times.update(time_ms(fns, reps))
     for name, fn in fns.items():
-        times[f"{name} device"] = kernel_device_ms(fn, reps, card, "tensor_candidates")
+        times[f"{name} device"] = kernel_device_ms(fn, reps, card, "CandidatesEpi")
     del sources, grid, fns
     torch.cuda.empty_cache()
     # A loaded index's first query against its steady state.
@@ -3806,7 +4197,9 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
         smem = check_no_spills(ptxas, {
             "B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel",
-            "tensor-core tiers and B12": "tensor_candidates_kernel",
+            "tensor-core tiers and B12": "CandidatesEpi",
+            "B4's tier instances": "BandedEpi", "B3's tier instances": "MinimaEpi",
+            "B5's tier instances": "SweepEpi", "B7's tier instances": "MomentsEpi",
             "v3 (B1's tiled kernel, AoS)": r"tiled_candidates_kernelILi\d+ELb0ELb1ELb0E",
             "v6 (B1's tiled kernel, resident queries)":
                 r"tiled_candidates_kernelILi\d+ELb0ELb0ELb1E",
@@ -3897,8 +4290,7 @@ def main() -> int:
     edge_errs["B5"] = b5_edge_err
     log(f"  tile edges: max |score diff| B1 {edge_errs['B1']:.3g}, B4 {edge_errs['B4']:.3g}, "
         f"B5 {edge_errs['B5']:.3g}")
-    errs["B4"] = max(errs["B4"], phase1_passes_launches(
-        device, gen_edges, [(*DS11, 8), (16, 64, 1 << 20, 64)]))
+    passes_errs = phase1_passes_launches(device, gen_edges, [(*DS11, 8), (16, 64, 1 << 20, 64)])
     errs["B1 k=768"] = phase1(device, gen_edges, [(*EMBED768, None)], [])["B1"]
     torch.cuda.empty_cache()
     stamp("phase 1 tiled f32 kernel edges, passes launches and k = 768")
@@ -4080,6 +4472,16 @@ def main() -> int:
         for label, value in got.items():
             mine[label] = max(mine.get(label, 0.0), value)
     errs.update(tier_diffs)
+    # The top-K kernels' tier instances (B4, B5, B3, B7), from a generator
+    # of their own, so that the data of the cases after them do not move.
+    gen_topk_tiers = torch.Generator(device=device)
+    gen_topk_tiers.manual_seed(1013)
+    topk_tier_errs, topk_tier_plain = phase1_topk_tiers(device, gen_topk_tiers, TOPK_TIER_CASES)
+    errs.update(topk_tier_errs)
+    for row, err in passes_errs.items():
+        errs[row] = max(errs.get(row, 0.0), err)
+    torch.cuda.empty_cache()
+    stamp("phase 1 top-K tier instances")
     errs["B2-bf16"] = phase1_b2_bf16(device, gen, [(k, m, n) for k in (8, 16, 32)
                                                   for m in (1, 4) for n in (1000, n_t)]
                                      + [(16, 1, 1 << 20), (16, 4, 1 << 20)])
@@ -4124,6 +4526,11 @@ def main() -> int:
     tier_rows = {f"B1 {t}": t for t in ("packed3", "packed2", "bf16x3", "bf16x4", "qsplit2",
                                         "default")}
     tier_rows.update({"B12": "bf16x3_presplit", "B2-bf16": "B2-bf16"})
+    # The top-K kernels' tier instances count in tiers.TIER_LAUNCHES by
+    # their row ("B4 packed3", "B4-bf16 qsplit2", ...).
+    tier_rows.update({f"{kid}{bf} {t}": f"{kid}{bf} {t}" for kid in TOPK_TIER_KERNELS
+                      for bf in ("", "-bf16")
+                      for t in ("packed3", "packed2", "bf16x3", "bf16x4", "qsplit2", "default")})
     # The bf16 instances count in their wrapper's .bf16_launches.
     counters = [*wrappers, *tier_rows, *BF16_ROWS]
 
@@ -4154,12 +4561,13 @@ def main() -> int:
         "1-NN", ("B1", "B2", "B1 packed3"),
         lambda: (phase2_ta(device), phase2_big(device, gen, DS11, DS9))[1])
     log("phase 2: top-K path")
-    (calls, ctx), counts_topk = drive("top-K", ("B2", "B4", "B5", "B6"),
+    (calls, ctx), counts_topk = drive("top-K", ("B2", "B4 packed3", "B5 packed3", "B6"),
                                       lambda: phase2_topk(device, gen))
     log("phase 2: seeded top-K path")
     cases = seeded_cases(device, gen, ctx["q1024"], ctx["r20"], ctx["q64"], ctx["q8"])
     ctx["r22"] = cases["r22"]
-    seeded_calls, counts_seeded = drive("seeded top-K", ("B3", "B4", "B7", "B8/B9"),
+    seeded_calls, counts_seeded = drive("seeded top-K", ("B3 packed3", "B4 packed3", "B7 packed3",
+                                                         "B8/B9"),
                                         lambda: phase2_seeded(device, cases))
     log("phase 2: the 1-NN ladder (the runner; v1, v2, v3, v5, v6, v11 at ds8..ds11)")
     big, counts_ladder = drive("ladder", ("B10", "B11", "B1 AoS (v3)",
@@ -4193,20 +4601,32 @@ def main() -> int:
         gens[path].manual_seed(1020 + i)
     log("phase 2: top-K and radius over the bf16 and int8 stores")
     (store_calls, _), counts_store_topk = drive(
-        "store top-K", ("B1-bf16", "B2-bf16", "B3-bf16", "B4-bf16", "B5-bf16", "B6-bf16",
-                        "B7-bf16", "B8/B9"),
+        "store top-K", ("B1-bf16", "B2-bf16", "B3-bf16 packed3", "B4-bf16 packed3",
+                        "B5-bf16 packed3", "B6-bf16", "B7-bf16 packed3", "B8/B9"),
         lambda: phase2_store_topk(device, gens["stores"]))
+    log("phase 2: the top-K engines at \"highest\" and at embedding width (bf16x3, qsplit2)")
+    gen_tt = torch.Generator(device=device)
+    gen_tt.manual_seed(1027)
+    tier_topk_calls, counts_tier_topk = drive(
+        "top-K tiers", ("B3", "B4", "B5", "B7", "B3-bf16", "B4-bf16", "B5-bf16", "B7-bf16",
+                        "B8/B9", "B4 bf16x3", "B5 bf16x3", "B3 bf16x3", "B7 bf16x3",
+                        "B4-bf16 qsplit2", "B5-bf16 qsplit2", "B3-bf16 qsplit2",
+                        "B7-bf16 qsplit2"),
+        lambda: phase2_topk_tiers(device, gen_tt))
+    torch.cuda.empty_cache()
     log("phase 2: metric='cosine' and 'ip' at (128, 1024, 2^20)")
-    metric_calls, counts_metrics = drive("metric", ("B1 bf16x3", "B3", "B5", "B7", "B8/B9"),
+    metric_calls, counts_metrics = drive("metric", ("B1 bf16x3", "B3 bf16x3", "B5 bf16x3",
+                                                    "B7 bf16x3", "B8/B9"),
                                          lambda: phase2_metrics(device, gens["metrics"]))
     log("phase 2: mutable f32 and bf16 indexes at (16, 2^20)")
     mutable_calls, counts_mutable = drive(
-        "mutable", ("B1 packed3", "B2", "B2-bf16", "B3", "B3-bf16", "B6", "B6-bf16", "B7",
-                    "B7-bf16", "B8/B9"),
+        "mutable", ("B1 packed3", "B2", "B2-bf16", "B3 packed3", "B3-bf16 packed3", "B6",
+                    "B6-bf16", "B7 packed3", "B7-bf16 packed3", "B8/B9"),
         lambda: phase2_mutable(device, gens["mutable"]))
     log("phase 2: filtered views of (16, 2^20), f32 and bf16")
     view_calls, counts_views = drive(
-        "view", ("B1 packed3", "B2", "B2-bf16", "B3", "B3-bf16", "B6", "B6-bf16"),
+        "view", ("B1 packed3", "B2", "B2-bf16", "B3 packed3", "B3-bf16 packed3", "B6",
+                 "B6-bf16"),
         lambda: phase2_views(device, gens["views"]))
     # The KD-tree, the presplit tier beside the stores, save -> load (ROADMAP
     # A.6.5, A.6.6, A.8).
@@ -4219,12 +4639,13 @@ def main() -> int:
     log("phase 2: save -> load -> query")
     persist_dir = tempfile.mkdtemp(dir=build.BUILD_DIR)
     persist, counts_persist = drive(
-        "save/load", ("B2", "B2-bf16", "B12", "B1 packed3", "B3", "B7", "B11"),
+        "save/load", ("B2", "B2-bf16", "B12", "B1 packed3", "B3 packed3", "B7 packed3", "B11"),
         lambda: phase2_persist(device, gens["persist"], persist_dir))
     # The "B1 k=768" row counts that path's launches, the B1 row the others'.
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
                                              counts_ladder, counts_auto, counts_tiers,
-                                             counts_stores, counts_store_topk, counts_metrics,
+                                             counts_stores, counts_store_topk,
+                                             counts_tier_topk, counts_metrics,
                                              counts_mutable, counts_views, counts_kdtree,
                                              counts_presplit, counts_persist))
                 for kname in counters}
@@ -4255,9 +4676,15 @@ def main() -> int:
     bf16_times, bf16_bounds = phase3_bf16(card, gen_t, device, reps=10)
     times.update(bf16_times)
     stamp("phase 3 bf16 instances")
+    gen_tt3 = torch.Generator(device=device)
+    gen_tt3.manual_seed(1032)
+    topk_tier_times, topk_tier_bounds = phase3_topk_tiers(card, device, gen_tt3, reps=10)
+    times.update(topk_tier_times)
+    torch.cuda.empty_cache()
+    stamp("phase 3 top-K tier instances")
     times.update(phase3_calls(card, {**store_calls, **metric_calls, **mutable_calls,
-                                     **view_calls}, reps=5))
-    del store_calls, metric_calls, mutable_calls, view_calls
+                                     **view_calls, **tier_topk_calls}, reps=5))
+    del store_calls, metric_calls, mutable_calls, view_calls, tier_topk_calls
     torch.cuda.empty_cache()
     stamp("phase 3 store top-K, metric, mutable and view calls")
     kd_times, kd_bounds, kd_visits = phase3_kdtree(card, kd_ctx, reps=10)
@@ -4420,6 +4847,24 @@ def main() -> int:
          "f32_instance_ms": times[f"{kid} f32 instance"],
          "f32_instance_device_ms": times[f"{kid} f32 instance device"]}
         for kid in BF16_ROWS]
+    # The top-K kernels' tier instances: each kernel at the engines' ds11
+    # launch (packed3) and at k = 768 (bf16x3 over f32, qsplit2 over a bf16
+    # store's operand), "highest_ms" the same launch on the tiled f32 kernel
+    # (its bf16 instance over a bf16 operand); "matmul part" as for B1's
+    # tiers.
+    for precision, kind, k, m, n in TOPK_TIER_TIMED:
+        tier = tiers.resolved_tier(precision, k)
+        for kid, (wrapper, replaces, source) in TOPK_TIER_KERNELS.items():
+            row = f"{kid}{'-bf16' if kind == 'bf16' else ''} {tier}"
+            kernels.append({
+                "name": f"{row} {wrapper} (k={k}, m={m}, n={n}) K={TOPK_TIER_K}", "route": "cuda",
+                "source": f"tpu_knn_torch/csrc/{source}", "replaces": replaces,
+                "launches": launches[row], "max_abs_err": errs[row],
+                "ms": times[f"{row} kernel"], "plain_ms": topk_tier_plain[row],
+                "bound_ms": topk_tier_bounds[row][0], "bound_by": topk_tier_bounds[row][1],
+                "library_ms": None, "matmul_part_ms": times[f"{row} matmul part"],
+                "highest_ms": times[f"{row} highest"],
+                "device_ms": times[f"{row} kernel device"]})
     log(f"version {tpu_knn_torch.__version__}; {card}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 """Kernels B1–B12 (B8/B9 one compactor; B1's tensor-core tiers, its AoS and
-resident-query variants, and B2 over a bf16 operand) and v10's KD-tree
+resident-query variants, B2 over a bf16 operand, and B4, B5, B3 and B7's
+tensor-core tier instances) and v10's KD-tree
 traversal against their plain torch versions on an sm_90 card, and a save
 -> load round trip there.
 
@@ -254,11 +255,12 @@ def test_b5_matches_plain_and_the_passes_engine(device, k, m, n, kk, parts):
 
 def test_b5_through_the_sweep_engine_at_m_1024(device):
     """topk_knn(method="sweep") at m = 1024 (16 row tiles of 64) takes B5
-    once and answers as the passes engine does, bit for bit."""
+    once, at topk_knn's tier (packed3 at k = 16: B5's tier instance), and
+    answers as the passes engine does, bit for bit."""
     q, r, r_op = _dup_inputs(device, 1024, 16, 50_000, seed=7)
-    before = topk.sweep_candidates.launches
+    before = tiers.TIER_LAUNCHES["B5 packed3"]
     got = topk.topk_knn(q, r, 4, method="sweep")
-    assert topk.sweep_candidates.launches == before + 1
+    assert tiers.TIER_LAUNCHES["B5 packed3"] == before + 1
     passes = topk.topk_knn(q, r, 4, method="passes")
     assert torch.equal(got[0], passes[0]) and torch.equal(got[1], passes[1])
 
@@ -510,12 +512,13 @@ def test_seeded_engine_matches_an_exact_scan(device, m, k, n, kk):
     diff-form scan; a rank may differ only between two points whose d2
     agree to f32 rounding."""
     q, r, _ = _inputs(device, m, k, n, seed=m * kk)
-    counts = [fused.minima_candidates.launches, seeded.extract_moments.launches,
+    # topk_knn's tier at k <= 16 is packed3: B3's and B7's tier instances.
+    counts = [tiers.TIER_LAUNCHES["B3 packed3"], tiers.TIER_LAUNCHES["B7 packed3"],
               seeded.compact_cells.launches]
     si, sd = topk.topk_knn(q, r, kk, method="seeded")
     torch.cuda.synchronize()
-    assert fused.minima_candidates.launches > counts[0]
-    assert seeded.extract_moments.launches > counts[1]
+    assert tiers.TIER_LAUNCHES["B3 packed3"] > counts[0]
+    assert tiers.TIER_LAUNCHES["B7 packed3"] > counts[1]
     assert seeded.compact_cells.launches > counts[2]
     d2 = ((q[:, None, :] - r[None, :, :]) ** 2).sum(dim=-1)
     wd, wi = torch.sort(d2, dim=1, stable=True)    # (d2, index) lex order
@@ -1127,3 +1130,126 @@ def test_save_load_round_trip_on_the_card(device, kwargs, tmp_path):
             assert got[0].device == want[0].device == torch.device(device)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+# ---- the top-K kernels' tier instances (B4, B5, B3, B7 on the tensor cores) --
+
+#: (precision, operand kind, k, m, n): each resolvable term list over f32
+#: and bf16 operands, at the instances' edges (64-row tiles: m one below and
+#: one above; n ragged against 128 and 256; k16 = 16 one-chunk tiles, 48
+#: (16-row chunks), 768 (the q parts in the ring)).
+TOPK_TIER_CASES = [
+    ("packed", "f32", 16, 65, 20_077), ("packed", "f32", 3, 63, 5003),
+    ("packed", "f32", 32, 64, 3001), ("packed", "bf16", 16, 65, 20_077),
+    ("bf16x3", "f32", 40, 65, 5003), ("bf16x4", "f32", 24, 33, 3001),
+    ("qsplit2", "bf16", 128, 70, 9000), ("default", "f32", 16, 40, 3000),
+    ("bf16x3", "f32", 768, 65, 1001), ("qsplit2", "bf16", 768, 63, 1003),
+]
+
+
+def _tier_inputs(device, precision, kind, k, m, n):
+    q, r, r_op = _dup_inputs(device, m, k, n, seed=k * m + n)
+    if kind == "bf16":
+        r_op = r_op.to(torch.bfloat16)
+        r = r.to(torch.bfloat16).float()
+    return q, r, r_op
+
+
+@pytest.mark.parametrize("precision,kind,k,m,n", TOPK_TIER_CASES)
+def test_b4_and_b5_tier_instances_match_plain_and_each_other(device, precision, kind, k, m, n):
+    """B4's and B5's tier instances against their plain versions (slot
+    agreement, the score error against f64 within the tier's gate), each
+    counted under its row in tiers.TIER_LAUNCHES; B4's K passes pick
+    exactly B5's lexicographic K smallest, bit for bit (one mainloop); the
+    duplicates astride lanes 127 | 128 come out lowest column first."""
+    q, r, r_op = _tier_inputs(device, precision, kind, k, m, n)
+    kk = 8
+    p4, p5 = fused.banded_parts(precision, m, k, n), topk.sweep_parts(m, k, n, precision)
+    lo_s = torch.full((m,), -torch.inf, device=device)
+    lo_i = torch.full((m,), -1, dtype=torch.int32, device=device)
+    row4 = tiers.topk_tier_row("B4", r_op, precision, k)
+    before = tiers.TIER_LAUNCHES[row4]
+    ki, ks = fused.banded_candidates(q, r_op, n, p4, lo_s, lo_i, precision=precision)
+    assert tiers.TIER_LAUNCHES[row4] == before + 1
+    pi, ps = fused.banded_candidates_plain(q, r_op, n, p4, lo_s, lo_i, precision)
+    assert (ki == pi).float().mean().item() >= 0.999
+    gate = tiers.tier_error_gate(precision, k, tiers.score_errors(q, r, pi, ps)[0])
+    assert tiers.score_errors(q, r, ki, ks)[0] <= gate
+    ci, cs = _twice(topk.sweep_candidates, q, r_op, n, p5, kk, precision)
+    _check_lists(ci, cs, n, p5, kk)
+    li, ls = topk.sweep_candidates_plain(q, r_op, n, p5, kk, precision)
+    assert (ci == li).float().mean().item() >= 0.999
+    picks = []
+    b_s, b_i = lo_s, lo_i
+    for _ in range(kk):
+        b_i, b_s = topk._lex_min(*fused.banded_candidates(q, r_op, n, p4, b_s, b_i,
+                                                          precision=precision))
+        picks.append((b_i, b_s))
+    l_s, l_i = topk._lex_smallest(cs, ci, kk)
+    assert torch.equal(torch.stack([p[0] for p in picks], 1), l_i)
+    assert torch.equal(torch.stack([p[1] for p in picks], 1), l_s)
+    if precision != "default":
+        got = topk._finalize_topk(q, r, ci, cs, kk, n)[0]
+        assert got[0, :2].tolist() == [127, 128]
+
+
+@pytest.mark.parametrize("precision,kind,k,m,n", TOPK_TIER_CASES)
+def test_b3_and_b7_tier_instances_match_plain_and_each_other(device, precision, kind, k, m, n):
+    """B3's tier instance (depth 1 over a prefix, depth 2, banded) and
+    B7's (cells of 64, 128 and 256 in both field modes, with a band and
+    the remainder minima) against their plain versions, the bound in a
+    gap of the scores so that B7's words must be identical (but at
+    "default", whose bf16 error no gap of these data clears); B7's
+    remainder above a bound equals B3 banded at it, bit for bit."""
+    q, r, r_op = _tier_inputs(device, precision, kind, k, m, n)
+    s = fused.scores(q, r_op, n, precision)
+    srt = torch.topk(s, 201, dim=1, largest=False).values
+    scale = s.abs().max().item()
+    tol = 2 * tiers.tier_error_gate(precision, k, 0.0) * scale
+    exact_words = precision != "default"
+
+    def in_gap(lo_rank, hi_rank):
+        # The midpoint of the widest gap of ranks lo_rank..hi_rank: the two
+        # arithmetics put the same columns on each side of it.
+        gaps = srt[:, lo_rank + 1:hi_rank + 1] - srt[:, lo_rank:hi_rank]
+        j = gaps.argmax(dim=1, keepdim=True) + lo_rank
+        assert (gaps.max(dim=1).values > 2 * tol).all() or not exact_words
+        return ((srt.gather(1, j) + srt.gather(1, j + 1)) / 2).squeeze(1).contiguous()
+
+    bound, lo = in_gap(20, 200), in_gap(4, 19)
+    bands = ((1, lo, None),) if exact_words else ()
+    for depth, lo_d, n_limit in ((1, None, n // 2), (2, None, None), *bands):
+        got = fused.minima_candidates(q, r_op, n, depth=depth, lo=lo_d, n_limit=n_limit,
+                                      precision=precision)
+        want = fused.minima_candidates_plain(q, r_op, n, depth, lo_d, n_limit, precision)
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got))
+        assert ((got - want)[fin].abs() <= tol).all()
+    n_ops = -(-n // 256) * 256
+    r_cells = fused.prep_soa(r.to(r_op.dtype), n_ops)
+    for cell, nf in ((64, 4), (128, 8), (256, 4), (256, 8)):
+        for band in (False, True):
+            lo_b = lo if band else None
+            got = seeded.extract_moments(q, r_cells, n, bound, cell, nf, lo=lo_b,
+                                         emit_rem=band, precision=precision)
+            want = seeded.extract_moments_plain(q, r_cells, n, bound, cell, nf, lo_b, band,
+                                                precision)
+            for g, w in zip(got[:1 + (nf == 8)], want):
+                assert torch.equal(g, w) or not exact_words
+            if band:
+                fin = torch.isfinite(want[-1])
+                assert torch.equal(fin, torch.isfinite(got[-1]))
+                assert ((got[-1] - want[-1])[fin].abs() <= tol).all()
+    rem = seeded.extract_moments(q, r_cells, n, bound, 128, 8,
+                                 lo=torch.full((m,), -torch.inf, device=device), emit_rem=True,
+                                 precision=precision)[-1]
+    assert torch.equal(rem, fused.minima_candidates(q, r_cells, n, lo=bound, precision=precision))
+
+
+def test_tier_instances_raise_on_the_presplit_tier_and_a_depth_2_band(device):
+    q, r, r_op = _tier_inputs(device, "packed", "f32", 16, 8, 3000)
+    b = torch.zeros(8, device=device)
+    with pytest.raises(ValueError, match="presplit"):
+        fused.banded_candidates(q, r_op, 3000, 2, b, b.int(), precision="bf16x3_presplit")
+    with pytest.raises(ValueError, match="depth 1"):
+        fused.minima_candidates(q, r_op, 3000, depth=2, lo=b, precision="packed")

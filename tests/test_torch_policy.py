@@ -913,3 +913,133 @@ def test_hopper_launch_geometry_fits(monkeypatch):
             w_tiles = pt_proj.window_tiles(n, window)
             for m in MS[1:]:
                 assert 1 <= pt_proj.window_splits(m, w_tiles) <= w_tiles * 32
+
+
+# ---- the top-K engines' score tier ---------------------------------------------
+
+
+@pytest.mark.parametrize("k", [3, 16, 32, 40, 128])
+def test_topk_paths_resolve_tpu_knns_tier(k, monkeypatch):
+    """The tier each top-K path hands its kernels, tied to tpu_knn's: per
+    call (topk_knn, within_radius, knn_graph) auto_precision(k, n), as
+    tpu_knn's topk_knn; an index (each store, precision= given or not, a
+    mutable index after a remove, a filtered view) its own precision, which
+    equals tpu_knn's index's and which tpu_knn's _query_topk and
+    _i8_query_topk pass on; the int8 presplit index "highest" beside its
+    plain grid operand (tpu_knn fails there), the presplit f32 index its
+    ValueError."""
+    import tpu_knn_torch
+    from tpu_knn.engine.index import NNIndex as JaxIndex
+
+    seen = []
+    real_percall, real_build = pt_topk._build_topk_percall, pt_topk._build_topk
+
+    def percall(m, n, k, kk, method="auto", precision="highest"):
+        seen.append(precision)
+        return real_percall(m, n, k, kk, method, precision)
+
+    def build(m, n, k, kk, n_ops, method="auto", precision="highest"):
+        seen.append(precision)
+        return real_build(m, n, k, kk, n_ops, method, precision)
+
+    monkeypatch.setattr(pt_topk, "_build_topk_percall", percall)
+    monkeypatch.setattr(pt_topk, "_build_topk", build)
+    rng = np.random.default_rng(k)
+    for n in (700, 3000):
+        q, r = rng.random((6, k), np.float32), rng.random((n, k), np.float32)
+        want = jx_fused.auto_precision(k, n)
+        for call in (lambda: pt_topk.topk_knn(q, r, 3, method="passes", device="cpu"),
+                     lambda: pt_topk.within_radius(q, r, 0.4, 4, method="passes", device="cpu")):
+            seen.clear()
+            call()
+            assert seen and set(seen) == {want}, (n, seen)
+    seen.clear()
+    tpu_knn_torch.knn_graph(r[:300], 3, device="cpu")
+    assert seen and set(seen) == {jx_fused.auto_precision(k, 300)}
+    q, r = rng.random((6, k), np.float32), rng.random((3000, k), np.float32)
+    for store in ("float32", "bf16", "int8"):
+        for precision in (None, "highest", "bf16x4", "bf16x3_presplit"):
+            kwargs = dict(store=store, precision=precision)
+            ix = tpu_knn_torch.NNIndex(r, device="cpu", **kwargs)
+            assert ix.precision == JaxIndex(r, **kwargs).precision, (store, precision)
+            seen.clear()
+            if ix.precision == "bf16x3_presplit" and store != "int8":
+                with pytest.raises(ValueError, match="neighbors>1 requires"):
+                    ix.query(q, neighbors=3)
+                continue
+            ix.query(q, neighbors=3)
+            want = "highest" if ix.precision == "bf16x3_presplit" else ix.precision
+            assert seen and set(seen) == {want}, (store, precision, seen)
+    for store in ("float32", "bf16"):
+        mu = tpu_knn_torch.NNIndex(r[:2000], mutable=True, store=store, device="cpu")
+        mu.add(r[2000:])
+        mu.remove(np.arange(10, 40))
+        view = tpu_knn_torch.NNIndex(r, store=store, device="cpu").filtered_view(
+            np.arange(3000) % 2 == 0)
+        for ix in (mu, view):
+            seen.clear()
+            ix.query(q, neighbors=3)
+            assert seen and set(seen) == {ix.precision}
+        assert mu.precision == JaxIndex(r[:2000], mutable=True, store=store).precision
+
+
+def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
+    """tiers.TENSOR_EPILOGUES names each tensor-core epilogue's blocks an SM
+    and layout as its CUDA source declares them (kBlocksPerSm, kContig),
+    and at every instance the C entries dispatch and every k16 each
+    epilogue's plan (tiers.tensor_smem) fits its blocks
+    (tiers.tensor_blocks_per_sm) and one block's limit with at least two
+    ring stages; B4 and B3 keep B1's two blocks an SM, and so does B7
+    without a band, but at T = 4 with 32-row chunks."""
+    import os
+    import re
+
+    from tpu_knn_torch.kernels import tiers
+
+    csrc = os.path.join(os.path.dirname(tiers.__file__), "..", "csrc")
+    declared = {}
+    for kid, f, struct in (("B1", "tensor_kernels.cu", "CandidatesEpi"),
+                           ("B4", "tensor_banded_kernels.cu", "BandedEpi"),
+                           ("B3", "tensor_minima_kernels.cu", "MinimaEpi"),
+                           ("B5", "tensor_sweep_kernels.cu", "SweepEpi"),
+                           ("B7", "tensor_moments_kernels.cu", "MomentsEpi")):
+        with open(os.path.join(csrc, f)) as fh:
+            src = fh.read()
+        body = src[src.index(f"struct {struct} {{"):]
+        contig = re.search(r"kContig = (true|false);", body).group(1) == "true"
+        per_sm = re.search(r"kBlocksPerSm = ([^;]+);", body).group(1)
+        override = re.search(r"blocks_per_sm\(int(?: t)?, int(?: kc)?\) \{\s*return ([^;]+);",
+                             body)
+        if kid == "B7":
+            assert override.group(1) == "t == 4 && kc == 32 ? 1 : kBlocksPerSm"
+        else:
+            assert override.group(1) == "kBlocksPerSm"
+        if per_sm == "BANDED ? 1 : 2":
+            declared["B7"], declared["B7-band"] = (2, contig), (1, contig)
+        else:
+            declared[kid] = (int(per_sm.replace("kTBlocksPerSm", "2")
+                                 .split("//")[0].strip()), contig)
+    assert declared == {kid: v[1:] for kid, v in tiers.TENSOR_EPILOGUES.items()}
+    assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B4", "B3", "B7")] == [2, 2, 2]
+    for epilogue in tiers.TENSOR_EPILOGUES:
+        for (mode, _), terms in tiers.TENSOR_INSTANCES.items():
+            if mode == 2 and epilogue != "B1":
+                continue
+            for kc in (16, 32) if len(terms) < 8 else (16,):
+                per_sm = tiers.tensor_blocks_per_sm(epilogue, terms, kc)
+                assert per_sm == (1 if epilogue == "B7" and len(terms) == 4 and kc == 32
+                                  else tiers.TENSOR_EPILOGUES[epilogue][1])
+                budget = min(tiers.SMEM_PER_SM // per_sm - tiers.SMEM_PER_BLOCK_RESERVED,
+                             tiers.SMEM_PER_BLOCK)
+                assert 2 <= tiers.tensor_stages(mode, terms, kc, epilogue) <= 4
+                for k16 in range(16, 4097 if len(terms) < 8 else 17, 16):
+                    if tiers.tensor_chunk(k16) != kc:
+                        continue
+                    smem = tiers.tensor_smem(mode, terms, kc, k16, epilogue)
+                    assert smem <= budget and smem % 16 == 0, (epilogue, mode, terms, k16)
+    assert tiers.tensor_topk_parts("B4", 1024, 1 << 20) == tiers.tensor_parts(1024, 1 << 20)
+    for kernel in ("B5", "B7", "B7-band"):
+        for m, n in ((8, 1 << 20), (1024, 1 << 20), (1024, 1 << 18), (100, 70_144)):
+            parts = tiers.tensor_topk_parts(kernel, m, n)
+            unit = 128 if kernel == "B5" else 256
+            assert 1 <= parts <= -(-n // unit)

@@ -110,6 +110,13 @@ def load() -> ctypes.CDLL:
     lib.tk_smallm_candidates_bf16.restype = i32
     lib.tk_tensor_candidates.argtypes = [ptr] * 6 + [i32, i32, i64] + [i32] * 6 + [ptr]
     lib.tk_tensor_candidates.restype = i32
+    # The top-K kernels' tier instances (tensor_*_kernels.cu).
+    lib.tk_tensor_banded.argtypes = [ptr] * 7 + [i32, i32, i64] + [i32] * 6 + [ptr]
+    lib.tk_tensor_minima.argtypes = [ptr] * 6 + [i32, i32, i64] + [i32] * 7 + [ptr]
+    lib.tk_tensor_sweep.argtypes = [ptr] * 5 + [i32, i32, i64] + [i32] * 7 + [ptr]
+    lib.tk_tensor_moments.argtypes = [ptr] * 9 + [i32, i32, i64] + [i32] * 9 + [ptr]
+    for name in ("banded", "minima", "sweep", "moments"):
+        getattr(lib, f"tk_tensor_{name}").restype = i32
     lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                          i64, i32, i32, i32, ptr]
     lib.tk_banded_candidates.restype = i32

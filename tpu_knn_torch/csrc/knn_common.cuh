@@ -198,6 +198,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Folds `groups` 128-lane partials of a row ([group][depth][lane]) into
+// the row's DEPTH*128 lane minima; one block per row (B3's and B7's
+// remainder minima, tiled and tensor-core instances alike).
+template <int DEPTH>
+__global__ void __launch_bounds__(kLanes)
+minima_merge_kernel(const float* __restrict__ partial, float* __restrict__ out, int groups) {
+  const long long row = blockIdx.x;
+  const int lane = threadIdx.x;
+  const float* p = partial + row * groups * DEPTH * kLanes + lane;
+  float m1 = pos_inf(), m2 = pos_inf();
+  for (int e = 0; e < groups * DEPTH; ++e) {
+    const float s = p[static_cast<long long>(e) * kLanes];
+    if (s < m2) {
+      if (s < m1) {
+        m2 = m1;
+        m1 = s;
+      } else {
+        m2 = s;
+      }
+    }
+  }
+  out[row * DEPTH * kLanes + lane] = m1;
+  if (DEPTH == 2) out[row * DEPTH * kLanes + kLanes + lane] = m2;
+}
+
 // Let `kernel` take `smem` bytes of dynamic shared memory beside
 // `static_bytes` of its own: past 48 KB together, only after an opt-in.
 template <typename Kernel>

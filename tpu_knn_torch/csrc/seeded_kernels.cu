@@ -143,30 +143,6 @@ bf16_minima_kernel(const float* __restrict__ qT, const __nv_bfloat16* __restrict
                           state, reinterpret_cast<float*>(smem4));
 }
 
-// Folds `groups` 128-lane partials of a row ([group][depth][lane]) into
-// the row's DEPTH*128 lane minima; one block per row.
-template <int DEPTH>
-__global__ void __launch_bounds__(kLanes)
-minima_merge_kernel(const float* __restrict__ partial, float* __restrict__ out, int groups) {
-  const long long row = blockIdx.x;
-  const int lane = threadIdx.x;
-  const float* p = partial + row * groups * DEPTH * kLanes + lane;
-  float m1 = pos_inf(), m2 = pos_inf();
-  for (int e = 0; e < groups * DEPTH; ++e) {
-    const float s = p[static_cast<long long>(e) * kLanes];
-    if (s < m2) {
-      if (s < m1) {
-        m2 = m1;
-        m1 = s;
-      } else {
-        m2 = s;
-      }
-    }
-  }
-  out[row * DEPTH * kLanes + lane] = m1;
-  if (DEPTH == 2) out[row * DEPTH * kLanes + kLanes + lane] = m2;
-}
-
 // ---------------------------------------------------------------------------
 // B7 — replaces tpu_knn/kernels/topk.py:509 _extract_moment_kernel (built by
 // _build_extract_candidates): per (row, cell of `cell` = 64/128/256

@@ -1305,7 +1305,9 @@ class NNIndex:
             idx, d2 = _build_aos_topk(mb, self._n_eff, self.k, neighbors)(
                 search, self.ref_dev)
             return idx[:m], d2[:m]
-        run = _build_topk(mb, self._n_eff, self.k, neighbors, self.r_ops[0].shape[1])
+        # The engines' kernels at the index's tier, as tpu_knn passes it.
+        run = _build_topk(mb, self._n_eff, self.k, neighbors, self.r_ops[0].shape[1],
+                          precision=self.precision)
         idx, d2 = run(search, self.r_ops, self.ref_dev)
         return idx[:m], d2[:m]
 
@@ -1341,9 +1343,12 @@ class NNIndex:
             idx, d2 = _build_aos_topk(mb, self.n, self.k, neighbors)(search, self.ref_dev)
         else:
             # The top-K engines take the plain operand whatever the 1-NN
-            # tier (tpu_knn handed them B12's three and failed at m >= 2).
+            # tier (tpu_knn handed them B12's three and failed at m >= 2),
+            # at the index's tier, or at "highest" beside the presplit tier,
+            # which has no top-K instance.
             ops = self._i8_soa()
-            run = _build_topk(mb, self.n, self.k, neighbors, ops[0].shape[1])
+            tier = "highest" if self.precision == "bf16x3_presplit" else self.precision
+            run = _build_topk(mb, self.n, self.k, neighbors, ops[0].shape[1], precision=tier)
             idx, d2 = run(search, ops, self.ref_dev)
         return idx[:m], d2[:m] * self._i8_s2
 

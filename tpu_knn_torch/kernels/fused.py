@@ -25,10 +25,13 @@ upcasts each value at the read, so their outputs are the f32 instances'
 bit for bit over the upcast operand (no per-call f32 copy of the store);
 a wrapper counts those launches in its `.bf16_launches`.
 
-Precision: B1 here computes in plain f32 FMA on the CUDA cores, the
-"highest" tier. tpu_knn's bf16-split tiers (packed, bf16x3, bf16x4,
+Precision: B1, B4 and B3 here compute in plain f32 FMA on the CUDA cores,
+the "highest" tier. tpu_knn's bf16-split tiers (packed, bf16x3, bf16x4,
 qsplit2, default/bf16_raw) and B12 (bf16x3 over pre-split operands) run on
-the tensor cores (kernels/tiers.py, csrc/tensor_kernels.cu). `fused_knn`
+the tensor cores (kernels/tiers.py, csrc/tensor_mainloop.cuh): B1's in
+csrc/tensor_kernels.cu, B4's and B3's (`precision=` of banded_candidates
+and minima_candidates) in csrc/tensor_banded_kernels.cu and
+tensor_minima_kernels.cu. `fused_knn`
 resolves `precision=None` through `auto_precision`, as tpu_knn does; the
 tier policy (`auto_precision`, `_packed_terms`, `select_cutoff`) is
 carried across unchanged so that routing cannot drift from tpu_knn's.
@@ -46,8 +49,8 @@ from tpu_knn_torch.kernels.tuning import LANE, resident_geometry, tiled_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair, check_device
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
-#: The tier of the port's paths that keep B1's f32 arithmetic (v3, v5, v6
-#: and the top-K engines): tpu_knn's "highest".
+#: The tier of the port's paths that keep B1's f32 arithmetic (v3, v5, v6)
+#: and the top-K kernels' default: tpu_knn's "highest".
 DEFAULT_PRECISION = "highest"
 
 #: The tiers tpu_knn's fused path computes (`_qr_dot`'s branches and the
@@ -245,6 +248,18 @@ def norm_scores(q, r_op, n: int):
     return (r * r).sum(dim=0) - 2.0 * (q @ r)
 
 
+def scores(q, r_op, n: int, precision: str = DEFAULT_PRECISION):
+    """The plain versions' score at a tier: norm_scores for "highest",
+    else tiers.tier_scores (the term list's arithmetic). The top-K kernels'
+    plain versions take it, so that at each tier B4's and B5's compare bit
+    for bit, as their kernels do."""
+    if precision == "highest":
+        return norm_scores(q, r_op, n)
+    from tpu_knn_torch.kernels.tiers import tier_scores
+
+    return tier_scores(q, r_op, n, precision)
+
+
 def fused_candidates_plain(q, r_op, n: int, parts: int):
     """B1's plain torch version: norm_scores, then the per-lane fold
     (_lane_fold)."""
@@ -321,11 +336,13 @@ def _check_bound(bound, m: int, dtype, device, what: str) -> None:
                          f"on {bound.device}")
 
 
-def banded_candidates_plain(q, r_op, n: int, parts: int, bound_s, bound_i):
-    """B4's plain torch version: norm_scores with every element whose
-    (score, column) is lexicographically <= the row's bound (bound_s[i],
+def banded_candidates_plain(q, r_op, n: int, parts: int, bound_s, bound_i,
+                            precision: str = DEFAULT_PRECISION):
+    """B4's plain torch version at a tier: scores (norm_scores for
+    "highest", tier_scores otherwise) with every element whose (score,
+    column) is lexicographically <= the row's bound (bound_s[i],
     bound_i[i]) masked to +inf, then the per-lane fold."""
-    s = norm_scores(q, r_op, n)
+    s = scores(q, r_op, n, precision)
     col = torch.arange(n, dtype=torch.int32, device=s.device)
     bs, bi = bound_s[:, None], bound_i[:, None]
     eligible = (s > bs) | ((s == bs) & (col > bi))
@@ -333,22 +350,31 @@ def banded_candidates_plain(q, r_op, n: int, parts: int, bound_s, bound_i):
 
 
 def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
-                      bound_s: torch.Tensor, bound_i: torch.Tensor, q_t=None):
+                      bound_s: torch.Tensor, bound_i: torch.Tensor, q_t=None,
+                      precision: str = DEFAULT_PRECISION):
     """B1's candidate contract restricted to the elements that lie
     lexicographically above each row's bound: (score, col) folds only if
     score > bound_s[i], or score == bound_s[i] and col > bound_i[i].
     bound_s (m,) f32 and bound_i (m,) int32. One call is one pass of the
     top-K passes engine (kernels/topk.py), which makes q's transposed copy
-    once (`transposed_queries(q)`, passed as q_t) for all its passes; the
-    scores are bit-identical to B1's on the card. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (B4's bf16 instance over
-    a bf16 operand) or raise."""
+    once (`transposed_queries(q)`, passed as q_t) for all its "highest"
+    passes; the scores are bit-identical to B1's (and B5's) at the same
+    tier on the card. ``precision`` is the score tier: "highest" runs the
+    tiled f32 kernel (its bf16 instance over a bf16 operand), any other
+    term-list tier B4's tensor-core instance (kernels/tiers.py; q_t unused;
+    P as tiers.tensor_topk_parts gives it). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts, r_dtypes=SOA_DTYPES)
     m, k = q.shape
     _check_bound(bound_s, m, torch.float32, q.device, "bound_s")
     _check_bound(bound_i, m, torch.int32, q.device, "bound_i")
+    from tpu_knn_torch.kernels import tiers
+
+    tiers.check_topk_tier(precision)
     if q.device.type == "cpu":
-        return banded_candidates_plain(q, r_op, n, parts, bound_s, bound_i)
+        return banded_candidates_plain(q, r_op, n, parts, bound_s, bound_i, precision)
+    if precision != "highest":
+        return tiers.banded_tier_launch(q, r_op, n, parts, bound_s, bound_i, precision)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
@@ -376,6 +402,16 @@ def tiled_parts(m: int, k: int, n: int) -> int:
     return tiled_geometry(m, k, n).parts
 
 
+def banded_parts(precision: str, m: int, k: int, n: int) -> int:
+    """B4's partition count at a tier: the tiled kernel's (tiled_parts) for
+    "highest", its tensor-core instance's otherwise."""
+    if precision == "highest":
+        return tiled_parts(m, k, n)
+    from tpu_knn_torch.kernels.tiers import tensor_topk_parts
+
+    return tensor_topk_parts("B4", m, n)
+
+
 # ---- B3: value-only per-lane minima (the seeded engines' bound pass) ----
 
 #: The plain versions of B3 and B7 score the operand in chunks of this
@@ -384,10 +420,15 @@ def tiled_parts(m: int, k: int, n: int) -> int:
 SCORE_CHUNK = 1 << 16
 
 
-def score_chunks(q, r_op, n: int):
+def score_chunks(q, r_op, n: int, precision: str = DEFAULT_PRECISION):
     """(first column, (m, width) scores) over [0, n) in SCORE_CHUNK
     pieces: norm_scores' arithmetic, chunk by chunk (a bf16 operand upcast
-    a chunk at a time)."""
+    a chunk at a time); at a term-list tier tiers.tier_score_chunks'."""
+    if precision != "highest":
+        from tpu_knn_torch.kernels.tiers import tier_score_chunks
+
+        yield from tier_score_chunks(q, r_op, n, precision)
+        return
     k = q.shape[1]
     for c0 in range(0, n, SCORE_CHUNK):
         r = r_op[:k, c0:min(n, c0 + SCORE_CHUNK)].float()
@@ -402,8 +443,8 @@ def _lane_groups(s: torch.Tensor) -> torch.Tensor:
 
 
 def minima_candidates_plain(q, r_op, n: int, depth: int = 1, lo=None,
-                            n_limit: int | None = None):
-    """B3's plain torch version: score_chunks over the first
+                            n_limit: int | None = None, precision: str = DEFAULT_PRECISION):
+    """B3's plain torch version: score_chunks at the tier over the first
     min(n, n_limit) columns, only s > lo[row] where lo is given, NaN
     never entering; per lane (column mod 128) the smallest score, and
     for depth 2 also the second smallest (of the multiset), as
@@ -412,7 +453,7 @@ def minima_candidates_plain(q, r_op, n: int, depth: int = 1, lo=None,
     m = q.shape[0]
     best = torch.full((m, depth, LANE), torch.inf, dtype=torch.float32,
                       device=q.device)
-    for c0, s in score_chunks(q, r_op, n):
+    for c0, s in score_chunks(q, r_op, n, precision):
         if c0 >= n_eff:
             break
         col = c0 + torch.arange(s.shape[1], device=s.device)
@@ -430,16 +471,19 @@ def minima_candidates_plain(q, r_op, n: int, depth: int = 1, lo=None,
 
 def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
                       depth: int = 1, lo: torch.Tensor | None = None,
-                      n_limit: int | None = None, q_t: torch.Tensor | None = None):
+                      n_limit: int | None = None, q_t: torch.Tensor | None = None,
+                      precision: str = DEFAULT_PRECISION):
     """(m, k) queries x (k_pad, >= n) SoA operand -> (m, 128*depth) f32:
-    the value-only per-lane minima of B1's scores over the first
+    the value-only per-lane minima of the tier's scores over the first
     min(n, n_limit) columns (see minima_candidates_plain), optionally
     only the scores above lo (m,) f32. The scores are bit-identical to
-    B1's and B7's on the card, which the seeded engine's bound relies on.
-    q_t: q's transposed copy (checked_queries_t), made once by the seeded
-    engine for its B3 and B7 launches. CPU tensors take the plain version;
-    CUDA tensors launch B3 (its bf16 instance over a bf16 operand) or
-    raise."""
+    B1's and B7's at the same tier on the card, which the seeded engine's
+    bound relies on. q_t: q's transposed copy (checked_queries_t), made
+    once by the seeded engine for its "highest" B3 and B7 launches.
+    ``precision``: "highest" runs the tiled f32 kernel (its bf16 instance
+    over a bf16 operand), any other term-list tier B3's tensor-core
+    instance (kernels/tiers.py). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if depth not in (1, 2):
         raise ValueError(f"depth must be 1 or 2, got {depth}")
     n_eff = n if n_limit is None else min(n, n_limit)
@@ -449,8 +493,16 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
     m, k = q.shape
     if lo is not None:
         _check_bound(lo, m, torch.float32, q.device, "lo")
+    from tpu_knn_torch.kernels import tiers
+
+    tiers.check_topk_tier(precision)
+    if precision != "highest" and depth == 2 and lo is not None:
+        raise ValueError("at a term-list tier B3 takes lo at depth 1 only (tpu_knn's banded "
+                         "bound pass is depth 1)")
     if q.device.type == "cpu":
-        return minima_candidates_plain(q, r_op, n, depth, lo, n_limit)
+        return minima_candidates_plain(q, r_op, n, depth, lo, n_limit, precision)
+    if precision != "highest":
+        return tiers.minima_tier_launch(q, r_op, n_eff, depth, lo, precision)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()

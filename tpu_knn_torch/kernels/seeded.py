@@ -27,10 +27,14 @@ port reads the certificate on the host, once per decision; `TIERS`
 counts which tier answered each call (or chunk).
 
 The constants and the cell policy are tpu_knn's, verbatim: they decide
-which cells exist and so which candidates are compacted. The CUDA
-kernels choose their own blocks (B3 by tuning.tiled_geometry, B7 by
-tuning.moments_geometry); the engine makes the queries' transposed copy
-that B3 and B7 stage once per call (or chunk).
+which cells exist and so which candidates are compacted. The engines take
+their caller's score tier (tpu_knn's `precision`) and hand it to B3, B7
+and the passes fallback: "highest" runs the tiled f32 kernels, which
+choose their own blocks (B3 by tuning.tiled_geometry, B7 by
+tuning.moments_geometry; the engine makes the queries' transposed copy
+that they stage once per call or chunk), any other term-list tier their
+tensor-core instances (kernels/tiers.py). B3 and B7 score a column bit for
+bit alike at each tier, which the bound and its 2^-20 inflation rely on.
 """
 
 from __future__ import annotations
@@ -41,9 +45,9 @@ import numpy as np
 import torch
 
 from tpu_knn_torch.kernels.fused import (
-    _I32_MAX, SOA_DTYPES, _check_bound, _check_candidate_operands, _lane_groups,
-    auto_precision, checked_queries_t, count_launch, minima_candidates, score_chunks,
-    tiled_entry, transposed_queries,
+    _I32_MAX, DEFAULT_PRECISION, SOA_DTYPES, _check_bound, _check_candidate_operands,
+    _lane_groups, auto_precision, checked_queries_t, count_launch, minima_candidates,
+    score_chunks, tiled_entry, transposed_queries,
 )
 from tpu_knn_torch.kernels.tuning import (
     LANE, OPERAND_TILE_BUDGET, moments_geometry, pick_tiles,
@@ -161,9 +165,10 @@ PLAIN_MOMENT_TILE = 1024
 
 
 def extract_moments_plain(q, r_op, n: int, bound, cell: int, n_fields: int,
-                          lo=None, emit_rem: bool = False):
+                          lo=None, emit_rem: bool = False, precision: str = DEFAULT_PRECISION):
     """B7's plain torch version. A column qualifies for its row if it is
-    below n, its score (fused.score_chunks) is <= bound[row] and, where
+    below n, its score (fused.score_chunks at the tier, B3's plain
+    version's) is <= bound[row] and, where
     lo is given, > lo[row]. Per row and cell of `cell` columns (cell c
     holds columns [c*cell, (c+1)*cell), l = column % cell): cnt, e1 =
     sum l, p2 = sum l^2 and p3 = sum l^3 of its qualifiers, as tpu_knn
@@ -181,7 +186,7 @@ def extract_moments_plain(q, r_op, n: int, bound, cell: int, n_fields: int,
     w = torch.from_numpy(_moment_weights(t, cell, n_fields)).to(dev)
     digits = torch.zeros((n_fields, m, nc), dtype=torch.int64, device=dev)
     rem = torch.full((m, 1, LANE), torch.inf, dtype=torch.float32, device=dev)
-    for c0, s in score_chunks(q, r_op, n):
+    for c0, s in score_chunks(q, r_op, n, precision):
         qual = s <= bound[:, None]
         if lo is not None:
             qual = qual & (s > lo[:, None])
@@ -207,14 +212,17 @@ def extract_moments_plain(q, r_op, n: int, bound, cell: int, n_fields: int,
 def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
                     bound: torch.Tensor, cell: int, n_fields: int,
                     lo: torch.Tensor | None = None, emit_rem: bool = False,
-                    q_t: torch.Tensor | None = None):
+                    q_t: torch.Tensor | None = None, precision: str = DEFAULT_PRECISION):
     """(m, k) queries x (k_pad, n_ops) SoA operand, bound (m,) f32[, lo
     (m,) f32] -> (A[, p3][, rem]) as in extract_moments_plain, packed
     bit for bit as tpu_knn's extraction kernel packs them. The scores
-    are B1's and B3's (bit-identical on the card). q_t: q's transposed
-    copy (fused.checked_queries_t), made once per call by the engine.
-    CPU tensors take the plain version; CUDA tensors launch B7 (its bf16
-    instance over a bf16 operand) or raise."""
+    are B1's and B3's at the same tier (bit-identical on the card). q_t:
+    q's transposed copy (fused.checked_queries_t), made once per call by
+    the engine for its "highest" launches. ``precision``: "highest" runs
+    the tiled f32 kernel (its bf16 instance over a bf16 operand), any other
+    term-list tier B7's tensor-core instance (kernels/tiers.py). CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     _check_candidate_operands(q, r_op, n, 1, r_dtypes=SOA_DTYPES)
     m, k = q.shape
     n_ops = r_op.shape[1]
@@ -228,14 +236,21 @@ def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
     _check_bound(bound, m, torch.float32, q.device, "bound")
     if lo is not None:
         _check_bound(lo, m, torch.float32, q.device, "lo")
+    from tpu_knn_torch.kernels import tiers
+
+    tiers.check_topk_tier(precision)
     if q.device.type == "cpu":
-        return extract_moments_plain(q, r_op, n, bound, cell, n_fields, lo, emit_rem)
+        return extract_moments_plain(q, r_op, n, bound, cell, n_fields, lo, emit_rem, precision)
+    cubic = n_fields == _EXTRACT_FIELDS_CUBIC
+    if precision != "highest":
+        a, p3, rem = tiers.moments_tier_launch(q, r_op, n, bound, cell, cubic, lo, emit_rem,
+                                               precision)
+        return (a,) + ((p3,) if cubic else ()) + ((rem,) if emit_rem else ())
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
     q_t = checked_queries_t(q, q_t)
     nc = n_ops // cell
-    cubic = n_fields == _EXTRACT_FIELDS_CUBIC
     g = moments_geometry(m, k, n_ops)
     dev = q.device
     a = torch.empty((m, nc), dtype=torch.int32, device=dev)
@@ -480,16 +495,18 @@ def _narrow_parts(nc: int, parts: int) -> int:
     return parts
 
 
-def _bound_prefix(k: int, m: int, n: int, kk: int, n_ops: int):
+def _bound_prefix(k: int, m: int, n: int, kk: int, n_ops: int, precision: str | None = None):
     """tpu_knn's prefix bound read: for K <= 16 over n_ops >= 2^16 the
     bound pass reads only the first half (K <= 8) or 3/4 of the operand,
-    rounded down to the bound pass's tile. The tile is the one tpu_knn's
-    per-call and prepared f32 paths choose (their score tier is
-    auto_precision(k, n)), so both packages read the same prefix.
-    Returns the prefix width or None."""
+    rounded down to the bound pass's tile. The tile is the one tpu_knn
+    chooses at the engine's score tier (wide where it is "packed";
+    precision None: auto_precision(k, n), the per-call tier), so both
+    packages read the same prefix. Returns the prefix width or None."""
     if not (kk <= 16 and n_ops >= (1 << 16)):
         return None
-    _, tile = pick_tiles(k, m, n, wide=auto_precision(k, n) == "packed")
+    if precision is None:
+        precision = auto_precision(k, n)
+    _, tile = pick_tiles(k, m, n, wide=precision == "packed")
     tile = min(tile, n_ops)
     while n_ops % tile != 0:
         tile -= 128
@@ -500,15 +517,17 @@ def _bound_prefix(k: int, m: int, n: int, kk: int, n_ops: int):
     return None
 
 
-def seeded_geometry(m: int, n: int, k: int, kk: int, n_ops: int) -> dict:
+def seeded_geometry(m: int, n: int, k: int, kk: int, n_ops: int,
+                    precision: str | None = None) -> dict:
     """The single-round engine's geometry (tpu_knn's ladder): cell and
-    field mode, bound pass depth and prefix, the compaction caps and part
-    splits of the fast and escalation tiers."""
+    field mode, bound pass depth and prefix (at the score tier, see
+    _bound_prefix), the compaction caps and part splits of the fast and
+    escalation tiers."""
     max_tile_n = (EXTRACT_TILE_N_QUAD if kk <= 16 else
                   EXTRACT_TILE_N_OCT if kk <= 32 else
                   EXTRACT_TILE_N_CUBIC if kk <= 64 else EXTRACT_TILE_N_HEX)
     cell, n_fields = _extract_mode(_extract_tile_n(n_ops, max_tile_n, k), kk)
-    p1_limit = _bound_prefix(k, m, n, kk, n_ops)
+    p1_limit = _bound_prefix(k, m, n, kk, n_ops, precision)
     nc = n_ops // cell
     cap_full = min(nc, ((4 if kk <= 8 else 3) * kk + 16) if p1_limit
                    else (2 * kk + 16), 256)
@@ -552,10 +571,12 @@ def uses_rounds(kk: int, n_ops: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _build_seeded(m: int, n: int, k: int, kk: int, n_ops: int):
+def _build_seeded(m: int, n: int, k: int, kk: int, n_ops: int,
+                  precision: str = DEFAULT_PRECISION):
     """The seeded top-K pipeline against a (k_pad, n_ops) SoA operand
-    plus the AoS array for exact distances. Returns run(search, r_ops,
-    ref_aos) -> (idx (m, kk) int32, d2 (m, kk) f32)."""
+    plus the AoS array for exact distances, B3, B7 and the passes fallback
+    at the score tier ``precision``. Returns run(search, r_ops, ref_aos)
+    -> (idx (m, kk) int32, d2 (m, kk) f32)."""
     from tpu_knn_torch.kernels.topk import SEEDED_MAX_NEIGHBORS, _build_topk
 
     if not 1 <= kk <= SEEDED_MAX_NEIGHBORS:
@@ -565,7 +586,7 @@ def _build_seeded(m: int, n: int, k: int, kk: int, n_ops: int):
         # certificate and host reads; the ragged tail is edge-padded.
         c = SEEDED_CHUNK_ROWS
         m_pad = round_up(m, c)
-        inner = _build_seeded(c, n, k, kk, n_ops)
+        inner = _build_seeded(c, n, k, kk, n_ops, precision)
 
         def run_chunked(search, r_ops, ref_aos):
             q = search
@@ -577,19 +598,20 @@ def _build_seeded(m: int, n: int, k: int, kk: int, n_ops: int):
 
         return run_chunked
     if uses_rounds(kk, n_ops):
-        return _build_seeded_rounds(m, n, k, kk, n_ops)
-    g = seeded_geometry(m, n, k, kk, n_ops)
+        return _build_seeded_rounds(m, n, k, kk, n_ops, precision)
+    g = seeded_geometry(m, n, k, kk, n_ops, precision)
     cell, solvable, nc = g["cell"], g["solvable"], g["nc"]
-    fallback_run = _build_topk(m, n, k, kk, n_ops, "passes")
+    fallback_run = _build_topk(m, n, k, kk, n_ops, "passes", precision)
 
     def run(search, r_ops, ref_aos):
         r_op = r_ops[0]
-        q_t = transposed_queries(search) if search.is_cuda else None
+        q_t = _engine_queries_t(search, precision)
         cs1 = minima_candidates(search, r_op, n, depth=g["depth"],
-                                n_limit=g["p1_limit"], q_t=q_t)
+                                n_limit=g["p1_limit"], q_t=q_t, precision=precision)
         # At least kk distinct elements score <= the kk-th lane minimum.
         bound = _inflate_bound(_kth_smallest(cs1, kk))
-        moms = extract_moments(search, r_op, n, bound, cell, g["n_fields"], q_t=q_t)
+        moms = extract_moments(search, r_op, n, bound, cell, g["n_fields"], q_t=q_t,
+                               precision=precision)
         # Overflow cells (more qualifiers than the solver takes, bit 30)
         # leave the solver's fields and, one per row, join the rerank
         # whole; they credit solvable + 1 candidates to the count.
@@ -647,8 +669,16 @@ def _build_seeded(m: int, n: int, k: int, kk: int, n_ops: int):
     return run
 
 
+def _engine_queries_t(search, precision: str):
+    """The transposed queries the "highest" B3 and B7 stage, made once per
+    call or chunk (None on the CPU and at a term-list tier, whose kernels
+    take the split query parts instead)."""
+    return transposed_queries(search) if search.is_cuda and precision == "highest" else None
+
+
 @functools.lru_cache(maxsize=None)
-def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int):
+def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int,
+                         precision: str = DEFAULT_PRECISION):
     """Multi-round seeded engine: round r owns the half-open score band
     (B_{r-1}, B_r]. Round 1's bound source is a B3 pass; each round's
     extraction (banded B7) also folds the per-lane minima of the scores
@@ -662,7 +692,7 @@ def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int):
 
     g = rounds_geometry(n_ops, k, kk)
     cell, solvable, nc, width = g["cell"], g["solvable"], g["nc"], g["width"]
-    fallback_run = _build_topk(m, n, k, kk, n_ops, "passes")
+    fallback_run = _build_topk(m, n, k, kk, n_ops, "passes", precision)
 
     def tier(fields, cap_i, parts_i):
         cols, rec_ok = _compact_and_solve(m, nc, parts_i, cap_i, fields,
@@ -675,8 +705,8 @@ def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int):
     def run(search, r_ops, ref_aos):
         r_op = r_ops[0]
         lo = torch.full((m,), -torch.inf, dtype=torch.float32, device=search.device)
-        q_t = transposed_queries(search) if search.is_cuda else None
-        cs1 = minima_candidates(search, r_op, n, q_t=q_t)
+        q_t = _engine_queries_t(search, precision)
+        cs1 = minima_candidates(search, r_op, n, q_t=q_t, precision=precision)
         cols_all, certs = [], []
         counted = torch.zeros((m,), dtype=torch.int64, device=search.device)
         remaining, escalated = kk, False
@@ -684,7 +714,8 @@ def _build_seeded_rounds(m: int, n: int, k: int, kk: int, n_ops: int):
             needed = min(SEEDED_ROUND_K, remaining)
             bound = _inflate_bound(_kth_smallest(cs1, needed), lo)
             a_pack, p3, cs1 = extract_moments(search, r_op, n, bound, cell,
-                                              g["n_fields"], lo=lo, emit_rem=True, q_t=q_t)
+                                              g["n_fields"], lo=lo, emit_rem=True, q_t=q_t,
+                                              precision=precision)
             qual = a_pack != 0
             counted += torch.clamp(a_pack & 3, max=solvable).sum(dim=1)
             (fast_fits,) = _host_flags(_part_fits(qual, g["nparts"], g["cap_fast"]))

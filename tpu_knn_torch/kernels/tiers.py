@@ -48,7 +48,8 @@ from tpu_knn_torch.kernels.fused import (
     fused_candidates, norm_scores,
 )
 from tpu_knn_torch.kernels.tuning import (
-    LANE, SMEM_PER_BLOCK_RESERVED, SMEM_PER_SM, TILED_BLOCKS_PER_SM, _wave_parts,
+    LANE, MOMENT_CHUNK, SMEM_PER_BLOCK, SMEM_PER_BLOCK_RESERVED, SMEM_PER_SM,
+    TILED_BLOCKS_PER_SM, _wave_parts, kselect_state_bytes,
 )
 from tpu_knn_torch.utils.platform import full_f32_matmul
 from tpu_knn_torch.utils.shapes import cdiv, round_up
@@ -81,8 +82,10 @@ _MODE_F32, _MODE_BF16, _MODE_PRESPLIT = 0, 1, 2
 #: only (the plain versions are not counted), one count per row of the
 #: kernel table: tensor_candidates by resolved tier ("packed3", "packed2",
 #: "bf16x3", "bf16x4", "qsplit2", "default", "bf16_raw"), B12 as
-#: "bf16x3_presplit", and B2 over a bf16 store's operand
-#: (smallm.smallm_candidates) as "B2-bf16".
+#: "bf16x3_presplit", B2 over a bf16 store's operand
+#: (smallm.smallm_candidates) as "B2-bf16", and the top-K kernels' tier
+#: instances as "<kernel> <resolved tier>" ("B4 packed3", "B5 bf16x3", ...;
+#: "<kernel>-bf16 <tier>" over a bf16 operand, see topk_tier_row).
 TIER_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -228,6 +231,25 @@ TENSOR_Q_RESIDENT_BYTES = 30 * 1024
 TENSOR_FOLD_BYTES = 8 * 256 * 8
 _TENSOR_MAX_STAGES = 4
 
+#: The tensor-core mainloop's epilogues (csrc tensor_mainloop.cuh): kernel
+#: -> (its state's shared-memory bytes, EPI::kStateBytes; its blocks per
+#: SM, EPI::kBlocksPerSm; whether a block owns a whole partition of
+#: contiguous columns, EPI::kContig, else one lane slice of it). B1 keeps
+#: the fold slots; B4 adds its rows' bounds, B3 their lo; B5 keeps its rows'
+#: K-lists (kselect.cuh) and a score tile of 64 rows 136 floats apart; B7
+#: its rows' bound and lo, a 128-bit qualifier mask and four sums a row, and
+#: "B7-band" (the rounds engine's instance: a band, the remainder minima)
+#: also a remainder tile laid out as B5's score tile.
+_B7_STATE = 2 * 4 * TENSOR_TILE_M + 4 * 2 * 4 * TENSOR_TILE_M
+TENSOR_EPILOGUES = {
+    "B1": (TENSOR_FOLD_BYTES, TENSOR_BLOCKS_PER_SM, False),
+    "B4": (TENSOR_FOLD_BYTES + 2 * 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False),
+    "B3": (TENSOR_FOLD_BYTES + 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False),
+    "B5": (kselect_state_bytes(TENSOR_TILE_M) + 4 * TENSOR_TILE_M * 136, 1, True),
+    "B7": (_B7_STATE, TENSOR_BLOCKS_PER_SM, True),
+    "B7-band": (_B7_STATE + 4 * TENSOR_TILE_M * 136, 1, True),
+}
+
 
 def tensor_chunk(k16: int) -> int:
     """KC, the d-rows of one ring stage: 32 where k16 allows, else 16."""
@@ -247,34 +269,46 @@ def _tensor_plan(mode: int, terms, kc: int):
     return nq, nr, r_stage, q_chunk, planes
 
 
-def _fixed_bytes(mode: int) -> int:
-    return TENSOR_FOLD_BYTES + (4 * LANE if mode == _MODE_F32 else 0)
+def tensor_blocks_per_sm(epilogue: str, terms, kc: int) -> int:
+    """An instance's blocks an SM (csrc EPI::blocks_per_sm): its
+    epilogue's, but one for B7's unbanded instance at T = 4 with 32-row
+    chunks (its registers)."""
+    if epilogue == "B7" and len(terms) == 4 and kc == 32:
+        return 1
+    return TENSOR_EPILOGUES[epilogue][1]
 
 
-def tensor_stages(mode: int, terms, kc: int) -> int:
+def _fixed_bytes(mode: int, epilogue: str = "B1") -> int:
+    return TENSOR_EPILOGUES[epilogue][0] + (4 * LANE if mode == _MODE_F32 else 0)
+
+
+def tensor_stages(mode: int, terms, kc: int, epilogue: str = "B1") -> int:
     """The ring's depth (csrc ring_stages): the deepest, up to 4, at which
-    TENSOR_BLOCKS_PER_SM blocks fit an SM at any k16."""
+    the instance's blocks per SM (tensor_blocks_per_sm) fit an SM at any
+    k16."""
     _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc)
+    per_sm = tensor_blocks_per_sm(epilogue, terms, kc)
 
     def fits(stages):
-        most = (_fixed_bytes(mode) + stages * r_stage + planes
+        most = (_fixed_bytes(mode, epilogue) + stages * r_stage + planes
                 + max(stages * q_chunk, TENSOR_Q_RESIDENT_BYTES))
-        return TENSOR_BLOCKS_PER_SM * (most + SMEM_PER_BLOCK_RESERVED) <= SMEM_PER_SM
+        return (per_sm * (most + SMEM_PER_BLOCK_RESERVED) <= SMEM_PER_SM
+                and most <= SMEM_PER_BLOCK)
 
     return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
 
 
-def tensor_smem(mode: int, terms, kc: int, k16: int) -> int:
-    """Dynamic shared memory of one block (csrc tensor_smem): the fold
-    state, the ring's stages (the r chunk, the column tile's ‖r‖² row, and
-    the q chunk where the q parts are not resident), the f32 mode's part
-    planes, and the resident q parts."""
+def tensor_smem(mode: int, terms, kc: int, k16: int, epilogue: str = "B1") -> int:
+    """Dynamic shared memory of one block (csrc tensor_smem): the
+    epilogue's state, the ring's stages (the r chunk, the column tile's
+    ‖r‖² row, and the q chunk where the q parts are not resident), the f32
+    mode's part planes, and the resident q parts."""
     _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc)
     q_res = k16 // kc * q_chunk   # resident q parts: the ring's chunks, one after another
     resident = q_res <= TENSOR_Q_RESIDENT_BYTES
-    stages = tensor_stages(mode, terms, kc)
-    return (_fixed_bytes(mode) + stages * (r_stage + (0 if resident else q_chunk)) + planes
-            + (q_res if resident else 0))
+    stages = tensor_stages(mode, terms, kc, epilogue)
+    return (_fixed_bytes(mode, epilogue) + stages * (r_stage + (0 if resident else q_chunk))
+            + planes + (q_res if resident else 0))
 
 
 def _pack_terms(terms) -> tuple[int, int]:
@@ -283,30 +317,40 @@ def _pack_terms(terms) -> tuple[int, int]:
     return q_bits, r_bits
 
 
-def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
-    """Launch the tensor-core kernel over ``operand`` (its first array;
-    ``ptrs`` = (r, r_lo, rn) pointers; rn None: the C entry first writes
-    the operand's ‖r‖² row into scratch allocated here). The q parts the
-    terms use are split here, once per call, from the zero-padded
-    queries: (nq, m, k16) bf16, torch's round-to-nearest-even casts,
-    tpu_knn's split bit for bit. The staged rows are copied 16 bytes at a
-    time, so the operand's rows must start on 16-byte boundaries."""
-    from tpu_knn_torch.csrc.build import check, load
+def _prepare(q, operand, n: int, terms, what: str):
+    """What every tensor-core launch takes: the library, the q parts the
+    terms use, split here once per call from the zero-padded queries ((nq,
+    m, k16) bf16, torch's round-to-nearest-even casts, tpu_knn's split bit
+    for bit), scratch for the operand's ‖r‖² row (the C entry's norm pass
+    writes it) and the packed term list. The staged rows are copied 16
+    bytes at a time, so the operand's rows must start on 16-byte
+    boundaries."""
+    from tpu_knn_torch.csrc.build import load
 
     if operand.data_ptr() % 16 or (operand.stride(0) * operand.element_size()) % 16:
         raise ValueError(f"{what}: the operand's rows must be 16-byte aligned (row stride "
                          f"{operand.stride(0)} elements)")
     lib = load()
-    m, k = q.shape
-    k16 = round_up(k, 16)
-    q_pad = torch.nn.functional.pad(q, (0, k16 - k))
+    k = q.shape[1]
+    q_pad = torch.nn.functional.pad(q, (0, round_up(k, 16) - k))
     nq = 1 + max(i for i, _ in terms)
     qp = torch.stack(split_bf16_3(q_pad)[:nq]).contiguous()
+    norms = torch.empty(n, dtype=torch.float32, device=q.device)
+    return lib, qp, norms, _pack_terms(terms)
+
+
+def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
+    """Launch B1's tiers or B12 over ``operand`` (its first array; ``ptrs``
+    = (r, r_lo, rn) pointers; rn None: the C entry first writes the
+    operand's ‖r‖² row into scratch allocated here; see _prepare)."""
+    from tpu_knn_torch.csrc.build import check
+
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, operand, n if ptrs[2] is None else 0,
+                                                terms, what)
+    m, k = q.shape
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     if ptrs[2] is None:
-        norms = torch.empty(n, dtype=torch.float32, device=q.device)
         ptrs = (*ptrs[:2], norms.data_ptr())
-    q_bits, r_bits = _pack_terms(terms)
     with torch.cuda.device(q.device):
         err = lib.tk_tensor_candidates(
             qp.data_ptr(), *ptrs, idx.data_ptr(), score.data_ptr(), m, k, operand.stride(0), n,
@@ -314,6 +358,16 @@ def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
             torch.cuda.current_stream(q.device).cuda_stream)
     check(lib, err, what)
     return idx, score
+
+
+def _operand_instance(r_op: torch.Tensor, precision: str, k: int):
+    """(operand mode, term list) of the tensor-core instance that runs a
+    term-list tier over r_op: over a bf16 operand the lower parts are
+    exactly zero, so their terms add ±0 and are dropped."""
+    terms = term_list(precision, k)
+    if r_op.dtype == torch.bfloat16:
+        return _MODE_BF16, tuple(t for t in terms if t[1] == 0)
+    return _MODE_F32, terms
 
 
 def tensor_candidates_plain(q, r_op, n: int, parts: int, precision: str):
@@ -328,16 +382,10 @@ def tensor_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     tensors take the plain version; CUDA tensors launch the tensor-core
     kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts, r_dtypes=(torch.float32, torch.bfloat16))
-    terms = term_list(precision, q.shape[1])
+    term_list(precision, q.shape[1])
     if q.device.type == "cpu":
         return tensor_candidates_plain(q, r_op, n, parts, precision)
-    if r_op.dtype == torch.bfloat16:
-        # The lower parts of a bf16 value are exactly zero: their terms
-        # add ±0 and are dropped.
-        terms = tuple(t for t in terms if t[1] == 0)
-        mode = _MODE_BF16
-    else:
-        mode = _MODE_F32
+    mode, terms = _operand_instance(r_op, precision, q.shape[1])
     out = _launch(q, r_op, (r_op.data_ptr(), None, None), mode, n, parts, terms,
                   f"B1 ({precision}) tensor_candidates")
     TIER_LAUNCHES[resolved_tier(precision, q.shape[1])] += 1
@@ -374,6 +422,170 @@ def presplit_candidates(q: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                   parts, _HH_HL_LH, "B12 presplit_candidates")
     TIER_LAUNCHES["bf16x3_presplit"] += 1
     return out
+
+
+# ---- the top-K kernels at a tier ------------------------------------------
+#
+# B4, B3, B5 and B7 at a term-list tier: the tensor-core mainloop with each
+# kernel's epilogue (csrc tensor_banded_kernels.cu, tensor_minima_kernels.cu,
+# tensor_sweep_kernels.cu, tensor_moments_kernels.cu). The wrappers
+# (fused.banded_candidates, fused.minima_candidates, topk.sweep_candidates,
+# seeded.extract_moments) validate, take the plain versions on the CPU and
+# send every tier other than "highest" here on the card. One mainloop
+# scores a (row, column) pair identically in all of them and in B1's tiers,
+# so B4 and B5 agree bit for bit, as do B3 and B7. Their plain versions fold
+# tier_scores in place of fused.norm_scores (fused.scores).
+
+#: The top-K kernels that have tier instances.
+TOPK_TIER_KERNELS = ("B4", "B3", "B5", "B7")
+
+
+def check_topk_tier(precision: str) -> None:
+    """A top-K kernel's tier: "highest" (its tiled f32 kernel) or a
+    term-list tier. "bf16x3_presplit" takes no top-K instance (tpu_knn's
+    presplit index raises for neighbors > 1)."""
+    if precision == "highest":
+        return
+    if precision == "bf16x3_presplit":
+        raise ValueError("the top-K kernels have no bf16x3_presplit instance (tpu_knn's "
+                         "presplit index serves 1-NN only)")
+    term_list(precision, 1)
+
+
+def topk_tier_row(kernel: str, r_op: torch.Tensor, precision: str, k: int) -> str:
+    """The TIER_LAUNCHES key of a top-K kernel's tier instance: "<kernel>
+    <resolved tier>", "<kernel>-bf16 <resolved tier>" over a bf16 operand."""
+    bf16 = "-bf16" if r_op.dtype == torch.bfloat16 else ""
+    return f"{kernel}{bf16} {resolved_tier(precision, k)}"
+
+
+def tensor_topk_parts(kernel: str, m: int, n: int) -> int:
+    """The partition count of a top-K kernel's tier instance. B4 and B3
+    take B1's tier geometry (tensor_parts: lane slices, two blocks an SM).
+    B5 and B7 give a block a whole partition, at their epilogues' blocks an
+    SM (TENSOR_EPILOGUES; "B7-band": B7 with a band or the remainder
+    minima): B5's
+    partitions are its lists, of whole 128-column groups; B7's hold whole
+    MOMENT_CHUNK-column chunks of the n columns given here (the operand's
+    width). Each P is tuning._wave_parts' choice for its blocks."""
+    tiles = cdiv(m, TENSOR_TILE_M)
+    if kernel in ("B4", "B3"):
+        return tensor_parts(m, n)
+    if kernel not in ("B5", "B7", "B7-band"):
+        raise ValueError(f"no tier instance of {kernel!r}")
+    per_sm = TENSOR_EPILOGUES[kernel][1]
+    unit = LANE if kernel == "B5" else MOMENT_CHUNK
+    return _wave_parts(tiles, cdiv(n, unit), 1, per_sm)
+
+
+def tier_score_chunks(q: torch.Tensor, r_op: torch.Tensor, n: int, precision: str):
+    """(first column, (m, width) scores) over [0, n) in fused.SCORE_CHUNK
+    pieces: tier_scores chunk by chunk, at fused.score_chunks' boundaries,
+    so that B3's and B7's plain versions give a column the same score."""
+    from tpu_knn_torch.kernels.fused import SCORE_CHUNK
+
+    for c0 in range(0, n, SCORE_CHUNK):
+        c1 = min(n, c0 + SCORE_CHUNK)
+        yield c0, tier_scores(q, r_op[:, c0:c1], c1 - c0, precision)
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def banded_tier_launch(q, r_op, n: int, parts: int, bound_s, bound_i, precision: str):
+    """B4's tier instance on the card (fused.banded_candidates' contract)."""
+    from tpu_knn_torch.csrc.build import check
+
+    what = f"B4 ({precision}) banded_candidates"
+    mode, terms = _operand_instance(r_op, precision, q.shape[1])
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    m, k = q.shape
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_tensor_banded(
+            qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(), bound_s.data_ptr(),
+            bound_i.data_ptr(), idx.data_ptr(), score.data_ptr(), m, k, r_op.stride(0), n,
+            parts, mode, len(terms), q_bits, r_bits, _stream(q))
+    check(lib, err, what)
+    TIER_LAUNCHES[topk_tier_row("B4", r_op, precision, k)] += 1
+    return idx, score
+
+
+def minima_tier_launch(q, r_op, n: int, depth: int, lo, precision: str):
+    """B3's tier instance on the card over the first n columns
+    (fused.minima_candidates' contract), P from tensor_topk_parts."""
+    from tpu_knn_torch.csrc.build import check
+
+    what = f"B3 ({precision}) minima_candidates"
+    mode, terms = _operand_instance(r_op, precision, q.shape[1])
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    m, k = q.shape
+    parts = tensor_topk_parts("B3", m, n)
+    partial = torch.empty((m, parts * depth * LANE), dtype=torch.float32, device=q.device)
+    out = torch.empty((m, depth * LANE), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_tensor_minima(
+            qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(),
+            lo.data_ptr() if lo is not None else None, partial.data_ptr(), out.data_ptr(), m, k,
+            r_op.stride(0), n, parts, depth, mode, len(terms), q_bits, r_bits, _stream(q))
+    check(lib, err, what)
+    TIER_LAUNCHES[topk_tier_row("B3", r_op, precision, k)] += 1
+    return out
+
+
+def sweep_tier_launch(q, r_op, n: int, parts: int, kk: int, precision: str):
+    """B5's tier instance on the card (topk.sweep_candidates' contract)."""
+    from tpu_knn_torch.csrc.build import check
+
+    what = f"B5 ({precision}) sweep_candidates"
+    mode, terms = _operand_instance(r_op, precision, q.shape[1])
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    m, k = q.shape
+    idx, score = _candidate_outputs(m, parts * kk, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tk_tensor_sweep(
+            qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(), idx.data_ptr(), score.data_ptr(),
+            m, k, r_op.stride(0), n, parts, kk, mode, len(terms), q_bits, r_bits, _stream(q))
+    check(lib, err, what)
+    TIER_LAUNCHES[topk_tier_row("B5", r_op, precision, k)] += 1
+    return idx, score
+
+
+def moments_tier_launch(q, r_op, n: int, bound, cell: int, cubic: bool, lo, emit_rem: bool,
+                        precision: str):
+    """B7's tier instance on the card (seeded.extract_moments' contract),
+    over the operand's nc = width // cell cells, P from tensor_topk_parts.
+    Returns (A, p3 or None, rem or None)."""
+    from tpu_knn_torch.csrc.build import check
+
+    what = f"B7 ({precision}) extract_moments"
+    mode, terms = _operand_instance(r_op, precision, q.shape[1])
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    m, k = q.shape
+    n_ops = r_op.shape[1]
+    nc = n_ops // cell
+    banded = emit_rem or lo is not None
+    parts = tensor_topk_parts("B7-band" if banded else "B7", m, nc * cell)
+    dev = q.device
+    a = torch.empty((m, nc), dtype=torch.int32, device=dev)
+    p3 = torch.empty((m, nc), dtype=torch.int32, device=dev) if cubic else None
+    rem_part = rem = None
+    if emit_rem:
+        rem_part = torch.empty((m, parts * LANE), dtype=torch.float32, device=dev)
+        rem = torch.empty((m, LANE), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        err = lib.tk_tensor_moments(
+            qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(), bound.data_ptr(), ptr(lo),
+            a.data_ptr(), ptr(p3), ptr(rem_part), ptr(rem), m, k, r_op.stride(0), n, nc, cell,
+            int(cubic), parts, mode, len(terms), q_bits, r_bits, _stream(q))
+    check(lib, err, what)
+    TIER_LAUNCHES[topk_tier_row("B7", r_op, precision, k)] += 1
+    return a, p3, rem
 
 
 def tier_parts(precision: str, m: int, k: int, n: int) -> int:

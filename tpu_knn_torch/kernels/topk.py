@@ -25,10 +25,22 @@ engines:
   exact rerank, with the passes engine as its certified fallback
   (kernels/seeded.py).
 
-The kernels compute the f32 "highest" tier. Over a bf16 store's operand
-every engine launches the kernels' bf16 instances (B5, B6, B4, B3 and B7
-upcast at the read, bit for bit the f32 instances over the upcast
-operand), so no top-K path makes an f32 copy of the store.
+Score tiers, as tpu_knn resolves them: `topk_knn` (and `within_radius*`,
+`knn_graph` through it) runs at `auto_precision(k, n)` ("packed" at k <=
+32, "bf16x3" at embedding width), an `NNIndex` at its `precision`; each
+engine hands that tier to every kernel it launches (`_build_topk`,
+`_build_topk_percall`, the seeded engines and their passes fallback).
+"highest" runs the tiled f32 kernels (B5, B4, B3, B7 on the CUDA cores);
+every other term-list tier their tensor-core instances (kernels/tiers.py,
+csrc/tensor_mainloop.cuh), which score a (row, column) pair exactly as B1's
+tiers do, so at each tier the sweep and passes engines still agree bit for
+bit and the seeded engine's bound and qualifiers come from one arithmetic.
+B6 (the small-m sweep) and the aos engine score in the exact diff form, at
+no tier, as tpu_knn's do. Over a bf16 store's operand every engine launches
+the kernels' bf16 instances ("highest": B5, B6, B4, B3 and B7 upcast at
+the read, bit for bit the f32 instances over the upcast operand; the
+tensor-core instances read the operand as stored), so no top-K path makes
+an f32 copy of the store.
 """
 
 from __future__ import annotations
@@ -38,9 +50,9 @@ import functools
 import torch
 
 from tpu_knn_torch.kernels.fused import (
-    _I32_MAX, SOA_DTYPES, _candidate_outputs, _check_bound, _check_candidate_operands,
-    banded_candidates, count_launch, norm_scores, prep_soa, tiled_entry, tiled_parts,
-    transposed_queries,
+    _I32_MAX, DEFAULT_PRECISION, SOA_DTYPES, _candidate_outputs, _check_bound,
+    _check_candidate_operands, auto_precision, banded_candidates, banded_parts, count_launch,
+    prep_soa, scores, tiled_entry, transposed_queries,
 )
 from tpu_knn_torch.kernels.smallm import (
     SMALLM_MAX_K, SMALLM_MAX_M, bf16_parts, check_smallm_shape, diff_scores,
@@ -96,9 +108,14 @@ B6_BLOCKS_PER_SM = 8
 B6_WIDE_BLOCKS_PER_SM = 6
 
 
-def sweep_parts(m: int, k: int, n: int) -> int:
-    """B5's partition count, one list per (row, partition)
-    (tuning.sweep_geometry)."""
+def sweep_parts(m: int, k: int, n: int, precision: str = DEFAULT_PRECISION) -> int:
+    """B5's partition count, one list per (row, partition): the tiled
+    kernel's (tuning.sweep_geometry) for "highest", its tensor-core
+    instance's (tiers.tensor_topk_parts) at any other tier."""
+    if precision != "highest":
+        from tpu_knn_torch.kernels.tiers import tensor_topk_parts
+
+        return tensor_topk_parts("B5", m, n)
     return sweep_geometry(m, k, n).parts
 
 
@@ -221,25 +238,35 @@ def _partition_lists(s: torch.Tensor, parts: int, kk: int, seed=None):
     return i.reshape(m, parts * kk), v.reshape(m, parts * kk)
 
 
-def sweep_candidates_plain(q, r_op, n: int, parts: int, kk: int):
-    """B5's plain torch version: fused.norm_scores, then _partition_lists."""
-    return _partition_lists(norm_scores(q, r_op, n), parts, kk)
+def sweep_candidates_plain(q, r_op, n: int, parts: int, kk: int,
+                           precision: str = DEFAULT_PRECISION):
+    """B5's plain torch version: fused.scores at the tier (B4's plain
+    version's), then _partition_lists."""
+    return _partition_lists(scores(q, r_op, n, precision), parts, kk)
 
 
 def sweep_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
-                     kk: int):
+                     kk: int, precision: str = DEFAULT_PRECISION):
     """(m, k) queries x (k_pad, n_pad) SoA operand -> (idx, score), each
     (m, parts*kk): per (row, partition) (list_of), the kk lexicographically
     smallest (score, column) pairs of the partition's columns below n,
-    sorted, empty slots (+inf, I32_MAX). The score is B1's (bit-identical
-    on the card). CPU tensors take the plain version; CUDA tensors launch
-    B5 (its bf16 instance over a bf16 operand) or raise."""
+    sorted, empty slots (+inf, I32_MAX). The score is B1's and B4's at the
+    same tier (bit-identical on the card). ``precision``: "highest" runs
+    the tiled f32 kernel (its bf16 instance over a bf16 operand), any other
+    term-list tier B5's tensor-core instance (kernels/tiers.py; P from
+    sweep_parts at the tier). CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts, r_dtypes=SOA_DTYPES)
     if not 1 <= kk <= SWEEP_MAX_NEIGHBORS:
         raise ValueError(f"sweep engine serves K in [1, {SWEEP_MAX_NEIGHBORS}], got {kk}")
     m, k = q.shape
+    from tpu_knn_torch.kernels import tiers
+
+    tiers.check_topk_tier(precision)
     if q.device.type == "cpu":
-        return sweep_candidates_plain(q, r_op, n, parts, kk)
+        return sweep_candidates_plain(q, r_op, n, parts, kk, precision)
+    if precision != "highest":
+        return tiers.sweep_tier_launch(q, r_op, n, parts, kk, precision)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
@@ -310,13 +337,19 @@ smallm_topk_candidates.bf16_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto"):
+def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto",
+                precision: str = DEFAULT_PRECISION):
     """Top-K pipeline against a prepared (k_pad, n_ops) SoA operand plus
-    the AoS array for exact distances. The seeded engine's cells are a
-    function of the operand width n_ops, as in tpu_knn. Returns
+    the AoS array for exact distances, its kernels at the score tier
+    ``precision`` (tpu_knn's `_build_topk` argument; the small-m sweep's
+    B2 and B6 score in the diff form at every tier). The seeded engine's
+    cells are a function of the operand width n_ops, as in tpu_knn. Returns
     run(search, r_ops, ref_aos) -> (idx (m, kk) int32, d2 (m, kk) f32)."""
     if n_ops < n or n_ops % LANE != 0:
         raise ValueError(f"operand width {n_ops} incompatible with n={n}")
+    from tpu_knn_torch.kernels.tiers import check_topk_tier
+
+    check_topk_tier(precision)
     if method == "auto":
         method = _auto_method(m, kk)
     if method == "sweep":
@@ -338,28 +371,28 @@ def _build_topk(m: int, n: int, k: int, kk: int, n_ops: int, method: str = "auto
                 return _finalize_topk(search, ref_aos, ci, cs, kk, n)
 
             return run_smallm
-        parts = sweep_parts(m, k, n)
+        parts = sweep_parts(m, k, n, precision)
 
         def run_sweep(search, r_ops, ref_aos):
-            ci, cs = sweep_candidates(search, r_ops[0], n, parts, kk)
+            ci, cs = sweep_candidates(search, r_ops[0], n, parts, kk, precision)
             return _finalize_topk(search, ref_aos, ci, cs, kk, n)
 
         return run_sweep
     if method == "seeded":
         from tpu_knn_torch.kernels.seeded import _build_seeded
 
-        return _build_seeded(m, n, k, kk, n_ops)
+        return _build_seeded(m, n, k, kk, n_ops, precision)
     if method != "passes":
         raise ValueError(f"unknown top-K method {method!r}")
-    parts = tiled_parts(m, k, n)
+    parts = banded_parts(precision, m, k, n)
 
     def run_passes(search, r_ops, ref_aos):
         b_s = torch.full((m,), -torch.inf, dtype=torch.float32, device=search.device)
         b_i = torch.full((m,), -1, dtype=torch.int32, device=search.device)
-        q_t = transposed_queries(search) if search.is_cuda else None
+        q_t = transposed_queries(search) if search.is_cuda and precision == "highest" else None
         picks = []
         for _ in range(kk):    # K banded passes, no host sync between them
-            ci, cs = banded_candidates(search, r_ops[0], n, parts, b_s, b_i, q_t)
+            ci, cs = banded_candidates(search, r_ops[0], n, parts, b_s, b_i, q_t, precision)
             b_i, b_s = _lex_min(ci, cs)
             picks.append(b_i)
         # Pass order is the kernel-score order; the output contract is
@@ -436,7 +469,8 @@ def _build_aos_topk(m: int, n: int, k: int, kk: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _build_topk_percall(m: int, n: int, k: int, kk: int, method: str = "auto"):
+def _build_topk_percall(m: int, n: int, k: int, kk: int, method: str = "auto",
+                        precision: str = DEFAULT_PRECISION):
     if method == "aos" or (
             method == "auto" and kk <= MAX_NEIGHBORS
             and (m <= 2 or (m <= SMALLM_MAX_M
@@ -449,7 +483,7 @@ def _build_topk_percall(m: int, n: int, k: int, kk: int, method: str = "auto"):
                 f"aos top-K serves K <= {MAX_NEIGHBORS}, got {kk}")
         return _build_aos_topk(m, n, k, kk)
     n_ops = _percall_width(m, n, k, kk, method)
-    run = _build_topk(m, n, k, kk, n_ops, method)
+    run = _build_topk(m, n, k, kk, n_ops, method, precision)
 
     def go(search, ref):
         return run(search, (prep_soa(ref, n_ops),), ref)
@@ -462,8 +496,10 @@ def topk_knn(search, ref, neighbors: int, method: str = "auto", device="cuda"):
 
     Returns (idx (m, K) int32, d2 (m, K) f32) tensors on the inputs'
     device, each row ascending by exact (squared distance, index).
-    Requires neighbors <= n. `method` selects the engine: "aos" (zero-prep
-    scan, m <= 4 and K <= 128 — the per-call default in that regime),
+    Requires neighbors <= n. The engines' kernels score at
+    auto_precision(k, n), tpu_knn's tier. `method` selects the engine:
+    "aos" (zero-prep scan, m <= 4 and K <= 128 — the per-call default in
+    that regime),
     "sweep" (one reference read, K <= SWEEP_MAX_NEIGHBORS), "passes" (K
     banded reads, K <= PASSES_MAX_NEIGHBORS), "seeded" (the extraction
     engine — single-round to K = 64, score-band rounds at ~2 reads per 64
@@ -486,7 +522,8 @@ def topk_knn(search, ref, neighbors: int, method: str = "auto", device="cuda"):
         raise ValueError(
             f"K > {MAX_NEIGHBORS} requires method='seeded' or 'passes', "
             f"got {method!r} with K={neighbors}")
-    return _build_topk_percall(m, n, k, neighbors, method)(search, ref)
+    return _build_topk_percall(m, n, k, neighbors, method,
+                               auto_precision(k, n))(search, ref)
 
 
 # ---- fixed-radius queries ----------------------------------------------

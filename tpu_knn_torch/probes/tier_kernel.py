@@ -148,7 +148,8 @@ def time_rows(names) -> int:
         reps = 5 if k >= 128 else 10
         fn = lambda: tiers.tier_candidates(q, ops, n, parts, precision)  # noqa: E731
         ev = time_ms({row: fn}, reps)[row]
-        dev = sum(device_ms({"fn": fn}, "tensor_candidates", reps).values())
+        dev = sum(device_ms({"fn": fn}, ("CandidatesEpi", "tensor_candidates_norms"),
+                            reps).values())
         out[row] = {"P": parts, "ms": ev, "device_ms": dev}
         print(f"{row}: {precision} {kind} (k={k}, m={m}, n={n}) P={parts}: {ev:.4f} ms "
               f"(device {dev:.4f}) [{card}]")

@@ -55,9 +55,10 @@ def time_ms(fns: dict, reps: int, warmup: int = 2) -> dict:
 PROFILE_PAD_S = 0.01
 
 
-def device_ms(fns: dict, kernel: str, reps: int, attempts: int = 3) -> dict:
+def device_ms(fns: dict, kernel, reps: int, attempts: int = 3) -> dict:
     """Mean device time per round, by kernel name, of the kernels whose
-    name holds `kernel`, from torch.profiler, the fns run once each a
+    name holds `kernel` (a string, or any of a tuple of strings), from
+    torch.profiler, the fns run once each a
     round: the kernels alone, without the host's launch path (argument
     checks, allocations, small set-up kernels) that a CUDA-event span
     around a call also holds while the card waits.
@@ -75,6 +76,7 @@ def device_ms(fns: dict, kernel: str, reps: int, attempts: int = 3) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -89,7 +91,7 @@ def device_ms(fns: dict, kernel: str, reps: int, attempts: int = 3) -> dict:
             time.sleep(PROFILE_PAD_S)
         total, count = {}, {}
         for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
+            if e.device_type == torch.autograd.DeviceType.CUDA and any(k in e.name for k in names):
                 total[e.name] = total.get(e.name, 0.0) + e.device_time / 1e3
                 count[e.name] = count.get(e.name, 0) + 1
         if count and all(c % reps == 0 for c in count.values()):
