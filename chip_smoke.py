@@ -10,9 +10,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    and the ptxas report are printed; any spill in an instance of B3's or
    B7's tiled kernel, of B1's tiled kernel as v3, v6 or B10 (its TMA
    instance), of B5 or B6, of the B8/B9 compactor or of the tensor-core
-   mainloop's instances (B1's tiers and B12, and B4, B3, B5 and B7's tier
-   instances) fails, and so does a v3, v6, B10, B5 or B6
-   instance whose static shared memory is not tuning's mirror of it);
+   mainloop's instances (B1's tiers and B12, B4, B3, B5 and B7's tier
+   instances, and the ladder's: v3's AoS-staged, B10's TMA-staged and v6's
+   live-row instances) fails, and so does a v3, v6, B10, B5 or B6
+   instance whose static shared memory is not tuning's mirror of it, or a
+   ladder tier instance with any static shared memory);
 1. each kernel (B1 fused candidates, B2 small-m candidates, B4 banded
    candidates, B5 sweep candidates, B6 small-m top-K candidates) against
    its plain torch version on the card, at a grid of shapes and at the
@@ -71,7 +73,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    plain versions at the engines' K = 8 launches at ds11 (packed), (128,
    1024, 2^20) and (768, 1024, 2^18) (bf16x3; qsplit2 over a bf16
    operand), B4's K passes bit-equal to B5's lists and B7's remainder
-   minima bit-equal to B3 banded at the same bound; and B2-bf16, bit-equal
+   minima bit-equal to B3 banded at the same bound; the ladder's tier
+   instances (LADDER_TIER_CASES: ds8..ds11 at "packed", bf16x3 at (768,
+   1024, 2^18) and (768, 16, 2^20), k = 12, an (n, k) array whose base is
+   not 16-byte aligned, ragged n, packed2, bf16x4, default): B10's indices
+   bit-equal to B1's tier launch at the same P in two launches, v6's (idx,
+   score) bit-equal to B1's tier at v6's P, v3's where the term lists agree,
+   each against its plain version (agreement, the score error within the
+   tier's gate, the same refined 1-NN); and B2-bf16, bit-equal
    to B2 on the upcast operand; then the bf16 instances (B1, B4, B3, B5 and B7 under the tiled
    template's BF16 policy, and B6-bf16), each bit-equal to its f32
    instance over the upcast operand on a grid (k = 1..128, m past a
@@ -107,7 +116,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    - the 1-NN ladder: the harness runner (tpu_knn_torch.harness.runner)
      over the TA shapes with every registered version, v0's CSV equal to
      the golden file and 0 errors for the rest; v1, v2, v3, v5, v6 and v11
-     at each of ds8..ds11 that its guard admits, against the exact scan;
+     at each of ds8..ds11 that its guard admits, against the exact scan
+     (v3, v5 and v6 at their resolved tier, "packed" there), and v3, v5 and
+     v6 at precision="highest" at ds11 and ds9;
+   - the ladder at embedding width: v3 and v5 at (768, 1024, 2^18), v6 at
+     (768, 16, 2^20) (bf16x3; v6 with its live rows' q parts resident),
+     and smallm_knn(tile_n=) at ds9 (B2's per-call pipeline), gated;
    - auto and projection serving over (3, 2^24): NNIndex(strategy="auto")
      (the probe's certification rate; m = 16 routed to projection, m = 64
      to fused), NNIndex(strategy="projection") at m = 16, and a planted
@@ -171,6 +185,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    at its main-path shape beside B1 "highest" and cuBLAS's bf16 product;
    the store and embed calls), each printed beside the card's name and
    power limit, and the bounds (tensor-core tiers at 989 TFLOP/s bf16);
+   v3's, B10's and v6's tier instances (ds11 packed3; v3 and B10 at (768,
+   1024, 2^18), v6 at (768, 16, 2^20), bf16x3) beside the same rung at
+   "highest" and B1's tier launch, by events and device time, and the
+   ladder's per-call rows at ds8..ds11, v3, v5 and v6 at their tiers;
    each top-K tier instance beside the same launch at "highest" and
    cuBLAS's bf16 product, with its device time, at ds11 and (768, 1024,
    2^18);
@@ -1509,13 +1527,17 @@ def phase2_ladder(device, gen):
     """The runner over the TA shapes with every registered version (v0 the
     baseline; its CSV must be the golden file, every other version 0
     errors), then v1, v2, v3, v5, v6 and v11 at each BIG shape (ds8..ds11)
-    its guard admits, against exact_scan. Returns the BIG data."""
+    its guard admits, against exact_scan (v3, v5 and v6 at their resolved
+    tier, "packed" there: their tensor-core instances); and v3, v5 and v6 at
+    precision="highest" (their tiled f32 kernels) at ds11 and ds9. Returns
+    the BIG data."""
     import torch
 
     import tpu_knn_torch
     from tpu_knn_torch.engine.registry import get_version
     from tpu_knn_torch.harness import runner
     from tpu_knn_torch.harness.generator import BIG_SHAPES, TA_SHAPES
+    from tpu_knn_torch.kernels import dma_pipeline, fused
 
     versions = runner.registered_ladder()
     runner.warm_up(versions, device)
@@ -1550,6 +1572,14 @@ def phase2_ladder(device, gen):
             log(f"  {v} {(k, m, n)}: errors {errors}/{m}")
             if errors:
                 fail(f"{v} {(k, m, n)}: {errors} errors")
+        if (k, m, n) in (DS11, DS9):
+            for v, fn in (("v3", lambda: fused.fused_knn(q, r, soa=False, precision="highest")),
+                          ("v5", lambda: dma_pipeline.dma_knn(q, r, precision="highest")),
+                          ("v6", lambda: fused.const_query_knn(q, r, precision="highest"))):
+                errors = gate_errors(q, r, fn()[0], want)
+                log(f"  {v} {(k, m, n)} precision='highest': errors {errors}/{m}")
+                if errors:
+                    fail(f"{v} {(k, m, n)} precision='highest': {errors} errors")
         del want
     return big
 
@@ -2067,6 +2097,275 @@ def phase3_topk_tiers(card, device, gen, reps, cases=TOPK_TIER_TIMED, kk=TOPK_TI
         torch.cuda.empty_cache()
     for name, ms in times.items():
         log(f"  time {name}: {ms:.4f} ms [{card}]")
+    for name, (ms, by) in bounds.items():
+        log(f"  bound {name}: {ms:.4f} ms ({by})")
+    return times, bounds
+
+
+# ---- the 1-NN ladder at a tier: v3's, v6's and B10's tensor-core instances --
+
+#: Where phase 1 holds the ladder's tier instances (v3's AoS-staged, B10's
+#: TMA-staged, v6's resident-q) to their plain versions and to B1's tier:
+#: (precision, k, m, n, misaligned): the main path's launches (ds8..ds11 at
+#: "packed"; bf16x3 at (768, 1024, 2^18) for v3 and B10 and at (768, 16,
+#: 2^20), v6's live rows), v3's 9 terms at k = 12 (B1's 8), an (n, k) array
+#: whose base is not 16-byte aligned (v3's 4-byte copies), ragged n, packed2,
+#: bf16x3 with 16-row chunks, bf16x4 and default.
+LADDER_TIER_CASES = [("packed", *DS11, False), ("packed", *DS10, False),
+                     ("packed", *DS9, False), ("packed", *DS8, False),
+                     ("packed", 12, 100, 20_077, False), ("packed", 16, 65, 20_077, True),
+                     ("packed", 32, 64, 20_000, False), ("bf16x3", 40, 33, 5003, True),
+                     ("bf16x4", 16, 20, 3000, False), ("default", 16, 50, 5000, False),
+                     ("bf16x3", 768, 1024, 1 << 18, False), ("bf16x3", 768, 16, 1 << 20, False)]
+#: The rungs' rows phase 3 times: (precision, (k, m, n), rungs).
+LADDER_TIER_TIMED = [("packed", DS11, ("v3", "v5", "v6")),
+                     ("bf16x3", (768, 1024, 1 << 18), ("v3", "v5")),
+                     ("bf16x3", (768, 16, 1 << 20), ("v6",))]
+#: Each rung's wrapper, TPU kernel, and the kernels of its tier instance's
+#: and "highest" launch's device time (torch.profiler names, count).
+LADDER_TIER_KERNELS = {
+    "v3": ("aos_candidates", "tpu_knn/kernels/fused.py:318",
+           (("tensor_aos_kernel", "tensor_aos_norms"), 2), ("tiled_candidates", 1)),
+    "v5": ("dma_candidates", "tpu_knn/kernels/dma_pipeline.py:44",
+           (("tensor_tma_kernel", "tensor_candidates_norms"), 2), ("tma_candidates", 1)),
+    "v6": ("const_query_candidates", "tpu_knn/kernels/fused.py:318",
+           (("CandidatesEpi", "tensor_live_kernel", "tensor_candidates_norms"), 2),
+           ("tiled_candidates", 1)),
+}
+
+
+def ladder_calls(q, r, r_op, n, precision):
+    """rung -> (its launch at `precision` and its P, the same rung at
+    "highest" at its own P), over (q, the (n, k) array r, its SoA operand
+    r_op) as v3, v5 and v6 launch them (fused.ladder_parts)."""
+    from tpu_knn_torch.kernels import dma_pipeline, fused
+
+    m, k = q.shape
+    calls = {}
+    for rung, fn, operand in (("v3", fused.aos_candidates, r),
+                              ("v5", dma_pipeline.dma_candidates, r_op),
+                              ("v6", fused.const_query_candidates, r_op)):
+        if rung == "v6" and not fused.const_query_fits(m, k):
+            continue
+        p = fused.ladder_parts(rung, precision, m, k, n)
+        ph = fused.ladder_parts(rung, "highest", m, k, n)
+        calls[rung] = ((lambda fn=fn, o=operand, p=p: fn(q, o, n, p, precision)), p,
+                       (lambda fn=fn, o=operand, p=ph: fn(q, o, n, p)))
+    return calls
+
+
+def phase1_ladder_tiers(device, gen, cases):
+    """v3's, B10's and v6's tier instances against B1's tier launch
+    (tiers.tensor_candidates) and their plain versions, each case on data
+    with an exact tie planted at n // 3 and n // 2:
+    - B10's indices equal B1's tier indices bit for bit at the same P, in
+      two launches (a wrong barrier phase shows as rare wrong candidates);
+    - v6's (idx, score) equal B1's tier's bit for bit at v6's P;
+    - v3's equal B1's tier's bit for bit where the term lists agree (k not
+      9..14), at B1's tier P;
+    - each against its plain version: slot agreement, the score error
+      against f64 within the tier's gate (v3; v6's scores are B1's), and the
+      same refined 1-NN (bare indices for B10), the tie at n // 3, but for
+      near-tie rows within twice the larger measured error.
+    Returns ({row: max |kernel - plain| (B10: of the refined d2)}, {(row,
+    (k, m, n)): the plain version's ms, one call})."""
+    import torch
+
+    from tpu_knn_torch.kernels import dma_pipeline, fused, tiers
+    from tpu_knn_torch.kernels.fused import _refine, select_cutoff
+
+    def exact_d2(q, pts, idx):
+        return ((pts[idx.long()].double() - q.double()) ** 2).sum(dim=-1)
+
+    def same_refine(name, q, pts, got, want, n, cutoff, slack):
+        (gi, gd), (wi, wd) = (_refine(q, pts, c, n, cutoff=cutoff) for c in (got, want))
+        apart = (gi != wi).nonzero().flatten()
+        gap = (exact_d2(q[apart], pts, gi[apart]) - exact_d2(q[apart], pts, wi[apart])).abs()
+        if not bool((gap <= slack).all()) or int(gi[0]) != n // 3:
+            fail(f"{name}: refined answers differ from plain beyond near-ties ({len(apart)} "
+                 f"rows), tie -> {int(gi[0])} (want {n // 3})")
+        return len(apart), (gd - wd)[gi == wi].abs().max().item()
+
+    def beyond_ties(q, pts, ki, pi, slack):
+        """(slots whose kernel and plain columns differ, those of them whose
+        exact (f64) scores differ by more than slack: not a near-tie that
+        two f32 summation orders may resolve apart)."""
+        rows, slots = (ki != pi).nonzero(as_tuple=True)
+        n = pts.shape[0]
+
+        def s64(cols):
+            c = cols.long()
+            p = pts[c.clamp(max=n - 1)].double()
+            s = (p * p).sum(-1) - 2.0 * (p * q[rows].double()).sum(-1)
+            return torch.where(c < n, s, torch.inf)
+
+        gap = (s64(ki[rows, slots]) - s64(pi[rows, slots])).abs()
+        return rows.numel(), int((~(gap <= slack)).sum())
+
+    errs, plain_ms = {}, {}
+    for precision, k, m, n, odd in cases:
+        q, pts, (r_op,) = tier_operands(gen, device, "f32", k, m, n)
+        r = misaligned(pts) if odd else pts
+        shape = (k, m, n)
+        rows = {rung: tiers.ladder_tier_row(rung, precision, k) for rung in ("v3", "v5", "v6")}
+        parts = tiers.tensor_parts(m, n)
+        b1 = tiers.tensor_candidates(q, r_op, n, parts, precision)
+        (pi, ps), t_plain = timed_once(
+            lambda: tiers.tensor_candidates_plain(q, r_op, n, parts, precision))
+        plain_err, _, plain_abs = tiers.score_errors(q, pts, pi, ps)
+        gate = tiers.tier_error_gate(precision, k, plain_err)
+        cutoff = select_cutoff(precision, k)
+        certified = precision not in ("default", "bf16_raw")
+        notes = []
+        # B10
+        for _ in range(2):
+            di = dma_pipeline.dma_candidates(q, r_op, n, parts, precision)
+            if not torch.equal(di, b1[0]):
+                fail(f"{rows['v5']} {shape}: indices differ from B1's tier's")
+        plain_ms[rows["v5"], shape] = t_plain
+        if certified:
+            near, err = same_refine(rows["v5"], q, pts, di, pi, n, cutoff,
+                                    2.0 * max(plain_abs, tiers.score_errors(q, pts, *b1)[2]))
+            errs[rows["v5"]] = max(errs.get(rows["v5"], 0.0), err)
+            notes.append(f"B10 == B1's tier indices twice, refined {near} near-tie rows apart")
+        # v6
+        if fused.const_query_fits(m, k):
+            p6 = tiers.resident_tier_parts(precision, m, k, n)
+            want6 = b1 if p6 == parts else tiers.tensor_candidates(q, r_op, n, p6, precision)
+            vi, vs = fused.const_query_candidates(q, r_op, n, p6, precision)
+            if not (torch.equal(vi, want6[0]) and torch.equal(vs, want6[1])):
+                fail(f"{rows['v6']} {shape}: not bit-equal to B1's tier at P={p6}")
+            if p6 == parts:
+                p6i, p6s = pi, ps
+            else:
+                (p6i, p6s), t6 = timed_once(
+                    lambda: tiers.tensor_candidates_plain(q, r_op, n, p6, precision))
+            plain_ms[rows["v6"], shape] = t_plain if p6 == parts else t6
+            agree = (vi == p6i) & torch.isfinite(p6s)
+            errs[rows["v6"]] = max(errs.get(rows["v6"], 0.0), (vs - p6s)[agree].abs().max().item())
+            apart, beyond = beyond_ties(q, pts, vi, p6i, 2.0 * max(
+                plain_abs, tiers.score_errors(q, pts, vi, vs)[2]))
+            if beyond:
+                fail(f"{rows['v6']} {shape}: {beyond} of {apart} slots apart from plain beyond "
+                     "a near-tie")
+            live = not tiers.tensor_q_resident(tiers.ladder_terms(precision, k), -(-k // 16) * 16)
+            notes.append(f"v6 (P={p6}, {'live rows, one block an SM' if live else 'B1 launch'}) "
+                         f"== B1's tier bit for bit")
+        # v3
+        ai, as_ = fused.aos_candidates(q, r, n, parts, precision)
+        lists_agree = tiers.term_list(precision, k, aos=True) == tiers.term_list(precision, k)
+        if lists_agree and not (torch.equal(ai, b1[0]) and torch.equal(as_, b1[1])):
+            fail(f"{rows['v3']} {shape}: not bit-equal to B1's tier where the term lists agree")
+        (ap, aps), plain_ms[rows["v3"], shape] = timed_once(
+            lambda: fused.aos_candidates_plain(q, r, n, parts, precision))
+        share3 = (ai == ap).float().mean().item()
+        agree = (ai == ap) & torch.isfinite(aps)
+        errs[rows["v3"]] = max(errs.get(rows["v3"], 0.0), (as_ - aps)[agree].abs().max().item())
+        err3, _, abs3 = tiers.score_errors(q, pts, ai, as_)
+        aos_plain_err, _, aos_plain_abs = tiers.score_errors(q, pts, ap, aps)
+        gate3 = tiers.tier_error_gate(precision, k, aos_plain_err)
+        # A slot apart from plain must be a near-tie (at m = 1 one slot is
+        # 1/(P * 128) of the agreement, below MIN_INDEX_AGREEMENT's slack).
+        apart3, beyond3 = beyond_ties(q, pts, ai, ap, 2.0 * max(abs3, aos_plain_abs))
+        if beyond3 or err3 > gate3:
+            fail(f"{rows['v3']} {shape}: {beyond3} of {apart3} slots apart from plain beyond a "
+                 f"near-tie (agreement {share3}), score error {err3} (gate {gate3})")
+        if certified:
+            near, _ = same_refine(rows["v3"], q, pts, (ai, as_), (ap, aps), n, cutoff,
+                                  2.0 * max(abs3, plain_abs))
+            notes.append(f"v3 {'==' if lists_agree else '(9 terms, B1 8)'} B1's tier, plain "
+                         f"agreement {share3:.6f} ({apart3} near-tie slots), score error "
+                         f"{err3:.3g} (gate {gate3:.3g}), refined {near} near-tie rows apart")
+        log(f"  ladder tier instances, {precision} (k={k}, m={m}, n={n}, P={parts}"
+            f"{', misaligned (n, k) base' if odd else ''}): {'; '.join(notes)}; B1 plain "
+            f"{t_plain:.1f} ms, score error {plain_err:.3g} (gate {gate:.3g})")
+        del q, pts, r, r_op, b1, pi, ps, ai, as_, ap, aps
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    return errs, plain_ms
+
+
+def phase2_ladder_tiers(device, gen, wide=(((768, 1024, 1 << 18), ("v3", "v5")),
+                                            ((768, 16, 1 << 20), ("v6",))), small=DS9):
+    """The rungs at embedding width, through knn_callback at their resolved
+    tier (bf16x3): v3 and v5 at (768, 1024, 2^18), v6 at (768, 16, 2^20)
+    (its live rows resident); and smallm_knn(tile_n=) at ds9 (B2's per-call
+    pipeline), each against the exact scan."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels import smallm
+
+    for (k, m, n), versions in wide:
+        q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+        want = exact_scan(q, r)
+        for v in versions:
+            errors = gate_errors(q, r, tpu_knn_torch.knn_callback(k, m, n, q, r, version=v), want)
+            torch.cuda.synchronize(device)
+            log(f"  {v} {(k, m, n)} (bf16x3): errors {errors}/{m}")
+            if errors:
+                fail(f"{v} {(k, m, n)}: {errors} errors")
+        del q, r, want
+    k, m, n = small
+    q, r = uniform(gen, (m, k), device), uniform(gen, (n, k), device)
+    for tile_n in (1024, 1 << 16):
+        idx, _ = smallm.smallm_knn(q, r, tile_n=tile_n)
+        errors = gate_errors(q, r, idx)
+        log(f"  smallm_knn(tile_n={tile_n}) ds9: errors {errors}/{m}")
+        if errors:
+            fail(f"smallm_knn(tile_n={tile_n}) ds9: {errors} errors")
+    torch.cuda.empty_cache()
+
+
+def phase3_ladder_tiers(card, device, gen, reps, cases=LADDER_TIER_TIMED):
+    """Times of v3's, B10's and v6's tier instances at the main path's
+    launches (LADDER_TIER_TIMED), each beside the same rung at "highest"
+    (its tiled f32 kernel at its own P) and B1's tier launch at B1's tier
+    P, by CUDA events and by their kernels' own device time (the
+    instance and its norm pass); bounds: T·2·m·n·k16 over the bf16 peak,
+    or the inputs read once and the candidates written once over the
+    memory rate. Returns (times, bounds)."""
+    import torch
+
+    from tpu_knn_torch.kernels import tiers
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times, bounds = {}, {}
+    for precision, (k, m, n), rungs in cases:
+        q, pts, (r_op,) = tier_operands(gen, device, "f32", k, m, n)
+        calls = ladder_calls(q, pts, r_op, n, precision)
+        parts = tiers.tensor_parts(m, n)
+        tier = tiers.resolved_tier(precision, k)
+        b1 = f"B1 {tier} at ({k}, {m}, {n})"
+        runs = reps if k < 128 else 5
+        fns = {b1: lambda: tiers.tensor_candidates(q, r_op, n, parts, precision)}
+        for rung in rungs:
+            row = tiers.ladder_tier_row(rung, precision, k)
+            fns[f"{row} kernel"] = calls[rung][0]
+            fns[f"{row} highest"] = calls[rung][2]
+        times.update(time_ms(fns, runs))
+        times[f"{b1} device"] = kernel_device_ms(
+            fns[b1], runs, card, ("CandidatesEpi", "tensor_candidates_norms"), 2)
+        terms = len(tiers.ladder_terms(precision, k, aos=False))
+        for rung in rungs:
+            row = tiers.ladder_tier_row(rung, precision, k)
+            (names, count), (hname, hcount) = LADDER_TIER_KERNELS[rung][2:]
+            times[f"{row} kernel device"] = kernel_device_ms(fns[f"{row} kernel"], runs, card,
+                                                             names, count)
+            times[f"{row} highest device"] = kernel_device_ms(fns[f"{row} highest"], runs, card,
+                                                              hname, hcount)
+            t = len(tiers.ladder_terms(precision, k, aos=rung == "v3"))
+            width = 4 if rung == "v5" else 8
+            bounds[row] = roofline(4 * (m * k + k * n) + width * m * 128,
+                                   t * 2 * m * n * (-(-k // 16) * 16), peak=BF16_PEAK_FLOPS)
+            log(f"  {row} ({k}, {m}, {n}): P {calls[rung][1]}, {t} terms; time "
+                f"{times[f'{row} kernel']:.4f} ms (device {times[f'{row} kernel device']:.4f}), "
+                f"'highest' {times[f'{row} highest']:.4f} (device "
+                f"{times[f'{row} highest device']:.4f}), B1 {tier} at P {parts} "
+                f"{times[b1]:.4f} (device {times[f'{b1} device']:.4f}) [{card}]")
+        log(f"  B1 {tier} ({k}, {m}, {n}): {terms} terms")
+        del q, pts, r_op, calls
+        torch.cuda.empty_cache()
     for name, (ms, by) in bounds.items():
         log(f"  bound {name}: {ms:.4f} ms ({by})")
     return times, bounds
@@ -2784,7 +3083,7 @@ def phase3_ladder(card, big, auto_ctx, reps):
     for label, shape, versions in (
             ("ds11", DS11, ("v1", "v2", "v3", "v4", "v5", "v6", "v7")),
             ("ds9", DS9, ("v1", "v2", "v3", "v4", "v5", "v6", "v7")),
-            ("ds8", DS8, ("v11",)), ("ds10", DS10, ("v11",))):
+            ("ds8", DS8, ("v3", "v5", "v6", "v11")), ("ds10", DS10, ("v3", "v5", "v6", "v11"))):
         k_, m_, n_ = shape
         q, rr = big[shape]
         times.update(time_ms({
@@ -2991,6 +3290,47 @@ def check_topk_smem(smem):
     log(f"  B5 and B6 instances and their bf16 instances: static shared memory as "
         f"tuning.sweep_state_bytes, smallm_topk_state_bytes and smallm_bf16_topk_state_bytes "
         f"({checked} instances)")
+
+
+#: The ladder's tier instances in ptxas's report (tensor_ladder_kernels.cu:
+#: tensor_aos_kernel<T, KC, RES, ONE>, tensor_tma_kernel<...>,
+#: tensor_live_kernel<T, KC>, and v3's norm pass).
+LADDER_ENTRIES = {"v3's tier instances (AoS staging)": "tensor_aos_kernel",
+                  "B10's tier instances (TMA staging)": "tensor_tma_kernel",
+                  "v6's live-row instances": "tensor_live_kernel",
+                  "v3's norm pass": "tensor_aos_norms_kernel"}
+
+
+def check_ladder_smem(smem):
+    """The ladder's tier instances take no static shared memory (ptxas):
+    their shared memory is the dynamic plan that tiers mirrors
+    (tensor_smem for v3 and B10, B1's plan to the byte; tensor_live_smem for
+    v6's live rows), and the TMA instances' ring starts at the window's
+    first byte, 128-byte aligned, as their boxes need. Logs each plan at the
+    main path's launches."""
+    import re
+
+    from tpu_knn_torch.kernels import tiers
+
+    checked = 0
+    for entry, nbytes in smem.items():
+        if re.search("tensor_(aos|tma|live)_kernel", entry):
+            if nbytes != 0:
+                fail(f"{entry}: {nbytes} bytes of static shared memory, the plan has none")
+            checked += 1
+    # v3 16 (T = 1, 3: 16- and 32-row chunks, q resident or in the ring, and
+    # the one-chunk tile; T = 4 the same but no ring at 32 rows; T = 8, 9:
+    # one-chunk tiles), B10 15 (T = 4 at 16 rows only), v6's live rows 6 (T =
+    # 1, 3, 4 at 16 and 32).
+    if checked != 16 + 15 + 6:
+        fail(f"checked {checked} ladder tier instances, expected {16 + 15 + 6}")
+    plans = {"ds11 packed (v3, B10)": tiers.tensor_smem(0, tiers.term_list("packed", 16), 16, 16),
+             "(768, *) bf16x3 (v3, B10)": tiers.tensor_smem(0, tiers.term_list("bf16x3", 768),
+                                                            32, 768),
+             "(768, 16) bf16x3 (v6, live rows)": tiers.tensor_live_smem(
+                 tiers.term_list("bf16x3", 768), 16, 768)}
+    log(f"  ladder tier instances: no static shared memory ({checked} instances); dynamic "
+        f"plans (tiers) {plans}")
 
 
 def check_tiled_smem(smem):
@@ -4213,7 +4553,9 @@ def main() -> int:
             "B1-bf16 and B4-bf16 (the tiled kernel, BF16 policy)": "tiled_bf16_candidates_kernel",
             "B3-bf16": "bf16_minima_kernel", "B7-bf16": "bf16_moments_kernel",
             "B5-bf16": SWEEP_BF16_ENTRY, "B6-bf16 (K-lists over B2-bf16's loads)":
-                SMALLM_BF16_TOPK_ENTRY, "v10 (KD-tree traversal)": "kdtree_traverse_kernel"})
+                SMALLM_BF16_TOPK_ENTRY, "v10 (KD-tree traversal)": "kdtree_traverse_kernel",
+            **{name: pattern for name, pattern in LADDER_ENTRIES.items()}})
+        check_ladder_smem(smem)
         check_tiled_smem(smem)
         check_topk_smem(smem)
         check_scan_smem(smem)
@@ -4478,6 +4820,14 @@ def main() -> int:
     gen_topk_tiers.manual_seed(1013)
     topk_tier_errs, topk_tier_plain = phase1_topk_tiers(device, gen_topk_tiers, TOPK_TIER_CASES)
     errs.update(topk_tier_errs)
+    # The ladder's tier instances (v3, B10, v6) against B1's tier and their
+    # plain versions, from a generator of their own.
+    gen_ladder_tiers = torch.Generator(device=device)
+    gen_ladder_tiers.manual_seed(1014)
+    ladder_tier_errs, ladder_tier_plain = phase1_ladder_tiers(device, gen_ladder_tiers,
+                                                              LADDER_TIER_CASES)
+    errs.update(ladder_tier_errs)
+    stamp("phase 1 ladder tier instances")
     for row, err in passes_errs.items():
         errs[row] = max(errs.get(row, 0.0), err)
     torch.cuda.empty_cache()
@@ -4531,6 +4881,10 @@ def main() -> int:
     tier_rows.update({f"{kid}{bf} {t}": f"{kid}{bf} {t}" for kid in TOPK_TIER_KERNELS
                       for bf in ("", "-bf16")
                       for t in ("packed3", "packed2", "bf16x3", "bf16x4", "qsplit2", "default")})
+    # The ladder's tier instances count by their row ("B1 v3 packed3", "B10
+    # bf16x3", "B1 v6 packed3", ...).
+    tier_rows.update({f"{row} {t}": f"{row} {t}" for row in ("B1 v3", "B10", "B1 v6")
+                      for t in ("packed3", "packed2", "bf16x3", "bf16x4", "default")})
     # The bf16 instances count in their wrapper's .bf16_launches.
     counters = [*wrappers, *tier_rows, *BF16_ROWS]
 
@@ -4571,8 +4925,15 @@ def main() -> int:
                                         lambda: phase2_seeded(device, cases))
     log("phase 2: the 1-NN ladder (the runner; v1, v2, v3, v5, v6, v11 at ds8..ds11)")
     big, counts_ladder = drive("ladder", ("B10", "B11", "B1 AoS (v3)",
-                                          "B1 constant-query (v6)", "B1 packed3"),
+                                          "B1 constant-query (v6)", "B1 packed3",
+                                          "B1 v3 packed3", "B10 packed3", "B1 v6 packed3"),
                                lambda: phase2_ladder(device, gen))
+    log("phase 2: the ladder at embedding width (v3, v5, v6 at bf16x3) and smallm_knn(tile_n=)")
+    gen_lt = torch.Generator(device=device)
+    gen_lt.manual_seed(1015)
+    _, counts_ladder_tiers = drive("ladder tiers", ("B1 v3 bf16x3", "B10 bf16x3", "B1 v6 bf16x3",
+                                                    "B2"),
+                                   lambda: phase2_ladder_tiers(device, gen_lt))
     log("phase 2: auto and projection serving")
     auto_ctx, counts_auto = drive("auto/projection", ("B1", "B11", "B1 packed3"),
                                   lambda: phase2_auto(device, gen))
@@ -4643,7 +5004,8 @@ def main() -> int:
         lambda: phase2_persist(device, gens["persist"], persist_dir))
     # The "B1 k=768" row counts that path's launches, the B1 row the others'.
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
-                                             counts_ladder, counts_auto, counts_tiers,
+                                             counts_ladder, counts_ladder_tiers, counts_auto,
+                                             counts_tiers,
                                              counts_stores, counts_store_topk,
                                              counts_tier_topk, counts_metrics,
                                              counts_mutable, counts_views, counts_kdtree,
@@ -4666,6 +5028,12 @@ def main() -> int:
     ladder_times, ladder_bounds = phase3_ladder(card, big, auto_ctx, reps=10)
     times.update(ladder_times)
     stamp("phase 3 ladder")
+    gen_lt3 = torch.Generator(device=device)
+    gen_lt3.manual_seed(1033)
+    ladder_tier_times, ladder_tier_bounds = phase3_ladder_tiers(card, device, gen_lt3, reps=10)
+    times.update(ladder_tier_times)
+    torch.cuda.empty_cache()
+    stamp("phase 3 ladder tier instances")
     del big, auto_ctx
     torch.cuda.empty_cache()
     tier_times, tier_bounds = phase3_tiers(card, device, gen, reps=10)
@@ -4865,6 +5233,26 @@ def main() -> int:
                 "library_ms": None, "matmul_part_ms": times[f"{row} matmul part"],
                 "highest_ms": times[f"{row} highest"],
                 "device_ms": times[f"{row} kernel device"]})
+    # The ladder's tier instances: v3, B10 and v6 at the main path's ds11
+    # launch (packed3) and at k = 768 (bf16x3: v3 and B10 at (768, 1024,
+    # 2^18), v6 with its live rows at (768, 16, 2^20)); "highest_ms" the same
+    # rung on its tiled f32 kernel, "b1_tier_ms" B1's tier launch at its P.
+    for precision, (k, m, n), rungs in LADDER_TIER_TIMED:
+        tier = tiers.resolved_tier(precision, k)
+        for rung in rungs:
+            row = tiers.ladder_tier_row(rung, precision, k)
+            wrapper, replaces = LADDER_TIER_KERNELS[rung][:2]
+            kernels.append({
+                "name": f"{row} {wrapper} (k={k}, m={m}, n={n})", "route": "cuda",
+                "source": "tpu_knn_torch/csrc/tensor_ladder_kernels.cu", "replaces": replaces,
+                "launches": launches[row], "max_abs_err": errs[row],
+                "ms": times[f"{row} kernel"], "plain_ms": ladder_tier_plain[row, (k, m, n)],
+                "bound_ms": ladder_tier_bounds[row][0], "bound_by": ladder_tier_bounds[row][1],
+                "library_ms": None, "device_ms": times[f"{row} kernel device"],
+                "highest_ms": times[f"{row} highest"],
+                "highest_device_ms": times[f"{row} highest device"],
+                "b1_tier_ms": times[f"B1 {tier} at ({k}, {m}, {n})"],
+                "b1_tier_device_ms": times[f"B1 {tier} at ({k}, {m}, {n}) device"]})
     log(f"version {tpu_knn_torch.__version__}; {card}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

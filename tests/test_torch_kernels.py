@@ -1253,3 +1253,123 @@ def test_tier_instances_raise_on_the_presplit_tier_and_a_depth_2_band(device):
         fused.banded_candidates(q, r_op, 3000, 2, b, b.int(), precision="bf16x3_presplit")
     with pytest.raises(ValueError, match="depth 1"):
         fused.minima_candidates(q, r_op, 3000, depth=2, lo=b, precision="packed")
+
+
+# ---- the 1-NN ladder at a tier: v3's, v6's and B10's tensor-core instances
+
+# (precision, k, m, n, P, misaligned): every term list the rungs take
+# (packed's 9, 8 and 4 terms, bf16x3 with 16- and 32-row chunks, its q
+# parts resident and in the ring, bf16x4, default), m past a 64-row block
+# and m = 1, n ragged against 128 and a column tile; v3 over a (n, k) array
+# at k % 4 != 0 and over one whose base is not 16-byte aligned (its 4-byte
+# copies), and at k = 12, where its AoS term list (9 terms) is not B1's (8).
+LADDER_TIER_CASES = [
+    ("packed", 3, 40, 1000, 1, False), ("packed", 12, 65, 3001, None, False),
+    ("packed", 16, 100, 70_000, 7, False), ("packed", 16, 65, 5003, 3, True),
+    ("packed", 24, 9, 5000, 4, False), ("packed", 32, 1, 20_077, None, False),
+    ("bf16x3", 40, 33, 5000, 3, False), ("bf16x3", 128, 70, 20_000, None, False),
+    ("bf16x3", 768, 64, 3000, 2, False), ("bf16x3_presplit", 40, 20, 3000, 2, False),
+    ("bf16x4", 16, 20, 3000, 2, False), ("bf16x4", 40, 9, 3001, 1, True),
+    ("default", 16, 50, 5000, 2, False), ("bf16_raw", 40, 10, 3000, 1, False),
+]
+
+
+@pytest.mark.parametrize("precision,k,m,n,parts,misaligned", LADDER_TIER_CASES)
+def test_ladder_tier_instances_are_b1s_tier(device, precision, k, m, n, parts, misaligned):
+    """B10's tier instance gives B1's tier indices bit for bit at the same
+    P (twice: a wrong barrier phase shows as rare wrong candidates), v6's
+    B1's (idx, score) where its guard admits the shape, and v3's B1's
+    where the term lists agree; v3 also against its plain version (slot
+    agreement, the score error within the tier's gate, the same refined
+    1-NN, the planted duplicate resolving to the lower column). Each
+    launch counts once in its row of tiers.TIER_LAUNCHES."""
+    q, r, r_op = _inputs(device, m, k, n, seed=11 * k + m)
+    if misaligned:
+        r = _misaligned(r, 1)
+    parts = parts or tiers.tensor_parts(m, n)
+    want = tiers.tensor_candidates(q, r_op, n, parts, precision)
+
+    def launched(rung, fn):
+        row = tiers.ladder_tier_row(rung, precision, k)
+        before = tiers.TIER_LAUNCHES[row]
+        out = fn()
+        torch.cuda.synchronize()
+        assert tiers.TIER_LAUNCHES[row] == before + 1
+        return out
+
+    for _ in range(2):
+        got = launched("v5", lambda: dma_pipeline.dma_candidates(q, r_op, n, parts, precision))
+        assert got.shape == (m, parts * 128) and torch.equal(got, want[0])
+    if fused.const_query_fits(m, k):
+        got = launched("v6", lambda: fused.const_query_candidates(q, r_op, n, parts, precision))
+        assert _bits_equal(got, want)
+    ki, ks = launched("v3", lambda: fused.aos_candidates(q, r, n, parts, precision))
+    if tiers.term_list(precision, k, aos=True) == tiers.term_list(precision, k):
+        assert _bits_equal((ki, ks), want)
+    pi, ps = fused.aos_candidates_plain(q, r, n, parts, precision)
+    assert (ki == pi).float().mean().item() >= 0.999
+    plain_err = tiers.score_errors(q, r, pi, ps)[0]
+    assert tiers.score_errors(q, r, ki, ks)[0] <= tiers.tier_error_gate(precision, k, plain_err)
+    if precision not in ("default", "bf16_raw"):
+        cutoff = select_cutoff(precision, k)
+        got = _refine(q, r, (ki, ks), n, cutoff=cutoff)[0]
+        assert torch.equal(got, _refine(q, r, (pi, ps), n, cutoff=cutoff)[0])
+        assert int(got[0]) == n // 2
+
+
+@pytest.mark.parametrize("precision,k,m,n", [
+    ("bf16x3", 768, 16, 5000), ("bf16x3", 256, 64, 20_077), ("bf16x3", 128, 100, 5003),
+    ("bf16x4", 7000, 2, 300), ("default", 16384, 1, 2000), ("bf16x3", 80, 200, 3000),
+])
+def test_v6_tier_instance_keeps_the_live_rows_resident(device, precision, k, m, n):
+    """Where a 64-row block's q parts exceed the resident budget (k > 80),
+    v6's instance keeps the live rows' parts (one block an SM) and still
+    gives B1's tier candidates bit for bit, at the guard's extremes (k m =
+    16384) and over two row tiles (m = 100: 64 + 36 live rows); at k = 80
+    the parts fit and v6 is B1's own launch."""
+    assert fused.const_query_fits(m, k)
+    terms = tiers.ladder_terms(precision, k)
+    k16 = -(-k // 16) * 16
+    assert tiers.tensor_q_resident(terms, k16) == (k <= 80)
+    assert tiers.tensor_live_q_bytes(terms, m, k16) <= tiers.TENSOR_Q_LIVE_BYTES
+    q, r, r_op = _inputs(device, m, k, n, seed=k + m)
+    parts = tiers.resident_tier_parts(precision, m, k, n)
+    want = tiers.tensor_candidates(q, r_op, n, parts, precision)
+    got = fused.const_query_candidates(q, r_op, n, parts, precision)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    cutoff = select_cutoff(precision, k)
+    if precision != "default":
+        assert int(_refine(q, r, got, n, cutoff=cutoff)[0][0]) == n // 2
+
+
+def test_ladder_tier_wrappers_raise(device):
+    """qsplit2 needs a bf16-exact operand, which the rungs' f32 points are
+    not; v6 keeps the reference's guard; B10's tensor map needs a 128-float
+    row stride; nothing falls back."""
+    q, r, r_op = _inputs(device, 8, 16, 1000, seed=5)
+    with pytest.raises(ValueError, match="qsplit2"):
+        fused.aos_candidates(q, r, 1000, 2, "qsplit2")
+    with pytest.raises(ValueError, match="qsplit2"):
+        dma_pipeline.dma_candidates(q, r_op, 1000, 2, "qsplit2")
+    with pytest.raises(ValueError, match="guard"):
+        fused.const_query_candidates(torch.rand((2000, 16), device=device), r_op, 1000, 2,
+                                     "packed")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        dma_pipeline.dma_candidates(q, prep_soa(r, 1000), 1000, 2, "packed")
+
+
+@pytest.mark.parametrize("k,m,n,tile_n", [(16, 1, 70_001, 1024), (3, 4, 5000, 128),
+                                          (32, 2, 1 << 16, 512)])
+def test_smallm_knn_tile_n_is_b2s_pipeline(device, k, m, n, tile_n):
+    """smallm_knn(tile_n=) runs B2 over the tile_n-padded SoA operand and
+    the exact refine: the AoS scan's answers, one B2 launch."""
+    q, r, _ = _inputs(device, m, k, n, seed=n + k)
+    before = smallm.smallm_candidates.launches
+    got = smallm.smallm_knn(q, r, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert smallm.smallm_candidates.launches == before + 1
+    want = smallm.smallm_knn(q, r)
+    assert torch.equal(got[0], want[0])
+    assert torch.allclose(got[1], want[1], rtol=1e-6, atol=0.0)
+    assert int(got[0][0]) == n // 2

@@ -278,23 +278,35 @@ def test_cuda_launch_geometry_covers_n():
 
 
 def test_b1_variants_take_b1s_geometry(monkeypatch):
-    """v3 launches at B1's geometry (tiled_geometry) at every k; v6 at
-    resident_geometry's, which is tiled_geometry's wherever two blocks with
-    their resident query rows fit an SM, else a smaller TM (and one block
-    per SM only at m <= 8, near the guard)."""
+    """At "highest" v3 launches at B1's geometry (tiled_geometry) at every
+    k; v6 at resident_geometry's, which is tiled_geometry's wherever two
+    blocks with their resident query rows fit an SM, else a smaller TM (and
+    one block per SM only at m <= 8, near the guard). At their resolved
+    tier (precision=None) they take their tensor-core instances' P: B1's
+    tier geometry for v3 (tiers.tensor_parts), v6's (tiers.resident_tier_parts)."""
+    from tpu_knn_torch.kernels import tiers as pt_tiers
+
     calls = []
     for name in ("aos_candidates", "const_query_candidates"):
         orig = getattr(pt_fused, name)
-        monkeypatch.setattr(pt_fused, name, lambda q, r, n, parts, orig=orig, name=name:
-                            calls.append((name, parts)) or orig(q, r, n, parts))
+        monkeypatch.setattr(pt_fused, name,
+                            lambda q, r, n, parts, precision="highest", orig=orig, name=name:
+                            calls.append((name, parts)) or orig(q, r, n, parts, precision))
     rng = np.random.default_rng(7)
     for m, k, n in ((8, 3, 5000), (40, 40, 9001), (3, 500, 3000), (1, 16, 70_000)):
         q, r = rng.random((m, k), np.float32), rng.random((n, k), np.float32)
         calls.clear()
-        pt_fused.fused_knn(q, r, soa=False, device="cpu")
-        pt_fused.const_query_knn(q, r, device="cpu")
+        pt_fused.fused_knn(q, r, soa=False, precision="highest", device="cpu")
+        pt_fused.const_query_knn(q, r, precision="highest", device="cpu")
         assert calls == [("aos_candidates", pt_tuning.tiled_geometry(m, k, n).parts),
                          ("const_query_candidates", pt_tuning.resident_geometry(m, k, n).parts)]
+        calls.clear()
+        pt_fused.fused_knn(q, r, soa=False, device="cpu")
+        pt_fused.const_query_knn(q, r, device="cpu")
+        tier = pt_fused.auto_precision(k, n)
+        assert calls == [("aos_candidates", pt_tiers.tensor_parts(m, n)),
+                         ("const_query_candidates",
+                          pt_tiers.resident_tier_parts(tier, m, k, n))]
     for m in MS[1:]:
         for k in KS:
             if not pt_fused.const_query_fits(m, k):
@@ -899,13 +911,14 @@ def test_hopper_launch_geometry_fits(monkeypatch):
                 assert pt_tuning.resident_blocks_per_sm(m, k, tm) >= 1
     calls = []
     orig = pt_dma.dma_candidates
-    monkeypatch.setattr(pt_dma, "dma_candidates", lambda q, r_op, n, parts: calls.append(
-        (r_op.stride(0), parts)) or orig(q, r_op, n, parts))
+    monkeypatch.setattr(pt_dma, "dma_candidates",
+                        lambda q, r_op, n, parts, precision="highest": calls.append(
+                            (r_op.stride(0), parts)) or orig(q, r_op, n, parts, precision))
     rng = np.random.default_rng(9)
     for m, k, n in ((8, 3, 5000), (40, 40, 9001), (1, 250, 3000), (3, 2048, 700)):
         q, r = rng.random((m, k), np.float32), rng.random((n, k), np.float32)
         calls.clear()
-        pt_dma.dma_knn(q, r, device="cpu")
+        pt_dma.dma_knn(q, r, precision="highest", device="cpu")
         assert calls == [(calls[0][0], pt_tuning.tiled_geometry(m, k, n).parts)], (m, k, n)
         assert calls[0][0] % 128 == 0      # the stride B10's tensor map takes
     for n in NS[3:]:
@@ -1043,3 +1056,100 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
             parts = tiers.tensor_topk_parts(kernel, m, n)
             unit = 128 if kernel == "B5" else 256
             assert 1 <= parts <= -(-n // unit)
+
+
+class _Resolved(Exception):
+    """Raised by a spy once it has seen the tier a path resolved."""
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 12, 14, 15, 16, 17, 24, 32, 33, 40, 128])
+def test_ladder_paths_resolve_tpu_knns_tier(k, monkeypatch):
+    """v3 (fused_knn(soa=False)), v5 (dma_knn) and v6 (const_query_knn)
+    hand their kernels tpu_knn's tier at precision=None: auto_precision(k,
+    n), read where each tpu_knn builder is called (_build_fused for v3 and
+    v6, _build_dma for v5) on the same (k, m, n); an explicit tier passes
+    through, bf16x3_presplit too. v3's "packed" runs tpu_knn's unpadded AoS
+    term list, `_packed_terms(k)` (9 terms at k = 9..14, where the SoA
+    paths' round_up(k, 8) gives 8), and its cutoff still resolves through
+    round_up(k, 8)."""
+    from tpu_knn.kernels import dma_pipeline as jx_dma
+    from tpu_knn_torch.kernels import dma_pipeline as pt_dma
+    from tpu_knn_torch.kernels import tiers
+
+    seen = []
+
+    def spy(*args):
+        seen.append(args[-1])
+        raise _Resolved
+
+    monkeypatch.setattr(jx_fused, "_build_fused", lambda *a: spy(*a))
+    monkeypatch.setattr(jx_dma, "_build_dma", lambda *a: spy(*a))
+    monkeypatch.setattr(pt_fused, "aos_candidates", lambda *a: spy(*a))
+    monkeypatch.setattr(pt_fused, "const_query_candidates", lambda *a: spy(*a))
+    monkeypatch.setattr(pt_dma, "dma_candidates", lambda *a: spy(*a))
+    runs = {
+        "v3": (lambda q, r, p: jx_fused.fused_knn(q, r, soa=False, precision=p),
+               lambda q, r, p: pt_fused.fused_knn(q, r, soa=False, precision=p, device="cpu")),
+        "v5": (lambda q, r, p: jx_dma.dma_knn(q, r, precision=p),
+               lambda q, r, p: pt_dma.dma_knn(q, r, precision=p, device="cpu")),
+        "v6": (lambda q, r, p: jx_fused.fused_knn(q, r, soa=True, tile_m=-(-q.shape[0] // 8) * 8,
+                                                  precision=p),
+               lambda q, r, p: pt_fused.const_query_knn(q, r, precision=p, device="cpu")),
+    }
+    for m in (1, 4, 16, 64):
+        for n in (100, 3000):
+            q, r = np.zeros((m, k), np.float32), np.ones((n, k), np.float32)
+            for rung, (jx, pt) in runs.items():
+                if rung == "v6" and not pt_fused.const_query_fits(m, k):
+                    continue
+                for precision in (None, "bf16x4", "bf16x3_presplit", "highest"):
+                    seen.clear()
+                    for call in (jx, pt):
+                        with pytest.raises(_Resolved):
+                            call(q, r, precision)
+                    assert seen[0] == seen[1], (rung, m, n, precision, seen)
+                    assert seen[0] == (precision or jx_fused.auto_precision(k, n))
+    n_splits, pairs = jx_fused._packed_terms(k)
+    want = tuple(pairs) if n_splits else tiers.term_list("bf16x3", k)
+    assert tiers.term_list("packed", k, aos=True) == want
+    assert len(want) == (9 if k <= 14 else 8 if k <= 16 else 4 if k <= 32 else 3)
+    assert tiers.resolved_tier("packed", k, aos=True) == (
+        {3: "packed3", 2: "packed2"}.get(n_splits, "bf16x3"))
+    assert pt_fused.select_cutoff("packed", k) == jx_fused.select_cutoff("packed", k)
+
+
+def test_v6_live_instance_plan_fits_one_block_an_sm():
+    """v6's tier instance keeps its q parts resident at every shape its
+    guard admits: B1's own launch where a 64-row block's parts fit
+    TENSOR_Q_RESIDENT_BYTES (every k <= 80, ds11 among them), else the
+    live rows' parts within TENSOR_Q_LIVE_BYTES (csrc kQResidentLiveBytes),
+    whose plan (tiers.tensor_live_smem, csrc launch_ladder) fits one block
+    an SM beside a 4-stage ring; P is then one block an SM's."""
+    import os
+    import re
+
+    from tpu_knn_torch.kernels import tiers
+
+    csrc = os.path.join(os.path.dirname(tiers.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "tensor_mainloop.cuh")) as f:
+        live = re.search(r"kQResidentLiveBytes = (\d+) \* 1024;", f.read())
+    assert int(live.group(1)) * 1024 == tiers.TENSOR_Q_LIVE_BYTES
+    budget = min(tiers.SMEM_PER_SM - tiers.SMEM_PER_BLOCK_RESERVED, tiers.SMEM_PER_BLOCK)
+    for precision in ("bf16x3", "bf16x4", "default", "bf16x3_presplit", "packed"):
+        for k in list(range(1, 200, 7)) + [256, 768, 1000, 2048, 7000, 16368, 16384]:
+            terms = tiers.ladder_terms(precision, k)
+            k16 = -(-k // 16) * 16
+            for m in (1, 2, 3, 16, 63, 64, 65, 100, 1024):
+                if not pt_fused.const_query_fits(m, k):
+                    continue
+                if tiers.tensor_q_resident(terms, k16):
+                    assert k16 <= (96 if len(terms) > 1 else 192)
+                    continue
+                assert tiers.tensor_live_q_bytes(terms, m, k16) <= tiers.TENSOR_Q_LIVE_BYTES
+                kc = tiers.tensor_chunk(k16)
+                assert tiers.tensor_live_stages(terms, kc) == 4
+                assert tiers.tensor_live_smem(terms, m, k16) <= budget
+                one_block = pt_tuning._wave_parts(-(-m // 64) * 4, 8192, 4, 1)
+                assert tiers.resident_tier_parts(precision, m, k, 1 << 20) == one_block
+    assert tiers.resident_tier_parts("packed", 1024, 16, 1 << 20) == tiers.tensor_parts(
+        1024, 1 << 20)

@@ -219,13 +219,23 @@ def test_certification_checks():
         pt_fused.fused_knn(q, r, precision="qsplit2", device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
         pt_fused.fused_knn(q, r, precision="tf32", device="cpu")
-    # The paths that keep B1's f32 kernel name the ROADMAP item.
-    with pytest.raises(NotImplementedError, match="A.2"):
-        pt_fused.fused_knn(q, r, soa=False, precision="packed", device="cpu")
+    # v3 (soa=False), v5 and v6 answer at every certified tier, and certify
+    # theirs as fused_knn does.
     from tpu_knn_torch.kernels.dma_pipeline import dma_knn
 
-    with pytest.raises(NotImplementedError, match="A.2"):
-        dma_knn(q, r, precision="bf16x3", device="cpu")
+    want = pt_fused.fused_knn(q, r, precision="highest", device="cpu")[0]
+    for precision in ("packed", "bf16x3", "bf16x4", "bf16x3_presplit", "default", "highest"):
+        for got in (pt_fused.fused_knn(q, r, soa=False, precision=precision, device="cpu"),
+                    dma_knn(q, r, precision=precision, device="cpu"),
+                    pt_fused.const_query_knn(q, r, precision=precision, device="cpu")):
+            assert torch.equal(got[0], want), precision
+    for call in (lambda p: pt_fused.fused_knn(q, r, soa=False, precision=p, device="cpu"),
+                 lambda p: dma_knn(q, r, precision=p, device="cpu"),
+                 lambda p: pt_fused.const_query_knn(q, r, precision=p, device="cpu")):
+        with pytest.raises(ValueError, match="qsplit2"):
+            call("qsplit2")
+        with pytest.raises(ValueError, match="selection-approximate"):
+            call("bf16_raw")
 
 
 def test_precision_none_resolves_as_tpu_knn(monkeypatch):

@@ -268,7 +268,8 @@ def test_cuda_sources_ship_and_build_is_content_hashed(monkeypatch):
     assert [os.path.basename(s) for s in build.sources()] == [
         "fused_kernels.cu", "kdtree_kernels.cu", "knn_common.cuh", "kselect.cuh",
         "seeded_kernels.cu", "smallm_kernels.cu", "sweep_kernels.cu",
-        "tensor_banded_kernels.cu", "tensor_kernels.cu", "tensor_mainloop.cuh",
+        "tensor_banded_kernels.cu", "tensor_kernels.cu", "tensor_ladder_kernels.cu",
+        "tensor_mainloop.cuh",
         "tensor_minima_kernels.cu", "tensor_moments_kernels.cu", "tensor_sweep_kernels.cu",
         "tiled.cuh", "window_kernels.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -1,0 +1,504 @@
+// The 1-NN ladder's rungs at tpu_knn's score tier: B1's v3 and v6 variants
+// and B10 as instances of the tensor-core mainloop (tensor_mainloop.cuh),
+// for every term-list tier (tiers.term_list; "highest" stays on the tiled
+// f32 kernels of fused_kernels.cu).
+//
+// v3 at a tier — replaces tpu_knn/kernels/fused.py:318 _fused_kernel built
+// with soa=False (fused.py:340, _score_tile over the AoS block) at the tier
+// fused_knn resolves: the mainloop under the AoS staging policy, reading
+// the caller's row-major (n, k) array with no per-call SoA relayout. A lane
+// slice's 32 columns of one group are 32 consecutive points, so a stage's
+// chunk of them is KC values of each point (one contiguous span of 128 k
+// bytes at k == KC, else KC values every k): 16-byte cp.async copies of
+// four values where the array's base and row stride allow, else 4-byte
+// ones, into a [slot][d] stage whose 16-byte quads are XOR-swizzled by slot
+// (AosStaging::offset), so the split's float4 reads of eight consecutive
+// slots fall in eight distinct quads of the 128 banks. The split that runs
+// once per staged f32 chunk transposes it: a thread reads four d of one
+// slot, trades two of them with the neighbouring slot's thread (one shuffle
+// each), and writes two rows of the column pair's bf16x2 part words into
+// the k-major planes, which the ldmatrix/mma path then reads as B1's. The
+// ring keeps B1's bytes and depth. ‖r‖² is one fmaf chain over each (n, k)
+// row, d = 0..k-1 (tensor_aos_norms_kernel), B1's chain over the same
+// values, so where the term lists agree v3's scores are B1's bit for bit.
+// tpu_knn does not pad k in an AoS block (fused.py:402-405), so "packed"
+// takes _packed_terms(k): 9 terms at k = 9..14 (B1's packed3 at k_pad 8),
+// where the SoA path takes 8.
+//
+// B10 at a tier — replaces tpu_knn/kernels/dma_pipeline.py:44 _dma_kernel
+// at the tier dma_knn resolves: the mainloop under the TMA staging policy,
+// indices only. A stage's r part is KC rows x 4 groups of 32 lanes, the
+// groups 128 floats apart: one 3-D tensor map (lanes, groups at a 512-byte
+// stride, rows at ld) with box (32, 4, KC) lands it as [d][group][lane],
+// B1's SoA stage, so the split and everything after it are B1's and B10's
+// indices equal B1's at the same P bit for bit. Thread 0 arms the stage's
+// mbarrier with the box's bytes (rows past k and groups past ld / 128 come
+// back zero and count) and issues the copy; every thread waits on the
+// stage's phase parity after its cp.async wait (the |r|^2 row and the q
+// parts stay on cp.async). The barriers sit in the part planes' row
+// padding (bf16 columns 128..135, which no fragment reads), so the plan is
+// B1's to the byte and the ring as deep.
+//
+// v6 at a tier — replaces _fused_kernel as tpu_knn's v6 builds it
+// (fused_knn(soa=True, tile_m=round_up(m, 8)), fused.py:1044-1050): the q
+// parts stay resident in shared memory at every shape v6's guard admits (k
+// m <= 16384 floats). Where a 64-row block's parts fit kQResidentBytes
+// (every k <= 80, ds11 among them) that is B1's own tier launch
+// (tk_tensor_candidates). Above, the instance keeps the parts of the
+// block's live rows only (LIVE: at most 16384 + 64 * 15 values a part,
+// 96 KB with the pad, kQResidentLiveBytes) and runs one block an SM, whose
+// shared memory holds them beside a ring as deep as B1's; a fragment row
+// past the live rows reads the last live row, and its scores are never
+// written.
+//
+// Bound on the H100: as B1's tiers, tensor-core operations T * 2 * m * n *
+// k16 at 989 TFLOP/s, beside which the operand is read once (at m of a few
+// rows the read, 4 k n bytes).
+//
+// Each instance runs two 8-warp blocks an SM but LIVE's one.
+
+#include <type_traits>
+
+#include "tensor_mainloop.cuh"
+#include "tiled.cuh"
+
+namespace {
+
+// ---- the staging policies --------------------------------------------------
+
+// The AoS policy (v3): the r part of a stage is [slot][KC] f32, slot s's
+// 16-byte quad qd at quad qd ^ swizzle(s) of its row, so the eight slots of
+// a float4 read phase (or of a copy phase) land in eight distinct quads of
+// 128 bytes: with 4 quads a row (KC 16) two rows share 128 bytes and the
+// swizzle is (s / 2) % 4, with 8 (KC 32) it is s % 8. Bytes: B1's stage.
+struct AosStaging : SoaStaging {
+  template <int KC>
+  static __device__ __forceinline__ int offset(int s, int qd) {
+    constexpr int Q = KC / 4;  // quads a slot
+    static_assert(Q == 4 || Q == 8, "16- or 32-row chunks");
+    return s * KC + 4 * (qd ^ ((s / (8 / Q)) & (Q - 1)));
+  }
+
+  // The chunk's copies: with 16-byte copies (ld % 4 == 0, a 16-byte
+  // aligned array) thread tid copies quad e % Q of slot e / Q, e = tid + 256
+  // u, consecutive threads reading consecutive quads of one point; else
+  // one value a copy, consecutive threads consecutive d. Values past k, and
+  // slots past the live groups or n, are zero-filled without a read.
+  template <int MODE, int KC, class L>
+  static __device__ __forceinline__ void issue(char* st, const TensorParams& p, int it, int ic,
+                                               int tid, const TensorBlock& blk, const void*,
+                                               uint64_t*) {
+    static_assert(MODE == kModeF32, "the AoS policy stages the f32 points");
+    constexpr int Q = KC / 4;
+    const int d0 = ic * KC;
+    const float* r = static_cast<const float*>(p.r);
+    float* sf = reinterpret_cast<float*>(st);
+    const int live_groups = blk.jgroups - it * kTGroups;
+    const int col0 = blk.first + it * L::kTileStride;
+    if (p.ld % 4 == 0 && (reinterpret_cast<uintptr_t>(p.r) & 15) == 0) {
+#pragma unroll 1
+      for (int u = 0; u < kTCols * Q / kTThreads; ++u) {
+        const int e = u * kTThreads + tid;
+        const int s = e / Q;
+        const int qd = e % Q;
+        const int j = s / kTSliceLanes;
+        const int col = col0 + j * L::kGroupStride + s % kTSliceLanes;
+        const int d = d0 + 4 * qd;
+        const int vals = j < live_groups && col < p.n ? min(max(p.k - d, 0), 4) : 0;
+        cp_async16(sf + offset<KC>(s, qd), vals ? r + static_cast<long long>(col) * p.ld + d : r,
+                   4 * vals);
+      }
+    } else {
+#pragma unroll 1
+      for (int u = 0; u < kTCols * KC / kTThreads; ++u) {
+        const int e = u * kTThreads + tid;
+        const int s = e / KC;
+        const int dd = e % KC;
+        const int j = s / kTSliceLanes;
+        const int col = col0 + j * L::kGroupStride + s % kTSliceLanes;
+        const bool live = j < live_groups && col < p.n && d0 + dd < p.k;
+        cp_async4(sf + offset<KC>(s, dd / 4) + dd % 4,
+                  live ? r + static_cast<long long>(col) * p.ld + d0 + dd : r, live ? 4 : 0);
+      }
+    }
+  }
+
+  // The split, transposing: thread tid reads quad qd = tid / 128 + 2 u of
+  // slot s = tid % 128 (four d of one column); the even slot of a column
+  // pair keeps rows 4 qd, 4 qd + 1 and the odd one rows 4 qd + 3, 4 qd + 2,
+  // each trading the other two values with its neighbour, and writes the
+  // pair's part words of its two rows into the planes [part][KC][kTPlaneLd]
+  // (the SoA split's values, so its bits).
+  template <int NR, int KC>
+  static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes) {
+    constexpr int ROUNDS = kTCols * (KC / 4) / kTThreads;
+    const float* sf = reinterpret_cast<const float*>(st);
+#pragma unroll
+    for (int u = 0; u < ROUNDS; ++u) {
+      const int tid = fresh_tid();
+      const int s = tid % kTCols;
+      const int qd = tid / kTCols + (kTThreads / kTCols) * u;
+      const float4 v = *reinterpret_cast<const float4*>(sf + offset<KC>(s, qd));
+      const bool odd = s & 1;
+      const float g0 = __shfl_xor_sync(0xffffffffu, odd ? v.x : v.z, 1);
+      const float g1 = __shfl_xor_sync(0xffffffffu, odd ? v.y : v.w, 1);
+      const int row = 4 * qd + (odd ? 3 : 0);
+      const int step = odd ? -1 : 1;
+      __nv_bfloat16* dst = planes + row * kTPlaneLd + (s & ~1);
+      uint32_t b[3];
+      split_pair<NR>(odd ? g1 : v.x, odd ? v.w : g0, b);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) *reinterpret_cast<uint32_t*>(dst + q * KC * kTPlaneLd) = b[q];
+      split_pair<NR>(odd ? g0 : v.y, odd ? v.z : g1, b);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        *reinterpret_cast<uint32_t*>(dst + (q * KC + step) * kTPlaneLd) = b[q];
+      }
+    }
+  }
+};
+
+// The TMA policy (B10): the SoA stage by one tensor-map copy a step, B1's
+// split after it.
+struct TmaStaging : SoaStaging {
+  static constexpr bool kBarriers = true;
+
+  // Stage slot's barrier: 8 bytes of the padding of plane row slot / 2.
+  static __device__ __forceinline__ uint64_t* bar(__nv_bfloat16* planes, int slot) {
+    return reinterpret_cast<uint64_t*>(planes + (slot >> 1) * kTPlaneLd + kTCols + 4 * (slot & 1));
+  }
+
+  static __device__ __forceinline__ void init(__nv_bfloat16* planes, int stages) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s) mbarrier_init(bar(planes, s), 1);
+      fence_mbarrier_init();
+    }
+  }
+
+  static __device__ __forceinline__ void wait(uint64_t* b, unsigned parity) {
+    mbarrier_wait_parity(b, parity);
+  }
+
+  // One box (32 lanes, 4 groups, KC rows) at the block's lane slice, the
+  // tile's first group and the chunk's first row (sp: the tensor map).
+  template <int MODE, int KC, class L>
+  static __device__ __forceinline__ void issue(char* st, const TensorParams&, int it, int ic,
+                                               int tid, const TensorBlock& blk, const void* sp,
+                                               uint64_t* b) {
+    static_assert(MODE == kModeF32 && L::kSlices == kTSlices,
+                  "the TMA policy stages f32 lane slices");
+    if (tid == 0) {
+      fence_proxy_async();
+      mbarrier_arrive_expect_tx(b, KC * kTCols * sizeof(float));
+      tma_load_3d(st, static_cast<const CUtensorMap*>(sp), b, blk.first % kLanes,
+                  blk.first / kLanes + it * kTGroups, ic * KC);
+    }
+  }
+};
+
+static_assert((kTMaxStages + 1) / 2 <= 16 && 4 * sizeof(__nv_bfloat16) == sizeof(uint64_t) &&
+                  kTPlaneLd - kTCols == 8,
+              "the padding of the planes' first 16 rows holds two barriers a row");
+
+// ---- the epilogue: B1's per-lane fold (tensor_kernels.cu CandidatesEpi) ----
+
+// B1's fold with its outputs: scores and indices (SCORES; v3, v6) or the
+// indices only (B10), BLOCKS blocks an SM.
+template <bool SCORES, int BLOCKS>
+struct LadderEpi {
+  static constexpr bool kContig = false;
+  static constexpr int kBlocksPerSm = BLOCKS;
+  static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
+  static constexpr size_t kStateBytes = kFoldSlotBytes;
+  struct Args {
+    int32_t* out_i;
+    float* out_s;
+  };
+  using Pos = int2;
+  static __device__ __forceinline__ void init(unsigned fold, const Args&, const TensorParams&) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      st_slot(fold_slot(fold, q, threadIdx.x), make_int2(__float_as_int(pos_inf()), kI32Max));
+    }
+  }
+  static __device__ __forceinline__ Pos load(unsigned fold, const Args&, int q, int tid, int) {
+    return ld_slot(fold_slot(fold, q, tid));
+  }
+  static __device__ __forceinline__ void take(unsigned, const Args&, Pos& best, float sc, int col,
+                                              int, int, bool live) {
+    if (live && sc < __int_as_float(best.x)) best = make_int2(__float_as_int(sc), col);
+  }
+  static __device__ __forceinline__ void store(unsigned fold, const Args&, int q, int tid,
+                                               Pos best) {
+    st_slot(fold_slot(fold, q, tid), best);
+  }
+  static __device__ __forceinline__ int dep(const Pos& best) { return best.x; }
+  static __device__ __forceinline__ void tile_end(unsigned, const Args&, const TensorParams&,
+                                                  int) {}
+  static __device__ __forceinline__ void finish(unsigned fold, const Args& e,
+                                                const TensorParams& p) {
+    if constexpr (SCORES) {
+      write_candidates(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
+    } else {
+      // write_candidates' positions, the indices only.
+      const int tid = threadIdx.x;
+      const TensorBlock blk = tensor_block<TensorLayout<false>>(p.groups, p.groups_per_part);
+      const long long width = static_cast<long long>(gridDim.y) * kLanes;
+      const int lane0 = blk.first % kLanes + (tid >> 5 & 3) * 8 + 2 * (tid & 3);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = blk.row0 + (tid >> 7) * 32 + 16 * i + (tid & 31) / 4 + 8 * h;
+          if (row < p.m) {
+            const long long o =
+                row * width + static_cast<long long>(blockIdx.y) * kLanes + lane0;
+            *reinterpret_cast<int2*>(e.out_i + o) =
+                make_int2(ld_slot(fold_slot(fold, 4 * i + 2 * h, tid)).y,
+                          ld_slot(fold_slot(fold, 4 * i + 2 * h + 1, tid)).y);
+          }
+        }
+      }
+    }
+  }
+};
+
+using AosEpi = LadderEpi<true, 2>;
+using DmaEpi = LadderEpi<false, 2>;
+using LiveEpi = LadderEpi<true, 1>;
+
+// ---- the kernels -------------------------------------------------------------
+
+// |r|^2 of every point of the (n, k) array (row stride ld): one fmaf chain
+// over the row, d = 0..k-1 in order (tensor_candidates_norms_kernel's over
+// the same values), one thread a point.
+__global__ void __launch_bounds__(256)
+tensor_aos_norms_kernel(const float* __restrict__ r, float* __restrict__ rn, int k, long long ld,
+                        int n) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  const float* row = r + col * ld;
+  float norm = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < k; ++d) {
+    const float x = __ldg(row + d);
+    norm = fmaf(x, x, norm);
+  }
+  rn[col] = norm;
+}
+
+template <int T, int KC, bool RES, bool ONE>
+__global__ void __launch_bounds__(kTThreads, AosEpi::blocks_per_sm(T, KC))
+tensor_aos_kernel(const TensorParams p, const AosEpi::Args e) {
+  tensor_mainloop<T, kModeF32, KC, RES, ONE, AosEpi, AosStaging, false>(p, e, nullptr);
+}
+
+template <int T, int KC, bool RES, bool ONE>
+__global__ void __launch_bounds__(kTThreads, DmaEpi::blocks_per_sm(T, KC))
+tensor_tma_kernel(const TensorParams p, const DmaEpi::Args e,
+                  const __grid_constant__ CUtensorMap map) {
+  // The ring's boxes land 128-byte aligned: the dynamic shared memory of a
+  // kernel without static shared memory starts so.
+  extern __shared__ float4 smem4[];
+  if (smem_addr(smem4) % 128 != 0) __trap();
+  tensor_mainloop<T, kModeF32, KC, RES, ONE, DmaEpi, TmaStaging, false>(p, e, &map);
+}
+
+template <int T, int KC>
+__global__ void __launch_bounds__(kTThreads, LiveEpi::blocks_per_sm(T, KC))
+tensor_live_kernel(const TensorParams p, const LiveEpi::Args e) {
+  tensor_mainloop<T, kModeF32, KC, true, false, LiveEpi, SoaStaging, true>(p, e, nullptr);
+}
+
+// ---- the launches --------------------------------------------------------------
+
+enum LadderPolicy { kLadderAos = 0, kLadderTma = 1, kLadderLive = 2 };
+
+template <int POL>
+using LadderEpiOf =
+    std::conditional_t<POL == kLadderAos, AosEpi,
+                       std::conditional_t<POL == kLadderTma, DmaEpi, LiveEpi>>;
+
+// The bytes of a LIVE block's resident q parts: nq parts of the live rows
+// of its first block (min(m, 64)), every chunk, rows KC + kTPad apart.
+inline size_t live_q_bytes(int nq, int m, int k16, int kc) {
+  return static_cast<size_t>(nq) * (m < kTBM ? m : kTBM) * (k16 / kc) * (kc + kTPad) * 2;
+}
+
+// The operand's tensor map for a TMA instance with KC-row chunks: (128
+// lanes, ld / 128 groups, k rows) in boxes of (32, 4, KC); past the dims a
+// box reads zeros and nothing outside the array.
+inline int encode_ladder_map(CUtensorMap* map, const void* r, int k, long long ld, int kc) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr cuuint32_t kOnes[3] = {1, 1, 1};
+  const cuuint64_t dims[3] = {kLanes, static_cast<cuuint64_t>(ld / kLanes),
+                              static_cast<cuuint64_t>(k)};
+  const cuuint64_t strides[2] = {kLanes * sizeof(float), static_cast<cuuint64_t>(ld) * 4};
+  const cuuint32_t box[3] = {kTSliceLanes, kTGroups, static_cast<cuuint32_t>(kc)};
+  const CUresult err = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(r),
+                              dims, strides, box, kOnes, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return err == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int T, int KC, bool RES, bool ONE, int POL>
+int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e) {
+  using EPI = LadderEpiOf<POL>;
+  const int blocks = (a.n + 255) / 256;
+  if constexpr (POL == kLadderAos) {
+    tensor_aos_norms_kernel<<<blocks, 256, 0, a.stream>>>(
+        static_cast<const float*>(a.r), const_cast<float*>(a.rn), a.k, a.ld, a.n);
+  } else {
+    tensor_candidates_norms_kernel<<<blocks, 256, 0, a.stream>>>(
+        static_cast<const float*>(a.r), const_cast<float*>(a.rn), a.k, a.ld, a.n);
+  }
+  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  const TensorParams p{a.qp, a.r, a.r_lo, a.rn, a.m, a.k, a.k16, a.ld, a.n, a.groups, a.gpp, 0};
+  const dim3 grid((a.m + kTBM - 1) / kTBM * kTSlices, a.parts);
+  if constexpr (POL == kLadderAos) {
+    const size_t smem = tensor_smem<kModeF32, T, KC, EPI>(a.k16);
+    auto kernel = tensor_aos_kernel<T, KC, RES, ONE>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<grid, kTThreads, smem, a.stream>>>(p, e);
+  } else if constexpr (POL == kLadderTma) {
+    CUtensorMap map;
+    if (const int err = encode_ladder_map(&map, a.r, a.k, a.ld, KC)) return err;
+    const size_t smem = tensor_smem<kModeF32, T, KC, EPI>(a.k16);
+    auto kernel = tensor_tma_kernel<T, KC, RES, ONE>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<grid, kTThreads, smem, a.stream>>>(p, e, map);
+  } else {
+    const size_t q = live_q_bytes(q_parts<kModeF32, T>(), a.m, a.k16, KC);
+    if (q > kQResidentLiveBytes) return static_cast<int>(cudaErrorInvalidValue);
+    constexpr int kStages = live_ring_stages<kModeF32, T, KC, EPI>();
+    const size_t smem = fixed_bytes<kModeF32, EPI>() + kStages * r_stage_bytes<kModeF32, T, KC>() +
+                        planes_bytes<kModeF32, T, KC>() + q;
+    auto kernel = tensor_live_kernel<T, KC>;
+    if (const int err = allow_smem(kernel, smem)) return err;
+    kernel<<<grid, kTThreads, smem, a.stream>>>(p, e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B1's choice of chunk and residency (launch_tensor_kc): one 16-row chunk
+// a tile at k16 == 16, else 32-row chunks where k16 allows, else 16, the q
+// parts resident where they fit kQResidentBytes; LIVE: always resident.
+template <int T, int POL>
+int launch_ladder_kc(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e) {
+  constexpr Terms want = instance_terms<kModeF32, T>();
+  if (a.terms.q != want.q || a.terms.r != want.r) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (T >= 8 && POL == kLadderLive) {
+    return static_cast<int>(cudaErrorInvalidValue);  // k16 == 16: B1's own launch
+  } else if constexpr (T >= 8) {
+    if (a.k16 != 16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_ladder<T, 16, true, true, POL>(a, e);
+  } else if constexpr (POL == kLadderLive) {
+    return a.k16 % 32 == 0 ? launch_ladder<T, 32, true, false, POL>(a, e)
+                           : launch_ladder<T, 16, true, false, POL>(a, e);
+  } else {
+    if (a.k16 == 16) return launch_ladder<T, 16, true, true, POL>(a, e);
+    // At T = 4 B10 takes 16-row chunks (at 32 its barrier wait spilled 4
+    // bytes, q resident or not), and so does v3 where its q parts ride in
+    // the ring: the same 16-deep steps in the same order, the same scores.
+    if constexpr (T != 4 || POL != kLadderTma) {
+      if (a.k16 % 32 == 0) {
+        if (q_resident<kModeF32, T, 32>(a.k16)) {
+          return launch_ladder<T, 32, true, false, POL>(a, e);
+        }
+        if constexpr (T != 4) return launch_ladder<T, 32, false, false, POL>(a, e);
+      }
+    }
+    return q_resident<kModeF32, T, 16>(a.k16) ? launch_ladder<T, 16, true, false, POL>(a, e)
+                                              : launch_ladder<T, 16, false, false, POL>(a, e);
+  }
+}
+
+// The f32 instances every term list of the ladder's tiers takes ("packed"'s
+// 9, 8 or 4 terms, bf16x3, bf16x4, default/bf16_raw).
+template <int POL>
+int dispatch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e, int nterms) {
+  switch (nterms) {
+    case 1: return launch_ladder_kc<1, POL>(a, e);
+    case 3: return launch_ladder_kc<3, POL>(a, e);
+    case 4: return launch_ladder_kc<4, POL>(a, e);
+    case 8: return launch_ladder_kc<8, POL>(a, e);
+    case 9: return launch_ladder_kc<9, POL>(a, e);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The q parts a term list reads (q_parts, from the packed list).
+inline int term_q_parts(int nterms, int term_q) {
+  int nq = 0;
+  for (int t = 0; t < nterms; ++t) {
+    const int part = (term_q >> (2 * t)) & 3;
+    nq = part + 1 > nq ? part + 1 : nq;
+  }
+  return nq;
+}
+
+}  // namespace
+
+extern "C" {
+
+int tk_tensor_candidates(const void* qp, const void* r, const void* r_lo, const float* rn,
+                         int32_t* out_i, float* out_s, int m, int k, long long ld, int n,
+                         int parts, int mode, int nterms, int term_q, int term_r, void* stream);
+
+// v3 at a tier: B1's tier candidates over ref, the caller's row-major (n, k)
+// f32 array with row stride ld >= k (any base; 16-byte copies where ld % 4
+// == 0 and the base is 16-byte aligned). qp, rn, the term list and the
+// outputs as tk_tensor_candidates' (mode 0); rn: scratch of n floats.
+int tk_tensor_aos_candidates(const void* qp, const float* ref, const float* rn, int32_t* out_i,
+                             float* out_s, int m, int k, long long ld, int n, int parts,
+                             int nterms, int term_q, int term_r, void* stream) {
+  if (rn == nullptr || ld < k || !valid_geometry(m, k, n, n, parts) || parts > kMaxGridY ||
+      n > (1 << 30) || reinterpret_cast<uintptr_t>(qp) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TensorArgs a = tensor_args(qp, ref, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
+                                   stream);
+  return dispatch_ladder<kLadderAos>(a, AosEpi::Args{out_i, out_s}, nterms);
+}
+
+// B10 at a tier: B1's tier candidates over the (>= k, ld) f32 SoA operand r
+// staged by the Tensor Memory Accelerator, indices only (out_i (m,
+// parts*128)); r 16-byte aligned with ld % 128 == 0.
+int tk_tensor_dma_candidates(const void* qp, const float* r, const float* rn, int32_t* out_i,
+                             int m, int k, long long ld, int n, int parts, int nterms,
+                             int term_q, int term_r, void* stream) {
+  if (!tensor_entry_valid(qp, r, rn, m, k, ld, n, parts, kModeF32) || ld % kLanes != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TensorArgs a = tensor_args(qp, r, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
+                                   stream);
+  return dispatch_ladder<kLadderTma>(a, DmaEpi::Args{out_i, nullptr}, nterms);
+}
+
+// v6 at a tier: B1's tier candidates (tk_tensor_candidates' arguments, mode
+// 0) with the q parts resident at every shape: B1's own launch where a
+// 64-row block's parts fit kQResidentBytes, else the LIVE instance (the
+// block's live rows, one block an SM; its parts within
+// kQResidentLiveBytes, else cudaErrorInvalidValue).
+int tk_tensor_resident_candidates(const void* qp, const float* r, const float* rn,
+                                  int32_t* out_i, float* out_s, int m, int k, long long ld, int n,
+                                  int parts, int nterms, int term_q, int term_r, void* stream) {
+  if (!tensor_entry_valid(qp, r, rn, m, k, ld, n, parts, kModeF32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int k16 = (k + 15) / 16 * 16;
+  const int kc = k16 % 32 == 0 ? 32 : 16;
+  const size_t rows64 = static_cast<size_t>(term_q_parts(nterms, term_q)) * kTBM * (k16 / kc) *
+                        (kc + kTPad) * 2;
+  if (k16 == 16 || rows64 <= kQResidentBytes) {
+    return tk_tensor_candidates(qp, r, nullptr, rn, out_i, out_s, m, k, ld, n, parts, kModeF32,
+                                nterms, term_q, term_r, stream);
+  }
+  const TensorArgs a = tensor_args(qp, r, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
+                                   stream);
+  return dispatch_ladder<kLadderLive>(a, LiveEpi::Args{out_i, out_s}, nterms);
+}
+
+}  // extern "C"

@@ -54,7 +54,9 @@
 //   groups past the partition zero-filled without a read; the tile's |r|^2
 //   row rides with its last chunk. The ring is the deepest (<= 4 stages) at
 //   which the epilogue's blocks fit an SM, checked when the kernel is
-//   compiled;
+//   compiled. How a stage's r part arrives is the staging policy's
+//   (SoaStaging here; the 1-NN ladder's AoS and TMA policies in
+//   tensor_ladder_kernels.cu);
 // - an f32 chunk is split once, by the whole block, after it lands: every
 //   thread splits pairs of values into the tier's bf16 part planes (hi,
 //   mid, lo: cvt.rn.bf16x2, round to nearest even, tpu_knn's split bit for
@@ -426,15 +428,26 @@ __device__ __forceinline__ void tile_terms(float (&acc)[4], AFrag&& a, BFrag&& b
 // fragments of each q part, the B fragments of each r plane for a pair of
 // n8 tiles, and the T terms of each (m16, n8) tile. sq: the q parts' rows of
 // this chunk ([part][row][KC + kTPad]); sb: the r part planes
-// ([part][KC][kTPlaneLd]).
-template <int MODE, int T, int KC, int NQ, int NR>
+// ([part][KC][kTPlaneLd]). LIVE: sq holds the lr live rows of each part
+// ([part][lr][KC + kTPad]), and a fragment row past them reads the last
+// live row (its scores are never folded into an output).
+template <int MODE, int T, int KC, int NQ, int NR, bool LIVE = false>
 __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sq, const __nv_bfloat16* sb,
-                                          int wr, int wc, float (&acc)[2][kTGroups][4]) {
+                                          int wr, int wc, float (&acc)[2][kTGroups][4],
+                                          int lr = kTBM) {
   constexpr int QLD = KC + kTPad;
   const int lane = fresh_tid() & 31;
   const int frag_row = (lane & 7) + ((lane >> 3) & 1) * 8;  // A: row of m16; B: k of k16
   const int frag_hi = lane >> 4;                            // A: k + 8; B: the pair's 2nd tile
   const __nv_bfloat16* qa = sq + (wr + frag_row) * QLD + 8 * frag_hi;
+  // LIVE: the A rows of the warp's two m16 blocks, clamped to the live rows.
+  const __nv_bfloat16* qa_live[2];
+  if constexpr (LIVE) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qa_live[i] = sq + min(wr + 16 * i + frag_row, lr - 1) * QLD + 8 * frag_hi;
+    }
+  }
   const __nv_bfloat16* rb = sb + frag_row * kTPlaneLd + frag_hi * kTSliceLanes + wc;
   // The 16-deep steps of a chunk one after another at T <= 3 (ptxas then
   // keeps every instance within 128 registers without spilling).
@@ -445,7 +458,13 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sq, const __nv_bf
 #pragma unroll
     for (int p = 0; p < NQ; ++p) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(a[p][i], qa + (p * kTBM + 16 * i) * QLD + ks);
+      for (int i = 0; i < 2; ++i) {
+        if constexpr (LIVE) {
+          ldmatrix_x4(a[p][i], qa_live[i] + p * lr * QLD + ks);
+        } else {
+          ldmatrix_x4(a[p][i], qa + (p * kTBM + 16 * i) * QLD + ks);
+        }
+      }
     }
 #pragma unroll
     for (int jp = 0; jp < kTGroups / 2; ++jp) {
@@ -559,28 +578,137 @@ tensor_candidates_norms_kernel(const RT* __restrict__ r, float* __restrict__ rn,
   rn[col] = norm;
 }
 
+// How a ring stage's r part arrives (the staging policy ST of the
+// mainloop): SoaStaging, the k-major SoA operand in 16-byte cp.async copies
+// (B1's tiers, B12 and the top-K instances); the 1-NN ladder's AoS (v3) and
+// TMA (B10) policies live with their instances (tensor_ladder_kernels.cu).
+// A policy gives issue (the copies of one step's r part into stage st; tid
+// and blk the calling thread's and block's), wait (after the thread's
+// cp.async wait: until step s's r part has landed in the stage whose
+// barrier is bar, in its phase of parity `parity`; a policy without
+// barriers has nothing to wait for) and split (an f32 chunk as staged into
+// the part planes, once for the block). kBarriers: the policy arms one
+// mbarrier a ring stage (init before the first issue).
+struct SoaStaging {
+  static constexpr bool kBarriers = false;
+
+  // Thread tid copies piece tid % PIECES (group j, lanes cc ..) of rows
+  // tid / PIECES + ROW_STEP u, so one column test serves all its copies.
+  template <int MODE, int KC, class L>
+  static __device__ __forceinline__ void issue(char* st, const TensorParams& p, int it, int ic,
+                                               int tid, const TensorBlock& blk, const void*,
+                                               uint64_t*) {
+    constexpr int ARRAYS = MODE == kModePresplit ? 2 : 1;
+    constexpr int ESIZE = MODE == kModeF32 ? 4 : 2;
+    constexpr int RLD = MODE == kModeF32 ? kTCols : kTPlaneLd;  // elements per staged r row
+    constexpr int VEC = 16 / ESIZE;                              // elements per 16-byte copy
+    constexpr int GROUP_PIECES = kTSliceLanes / VEC;             // copies per group of a row
+    constexpr int PIECES = kTGroups * GROUP_PIECES;              // copies per staged row
+    static_assert(ARRAYS * KC * PIECES % kTThreads == 0, "a stage is whole rounds of copies");
+    constexpr int ROW_STEP = kTThreads / PIECES;
+    constexpr int ROUNDS = ARRAYS * KC / ROW_STEP;
+    const int d0 = ic * KC;
+    const int rows = MODE == kModePresplit ? p.k16 : p.k;
+    const int piece = tid % PIECES;
+    const int drow = tid / PIECES;
+    const int j = piece / GROUP_PIECES;
+    const int cc = (piece % GROUP_PIECES) * VEC;
+    const int col = blk.first + it * L::kTileStride + j * L::kGroupStride + cc;
+    const int avail = j < blk.jgroups - it * kTGroups ? min(p.n - col, VEC) * ESIZE : 0;
+    const int bytes = avail > 0 ? avail : 0;
+    const long long off = (static_cast<long long>(d0 + drow) * p.ld + col) * ESIZE;
+    char* dst = st + (drow * RLD + j * kTSliceLanes + cc) * ESIZE;
+#pragma unroll 1
+    for (int u = 0; u < ROUNDS; ++u) {
+      const int a = u * ROW_STEP / KC;   // the array (B12: hi, lo) and row of round u
+      const int dd = u * ROW_STEP % KC;
+      const char* base = static_cast<const char*>(a == 0 ? p.r : static_cast<const void*>(p.r_lo));
+      const bool live = bytes > 0 && d0 + drow + dd < rows;
+      cp_async16(dst + (a * KC + dd) * RLD * ESIZE, live ? base + off + dd * p.ld * ESIZE : base,
+                 live ? bytes : 0);
+    }
+  }
+
+  static __device__ __forceinline__ uint64_t* bar(__nv_bfloat16*, int) { return nullptr; }
+  static __device__ __forceinline__ void init(__nv_bfloat16*, int) {}
+  static __device__ __forceinline__ void wait(uint64_t*, unsigned) {}
+
+  // The chunk's split into the part planes ([part][KC][kTPlaneLd]), once
+  // for the block, from the staged [d][slot] rows: thread tid splits
+  // columns 2 (tid % 64) and the next of rows tid / 64 + 4 u.
+  template <int NR, int KC>
+  static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes) {
+    constexpr int PAIRS = kTCols / 2;
+    constexpr int PAIR_ROWS = kTThreads / PAIRS;
+    const int tid = fresh_tid();
+    const int off = (tid / PAIRS) * kTCols + (tid % PAIRS) * 2;
+    const int poff = (tid / PAIRS) * kTPlaneLd + (tid % PAIRS) * 2;
+#pragma unroll
+    for (int u = 0; u < KC / PAIR_ROWS; ++u) {
+      const float2 x = *reinterpret_cast<const float2*>(reinterpret_cast<const float*>(st) +
+                                                        off + u * PAIR_ROWS * kTCols);
+      uint32_t b[3];
+      split_pair<NR>(x.x, x.y, b);
+#pragma unroll
+      for (int q = 0; q < NR; ++q) {
+        *reinterpret_cast<uint32_t*>(planes + poff + (q * KC + u * PAIR_ROWS) * kTPlaneLd) = b[q];
+      }
+    }
+  }
+};
+
+// The ring of a LIVE instance (v6 at embedding width: q parts of the live
+// rows only, resident, one block an SM; tensor_ladder_kernels.cu) holds at
+// most this many bytes of resident q parts.
+constexpr size_t kQResidentLiveBytes = 96 * 1024;
+
+template <int MODE, int T, int KC, class EPI>
+__host__ __device__ constexpr size_t live_most_smem(int stages) {
+  return fixed_bytes<MODE, EPI>() + stages * r_stage_bytes<MODE, T, KC>() +
+         planes_bytes<MODE, T, KC>() + kQResidentLiveBytes;
+}
+
+template <int MODE, int T, int KC, class EPI>
+__host__ __device__ constexpr bool live_fits_blocks(int stages) {
+  return EPI::blocks_per_sm(T, KC) * (live_most_smem<MODE, T, KC, EPI>(stages) +
+                                      kSmemPerBlockReserved) <=
+             kSmemPerSm &&
+         live_most_smem<MODE, T, KC, EPI>(stages) <= kSmemPerBlock;
+}
+
+template <int MODE, int T, int KC, class EPI>
+__host__ __device__ constexpr int live_ring_stages() {
+  int stages = kTMaxStages;
+  while (stages > 2 && !live_fits_blocks<MODE, T, KC, EPI>(stages)) --stages;
+  return stages;
+}
+
+// The live rows of the block whose first row is row0 (a LIVE instance's
+// resident q parts: [chunk][part][row < live][KC + kTPad]).
+__device__ __forceinline__ int live_rows(int m, int row0) { return min(kTBM, m - row0); }
+
 // The mainloop of every instance. RES: the q parts are resident
 // (q_resident), else they ride in the ring. ONE: KC == k16 == 16, every
 // step a whole column tile (mma_fold_tile). EPI: the epilogue (see the
-// header's last paragraph), e its arguments.
-template <int T, int MODE, int KC, bool RES, bool ONE, class EPI>
-__global__ void __launch_bounds__(kTThreads, EPI::blocks_per_sm(T, KC))
-tensor_kernel(const TensorParams p, const typename EPI::Args e) {
+// header's last paragraph), e its arguments. ST: the staging policy of the
+// r parts, sp its argument (B10: the operand's tensor map). LIVE: the q
+// parts of the block's live rows only are resident (kQResidentLiveBytes;
+// a row past them reads the last live row's parts, and its scores are
+// never folded into an output).
+template <int T, int MODE, int KC, bool RES, bool ONE, class EPI, class ST, bool LIVE>
+__device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
+                                                const typename EPI::Args& e, const void* sp) {
   static_assert(!ONE || (KC == 16 && RES), "a one-chunk tile is 16 deep, its q parts resident");
+  static_assert(!LIVE || (RES && !ONE), "live-row q parts are resident, over several chunks");
   using L = TensorLayout<EPI::kContig>;
   constexpr int NQ = q_parts<MODE, T>();
   constexpr int NR = r_planes<MODE, T>();
-  constexpr int STAGES = ring_stages<MODE, T, KC, EPI>();
-  static_assert(fits_blocks<MODE, T, KC, EPI>(STAGES),
+  constexpr int STAGES =
+      LIVE ? live_ring_stages<MODE, T, KC, EPI>() : ring_stages<MODE, T, KC, EPI>();
+  static_assert(LIVE ? live_fits_blocks<MODE, T, KC, EPI>(STAGES)
+                     : fits_blocks<MODE, T, KC, EPI>(STAGES),
                 "the epilogue's tensor-core blocks do not fit an SM's shared memory");
-  constexpr int ARRAYS = MODE == kModePresplit ? 2 : 1;
   constexpr int R_STAGE = static_cast<int>(r_stage_bytes<MODE, T, KC>());
-  constexpr int ESIZE = MODE == kModeF32 ? 4 : 2;
-  constexpr int RLD = MODE == kModeF32 ? kTCols : kTPlaneLd;  // elements per staged r row
-  constexpr int VEC = 16 / ESIZE;                              // elements per 16-byte copy
-  constexpr int GROUP_PIECES = kTSliceLanes / VEC;             // copies per group of a row
-  constexpr int PIECES = kTGroups * GROUP_PIECES;              // copies per staged row
-  static_assert(ARRAYS * KC * PIECES % kTThreads == 0, "a stage is whole rounds of copies");
   extern __shared__ float4 smem4[];
   // The epilogue's state at shared offset `fold`.
   const unsigned fold = smem_addr(smem4);
@@ -622,35 +750,34 @@ tensor_kernel(const TensorParams p, const typename EPI::Args e) {
     }
   };
 
+  // LIVE: the same copies of the block's lr live rows, into
+  // dst[p][row < lr][KC + kTPad].
+  auto copy_q_live = [&](__nv_bfloat16* dst, int d0, int lr) {
+    const int tid = fresh_tid();
+    const int qc = (tid % QCPR) * 8;
+    const int row0 = tensor_block<L>(p.groups, p.groups_per_part).row0;
+#pragma unroll 1
+    for (int pr = tid / QCPR; pr < NQ * lr; pr += QROWS) {
+      const int part = pr / lr;
+      const __nv_bfloat16* src =
+          p.qp + (static_cast<long long>(part) * p.m + row0 + pr - part * lr) * p.k16 + d0 + qc;
+      cp_async16(dst + pr * (KC + kTPad) + qc, src, 16);
+    }
+  };
+
+  // The ring's barriers, where the staging policy keeps them (TMA: in the
+  // part planes' row padding).
+  auto bar = [&](int slot) { return ST::bar(planes, slot); };
+
   // Issue the copies of the step at (tile it, chunk ic) into ring slot:
-  // thread tid copies piece tid % PIECES (group j, lanes cc ..) of rows
-  // tid / PIECES + ROW_STEP u, so one column test serves all its copies.
-  constexpr int ROW_STEP = kTThreads / PIECES;
-  constexpr int ROUNDS = ARRAYS * KC / ROW_STEP;
+  // the r part by the staging policy, then the tile's |r|^2 row with its
+  // last chunk, and the q chunk where q is not resident.
   auto issue = [&](int it, int ic, int slot) {
     char* st = ring + slot * stage;
     const int d0 = ic * KC;
-    const int rows = MODE == kModePresplit ? p.k16 : p.k;
     const int tid = fresh_tid();
-    const int piece = tid % PIECES;
-    const int drow = tid / PIECES;
-    const int j = piece / GROUP_PIECES;
-    const int cc = (piece % GROUP_PIECES) * VEC;
     const TensorBlock blk = tensor_block<L>(p.groups, p.groups_per_part);
-    const int col = blk.first + it * L::kTileStride + j * L::kGroupStride + cc;
-    const int avail = j < blk.jgroups - it * kTGroups ? min(p.n - col, VEC) * ESIZE : 0;
-    const int bytes = avail > 0 ? avail : 0;
-    const long long off = (static_cast<long long>(d0 + drow) * p.ld + col) * ESIZE;
-    char* dst = st + (drow * RLD + j * kTSliceLanes + cc) * ESIZE;
-#pragma unroll 1
-    for (int u = 0; u < ROUNDS; ++u) {
-      const int a = u * ROW_STEP / KC;   // the array (B12: hi, lo) and row of round u
-      const int dd = u * ROW_STEP % KC;
-      const char* base = static_cast<const char*>(a == 0 ? p.r : static_cast<const void*>(p.r_lo));
-      const bool live = bytes > 0 && d0 + drow + dd < rows;
-      cp_async16(dst + (a * KC + dd) * RLD * ESIZE, live ? base + off + dd * p.ld * ESIZE : base,
-                 live ? bytes : 0);
-    }
+    ST::template issue<MODE, KC, L>(st, p, it, ic, tid, blk, sp, bar(slot));
     if (ic == nchunks - 1 && tid >= kTThreads - kTCols) {  // the tile's |r|^2 row
       const int ci = tid - (kTThreads - kTCols);
       const int jn = ci / kTSliceLanes;
@@ -661,7 +788,16 @@ tensor_kernel(const TensorParams p, const typename EPI::Args e) {
     if constexpr (!RES) copy_q(reinterpret_cast<__nv_bfloat16*>(st + R_STAGE), d0);
   };
 
-  if constexpr (RES) {  // lands with step 0's copies
+  if constexpr (ST::kBarriers) {
+    ST::init(planes, STAGES);
+    __syncthreads();
+  }
+  if constexpr (LIVE) {  // lands with step 0's copies
+    const int lr = live_rows(p.m, tensor_block<L>(p.groups, p.groups_per_part).row0);
+    for (int cc = 0; cc < nchunks; ++cc) {
+      copy_q_live(sq_res + cc * NQ * lr * (KC + kTPad), cc * KC, lr);
+    }
+  } else if constexpr (RES) {
     for (int cc = 0; cc < nchunks; ++cc) copy_q(sq_res + cc * Q_CHUNK, cc * KC);
   }
 #pragma unroll
@@ -683,6 +819,7 @@ tensor_kernel(const TensorParams p, const typename EPI::Args e) {
   int t = 0, c = 0;  // the step being multiplied, as (tile, chunk)
   for (int s = 0; s < steps(); ++s) {
     cp_async_wait<STAGES - 2>();  // step s has landed (this thread's copies)
+    ST::wait(bar(s % STAGES), (s / STAGES) & 1);
     __syncthreads();              // ... and every thread's; step s - 1 is done with
     if (s + STAGES - 1 < steps()) {
       int it = t, ic = c + STAGES - 1;  // the step to issue, STAGES - 1 ahead
@@ -702,34 +839,20 @@ tensor_kernel(const TensorParams p, const typename EPI::Args e) {
       const int ci = fresh_tid() - (kTThreads - kTCols);
       sn_f32[ci] = reinterpret_cast<const float*>(st + NORM_OFF)[ci];
     }
-    if constexpr (MODE == kModeF32) {
-      // The chunk's split into the part planes, once for the block:
-      // thread tid splits columns 2 (tid % 64) and the next of rows
-      // tid / 64 + 4 u.
-      constexpr int PAIRS = kTCols / 2;
-      constexpr int PAIR_ROWS = kTThreads / PAIRS;
-      const int tid = fresh_tid();
-      const int off = (tid / PAIRS) * kTCols + (tid % PAIRS) * 2;
-      const int poff = (tid / PAIRS) * kTPlaneLd + (tid % PAIRS) * 2;
-#pragma unroll
-      for (int u = 0; u < KC / PAIR_ROWS; ++u) {
-        const float2 x = *reinterpret_cast<const float2*>(reinterpret_cast<const float*>(st) +
-                                                          off + u * PAIR_ROWS * kTCols);
-        uint32_t b[3];
-        split_pair<NR>(x.x, x.y, b);
-#pragma unroll
-        for (int q = 0; q < NR; ++q) {
-          *reinterpret_cast<uint32_t*>(planes + poff + (q * KC + u * PAIR_ROWS) * kTPlaneLd) = b[q];
-        }
-      }
-    }
+    if constexpr (MODE == kModeF32) ST::template split<NR, KC>(st, planes);
     if (MODE == kModeF32) __syncthreads();  // the planes are written
     const int wtid = fresh_tid();
     const int wr = (wtid >> 7) * 32;     // the warp's first row of the tile
     const int wc = (wtid >> 5 & 3) * 8;  // its first lane of the slot groups
     if (tensor_block<L>(p.groups, p.groups_per_part).row0 + wr < p.m) {
-      const __nv_bfloat16* sq =
-          RES ? sq_res + c * Q_CHUNK : reinterpret_cast<const __nv_bfloat16*>(st + R_STAGE);
+      int lr = kTBM;
+      const __nv_bfloat16* sq;
+      if constexpr (LIVE) {
+        lr = live_rows(p.m, tensor_block<L>(p.groups, p.groups_per_part).row0);
+        sq = sq_res + c * NQ * lr * (KC + kTPad);
+      } else {
+        sq = RES ? sq_res + c * Q_CHUNK : reinterpret_cast<const __nv_bfloat16*>(st + R_STAGE);
+      }
       const __nv_bfloat16* sb =
           MODE == kModeF32 ? planes : reinterpret_cast<const __nv_bfloat16*>(st);
       if constexpr (ONE) {
@@ -748,7 +871,7 @@ tensor_kernel(const TensorParams p, const typename EPI::Args e) {
             }
           }
         }
-        mma_chunk<MODE, T, KC, NQ, NR>(sq, sb, wr, wc, acc);
+        mma_chunk<MODE, T, KC, NQ, NR, LIVE>(sq, sb, wr, wc, acc, lr);
         if (last) {
           // The tile's scores s = |r|^2 - 2 acc to the epilogue, position
           // by position, its groups in column order.
@@ -789,6 +912,14 @@ tensor_kernel(const TensorParams p, const typename EPI::Args e) {
   }
   cp_async_wait<0>();
   EPI::finish(fold, e, p);
+}
+
+// B1's tiers, B12 and the top-K instances: the mainloop over the SoA
+// operand.
+template <int T, int MODE, int KC, bool RES, bool ONE, class EPI>
+__global__ void __launch_bounds__(kTThreads, EPI::blocks_per_sm(T, KC))
+tensor_kernel(const TensorParams p, const typename EPI::Args e) {
+  tensor_mainloop<T, MODE, KC, RES, ONE, EPI, SoaStaging, false>(p, e, nullptr);
 }
 
 // The host side of a launch.

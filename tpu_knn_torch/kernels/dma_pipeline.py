@@ -9,7 +9,11 @@ tiled kernel under the template's TMA policy: one thread asks the Tensor
 Memory Accelerator for each ring stage's operand and query boxes, and
 completion lands on the stage's mbarrier. It takes B1's geometry and
 fold and emits indices only, as `_dma_kernel` does; the bare-index
-`_refine` reranks every candidate exactly.
+`_refine` reranks every candidate exactly. `dma_knn` resolves
+`precision=None` through `auto_precision(k, n)`, as tpu_knn's does; every
+tier other than "highest" runs B10's tensor-core instance
+(csrc/tensor_ladder_kernels.cu: B1's tier mainloop with each stage's
+operand box staged by the same Tensor Memory Accelerator, indices only).
 
 v5 has no guard: the ring's shared memory does not depend on k, so the
 kernel's own limit (ROADMAP C) admits every shape. tpu_knn's v5 delegates
@@ -23,8 +27,8 @@ import torch
 
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.fused import (
-    _check_candidate_operands, _check_highest_only, _refine, _to_host,
-    fused_candidates_plain, prep_soa, tiled_parts, transposed_queries,
+    _check_candidate_operands, _check_precision_certified, _refine, _to_host,
+    auto_precision, fused_candidates_plain, ladder_parts, prep_soa, transposed_queries,
 )
 from tpu_knn_torch.kernels.tuning import (
     LANE, MAX_TILE_N, SCORE_TILE_BUDGET, pick_tiles, tiled_geometry,
@@ -45,27 +49,41 @@ def _dma_tiles(k: int, m: int, n: int) -> tuple[int, int]:
     return tile_m, max(128, (tile_n // 128) * 128)
 
 
-def dma_candidates_plain(q, r_op, n: int, parts: int):
-    """B10's plain version: B1's plain candidates, indices only."""
+def dma_candidates_plain(q, r_op, n: int, parts: int, precision: str = "highest"):
+    """B10's plain version: B1's plain candidates at the tier, indices
+    only."""
+    if precision != "highest":
+        from tpu_knn_torch.kernels.tiers import dma_tier_candidates_plain
+
+        return dma_tier_candidates_plain(q, r_op, n, parts, precision)
     return fused_candidates_plain(q, r_op, n, parts)[0]
 
 
-def dma_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
+def dma_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
+                   precision: str = "highest"):
     """(m, k) queries x (k_pad, n_pad) SoA operand -> (m, parts*128)
     int32 candidate indices: B1's contract without the scores, through
-    B10 (B1's tiled kernel with TMA-staged stages, csrc/fused_kernels.cu)
-    at B1's rows per warp. At the same ``parts`` they equal B1's indices
-    on the card. The operand's tensor map needs it 16-byte aligned with a
-    row stride that is a multiple of 128 floats. CPU tensors take the
+    B10. "highest": B1's tiled kernel with TMA-staged stages
+    (csrc/fused_kernels.cu) at B1's rows per warp; any other term-list tier:
+    B10's tensor-core instance (tiers.dma_tier_launch; P from
+    tiers.tensor_parts). At the same ``parts`` the indices equal B1's at
+    the tier on the card. The operand's tensor map needs it 16-byte aligned
+    with a row stride that is a multiple of 128 floats. CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts)
     m, k = q.shape
+    if precision != "highest":
+        from tpu_knn_torch.kernels import tiers
+
+        tiers.ladder_terms(precision, k)
     if q.device.type == "cpu":
-        return dma_candidates_plain(q, r_op, n, parts)
+        return dma_candidates_plain(q, r_op, n, parts, precision)
     if r_op.data_ptr() % 16 or r_op.stride(0) % LANE:
         raise ValueError("B10's tensor map takes an operand that is 16-byte aligned with "
                          f"a row stride that is a multiple of {LANE} floats, got stride "
                          f"{r_op.stride(0)}, base address {r_op.data_ptr() % 16} mod 16")
+    if precision != "highest":
+        return tiers.dma_tier_launch(q, r_op, n, parts, precision)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
@@ -81,21 +99,28 @@ def dma_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     return idx
 
 
-#: Kernel launches of B10 (CUDA tensors only; the plain version is not counted).
+#: Kernel launches of B10 at "highest" (CUDA tensors only; the plain version
+#: is not counted; its tier instances count in tiers.TIER_LAUNCHES).
 dma_candidates.launches = 0
 
 
-def dma_knn(search, ref, *, precision: str | None = None, device="cuda"):
-    """Exact 1-NN through B10 and the bare-index refine. Returns (indices
-    (m,) int32, exact squared distances (m,) f32) on the inputs' device.
-    The port computes the f32 "highest" tier only."""
-    _check_highest_only(precision, "v5 (B10)")
+def dma_knn(search, ref, *, precision: str | None = None, allow_approximate: bool = False,
+            device="cuda"):
+    """Exact 1-NN through B10 and the bare-index refine, which reranks
+    every lane. Returns (indices (m,) int32, exact squared distances (m,)
+    f32) on the inputs' device. ``precision=None`` resolves through
+    auto_precision(k, n), as tpu_knn's dma_knn does. Unlike tpu_knn's, the
+    tier is certified as fused_knn's (ROADMAP C): "qsplit2" over per-call
+    f32 points is refused, and "bf16_raw" needs allow_approximate=True."""
+    _check_precision_certified(precision, allow_approximate)
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
+    if precision is None:
+        precision = auto_precision(k, n)
     _, tile_n = _dma_tiles(k, m, n)
     r_op = prep_soa(ref, round_up(n, tile_n))
-    idx = dma_candidates(search, r_op, n, tiled_parts(m, k, n))
+    idx = dma_candidates(search, r_op, n, ladder_parts("v5", precision, m, k, n), precision)
     return _refine(search, ref, idx, n)
 
 

@@ -31,10 +31,12 @@ qsplit2, default/bf16_raw) and B12 (bf16x3 over pre-split operands) run on
 the tensor cores (kernels/tiers.py, csrc/tensor_mainloop.cuh): B1's in
 csrc/tensor_kernels.cu, B4's and B3's (`precision=` of banded_candidates
 and minima_candidates) in csrc/tensor_banded_kernels.cu and
-tensor_minima_kernels.cu. `fused_knn`
-resolves `precision=None` through `auto_precision`, as tpu_knn does; the
-tier policy (`auto_precision`, `_packed_terms`, `select_cutoff`) is
-carried across unchanged so that routing cannot drift from tpu_knn's.
+tensor_minima_kernels.cu, v3's and v6's (`precision=` of aos_candidates
+and const_query_candidates) in csrc/tensor_ladder_kernels.cu. `fused_knn`
+(v4, and v3 with soa=False) and `const_query_knn` (v6) resolve
+`precision=None` through `auto_precision`, as tpu_knn does; the tier
+policy (`auto_precision`, `_packed_terms`, `select_cutoff`) is carried
+across unchanged so that routing cannot drift from tpu_knn's.
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ from tpu_knn_torch.kernels.tuning import LANE, resident_geometry, tiled_geometry
 from tpu_knn_torch.utils.platform import as_f32_pair, check_device
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
-#: The tier of the port's paths that keep B1's f32 arithmetic (v3, v5, v6)
-#: and the top-K kernels' default: tpu_knn's "highest".
+#: The candidate kernels' default tier: tpu_knn's "highest" (B1's f32
+#: arithmetic on the CUDA cores).
 DEFAULT_PRECISION = "highest"
 
 #: The tiers tpu_knn's fused path computes (`_qr_dot`'s branches and the
@@ -145,15 +147,6 @@ def _check_precision_certified(precision, allow_approximate: bool = False):
             "precision='qsplit2' is the quantized-store tier (requires a "
             "bf16-exact operand); NNIndex(store='bf16'/'int8') selects "
             "it automatically — it cannot serve per-call f32 references")
-
-
-def _check_highest_only(precision, what: str) -> None:
-    """The paths that keep B1's f32 kernel (v3's AoS variant, B10) take no
-    other tier yet."""
-    if precision not in (None, "highest"):
-        raise NotImplementedError(
-            f"{what} computes only the f32 'highest' tier; precision={precision!r} "
-            "there is ROADMAP item A.2")
 
 
 # ---- operands -------------------------------------------------------
@@ -530,25 +523,39 @@ minima_candidates.bf16_launches = 0
 # ---- the B1 variants of the ladder: AoS (v3) and resident queries (v6) ----
 
 
-def aos_candidates_plain(q, ref, n: int, parts: int):
-    """The AoS variant's plain version: B1's plain version over the same
-    points (norm_scores reads the first k rows of any (>= k, >= n) array)."""
+def aos_candidates_plain(q, ref, n: int, parts: int, precision: str = DEFAULT_PRECISION):
+    """The AoS variant's plain version: at "highest" B1's plain version over
+    the same points (norm_scores reads the first k rows of any (>= k, >= n)
+    array); at a tier tiers.aos_tier_candidates_plain (the AoS term list)."""
+    if precision != "highest":
+        from tpu_knn_torch.kernels.tiers import aos_tier_candidates_plain
+
+        return aos_tier_candidates_plain(q, ref, n, parts, precision)
     return fused_candidates_plain(q, ref[:n].T, n, parts)
 
 
-def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int):
+def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int,
+                   precision: str = DEFAULT_PRECISION):
     """(m, k) queries x the caller's row-major (n, k) points -> B1's (idx,
-    score) candidates (m, parts*128), with no per-call SoA relayout (v3):
-    B1's tiled kernel at B1's TM (tuning.tiled_geometry), its ring's copies
-    reading each chunk's columns from the (n, k) array and landing them
-    transposed (csrc/tiled.cuh); the queries from their transposed copy, as
-    B1's. Any k. Its scores are bit-identical to B1's on the card. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    score) candidates (m, parts*128), with no per-call SoA relayout (v3).
+    "highest": B1's tiled kernel at B1's TM (tuning.tiled_geometry), its
+    ring's copies reading each chunk's columns from the (n, k) array and
+    landing them transposed (csrc/tiled.cuh); the queries from their
+    transposed copy, as B1's; its scores bit-identical to B1's on the card.
+    Any other term-list tier: v3's tensor-core instance (tiers.aos_tier_launch,
+    the AoS term list; P from tiers.tensor_parts), whose scores are B1's
+    tier's bit for bit where the term lists agree. Any k. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, ref, n, parts, aos=True)
     m, k = q.shape
+    if precision != "highest":
+        from tpu_knn_torch.kernels import tiers
+
+        tiers.ladder_terms(precision, k, aos=True)
     if q.device.type == "cpu":
-        return aos_candidates_plain(q, ref, n, parts)
+        return aos_candidates_plain(q, ref, n, parts, precision)
+    if precision != "highest":
+        return tiers.aos_tier_launch(q, ref, n, parts, precision)
     from tpu_knn_torch.csrc.build import check, load
 
     lib = load()
@@ -564,7 +571,8 @@ def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int):
     return idx, score
 
 
-#: Kernel launches of B1's AoS variant (CUDA tensors only).
+#: Kernel launches of B1's AoS variant at "highest" (CUDA tensors only;
+#: its tier instances count in tiers.TIER_LAUNCHES).
 aos_candidates.launches = 0
 
 #: The reference v6's guard on its query set, k*m <= 16384 floats (the
@@ -579,19 +587,31 @@ def const_query_fits(m: int, k: int) -> bool:
     return k * m <= CONST_QUERY_FLOATS
 
 
-def const_query_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
+def const_query_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
+                           precision: str = DEFAULT_PRECISION):
     """B1's candidate contract with each block's query rows resident in
-    shared memory for the whole sweep (v6): B1's tiled kernel whose ring
-    carries only the operand (csrc/tiled.cuh), at the TM of
+    shared memory for the whole sweep (v6). "highest": B1's tiled kernel
+    whose ring carries only the operand (csrc/tiled.cuh), at the TM of
     tuning.resident_geometry, the rows copied once per block from the
-    transposed queries. The query set must pass the reference's guard
-    (const_query_fits). Scores bit-identical to B1's. CPU tensors take B1's
-    plain version; CUDA tensors launch the kernel or raise."""
+    transposed queries; scores bit-identical to B1's. Any other term-list
+    tier: B1's tier instance with the q parts resident (tiers.resident_tier_launch:
+    B1's own launch where a 64-row block's parts fit, else the live rows'
+    parts, one block an SM; P from tiers.resident_tier_parts); scores B1's
+    tier's bit for bit. The query set must pass the reference's guard
+    (const_query_fits). CPU tensors take B1's plain version at the tier;
+    CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, r_op, n, parts)
     m, k = q.shape
     if not const_query_fits(m, k):
         raise ValueError(f"(m={m}, k={k}) queries exceed v6's {CONST_QUERY_FLOATS}-float "
                          "query set (the reference's guard)")
+    if precision != "highest":
+        from tpu_knn_torch.kernels import tiers
+
+        tiers.ladder_terms(precision, k)
+        if q.device.type == "cpu":
+            return tiers.tensor_candidates_plain(q, r_op, n, parts, precision)
+        return tiers.resident_tier_launch(q, r_op, n, parts, precision)
     if q.device.type == "cpu":
         return fused_candidates_plain(q, r_op, n, parts)
     from tpu_knn_torch.csrc.build import check, load
@@ -609,8 +629,23 @@ def const_query_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: i
     return idx, score
 
 
-#: Kernel launches of B1's resident-query variant (CUDA tensors only).
+#: Kernel launches of B1's resident-query variant at "highest" (CUDA
+#: tensors only; its tier instances count in tiers.TIER_LAUNCHES).
 const_query_candidates.launches = 0
+
+
+def ladder_parts(rung: str, precision: str, m: int, k: int, n: int) -> int:
+    """The default partition count of a ladder rung ("v3", "v5", "v6") at a
+    tier: at "highest" its tiled kernel's (v3, v5: B1's tiled_parts; v6:
+    tuning.resident_geometry's), else its tensor-core instance's (v3, v5:
+    tiers.tensor_parts; v6: tiers.resident_tier_parts)."""
+    from tpu_knn_torch.kernels import tiers
+
+    if precision == "highest":
+        return resident_geometry(m, k, n).parts if rung == "v6" else tiled_parts(m, k, n)
+    if rung == "v6":
+        return tiers.resident_tier_parts(precision, m, k, n)
+    return tiers.tensor_parts(m, n)
 
 
 # ---- exact selection ------------------------------------------------
@@ -699,17 +734,21 @@ def fused_knn(search, ref, *, soa: bool = True, parts: int | None = None,
     n-partition count) or ``precision`` signals measurement intent and
     keeps the candidate path. Selection-approximate tiers (bf16_raw) need
     ``allow_approximate=True``. ``soa=False`` is v3: B1's AoS variant over
-    the caller's array (no per-call relayout, "highest" only), never
-    routed elsewhere, as in tpu_knn.
+    the caller's array (no per-call relayout) at the tier resolved as
+    above ("packed" at tpu_knn's unpadded AoS width, `_packed_terms(k)`;
+    "bf16x3_presplit" is bf16x3's terms over the array, as tpu_knn's
+    `_qr_dot` runs it there), never routed elsewhere, as in tpu_knn.
     """
     _check_precision_certified(precision, allow_approximate)
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
     if not soa:
-        _check_highest_only(precision, "v3 (B1's AoS variant)")
-        cand = aos_candidates(search, ref, n, parts or tiled_parts(m, k, n))
-        return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
+        if precision is None:
+            precision = auto_precision(k, n)
+        cand = aos_candidates(search, ref, n, parts or ladder_parts("v3", precision, m, k, n),
+                              precision)
+        return _refine(search, ref, cand, n, cutoff=select_cutoff(precision, k))
     if parts is None and precision is None:
         from tpu_knn_torch.kernels.smallm import (
             aos_scan_applicable, smallm_applicable, smallm_knn,
@@ -738,18 +777,24 @@ def _to_host(idx) -> np.ndarray:
     return idx.cpu().numpy().astype(np.int32)
 
 
-def const_query_knn(search, ref, device="cuda"):
+def const_query_knn(search, ref, *, precision: str | None = None, device="cuda"):
     """v6: exact 1-NN with each block's query rows resident in shared
-    memory for the sweep (const_query_candidates, P from
-    tuning.resident_geometry), then _refine. The query set must pass the
-    reference's guard (const_query_fits); v6's guard delegates the rest to
-    v4. Returns (indices (m,) int32, exact d2 (m,) f32)."""
+    memory for the sweep (const_query_candidates, P from ladder_parts),
+    then _refine. ``precision=None`` resolves through auto_precision(k, n),
+    as tpu_knn's v6 (fused_knn with tile_m covering m) does, and the tier
+    is certified as fused_knn's ("bf16x3_presplit" runs bf16x3's terms
+    over the f32 operand). The query set must pass the reference's guard
+    (const_query_fits); v6's guard delegates the rest to v4. Returns
+    (indices (m,) int32, exact d2 (m,) f32)."""
+    _check_precision_certified(precision)
     search, ref = as_f32_pair(search, ref, device)
     m, k = search.shape
     n = ref.shape[0]
+    if precision is None:
+        precision = auto_precision(k, n)
     cand = const_query_candidates(search, prep_soa(ref, round_up(n, LANE)), n,
-                                  resident_geometry(m, k, n).parts)
-    return _refine(search, ref, cand, n, cutoff=select_cutoff(DEFAULT_PRECISION, k))
+                                  ladder_parts("v6", precision, m, k, n), precision)
+    return _refine(search, ref, cand, n, cutoff=select_cutoff(precision, k))
 
 
 def v3_callback(k, m, n, search, ref):

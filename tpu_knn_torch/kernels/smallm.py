@@ -13,7 +13,9 @@ Two engines, split as in tpu_knn:
 - PER-CALL (caller hands an (n, k) array): the diff-form AoS scan over
   the caller's array, plain torch ops (plain XLA in tpu_knn). It takes a
   bf16 store's points or an int8 grid as they are stored: f32 − bf16 and
-  f32 − int8 promote to f32 exactly, as jnp's do.
+  f32 − int8 promote to f32 exactly, as jnp's do. An explicit ``tile_n``
+  keeps tpu_knn's measurement pipeline instead: the SoA operand padded to
+  a multiple of tile_n, B2 at its own partition count, the exact refine.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from tpu_knn_torch.kernels.fused import (
-    _check_candidate_operands, _I32_MAX, _lane_fold,
+    _check_candidate_operands, _I32_MAX, _lane_fold, _refine, prep_soa, select_cutoff,
 )
 from tpu_knn_torch.kernels.tuning import LANE, pick_parts
 from tpu_knn_torch.utils.platform import as_f32_pair
@@ -180,14 +182,28 @@ def _aos_scan(search, ref):
     return idx, v.squeeze(1)
 
 
-def smallm_knn(search, ref, device="cuda"):
+def smallm_knn(search, ref, *, tile_n: int | None = None, device="cuda"):
     """Small-batch exact 1-NN: (m <= 4) queries against (n, k) points.
 
     Returns (indices (m,) int32, exact squared distances (m,) f32); same
-    contract and tie semantics as fused_knn, through the AoS scan.
+    contract and tie semantics as fused_knn. The default is the AoS scan;
+    an explicit ``tile_n`` keeps tpu_knn's per-call B2 pipeline
+    (measurement intent, `_build_smallm`): the SoA operand padded to
+    round_up(n, tile_n), B2 at default_parts(n), the exact refine (its
+    scores are exact: select_cutoff("exact", k)). That pipeline serves
+    1 <= m <= 4 and 1 <= k <= 32, tile_n a positive multiple of 128, and
+    raises ValueError otherwise, where tpu_knn's does.
     """
     search, ref = as_f32_pair(search, ref, device)
-    m = search.shape[0]
-    if not (1 <= m <= SMALLM_MAX_M):
-        raise ValueError(f"smallm serves 1 <= m <= {SMALLM_MAX_M}, got {m}")
-    return _aos_scan(search, ref)
+    m, k = search.shape
+    n = ref.shape[0]
+    if tile_n is None:
+        if not (1 <= m <= SMALLM_MAX_M):
+            raise ValueError(f"smallm serves 1 <= m <= {SMALLM_MAX_M}, got {m}")
+        return _aos_scan(search, ref)
+    check_smallm_shape(m, k)
+    if tile_n % LANE != 0 or tile_n <= 0:
+        raise ValueError(f"tile_n must be a positive multiple of 128, got {tile_n}")
+    r_op = prep_soa(ref, round_up(n, tile_n))
+    cand = smallm_candidates(search, r_op, n, default_parts(n))
+    return _refine(search, ref, cand, n, cutoff=select_cutoff("exact", k))

@@ -33,7 +33,10 @@ reading pre-split (hi, lo) bf16 rows and an f32 ‖r‖² row. Their plain versi
 matmul of the upcast parts, as tpu_knn's dot_general with an f32 result
 does. On a bf16 operand the lower r parts are exactly zero, so the kernel
 drops those terms (adding a ±0 product leaves an f32 sum unchanged) and
-reads the operand as it is stored.
+reads the operand as it is stored. The 1-NN ladder's rungs (v3, v5, v6)
+have tier instances of their own on the same mainloop
+(csrc/tensor_ladder_kernels.cu; the ladder section below), and v3's
+"packed" takes tpu_knn's unpadded AoS term list (`term_list(..., aos=True)`).
 """
 
 from __future__ import annotations
@@ -85,7 +88,9 @@ _MODE_F32, _MODE_BF16, _MODE_PRESPLIT = 0, 1, 2
 #: "bf16x3_presplit", B2 over a bf16 store's operand
 #: (smallm.smallm_candidates) as "B2-bf16", and the top-K kernels' tier
 #: instances as "<kernel> <resolved tier>" ("B4 packed3", "B5 bf16x3", ...;
-#: "<kernel>-bf16 <tier>" over a bf16 operand, see topk_tier_row).
+#: "<kernel>-bf16 <tier>" over a bf16 operand, see topk_tier_row), and the
+#: 1-NN ladder's as "B1 v3 <tier>", "B10 <tier>", "B1 v6 <tier>"
+#: (ladder_tier_row).
 TIER_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -105,26 +110,35 @@ def split_bf16_3(x: torch.Tensor):
     return hi, mid, lo
 
 
-def resolved_tier(precision: str, k: int) -> str:
+def _packed_width(k: int, aos: bool) -> int:
+    """The contraction width "packed" picks its terms at: round_up(k, 8)
+    for an SoA block, k itself for tpu_knn's AoS block (v3), which it does
+    not pad (fused.py:402-405), so at k = 9..14 v3 runs all 9 terms."""
+    return k if aos else round_up(k, 8)
+
+
+def resolved_tier(precision: str, k: int, aos: bool = False) -> str:
     """The `_TIER_EPS` key of the arithmetic a tier runs at width k:
     "packed" resolves by its term list (packed3, packed2, or bf16x3 where
-    the contraction is too wide to pack), as select_cutoff does."""
+    the contraction is too wide to pack), as select_cutoff does; ``aos``:
+    over tpu_knn's unpadded AoS block (v3)."""
     if precision == "packed":
-        n_splits, _ = _packed_terms(round_up(k, 8))
+        n_splits, _ = _packed_terms(_packed_width(k, aos))
         return {3: "packed3", 2: "packed2"}.get(n_splits, "bf16x3")
     return precision
 
 
-def term_list(precision: str, k: int) -> tuple[tuple[int, int], ...]:
+def term_list(precision: str, k: int, aos: bool = False) -> tuple[tuple[int, int], ...]:
     """(q part, r part) pairs of a tier at width k, in tpu_knn's order
     (`_qr_dot`): indices into the 3-way split (0 hi, 1 mid = the 2-way
-    split's lo, 2 lo)."""
+    split's lo, 2 lo). ``aos``: "packed" over tpu_knn's unpadded AoS block
+    (`_packed_terms(k)`, v3)."""
     if precision in ("default", "bf16_raw"):
         return ((0, 0),)
     if precision == "qsplit2":
         return ((0, 0), (1, 0))
     if precision == "packed":
-        n_splits, pairs = _packed_terms(round_up(k, 8))
+        n_splits, pairs = _packed_terms(_packed_width(k, aos))
         if n_splits:
             return tuple(pairs)
         precision = "bf16x3"
@@ -141,19 +155,19 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return a.float() @ b.float()
 
 
-def tier_qr(q: torch.Tensor, r: torch.Tensor, precision: str) -> torch.Tensor:
+def tier_qr(q: torch.Tensor, r: torch.Tensor, precision: str, aos: bool = False) -> torch.Tensor:
     """q (m, k) f32 · r (k, w) f32 by the tier's terms, structured as
     tpu_knn's `_qr_dot`: one dot over the concatenated parts for "packed",
     hh + (hl + lh) (+ ll) for the bf16x3/x4 ladder, q_hi·r + q_lo·r for
-    qsplit2."""
+    qsplit2. ``aos``: term_list's."""
     k = q.shape[1]
     qp, rp = split_bf16_3(q), split_bf16_3(r)
-    terms = term_list(precision, k)
+    terms = term_list(precision, k, aos)
     if precision in ("default", "bf16_raw"):
         return _dot(qp[0], rp[0])
     if precision == "qsplit2":
         return _dot(qp[0], rp[0]) + _dot(qp[1], rp[0])
-    if precision == "packed" and _packed_terms(round_up(k, 8))[0]:
+    if precision == "packed" and _packed_terms(_packed_width(k, aos))[0]:
         return _dot(torch.cat([qp[i] for i, _ in terms], dim=1),
                     torch.cat([rp[j] for _, j in terms], dim=0))
     qr = _dot(qp[0], rp[0]) + (_dot(qp[0], rp[1]) + _dot(qp[1], rp[0]))
@@ -162,13 +176,15 @@ def tier_qr(q: torch.Tensor, r: torch.Tensor, precision: str) -> torch.Tensor:
     return qr
 
 
-def tier_scores(q: torch.Tensor, r_op: torch.Tensor, n: int, precision: str) -> torch.Tensor:
+def tier_scores(q: torch.Tensor, r_op: torch.Tensor, n: int, precision: str,
+                aos: bool = False) -> torch.Tensor:
     """The plain score s = ‖r‖² − 2·(q·r) of a term-list tier over the
     first n columns of an f32 or bf16 SoA operand, (m, n) f32. A bf16
-    operand is upcast first (exact), as `_score_tile` does."""
+    operand is upcast first (exact), as `_score_tile` does. ``aos``: at
+    term_list's AoS terms."""
     k = q.shape[1]
     r = r_op[:k, :n].float()
-    return (r * r).sum(dim=0) - 2.0 * tier_qr(q, r, precision)
+    return (r * r).sum(dim=0) - 2.0 * tier_qr(q, r, precision, aos)
 
 
 def presplit_ops(ref: torch.Tensor, n_pad: int):
@@ -325,11 +341,17 @@ def _prepare(q, operand, n: int, terms, what: str):
     writes it) and the packed term list. The staged rows are copied 16
     bytes at a time, so the operand's rows must start on 16-byte
     boundaries."""
-    from tpu_knn_torch.csrc.build import load
-
     if operand.data_ptr() % 16 or (operand.stride(0) * operand.element_size()) % 16:
         raise ValueError(f"{what}: the operand's rows must be 16-byte aligned (row stride "
                          f"{operand.stride(0)} elements)")
+    return _prepare_q(q, n, terms)
+
+
+def _prepare_q(q, n: int, terms):
+    """_prepare's library, q parts, ‖r‖² scratch and packed term list, for
+    an operand of any alignment (v3's (n, k) array)."""
+    from tpu_knn_torch.csrc.build import load
+
     lib = load()
     k = q.shape[1]
     q_pad = torch.nn.functional.pad(q, (0, round_up(k, 16) - k))
@@ -586,6 +608,144 @@ def moments_tier_launch(q, r_op, n: int, bound, cell: int, cubic: bool, lo, emit
     check(lib, err, what)
     TIER_LAUNCHES[topk_tier_row("B7", r_op, precision, k)] += 1
     return a, p3, rem
+
+
+# ---- the 1-NN ladder at a tier: v3, v6 and B10 ------------------------------
+#
+# B1's AoS (v3) and resident-query (v6) variants and B10 (v5) at a term-list
+# tier: the tensor-core mainloop under the AoS and TMA staging policies, and
+# with the q parts resident at every shape v6's guard admits (csrc
+# tensor_ladder_kernels.cu). The wrappers (fused.aos_candidates,
+# fused.const_query_candidates, dma_pipeline.dma_candidates) validate, take
+# the plain versions on the CPU and send every tier other than "highest"
+# here on the card. Each launch counts in TIER_LAUNCHES under its row
+# (ladder_tier_row): "B1 v3 <tier>", "B1 v6 <tier>", "B10 <tier>".
+
+#: The kernel-table row of each rung's tier instances.
+LADDER_ROWS = {"v3": "B1 v3", "v6": "B1 v6", "v5": "B10"}
+
+#: v6's resident q parts where a 64-row block's do not fit
+#: TENSOR_Q_RESIDENT_BYTES: the live rows' (csrc kQResidentLiveBytes).
+TENSOR_Q_LIVE_BYTES = 96 * 1024
+
+
+def ladder_terms(precision: str, k: int, aos: bool = False):
+    """The term list a rung's tier instance runs: term_list's ("bf16x3_presplit"
+    is bf16x3's terms over the f32 points, as tpu_knn's `_qr_dot` computes
+    it for these kernels). "qsplit2" needs a bf16-exact operand, which the
+    rungs' per-call f32 points are not; "highest" is the tiled f32
+    kernels'."""
+    if precision in ("highest", "qsplit2"):
+        raise ValueError(f"the ladder's tier instances take no {precision!r} tier")
+    return term_list(precision, k, aos)
+
+
+def ladder_tier_row(rung: str, precision: str, k: int) -> str:
+    """The TIER_LAUNCHES key of a rung's tier instance ("v3", "v5" or "v6"):
+    its row and the instance's resolved tier (bf16x3_presplit runs bf16x3's
+    instance, bf16_raw default's)."""
+    tier = resolved_tier(precision, k, aos=rung == "v3")
+    tier = {"bf16x3_presplit": "bf16x3", "bf16_raw": "default"}.get(tier, tier)
+    return f"{LADDER_ROWS[rung]} {tier}"
+
+
+def tensor_q_resident(terms, k16: int) -> bool:
+    """Whether a 64-row block's q parts fit TENSOR_Q_RESIDENT_BYTES (csrc
+    q_resident) in f32 mode."""
+    kc = tensor_chunk(k16)
+    nq = 1 + max(i for i, _ in terms)
+    return k16 // kc * nq * TENSOR_TILE_M * (kc + 8) * 2 <= TENSOR_Q_RESIDENT_BYTES
+
+
+def tensor_live_stages(terms, kc: int) -> int:
+    """The ring's depth of v6's live-row instance (csrc live_ring_stages):
+    the deepest, up to 4, at which one block with TENSOR_Q_LIVE_BYTES of q
+    parts fits an SM."""
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc)
+
+    def fits(stages):
+        most = _fixed_bytes(_MODE_F32) + stages * r_stage + planes + TENSOR_Q_LIVE_BYTES
+        return most + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM and most <= SMEM_PER_BLOCK
+
+    return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
+
+
+def tensor_live_q_bytes(terms, m: int, k16: int) -> int:
+    """The resident q parts of a live-row block: its live rows (at most
+    TENSOR_TILE_M) of each part, every chunk (csrc live_q_bytes)."""
+    kc = tensor_chunk(k16)
+    nq = 1 + max(i for i, _ in terms)
+    return nq * min(m, TENSOR_TILE_M) * (k16 // kc) * (kc + 8) * 2
+
+
+def tensor_live_smem(terms, m: int, k16: int) -> int:
+    """Dynamic shared memory of v6's live-row instance: B1's fixed bytes,
+    the ring (r stages only), the f32 part planes and the live q parts."""
+    kc = tensor_chunk(k16)
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc)
+    return (_fixed_bytes(_MODE_F32) + tensor_live_stages(terms, kc) * r_stage + planes
+            + tensor_live_q_bytes(terms, m, k16))
+
+
+def resident_tier_parts(precision: str, m: int, k: int, n: int) -> int:
+    """v6's partition count at a tier: B1's (tensor_parts) where a 64-row
+    block's q parts fit, its own launch then; else the live-row instance's
+    one block an SM."""
+    if tensor_q_resident(ladder_terms(precision, k), round_up(k, 16)):
+        return tensor_parts(m, n)
+    return _wave_parts(cdiv(m, TENSOR_TILE_M) * TENSOR_SLICES, cdiv(n, LANE), TENSOR_TILE_GROUPS,
+                       1)
+
+
+def aos_tier_candidates_plain(q, ref, n: int, parts: int, precision: str):
+    """v3's tier candidates, plain: tier_scores over the first n points of
+    the (>= n, k) array at the AoS term list (tpu_knn's `_score_tile` with
+    soa=False), then the per-lane fold."""
+    return _lane_fold(tier_scores(q, ref[:n].T, n, precision, aos=True), parts)
+
+
+def dma_tier_candidates_plain(q, r_op, n: int, parts: int, precision: str):
+    """B10's tier candidates, plain: B1's tier candidates, indices only."""
+    return tensor_candidates_plain(q, r_op, n, parts, precision)[0]
+
+
+def _ladder_launch(entry: str, rung: str, q, operand, n: int, parts: int, precision: str,
+                   scores: bool = True):
+    """Launch a rung's tier instance (tk_tensor_<entry>_candidates) over
+    ``operand`` (v3: the (n, k) array; B10, v6: the SoA operand) and count
+    it under ladder_tier_row."""
+    from tpu_knn_torch.csrc.build import check
+
+    m, k = q.shape
+    terms = ladder_terms(precision, k, aos=rung == "v3")
+    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n, terms)
+    idx, score = _candidate_outputs(m, parts * LANE, q.device)
+    outs = (idx.data_ptr(), score.data_ptr()) if scores else (idx.data_ptr(),)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"tk_tensor_{entry}_candidates")(
+            qp.data_ptr(), operand.data_ptr(), norms.data_ptr(), *outs, m, k, operand.stride(0),
+            n, parts, len(terms), q_bits, r_bits, _stream(q))
+    row = ladder_tier_row(rung, precision, k)
+    check(lib, err, f"{row} ({precision})")
+    TIER_LAUNCHES[row] += 1
+    return (idx, score) if scores else idx
+
+
+def aos_tier_launch(q, ref, n: int, parts: int, precision: str):
+    """v3's tier instance on the card (fused.aos_candidates' contract)."""
+    return _ladder_launch("aos", "v3", q, ref, n, parts, precision)
+
+
+def dma_tier_launch(q, r_op, n: int, parts: int, precision: str):
+    """B10's tier instance on the card (dma_pipeline.dma_candidates'
+    contract: indices only)."""
+    return _ladder_launch("dma", "v5", q, r_op, n, parts, precision, scores=False)
+
+
+def resident_tier_launch(q, r_op, n: int, parts: int, precision: str):
+    """v6's tier instance on the card (fused.const_query_candidates'
+    contract)."""
+    return _ladder_launch("resident", "v6", q, r_op, n, parts, precision)
 
 
 def tier_parts(precision: str, m: int, k: int, n: int) -> int:
