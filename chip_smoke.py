@@ -4487,6 +4487,234 @@ def phase3_presplit(card, device, gen, persist, reps):
     return times
 
 
+# ---- the sharded tier (ROADMAP A.9): logical meshes on the card -----------
+
+#: The logical meshes of cuda:0 the sharded phase runs ds11 over: (dcn, dp,
+#: sp), dcn None for a ("dp", "sp") mesh.
+SHARDED_MESHES = ((None, 1, 4), (None, 2, 2), (2, 1, 2))
+
+
+def sharded_mesh(shape, devices):
+    from tpu_knn_torch.distributed.sharded import default_mesh, multislice_mesh
+
+    dcn, dp, sp = shape
+    if dcn is None:
+        return default_mesh(dp=dp, sp=sp, devices=devices)
+    return multislice_mesh(dcn, dp=dp, sp=sp, devices=devices)
+
+
+def mesh_label(mesh) -> str:
+    cards = len(mesh.distinct_devices)
+    return (f"({', '.join(f'{a}={v}' for a, v in mesh.shape.items())}) on "
+            f"{cards} card{'s' if cards > 1 else ''}")
+
+
+def same_indices(name, got, want):
+    """The sharded answer's 1-NN indices identical to the unsharded one's.
+    (Top-K answers go through same_topk: the unsharded engine cuts its K
+    by the tier's score and the sharded merge by exact d2, so where the
+    K-th and (K+1)-th points are a near-tie the two may keep either.)"""
+    differ = int((got.long() != want.long()).sum().item())
+    if got.shape != want.shape or differ:
+        fail(f"{name}: {differ} indices differ from the unsharded answer")
+
+
+def sharded_references(device, gen, ds11=DS11, n_int8=1 << 24, n_graph=1 << 17):
+    """The sharded phase's data and the unsharded answers it is held to,
+    made before its launch counters start: ds11 through fused_knn (1-NN)
+    and topk_knn (K = 8 seeded; m = 8 K = 32 sweep), the bf16 store's
+    unsharded index at ds11 (K = 8), the int8 store's at (16, 2^24)
+    (m = 1, 4, 1024) and knn_graph at (16, 2^17) K = 15, each gated
+    against the exact scans on the card."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.kernels.fused import fused_knn
+    from tpu_knn_torch.kernels.topk import topk_knn
+
+    k, m, n = ds11
+    ctx = {"ds11": ds11, "n int8": n_int8, "n graph": n_graph,
+           "q": uniform(gen, (m, k), device), "r": uniform(gen, (n, k), device)}
+    q, r = ctx["q"], ctx["r"]
+    ctx["flat"] = fused_knn(q, r)[0]
+    ctx["want"] = gate_stored("unsharded fused_knn ds11", q, r, ctx["flat"])
+    for kk, mq in ((8, m), (32, 8)):
+        got = topk_knn(q[:mq], r, kk)
+        errors = topk_gate_errors(q[:mq], r, got[0], kk)
+        log(f"  unsharded topk_knn ({k}, {mq}, {n}) K={kk}: errors {errors}/{mq * kk}")
+        if errors:
+            fail(f"unsharded topk_knn K={kk}: {errors} errors")
+        ctx[f"topk {mq} {kk}"] = got
+    ctx["bf16 flat"] = tpu_knn_torch.NNIndex(r, store="bf16", device=device)
+    ctx["bf16 topk"] = ctx["bf16 flat"].query(q, neighbors=8)
+    ctx["r24"] = uniform(gen, (n_int8, 16), device)
+    ctx["int8 flat"] = tpu_knn_torch.NNIndex(ctx["r24"], store="int8", device=device)
+    for mq in (1, 4, 1024):
+        ctx[f"q int8 {mq}"] = uniform(gen, (mq, 16), device)
+        ctx[f"int8 {mq}"] = ctx["int8 flat"].query(ctx[f"q int8 {mq}"])[0]
+    ctx["points"] = uniform(gen, (n_graph, 16), device)
+    before = seeded_tiers()
+    ctx["graph"] = tpu_knn_torch.knn_graph(ctx["points"], 15)
+    log(f"  unsharded knn_graph: seeded tiers {tier_delta(before)}")
+    torch.cuda.synchronize(device)
+    return ctx
+
+
+def phase2_sharded(device, ctx, tmp):
+    """The sharded tier on logical meshes of cuda:0 (every shard boundary,
+    rebase and reduction runs on the card): sharded_knn at ds11 over
+    SHARDED_MESHES with "pmin" and "ring"; sharded_topk_knn at ds11 K = 8
+    (the seeded engine per shard) and at m = 8 K = 32 (the sweep); a bf16
+    store's sharded index (top-K at ds11, K = 8); an int8 store's sharded
+    index over (16, 2^24) at sp = 4 (a 256 MiB grid; m = 1, 4 the masked
+    AoS scan, m = 1024 the per-call bf16 operand through B1's tier);
+    knn_graph(mesh=(2, 2)) at (16, 2^17) K = 15; save -> load(mesh=) at
+    ds11. Each answer is gated against the exact scans (0 errors) and its
+    indices are identical to the unsharded answer's. On a machine with
+    two or more cards, ds11 and the int8 index again over a mesh of
+    distinct cards. Returns the calls phase 3 times, each beside its
+    unsharded call."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.distributed.sharded import (
+        default_mesh, sharded_knn, sharded_topk_knn,
+    )
+    from tpu_knn_torch.kernels.fused import fused_knn
+    from tpu_knn_torch.kernels.topk import topk_knn
+
+    q, r, want, flat = ctx["q"], ctx["r"], ctx["want"], ctx["flat"]
+    k, m, n = ctx["ds11"]
+    n8 = f"2^{ctx['n int8'].bit_length() - 1}"
+    ng = f"2^{ctx['n graph'].bit_length() - 1}"
+    calls = {}
+
+    def ds11_meshes(meshes):
+        for mesh in meshes:
+            for method in ("pmin", "ring"):
+                name = f"sharded_knn ds11 {mesh_label(mesh)} {method}"
+                idx, d2 = sharded_knn(q, r, mesh=mesh, method=method)
+                if idx.device != device or not bool(torch.isfinite(d2).all()):
+                    fail(f"{name}: answers on {idx.device}, finite d2 {torch.isfinite(d2).all()}")
+                gate_stored(name, q, r, idx, want)
+                same_indices(name, idx, flat)
+                calls[name] = (lambda mesh=mesh, method=method:
+                               sharded_knn(q, r, mesh=mesh, method=method),
+                               lambda: fused_knn(q, r), "fused_knn ds11")
+
+    ds11_meshes([sharded_mesh(shape, device) for shape in SHARDED_MESHES])
+    mesh4 = sharded_mesh((None, 1, 4), device)
+    for kk, mq in ((8, m), (32, 8)):
+        name = f"sharded_topk_knn ({k}, {mq}, {n}) K={kk} {mesh_label(mesh4)}"
+        before = seeded_tiers()
+        got = sharded_topk_knn(q[:mq], r, kk, mesh=mesh4)
+        log(f"  {name}: seeded tiers {tier_delta(before)}")
+        errors = topk_gate_errors(q[:mq], r, got[0], kk)
+        ties = same_topk(name, got, ctx[f"topk {mq} {kk}"])
+        log(f"  {name}: errors {errors}/{mq * kk}; identical to the unsharded answer but at "
+            f"{ties} near-tie ranks")
+        if errors:
+            fail(f"{name}: {errors} errors")
+        calls[name] = (lambda mq=mq, kk=kk: sharded_topk_knn(q[:mq], r, kk, mesh=mesh4),
+                       lambda mq=mq, kk=kk: topk_knn(q[:mq], r, kk),
+                       f"topk_knn ({k}, {mq}, {n}) K={kk}")
+    ixb = tpu_knn_torch.NNIndex(r, strategy="sharded", store="bf16", mesh=mesh4)
+    name = f"sharded bf16 index ds11 K=8 {mesh_label(mesh4)}"
+    got = ixb.query(q, neighbors=8)
+    pts = ctx["bf16 flat"].ref_dev.float()
+    errors = topk_gate_errors(q, pts, got[0], 8)
+    ties = same_topk(name, got, ctx["bf16 topk"])
+    log(f"  {name}: errors {errors}/{m * 8} over the stored points; identical to the "
+        f"unsharded answer but at {ties} near-tie ranks")
+    if errors:
+        fail(f"{name}: {errors} errors")
+    fxb = ctx["bf16 flat"]
+    calls[name] = (lambda: ixb.query(q, neighbors=8), lambda: fxb.query(q, neighbors=8),
+                   "bf16 index ds11 K=8")
+
+    def int8_index(mesh):
+        ix8 = tpu_knn_torch.NNIndex(ctx["r24"], strategy="sharded", store="int8", mesh=mesh)
+        fx8 = ctx["int8 flat"]
+        if not torch.equal(ix8.r_sharded.gather()[: ix8.n], fx8.ref_dev):
+            fail("sharded int8 grid differs from the unsharded index's")
+        for mq in (1, 4, 1024):
+            qi = ctx[f"q int8 {mq}"]
+            name = f"sharded int8 index (16, {mq}, {n8}) {mesh_label(mesh)}"
+            got = ix8.query(qi)[0]
+            gate_stored(name, fx8._i8_q(qi), fx8.ref_dev, got)
+            same_indices(name, got, ctx[f"int8 {mq}"])
+            calls[name] = (lambda qi=qi: ix8.query(qi), lambda qi=qi: fx8.query(qi),
+                           f"int8 index (16, {mq}, {n8})")
+
+    int8_index(mesh4)
+    mesh22 = sharded_mesh((None, 2, 2), device)
+    pts = ctx["points"]
+    name = f"knn_graph (16, {ng}) K=15 {mesh_label(mesh22)}"
+    before = seeded_tiers()
+    gi, gd = tpu_knn_torch.knn_graph(pts, 15, mesh=mesh22)
+    log(f"  {name}: seeded tiers {tier_delta(before)} (4 positions of 64 chunks)")
+    rows = torch.arange(0, pts.shape[0], 97, device=device)
+    errors = graph_gate_errors(pts, gi, rows, 15)
+    ties = same_topk(name, (gi, gd), ctx["graph"])
+    log(f"  {name}: errors {errors}/{rows.numel() * 15} over every 97th row; identical to "
+        f"the unsharded graph but at {ties} near-tie ranks")
+    if errors or not bool(torch.isfinite(gd).all()):
+        fail(f"{name}: {errors} errors")
+    # Events only: the graph's ~66k launches a call (four positions of 64
+    # chunks) overflow the profiler's buffer, which then loses launches.
+    calls[name] = (lambda: tpu_knn_torch.knn_graph(pts, 15, mesh=mesh22),
+                   lambda: tpu_knn_torch.knn_graph(pts, 15), f"knn_graph (16, {ng}) K=15",
+                   False)
+    ix = tpu_knn_torch.NNIndex(r, strategy="sharded", mesh=mesh22)
+    path = os.path.join(tmp, "sharded_ds11.npz")
+    t0 = time.perf_counter()
+    ix.save(path)
+    t1 = time.perf_counter()
+    lx = tpu_knn_torch.NNIndex.load(path, mesh=mesh4)
+    torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    got, saved = lx.query(q), ix.query(q)
+    if not (torch.equal(got[0], saved[0]) and torch.equal(got[1], saved[1])):
+        fail("sharded save -> load(mesh=): the loaded index answers otherwise")
+    gate_stored(f"sharded save {mesh_label(mesh22)} -> load {mesh_label(mesh4)}", q, r,
+                got[0], want)
+    same_indices("sharded save -> load", got[0], flat)
+    log(f"  sharded save -> load: {os.path.getsize(path) / 2**20:.1f} MiB, save "
+        f"{(t1 - t0) * 1e3:.1f} ms, load {(t2 - t1) * 1e3:.1f} ms")
+    os.remove(path)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh_cards = default_mesh(dp=1, sp=cards)
+        ds11_meshes([mesh_cards])
+        int8_index(mesh_cards)
+    else:
+        log(f"  the sharded phase over distinct cards did not run: this machine has "
+            f"{cards} CUDA card(s)")
+    return calls
+
+
+def phase3_sharded(card, calls, reps):
+    """Each sharded call beside its unsharded call, in turns (CUDA events,
+    medians), and, where the call's entry asks for it, the device time of
+    each (every kernel of the call, summed, timing.device_ms), with the
+    card's name and power limit."""
+    from tpu_knn_torch.utils.timing import device_ms, time_ms
+
+    times = {}
+    for name, (sharded, flat, flat_name, *profiled) in calls.items():
+        got = time_ms({"sharded": sharded, "flat": flat}, reps, warmup=1)
+        times[name], times[f"{name} | unsharded"] = got["sharded"], got["flat"]
+        dev = {key: "not measured" for key in ("sharded", "flat")}
+        if profiled != [False]:
+            dev = {key: sum(device_ms({"call": fn}, "", reps).values())
+                   for key, fn in (("sharded", sharded), ("flat", flat))}
+            times[f"{name} device"] = dev["sharded"]
+            times[f"{name} | unsharded device"] = dev["flat"]
+        log(f"  {name}: {got['sharded']:.4f} ms (device {dev['sharded']}); {flat_name} "
+            f"unsharded {got['flat']:.4f} ms (device {dev['flat']}) [{card}]")
+    return times
+
+
 # ---- main ------------------------------------------------------------------
 
 
@@ -5002,6 +5230,18 @@ def main() -> int:
     persist, counts_persist = drive(
         "save/load", ("B2", "B2-bf16", "B12", "B1 packed3", "B3 packed3", "B7 packed3", "B11"),
         lambda: phase2_persist(device, gens["persist"], persist_dir))
+    # The sharded tier (ROADMAP A.9), from a generator of its own: its
+    # unsharded references first, then its own calls with the counters
+    # reset.
+    log("phase 2: the sharded tier over logical meshes of the card")
+    gen_sh = torch.Generator(device=device)
+    gen_sh.manual_seed(1040)
+    sharded_ctx = sharded_references(device, gen_sh)
+    stamp("phase 2 the sharded tier's unsharded references")
+    sharded_calls, counts_sharded = drive(
+        "sharded", ("B1 packed3", "B3 packed3", "B5 packed3", "B7 packed3", "B8/B9",
+                    "B3-bf16 packed3", "B7-bf16 packed3"),
+        lambda: phase2_sharded(device, sharded_ctx, persist_dir))
     # The "B1 k=768" row counts that path's launches, the B1 row the others'.
     launches = {kname: sum(c[kname] for c in (counts_1nn, counts_topk, counts_seeded,
                                              counts_ladder, counts_ladder_tiers, counts_auto,
@@ -5009,7 +5249,7 @@ def main() -> int:
                                              counts_stores, counts_store_topk,
                                              counts_tier_topk, counts_metrics,
                                              counts_mutable, counts_views, counts_kdtree,
-                                             counts_presplit, counts_persist))
+                                             counts_presplit, counts_persist, counts_sharded))
                 for kname in counters}
     launches["B1 k=768"] = counts_768["B1"]
 
@@ -5065,6 +5305,10 @@ def main() -> int:
     shutil.rmtree(persist_dir)
     torch.cuda.empty_cache()
     stamp("phase 3 B12 over the store operands and a loaded index's first query")
+    times.update(phase3_sharded(card, sharded_calls, reps=5))
+    del sharded_calls, sharded_ctx
+    torch.cuda.empty_cache()
+    stamp("phase 3 the sharded tier beside the unsharded calls")
 
     for mod in ("jax", "tpu_knn"):
         if mod in sys.modules:

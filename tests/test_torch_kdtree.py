@@ -154,11 +154,18 @@ def test_k_guards(monkeypatch):
 
 def test_v10_is_never_selected_by_dispatch():
     """tpu_knn's rule (test_v10_never_selected_by_dispatch): dispatch never
-    reaches the tree versions; the port's best is v7 (tpu_knn's v8 is A.9)."""
+    reaches the tree versions; the port's best is v8, whose guard hands one
+    device (here the CPU, no card) to v7, as tpu_knn's does."""
     from tpu_knn.engine.registry import PREFERENCE_ORDER as TK_ORDER
     from tpu_knn_torch.engine.registry import PREFERENCE_ORDER
 
-    assert best_available_version().name == "v7"
+    best = best_available_version()
+    assert best.name == "v8" and best.fallback == "v7"
+    if torch.cuda.device_count() < 2:
+        assert not best.guard(3, 1024, 1 << 20)
+    r, q = _planted(3, 1500, 8, seed=3)
+    np.testing.assert_array_equal(tpu_knn_torch.nearest_neighbors(q, r, device="cpu"),
+                                  oracle_knn(q, r))
     assert PREFERENCE_ORDER == TK_ORDER
     assert "v9" not in PREFERENCE_ORDER and "v10" not in PREFERENCE_ORDER
 

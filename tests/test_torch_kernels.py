@@ -1373,3 +1373,66 @@ def test_smallm_knn_tile_n_is_b2s_pipeline(device, k, m, n, tile_n):
     assert torch.equal(got[0], want[0])
     assert torch.allclose(got[1], want[1], rtol=1e-6, atol=0.0)
     assert int(got[0][0]) == n // 2
+
+
+# ---- the sharded tier: logical shards on one card, distinct cards ------------
+
+
+def _exact_topk(q, r, kk):
+    d2 = ((q[:, None, :] - r[None, :, :]) ** 2).sum(-1)
+    col = torch.arange(r.shape[0], device=r.device).expand_as(d2)
+    return topk._lex_smallest(d2, col.to(torch.int32), kk)[1]
+
+
+@pytest.mark.parametrize("shape", [(None, 1, 4), (None, 2, 2), (2, 1, 2)])
+def test_sharded_logical_mesh_on_one_card(device, shape):
+    """Logical shards on cuda:0: sharded_knn (pmin and ring), sharded top-K
+    and a prepared sharded index answer as the unsharded paths, and the
+    tier kernel runs once a shard and dp block."""
+    from tpu_knn_torch.distributed.sharded import (
+        _build_sharded, default_mesh, multislice_mesh, sharded_knn, sharded_topk_knn,
+    )
+    from tpu_knn_torch.engine.index import NNIndex
+
+    dcn, dp, sp = shape
+    mesh = (default_mesh(dp=dp, sp=sp, devices=device) if dcn is None
+            else multislice_mesh(dcn, dp=dp, sp=sp, devices=device))
+    n = 70_001
+    q, r, _ = _inputs(device, 40, 16, n, seed=77)
+    want = fused.fused_knn(q, r)
+    tiers.TIER_LAUNCHES.clear()
+    for method in ("pmin", "ring"):
+        got = sharded_knn(q, r, mesh=mesh, method=method)
+        assert got[0].device == device
+        assert torch.equal(got[0], want[0]) and torch.allclose(got[1], want[1], rtol=1e-6)
+    # One launch a dp block and shard holding a point (none for an empty one).
+    n_local = _build_sharded(40, n, 16, mesh).n_local
+    live = sum(s * n_local < n for s in range((dcn or 1) * sp))
+    assert tiers.TIER_LAUNCHES["packed3"] == 2 * dp * live
+    ti, _ = sharded_topk_knn(q, r, 8, mesh=mesh)
+    assert torch.equal(ti, _exact_topk(q, r, 8))
+    ix = NNIndex(r, strategy="sharded", mesh=mesh)
+    assert torch.equal(ix.query(q)[0], want[0])
+    assert torch.equal(ix.query(q, neighbors=8)[0], ti)
+
+
+def test_sharded_mesh_of_distinct_cards():
+    """One shard a card: every shard's kernels launch under its own card
+    (a launch for an operand off the current card raises), and the
+    answers are the one-card answers."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from tpu_knn_torch.distributed.sharded import default_mesh, sharded_knn, sharded_topk_knn
+    from tpu_knn_torch.utils.platform import launch_stream
+
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    q, r, _ = _inputs(cards[0], 40, 16, 70_001, seed=78)
+    with torch.cuda.device(cards[0]):
+        with pytest.raises(RuntimeError, match="current device"):
+            launch_stream(cards[1])
+    mesh = default_mesh(dp=1, sp=len(cards))
+    assert mesh.distinct_devices == cards
+    want = fused.fused_knn(q, r)
+    got = sharded_knn(q, r, mesh=mesh)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(sharded_topk_knn(q, r, 8, mesh=mesh)[0], _exact_topk(q, r, 8))

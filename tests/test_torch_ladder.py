@@ -213,8 +213,8 @@ def test_b10_plain_candidates_against_tpu_knn():
 
 def test_every_ladder_version_registered():
     assert set(tpu_knn_torch.list_versions()) == {f"v{i}" for i in
-                                                  (0, 1, 2, 3, 4, 5, 6, 7, 9, 10, 11)}
-    for name in ("v1", "v3", "v5", "v6", "v9", "v10", "v11"):
+                                                  (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)}
+    for name in ("v1", "v3", "v5", "v6", "v8", "v9", "v10", "v11"):
         assert get_version(name).fallback == tpu_knn.get_version(name).fallback
     assert get_version("v2").guard is None and get_version("v4").guard is None
     assert len(TA_SHAPES) == 8

@@ -260,13 +260,40 @@ def test_views_refuse_to_save(tmp_path):
 
 
 def test_sharded_files_and_mesh_raise_a9(tmp_path):
-    r, _ = _data("fused f32")
-    path = str(tmp_path / "s.npz")
-    np.savez_compressed(path, ref=r, strategy="sharded", precision="packed", mutable=False,
-                        store="float32", metric="l2", mesh_axes=np.asarray(["sp"]),
-                        mesh_sizes=np.asarray([8]))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        NNIndex.load(path, device="cpu")
-    NNIndex(r, device="cpu").save(str(tmp_path / "f"))
-    with pytest.raises(NotImplementedError, match="A.9"):
-        NNIndex.load(str(tmp_path / "f.npz"), mesh=object(), device="cpu")
+    """Sharded .npz files cross between the packages both ways (f32, bf16,
+    int8, mutable with removals): tpu_knn's file loads into the port, on
+    a CPU mesh of the saved (2, 4) shape by default or on the mesh passed,
+    and the port's file into tpu_knn on its 8 virtual devices; each loaded
+    index answers as the one saved (indices equal, d2 within 1e-6)."""
+    from tpu_knn.distributed.sharded import default_mesh as tk_mesh
+    from tpu_knn_torch.distributed.sharded import default_mesh
+
+    r, q = _data("fused f32")
+    for kw in ({}, {"store": "bf16"}, {"store": "int8"}, {"mutable": True}):
+        jx = JaxIndex(r, strategy="sharded", mesh=tk_mesh(dp=2, sp=4), **kw)
+        px = NNIndex(r, strategy="sharded", mesh=default_mesh(dp=2, sp=4, devices="cpu"), **kw)
+        for ix in (jx, px) if kw.get("mutable") else ():
+            ids = ix.add(q[:3] * 0.5)
+            ix.remove([2, 11, int(ids[1])])
+        tag = kw.get("store", "mutable" if kw else "f32")
+        jx.save(str(tmp_path / f"tk_{tag}"))
+        px.save(str(tmp_path / f"pt_{tag}"))
+        lx = NNIndex.load(str(tmp_path / f"tk_{tag}.npz"), device="cpu")
+        assert lx.strategy == "sharded" and lx.mesh.shape == {"dp": 2, "sp": 4}
+        assert lx.store == px.store and lx.n_live == px.n_live
+        lx8 = NNIndex.load(str(tmp_path / f"tk_{tag}.npz"),
+                           mesh=default_mesh(dp=1, sp=8, devices="cpu"), device="cpu")
+        assert lx8.mesh.shape == {"dp": 1, "sp": 8}
+        tk = JaxIndex.load(str(tmp_path / f"pt_{tag}.npz"))
+        assert tk.strategy == "sharded" and dict(tk.mesh.shape) == {"dp": 2, "sp": 4}
+        # m = 40 1-NN and top-K both ways; the int8 store's m = 4 scan too.
+        cases = [(lx, jx, 40, None), (lx, jx, 40, 8), (lx8, jx, 40, None),
+                 (px, tk, 40, None), (px, tk, 40, 8)]
+        if kw.get("store") == "int8":
+            cases.append((lx, jx, 4, None))
+        for port, theirs, m, kk in cases:
+            got = port.query(q[:m], neighbors=kk)
+            want = theirs.query(q[:m], neighbors=kk)
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+            np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                       rtol=1e-6, atol=1e-7)

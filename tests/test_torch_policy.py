@@ -1153,3 +1153,74 @@ def test_v6_live_instance_plan_fits_one_block_an_sm():
                 assert tiers.resident_tier_parts(precision, m, k, 1 << 20) == one_block
     assert tiers.resident_tier_parts("packed", 1024, 16, 1 << 20) == tiers.tensor_parts(
         1024, 1 << 20)
+
+
+# ---- the sharded tier (distributed/sharded.py) --------------------------------
+
+#: Mesh shapes the sharded layouts are pinned at, tpu_knn's on its 8
+#: virtual devices beside the port's of logical CPU shards.
+MESH_SHAPES = [(None, 1, 8), (None, 2, 4), (None, 8, 1), (2, 1, 4), (2, 2, 2), (4, 1, 2)]
+
+
+def _meshes(dcn, dp, sp):
+    from tpu_knn.distributed import sharded as jx_sharded
+    from tpu_knn_torch.distributed import sharded as pt_sharded
+
+    if dcn is None:
+        return (jx_sharded.default_mesh(dp=dp, sp=sp),
+                pt_sharded.default_mesh(dp=dp, sp=sp, devices="cpu"))
+    return (jx_sharded.multislice_mesh(dcn, dp=dp, sp=sp),
+            pt_sharded.multislice_mesh(dcn, dp=dp, sp=sp, devices="cpu"))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_sharded_small_n_and_v8_shape_guard(k):
+    """_small_n verbatim, and v8's guard over a count of devices: tpu_knn's
+    over its 8 devices is the port's shape part at 8 (the port counts
+    distinct CUDA cards, none here)."""
+    from tpu_knn.distributed import sharded as jx_sharded
+    from tpu_knn_torch.distributed import sharded as pt_sharded
+
+    for m in MS:
+        for n in NS:
+            assert pt_sharded._small_n(k, m, n) == jx_sharded._small_n(k, m, n)
+            assert pt_sharded._v8_shape_ok(k, m, n, 8) == jx_sharded._v8_guard(k, m, n)
+            assert not pt_sharded._v8_shape_ok(k, m, n, 1)
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+def test_sharded_layouts_follow_tpu_knn(shape):
+    """sharded_layout (the prepared f32/bf16 layout, at tpu_knn's m_hint and
+    at other batches), int8_sharded_layout, and the n_local the per-call
+    builders pick, on meshes of equal shape."""
+    from tpu_knn.distributed import sharded as jx_sharded
+    from tpu_knn_torch.distributed import sharded as pt_sharded
+
+    jx_mesh, pt_mesh = _meshes(*shape)
+    for k in (1, 3, 8, 16, 33, 128, 768):
+        for n in (1, 5, 130, 1000, 4097, 100_000, 1 << 20, 1 << 24):
+            for m_hint in (1, 8, 100, 1024):
+                assert (pt_sharded.sharded_layout(n, k, pt_mesh, m_hint)
+                        == jx_sharded.sharded_layout(n, k, jx_mesh, m_hint)), (k, n, m_hint)
+            assert (pt_sharded.int8_sharded_layout(n, pt_mesh)
+                    == jx_sharded.int8_sharded_layout(n, jx_mesh))
+    # The per-call builders' n_local: tpu_knn's tile rules at the shard's
+    # batch block (sharded.py:104-108 and 195-205).
+    shards = pt_mesh.shape["sp"] * pt_mesh.shape.get("dcn", 1)
+    dp = pt_mesh.shape["dp"]
+    for k, m, n, kk in ((6, 17, 20_000, 6), (16, 1024, 1 << 20, 8), (5, 80, 4096, 32),
+                        (3, 4, 1030, 16), (16, 64, 1 << 20, 64), (4, 12, 8192, 160)):
+        m_local = -(-m // (dp * 8)) * 8
+        per_shard = -(-n // shards)
+        packed = jx_fused.auto_precision(k, n) == "packed"
+        _, tile_n = jx_tuning.pick_tiles(k, m_local, per_shard, wide=packed)
+        want = -(-per_shard // tile_n) * tile_n
+        assert pt_sharded._build_sharded(m, n, k, pt_mesh).n_local == want
+        if jx_topk._auto_method(m_local, kk) == "sweep":
+            _, tile_n = jx_topk._sweep_tiles(k, m_local, per_shard, kk,
+                                             jx_fused.auto_precision(k, n))
+        else:
+            _, tile_n = jx_tuning.pick_tiles(k, m_local, per_shard)
+        assert (pt_sharded._build_sharded_topk(m, n, k, kk, pt_mesh).n_local
+                == -(-per_shard // tile_n) * tile_n), (k, m, n, kk)
+

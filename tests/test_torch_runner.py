@@ -55,7 +55,7 @@ def test_ta_run_artifacts_and_golden_csv(tmp_path):
 
 def test_versions_default_to_the_registered_ladder(monkeypatch):
     assert pt_runner.registered_ladder() == ["v0", "v1", "v2", "v3", "v4", "v5", "v6",
-                                             "v7", "v9", "v10", "v11"]
+                                             "v7", "v8", "v9", "v10", "v11"]
     seen = {}
 
     def fake_run(versions, shapes, **kw):
@@ -67,7 +67,7 @@ def test_versions_default_to_the_registered_ladder(monkeypatch):
     assert seen["versions"] == pt_runner.registered_ladder()
 
 
-@pytest.mark.parametrize("name", ["v8", "v12", "v99"])
+@pytest.mark.parametrize("name", ["v13", "v12", "v99"])
 def test_unregistered_version_raises_keyerror(name):
     with pytest.raises(KeyError, match="available"):
         pt_runner.main(["--versions", f"v0,{name}", "--no-warmup", "--device", "cpu"])

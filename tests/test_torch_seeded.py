@@ -288,8 +288,14 @@ def test_knn_graph_validation_and_device():
     for bad in (8, 0):
         with pytest.raises(ValueError, match="OTHER"):
             tpu_knn_torch.knn_graph(pts, bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tpu_knn_torch.knn_graph(pts, 2, mesh=object(), device="cpu")
+    from tpu_knn_torch.distributed.sharded import default_mesh
+
+    mesh = default_mesh(dp=2, sp=2, devices="cpu")
+    with pytest.raises(ValueError, match="OTHER"):
+        tpu_knn_torch.knn_graph(pts, 8, mesh=mesh)
+    for a, b in zip(tpu_knn_torch.knn_graph(pts, 3, mesh=mesh),   # a NumPy set: the mesh's
+                    tpu_knn_torch.knn_graph(pts, 3, device="cpu")):
+        assert a.device.type == "cpu" and torch.equal(a, b)
     gi, gd = tpu_knn_torch.knn_graph(torch.from_numpy(pts), 7)   # a tensor stays put
     assert gi.shape == (8, 7) and gi.device.type == "cpu" and gi.dtype == torch.int32
 

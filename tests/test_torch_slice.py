@@ -153,11 +153,21 @@ def test_index_surface_not_ported_yet_raises(tmp_path):
     for strategy in ("auto", "projection", "kdtree"):
         other = tpu_knn_torch.NNIndex(r, strategy=strategy, device="cpu")
         np.testing.assert_array_equal(other.query(r[:3])[0].numpy(), [0, 1, 2])
-    # The sharded strategy (A.9) is what the index surface still lacks.
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tpu_knn_torch.NNIndex(r, device="cpu", strategy="sharded")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tpu_knn_torch.NNIndex.load(str(tmp_path / "ix.npz"), mesh=object(), device="cpu")
+    # The sharded strategy (A.9) is served over a CPU mesh, and answers as
+    # the unsharded index; mesh= belongs to it alone.
+    from tpu_knn_torch.distributed.sharded import default_mesh
+
+    mesh = default_mesh(dp=2, sp=4, devices="cpu")
+    sharded = tpu_knn_torch.NNIndex(r, strategy="sharded", mesh=mesh)
+    for a, b in zip(sharded.query(r[:20]), ix.query(r[:20])):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(sharded.query(r[:20], neighbors=20)[0].numpy(),
+                                  _oracle_topk(r[:20], r, 20))
+    with pytest.raises(ValueError, match="strategy='sharded'"):
+        tpu_knn_torch.NNIndex(r, device="cpu", mesh=mesh)
+    # load(mesh=) of an unsharded file ignores the mesh, as tpu_knn's does.
+    loaded = tpu_knn_torch.NNIndex.load(str(tmp_path / "ix.npz"), mesh=mesh, device="cpu")
+    assert loaded.strategy == "fused"
     # The metrics, mutable indexes and filtered views are served
     # (ROADMAP A.6.1-A.6.4).
     cos = tpu_knn_torch.NNIndex(r + 0.1, metric="cosine", device="cpu")
@@ -199,12 +209,16 @@ def test_device_rule():
 
 def test_registry():
     assert tpu_knn_torch.list_versions() == ["v0", "v1", "v10", "v11", "v2", "v3", "v4",
-                                             "v5", "v6", "v7", "v9"]
+                                             "v5", "v6", "v7", "v8", "v9"]
     from tpu_knn_torch.engine.registry import best_available_version
 
-    assert best_available_version().name == "v7"
-    with pytest.raises(KeyError, match="v8"):
-        tpu_knn_torch.get_version("v8")
+    # tpu_knn's dispatch: v8 first, which hands one device (here: no card)
+    # to v7.
+    best = best_available_version()
+    assert best.name == "v8" and best.fallback == "v7"
+    assert best.guard(16, 1024, 1 << 20) == (torch.cuda.device_count() > 1)
+    with pytest.raises(KeyError, match="v12"):
+        tpu_knn_torch.get_version("v12")
     assert tpu_knn_torch.knn_callback(3, 0, 5, np.zeros((0, 3)), np.zeros((5, 3)),
                                       device="cpu").shape == (0,)
 
@@ -247,6 +261,10 @@ def test_port_never_imports_jax():
         "ix = tpu_knn_torch.NNIndex(r[:, :3], strategy='auto', device='cpu')\n"
         "assert (ix.query(r[:4, :3])[0].numpy() == np.arange(4)).all()\n"
         "assert g.shape == (600, 5)\n"
+        "from tpu_knn_torch.distributed.sharded import default_mesh\n"
+        "i, _ = tpu_knn_torch.sharded_knn(r[:20], r, mesh=default_mesh(dp=2, sp=4, "
+        "devices='cpu'), device='cpu')\n"
+        "assert (i.numpy() == np.arange(20)).all()\n"
         "print(sorted({'jax', 'tpu_knn'} & set(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

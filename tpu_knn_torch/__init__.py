@@ -5,7 +5,7 @@ core.h:71), through the same entry points as tpu_knn. The port imports
 torch and never jax; tpu_knn stays the reference it is tested against.
 
     >>> import tpu_knn_torch
-    >>> idx = tpu_knn_torch.nearest_neighbors(queries, refs)   # default v7
+    >>> idx = tpu_knn_torch.nearest_neighbors(queries, refs)   # v8; v7 on one card
     >>> idx = tpu_knn_torch.nearest_neighbors(queries, refs, version="v5")
     >>> index = tpu_knn_torch.NNIndex(refs, strategy="fused")  # or "auto", "projection", "kdtree"
     >>> idx, d2 = index.query(queries)
@@ -15,9 +15,13 @@ torch and never jax; tpu_knn stays the reference it is tested against.
     >>> idx, d2 = tpu_knn_torch.topk_knn(queries, refs, 16)
     >>> idx, d2 = tpu_knn_torch.knn_graph(points, 15)            # K-NN graph
     >>> index.save("index.npz"); index = tpu_knn_torch.NNIndex.load("index.npz")
+    >>> from tpu_knn_torch.distributed.sharded import default_mesh
+    >>> mesh = default_mesh(dp=1, sp=4)                         # four cards, one a shard
+    >>> idx, d2 = tpu_knn_torch.sharded_knn(queries, refs, mesh=mesh)
+    >>> index = tpu_knn_torch.NNIndex(refs, strategy="sharded", mesh=mesh)
 
-The one-device version ladder is v0–v7 and v9–v11 (tpu_knn's, without the
-sharded v8), and the harness CLI is
+The version ladder is tpu_knn's, v0–v11 (v8 the points sharded over every
+visible card, delegating to v7 on one), and the harness CLI is
 ``python -m tpu_knn_torch.harness.runner``. NumPy inputs go to
 ``device=`` (default "cuda"); torch tensors run where they are. The
 hand-written kernels (B1–B12 in csrc/*_kernels.cu, B8/B9 one compactor,
@@ -37,6 +41,8 @@ _LAZY = {
     "within_radius": ("tpu_knn_torch.kernels.topk", "within_radius"),
     "within_radius_complete": ("tpu_knn_torch.kernels.topk",
                                "within_radius_complete"),
+    "sharded_knn": ("tpu_knn_torch.distributed.sharded", "sharded_knn"),
+    "sharded_topk_knn": ("tpu_knn_torch.distributed.sharded", "sharded_topk_knn"),
 }
 
 
@@ -59,6 +65,8 @@ __all__ = [
     "topk_knn",
     "within_radius",
     "within_radius_complete",
+    "sharded_knn",
+    "sharded_topk_knn",
     "get_version",
     "list_versions",
     "register_version",

@@ -2,8 +2,8 @@
 (counterpart of tpu_knn/api.py).
 
 `knn_callback` dispatches like tpu_knn's: the best registered version in
-production preference order (v7 in the port), or the ``version`` named
-(v0–v7 and v9–v11; engine/registry.py). `nearest_neighbors` is the
+production preference order (v8, which hands one card to v7), or the
+``version`` named (v0–v11; engine/registry.py). `nearest_neighbors` is the
 array-first wrapper. Torch tensors run on their own device; anything else
 is placed on ``device`` (utils/platform.py).
 """
@@ -91,14 +91,18 @@ def knn_graph(points, neighbors: int, *, mesh=None, device="cuda"):
 
     Returns (idx (n, K) int32, d2 (n, K) f32) tensors, rows ascending by
     exact (d2, index). A tensor stays on its device; anything else is
-    placed on ``device``. ``mesh`` (the sharded self-join) is not ported:
-    ROADMAP item A.9.
+    placed on ``device``.
+
+    mesh: a distributed.mesh.Mesh runs the self-join sharded
+    (distributed/sharded.py): the point rows split over "dp" as queries
+    while the same set shards over the reference axes, global rebase and
+    top-K merge; the rows come back on the mesh's first device (a NumPy
+    set goes there first) and are compacted there.
     """
     from tpu_knn_torch.kernels.topk import PASSES_MAX_NEIGHBORS, topk_knn
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "knn_graph(mesh=) is not ported to tpu_knn_torch yet: ROADMAP item A.9")
+    if mesh is not None and not isinstance(points, torch.Tensor):
+        device = mesh.home
     points = as_f32(points, device)
     n = points.shape[0]
     if not (1 <= neighbors <= min(n - 1, PASSES_MAX_NEIGHBORS - 1)):
@@ -107,5 +111,10 @@ def knn_graph(points, neighbors: int, *, mesh=None, device="cuda"):
             f"{PASSES_MAX_NEIGHBORS - 1})] = "
             f"[1, {min(n - 1, PASSES_MAX_NEIGHBORS - 1)}], "
             f"got {neighbors} (each point needs K OTHER points)")
-    idx, d2 = topk_knn(points, points, neighbors + 1)
+    if mesh is not None:
+        from tpu_knn_torch.distributed.sharded import sharded_topk_knn
+
+        idx, d2 = sharded_topk_knn(points, points, neighbors + 1, mesh=mesh)
+    else:
+        idx, d2 = topk_knn(points, points, neighbors + 1)
     return _graph_compact(idx, d2, neighbors)

@@ -48,11 +48,20 @@ The port serves four strategies:
   (`tree`, built lazily) above; 1-NN, top-K and radius run on the host
   and return tensors on the index's device.
 
+- "sharded": the points sharded over a mesh of devices
+  (distributed/sharded.py, v8's machinery) once, at build: each shard's
+  AoS rows and SoA operand (int8: its grid rows only) live on the devices
+  that scan it, PAD_VALUE past n (a mutable index's empty and removed
+  slots too), and every query runs the per-shard pipelines and the
+  reduction, answering on the mesh's first device. The f32, bf16 and int8
+  stores, cosine/ip, top-K, radius, mutable indexes (ids are global slot
+  numbers, kept across growth), filtered views (masked copies of both
+  operands) and save / load with the mesh's shape, as in tpu_knn.
+
 precision="bf16x3_presplit" (B12) serves the f32 points, a bf16 store
 (hi = the stored values, lo = 0, ‖r‖² in f32), the int8 grid (the same
 split of the per-call grid operand) and "auto". `save` / `load` write and
-read tpu_knn's .npz files. The sharded strategy raises
-NotImplementedError naming its ROADMAP item.
+read tpu_knn's .npz files.
 """
 
 from __future__ import annotations
@@ -69,12 +78,7 @@ from tpu_knn_torch.kernels.fused import (
 from tpu_knn_torch.kernels.tiers import presplit_ops, refine_candidates, tier_parts
 from tpu_knn_torch.kernels.tuning import LANE, MAX_TILE_N, pick_tiles
 from tpu_knn_torch.utils.platform import as_f32, check_device
-from tpu_knn_torch.utils.shapes import round_up
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpu_knn_torch yet: ROADMAP item {item}")
+from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,9 +284,13 @@ class NNIndex:
                 "mutable=True requires strategy='fused' or 'sharded' (slot-addressed "
                 f"prepared operands); {strategy!r} bakes point order into its build — "
                 "rebuild instead")
-        if strategy == "sharded" or mesh is not None:
-            raise _not_ported("strategy='sharded' / mesh=", "A.9")
+        if mesh is not None and strategy != "sharded":
+            raise ValueError("mesh= requires strategy='sharded' (the other strategies live "
+                             "on one device)")
         self.metric = metric
+        if strategy == "sharded":
+            self._init_sharded(ref, mesh, precision, mutable, capacity, store, _pretransformed)
+            return
         if strategy == "kdtree":
             self._init_kdtree(ref, precision, device)
             return
@@ -509,11 +517,12 @@ class NNIndex:
     # cosine (d2 = 2 − 2·cos), and with ip's augmented column every point
     # has the norm max‖r‖², so d2 = ‖q‖² + max‖r‖² − 2·q·r.
 
-    def _transform_ref(self, ref, device) -> torch.Tensor:
+    def _transform_ref(self, ref, device, place: bool = True):
         """Build-time transform of the points (tpu_knn's `_transform_ref`):
         NumPy input in NumPy f32 arithmetic, as tpu_knn's host build does
         it, so both packages store the same bits; a tensor in torch on its
-        device. Sets `_ip_m2` for "ip"."""
+        device. Sets `_ip_m2` for "ip". ``place=False`` leaves a NumPy
+        result on the host (the sharded build places it shard by shard)."""
         xp = torch if isinstance(ref, torch.Tensor) else np
         if xp is np:
             ref = np.ascontiguousarray(ref, np.float32)
@@ -535,6 +544,8 @@ class NNIndex:
             else:
                 aug = torch.sqrt(torch.clamp(torch.tensor(m2, device=ref.device) - n2, min=0))
                 out = torch.cat([ref, aug[:, None]], dim=1)
+        if not place and xp is np:
+            return np.ascontiguousarray(out, np.float32)
         return as_f32(out, device)
 
     def _transform_q(self, search) -> torch.Tensor:
@@ -568,8 +579,12 @@ class NNIndex:
         if self.metric == "cosine":
             return idx, torch.where(torch.isfinite(d2), 1.0 - d2 * 0.5, -torch.inf)
         valid = idx >= 0
-        pts = self.ref_dev[torch.where(valid, idx, 0).reshape(-1).long()]
-        pts = pts.reshape(*idx.shape, self.ref_dev.shape[1])
+        safe = torch.where(valid, idx, 0)
+        if self.strategy == "sharded":
+            pts = self.r_sharded.rows(safe).to(torch.float32)
+        else:
+            pts = self.ref_dev[safe.reshape(-1).long()]
+            pts = pts.reshape(*idx.shape, self.ref_dev.shape[1])
         q = search_t[:, None, :] if idx.dim() == 2 else search_t
         ip = (pts * q).sum(dim=-1)   # the augmented column meets q's 0
         return idx, torch.where(valid, ip, -torch.inf)
@@ -647,11 +662,14 @@ class NNIndex:
         if self._n_slots + p > self.capacity:
             self._grow(self._n_slots + p)
         pos = self._n_slots
-        pts = points.to(self.ref_dev.dtype)   # a bf16 store quantizes adds
-        self.ref_dev[pos:pos + p] = pts
-        r_op = self.r_ops[0]
-        r_op[:, pos:pos + p] = 0
-        r_op[:self.k, pos:pos + p] = pts.T
+        if self.strategy == "sharded":
+            self._add_sharded(points, pos)   # a bf16 store quantizes adds
+        else:
+            pts = points.to(self.ref_dev.dtype)   # a bf16 store quantizes adds
+            self.ref_dev[pos:pos + p] = pts
+            r_op = self.r_ops[0]
+            r_op[:, pos:pos + p] = 0
+            r_op[:self.k, pos:pos + p] = pts.T
         ids = np.arange(pos, pos + p, dtype=np.int32)
         self._n_slots += p
         self._live[ids] = True
@@ -701,15 +719,26 @@ class NNIndex:
         if not self._live[ids].all():
             dead = ids[~self._live[ids]]
             raise ValueError(f"ids already removed: {dead.tolist()[:8]}")
-        at = torch.as_tensor(ids, device=self.device)
-        self.ref_dev[at] = _pad_like(self.ref_dev)
-        self.r_ops[0][:, at] = _pad_like(self.r_ops[0])
+        if self.strategy == "sharded":
+            self._remove_sharded(ids)
+        else:
+            at = torch.as_tensor(ids, device=self.device)
+            self.ref_dev[at] = _pad_like(self.ref_dev)
+            self.r_ops[0][:, at] = _pad_like(self.r_ops[0])
         self._live[ids] = False
         self._live_count -= np.unique(ids).size
 
     def _grow(self, need: int):
         """Capacity to round_up(max(2·capacity, need), tile_n), the new
-        slots PAD_VALUE; slot ids stay."""
+        slots PAD_VALUE; slot ids stay. A sharded index lays its slots out
+        anew over max(2·capacity, need) (its n_local changes)."""
+        if self.strategy == "sharded":
+            live = self._live[: self._n_slots].copy()
+            slots = self.r_sharded.gather()[: self._n_slots]
+            self._init_mutable_sharded(slots, max(2 * self.capacity, need), slots.dtype)
+            self._live[: self._n_slots] = live
+            self._live_count = int(live.sum())
+            return
         new_cap = round_up(max(2 * self.capacity, need), self.tile_n)
         pad_n = new_cap - self.capacity
         self.ref_dev = torch.cat([self.ref_dev, torch.full(
@@ -728,6 +757,11 @@ class NNIndex:
         live_ids = np.nonzero(self._live[: self._n_slots])[0]
         mapping = np.full(self._n_slots, -1, np.int32)
         mapping[live_ids] = np.arange(live_ids.size, dtype=np.int32)
+        if self.strategy == "sharded":
+            self.n = int(live_ids.size)
+            slots = self.r_sharded.gather()[torch.as_tensor(live_ids, device=self.device)]
+            self._init_mutable_sharded(slots, None, slots.dtype)
+            return mapping
         self._init_mutable(self.ref_dev[torch.as_tensor(live_ids, device=self.device)], None)
         return mapping
 
@@ -752,7 +786,8 @@ class NNIndex:
                 "filtered_view on a mutable index is ambiguous under "
                 "later add/remove; use remove() or build a view from a "
                 "compacted snapshot")
-        if self.strategy not in ("fused", "auto") or len(self.r_ops) != 1:
+        if self.strategy != "sharded" and (self.strategy not in ("fused", "auto")
+                                           or len(self.r_ops) != 1):
             raise ValueError(
                 "filtered_view requires the fused/auto/sharded strategy "
                 f"with a plain SoA operand; this index uses {self.strategy!r}")
@@ -764,6 +799,8 @@ class NNIndex:
         live = int(keep.sum())
         if live < 1:
             raise ValueError("filtered_view would keep no points")
+        if self.strategy == "sharded":
+            return self._filtered_view_sharded(keep, live)
         r_op = self.r_ops[0]
         col_keep = np.zeros(r_op.shape[1], bool)
         col_keep[: self.n] = keep
@@ -780,6 +817,226 @@ class NNIndex:
         view._view_live = live
         view._aos_selfmasked = False
         return view
+
+    # ---- the sharded strategy -------------------------------------------
+    #
+    # As in tpu_knn (index.py:361-390, 503-640, 1041-1087): the points are
+    # laid out over the mesh's reference axes once, [dcn-major, sp-minor]
+    # along n, n_local rows a shard (distributed/sharded.py's layouts), and
+    # every query runs that module's per-shard pipelines over them. The f32
+    # and bf16 stores keep two operands a shard, its rows (the exact
+    # refinement gathers from them) and their SoA transpose, PAD_VALUE past
+    # n; the int8 store keeps only the grid rows (zeros past n, excluded by
+    # position). A mutable index lays its capacity slots out the same way:
+    # global slot g is padded row g (shard g // n_local), so ids stay what
+    # they are across growth. Answers come back on the mesh's first device.
+
+    def _init_sharded(self, ref, mesh, precision, mutable: bool, capacity, store: str,
+                      pretransformed: bool):
+        from tpu_knn_torch.distributed.sharded import _check_tier, default_mesh
+
+        self.mesh = mesh if mesh is not None else default_mesh()
+        self.device = self.mesh.home
+        self.strategy, self.store, self.mutable = "sharded", store, False
+        self.ref_dev = self.r_ops = None
+        # The points stay where they are (a NumPy array on the host) until
+        # each shard's rows move to its devices.
+        ref = (ref.to(torch.float32) if isinstance(ref, torch.Tensor)
+               else np.ascontiguousarray(ref, np.float32))
+        if self.metric != "l2" and not pretransformed:
+            ref = self._transform_ref(ref, self.device, place=False)
+        self.n, self.k = ref.shape
+        self.k_user = self.k - (1 if self.metric == "ip" else 0)
+        self.precision = _resolve_precision(precision, self.k, max(self.n, capacity or 0),
+                                            store)
+        _check_tier(self.precision)
+        if store == "int8":
+            self._init_int8_sharded(ref)
+            return
+        dtype = torch.bfloat16 if store == "bf16" else torch.float32
+        if mutable:
+            self._init_mutable_sharded(ref, capacity, dtype)
+            return
+        from tpu_knn_torch.distributed.sharded import sharded_layout
+
+        self.tile_n, self._n_local, _ = sharded_layout(self.n, self.k, self.mesh)
+        self._place_sharded_operands(ref, dtype)
+
+    def _place_sharded_operands(self, rows, dtype) -> None:
+        """Both prepared operands of every shard from ``rows`` (the points or
+        the slots, host or device): the (n_local, k) rows in ``dtype`` (a
+        bf16 store quantizes here, once), PAD_VALUE past the rows given, and
+        their SoA transpose."""
+        from tpu_knn_torch.distributed.sharded import place_rows, place_soa
+
+        self.r_sharded = place_rows(self.mesh, rows, self._n_local, dtype)
+        self.r_ops_sharded = place_soa(self.r_sharded)
+
+    def _init_int8_sharded(self, ref):
+        """store="int8" + strategy="sharded": one global embed (zero, scale)
+        from the points' exact f32 min/max (host arithmetic for NumPy, as
+        tpu_knn's host build; torch for a tensor, as the fused int8 build),
+        and each shard's (n_local, k) int8 grid rows its only resident
+        state."""
+        from tpu_knn_torch.distributed.sharded import int8_sharded_layout, place_rows
+
+        if isinstance(ref, torch.Tensor):
+            self._set_i8_embed(ref.min(dim=0).values.double().cpu().numpy(),
+                               ref.max(dim=0).values.double().cpu().numpy())
+            z = self._i8_zero_dev.to(ref.device)
+            g = torch.clamp(torch.round((ref - z) * self._i8_inv_s_dev.to(ref.device)),
+                            -127.0, 127.0).to(torch.int8)
+        else:
+            self._set_i8_embed(ref.min(axis=0).astype(np.float64),
+                               ref.max(axis=0).astype(np.float64))
+            g = np.clip(np.round((ref - self._i8_zero) * self._i8_inv_s),
+                        -127.0, 127.0).astype(np.int8)
+        self._n_local, _ = int8_sharded_layout(self.n, self.mesh)
+        self.tile_n = pick_tiles(self.k, 1024, self.n, wide=self.precision == "packed")[1]
+        self.r_sharded = place_rows(self.mesh, g, self._n_local, torch.int8, fill=0)
+        self.r_ops_sharded = None
+
+    def _init_mutable_sharded(self, slots, capacity: int | None, dtype):
+        """Mutable + sharded: ``slots`` the occupied slot rows (removed ones
+        already PAD_VALUE), laid out over max(capacity, 2 · slots, 1024)
+        slots at the sharded layout, the rest PAD_VALUE; all given slots
+        live. Growth and compact lay the slots out anew this way (n_local
+        changes; a slot's id is its position in ``slots``)."""
+        from tpu_knn_torch.distributed.sharded import sharded_layout
+
+        n_slots = slots.shape[0]
+        cap_t = max(capacity or 0, 2 * n_slots, 1024)
+        self.tile_n, self._n_local, self.capacity = sharded_layout(cap_t, self.k, self.mesh)
+        self.mutable = True
+        self._place_sharded_operands(slots, dtype)
+        self._n_slots = n_slots
+        self._live = np.zeros(self.capacity, bool)
+        self._live[:n_slots] = True
+        self._live_count = n_slots
+
+    def _shard_spans(self, lo: int, hi: int):
+        """(shard, first local row, global rows [a, b)) for each shard that
+        global rows [lo, hi) touch."""
+        w = self._n_local
+        return [(s, a - s * w, a, min(hi, (s + 1) * w))
+                for s in range(lo // w, cdiv(hi, w)) for a in (max(lo, s * w),)]
+
+    def _add_sharded(self, pts: torch.Tensor, pos: int) -> None:
+        """Write (p, k) points into slots [pos, pos + p) of every copy of
+        both operands, in place."""
+        p = pts.shape[0]
+        for s, a, g0, g1 in self._shard_spans(pos, pos + p):
+            for t in self.r_sharded.copies_of(s):
+                t[a:a + g1 - g0] = pts[g0 - pos:g1 - pos].to(t.device, t.dtype)
+            for t in self.r_ops_sharded.copies_of(s):
+                blk = pts[g0 - pos:g1 - pos].to(t.device, t.dtype)
+                t[:, a:a + g1 - g0] = 0
+                t[:self.k, a:a + g1 - g0] = blk.T
+
+    def _remove_sharded(self, ids: np.ndarray) -> None:
+        """PAD_VALUE into the removed slots of every copy of both operands."""
+        owner = ids // self._n_local
+        for s in np.unique(owner):
+            local = ids[owner == s] - s * self._n_local
+            for t in self.r_sharded.copies_of(int(s)):
+                t[torch.as_tensor(local, device=t.device)] = _pad_like(t)
+            for t in self.r_ops_sharded.copies_of(int(s)):
+                t[:, torch.as_tensor(local, device=t.device)] = _pad_like(t)
+
+    def _filtered_view_sharded(self, keep: np.ndarray, live: int) -> "NNIndex":
+        """filtered_view over the mesh (tpu_knn's index.py:1041-1087): one
+        masked copy of each shard's two operands, the excluded rows and
+        columns PAD_VALUE, so the view runs the unmodified shard pipelines
+        and reports original ids."""
+        from tpu_knn_torch.distributed.mesh import ShardedArray
+
+        view = NNIndex.__new__(NNIndex)
+        for attr in ("strategy", "store", "metric", "k_user", "precision", "n", "k", "device",
+                     "mesh", "tile_n", "_n_local"):
+            setattr(view, attr, getattr(self, attr))
+        if self.metric == "ip":
+            view._ip_m2 = self._ip_m2
+        view.mutable, view.ref_dev, view.r_ops = False, None, None
+        w = self._n_local
+        maskp = np.zeros(self.r_sharded.shape[0], bool)
+        maskp[: self.n] = keep
+        aos, soa = [], []
+        for s in range(self.r_sharded.num_shards):
+            r, r_op = self.r_sharded.block(s), self.r_ops_sharded.block(s)
+            mk = torch.as_tensor(maskp[s * w:(s + 1) * w], device=r.device)
+            aos.append(torch.where(mk[:, None], r, _pad_like(r)))
+            soa.append(torch.where(mk[None, :], r_op, _pad_like(r_op)))
+        view.r_sharded = ShardedArray(self.mesh, aos, axis=0)
+        view.r_ops_sharded = ShardedArray(self.mesh, soa, axis=1)
+        view._view_live = live
+        return view
+
+    def _sharded_query(self, search: torch.Tensor):
+        """1-NN of a bucketed batch over the shards (grid units for int8)."""
+        from tpu_knn_torch.distributed.sharded import _build_sharded, _build_sharded_int8
+
+        m = search.shape[0]
+        if self.store == "int8":
+            return _build_sharded_int8(m, self.n, self.k, self._n_local, self.mesh,
+                                       cutoff_scale=1.0 / self._i8_s2)(search, self.r_sharded)
+        run = _build_sharded(m, self._n_eff, self.k, self.mesh, tile_n=self.tile_n,
+                             prepadded=True, precision=self.precision)
+        return run(search, (self.r_sharded, self.r_ops_sharded))
+
+    def _sharded_topk(self, search: torch.Tensor, neighbors: int):
+        """Top-K of a batch over the shards (grid space for int8, user-unit
+        d2 out)."""
+        from tpu_knn_torch.distributed.sharded import (
+            _build_sharded_int8_topk, _build_sharded_topk,
+        )
+
+        search, m, mb = self._topk_prep_batch(search, neighbors)
+        if self.store == "int8":
+            idx, d2 = _build_sharded_int8_topk(mb, self.n, self.k, neighbors, self._n_local,
+                                               self.mesh)(search, self.r_sharded)
+            return idx[:m], d2[:m] * self._i8_s2
+        run = _build_sharded_topk(mb, self._n_eff, self.k, neighbors, self.mesh,
+                                  n_local=self._n_local, prepadded=True,
+                                  precision=self.precision)
+        idx, d2 = run(search, self.r_sharded, self.r_ops_sharded)
+        return idx[:m], d2[:m]
+
+    def _sharded_pipeline(self, m: int):
+        """pipeline() of the sharded strategy: run(search, ops) over ops =
+        ((rows, SoA),) for f32/bf16, (grid,) for int8 with the grid
+        transform and the d2 rescale inside run."""
+        from tpu_knn_torch.distributed.sharded import _build_sharded, _build_sharded_int8
+
+        if self.store == "int8":
+            run0 = _build_sharded_int8(m, self.n, self.k, self._n_local, self.mesh,
+                                       cutoff_scale=1.0 / self._i8_s2)
+
+            def run_i8(search, grid):
+                idx, d2 = run0(self._i8_q(as_f32(search, self.device)), grid)
+                return idx, d2 * self._i8_s2
+
+            return run_i8, (self.r_sharded,)
+        run = _build_sharded(m, self._n_eff, self.k, self.mesh, tile_n=self.tile_n,
+                             prepadded=True, precision=self.precision)
+        return run, ((self.r_sharded, self.r_ops_sharded),)
+
+    @staticmethod
+    def _rebind_mesh(names, sizes, device="cuda"):
+        """A saved mesh's shape over this process's devices: on the CUDA
+        cards where enough are visible (one each), else default_mesh(); on
+        the CPU, logical shards of that shape (results do not depend on the
+        placement)."""
+        from tpu_knn_torch.distributed.mesh import Mesh
+        from tpu_knn_torch.distributed.sharded import _grid, default_mesh
+
+        sizes = tuple(int(x) for x in sizes)
+        need = int(np.prod(sizes))
+        device = torch.device(device)
+        devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if device.type == "cuda" else [device] * need)
+        if len(devs) < need:
+            return default_mesh()
+        return Mesh(_grid(devs, sizes), tuple(str(a) for a in names))
 
     # ---- the int8 grid store ------------------------------------------
     #
@@ -826,8 +1083,6 @@ class NNIndex:
             raise ValueError("mesh= requires strategy='sharded' (a fused grid index "
                              "lives on one device) — it would otherwise be silently "
                              "ignored")
-        if strategy == "sharded":
-            raise _not_ported("strategy='sharded' / mesh=", "A.9")
         dtype = grid.dtype if isinstance(grid, torch.Tensor) else np.asarray(grid).dtype
         if dtype not in (torch.int8, np.int8) or len(grid.shape) != 2:
             raise ValueError(f"grid must be an (n, k) int8 array, got {dtype} "
@@ -838,21 +1093,26 @@ class NNIndex:
         if not float(scale) > 0.0:
             raise ValueError(f"scale must be positive, got {scale}")
         return cls._from_int8_grid(grid, zero, np.float32(1.0 / np.float64(scale)),
-                                   precision, strategy, device)
+                                   precision, strategy, device, mesh)
 
     @classmethod
     def _from_int8_grid(cls, grid, zero, inv_s, precision: str | None,
-                        strategy: str = "fused", device="cuda") -> "NNIndex":
+                        strategy: str = "fused", device="cuda", mesh=None) -> "NNIndex":
         """The index over the given grid and embed constants (re-quantizing
         is neither possible nor wanted: the grid is the index); ``None``
-        takes tpu_knn's tier for a quantized store."""
-        if strategy != "fused":
-            raise ValueError(f"int8 grids serve the fused strategy here, got {strategy!r}")
+        takes tpu_knn's tier for a quantized store. strategy="sharded"
+        places the grid's rows shard by shard over ``mesh`` (default_mesh()
+        by default): a grid never has to fit one device whole."""
+        if strategy not in ("fused", "sharded"):
+            raise ValueError(f"int8 grids serve the fused or sharded strategy, "
+                             f"got {strategy!r}")
         n, k = grid.shape
         if precision is None:
             precision = _resolve_precision(None, k, n, "int8")
         elif precision not in PORTED_PRECISIONS:
             raise ValueError(f"unknown precision={precision!r}")
+        if strategy == "sharded":
+            return cls._from_int8_grid_sharded(grid, zero, inv_s, precision, mesh)
         if not isinstance(grid, torch.Tensor):
             grid = torch.from_numpy(np.array(grid, np.int8))
             grid = grid.to(check_device(device))
@@ -862,6 +1122,26 @@ class NNIndex:
         ix._set_i8_constants(zero, inv_s)
         _, tile_n = pick_tiles(k, 1024, n, wide=precision == "packed")
         ix._init_fused(grid.contiguous(), None, tile_n, precision, "int8")
+        return ix
+
+    @classmethod
+    def _from_int8_grid_sharded(cls, grid, zero, inv_s, precision: str, mesh) -> "NNIndex":
+        from tpu_knn_torch.distributed.sharded import (
+            _check_tier, default_mesh, int8_sharded_layout, place_rows,
+        )
+
+        _check_tier(precision)
+        ix = cls.__new__(cls)
+        ix.mesh = mesh if mesh is not None else default_mesh()
+        ix.device = ix.mesh.home
+        ix.strategy, ix.store, ix.metric, ix.mutable = "sharded", "int8", "l2", False
+        ix.n, ix.k = grid.shape
+        ix.k_user, ix.precision = ix.k, precision
+        ix.ref_dev = ix.r_ops = ix.r_ops_sharded = None
+        ix._set_i8_constants(zero, inv_s)
+        ix.tile_n = pick_tiles(ix.k, 1024, ix.n, wide=precision == "packed")[1]
+        ix._n_local, _ = int8_sharded_layout(ix.n, ix.mesh)
+        ix.r_sharded = place_rows(ix.mesh, grid, ix._n_local, torch.int8, fill=0)
         return ix
 
     def _i8_q(self, search: torch.Tensor) -> torch.Tensor:
@@ -917,7 +1197,7 @@ class NNIndex:
     # ---- state from a tpu_knn index ------------------------------------
 
     @classmethod
-    def from_state(cls, state, device="cuda") -> "NNIndex":
+    def from_state(cls, state, device="cuda", mesh=None) -> "NNIndex":
         """Build from a tpu_knn index's state, given as NumPy, taken
         verbatim after a check (an optional ``"precision"`` key carries the
         index's tier; else tpu_knn's default for the store):
@@ -946,14 +1226,27 @@ class NNIndex:
           excluded columns PAD_VALUE in every row;
         - a metric index adds ``"metric"``, optionally ``"k_user"``, and
           for "ip" ``"_ip_m2"`` to its fused, presplit, mutable or view
-          state (of the transformed points)."""
-        index = cls._from_store_state(state, device)
+          state (of the transformed points);
+        - sharded, given the port's ``mesh`` of the same shape as the
+          index's: ``{"ref": np.asarray(ix.r_sharded), "r_op":
+          np.asarray(ix.r_ops_sharded), "n": ix.n}`` (the padded layout,
+          PAD_VALUE rows past n; bf16 as for fused), the mutable keys
+          ``"_n_slots"`` and ``"_live"`` for a mutable index (its capacity
+          is the padded length), or for int8 ``{"grid":
+          np.asarray(ix.r_sharded), "zero": ..., "inv_s": ..., "n": ix.n}``;
+          each checked against the layout this mesh gives, metric keys as
+          above."""
+        if mesh is not None:
+            index = cls._from_sharded_state(state, mesh)
+        else:
+            index = cls._from_store_state(state, device)
         metric = state.get("metric", "l2")
         if metric not in ("l2", "cosine", "ip"):
             raise ValueError(f"state['metric'] must be 'l2', 'cosine' or 'ip', got {metric!r}")
         if metric != "l2":
-            if index.store != "float32" or index.strategy != "fused":
-                raise ValueError("a cosine/ip state must be a fused float32 index's")
+            if index.store != "float32" or index.strategy not in ("fused", "sharded"):
+                raise ValueError("a cosine/ip state must be a fused or sharded float32 "
+                                 "index's")
             index.metric = metric
             index.k_user = int(state.get("k_user", index.k - (metric == "ip")))
             if index.k_user != index.k - (metric == "ip"):
@@ -961,6 +1254,69 @@ class NNIndex:
                                  f"columns under metric={metric!r}")
             if metric == "ip":
                 index._ip_m2 = float(state["_ip_m2"])
+        return index
+
+    @classmethod
+    def _from_sharded_state(cls, state, mesh) -> "NNIndex":
+        """A tpu_knn sharded index's state over the port's ``mesh``: the
+        padded layout checked against this mesh's (sharded_layout,
+        int8_sharded_layout, or for a mutable index n_local = capacity /
+        shards), then placed shard by shard."""
+        from tpu_knn_torch.distributed.sharded import (
+            _num_shards, int8_sharded_layout, sharded_layout,
+        )
+
+        n = int(state["n"])
+        shards = _num_shards(mesh)
+        if "grid" in state:
+            grid = np.asarray(state["grid"])
+            if grid.dtype != np.int8 or grid.ndim != 2:
+                raise ValueError(f"state['grid'] must be an (n_pad, k) int8 array, got "
+                                 f"{grid.dtype} {grid.shape}")
+            if grid.shape[0] != int8_sharded_layout(n, mesh)[1] or grid[n:].any():
+                raise ValueError(f"grid of {grid.shape[0]} rows is not the int8 layout of "
+                                 f"n={n} over {shards} shards (zeros past n)")
+            return cls._from_int8_grid(grid[:n], np.asarray(state["zero"], np.float32),
+                                       np.float32(state["inv_s"]), state.get("precision"),
+                                       strategy="sharded", mesh=mesh)
+        ref, r_op, store = _state_tensors(state, "cpu")
+        n_pad, k = ref.shape
+        if "_live" in state:
+            n_slots, live = int(state["_n_slots"]), np.asarray(state["_live"], bool)
+            n_local = n_pad // shards
+            ok = (n_pad % shards == 0 and n_local % LANE == 0 and live.shape == (n_pad,)
+                  and 0 <= n_slots <= n_pad and not live[n_slots:].any())
+        else:
+            n_local = sharded_layout(n, k, mesh)[1]
+            ok = n_pad == n_local * shards
+            live = None
+        pad = ref[:, 0] == _pad_like(ref)
+        if not ok or not bool(pad[n if live is None else n_slots:].all()):
+            raise ValueError(f"ref of {n_pad} rows is not the sharded layout of this mesh "
+                             f"(PAD_VALUE past the points)")
+        # tpu_knn zero-pads the rows past k, but writes PAD_VALUE into every
+        # row of a removed slot's column; the port lays PAD columns out its
+        # own way (place_soa).
+        tail = r_op[k:].clone() if r_op.shape == (round_up(k, 8), n_pad) else None
+        if tail is not None:
+            tail[:, pad & (tail == _pad_like(tail)).all(dim=0)] = 0
+        if tail is None or bool(tail.any()) or not _bits_equal(r_op[:k], ref.T):
+            raise ValueError("r_op is not the zero-padded transpose of ref")
+        precision = state.get("precision")
+        if precision == _resolve_precision(None, k, n_pad if live is not None else n, store):
+            precision = None   # the store's own tier, which an explicit tier may not name
+        index = cls.__new__(cls)
+        index.metric = state.get("metric", "l2")
+        if live is None:
+            index._init_sharded(ref[:n], mesh, precision, False, None, store, True)
+            return index
+        index._init_sharded(ref[:n_slots], mesh, precision, True, n_pad, store, True)
+        # The state's own layout: its capacity, every slot as it is.
+        index._n_local, index.capacity = n_local, n_pad
+        index.tile_n = _tile_for_width(n_local, n_local)
+        index._place_sharded_operands(ref, ref.dtype)
+        index.n, index._n_slots, index._live = n, n_slots, live.copy()
+        index._live_count = int(live.sum())
         return index
 
     @classmethod
@@ -1176,8 +1532,10 @@ class NNIndex:
             aos_scan_applicable, smallm_applicable,
         )
 
+        if self.strategy == "sharded":
+            return self._sharded_pipeline(m)
         if self.strategy not in ("fused", "auto"):
-            raise ValueError(f"pipeline() requires the fused/auto strategy, "
+            raise ValueError(f"pipeline() requires the fused/auto/sharded strategy, "
                              f"not {self.strategy!r}")
         if self.store == "int8":
             return self._i8_run, (self.ref_dev,)
@@ -1198,6 +1556,8 @@ class NNIndex:
 
         m = search.shape[0]
         n = self._n_eff
+        if self.strategy == "sharded":
+            return self._sharded_query(search)
         if self.store == "int8":
             return self._i8_query(search)
         if self.strategy == "projection":
@@ -1288,6 +1648,8 @@ class NNIndex:
 
         if self.strategy == "kdtree":
             return self._kdtree_topk(search, neighbors)
+        if self.strategy == "sharded":
+            return self._sharded_topk(search, neighbors)
         if self.store == "int8":
             return self._i8_query_topk(search, neighbors)
         if self.strategy not in ("fused", "auto") or len(self.r_ops) != 1:
@@ -1376,15 +1738,23 @@ class NNIndex:
             np.savez_compressed(path, ref=self.ref, p=self.tree.p, dim=self.tree.dim,
                                 split_val=self.tree.split_val, **meta)
             return
+        src = self.ref_dev
+        if self.strategy == "sharded":
+            # The mesh's shape (load rebinds it); the payload gathered once,
+            # its padding rows left out.
+            meta["mesh_axes"] = np.asarray(self.mesh.axis_names)
+            meta["mesh_sizes"] = np.asarray([self.mesh.shape[a] for a in self.mesh.axis_names],
+                                            np.int64)
+            src = self.r_sharded.gather()
         if self.store == "int8":
-            np.savez_compressed(path, ref=_host(self.ref_dev[: self.n]), i8_zero=self._i8_zero,
+            np.savez_compressed(path, ref=_host(src[: self.n]), i8_zero=self._i8_zero,
                                 i8_inv_s=self._i8_inv_s, **meta)
             return
         if self.mutable:
-            np.savez_compressed(path, ref=_host(self.ref_dev[: self._n_slots]),
+            np.savez_compressed(path, ref=_host(src[: self._n_slots]),
                                 live=self._live[: self._n_slots], **meta)
             return
-        np.savez_compressed(path, ref=_host(self.ref_dev[: self.n]), **meta)
+        np.savez_compressed(path, ref=_host(src[: self.n]), **meta)
 
     @classmethod
     def load(cls, path, mesh=None, device="cuda") -> "NNIndex":
@@ -1394,22 +1764,25 @@ class NNIndex:
         points taken as transformed, a mutable index's ids and removed
         slots kept, a kdtree's saved arrays taken without a rebuild (kdt2
         is rebuilt at the first query). A bf16 or int8 index whose tier is
-        "qsplit2" loads (tpu_knn's load raises on it). A sharded file or
-        ``mesh=`` raises NotImplementedError (A.9)."""
-        if mesh is not None:
-            raise _not_ported("load(mesh=) / strategy='sharded'", "A.9")
+        "qsplit2" loads (tpu_knn's load raises on it). A sharded index
+        loads over ``mesh``, by default the saved mesh's shape rebound to
+        this process's devices (_rebind_mesh: ``device``'s cards, or
+        logical shards on the CPU); ``mesh`` is ignored for the other
+        strategies, as in tpu_knn."""
         with np.load(path) as z:
             strategy, precision = str(z["strategy"]), str(z["precision"])
             mutable = bool(z["mutable"])
             store = str(z["store"]) if "store" in z else "float32"
             metric = str(z["metric"]) if "metric" in z else "l2"
-            if strategy == "sharded":
-                raise _not_ported("load(mesh=) / strategy='sharded'", "A.9")
+            if strategy != "sharded":
+                mesh = None
+            elif mesh is None:
+                mesh = cls._rebind_mesh(z["mesh_axes"], z["mesh_sizes"], device)
             ref = z["ref"]
             if store == "int8":
                 return cls._from_int8_grid(ref, np.asarray(z["i8_zero"], np.float32),
                                            np.float32(z["i8_inv_s"]), precision,
-                                           device=device)
+                                           strategy=strategy, device=device, mesh=mesh)
             if strategy == "kdtree":
                 from tpu_knn_torch.kdtree.build import KDTree
 
@@ -1419,7 +1792,8 @@ class NNIndex:
                     ref=ref, p=z["p"], dim=z["dim"], split_val=z["split_val"]))
                 return ix
             if store == "bf16":
-                ref = _bf16_tensor(np.ascontiguousarray(ref).view(np.int16), device)
+                ref = _bf16_tensor(np.ascontiguousarray(ref).view(np.int16),
+                                   "cpu" if mesh is not None else device)
             live = np.asarray(z["live"], bool) if mutable else None
             ip_m2 = float(z["ip_m2"]) if metric == "ip" else None
         n, k = ref.shape
@@ -1427,8 +1801,8 @@ class NNIndex:
             # tpu_knn's own tier for the store ("qsplit2" above k = 32),
             # which the constructor refuses as an explicit precision.
             precision = None
-        ix = cls(ref, strategy=strategy, precision=precision, mutable=mutable, store=store,
-                 metric=metric, device=device, _pretransformed=metric != "l2")
+        ix = cls(ref, strategy=strategy, mesh=mesh, precision=precision, mutable=mutable,
+                 store=store, metric=metric, device=device, _pretransformed=metric != "l2")
         if mutable:
             # The saved slots hold PAD_VALUE where removed; their ids stay.
             ix.remove(np.flatnonzero(~live))

@@ -9,9 +9,10 @@ in tpu_knn. The port registers the one-device ladder: v0 (its copy of
 tpu_knn's NumPy oracle), v1 and v2 (two-phase torch ops), v3 and v6 (B1's
 AoS and constant-query variants), v4 (B1), v5 (B10), v7 (B1 over
 partitions), v9 (the host KD-tree), v10 (the host-built tree traversed on
-the card) and v11 (the projection index, B11). The preference order is
-tpu_knn's, so the default dispatch lands on v7, as tpu_knn's does on one
-device, and never on v9/v10; v8 (sharded) is not ported.
+the card), v11 (the projection index, B11) and v8 (the points sharded
+over a mesh of every visible card, distributed/sharded.py). The preference
+order is tpu_knn's: the default dispatch lands on v8, whose guard hands
+one device (or small n) to v7, as tpu_knn's does, and never on v9/v10.
 """
 
 from __future__ import annotations
@@ -90,6 +91,7 @@ def _ensure_builtins() -> None:
         "tpu_knn_torch.kernels.dma_pipeline",
         "tpu_knn_torch.kernels.twolevel",
         "tpu_knn_torch.kernels.projection",
+        "tpu_knn_torch.distributed.sharded",
         "tpu_knn_torch.kdtree.versions",
     ):
         importlib.import_module(mod)

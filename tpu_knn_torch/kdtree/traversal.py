@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpu_knn_torch.utils.platform import check_device
+from tpu_knn_torch.utils.platform import check_device, launch_stream
 
 #: Stack entries a query keeps: depth of a balanced tree of 2^30 points and
 #: slack (a visit pops one entry and pushes at most two), tpu_knn's.
@@ -135,7 +135,7 @@ def kdtree_traverse(q: torch.Tensor, ref: torch.Tensor, p: torch.Tensor, dim: to
         err = lib.tk_kdtree_traverse(
             q.data_ptr(), ref.data_ptr(), p.data_ptr(), dim.data_ptr(), split_val.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), m, k, p.shape[0],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "v10 kdtree_traverse")
     kdtree_traverse.launches += 1
     return idx, d2

@@ -33,7 +33,7 @@ from tpu_knn_torch.kernels.fused import (
 from tpu_knn_torch.kernels.tuning import (
     LANE, MAX_TILE_N, SCORE_TILE_BUDGET, pick_tiles, tiled_geometry,
 )
-from tpu_knn_torch.utils.platform import as_f32_pair
+from tpu_knn_torch.utils.platform import as_f32_pair, launch_stream
 from tpu_knn_torch.utils.shapes import round_up
 
 
@@ -93,7 +93,7 @@ def dma_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
         err = lib.tk_dma_candidates(
             q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), m, q_t.shape[1], k,
             r_op.stride(0), n, parts, tiled_geometry(m, k, n).tm,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B10 dma_candidates")
     dma_candidates.launches += 1
     return idx

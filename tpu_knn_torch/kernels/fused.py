@@ -48,7 +48,7 @@ import torch
 
 from tpu_knn_torch.engine.registry import register_version
 from tpu_knn_torch.kernels.tuning import LANE, resident_geometry, tiled_geometry
-from tpu_knn_torch.utils.platform import as_f32_pair, check_device
+from tpu_knn_torch.utils.platform import as_f32_pair, check_device, launch_stream
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 #: The candidate kernels' default tier: tpu_knn's "highest" (B1's f32
@@ -309,7 +309,7 @@ def fused_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
         err = tiled_entry(lib, "fused_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
             m, q_t.shape[1], k, r_op.stride(0), n, parts, tiled_geometry(m, k, n).tm,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B1 fused_candidates")
     count_launch(fused_candidates, r_op)
     return idx, score
@@ -377,7 +377,7 @@ def banded_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
         err = tiled_entry(lib, "banded_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), bound_s.data_ptr(), bound_i.data_ptr(),
             idx.data_ptr(), score.data_ptr(), m, q_t.shape[1], k, r_op.stride(0), n, parts,
-            tiled_geometry(m, k, n).tm, torch.cuda.current_stream(q.device).cuda_stream)
+            tiled_geometry(m, k, n).tm, launch_stream(q.device))
     check(lib, err, "B4 banded_candidates")
     count_launch(banded_candidates, r_op)
     return idx, score
@@ -508,7 +508,7 @@ def minima_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
         err = tiled_entry(lib, "minima_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), lo.data_ptr() if lo is not None else None,
             partial.data_ptr(), out.data_ptr(), m, q_t.shape[1], k, r_op.stride(0), n_eff,
-            g.parts, g.tm, depth, torch.cuda.current_stream(q.device).cuda_stream)
+            g.parts, g.tm, depth, launch_stream(q.device))
     check(lib, err, "B3 minima_candidates")
     count_launch(minima_candidates, r_op)
     return out
@@ -565,7 +565,7 @@ def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int,
         err = lib.tk_aos_candidates(
             q_t.data_ptr(), ref.data_ptr(), idx.data_ptr(), score.data_ptr(), m, q_t.shape[1],
             k, n, parts, tiled_geometry(m, k, n).tm,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B1 (AoS variant) aos_candidates")
     aos_candidates.launches += 1
     return idx, score
@@ -623,7 +623,7 @@ def const_query_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: i
         err = lib.tk_const_query_candidates(
             q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(), m,
             q_t.shape[1], k, r_op.stride(0), n, parts, resident_geometry(m, k, n).tm,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B1 (resident-query variant) const_query_candidates")
     const_query_candidates.launches += 1
     return idx, score

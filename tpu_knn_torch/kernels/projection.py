@@ -40,7 +40,9 @@ from tpu_knn_torch.kernels.fused import (
     fused_candidates, fused_knn, prep_soa, select_cutoff, tiled_parts,
 )
 from tpu_knn_torch.kernels.tuning import H100_SMS, LANE
-from tpu_knn_torch.utils.platform import as_f32, as_f32_pair, check_device, full_f32_matmul
+from tpu_knn_torch.utils.platform import (
+    as_f32, as_f32_pair, check_device, full_f32_matmul, launch_stream,
+)
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 #: Padding fill whose scores overflow to −inf (never wins).
@@ -184,7 +186,7 @@ def window_candidates(q: torch.Tensor, r_aug: torch.Tensor, tiles: torch.Tensor,
         err = lib.tk_window_candidates(
             q.data_ptr(), r_aug.data_ptr(), tiles.data_ptr(), idx.data_ptr(), m, k,
             r_aug.stride(0), w_tiles * TILE_W // LANE, splits,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B11 window_candidates")
     window_candidates.launches += 1
     return idx

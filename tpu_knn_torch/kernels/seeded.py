@@ -52,6 +52,7 @@ from tpu_knn_torch.kernels.fused import (
 from tpu_knn_torch.kernels.tuning import (
     LANE, OPERAND_TILE_BUDGET, moments_geometry, pick_tiles,
 )
+from tpu_knn_torch.utils.platform import launch_stream
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 # ---- constants and policy (tpu_knn's, verbatim) -----------------------
@@ -267,7 +268,7 @@ def extract_moments(q: torch.Tensor, r_op: torch.Tensor, n: int,
         err = tiled_entry(lib, "extract_moments", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), bound.data_ptr(), ptr(lo), a.data_ptr(),
             ptr(p3), ptr(rem_part), ptr(rem), m, q_t.shape[1], k, r_op.stride(0), n, nc,
-            cell, int(cubic), g.parts, g.tm, torch.cuda.current_stream(dev).cuda_stream)
+            cell, int(cubic), g.parts, g.tm, launch_stream(dev))
     check(lib, err, "B7 extract_moments")
     count_launch(extract_moments, r_op)
     return (a,) + ((p3,) if cubic else ()) + ((rem,) if emit_rem else ())
@@ -344,7 +345,7 @@ def compact_cells(fields, parts: int, cap: int):
             f0.data_ptr(), fields[1].data_ptr() if len(fields) > 1 else None,
             outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr() if len(fields) > 1 else None, m, nc, parts, cap,
-            torch.cuda.current_stream(f0.device).cuda_stream)
+            launch_stream(f0.device))
     check(lib, err, "B8/B9 compact_cells")
     compact_cells.launches += 1
     return outs

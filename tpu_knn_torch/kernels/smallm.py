@@ -26,7 +26,7 @@ from tpu_knn_torch.kernels.fused import (
     _check_candidate_operands, _I32_MAX, _lane_fold, _refine, prep_soa, select_cutoff,
 )
 from tpu_knn_torch.kernels.tuning import LANE, pick_parts
-from tpu_knn_torch.utils.platform import as_f32_pair
+from tpu_knn_torch.utils.platform import as_f32_pair, launch_stream
 from tpu_knn_torch.utils.shapes import round_up
 
 #: Largest batch the kernel serves.
@@ -152,7 +152,7 @@ def smallm_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
     with torch.cuda.device(q.device):
         err = entry(q.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
                     m, k, r_op.stride(0), n, parts,
-                    torch.cuda.current_stream(q.device).cuda_stream)
+                    launch_stream(q.device))
     check(lib, err, "B2-bf16 smallm_candidates" if bf16 else "B2 smallm_candidates")
     if bf16:
         from tpu_knn_torch.kernels.tiers import TIER_LAUNCHES
@@ -168,12 +168,19 @@ def smallm_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int):
 smallm_candidates.launches = 0
 
 
-def _aos_scan(search, ref):
+def _aos_scan(search, ref, live: int | None = None):
     """Zero-prep small-m scan (tpu_knn's `_build_aos_scan`): exact f32
     diff-form distances over the caller's (n, k) array, one query row at
     a time, with v0's tie rule made explicit (the lowest index among the
-    rows at the minimum). +inf rows self-exclude.
+    rows at the minimum). +inf rows self-exclude. ``live`` (tpu_knn's
+    masked=True) excludes the rows at index >= live by position, for an
+    operand whose padding rows cannot hold +inf (an int8 grid shard's):
+    only the first ``live`` rows are read (at least one).
     Returns (idx (m,) int32, d2 (m,) f32)."""
+    if live is not None:
+        if not 1 <= live <= ref.shape[0]:
+            raise ValueError(f"live={live} outside [1, {ref.shape[0]}]")
+        ref = ref[:live]
     n = ref.shape[0]
     s = torch.stack([((ref - q) ** 2).sum(dim=1) for q in search])  # (m, n)
     v = s.min(dim=1, keepdim=True).values

@@ -54,7 +54,7 @@ from tpu_knn_torch.kernels.tuning import (
     LANE, MOMENT_CHUNK, SMEM_PER_BLOCK, SMEM_PER_BLOCK_RESERVED, SMEM_PER_SM,
     TILED_BLOCKS_PER_SM, _wave_parts, kselect_state_bytes,
 )
-from tpu_knn_torch.utils.platform import full_f32_matmul
+from tpu_knn_torch.utils.platform import full_f32_matmul, launch_stream
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 # The tensor-core kernel's geometry (csrc/tensor_kernels.cu). A block of
@@ -377,7 +377,7 @@ def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
         err = lib.tk_tensor_candidates(
             qp.data_ptr(), *ptrs, idx.data_ptr(), score.data_ptr(), m, k, operand.stride(0), n,
             parts, mode, len(terms), q_bits, r_bits,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, what)
     return idx, score
 
@@ -512,7 +512,7 @@ def tier_score_chunks(q: torch.Tensor, r_op: torch.Tensor, n: int, precision: st
 
 
 def _stream(q):
-    return torch.cuda.current_stream(q.device).cuda_stream
+    return launch_stream(q.device)
 
 
 def banded_tier_launch(q, r_op, n: int, parts: int, bound_s, bound_i, precision: str):

@@ -59,7 +59,7 @@ from tpu_knn_torch.kernels.smallm import (
     operand_parts, smallm_applicable, smallm_candidates,
 )
 from tpu_knn_torch.kernels.tuning import LANE, pick_parts, pick_tiles, sweep_geometry
-from tpu_knn_torch.utils.platform import as_f32_pair
+from tpu_knn_torch.utils.platform import as_f32_pair, launch_stream
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 # ---- constants and policy (tpu_knn's, verbatim) -----------------------
@@ -276,7 +276,7 @@ def sweep_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
         err = tiled_entry(lib, "sweep_candidates", r_op)(
             q_t.data_ptr(), r_op.data_ptr(), idx.data_ptr(), score.data_ptr(),
             m, q_t.shape[1], k, r_op.stride(0), n, parts, kk, sweep_geometry(m, k, n).tm,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B5 sweep_candidates")
     count_launch(sweep_candidates, r_op)
     return idx, score
@@ -321,7 +321,7 @@ def smallm_topk_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int,
         err = tiled_entry(lib, "smallm_topk_candidates", r_op)(
             q.data_ptr(), r_op.data_ptr(), bound.data_ptr(), idx.data_ptr(),
             score.data_ptr(), m, k, r_op.stride(0), n, parts, kk,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            launch_stream(q.device))
     check(lib, err, "B6 smallm_topk_candidates")
     count_launch(smallm_topk_candidates, r_op)
     return idx, score
@@ -410,7 +410,7 @@ AOS_CELL = 4096
 
 
 @functools.lru_cache(maxsize=None)
-def _build_aos_topk(m: int, n: int, k: int, kk: int):
+def _build_aos_topk(m: int, n: int, k: int, kk: int, masked: bool = False):
     """Zero-prep per-call top-K for m <= 4 over the caller's (n, k) array
     (tpu_knn's `_build_aos_topk`, torch ops): per query row, the diff-form
     score vector; the K-th smallest of the per-cell minima (cells of 4096
@@ -419,7 +419,13 @@ def _build_aos_topk(m: int, n: int, k: int, kk: int):
     (d2, index). More qualifying cells than that (only dense near-duplicate
     clusters) take the certified fallback, an exact lexicographic top-K of
     the whole row, which breaks ties toward the lower index. Where tpu_knn
-    chose with lax.cond, the port reads one flag on the host per call."""
+    chose with lax.cond, the port reads one flag on the host per call.
+
+    masked=True (tpu_knn's) adds a ``live`` argument to run: rows at index
+    >= live score +inf, for an operand whose padding rows cannot hold +inf
+    (an int8 grid shard's). A row selected anyway (live < K) comes back
+    with d2 = +inf (index -1 from the cells, its own from the fallback):
+    callers treat +inf rows as dead."""
     C = AOS_CELL
     n_pad = round_up(n, C)
     ncell = n_pad // C
@@ -442,13 +448,17 @@ def _build_aos_topk(m: int, n: int, k: int, kk: int):
         return (torch.where(isrt[:kk] != _I32_MAX, isrt[:kk], -1), ds[:kk],
                 qual.sum())
 
-    def run(search, ref):
+    def run(search, ref, live: int | None = None):
+        if masked != (live is not None):
+            raise ValueError("a masked engine takes live=, an unmasked one does not")
         dev = ref.device
         cell_iota = torch.arange(ncell, dtype=torch.int32, device=dev)
         lane_iota = torch.arange(C, dtype=torch.int32, device=dev)
         rows_i, rows_d, nqual, sps = [], [], [], []
         for r in range(m):
             s = ((ref - search[r]) ** 2).sum(dim=-1)
+            if masked:
+                s[live:] = torch.inf
             sp = torch.nn.functional.pad(s, (0, n_pad - n), value=torch.inf)
             ri, rd, nq = cell_stage(sp, cell_iota, lane_iota)
             rows_i.append(ri)

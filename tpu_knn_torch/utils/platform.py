@@ -43,6 +43,20 @@ def check_device(device) -> torch.device:
     return device
 
 
+def launch_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream, for a kernel launch
+    through the library's C entries. The CUDA runtime launches into the
+    thread's current device, so a wrapper launches inside
+    ``torch.cuda.device(operand.device)``; called anywhere else (an operand
+    on another card than the current one) this raises instead of handing
+    one card's stream to a launch on another."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(f"kernel launch for an operand on {device} while cuda:{current} "
+                           "is the current device")
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
     """Products in true f32 on the card (tpu_knn's Precision.HIGHEST):
