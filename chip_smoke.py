@@ -1797,6 +1797,24 @@ TOPK_TIER_KERNELS = {
 }
 
 
+#: The top-K tier rows ranked by launches x (device ms - bound ms), each
+#: with its kernel's device ms before the mainloop's 128-row blocks and
+#: tensor-core sum of the packed terms (tier_kernel.py time, medians of two
+#: runs in turns with the redesign, on an "NVIDIA H100 80GB HBM3, 700.00 W").
+RANKED_TIER_ROWS = {"B4 bf16x3": 8.7199, "B7 packed3": 2.0658, "B4 packed3": 1.9285,
+                    "B3 packed3": 0.9454, "B4-bf16 packed3": 1.1547, "B7 bf16x3": 8.5206,
+                    "B4-bf16 qsplit2": 5.5260}
+
+
+def log_ranked_tier_rows(card, times, bounds):
+    """Log each ranked row's device ms beside its bound and its time before
+    the redesign."""
+    for row, before in RANKED_TIER_ROWS.items():
+        ms = times[f"{row} kernel device"]
+        log(f"  ranked row {row}: device {ms:.4f} ms, bound {bounds[row][0]:.4f} ms, before "
+            f"the redesign {before:.4f} ms ({ms / before:.3f}x) [{card}]")
+
+
 def topk_tier_calls(q, r_op, n, precision, kk=TOPK_TIER_K):
     """kernel id -> (kernel call, plain call) of B4, B5, B3 and B7 at the
     launches the engines make over (q, r_op) at K = kk and `precision`:
@@ -2463,7 +2481,8 @@ def phase2_tiers(device, gen, ds11):
     for tier in ("bf16x3", "bf16x4", "bf16x3_presplit", "highest"):
         gate_stored(f"ds11 per-call fused_knn precision={tier!r}", q, r,
                     fused_knn(q, r, precision=tier)[0], want)
-    errors = gate_errors(q, r, fused_knn(q, r, precision="default")[0], want)
+    errors = gate_errors(q, r, fused_knn(q, r, precision="default", allow_approximate=True)[0],
+                         want)
     log(f"  ds11 per-call fused_knn precision='default' (one bf16 pass, selection-"
         f"approximate): errors {errors}/{m} (not gated)")
     for precision in (None, "bf16x3_presplit"):
@@ -3319,14 +3338,16 @@ def check_ladder_smem(smem):
                 fail(f"{entry}: {nbytes} bytes of static shared memory, the plan has none")
             checked += 1
     # v3 16 (T = 1, 3: 16- and 32-row chunks, q resident or in the ring, and
-    # the one-chunk tile; T = 4 the same but no ring at 32 rows; T = 8, 9:
-    # one-chunk tiles), B10 15 (T = 4 at 16 rows only), v6's live rows 6 (T =
-    # 1, 3, 4 at 16 and 32).
-    if checked != 16 + 15 + 6:
-        fail(f"checked {checked} ladder tier instances, expected {16 + 15 + 6}")
-    plans = {"ds11 packed (v3, B10)": tiers.tensor_smem(0, tiers.term_list("packed", 16), 16, 16),
+    # the one-chunk tile; T = 4 the one-chunk tile, 16-row chunks and
+    # packed2's 32-row chunk; T = 8, 9: packed3's one-chunk tiles), B10 16
+    # (the same, but packed2 at 16 rows), v6's live rows 6 (T = 1, 3, 4 at 16
+    # and 32).
+    if checked != 16 + 16 + 6:
+        fail(f"checked {checked} ladder tier instances, expected {16 + 16 + 6}")
+    plans = {"ds11 packed (v3, B10)": tiers.tensor_smem(0, tiers.term_list("packed", 16), 16, 16,
+                                                        "ladder"),
              "(768, *) bf16x3 (v3, B10)": tiers.tensor_smem(0, tiers.term_list("bf16x3", 768),
-                                                            32, 768),
+                                                            32, 768, "ladder"),
              "(768, 16) bf16x3 (v6, live rows)": tiers.tensor_live_smem(
                  tiers.term_list("bf16x3", 768), 16, 768)}
     log(f"  ladder tier instances: no static shared memory ({checked} instances); dynamic "
@@ -5288,6 +5309,7 @@ def main() -> int:
     gen_tt3.manual_seed(1032)
     topk_tier_times, topk_tier_bounds = phase3_topk_tiers(card, device, gen_tt3, reps=10)
     times.update(topk_tier_times)
+    log_ranked_tier_rows(card, topk_tier_times, topk_tier_bounds)
     torch.cuda.empty_cache()
     stamp("phase 3 top-K tier instances")
     times.update(phase3_calls(card, {**store_calls, **metric_calls, **mutable_calls,

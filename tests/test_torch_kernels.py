@@ -1246,6 +1246,64 @@ def test_b3_and_b7_tier_instances_match_plain_and_each_other(device, precision, 
     assert torch.equal(rem, fused.minima_candidates(q, r_cells, n, lo=bound, precision=precision))
 
 
+#: (precision, operand kind, k, n): the tiers B4's and B7's instances run
+#: on 128-row blocks (packed3 and packed2, whose terms the tensor core sums,
+#: bf16x3 and qsplit2), over f32 and bf16 operands, n ragged against 128
+#: and 256 columns.
+BLOCK_TIER_CASES = [("packed", "f32", 16, 5003), ("packed", "bf16", 16, 3001),
+                    ("packed", "f32", 32, 3001), ("packed", "bf16", 30, 2999),
+                    ("bf16x3", "f32", 40, 2177), ("qsplit2", "bf16", 128, 1153)]
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 127, 129, 1023])
+@pytest.mark.parametrize("precision,kind,k,n", BLOCK_TIER_CASES)
+def test_b4_and_b7_tier_instances_across_the_block_rows(device, precision, kind, k, n, m):
+    """B4's and B7's tier instances against their plain versions at m on
+    each side of a 64- and a 128-row block: B4's candidates agree slot by
+    slot and score within the tier's gate of f64; B7's words, with and
+    without a band, at a bound in a gap of the scores, are the plain
+    version's exactly, and its remainder above the bound is B3 banded at
+    it, bit for bit (one mainloop)."""
+    q, r, r_op = _tier_inputs(device, precision, kind, k, m, n)
+    p4 = fused.banded_parts(precision, m, k, n)
+    lo_s = torch.full((m,), -torch.inf, device=device)
+    lo_i = torch.full((m,), -1, dtype=torch.int32, device=device)
+    ki, ks = fused.banded_candidates(q, r_op, n, p4, lo_s, lo_i, precision=precision)
+    pi, ps = fused.banded_candidates_plain(q, r_op, n, p4, lo_s, lo_i, precision)
+    assert (ki == pi).float().mean().item() >= 0.999
+    gate = tiers.tier_error_gate(precision, k, tiers.score_errors(q, r, pi, ps)[0])
+    assert tiers.score_errors(q, r, ki, ks)[0] <= gate
+    # The second pass, above each row's first pick.
+    b_i, b_s = topk._lex_min(ki, ks)
+    ki2, ks2 = fused.banded_candidates(q, r_op, n, p4, b_s, b_i, precision=precision)
+    assert ((ks2 > b_s[:, None]) | ((ks2 == b_s[:, None]) & (ki2 > b_i[:, None]))).all()
+    assert tiers.score_errors(q, r, ki2, ks2)[0] <= gate
+    s = fused.scores(q, r_op, n, precision)
+    srt = torch.topk(s, 201, dim=1, largest=False).values
+    tol = 2 * tiers.tier_error_gate(precision, k, 0.0) * s.abs().max().item()
+    gaps = srt[:, 21:] - srt[:, 20:-1]
+    j = gaps.argmax(dim=1, keepdim=True) + 20
+    # The rows whose widest gap the two arithmetics cannot cross: their
+    # words must be identical (nearly every row at these n).
+    wide = (gaps.max(dim=1).values > 2 * tol)[:, None]
+    assert wide.float().mean().item() >= 0.9
+    bound = ((srt.gather(1, j) + srt.gather(1, j + 1)) / 2).squeeze(1).contiguous()
+    n_ops = -(-n // 256) * 256
+    r_cells = fused.prep_soa(r.to(r_op.dtype), n_ops)
+    for cell, nf in ((128, 8), (256, 4)):
+        for band in (False, True):
+            lo_b = torch.full((m,), -torch.inf, device=device) if band else None
+            got = seeded.extract_moments(q, r_cells, n, bound, cell, nf, lo=lo_b, emit_rem=band,
+                                         precision=precision)
+            want = seeded.extract_moments_plain(q, r_cells, n, bound, cell, nf, lo_b, band,
+                                                precision)
+            for g, w in zip(got[:1 + (nf == 8)], want):
+                assert torch.equal(torch.where(wide, g, 0), torch.where(wide, w, 0))
+            if band:
+                assert torch.equal(got[-1], fused.minima_candidates(q, r_cells, n, lo=bound,
+                                                                    precision=precision))
+
+
 def test_tier_instances_raise_on_the_presplit_tier_and_a_depth_2_band(device):
     q, r, r_op = _tier_inputs(device, "packed", "f32", 16, 8, 3000)
     b = torch.zeros(8, device=device)

@@ -97,7 +97,9 @@ def test_tier_constants():
     assert pt_fused._TIER_EPS == jx_fused._TIER_EPS
     assert pt_fused.SELECT_SCORE_CUTOFF == jx_fused.SELECT_SCORE_CUTOFF
     assert pt_fused.REFINE_TOP_T == jx_fused.REFINE_TOP_T
-    assert pt_fused.UNCERTIFIED_PRECISIONS == jx_fused.UNCERTIFIED_PRECISIONS
+    # The port also treats "default" as selection-approximate (one bf16
+    # pass, gate errors measured at ds11), where tpu_knn certifies it.
+    assert pt_fused.UNCERTIFIED_PRECISIONS == jx_fused.UNCERTIFIED_PRECISIONS | {"default"}
     assert pt_smallm.SMALLM_MAX_M == jx_smallm.SMALLM_MAX_M
     assert pt_smallm.SMALLM_MAX_K == jx_smallm.SMALLM_MAX_K
     assert pt_smallm.AOS_SCAN_MAX_KPAD_WASTE_K == jx_smallm.AOS_SCAN_MAX_KPAD_WASTE_K
@@ -567,10 +569,12 @@ def test_tensor_kernel_shared_memory_admits_two_blocks_per_sm():
     (tiers.tensor_smem, csrc tensor_smem): for every instance (operand
     mode, T) and chunk KC the C entry dispatches, at every k16 = 16 ...
     4096 it takes (T = 8 and 9 only at k16 = 16, the only width their
-    term lists come at), two blocks and the system's reserve fit an SM;
-    the ring keeps at least two stages (one landing while one is
-    multiplied) and the q parts stay resident up to the limit, then ride
-    in the ring. The instances' term lists are those term_list sends."""
+    term lists come at), its blocks an SM (one 128-row block, which holds
+    two 64-row blocks' rows) and the system's reserve fit an SM; the ring
+    keeps at least two stages (one landing while one is multiplied) and
+    the q parts stay resident up to the limit, then ride in the ring. The
+    instances' term lists are those term_list sends, and the packed ones
+    (tiers.TENSOR_PACKED_INSTANCES) those of packed_tier's tiers."""
     from tpu_knn_torch.kernels import tiers
 
     sent = set()
@@ -583,7 +587,16 @@ def test_tensor_kernel_shared_memory_admits_two_blocks_per_sm():
     assert all(k <= 16 for k in range(1, 800) if len(tiers.term_list("packed", k)) >= 8)
     assert sent <= {(mode, terms) for (mode, _), terms in tiers.TENSOR_INSTANCES.items()}
     assert all(len(terms) == t for (_, t), terms in tiers.TENSOR_INSTANCES.items())
-    budget = tiers.SMEM_PER_SM // tiers.TENSOR_BLOCKS_PER_SM - tiers.SMEM_PER_BLOCK_RESERVED
+    packed = set()
+    for k in range(1, 33):
+        terms = tiers.term_list("packed", k)
+        assert tiers.packed_tier("packed", k)
+        packed |= {(0, len(terms)), (1, sum(1 for t in terms if t[1] == 0))}
+    assert packed == tiers.TENSOR_PACKED_INSTANCES
+    assert not any(tiers.packed_tier(p, k) for p in ("bf16x3", "bf16x4", "qsplit2", "default")
+                   for k in range(1, 800))
+    budget = min(tiers.SMEM_PER_SM // tiers.TENSOR_BLOCKS_PER_SM - tiers.SMEM_PER_BLOCK_RESERVED,
+                 tiers.SMEM_PER_BLOCK)
     for (mode, _), terms in tiers.TENSOR_INSTANCES.items():
         nq = 1 + max(i for i, _ in terms)
         for kc in (16, 32) if len(terms) < 8 else (16,):
@@ -598,18 +611,21 @@ def test_tensor_kernel_shared_memory_admits_two_blocks_per_sm():
                 assert smem <= budget, (mode, terms, kc, k16, smem)
                 assert smem % 16 == 0
                 resident = k16 // kc * nq * tiers.TENSOR_TILE_M * (kc + 8) * 2
-                if resident <= tiers.TENSOR_Q_RESIDENT_BYTES:
+                if resident <= tiers.tensor_q_resident_limit():
                     assert smem >= resident + 4 * 128
                 else:
                     assert smem == in_ring
     assert [tiers.tensor_chunk(k16) for k16 in (16, 32, 48, 64, 768, 4096)] == [
         16, 32, 16, 32, 32, 32]
-    # Named plans: bf16x3 over f32 at k = 768 rides q in a 3-stage ring
-    # beside the split planes and fills the budget exactly; B12 there
-    # takes 3 stages, qsplit2 over a bf16 operand 4.
-    assert tiers.tensor_stages(0, tiers.TENSOR_INSTANCES[0, 3], 32) == 3
-    assert tiers.tensor_smem(0, tiers.TENSOR_INSTANCES[0, 3], 32, 768) == budget
-    assert tiers.tensor_stages(2, tiers.TENSOR_INSTANCES[2, 3], 32) == 3
+    # Named plans: bf16x3 over f32 at k = 768 rides q in a 4-stage ring
+    # beside two sets of split planes (32 KB of fold slots and two |r|^2
+    # rows, 4 x (16.5 KB of r + 20 KB of q), 2 x 17 KB of planes: 218112
+    # bytes, one 128-row block); B12 and qsplit2 over a bf16 operand take 4
+    # stages too, with no planes.
+    assert tiers.tensor_stages(0, tiers.TENSOR_INSTANCES[0, 3], 32) == 4
+    assert tiers.tensor_plane_sets(0, tiers.TENSOR_INSTANCES[0, 3], 32) == 2
+    assert tiers.tensor_smem(0, tiers.TENSOR_INSTANCES[0, 3], 32, 768) == 218112 <= budget
+    assert tiers.tensor_stages(2, tiers.TENSOR_INSTANCES[2, 3], 32) == 4
     assert tiers.tensor_stages(1, tiers.TENSOR_INSTANCES[1, 2], 32) == 4
 
 
@@ -617,8 +633,9 @@ def test_tensor_kernel_shared_memory_admits_two_blocks_per_sm():
                                  (1024, 1 << 17), (1024, 1 << 20), (4096, 1 << 20),
                                  (1 << 14, 1 << 20)])
 def test_tensor_parts_fills_whole_waves_of_two_blocks_per_sm(m, n):
-    """tiers.tensor_parts' cost model: a launch of ceil(m / 64) row tiles x
-    4 lane slices x P blocks runs in waves of 2 x 132, each block walking
+    """tiers.tensor_parts' cost model: a launch of ceil(m / 128) row tiles
+    x 4 lane slices x P blocks runs in waves of 1 x 132 (one 128-row block
+    an SM, the rows of two 64-row blocks), each block walking
     ceil(ceil(G / P) / 4) column tiles; P stays within the groups of n,
     and its waves x tiles per block is within 5% of the least any P gives
     (and never above the same tiles spread evenly over whole waves by more
@@ -997,13 +1014,13 @@ def test_topk_paths_resolve_tpu_knns_tier(k, monkeypatch):
 
 
 def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
-    """tiers.TENSOR_EPILOGUES names each tensor-core epilogue's blocks an SM
-    and layout as its CUDA source declares them (kBlocksPerSm, kContig),
-    and at every instance the C entries dispatch and every k16 each
-    epilogue's plan (tiers.tensor_smem) fits its blocks
+    """tiers.TENSOR_EPILOGUES names each tensor-core epilogue's blocks an
+    SM, layout and rows as its CUDA source declares them (kBlocksPerSm,
+    kContig, kRows), and at every instance the C entries dispatch and every
+    k16 each epilogue's plan (tiers.tensor_smem) fits its blocks
     (tiers.tensor_blocks_per_sm) and one block's limit with at least two
-    ring stages; B4 and B3 keep B1's two blocks an SM, and so does B7
-    without a band, but at T = 4 with 32-row chunks."""
+    ring stages; B1, B4, B3 and B7 run one 128-row block an SM, B5 one
+    64-row block, the ladder's epilogue two 64-row blocks."""
     import os
     import re
 
@@ -1015,33 +1032,33 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
                            ("B4", "tensor_banded_kernels.cu", "BandedEpi"),
                            ("B3", "tensor_minima_kernels.cu", "MinimaEpi"),
                            ("B5", "tensor_sweep_kernels.cu", "SweepEpi"),
-                           ("B7", "tensor_moments_kernels.cu", "MomentsEpi")):
+                           ("B7", "tensor_moments_kernels.cu", "MomentsEpi"),
+                           ("ladder", "tensor_ladder_kernels.cu", "LadderEpi")):
         with open(os.path.join(csrc, f)) as fh:
             src = fh.read()
         body = src[src.index(f"struct {struct} {{"):]
         contig = re.search(r"kContig = (true|false);", body).group(1) == "true"
         per_sm = re.search(r"kBlocksPerSm = ([^;]+);", body).group(1)
+        rows = re.search(r"kRows = ([^;]+);", body).group(1)
+        rows = int(rows.replace("kTBM", str(tiers.TENSOR_LADDER_TILE_M)))
         override = re.search(r"blocks_per_sm\(int(?: t)?, int(?: kc)?\) \{\s*return ([^;]+);",
                              body)
-        if kid == "B7":
-            assert override.group(1) == "t == 4 && kc == 32 ? 1 : kBlocksPerSm"
-        else:
-            assert override.group(1) == "kBlocksPerSm"
-        if per_sm == "BANDED ? 1 : 2":
-            declared["B7"], declared["B7-band"] = (2, contig), (1, contig)
-        else:
-            declared[kid] = (int(per_sm.replace("kTBlocksPerSm", "2")
-                                 .split("//")[0].strip()), contig)
+        assert override.group(1) == "kBlocksPerSm"
+        per_sm = {"BLOCKS": 2}.get(per_sm, None) or int(per_sm.split("//")[0].strip())
+        declared[kid] = (per_sm, contig, rows)
+    declared["B7-band"] = declared["B7"]
+    assert declared.pop("ladder") == tiers.LADDER_EPILOGUE[1:]
     assert declared == {kid: v[1:] for kid, v in tiers.TENSOR_EPILOGUES.items()}
-    assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B4", "B3", "B7")] == [2, 2, 2]
+    assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B1", "B4", "B3", "B7")] == [1, 1, 1, 1]
+    assert [tiers.tensor_rows(kid) for kid in ("B1", "B4", "B3", "B7", "B5", "ladder")] == [
+        128, 128, 128, 128, 64, 64]
     for epilogue in tiers.TENSOR_EPILOGUES:
         for (mode, _), terms in tiers.TENSOR_INSTANCES.items():
             if mode == 2 and epilogue != "B1":
                 continue
             for kc in (16, 32) if len(terms) < 8 else (16,):
-                per_sm = tiers.tensor_blocks_per_sm(epilogue, terms, kc)
-                assert per_sm == (1 if epilogue == "B7" and len(terms) == 4 and kc == 32
-                                  else tiers.TENSOR_EPILOGUES[epilogue][1])
+                per_sm = tiers.tensor_blocks_per_sm(epilogue)
+                assert per_sm == tiers.TENSOR_EPILOGUES[epilogue][1]
                 budget = min(tiers.SMEM_PER_SM // per_sm - tiers.SMEM_PER_BLOCK_RESERVED,
                              tiers.SMEM_PER_BLOCK)
                 assert 2 <= tiers.tensor_stages(mode, terms, kc, epilogue) <= 4
@@ -1116,6 +1133,51 @@ def test_ladder_paths_resolve_tpu_knns_tier(k, monkeypatch):
     assert tiers.resolved_tier("packed", k, aos=True) == (
         {3: "packed3", 2: "packed2"}.get(n_splits, "bf16x3"))
     assert pt_fused.select_cutoff("packed", k) == jx_fused.select_cutoff("packed", k)
+
+
+#: The (k, m, n) of phase 2's tier launches in chip_smoke.py: ds11, packed2
+#: at (32, 1024, 2^20), the embedding widths, the sweep's and the planted
+#: small m, ds10's k = 3, knn_graph's 1024-row chunks over 2^17 points.
+PHASE2_TIER_SHAPES = [(16, 1024, 1 << 20), (32, 1024, 1 << 20), (128, 1024, 1 << 20),
+                      (768, 1024, 1 << 20), (768, 1024, 1 << 18), (16, 16, 1 << 20),
+                      (16, 8, 1 << 20), (16, 64, 1 << 20), (3, 1024, 1 << 20),
+                      (16, 1024, 1 << 17)]
+
+
+@pytest.mark.parametrize("k,m,n", PHASE2_TIER_SHAPES)
+def test_tensor_tile_geometry_at_the_main_path_shapes(k, m, n):
+    """The Python geometry of the tensor-core tile at each tier launch of
+    phase 2: for every epilogue and the instance each tier resolves to
+    there (over f32 and bf16 operands), one block's plan (tensor_smem) is
+    at most 227 KB and its blocks an SM (tensor_blocks_per_sm) fit the SM's
+    shared memory and its 64K registers at 128 a thread; each launch's
+    blocks (row tiles of the epilogue's rows x lane slices x P) fill at
+    least 90% of one wave of those slots and no more."""
+    from tpu_knn_torch.kernels import tiers
+
+    k16 = -(-k // 16) * 16
+    sms = pt_tuning.H100_SMS
+    for precision in ("packed", "bf16x3", "bf16x4", "qsplit2", "default"):
+        for mode, r_dtype in ((0, torch.float32), (1, torch.bfloat16)):
+            if precision == "qsplit2" and mode == 0:
+                continue
+            op = torch.zeros((1, 1), dtype=r_dtype)
+            got_mode, terms = tiers._operand_instance(op, precision, k)
+            assert got_mode == mode
+            packed = tiers.packed_tier(precision, k)
+            kc = tiers.tensor_chunk(k16, terms, packed)
+            for epilogue in tiers.TENSOR_EPILOGUES:
+                per_sm = tiers.tensor_blocks_per_sm(epilogue)
+                rows = tiers.tensor_rows(epilogue)
+                smem = tiers.tensor_smem(mode, terms, kc, k16, epilogue)
+                assert smem <= tiers.SMEM_PER_BLOCK == 227 * 1024
+                assert per_sm * (smem + tiers.SMEM_PER_BLOCK_RESERVED) <= tiers.SMEM_PER_SM
+                assert per_sm * 4 * rows * 128 <= 65536
+                parts = tiers.tensor_topk_parts("B4" if epilogue == "B1" else epilogue, m, n)
+                slices = 1 if tiers.TENSOR_EPILOGUES[epilogue][2] else tiers.TENSOR_SLICES
+                blocks = -(-m // rows) * slices * parts
+                assert 0.9 * per_sm * sms <= blocks <= per_sm * sms, (epilogue, blocks)
+    assert tiers.tensor_rows("B4") == tiers.tensor_rows("B7") == 2 * tiers.tensor_rows("ladder")
 
 
 def test_v6_live_instance_plan_fits_one_block_an_sm():

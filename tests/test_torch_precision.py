@@ -92,7 +92,8 @@ def test_default_is_the_ports_bf16_raw():
     assert torch.equal(tiers.tier_scores(q, r_op, 700, "default"),
                        tiers.tier_scores(q, r_op, 700, "bf16_raw"))
     r = rng.random((3000, 20), np.float32)
-    a = pt_fused.fused_knn(r[:40] + 1e-3, r, precision="default", device="cpu")
+    a = pt_fused.fused_knn(r[:40] + 1e-3, r, precision="default", allow_approximate=True,
+                           device="cpu")
     b = pt_fused.fused_knn(r[:40] + 1e-3, r, precision="bf16_raw", allow_approximate=True,
                            device="cpu")
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -208,6 +209,21 @@ def test_fused_knn_tiers_match_tpu_knn(case):
                                rtol=1e-5, atol=1e-6)
 
 
+def test_default_is_selection_approximate_in_the_port():
+    """A divergence from tpu_knn (ROADMAP C): tpu_knn certifies "default"
+    (one bf16 pass) and answers; the port requires allow_approximate=True
+    for it, as for bf16_raw, because fused_knn at "default" answered a
+    ds11 query outside the ±1e-3 contract on the card."""
+    q, r = _uniform(16, m=8, n=2000)
+    ji, _ = jx_fused.fused_knn(q, r, precision="default")
+    assert np.asarray(ji).shape == (8,)
+    assert "default" not in jx_fused.UNCERTIFIED_PRECISIONS
+    with pytest.raises(ValueError, match="selection-approximate"):
+        pt_fused.fused_knn(q, r, precision="default", device="cpu")
+    pi, _ = pt_fused.fused_knn(q, r, precision="default", allow_approximate=True, device="cpu")
+    assert pi.shape == (8,)
+
+
 def test_certification_checks():
     q, r = _uniform(16, m=8, n=2000)
     with pytest.raises(ValueError, match="selection-approximate"):
@@ -224,7 +240,7 @@ def test_certification_checks():
     from tpu_knn_torch.kernels.dma_pipeline import dma_knn
 
     want = pt_fused.fused_knn(q, r, precision="highest", device="cpu")[0]
-    for precision in ("packed", "bf16x3", "bf16x4", "bf16x3_presplit", "default", "highest"):
+    for precision in ("packed", "bf16x3", "bf16x4", "bf16x3_presplit", "highest"):
         for got in (pt_fused.fused_knn(q, r, soa=False, precision=precision, device="cpu"),
                     dma_knn(q, r, precision=precision, device="cpu"),
                     pt_fused.const_query_knn(q, r, precision=precision, device="cpu")):
@@ -234,8 +250,9 @@ def test_certification_checks():
                  lambda p: pt_fused.const_query_knn(q, r, precision=p, device="cpu")):
         with pytest.raises(ValueError, match="qsplit2"):
             call("qsplit2")
-        with pytest.raises(ValueError, match="selection-approximate"):
-            call("bf16_raw")
+        for approximate in ("bf16_raw", "default"):
+            with pytest.raises(ValueError, match="selection-approximate"):
+                call(approximate)
 
 
 def test_precision_none_resolves_as_tpu_knn(monkeypatch):

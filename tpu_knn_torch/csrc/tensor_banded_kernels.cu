@@ -7,12 +7,16 @@
 // the top-K passes engine at the tier.
 //
 // Bound on the H100: tensor-core operations, as B1's tiers (T * 2 * m * n *
-// k16 at 989 TFLOP/s).
+// k16 at 989 TFLOP/s); the CUDA cores' instruction rate beside the
+// mma.sync and the block's barriers hold it above that
+// (tensor_mainloop.cuh, PERF.md).
 //
 // Design: the shared mainloop (tensor_mainloop.cuh) with B1's lane-slice
-// layout and fold slots; the epilogue is B1's (score, index) fold with the
-// band's test beside it (tiled B4's exact form: s > bs, or s == bs and col >
-// bi; a NaN score or bound admits nothing). Each block stages its 64 rows'
+// layout and fold slots, in 128-row blocks of 16 warps, one an SM (each
+// staged r chunk serves 128 rows); a packed tier's terms are summed in the
+// tensor core. The epilogue is B1's (score, index) fold with the band's
+// test beside it (tiled B4's exact form: s > bs, or s == bs and col > bi; a
+// NaN score or bound admits nothing). Each block stages its 128 rows'
 // bounds once; a position's bound rides in its state. The scores are B1's
 // and B5's at the tier bit for bit (one mainloop), so the passes and sweep
 // engines select the same top-K.
@@ -23,11 +27,13 @@ namespace {
 
 struct BandedEpi {
   static constexpr bool kContig = false;
-  static constexpr int kBlocksPerSm = 2;
+  static constexpr int kRows = 128;
+  static constexpr bool kDeferTileEnd = false;
+  static constexpr int kBlocksPerSm = 1;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   // The fold slots, then the block's rows' bound scores and columns.
-  static constexpr size_t kBoundOff = kFoldSlotBytes;
-  static constexpr size_t kStateBytes = kFoldSlotBytes + 2 * kTBM * sizeof(float);
+  static constexpr size_t kBoundOff = fold_slot_bytes<kRows>();
+  static constexpr size_t kStateBytes = kBoundOff + 2 * kRows * sizeof(float);
   struct Args {
     const float* bound_s;
     const int32_t* bound_i;
@@ -42,21 +48,22 @@ struct BandedEpi {
   static __device__ __forceinline__ void init(unsigned fold, const Args& e, const TensorParams& p) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      st_slot(fold_slot(fold, q, threadIdx.x), make_int2(__float_as_int(pos_inf()), kI32Max));
+      st_slot(fold_slot<kRows>(fold, q, threadIdx.x),
+              make_int2(__float_as_int(pos_inf()), kI32Max));
     }
-    if (threadIdx.x < kTBM) {
-      const int row = tensor_block<TensorLayout<false>>(p.groups, p.groups_per_part).row0 +
+    if (threadIdx.x < kRows) {
+      const int row = tensor_block<TensorLayout<false>, kRows>(p.groups, p.groups_per_part).row0 +
                       static_cast<int>(threadIdx.x);
       float* bs = shared_ptr<float>(fold + kBoundOff);
-      int* bi = shared_ptr<int>(fold + kBoundOff + kTBM * sizeof(float));
+      int* bi = shared_ptr<int>(fold + kBoundOff + kRows * sizeof(float));
       bs[threadIdx.x] = row < p.m ? e.bound_s[row] : pos_inf();
       bi[threadIdx.x] = row < p.m ? e.bound_i[row] : kI32Max;
     }
   }
   static __device__ __forceinline__ Pos load(unsigned fold, const Args&, int q, int tid,
                                              int rl) {
-    return {ld_slot(fold_slot(fold, q, tid)), shared_ptr<const float>(fold + kBoundOff)[rl],
-            shared_ptr<const int>(fold + kBoundOff + kTBM * sizeof(float))[rl]};
+    return {ld_slot(fold_slot<kRows>(fold, q, tid)), shared_ptr<const float>(fold + kBoundOff)[rl],
+            shared_ptr<const int>(fold + kBoundOff + kRows * sizeof(float))[rl]};
   }
   static __device__ __forceinline__ void take(unsigned, const Args&, Pos& p, float sc, int col,
                                               int, int, bool live) {
@@ -66,14 +73,14 @@ struct BandedEpi {
   }
   static __device__ __forceinline__ void store(unsigned fold, const Args&, int q, int tid,
                                                const Pos& p) {
-    st_slot(fold_slot(fold, q, tid), p.best);
+    st_slot(fold_slot<kRows>(fold, q, tid), p.best);
   }
   static __device__ __forceinline__ int dep(const Pos& p) { return p.best.x; }
   static __device__ __forceinline__ void tile_end(unsigned, const Args&, const TensorParams&,
                                                   int) {}
   static __device__ __forceinline__ void finish(unsigned fold, const Args& e,
                                                 const TensorParams& p) {
-    write_candidates(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
+    write_candidates<kRows>(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
   }
 };
 

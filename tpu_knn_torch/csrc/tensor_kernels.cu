@@ -34,9 +34,11 @@ namespace {
 // slots (kFoldSlotBytes), written to the candidate outputs at the end.
 struct CandidatesEpi {
   static constexpr bool kContig = false;
-  static constexpr int kBlocksPerSm = 2;  // tiers.TENSOR_BLOCKS_PER_SM
+  static constexpr int kRows = 128;       // tiers.TENSOR_TILE_M
+  static constexpr bool kDeferTileEnd = false;
+  static constexpr int kBlocksPerSm = 1;  // tiers.TENSOR_BLOCKS_PER_SM
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
-  static constexpr size_t kStateBytes = kFoldSlotBytes;
+  static constexpr size_t kStateBytes = fold_slot_bytes<kRows>();
   struct Args {
     int32_t* out_i;
     float* out_s;
@@ -45,12 +47,13 @@ struct CandidatesEpi {
   static __device__ __forceinline__ void init(unsigned fold, const Args&, const TensorParams&) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      st_slot(fold_slot(fold, q, threadIdx.x), make_int2(__float_as_int(pos_inf()), kI32Max));
+      st_slot(fold_slot<kRows>(fold, q, threadIdx.x),
+              make_int2(__float_as_int(pos_inf()), kI32Max));
     }
   }
   static __device__ __forceinline__ Pos load(unsigned fold, const Args&, int q, int tid,
                                              int) {
-    return ld_slot(fold_slot(fold, q, tid));
+    return ld_slot(fold_slot<kRows>(fold, q, tid));
   }
   static __device__ __forceinline__ void take(unsigned, const Args&, Pos& best, float sc, int col,
                                               int, int, bool live) {
@@ -58,14 +61,14 @@ struct CandidatesEpi {
   }
   static __device__ __forceinline__ void store(unsigned fold, const Args&, int q, int tid,
                                                Pos best) {
-    st_slot(fold_slot(fold, q, tid), best);
+    st_slot(fold_slot<kRows>(fold, q, tid), best);
   }
   static __device__ __forceinline__ int dep(const Pos& best) { return best.x; }
   static __device__ __forceinline__ void tile_end(unsigned, const Args&, const TensorParams&,
                                                   int) {}
   static __device__ __forceinline__ void finish(unsigned fold, const Args& e,
                                                 const TensorParams& p) {
-    write_candidates(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
+    write_candidates<kRows>(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
   }
 };
 
@@ -97,7 +100,7 @@ int tk_tensor_candidates(const void* qp, const void* r, const void* r_lo, const 
   const CandidatesEpi::Args e{out_i, out_s};
   if (mode == kModePresplit) {
     if (nterms != 3 || r_lo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_tensor_kc<3, kModePresplit, CandidatesEpi>(a, e);
+    return launch_tensor_kc<3, kModePresplit, false, CandidatesEpi>(a, e);
   }
   return dispatch_tensor<CandidatesEpi>(a, e, mode, nterms);
 }

@@ -84,11 +84,12 @@ struct AosStaging : SoaStaging {
   // u, consecutive threads reading consecutive quads of one point; else
   // one value a copy, consecutive threads consecutive d. Values past k, and
   // slots past the live groups or n, are zero-filled without a read.
-  template <int MODE, int KC, class L>
+  template <int MODE, int KC, class L, int NT>
   static __device__ __forceinline__ void issue(char* st, const TensorParams& p, int it, int ic,
                                                int tid, const TensorBlock& blk, const void*,
                                                uint64_t*) {
     static_assert(MODE == kModeF32, "the AoS policy stages the f32 points");
+    static_assert(NT == kTThreads, "the AoS policy stages for 64-row blocks");
     constexpr int Q = KC / 4;
     const int d0 = ic * KC;
     const float* r = static_cast<const float*>(p.r);
@@ -129,8 +130,9 @@ struct AosStaging : SoaStaging {
   // each trading the other two values with its neighbour, and writes the
   // pair's part words of its two rows into the planes [part][KC][kTPlaneLd]
   // (the SoA split's values, so its bits).
-  template <int NR, int KC>
+  template <int NR, int KC, int NT>
   static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes) {
+    static_assert(NT == kTThreads, "the AoS policy splits for 64-row blocks");
     constexpr int ROUNDS = kTCols * (KC / 4) / kTThreads;
     const float* sf = reinterpret_cast<const float*>(st);
 #pragma unroll
@@ -181,7 +183,7 @@ struct TmaStaging : SoaStaging {
 
   // One box (32 lanes, 4 groups, KC rows) at the block's lane slice, the
   // tile's first group and the chunk's first row (sp: the tensor map).
-  template <int MODE, int KC, class L>
+  template <int MODE, int KC, class L, int NT>
   static __device__ __forceinline__ void issue(char* st, const TensorParams&, int it, int ic,
                                                int tid, const TensorBlock& blk, const void* sp,
                                                uint64_t* b) {
@@ -207,9 +209,11 @@ static_assert((kTMaxStages + 1) / 2 <= 16 && 4 * sizeof(__nv_bfloat16) == sizeof
 template <bool SCORES, int BLOCKS>
 struct LadderEpi {
   static constexpr bool kContig = false;
+  static constexpr int kRows = kTBM;
+  static constexpr bool kDeferTileEnd = false;
   static constexpr int kBlocksPerSm = BLOCKS;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
-  static constexpr size_t kStateBytes = kFoldSlotBytes;
+  static constexpr size_t kStateBytes = fold_slot_bytes<kRows>();
   struct Args {
     int32_t* out_i;
     float* out_s;
@@ -218,11 +222,12 @@ struct LadderEpi {
   static __device__ __forceinline__ void init(unsigned fold, const Args&, const TensorParams&) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      st_slot(fold_slot(fold, q, threadIdx.x), make_int2(__float_as_int(pos_inf()), kI32Max));
+      st_slot(fold_slot<kRows>(fold, q, threadIdx.x),
+              make_int2(__float_as_int(pos_inf()), kI32Max));
     }
   }
   static __device__ __forceinline__ Pos load(unsigned fold, const Args&, int q, int tid, int) {
-    return ld_slot(fold_slot(fold, q, tid));
+    return ld_slot(fold_slot<kRows>(fold, q, tid));
   }
   static __device__ __forceinline__ void take(unsigned, const Args&, Pos& best, float sc, int col,
                                               int, int, bool live) {
@@ -230,7 +235,7 @@ struct LadderEpi {
   }
   static __device__ __forceinline__ void store(unsigned fold, const Args&, int q, int tid,
                                                Pos best) {
-    st_slot(fold_slot(fold, q, tid), best);
+    st_slot(fold_slot<kRows>(fold, q, tid), best);
   }
   static __device__ __forceinline__ int dep(const Pos& best) { return best.x; }
   static __device__ __forceinline__ void tile_end(unsigned, const Args&, const TensorParams&,
@@ -238,11 +243,11 @@ struct LadderEpi {
   static __device__ __forceinline__ void finish(unsigned fold, const Args& e,
                                                 const TensorParams& p) {
     if constexpr (SCORES) {
-      write_candidates(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
+      write_candidates<kRows>(fold, e.out_i, e.out_s, p.m, p.groups, p.groups_per_part);
     } else {
       // write_candidates' positions, the indices only.
       const int tid = threadIdx.x;
-      const TensorBlock blk = tensor_block<TensorLayout<false>>(p.groups, p.groups_per_part);
+      const TensorBlock blk = tensor_block<TensorLayout<false>, kRows>(p.groups, p.groups_per_part);
       const long long width = static_cast<long long>(gridDim.y) * kLanes;
       const int lane0 = blk.first % kLanes + (tid >> 5 & 3) * 8 + 2 * (tid & 3);
 #pragma unroll
@@ -254,8 +259,8 @@ struct LadderEpi {
             const long long o =
                 row * width + static_cast<long long>(blockIdx.y) * kLanes + lane0;
             *reinterpret_cast<int2*>(e.out_i + o) =
-                make_int2(ld_slot(fold_slot(fold, 4 * i + 2 * h, tid)).y,
-                          ld_slot(fold_slot(fold, 4 * i + 2 * h + 1, tid)).y);
+                make_int2(ld_slot(fold_slot<kRows>(fold, 4 * i + 2 * h, tid)).y,
+                          ld_slot(fold_slot<kRows>(fold, 4 * i + 2 * h + 1, tid)).y);
           }
         }
       }
@@ -287,13 +292,13 @@ tensor_aos_norms_kernel(const float* __restrict__ r, float* __restrict__ rn, int
   rn[col] = norm;
 }
 
-template <int T, int KC, bool RES, bool ONE>
+template <int T, bool PACKED, int KC, bool RES, bool ONE>
 __global__ void __launch_bounds__(kTThreads, AosEpi::blocks_per_sm(T, KC))
 tensor_aos_kernel(const TensorParams p, const AosEpi::Args e) {
-  tensor_mainloop<T, kModeF32, KC, RES, ONE, AosEpi, AosStaging, false>(p, e, nullptr);
+  tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, AosEpi, AosStaging, false>(p, e, nullptr);
 }
 
-template <int T, int KC, bool RES, bool ONE>
+template <int T, bool PACKED, int KC, bool RES, bool ONE>
 __global__ void __launch_bounds__(kTThreads, DmaEpi::blocks_per_sm(T, KC))
 tensor_tma_kernel(const TensorParams p, const DmaEpi::Args e,
                   const __grid_constant__ CUtensorMap map) {
@@ -301,13 +306,13 @@ tensor_tma_kernel(const TensorParams p, const DmaEpi::Args e,
   // kernel without static shared memory starts so.
   extern __shared__ float4 smem4[];
   if (smem_addr(smem4) % 128 != 0) __trap();
-  tensor_mainloop<T, kModeF32, KC, RES, ONE, DmaEpi, TmaStaging, false>(p, e, &map);
+  tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, DmaEpi, TmaStaging, false>(p, e, &map);
 }
 
 template <int T, int KC>
 __global__ void __launch_bounds__(kTThreads, LiveEpi::blocks_per_sm(T, KC))
 tensor_live_kernel(const TensorParams p, const LiveEpi::Args e) {
-  tensor_mainloop<T, kModeF32, KC, true, false, LiveEpi, SoaStaging, true>(p, e, nullptr);
+  tensor_mainloop<T, kModeF32, false, KC, true, false, LiveEpi, SoaStaging, true>(p, e, nullptr);
 }
 
 // ---- the launches --------------------------------------------------------------
@@ -343,7 +348,7 @@ inline int encode_ladder_map(CUtensorMap* map, const void* r, int k, long long l
   return err == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int T, int KC, bool RES, bool ONE, int POL>
+template <int T, bool PACKED, int KC, bool RES, bool ONE, int POL>
 int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e) {
   using EPI = LadderEpiOf<POL>;
   const int blocks = (a.n + 255) / 256;
@@ -359,14 +364,14 @@ int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e)
   const dim3 grid((a.m + kTBM - 1) / kTBM * kTSlices, a.parts);
   if constexpr (POL == kLadderAos) {
     const size_t smem = tensor_smem<kModeF32, T, KC, EPI>(a.k16);
-    auto kernel = tensor_aos_kernel<T, KC, RES, ONE>;
+    auto kernel = tensor_aos_kernel<T, PACKED, KC, RES, ONE>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, kTThreads, smem, a.stream>>>(p, e);
   } else if constexpr (POL == kLadderTma) {
     CUtensorMap map;
     if (const int err = encode_ladder_map(&map, a.r, a.k, a.ld, KC)) return err;
     const size_t smem = tensor_smem<kModeF32, T, KC, EPI>(a.k16);
-    auto kernel = tensor_tma_kernel<T, KC, RES, ONE>;
+    auto kernel = tensor_tma_kernel<T, PACKED, KC, RES, ONE>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, kTThreads, smem, a.stream>>>(p, e, map);
   } else {
@@ -375,6 +380,7 @@ int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e)
     constexpr int kStages = live_ring_stages<kModeF32, T, KC, EPI>();
     const size_t smem = fixed_bytes<kModeF32, EPI>() + kStages * r_stage_bytes<kModeF32, T, KC>() +
                         planes_bytes<kModeF32, T, KC>() + q;
+    static_assert(!PACKED, "a packed tier's q parts fit a 64-row block");
     auto kernel = tensor_live_kernel<T, KC>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, kTThreads, smem, a.stream>>>(p, e);
@@ -382,36 +388,44 @@ int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e)
   return static_cast<int>(cudaGetLastError());
 }
 
-// B1's choice of chunk and residency (launch_tensor_kc): one 16-row chunk
-// a tile at k16 == 16, else 32-row chunks where k16 allows, else 16, the q
-// parts resident where they fit kQResidentBytes; LIVE: always resident.
-template <int T, int POL>
+// B1's choice of chunk and residency (launch_tensor_kc): a packed tier at
+// its one width (packed3 at k16 == 16, a 16-row chunk a tile; packed2 at
+// 32, q resident); else one 16-row chunk a tile at k16 == 16, else 32-row
+// chunks where k16 allows, else 16, the q parts resident where they fit
+// kQResidentBytes; LIVE: always resident, never packed (a packed tier's q
+// parts fit a 64-row block: B1's own launch).
+template <int T, bool PACKED, int POL>
 int launch_ladder_kc(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e) {
-  constexpr Terms want = instance_terms<kModeF32, T>();
-  if (a.terms.q != want.q || a.terms.r != want.r) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (T >= 8 && POL == kLadderLive) {
-    return static_cast<int>(cudaErrorInvalidValue);  // k16 == 16: B1's own launch
-  } else if constexpr (T >= 8) {
-    if (a.k16 != 16) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_ladder<T, 16, true, true, POL>(a, e);
+  if (!instance_matches<kModeF32, T, PACKED>(a.terms)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if constexpr (PACKED && POL == kLadderLive) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if constexpr (PACKED) {
+    if constexpr (q_parts<kModeF32, T>() == 3) {
+      if (a.k16 == 16) return launch_ladder<T, true, 16, true, true, POL>(a, e);
+    } else if (a.k16 == 32) {
+      // B10 in 16-row chunks, as at T = 4 below: the same 16-deep steps.
+      return launch_ladder<T, true, POL == kLadderTma ? 16 : 32, true, false, POL>(a, e);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (POL == kLadderLive) {
-    return a.k16 % 32 == 0 ? launch_ladder<T, 32, true, false, POL>(a, e)
-                           : launch_ladder<T, 16, true, false, POL>(a, e);
+    return a.k16 % 32 == 0 ? launch_ladder<T, false, 32, true, false, POL>(a, e)
+                           : launch_ladder<T, false, 16, true, false, POL>(a, e);
   } else {
-    if (a.k16 == 16) return launch_ladder<T, 16, true, true, POL>(a, e);
-    // At T = 4 B10 takes 16-row chunks (at 32 its barrier wait spilled 4
-    // bytes, q resident or not), and so does v3 where its q parts ride in
-    // the ring: the same 16-deep steps in the same order, the same scores.
-    if constexpr (T != 4 || POL != kLadderTma) {
+    if (a.k16 == 16) return launch_ladder<T, false, 16, true, true, POL>(a, e);
+    // At T = 4 16-row chunks, as B1's (launch_tensor_kc): the same 16-deep
+    // steps in the same order, the same scores.
+    if constexpr (T != 4) {
       if (a.k16 % 32 == 0) {
-        if (q_resident<kModeF32, T, 32>(a.k16)) {
-          return launch_ladder<T, 32, true, false, POL>(a, e);
-        }
-        if constexpr (T != 4) return launch_ladder<T, 32, false, false, POL>(a, e);
+        return q_resident<kModeF32, T, 32, kTBM>(a.k16)
+                   ? launch_ladder<T, false, 32, true, false, POL>(a, e)
+                   : launch_ladder<T, false, 32, false, false, POL>(a, e);
       }
     }
-    return q_resident<kModeF32, T, 16>(a.k16) ? launch_ladder<T, 16, true, false, POL>(a, e)
-                                              : launch_ladder<T, 16, false, false, POL>(a, e);
+    return q_resident<kModeF32, T, 16, kTBM>(a.k16)
+               ? launch_ladder<T, false, 16, true, false, POL>(a, e)
+               : launch_ladder<T, false, 16, false, false, POL>(a, e);
   }
 }
 
@@ -419,12 +433,14 @@ int launch_ladder_kc(const TensorArgs& a, const typename LadderEpiOf<POL>::Args&
 // 9, 8 or 4 terms, bf16x3, bf16x4, default/bf16_raw).
 template <int POL>
 int dispatch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e, int nterms) {
+  const bool packed = (a.terms.r & kPackedSum) != 0;
   switch (nterms) {
-    case 1: return launch_ladder_kc<1, POL>(a, e);
-    case 3: return launch_ladder_kc<3, POL>(a, e);
-    case 4: return launch_ladder_kc<4, POL>(a, e);
-    case 8: return launch_ladder_kc<8, POL>(a, e);
-    case 9: return launch_ladder_kc<9, POL>(a, e);
+    case 1: return launch_ladder_kc<1, false, POL>(a, e);
+    case 3: return launch_ladder_kc<3, false, POL>(a, e);
+    case 4:
+      return packed ? launch_ladder_kc<4, true, POL>(a, e) : launch_ladder_kc<4, false, POL>(a, e);
+    case 8: return launch_ladder_kc<8, true, POL>(a, e);
+    case 9: return launch_ladder_kc<9, true, POL>(a, e);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -489,7 +505,7 @@ int tk_tensor_resident_candidates(const void* qp, const float* r, const float* r
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int k16 = (k + 15) / 16 * 16;
-  const int kc = k16 % 32 == 0 ? 32 : 16;
+  const int kc = k16 % 32 == 0 && nterms != 4 ? 32 : 16;  // launch_tensor_kc's chunk
   const size_t rows64 = static_cast<size_t>(term_q_parts(nterms, term_q)) * kTBM * (k16 / kc) *
                         (kc + kTPad) * 2;
   if (k16 == 16 || rows64 <= kQResidentBytes) {

@@ -12,11 +12,11 @@
 // k16 at 989 TFLOP/s).
 //
 // Design: the shared mainloop (tensor_mainloop.cuh) with B1's lane-slice
-// layout; the fold slots hold (min1, min2) in place of B1's (score,
-// index), folded as the tiled B3 folds them, the depth a uniform branch of
-// one instance. The scores are B7's at the tier bit for bit (one
-// mainloop), so the seeded engine's bound and its qualifiers come from one
-// arithmetic.
+// layout, in 128-row blocks of 16 warps, one an SM; the fold slots hold
+// (min1, min2) in place of B1's (score, index), folded as the tiled B3 folds
+// them, the depth a uniform branch of one instance. The scores are B7's at
+// the tier bit for bit (one mainloop), so the seeded engine's bound and its
+// qualifiers come from one arithmetic.
 
 #include "tensor_mainloop.cuh"
 
@@ -24,11 +24,13 @@ namespace {
 
 struct MinimaEpi {
   static constexpr bool kContig = false;
-  static constexpr int kBlocksPerSm = 2;
+  static constexpr int kRows = 128;
+  static constexpr bool kDeferTileEnd = false;
+  static constexpr int kBlocksPerSm = 1;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   // The fold slots (min1, min2), then the block's rows' lo.
-  static constexpr size_t kLoOff = kFoldSlotBytes;
-  static constexpr size_t kStateBytes = kFoldSlotBytes + kTBM * sizeof(float);
+  static constexpr size_t kLoOff = fold_slot_bytes<kRows>();
+  static constexpr size_t kStateBytes = kLoOff + kRows * sizeof(float);
   struct Args {
     const float* lo;  // null at depth 2 (tpu_knn's banded pass is depth 1 only)
     float* partial;
@@ -43,11 +45,11 @@ struct MinimaEpi {
   static __device__ __forceinline__ void init(unsigned fold, const Args& e, const TensorParams& p) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      st_slot(fold_slot(fold, q, threadIdx.x),
+      st_slot(fold_slot<kRows>(fold, q, threadIdx.x),
               make_int2(__float_as_int(pos_inf()), __float_as_int(pos_inf())));
     }
-    if (threadIdx.x < kTBM) {
-      const int row = tensor_block<TensorLayout<false>>(p.groups, p.groups_per_part).row0 +
+    if (threadIdx.x < kRows) {
+      const int row = tensor_block<TensorLayout<false>, kRows>(p.groups, p.groups_per_part).row0 +
                       static_cast<int>(threadIdx.x);
       shared_ptr<float>(fold + kLoOff)[threadIdx.x] =
           e.lo != nullptr && row < p.m ? e.lo[row] : neg_inf();
@@ -55,7 +57,7 @@ struct MinimaEpi {
   }
   static __device__ __forceinline__ Pos load(unsigned fold, const Args& e, int q, int tid,
                                              int rl) {
-    const int2 v = ld_slot(fold_slot(fold, q, tid));
+    const int2 v = ld_slot(fold_slot<kRows>(fold, q, tid));
     return {__int_as_float(v.x), e.depth == 2 ? __int_as_float(v.y)
                                               : shared_ptr<const float>(fold + kLoOff)[rl]};
   }
@@ -74,7 +76,7 @@ struct MinimaEpi {
   }
   static __device__ __forceinline__ void store(unsigned fold, const Args& e, int q, int tid,
                                                const Pos& p) {
-    st_slot(fold_slot(fold, q, tid),
+    st_slot(fold_slot<kRows>(fold, q, tid),
             make_int2(__float_as_int(p.m1), __float_as_int(e.depth == 2 ? p.x : pos_inf())));
   }
   static __device__ __forceinline__ int dep(const Pos& p) { return __float_as_int(p.m1); }
@@ -85,7 +87,7 @@ struct MinimaEpi {
   static __device__ __forceinline__ void finish(unsigned fold, const Args& e,
                                                 const TensorParams& p) {
     const int tid = threadIdx.x;
-    const TensorBlock blk = tensor_block<TensorLayout<false>>(p.groups, p.groups_per_part);
+    const TensorBlock blk = tensor_block<TensorLayout<false>, kRows>(p.groups, p.groups_per_part);
     const int lane0 = blk.first % kLanes + (tid >> 5 & 3) * 8 + 2 * (tid & 3);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -98,7 +100,7 @@ struct MinimaEpi {
                      lane0;
 #pragma unroll
           for (int l = 0; l < 2; ++l) {
-            const int2 v = ld_slot(fold_slot(fold, 4 * i + 2 * h + l, tid));
+            const int2 v = ld_slot(fold_slot<kRows>(fold, 4 * i + 2 * h + l, tid));
             o[l] = __int_as_float(v.x);
             if (e.depth == 2) o[kLanes + l] = __int_as_float(v.y);
           }

@@ -11,28 +11,31 @@
 // tiled B7's bit for bit (every sum is an exact integer below 2^31).
 //
 // Bound on the H100: tensor-core operations, as B1's tiers (T * 2 * m * n *
-// k16 at 989 TFLOP/s), plus a compare per (row, column).
+// k16 at 989 TFLOP/s), plus a compare per (row, column); the CUDA cores'
+// instruction rate and the tile's end hold it above that
+// (tensor_mainloop.cuh, PERF.md).
 //
 // Design: the shared mainloop (tensor_mainloop.cuh) with the contiguous
-// layout: a block owns one partition of whole 256-column chunks, a column
-// tile one 128-column group, so a cell of 64 or 128 columns lies in one
-// tile and one of 256 in two consecutive tiles of one block. A qualifier
-// (nearly no score is one) sets its slot's bit in its row's 128-bit mask of
-// the tile in shared memory (one shared atomic OR: the epilogue's hot path
-// stays within two blocks' registers); after each tile a barrier, and one
-// thread per (row, cell of the tile) sums l, l^2 and l^3 over the set bits
-// (integer sums, so their order does not matter), clears the bits, and at
-// the cell's last tile packs its word and writes it (a 256-column cell
-// carries its first tile's sums in shared memory). The scores are B3's at
-// the tier bit for bit (one mainloop), so the bound B3 gives and the
-// qualifiers B7 counts come from one arithmetic. Two instances (BANDED):
-// without a band (the single-round engine) a position keeps only its row's
-// bound, the state is 2.5 KB and two blocks run an SM, as B1's tiers (but
-// at T = 4 with 32-row chunks, see blocks_per_sm); with
-// a band and the remainder minima (the rounds engine) a position keeps its
-// row's lo too, and a [row][lane] tile of shared memory that each
-// position's owner folds, written out at the end, takes 35 KB: one block an
-// SM.
+// layout, in 128-row blocks of 16 warps, one an SM; a packed tier's terms
+// are summed in the tensor core. A block owns one partition of whole
+// 256-column chunks, a column tile one 128-column group, so a cell of 64 or
+// 128 columns lies in one tile and one of 256 in two consecutive tiles of
+// one block. A qualifier (nearly no score is one) sets its slot's bit in
+// its row's 128-bit mask of the tile in shared memory (one shared atomic
+// OR: the epilogue's hot path stays within 128 registers; two masks, the
+// tiles of even and odd groups); after the barrier that starts the next
+// step, one thread per (row, cell of the tile) sums l, l^2 and l^3 over
+// the set bits (integer sums, so their order does not matter) while the
+// next tile sets the other mask, clears the bits, and at the cell's last
+// tile packs its word and writes it (a 256-column cell carries its first
+// tile's sums in shared memory). The
+// scores are B3's at the tier bit for bit (one mainloop), so the bound B3
+// gives and the qualifiers B7 counts come from one arithmetic. Two
+// instances (BANDED): without a band (the single-round engine) a position
+// keeps only its row's bound, the state is 7 KB; with a band and the
+// remainder minima (the rounds engine) a position keeps its row's lo too,
+// and a [row][lane] tile of shared memory that each position's owner
+// folds, written out at the end, takes 70 KB.
 
 #include <type_traits>
 
@@ -43,24 +46,22 @@ namespace {
 template <bool BANDED>
 struct MomentsEpi {
   static constexpr bool kContig = true;
-  static constexpr int kBlocksPerSm = BANDED ? 1 : 2;
-  // The unbanded instance at T = 4 and 32-row chunks (packed2 and bf16x4
-  // over f32 where k16 % 32 == 0) runs one block an SM too: at two, its
-  // tile-end sums beside the mainloop's registers spilled 4 bytes.
-  static constexpr int blocks_per_sm(int t, int kc) {
-    return t == 4 && kc == 32 ? 1 : kBlocksPerSm;
-  }
-  // The block's rows' bound and lo, each row's qualifier mask of the tile
-  // (4 words), a 256-column cell's sums over its first tile (cnt, sum l,
-  // sum l^2, sum l^3 a row), then (BANDED) the remainder tile [row][lane]
-  // (rows kRemLd floats apart, as the sweep's score tile).
+  static constexpr int kRows = 128;
+  static constexpr bool kDeferTileEnd = true;  // tile_end below
+  static constexpr int kBlocksPerSm = 1;
+  static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
+  // The block's rows' bound and lo, each row's qualifier masks of two
+  // tiles (set g & 1 for the tile of 128-column group g, 4 words a row), a
+  // 256-column cell's sums over its first tile (cnt, sum l, sum l^2, sum
+  // l^3 a row), then (BANDED) the remainder tile [row][lane] (rows kRemLd
+  // floats apart, as the sweep's score tile).
   static constexpr int kRemLd = kTCols + 8;
-  static constexpr size_t kLoOff = kTBM * sizeof(float);
-  static constexpr size_t kMaskOff = 2 * kTBM * sizeof(float);
-  static constexpr size_t kSumOff = kMaskOff + kTBM * 4 * sizeof(unsigned);
-  static constexpr size_t kRemOff = kSumOff + kTBM * 4 * sizeof(unsigned);
+  static constexpr size_t kLoOff = kRows * sizeof(float);
+  static constexpr size_t kMaskOff = 2 * kRows * sizeof(float);
+  static constexpr size_t kSumOff = kMaskOff + 2 * kRows * 4 * sizeof(unsigned);
+  static constexpr size_t kRemOff = kSumOff + kRows * 4 * sizeof(unsigned);
   static constexpr size_t kStateBytes =
-      kRemOff + (BANDED ? static_cast<size_t>(kTBM) * kRemLd * 4 : 0);
+      kRemOff + (BANDED ? static_cast<size_t>(kRows) * kRemLd * 4 : 0);
   struct Args {
     const float* bound;
     const float* lo;
@@ -80,15 +81,18 @@ struct MomentsEpi {
   using Pos = std::conditional_t<BANDED, Band, Bound>;
   static __device__ __forceinline__ void init(unsigned fold, const Args& e, const TensorParams& p) {
     const int tid = threadIdx.x;
-    if (tid < kTBM) {
-      const int row = tensor_block<TensorLayout<true>>(p.groups, p.groups_per_part).row0 + tid;
+    if (tid < kRows) {
+      const int row =
+          tensor_block<TensorLayout<true>, kRows>(p.groups, p.groups_per_part).row0 + tid;
       shared_ptr<float>(fold)[tid] = row < p.m ? e.bound[row] : neg_inf();
       shared_ptr<float>(fold + kLoOff)[tid] =
           e.lo != nullptr && row < p.m ? e.lo[row] : neg_inf();
     }
-    for (int x = tid; x < kTBM * 8; x += kTThreads) shared_ptr<unsigned>(fold + kMaskOff)[x] = 0u;
+    for (int x = tid; x < kRows * 12; x += block_threads<kRows>()) {
+      shared_ptr<unsigned>(fold + kMaskOff)[x] = 0u;  // both masks and the sums
+    }
     if constexpr (BANDED) {
-      for (int x = tid; x < kTBM * kRemLd; x += kTThreads) {
+      for (int x = tid; x < kRows * kRemLd; x += block_threads<kRows>()) {
         shared_ptr<float>(fold + kRemOff)[x] = pos_inf();
       }
     }
@@ -101,11 +105,13 @@ struct MomentsEpi {
     }
   }
   static __device__ __forceinline__ void take(unsigned fold, const Args& e, Pos& p, float sc,
-                                              int, int slot, int rl, bool live) {
+                                              int col, int slot, int rl, bool live) {
     bool qual = live && sc <= p.b;
     if constexpr (BANDED) qual = qual && sc > p.lo;
     if (qual) {
-      atomicOr(shared_ptr<unsigned>(fold + kMaskOff) + rl * 4 + (slot >> 5), 1u << (slot & 31));
+      atomicOr(shared_ptr<unsigned>(fold + kMaskOff) + ((col >> 7) & 1) * kRows * 4 + rl * 4 +
+                   (slot >> 5),
+               1u << (slot & 31));
     }
     if constexpr (BANDED) {
       if (live && sc > p.b && e.rem_part != nullptr) {
@@ -116,20 +122,24 @@ struct MomentsEpi {
   }
   static __device__ __forceinline__ void store(unsigned, const Args&, int, int, const Pos&) {}
   static __device__ __forceinline__ int dep(const Pos& p) { return __float_as_int(p.b); }
-  // After tile t: thread (row, cell of the tile) sums its cell's set bits
-  // (l = the column's place in the cell), clears them, and where the cell
-  // ends here (a 256-column cell at the second tile of its chunk) writes its
-  // word; else it keeps the sums for the next tile.
+  // Tile t's cells, run after the barrier that follows its last takes (the
+  // mainloop's next step, kDeferTileEnd), while the next tile sets the other
+  // mask: thread (row, cell of the tile) sums its cell's set bits (l = the
+  // column's place in the cell), clears them, and where the cell ends here
+  // (a 256-column cell at the second tile of its chunk) writes its word;
+  // else it keeps the sums for the next tile.
   static __device__ __forceinline__ void tile_end(unsigned fold, const Args& e,
                                                   const TensorParams& p, int t) {
-    __syncthreads();  // the tile's bits are in
     const int per_tile = e.cell == 64 ? 2 : 1;
     const int tid = threadIdx.x;
-    if (tid >= kTBM * per_tile) return;
+    if (tid >= kRows * per_tile) return;
     const int rl = tid / per_tile;
     const int cs = tid - rl * per_tile;
     const int words = e.cell == 64 ? 2 : 4;
-    unsigned* mask = shared_ptr<unsigned>(fold + kMaskOff) + rl * 4 + cs * words;
+    const TensorBlock blk = tensor_block<TensorLayout<true>, kRows>(p.groups, p.groups_per_part);
+    const int set = ((blk.first >> 7) + t) & 1;  // the mask of the tile's group
+    unsigned* mask =
+        shared_ptr<unsigned>(fold + kMaskOff) + set * kRows * 4 + rl * 4 + cs * words;
     unsigned* sums = shared_ptr<unsigned>(fold + kSumOff) + rl * 4;
     const bool second_half = e.cell == 256 && (t & 1);
     unsigned n_q = 0u, e1 = 0u, p2 = 0u, p3 = 0u;
@@ -156,7 +166,6 @@ struct MomentsEpi {
       sums[3] = p3;
       return;
     }
-    const TensorBlock blk = tensor_block<TensorLayout<true>>(p.groups, p.groups_per_part);
     const int row = blk.row0 + rl;
     const int cidx = (blk.first + t * kTCols) / e.cell + cs;
     if (row < p.m && cidx < e.nc) {
@@ -174,9 +183,9 @@ struct MomentsEpi {
     if constexpr (BANDED) {
       if (e.rem_part == nullptr) return;
       __syncthreads();
-      const int row0 = tensor_block<TensorLayout<true>>(p.groups, p.groups_per_part).row0;
+      const int row0 = tensor_block<TensorLayout<true>, kRows>(p.groups, p.groups_per_part).row0;
       const float* rem = shared_ptr<const float>(fold + kRemOff);
-      for (int x = threadIdx.x; x < kTBM * kLanes; x += kTThreads) {
+      for (int x = threadIdx.x; x < kRows * kLanes; x += block_threads<kRows>()) {
         const int rl = x / kLanes;
         const int lane = x - rl * kLanes;
         if (row0 + rl < p.m) {

@@ -28,6 +28,8 @@ namespace {
 
 struct SweepEpi {
   static constexpr bool kContig = true;
+  static constexpr int kRows = kTBM;
+  static constexpr bool kDeferTileEnd = false;
   static constexpr int kBlocksPerSm = 1;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   // The K-selection of the block's 64 rows, then the score tile [row][slot]
@@ -67,7 +69,7 @@ struct SweepEpi {
     __syncthreads();  // the tile's scores are written
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    const TensorBlock blk = tensor_block<TensorLayout<true>>(p.groups, p.groups_per_part);
+    const TensorBlock blk = tensor_block<TensorLayout<true>, kRows>(p.groups, p.groups_per_part);
     const int c0 = blk.first + t * kTCols + lane;  // column of slot (0, lane)
     const float* tile = shared_ptr<const float>(fold + kTileOff);
 #pragma unroll 1
@@ -96,7 +98,7 @@ struct SweepEpi {
                                                 const TensorParams& p) {
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    const int row0 = tensor_block<TensorLayout<true>>(p.groups, p.groups_per_part).row0;
+    const int row0 = tensor_block<TensorLayout<true>, kRows>(p.groups, p.groups_per_part).row0;
     const long long width = static_cast<long long>(gridDim.y) * e.kk;
     KSelectState<kTBM>& ks = lists(fold);
 #pragma unroll 1

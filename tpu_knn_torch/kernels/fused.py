@@ -125,8 +125,12 @@ def select_cutoff(precision: str, k: int) -> float:
     return SELECT_SCORE_CUTOFF * min(1.0, (2.0 ** -26) / eps)
 
 
-#: Precision tiers whose selection can miss the true neighbor outright.
-UNCERTIFIED_PRECISIONS = frozenset({"bf16_raw"})
+#: Precision tiers whose selection can miss the true neighbor outright:
+#: tpu_knn's bf16_raw, and "default" too in this port (tpu_knn certifies
+#: it): its one bf16 pass reads an error of the whole of its 2^-8 gate, and
+#: fused_knn at ds11 answered one query of 5 x 1024 outside the ±1e-3
+#: contract on an H100 (tier_numerics.py default).
+UNCERTIFIED_PRECISIONS = frozenset({"bf16_raw", "default"})
 
 
 def _check_precision_certified(precision, allow_approximate: bool = False):
@@ -138,8 +142,8 @@ def _check_precision_certified(precision, allow_approximate: bool = False):
     if precision in UNCERTIFIED_PRECISIONS and not allow_approximate:
         raise ValueError(
             f"precision={precision!r} is selection-approximate (can drop "
-            "the true neighbor before exact refinement; measured 1/1024 "
-            "gate errors at k=768 — docs/SERVING.md). Pass "
+            "the true neighbor before exact refinement; bf16_raw measured "
+            "1/1024 gate errors at k=768 — docs/SERVING.md). Pass "
             "allow_approximate=True to accept results outside the ±1e-3 "
             "contract.")
     if precision == "qsplit2":

@@ -57,24 +57,30 @@ from tpu_knn_torch.kernels.tuning import (
 from tpu_knn_torch.utils.platform import full_f32_matmul, launch_stream
 from tpu_knn_torch.utils.shapes import cdiv, round_up
 
-# The tensor-core kernel's geometry (csrc/tensor_kernels.cu). A block of
-# 8 warps owns TENSOR_TILE_M query rows and one slice of
-# LANE // TENSOR_SLICES lanes of a partition, and walks the partition's
-# 128-column groups TENSOR_TILE_GROUPS at a time (a column tile);
-# TENSOR_BLOCKS_PER_SM blocks run on an SM at once (its __launch_bounds__),
-# and their shared memory (tensor_smem) is checked against that when the
-# kernel is compiled.
+# The tensor-core kernel's geometry (csrc/tensor_mainloop.cuh). A block of
+# 4 * rows threads (16 warps at 128 rows, 8 at 64) owns its epilogue's
+# rows of queries (TENSOR_TILE_M for B1's tiers, B12, B4, B3 and B7;
+# TENSOR_LADDER_TILE_M for B5 and the 1-NN ladder's instances) and one
+# slice of LANE // TENSOR_SLICES lanes of a partition, and walks the
+# partition's 128-column groups TENSOR_TILE_GROUPS at a time (a column
+# tile); TENSOR_BLOCKS_PER_SM blocks run on an SM at once (its
+# __launch_bounds__), and their shared memory (tensor_smem) is checked
+# against that when the kernel is compiled.
 
-#: Query rows per block (csrc kTBM: two warps of 32 rows, each beside
-#: three more for the slice's other lanes).
-TENSOR_TILE_M = 64
+#: Query rows per block of B1's tiers, B12, B4, B3 and B7 (their epilogues'
+#: kRows: four warps of 32 rows, each beside three more for the slice's
+#: other lanes), so each staged r chunk serves 128 rows.
+TENSOR_TILE_M = 128
+#: Query rows per block of B5 and the 1-NN ladder's instances (csrc kTBM).
+TENSOR_LADDER_TILE_M = 64
 #: Blocks per (row tile, partition): lane slices of 32 (csrc kTSlices).
 TENSOR_SLICES = 4
 #: 128-column groups per column tile (csrc kTGroups).
 TENSOR_TILE_GROUPS = 4
-#: Blocks resident per SM (csrc kTBlocksPerSm): the tiled f32 kernels'
-#: two, so tuning._wave_parts' model of waves serves both.
-TENSOR_BLOCKS_PER_SM = TILED_BLOCKS_PER_SM
+#: Blocks of TENSOR_TILE_M rows resident per SM (csrc CandidatesEpi's
+#: kBlocksPerSm): one block of 16 warps, the SM's 64K registers at 128 a
+#: thread.
+TENSOR_BLOCKS_PER_SM = 1
 
 _HH_HL_LH = ((0, 0), (0, 1), (1, 0))
 
@@ -222,9 +228,10 @@ def tensor_parts(m: int, n: int) -> int:
     ceil(blocks / that) waves of one block's work, and P minimises waves x
     tiles per block, within tuning.TILED_COST_SLACK of its minimum the
     smallest P (fewer candidates for the caller to merge): at m = 1024, n
-    = 2^20, P = 4 is one wave of 256 blocks, 512 tiles each, 3% above the
-    same work spread evenly over the 264 slots."""
-    return _wave_parts(cdiv(m, TENSOR_TILE_M) * TENSOR_SLICES, cdiv(n, LANE), TENSOR_TILE_GROUPS)
+    = 2^20, P = 4 is one wave of 128 blocks, 512 tiles each, 3% above the
+    same work spread evenly over the 132 slots."""
+    return _wave_parts(cdiv(m, TENSOR_TILE_M) * TENSOR_SLICES, cdiv(n, LANE), TENSOR_TILE_GROUPS,
+                       TENSOR_BLOCKS_PER_SM)
 
 
 #: The instances the kernel is built for: (operand mode, T) -> the term
@@ -239,101 +246,176 @@ TENSOR_INSTANCES = {
     (2, 3): _HH_HL_LH,
 }
 
-#: The resident q parts' limit (csrc kQResidentBytes; the SM's budget,
+#: The instances a packed tier's list runs as (packed_tier: its r bits
+#: carry PACKED_SUM and the kernel sums its terms in the tensor core):
+#: packed3's 9 or 8 terms over f32 and their 3 over bf16, packed2's 4 over
+#: f32 (bf16x4's list, summed as bf16x4 without the flag) and 2 over bf16.
+TENSOR_PACKED_INSTANCES = {(0, 4), (0, 8), (0, 9), (1, 2), (1, 3)}
+
+#: The resident q parts' limit of a 64-row block (csrc kQResidentBytes;
+#: q_resident_limit: twice that for a 128-row block, so whether a width's
+#: parts are resident does not depend on the block's rows; the SM's budget,
 #: SMEM_PER_SM less SMEM_PER_BLOCK_RESERVED a block, is tuning's).
 TENSOR_Q_RESIDENT_BYTES = 30 * 1024
-#: Each block's fold state, 8 (score, index) pairs a thread, and in f32
-#: mode a copy of the folded tile's ‖r‖² row (csrc fixed_bytes).
-TENSOR_FOLD_BYTES = 8 * 256 * 8
 _TENSOR_MAX_STAGES = 4
+
+
+def tensor_fold_bytes(rows: int = TENSOR_TILE_M) -> int:
+    """A block's fold slots, 8 (score, index) pairs a thread of its 4 *
+    rows (csrc fold_slot_bytes)."""
+    return 8 * 4 * rows * 8
+
+
+def tensor_q_resident_limit(rows: int = TENSOR_TILE_M) -> int:
+    """The resident q parts' limit of a block of ``rows`` (csrc
+    q_resident_limit)."""
+    return TENSOR_Q_RESIDENT_BYTES * rows // TENSOR_LADDER_TILE_M
 
 #: The tensor-core mainloop's epilogues (csrc tensor_mainloop.cuh): kernel
 #: -> (its state's shared-memory bytes, EPI::kStateBytes; its blocks per
 #: SM, EPI::kBlocksPerSm; whether a block owns a whole partition of
-#: contiguous columns, EPI::kContig, else one lane slice of it). B1 keeps
-#: the fold slots; B4 adds its rows' bounds, B3 their lo; B5 keeps its rows'
-#: K-lists (kselect.cuh) and a score tile of 64 rows 136 floats apart; B7
-#: its rows' bound and lo, a 128-bit qualifier mask and four sums a row, and
-#: "B7-band" (the rounds engine's instance: a band, the remainder minima)
-#: also a remainder tile laid out as B5's score tile.
-_B7_STATE = 2 * 4 * TENSOR_TILE_M + 4 * 2 * 4 * TENSOR_TILE_M
+#: contiguous columns, EPI::kContig, else one lane slice of it; its block's
+#: rows, EPI::kRows). B1 keeps the fold slots; B4 adds its rows' bounds, B3
+#: their lo; B5 keeps its rows' K-lists (kselect.cuh) and a score tile of 64
+#: rows 136 floats apart; B7 its rows' bound and lo, two 128-bit qualifier
+#: masks (two tiles) and four sums a row, and "B7-band" (the rounds
+#: engine's instance: a band, the remainder minima) also a remainder tile
+#: laid out as B5's score tile.
+_B7_STATE = 2 * 4 * TENSOR_TILE_M + 3 * 4 * 4 * TENSOR_TILE_M
 TENSOR_EPILOGUES = {
-    "B1": (TENSOR_FOLD_BYTES, TENSOR_BLOCKS_PER_SM, False),
-    "B4": (TENSOR_FOLD_BYTES + 2 * 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False),
-    "B3": (TENSOR_FOLD_BYTES + 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False),
-    "B5": (kselect_state_bytes(TENSOR_TILE_M) + 4 * TENSOR_TILE_M * 136, 1, True),
-    "B7": (_B7_STATE, TENSOR_BLOCKS_PER_SM, True),
-    "B7-band": (_B7_STATE + 4 * TENSOR_TILE_M * 136, 1, True),
+    "B1": (tensor_fold_bytes(), TENSOR_BLOCKS_PER_SM, False, TENSOR_TILE_M),
+    "B4": (tensor_fold_bytes() + 2 * 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False,
+           TENSOR_TILE_M),
+    "B3": (tensor_fold_bytes() + 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False, TENSOR_TILE_M),
+    "B5": (kselect_state_bytes(TENSOR_LADDER_TILE_M) + 4 * TENSOR_LADDER_TILE_M * 136, 1, True,
+           TENSOR_LADDER_TILE_M),
+    "B7": (_B7_STATE, TENSOR_BLOCKS_PER_SM, True, TENSOR_TILE_M),
+    "B7-band": (_B7_STATE + 4 * TENSOR_TILE_M * 136, TENSOR_BLOCKS_PER_SM, True, TENSOR_TILE_M),
 }
 
+#: The 1-NN ladder's epilogue (csrc LadderEpi: B1's fold at 64 rows, two
+#: blocks an SM; v6's live rows one).
+LADDER_EPILOGUE = (tensor_fold_bytes(TENSOR_LADDER_TILE_M), TILED_BLOCKS_PER_SM, False,
+                   TENSOR_LADDER_TILE_M)
 
-def tensor_chunk(k16: int) -> int:
-    """KC, the d-rows of one ring stage: 32 where k16 allows, else 16."""
+
+def tensor_chunk(k16: int, terms=(), packed: bool = False) -> int:
+    """KC, the d-rows of one ring stage: 32 where k16 allows, else 16; 16
+    for a 4-term list that is not packed (bf16x4's: at 32 its registers
+    spilled), but on v6's live rows (called without ``terms``)."""
+    if len(terms) == 4 and not packed:
+        return 16
     return 32 if k16 % 32 == 0 else 16
 
 
-def _tensor_plan(mode: int, terms, kc: int):
+def _tensor_plan(mode: int, terms, kc: int, rows: int = TENSOR_TILE_M):
     """(q parts, r planes, r bytes of a stage, q chunk bytes, f32 part
-    planes' bytes) of an instance (csrc q_parts ... planes_bytes)."""
+    planes' bytes) of an instance whose blocks own ``rows`` query rows
+    (csrc q_parts ... planes_bytes)."""
     nq = 1 + max(i for i, _ in terms)
     nr = (1 + max(j for _, j in terms)) if mode == _MODE_F32 else 2 if mode == _MODE_PRESPLIT else 1
     cols = TENSOR_TILE_GROUPS * LANE // TENSOR_SLICES
     r_stage = (kc * cols * 4 if mode == _MODE_F32
                else (1 + (mode == _MODE_PRESPLIT)) * kc * (cols + 8) * 2) + 4 * cols
-    q_chunk = nq * TENSOR_TILE_M * (kc + 8) * 2
+    q_chunk = nq * rows * (kc + 8) * 2
     planes = nr * kc * (cols + 8) * 2 if mode == _MODE_F32 else 0
     return nq, nr, r_stage, q_chunk, planes
 
 
-def tensor_blocks_per_sm(epilogue: str, terms, kc: int) -> int:
+def _epilogue(epilogue: str):
+    return LADDER_EPILOGUE if epilogue == "ladder" else TENSOR_EPILOGUES[epilogue]
+
+
+def tensor_rows(epilogue: str = "B1") -> int:
+    """The query rows of an epilogue's block (csrc EPI::kRows); "ladder":
+    the 1-NN ladder's instances (LadderEpi)."""
+    return _epilogue(epilogue)[3]
+
+
+def tensor_blocks_per_sm(epilogue: str) -> int:
     """An instance's blocks an SM (csrc EPI::blocks_per_sm): its
-    epilogue's, but one for B7's unbanded instance at T = 4 with 32-row
-    chunks (its registers)."""
-    if epilogue == "B7" and len(terms) == 4 and kc == 32:
-        return 1
-    return TENSOR_EPILOGUES[epilogue][1]
+    epilogue's at every term list and chunk."""
+    return _epilogue(epilogue)[1]
 
 
-def _fixed_bytes(mode: int, epilogue: str = "B1") -> int:
-    return TENSOR_EPILOGUES[epilogue][0] + (4 * LANE if mode == _MODE_F32 else 0)
+def _fixed_bytes(mode: int, epilogue: str = "B1", sets: int = 1) -> int:
+    """The epilogue's state and, in f32 mode, a copy of a tile's ‖r‖² row
+    for each of ``sets`` sets of part planes (csrc fixed_bytes)."""
+    return _epilogue(epilogue)[0] + (sets * 4 * LANE if mode == _MODE_F32 else 0)
 
 
-def tensor_stages(mode: int, terms, kc: int, epilogue: str = "B1") -> int:
-    """The ring's depth (csrc ring_stages): the deepest, up to 4, at which
-    the instance's blocks per SM (tensor_blocks_per_sm) fit an SM at any
-    k16."""
-    _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc)
-    per_sm = tensor_blocks_per_sm(epilogue, terms, kc)
+def _deepest_ring(mode: int, terms, kc: int, epilogue: str, sets: int) -> int:
+    """The deepest ring, up to 4 stages, at which the instance's blocks per
+    SM fit an SM at any k16 beside ``sets`` sets of part planes (csrc
+    deepest_ring)."""
+    rows = tensor_rows(epilogue)
+    _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc, rows)
+    per_sm = tensor_blocks_per_sm(epilogue)
 
     def fits(stages):
-        most = (_fixed_bytes(mode, epilogue) + stages * r_stage + planes
-                + max(stages * q_chunk, TENSOR_Q_RESIDENT_BYTES))
+        most = (_fixed_bytes(mode, epilogue, sets) + stages * r_stage + sets * planes
+                + max(stages * q_chunk, tensor_q_resident_limit(rows)))
         return (per_sm * (most + SMEM_PER_BLOCK_RESERVED) <= SMEM_PER_SM
                 and most <= SMEM_PER_BLOCK)
 
     return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
 
 
+def tensor_plane_sets(mode: int, terms, kc: int, epilogue: str = "B1") -> int:
+    """The part planes' sets (csrc plane_sets): two for an f32 instance
+    that runs one block an SM and fits with both beside a ring of at least
+    3 stages (the split of chunk s + 1 then runs beside step s's mmas),
+    else one."""
+    if (mode == _MODE_F32 and tensor_blocks_per_sm(epilogue) == 1
+            and _deepest_ring(mode, terms, kc, epilogue, 2) >= 3):
+        return 2
+    return 1
+
+
+def tensor_stages(mode: int, terms, kc: int, epilogue: str = "B1") -> int:
+    """The ring's depth (csrc ring_stages): the deepest, up to 4, at which
+    the instance's blocks per SM (tensor_blocks_per_sm) fit an SM at any
+    k16 beside its part planes (tensor_plane_sets)."""
+    return _deepest_ring(mode, terms, kc, epilogue,
+                         tensor_plane_sets(mode, terms, kc, epilogue))
+
+
 def tensor_smem(mode: int, terms, kc: int, k16: int, epilogue: str = "B1") -> int:
     """Dynamic shared memory of one block (csrc tensor_smem): the
     epilogue's state, the ring's stages (the r chunk, the column tile's
     ‖r‖² row, and the q chunk where the q parts are not resident), the f32
-    mode's part planes, and the resident q parts."""
-    _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc)
+    mode's part planes (tensor_plane_sets of them), and the resident q
+    parts. ``epilogue``: a key of
+    TENSOR_EPILOGUES, or "ladder" (v3's and B10's instances)."""
+    rows = tensor_rows(epilogue)
+    _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc, rows)
     q_res = k16 // kc * q_chunk   # resident q parts: the ring's chunks, one after another
-    resident = q_res <= TENSOR_Q_RESIDENT_BYTES
+    resident = q_res <= tensor_q_resident_limit(rows)
     stages = tensor_stages(mode, terms, kc, epilogue)
-    return (_fixed_bytes(mode, epilogue) + stages * (r_stage + (0 if resident else q_chunk))
-            + planes + (q_res if resident else 0))
+    sets = tensor_plane_sets(mode, terms, kc, epilogue)
+    return (_fixed_bytes(mode, epilogue, sets) + stages * (r_stage + (0 if resident else q_chunk))
+            + sets * planes + (q_res if resident else 0))
 
 
-def _pack_terms(terms) -> tuple[int, int]:
+#: The flag in a packed term list's r bits: the terms are one packed dot,
+#: summed in the tensor core (csrc kPackedSum).
+PACKED_SUM = 1 << 30
+
+
+def _pack_terms(terms, packed: bool = False) -> tuple[int, int]:
     q_bits = sum(i << (2 * t) for t, (i, _) in enumerate(terms))
     r_bits = sum(j << (2 * t) for t, (_, j) in enumerate(terms))
-    return q_bits, r_bits
+    return q_bits, r_bits | (PACKED_SUM if packed else 0)
 
 
-def _prepare(q, operand, n: int, terms, what: str):
+def packed_tier(precision: str, k: int, aos: bool = False) -> bool:
+    """Whether a tier at width k is one of "packed"'s term lists (packed3,
+    packed2): tpu_knn's one dot over the concatenated parts, whose terms
+    the kernels sum in the tensor core (csrc tile_terms)."""
+    return resolved_tier(precision, k, aos) in ("packed3", "packed2")
+
+
+def _prepare(q, operand, n: int, terms, what: str, packed: bool = False):
     """What every tensor-core launch takes: the library, the q parts the
     terms use, split here once per call from the zero-padded queries ((nq,
     m, k16) bf16, torch's round-to-nearest-even casts, tpu_knn's split bit
@@ -344,12 +426,13 @@ def _prepare(q, operand, n: int, terms, what: str):
     if operand.data_ptr() % 16 or (operand.stride(0) * operand.element_size()) % 16:
         raise ValueError(f"{what}: the operand's rows must be 16-byte aligned (row stride "
                          f"{operand.stride(0)} elements)")
-    return _prepare_q(q, n, terms)
+    return _prepare_q(q, n, terms, packed)
 
 
-def _prepare_q(q, n: int, terms):
+def _prepare_q(q, n: int, terms, packed: bool = False):
     """_prepare's library, q parts, ‖r‖² scratch and packed term list, for
-    an operand of any alignment (v3's (n, k) array)."""
+    an operand of any alignment (v3's (n, k) array); ``packed``: the
+    terms are a packed tier's (packed_tier)."""
     from tpu_knn_torch.csrc.build import load
 
     lib = load()
@@ -358,17 +441,18 @@ def _prepare_q(q, n: int, terms):
     nq = 1 + max(i for i, _ in terms)
     qp = torch.stack(split_bf16_3(q_pad)[:nq]).contiguous()
     norms = torch.empty(n, dtype=torch.float32, device=q.device)
-    return lib, qp, norms, _pack_terms(terms)
+    return lib, qp, norms, _pack_terms(terms, packed)
 
 
-def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str):
+def _launch(q, operand, ptrs, mode: int, n: int, parts: int, terms, what: str,
+            packed: bool = False):
     """Launch B1's tiers or B12 over ``operand`` (its first array; ``ptrs``
     = (r, r_lo, rn) pointers; rn None: the C entry first writes the
     operand's ‖r‖² row into scratch allocated here; see _prepare)."""
     from tpu_knn_torch.csrc.build import check
 
     lib, qp, norms, (q_bits, r_bits) = _prepare(q, operand, n if ptrs[2] is None else 0,
-                                                terms, what)
+                                                terms, what, packed)
     m, k = q.shape
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     if ptrs[2] is None:
@@ -409,7 +493,7 @@ def tensor_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
         return tensor_candidates_plain(q, r_op, n, parts, precision)
     mode, terms = _operand_instance(r_op, precision, q.shape[1])
     out = _launch(q, r_op, (r_op.data_ptr(), None, None), mode, n, parts, terms,
-                  f"B1 ({precision}) tensor_candidates")
+                  f"B1 ({precision}) tensor_candidates", packed_tier(precision, q.shape[1]))
     TIER_LAUNCHES[resolved_tier(precision, q.shape[1])] += 1
     return out
 
@@ -483,19 +567,19 @@ def topk_tier_row(kernel: str, r_op: torch.Tensor, precision: str, k: int) -> st
 
 def tensor_topk_parts(kernel: str, m: int, n: int) -> int:
     """The partition count of a top-K kernel's tier instance. B4 and B3
-    take B1's tier geometry (tensor_parts: lane slices, two blocks an SM).
-    B5 and B7 give a block a whole partition, at their epilogues' blocks an
-    SM (TENSOR_EPILOGUES; "B7-band": B7 with a band or the remainder
-    minima): B5's
-    partitions are its lists, of whole 128-column groups; B7's hold whole
-    MOMENT_CHUNK-column chunks of the n columns given here (the operand's
-    width). Each P is tuning._wave_parts' choice for its blocks."""
-    tiles = cdiv(m, TENSOR_TILE_M)
+    take B1's tier geometry (tensor_parts: lane slices, one 128-row block
+    an SM). B5 and B7 give a block a whole partition, at their epilogues'
+    rows and blocks an SM (TENSOR_EPILOGUES; "B7-band": B7 with a band or
+    the remainder minima): B5's partitions are its lists, of whole
+    128-column groups; B7's hold whole MOMENT_CHUNK-column chunks of the n
+    columns given here (the operand's width). Each P is tuning._wave_parts'
+    choice for its blocks."""
     if kernel in ("B4", "B3"):
         return tensor_parts(m, n)
     if kernel not in ("B5", "B7", "B7-band"):
         raise ValueError(f"no tier instance of {kernel!r}")
     per_sm = TENSOR_EPILOGUES[kernel][1]
+    tiles = cdiv(m, tensor_rows(kernel))
     unit = LANE if kernel == "B5" else MOMENT_CHUNK
     return _wave_parts(tiles, cdiv(n, unit), 1, per_sm)
 
@@ -521,7 +605,8 @@ def banded_tier_launch(q, r_op, n: int, parts: int, bound_s, bound_i, precision:
 
     what = f"B4 ({precision}) banded_candidates"
     mode, terms = _operand_instance(r_op, precision, q.shape[1])
-    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what,
+                                                packed_tier(precision, q.shape[1]))
     m, k = q.shape
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     with torch.cuda.device(q.device):
@@ -541,7 +626,8 @@ def minima_tier_launch(q, r_op, n: int, depth: int, lo, precision: str):
 
     what = f"B3 ({precision}) minima_candidates"
     mode, terms = _operand_instance(r_op, precision, q.shape[1])
-    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what,
+                                                packed_tier(precision, q.shape[1]))
     m, k = q.shape
     parts = tensor_topk_parts("B3", m, n)
     partial = torch.empty((m, parts * depth * LANE), dtype=torch.float32, device=q.device)
@@ -562,7 +648,8 @@ def sweep_tier_launch(q, r_op, n: int, parts: int, kk: int, precision: str):
 
     what = f"B5 ({precision}) sweep_candidates"
     mode, terms = _operand_instance(r_op, precision, q.shape[1])
-    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what,
+                                                packed_tier(precision, q.shape[1]))
     m, k = q.shape
     idx, score = _candidate_outputs(m, parts * kk, q.device)
     with torch.cuda.device(q.device):
@@ -583,7 +670,8 @@ def moments_tier_launch(q, r_op, n: int, bound, cell: int, cubic: bool, lo, emit
 
     what = f"B7 ({precision}) extract_moments"
     mode, terms = _operand_instance(r_op, precision, q.shape[1])
-    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what)
+    lib, qp, norms, (q_bits, r_bits) = _prepare(q, r_op, n, terms, what,
+                                                packed_tier(precision, q.shape[1]))
     m, k = q.shape
     n_ops = r_op.shape[1]
     nc = n_ops // cell
@@ -651,20 +739,21 @@ def ladder_tier_row(rung: str, precision: str, k: int) -> str:
 
 def tensor_q_resident(terms, k16: int) -> bool:
     """Whether a 64-row block's q parts fit TENSOR_Q_RESIDENT_BYTES (csrc
-    q_resident) in f32 mode."""
-    kc = tensor_chunk(k16)
+    q_resident) in f32 mode: then so do a 128-row block's within its
+    limit (tensor_q_resident_limit)."""
+    kc = tensor_chunk(k16, terms)
     nq = 1 + max(i for i, _ in terms)
-    return k16 // kc * nq * TENSOR_TILE_M * (kc + 8) * 2 <= TENSOR_Q_RESIDENT_BYTES
+    return k16 // kc * nq * TENSOR_LADDER_TILE_M * (kc + 8) * 2 <= TENSOR_Q_RESIDENT_BYTES
 
 
 def tensor_live_stages(terms, kc: int) -> int:
     """The ring's depth of v6's live-row instance (csrc live_ring_stages):
-    the deepest, up to 4, at which one block with TENSOR_Q_LIVE_BYTES of q
-    parts fits an SM."""
-    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc)
+    the deepest, up to 4, at which one 64-row block with
+    TENSOR_Q_LIVE_BYTES of q parts fits an SM."""
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LADDER_TILE_M)
 
     def fits(stages):
-        most = _fixed_bytes(_MODE_F32) + stages * r_stage + planes + TENSOR_Q_LIVE_BYTES
+        most = _fixed_bytes(_MODE_F32, "ladder") + stages * r_stage + planes + TENSOR_Q_LIVE_BYTES
         return most + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM and most <= SMEM_PER_BLOCK
 
     return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
@@ -672,29 +761,30 @@ def tensor_live_stages(terms, kc: int) -> int:
 
 def tensor_live_q_bytes(terms, m: int, k16: int) -> int:
     """The resident q parts of a live-row block: its live rows (at most
-    TENSOR_TILE_M) of each part, every chunk (csrc live_q_bytes)."""
+    TENSOR_LADDER_TILE_M) of each part, every chunk (csrc live_q_bytes)."""
     kc = tensor_chunk(k16)
     nq = 1 + max(i for i, _ in terms)
-    return nq * min(m, TENSOR_TILE_M) * (k16 // kc) * (kc + 8) * 2
+    return nq * min(m, TENSOR_LADDER_TILE_M) * (k16 // kc) * (kc + 8) * 2
 
 
 def tensor_live_smem(terms, m: int, k16: int) -> int:
-    """Dynamic shared memory of v6's live-row instance: B1's fixed bytes,
-    the ring (r stages only), the f32 part planes and the live q parts."""
+    """Dynamic shared memory of v6's live-row instance: the ladder
+    epilogue's fixed bytes, the ring (r stages only), the f32 part planes
+    and the live q parts."""
     kc = tensor_chunk(k16)
-    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc)
-    return (_fixed_bytes(_MODE_F32) + tensor_live_stages(terms, kc) * r_stage + planes
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LADDER_TILE_M)
+    return (_fixed_bytes(_MODE_F32, "ladder") + tensor_live_stages(terms, kc) * r_stage + planes
             + tensor_live_q_bytes(terms, m, k16))
 
 
 def resident_tier_parts(precision: str, m: int, k: int, n: int) -> int:
     """v6's partition count at a tier: B1's (tensor_parts) where a 64-row
     block's q parts fit, its own launch then; else the live-row instance's
-    one block an SM."""
+    64-row blocks, one an SM."""
     if tensor_q_resident(ladder_terms(precision, k), round_up(k, 16)):
         return tensor_parts(m, n)
-    return _wave_parts(cdiv(m, TENSOR_TILE_M) * TENSOR_SLICES, cdiv(n, LANE), TENSOR_TILE_GROUPS,
-                       1)
+    return _wave_parts(cdiv(m, TENSOR_LADDER_TILE_M) * TENSOR_SLICES, cdiv(n, LANE),
+                       TENSOR_TILE_GROUPS, 1)
 
 
 def aos_tier_candidates_plain(q, ref, n: int, parts: int, precision: str):
@@ -718,7 +808,8 @@ def _ladder_launch(entry: str, rung: str, q, operand, n: int, parts: int, precis
 
     m, k = q.shape
     terms = ladder_terms(precision, k, aos=rung == "v3")
-    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n, terms)
+    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n, terms,
+                                                  packed_tier(precision, k, aos=rung == "v3"))
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     outs = (idx.data_ptr(), score.data_ptr()) if scores else (idx.data_ptr(),)
     with torch.cuda.device(q.device):

@@ -1,6 +1,7 @@
-"""The tensor-core tier kernel (B1's tiers and B12) on its own: outputs
-saved for a bit-for-bit comparison between two checkouts, and its times at
-the main-path shapes.
+"""The tensor-core tier kernels on their own (B1's tiers and B12, and the
+top-K kernels' tier instances B4, B3, B5 and B7): outputs saved for a
+bit-for-bit comparison between two checkouts, and their times at the
+main-path shapes.
 
     python3 tpu_knn_torch/probes/tier_kernel.py save DIR      # repo root, one H100
     python3 tpu_knn_torch/probes/tier_kernel.py compare DIR_A DIR_B
@@ -12,14 +13,18 @@ chip call (parent, change, change, parent for times).
 
 - save: each instance of IDENTITY_CASES (every operand mode and term
   count, KC = 16 and 32, q resident and in the ring, ragged m and n) at a
-  fixed partition count P, on inputs made on the card from a seed, its
-  (idx, score) written with torch.save to DIR/<case>.pt;
+  fixed partition count P, and each top-K instance of TOPK_CASES (B4's two
+  passes, B3 at depths 1 and 2, B5's lists, B7 without and with a band,
+  at m ragged against 64- and 128-row blocks), on inputs made on the card
+  from a seed, its outputs written with torch.save to DIR/<case>.pt;
 - compare: torch.equal of every case's idx and score between two such
   directories; the last line is {"identical": bool, "cases": {...}};
-- time: each row of PERF.md's kernel table that this kernel serves (or
-  those named), at its main-path shape and the checkout's own P
-  (tiers.tier_parts), by CUDA events (median) and the kernel's own device
-  time (torch.profiler); the last line is one JSON object of them.
+- time: each row of PERF.md's kernel table that these kernels serve (or
+  those named): B1's at its main-path shape and the checkout's own P
+  (tiers.tier_parts), the top-K instances' (TOPK_TIMED_ROWS) at the
+  launches their engines make at K = 8, each with its "highest" launch
+  beside it; by CUDA events (median) and the kernel's own device time
+  (torch.profiler); the last line is one JSON object of them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import sys
 
 DS11 = (16, 1024, 1 << 20)
 EMBED = (768, 1024, 1 << 20)
+EMBED_TOPK = (768, 1024, 1 << 18)
 
 #: (case, precision, operand kind, k, m, n, P).
 IDENTITY_CASES = [
@@ -65,6 +71,88 @@ TIMED_ROWS = [
     ("B1 bf16x3", "bf16x3", "f32", EMBED),
     ("B1 qsplit2", "qsplit2", "bf16", EMBED),
 ]
+
+
+#: The top-K instances' cases of `save`: (case, precision, operand kind,
+#: k, m, n); m = 1, 63, 65, 127, 129, 1023 lie on each side of a 64- and a
+#: 128-row block, n is ragged against 128 and 256 columns.
+TOPK_CASES = [
+    *[(f"topk {prec} {kind} k{k} m{m}", prec, kind, k, m, n)
+      for prec, kind, k in (("packed", "f32", 16), ("packed", "bf16", 16), ("packed", "f32", 32),
+                            ("packed", "bf16", 32), ("bf16x3", "f32", 40), ("bf16x4", "f32", 32),
+                            ("qsplit2", "bf16", 128), ("default", "f32", 16))
+      for m, n in ((1, 30_001), (65, 20_077), (129, 9_999))],
+    *[(f"topk {prec} {kind} k{k} m{m}", prec, kind, k, m, 40_003)
+      for prec, kind, k in (("packed", "f32", 16), ("bf16x3", "f32", 768),
+                            ("qsplit2", "bf16", 768))
+      for m in (63, 127, 1023)],
+]
+
+#: The top-K instances' rows of PERF.md's kernel table, ranked there by
+#: launches x (device ms - bound ms): (row, kernel, precision, operand
+#: kind, (k, m, n)), each launch as its engine makes it at K = 8.
+TOPK_TIMED_ROWS = [
+    ("B4 bf16x3", "B4", "bf16x3", "f32", EMBED_TOPK),
+    ("B7 packed3", "B7", "packed", "f32", DS11),
+    ("B4 packed3", "B4", "packed", "f32", DS11),
+    ("B3 packed3", "B3", "packed", "f32", DS11),
+    ("B4-bf16 packed3", "B4", "packed", "bf16", DS11),
+    ("B7 bf16x3", "B7", "bf16x3", "f32", EMBED_TOPK),
+    ("B4-bf16 qsplit2", "B4", "qsplit2", "bf16", EMBED_TOPK),
+    ("B5 packed3", "B5", "packed", "f32", DS11),
+    ("B1 packed3 beside highest", "B1", "packed", "f32", DS11),
+]
+
+#: The kernels each instance's device time holds (torch.profiler names).
+TOPK_DEVICE = {"B1": ("CandidatesEpi", "tensor_candidates_norms"),
+               "B4": ("BandedEpi", "tensor_candidates_norms"),
+               "B5": ("SweepEpi", "tensor_candidates_norms"),
+               "B3": ("MinimaEpi", "tensor_candidates_norms", "minima_merge"),
+               "B7": ("MomentsEpi", "tensor_candidates_norms")}
+
+
+def topk_launches(q, r_op, n, precision, kk=8, parts=None):
+    """kernel id -> a call of B1, B4, B5, B3 and B7 at the launches the
+    engines make over (q, r_op) at K = kk: B1's candidates at its tier's
+    P, B4's second pass of the passes engine (the band at the first pass's
+    lexicographic minimum), B5's lists, B3 and B7 as the seeded engine
+    launches them (B7's bound from B3's inflated K-th minimum), and
+    "B7-band", B7 with a band below half that bound and the remainder
+    minima (the rounds engine's instance). ``parts``: B1's, B4's and B5's
+    partition count (else each its engine's), so that two trees whose
+    geometries differ compare at one P (B3's and B7's outputs do not
+    depend on theirs)."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, seeded, tiers, topk
+
+    m, k = q.shape
+    p1 = parts or tiers.tier_parts(precision, m, k, n)
+    p4 = parts or fused.banded_parts(precision, m, k, n)
+    q_t = fused.transposed_queries(q) if precision == "highest" else None
+    b_s = torch.full((m,), -torch.inf, device=q.device)
+    b_i = torch.full((m,), -1, dtype=torch.int32, device=q.device)
+    i1, s1 = topk._lex_min(*fused.banded_candidates(q, r_op, n, p4, b_s, b_i, q_t, precision))
+    p5 = parts or topk.sweep_parts(m, k, n, precision)
+    g = seeded.seeded_geometry(m, n, k, kk, r_op.shape[1], precision)
+    cs1 = fused.minima_candidates(q, r_op, n, depth=g["depth"], n_limit=g["p1_limit"], q_t=q_t,
+                                  precision=precision)
+    bound = seeded._inflate_bound(seeded._kth_smallest(cs1, kk))
+    lo = bound - bound.abs() * 0.5
+    return {
+        "B1": lambda: (fused.fused_candidates(q, r_op, n, p1) if precision == "highest"
+                       else tiers.tensor_candidates(q, r_op, n, p1, precision)),
+        "B4": lambda: fused.banded_candidates(q, r_op, n, p4, s1, i1, q_t, precision),
+        "B5": lambda: topk.sweep_candidates(q, r_op, n, p5, kk, precision),
+        "B3": lambda: fused.minima_candidates(q, r_op, n, depth=g["depth"],
+                                              n_limit=g["p1_limit"], q_t=q_t,
+                                              precision=precision),
+        "B7": lambda: seeded.extract_moments(q, r_op, n, bound, g["cell"], g["n_fields"],
+                                             q_t=q_t, precision=precision),
+        "B7-band": lambda: seeded.extract_moments(q, r_op, n, bound, g["cell"], g["n_fields"],
+                                                  lo=lo, emit_rem=True, q_t=q_t,
+                                                  precision=precision),
+    }
 
 
 def _operands(device, seed, kind, k, m, n):
@@ -111,22 +199,54 @@ def save(out_dir: str) -> int:
         print(f"{case}: k={k} m={m} n={n} P={parts} sha256 {digest[:16]}")
         del q, ops
         torch.cuda.empty_cache()
+    for i, (case, precision, kind, k, m, n) in enumerate(TOPK_CASES):
+        q, (r_op,) = _operands(device, 9200 + i, kind, k, m, n)
+        for kid, fn in topk_launches(q, r_op, n, precision, parts=3).items():
+            outs = fn()
+            outs = tuple(t.cpu() for t in (outs if isinstance(outs, tuple) else (outs,))
+                         if t is not None)
+            torch.cuda.synchronize()
+            name = f"{case} {kid}"
+            torch.save(outs, os.path.join(out_dir, name.replace(" ", "_") + ".pt"))
+            digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in outs)).hexdigest()
+            print(f"{name}: k={k} m={m} n={n} sha256 {digest[:16]}")
+        del q, r_op
+        torch.cuda.empty_cache()
     return 0
+
+
+def _case_names():
+    """Every case `save` writes, as (name, whether its tier is packed)."""
+    from tpu_knn_torch.kernels.tiers import resolved_tier
+
+    names = [(case, resolved_tier(prec, k).startswith("packed"))
+             for case, prec, _, k, *_ in IDENTITY_CASES]
+    names += [(f"{case} {kid}", resolved_tier(prec, k).startswith("packed"))
+              for case, prec, _, k, _, _ in TOPK_CASES
+              for kid in ("B1", "B4", "B5", "B3", "B7", "B7-band")]
+    return names
 
 
 def compare(dir_a: str, dir_b: str) -> int:
     import torch
 
-    cases = {}
-    for case, *_ in IDENTITY_CASES:
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    cases, packed = {}, {}
+    for case, is_packed in _case_names():
         name = case.replace(" ", "_") + ".pt"
-        (ia, sa), (ib, sb) = (torch.load(os.path.join(d, name)) for d in (dir_a, dir_b))
-        same = torch.equal(ia, ib) and torch.equal(sa.view(torch.int32), sb.view(torch.int32))
-        cases[case] = same
+        a, b = (torch.load(os.path.join(d, name)) for d in (dir_a, dir_b))
+        diff = [int((bits(x) != bits(y)).sum()) for x, y in zip(a, b)]
+        same = len(a) == len(b) and not any(diff)
+        (packed if is_packed else cases)[case] = same
         print(f"{case}: {'identical' if same else 'DIFFERENT'}"
-              + ("" if same else f" ({int((ia != ib).sum())} indices, "
-                 f"{int((sa.view(torch.int32) != sb.view(torch.int32)).sum())} scores differ)"))
-    print(json.dumps({"identical": all(cases.values()), "cases": cases}))
+              + ("" if same else f" ({diff} elements of each output differ)")
+              + (" [packed]" if is_packed else ""))
+    # A packed tier's scores may change with the arithmetic of its sum;
+    # every other case must be identical.
+    print(json.dumps({"identical": all(cases.values()), "cases": cases,
+                      "packed_identical": packed}))
     return 0 if all(cases.values()) else 1
 
 
@@ -154,6 +274,20 @@ def time_rows(names) -> int:
         print(f"{row}: {precision} {kind} (k={k}, m={m}, n={n}) P={parts}: {ev:.4f} ms "
               f"(device {dev:.4f}) [{card}]")
         del q, ops
+        torch.cuda.empty_cache()
+    for i, (row, kid, precision, kind, (k, m, n)) in enumerate(TOPK_TIMED_ROWS):
+        if names and row not in names:
+            continue
+        q, (r_op,) = _operands(device, 9700 + i, kind, k, m, n)
+        fn = topk_launches(q, r_op, n, precision)[kid]
+        high = topk_launches(q, r_op, n, "highest")[kid]
+        reps = 5 if k >= 128 else 10
+        ev = time_ms({row: fn, "highest": high}, reps)
+        dev = sum(device_ms({"fn": fn}, TOPK_DEVICE[kid], reps).values())
+        out[row] = {"ms": ev[row], "device_ms": dev, "highest_ms": ev["highest"]}
+        print(f"{row}: {precision} {kind} (k={k}, m={m}, n={n}): {ev[row]:.4f} ms (device "
+              f"{dev:.4f}), its highest launch {ev['highest']:.4f} ms [{card}]")
+        del q, r_op, fn, high
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0

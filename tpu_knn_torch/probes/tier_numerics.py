@@ -3,6 +3,8 @@ and B1 "highest" refined over its P partitions' lanes or over the merged
 128.
 
     python3 -m tpu_knn_torch.probes.tier_numerics      # repo root, one H100
+    PYTHONPATH=<checkout> python3 tpu_knn_torch/probes/tier_numerics.py packed
+    python3 -m tpu_knn_torch.probes.tier_numerics default
 
 Prints, beside the card's name and power limit (nvidia-smi):
 
@@ -18,6 +20,15 @@ Prints, beside the card's name and power limit (nvidia-smi):
    the two answers compared.
 
 The last line is one JSON object of these numbers.
+
+`packed`: each packed tier's score error, seed by seed, at ds11 (packed3)
+and (32, 1024, 2^20) (packed2) over f32 and bf16 operands, with its share
+of the gate; run by path with PYTHONPATH=<checkout> it measures that
+checkout, so an older tree's arithmetic and this one's compare in one
+chip call. `default`: the harness's gate errors (an index that is not
+the exact scan's and whose true distance is off by more than 1e-3) of
+fused_knn(precision="default") at ds11 and (768, 1024, 2^20) over SEEDS
+data sets.
 """
 
 from __future__ import annotations
@@ -118,6 +129,98 @@ def tier_errors(device):
     return errors, times
 
 
+#: The packed tiers' rows of `packed`: (row, operand kind, k) at m = 1024,
+#: n = 2^20.
+PACKED_ROWS = [("packed3", "f32", 16), ("packed3", "bf16", 16), ("packed2", "f32", 32),
+               ("packed2", "bf16", 32)]
+
+
+def packed_errors(device):
+    """Each packed tier's score error per seed at the main path's shapes,
+    and its share of tiers.tier_error_gate."""
+    import torch
+
+    from tpu_knn_torch.kernels import tiers
+
+    m, n = 1024, 1 << 20
+    out = {}
+    for row, kind, k in PACKED_ROWS:
+        key = f"{row} {kind} ({k}, {m}, 2^20)"
+        out[key] = []
+        for seed in range(SEEDS):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(1000 + seed)
+            q, pts, ops = _operands(gen, device, kind, k, m, n)
+            parts = tiers.tier_parts("packed", m, k, n)
+            ki, ks = tiers.tier_candidates(q, ops, n, parts, "packed")
+            err = tiers.score_errors(q, pts, ki, ks)[0]
+            pi, ps = tiers.tier_candidates_plain(q, ops, n, parts, "packed")
+            plain = tiers.score_errors(q, pts, pi, ps)[0]
+            share = err / tiers.tier_error_gate("packed", k, plain)
+            out[key].append({"err": err, "plain": plain, "share": share})
+            print(f"  {key} seed {seed}: score error {err:.4g} (plain {plain:.4g}), "
+                  f"{share:.3f} of the gate", flush=True)
+            del q, pts, ops, ki, ks, pi, ps
+            torch.cuda.empty_cache()
+    return out
+
+
+def _exact_scan(q, r, chunk_elems=1 << 28):
+    """Exact 1-NN on the card: a chunked diff-form scan, lowest index on
+    ties (chip_smoke.py's exact_scan)."""
+    import torch
+
+    m, k = q.shape
+    chunk = max(1, chunk_elems // (m * k))
+    best_d = torch.full((m,), torch.inf, device=q.device)
+    best_i = torch.zeros((m,), dtype=torch.int64, device=q.device)
+    for start in range(0, r.shape[0], chunk):
+        rc = r[start:start + chunk]
+        d = ((q[:, None, :] - rc[None, :, :]) ** 2).sum(dim=-1)
+        v = d.min(dim=1).values
+        col = torch.arange(rc.shape[0], device=q.device)
+        i = torch.where(d == v[:, None], col, rc.shape[0]).min(dim=1).values + start
+        take = v < best_d
+        best_i = torch.where(take, i, best_i)
+        best_d = torch.where(take, v, best_d)
+    return best_i
+
+
+def default_gate(device):
+    """Gate errors of fused_knn(precision="default") per data set: indices
+    that are not the exact scan's and whose true distance differs from
+    its by more than the harness's tolerance."""
+    import torch
+
+    from tpu_knn_torch.harness.checker import TOLERANCE
+    from tpu_knn_torch.kernels.fused import fused_knn
+
+    out = {}
+    for k, m, n in ((16, 1024, 1 << 20), (768, 1024, 1 << 20)):
+        key = f"default ({k}, {m}, 2^20)"
+        out[key] = []
+        for seed in range(SEEDS):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(2000 + seed)
+            q = torch.rand((m, k), generator=gen, device=device)
+            r = torch.rand((n, k), generator=gen, device=device)
+            idx = fused_knn(q, r, precision="default", device=device)[0].long()
+            want = _exact_scan(q, r)
+
+            def true_d(i):
+                return ((q - r[i]) ** 2).sum(dim=1).sqrt()
+
+            ok = (idx == want) | ((true_d(idx) - true_d(want)).abs() <= TOLERANCE)
+            errors = int((~ok).sum().item())
+            differ = int((idx != want).sum().item())
+            out[key].append({"gate_errors": errors, "indices_differ": differ})
+            print(f"  {key} seed {seed}: {errors} gate errors ({differ} indices differ "
+                  f"from the exact scan's)", flush=True)
+            del q, r, idx, want
+            torch.cuda.empty_cache()
+    return out
+
+
 def highest_merge(device):
     """B1 "highest" plus the refine over P*128 lanes and over the merged
     128, at ds11, (16, 64, 2^20) and the embed shapes."""
@@ -166,6 +269,12 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["packed"]:
+        print(json.dumps({"card": card, "packed": packed_errors(device)}))
+        return 0
+    if sys.argv[1:] == ["default"]:
+        print(json.dumps({"card": card, "default": default_gate(device)}))
+        return 0
     errors, times = tier_errors(device)
     merge = highest_merge(device)
     print(json.dumps({"card": card, "errors": errors, "kernel_ms": times, "highest": merge}))
