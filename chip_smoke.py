@@ -1785,7 +1785,8 @@ TOPK_TIER_K = 8
 #: also its partition merge.
 TOPK_TIER_DEVICE = {"B4": (("BandedEpi", "tensor_candidates_norms"), 2),
                     "B5": (("SweepEpi", "tensor_candidates_norms"), 2),
-                    "B3": (("MinimaEpi", "tensor_candidates_norms", "minima_merge"), 3),
+                    "B3": (("MinimaEpi", "tensor_candidates_norms", "minima_merge",
+                            "minima_init"), 3),
                     "B7": (("MomentsEpi", "tensor_candidates_norms"), 2)}
 #: Each top-K kernel's wrapper, TPU kernel and source file of its tier
 #: instance (tpu_knn_torch/csrc/).
@@ -1797,13 +1798,16 @@ TOPK_TIER_KERNELS = {
 }
 
 
-#: The top-K tier rows ranked by launches x (device ms - bound ms), each
-#: with its kernel's device ms before the mainloop's 128-row blocks and
-#: tensor-core sum of the packed terms (tier_kernel.py time, medians of two
-#: runs in turns with the redesign, on an "NVIDIA H100 80GB HBM3, 700.00 W").
-RANKED_TIER_ROWS = {"B4 bf16x3": 8.7199, "B7 packed3": 2.0658, "B4 packed3": 1.9285,
-                    "B3 packed3": 0.9454, "B4-bf16 packed3": 1.1547, "B7 bf16x3": 8.5206,
-                    "B4-bf16 qsplit2": 5.5260}
+#: The top-K tier rows of B3 and B5, ranked by launches x (device ms -
+#: bound ms), each with its kernel's device ms before their epilogues'
+#: redesign (the score tile and the shared fold slots; tier_kernel.py time
+#: on an "NVIDIA H100 80GB HBM3, 700.00 W").
+RANKED_TIER_ROWS = {"B3 packed3": 0.6788, "B5 packed3": 4.0372, "B3 bf16x3": 3.8571,
+                    "B5 bf16x3": 12.0563, "B3-bf16 packed3": 0.4618,
+                    "B5-bf16 packed3": 3.0961, "B3-bf16 qsplit2": 2.5508,
+                    "B5-bf16 qsplit2": 7.8160, "B3 packed3 depth 2": 0.6941,
+                    "B3 packed3 band": 0.6802, "B5 packed3 (16, 8, 2^20) K=32": 0.4318,
+                    "B5 packed3 (16, 32, 2^20) K=8": 0.3717}
 
 
 def log_ranked_tier_rows(card, times, bounds):
@@ -1996,6 +2000,167 @@ def phase1_topk_tiers(device, gen, cases, kk=TOPK_TIER_K):
         torch.cuda.empty_cache()
     torch.cuda.synchronize(device)
     return errs, plain_ms
+
+
+#: B5 at the serving shapes auto sends it (m * K <= 256): (k, m, n, K),
+#: each a row of the kernels line beside the ds11 and embedding-width ones.
+B5_SERVE_CASES = [(16, 8, 1 << 20, 32), (16, 32, 1 << 20, 8)]
+
+
+def b5_serve_row(k, m, n, kk):
+    return f"B5 packed3 ({k}, {m}, 2^{n.bit_length() - 1}) K={kk}"
+
+
+#: B3 at ds11 beside the seeded engine's depth-1 launch: at depth 2 and
+#: above a lo, over the same prefix, each a row of the kernels line.
+B3_EXTRA_ROWS = ("B3 packed3 depth 2", "B3 packed3 band")
+
+
+def b3_b5_launches(q, r_op, n, kk, precision="packed"):
+    """B3's three instances as the seeded engine's bound pass makes its
+    launch at K = kk (depth 1 over its prefix; depth 2 and above lo, the
+    row's median score less 0.5, over the same prefix) and B5's lists at
+    the tier's P: {name: (kernel call, plain call)}."""
+    from tpu_knn_torch.kernels import fused, seeded, topk
+
+    m, k = q.shape
+    g = seeded.seeded_geometry(m, n, k, kk, r_op.shape[1], precision)
+    limit = g["p1_limit"] or n
+    lo = fused.scores(q, r_op, min(n, limit), precision).median(dim=1).values - 0.5
+    p5 = topk.sweep_parts(m, k, n, precision)
+    calls = {}
+    for name, depth, band in (("B3", 1, None), ("B3 depth 2", 2, None), ("B3 band", 1, lo)):
+        calls[name] = (
+            lambda depth=depth, band=band: fused.minima_candidates(
+                q, r_op, n, depth=depth, lo=band, n_limit=limit, precision=precision),
+            lambda depth=depth, band=band: fused.minima_candidates_plain(
+                q, r_op, n, depth, band, limit, precision))
+    calls["B5"] = (lambda: topk.sweep_candidates(q, r_op, n, p5, kk, precision),
+                   lambda: topk.sweep_candidates_plain(q, r_op, n, p5, kk, precision))
+    return calls
+
+
+def phase1_b3_b5_exact(device, gen):
+    """B3's three instances and B5's lists bit for bit against their plain
+    versions at ds11 (packed3 over the f32 operand and a bf16 store's, K =
+    8) and at the serving shapes (B5_SERVE_CASES), over small integer
+    points and queries: every tier's products and sums are then exact, so
+    the kernels' scores are the plain versions' and each minimum, list and
+    tie (lowest column first) must be identical. At the serving shapes also
+    over uniform points: B5's lists against the plain version's (a slot
+    whose column differs holds a near-tie, list_agreement) and the list
+    contract. Returns ({row: 0.0}, {row: plain ms}) for the serving rows and
+    B3's extra rows."""
+    import torch
+
+    from tpu_knn_torch.kernels import fused, tiers, topk
+    from tpu_knn_torch.kernels.fused import prep_soa
+
+    errs, plain_ms = {}, {}
+    cases = [(*DS11, 8, "f32"), (*DS11, 8, "bf16")]
+    cases += [(k, m, n, kk, "f32") for k, m, n, kk in B5_SERVE_CASES]
+    for k, m, n, kk, kind in cases:
+        q = torch.randint(0, 8, (m, k), generator=gen, device=device).float()
+        r = torch.randint(0, 8, (n, k), generator=gen, device=device).float()
+        r_op = prep_soa(r, -(-n // 128) * 128)
+        if kind == "bf16":
+            r_op = r_op.to(torch.bfloat16)
+        del r
+        tag = f"packed3 over small integers, {kind} operand (k={k}, m={m}, n={n}) K={kk}"
+        calls = b3_b5_launches(q, r_op, n, kk)
+        serve = m <= tiers.B5_SERVE_ROWS
+        for name, (kern, plain) in calls.items():
+            if serve and name != "B5":
+                continue
+            got, (want, ms) = kern(), timed_once(plain)
+            got, want = (got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,))
+            for g, w in zip(got, want):
+                g, w = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (g, w))
+                if not torch.equal(g, w):
+                    fail(f"{name} {tag}: {int((g != w).sum())} outputs differ from the plain "
+                         "version's")
+            row = (b5_serve_row(k, m, n, kk) if serve
+                   else {"B3 depth 2": B3_EXTRA_ROWS[0], "B3 band": B3_EXTRA_ROWS[1]}.get(name))
+            if row and kind == "f32":
+                errs[row] = 0.0
+        log(f"  B3 and B5 tier instances bit for bit their plain versions, {tag}: "
+            f"{'B5' if serve else 'B3 at depths 1 and 2 and above lo, B5'}")
+        del q, r_op, calls
+        torch.cuda.empty_cache()
+    for k, m, n, kk in B5_SERVE_CASES:
+        q, pts, (r_op,) = tier_operands(gen, device, "f32", k, m, n)
+        p5 = topk.sweep_parts(m, k, n, "packed")
+        ci, cs = topk.sweep_candidates(q, r_op, n, p5, kk, "packed")
+        row = b5_serve_row(k, m, n, kk)
+        check_lists(row, ci, cs, n, p5, kk)
+        (li, _), plain_ms[row] = timed_once(
+            lambda: topk.sweep_candidates_plain(q, r_op, n, p5, kk, "packed"))
+        s = fused.scores(q, r_op, n, "packed")
+        gate = tiers.tier_error_gate("packed", k, 0.0)
+        share, diff, swaps = list_agreement(row, ci, cs, li, s, 2.0 * gate)
+        errs[row] = diff
+        log(f"  {row} over uniform points (P={p5}): agreement {share:.6f} ({swaps} slots a "
+            f"near-tie apart), |diff| {diff:.3g}")
+        del q, pts, r_op, ci, cs, li, s
+        torch.cuda.empty_cache()
+    q, pts, (r_op,) = tier_operands(gen, device, "f32", *DS11)
+    calls = b3_b5_launches(q, r_op, DS11[2], 8)
+    for name, row in (("B3 depth 2", B3_EXTRA_ROWS[0]), ("B3 band", B3_EXTRA_ROWS[1])):
+        _, plain_ms[row] = timed_once(calls[name][1])
+    del q, pts, r_op, calls
+    torch.cuda.empty_cache()
+    return errs, plain_ms
+
+
+def phase3_b3_b5_rows(card, device, gen, reps):
+    """Times of B3 at depth 2 and above a lo at ds11 (B3_EXTRA_ROWS) and of
+    B5 at the serving shapes (B5_SERVE_CASES), each beside the same launch
+    at "highest", with its device time and bound (inputs read once, outputs
+    written once over the memory rate, or T·2·m·n·k16 over the bf16 peak).
+    Returns (times, bounds)."""
+    import torch
+
+    from tpu_knn_torch.kernels import seeded, tiers
+    from tpu_knn_torch.utils.timing import time_ms
+
+    times, bounds = {}, {}
+    terms = len(tiers.term_list("packed", 16))
+    k, m, n = DS11
+    q, pts, (r_op,) = tier_operands(gen, device, "f32", k, m, n)
+    calls, high = b3_b5_launches(q, r_op, n, 8), b3_b5_launches(q, r_op, n, 8, "highest")
+    cols = seeded.seeded_geometry(m, n, k, 8, r_op.shape[1], "packed")["p1_limit"] or n
+    for name, row, depth in (("B3 depth 2", B3_EXTRA_ROWS[0], 2),
+                             ("B3 band", B3_EXTRA_ROWS[1], 1)):
+        got = time_ms({"kernel": calls[name][0], "highest": high[name][0]}, reps)
+        times[f"{row} kernel"], times[f"{row} highest"] = got["kernel"], got["highest"]
+        names, count = TOPK_TIER_DEVICE["B3"]
+        times[f"{row} kernel device"] = kernel_device_ms(calls[name][0], reps, card, names,
+                                                         count)
+        bounds[row] = roofline(4 * m * k + 4 * k * cols + 4 * m * 128 * depth
+                               + (4 * m if depth == 1 and "band" in row else 0),
+                               terms * 2 * m * cols * 16, peak=BF16_PEAK_FLOPS)
+    del q, pts, r_op, calls, high
+    torch.cuda.empty_cache()
+    for k, m, n, kk in B5_SERVE_CASES:
+        row = b5_serve_row(k, m, n, kk)
+        q, pts, (r_op,) = tier_operands(gen, device, "f32", k, m, n)
+        calls, high = b3_b5_launches(q, r_op, n, kk), b3_b5_launches(q, r_op, n, kk, "highest")
+        got = time_ms({"kernel": calls["B5"][0], "highest": high["B5"][0]}, reps)
+        times[f"{row} kernel"], times[f"{row} highest"] = got["kernel"], got["highest"]
+        names, count = TOPK_TIER_DEVICE["B5"]
+        times[f"{row} kernel device"] = kernel_device_ms(calls["B5"][0], reps, card, names,
+                                                         count)
+        bounds[row] = roofline(4 * m * k + 4 * k * n + 8 * m * kk,
+                               terms * 2 * m * n * 16, peak=BF16_PEAK_FLOPS)
+        del q, pts, r_op, calls, high
+        torch.cuda.empty_cache()
+    for row in (*B3_EXTRA_ROWS, *(b5_serve_row(*c) for c in B5_SERVE_CASES)):
+        log(f"  time {row}: {times[f'{row} kernel']:.4f} ms (device "
+            f"{times[f'{row} kernel device']:.4f}), its highest launch "
+            f"{times[f'{row} highest']:.4f} ms; bound {bounds[row][0]:.4f} ms ({bounds[row][1]}) "
+            f"[{card}]")
+    return times, bounds
 
 
 def phase2_topk_tiers(device, gen, n=1 << 20):
@@ -4787,8 +4952,12 @@ def main() -> int:
         smem = check_no_spills(ptxas, {
             "B3": "tiled_minima_kernel", "B7": "tiled_moments_kernel",
             "tensor-core tiers and B12": "CandidatesEpi",
-            "B4's tier instances": "BandedEpi", "B3's tier instances": "MinimaEpi",
-            "B5's tier instances": "SweepEpi", "B7's tier instances": "MomentsEpi",
+            "B4's tier instances": "BandedEpi", "B7's tier instances": "MomentsEpi",
+            "B3's tier instances (depth 1)": r"MinimaEpiILi1ELb0E",
+            "B3's tier instances (depth 1, above lo)": r"MinimaEpiILi1ELb1E",
+            "B3's tier instances (depth 2)": r"MinimaEpiILi2ELb0E",
+            "B5's tier instances (128-row blocks)": r"SweepEpiILi128E",
+            "B5's tier instances (32-row blocks, m <= 32)": r"SweepEpiILi32E",
             "v3 (B1's tiled kernel, AoS)": r"tiled_candidates_kernelILi\d+ELb0ELb1ELb0E",
             "v6 (B1's tiled kernel, resident queries)":
                 r"tiled_candidates_kernelILi\d+ELb0ELb0ELb1E",
@@ -5069,6 +5238,13 @@ def main() -> int:
     gen_topk_tiers.manual_seed(1013)
     topk_tier_errs, topk_tier_plain = phase1_topk_tiers(device, gen_topk_tiers, TOPK_TIER_CASES)
     errs.update(topk_tier_errs)
+    # B3's and B5's instances bit for bit their plain versions over exact
+    # inputs, and B5 at the serving shapes, from a generator of their own.
+    gen_b3_b5 = torch.Generator(device=device)
+    gen_b3_b5.manual_seed(1015)
+    b3_b5_errs, b3_b5_plain = phase1_b3_b5_exact(device, gen_b3_b5)
+    errs.update(b3_b5_errs)
+    topk_tier_plain.update(b3_b5_plain)
     # The ladder's tier instances (v3, B10, v6) against B1's tier and their
     # plain versions, from a generator of their own.
     gen_ladder_tiers = torch.Generator(device=device)
@@ -5308,6 +5484,9 @@ def main() -> int:
     gen_tt3 = torch.Generator(device=device)
     gen_tt3.manual_seed(1032)
     topk_tier_times, topk_tier_bounds = phase3_topk_tiers(card, device, gen_tt3, reps=10)
+    b3_b5_times, b3_b5_bounds = phase3_b3_b5_rows(card, device, gen_tt3, reps=10)
+    topk_tier_times.update(b3_b5_times)
+    topk_tier_bounds.update(b3_b5_bounds)
     times.update(topk_tier_times)
     log_ranked_tier_rows(card, topk_tier_times, topk_tier_bounds)
     torch.cuda.empty_cache()
@@ -5499,6 +5678,21 @@ def main() -> int:
                 "library_ms": None, "matmul_part_ms": times[f"{row} matmul part"],
                 "highest_ms": times[f"{row} highest"],
                 "device_ms": times[f"{row} kernel device"]})
+    # B3 at depth 2 and above a lo at ds11, B5 at the serving shapes: their
+    # rows' launches (every launch of the tier row on the main path).
+    extra = [(row, "B3", DS11, 8, "B3 packed3") for row in B3_EXTRA_ROWS]
+    extra += [(b5_serve_row(k, m, n, kk), "B5", (k, m, n), kk, "B5 packed3")
+              for k, m, n, kk in B5_SERVE_CASES]
+    for row, kid, (k, m, n), kk, launch_row in extra:
+        wrapper, replaces, source = TOPK_TIER_KERNELS[kid]
+        kernels.append({
+            "name": f"{row} {wrapper} (k={k}, m={m}, n={n}) K={kk}", "route": "cuda",
+            "source": f"tpu_knn_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[launch_row], "max_abs_err": errs[row],
+            "ms": times[f"{row} kernel"], "plain_ms": topk_tier_plain[row],
+            "bound_ms": topk_tier_bounds[row][0], "bound_by": topk_tier_bounds[row][1],
+            "library_ms": None, "highest_ms": times[f"{row} highest"],
+            "device_ms": times[f"{row} kernel device"]})
     # The ladder's tier instances: v3, B10 and v6 at the main path's ds11
     # launch (packed3) and at k = 768 (bf16x3: v3 and B10 at (768, 1024,
     # 2^18), v6 with its live rows at (768, 16, 2^20)); "highest_ms" the same

@@ -1304,6 +1304,45 @@ def test_b4_and_b7_tier_instances_across_the_block_rows(device, precision, kind,
                                                                     precision=precision))
 
 
+#: (precision, operand kind, k, n) of B3's and B5's block-row cases: every
+#: term list the instances take over each operand kind (packed3, packed2,
+#: bf16x3, qsplit2), n ragged against 128 and 512 columns and, at 100,
+#: below one column tile of either layout.
+B3_B5_BLOCK_CASES = [("packed", "f32", 16, 100), ("packed", "bf16", 16, 5003),
+                     ("packed", "f32", 32, 3001), ("packed", "bf16", 30, 777),
+                     ("bf16x3", "f32", 40, 2177), ("qsplit2", "f32", 64, 1500),
+                     ("qsplit2", "bf16", 128, 1153)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 63, 65, 127, 129, 1023])
+@pytest.mark.parametrize("precision,kind,k,n", B3_B5_BLOCK_CASES)
+def test_b3_and_b5_tier_instances_across_the_block_rows(device, precision, kind, k, n, m):
+    """B3's tier instances (depth 1 with and without lo, depth 2) and B5's
+    (K = 1, 8, 32, at each block height: m <= 32 takes the 32-row blocks)
+    equal their plain versions bit for bit at m on each side of a 32-, 64-
+    and 128-row block. The inputs are small integers, so every tier's
+    products and sums are exact and the kernel's scores are the plain
+    version's: a minimum, a list and its ties (lowest column first) must
+    then be identical, whatever P."""
+    gen = torch.Generator(device="cpu").manual_seed(31 * k + m + n)
+    q = torch.randint(0, 8, (m, k), generator=gen).float().to(device)
+    r = torch.randint(0, 8, (n, k), generator=gen).float().to(device)
+    r_op = prep_soa(r, -(-n // 128) * 128)
+    if kind == "bf16":
+        r_op = r_op.to(torch.bfloat16)
+    s = fused.scores(q, r_op, n, precision)
+    lo = s.median(dim=1).values - 0.5  # a band through the scores
+    for depth, band in ((1, None), (1, lo), (2, None)):
+        got = fused.minima_candidates(q, r_op, n, depth=depth, lo=band, precision=precision)
+        want = fused.minima_candidates_plain(q, r_op, n, depth, band, precision=precision)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (depth, band is None)
+    parts = topk.sweep_parts(m, k, n, precision)
+    for kk in (1, 8, 32):
+        gi, gs = topk.sweep_candidates(q, r_op, n, parts, kk, precision)
+        wi, ws = topk.sweep_candidates_plain(q, r_op, n, parts, kk, precision)
+        assert torch.equal(gi, wi) and torch.equal(gs.view(torch.int32), ws.view(torch.int32)), kk
+
+
 def test_tier_instances_raise_on_the_presplit_tier_and_a_depth_2_band(device):
     q, r, r_op = _tier_inputs(device, "packed", "f32", 16, 8, 3000)
     b = torch.zeros(8, device=device)

@@ -1016,11 +1016,12 @@ def test_topk_paths_resolve_tpu_knns_tier(k, monkeypatch):
 def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
     """tiers.TENSOR_EPILOGUES names each tensor-core epilogue's blocks an
     SM, layout and rows as its CUDA source declares them (kBlocksPerSm,
-    kContig, kRows), and at every instance the C entries dispatch and every
-    k16 each epilogue's plan (tiers.tensor_smem) fits its blocks
+    kContig, kRows; B5's at each block height its C entry instantiates),
+    and at every instance the C entries dispatch and every k16 each
+    epilogue's plan (tiers.tensor_smem) fits its blocks
     (tiers.tensor_blocks_per_sm) and one block's limit with at least two
-    ring stages; B1, B4, B3 and B7 run one 128-row block an SM, B5 one
-    64-row block, the ladder's epilogue two 64-row blocks."""
+    ring stages; B1, B4, B3, B5 and B7 run one 128-row block an SM, B5 at
+    m <= 32 two 32-row blocks, the ladder's epilogue two 64-row blocks."""
     import os
     import re
 
@@ -1040,18 +1041,30 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
         contig = re.search(r"kContig = (true|false);", body).group(1) == "true"
         per_sm = re.search(r"kBlocksPerSm = ([^;]+);", body).group(1)
         rows = re.search(r"kRows = ([^;]+);", body).group(1)
-        rows = int(rows.replace("kTBM", str(tiers.TENSOR_LADDER_TILE_M)))
         override = re.search(r"blocks_per_sm\(int(?: t)?, int(?: kc)?\) \{\s*return ([^;]+);",
                              body)
         assert override.group(1) == "kBlocksPerSm"
-        per_sm = {"BLOCKS": 2}.get(per_sm, None) or int(per_sm.split("//")[0].strip())
-        declared[kid] = (per_sm, contig, rows)
+        consts = {name: int(v) for name, v in
+                  re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M)}
+        consts.update(kTBM=tiers.TENSOR_LADDER_TILE_M, BLOCKS=2)
+        # B5 is a template on its rows (BM): each height its entry dispatches.
+        heights = ([consts.get(h) or int(h)
+                    for h in re.findall(rf"dispatch_tensor<{struct}<(\w+)>>", src)]
+                   if rows == "BM" else [None])
+        py_per_sm = re.sub(r"(.+)\?(.+):(.+)", r"(\2) if (\1) else (\3)",
+                           per_sm.split("//")[0])
+        for bm in heights:
+            env = dict(consts, BM=bm)
+            name = f"{kid}-serve" if bm and bm == consts.get("kServeRows") else kid
+            declared[name] = (eval(py_per_sm, {}, env), contig, eval(rows, {}, env))
     declared["B7-band"] = declared["B7"]
     assert declared.pop("ladder") == tiers.LADDER_EPILOGUE[1:]
     assert declared == {kid: v[1:] for kid, v in tiers.TENSOR_EPILOGUES.items()}
-    assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B1", "B4", "B3", "B7")] == [1, 1, 1, 1]
-    assert [tiers.tensor_rows(kid) for kid in ("B1", "B4", "B3", "B7", "B5", "ladder")] == [
-        128, 128, 128, 128, 64, 64]
+    assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B1", "B4", "B3", "B5", "B7")] == [
+        1, 1, 1, 1, 1]
+    assert [tiers.tensor_rows(kid) for kid in ("B1", "B4", "B3", "B7", "B5", "B5-serve",
+                                               "ladder")] == [128, 128, 128, 128, 128, 32, 64]
+    assert tiers.sweep_tier_epilogue(32) == "B5-serve" and tiers.sweep_tier_epilogue(33) == "B5"
     for epilogue in tiers.TENSOR_EPILOGUES:
         for (mode, _), terms in tiers.TENSOR_INSTANCES.items():
             if mode == 2 and epilogue != "B1":
@@ -1137,11 +1150,13 @@ def test_ladder_paths_resolve_tpu_knns_tier(k, monkeypatch):
 
 #: The (k, m, n) of phase 2's tier launches in chip_smoke.py: ds11, packed2
 #: at (32, 1024, 2^20), the embedding widths, the sweep's and the planted
-#: small m, ds10's k = 3, knn_graph's 1024-row chunks over 2^17 points.
+#: small m (B5's serving shapes (16, 8, 2^20) K = 32 and (16, 32, 2^20) K =
+#: 8, and the sweep at k = 128), ds10's k = 3, knn_graph's 1024-row chunks
+#: over 2^17 points.
 PHASE2_TIER_SHAPES = [(16, 1024, 1 << 20), (32, 1024, 1 << 20), (128, 1024, 1 << 20),
                       (768, 1024, 1 << 20), (768, 1024, 1 << 18), (16, 16, 1 << 20),
-                      (16, 8, 1 << 20), (16, 64, 1 << 20), (3, 1024, 1 << 20),
-                      (16, 1024, 1 << 17)]
+                      (16, 8, 1 << 20), (16, 32, 1 << 20), (16, 64, 1 << 20),
+                      (3, 1024, 1 << 20), (16, 1024, 1 << 17), (128, 8, 1 << 20)]
 
 
 @pytest.mark.parametrize("k,m,n", PHASE2_TIER_SHAPES)
@@ -1152,7 +1167,8 @@ def test_tensor_tile_geometry_at_the_main_path_shapes(k, m, n):
     at most 227 KB and its blocks an SM (tensor_blocks_per_sm) fit the SM's
     shared memory and its 64K registers at 128 a thread; each launch's
     blocks (row tiles of the epilogue's rows x lane slices x P) fill at
-    least 90% of one wave of those slots and no more."""
+    least 90% of one wave of those slots and no more (B5 at the block
+    height its m takes, tiers.sweep_tier_epilogue)."""
     from tpu_knn_torch.kernels import tiers
 
     k16 = -(-k // 16) * 16
@@ -1173,11 +1189,73 @@ def test_tensor_tile_geometry_at_the_main_path_shapes(k, m, n):
                 assert smem <= tiers.SMEM_PER_BLOCK == 227 * 1024
                 assert per_sm * (smem + tiers.SMEM_PER_BLOCK_RESERVED) <= tiers.SMEM_PER_SM
                 assert per_sm * 4 * rows * 128 <= 65536
+                if epilogue.startswith("B5") and tiers.sweep_tier_epilogue(m) != epilogue:
+                    continue  # B5's other block height, not launched at this m
                 parts = tiers.tensor_topk_parts("B4" if epilogue == "B1" else epilogue, m, n)
                 slices = 1 if tiers.TENSOR_EPILOGUES[epilogue][2] else tiers.TENSOR_SLICES
                 blocks = -(-m // rows) * slices * parts
                 assert 0.9 * per_sm * sms <= blocks <= per_sm * sms, (epilogue, blocks)
     assert tiers.tensor_rows("B4") == tiers.tensor_rows("B7") == 2 * tiers.tensor_rows("ladder")
+
+
+def test_b3_and_b5_plans_mirror_the_sources_and_fill_one_wave():
+    """B3's and B5's shared-memory plans are their sources' (MinimaEpi's and
+    SweepEpi's kStateBytes, evaluated from the constexpr offsets in the .cu
+    files at each block height; kServeRows and kRowSlots are
+    tiers.B5_SERVE_ROWS and B5_ROW_SLOTS), each instance a phase 2 launch
+    takes fits 227 KB and its blocks an SM, and B3's and B5's launches at
+    phase 2's shapes (the seeded engine's prefix at ds11, knn_graph's
+    chunks, the embedding width; B5 at ds11, k = 768 and its serving
+    shapes) fill at least 90% of one wave of their slots and no more."""
+    import os
+    import re
+
+    from tpu_knn_torch.kernels import seeded, tiers, topk
+
+    csrc = os.path.join(os.path.dirname(tiers.__file__), "..", "csrc")
+
+    def state_bytes(f, struct, env):
+        with open(os.path.join(csrc, f)) as fh:
+            src = fh.read()
+        env = dict(env, **{k: int(v) for k, v in
+                           re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M)})
+        body = src[src.index(f"struct {struct} {{"):]
+        for name, expr in re.findall(r"static constexpr size_t (\w+) =\s*([^;]+);", body):
+            expr = re.sub(r"sizeof\(KSelectState<BM>\)", str(env.get("kselect")), expr)
+            expr = expr.replace("fold_slot_bytes<kRows>()", str(tiers.tensor_fold_bytes()))
+            expr = expr.replace("static_cast<size_t>", "").replace("sizeof(float)", "4")
+            env[name] = eval(expr, {}, env)
+        return env
+
+    sweep = state_bytes("tensor_sweep_kernels.cu", "SweepEpi", {"BM": 0, "kselect": 0})
+    assert (sweep["kServeRows"], sweep["kRowSlots"]) == (tiers.B5_SERVE_ROWS, tiers.B5_ROW_SLOTS)
+    for epilogue in ("B5", "B5-serve"):
+        rows = tiers.tensor_rows(epilogue)
+        env = state_bytes("tensor_sweep_kernels.cu", "SweepEpi",
+                          {"BM": rows, "kselect": pt_tuning.kselect_state_bytes(rows)})
+        assert env["kStateBytes"] == tiers.TENSOR_EPILOGUES[epilogue][0]
+    env = state_bytes("tensor_minima_kernels.cu", "MinimaEpi", {"kRows": tiers.tensor_rows("B3")})
+    assert env["kStateBytes"] == tiers.TENSOR_EPILOGUES["B3"][0]
+    sms = pt_tuning.H100_SMS
+    for kernel, (k, m, n, kk) in [("B3", (16, 1024, 1 << 20, 8)), ("B3", (16, 1024, 1 << 17, 16)),
+                                  ("B3", (768, 1024, 1 << 18, 8)), ("B5", (16, 1024, 1 << 20, 8)),
+                                  ("B5", (768, 1024, 1 << 18, 8)), ("B5", (16, 8, 1 << 20, 32)),
+                                  ("B5", (16, 32, 1 << 20, 8)), ("B5", (128, 8, 1 << 20, 32))]:
+        precision = "packed" if k <= 32 else "bf16x3"
+        terms = tiers.term_list(precision, k)
+        kc = tiers.tensor_chunk(-(-k // 16) * 16, terms, tiers.packed_tier(precision, k))
+        if kernel == "B3":
+            g = seeded.seeded_geometry(m, n, k, kk, n, precision)
+            n = g["p1_limit"] or n
+            epilogue, parts, slices = "B3", tiers.tensor_topk_parts("B3", m, n), 4
+        else:
+            epilogue, parts, slices = tiers.sweep_tier_epilogue(m), topk.sweep_parts(
+                m, k, n, precision), 1
+        per_sm = tiers.tensor_blocks_per_sm(epilogue)
+        smem = tiers.tensor_smem(0, terms, kc, -(-k // 16) * 16, epilogue)
+        assert smem <= 227 * 1024 and per_sm * (smem + 1024) <= tiers.SMEM_PER_SM
+        blocks = -(-m // tiers.tensor_rows(epilogue)) * slices * parts
+        assert 0.9 * per_sm * sms <= blocks <= per_sm * sms, (kernel, k, m, n, blocks)
 
 
 def test_v6_live_instance_plan_fits_one_block_an_sm():

@@ -113,7 +113,7 @@ def load() -> ctypes.CDLL:
     # The top-K kernels' tier instances (tensor_*_kernels.cu).
     lib.tk_tensor_banded.argtypes = [ptr] * 7 + [i32, i32, i64] + [i32] * 6 + [ptr]
     lib.tk_tensor_minima.argtypes = [ptr] * 6 + [i32, i32, i64] + [i32] * 7 + [ptr]
-    lib.tk_tensor_sweep.argtypes = [ptr] * 5 + [i32, i32, i64] + [i32] * 7 + [ptr]
+    lib.tk_tensor_sweep.argtypes = [ptr] * 6 + [i32, i32, i64] + [i32] * 7 + [ptr]
     lib.tk_tensor_moments.argtypes = [ptr] * 9 + [i32, i32, i64] + [i32] * 9 + [ptr]
     for name in ("banded", "minima", "sweep", "moments"):
         getattr(lib, f"tk_tensor_{name}").restype = i32

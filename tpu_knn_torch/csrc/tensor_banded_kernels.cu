@@ -29,6 +29,8 @@ struct BandedEpi {
   static constexpr bool kContig = false;
   static constexpr int kRows = 128;
   static constexpr bool kDeferTileEnd = false;
+  static constexpr bool kRegState = false;
+  static constexpr bool kDeadNormInf = false;
   static constexpr int kBlocksPerSm = 1;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   // The fold slots, then the block's rows' bound scores and columns.

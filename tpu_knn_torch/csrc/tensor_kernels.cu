@@ -36,6 +36,8 @@ struct CandidatesEpi {
   static constexpr bool kContig = false;
   static constexpr int kRows = 128;       // tiers.TENSOR_TILE_M
   static constexpr bool kDeferTileEnd = false;
+  static constexpr bool kRegState = false;
+  static constexpr bool kDeadNormInf = false;
   static constexpr int kBlocksPerSm = 1;  // tiers.TENSOR_BLOCKS_PER_SM
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   static constexpr size_t kStateBytes = fold_slot_bytes<kRows>();

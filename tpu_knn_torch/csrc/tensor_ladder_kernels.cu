@@ -211,6 +211,8 @@ struct LadderEpi {
   static constexpr bool kContig = false;
   static constexpr int kRows = kTBM;
   static constexpr bool kDeferTileEnd = false;
+  static constexpr bool kRegState = false;
+  static constexpr bool kDeadNormInf = false;
   static constexpr int kBlocksPerSm = BLOCKS;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   static constexpr size_t kStateBytes = fold_slot_bytes<kRows>();

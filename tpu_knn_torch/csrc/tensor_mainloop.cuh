@@ -34,13 +34,14 @@
 // 128 registers a thread; ptxas spills in no instance, which chip_smoke.py
 // checks):
 // - a block owns its epilogue's kRows query rows (BM): 128 for B1's tiers,
-//   B12, B4, B3 and B7, so each staged r chunk serves 128 rows (the rows of
-//   two 64-row blocks, half their r bytes from L2 a score), one 16-warp
-//   block an SM; 64 for B5 (its K-lists of 64 rows) and the 1-NN ladder's
-//   staging policies (v6's live rows need <= 96 KB), two 8-warp blocks an
-//   SM where the epilogue's state allows. Warp w owns rows 32 (w / 4) ..
-//   + 31 and lanes 8 (w % 4) .. + 7 of the slot groups, whatever BM is: a
-//   warp's arithmetic is the same at both heights;
+//   B12, B4, B3, B5 and B7, so each staged r chunk serves 128 rows (the
+//   rows of two 64-row blocks, half their r bytes from L2 a score), one
+//   16-warp block an SM; 64 for the 1-NN ladder's staging policies (v6's
+//   live rows need <= 96 KB), two 8-warp blocks an SM where the epilogue's
+//   state allows; 32 for B5 at m <= 32 (four warps, all on live rows), two
+//   blocks an SM. Warp w owns rows 32 (w / 4) .. + 31 and lanes 8 (w % 4)
+//   .. + 7 of the slot groups, whatever BM is: a warp's arithmetic is the
+//   same at every height;
 // - a block walks a column tile of 128 staged columns at a time: slot (j,
 //   c), group j < 4 and lane c < 32. Where a slot's column lies is the
 //   epilogue's choice (TensorLayout): B1, B4 and B3 give a block one lane
@@ -119,7 +120,15 @@
 // each tile's last chunk (every thread of the block, so it may hold a
 // barrier; with EPI::kDeferTileEnd after the barrier that ends the tile's
 // last step, beside the next tile's takes), EPI::finish after the last
-// tile.
+// tile. Two traits change what the mainloop hands an epilogue:
+// - EPI::kRegState keeps the 8 positions' states in registers across tiles
+//   in the one-chunk instances (ONE; RegState: EPI::start gives each its
+//   first state, the takes fold into it in place of load and store, and
+//   EPI::finish receives them; with several chunks a tile the accumulators
+//   leave them no room within 128 registers, so load and store stay);
+// - EPI::kDeadNormInf stages +inf as the |r|^2 of every slot past the
+//   block's columns (a column >= n, or a group past its partition), so such
+//   a slot scores +inf and its epilogue needs no test of the slot's column.
 
 #pragma once
 
@@ -138,8 +147,8 @@ constexpr int kTPlaneLd = kTCols + 8;             // bf16 per staged r row / par
 constexpr int kTMaxStages = 4;
 constexpr size_t kQResidentBytes = 30 * 1024;     // resident q parts of a 64-row block
 
-// A block of BM query rows (the epilogue's kRows: 64, or 128 for B1's
-// tiers, B12, B4, B3 and B7) runs 4 * BM threads: warp w owns rows 32 (w /
+// A block of BM query rows (the epilogue's kRows: 32, 64, or 128 for B1's
+// tiers, B12, B4, B3, B5 and B7) runs 4 * BM threads: warp w owns rows 32 (w /
 // 4) .. + 31 and lanes 8 (w % 4) .. + 7 of the slot groups.
 template <int BM>
 __host__ __device__ constexpr int block_threads() {
@@ -150,7 +159,7 @@ __host__ __device__ constexpr int block_threads() {
 // rows, so whether a width's parts are resident does not depend on BM.
 template <int BM>
 __host__ __device__ constexpr size_t q_resident_limit() {
-  return kQResidentBytes * (BM / kTBM);
+  return kQResidentBytes * BM / kTBM;
 }
 
 enum OperandMode { kModeF32 = 0, kModeBF16 = 1, kModePresplit = 2 };
@@ -382,6 +391,17 @@ __device__ __forceinline__ TensorBlock tensor_block(int groups, int groups_per_p
           max(0, min(groups_per_part, groups - g0)) * L::kUnitGroups};
 }
 
+// The states of a thread's 8 positions where the epilogue keeps them in
+// registers across tiles (REG: EPI::kRegState in a one-chunk instance),
+// else nothing.
+template <class EPI, bool REG>
+struct RegState {
+  typename EPI::Pos q[8];
+};
+
+template <class EPI>
+struct RegState<EPI, false> {};
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -599,13 +619,16 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* sq, const __nv_bf
 // in registers while its 4 groups pass. The arithmetic is mma_chunk's (acc
 // from +0, one 16-deep step); the epilogue takes each position's groups in
 // column order. sq: the q parts ([part][row][16 + kTPad]); sb: the r part
-// planes ([part][16][kTPlaneLd]); fold: the epilogue's state; norms: the
+// planes ([part][16][kTPlaneLd]); fold: the epilogue's state; regs: the
+// positions' states where the epilogue keeps them in registers; norms: the
 // tile's |r|^2 row; col_t: the column of the tile's slot (0, 0).
 template <int MODE, int T, bool PACKED, int NQ, int NR, class EPI>
 __device__ __forceinline__ void mma_fold_tile(const __nv_bfloat16* sq, const __nv_bfloat16* sb,
                                               const float* norms, unsigned fold,
-                                              const typename EPI::Args& e, int wr, int wc,
-                                              int col_t, int live_groups, int n, int zero) {
+                                              RegState<EPI, EPI::kRegState>& regs,
+                                              const typename EPI::Args& e,
+                                              int wr, int wc, int col_t, int live_groups, int n,
+                                              int zero) {
   using L = TensorLayout<EPI::kContig>;
   constexpr int QLD = 16 + kTPad;
   const int tid = fresh_tid();
@@ -625,7 +648,12 @@ __device__ __forceinline__ void mma_fold_tile(const __nv_bfloat16* sq, const __n
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
       for (int l = 0; l < 2; ++l) {
-        best[h][l] = EPI::load(fold, e, 4 * i + 2 * h + l, tid, wr + 16 * i + (lane >> 2) + 8 * h);
+        if constexpr (EPI::kRegState) {
+          best[h][l] = regs.q[4 * i + 2 * h + l];
+        } else {
+          best[h][l] =
+              EPI::load(fold, e, 4 * i + 2 * h + l, tid, wr + 16 * i + (lane >> 2) + 8 * h);
+        }
       }
     }
 #pragma unroll
@@ -674,7 +702,13 @@ __device__ __forceinline__ void mma_fold_tile(const __nv_bfloat16* sq, const __n
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int l = 0; l < 2; ++l) EPI::store(fold, e, 4 * i + 2 * h + l, tid, best[h][l]);
+      for (int l = 0; l < 2; ++l) {
+        if constexpr (EPI::kRegState) {
+          regs.q[4 * i + 2 * h + l] = best[h][l];
+        } else {
+          EPI::store(fold, e, 4 * i + 2 * h + l, tid, best[h][l]);
+        }
+      }
     }
   }
 }
@@ -937,7 +971,17 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
       const int jn = ci / kTSliceLanes;
       const int cn = blk.first + it * L::kTileStride + jn * L::kGroupStride + ci % kTSliceLanes;
       const bool live = jn < blk.jgroups - it * kTGroups && cn < p.n;
-      cp_async4(st + NORM_OFF + ci * 4, live ? p.rn + cn : p.rn, live ? 4 : 0);
+      if constexpr (EPI::kDeadNormInf) {
+        // The stage's slot was last read at step s - 1, which the barrier
+        // before this issue ends; the store is seen after the next one.
+        if (live) {
+          cp_async4(st + NORM_OFF + ci * 4, p.rn + cn, 4);
+        } else {
+          *reinterpret_cast<float*>(st + NORM_OFF + ci * 4) = pos_inf();
+        }
+      } else {
+        cp_async4(st + NORM_OFF + ci * 4, live ? p.rn + cn : p.rn, live ? 4 : 0);
+      }
     }
     if constexpr (!RES) copy_q(reinterpret_cast<__nv_bfloat16*>(st + R_STAGE), d0);
   };
@@ -979,8 +1023,19 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
   }
 
   // The epilogue's state, before the first tile (the loop's first barrier
-  // orders it before every read).
+  // orders it before every read); where it lives in registers, each
+  // position's first state.
   EPI::init(fold, e, p);
+  constexpr bool REG = EPI::kRegState && ONE;
+  RegState<EPI, REG> regs;
+  if constexpr (REG) {
+    const int rtid = fresh_tid();
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {  // q = 4 i + 2 h + l: row 32 (w / 4) + 16 i + g + 8 h
+      regs.q[q] = EPI::start(e, p, (rtid >> 7) * 32 + 16 * (q >> 2) + (rtid & 31) / 4 +
+                                       8 * (q >> 1 & 1));
+    }
+  }
   // The thread's 8 (row, lane) positions: rows wr + 16 i + g + 8 h, slot
   // lanes wc + 2 tg + l (position 4 i + 2 h + l); acc[i][j][2 h + l] is
   // that position's slot in group j of the tile, zeroed at each tile's
@@ -1038,7 +1093,7 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
       }
       if constexpr (ONE) {
         const TensorBlock blk = tensor_block<L, BM>(p.groups, p.groups_per_part);
-        mma_fold_tile<MODE, T, PACKED, NQ, NR, EPI>(sq, sb, sn, fold, e, wr, wc,
+        mma_fold_tile<MODE, T, PACKED, NQ, NR, EPI>(sq, sb, sn, fold, regs, e, wr, wc,
                                                     blk.first + t * L::kTileStride,
                                                     blk.jgroups - t * kTGroups, p.n, p.zero);
       } else {
@@ -1096,7 +1151,11 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
     if (t > 0) EPI::tile_end(fold, e, p, t - 1);
   }
   cp_async_wait<0>();
-  EPI::finish(fold, e, p);
+  if constexpr (REG) {
+    EPI::finish(e, p, regs.q);
+  } else {
+    EPI::finish(fold, e, p);
+  }
 }
 
 // B1's tiers, B12 and the top-K instances: the mainloop over the SoA

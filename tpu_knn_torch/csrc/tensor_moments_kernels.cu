@@ -48,6 +48,8 @@ struct MomentsEpi {
   static constexpr bool kContig = true;
   static constexpr int kRows = 128;
   static constexpr bool kDeferTileEnd = true;  // tile_end below
+  static constexpr bool kRegState = false;
+  static constexpr bool kDeadNormInf = false;
   static constexpr int kBlocksPerSm = 1;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   // The block's rows' bound and lo, each row's qualifier masks of two

@@ -59,20 +59,24 @@ from tpu_knn_torch.utils.shapes import cdiv, round_up
 
 # The tensor-core kernel's geometry (csrc/tensor_mainloop.cuh). A block of
 # 4 * rows threads (16 warps at 128 rows, 8 at 64) owns its epilogue's
-# rows of queries (TENSOR_TILE_M for B1's tiers, B12, B4, B3 and B7;
-# TENSOR_LADDER_TILE_M for B5 and the 1-NN ladder's instances) and one
-# slice of LANE // TENSOR_SLICES lanes of a partition, and walks the
+# rows of queries (TENSOR_TILE_M for B1's tiers, B12, B4, B3, B5 and B7;
+# B5_SERVE_ROWS for B5 at m <= B5_SERVE_ROWS; TENSOR_LADDER_TILE_M for the
+# 1-NN ladder's instances) and one slice of LANE // TENSOR_SLICES lanes of
+# a partition, and walks the
 # partition's 128-column groups TENSOR_TILE_GROUPS at a time (a column
 # tile); TENSOR_BLOCKS_PER_SM blocks run on an SM at once (its
 # __launch_bounds__), and their shared memory (tensor_smem) is checked
 # against that when the kernel is compiled.
 
-#: Query rows per block of B1's tiers, B12, B4, B3 and B7 (their epilogues'
-#: kRows: four warps of 32 rows, each beside three more for the slice's
-#: other lanes), so each staged r chunk serves 128 rows.
+#: Query rows per block of B1's tiers, B12, B4, B3, B5 and B7 (their
+#: epilogues' kRows: four warps of 32 rows, each beside three more for the
+#: slice's other lanes), so each staged r chunk serves 128 rows.
 TENSOR_TILE_M = 128
-#: Query rows per block of B5 and the 1-NN ladder's instances (csrc kTBM).
+#: Query rows per block of the 1-NN ladder's instances (csrc kTBM).
 TENSOR_LADDER_TILE_M = 64
+#: Query rows per block of B5 at m <= B5_SERVE_ROWS (the serving shapes):
+#: four warps, all on live rows (csrc kServeRows).
+B5_SERVE_ROWS = 32
 #: Blocks per (row tile, partition): lane slices of 32 (csrc kTSlices).
 TENSOR_SLICES = 4
 #: 128-column groups per column tile (csrc kTGroups).
@@ -276,19 +280,31 @@ def tensor_q_resident_limit(rows: int = TENSOR_TILE_M) -> int:
 #: SM, EPI::kBlocksPerSm; whether a block owns a whole partition of
 #: contiguous columns, EPI::kContig, else one lane slice of it; its block's
 #: rows, EPI::kRows). B1 keeps the fold slots; B4 adds its rows' bounds, B3
-#: their lo; B5 keeps its rows' K-lists (kselect.cuh) and a score tile of 64
-#: rows 136 floats apart; B7 its rows' bound and lo, two 128-bit qualifier
-#: masks (two tiles) and four sums a row, and "B7-band" (the rounds
-#: engine's instance: a band, the remainder minima) also a remainder tile
-#: laid out as B5's score tile.
+#: their lo (its one-chunk instances keep their state in registers and
+#: leave the slots unused); B5 keeps its rows' K-lists (kselect.cuh), an
+#: admission score a row and, for each of two tiles, B5_ROW_SLOTS (score,
+#: slot) entries, their count and a 128-bit mask a row, and a 128-bit row
+#: summary ("B5-serve": its B5_SERVE_ROWS-row blocks, two an SM); B7 its
+#: rows' bound and lo, two 128-bit qualifier masks (two tiles) and four
+#: sums a row, and "B7-band" (the rounds engine's instance: a band, the
+#: remainder minima) also a remainder tile of 128 rows 136 floats apart.
 _B7_STATE = 2 * 4 * TENSOR_TILE_M + 3 * 4 * 4 * TENSOR_TILE_M
+
+#: A B5 row's kept entries of a tile in shared memory (csrc kRowSlots).
+B5_ROW_SLOTS = 8
+
+
+def _b5_state(rows: int) -> int:
+    return kselect_state_bytes(rows) + 4 * rows + 2 * rows * (8 * B5_ROW_SLOTS + 4 + 16) + 2 * 16
+
+
 TENSOR_EPILOGUES = {
     "B1": (tensor_fold_bytes(), TENSOR_BLOCKS_PER_SM, False, TENSOR_TILE_M),
     "B4": (tensor_fold_bytes() + 2 * 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False,
            TENSOR_TILE_M),
     "B3": (tensor_fold_bytes() + 4 * TENSOR_TILE_M, TENSOR_BLOCKS_PER_SM, False, TENSOR_TILE_M),
-    "B5": (kselect_state_bytes(TENSOR_LADDER_TILE_M) + 4 * TENSOR_LADDER_TILE_M * 136, 1, True,
-           TENSOR_LADDER_TILE_M),
+    "B5": (_b5_state(TENSOR_TILE_M), TENSOR_BLOCKS_PER_SM, True, TENSOR_TILE_M),
+    "B5-serve": (_b5_state(B5_SERVE_ROWS), 2, True, B5_SERVE_ROWS),
     "B7": (_B7_STATE, TENSOR_BLOCKS_PER_SM, True, TENSOR_TILE_M),
     "B7-band": (_B7_STATE + 4 * TENSOR_TILE_M * 136, TENSOR_BLOCKS_PER_SM, True, TENSOR_TILE_M),
 }
@@ -565,22 +581,30 @@ def topk_tier_row(kernel: str, r_op: torch.Tensor, precision: str, k: int) -> st
     return f"{kernel}{bf16} {resolved_tier(precision, k)}"
 
 
+def sweep_tier_epilogue(m: int) -> str:
+    """The TENSOR_EPILOGUES key of B5's tier instance at m rows (csrc
+    tk_tensor_sweep): "B5-serve" at m <= B5_SERVE_ROWS, else "B5"."""
+    return "B5-serve" if m <= B5_SERVE_ROWS else "B5"
+
+
 def tensor_topk_parts(kernel: str, m: int, n: int) -> int:
     """The partition count of a top-K kernel's tier instance. B4 and B3
     take B1's tier geometry (tensor_parts: lane slices, one 128-row block
     an SM). B5 and B7 give a block a whole partition, at their epilogues'
-    rows and blocks an SM (TENSOR_EPILOGUES; "B7-band": B7 with a band or
-    the remainder minima): B5's partitions are its lists, of whole
-    128-column groups; B7's hold whole MOMENT_CHUNK-column chunks of the n
-    columns given here (the operand's width). Each P is tuning._wave_parts'
-    choice for its blocks."""
+    rows and blocks an SM (TENSOR_EPILOGUES; B5's by m, sweep_tier_epilogue;
+    "B7-band": B7 with a band or the remainder minima): B5's partitions are
+    its lists, of whole 128-column groups; B7's hold whole
+    MOMENT_CHUNK-column chunks of the n columns given here (the operand's
+    width). Each P is tuning._wave_parts' choice for its blocks."""
     if kernel in ("B4", "B3"):
         return tensor_parts(m, n)
-    if kernel not in ("B5", "B7", "B7-band"):
+    if kernel not in ("B5", "B5-serve", "B7", "B7-band"):
         raise ValueError(f"no tier instance of {kernel!r}")
+    if kernel == "B5":
+        kernel = sweep_tier_epilogue(m)
     per_sm = TENSOR_EPILOGUES[kernel][1]
     tiles = cdiv(m, tensor_rows(kernel))
-    unit = LANE if kernel == "B5" else MOMENT_CHUNK
+    unit = LANE if kernel.startswith("B5") else MOMENT_CHUNK
     return _wave_parts(tiles, cdiv(n, unit), 1, per_sm)
 
 
@@ -630,16 +654,27 @@ def minima_tier_launch(q, r_op, n: int, depth: int, lo, precision: str):
                                                 packed_tier(precision, q.shape[1]))
     m, k = q.shape
     parts = tensor_topk_parts("B3", m, n)
-    partial = torch.empty((m, parts * depth * LANE), dtype=torch.float32, device=q.device)
+    # Depth 1 folds the partitions into out itself; depth 2 writes each
+    # partition's pairs for the merge.
+    partial = (torch.empty((m, parts * depth * LANE), dtype=torch.float32, device=q.device)
+               if depth == 2 else None)
     out = torch.empty((m, depth * LANE), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_tensor_minima(
             qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(),
-            lo.data_ptr() if lo is not None else None, partial.data_ptr(), out.data_ptr(), m, k,
+            lo.data_ptr() if lo is not None else None,
+            partial.data_ptr() if partial is not None else None, out.data_ptr(), m, k,
             r_op.stride(0), n, parts, depth, mode, len(terms), q_bits, r_bits, _stream(q))
     check(lib, err, what)
     TIER_LAUNCHES[topk_tier_row("B3", r_op, precision, k)] += 1
     return out
+
+
+def sweep_cand_floats(m: int, parts: int) -> int:
+    """Floats of B5's candidate tiles (csrc SweepEpi::Args::cand): two
+    tiles (rows x 128) for each block of its instance at m."""
+    rows = tensor_rows(sweep_tier_epilogue(m))
+    return cdiv(m, rows) * parts * 2 * rows * LANE
 
 
 def sweep_tier_launch(q, r_op, n: int, parts: int, kk: int, precision: str):
@@ -652,10 +687,12 @@ def sweep_tier_launch(q, r_op, n: int, parts: int, kk: int, precision: str):
                                                 packed_tier(precision, q.shape[1]))
     m, k = q.shape
     idx, score = _candidate_outputs(m, parts * kk, q.device)
+    cand = torch.empty(sweep_cand_floats(m, parts), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.tk_tensor_sweep(
-            qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(), idx.data_ptr(), score.data_ptr(),
-            m, k, r_op.stride(0), n, parts, kk, mode, len(terms), q_bits, r_bits, _stream(q))
+            qp.data_ptr(), r_op.data_ptr(), norms.data_ptr(), cand.data_ptr(), idx.data_ptr(),
+            score.data_ptr(), m, k, r_op.stride(0), n, parts, kk, mode, len(terms), q_bits,
+            r_bits, _stream(q))
     check(lib, err, what)
     TIER_LAUNCHES[topk_tier_row("B5", r_op, precision, k)] += 1
     return idx, score

@@ -14,15 +14,17 @@ chip call (parent, change, change, parent for times).
 - save: each instance of IDENTITY_CASES (every operand mode and term
   count, KC = 16 and 32, q resident and in the ring, ragged m and n) at a
   fixed partition count P, and each top-K instance of TOPK_CASES (B4's two
-  passes, B3 at depths 1 and 2, B5's lists, B7 without and with a band,
-  at m ragged against 64- and 128-row blocks), on inputs made on the card
-  from a seed, its outputs written with torch.save to DIR/<case>.pt;
+  passes, B3 at depths 1 and 2 and above lo, B5's lists at K = 1, 8 and
+  32, B7 without and with a band, at m ragged against 64- and 128-row
+  blocks), on inputs made on the card from a seed, its outputs written
+  with torch.save to DIR/<case>.pt;
 - compare: torch.equal of every case's idx and score between two such
   directories; the last line is {"identical": bool, "cases": {...}};
 - time: each row of PERF.md's kernel table that these kernels serve (or
   those named): B1's at its main-path shape and the checkout's own P
   (tiers.tier_parts), the top-K instances' (TOPK_TIMED_ROWS) at the
-  launches their engines make at K = 8, each with its "highest" launch
+  launches their engines make at K = 8 (B5 also at its serving shapes),
+  each with its "highest" launch
   beside it; by CUDA events (median) and the kernel's own device time
   (torch.profiler); the last line is one JSON object of them.
 """
@@ -90,24 +92,39 @@ TOPK_CASES = [
 
 #: The top-K instances' rows of PERF.md's kernel table, ranked there by
 #: launches x (device ms - bound ms): (row, kernel, precision, operand
-#: kind, (k, m, n)), each launch as its engine makes it at K = 8.
+#: kind, (k, m, n), K), each launch as its engine makes it at K: B3 as the
+#: seeded engine launches it ("B3-d2": at depth 2 over the same prefix,
+#: "B3-band": at depth 1 above a lo), B5 at ds11, at the embedding width
+#: and at the serving shapes auto sends it (m * K <= 256).
+SERVE8, SERVE32 = (16, 8, 1 << 20), (16, 32, 1 << 20)
 TOPK_TIMED_ROWS = [
-    ("B4 bf16x3", "B4", "bf16x3", "f32", EMBED_TOPK),
-    ("B7 packed3", "B7", "packed", "f32", DS11),
-    ("B4 packed3", "B4", "packed", "f32", DS11),
-    ("B3 packed3", "B3", "packed", "f32", DS11),
-    ("B4-bf16 packed3", "B4", "packed", "bf16", DS11),
-    ("B7 bf16x3", "B7", "bf16x3", "f32", EMBED_TOPK),
-    ("B4-bf16 qsplit2", "B4", "qsplit2", "bf16", EMBED_TOPK),
-    ("B5 packed3", "B5", "packed", "f32", DS11),
-    ("B1 packed3 beside highest", "B1", "packed", "f32", DS11),
+    ("B4 bf16x3", "B4", "bf16x3", "f32", EMBED_TOPK, 8),
+    ("B7 packed3", "B7", "packed", "f32", DS11, 8),
+    ("B4 packed3", "B4", "packed", "f32", DS11, 8),
+    ("B3 packed3", "B3", "packed", "f32", DS11, 8),
+    ("B3 packed3 depth 2", "B3-d2", "packed", "f32", DS11, 8),
+    ("B3 packed3 band", "B3-band", "packed", "f32", DS11, 8),
+    ("B3-bf16 packed3", "B3", "packed", "bf16", DS11, 8),
+    ("B3 bf16x3", "B3", "bf16x3", "f32", EMBED_TOPK, 8),
+    ("B3-bf16 qsplit2", "B3", "qsplit2", "bf16", EMBED_TOPK, 8),
+    ("B4-bf16 packed3", "B4", "packed", "bf16", DS11, 8),
+    ("B7 bf16x3", "B7", "bf16x3", "f32", EMBED_TOPK, 8),
+    ("B4-bf16 qsplit2", "B4", "qsplit2", "bf16", EMBED_TOPK, 8),
+    ("B5 packed3", "B5", "packed", "f32", DS11, 8),
+    ("B5-bf16 packed3", "B5", "packed", "bf16", DS11, 8),
+    ("B5 bf16x3", "B5", "bf16x3", "f32", EMBED_TOPK, 8),
+    ("B5-bf16 qsplit2", "B5", "qsplit2", "bf16", EMBED_TOPK, 8),
+    ("B5 packed3 (16, 8, 2^20) K=32", "B5", "packed", "f32", SERVE8, 32),
+    ("B5 packed3 (16, 32, 2^20) K=8", "B5", "packed", "f32", SERVE32, 8),
+    ("B1 packed3 beside highest", "B1", "packed", "f32", DS11, 8),
 ]
 
 #: The kernels each instance's device time holds (torch.profiler names).
+_B3_DEVICE = ("MinimaEpi", "tensor_candidates_norms", "minima_merge", "minima_init")
 TOPK_DEVICE = {"B1": ("CandidatesEpi", "tensor_candidates_norms"),
                "B4": ("BandedEpi", "tensor_candidates_norms"),
                "B5": ("SweepEpi", "tensor_candidates_norms"),
-               "B3": ("MinimaEpi", "tensor_candidates_norms", "minima_merge"),
+               "B3": _B3_DEVICE, "B3-d2": _B3_DEVICE, "B3-band": _B3_DEVICE,
                "B7": ("MomentsEpi", "tensor_candidates_norms")}
 
 
@@ -116,9 +133,11 @@ def topk_launches(q, r_op, n, precision, kk=8, parts=None):
     engines make over (q, r_op) at K = kk: B1's candidates at its tier's
     P, B4's second pass of the passes engine (the band at the first pass's
     lexicographic minimum), B5's lists, B3 and B7 as the seeded engine
-    launches them (B7's bound from B3's inflated K-th minimum), and
-    "B7-band", B7 with a band below half that bound and the remainder
-    minima (the rounds engine's instance). ``parts``: B1's, B4's and B5's
+    launches them (B7's bound from B3's inflated K-th minimum), B5 also at
+    K = 1 and 32 ("B5-k1", "B5-k32"), B3 at depth 2 ("B3-d2") and above lo,
+    half that bound ("B3-band"), over the same prefix, and "B7-band", B7
+    with a band below half that bound and the remainder minima (the rounds
+    engine's instance). ``parts``: B1's, B4's and B5's
     partition count (else each its engine's), so that two trees whose
     geometries differ compare at one P (B3's and B7's outputs do not
     depend on theirs)."""
@@ -144,9 +163,15 @@ def topk_launches(q, r_op, n, precision, kk=8, parts=None):
                        else tiers.tensor_candidates(q, r_op, n, p1, precision)),
         "B4": lambda: fused.banded_candidates(q, r_op, n, p4, s1, i1, q_t, precision),
         "B5": lambda: topk.sweep_candidates(q, r_op, n, p5, kk, precision),
+        "B5-k1": lambda: topk.sweep_candidates(q, r_op, n, p5, 1, precision),
+        "B5-k32": lambda: topk.sweep_candidates(q, r_op, n, p5, 32, precision),
         "B3": lambda: fused.minima_candidates(q, r_op, n, depth=g["depth"],
                                               n_limit=g["p1_limit"], q_t=q_t,
                                               precision=precision),
+        "B3-d2": lambda: fused.minima_candidates(q, r_op, n, depth=2, n_limit=g["p1_limit"],
+                                                 q_t=q_t, precision=precision),
+        "B3-band": lambda: fused.minima_candidates(q, r_op, n, lo=lo, n_limit=g["p1_limit"],
+                                                   q_t=q_t, precision=precision),
         "B7": lambda: seeded.extract_moments(q, r_op, n, bound, g["cell"], g["n_fields"],
                                              q_t=q_t, precision=precision),
         "B7-band": lambda: seeded.extract_moments(q, r_op, n, bound, g["cell"], g["n_fields"],
@@ -223,7 +248,8 @@ def _case_names():
              for case, prec, _, k, *_ in IDENTITY_CASES]
     names += [(f"{case} {kid}", resolved_tier(prec, k).startswith("packed"))
               for case, prec, _, k, _, _ in TOPK_CASES
-              for kid in ("B1", "B4", "B5", "B3", "B7", "B7-band")]
+              for kid in ("B1", "B4", "B5", "B5-k1", "B5-k32", "B3", "B3-d2", "B3-band", "B7",
+                          "B7-band")]
     return names
 
 
@@ -275,17 +301,17 @@ def time_rows(names) -> int:
               f"(device {dev:.4f}) [{card}]")
         del q, ops
         torch.cuda.empty_cache()
-    for i, (row, kid, precision, kind, (k, m, n)) in enumerate(TOPK_TIMED_ROWS):
+    for i, (row, kid, precision, kind, (k, m, n), kk) in enumerate(TOPK_TIMED_ROWS):
         if names and row not in names:
             continue
         q, (r_op,) = _operands(device, 9700 + i, kind, k, m, n)
-        fn = topk_launches(q, r_op, n, precision)[kid]
-        high = topk_launches(q, r_op, n, "highest")[kid]
+        fn = topk_launches(q, r_op, n, precision, kk)[kid]
+        high = topk_launches(q, r_op, n, "highest", kk)[kid]
         reps = 5 if k >= 128 else 10
         ev = time_ms({row: fn, "highest": high}, reps)
         dev = sum(device_ms({"fn": fn}, TOPK_DEVICE[kid], reps).values())
         out[row] = {"ms": ev[row], "device_ms": dev, "highest_ms": ev["highest"]}
-        print(f"{row}: {precision} {kind} (k={k}, m={m}, n={n}): {ev[row]:.4f} ms (device "
+        print(f"{row}: {precision} {kind} (k={k}, m={m}, n={n}) K={kk}: {ev[row]:.4f} ms (device "
               f"{dev:.4f}), its highest launch {ev['highest']:.4f} ms [{card}]")
         del q, r_op, fn, high
         torch.cuda.empty_cache()
