@@ -2291,30 +2291,50 @@ def phase3_topk_tiers(card, device, gen, reps, cases=TOPK_TIER_TIMED, kk=TOPK_TI
 #: TMA-staged, v6's resident-q) to their plain versions and to B1's tier:
 #: (precision, k, m, n, misaligned): the main path's launches (ds8..ds11 at
 #: "packed"; bf16x3 at (768, 1024, 2^18) for v3 and B10 and at (768, 16,
-#: 2^20), v6's live rows), v3's 9 terms at k = 12 (B1's 8), an (n, k) array
-#: whose base is not 16-byte aligned (v3's 4-byte copies), ragged n, packed2,
-#: bf16x3 with 16-row chunks, bf16x4 and default.
+#: 2^20), v6's live rows), m = 32 and 33 at ds11's k (v3's and B10's last
+#: 32-row and first 128-row block heights), v3's 9 terms at k = 12 (B1's
+#: 8), an (n, k) array whose base is not 16-byte aligned (v3's 4-byte
+#: copies), ragged n, packed2, bf16x3 with 16-row chunks, bf16x4 and default.
 LADDER_TIER_CASES = [("packed", *DS11, False), ("packed", *DS10, False),
                      ("packed", *DS9, False), ("packed", *DS8, False),
+                     ("packed", 16, 32, 1 << 20, False), ("packed", 16, 33, 1 << 20, False),
                      ("packed", 12, 100, 20_077, False), ("packed", 16, 65, 20_077, True),
                      ("packed", 32, 64, 20_000, False), ("bf16x3", 40, 33, 5003, True),
                      ("bf16x4", 16, 20, 3000, False), ("default", 16, 50, 5000, False),
                      ("bf16x3", 768, 1024, 1 << 18, False), ("bf16x3", 768, 16, 1 << 20, False)]
-#: The rungs' rows phase 3 times: (precision, (k, m, n), rungs).
+#: The rungs' rows phase 3 times: (precision, (k, m, n), rungs); v3 and B10
+#: also at ds9 and ds8 (m = 1: their 32-row blocks, bound by the bytes).
 LADDER_TIER_TIMED = [("packed", DS11, ("v3", "v5", "v6")),
                      ("bf16x3", (768, 1024, 1 << 18), ("v3", "v5")),
-                     ("bf16x3", (768, 16, 1 << 20), ("v6",))]
+                     ("bf16x3", (768, 16, 1 << 20), ("v6",)),
+                     ("packed", DS9, ("v3", "v5")), ("packed", DS8, ("v3", "v5"))]
 #: Each rung's wrapper, TPU kernel, and the kernels of its tier instance's
-#: and "highest" launch's device time (torch.profiler names, count).
+#: and "highest" launch's device time (torch.profiler names, count; v3 and
+#: B10 chain ‖r‖² in the kernel, v6 takes B1's norm pass).
 LADDER_TIER_KERNELS = {
     "v3": ("aos_candidates", "tpu_knn/kernels/fused.py:318",
-           (("tensor_aos_kernel", "tensor_aos_norms"), 2), ("tiled_candidates", 1)),
+           (("tensor_aos_kernel",), 1), ("tiled_candidates", 1)),
     "v5": ("dma_candidates", "tpu_knn/kernels/dma_pipeline.py:44",
-           (("tensor_tma_kernel", "tensor_candidates_norms"), 2), ("tma_candidates", 1)),
+           (("tensor_tma_kernel",), 1), ("tma_candidates", 1)),
     "v6": ("const_query_candidates", "tpu_knn/kernels/fused.py:318",
            (("CandidatesEpi", "tensor_live_kernel", "tensor_candidates_norms"), 2),
            ("tiled_candidates", 1)),
 }
+
+
+def ladder_timed_names():
+    """(precision, (k, m, n), rung) -> its name in phase 3's times and the
+    kernels line: its row (tiers.ladder_tier_row) at the row's first shape
+    in LADDER_TIER_TIMED, else the row and the shape."""
+    from tpu_knn_torch.kernels import tiers
+
+    names = {}
+    for precision, shape, rungs in LADDER_TIER_TIMED:
+        for rung in rungs:
+            row = tiers.ladder_tier_row(rung, precision, shape[0])
+            names[precision, shape, rung] = (row if row not in names.values()
+                                             else f"{row} {shape}")
+    return names
 
 
 def ladder_calls(q, r, r_op, n, precision):
@@ -2346,6 +2366,9 @@ def phase1_ladder_tiers(device, gen, cases):
     - v6's (idx, score) equal B1's tier's bit for bit at v6's P;
     - v3's equal B1's tier's bit for bit where the term lists agree (k not
       9..14), at B1's tier P;
+    - at v3's and B10's own P (fused.ladder_parts: their 32-row blocks at m
+      <= 32, 128-row ones above) again: B10's indices B1's tier's, v3's
+      (idx, score) B1's where the lists agree;
     - each against its plain version: slot agreement, the score error
       against f64 within the tier's gate (v3; v6's scores are B1's), and the
       same refined 1-NN (bare indices for B10), the tie at n // 3, but for
@@ -2459,6 +2482,17 @@ def phase1_ladder_tiers(device, gen, cases):
             notes.append(f"v3 {'==' if lists_agree else '(9 terms, B1 8)'} B1's tier, plain "
                          f"agreement {share3:.6f} ({apart3} near-tie slots), score error "
                          f"{err3:.3g} (gate {gate3:.3g}), refined {near} near-tie rows apart")
+        p_own = fused.ladder_parts("v3", precision, m, k, n)
+        if p_own != parts:
+            own = tiers.tensor_candidates(q, r_op, n, p_own, precision)
+            if not torch.equal(dma_pipeline.dma_candidates(q, r_op, n, p_own, precision), own[0]):
+                fail(f"{rows['v5']} {shape}: indices differ from B1's tier's at its own P={p_own}")
+            oi, os_ = fused.aos_candidates(q, r, n, p_own, precision)
+            if lists_agree and not (torch.equal(oi, own[0]) and torch.equal(os_, own[1])):
+                fail(f"{rows['v3']} {shape}: not bit-equal to B1's tier at its own P={p_own}")
+            notes.append(f"at their own P={p_own} ({tiers.ladder_epilogue(m)} blocks) B10 == "
+                         f"B1's tier indices{', v3 == B1' if lists_agree else ''}")
+            del own, oi, os_
         log(f"  ladder tier instances, {precision} (k={k}, m={m}, n={n}, P={parts}"
             f"{', misaligned (n, k) base' if odd else ''}): {'; '.join(notes)}; B1 plain "
             f"{t_plain:.1f} ms, score error {plain_err:.3g} (gate {gate:.3g})")
@@ -2466,6 +2500,19 @@ def phase1_ladder_tiers(device, gen, cases):
         torch.cuda.empty_cache()
     torch.cuda.synchronize(device)
     return errs, plain_ms
+
+
+def ladder_launches_by_shape(run):
+    """run(), logging the ladder's tier launches it made by row, (k, m, n),
+    P and (v3's and B10's) block height (probes/tier_kernel.py's spy)."""
+    from tpu_knn_torch.kernels import tiers
+    from tpu_knn_torch.probes.tier_kernel import ladder_launches
+
+    out, seen = ladder_launches(run)
+    for (row, (k, m, n), parts), count in sorted(seen.items()):
+        height = "" if row.startswith("B1 v6") else f" ({tiers.ladder_epilogue(m)})"
+        log(f"  ladder tier launches: {row} (k, m, n) = {(k, m, n)} P={parts}{height}: {count}")
+    return out
 
 
 def phase2_ladder_tiers(device, gen, wide=(((768, 1024, 1 << 18), ("v3", "v5")),
@@ -2514,6 +2561,7 @@ def phase3_ladder_tiers(card, device, gen, reps, cases=LADDER_TIER_TIMED):
     from tpu_knn_torch.utils.timing import time_ms
 
     times, bounds = {}, {}
+    names = ladder_timed_names()
     for precision, (k, m, n), rungs in cases:
         q, pts, (r_op,) = tier_operands(gen, device, "f32", k, m, n)
         calls = ladder_calls(q, pts, r_op, n, precision)
@@ -2523,7 +2571,7 @@ def phase3_ladder_tiers(card, device, gen, reps, cases=LADDER_TIER_TIMED):
         runs = reps if k < 128 else 5
         fns = {b1: lambda: tiers.tensor_candidates(q, r_op, n, parts, precision)}
         for rung in rungs:
-            row = tiers.ladder_tier_row(rung, precision, k)
+            row = names[precision, (k, m, n), rung]
             fns[f"{row} kernel"] = calls[rung][0]
             fns[f"{row} highest"] = calls[rung][2]
         times.update(time_ms(fns, runs))
@@ -2531,10 +2579,10 @@ def phase3_ladder_tiers(card, device, gen, reps, cases=LADDER_TIER_TIMED):
             fns[b1], runs, card, ("CandidatesEpi", "tensor_candidates_norms"), 2)
         terms = len(tiers.ladder_terms(precision, k, aos=False))
         for rung in rungs:
-            row = tiers.ladder_tier_row(rung, precision, k)
-            (names, count), (hname, hcount) = LADDER_TIER_KERNELS[rung][2:]
+            row = names[precision, (k, m, n), rung]
+            (kernel_names, count), (hname, hcount) = LADDER_TIER_KERNELS[rung][2:]
             times[f"{row} kernel device"] = kernel_device_ms(fns[f"{row} kernel"], runs, card,
-                                                             names, count)
+                                                             kernel_names, count)
             times[f"{row} highest device"] = kernel_device_ms(fns[f"{row} highest"], runs, card,
                                                               hname, hcount)
             t = len(tiers.ladder_terms(precision, k, aos=rung == "v3"))
@@ -3477,12 +3525,15 @@ def check_topk_smem(smem):
 
 
 #: The ladder's tier instances in ptxas's report (tensor_ladder_kernels.cu:
-#: tensor_aos_kernel<T, KC, RES, ONE>, tensor_tma_kernel<...>,
-#: tensor_live_kernel<T, KC>, and v3's norm pass).
-LADDER_ENTRIES = {"v3's tier instances (AoS staging)": "tensor_aos_kernel",
-                  "B10's tier instances (TMA staging)": "tensor_tma_kernel",
-                  "v6's live-row instances": "tensor_live_kernel",
-                  "v3's norm pass": "tensor_aos_norms_kernel"}
+#: tensor_aos_kernel<T, PACKED, KC, RES, ONE, BM> and tensor_tma_kernel<...>
+#: at each block height BM, 128 and 32 rows; tensor_live_kernel<T, KC>).
+LADDER_ENTRIES = {
+    **{f"{rung}'s tier instances ({policy} staging, {bm}-row blocks)":
+       rf"{kernel}I(?:L[ib]\d+E){{5}}Li{bm}EE"
+       for rung, policy, kernel in (("v3", "AoS", "tensor_aos_kernel"),
+                                    ("B10", "TMA", "tensor_tma_kernel"))
+       for bm in (128, 32)},
+    "v6's live-row instances": "tensor_live_kernel"}
 
 
 def check_ladder_smem(smem):
@@ -3502,19 +3553,21 @@ def check_ladder_smem(smem):
             if nbytes != 0:
                 fail(f"{entry}: {nbytes} bytes of static shared memory, the plan has none")
             checked += 1
-    # v3 16 (T = 1, 3: 16- and 32-row chunks, q resident or in the ring, and
-    # the one-chunk tile; T = 4 the one-chunk tile, 16-row chunks and
-    # packed2's 32-row chunk; T = 8, 9: packed3's one-chunk tiles), B10 16
-    # (the same, but packed2 at 16 rows), v6's live rows 6 (T = 1, 3, 4 at 16
-    # and 32).
-    if checked != 16 + 16 + 6:
-        fail(f"checked {checked} ladder tier instances, expected {16 + 16 + 6}")
-    plans = {"ds11 packed (v3, B10)": tiers.tensor_smem(0, tiers.term_list("packed", 16), 16, 16,
-                                                        "ladder"),
-             "(768, *) bf16x3 (v3, B10)": tiers.tensor_smem(0, tiers.term_list("bf16x3", 768),
-                                                            32, 768, "ladder"),
+    # v3 16 at each block height (T = 1, 3: 16- and 32-row chunks, q resident
+    # or in the ring, and the one-chunk tile; T = 4 the one-chunk tile,
+    # 16-row chunks and packed2's 32-row chunk; T = 8, 9: packed3's
+    # one-chunk tiles), B10 16 at each (the same, but packed2 at 16 rows),
+    # v6's live rows 6 (T = 1, 3, 4 at 16 and 32).
+    if checked != 2 * 16 + 2 * 16 + 6:
+        fail(f"checked {checked} ladder tier instances, expected {2 * 16 + 2 * 16 + 6}")
+    plans = {f"{shape} {precision} (v3, B10, {epilogue})": tiers.tensor_smem(
+                 0, tiers.term_list(precision, k), kc, k, epilogue)
+             for shape, precision, k, kc in (("ds11", "packed", 16, 16),
+                                             ("(768, *)", "bf16x3", 768, 32))
+             for epilogue in ("ladder", "ladder-serve")}
+    plans.update({
              "(768, 16) bf16x3 (v6, live rows)": tiers.tensor_live_smem(
-                 tiers.term_list("bf16x3", 768), 16, 768)}
+                 tiers.term_list("bf16x3", 768), 16, 768)})
     log(f"  ladder tier instances: no static shared memory ({checked} instances); dynamic "
         f"plans (tiers) {plans}")
 
@@ -5352,7 +5405,8 @@ def main() -> int:
     big, counts_ladder = drive("ladder", ("B10", "B11", "B1 AoS (v3)",
                                           "B1 constant-query (v6)", "B1 packed3",
                                           "B1 v3 packed3", "B10 packed3", "B1 v6 packed3"),
-                               lambda: phase2_ladder(device, gen))
+                               lambda: ladder_launches_by_shape(
+                                   lambda: phase2_ladder(device, gen)))
     log("phase 2: the ladder at embedding width (v3, v5, v6 at bf16x3) and smallm_knn(tile_n=)")
     gen_lt = torch.Generator(device=device)
     gen_lt.manual_seed(1015)
@@ -5697,20 +5751,23 @@ def main() -> int:
     # launch (packed3) and at k = 768 (bf16x3: v3 and B10 at (768, 1024,
     # 2^18), v6 with its live rows at (768, 16, 2^20)); "highest_ms" the same
     # rung on its tiled f32 kernel, "b1_tier_ms" B1's tier launch at its P.
+    timed_names = ladder_timed_names()
     for precision, (k, m, n), rungs in LADDER_TIER_TIMED:
         tier = tiers.resolved_tier(precision, k)
         for rung in rungs:
             row = tiers.ladder_tier_row(rung, precision, k)
+            timed = timed_names[precision, (k, m, n), rung]
             wrapper, replaces = LADDER_TIER_KERNELS[rung][:2]
             kernels.append({
                 "name": f"{row} {wrapper} (k={k}, m={m}, n={n})", "route": "cuda",
                 "source": "tpu_knn_torch/csrc/tensor_ladder_kernels.cu", "replaces": replaces,
                 "launches": launches[row], "max_abs_err": errs[row],
-                "ms": times[f"{row} kernel"], "plain_ms": ladder_tier_plain[row, (k, m, n)],
-                "bound_ms": ladder_tier_bounds[row][0], "bound_by": ladder_tier_bounds[row][1],
-                "library_ms": None, "device_ms": times[f"{row} kernel device"],
-                "highest_ms": times[f"{row} highest"],
-                "highest_device_ms": times[f"{row} highest device"],
+                "ms": times[f"{timed} kernel"], "plain_ms": ladder_tier_plain[row, (k, m, n)],
+                "bound_ms": ladder_tier_bounds[timed][0],
+                "bound_by": ladder_tier_bounds[timed][1],
+                "library_ms": None, "device_ms": times[f"{timed} kernel device"],
+                "highest_ms": times[f"{timed} highest"],
+                "highest_device_ms": times[f"{timed} highest device"],
                 "b1_tier_ms": times[f"B1 {tier} at ({k}, {m}, {n})"],
                 "b1_tier_device_ms": times[f"B1 {tier} at ({k}, {m}, {n}) device"]})
     log(f"version {tpu_knn_torch.__version__}; {card}; "

@@ -1358,8 +1358,9 @@ def test_tier_instances_raise_on_the_presplit_tier_and_a_depth_2_band(device):
 # (packed's 9, 8 and 4 terms, bf16x3 with 16- and 32-row chunks, its q
 # parts resident and in the ring, bf16x4, default), m past a 64-row block
 # and m = 1, n ragged against 128 and a column tile; v3 over a (n, k) array
-# at k % 4 != 0 and over one whose base is not 16-byte aligned (its 4-byte
-# copies), and at k = 12, where its AoS term list (9 terms) is not B1's (8).
+# at k % 4 != 0 (k = 3, 5, 6: a group's contiguous span of points) and over
+# one whose base is not 16-byte aligned (its 4-byte copies), and at k = 12,
+# where its AoS term list (9 terms) is not B1's (8).
 LADDER_TIER_CASES = [
     ("packed", 3, 40, 1000, 1, False), ("packed", 12, 65, 3001, None, False),
     ("packed", 16, 100, 70_000, 7, False), ("packed", 16, 65, 5003, 3, True),
@@ -1368,6 +1369,8 @@ LADDER_TIER_CASES = [
     ("bf16x3", 768, 64, 3000, 2, False), ("bf16x3_presplit", 40, 20, 3000, 2, False),
     ("bf16x4", 16, 20, 3000, 2, False), ("bf16x4", 40, 9, 3001, 1, True),
     ("default", 16, 50, 5000, 2, False), ("bf16_raw", 40, 10, 3000, 1, False),
+    ("packed", 3, 33, 5003, 2, True), ("packed", 5, 20, 5003, 2, False),
+    ("packed", 6, 40, 3001, 2, False),
 ]
 
 
@@ -1412,6 +1415,34 @@ def test_ladder_tier_instances_are_b1s_tier(device, precision, k, m, n, parts, m
         got = _refine(q, r, (ki, ks), n, cutoff=cutoff)[0]
         assert torch.equal(got, _refine(q, r, (pi, ps), n, cutoff=cutoff)[0])
         assert int(got[0]) == n // 2
+
+
+@pytest.mark.parametrize("precision,k,m", [
+    ("packed", 16, 1), ("packed", 16, 32), ("packed", 16, 33), ("packed", 16, 129),
+    ("packed", 3, 1), ("packed", 12, 33), ("bf16x3", 768, 32), ("bf16x3", 40, 129),
+])
+def test_ladder_tier_block_heights_are_b1s_tier(device, precision, k, m):
+    """v3's and B10's instances at each block height (32 rows, two an SM,
+    at m <= 32; 128 rows above, the split a step ahead) and at their own P
+    (fused.ladder_parts): B10's indices are B1's tier indices at that P bit
+    for bit, and v3's (idx, score) B1's where the term lists agree, else
+    its plain version's refined 1-NN; ‖r‖² is chained in the block, B1's
+    norm pass's bits."""
+    n = 40_003
+    q, r, r_op = _inputs(device, m, k, n, seed=7 * k + m)
+    parts = fused.ladder_parts("v3", precision, m, k, n)
+    assert parts == fused.ladder_parts("v5", precision, m, k, n) == tiers.ladder_tier_parts(m, n)
+    want = tiers.tensor_candidates(q, r_op, n, parts, precision)
+    got = dma_pipeline.dma_candidates(q, r_op, n, parts, precision)
+    ki, ks = fused.aos_candidates(q, r, n, parts, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[0])
+    if tiers.term_list(precision, k, aos=True) == tiers.term_list(precision, k):
+        assert _bits_equal((ki, ks), want)
+    cutoff = select_cutoff(precision, k)
+    pi, ps = fused.aos_candidates_plain(q, r, n, parts, precision)
+    assert torch.equal(_refine(q, r, (ki, ks), n, cutoff=cutoff)[0],
+                       _refine(q, r, (pi, ps), n, cutoff=cutoff)[0])
 
 
 @pytest.mark.parametrize("precision,k,m,n", [

@@ -138,7 +138,7 @@ def test_v5_delegates_wide_k_to_v4(monkeypatch):
     """At tpu_knn's own delegation case (k = 2048, where its v5 guard sends
     the call to v4) the port's v5 has no guard to fail: B10's ring does not
     grow with k, so v5 answers through B10 itself (at its resolved tier,
-    bf16x3, B10's tensor-core instance at B1's tier P), with tpu_knn's v5
+    bf16x3, B10's tensor-core instance at its own P), with tpu_knn's v5
     (that is, v4) answer."""
     from tpu_knn_torch.kernels import tiers
 
@@ -154,7 +154,7 @@ def test_v5_delegates_wide_k_to_v4(monkeypatch):
                         lambda *a: calls.append(a[3:]) or orig(*a))
     q, r = rng.random((m, k), np.float32), rng.random((n, k), np.float32)
     got = tpu_knn_torch.knn_callback(k, m, n, q, r, version="v5", device="cpu")
-    assert calls == [(tiers.tensor_parts(m, n), "bf16x3")]
+    assert calls == [(tiers.ladder_tier_parts(m, n), "bf16x3")]
     np.testing.assert_array_equal(got, tpu_knn.knn_callback(k, m, n, q, r, version="v5"))
     np.testing.assert_array_equal(got, oracle_knn(q, r))
 

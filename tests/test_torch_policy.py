@@ -284,8 +284,8 @@ def test_b1_variants_take_b1s_geometry(monkeypatch):
     k; v6 at resident_geometry's, which is tiled_geometry's wherever two
     blocks with their resident query rows fit an SM, else a smaller TM (and
     one block per SM only at m <= 8, near the guard). At their resolved
-    tier (precision=None) they take their tensor-core instances' P: B1's
-    tier geometry for v3 (tiers.tensor_parts), v6's (tiers.resident_tier_parts)."""
+    tier (precision=None) they take their tensor-core instances' P: v3's
+    own (tiers.ladder_tier_parts), v6's (tiers.resident_tier_parts)."""
     from tpu_knn_torch.kernels import tiers as pt_tiers
 
     calls = []
@@ -306,7 +306,7 @@ def test_b1_variants_take_b1s_geometry(monkeypatch):
         pt_fused.fused_knn(q, r, soa=False, device="cpu")
         pt_fused.const_query_knn(q, r, device="cpu")
         tier = pt_fused.auto_precision(k, n)
-        assert calls == [("aos_candidates", pt_tiers.tensor_parts(m, n)),
+        assert calls == [("aos_candidates", pt_tiers.ladder_tier_parts(m, n)),
                          ("const_query_candidates",
                           pt_tiers.resident_tier_parts(tier, m, k, n))]
     for m in MS[1:]:
@@ -1021,7 +1021,9 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
     epilogue's plan (tiers.tensor_smem) fits its blocks
     (tiers.tensor_blocks_per_sm) and one block's limit with at least two
     ring stages; B1, B4, B3, B5 and B7 run one 128-row block an SM, B5 at
-    m <= 32 two 32-row blocks, the ladder's epilogue two 64-row blocks."""
+    m <= 32 two 32-row blocks; the ladder's epilogue (tiers.LADDER_EPILOGUES,
+    at each height its C entry dispatches) one 128-row block for v3 and B10,
+    two 32-row ones at m <= 32, one 64-row block for v6's live rows."""
     import os
     import re
 
@@ -1046,32 +1048,42 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
         assert override.group(1) == "kBlocksPerSm"
         consts = {name: int(v) for name, v in
                   re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M)}
-        consts.update(kTBM=tiers.TENSOR_LADDER_TILE_M, BLOCKS=2)
-        # B5 is a template on its rows (BM): each height its entry dispatches.
-        heights = ([consts.get(h) or int(h)
-                    for h in re.findall(rf"dispatch_tensor<{struct}<(\w+)>>", src)]
-                   if rows == "BM" else [None])
+        consts.update(kTBM=tiers.TENSOR_LIVE_TILE_M)
+        # B5 and the ladder are templates on their rows (BM): each height
+        # their entries dispatch (the ladder's: dispatch_ladder_rows).
+        ladder_names = {"kLadderRows": "ladder", "kLadderServeRows": "ladder-serve",
+                        "kTBM": "ladder-live"}
+        if kid == "ladder":
+            heights = [(ladder_names[h], consts[h])
+                       for h in re.findall(r"dispatch_ladder_rows<\w+, (\w+)>", src)]
+        elif rows == "BM":
+            heights = [(f"{kid}-serve" if h == "kServeRows" else kid, consts.get(h) or int(h))
+                       for h in re.findall(rf"dispatch_tensor<{struct}<(\w+)>>", src)]
+        else:
+            heights = [(kid, None)]
         py_per_sm = re.sub(r"(.+)\?(.+):(.+)", r"(\2) if (\1) else (\3)",
                            per_sm.split("//")[0])
-        for bm in heights:
+        for name, bm in heights:
             env = dict(consts, BM=bm)
-            name = f"{kid}-serve" if bm and bm == consts.get("kServeRows") else kid
             declared[name] = (eval(py_per_sm, {}, env), contig, eval(rows, {}, env))
     declared["B7-band"] = declared["B7"]
-    assert declared.pop("ladder") == tiers.LADDER_EPILOGUE[1:]
+    assert {kid: declared.pop(kid) for kid in tiers.LADDER_EPILOGUES} == {
+        kid: v[1:] for kid, v in tiers.LADDER_EPILOGUES.items()}
     assert declared == {kid: v[1:] for kid, v in tiers.TENSOR_EPILOGUES.items()}
     assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B1", "B4", "B3", "B5", "B7")] == [
         1, 1, 1, 1, 1]
     assert [tiers.tensor_rows(kid) for kid in ("B1", "B4", "B3", "B7", "B5", "B5-serve",
-                                               "ladder")] == [128, 128, 128, 128, 128, 32, 64]
+                                               "ladder", "ladder-serve", "ladder-live")] == [
+        128, 128, 128, 128, 128, 32, 128, 32, 64]
     assert tiers.sweep_tier_epilogue(32) == "B5-serve" and tiers.sweep_tier_epilogue(33) == "B5"
-    for epilogue in tiers.TENSOR_EPILOGUES:
+    assert tiers.ladder_epilogue(32) == "ladder-serve" and tiers.ladder_epilogue(33) == "ladder"
+    for epilogue in (*tiers.TENSOR_EPILOGUES, "ladder", "ladder-serve"):
         for (mode, _), terms in tiers.TENSOR_INSTANCES.items():
-            if mode == 2 and epilogue != "B1":
+            if mode == 2 and epilogue != "B1" or mode != 0 and epilogue.startswith("ladder"):
                 continue
             for kc in (16, 32) if len(terms) < 8 else (16,):
                 per_sm = tiers.tensor_blocks_per_sm(epilogue)
-                assert per_sm == tiers.TENSOR_EPILOGUES[epilogue][1]
+                assert per_sm == tiers._epilogue(epilogue)[1]
                 budget = min(tiers.SMEM_PER_SM // per_sm - tiers.SMEM_PER_BLOCK_RESERVED,
                              tiers.SMEM_PER_BLOCK)
                 assert 2 <= tiers.tensor_stages(mode, terms, kc, epilogue) <= 4
@@ -1195,7 +1207,8 @@ def test_tensor_tile_geometry_at_the_main_path_shapes(k, m, n):
                 slices = 1 if tiers.TENSOR_EPILOGUES[epilogue][2] else tiers.TENSOR_SLICES
                 blocks = -(-m // rows) * slices * parts
                 assert 0.9 * per_sm * sms <= blocks <= per_sm * sms, (epilogue, blocks)
-    assert tiers.tensor_rows("B4") == tiers.tensor_rows("B7") == 2 * tiers.tensor_rows("ladder")
+    assert tiers.tensor_rows("B4") == tiers.tensor_rows("B7") == tiers.tensor_rows("ladder") == (
+        4 * tiers.tensor_rows("ladder-serve"))
 
 
 def test_b3_and_b5_plans_mirror_the_sources_and_fill_one_wave():
@@ -1293,6 +1306,69 @@ def test_v6_live_instance_plan_fits_one_block_an_sm():
                 assert tiers.resident_tier_parts(precision, m, k, 1 << 20) == one_block
     assert tiers.resident_tier_parts("packed", 1024, 16, 1 << 20) == tiers.tensor_parts(
         1024, 1 << 20)
+
+
+@pytest.mark.parametrize("k,m,n", [(16, 1, 1 << 24), (3, 1, 1 << 24), (16, 1024, 1 << 20),
+                                   (3, 1024, 1 << 20), (768, 1024, 1 << 18), (16, 32, 1 << 20),
+                                   (16, 33, 1 << 20), (40, 129, 1 << 20)])
+def test_ladder_tier_parts_are_their_own_and_fill_the_card(k, m, n):
+    """v3's and B10's tier instances take P from their own plan
+    (tiers.ladder_tier_parts, not B1's tensor_parts): lane slices of
+    32-row blocks, two an SM, at m <= 32, else of 128-row blocks, one an
+    SM; at m = 1 over 2^24 points and at ds11 alike the launch's blocks
+    fill 90-100% of one wave of the card's slots."""
+    from tpu_knn_torch.kernels import tiers
+
+    sms = pt_tuning.H100_SMS
+    epilogue = tiers.ladder_epilogue(m)
+    assert epilogue == ("ladder-serve" if m <= 32 else "ladder")
+    parts = tiers.ladder_tier_parts(m, n)
+    for rung in ("v3", "v5"):
+        for precision in ("packed", "bf16x3", "default"):
+            assert pt_fused.ladder_parts(rung, precision, m, k, n) == parts
+    per_sm = tiers.tensor_blocks_per_sm(epilogue)
+    blocks = -(-m // tiers.tensor_rows(epilogue)) * tiers.TENSOR_SLICES * parts
+    assert 0.9 * per_sm * sms <= blocks <= per_sm * sms, (epilogue, parts, blocks)
+    if m == 1:
+        assert per_sm == 2 and parts > tiers.tensor_parts(m, n)
+
+
+@pytest.mark.parametrize("epilogue", ["ladder", "ladder-serve"])
+def test_ladder_heights_shared_memory_plans_fit_an_sm(epilogue):
+    """Each ladder block height's plan (tiers.tensor_smem, csrc tensor_smem
+    at LadderEpi<., BM>), for every term list v3 and B10 take at every k16,
+    fits its blocks an SM and one block's limit beside a 4-stage ring: the
+    128-row blocks with two sets of part planes (the split of chunk s + 1
+    runs during step s, under the TMA policy too; csrc AosStaging::ahead
+    keeps v3's bf16x4 with its q parts in the ring at its step), the
+    32-row ones, two an SM, with one; the state is B1's fold at the
+    block's rows."""
+    from tpu_knn_torch.kernels import tiers
+
+    per_sm = tiers.tensor_blocks_per_sm(epilogue)
+    rows = tiers.tensor_rows(epilogue)
+    assert tiers._epilogue(epilogue)[0] == tiers.tensor_fold_bytes(rows) == 8 * 4 * rows * 8
+    budget = min(tiers.SMEM_PER_SM // per_sm - tiers.SMEM_PER_BLOCK_RESERVED,
+                 tiers.SMEM_PER_BLOCK)
+    seen = set()
+    for precision in ("packed", "bf16x3", "bf16x4", "default"):
+        for k in range(1, 1025):
+            for aos in (True, False):
+                terms = tiers.ladder_terms(precision, k, aos=aos)
+                k16 = -(-k // 16) * 16
+                kc = tiers.tensor_chunk(k16, terms, tiers.packed_tier(precision, k, aos=aos))
+                smem = tiers.tensor_smem(0, terms, kc, k16, epilogue)
+                assert smem <= budget and smem % 16 == 0, (precision, k, smem)
+                assert tiers.tensor_stages(0, terms, kc, epilogue) == 4
+                assert tiers.tensor_plane_sets(0, terms, kc, epilogue) == (
+                    2 if epilogue == "ladder" else 1)
+                seen.add(len(terms))
+    assert seen == {1, 3, 4, 8, 9}
+    if epilogue == "ladder":  # B1's block: its plan to the byte
+        for terms, kc, k16 in ((tiers.term_list("packed", 16), 16, 16),
+                               (tiers.term_list("bf16x3", 768), 32, 768)):
+            assert tiers.tensor_smem(0, terms, kc, k16, "ladder") == tiers.tensor_smem(
+                0, terms, kc, k16, "B1")
 
 
 # ---- the sharded tier (distributed/sharded.py) --------------------------------

@@ -118,9 +118,9 @@ def load() -> ctypes.CDLL:
     for name in ("banded", "minima", "sweep", "moments"):
         getattr(lib, f"tk_tensor_{name}").restype = i32
     # The 1-NN ladder's tier instances (tensor_ladder_kernels.cu): v3, v6, B10.
-    lib.tk_tensor_aos_candidates.argtypes = [ptr] * 5 + [i32, i32, i64] + [i32] * 5 + [ptr]
-    lib.tk_tensor_resident_candidates.argtypes = lib.tk_tensor_aos_candidates.argtypes
-    lib.tk_tensor_dma_candidates.argtypes = [ptr] * 4 + [i32, i32, i64] + [i32] * 5 + [ptr]
+    lib.tk_tensor_resident_candidates.argtypes = [ptr] * 5 + [i32, i32, i64] + [i32] * 5 + [ptr]
+    lib.tk_tensor_aos_candidates.argtypes = [ptr] * 4 + [i32, i32, i64] + [i32] * 5 + [ptr]
+    lib.tk_tensor_dma_candidates.argtypes = [ptr] * 3 + [i32, i32, i64] + [i32] * 5 + [ptr]
     for name in ("aos", "resident", "dma"):
         getattr(lib, f"tk_tensor_{name}_candidates").restype = i32
     lib.tk_banded_candidates.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,

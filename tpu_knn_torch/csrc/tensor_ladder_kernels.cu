@@ -18,9 +18,12 @@
 // slot, trades two of them with the neighbouring slot's thread (one shuffle
 // each), and writes two rows of the column pair's bf16x2 part words into
 // the k-major planes, which the ldmatrix/mma path then reads as B1's. The
-// ring keeps B1's bytes and depth. ‖r‖² is one fmaf chain over each (n, k)
-// row, d = 0..k-1 (tensor_aos_norms_kernel), B1's chain over the same
-// values, so where the term lists agree v3's scores are B1's bit for bit.
+// copies and the split serve any block of 4 BM threads (BM 32 or 128). The
+// ring keeps B1's bytes and depth. ‖r‖² is one fmaf chain over each
+// point's values, d = 0..k-1, chained by the block over the staged chunks
+// (kNorms: B1's norm pass's chain over the same values, zeros past k), so
+// where the term lists agree v3's scores are B1's bit for bit, and the
+// launch reads the array once.
 // tpu_knn does not pad k in an AoS block (fused.py:402-405), so "packed"
 // takes _packed_terms(k): 9 terms at k = 9..14 (B1's packed3 at k_pad 8),
 // where the SoA path takes 8.
@@ -34,10 +37,12 @@
 // indices equal B1's at the same P bit for bit. Thread 0 arms the stage's
 // mbarrier with the box's bytes (rows past k and groups past ld / 128 come
 // back zero and count) and issues the copy; every thread waits on the
-// stage's phase parity after its cp.async wait (the |r|^2 row and the q
-// parts stay on cp.async). The barriers sit in the part planes' row
-// padding (bf16 columns 128..135, which no fragment reads), so the plan is
-// B1's to the byte and the ring as deep.
+// stage's phase parity after its cp.async wait (the q parts stay on
+// cp.async), the stage of step s + 1 during step s where the split runs a
+// step ahead. ‖r‖² is chained by the block over the staged chunks, as
+// v3's (kNorms). The barriers sit in the first plane set's row padding
+// (bf16 columns 128..135, which neither set's split writes and no
+// fragment reads), so the plan is B1's to the byte and the ring as deep.
 //
 // v6 at a tier — replaces _fused_kernel as tpu_knn's v6 builds it
 // (fused_knn(soa=True, tile_m=round_up(m, 8)), fused.py:1044-1050): the q
@@ -53,9 +58,14 @@
 //
 // Bound on the H100: as B1's tiers, tensor-core operations T * 2 * m * n *
 // k16 at 989 TFLOP/s, beside which the operand is read once (at m of a few
-// rows the read, 4 k n bytes).
+// rows the read, 4 k n bytes: ds8, ds9).
 //
-// Each instance runs two 8-warp blocks an SM but LIVE's one.
+// Block heights (chosen by m on the host, tiers.ladder_epilogue): v3 and
+// B10 run B1's block above m = 32, 128 rows of 16 warps, one an SM, whose
+// ring keeps two plane sets, so the split runs a step ahead; at m <= 32,
+// 32-row blocks of 4 warps (every warp on live rows), two an SM, 20-30%
+// faster at m = 1 than the 128-row blocks (PERF.md §6). LIVE runs 64-row
+// blocks, one an SM.
 
 #include <type_traits>
 
@@ -71,7 +81,20 @@ namespace {
 // a float4 read phase (or of a copy phase) land in eight distinct quads of
 // 128 bytes: with 4 quads a row (KC 16) two rows share 128 bytes and the
 // swizzle is (s / 2) % 4, with 8 (KC 32) it is s % 8. Bytes: B1's stage.
+// Or, in a one-chunk instance (ONE: k16 == KC == 16) where the points are
+// packed k < 16 floats apart with k % 4 != 0 (ds8, ds10: k = 3), each
+// group's 32 points as the contiguous span they are, [slot][k] (spans): 8 k
+// 16-byte copies a group in place of one 4-byte copy a value, the split
+// and the norm chain reading slot s's values k floats apart (an odd k hits
+// 32 distinct banks).
+template <bool ONE>
 struct AosStaging : SoaStaging {
+  static constexpr bool kNorms = true;
+
+  static __device__ __forceinline__ bool spans(const TensorParams& p) {
+    return ONE && p.ld == p.k && p.k % 4 != 0 && (reinterpret_cast<uintptr_t>(p.r) & 15) == 0;
+  }
+
   template <int KC>
   static __device__ __forceinline__ int offset(int s, int qd) {
     constexpr int Q = KC / 4;  // quads a slot
@@ -79,8 +102,9 @@ struct AosStaging : SoaStaging {
     return s * KC + 4 * (qd ^ ((s / (8 / Q)) & (Q - 1)));
   }
 
-  // The chunk's copies: with 16-byte copies (ld % 4 == 0, a 16-byte
-  // aligned array) thread tid copies quad e % Q of slot e / Q, e = tid + 256
+  // The chunk's copies: spans, thread tid copies quads e = tid + NT u of
+  // the tile's 4 spans (span j's quad e % 8 k); with 16-byte copies (ld % 4
+  // == 0, a 16-byte aligned array) quad e % Q of slot e / Q, e = tid + NT
   // u, consecutive threads reading consecutive quads of one point; else
   // one value a copy, consecutive threads consecutive d. Values past k, and
   // slots past the live groups or n, are zero-filled without a read.
@@ -89,17 +113,29 @@ struct AosStaging : SoaStaging {
                                                int tid, const TensorBlock& blk, const void*,
                                                uint64_t*) {
     static_assert(MODE == kModeF32, "the AoS policy stages the f32 points");
-    static_assert(NT == kTThreads, "the AoS policy stages for 64-row blocks");
     constexpr int Q = KC / 4;
+    static_assert(kTCols * Q % NT == 0 && NT % kTCols == 0, "whole rounds of copies");
     const int d0 = ic * KC;
     const float* r = static_cast<const float*>(p.r);
     float* sf = reinterpret_cast<float*>(st);
     const int live_groups = blk.jgroups - it * kTGroups;
     const int col0 = blk.first + it * L::kTileStride;
-    if (p.ld % 4 == 0 && (reinterpret_cast<uintptr_t>(p.r) & 15) == 0) {
+    if (spans(p)) {
+      const int quads = 8 * p.k;
 #pragma unroll 1
-      for (int u = 0; u < kTCols * Q / kTThreads; ++u) {
-        const int e = u * kTThreads + tid;
+      for (int e = tid; e < kTGroups * quads; e += NT) {
+        const int j = e / quads;
+        const int qq = e - j * quads;
+        const int col = col0 + j * L::kGroupStride;
+        const int points = j < live_groups ? min(max(p.n - col, 0), kTSliceLanes) : 0;
+        const int vals = min(max(points * p.k - 4 * qq, 0), 4);
+        cp_async16(sf + j * kTSliceLanes * p.k + 4 * qq,
+                   vals ? r + static_cast<long long>(col) * p.k + 4 * qq : r, 4 * vals);
+      }
+    } else if (p.ld % 4 == 0 && (reinterpret_cast<uintptr_t>(p.r) & 15) == 0) {
+#pragma unroll 1
+      for (int u = 0; u < kTCols * Q / NT; ++u) {
+        const int e = u * NT + tid;
         const int s = e / Q;
         const int qd = e % Q;
         const int j = s / kTSliceLanes;
@@ -111,8 +147,8 @@ struct AosStaging : SoaStaging {
       }
     } else {
 #pragma unroll 1
-      for (int u = 0; u < kTCols * KC / kTThreads; ++u) {
-        const int e = u * kTThreads + tid;
+      for (int u = 0; u < kTCols * KC / NT; ++u) {
+        const int e = u * NT + tid;
         const int s = e / KC;
         const int dd = e % KC;
         const int j = s / kTSliceLanes;
@@ -124,23 +160,25 @@ struct AosStaging : SoaStaging {
     }
   }
 
-  // The split, transposing: thread tid reads quad qd = tid / 128 + 2 u of
-  // slot s = tid % 128 (four d of one column); the even slot of a column
+  // The split, transposing: thread tid reads quad qd = tid / 128 + NT / 128
+  // u of slot s = tid % 128 (four d of one column); the even slot of a column
   // pair keeps rows 4 qd, 4 qd + 1 and the odd one rows 4 qd + 3, 4 qd + 2,
   // each trading the other two values with its neighbour, and writes the
   // pair's part words of its two rows into the planes [part][KC][kTPlaneLd]
   // (the SoA split's values, so its bits).
   template <int NR, int KC, int NT>
-  static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes) {
-    static_assert(NT == kTThreads, "the AoS policy splits for 64-row blocks");
-    constexpr int ROUNDS = kTCols * (KC / 4) / kTThreads;
+  static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes,
+                                               const TensorParams& p) {
+    constexpr int ROUNDS = kTCols * (KC / 4) / NT;
     const float* sf = reinterpret_cast<const float*>(st);
+    const bool span = spans(p);
 #pragma unroll
     for (int u = 0; u < ROUNDS; ++u) {
       const int tid = fresh_tid();
       const int s = tid % kTCols;
-      const int qd = tid / kTCols + (kTThreads / kTCols) * u;
-      const float4 v = *reinterpret_cast<const float4*>(sf + offset<KC>(s, qd));
+      const int qd = tid / kTCols + (NT / kTCols) * u;
+      const float4 v = span ? span_quad(sf, s, qd, p.k)
+                            : *reinterpret_cast<const float4*>(sf + offset<KC>(s, qd));
       const bool odd = s & 1;
       const float g0 = __shfl_xor_sync(0xffffffffu, odd ? v.x : v.z, 1);
       const float g1 = __shfl_xor_sync(0xffffffffu, odd ? v.y : v.w, 1);
@@ -158,14 +196,53 @@ struct AosStaging : SoaStaging {
       }
     }
   }
+
+  // Values 4 qd .. 4 qd + 3 of slot s of a spans stage, zeros past k.
+  static __device__ __forceinline__ float4 span_quad(const float* sf, int s, int qd, int k) {
+    const float* v = sf + s * k + 4 * qd;
+    const int left = k - 4 * qd;
+    return make_float4(left > 0 ? v[0] : 0.f, left > 1 ? v[1] : 0.f, left > 2 ? v[2] : 0.f,
+                       left > 3 ? v[3] : 0.f);
+  }
+
+  // Slot s's |r|^2 chain over the chunk: its values in d order.
+  template <int KC>
+  static __device__ __forceinline__ float norm_chain(const char* st, int s, float acc,
+                                                     const TensorParams& p) {
+    const float* sf = reinterpret_cast<const float*>(st);
+    if (spans(p)) {
+#pragma unroll 1
+      for (int d = 0; d < p.k; ++d) acc = fmaf(sf[s * p.k + d], sf[s * p.k + d], acc);
+      return acc;
+    }
+#pragma unroll 1
+    for (int qd = 0; qd < KC / 4; ++qd) {
+      const float4 v = *reinterpret_cast<const float4*>(sf + offset<KC>(s, qd));
+      acc = fmaf(v.x, v.x, acc);
+      acc = fmaf(v.y, v.y, acc);
+      acc = fmaf(v.z, v.z, acc);
+      acc = fmaf(v.w, v.w, acc);
+    }
+    return acc;
+  }
+
+  // At T = 4 with the q chunks in the ring (bf16x4 at k > 80) the
+  // transposing split a step ahead spilled at 128 registers (ptxas): that
+  // instance splits each chunk at its step.
+  template <int T, bool RES>
+  static __host__ __device__ constexpr bool ahead() {
+    return RES || T != 4;
+  }
 };
 
 // The TMA policy (B10): the SoA stage by one tensor-map copy a step, B1's
 // split after it.
 struct TmaStaging : SoaStaging {
   static constexpr bool kBarriers = true;
+  static constexpr bool kNorms = true;
 
-  // Stage slot's barrier: 8 bytes of the padding of plane row slot / 2.
+  // Stage slot's barrier: 8 bytes of the padding of the first plane set's
+  // row slot / 2.
   static __device__ __forceinline__ uint64_t* bar(__nv_bfloat16* planes, int slot) {
     return reinterpret_cast<uint64_t*>(planes + (slot >> 1) * kTPlaneLd + kTCols + 4 * (slot & 1));
   }
@@ -204,22 +281,30 @@ static_assert((kTMaxStages + 1) / 2 <= 16 && 4 * sizeof(__nv_bfloat16) == sizeof
 
 // ---- the epilogue: B1's per-lane fold (tensor_kernels.cu CandidatesEpi) ----
 
-// B1's fold with its outputs: scores and indices (SCORES; v3, v6) or the
-// indices only (B10), BLOCKS blocks an SM.
-template <bool SCORES, int BLOCKS>
+constexpr int kLadderRows = 128;      // v3's and B10's block (tiers.TENSOR_LADDER_TILE_M)
+constexpr int kLadderServeRows = 32;  // theirs at m <= 32 (tiers.LADDER_SERVE_ROWS)
+
+// The outputs: scores and indices (v3, v6) or the indices only (B10).
+struct LadderArgs {
+  int32_t* out_i;
+  float* out_s;
+};
+
+// B1's fold at BM rows (kLadderRows, kLadderServeRows, or kTBM for v6's
+// live rows), writing scores and indices (SCORES) or the indices only;
+// two blocks an SM at kLadderServeRows (each splitting a chunk at its
+// step: a step ahead there measured 1-3% slower at m = 1), else one.
+template <bool SCORES, int BM>
 struct LadderEpi {
   static constexpr bool kContig = false;
-  static constexpr int kRows = kTBM;
+  static constexpr int kRows = BM;
   static constexpr bool kDeferTileEnd = false;
   static constexpr bool kRegState = false;
   static constexpr bool kDeadNormInf = false;
-  static constexpr int kBlocksPerSm = BLOCKS;
+  static constexpr int kBlocksPerSm = BM == kLadderServeRows ? 2 : 1;
   static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
   static constexpr size_t kStateBytes = fold_slot_bytes<kRows>();
-  struct Args {
-    int32_t* out_i;
-    float* out_s;
-  };
+  using Args = LadderArgs;
   using Pos = int2;
   static __device__ __forceinline__ void init(unsigned fold, const Args&, const TensorParams&) {
 #pragma unroll
@@ -270,50 +355,35 @@ struct LadderEpi {
   }
 };
 
-using AosEpi = LadderEpi<true, 2>;
-using DmaEpi = LadderEpi<false, 2>;
-using LiveEpi = LadderEpi<true, 1>;
+template <int BM>
+using AosEpi = LadderEpi<true, BM>;
+template <int BM>
+using DmaEpi = LadderEpi<false, BM>;
+using LiveEpi = LadderEpi<true, kTBM>;
 
 // ---- the kernels -------------------------------------------------------------
 
-// |r|^2 of every point of the (n, k) array (row stride ld): one fmaf chain
-// over the row, d = 0..k-1 in order (tensor_candidates_norms_kernel's over
-// the same values), one thread a point.
-__global__ void __launch_bounds__(256)
-tensor_aos_norms_kernel(const float* __restrict__ r, float* __restrict__ rn, int k, long long ld,
-                        int n) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= n) return;
-  const float* row = r + col * ld;
-  float norm = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < k; ++d) {
-    const float x = __ldg(row + d);
-    norm = fmaf(x, x, norm);
-  }
-  rn[col] = norm;
+template <int T, bool PACKED, int KC, bool RES, bool ONE, int BM>
+__global__ void __launch_bounds__(block_threads<BM>(), AosEpi<BM>::blocks_per_sm(T, KC))
+tensor_aos_kernel(const TensorParams p, const LadderArgs e) {
+  tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, AosEpi<BM>, AosStaging<ONE>, false>(
+      p, e, nullptr);
 }
 
-template <int T, bool PACKED, int KC, bool RES, bool ONE>
-__global__ void __launch_bounds__(kTThreads, AosEpi::blocks_per_sm(T, KC))
-tensor_aos_kernel(const TensorParams p, const AosEpi::Args e) {
-  tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, AosEpi, AosStaging, false>(p, e, nullptr);
-}
-
-template <int T, bool PACKED, int KC, bool RES, bool ONE>
-__global__ void __launch_bounds__(kTThreads, DmaEpi::blocks_per_sm(T, KC))
-tensor_tma_kernel(const TensorParams p, const DmaEpi::Args e,
+template <int T, bool PACKED, int KC, bool RES, bool ONE, int BM>
+__global__ void __launch_bounds__(block_threads<BM>(), DmaEpi<BM>::blocks_per_sm(T, KC))
+tensor_tma_kernel(const TensorParams p, const LadderArgs e,
                   const __grid_constant__ CUtensorMap map) {
   // The ring's boxes land 128-byte aligned: the dynamic shared memory of a
   // kernel without static shared memory starts so.
   extern __shared__ float4 smem4[];
   if (smem_addr(smem4) % 128 != 0) __trap();
-  tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, DmaEpi, TmaStaging, false>(p, e, &map);
+  tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, DmaEpi<BM>, TmaStaging, false>(p, e, &map);
 }
 
 template <int T, int KC>
 __global__ void __launch_bounds__(kTThreads, LiveEpi::blocks_per_sm(T, KC))
-tensor_live_kernel(const TensorParams p, const LiveEpi::Args e) {
+tensor_live_kernel(const TensorParams p, const LadderArgs e) {
   tensor_mainloop<T, kModeF32, false, KC, true, false, LiveEpi, SoaStaging, true>(p, e, nullptr);
 }
 
@@ -321,10 +391,10 @@ tensor_live_kernel(const TensorParams p, const LiveEpi::Args e) {
 
 enum LadderPolicy { kLadderAos = 0, kLadderTma = 1, kLadderLive = 2 };
 
-template <int POL>
+template <int POL, int BM>
 using LadderEpiOf =
-    std::conditional_t<POL == kLadderAos, AosEpi,
-                       std::conditional_t<POL == kLadderTma, DmaEpi, LiveEpi>>;
+    std::conditional_t<POL == kLadderAos, AosEpi<BM>,
+                       std::conditional_t<POL == kLadderTma, DmaEpi<BM>, LiveEpi>>;
 
 // The bytes of a LIVE block's resident q parts: nq parts of the live rows
 // of its first block (min(m, 64)), every chunk, rows KC + kTPad apart.
@@ -350,33 +420,29 @@ inline int encode_ladder_map(CUtensorMap* map, const void* r, int k, long long l
   return err == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int T, bool PACKED, int KC, bool RES, bool ONE, int POL>
-int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e) {
-  using EPI = LadderEpiOf<POL>;
-  const int blocks = (a.n + 255) / 256;
-  if constexpr (POL == kLadderAos) {
-    tensor_aos_norms_kernel<<<blocks, 256, 0, a.stream>>>(
-        static_cast<const float*>(a.r), const_cast<float*>(a.rn), a.k, a.ld, a.n);
-  } else {
-    tensor_candidates_norms_kernel<<<blocks, 256, 0, a.stream>>>(
-        static_cast<const float*>(a.r), const_cast<float*>(a.rn), a.k, a.ld, a.n);
-  }
-  if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+// v3 and B10 (BM rows: kLadderRows or kLadderServeRows) chain |r|^2 in the
+// block; LIVE (kTBM rows) reads B1's norm pass, run first into rn.
+template <int T, bool PACKED, int KC, bool RES, bool ONE, int POL, int BM>
+int launch_ladder(const TensorArgs& a, const LadderArgs& e) {
+  using EPI = LadderEpiOf<POL, BM>;
   const TensorParams p{a.qp, a.r, a.r_lo, a.rn, a.m, a.k, a.k16, a.ld, a.n, a.groups, a.gpp, 0};
-  const dim3 grid((a.m + kTBM - 1) / kTBM * kTSlices, a.parts);
+  const dim3 grid((a.m + BM - 1) / BM * kTSlices, a.parts);
   if constexpr (POL == kLadderAos) {
     const size_t smem = tensor_smem<kModeF32, T, KC, EPI>(a.k16);
-    auto kernel = tensor_aos_kernel<T, PACKED, KC, RES, ONE>;
+    auto kernel = tensor_aos_kernel<T, PACKED, KC, RES, ONE, BM>;
     if (const int err = allow_smem(kernel, smem)) return err;
-    kernel<<<grid, kTThreads, smem, a.stream>>>(p, e);
+    kernel<<<grid, block_threads<BM>(), smem, a.stream>>>(p, e);
   } else if constexpr (POL == kLadderTma) {
     CUtensorMap map;
     if (const int err = encode_ladder_map(&map, a.r, a.k, a.ld, KC)) return err;
     const size_t smem = tensor_smem<kModeF32, T, KC, EPI>(a.k16);
-    auto kernel = tensor_tma_kernel<T, PACKED, KC, RES, ONE>;
+    auto kernel = tensor_tma_kernel<T, PACKED, KC, RES, ONE, BM>;
     if (const int err = allow_smem(kernel, smem)) return err;
-    kernel<<<grid, kTThreads, smem, a.stream>>>(p, e, map);
+    kernel<<<grid, block_threads<BM>(), smem, a.stream>>>(p, e, map);
   } else {
+    tensor_candidates_norms_kernel<<<(a.n + 255) / 256, 256, 0, a.stream>>>(
+        static_cast<const float*>(a.r), const_cast<float*>(a.rn), a.k, a.ld, a.n);
+    if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
     const size_t q = live_q_bytes(q_parts<kModeF32, T>(), a.m, a.k16, KC);
     if (q > kQResidentLiveBytes) return static_cast<int>(cudaErrorInvalidValue);
     constexpr int kStages = live_ring_stages<kModeF32, T, KC, EPI>();
@@ -385,7 +451,7 @@ int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e)
     static_assert(!PACKED, "a packed tier's q parts fit a 64-row block");
     auto kernel = tensor_live_kernel<T, KC>;
     if (const int err = allow_smem(kernel, smem)) return err;
-    kernel<<<grid, kTThreads, smem, a.stream>>>(p, e);
+    kernel<<<grid, block_threads<BM>(), smem, a.stream>>>(p, e);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -395,9 +461,9 @@ int launch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e)
 // 32, q resident); else one 16-row chunk a tile at k16 == 16, else 32-row
 // chunks where k16 allows, else 16, the q parts resident where they fit
 // kQResidentBytes; LIVE: always resident, never packed (a packed tier's q
-// parts fit a 64-row block: B1's own launch).
-template <int T, bool PACKED, int POL>
-int launch_ladder_kc(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e) {
+// parts fit a 64-row block: B1's own launch). BM: the block's rows.
+template <int T, bool PACKED, int POL, int BM>
+int launch_ladder_kc(const TensorArgs& a, const LadderArgs& e) {
   if (!instance_matches<kModeF32, T, PACKED>(a.terms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -405,46 +471,55 @@ int launch_ladder_kc(const TensorArgs& a, const typename LadderEpiOf<POL>::Args&
     return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (PACKED) {
     if constexpr (q_parts<kModeF32, T>() == 3) {
-      if (a.k16 == 16) return launch_ladder<T, true, 16, true, true, POL>(a, e);
+      if (a.k16 == 16) return launch_ladder<T, true, 16, true, true, POL, BM>(a, e);
     } else if (a.k16 == 32) {
       // B10 in 16-row chunks, as at T = 4 below: the same 16-deep steps.
-      return launch_ladder<T, true, POL == kLadderTma ? 16 : 32, true, false, POL>(a, e);
+      return launch_ladder<T, true, POL == kLadderTma ? 16 : 32, true, false, POL, BM>(a, e);
     }
     return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (POL == kLadderLive) {
-    return a.k16 % 32 == 0 ? launch_ladder<T, false, 32, true, false, POL>(a, e)
-                           : launch_ladder<T, false, 16, true, false, POL>(a, e);
+    return a.k16 % 32 == 0 ? launch_ladder<T, false, 32, true, false, POL, BM>(a, e)
+                           : launch_ladder<T, false, 16, true, false, POL, BM>(a, e);
   } else {
-    if (a.k16 == 16) return launch_ladder<T, false, 16, true, true, POL>(a, e);
+    if (a.k16 == 16) return launch_ladder<T, false, 16, true, true, POL, BM>(a, e);
     // At T = 4 16-row chunks, as B1's (launch_tensor_kc): the same 16-deep
     // steps in the same order, the same scores.
     if constexpr (T != 4) {
       if (a.k16 % 32 == 0) {
-        return q_resident<kModeF32, T, 32, kTBM>(a.k16)
-                   ? launch_ladder<T, false, 32, true, false, POL>(a, e)
-                   : launch_ladder<T, false, 32, false, false, POL>(a, e);
+        return q_resident<kModeF32, T, 32, BM>(a.k16)
+                   ? launch_ladder<T, false, 32, true, false, POL, BM>(a, e)
+                   : launch_ladder<T, false, 32, false, false, POL, BM>(a, e);
       }
     }
-    return q_resident<kModeF32, T, 16, kTBM>(a.k16)
-               ? launch_ladder<T, false, 16, true, false, POL>(a, e)
-               : launch_ladder<T, false, 16, false, false, POL>(a, e);
+    return q_resident<kModeF32, T, 16, BM>(a.k16)
+               ? launch_ladder<T, false, 16, true, false, POL, BM>(a, e)
+               : launch_ladder<T, false, 16, false, false, POL, BM>(a, e);
   }
 }
 
 // The f32 instances every term list of the ladder's tiers takes ("packed"'s
-// 9, 8 or 4 terms, bf16x3, bf16x4, default/bf16_raw).
-template <int POL>
-int dispatch_ladder(const TensorArgs& a, const typename LadderEpiOf<POL>::Args& e, int nterms) {
+// 9, 8 or 4 terms, bf16x3, bf16x4, default/bf16_raw), at BM rows.
+template <int POL, int BM>
+int dispatch_ladder_rows(const TensorArgs& a, const LadderArgs& e, int nterms) {
   const bool packed = (a.terms.r & kPackedSum) != 0;
   switch (nterms) {
-    case 1: return launch_ladder_kc<1, false, POL>(a, e);
-    case 3: return launch_ladder_kc<3, false, POL>(a, e);
+    case 1: return launch_ladder_kc<1, false, POL, BM>(a, e);
+    case 3: return launch_ladder_kc<3, false, POL, BM>(a, e);
     case 4:
-      return packed ? launch_ladder_kc<4, true, POL>(a, e) : launch_ladder_kc<4, false, POL>(a, e);
-    case 8: return launch_ladder_kc<8, true, POL>(a, e);
-    case 9: return launch_ladder_kc<9, true, POL>(a, e);
+      return packed ? launch_ladder_kc<4, true, POL, BM>(a, e)
+                    : launch_ladder_kc<4, false, POL, BM>(a, e);
+    case 8: return launch_ladder_kc<8, true, POL, BM>(a, e);
+    case 9: return launch_ladder_kc<9, true, POL, BM>(a, e);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// v3's and B10's block height by m (tiers.ladder_epilogue): 32 rows at m
+// <= 32, else 128.
+template <int POL>
+int dispatch_ladder(const TensorArgs& a, const LadderArgs& e, int nterms) {
+  return a.m <= kLadderServeRows ? dispatch_ladder_rows<POL, kLadderServeRows>(a, e, nterms)
+                                 : dispatch_ladder_rows<POL, kLadderRows>(a, e, nterms);
 }
 
 // The q parts a term list reads (q_parts, from the packed list).
@@ -467,32 +542,34 @@ int tk_tensor_candidates(const void* qp, const void* r, const void* r_lo, const 
 
 // v3 at a tier: B1's tier candidates over ref, the caller's row-major (n, k)
 // f32 array with row stride ld >= k (any base; 16-byte copies where ld % 4
-// == 0 and the base is 16-byte aligned). qp, rn, the term list and the
-// outputs as tk_tensor_candidates' (mode 0); rn: scratch of n floats.
-int tk_tensor_aos_candidates(const void* qp, const float* ref, const float* rn, int32_t* out_i,
-                             float* out_s, int m, int k, long long ld, int n, int parts,
-                             int nterms, int term_q, int term_r, void* stream) {
-  if (rn == nullptr || ld < k || !valid_geometry(m, k, n, n, parts) || parts > kMaxGridY ||
-      n > (1 << 30) || reinterpret_cast<uintptr_t>(qp) % 16 != 0) {
+// == 0 and the base is 16-byte aligned). qp, the term list and the outputs
+// as tk_tensor_candidates' (mode 0); no norm scratch (the block chains
+// |r|^2).
+int tk_tensor_aos_candidates(const void* qp, const float* ref, int32_t* out_i, float* out_s,
+                             int m, int k, long long ld, int n, int parts, int nterms,
+                             int term_q, int term_r, void* stream) {
+  if (ld < k || !valid_geometry(m, k, n, n, parts) || parts > kMaxGridY || n > (1 << 30) ||
+      reinterpret_cast<uintptr_t>(qp) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const TensorArgs a = tensor_args(qp, ref, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
+  const TensorArgs a = tensor_args(qp, ref, nullptr, nullptr, m, k, ld, n, parts, term_q, term_r,
                                    stream);
-  return dispatch_ladder<kLadderAos>(a, AosEpi::Args{out_i, out_s}, nterms);
+  return dispatch_ladder<kLadderAos>(a, LadderArgs{out_i, out_s}, nterms);
 }
 
 // B10 at a tier: B1's tier candidates over the (>= k, ld) f32 SoA operand r
 // staged by the Tensor Memory Accelerator, indices only (out_i (m,
-// parts*128)); r 16-byte aligned with ld % 128 == 0.
-int tk_tensor_dma_candidates(const void* qp, const float* r, const float* rn, int32_t* out_i,
-                             int m, int k, long long ld, int n, int parts, int nterms,
-                             int term_q, int term_r, void* stream) {
-  if (!tensor_entry_valid(qp, r, rn, m, k, ld, n, parts, kModeF32) || ld % kLanes != 0) {
+// parts*128)); r 16-byte aligned with ld % 128 == 0; no norm scratch.
+int tk_tensor_dma_candidates(const void* qp, const float* r, int32_t* out_i, int m, int k,
+                             long long ld, int n, int parts, int nterms, int term_q, int term_r,
+                             void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || parts > kMaxGridY || n > (1 << 30) ||
+      !tensor_operands_aligned(qp, r, nullptr, ld, kModeF32) || ld % kLanes != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const TensorArgs a = tensor_args(qp, r, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
+  const TensorArgs a = tensor_args(qp, r, nullptr, nullptr, m, k, ld, n, parts, term_q, term_r,
                                    stream);
-  return dispatch_ladder<kLadderTma>(a, DmaEpi::Args{out_i, nullptr}, nterms);
+  return dispatch_ladder<kLadderTma>(a, LadderArgs{out_i, nullptr}, nterms);
 }
 
 // v6 at a tier: B1's tier candidates (tk_tensor_candidates' arguments, mode
@@ -516,7 +593,7 @@ int tk_tensor_resident_candidates(const void* qp, const float* r, const float* r
   }
   const TensorArgs a = tensor_args(qp, r, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
                                    stream);
-  return dispatch_ladder<kLadderLive>(a, LiveEpi::Args{out_i, out_s}, nterms);
+  return dispatch_ladder_rows<kLadderLive, kTBM>(a, LadderArgs{out_i, out_s}, nterms);
 }
 
 }  // extern "C"

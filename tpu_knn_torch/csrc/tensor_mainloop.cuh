@@ -34,12 +34,12 @@
 // 128 registers a thread; ptxas spills in no instance, which chip_smoke.py
 // checks):
 // - a block owns its epilogue's kRows query rows (BM): 128 for B1's tiers,
-//   B12, B4, B3, B5 and B7, so each staged r chunk serves 128 rows (the
-//   rows of two 64-row blocks, half their r bytes from L2 a score), one
-//   16-warp block an SM; 64 for the 1-NN ladder's staging policies (v6's
-//   live rows need <= 96 KB), two 8-warp blocks an SM where the epilogue's
-//   state allows; 32 for B5 at m <= 32 (four warps, all on live rows), two
-//   blocks an SM. Warp w owns rows 32 (w / 4) .. + 31 and lanes 8 (w % 4)
+//   B12, B4, B3, B5 and B7 and the 1-NN ladder's v3 and B10, so each staged
+//   r chunk serves 128 rows (the rows of two 64-row blocks, half their r
+//   bytes from L2 a score), one 16-warp block an SM; 64 for v6's live-row
+//   instance (its live rows need <= 96 KB); 32 for B5, v3 and B10 at m <=
+//   32 (four warps, all on live rows), two blocks an SM. Warp w owns rows
+//   32 (w / 4) .. + 31 and lanes 8 (w % 4)
 //   .. + 7 of the slot groups, whatever BM is: a warp's arithmetic is the
 //   same at every height;
 // - a block walks a column tile of 128 staged columns at a time: slot (j,
@@ -71,7 +71,8 @@
 //   bit). A block that runs alone on its SM splits chunk s + 1 while step
 //   s is multiplied, into the other of two sets of planes (plane_sets), so
 //   a step takes one barrier and the split's CUDA-core work runs beside
-//   the mmas; else it splits each chunk at its step. A bf16 operand's lower
+//   the mmas (under a policy with mbarriers, after a wait on stage s +
+//   1's); else it splits each chunk at its step. A bf16 operand's lower
 //   parts are zero and the caller drops those terms; B12's hi and lo are
 //   multiplied as staged;
 // - the q parts are split once per call by the caller and copied once per
@@ -86,7 +87,11 @@
 // - |r|^2 is one fmaf chain over the upcast column, d = 0..k-1 in order,
 //   computed once per call for the f32 and bf16 operands (the norm pass
 //   before the kernel) instead of by each of the m / BM row tiles; B12
-//   reads its stored f32 row;
+//   reads its stored f32 row. A staging policy with kNorms (v3's, B10's)
+//   has the block chain it over the staged chunks instead, the same fmaf
+//   chain over the same values (zeros past k add +0), so the same bits:
+//   at a few query rows the norm pass would read the operand a second
+//   time;
 // - where a column tile is one 16-deep chunk (k16 == 16, the ds11 shapes),
 //   each (m16, n8) tile is folded as soon as its terms are summed
 //   (mma_fold_tile), so no accumulator outlives a tile;
@@ -741,9 +746,12 @@ tensor_candidates_norms_kernel(const RT* __restrict__ r, float* __restrict__ rn,
 // barrier is bar, in its phase of parity `parity`; a policy without
 // barriers has nothing to wait for) and split (an f32 chunk as staged into
 // the part planes, once for the block). kBarriers: the policy arms one
-// mbarrier a ring stage (init before the first issue).
+// mbarrier a ring stage (init before the first issue). kNorms: no |r|^2
+// row is staged; the block chains each column's |r|^2 over the staged
+// chunks (norm_chain: slot ci's KC values in d order, fmaf into acc).
 struct SoaStaging {
   static constexpr bool kBarriers = false;
+  static constexpr bool kNorms = false;
 
   // Thread tid (of NT) copies piece tid % PIECES (group j, lanes cc ..)
   // of staged rows tid / PIECES + ROW_STEP u (row x of the stage: array x
@@ -807,11 +815,30 @@ struct SoaStaging {
   static __device__ __forceinline__ void init(__nv_bfloat16*, int) {}
   static __device__ __forceinline__ void wait(uint64_t*, unsigned) {}
 
+  // Whether an instance whose plan keeps two sets of part planes splits a
+  // step ahead (AHEAD in tensor_mainloop).
+  template <int T, bool RES>
+  static __host__ __device__ constexpr bool ahead() {
+    return true;
+  }
+
+  // Slot ci's |r|^2 chain over an f32 [d][slot] stage (a policy with
+  // kNorms over the SoA stage: B10's).
+  template <int KC>
+  static __device__ __forceinline__ float norm_chain(const char* st, int ci, float acc,
+                                                     const TensorParams&) {
+    const float* sf = reinterpret_cast<const float*>(st) + ci;
+#pragma unroll 8
+    for (int d = 0; d < KC; ++d) acc = fmaf(sf[d * kTCols], sf[d * kTCols], acc);
+    return acc;
+  }
+
   // The chunk's split into the part planes ([part][KC][kTPlaneLd]), once
   // for the block, from the staged [d][slot] rows: thread tid (of NT)
   // splits columns 2 (tid % 64) and the next of rows tid / 64 + NT / 64 u.
   template <int NR, int KC, int NT>
-  static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes) {
+  static __device__ __forceinline__ void split(const char* st, __nv_bfloat16* planes,
+                                               const TensorParams&) {
     constexpr int PAIRS = kTCols / 2;
     constexpr int PAIR_ROWS = NT / PAIRS;
     static_assert(KC % PAIR_ROWS == 0, "whole rounds of pairs");
@@ -891,8 +918,13 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
                 "the epilogue's tensor-core blocks do not fit an SM's shared memory");
   // AHEAD: chunk s + 1 is split while step s is multiplied, into the other
   // set of part planes, so a step takes one barrier (a policy with
-  // mbarriers keeps the split of each step at its step).
-  constexpr bool AHEAD = SETS == 2 && !ST::kBarriers;
+  // mbarriers waits on stage s + 1's before it).
+  constexpr bool AHEAD = SETS == 2 && ST::template ahead<T, RES>();
+  // NORMS: the staging policy stages no |r|^2 row; prepare chains each
+  // column's |r|^2 over the tile's chunks, the partial sum kept in the
+  // previous step's copy of the row (see prepare).
+  constexpr bool NORMS = ST::kNorms;
+  static_assert(!NORMS || MODE == kModeF32, "the block chains |r|^2 over f32 chunks");
   static_assert(!AHEAD || STAGES >= 3, "chunk s + 1 lands while step s is multiplied");
   constexpr int R_STAGE = static_cast<int>(r_stage_bytes<MODE, T, KC>());
   constexpr int PLANES = static_cast<int>(planes_bytes<MODE, T, KC>()) / 2;  // bf16 a set
@@ -966,7 +998,7 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
     const int tid = fresh_tid();
     const TensorBlock blk = tensor_block<L, BM>(p.groups, p.groups_per_part);
     ST::template issue<MODE, KC, L, NT>(st, p, it, ic, tid, blk, sp, bar(slot));
-    if (ic == nchunks - 1 && tid >= NT - kTCols) {  // the tile's |r|^2 row
+    if (!NORMS && ic == nchunks - 1 && tid >= NT - kTCols) {  // the tile's |r|^2 row
       const int ci = tid - (NT - kTCols);
       const int jn = ci / kTSliceLanes;
       const int cn = blk.first + it * L::kTileStride + jn * L::kGroupStride + ci % kTSliceLanes;
@@ -1006,18 +1038,30 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
 
   // (f32) Step x's chunk into its part planes and, at a tile's last chunk,
   // the tile's |r|^2 row into its copy: set x % 2 of each where the split
-  // runs a step ahead, else the one set.
+  // runs a step ahead, else the one set. NORMS: column ci's chain over
+  // chunk x, from 0 at a tile's first chunk, else from the partial sum
+  // that chunk x - 1 left in its copy of the row (no step reads a copy but
+  // at a tile's last chunk, and only thread ci writes or reads slot ci).
   auto prepare = [&](int x) {
     const char* stx = ring + (x % STAGES) * stage;
     const int set = AHEAD ? x & 1 : 0;
-    if (x % nchunks == nchunks - 1 && fresh_tid() >= NT - kTCols) {
+    if constexpr (NORMS) {
+      if (fresh_tid() >= NT - kTCols) {
+        const int ci = fresh_tid() - (NT - kTCols);
+        const float acc = x % nchunks == 0 ? 0.f : sn_f32[(AHEAD ? (x - 1) & 1 : 0) * kTCols + ci];
+        sn_f32[set * kTCols + ci] = ST::template norm_chain<KC>(stx, ci, acc, p);
+      }
+    } else if (x % nchunks == nchunks - 1 && fresh_tid() >= NT - kTCols) {
       const int ci = fresh_tid() - (NT - kTCols);
       sn_f32[set * kTCols + ci] = reinterpret_cast<const float*>(stx + NORM_OFF)[ci];
     }
-    ST::template split<NR, KC, NT>(stx, planes + set * PLANES);
+    ST::template split<NR, KC, NT>(stx, planes + set * PLANES, p);
   };
   if constexpr (AHEAD) {  // step 0's chunk, before the loop
     cp_async_wait<STAGES - 2>();
+    if constexpr (ST::kBarriers) {
+      if (steps() > 0) ST::wait(bar(0), 0);
+    }
     __syncthreads();
     if (steps() > 0) prepare(0);
   }
@@ -1047,6 +1091,9 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
   for (int s = 0; s < steps(); ++s) {
     if constexpr (AHEAD) {
       cp_async_wait<STAGES - 3>();  // step s + 1 has landed (this thread's copies)
+      if constexpr (ST::kBarriers) {
+        if (s + 1 < steps()) ST::wait(bar((s + 1) % STAGES), ((s + 1) / STAGES) & 1);
+      }
     } else {
       cp_async_wait<STAGES - 2>();  // step s has landed (this thread's copies)
       ST::wait(bar(s % STAGES), (s / STAGES) & 1);

@@ -66,7 +66,7 @@ def dma_candidates(q: torch.Tensor, r_op: torch.Tensor, n: int, parts: int,
     B10. "highest": B1's tiled kernel with TMA-staged stages
     (csrc/fused_kernels.cu) at B1's rows per warp; any other term-list tier:
     B10's tensor-core instance (tiers.dma_tier_launch; P from
-    tiers.tensor_parts). At the same ``parts`` the indices equal B1's at
+    fused.ladder_parts). At the same ``parts`` the indices equal B1's at
     the tier on the card. The operand's tensor map needs it 16-byte aligned
     with a row stride that is a multiple of 128 floats. CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""

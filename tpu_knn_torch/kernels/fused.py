@@ -547,7 +547,7 @@ def aos_candidates(q: torch.Tensor, ref: torch.Tensor, n: int, parts: int,
     landing them transposed (csrc/tiled.cuh); the queries from their
     transposed copy, as B1's; its scores bit-identical to B1's on the card.
     Any other term-list tier: v3's tensor-core instance (tiers.aos_tier_launch,
-    the AoS term list; P from tiers.tensor_parts), whose scores are B1's
+    the AoS term list; P from fused.ladder_parts), whose scores are B1's
     tier's bit for bit where the term lists agree. Any k. CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise."""
     _check_candidate_operands(q, ref, n, parts, aos=True)
@@ -642,14 +642,14 @@ def ladder_parts(rung: str, precision: str, m: int, k: int, n: int) -> int:
     """The default partition count of a ladder rung ("v3", "v5", "v6") at a
     tier: at "highest" its tiled kernel's (v3, v5: B1's tiled_parts; v6:
     tuning.resident_geometry's), else its tensor-core instance's (v3, v5:
-    tiers.tensor_parts; v6: tiers.resident_tier_parts)."""
+    tiers.ladder_tier_parts, their own blocks; v6: tiers.resident_tier_parts)."""
     from tpu_knn_torch.kernels import tiers
 
     if precision == "highest":
         return resident_geometry(m, k, n).parts if rung == "v6" else tiled_parts(m, k, n)
     if rung == "v6":
         return tiers.resident_tier_parts(precision, m, k, n)
-    return tiers.tensor_parts(m, n)
+    return tiers.ladder_tier_parts(m, n)
 
 
 # ---- exact selection ------------------------------------------------

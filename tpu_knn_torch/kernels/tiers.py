@@ -52,7 +52,7 @@ from tpu_knn_torch.kernels.fused import (
 )
 from tpu_knn_torch.kernels.tuning import (
     LANE, MOMENT_CHUNK, SMEM_PER_BLOCK, SMEM_PER_BLOCK_RESERVED, SMEM_PER_SM,
-    TILED_BLOCKS_PER_SM, _wave_parts, kselect_state_bytes,
+    _wave_parts, kselect_state_bytes,
 )
 from tpu_knn_torch.utils.platform import full_f32_matmul, launch_stream
 from tpu_knn_torch.utils.shapes import cdiv, round_up
@@ -60,8 +60,10 @@ from tpu_knn_torch.utils.shapes import cdiv, round_up
 # The tensor-core kernel's geometry (csrc/tensor_mainloop.cuh). A block of
 # 4 * rows threads (16 warps at 128 rows, 8 at 64) owns its epilogue's
 # rows of queries (TENSOR_TILE_M for B1's tiers, B12, B4, B3, B5 and B7;
-# B5_SERVE_ROWS for B5 at m <= B5_SERVE_ROWS; TENSOR_LADDER_TILE_M for the
-# 1-NN ladder's instances) and one slice of LANE // TENSOR_SLICES lanes of
+# B5_SERVE_ROWS for B5 at m <= B5_SERVE_ROWS; TENSOR_LADDER_TILE_M and
+# LADDER_SERVE_ROWS for the 1-NN ladder's v3 and B10 instances,
+# TENSOR_LIVE_TILE_M for v6's live-row one) and one slice of LANE //
+# TENSOR_SLICES lanes of
 # a partition, and walks the
 # partition's 128-column groups TENSOR_TILE_GROUPS at a time (a column
 # tile); TENSOR_BLOCKS_PER_SM blocks run on an SM at once (its
@@ -72,8 +74,15 @@ from tpu_knn_torch.utils.shapes import cdiv, round_up
 #: epilogues' kRows: four warps of 32 rows, each beside three more for the
 #: slice's other lanes), so each staged r chunk serves 128 rows.
 TENSOR_TILE_M = 128
-#: Query rows per block of the 1-NN ladder's instances (csrc kTBM).
-TENSOR_LADDER_TILE_M = 64
+#: Query rows per block of the 1-NN ladder's v3 and B10 instances above m =
+#: LADDER_SERVE_ROWS (csrc kLadderRows): B1's block, one an SM.
+TENSOR_LADDER_TILE_M = 128
+#: Their rows per block at m <= LADDER_SERVE_ROWS: four warps, all on live
+#: rows, two blocks an SM (csrc kLadderServeRows).
+LADDER_SERVE_ROWS = 32
+#: Query rows per block of v6's live-row instance, and the rows whose
+#: resident q parts TENSOR_Q_RESIDENT_BYTES holds (csrc kTBM).
+TENSOR_LIVE_TILE_M = 64
 #: Query rows per block of B5 at m <= B5_SERVE_ROWS (the serving shapes):
 #: four warps, all on live rows (csrc kServeRows).
 B5_SERVE_ROWS = 32
@@ -273,7 +282,7 @@ def tensor_fold_bytes(rows: int = TENSOR_TILE_M) -> int:
 def tensor_q_resident_limit(rows: int = TENSOR_TILE_M) -> int:
     """The resident q parts' limit of a block of ``rows`` (csrc
     q_resident_limit)."""
-    return TENSOR_Q_RESIDENT_BYTES * rows // TENSOR_LADDER_TILE_M
+    return TENSOR_Q_RESIDENT_BYTES * rows // TENSOR_LIVE_TILE_M
 
 #: The tensor-core mainloop's epilogues (csrc tensor_mainloop.cuh): kernel
 #: -> (its state's shared-memory bytes, EPI::kStateBytes; its blocks per
@@ -309,10 +318,15 @@ TENSOR_EPILOGUES = {
     "B7-band": (_B7_STATE + 4 * TENSOR_TILE_M * 136, TENSOR_BLOCKS_PER_SM, True, TENSOR_TILE_M),
 }
 
-#: The 1-NN ladder's epilogue (csrc LadderEpi: B1's fold at 64 rows, two
-#: blocks an SM; v6's live rows one).
-LADDER_EPILOGUE = (tensor_fold_bytes(TENSOR_LADDER_TILE_M), TILED_BLOCKS_PER_SM, False,
-                   TENSOR_LADDER_TILE_M)
+#: The 1-NN ladder's epilogue (csrc LadderEpi: B1's fold) at each block
+#: height, in TENSOR_EPILOGUES' form: v3's and B10's 128-row blocks, one an
+#: SM ("ladder"), and 32-row ones, two an SM, at m <= LADDER_SERVE_ROWS
+#: ("ladder-serve", ladder_epilogue); v6's live-row blocks ("ladder-live").
+LADDER_EPILOGUES = {
+    "ladder": (tensor_fold_bytes(TENSOR_LADDER_TILE_M), 1, False, TENSOR_LADDER_TILE_M),
+    "ladder-serve": (tensor_fold_bytes(LADDER_SERVE_ROWS), 2, False, LADDER_SERVE_ROWS),
+    "ladder-live": (tensor_fold_bytes(TENSOR_LIVE_TILE_M), 1, False, TENSOR_LIVE_TILE_M),
+}
 
 
 def tensor_chunk(k16: int, terms=(), packed: bool = False) -> int:
@@ -339,12 +353,12 @@ def _tensor_plan(mode: int, terms, kc: int, rows: int = TENSOR_TILE_M):
 
 
 def _epilogue(epilogue: str):
-    return LADDER_EPILOGUE if epilogue == "ladder" else TENSOR_EPILOGUES[epilogue]
+    return LADDER_EPILOGUES.get(epilogue) or TENSOR_EPILOGUES[epilogue]
 
 
 def tensor_rows(epilogue: str = "B1") -> int:
-    """The query rows of an epilogue's block (csrc EPI::kRows); "ladder":
-    the 1-NN ladder's instances (LadderEpi)."""
+    """The query rows of an epilogue's block (csrc EPI::kRows); a key of
+    TENSOR_EPILOGUES or LADDER_EPILOGUES."""
     return _epilogue(epilogue)[3]
 
 
@@ -402,7 +416,8 @@ def tensor_smem(mode: int, terms, kc: int, k16: int, epilogue: str = "B1") -> in
     ‖r‖² row, and the q chunk where the q parts are not resident), the f32
     mode's part planes (tensor_plane_sets of them), and the resident q
     parts. ``epilogue``: a key of
-    TENSOR_EPILOGUES, or "ladder" (v3's and B10's instances)."""
+    TENSOR_EPILOGUES or LADDER_EPILOGUES (v3's and B10's instances:
+    ladder_epilogue)."""
     rows = tensor_rows(epilogue)
     _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc, rows)
     q_res = k16 // kc * q_chunk   # resident q parts: the ring's chunks, one after another
@@ -774,23 +789,42 @@ def ladder_tier_row(rung: str, precision: str, k: int) -> str:
     return f"{LADDER_ROWS[rung]} {tier}"
 
 
+def ladder_epilogue(m: int) -> str:
+    """The LADDER_EPILOGUES key of v3's and B10's tier instances at m rows
+    (csrc dispatch_ladder): "ladder-serve" at m <= LADDER_SERVE_ROWS, else
+    "ladder"."""
+    return "ladder-serve" if m <= LADDER_SERVE_ROWS else "ladder"
+
+
+def ladder_tier_parts(m: int, n: int) -> int:
+    """The partition count of v3's and B10's tier instances: lane slices
+    of their block height at m (ladder_epilogue), at its blocks an SM,
+    tuning._wave_parts' choice (at m = 1 over 2^24 points, 63 partitions of
+    4 blocks fill 252 of the 264 slots of 32-row blocks; at ds11, 4 of 32
+    fill 128 of the 132 slots of 128-row ones)."""
+    epilogue = ladder_epilogue(m)
+    return _wave_parts(cdiv(m, tensor_rows(epilogue)) * TENSOR_SLICES, cdiv(n, LANE),
+                       TENSOR_TILE_GROUPS, tensor_blocks_per_sm(epilogue))
+
+
 def tensor_q_resident(terms, k16: int) -> bool:
     """Whether a 64-row block's q parts fit TENSOR_Q_RESIDENT_BYTES (csrc
-    q_resident) in f32 mode: then so do a 128-row block's within its
-    limit (tensor_q_resident_limit)."""
+    q_resident) in f32 mode: then so do a 32- or 128-row block's within
+    their limits (tensor_q_resident_limit)."""
     kc = tensor_chunk(k16, terms)
     nq = 1 + max(i for i, _ in terms)
-    return k16 // kc * nq * TENSOR_LADDER_TILE_M * (kc + 8) * 2 <= TENSOR_Q_RESIDENT_BYTES
+    return k16 // kc * nq * TENSOR_LIVE_TILE_M * (kc + 8) * 2 <= TENSOR_Q_RESIDENT_BYTES
 
 
 def tensor_live_stages(terms, kc: int) -> int:
     """The ring's depth of v6's live-row instance (csrc live_ring_stages):
     the deepest, up to 4, at which one 64-row block with
     TENSOR_Q_LIVE_BYTES of q parts fits an SM."""
-    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LADDER_TILE_M)
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LIVE_TILE_M)
 
     def fits(stages):
-        most = _fixed_bytes(_MODE_F32, "ladder") + stages * r_stage + planes + TENSOR_Q_LIVE_BYTES
+        most = (_fixed_bytes(_MODE_F32, "ladder-live") + stages * r_stage + planes
+                + TENSOR_Q_LIVE_BYTES)
         return most + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM and most <= SMEM_PER_BLOCK
 
     return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
@@ -798,10 +832,10 @@ def tensor_live_stages(terms, kc: int) -> int:
 
 def tensor_live_q_bytes(terms, m: int, k16: int) -> int:
     """The resident q parts of a live-row block: its live rows (at most
-    TENSOR_LADDER_TILE_M) of each part, every chunk (csrc live_q_bytes)."""
+    TENSOR_LIVE_TILE_M) of each part, every chunk (csrc live_q_bytes)."""
     kc = tensor_chunk(k16)
     nq = 1 + max(i for i, _ in terms)
-    return nq * min(m, TENSOR_LADDER_TILE_M) * (k16 // kc) * (kc + 8) * 2
+    return nq * min(m, TENSOR_LIVE_TILE_M) * (k16 // kc) * (kc + 8) * 2
 
 
 def tensor_live_smem(terms, m: int, k16: int) -> int:
@@ -809,9 +843,9 @@ def tensor_live_smem(terms, m: int, k16: int) -> int:
     epilogue's fixed bytes, the ring (r stages only), the f32 part planes
     and the live q parts."""
     kc = tensor_chunk(k16)
-    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LADDER_TILE_M)
-    return (_fixed_bytes(_MODE_F32, "ladder") + tensor_live_stages(terms, kc) * r_stage + planes
-            + tensor_live_q_bytes(terms, m, k16))
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LIVE_TILE_M)
+    return (_fixed_bytes(_MODE_F32, "ladder-live") + tensor_live_stages(terms, kc) * r_stage
+            + planes + tensor_live_q_bytes(terms, m, k16))
 
 
 def resident_tier_parts(precision: str, m: int, k: int, n: int) -> int:
@@ -820,7 +854,7 @@ def resident_tier_parts(precision: str, m: int, k: int, n: int) -> int:
     64-row blocks, one an SM."""
     if tensor_q_resident(ladder_terms(precision, k), round_up(k, 16)):
         return tensor_parts(m, n)
-    return _wave_parts(cdiv(m, TENSOR_LADDER_TILE_M) * TENSOR_SLICES, cdiv(n, LANE),
+    return _wave_parts(cdiv(m, TENSOR_LIVE_TILE_M) * TENSOR_SLICES, cdiv(n, LANE),
                        TENSOR_TILE_GROUPS, 1)
 
 
@@ -840,19 +874,21 @@ def _ladder_launch(entry: str, rung: str, q, operand, n: int, parts: int, precis
                    scores: bool = True):
     """Launch a rung's tier instance (tk_tensor_<entry>_candidates) over
     ``operand`` (v3: the (n, k) array; B10, v6: the SoA operand) and count
-    it under ladder_tier_row."""
+    it under ladder_tier_row. v3 and B10 chain ‖r‖² in the kernel; v6's
+    launch takes scratch for its norm pass."""
     from tpu_knn_torch.csrc.build import check
 
     m, k = q.shape
     terms = ladder_terms(precision, k, aos=rung == "v3")
-    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n, terms,
+    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n if rung == "v6" else 0, terms,
                                                   packed_tier(precision, k, aos=rung == "v3"))
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     outs = (idx.data_ptr(), score.data_ptr()) if scores else (idx.data_ptr(),)
+    scratch = (norms.data_ptr(),) if rung == "v6" else ()
     with torch.cuda.device(q.device):
         err = getattr(lib, f"tk_tensor_{entry}_candidates")(
-            qp.data_ptr(), operand.data_ptr(), norms.data_ptr(), *outs, m, k, operand.stride(0),
-            n, parts, len(terms), q_bits, r_bits, _stream(q))
+            qp.data_ptr(), operand.data_ptr(), *scratch, *outs, m, k, operand.stride(0), n,
+            parts, len(terms), q_bits, r_bits, _stream(q))
     row = ladder_tier_row(rung, precision, k)
     check(lib, err, f"{row} ({precision})")
     TIER_LAUNCHES[row] += 1

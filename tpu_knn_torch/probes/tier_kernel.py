@@ -1,11 +1,12 @@
-"""The tensor-core tier kernels on their own (B1's tiers and B12, and the
-top-K kernels' tier instances B4, B3, B5 and B7): outputs saved for a
-bit-for-bit comparison between two checkouts, and their times at the
-main-path shapes.
+"""The tensor-core tier kernels on their own (B1's tiers and B12, the
+top-K kernels' tier instances B4, B3, B5 and B7, and the 1-NN ladder's v3
+and B10 instances): outputs saved for a bit-for-bit comparison between two
+checkouts, and their times at the main-path shapes.
 
     python3 tpu_knn_torch/probes/tier_kernel.py save DIR      # repo root, one H100
     python3 tpu_knn_torch/probes/tier_kernel.py compare DIR_A DIR_B
     python3 tpu_knn_torch/probes/tier_kernel.py time [ROW ...]
+    python3 tpu_knn_torch/probes/tier_kernel.py launches
 
 Run by path with PYTHONPATH=<checkout>, each mode measures whichever
 checkout's tpu_knn_torch is on the path, so two checkouts compare in one
@@ -16,8 +17,9 @@ chip call (parent, change, change, parent for times).
   fixed partition count P, and each top-K instance of TOPK_CASES (B4's two
   passes, B3 at depths 1 and 2 and above lo, B5's lists at K = 1, 8 and
   32, B7 without and with a band, at m ragged against 64- and 128-row
-  blocks), on inputs made on the card from a seed, its outputs written
-  with torch.save to DIR/<case>.pt;
+  blocks), and v3's and B10's tier instances at LADDER_CASES, on inputs
+  made on the card from a seed, its outputs written with torch.save to
+  DIR/<case>.pt;
 - compare: torch.equal of every case's idx and score between two such
   directories; the last line is {"identical": bool, "cases": {...}};
 - time: each row of PERF.md's kernel table that these kernels serve (or
@@ -25,8 +27,14 @@ chip call (parent, change, change, parent for times).
   (tiers.tier_parts), the top-K instances' (TOPK_TIMED_ROWS) at the
   launches their engines make at K = 8 (B5 also at its serving shapes),
   each with its "highest" launch
-  beside it; by CUDA events (median) and the kernel's own device time
-  (torch.profiler); the last line is one JSON object of them.
+  beside it, and v3's and B10's (LADDER_TIMED_ROWS) at the checkout's own
+  P (fused.ladder_parts) beside B1's tier launch; by CUDA events (median)
+  and the kernel's own device time (torch.profiler; v3 and B10 also split
+  by kernel, so a norm pass shows apart); the last line is one JSON object
+  of them;
+- launches: the launches of v3's and B10's tier instances that
+  chip_smoke.py's 1-NN ladder path makes (the runner's warm-up, the TA
+  shapes, ds8..ds11, each through knn_callback), by row, shape and P.
 """
 
 from __future__ import annotations
@@ -74,6 +82,44 @@ TIMED_ROWS = [
     ("B1 qsplit2", "qsplit2", "bf16", EMBED),
 ]
 
+
+#: v3's (AoS staging) and B10's (TMA staging) tier instances in `save`:
+#: (case, rung, precision, k, m, n, P, misaligned): packed at ds11, at k =
+#: 12 (v3's 9 terms) and at k = 3, m on each side of a 32- and a 128-row
+#: block, an (n, k) array whose base is not 16-byte aligned (v3's 4-byte
+#: copies), bf16x3 at k = 768 (32-row chunks, the q parts in the ring) and
+#: k = 40 (16-row chunks).
+LADDER_CASES = [
+    (f"ladder {rung} {prec} k{k} m{m} n{n}{' misaligned' if odd else ''}", rung, prec, k, m, n,
+     p, odd)
+    for rung in ("v3", "v5")
+    for prec, k, m, n, p, odd in (
+        ("packed", 16, 1024, 1 << 20, 4, False), ("packed", 12, 1024, 1 << 18, 4, False),
+        ("packed", 3, 1024, 1 << 18, 4, False),
+        *[("packed", 16, m, 70_001, 5, False) for m in (1, 32, 33, 127, 129)],
+        ("packed", 3, 1, 70_001, 5, False), ("packed", 12, 33, 70_001, 5, False),
+        ("packed", 16, 65, 20_077, 3, True), ("packed", 3, 33, 20_077, 3, True),
+        ("bf16x3", 768, 129, 20_000, 4, False), ("bf16x3", 768, 32, 20_000, 4, False),
+        ("bf16x3", 40, 333, 50_001, 3, False), ("bf16x3", 40, 20, 50_001, 3, False))
+    if not (odd and rung == "v5")]
+
+#: v3's and B10's rows of PERF.md's kernel table: (row, rung, precision,
+#: (k, m, n)) at ds11, ds10, ds9, ds8 and the embedding width, and v6's
+#: live-row instance's at its (768, 16, 2^20).
+DS10, DS9, DS8 = (3, 1024, 1 << 20), (16, 1, 1 << 24), (3, 1, 1 << 24)
+LADDER_TIMED_ROWS = [
+    (f"{row} {name}", rung, precision, shape)
+    for name, precision, shape in (("packed3 ds11", "packed", DS11),
+                                   ("packed3 ds10", "packed", DS10),
+                                   ("packed3 ds9", "packed", DS9),
+                                   ("packed3 ds8", "packed", DS8),
+                                   ("bf16x3", "bf16x3", EMBED_TOPK))
+    for row, rung in (("B1 v3", "v3"), ("B10", "v5"))] + [
+    ("B1 v6 bf16x3 live rows", "v6", "bf16x3", (768, 16, 1 << 20))]
+
+#: The kernels of each rung's tier launch (torch.profiler names).
+LADDER_DEVICE = {"v3": ("tensor_aos",), "v5": ("tensor_tma", "tensor_candidates_norms"),
+                 "v6": ("tensor_live", "CandidatesEpi", "tensor_candidates_norms")}
 
 #: The top-K instances' cases of `save`: (case, precision, operand kind,
 #: k, m, n); m = 1, 63, 65, 127, 129, 1023 lie on each side of a 64- and a
@@ -237,7 +283,40 @@ def save(out_dir: str) -> int:
             print(f"{name}: k={k} m={m} n={n} sha256 {digest[:16]}")
         del q, r_op
         torch.cuda.empty_cache()
+    for i, case in enumerate(LADDER_CASES):
+        outs = _ladder_launch(device, 9400 + i, *case[1:])()
+        outs = tuple(t.cpu() for t in (outs if isinstance(outs, tuple) else (outs,)))
+        torch.cuda.synchronize()
+        torch.save(outs, os.path.join(out_dir, case[0].replace(" ", "_") + ".pt"))
+        digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in outs)).hexdigest()
+        print(f"{case[0]}: P={case[6]} sha256 {digest[:16]}")
+        torch.cuda.empty_cache()
     return 0
+
+
+def _ladder_launch(device, seed, rung, precision, k, m, n, parts, misaligned=False):
+    """A call of a rung's tier instance ("v3": fused.aos_candidates over
+    the (n, k) array, its base one float past 16-byte alignment where
+    ``misaligned``; "v5": dma_pipeline.dma_candidates, "v6":
+    fused.const_query_candidates over the SoA operand) on inputs made from
+    a seed."""
+    import torch
+
+    from tpu_knn_torch.kernels import dma_pipeline, fused
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q = torch.rand((m, k), generator=gen, device=device)
+    r = torch.rand((n, k), generator=gen, device=device)
+    if rung in ("v5", "v6"):
+        r_op = fused.prep_soa(r, -(-n // 128) * 128)
+        fn = dma_pipeline.dma_candidates if rung == "v5" else fused.const_query_candidates
+        return lambda: fn(q, r_op, n, parts, precision)
+    if misaligned:
+        flat = torch.zeros(n * k + 1, device=device)
+        r = flat[1:].view(n, k)
+        r.copy_(torch.rand((n, k), generator=gen, device=device))
+    return lambda: fused.aos_candidates(q, r, n, parts, precision)
 
 
 def _case_names():
@@ -250,6 +329,8 @@ def _case_names():
               for case, prec, _, k, _, _ in TOPK_CASES
               for kid in ("B1", "B4", "B5", "B5-k1", "B5-k32", "B3", "B3-d2", "B3-band", "B7",
                           "B7-band")]
+    # The ladder's instances change no arithmetic: every case must be identical.
+    names += [(case[0], False) for case in LADDER_CASES]
     return names
 
 
@@ -279,7 +360,7 @@ def compare(dir_a: str, dir_b: str) -> int:
 def time_rows(names) -> int:
     import torch
 
-    from tpu_knn_torch.kernels import tiers
+    from tpu_knn_torch.kernels import fused, tiers
     from tpu_knn_torch.utils.timing import device_ms, time_ms
 
     device = torch.device("cuda", 0)
@@ -315,7 +396,77 @@ def time_rows(names) -> int:
               f"{dev:.4f}), its highest launch {ev['highest']:.4f} ms [{card}]")
         del q, r_op, fn, high
         torch.cuda.empty_cache()
+    for i, (row, rung, precision, (k, m, n)) in enumerate(LADDER_TIMED_ROWS):
+        if names and row not in names:
+            continue
+        parts = fused.ladder_parts(rung, precision, m, k, n)
+        fn = _ladder_launch(device, 9900 + i, rung, precision, k, m, n, parts)
+        q, r_op = (torch.rand((m, k), device=device),
+                   fused.prep_soa(torch.rand((n, k), device=device), -(-n // 128) * 128))
+        p1 = tiers.tier_parts(precision, m, k, n)
+        b1 = lambda: tiers.tensor_candidates(q, r_op, n, p1, precision)  # noqa: E731
+        reps = 5 if k >= 128 else 10
+        ev = time_ms({row: fn, "B1": b1}, reps)
+        split = device_ms({"fn": fn}, LADDER_DEVICE[rung], reps)
+        dev = sum(split.values())
+        dev1 = sum(device_ms({"fn": b1}, ("CandidatesEpi", "tensor_candidates_norms"),
+                             reps).values())
+        out[row] = {"P": parts, "ms": ev[row], "device_ms": dev,
+                    "device_split": {name[:60]: t for name, t in split.items()},
+                    "B1_P": p1, "B1_ms": ev["B1"], "B1_device_ms": dev1}
+        parts_of = "; ".join(f"{name[:40]} {t:.4f}" for name, t in split.items())
+        print(f"{row}: {precision} (k={k}, m={m}, n={n}) P={parts}: {ev[row]:.4f} ms (device "
+              f"{dev:.4f}: {parts_of}), B1's tier at P={p1} {ev['B1']:.4f} ms (device "
+              f"{dev1:.4f}) [{card}]")
+        del q, r_op, fn, b1
+        torch.cuda.empty_cache()
     print(json.dumps(out))
+    return 0
+
+
+def ladder_launches(run):
+    """(run()'s result, a Counter of the ladder's tier launches it made by
+    (row, (k, m, n), P)), from a spy on tiers._ladder_launch."""
+    import collections
+
+    from tpu_knn_torch.kernels import tiers
+
+    seen = collections.Counter()
+    launch = tiers._ladder_launch
+
+    def spy(entry, rung, q, operand, n, parts, precision, *args, **kwargs):
+        m, k = q.shape
+        seen[tiers.ladder_tier_row(rung, precision, k), (k, m, n), parts] += 1
+        return launch(entry, rung, q, operand, n, parts, precision, *args, **kwargs)
+
+    tiers._ladder_launch = spy
+    try:
+        return run(), seen
+    finally:
+        tiers._ladder_launch = launch
+
+
+def launches() -> int:
+    """The launches of v3's and B10's tier instances that chip_smoke.py's
+    1-NN ladder path makes (harness.runner.warm_up's shape, the TA shapes,
+    ds8..ds11, each through knn_callback with v3 and v5), by row, (k, m,
+    n) and P."""
+    import torch
+
+    import tpu_knn_torch
+    from tpu_knn_torch.harness.generator import BIG_SHAPES, TA_SHAPES
+
+    def run():
+        for k, m, n in ((4, 1, 1 << 12), *TA_SHAPES, *BIG_SHAPES):
+            q, r = torch.rand((m, k), device="cuda"), torch.rand((n, k), device="cuda")
+            for v in ("v3", "v5"):
+                tpu_knn_torch.knn_callback(k, m, n, q, r, version=v)
+
+    _, seen = ladder_launches(run)
+    for (row, shape, parts), c in sorted(seen.items()):
+        print(f"{row} (k, m, n) = {shape} P={parts}: {c}")
+    print(json.dumps([[row, list(shape), parts, c] for (row, shape, parts), c in
+                      sorted(seen.items())]))
     return 0
 
 
@@ -331,6 +482,8 @@ def main(argv) -> int:
         return compare(argv[1], argv[2])
     if argv[:1] == ["time"]:
         return time_rows(argv[1:])
+    if argv == ["launches"]:
+        return launches()
     print(__doc__, file=sys.stderr)
     return 2
 
