@@ -2294,14 +2294,20 @@ def phase3_topk_tiers(card, device, gen, reps, cases=TOPK_TIER_TIMED, kk=TOPK_TI
 #: 2^20), v6's live rows), m = 32 and 33 at ds11's k (v3's and B10's last
 #: 32-row and first 128-row block heights), v3's 9 terms at k = 12 (B1's
 #: 8), an (n, k) array whose base is not 16-byte aligned (v3's 4-byte
-#: copies), ragged n, packed2, bf16x3 with 16-row chunks, bf16x4 and default.
+#: copies), ragged n, packed2, bf16x3 with 16-row chunks, bf16x4 and
+#: default; v6's live rows also at (768, 1, 2^20) (two 32-row blocks an
+#: SM), (768, 21, 2^20) (the guard's edge, one 64-row block an SM),
+#: (128, 128, 2^18) (two 64-row blocks) and (321, 51, 2^18) (the most live
+#: rows' bytes the guard admits).
 LADDER_TIER_CASES = [("packed", *DS11, False), ("packed", *DS10, False),
                      ("packed", *DS9, False), ("packed", *DS8, False),
                      ("packed", 16, 32, 1 << 20, False), ("packed", 16, 33, 1 << 20, False),
                      ("packed", 12, 100, 20_077, False), ("packed", 16, 65, 20_077, True),
                      ("packed", 32, 64, 20_000, False), ("bf16x3", 40, 33, 5003, True),
                      ("bf16x4", 16, 20, 3000, False), ("default", 16, 50, 5000, False),
-                     ("bf16x3", 768, 1024, 1 << 18, False), ("bf16x3", 768, 16, 1 << 20, False)]
+                     ("bf16x3", 768, 1024, 1 << 18, False), ("bf16x3", 768, 16, 1 << 20, False),
+                     ("bf16x3", 768, 1, 1 << 20, False), ("bf16x3", 768, 21, 1 << 20, False),
+                     ("bf16x3", 128, 128, 1 << 18, False), ("bf16x3", 321, 51, 1 << 18, False)]
 #: The rungs' rows phase 3 times: (precision, (k, m, n), rungs); v3 and B10
 #: also at ds9 and ds8 (m = 1: their 32-row blocks, bound by the bytes).
 LADDER_TIER_TIMED = [("packed", DS11, ("v3", "v5", "v6")),
@@ -2309,17 +2315,29 @@ LADDER_TIER_TIMED = [("packed", DS11, ("v3", "v5", "v6")),
                      ("bf16x3", (768, 16, 1 << 20), ("v6",)),
                      ("packed", DS9, ("v3", "v5")), ("packed", DS8, ("v3", "v5"))]
 #: Each rung's wrapper, TPU kernel, and the kernels of its tier instance's
-#: and "highest" launch's device time (torch.profiler names, count; v3 and
-#: B10 chain ‖r‖² in the kernel, v6 takes B1's norm pass).
+#: and "highest" launch's device time (torch.profiler names, count; v3, B10
+#: and v6's live rows chain ‖r‖² in the kernel; v6 where it is B1's own
+#: launch takes B1's norm pass: ladder_device_kernels).
 LADDER_TIER_KERNELS = {
     "v3": ("aos_candidates", "tpu_knn/kernels/fused.py:318",
            (("tensor_aos_kernel",), 1), ("tiled_candidates", 1)),
     "v5": ("dma_candidates", "tpu_knn/kernels/dma_pipeline.py:44",
            (("tensor_tma_kernel",), 1), ("tma_candidates", 1)),
     "v6": ("const_query_candidates", "tpu_knn/kernels/fused.py:318",
-           (("CandidatesEpi", "tensor_live_kernel", "tensor_candidates_norms"), 2),
-           ("tiled_candidates", 1)),
+           (("tensor_live_kernel",), 1), ("tiled_candidates", 1)),
 }
+
+
+def ladder_device_kernels(rung, precision, k):
+    """The kernels of a rung's tier launch's device time at (precision, k):
+    LADDER_TIER_KERNELS', but v6 where it is B1's own launch (its q parts fit
+    a 64-row block) B1's kernel and norm pass."""
+    from tpu_knn_torch.kernels import tiers
+
+    if rung == "v6" and tiers.tensor_q_resident(tiers.ladder_terms(precision, k),
+                                                -(-k // 16) * 16):
+        return ("CandidatesEpi", "tensor_candidates_norms"), 2
+    return LADDER_TIER_KERNELS[rung][2]
 
 
 def ladder_timed_names():
@@ -2454,9 +2472,10 @@ def phase1_ladder_tiers(device, gen, cases):
             if beyond:
                 fail(f"{rows['v6']} {shape}: {beyond} of {apart} slots apart from plain beyond "
                      "a near-tie")
-            live = not tiers.tensor_q_resident(tiers.ladder_terms(precision, k), -(-k // 16) * 16)
-            notes.append(f"v6 (P={p6}, {'live rows, one block an SM' if live else 'B1 launch'}) "
-                         f"== B1's tier bit for bit")
+            terms6, k16 = tiers.ladder_terms(precision, k), -(-k // 16) * 16
+            how = ("B1 launch" if tiers.tensor_q_resident(terms6, k16) else
+                   f"live rows, {tiers.tensor_live_epilogue(terms6, m, k16)}")
+            notes.append(f"v6 (P={p6}, {how}) == B1's tier bit for bit")
         # v3
         ai, as_ = fused.aos_candidates(q, r, n, parts, precision)
         lists_agree = tiers.term_list(precision, k, aos=True) == tiers.term_list(precision, k)
@@ -2580,7 +2599,8 @@ def phase3_ladder_tiers(card, device, gen, reps, cases=LADDER_TIER_TIMED):
         terms = len(tiers.ladder_terms(precision, k, aos=False))
         for rung in rungs:
             row = names[precision, (k, m, n), rung]
-            (kernel_names, count), (hname, hcount) = LADDER_TIER_KERNELS[rung][2:]
+            kernel_names, count = ladder_device_kernels(rung, precision, k)
+            hname, hcount = LADDER_TIER_KERNELS[rung][3]
             times[f"{row} kernel device"] = kernel_device_ms(fns[f"{row} kernel"], runs, card,
                                                              kernel_names, count)
             times[f"{row} highest device"] = kernel_device_ms(fns[f"{row} highest"], runs, card,
@@ -3398,6 +3418,29 @@ def bound(m, k, n, width, extra_bytes, flops_per_term):
                     flops_per_term * m * n * k)
 
 
+def check_kdtree_frames(ptxas):
+    """Fail unless every v10 instance (kdtree_traverse_kernel<K, G>) has
+    a stack frame of 0 bytes in ptxas's report: its query, record and
+    stack live in registers and shared memory, none in local memory."""
+    import re
+
+    entry, checked = None, 0
+    for line in ptxas:
+        got = re.search(r"Function properties for '?(\w+)", line)
+        if got:
+            entry = got.group(1)
+            continue
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if entry and "kdtree_traverse_kernel" in entry and frame:
+            if int(frame.group(1)):
+                fail(f"v10: {entry} keeps {frame.group(1)} bytes in local memory")
+            checked += 1
+            entry = None
+    if checked != 2 * 16:
+        fail(f"checked {checked} v10 instances' stack frames, expected {2 * 16}")
+    log(f"  v10: no local memory in any of its {checked} instances")
+
+
 def check_no_spills(ptxas, kernels):
     """Fail if ptxas's report (-v) shows spill stores or loads in any
     instantiation of a kernel whose mangled name matches the pattern
@@ -3526,14 +3569,17 @@ def check_topk_smem(smem):
 
 #: The ladder's tier instances in ptxas's report (tensor_ladder_kernels.cu:
 #: tensor_aos_kernel<T, PACKED, KC, RES, ONE, BM> and tensor_tma_kernel<...>
-#: at each block height BM, 128 and 32 rows; tensor_live_kernel<T, KC>).
+#: at each block height BM, 128 and 32 rows; tensor_live_kernel<T, KC, BM,
+#: BPS> at 64 rows one an SM and 32 rows two).
 LADDER_ENTRIES = {
     **{f"{rung}'s tier instances ({policy} staging, {bm}-row blocks)":
        rf"{kernel}I(?:L[ib]\d+E){{5}}Li{bm}EE"
        for rung, policy, kernel in (("v3", "AoS", "tensor_aos_kernel"),
                                     ("B10", "TMA", "tensor_tma_kernel"))
        for bm in (128, 32)},
-    "v6's live-row instances": "tensor_live_kernel"}
+    **{f"v6's live-row instances ({bm}-row blocks, {per_sm} an SM)":
+       rf"tensor_live_kernelILi\d+ELi\d+ELi{bm}ELi{per_sm}EE"
+       for bm, per_sm in ((64, 1), (32, 2))}}
 
 
 def check_ladder_smem(smem):
@@ -3557,17 +3603,19 @@ def check_ladder_smem(smem):
     # or in the ring, and the one-chunk tile; T = 4 the one-chunk tile,
     # 16-row chunks and packed2's 32-row chunk; T = 8, 9: packed3's
     # one-chunk tiles), B10 16 at each (the same, but packed2 at 16 rows),
-    # v6's live rows 6 (T = 1, 3, 4 at 16 and 32).
-    if checked != 2 * 16 + 2 * 16 + 6:
-        fail(f"checked {checked} ladder tier instances, expected {2 * 16 + 2 * 16 + 6}")
+    # v6's live rows 6 at each of their 2 plans (T = 1, 3, 4 at 16 and 32).
+    if checked != 2 * 16 + 2 * 16 + 2 * 6:
+        fail(f"checked {checked} ladder tier instances, expected {2 * 16 + 2 * 16 + 2 * 6}")
     plans = {f"{shape} {precision} (v3, B10, {epilogue})": tiers.tensor_smem(
                  0, tiers.term_list(precision, k), kc, k, epilogue)
              for shape, precision, k, kc in (("ds11", "packed", 16, 16),
                                              ("(768, *)", "bf16x3", 768, 32))
              for epilogue in ("ladder", "ladder-serve")}
     plans.update({
-             "(768, 16) bf16x3 (v6, live rows)": tiers.tensor_live_smem(
-                 tiers.term_list("bf16x3", 768), 16, 768)})
+             f"({k}, {m}) bf16x3 (v6, live rows, "
+             f"{tiers.tensor_live_epilogue(tiers.term_list('bf16x3', k), m, k)})":
+             tiers.tensor_live_smem(tiers.term_list("bf16x3", k), m, k)
+             for k, m in ((768, 16), (768, 1), (128, 128))})
     log(f"  ladder tier instances: no static shared memory ({checked} instances); dynamic "
         f"plans (tiers) {plans}")
 
@@ -4382,11 +4430,16 @@ def kd_points(seed, k, m, n, grid=False):
     """Seeded host points and queries (NumPy: the tree is built on the
     host) with exact duplicates of point 5 at n/2 and n-1, query 0 equal to
     point 5 and query 1 to point n/3; ``grid`` puts every coordinate on a
-    coarse lattice, so many points lie on each split plane."""
+    coarse lattice, so many points lie on each split plane; grid="ties"
+    draws the points from 2^k values (0 or 0.5 a coordinate), so the tree
+    is deep in equal points and most of a query's visits tie."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    if grid:
+    if grid == "ties":
+        r = rng.integers(0, 2, (n, k)).astype(np.float32) * 0.5
+        q = rng.integers(0, 3, (m, k)).astype(np.float32) * 0.25
+    elif grid:
         r = rng.integers(0, 16, (n, k)).astype(np.float32) * 0.0625
         q = rng.integers(0, 32, (m, k)).astype(np.float32) * 0.03125
     else:
@@ -4394,14 +4447,20 @@ def kd_points(seed, k, m, n, grid=False):
         q = rng.random((m, k), np.float32)
     r[n // 2] = r[n - 1] = r[5]
     q[0] = r[5]
-    q[1] = r[n // 3]
+    if m > 1:
+        q[1] = r[n // 3]
     return r, q
 
 
-def phase1_kdtree(device, cases=((KD_ROW, False), (KD_ROW, True), ((16, 256, 1 << 12), False))):
+def phase1_kdtree(device, cases=((KD_ROW, False), (KD_ROW, True), ((16, 256, 1 << 12), False),
+                                 ((3, 1, 1 << 16), False), ((3, 256, 1 << 12), "ties"),
+                                 ((8, 256, 1 << 12), "ties"))):
     """v10's kernel against its plain version at (3, 1024, 2^16) (uniform
-    and lattice points) and (16, 256, 2^12): indices identical and d2 bit
-    for bit, in two launches that must be identical, with query 2 on the
+    and lattice points), (16, 256, 2^12), m = 1, and trees deep in equal
+    points (k = 3 and 8): at every lane group (KERNEL_LANES a query;
+    the wrapper's own, traversal.traverse_lanes, among them) indices
+    identical and d2 bit for bit, in two launches that must be identical,
+    over the node records DeviceKDTree built once, with query 2 on the
     root's split plane; 0 errors against the exact scan, and query 0 (equal
     to three points) on the lowest of them. Returns the largest |d2
     difference| (the row's max_abs_err)."""
@@ -4409,29 +4468,37 @@ def phase1_kdtree(device, cases=((KD_ROW, False), (KD_ROW, True), ((16, 256, 1 <
     import torch
 
     from tpu_knn_torch.kdtree.build import build_kdtree
-    from tpu_knn_torch.kdtree.traversal import DeviceKDTree, kdtree_traverse, traverse_plain
+    from tpu_knn_torch.kdtree.traversal import (KERNEL_LANES, DeviceKDTree, _launch,
+                                                traverse_lanes, traverse_plain)
 
     worst = 0.0
     for seed, ((k, m, n), grid) in enumerate(cases, start=1100):
-        label = f"({k}, {m}, {n})" + (" lattice" if grid else "")
+        label = f"({k}, {m}, {n})" + ({"ties": " ties"}.get(grid, " lattice") if grid else "")
         r, q = kd_points(seed, k, m, n, grid)
         tree = build_kdtree(r)
-        q[2] = q[3]
-        q[2, tree.dim[1]] = tree.split_val[1]     # on the root's split plane
+        if m > 3:
+            q[2] = q[3]
+            q[2, tree.dim[1]] = tree.split_val[1]     # on the root's split plane
         dev = DeviceKDTree(tree, device)
         qt = torch.from_numpy(q).to(device)
         args = (qt, dev.ref, dev.p, dev.dim, dev.split_val)
-        ki, kd = kdtree_traverse(*args)
-        ki2, kd2 = kdtree_traverse(*args)
         pi, pd, visits, _ = traverse_plain(*args, count_visits=True)
-        torch.cuda.synchronize()
-        if not (torch.equal(ki, ki2) and torch.equal(kd.view(torch.int32), kd2.view(torch.int32))):
-            fail(f"v10 {label}: two launches differ")
-        if not torch.equal(ki, pi):
-            fail(f"v10 {label}: {int((ki != pi).sum())} indices differ from the plain version")
-        if not torch.equal(kd.view(torch.int32), pd.view(torch.int32)):
-            fail(f"v10 {label}: d2 not bit for bit the plain version's")
-        err = float((kd - pd).abs().max())
+        err = 0.0
+        for lanes in KERNEL_LANES:
+            ki, kd = _launch(qt, dev.records, lanes)
+            ki2, kd2 = _launch(qt, dev.records, lanes)
+            torch.cuda.synchronize()
+            if not (torch.equal(ki, ki2)
+                    and torch.equal(kd.view(torch.int32), kd2.view(torch.int32))):
+                fail(f"v10 {label} ({lanes} lanes a query): two launches differ")
+            if not torch.equal(ki, pi):
+                fail(f"v10 {label} ({lanes} lanes a query): {int((ki != pi).sum())} indices "
+                     "differ from the plain version")
+            if not torch.equal(kd.view(torch.int32), pd.view(torch.int32)):
+                fail(f"v10 {label} ({lanes} lanes a query): d2 not bit for bit the plain "
+                     "version's")
+            err = max(err, float((kd - pd).abs().max()))
+        ki, kd = dev.query(qt)
         worst = max(worst, err)
         lowest = int(np.flatnonzero((r == r[5]).all(axis=1)).min())
         if int(ki[0]) != lowest:
@@ -4439,8 +4506,9 @@ def phase1_kdtree(device, cases=((KD_ROW, False), (KD_ROW, True), ((16, 256, 1 <
         errors = gate_errors(qt, dev.ref, ki)
         if errors:
             fail(f"v10 {label}: {errors} errors against the exact scan")
-        log(f"  v10 {label}: kernel = plain (indices, d2 bits), max |d2 diff| {err:.3g}, "
-            f"{visits} visits ({visits / m:.1f} a query), 0 errors, query 0 -> {lowest}")
+        log(f"  v10 {label}: kernel = plain (indices, d2 bits) at {KERNEL_LANES} lanes a query "
+            f"(the wrapper's {traverse_lanes(k)}), max |d2 diff| {err:.3g}, {visits} visits "
+            f"({visits / m:.1f} a query), 0 errors, query 0 -> {lowest}")
     return worst
 
 
@@ -4611,17 +4679,20 @@ def phase2_persist(device, gen, tmp, ds11=DS11, ds10=DS10, n_auto=1 << 24):
 
 
 def phase3_kdtree(card, kd_ctx, reps):
-    """v10's kernel (events and device time) and its plain version at the
-    KD row and ds10, with the visits the plain version counts; v9's native
-    host query (its tree built once) and host build there; the kdtree
-    index's 1-NN and K = 8 queries at ds10 (host wall). Returns (times,
-    bounds, visits)."""
+    """v10's kernel over a built DeviceKDTree (its node records built
+    once; events and device time), the records' build beside it (host wall
+    of DeviceKDTree and kd_records alone by events), and its plain version
+    at the KD row and ds10, with the visits the plain version counts; v9's
+    native host query (its tree built once) and host build there; the
+    kdtree index's 1-NN and K = 8 queries at ds10 (host wall). Returns
+    (times, bounds, visits)."""
     import numpy as np
     import torch
 
     from tpu_knn_torch import native
     from tpu_knn_torch.kdtree.build import build_kdtree
-    from tpu_knn_torch.kdtree.traversal import DeviceKDTree, kdtree_traverse, traverse_plain
+    from tpu_knn_torch.kdtree.traversal import (DeviceKDTree, kd_records, kdtree_traverse,
+                                                traverse_plain)
     from tpu_knn_torch.utils.timing import time_ms
 
     times, bounds, visits = {}, {}, {}
@@ -4633,13 +4704,21 @@ def phase3_kdtree(card, kd_ctx, reps):
         t0 = time.perf_counter()
         tree = build_kdtree(rh)
         times[f"v9 build {label} host"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         dev = DeviceKDTree(tree, q.device)
+        torch.cuda.synchronize()
+        times[f"v10 DeviceKDTree {label} host"] = (time.perf_counter() - t0) * 1e3
         args = (q, dev.ref, dev.p, dev.dim, dev.split_val)
-        times.update(time_ms({f"v10 kernel {label}": lambda: kdtree_traverse(*args)}, reps))
+        # Apart: the records' build reads a count back to the host, which
+        # would stall the traversal's timed launches beside it.
+        times.update(time_ms({f"v10 kernel {label}": lambda: dev.query(q)}, reps))
+        times.update(time_ms({f"v10 records {label}": lambda: kd_records(*args[1:])}, reps))
         times.update(time_ms({f"v10 plain {label}": lambda: traverse_plain(*args)}, 3,
                              warmup=1))
         times[f"v10 kernel {label} device"] = kernel_device_ms(
-            lambda: kdtree_traverse(*args), reps, card, kernel="kdtree_traverse")
+            lambda: kdtree_traverse(*args, records=dev.records), reps, card,
+            kernel="kdtree_traverse")
         _, _, visits[label], nodes = traverse_plain(*args, count_visits=True)
         samples = []
         for _ in range(reps):
@@ -4647,12 +4726,14 @@ def phase3_kdtree(card, kd_ctx, reps):
             native.kdtree_query(qh, rh, tree.p, tree.dim)
             samples.append((time.perf_counter() - t0) * 1e3)
         times[f"v9 query {label} host"] = float(np.median(samples))
-        # Bytes: the queries and answers, and each distinct visited node
-        # (p, dim, split_val) and its point once; operations: 3k a visit.
+        # Bytes: the queries and answers, and each distinct visited node's
+        # split_val, p, dim and point once (the function's, not the
+        # records' padded rows); operations: 3k a visit.
         bounds[f"v10 {label}"] = roofline(4 * m * k + 8 * m + nodes * (12 + 4 * k),
                                           3 * k * visits[label])
         log(f"  v10 {label}: {visits[label]} visits ({visits[label] / m:.1f} a query) "
-            f"over {nodes} distinct nodes; "
+            f"over {nodes} distinct nodes; records {times[f'v10 records {label}']:.3f} ms "
+            f"(DeviceKDTree {times[f'v10 DeviceKDTree {label} host']:.1f} ms host); "
             f"v9 host build {times[f'v9 build {label} host']:.1f} ms, "
             f"host query {times[f'v9 query {label} host']:.3f} ms [{card}]")
         del dev, args, tree
@@ -5024,9 +5105,12 @@ def main() -> int:
             "B1-bf16 and B4-bf16 (the tiled kernel, BF16 policy)": "tiled_bf16_candidates_kernel",
             "B3-bf16": "bf16_minima_kernel", "B7-bf16": "bf16_moments_kernel",
             "B5-bf16": SWEEP_BF16_ENTRY, "B6-bf16 (K-lists over B2-bf16's loads)":
-                SMALLM_BF16_TOPK_ENTRY, "v10 (KD-tree traversal)": "kdtree_traverse_kernel",
+                SMALLM_BF16_TOPK_ENTRY,
+            **{f"v10 (KD-tree traversal, {g} lanes a query)":
+               rf"kdtree_traverse_kernelILi\d+ELi{g}EE" for g in (1, 32)},
             **{name: pattern for name, pattern in LADDER_ENTRIES.items()}})
         check_ladder_smem(smem)
+        check_kdtree_frames(ptxas)
         check_tiled_smem(smem)
         check_topk_smem(smem)
         check_scan_smem(smem)
@@ -5673,6 +5757,9 @@ def main() -> int:
                                          ("bound_ms", ladder_bounds[f"B11 {label}"][0]))},
               "B2-bf16": {"device_ms_l2_flushed": times["B2-bf16 kernel device L2 flushed"]},
               "v10": {"ms_kd_row": times["v10 kernel KD row (3, 1024, 2^16)"],
+                      "records_ms_ds10": times["v10 records ds10"],
+                      "DeviceKDTree_host_ms_ds10": times["v10 DeviceKDTree ds10 host"],
+                      "lanes_a_query": traversal.traverse_lanes(3),
                       "device_ms_kd_row": times["v10 kernel KD row (3, 1024, 2^16) device"],
                       "plain_ms_kd_row": times["v10 plain KD row (3, 1024, 2^16)"],
                       "bound_ms_kd_row": kd_bounds["v10 KD row (3, 1024, 2^16)"][0],

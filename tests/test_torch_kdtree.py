@@ -276,3 +276,90 @@ def test_a_failed_native_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="native KD-tree build failed"):
         nb.build()
     assert list(tmp_path.iterdir()) == []
+
+
+# ---- v10's node records and its lane groups (the kernel's order, plain) -------
+
+
+@pytest.mark.parametrize("k,n,grid", [(3, 5000, False), (3, 7, False), (1, 1000, True),
+                                      (16, 300, False), (5, 2, False)])
+def test_kd_records_hold_each_nodes_split_point_and_children(k, n, grid):
+    """kd_records' row i is node i of the heap: split_val's bits, p, the
+    clamped split dimension with bit 8 / bit 9 set exactly where the left /
+    right child lies below cap and holds a point (traverse_plain's push
+    test), and the point's coordinates; empty nodes hold p = -1 and zeros;
+    the rows stop at the last used node. Small n leaves empty children
+    inside the heap (n = 7, 2), so the bits are not implied by the index."""
+    r, _ = _planted(k, n, 4, seed=k + n, grid=grid)
+    dev = traversal.DeviceKDTree(build_kdtree(r), "cpu")
+    rec = traversal.kd_records(dev.ref, dev.p, dev.dim, dev.split_val)
+    p, dim, split = dev.p.numpy(), dev.dim.numpy(), dev.split_val.numpy()
+    top = int(np.flatnonzero(p >= 0).max())
+    assert rec.dtype == torch.int32 and rec.shape == (top + 1, traversal.record_words(k))
+    assert traversal.record_words(k) % 4 == 0
+    rec = rec.numpy()
+    cap = p.shape[0]
+    empty_children = 0
+    for i in range(top + 1):
+        row = rec[i]
+        assert row[1] == p[i]
+        if p[i] < 0:
+            assert not row[[0, 2]].any() and not row[4:].any()
+            continue
+        assert row[0] == split[i:i + 1].view(np.int32)[0]
+        assert row[2] & 0xFF == dim[i]
+        for bit, child in ((8, 2 * i), (9, 2 * i + 1)):
+            exists = child < cap and p[child] >= 0
+            assert bool(row[2] >> bit & 1) == exists
+            empty_children += not exists
+        np.testing.assert_array_equal(row[4:4 + k].view(np.float32), r[p[i]])
+        assert not row[4 + k:].any()
+    assert empty_children > 0
+    with pytest.raises(ValueError, match="root"):
+        traversal.kd_records(dev.ref, torch.full_like(dev.p, -1), dev.dim, dev.split_val)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 8, 32])
+@pytest.mark.parametrize("k,n,m,grid", [(3, 20_000, 256, False), (3, 4000, 200, True),
+                                        (8, 3000, 64, False), (2, 3000, 96, True)])
+def test_records_traversal_is_traverse_plain(k, n, m, grid, lanes):
+    """The kernel's traversal over the records, as torch ops
+    (traverse_records_plain: a group of `lanes` pops and visits that many
+    entries a step, folds their (d2, index) by the lexicographic minimum,
+    pushes in level order), answers traverse_plain's indices and d2 bit
+    for bit on uniform and lattice points, whatever the group: the answer
+    does not depend on the order of the visits. One lane is
+    traverse_plain's own order: its visits are traverse_plain's count."""
+    r, q = _planted(k, n, m, seed=5 * k + m, grid=grid)
+    dev = traversal.DeviceKDTree(build_kdtree(r), "cpu")
+    qt = torch.from_numpy(q)
+    args = (qt, dev.ref, dev.p, dev.dim, dev.split_val)
+    pi, pd, visits, _ = traversal.traverse_plain(*args, count_visits=True)
+    rec = traversal.kd_records(dev.ref, dev.p, dev.dim, dev.split_val)
+    gi, gd, steps, pops, vis = traversal.traverse_records_plain(qt, rec, lanes, counts=True)
+    assert torch.equal(gi, pi)
+    assert torch.equal(gd.view(torch.int32), pd.view(torch.int32))
+    np.testing.assert_array_equal(gi.numpy(), oracle_knn(q, r))
+    assert bool((steps <= pops).all()) and bool((vis <= pops).all())
+    assert bool((pops <= steps * lanes).all())
+    if lanes == 1:
+        assert int(vis.sum()) == visits and torch.equal(steps, pops)
+
+
+def test_the_stack_depth_check_raises_for_a_tree_too_deep():
+    """The host checks a tree's levels against the traversal's stack
+    (STACK_CAP levels: one entry a level for one query, 2 G a level for a
+    group of G lanes, csrc kStackCap) before a launch: a heap whose last
+    used node lies at level STACK_CAP or deeper raises, the deepest that
+    fits does not; the records' check and kdtree_traverse's go through
+    it. The lanes a query follow k (traverse_lanes)."""
+    cap = traversal.STACK_CAP
+    assert traversal.stack_levels(1) == 1 and traversal.stack_levels(5) == 3
+    assert traversal.stack_levels(2 ** cap - 1) == cap
+    for top in (2 ** cap, 2 ** (cap + 4) + 3):
+        with pytest.raises(ValueError, match="deeper than the traversal's stack"):
+            traversal.stack_levels(top)
+    with pytest.raises(ValueError, match="records must be"):
+        traversal._check_records(torch.zeros((1, 8), dtype=torch.int32), torch.zeros((2, 3)))
+    assert [traversal.traverse_lanes(k) for k in (1, 3, 4, 16)] == [1, 1, 32, 32]
+    assert set(traversal.traverse_lanes(k) for k in range(1, 17)) <= set(traversal.KERNEL_LANES)

@@ -1065,25 +1065,36 @@ def _tree_case(device, k, m, n, seed, grid=False):
         q = rng.random((m, k), np.float32)
     r[n // 2] = r[n - 1] = r[5]
     q[0] = r[5]
-    q[1] = r[n // 3]
+    if m > 1:
+        q[1] = r[n // 3]
     return DeviceKDTree(build_kdtree(r), device), torch.from_numpy(q).to(device)
 
 
 @pytest.mark.parametrize("k,m,n,grid", [(3, 1024, 1 << 16, False), (3, 500, 20_000, True),
                                         (1, 64, 5000, True), (8, 256, 1 << 14, False),
-                                        (16, 64, 1 << 12, False), (5, 33, 7, False)])
+                                        (16, 64, 1 << 12, False), (5, 33, 7, False),
+                                        (3, 1, 1 << 16, False), (3, 33, 20_000, False),
+                                        (4, 1024, 1 << 14, True)])
 def test_v10_kernel_is_its_plain_version_bit_for_bit(device, k, m, n, grid):
-    from tpu_knn_torch.kdtree.traversal import kdtree_traverse, traverse_plain
+    """v10's kernel over the node records DeviceKDTree built once, at its
+    own lanes a query and at every group it is built for (KERNEL_LANES), equals
+    traverse_plain (indices and d2 bits) at m = 1, 33 and 1024, and the
+    exact scan; a launch counts once."""
+    from tpu_knn_torch.kdtree.traversal import (KERNEL_LANES, _launch, kdtree_traverse,
+                                                traverse_plain)
 
     tree, q = _tree_case(device, k, m, n, seed=k + m, grid=grid)
     args = (q, tree.ref, tree.p, tree.dim, tree.split_val)
     before = kdtree_traverse.launches
-    ki, kd = kdtree_traverse(*args)
+    ki, kd = tree.query(q)
     torch.cuda.synchronize()
     assert kdtree_traverse.launches == before + 1
     pi, pd = traverse_plain(*args)
     assert torch.equal(ki, pi)
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    for lanes in KERNEL_LANES:
+        gi, gd = _launch(q, tree.records, lanes)
+        assert torch.equal(gi, pi) and torch.equal(gd.view(torch.int32), pd.view(torch.int32))
     # The exact scan in the kernel's order: a multiply and an add per d.
     d2 = sum((q[:, None, d] - tree.ref[None, :, d]) ** 2 for d in range(k))
     want = torch.where(d2 == d2.min(dim=1, keepdim=True).values,
@@ -1448,13 +1459,20 @@ def test_ladder_tier_block_heights_are_b1s_tier(device, precision, k, m):
 @pytest.mark.parametrize("precision,k,m,n", [
     ("bf16x3", 768, 16, 5000), ("bf16x3", 256, 64, 20_077), ("bf16x3", 128, 100, 5003),
     ("bf16x4", 7000, 2, 300), ("default", 16384, 1, 2000), ("bf16x3", 80, 200, 3000),
+    ("bf16x3", 768, 1, 20_077), ("bf16x3", 780, 21, 5003), ("bf16x3", 512, 32, 5000),
+    ("bf16x3", 496, 33, 5000), ("bf16x3", 321, 51, 3001), ("bf16x3", 16384, 1, 1000),
+    ("default", 4000, 4, 3000), ("bf16x4", 1024, 16, 3000),
 ])
 def test_v6_tier_instance_keeps_the_live_rows_resident(device, precision, k, m, n):
     """Where a 64-row block's q parts exceed the resident budget (k > 80),
-    v6's instance keeps the live rows' parts (one block an SM) and still
-    gives B1's tier candidates bit for bit, at the guard's extremes (k m =
-    16384) and over two row tiles (m = 100: 64 + 36 live rows); at k = 80
-    the parts fit and v6 is B1's own launch."""
+    v6's instance keeps the live rows' parts in its own plan
+    (tiers.tensor_live_epilogue: 32-row blocks two an SM at m <= 32 where
+    their parts fit 15 KB, else 64-row blocks one an SM with the split a
+    step ahead) with ‖r‖² chained in the block, and still gives B1's tier
+    candidates bit for bit at its own P, at the guard's extremes (k m =
+    16384, k = 16384 at m = 1, the most live bytes at (321, 51)) and over
+    two row tiles (m = 100: 64 + 36 live rows); at k = 80 the parts fit and
+    v6 is B1's own launch."""
     assert fused.const_query_fits(m, k)
     terms = tiers.ladder_terms(precision, k)
     k16 = -(-k // 16) * 16

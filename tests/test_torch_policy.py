@@ -1023,7 +1023,9 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
     ring stages; B1, B4, B3, B5 and B7 run one 128-row block an SM, B5 at
     m <= 32 two 32-row blocks; the ladder's epilogue (tiers.LADDER_EPILOGUES,
     at each height its C entry dispatches) one 128-row block for v3 and B10,
-    two 32-row ones at m <= 32, one 64-row block for v6's live rows."""
+    two 32-row ones at m <= 32; v6's live rows (LiveEpi<BM, BPS>, each
+    (policy, height) tk_tensor_resident_candidates dispatches) one 64-row
+    block, or two 32-row ones."""
     import os
     import re
 
@@ -1051,11 +1053,21 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
         consts.update(kTBM=tiers.TENSOR_LIVE_TILE_M)
         # B5 and the ladder are templates on their rows (BM): each height
         # their entries dispatch (the ladder's: dispatch_ladder_rows).
-        ladder_names = {"kLadderRows": "ladder", "kLadderServeRows": "ladder-serve",
-                        "kTBM": "ladder-live"}
+        ladder_names = {"kLadderRows": "ladder", "kLadderServeRows": "ladder-serve"}
+        live = {}
         if kid == "ladder":
-            heights = [(ladder_names[h], consts[h])
-                       for h in re.findall(r"dispatch_ladder_rows<\w+, (\w+)>", src)]
+            # v3's and B10's heights (POL) and v6's live rows' (policy, height).
+            pair = re.search(r"LiveEpi<BM, POL == (\w+) \? 2 : 1>", src).group(1)
+            live_body = src[src.index("struct LiveEpi : LadderEpi<true, BM> {"):]
+            assert re.search(r"kBlocksPerSm = BPS;", live_body)
+            heights = []
+            for pol, h in re.findall(r"dispatch_ladder_rows<(\w+), (\w+)>", src):
+                if pol == "POL":
+                    heights.append((ladder_names[h], consts[h]))
+                    continue
+                name = "ladder-live" if h == "kTBM" else "ladder-live-pair"
+                live[name] = 2 if pol == pair else 1
+                heights.append((name, consts[h]))
         elif rows == "BM":
             heights = [(f"{kid}-serve" if h == "kServeRows" else kid, consts.get(h) or int(h))
                        for h in re.findall(rf"dispatch_tensor<{struct}<(\w+)>>", src)]
@@ -1065,7 +1077,8 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
                            per_sm.split("//")[0])
         for name, bm in heights:
             env = dict(consts, BM=bm)
-            declared[name] = (eval(py_per_sm, {}, env), contig, eval(rows, {}, env))
+            declared[name] = (live.get(name) or eval(py_per_sm, {}, env), contig,
+                              eval(rows, {}, env))
     declared["B7-band"] = declared["B7"]
     assert {kid: declared.pop(kid) for kid in tiers.LADDER_EPILOGUES} == {
         kid: v[1:] for kid, v in tiers.LADDER_EPILOGUES.items()}
@@ -1073,8 +1086,10 @@ def test_tensor_epilogues_mirror_the_kernel_constants_and_fit_the_sm():
     assert [tiers.TENSOR_EPILOGUES[kid][1] for kid in ("B1", "B4", "B3", "B5", "B7")] == [
         1, 1, 1, 1, 1]
     assert [tiers.tensor_rows(kid) for kid in ("B1", "B4", "B3", "B7", "B5", "B5-serve",
-                                               "ladder", "ladder-serve", "ladder-live")] == [
-        128, 128, 128, 128, 128, 32, 128, 32, 64]
+                                               "ladder", "ladder-serve", "ladder-live",
+                                               "ladder-live-pair")] == [
+        128, 128, 128, 128, 128, 32, 128, 32, 64, 32]
+    assert [tiers.tensor_blocks_per_sm(kid) for kid in tiers.LIVE_PLANS] == [1, 2]
     assert tiers.sweep_tier_epilogue(32) == "B5-serve" and tiers.sweep_tier_epilogue(33) == "B5"
     assert tiers.ladder_epilogue(32) == "ladder-serve" and tiers.ladder_epilogue(33) == "ladder"
     for epilogue in (*tiers.TENSOR_EPILOGUES, "ladder", "ladder-serve"):
@@ -1275,9 +1290,12 @@ def test_v6_live_instance_plan_fits_one_block_an_sm():
     """v6's tier instance keeps its q parts resident at every shape its
     guard admits: B1's own launch where a 64-row block's parts fit
     TENSOR_Q_RESIDENT_BYTES (every k <= 80, ds11 among them), else the
-    live rows' parts within TENSOR_Q_LIVE_BYTES (csrc kQResidentLiveBytes),
-    whose plan (tiers.tensor_live_smem, csrc launch_ladder) fits one block
-    an SM beside a 4-stage ring; P is then one block an SM's."""
+    live rows' parts within TENSOR_Q_LIVE_BYTES (csrc kQResidentLiveBytes)
+    in the plan tiers.tensor_live_epilogue picks: two 32-row blocks an SM
+    at m <= 32 where the parts fit a 32-row block's q_resident_limit, else
+    one 64-row block. Each plan (tiers.tensor_live_smem, csrc live_smem)
+    fits its blocks an SM beside a 4-stage ring, one block an SM with two
+    plane sets (the split a step ahead); P is its blocks' wave."""
     import os
     import re
 
@@ -1287,7 +1305,6 @@ def test_v6_live_instance_plan_fits_one_block_an_sm():
     with open(os.path.join(csrc, "tensor_mainloop.cuh")) as f:
         live = re.search(r"kQResidentLiveBytes = (\d+) \* 1024;", f.read())
     assert int(live.group(1)) * 1024 == tiers.TENSOR_Q_LIVE_BYTES
-    budget = min(tiers.SMEM_PER_SM - tiers.SMEM_PER_BLOCK_RESERVED, tiers.SMEM_PER_BLOCK)
     for precision in ("bf16x3", "bf16x4", "default", "bf16x3_presplit", "packed"):
         for k in list(range(1, 200, 7)) + [256, 768, 1000, 2048, 7000, 16368, 16384]:
             terms = tiers.ladder_terms(precision, k)
@@ -1298,14 +1315,60 @@ def test_v6_live_instance_plan_fits_one_block_an_sm():
                 if tiers.tensor_q_resident(terms, k16):
                     assert k16 <= (96 if len(terms) > 1 else 192)
                     continue
-                assert tiers.tensor_live_q_bytes(terms, m, k16) <= tiers.TENSOR_Q_LIVE_BYTES
+                epilogue = tiers.tensor_live_epilogue(terms, m, k16)
+                rows, per_sm = tiers.tensor_rows(epilogue), tiers.tensor_blocks_per_sm(epilogue)
+                assert (rows, per_sm) == ((32, 2) if m <= 32 and tiers._live_q_bytes(
+                    terms, m, k16, 32) <= tiers.tensor_q_resident_limit(32) else (64, 1))
+                budget = min(tiers.SMEM_PER_SM // per_sm - tiers.SMEM_PER_BLOCK_RESERVED,
+                             tiers.SMEM_PER_BLOCK)
+                assert tiers.tensor_live_q_bytes(terms, m, k16) <= (
+                    tiers.TENSOR_Q_LIVE_BYTES if per_sm == 1 else
+                    tiers.tensor_q_resident_limit(rows))
                 kc = tiers.tensor_chunk(k16)
-                assert tiers.tensor_live_stages(terms, kc) == 4
+                assert tiers.tensor_stages(0, terms, kc, epilogue) == 4
+                assert tiers.tensor_plane_sets(0, terms, kc, epilogue) == 3 - per_sm
                 assert tiers.tensor_live_smem(terms, m, k16) <= budget
-                one_block = pt_tuning._wave_parts(-(-m // 64) * 4, 8192, 4, 1)
-                assert tiers.resident_tier_parts(precision, m, k, 1 << 20) == one_block
+                wave = pt_tuning._wave_parts(-(-m // rows) * 4, 8192, 4, per_sm)
+                assert tiers.resident_tier_parts(precision, m, k, 1 << 20) == wave
     assert tiers.resident_tier_parts("packed", 1024, 16, 1 << 20) == tiers.tensor_parts(
         1024, 1 << 20)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "bf16x4", "default"])
+def test_v6_live_plans_fit_at_both_heights_and_fill_the_card(precision):
+    """Every live-row epilogue's plan, at its q budget (csrc
+    LiveEpi::kLiveQBytes: TENSOR_Q_LIVE_BYTES one block an SM, a block's
+    q_resident_limit two), fits its blocks an SM with a 4-stage ring for
+    every term list v6 runs and both chunks; one block an SM keeps two
+    plane sets. At every m <= 64 and k <= 16384 the guard admits beyond
+    B1's own launch, the chosen plan holds the live rows' parts, and its P
+    fills 90-100% of one wave of the card's slots at n = 2^20."""
+    from tpu_knn_torch.kernels import tiers
+
+    terms_k = tiers.ladder_terms(precision, 768)
+    for epilogue in tiers.LIVE_PLANS:
+        per_sm = tiers.tensor_blocks_per_sm(epilogue)
+        budget = min(tiers.SMEM_PER_SM // per_sm - tiers.SMEM_PER_BLOCK_RESERVED,
+                     tiers.SMEM_PER_BLOCK)
+        for kc in (16, 32):
+            sets = tiers.tensor_plane_sets(0, terms_k, kc, epilogue)
+            stages = tiers.tensor_stages(0, terms_k, kc, epilogue)
+            _, _, r_stage, _, planes = tiers._tensor_plan(0, terms_k, kc,
+                                                          tiers.tensor_rows(epilogue))
+            most = (tiers._fixed_bytes(0, epilogue, sets) + stages * r_stage + sets * planes
+                    + tiers._live_q_budget(epilogue))
+            assert (stages, sets) == (4, 3 - per_sm) and most <= budget, (epilogue, kc)
+    for k in [81, 97, 128, 200, 496, 512, 768, 780, 1024, 4000, 16368, 16384]:
+        terms, k16 = tiers.ladder_terms(precision, k), -(-k // 16) * 16
+        for m in range(1, 65):
+            if not pt_fused.const_query_fits(m, k) or tiers.tensor_q_resident(terms, k16):
+                continue
+            epilogue = tiers.tensor_live_epilogue(terms, m, k16)
+            assert tiers.tensor_live_q_bytes(terms, m, k16) <= tiers._live_q_budget(epilogue)
+            parts = tiers.resident_tier_parts(precision, m, k, 1 << 20)
+            slots = tiers.tensor_blocks_per_sm(epilogue) * pt_tuning.H100_SMS
+            blocks = -(-m // tiers.tensor_rows(epilogue)) * 4 * parts
+            assert 0.9 * slots <= blocks <= slots, (precision, k, m, epilogue, parts)
 
 
 @pytest.mark.parametrize("k,m,n", [(16, 1, 1 << 24), (3, 1, 1 << 24), (16, 1024, 1 << 20),

@@ -118,7 +118,7 @@ def load() -> ctypes.CDLL:
     for name in ("banded", "minima", "sweep", "moments"):
         getattr(lib, f"tk_tensor_{name}").restype = i32
     # The 1-NN ladder's tier instances (tensor_ladder_kernels.cu): v3, v6, B10.
-    lib.tk_tensor_resident_candidates.argtypes = [ptr] * 5 + [i32, i32, i64] + [i32] * 5 + [ptr]
+    lib.tk_tensor_resident_candidates.argtypes = [ptr] * 5 + [i32, i32, i64] + [i32] * 6 + [ptr]
     lib.tk_tensor_aos_candidates.argtypes = [ptr] * 4 + [i32, i32, i64] + [i32] * 5 + [ptr]
     lib.tk_tensor_dma_candidates.argtypes = [ptr] * 3 + [i32, i32, i64] + [i32] * 5 + [ptr]
     for name in ("aos", "resident", "dma"):
@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
     lib.tk_dma_candidates.restype = i32
     lib.tk_window_candidates.argtypes = [ptr] * 4 + [i32, i32, i64, i32, i32, ptr]
     lib.tk_window_candidates.restype = i32
-    lib.tk_kdtree_traverse.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
+    lib.tk_kdtree_traverse.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.tk_kdtree_traverse.restype = i32
     # The bf16 instances take their f32 instance's arguments, r a bf16 operand.
     for name in ("fused_candidates", "banded_candidates", "sweep_candidates",

@@ -49,12 +49,25 @@
 // parts stay resident in shared memory at every shape v6's guard admits (k
 // m <= 16384 floats). Where a 64-row block's parts fit kQResidentBytes
 // (every k <= 80, ds11 among them) that is B1's own tier launch
-// (tk_tensor_candidates). Above, the instance keeps the parts of the
-// block's live rows only (LIVE: at most 16384 + 64 * 15 values a part,
-// 96 KB with the pad, kQResidentLiveBytes) and runs one block an SM, whose
-// shared memory holds them beside a ring as deep as B1's; a fragment row
-// past the live rows reads the last live row, and its scores are never
-// written.
+// (tk_tensor_candidates). Above, the live-row instance (tensor_live_kernel)
+// keeps the parts of the block's live rows only (LIVE: at most 16384 + 64 *
+// 15 values a part, 101 KB with the pad, kQResidentLiveBytes); a fragment
+// row past the live rows reads the last live row, and its scores are never
+// written. It stages the SoA operand under LiveStaging, which chains each
+// column's |r|^2 in the block over the staged chunks (kNorms, B10's chain
+// over the SoA stage: B1's norm pass's bits, without its second read of the
+// operand), and its plan follows m (LiveEpi<BM, BPS>, chosen on the host,
+// tiers.tensor_live_epilogue): 64-row blocks of 8 warps, one an SM, the
+// split a step ahead (two plane sets beside a 4-stage ring even at
+// kQResidentLiveBytes of parts); at m <= 32 where the live rows' parts fit
+// a 32-row block's q_resident_limit (15 KB: m = 1 up to k = 2048 at
+// bf16x3), 32-row blocks of 4 warps, two an SM, each chunk split at its
+// step (at (768, 1, 2^20) 1.82 ms against the 64-row block's 2.18). A
+// 32-row block alone on an SM (4 warps, twice the split a thread) measured
+// 3.35 ms at (768, 16 and 21, 2^20) against 2.18 (PERF.md §6), so m <= 32
+// takes 64-row blocks where two 32-row ones do not fit. Each plan is
+// checked at compile time at its budget (EPI::kLiveQBytes); a launch
+// checks the live rows' bytes against it.
 //
 // Bound on the H100: as B1's tiers, tensor-core operations T * 2 * m * n *
 // k16 at 989 TFLOP/s, beside which the operand is read once (at m of a few
@@ -64,8 +77,8 @@
 // B10 run B1's block above m = 32, 128 rows of 16 warps, one an SM, whose
 // ring keeps two plane sets, so the split runs a step ahead; at m <= 32,
 // 32-row blocks of 4 warps (every warp on live rows), two an SM, 20-30%
-// faster at m = 1 than the 128-row blocks (PERF.md §6). LIVE runs 64-row
-// blocks, one an SM.
+// faster at m = 1 than the 128-row blocks (PERF.md §6). v6's live rows:
+// tiers.tensor_live_epilogue, as above.
 
 #include <type_traits>
 
@@ -275,6 +288,12 @@ struct TmaStaging : SoaStaging {
   }
 };
 
+// The live-row policy (v6): the SoA stage, each column's |r|^2 chained in
+// the block over it (SoaStaging::norm_chain), no norm pass.
+struct LiveStaging : SoaStaging {
+  static constexpr bool kNorms = true;
+};
+
 static_assert((kTMaxStages + 1) / 2 <= 16 && 4 * sizeof(__nv_bfloat16) == sizeof(uint64_t) &&
                   kTPlaneLd - kTCols == 8,
               "the padding of the planes' first 16 rows holds two barriers a row");
@@ -359,7 +378,16 @@ template <int BM>
 using AosEpi = LadderEpi<true, BM>;
 template <int BM>
 using DmaEpi = LadderEpi<false, BM>;
-using LiveEpi = LadderEpi<true, kTBM>;
+
+// v6's live rows at BM rows, BPS blocks an SM: B1's fold, and the budget
+// of the live rows' q parts the plan holds (kLiveQBytes: one block an SM
+// kQResidentLiveBytes, two a 32-row block's q_resident_limit).
+template <int BM, int BPS>
+struct LiveEpi : LadderEpi<true, BM> {
+  static constexpr int kBlocksPerSm = BPS;
+  static constexpr int blocks_per_sm(int, int) { return kBlocksPerSm; }
+  static constexpr size_t kLiveQBytes = BPS == 1 ? kQResidentLiveBytes : q_resident_limit<BM>();
+};
 
 // ---- the kernels -------------------------------------------------------------
 
@@ -381,25 +409,29 @@ tensor_tma_kernel(const TensorParams p, const LadderArgs e,
   tensor_mainloop<T, kModeF32, PACKED, KC, RES, ONE, DmaEpi<BM>, TmaStaging, false>(p, e, &map);
 }
 
-template <int T, int KC>
-__global__ void __launch_bounds__(kTThreads, LiveEpi::blocks_per_sm(T, KC))
+template <int T, int KC, int BM, int BPS>
+__global__ void __launch_bounds__(block_threads<BM>(), BPS)
 tensor_live_kernel(const TensorParams p, const LadderArgs e) {
-  tensor_mainloop<T, kModeF32, false, KC, true, false, LiveEpi, SoaStaging, true>(p, e, nullptr);
+  tensor_mainloop<T, kModeF32, false, KC, true, false, LiveEpi<BM, BPS>, LiveStaging, true>(
+      p, e, nullptr);
 }
 
 // ---- the launches --------------------------------------------------------------
 
-enum LadderPolicy { kLadderAos = 0, kLadderTma = 1, kLadderLive = 2 };
+// kLadderLive: v6's live rows, 64-row blocks one an SM; kLadderLivePair:
+// 32-row blocks two an SM.
+enum LadderPolicy { kLadderAos = 0, kLadderTma = 1, kLadderLive = 2, kLadderLivePair = 3 };
 
 template <int POL, int BM>
-using LadderEpiOf =
-    std::conditional_t<POL == kLadderAos, AosEpi<BM>,
-                       std::conditional_t<POL == kLadderTma, DmaEpi<BM>, LiveEpi>>;
+using LadderEpiOf = std::conditional_t<
+    POL == kLadderAos, AosEpi<BM>,
+    std::conditional_t<POL == kLadderTma, DmaEpi<BM>,
+                       LiveEpi<BM, POL == kLadderLivePair ? 2 : 1>>>;
 
 // The bytes of a LIVE block's resident q parts: nq parts of the live rows
-// of its first block (min(m, 64)), every chunk, rows KC + kTPad apart.
-inline size_t live_q_bytes(int nq, int m, int k16, int kc) {
-  return static_cast<size_t>(nq) * (m < kTBM ? m : kTBM) * (k16 / kc) * (kc + kTPad) * 2;
+// of its first block (min(m, BM)), every chunk, rows KC + kTPad apart.
+inline size_t live_q_bytes(int nq, int m, int k16, int kc, int bm) {
+  return static_cast<size_t>(nq) * (m < bm ? m : bm) * (k16 / kc) * (kc + kTPad) * 2;
 }
 
 // The operand's tensor map for a TMA instance with KC-row chunks: (128
@@ -420,8 +452,7 @@ inline int encode_ladder_map(CUtensorMap* map, const void* r, int k, long long l
   return err == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// v3 and B10 (BM rows: kLadderRows or kLadderServeRows) chain |r|^2 in the
-// block; LIVE (kTBM rows) reads B1's norm pass, run first into rn.
+// Every instance (BM rows) chains |r|^2 in the block: no norm pass.
 template <int T, bool PACKED, int KC, bool RES, bool ONE, int POL, int BM>
 int launch_ladder(const TensorArgs& a, const LadderArgs& e) {
   using EPI = LadderEpiOf<POL, BM>;
@@ -440,16 +471,11 @@ int launch_ladder(const TensorArgs& a, const LadderArgs& e) {
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, block_threads<BM>(), smem, a.stream>>>(p, e, map);
   } else {
-    tensor_candidates_norms_kernel<<<(a.n + 255) / 256, 256, 0, a.stream>>>(
-        static_cast<const float*>(a.r), const_cast<float*>(a.rn), a.k, a.ld, a.n);
-    if (const cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-    const size_t q = live_q_bytes(q_parts<kModeF32, T>(), a.m, a.k16, KC);
-    if (q > kQResidentLiveBytes) return static_cast<int>(cudaErrorInvalidValue);
-    constexpr int kStages = live_ring_stages<kModeF32, T, KC, EPI>();
-    const size_t smem = fixed_bytes<kModeF32, EPI>() + kStages * r_stage_bytes<kModeF32, T, KC>() +
-                        planes_bytes<kModeF32, T, KC>() + q;
+    const size_t q = live_q_bytes(q_parts<kModeF32, T>(), a.m, a.k16, KC, BM);
+    if (q > EPI::kLiveQBytes) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = live_smem<kModeF32, T, KC, EPI>(q);
     static_assert(!PACKED, "a packed tier's q parts fit a 64-row block");
-    auto kernel = tensor_live_kernel<T, KC>;
+    auto kernel = tensor_live_kernel<T, KC, BM, EPI::kBlocksPerSm>;
     if (const int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, block_threads<BM>(), smem, a.stream>>>(p, e);
   }
@@ -460,14 +486,15 @@ int launch_ladder(const TensorArgs& a, const LadderArgs& e) {
 // its one width (packed3 at k16 == 16, a 16-row chunk a tile; packed2 at
 // 32, q resident); else one 16-row chunk a tile at k16 == 16, else 32-row
 // chunks where k16 allows, else 16, the q parts resident where they fit
-// kQResidentBytes; LIVE: always resident, never packed (a packed tier's q
-// parts fit a 64-row block: B1's own launch). BM: the block's rows.
+// kQResidentBytes; LIVE (kLadderLive, kLadderLivePair): always resident,
+// never packed (a packed tier's q parts fit a 64-row block: B1's own
+// launch). BM: the block's rows.
 template <int T, bool PACKED, int POL, int BM>
 int launch_ladder_kc(const TensorArgs& a, const LadderArgs& e) {
   if (!instance_matches<kModeF32, T, PACKED>(a.terms)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if constexpr (PACKED && POL == kLadderLive) {
+  if constexpr (PACKED && POL >= kLadderLive) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (PACKED) {
     if constexpr (q_parts<kModeF32, T>() == 3) {
@@ -477,7 +504,7 @@ int launch_ladder_kc(const TensorArgs& a, const LadderArgs& e) {
       return launch_ladder<T, true, POL == kLadderTma ? 16 : 32, true, false, POL, BM>(a, e);
     }
     return static_cast<int>(cudaErrorInvalidValue);
-  } else if constexpr (POL == kLadderLive) {
+  } else if constexpr (POL >= kLadderLive) {
     return a.k16 % 32 == 0 ? launch_ladder<T, false, 32, true, false, POL, BM>(a, e)
                            : launch_ladder<T, false, 16, true, false, POL, BM>(a, e);
   } else {
@@ -573,27 +600,38 @@ int tk_tensor_dma_candidates(const void* qp, const float* r, int32_t* out_i, int
 }
 
 // v6 at a tier: B1's tier candidates (tk_tensor_candidates' arguments, mode
-// 0) with the q parts resident at every shape: B1's own launch where a
-// 64-row block's parts fit kQResidentBytes, else the LIVE instance (the
-// block's live rows, one block an SM; its parts within
-// kQResidentLiveBytes, else cudaErrorInvalidValue).
+// 0) with the q parts resident at every shape: B1's own launch (rn its
+// norm scratch) where a 64-row block's parts fit kQResidentBytes, else the
+// LIVE instance (rn unused, null: the block chains |r|^2) of plan `live`
+// (tiers.tensor_live_epilogue's choice by m, its index in
+// tiers.LIVE_PLANS): 0 64-row blocks, one an SM; 1 32-row blocks, two an
+// SM; the live rows' parts within the plan's budget (EPI::kLiveQBytes),
+// else cudaErrorInvalidValue.
 int tk_tensor_resident_candidates(const void* qp, const float* r, const float* rn,
                                   int32_t* out_i, float* out_s, int m, int k, long long ld, int n,
-                                  int parts, int nterms, int term_q, int term_r, void* stream) {
-  if (!tensor_entry_valid(qp, r, rn, m, k, ld, n, parts, kModeF32)) {
+                                  int parts, int nterms, int term_q, int term_r, int live,
+                                  void* stream) {
+  if (!valid_geometry(m, k, ld, n, parts) || parts > kMaxGridY || n > (1 << 30) ||
+      !tensor_operands_aligned(qp, r, nullptr, ld, kModeF32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int k16 = (k + 15) / 16 * 16;
+  const int nq = term_q_parts(nterms, term_q);
   const int kc = k16 % 32 == 0 && nterms != 4 ? 32 : 16;  // launch_tensor_kc's chunk
-  const size_t rows64 = static_cast<size_t>(term_q_parts(nterms, term_q)) * kTBM * (k16 / kc) *
-                        (kc + kTPad) * 2;
+  const size_t rows64 = static_cast<size_t>(nq) * kTBM * (k16 / kc) * (kc + kTPad) * 2;
   if (k16 == 16 || rows64 <= kQResidentBytes) {
+    if (rn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return tk_tensor_candidates(qp, r, nullptr, rn, out_i, out_s, m, k, ld, n, parts, kModeF32,
                                 nterms, term_q, term_r, stream);
   }
-  const TensorArgs a = tensor_args(qp, r, nullptr, rn, m, k, ld, n, parts, term_q, term_r,
+  const TensorArgs a = tensor_args(qp, r, nullptr, nullptr, m, k, ld, n, parts, term_q, term_r,
                                    stream);
-  return dispatch_ladder_rows<kLadderLive, kTBM>(a, LadderArgs{out_i, out_s}, nterms);
+  const LadderArgs e{out_i, out_s};
+  switch (live) {
+    case 0: return dispatch_ladder_rows<kLadderLive, kTBM>(a, e, nterms);
+    case 1: return dispatch_ladder_rows<kLadderLivePair, kLadderServeRows>(a, e, nterms);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

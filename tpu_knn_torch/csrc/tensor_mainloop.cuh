@@ -37,8 +37,9 @@
 //   B12, B4, B3, B5 and B7 and the 1-NN ladder's v3 and B10, so each staged
 //   r chunk serves 128 rows (the rows of two 64-row blocks, half their r
 //   bytes from L2 a score), one 16-warp block an SM; 64 for v6's live-row
-//   instance (its live rows need <= 96 KB); 32 for B5, v3 and B10 at m <=
-//   32 (four warps, all on live rows), two blocks an SM. Warp w owns rows
+//   instance (its live rows need <= 101 KB); 32 for B5, v3 and B10 at m <=
+//   32 and v6's live rows there where their parts fit 15 KB (four warps,
+//   all on live rows), two blocks an SM. Warp w owns rows
 //   32 (w / 4) .. + 31 and lanes 8 (w % 4)
 //   .. + 7 of the slot groups, whatever BM is: a warp's arithmetic is the
 //   same at every height;
@@ -87,8 +88,8 @@
 // - |r|^2 is one fmaf chain over the upcast column, d = 0..k-1 in order,
 //   computed once per call for the f32 and bf16 operands (the norm pass
 //   before the kernel) instead of by each of the m / BM row tiles; B12
-//   reads its stored f32 row. A staging policy with kNorms (v3's, B10's)
-//   has the block chain it over the staged chunks instead, the same fmaf
+//   reads its stored f32 row. A staging policy with kNorms (v3's, B10's,
+//   v6's live rows') has the block chain it over the staged chunks instead, the same fmaf
 //   chain over the same values (zeros past k add +0), so the same bits:
 //   at a few query rows the norm pass would read the operand a second
 //   time;
@@ -282,31 +283,43 @@ __host__ __device__ constexpr size_t stage_bytes(bool resident) {
   return r_stage_bytes<MODE, T, KC>() + (resident ? 0 : q_chunk_bytes<MODE, T, KC, BM>());
 }
 
-// The most any k16 takes at a ring depth with `sets` sets of part planes:
-// resident q parts of up to q_resident_limit, or a q chunk in every stage.
-template <int MODE, int T, int KC, class EPI>
+// The q bytes a block's plan holds beside a ring of `stages`: resident q
+// parts of up to q_resident_limit, or a q chunk in every stage; LIVE (v6's
+// live-row instances) the epilogue's budget for the live rows' parts,
+// EPI::kLiveQBytes.
+template <int MODE, int T, int KC, class EPI, bool LIVE>
+__host__ __device__ constexpr size_t q_budget(int stages) {
+  if constexpr (LIVE) {
+    return EPI::kLiveQBytes;
+  } else {
+    const size_t q = stages * q_chunk_bytes<MODE, T, KC, EPI::kRows>();
+    const size_t res = q_resident_limit<EPI::kRows>();
+    return q > res ? q : res;
+  }
+}
+
+// The most any k16 takes at a ring depth with `sets` sets of part planes.
+template <int MODE, int T, int KC, class EPI, bool LIVE = false>
 __host__ __device__ constexpr size_t most_smem(int stages, int sets) {
-  const size_t q = stages * q_chunk_bytes<MODE, T, KC, EPI::kRows>();
-  const size_t res = q_resident_limit<EPI::kRows>();
   return fixed_bytes<MODE, EPI>(sets) + stages * r_stage_bytes<MODE, T, KC>() +
-         sets * planes_bytes<MODE, T, KC>() + (q > res ? q : res);
+         sets * planes_bytes<MODE, T, KC>() + q_budget<MODE, T, KC, EPI, LIVE>(stages);
 }
 
 // Whether an instance's blocks per SM (EPI::blocks_per_sm(T, KC), its
 // __launch_bounds__) fit an SM's shared memory at a ring depth.
-template <int MODE, int T, int KC, class EPI>
+template <int MODE, int T, int KC, class EPI, bool LIVE = false>
 __host__ __device__ constexpr bool fits_blocks(int stages, int sets) {
-  return EPI::blocks_per_sm(T, KC) * (most_smem<MODE, T, KC, EPI>(stages, sets) +
+  return EPI::blocks_per_sm(T, KC) * (most_smem<MODE, T, KC, EPI, LIVE>(stages, sets) +
                                       kSmemPerBlockReserved) <=
              kSmemPerSm &&
-         most_smem<MODE, T, KC, EPI>(stages, sets) <= kSmemPerBlock;
+         most_smem<MODE, T, KC, EPI, LIVE>(stages, sets) <= kSmemPerBlock;
 }
 
 // The deepest ring up to kTMaxStages at which the blocks fit.
-template <int MODE, int T, int KC, class EPI>
+template <int MODE, int T, int KC, class EPI, bool LIVE = false>
 __host__ __device__ constexpr int deepest_ring(int sets) {
   int stages = kTMaxStages;
-  while (stages > 2 && !fits_blocks<MODE, T, KC, EPI>(stages, sets)) --stages;
+  while (stages > 2 && !fits_blocks<MODE, T, KC, EPI, LIVE>(stages, sets)) --stages;
   return stages;
 }
 
@@ -315,18 +328,18 @@ __host__ __device__ constexpr int deepest_ring(int sets) {
 // SM (no other block's work covers its barriers) and its block fits with
 // both sets beside a ring of at least 3 stages (chunk s + 1 has then
 // landed while step s is multiplied).
-template <int MODE, int T, int KC, class EPI>
+template <int MODE, int T, int KC, class EPI, bool LIVE = false>
 __host__ __device__ constexpr int plane_sets() {
   return MODE == kModeF32 && EPI::blocks_per_sm(T, KC) == 1 &&
-                 deepest_ring<MODE, T, KC, EPI>(2) >= 3
+                 deepest_ring<MODE, T, KC, EPI, LIVE>(2) >= 3
              ? 2
              : 1;
 }
 
 // The ring's depth: the deepest at which the blocks fit with their planes.
-template <int MODE, int T, int KC, class EPI>
+template <int MODE, int T, int KC, class EPI, bool LIVE = false>
 __host__ __device__ constexpr int ring_stages() {
-  return deepest_ring<MODE, T, KC, EPI>(plane_sets<MODE, T, KC, EPI>());
+  return deepest_ring<MODE, T, KC, EPI, LIVE>(plane_sets<MODE, T, KC, EPI, LIVE>());
 }
 
 template <int MODE, int T, int KC, class EPI>
@@ -859,35 +872,27 @@ struct SoaStaging {
   }
 };
 
-// The ring of a LIVE instance (v6 at embedding width: q parts of the live
-// rows only, resident, one block an SM; tensor_ladder_kernels.cu) holds at
-// most this many bytes of resident q parts.
-constexpr size_t kQResidentLiveBytes = 96 * 1024;
+// The resident q parts of a LIVE instance (v6 at embedding width: q parts
+// of the live rows only; tensor_ladder_kernels.cu) that runs one block an
+// SM: at most this many bytes (its EPI::kLiveQBytes), the most any shape
+// v6's guard admits needs (102,816 bytes at (k, m) = (321, 51): 16-row
+// chunks of two parts, 24 bf16 a row).
+constexpr size_t kQResidentLiveBytes = 101 * 1024;
 
+// A LIVE instance's shared memory at q bytes of live rows' parts: its
+// plan's fixed bytes, ring and part planes (ring_stages, plane_sets at
+// EPI::kLiveQBytes), then the parts.
 template <int MODE, int T, int KC, class EPI>
-__host__ __device__ constexpr size_t live_most_smem(int stages) {
-  return fixed_bytes<MODE, EPI>() + stages * r_stage_bytes<MODE, T, KC>() +
-         planes_bytes<MODE, T, KC>() + kQResidentLiveBytes;
+__host__ __device__ constexpr size_t live_smem(size_t q) {
+  constexpr int sets = plane_sets<MODE, T, KC, EPI, true>();
+  return fixed_bytes<MODE, EPI>(sets) + ring_stages<MODE, T, KC, EPI, true>() *
+         r_stage_bytes<MODE, T, KC>() + sets * planes_bytes<MODE, T, KC>() + q;
 }
 
-template <int MODE, int T, int KC, class EPI>
-__host__ __device__ constexpr bool live_fits_blocks(int stages) {
-  return EPI::blocks_per_sm(T, KC) * (live_most_smem<MODE, T, KC, EPI>(stages) +
-                                      kSmemPerBlockReserved) <=
-             kSmemPerSm &&
-         live_most_smem<MODE, T, KC, EPI>(stages) <= kSmemPerBlock;
-}
-
-template <int MODE, int T, int KC, class EPI>
-__host__ __device__ constexpr int live_ring_stages() {
-  int stages = kTMaxStages;
-  while (stages > 2 && !live_fits_blocks<MODE, T, KC, EPI>(stages)) --stages;
-  return stages;
-}
-
-// The live rows of the block whose first row is row0 (a LIVE instance's
-// resident q parts: [chunk][part][row < live][KC + kTPad]).
-__device__ __forceinline__ int live_rows(int m, int row0) { return min(kTBM, m - row0); }
+// The live rows of the BM-row block whose first row is row0 (a LIVE
+// instance's resident q parts: [chunk][part][row < live][KC + kTPad]).
+template <int BM>
+__device__ __forceinline__ int live_rows(int m, int row0) { return min(BM, m - row0); }
 
 // The mainloop of every instance. PACKED: the term list is a packed tier's
 // (tile_terms). RES: the q parts are resident (q_resident), else they ride
@@ -896,9 +901,9 @@ __device__ __forceinline__ int live_rows(int m, int row0) { return min(kTBM, m -
 // header's last paragraph), e its arguments; its kRows is the block's
 // rows, BM, and 4 BM its threads. ST: the staging policy of the
 // r parts, sp its argument (B10: the operand's tensor map). LIVE: the q
-// parts of the block's live rows only are resident (kQResidentLiveBytes;
-// a row past them reads the last live row's parts, and its scores are
-// never folded into an output).
+// parts of the block's live rows only are resident (at most
+// EPI::kLiveQBytes, the plan's budget for them; a row past them reads the
+// last live row's parts, and its scores are never folded into an output).
 template <int T, int MODE, bool PACKED, int KC, bool RES, bool ONE, class EPI, class ST, bool LIVE>
 __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
                                                 const typename EPI::Args& e, const void* sp) {
@@ -907,14 +912,11 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
   using L = TensorLayout<EPI::kContig>;
   constexpr int BM = EPI::kRows;
   constexpr int NT = block_threads<BM>();
-  static_assert(!LIVE || BM == kTBM, "live-row blocks are 64 rows");
   constexpr int NQ = q_parts<MODE, T>();
   constexpr int NR = r_planes<MODE, T>();
-  constexpr int STAGES =
-      LIVE ? live_ring_stages<MODE, T, KC, EPI>() : ring_stages<MODE, T, KC, EPI>();
-  constexpr int SETS = LIVE ? 1 : plane_sets<MODE, T, KC, EPI>();
-  static_assert(LIVE ? live_fits_blocks<MODE, T, KC, EPI>(STAGES)
-                     : fits_blocks<MODE, T, KC, EPI>(STAGES, SETS),
+  constexpr int STAGES = ring_stages<MODE, T, KC, EPI, LIVE>();
+  constexpr int SETS = plane_sets<MODE, T, KC, EPI, LIVE>();
+  static_assert(fits_blocks<MODE, T, KC, EPI, LIVE>(STAGES, SETS),
                 "the epilogue's tensor-core blocks do not fit an SM's shared memory");
   // AHEAD: chunk s + 1 is split while step s is multiplied, into the other
   // set of part planes, so a step takes one barrier (a policy with
@@ -1023,7 +1025,7 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
     __syncthreads();
   }
   if constexpr (LIVE) {  // lands with step 0's copies
-    const int lr = live_rows(p.m, tensor_block<L, BM>(p.groups, p.groups_per_part).row0);
+    const int lr = live_rows<BM>(p.m, tensor_block<L, BM>(p.groups, p.groups_per_part).row0);
     for (int cc = 0; cc < nchunks; ++cc) {
       copy_q_live(sq_res + cc * NQ * lr * (KC + kTPad), cc * KC, lr);
     }
@@ -1133,7 +1135,7 @@ __device__ __forceinline__ void tensor_mainloop(const TensorParams& p,
       int lr = BM;
       const __nv_bfloat16* sq;
       if constexpr (LIVE) {
-        lr = live_rows(p.m, tensor_block<L, BM>(p.groups, p.groups_per_part).row0);
+        lr = live_rows<BM>(p.m, tensor_block<L, BM>(p.groups, p.groups_per_part).row0);
         sq = sq_res + c * NQ * lr * (KC + kTPad);
       } else {
         sq = RES ? sq_res + c * Q_CHUNK : reinterpret_cast<const __nv_bfloat16*>(st + R_STAGE);

@@ -80,7 +80,8 @@ TENSOR_LADDER_TILE_M = 128
 #: Their rows per block at m <= LADDER_SERVE_ROWS: four warps, all on live
 #: rows, two blocks an SM (csrc kLadderServeRows).
 LADDER_SERVE_ROWS = 32
-#: Query rows per block of v6's live-row instance, and the rows whose
+#: Query rows per block of v6's live-row instance above m =
+#: LADDER_SERVE_ROWS (LADDER_SERVE_ROWS at or below), and the rows whose
 #: resident q parts TENSOR_Q_RESIDENT_BYTES holds (csrc kTBM).
 TENSOR_LIVE_TILE_M = 64
 #: Query rows per block of B5 at m <= B5_SERVE_ROWS (the serving shapes):
@@ -321,11 +322,16 @@ TENSOR_EPILOGUES = {
 #: The 1-NN ladder's epilogue (csrc LadderEpi: B1's fold) at each block
 #: height, in TENSOR_EPILOGUES' form: v3's and B10's 128-row blocks, one an
 #: SM ("ladder"), and 32-row ones, two an SM, at m <= LADDER_SERVE_ROWS
-#: ("ladder-serve", ladder_epilogue); v6's live-row blocks ("ladder-live").
+#: ("ladder-serve", ladder_epilogue); v6's live-row blocks (csrc
+#: LiveEpi<BM, BPS>, tensor_live_epilogue): 64 rows, one an SM
+#: ("ladder-live"), or at m <= LADDER_SERVE_ROWS, where the live rows'
+#: parts fit a 32-row block's q_resident_limit, 32 rows two an SM
+#: ("ladder-live-pair").
 LADDER_EPILOGUES = {
     "ladder": (tensor_fold_bytes(TENSOR_LADDER_TILE_M), 1, False, TENSOR_LADDER_TILE_M),
     "ladder-serve": (tensor_fold_bytes(LADDER_SERVE_ROWS), 2, False, LADDER_SERVE_ROWS),
     "ladder-live": (tensor_fold_bytes(TENSOR_LIVE_TILE_M), 1, False, TENSOR_LIVE_TILE_M),
+    "ladder-live-pair": (tensor_fold_bytes(LADDER_SERVE_ROWS), 2, False, LADDER_SERVE_ROWS),
 }
 
 
@@ -374,17 +380,28 @@ def _fixed_bytes(mode: int, epilogue: str = "B1", sets: int = 1) -> int:
     return _epilogue(epilogue)[0] + (sets * 4 * LANE if mode == _MODE_F32 else 0)
 
 
+def _live_q_budget(epilogue: str) -> int:
+    """The live rows' q parts a live-row plan holds (csrc
+    LiveEpi::kLiveQBytes): TENSOR_Q_LIVE_BYTES one block an SM, a block's
+    q_resident_limit two."""
+    if tensor_blocks_per_sm(epilogue) == 1:
+        return TENSOR_Q_LIVE_BYTES
+    return tensor_q_resident_limit(tensor_rows(epilogue))
+
+
 def _deepest_ring(mode: int, terms, kc: int, epilogue: str, sets: int) -> int:
     """The deepest ring, up to 4 stages, at which the instance's blocks per
     SM fit an SM at any k16 beside ``sets`` sets of part planes (csrc
-    deepest_ring)."""
+    deepest_ring; a live-row epilogue's q bytes its budget, q_budget)."""
     rows = tensor_rows(epilogue)
     _, _, r_stage, q_chunk, planes = _tensor_plan(mode, terms, kc, rows)
     per_sm = tensor_blocks_per_sm(epilogue)
+    live = epilogue.startswith("ladder-live")
 
     def fits(stages):
         most = (_fixed_bytes(mode, epilogue, sets) + stages * r_stage + sets * planes
-                + max(stages * q_chunk, tensor_q_resident_limit(rows)))
+                + (_live_q_budget(epilogue) if live
+                   else max(stages * q_chunk, tensor_q_resident_limit(rows))))
         return (per_sm * (most + SMEM_PER_BLOCK_RESERVED) <= SMEM_PER_SM
                 and most <= SMEM_PER_BLOCK)
 
@@ -765,8 +782,9 @@ def moments_tier_launch(q, r_op, n: int, bound, cell: int, cubic: bool, lo, emit
 LADDER_ROWS = {"v3": "B1 v3", "v6": "B1 v6", "v5": "B10"}
 
 #: v6's resident q parts where a 64-row block's do not fit
-#: TENSOR_Q_RESIDENT_BYTES: the live rows' (csrc kQResidentLiveBytes).
-TENSOR_Q_LIVE_BYTES = 96 * 1024
+#: TENSOR_Q_RESIDENT_BYTES: the live rows' (csrc kQResidentLiveBytes), the
+#: most any shape v6's guard admits needs (102,816 bytes at (321, 51)).
+TENSOR_Q_LIVE_BYTES = 101 * 1024
 
 
 def ladder_terms(precision: str, k: int, aos: bool = False):
@@ -816,46 +834,60 @@ def tensor_q_resident(terms, k16: int) -> bool:
     return k16 // kc * nq * TENSOR_LIVE_TILE_M * (kc + 8) * 2 <= TENSOR_Q_RESIDENT_BYTES
 
 
-def tensor_live_stages(terms, kc: int) -> int:
-    """The ring's depth of v6's live-row instance (csrc live_ring_stages):
-    the deepest, up to 4, at which one 64-row block with
-    TENSOR_Q_LIVE_BYTES of q parts fits an SM."""
-    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LIVE_TILE_M)
+def _live_q_bytes(terms, m: int, k16: int, rows: int) -> int:
+    kc = tensor_chunk(k16)
+    nq = 1 + max(i for i, _ in terms)
+    return nq * min(m, rows) * (k16 // kc) * (kc + 8) * 2
 
-    def fits(stages):
-        most = (_fixed_bytes(_MODE_F32, "ladder-live") + stages * r_stage + planes
-                + TENSOR_Q_LIVE_BYTES)
-        return most + SMEM_PER_BLOCK_RESERVED <= SMEM_PER_SM and most <= SMEM_PER_BLOCK
 
-    return next((s for s in (_TENSOR_MAX_STAGES, 3) if fits(s)), 2)
+#: v6's live-row plans in the order of the C entry's ``live`` argument
+#: (csrc tk_tensor_resident_candidates).
+LIVE_PLANS = ("ladder-live", "ladder-live-pair")
+
+
+def tensor_live_epilogue(terms, m: int, k16: int) -> str:
+    """The LADDER_EPILOGUES key of v6's live-row instance at m rows (its
+    plan, passed to the C entry as its index in LIVE_PLANS):
+    "ladder-live-pair" (32-row blocks, two an SM) at m <= LADDER_SERVE_ROWS
+    where the live rows' parts fit a 32-row block's q_resident_limit, else
+    "ladder-live" (64-row blocks, one an SM, the split a step ahead). A
+    32-row block alone on an SM measured 1.5x the 64-row block's time at
+    (768, 16, 2^20) (PERF.md §6, PR 22), so no plan runs one."""
+    pair = m <= LADDER_SERVE_ROWS and (_live_q_bytes(terms, m, k16, LADDER_SERVE_ROWS)
+                                       <= tensor_q_resident_limit(LADDER_SERVE_ROWS))
+    return "ladder-live-pair" if pair else "ladder-live"
 
 
 def tensor_live_q_bytes(terms, m: int, k16: int) -> int:
     """The resident q parts of a live-row block: its live rows (at most
-    TENSOR_LIVE_TILE_M) of each part, every chunk (csrc live_q_bytes)."""
-    kc = tensor_chunk(k16)
-    nq = 1 + max(i for i, _ in terms)
-    return nq * min(m, TENSOR_LIVE_TILE_M) * (k16 // kc) * (kc + 8) * 2
+    its epilogue's rows) of each part, every chunk (csrc live_q_bytes)."""
+    return _live_q_bytes(terms, m, k16, tensor_rows(tensor_live_epilogue(terms, m, k16)))
 
 
 def tensor_live_smem(terms, m: int, k16: int) -> int:
-    """Dynamic shared memory of v6's live-row instance: the ladder
-    epilogue's fixed bytes, the ring (r stages only), the f32 part planes
-    and the live q parts."""
+    """Dynamic shared memory of v6's live-row instance (csrc live_smem):
+    its epilogue's fixed bytes, the ring (r stages only) and part planes
+    of its plan (tensor_stages, tensor_plane_sets at the epilogue's q
+    budget) and the live q parts."""
+    epilogue = tensor_live_epilogue(terms, m, k16)
     kc = tensor_chunk(k16)
-    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, TENSOR_LIVE_TILE_M)
-    return (_fixed_bytes(_MODE_F32, "ladder-live") + tensor_live_stages(terms, kc) * r_stage
-            + planes + tensor_live_q_bytes(terms, m, k16))
+    _, _, r_stage, _, planes = _tensor_plan(_MODE_F32, terms, kc, tensor_rows(epilogue))
+    sets = tensor_plane_sets(_MODE_F32, terms, kc, epilogue)
+    return (_fixed_bytes(_MODE_F32, epilogue, sets)
+            + tensor_stages(_MODE_F32, terms, kc, epilogue) * r_stage + sets * planes
+            + tensor_live_q_bytes(terms, m, k16))
 
 
 def resident_tier_parts(precision: str, m: int, k: int, n: int) -> int:
     """v6's partition count at a tier: B1's (tensor_parts) where a 64-row
-    block's q parts fit, its own launch then; else the live-row instance's
-    64-row blocks, one an SM."""
-    if tensor_q_resident(ladder_terms(precision, k), round_up(k, 16)):
+    block's q parts fit, its own launch then; else the live-row instance's,
+    lane slices of its blocks (tensor_live_epilogue) at its blocks an SM."""
+    terms, k16 = ladder_terms(precision, k), round_up(k, 16)
+    if tensor_q_resident(terms, k16):
         return tensor_parts(m, n)
-    return _wave_parts(cdiv(m, TENSOR_LIVE_TILE_M) * TENSOR_SLICES, cdiv(n, LANE),
-                       TENSOR_TILE_GROUPS, 1)
+    epilogue = tensor_live_epilogue(terms, m, k16)
+    return _wave_parts(cdiv(m, tensor_rows(epilogue)) * TENSOR_SLICES, cdiv(n, LANE),
+                       TENSOR_TILE_GROUPS, tensor_blocks_per_sm(epilogue))
 
 
 def aos_tier_candidates_plain(q, ref, n: int, parts: int, precision: str):
@@ -874,21 +906,25 @@ def _ladder_launch(entry: str, rung: str, q, operand, n: int, parts: int, precis
                    scores: bool = True):
     """Launch a rung's tier instance (tk_tensor_<entry>_candidates) over
     ``operand`` (v3: the (n, k) array; B10, v6: the SoA operand) and count
-    it under ladder_tier_row. v3 and B10 chain ‖r‖² in the kernel; v6's
-    launch takes scratch for its norm pass."""
+    it under ladder_tier_row. v3's, B10's and v6's live-row instances chain
+    ‖r‖² in the kernel; v6's launch takes scratch for B1's norm pass where
+    it is B1's own launch (tensor_q_resident), else none (null)."""
     from tpu_knn_torch.csrc.build import check
 
     m, k = q.shape
     terms = ladder_terms(precision, k, aos=rung == "v3")
-    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n if rung == "v6" else 0, terms,
+    b1_own = rung == "v6" and tensor_q_resident(terms, round_up(k, 16))
+    lib, qp, norms, (q_bits, r_bits) = _prepare_q(q, n if b1_own else 0, terms,
                                                   packed_tier(precision, k, aos=rung == "v3"))
     idx, score = _candidate_outputs(m, parts * LANE, q.device)
     outs = (idx.data_ptr(), score.data_ptr()) if scores else (idx.data_ptr(),)
-    scratch = (norms.data_ptr(),) if rung == "v6" else ()
+    scratch = ((norms.data_ptr() if b1_own else None),) if rung == "v6" else ()
+    live = ((LIVE_PLANS.index(tensor_live_epilogue(terms, m, round_up(k, 16))),)
+            if rung == "v6" else ())
     with torch.cuda.device(q.device):
         err = getattr(lib, f"tk_tensor_{entry}_candidates")(
             qp.data_ptr(), operand.data_ptr(), *scratch, *outs, m, k, operand.stride(0), n,
-            parts, len(terms), q_bits, r_bits, _stream(q))
+            parts, len(terms), q_bits, r_bits, *live, _stream(q))
     row = ladder_tier_row(rung, precision, k)
     check(lib, err, f"{row} ({precision})")
     TIER_LAUNCHES[row] += 1

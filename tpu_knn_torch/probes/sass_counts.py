@@ -31,10 +31,12 @@ import sys
 import tempfile
 
 #: (source under tpu_knn_torch/csrc, kernel-name pattern, label): B1's
-#: CandidatesEpi and the ladder's v3 (AoS) and B10 (TMA) instances.
+#: CandidatesEpi and the ladder's v3 (AoS), B10 (TMA) and v6 (live rows)
+#: instances.
 KERNELS = [("tensor_kernels.cu", r"CandidatesEpi", "B1"),
            ("tensor_ladder_kernels.cu", r"tensor_aos_kernel", "v3"),
-           ("tensor_ladder_kernels.cu", r"tensor_tma_kernel", "B10")]
+           ("tensor_ladder_kernels.cu", r"tensor_tma_kernel", "B10"),
+           ("tensor_ladder_kernels.cu", r"tensor_live_kernel", "v6 live")]
 
 #: The opcode classes reported apart (the rest sum under "other").
 CLASSES = ("HMMA", "LDSM", "LDS", "STS", "LDGSTS", "UBLKCP", "SYNCS", "SHFL", "BAR", "FFMA",

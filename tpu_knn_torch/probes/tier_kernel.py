@@ -1,6 +1,6 @@
 """The tensor-core tier kernels on their own (B1's tiers and B12, the
-top-K kernels' tier instances B4, B3, B5 and B7, and the 1-NN ladder's v3
-and B10 instances): outputs saved for a bit-for-bit comparison between two
+top-K kernels' tier instances B4, B3, B5 and B7, and the 1-NN ladder's v3,
+B10 and v6 instances): outputs saved for a bit-for-bit comparison between two
 checkouts, and their times at the main-path shapes.
 
     python3 tpu_knn_torch/probes/tier_kernel.py save DIR      # repo root, one H100
@@ -17,7 +17,9 @@ chip call (parent, change, change, parent for times).
   fixed partition count P, and each top-K instance of TOPK_CASES (B4's two
   passes, B3 at depths 1 and 2 and above lo, B5's lists at K = 1, 8 and
   32, B7 without and with a band, at m ragged against 64- and 128-row
-  blocks), and v3's and B10's tier instances at LADDER_CASES, on inputs
+  blocks), and v3's, B10's and v6's tier instances at LADDER_CASES (v6 at
+  m = 1, 16, 21, 32, 33, 64, 100 and 200, k from 80 to 16384 at its
+  guard's edge, every term list it runs, ragged n), on inputs
   made on the card from a seed, its outputs written with torch.save to
   DIR/<case>.pt;
 - compare: torch.equal of every case's idx and score between two such
@@ -28,7 +30,8 @@ chip call (parent, change, change, parent for times).
   launches their engines make at K = 8 (B5 also at its serving shapes),
   each with its "highest" launch
   beside it, and v3's and B10's (LADDER_TIMED_ROWS) at the checkout's own
-  P (fused.ladder_parts) beside B1's tier launch; by CUDA events (median)
+  P (fused.ladder_parts) beside B1's tier launch (v6 also beside B1's tier
+  at v6's P and its "highest" launch); by CUDA events (median)
   and the kernel's own device time (torch.profiler; v3 and B10 also split
   by kernel, so a norm pass shows apart); the last line is one JSON object
   of them;
@@ -101,12 +104,27 @@ LADDER_CASES = [
         ("packed", 16, 65, 20_077, 3, True), ("packed", 3, 33, 20_077, 3, True),
         ("bf16x3", 768, 129, 20_000, 4, False), ("bf16x3", 768, 32, 20_000, 4, False),
         ("bf16x3", 40, 333, 50_001, 3, False), ("bf16x3", 40, 20, 50_001, 3, False))
-    if not (odd and rung == "v5")]
+    if not (odd and rung == "v5")] + [
+    (f"ladder v6 {prec} k{k} m{m} n{n}", "v6", prec, k, m, n, p, False)
+    for prec, k, m, n, p in (
+        ("bf16x3", 16384, 1, 5003, 3), ("bf16x3", 768, 1, 70_001, 5),
+        ("bf16x3", 1024, 16, 70_001, 5), ("bf16x3", 768, 16, 70_001, 5),
+        ("bf16x3", 768, 21, 70_001, 5), ("bf16x3", 512, 32, 70_001, 5),
+        ("bf16x3", 496, 33, 70_001, 5), ("bf16x3", 256, 64, 70_001, 5),
+        ("bf16x3", 160, 100, 70_001, 5), ("bf16x3", 80, 200, 70_001, 5),
+        ("bf16x4", 768, 16, 20_077, 3), ("bf16x4", 144, 100, 20_077, 3),
+        ("default", 4000, 1, 20_077, 3), ("default", 512, 32, 20_077, 3),
+        ("default", 208, 70, 20_077, 3), ("bf16x3", 96, 170, 20_077, 3))]
 
 #: v3's and B10's rows of PERF.md's kernel table: (row, rung, precision,
 #: (k, m, n)) at ds11, ds10, ds9, ds8 and the embedding width, and v6's
-#: live-row instance's at its (768, 16, 2^20).
+#: live-row instance's at its (768, 16, 2^20), at the guard's edge at k =
+#: 768 (m = 1, 21), at a 64-row block full or nearly ((256, 64), (128,
+#: 128)) and at two row tiles of B1's own launch ((96, 170)); each v6 row
+#: also beside B1's tier at v6's P and v6's "highest" launch.
 DS10, DS9, DS8 = (3, 1024, 1 << 20), (16, 1, 1 << 24), (3, 1, 1 << 24)
+V6_SHAPES = [(768, 16, 1 << 20), (768, 1, 1 << 20), (768, 21, 1 << 20), (256, 64, 1 << 20),
+             (128, 128, 1 << 20), (96, 170, 1 << 20)]
 LADDER_TIMED_ROWS = [
     (f"{row} {name}", rung, precision, shape)
     for name, precision, shape in (("packed3 ds11", "packed", DS11),
@@ -115,11 +133,13 @@ LADDER_TIMED_ROWS = [
                                    ("packed3 ds8", "packed", DS8),
                                    ("bf16x3", "bf16x3", EMBED_TOPK))
     for row, rung in (("B1 v3", "v3"), ("B10", "v5"))] + [
-    ("B1 v6 bf16x3 live rows", "v6", "bf16x3", (768, 16, 1 << 20))]
+    ("B1 v6 bf16x3 live rows" if shape == V6_SHAPES[0] else f"B1 v6 bf16x3 {shape}", "v6",
+     "bf16x3", shape) for shape in V6_SHAPES]
 
 #: The kernels of each rung's tier launch (torch.profiler names).
 LADDER_DEVICE = {"v3": ("tensor_aos",), "v5": ("tensor_tma", "tensor_candidates_norms"),
                  "v6": ("tensor_live", "CandidatesEpi", "tensor_candidates_norms")}
+_B1_DEVICE = ("CandidatesEpi", "tensor_candidates_norms")
 
 #: The top-K instances' cases of `save`: (case, precision, operand kind,
 #: k, m, n); m = 1, 63, 65, 127, 129, 1023 lie on each side of a 64- and a
@@ -406,22 +426,65 @@ def time_rows(names) -> int:
         p1 = tiers.tier_parts(precision, m, k, n)
         b1 = lambda: tiers.tensor_candidates(q, r_op, n, p1, precision)  # noqa: E731
         reps = 5 if k >= 128 else 10
-        ev = time_ms({row: fn, "B1": b1}, reps)
+        fns = {row: fn, "B1": b1}
+        if rung == "v6":   # B1's tier at v6's P and v6's "highest" launch beside it
+            ph = fused.ladder_parts(rung, "highest", m, k, n)
+            fns["B1 same P"] = lambda: tiers.tensor_candidates(q, r_op, n, parts, precision)
+            fns["highest"] = lambda: fused.const_query_candidates(q, r_op, n, ph)
+        ev = time_ms(fns, reps)
         split = device_ms({"fn": fn}, LADDER_DEVICE[rung], reps)
         dev = sum(split.values())
-        dev1 = sum(device_ms({"fn": b1}, ("CandidatesEpi", "tensor_candidates_norms"),
-                             reps).values())
+        dev1 = sum(device_ms({"fn": b1}, _B1_DEVICE, reps).values())
         out[row] = {"P": parts, "ms": ev[row], "device_ms": dev,
                     "device_split": {name[:60]: t for name, t in split.items()},
                     "B1_P": p1, "B1_ms": ev["B1"], "B1_device_ms": dev1}
         parts_of = "; ".join(f"{name[:40]} {t:.4f}" for name, t in split.items())
+        beside = ""
+        if rung == "v6":
+            dev_p = sum(device_ms({"fn": fns["B1 same P"]}, _B1_DEVICE, reps).values())
+            dev_h = sum(device_ms({"fn": fns["highest"]}, ("tiled_candidates",), reps).values())
+            out[row].update(B1_same_P_ms=ev["B1 same P"], B1_same_P_device_ms=dev_p,
+                            highest_P=ph, highest_ms=ev["highest"], highest_device_ms=dev_h)
+            beside = (f", B1's tier at v6's P {ev['B1 same P']:.4f} ms (device {dev_p:.4f}), "
+                      f"'highest' at P={ph} {ev['highest']:.4f} ms (device {dev_h:.4f})")
         print(f"{row}: {precision} (k={k}, m={m}, n={n}) P={parts}: {ev[row]:.4f} ms (device "
               f"{dev:.4f}: {parts_of}), B1's tier at P={p1} {ev['B1']:.4f} ms (device "
-              f"{dev1:.4f}) [{card}]")
-        del q, r_op, fn, b1
+              f"{dev1:.4f}){beside} [{card}]")
+        if rung == "v6" and hasattr(tiers, "LIVE_PLANS"):
+            out[row]["plans"] = _live_plans(device, 9900 + i, precision, k, m, n, reps, card)
+        del q, r_op, fn, b1, fns
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
+
+
+def _live_plans(device, seed, precision, k, m, n, reps, card):
+    """v6's live-row instance at each plan of tiers.LIVE_PLANS whose budget
+    holds the live rows' parts (tiers.tensor_live_epilogue's choice and the
+    others), each at its own P: {plan: {"P", "ms", "device_ms"}}."""
+    from tpu_knn_torch.kernels import fused, tiers
+    from tpu_knn_torch.utils.timing import device_ms, time_ms
+
+    terms, k16 = tiers.ladder_terms(precision, k), -(-k // 16) * 16
+    if tiers.tensor_q_resident(terms, k16):
+        return {}
+    chosen, out = tiers.tensor_live_epilogue, {}
+    try:
+        for plan in tiers.LIVE_PLANS:
+            tiers.tensor_live_epilogue = lambda *_, plan=plan: plan
+            if tiers.tensor_live_q_bytes(terms, m, k16) > tiers._live_q_budget(plan):
+                continue
+            parts = fused.ladder_parts("v6", precision, m, k, n)
+            fn = _ladder_launch(device, seed, "v6", precision, k, m, n, parts)
+            ev = time_ms({plan: fn}, reps)[plan]
+            dev = sum(device_ms({"fn": fn}, LADDER_DEVICE["v6"], reps).values())
+            out[plan] = {"P": parts, "ms": ev, "device_ms": dev}
+            mark = " (chosen)" if plan == chosen(terms, m, k16) else ""
+            print(f"  v6 (k={k}, m={m}, n={n}) plan {plan}{mark} P={parts}: {ev:.4f} ms "
+                  f"(device {dev:.4f}) [{card}]")
+    finally:
+        tiers.tensor_live_epilogue = chosen
+    return out
 
 
 def ladder_launches(run):
